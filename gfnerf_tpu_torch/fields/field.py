@@ -1,0 +1,305 @@
+"""GF-NeRF field: packed anchored hash encoding + density/colour MLPs.
+
+Port of ``gfnerf_tpu/fields/field.py`` for the init stage of the packed
+layout: the global hash table feeds the shared ``base_network``
+(``density = trunc_exp(x + density_bias)`` masked by anchor validity), and
+the colour head runs with its first layer split into a per-ray part
+(SH(direction) and appearance embedding) and a per-sample part (geometry
+features).
+
+The JAX package's trainable/fixed pytrees become one ``nn.Module``
+(:class:`GFNeRFField`): tables, MLP weights and the appearance embedding are
+``nn.Parameter``s; the hash primes (int64 holding uint32 values) and biases
+are buffers.  :func:`init_field_params` draws the numpy parameters exactly
+as the JAX package does, so both start from the same bits.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import numpy as np
+import torch
+from torch import nn
+from torch.profiler import record_function
+
+from gfnerf_tpu_torch.fields.activations import trunc_exp
+from gfnerf_tpu_torch.fields.hash_encoding import N_CHANNELS, N_LEVELS
+from gfnerf_tpu_torch.fields.mlp import MLP, apply_mlp, init_mlp
+from gfnerf_tpu_torch.fields.packed_hash import (
+    init_packed_hash_params,
+    pack_for_channels,
+    packed_hash_encode,
+)
+from gfnerf_tpu_torch.fields.sh_encoding import sh_encode_deg4
+
+STAGE_INIT = 0
+
+
+@dataclasses.dataclass
+class FieldConfig:
+    """Field hyper-parameters (reference gfnerf/config.py:119-127); the JAX
+    package's ``FieldConfig`` fields that the port reads or rejects
+    (``_check_supported``), with its defaults.  Settings of the unported
+    options (anchored hash, semantics, proposal field, identity warp, focal
+    dense levels) join with those options."""
+
+    num_images: int = 1
+    geo_feat_dim: int = 15
+    hidden_dim: int = 128
+    num_layers: int = 2
+    hidden_dim_color: int = 128
+    num_layers_color: int = 3
+    appearance_embedding_dim: int = 32
+    use_appearance_embedding: bool = True
+    num_levels: int = N_LEVELS
+    features_per_level: int = N_CHANNELS
+    n_blocks: int = 10
+    n_volumes: int = 1
+    use_semantics: bool = False
+    camera_opt_mode: str = "off"
+    hash_layout: str = "anchored"   # only "packed" is ported
+    mlp_dtype: str = "float32"      # "float32" | "bfloat16"
+    packed_rows_log2: int = 15
+    packed_row_width: int = 128
+    block_rows_log2: Optional[int] = None
+    focal_mode: str = "residual"    # "residual" | "finetune"
+    use_proposal: bool = False
+    warp_mode: str = "pers"         # "pers" | "identity"
+    density_bias: float = 1.0
+
+
+def _mlp_dt(cfg: FieldConfig) -> torch.dtype:
+    return torch.bfloat16 if cfg.mlp_dtype == "bfloat16" else torch.float32
+
+
+@dataclasses.dataclass
+class FieldParams:
+    """Trainable parameters as numpy arrays (the JAX ``FieldParams``)."""
+
+    global_feat: np.ndarray              # (L, rows, W)
+    block_feats: Optional[np.ndarray]    # (n_blocks, L, rows, W)
+    base_net: dict
+    mlp_head: dict
+    appearance_embedding: np.ndarray     # (num_images, D)
+
+
+@dataclasses.dataclass
+class FieldStatics:
+    """Fixed hash state as numpy arrays (the JAX ``FieldStatics``)."""
+
+    global_prim: np.ndarray              # (L, V, 3) uint32
+    global_bias: np.ndarray              # (L, V, 3) f32
+    block_prims: Optional[np.ndarray]    # (n_blocks, L, V, 3) uint32
+    block_biases: Optional[np.ndarray]   # (n_blocks, L, V, 3) f32
+
+
+def _check_supported(cfg: FieldConfig) -> None:
+    if cfg.hash_layout != "packed":
+        raise NotImplementedError("only the packed hash layout is ported")
+    for name in ("use_semantics", "use_proposal"):
+        if getattr(cfg, name):
+            raise NotImplementedError(f"FieldConfig.{name} is not ported")
+    if cfg.warp_mode != "pers":
+        raise NotImplementedError("the identity-warp ablation is not ported")
+    if cfg.camera_opt_mode != "off":
+        raise NotImplementedError("the camera optimizer is not ported")
+
+
+def init_field_params(cfg: FieldConfig, seed: int = 0):
+    """(FieldParams, FieldStatics) in numpy, bit-identical to the JAX
+    package's ``init_field_params`` (field.py:163-274): the same generator
+    draws in the same order."""
+    _check_supported(cfg)
+    rng = np.random.default_rng(seed)
+    feat_in = cfg.num_levels * cfg.features_per_level
+
+    def make_table(mode, rows_log2=None):
+        return init_packed_hash_params(
+            seed=int(rng.integers(1 << 31)),
+            n_rows_log2=(rows_log2 if rows_log2 is not None
+                         else cfg.packed_rows_log2),
+            n_volumes=cfg.n_volumes,
+            n_levels=cfg.num_levels,
+            n_channels=cfg.features_per_level,
+            row_width=cfg.packed_row_width,
+            init_mode=mode,
+        )
+
+    g_feat, g_prim, g_bias = make_table("reset")
+    if cfg.n_blocks > 0 and cfg.focal_mode == "finetune":
+        block_feats = np.zeros((cfg.n_blocks,) + g_feat.shape, g_feat.dtype)
+        block_prims = np.broadcast_to(
+            g_prim[None], (cfg.n_blocks,) + g_prim.shape).copy()
+        block_biases = np.broadcast_to(
+            g_bias[None], (cfg.n_blocks,) + g_bias.shape).copy()
+    elif cfg.n_blocks > 0:
+        bts = [make_table("zero", cfg.block_rows_log2)
+               for _ in range(cfg.n_blocks)]
+        block_feats = np.stack([b[0] for b in bts], axis=0)
+        block_prims = np.stack([b[1] for b in bts], axis=0)
+        block_biases = np.stack([b[2] for b in bts], axis=0)
+    else:
+        block_feats = block_prims = block_biases = None
+
+    base_net = init_mlp(
+        rng, feat_in, 1 + cfg.geo_feat_dim, cfg.hidden_dim, cfg.num_layers - 1)
+    head_in = 16 + cfg.geo_feat_dim + cfg.appearance_embedding_dim
+    mlp_head = init_mlp(
+        rng, head_in, 3, cfg.hidden_dim_color, cfg.num_layers_color - 1)
+    appearance = rng.standard_normal(
+        (cfg.num_images, cfg.appearance_embedding_dim)).astype(np.float32)
+    params = FieldParams(
+        global_feat=g_feat, block_feats=block_feats, base_net=base_net,
+        mlp_head=mlp_head, appearance_embedding=appearance)
+    statics = FieldStatics(
+        global_prim=g_prim, global_bias=g_bias, block_prims=block_prims,
+        block_biases=block_biases)
+    return params, statics
+
+
+class GFNeRFField(nn.Module):
+    """The field's parameters (``nn.Parameter``) and hash state (buffers)."""
+
+    def __init__(self, cfg: FieldConfig, params: FieldParams,
+                 statics: FieldStatics, device="cpu"):
+        super().__init__()
+        _check_supported(cfg)
+        self.cfg = cfg
+
+        def param(x):
+            return nn.Parameter(torch.tensor(
+                np.asarray(x, np.float32), device=device))
+
+        def buf(x, dtype):
+            return (None if x is None else torch.tensor(
+                np.asarray(x).astype(dtype), device=device))
+
+        self.global_feat = param(params.global_feat)
+        self.block_feats = (None if params.block_feats is None
+                            else param(params.block_feats))
+        self.base_net = MLP(params.base_net, device)
+        self.mlp_head = MLP(params.mlp_head, device)
+        self.appearance_embedding = param(params.appearance_embedding)
+        self.register_buffer("global_prim", buf(statics.global_prim, np.int64))
+        self.register_buffer("global_bias",
+                             buf(statics.global_bias, np.float32))
+        self.register_buffer("block_prims", buf(statics.block_prims, np.int64))
+        self.register_buffer("block_biases",
+                             buf(statics.block_biases, np.float32))
+
+    def to_numpy(self):
+        """(FieldParams, FieldStatics) in numpy, primes back as uint32."""
+
+        def arr(t):
+            return None if t is None else t.detach().cpu().numpy()
+
+        def u32(t):
+            return None if t is None else arr(t).astype(np.uint32)
+
+        params = FieldParams(
+            global_feat=arr(self.global_feat),
+            block_feats=arr(self.block_feats),
+            base_net=self.base_net.to_numpy(),
+            mlp_head=self.mlp_head.to_numpy(),
+            appearance_embedding=arr(self.appearance_embedding))
+        statics = FieldStatics(
+            global_prim=u32(self.global_prim),
+            global_bias=arr(self.global_bias),
+            block_prims=u32(self.block_prims),
+            block_biases=arr(self.block_biases))
+        return params, statics
+
+
+def params_from_jax(params, statics, cfg: FieldConfig,
+                    device="cpu") -> GFNeRFField:
+    """A :class:`GFNeRFField` holding the JAX package's ``FieldParams`` and
+    ``FieldStatics`` (any objects with those attributes whose leaves convert
+    with ``np.asarray``)."""
+
+    def arr(x):
+        return None if x is None else np.asarray(x)
+
+    def mlp(d):
+        return {"w": [arr(w) for w in d["w"]], "b": [arr(b) for b in d["b"]]}
+
+    p = FieldParams(
+        global_feat=arr(params.global_feat),
+        block_feats=arr(params.block_feats),
+        base_net=mlp(params.base_net),
+        mlp_head=mlp(params.mlp_head),
+        appearance_embedding=arr(params.appearance_embedding))
+    s = FieldStatics(
+        global_prim=arr(statics.global_prim),
+        global_bias=arr(statics.global_bias),
+        block_prims=arr(statics.block_prims),
+        block_biases=arr(statics.block_biases))
+    return GFNeRFField(cfg, p, s, device)
+
+
+def field_density(field: GFNeRFField, warp_pts: torch.Tensor,
+                  anchors: torch.Tensor, stage: int = STAGE_INIT):
+    """Density (...,) and geometry features (..., geo_feat_dim) at warped
+    points (..., 3) with anchors (...,) (-1 invalid).  Init stage only."""
+    if stage != STAGE_INIT:
+        raise NotImplementedError("the focal (block) stage is not ported")
+    cfg = field.cfg
+    lead_shape = anchors.shape
+    # normalized points (warp + 1.5) / 3 (nerfacto_field.py:431), with the
+    # division rounded as XLA compiles it: a multiply by f32(1/3)
+    pts = ((warp_pts + 1.5) * (1.0 / 3.0)).reshape(-1, 3)
+    anc = anchors.reshape(-1)
+    pack = pack_for_channels(cfg.features_per_level, cfg.packed_row_width)
+    with record_function("render/encode"):
+        feats = packed_hash_encode(field.global_feat, field.global_prim,
+                                   field.global_bias, pts, anc,
+                                   cfg.features_per_level, pack)
+    with record_function("render/base_mlp"):
+        h = apply_mlp(field.base_net, feats, compute_dtype=_mlp_dt(cfg))
+        density = trunc_exp(h[:, 0] + cfg.density_bias) * (anc >= 0)
+    return (density.reshape(lead_shape),
+            h[:, 1:].reshape(*lead_shape, cfg.geo_feat_dim))
+
+
+def _head_ray_pre(field: GFNeRFField, dirs_ray: torch.Tensor,
+                  rel_ray: torch.Tensor) -> torch.Tensor:
+    """Per-ray part of the colour head's first layer:
+    ``sh(dir) @ W0[:16] + emb @ W0[16+G:] + b0`` in the MLP dtype, (R, H)."""
+    cfg = field.cfg
+    dt = _mlp_dt(cfg)
+    g = cfg.geo_feat_dim
+    w0 = field.mlp_head.w[0]
+    pre = torch.matmul(sh_encode_deg4(dirs_ray).to(dt), w0[:16].to(dt))
+    if cfg.use_appearance_embedding:
+        emb = field.appearance_embedding[rel_ray]
+        pre = pre + torch.matmul(emb.to(dt), w0[16 + g:].to(dt))
+    return pre + field.mlp_head.b[0].to(dt)
+
+
+def _head_from_pre(field: GFNeRFField, geo: torch.Tensor,
+                   ray_pre: torch.Tensor) -> torch.Tensor:
+    """Finish the colour head from the split first layer: geo (..., G) and
+    ray_pre broadcastable to (..., H).  Returns rgb (prod(...), 3)."""
+    cfg = field.cfg
+    dt = _mlp_dt(cfg)
+    g = cfg.geo_feat_dim
+    w0 = field.mlp_head.w[0]
+    h = w0.shape[1]
+    geo_pre = torch.matmul(geo.reshape(-1, g).to(dt),
+                           w0[16:16 + g].to(dt)).reshape(geo.shape[:-1] + (h,))
+    h1 = geo_pre + ray_pre
+    return apply_mlp(field.mlp_head, h1.reshape(-1, h),
+                     output_activation="sigmoid", compute_dtype=dt,
+                     start_layer=1)
+
+
+def field_rgb_per_ray(field: GFNeRFField, dirs_ray: torch.Tensor,
+                      geo_feat: torch.Tensor, rel_ray: torch.Tensor,
+                      stage: int = STAGE_INIT):
+    """Colour head for the dense (R, S) path: the per-ray first-layer part
+    is computed once per ray and broadcast over its samples."""
+    r, s, _ = geo_feat.shape
+    ray_pre = _head_ray_pre(field, dirs_ray, rel_ray)
+    rgb = _head_from_pre(field, geo_feat, ray_pre[:, None, :])
+    return {"rgb": rgb.reshape(r, s, 3)}

@@ -1,0 +1,320 @@
+"""Packed (supercell) anchored hash encoding, forward.
+
+Port of ``gfnerf_tpu/fields/packed_hash.py``: the table is keyed by
+*supercell* (a cube of ``pack``^3 grid cells) and each row holds the feature
+vectors of the supercell's whole ``(pack+1)^3`` corner lattice, padded to
+``row_width``.  One row per (point, level) serves every corner of the
+trilinear interpolation.
+
+``packed_hash_encode_raw`` is the plain PyTorch version (the JAX package's
+XLA formulation, op for op); ``packed_hash_encode`` is the kernel wrapper: on
+a CPU tensor it runs the plain version, on a CUDA tensor it launches
+``csrc/packed_hash_fwd.cu`` or raises.  The backward (``_phe_bwd``) and the
+block-routed encode are not ported yet.
+
+Coordinates: the grid coordinate of level l is ``p * scale_l + bias``, which
+XLA contracts into one fused multiply-add in the jitted JAX encode.  The
+plain version rounds it the same way by computing in float64 (the product is
+exact there) and rounding once; the CUDA kernel uses ``fmaf``.  Supercell
+decomposition, and with it the hash row, then agrees bit for bit with the
+jitted JAX encode.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from gfnerf_tpu_torch.fields.hash_encoding import _level_scales, _random_primes
+from gfnerf_tpu_torch.ops import build
+
+_U32 = 0xFFFFFFFF
+# (lattice edge, channels) the CUDA kernel is instantiated for
+KERNEL_SHAPES = ((2, 8), (3, 4), (4, 2))
+
+
+def pack_for_channels(n_channels: int, row_width: int = 128) -> int:
+    """Largest supercell edge whose corner lattice fits in ``row_width``."""
+    pack = 1
+    while (pack + 2) ** 3 * n_channels <= row_width:
+        pack += 1
+    return pack
+
+
+def init_packed_hash_params(
+    seed: int,
+    n_rows_log2: int,
+    n_volumes: int,
+    n_levels: int,
+    n_channels: int,
+    row_width: int = 128,
+    init_mode: str = "reset",
+    rand_bias: bool = True,
+):
+    """(feat_pool, prim_pool, bias_pool) as numpy arrays, drawn in the JAX
+    package's order from the same numpy generator.
+
+    feat_pool: (n_levels, n_rows, row_width) f32 — learnable
+    prim_pool: (n_levels, n_volumes, 3) uint32 — fixed
+    bias_pool: (n_levels, n_volumes, 3) f32 — fixed
+    """
+    pack = pack_for_channels(n_channels, row_width)
+    if (pack + 1) ** 3 * n_channels > row_width:
+        raise ValueError(f"{n_channels} channels do not fit row width "
+                         f"{row_width}")
+    n_rows = 1 << n_rows_log2
+    rng = np.random.default_rng(seed)
+    primes = _random_primes(rng, 3 * n_levels * n_volumes).reshape(
+        n_levels, n_volumes, 3)
+    if rand_bias:
+        bias = (rng.random((n_levels, n_volumes, 3)) * 1000.0 + 100.0).astype(
+            np.float32)
+    else:
+        bias = np.zeros((n_levels, n_volumes, 3), dtype=np.float32)
+    if init_mode == "zero":
+        feat = np.zeros((n_levels, n_rows, row_width), dtype=np.float32)
+    elif init_mode == "reset":
+        feat = rng.uniform(-1e-2, 1e-2, (n_levels, n_rows, row_width)).astype(
+            np.float32)
+    else:
+        raise ValueError(init_mode)
+    return feat, primes, bias
+
+
+def dense_level_extents(n_levels, pack, n_volumes, n_rows, dense_levels):
+    """Per-level dense-grid extents for collision-free addressing.
+
+    Returns (m (L,) int32, use (L,) bool): level l is addressed linearly,
+    ``vol*m^3 + (sx%m)*m^2 + (sy%m)*m + sz%m``, when it is among the first
+    ``dense_levels`` and ``V * m^3 <= n_rows``; other levels keep the hash.
+    """
+    scales = _level_scales(n_levels)
+    m = np.zeros((n_levels,), np.int32)
+    use = np.zeros((n_levels,), bool)
+    for l in range(min(dense_levels, n_levels)):
+        ml = int(np.ceil(scales[l] / pack)) + 2
+        if n_volumes * ml ** 3 <= n_rows:
+            m[l] = ml
+            use[l] = True
+    return m, use
+
+
+def _fma(a: torch.Tensor, s: float, b: torch.Tensor) -> torch.Tensor:
+    """a * s + b rounded once to f32, as a fused multiply-add rounds it."""
+    return (a.double() * float(s) + b.double()).float()
+
+
+def _div_pack(cell: torch.Tensor, pack: int) -> torch.Tensor:
+    """floor(cell / pack) computed as the JAX encode computes it on int32
+    cells: logical shift for powers of two, multiply-shift for 3."""
+    c = cell.long()
+    if pack & (pack - 1) == 0:
+        return (c & _U32) >> (pack.bit_length() - 1)
+    if pack == 3:
+        return ((c * 21846) & _U32) >> 16
+    return torch.div(c, pack, rounding_mode="floor")
+
+
+def _decompose_dim(pk: torch.Tensor, pack: int):
+    """(supercell, local cell, fraction) of one coordinate (P,)."""
+    cell_f = torch.floor(pk)
+    frac = pk - cell_f
+    cell = cell_f.to(torch.int32)
+    sup = _div_pack(cell, pack)
+    local = (cell.long() - sup * pack).to(torch.int32).long()  # int32 wrap
+    return sup, local, frac
+
+
+def _hash_flat(sx, sy, sz, ux, uy, uz, n_rows):
+    """Supercell XOR hash in uint32 arithmetic, carried in int64."""
+    h = (((sx & _U32) * ux) & _U32) ^ (((sy & _U32) * uy) & _U32) \
+        ^ (((sz & _U32) * uz) & _U32)
+    return h & (n_rows - 1)
+
+
+def _level_coords(points, prim_l, bias_l, scale, vol, pack, n_rows, m_l):
+    """Row index (P,) int64 and per-axis (local, fraction) of one level."""
+    s, loc, frac = zip(*[
+        _decompose_dim(_fma(points[:, a], scale, bias_l[:, a]), pack)
+        for a in range(3)])
+    if m_l > 0:
+        h = (vol * m_l ** 3 + torch.remainder(s[0], m_l) * m_l * m_l
+             + torch.remainder(s[1], m_l) * m_l
+             + torch.remainder(s[2], m_l)).clamp(max=n_rows - 1)
+    else:
+        h = _hash_flat(s[0], s[1], s[2], prim_l[:, 0], prim_l[:, 1],
+                       prim_l[:, 2], n_rows)
+    return h, loc, frac
+
+
+def _anchor_rows(prim_pool, bias_pool, anchors):
+    """Per-level primes (L, P, 3) int64 and biases (L, P, 3) of each
+    point's clamped volume."""
+    n_volumes = prim_pool.shape[1]
+    vol = anchors.long().clamp(0, n_volumes - 1)
+    return vol, prim_pool.long()[:, vol], bias_pool[:, vol]
+
+
+def packed_hash_rows(prim_pool, bias_pool, points, anchors, n_rows, pack,
+                     dense_levels=0) -> torch.Tensor:
+    """(L, P) int64 table row of every (level, point) — the addressing half
+    of the encode, exposed for tests."""
+    n_levels, n_volumes = prim_pool.shape[:2]
+    vol, prims, biases = _anchor_rows(prim_pool, bias_pool, anchors)
+    scales = _level_scales(n_levels)
+    dm, _ = dense_level_extents(n_levels, pack, n_volumes, n_rows,
+                                dense_levels)
+    return torch.stack([
+        _level_coords(points, prims[l], biases[l], scales[l], vol, pack,
+                      n_rows, int(dm[l]))[0]
+        for l in range(n_levels)])
+
+
+def packed_hash_encode_raw(
+    feat_pool: torch.Tensor,   # (L, n_rows, row_width) f32
+    prim_pool: torch.Tensor,   # (L, V, 3) int64 (uint32 values)
+    bias_pool: torch.Tensor,   # (L, V, 3) f32
+    points: torch.Tensor,      # (P, 3) f32, normalized ((warp+1.5)/3)
+    anchors: torch.Tensor,     # (P,) volume index; < 0 -> masked output
+    n_channels: int,
+    pack: int,
+    dense_levels: int = 0,
+) -> torch.Tensor:
+    """Plain forward packed encoding. Returns (P, L * n_channels) f32.
+
+    Reads the table through a bf16 copy, as the JAX encode does
+    (packed_hash.py:235).
+    """
+    n_levels, n_rows, row_width = feat_pool.shape
+    n_volumes = prim_pool.shape[1]
+    e = pack + 1
+    valid = (anchors >= 0)[:, None]
+    vol, prims, biases = _anchor_rows(prim_pool, bias_pool, anchors)
+    scales = _level_scales(n_levels)
+    dm, _ = dense_level_extents(n_levels, pack, n_volumes, n_rows,
+                                dense_levels)
+    flat = feat_pool.to(torch.bfloat16).reshape(n_levels * n_rows, row_width)
+    outs = []
+    for l in range(n_levels):
+        h, loc, frac = _level_coords(points, prims[l], biases[l], scales[l],
+                                     vol, pack, n_rows, int(dm[l]))
+        rows = flat[h + l * n_rows]                   # (P, row_width) bf16
+        outs.extend(_interp_level(rows, *frac, *loc, e, n_channels))
+    return torch.stack(outs, dim=-1) * valid
+
+
+def _interp_level(rows, fx, fy, fz, lx, ly, lz, e, n_channels):
+    """Per-level lattice interpolation from gathered (P, row_width) rows.
+
+    Returns a list of ``n_channels`` (P,) f32 columns.  e == 2: the 8
+    lattice entries are the 8 corners (a 7-lerp chain per channel); e >= 3:
+    the trilinear sum factorized per axis with weights
+    w_u = (u == l)(1-f) + (u == l+1)f.
+    """
+    C = n_channels
+
+    def col(o, c):
+        return rows[:, o * C + c].float()
+
+    if e == 2:
+        chans = []
+        for c in range(C):
+            z00 = col(0, c) + fz * (col(1, c) - col(0, c))
+            z01 = col(2, c) + fz * (col(3, c) - col(2, c))
+            z10 = col(4, c) + fz * (col(5, c) - col(4, c))
+            z11 = col(6, c) + fz * (col(7, c) - col(6, c))
+            y0 = z00 + fy * (z01 - z00)
+            y1 = z10 + fy * (z11 - z10)
+            chans.append(y0 + fx * (y1 - y0))
+        return chans
+
+    def dim_w(local, frac, u):
+        return ((local == u).float() * (1.0 - frac)
+                + (local + 1 == u).float() * frac)
+
+    wx = [dim_w(lx, fx, i) for i in range(e)]
+    wy = [dim_w(ly, fy, j) for j in range(e)]
+    wz = [dim_w(lz, fz, k) for k in range(e)]
+    chans = []
+    for c in range(C):
+        out = None
+        for i in range(e):
+            acc_y = None
+            for j in range(e):
+                base = (i * e + j) * e
+                acc_z = None
+                for k in range(e):
+                    term = wz[k] * col(base + k, c)
+                    acc_z = term if acc_z is None else acc_z + term
+                term = wy[j] * acc_z
+                acc_y = term if acc_y is None else acc_y + term
+            term = wx[i] * acc_y
+            out = term if out is None else out + term
+        chans.append(out)
+    return chans
+
+
+def packed_hash_encode(feat_pool, prim_pool, bias_pool, points, anchors,
+                       n_channels: int, pack: int, dense_levels: int = 0):
+    """Forward packed encoding: the plain version for CPU tensors, the CUDA
+    kernel (``csrc/packed_hash_fwd.cu``) for CUDA tensors."""
+    if points.device.type == "cpu":
+        return packed_hash_encode_raw(feat_pool, prim_pool, bias_pool, points,
+                                      anchors, n_channels, pack, dense_levels)
+    return _packed_hash_encode_cuda(feat_pool, prim_pool, bias_pool, points,
+                                    anchors, n_channels, pack, dense_levels)
+
+
+packed_hash_encode.launches = 0
+
+
+def _packed_hash_encode_cuda(feat_pool, prim_pool, bias_pool, points,
+                             anchors, n_channels, pack, dense_levels):
+    n_levels, n_rows, row_width = feat_pool.shape
+    n_volumes = prim_pool.shape[1]
+    e = pack + 1
+    dev = points.device
+    if points.device.type != "cuda":
+        raise ValueError(f"packed_hash_encode: unsupported device {dev}")
+    if (e, n_channels) not in KERNEL_SHAPES:
+        raise ValueError(f"packed_hash_encode: no kernel for lattice edge {e} "
+                         f"x {n_channels} channels (have {KERNEL_SHAPES})")
+    if e ** 3 * n_channels > row_width or row_width % 8:
+        raise ValueError(f"packed_hash_encode: row width {row_width} does not "
+                         f"hold a {e}^3 x {n_channels} lattice in 16-byte "
+                         f"aligned rows")
+    if n_rows & (n_rows - 1):
+        raise ValueError(f"packed_hash_encode: {n_rows} rows is not a power "
+                         f"of two")
+    for name, t in (("feat_pool", feat_pool), ("prim_pool", prim_pool),
+                    ("bias_pool", bias_pool), ("anchors", anchors)):
+        if t.device != dev:
+            raise ValueError(f"packed_hash_encode: {name} on {t.device}, "
+                             f"points on {dev}")
+    if (points.dim() != 2 or points.shape[1] != 3
+            or points.dtype != torch.float32):
+        raise ValueError(f"packed_hash_encode: points must be (P, 3) f32, got "
+                         f"{tuple(points.shape)} {points.dtype}")
+    p = points.shape[0]
+    if anchors.shape != (p,):
+        raise ValueError(f"packed_hash_encode: anchors {tuple(anchors.shape)} "
+                         f"!= ({p},)")
+    table = feat_pool.to(torch.bfloat16).contiguous()
+    primes = prim_pool.to(torch.int32).contiguous()   # values < 2^30
+    bias = bias_pool.to(torch.float32).contiguous()
+    scales = torch.as_tensor(_level_scales(n_levels), device=dev)
+    dm, _ = dense_level_extents(n_levels, pack, n_volumes, n_rows,
+                                dense_levels)
+    dense_m = torch.as_tensor(dm, dtype=torch.int32, device=dev)
+    pts = points.contiguous()
+    anc = anchors.to(torch.int32).contiguous()
+    out = torch.empty((p, n_levels * n_channels), dtype=torch.float32,
+                      device=dev)
+    err = build.library().gfnerf_packed_hash_fwd(
+        table.data_ptr(), primes.data_ptr(), bias.data_ptr(),
+        scales.data_ptr(), dense_m.data_ptr(), pts.data_ptr(),
+        anc.data_ptr(), out.data_ptr(), p, n_levels, n_volumes, n_rows,
+        row_width, n_channels, e, torch.cuda.current_stream(dev).cuda_stream)
+    build.check(err, "gfnerf_packed_hash_fwd")
+    packed_hash_encode.launches += 1
+    return out

@@ -1,0 +1,107 @@
+"""Build and load the hand-written CUDA kernels.
+
+Every ``gfnerf_tpu_torch/csrc/*.cu`` source is compiled by ``nvcc`` into one
+shared library with a plain C interface, ``gfnerf_tpu_torch/_build/
+libgfnerf_kernels.so``, and loaded with ``ctypes``.  The build runs at the
+first kernel launch (or on an explicit :func:`build_library` call) and is
+redone when a source changes: a stamp file beside the library records the
+sources' hash.  Each C entry point launches on the stream it is given and
+returns ``cudaGetLastError()``; :func:`check` raises if that is not 0.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+
+PKG_DIR = Path(__file__).resolve().parent.parent
+CSRC_DIR = PKG_DIR / "csrc"
+BUILD_DIR = PKG_DIR / "_build"
+LIB_PATH = BUILD_DIR / "libgfnerf_kernels.so"
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC"]
+
+_P = ctypes.c_void_p
+_I64 = ctypes.c_longlong
+_I32 = ctypes.c_int
+# C entry points: name -> argtypes (pointers and the stream as c_void_p)
+SIGNATURES = {
+    "gfnerf_composite_fwd": [_P] * 9 + [_I64, _I64, _P],
+    "gfnerf_packed_hash_fwd": [_P] * 8 + [_I64] + [_I32] * 6 + [_P],
+}
+
+
+def _sources():
+    return sorted(CSRC_DIR.glob("*.cu"))
+
+
+def _source_hash() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in _sources():
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    return h.hexdigest()
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    default = Path("/usr/local/cuda/bin/nvcc")
+    if default.exists():
+        return str(default)
+    raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA "
+                       "toolkit to build")
+
+
+def build_library(verbose: bool = False) -> dict:
+    """Compile csrc/*.cu into LIB_PATH unless the stamp says it is current.
+
+    Returns {"built": bool, "seconds": float, "log": str}; with ``verbose``
+    nvcc also prints each kernel's registers and spills (-Xptxas -v).
+    """
+    digest = _source_hash()
+    stamp = BUILD_DIR / "libgfnerf_kernels.stamp"
+    if (LIB_PATH.exists() and stamp.exists()
+            and stamp.read_text() == digest and not verbose):
+        return {"built": False, "seconds": 0.0, "log": ""}
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = BUILD_DIR / f"libgfnerf_kernels.{os.getpid()}.so"
+    cmd = [_nvcc(), *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []),
+           "-o", str(tmp), *[str(s) for s in _sources()]]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    seconds = time.perf_counter() - t0
+    if proc.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}"
+                           f"\n{proc.stdout}\n{proc.stderr}")
+    os.replace(tmp, LIB_PATH)
+    stamp.write_text(digest)
+    library.cache_clear()
+    return {"built": True, "seconds": seconds,
+            "log": proc.stdout + proc.stderr}
+
+
+@functools.lru_cache(maxsize=1)
+def library() -> ctypes.CDLL:
+    """The loaded kernel library, built first if missing or stale."""
+    build_library()
+    lib = ctypes.CDLL(str(LIB_PATH))
+    for name, argtypes in SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    return lib
+
+
+def check(err: int, name: str) -> None:
+    """Raise if a C entry point reported a CUDA error at launch."""
+    if err != 0:
+        raise RuntimeError(f"{name}: CUDA launch failed with cudaError {err}")

@@ -1,0 +1,185 @@
+"""Parity of the ported packed hash encode (gfnerf_tpu_torch/fields/
+packed_hash.py) with the JAX package's.
+
+The JAX side runs jitted, as the render path runs it: XLA then fuses
+``p * scale + bias`` into one multiply-add, and the port reproduces that
+rounding.  Row indices (the uint32 hash and the dense addressing) must match
+exactly; features to atol 1e-6 (both sum the same bf16 table values in f32,
+in the same order, up to multiply-add contraction).
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import torch_parity  # noqa: F401  (caps torch threads)
+
+ROWS_LOG2 = 12
+N_LEVELS = 4
+N_VOLUMES = 3     # small enough that dense levels fit 2^12 rows
+
+
+def _tables(c, seed=7):
+    """The same (feat, prim, bias) from both packages' init."""
+    from gfnerf_tpu.fields.packed_hash import init_packed_hash_params as jinit
+    from gfnerf_tpu_torch.fields.packed_hash import init_packed_hash_params
+
+    kw = dict(seed=seed, n_rows_log2=ROWS_LOG2, n_volumes=N_VOLUMES,
+              n_levels=N_LEVELS, n_channels=c)
+    want = [np.array(x) for x in jinit(**kw)]
+    got = init_packed_hash_params(**kw)
+    # a non-trivial table: init's +-1e-2 is too flat to exercise the sums
+    rng = np.random.default_rng(seed)
+    feat = rng.uniform(-0.5, 0.5, want[0].shape).astype(np.float32)
+    return want, got, feat
+
+
+def _points(p=4096, seed=1, n_invalid=0):
+    rng = np.random.default_rng(seed)
+    pts = rng.uniform(0.17, 0.83, (p, 3)).astype(np.float32)
+    anc = rng.integers(0, N_VOLUMES, p).astype(np.int32)
+    anc[rng.choice(p, n_invalid, replace=False)] = -1
+    return pts, anc
+
+
+def _jax_rows(prim_pool, bias_pool, points, anchors, n_rows, pack,
+              dense_levels):
+    """The JAX encode's addressing (packed_hash.py:230-253), level by level;
+    the caller jits it, as the render path runs the encode jitted."""
+    import jax.numpy as jnp
+    from gfnerf_tpu.fields.hash_encoding import (_anchor_slices,
+                                                 _anchor_table, _level_scales)
+    from gfnerf_tpu.fields.packed_hash import (_decompose_dim, _hash_flat,
+                                               dense_level_extents)
+
+    n_levels, n_volumes = prim_pool.shape[:2]
+    vol = jnp.clip(anchors, 0, n_volumes - 1).astype(jnp.int32)
+    scales = _level_scales(n_levels)
+    dm, duse = dense_level_extents(n_levels, pack, n_volumes, n_rows,
+                                   dense_levels)
+    ar = _anchor_table(prim_pool, bias_pool)[vol]
+    px0, py0, pz0 = points[:, 0], points[:, 1], points[:, 2]
+    out = []
+    for l in range(n_levels):
+        (ux, uy, uz), (bx, by, bz) = _anchor_slices(ar, l * 8)
+        sx, _, _ = _decompose_dim(px0 * scales[l] + bx, pack)
+        sy, _, _ = _decompose_dim(py0 * scales[l] + by, pack)
+        sz, _, _ = _decompose_dim(pz0 * scales[l] + bz, pack)
+        if duse[l]:
+            ml = int(dm[l])
+            h = jnp.minimum(vol * ml ** 3 + jnp.remainder(sx, ml) * ml * ml
+                            + jnp.remainder(sy, ml) * ml
+                            + jnp.remainder(sz, ml), n_rows - 1)
+        else:
+            h = _hash_flat(sx, sy, sz, ux, uy, uz, n_rows)
+        out.append(h)
+    return jnp.stack(out)
+
+
+@pytest.mark.parametrize("c", [2, 4, 8])
+def test_init_and_layout_helpers_match(c):
+    from gfnerf_tpu.fields import packed_hash as J
+    from gfnerf_tpu_torch.fields import packed_hash as T
+
+    want, got, _ = _tables(c)
+    for a, b in zip(want, got):
+        assert a.dtype == b.dtype and a.shape == b.shape
+        assert np.array_equal(a, b)
+    assert T.pack_for_channels(c) == J.pack_for_channels(c)
+    pack = J.pack_for_channels(c)
+    for dense in (0, 2, 4):
+        for x, y in zip(T.dense_level_extents(N_LEVELS, pack, N_VOLUMES,
+                                              1 << ROWS_LOG2, dense),
+                        J.dense_level_extents(N_LEVELS, pack, N_VOLUMES,
+                                              1 << ROWS_LOG2, dense)):
+            assert np.array_equal(x, y)
+
+
+@pytest.mark.parametrize("c,dense", [(2, 0), (4, 0), (8, 0), (4, 2)])
+def test_row_indices_exact(c, dense):
+    import jax
+    import jax.numpy as jnp
+    from gfnerf_tpu_torch.fields.packed_hash import (pack_for_channels,
+                                                     packed_hash_rows)
+
+    want, _, _ = _tables(c)
+    pts, anc = _points(n_invalid=64)
+    pack = pack_for_channels(c)
+    rows = jax.jit(_jax_rows, static_argnums=(4, 5, 6))
+    j = np.asarray(rows(jnp.asarray(want[1]), jnp.asarray(want[2]),
+                        jnp.asarray(pts), jnp.asarray(anc), 1 << ROWS_LOG2,
+                        pack, dense))
+    t = packed_hash_rows(torch.as_tensor(want[1].astype(np.int64)),
+                         torch.as_tensor(want[2]), torch.as_tensor(pts),
+                         torch.as_tensor(anc), 1 << ROWS_LOG2, pack,
+                         dense).numpy()
+    np.testing.assert_array_equal(t, j)
+
+
+@pytest.mark.parametrize("c,n_invalid,dense",
+                         [(2, 0, 0), (4, 0, 0), (8, 0, 0), (4, 300, 0),
+                          (4, 0, 2), (2, 300, 2)])
+def test_encode_raw_matches_jax(c, n_invalid, dense):
+    import jax
+    import jax.numpy as jnp
+    from gfnerf_tpu.fields.packed_hash import packed_hash_encode_raw as jenc
+    from gfnerf_tpu_torch.fields.packed_hash import (pack_for_channels,
+                                                     packed_hash_encode_raw)
+
+    want, _, feat = _tables(c)
+    pts, anc = _points(n_invalid=n_invalid, seed=c + dense)
+    pack = pack_for_channels(c)
+    j = np.asarray(jax.jit(jenc, static_argnums=(5, 6, 7))(
+        jnp.asarray(feat), jnp.asarray(want[1]), jnp.asarray(want[2]),
+        jnp.asarray(pts), jnp.asarray(anc), c, pack, dense))
+    t = packed_hash_encode_raw(
+        torch.as_tensor(feat), torch.as_tensor(want[1].astype(np.int64)),
+        torch.as_tensor(want[2]), torch.as_tensor(pts), torch.as_tensor(anc),
+        c, pack, dense).numpy()
+    assert t.shape == j.shape == (len(pts), N_LEVELS * c)
+    assert np.abs(t).max() > 0.05
+    np.testing.assert_allclose(t, j, rtol=0, atol=1e-6)
+    assert np.all(t[anc < 0] == 0)
+
+
+def test_wrapper_cpu_takes_plain_path():
+    from gfnerf_tpu_torch.fields.packed_hash import (packed_hash_encode,
+                                                     packed_hash_encode_raw)
+
+    want, _, feat = _tables(4)
+    pts, anc = _points(p=512, n_invalid=10)
+    args = (torch.as_tensor(feat), torch.as_tensor(want[1].astype(np.int64)),
+            torch.as_tensor(want[2]), torch.as_tensor(pts),
+            torch.as_tensor(anc), 4, 2)
+    before = packed_hash_encode.launches
+    got = packed_hash_encode(*args)
+    assert packed_hash_encode.launches == before
+    assert torch.equal(got, packed_hash_encode_raw(*args))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c,dense", [(2, 0), (4, 0), (8, 0), (4, 2)])
+def test_kernel_matches_plain_on_card(c, dense):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    from gfnerf_tpu_torch.fields.packed_hash import (pack_for_channels,
+                                                     packed_hash_encode,
+                                                     packed_hash_encode_raw)
+
+    from gfnerf_tpu_torch.fields.packed_hash import init_packed_hash_params
+
+    _, prim, bias = init_packed_hash_params(7, ROWS_LOG2, N_VOLUMES,
+                                            N_LEVELS, c)
+    feat = np.random.default_rng(7).uniform(
+        -0.5, 0.5, (N_LEVELS, 1 << ROWS_LOG2, 128)).astype(np.float32)
+    pts, anc = _points(p=1 << 16, n_invalid=1000)
+    args = [torch.as_tensor(a, device="cuda") for a in
+            (feat, prim.astype(np.int64), bias, pts, anc)]
+    pack = pack_for_channels(c)
+    before = packed_hash_encode.launches
+    got = packed_hash_encode(*args, c, pack, dense)
+    torch.cuda.synchronize()
+    assert packed_hash_encode.launches == before + 1
+    ref = packed_hash_encode_raw(*args, c, pack, dense)
+    np.testing.assert_allclose(got.cpu().numpy(), ref.cpu().numpy(), rtol=0,
+                               atol=1e-5)
