@@ -1,26 +1,38 @@
 #!/usr/bin/env python3
-"""Smoke run of the PyTorch port's render path on one CUDA card.
+"""Smoke run of the PyTorch port's render and train paths on one CUDA card.
 
 Phases (each prints its own lines; any failure raises and exits non-zero):
-  1. device  — a CUDA card must be present; prints nvidia-smi's name and
-               power limit.
-  2. build   — compiles gfnerf_tpu_torch/csrc/*.cu with nvcc for sm_90a into
-               gfnerf_tpu_torch/_build/ and prints each kernel's registers.
-  3. kernels — each hand-written kernel against its plain PyTorch version on
-               the card, at the render path's shapes and at ragged/edge
-               cases; the composite timed against its plain version with
-               CUDA events (median).
-  4. slice   — builds the bench's quality workload (48 ring cameras, depth-8
-               octree, 8x4-level packed hash field with random weights from
-               seed 0, 384 march slots), then with the kernels' launch
-               counters reset renders 4 training views and one 1920x1080
-               frame in chunks of 32768 rays, checks the outputs, checks
-               that every kernel ran once per chunk, and compares one chunk
-               with the same chunk rendered through the plain versions;
-               times the hash encode against its plain version on one
-               chunk's real inputs (32768 rays x 384 samples).
+  1. device   — a CUDA card must be present; prints nvidia-smi's name and
+                power limit.
+  2. build    — compiles gfnerf_tpu_torch/csrc/*.cu with nvcc for sm_90a,
+                one process per source, into gfnerf_tpu_torch/_build/ and
+                prints each kernel's registers.
+  3. kernels  — each hand-written kernel against its plain PyTorch version
+                on the card, at the main paths' shapes and at ragged and
+                edge cases (the composite backward where transmittance
+                underflows mid-ray; the hash backward's padding columns and
+                masked anchors); the composites timed against their plain
+                versions with CUDA events (median).
+  4. workload — the bench's quality workload: 48 ring cameras and their
+                sphere-scene images, depth-8 octree, 8x4-level packed hash
+                field with random weights from seed 0, 384 march slots,
+                per-group Adam with the default config.
+  5. render   — with the launch counters reset: 4 training views and one
+                1920x1080 frame in chunks of 32768 rays; outputs checked;
+                each forward kernel launched once per chunk; one chunk
+                against the plain versions; the hash encode timed against
+                its plain version on one chunk's real inputs.
+  6. train    — with the counters reset: 20 init-stage steps of 8192 rays
+                through make_train_step (one warm-up, 5 timed: s/step,
+                rays/s, peak memory); all four kernels launched once per
+                step; loss and gradients finite, the loss falling, the
+                global table and every MLP changed, the block tables not,
+                the occupancy statistics moved; one step from a common
+                state with the kernels against the plain autograd pairs
+                (no kernel may launch in it); the hash backward timed
+                against its plain version and index_add_ on a train batch.
 The line before the last is a JSON object with each kernel's launches,
-error and times; the last line is {"ok": true, "device": {...}}.
+error, times and bound; the last line is {"ok": true, "device": {...}}.
 
 Run from the repository root:  python3 chip_smoke.py
 """
@@ -38,9 +50,28 @@ COMPARE_RAYS = 8192
 # kernel vs plain, f32 (the JAX tests' composite tolerance)
 K1_TOL = dict(rtol=1e-4, atol=1e-5)
 H1_ATOL = 1e-5
+# K2 vs plain: the suffix and prefix sums run in other orders (warp scans
+# against cumsum), so an output that nearly cancels keeps an absolute error
+# of a few f32 ulps of the ray's largest term: rtol 1e-4 plus an atol of
+# 1e-6 of the output's largest magnitude
+K2_RTOL, K2_ATOL_REL = 1e-4, 1e-6
+# H2 vs plain: both sum the same f32 terms with atomics, in different
+# orders; a row sums up to thousands of terms: 1e-5 of the largest entry
+H2_ATOL_REL = 1e-5
 # one chunk, kernels vs plain versions: the encodes agree to f32 rounding,
 # which can flip a bf16 rounding of a hidden activation (2^-8 relative)
 SLICE_ATOL = 2e-3
+# the train path: steps taken (one warm-up, TIMED_STEPS timed, the rest for
+# the loss check), and one step from a common state, kernels vs the plain
+# autograd pairs: the kernels' f32 sums run in other orders.  On the H100
+# the step's gradients differed by at most 1.2e-4 of the group's largest
+# (MLPs) and 7e-5 (table); the limit, 2e-3 of the largest, is over 10x that
+TRAIN_STEPS = 20
+TIMED_STEPS = 5
+TRAIN_LOSS_RTOL = 1e-4
+TRAIN_GRAD_TOL = 2e-3
+# the card's peak memory rate (H100 SXM data sheet), for the bounds
+HBM_BYTES_PER_S = 3.35e12
 
 
 def log(msg: str) -> None:
@@ -70,14 +101,17 @@ def max_err(got, want) -> float:
     return max(float((g - w).abs().max()) for g, w in zip(got, want))
 
 
-def assert_close(got, want, rtol, atol, what):
+def assert_close(got, want, what, rtol=0.0, atol=0.0, atol_rel=0.0):
+    """|got - want| <= rtol |want| + atol + atol_rel max|want|, per
+    tensor."""
     import torch
 
     for i, (g, w) in enumerate(zip(got, want)):
-        if not torch.allclose(g, w, rtol=rtol, atol=atol):
+        tol = atol + atol_rel * float(w.abs().max())
+        if not torch.allclose(g, w, rtol=rtol, atol=tol):
             err = float((g - w).abs().max())
             raise AssertionError(f"{what}[{i}]: max abs err {err} over "
-                                 f"rtol {rtol} atol {atol}")
+                                 f"rtol {rtol} atol {tol}")
 
 
 def phase_device():
@@ -142,6 +176,129 @@ def _hash_inputs(p, n_channels, n_volumes, seed, n_levels=8, rows_log2=15):
             torch.as_tensor(anc.astype(np.int32), device=dev))
 
 
+def _cotangents(r, s, seed):
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed)
+    shapes = ((r, s), (r, s), (r, 3), (r, 1), (r, 1))
+    return [torch.as_tensor(rng.standard_normal(sh).astype(np.float32),
+                            device="cuda") for sh in shapes]
+
+
+def composite_fwd_bytes(r, s) -> int:
+    """Bytes the composite must move: each input (sigma, dt, t, rgb) read
+    once, each output (w, alpha, rgb, acc, depth) written once (f32)."""
+    return 4 * (6 * r * s + 2 * r * s + 5 * r)
+
+
+def f32_bytes(*tensors) -> int:
+    """Bytes of the given f32 tensors (None counts as none)."""
+    return 4 * sum(t.numel() for t in tensors if t is not None)
+
+
+def check_composite_bwd() -> dict:
+    """K2 against its plain version at the train step's shape, a ragged
+    one, a tiny one and one whose transmittance underflows mid-ray, with
+    every cotangent and gradient; then as the train step calls it, through
+    autograd: cotangents of rgb and acc only, gradients of densities and
+    colours only.  Timed against the plain version in both forms at the
+    train step's shape; the train step's form is the one reported."""
+    import torch
+
+    from gfnerf_tpu_torch.ops.composite import (
+        _composite_bwd_cuda, composite_backward_reference, fused_composite)
+
+    errs = []
+    for r, s, opaque in ((8192, 384, False), (1000, 48, False),
+                         (7, 33, False), (1000, 48, True)):
+        x = _composite_inputs(r, s, seed=r + s + 7)
+        if opaque:   # sigma*dt up to 10: T underflows to 0 mid-ray
+            x[0] = x[0] * 200.0
+        g = _cotangents(r, s, seed=r + s)
+        got = _composite_bwd_cuda(*x, g)
+        want = composite_backward_reference(*x, g)
+        torch.cuda.synchronize()
+        assert_close(got, want, f"composite_bwd R={r} S={s} opaque={opaque}",
+                     rtol=K2_RTOL, atol_rel=K2_ATOL_REL)
+        errs.append(max_err(got, want))
+        log(f"[kernels] composite_bwd R={r} S={s} opaque={opaque}: max abs "
+            f"err {errs[-1]:.3g}")
+    r, s = 8192, 384
+    x = _composite_inputs(r, s, seed=2)
+    g = _cotangents(r, s, seed=3)
+    need = (True, False, False, True)
+    cots = [None, None, g[2], g[3], None]
+    xs = [t.clone().requires_grad_(n) for t, n in zip(x, need)]
+    out = fused_composite(*xs)
+    torch.autograd.backward([out[2], out[3]], [g[2], g[3]])
+    want = composite_backward_reference(*x, cots, need)
+    torch.cuda.synchronize()
+    if xs[1].grad is not None or xs[2].grad is not None:
+        raise AssertionError("composite_bwd: a gradient nobody asked for")
+    got = [xs[0].grad, xs[3].grad]
+    assert_close(got, [want[0], want[3]],
+                 f"composite_bwd R={r} S={s} through autograd, train form",
+                 rtol=K2_RTOL, atol_rel=K2_ATOL_REL)
+    errs.append(max_err(got, [want[0], want[3]]))
+    log(f"[kernels] composite_bwd R={r} S={s} through autograd, cotangents "
+        f"of rgb and acc, gradients of sigma and rgb: max abs err "
+        f"{errs[-1]:.3g}")
+    del xs, out, got
+    # bytes: the inputs K2 reads (t only with a depth cotangent) and the
+    # outputs it writes, (R, S) for sigma, dt, t and (R, S, 3) for rgb
+    for form, args, n_bytes in (
+            ("all cotangents and gradients", (*x, g),
+             f32_bytes(*x, *g) + 4 * 6 * r * s),
+            ("train form", (*x, cots, need),
+             f32_bytes(x[0], x[1], x[3], *cots) + 4 * 4 * r * s)):
+        ms = time_ms(lambda: _composite_bwd_cuda(*args), n=21)
+        plain_ms = time_ms(lambda: composite_backward_reference(*args))
+        bound = n_bytes / HBM_BYTES_PER_S * 1e3
+        log(f"[kernels] composite_bwd R={r} S={s}, {form}: kernel {ms:.4f} "
+            f"ms, plain {plain_ms:.4f} ms, bound {bound:.4f} ms "
+            f"({n_bytes / 1e6:.1f} MB)")
+    return dict(max_abs_err=max(errs), ms=ms, plain_ms=plain_ms,
+                bound_ms=bound, bound_by="bytes", library_ms=None)
+
+
+def check_hash_bwd() -> float:
+    """H2 against its plain version at 2^20 points (C = 4 with and without
+    dense levels, C = 2, C = 8) and at 1000 points with masked anchors;
+    the padding columns must stay exactly 0.  Returns the max error."""
+    import torch
+
+    from gfnerf_tpu_torch.fields.packed_hash import (
+        _packed_hash_backward_cuda, pack_for_channels,
+        packed_hash_backward_reference)
+
+    errs = []
+    for p, c, dense in ((1 << 20, 4, 0), (1 << 20, 4, 2), (1 << 20, 2, 0),
+                        (1 << 20, 8, 0), (1000, 4, 0)):
+        feat, prim, bias, pts, anc = _hash_inputs(p, c, n_volumes=16,
+                                                  seed=p + c + dense + 1)
+        n_levels, n_rows, width = feat.shape
+        gen = torch.Generator(device="cuda").manual_seed(p + c)
+        g = torch.randn((p, n_levels * c), generator=gen, device="cuda")
+        pack = pack_for_channels(c)
+        args = (g, prim, bias, pts, anc, n_rows, width, c, pack, dense)
+        got = _packed_hash_backward_cuda(*args)
+        want = packed_hash_backward_reference(*args)
+        torch.cuda.synchronize()
+        assert_close([got], [want], f"packed_hash_bwd P={p} C={c} "
+                     f"dense={dense}", atol_rel=H2_ATOL_REL)
+        live = (pack + 1) ** 3 * c
+        if not bool((got[..., live:] == 0).all()):
+            raise AssertionError("packed_hash_bwd: padding columns written")
+        errs.append(max_err([got], [want]))
+        log(f"[kernels] packed_hash_bwd P={p} C={c} dense_levels={dense}: "
+            f"max abs err {errs[-1]:.3g} (largest entry "
+            f"{float(want.abs().max()):.3g}); columns {live}.. exactly 0")
+        del got, want, g, args
+    torch.cuda.empty_cache()
+    return max(errs)
+
+
 def phase_kernels(n_samples: int):
     import torch
 
@@ -161,7 +318,7 @@ def phase_kernels(n_samples: int):
         got = fused_composite(*x)
         want = composite_reference(*x)
         torch.cuda.synchronize()
-        assert_close(got, want, what=f"composite R={r} S={s}", **K1_TOL)
+        assert_close(got, want, f"composite R={r} S={s}", **K1_TOL)
         errs.append(max_err(got, want))
         log(f"[kernels] composite_fwd R={r} S={s}: max abs err {errs[-1]:.3g}")
     x = _composite_inputs(CHUNK, n_samples, seed=1)
@@ -169,9 +326,12 @@ def phase_kernels(n_samples: int):
     plain_ms = time_ms(lambda: composite_reference(*x))
     log(f"[kernels] composite_fwd R={CHUNK} S={n_samples}: kernel {ms:.4f} ms,"
         f" plain {plain_ms:.4f} ms")
+    bound = composite_fwd_bytes(CHUNK, n_samples) / HBM_BYTES_PER_S * 1e3
     report["composite_fwd"] = dict(max_abs_err=max(errs), ms=ms,
-                                   plain_ms=plain_ms)
+                                   plain_ms=plain_ms, bound_ms=bound,
+                                   bound_by="bytes", library_ms=None)
     del x
+    report["composite_bwd"] = check_composite_bwd()
 
     # H1: 2^20 points at the slice's field shape (8 levels x 4 channels,
     # 2^15 x 128 rows), dense levels, the other two lattice shapes, anchors
@@ -184,8 +344,8 @@ def phase_kernels(n_samples: int):
         got = packed_hash_encode(*args, c, pack, dense)
         want = packed_hash_encode_raw(*args, c, pack, dense)
         torch.cuda.synchronize()
-        assert_close([got], [want], rtol=0, atol=H1_ATOL,
-                     what=f"packed hash P={p} C={c} dense={dense}")
+        assert_close([got], [want], f"packed hash P={p} C={c} dense={dense}",
+                     atol=H1_ATOL)
         if not bool((got[args[4] < 0] == 0).all()):
             raise AssertionError("packed hash: masked anchors not zeroed")
         errs.append(max_err([got], [want]))
@@ -194,57 +354,71 @@ def phase_kernels(n_samples: int):
     del got, want, args
     torch.cuda.empty_cache()
     report["packed_hash_fwd"] = dict(max_abs_err=max(errs))
+    report["packed_hash_bwd"] = dict(max_abs_err=check_hash_bwd())
     return report
 
 
-def _plain_render(render_fn, field, oct_dev, o, d):
-    """The same render with every kernel wrapper swapped for its plain
-    version (the wrappers launch kernels for CUDA tensors).  Fails if a
-    kernel launched all the same, so the comparison is kernel vs plain."""
-    from gfnerf_tpu_torch.fields import field as field_mod
-    from gfnerf_tpu_torch.fields.packed_hash import (packed_hash_encode,
-                                                     packed_hash_encode_raw)
-    from gfnerf_tpu_torch.models import gfnerf as model_mod
-    from gfnerf_tpu_torch.ops.composite import (composite_reference,
-                                                fused_composite)
+def launch_counts() -> dict:
+    from gfnerf_tpu_torch.fields.packed_hash import packed_hash_encode
+    from gfnerf_tpu_torch.ops.composite import fused_composite
 
-    before = (fused_composite.launches, packed_hash_encode.launches)
-    saved = (model_mod.fused_composite, field_mod.packed_hash_encode)
-    model_mod.fused_composite = composite_reference
-    field_mod.packed_hash_encode = packed_hash_encode_raw
-    try:
-        out = render_fn(field, oct_dev, o, d, 0)
-    finally:
-        model_mod.fused_composite, field_mod.packed_hash_encode = saved
-    after = (fused_composite.launches, packed_hash_encode.launches)
-    if after != before:
-        raise AssertionError(f"plain render launched kernels: launch counts "
-                             f"{before} -> {after}")
-    return out
+    return {"composite_fwd": fused_composite.launches,
+            "composite_bwd": fused_composite.bwd_launches,
+            "packed_hash_fwd": packed_hash_encode.launches,
+            "packed_hash_bwd": packed_hash_encode.bwd_launches}
 
 
-def phase_slice():
+def reset_launch_counts() -> None:
+    from gfnerf_tpu_torch.fields.packed_hash import packed_hash_encode
+    from gfnerf_tpu_torch.ops.composite import fused_composite
+
+    fused_composite.launches = fused_composite.bwd_launches = 0
+    packed_hash_encode.launches = packed_hash_encode.bwd_launches = 0
+
+
+class plain_wrappers:
+    """Within the block the model runs the plain autograd pairs (plain
+    forward and plain backward) in place of the kernel wrappers; on exit
+    it fails if any kernel launched meanwhile."""
+
+    def __enter__(self):
+        from gfnerf_tpu_torch.fields import field as field_mod
+        from gfnerf_tpu_torch.fields.packed_hash import \
+            plain_packed_hash_encode
+        from gfnerf_tpu_torch.models import gfnerf as model_mod
+        from gfnerf_tpu_torch.ops.composite import plain_fused_composite
+
+        self.mods = (model_mod, field_mod)
+        self.saved = (model_mod.fused_composite, field_mod.packed_hash_encode)
+        model_mod.fused_composite = plain_fused_composite
+        field_mod.packed_hash_encode = plain_packed_hash_encode
+        self.before = launch_counts()
+        return self
+
+    def __exit__(self, *exc):
+        model_mod, field_mod = self.mods
+        model_mod.fused_composite, field_mod.packed_hash_encode = self.saved
+        after = launch_counts()
+        if exc[0] is None and after != self.before:
+            raise AssertionError(f"plain run launched kernels: launch counts "
+                                 f"{self.before} -> {after}")
+        return False
+
+
+def phase_render(wl):
+    """The render path: 4 training views and one 1920x1080 frame, counted;
+    one chunk against the plain versions; H1 timed on a frame chunk."""
     import torch
 
-    from gfnerf_tpu_torch.cameras.cameras import Cameras
-    from gfnerf_tpu_torch.fields.packed_hash import packed_hash_encode
     from gfnerf_tpu_torch.models.gfnerf import make_render_fn
-    from gfnerf_tpu_torch.ops.composite import fused_composite
     from gfnerf_tpu_torch.render_bench import (CHUNK, FRAME_WH, N_VIEWS,
-                                               build_workload, frame_rays,
-                                               render_camera, render_rays)
+                                               frame_rays, render_camera,
+                                               render_rays)
 
     dev = torch.device("cuda")
-    t0 = time.perf_counter()
-    wl = build_workload(dev, seed=0)
-    tree, scfg = wl["tree"], wl["scfg"]
-    log(f"[slice] workload in {time.perf_counter() - t0:.1f}s "
-        f"({', '.join(f'{k} {v:.1f}s' for k, v in wl['timings'].items())}):"
-        f" {tree.n_nodes} nodes, {int(wl['oct_dev'].n_leaves)} valid leaves, "
-        f"{tree.n_volumes} volumes; S={scfg.max_samples}, sample_l "
-        f"{scfg.sample_l:.6f}")
+    scfg = wl["scfg"]
     c2w, fx, fy, cx, cy, w, h = wl["cameras"]
-    cams = Cameras.from_numpy(c2w, fx, fy, cx, cy, w, h, device=dev)
+    cams = wl["cams"]
     field, oct_dev = wl["field"], wl["oct_dev"]
     render_fn = make_render_fn(wl["mcfg"], scfg)
     fo, fd = frame_rays(c2w[0], *FRAME_WH, dev)
@@ -254,9 +428,8 @@ def phase_slice():
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
 
-    # ---- the main path, counted ----
-    fused_composite.launches = 0
-    packed_hash_encode.launches = 0
+    # ---- the render path, counted ----
+    reset_launch_counts()
     t0 = time.perf_counter()
     views = [render_camera(render_fn, field, oct_dev, cams,
                            i * len(c2w) // N_VIEWS, CHUNK)
@@ -267,21 +440,20 @@ def phase_slice():
     frame = render_rays(render_fn, field, oct_dev, fo, fd, 0, CHUNK)
     torch.cuda.synchronize()
     t_frame = time.perf_counter() - t0
-    launches = {"composite_fwd": fused_composite.launches,
-                "packed_hash_fwd": packed_hash_encode.launches}
+    launches = launch_counts()
     peak = torch.cuda.max_memory_allocated()
 
     expected = n_view_chunks + n_frame_chunks
-    log(f"[slice] {N_VIEWS} views {w}x{h} in {t_views:.3f}s; frame "
+    log(f"[render] {N_VIEWS} views {w}x{h} in {t_views:.3f}s; frame "
         f"{FRAME_WH[0]}x{FRAME_WH[1]} ({n_frame_chunks} chunks of {CHUNK}) "
         f"in {t_frame:.3f}s = {t_frame:.4f} s/frame, "
         f"{n_frame / t_frame:.1f} rays/s; peak memory "
         f"{peak / 2**30:.2f} GiB")
-    log(f"[slice] launches {launches}, expected {expected} each")
+    log(f"[render] launches {launches}, expected {expected} of each forward "
+        f"and no backward")
     for name, n in launches.items():
-        if n != expected:
-            raise AssertionError(f"{name}: {n} launches on the main path, "
-                                 f"expected {expected}")
+        if n != (0 if name.endswith("_bwd") else expected):
+            raise AssertionError(f"{name}: {n} launches on the render path")
     for out, what in [(v, f"view {i}") for i, v in enumerate(views)] + [
             (frame, "frame")]:
         for k, v in out.items():
@@ -296,7 +468,7 @@ def phase_slice():
     if tuple(frame["rgb"].shape) != (n_frame, 3):
         raise AssertionError(f"frame rgb shape {tuple(frame['rgb'].shape)}")
     hit = float((frame["accumulation"] > 1e-3).float().mean())
-    log(f"[slice] outputs finite, accumulation in [0, 1]; frame rays with "
+    log(f"[render] outputs finite, accumulation in [0, 1]; frame rays with "
         f"accumulation > 1e-3: {hit:.4f}; mean rgb "
         f"{frame['rgb'].mean(0).tolist()}")
     if hit <= 0.0:
@@ -306,17 +478,47 @@ def phase_slice():
     mid = n_frame // 2 - COMPARE_RAYS // 2
     o, d = fo[mid:mid + COMPARE_RAYS], fd[mid:mid + COMPARE_RAYS]
     got = render_fn(field, oct_dev, o, d, 0)
-    want = _plain_render(render_fn, field, oct_dev, o, d)
+    with plain_wrappers():
+        want = render_fn(field, oct_dev, o, d, 0)
     torch.cuda.synchronize()
     errs = {k: float((got[k] - want[k]).abs().max()) for k in got}
-    log(f"[slice] {COMPARE_RAYS}-ray chunk, kernels vs plain versions: max "
+    log(f"[render] {COMPARE_RAYS}-ray chunk, kernels vs plain versions: max "
         f"abs err {errs} (atol {SLICE_ATOL})")
     for k, e in errs.items():
         if not e <= SLICE_ATOL:
-            raise AssertionError(f"slice chunk {k}: kernels vs plain {e}")
+            raise AssertionError(f"render chunk {k}: kernels vs plain {e}")
     stats = {"s_per_frame": t_frame, "rays_per_s": n_frame / t_frame,
              "peak_bytes": peak}
     return launches, stats, time_encode_on_chunk(wl, fo, fd)
+
+
+def _marched_points(wl, o, d, noise):
+    """The encode's inputs for one ray batch: normalized warped points and
+    anchors (P,), as field_density forms them."""
+    import torch
+
+    from gfnerf_tpu_torch.models.gfnerf import sample_rays
+    from gfnerf_tpu_torch.sampler.perssampler import warp_points
+
+    oct_dev, scfg = wl["oct_dev"], wl["scfg"]
+    with torch.no_grad():
+        samples = sample_rays(oct_dev, o, d, noise, 1.0, scfg)
+        anc = samples.trans_idx.reshape(-1)
+        warp = warp_points(oct_dev, anc.clamp(0, oct_dev.w2xz.shape[0] - 1),
+                           samples.world_pts.reshape(-1, 3))
+    return (warp + 1.5) * (1.0 / 3.0), anc
+
+
+def hash_fwd_bytes(p, n_levels, n_channels, table_numel) -> int:
+    """H1: output, points, anchors, and the table's f32 read and bf16
+    copy."""
+    return 4 * p * n_levels * n_channels + 12 * p + 4 * p + 6 * table_numel
+
+
+def hash_bwd_bytes(p, n_levels, n_channels, table_numel) -> int:
+    """H2: upstream gradient, points, anchors, and the f32 gradient's
+    zero-fill."""
+    return 4 * p * n_levels * n_channels + 12 * p + 4 * p + 4 * table_numel
 
 
 def time_encode_on_chunk(wl, fo, fd) -> dict:
@@ -324,39 +526,209 @@ def time_encode_on_chunk(wl, fo, fd) -> dict:
     chunk gives it: 32768 rays x 384 samples of marched, warped points."""
     import torch
 
-    from gfnerf_tpu_torch.fields.packed_hash import (pack_for_channels,
-                                                     packed_hash_encode,
+    from gfnerf_tpu_torch.fields.packed_hash import (_packed_hash_encode_cuda,
+                                                     pack_for_channels,
                                                      packed_hash_encode_raw)
-    from gfnerf_tpu_torch.models.gfnerf import sample_rays
     from gfnerf_tpu_torch.render_bench import CHUNK
-    from gfnerf_tpu_torch.sampler.perssampler import warp_points
 
-    field, oct_dev, scfg = wl["field"], wl["oct_dev"], wl["scfg"]
+    field, scfg = wl["field"], wl["scfg"]
     c = wl["fcfg"].features_per_level
     mid = (fo.shape[0] - CHUNK) // 2
+    o, d = fo[mid:mid + CHUNK], fd[mid:mid + CHUNK]
+    pts, anc = _marched_points(
+        wl, o, d, torch.ones((CHUNK, scfg.max_samples), device=o.device))
     with torch.no_grad():
-        o, d = fo[mid:mid + CHUNK], fd[mid:mid + CHUNK]
-        ones = torch.ones((CHUNK, scfg.max_samples), device=o.device)
-        samples = sample_rays(oct_dev, o, d, ones, 1.0, scfg)
-        anc = samples.trans_idx.reshape(-1)
-        warp = warp_points(oct_dev, anc.clamp(0, oct_dev.w2xz.shape[0] - 1),
-                           samples.world_pts.reshape(-1, 3))
-        pts = (warp + 1.5) * (1.0 / 3.0)        # as field_density normalizes
         args = (field.global_feat, field.global_prim, field.global_bias, pts,
-                anc, c, pack_for_channels(c))
-        got = packed_hash_encode(*args)
+                anc, c, pack_for_channels(c), 0)
+        got = _packed_hash_encode_cuda(*args)
         want = packed_hash_encode_raw(*args)
         torch.cuda.synchronize()
-        assert_close([got], [want], rtol=0, atol=H1_ATOL,
-                     what="packed hash on a frame chunk")
+        assert_close([got], [want], "packed hash on a frame chunk",
+                     atol=H1_ATOL)
         err = max_err([got], [want])
         del got, want
-        ms = time_ms(lambda: packed_hash_encode(*args))
+        ms = time_ms(lambda: _packed_hash_encode_cuda(*args))
         plain_ms = time_ms(lambda: packed_hash_encode_raw(*args), n=3)
-    log(f"[slice] packed_hash_fwd on a frame chunk (P={pts.shape[0]}, "
+    p = pts.shape[0]
+    table = field.global_feat
+    bound = hash_fwd_bytes(p, table.shape[0], c, table.numel()) \
+        / HBM_BYTES_PER_S * 1e3
+    log(f"[render] packed_hash_fwd on a frame chunk (P={p}, "
         f"{int((anc >= 0).sum())} valid): max abs err {err:.3g}; kernel "
-        f"{ms:.4f} ms, plain {plain_ms:.4f} ms")
-    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+        f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound:.4f} ms")
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound, "bound_by": "bytes", "library_ms": None}
+
+
+def time_hash_bwd_on_batch(wl, batch, noise) -> dict:
+    """H2, its plain version and index_add_ of the same precomputed
+    (rows, payload) terms, on the points one train batch gives it (8192
+    rays x 384 samples) and a random upstream gradient."""
+    import torch
+
+    from gfnerf_tpu_torch.cameras.cameras import generate_rays_multi
+    from gfnerf_tpu_torch.fields.packed_hash import (
+        _packed_hash_backward_cuda, pack_for_channels,
+        packed_hash_backward_reference, packed_hash_scatter_terms)
+
+    field = wl["field"]
+    c = wl["fcfg"].features_per_level
+    rays = generate_rays_multi(wl["cams"], batch["camera_indices"],
+                               batch["coords"])
+    pts, anc = _marched_points(wl, rays["origins"], rays["directions"], noise)
+    n_levels, n_rows, width = field.global_feat.shape
+    p = pts.shape[0]
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    g = torch.randn((p, n_levels * c), generator=gen, device="cuda")
+    args = (g, field.global_prim, field.global_bias, pts, anc, n_rows, width,
+            c, pack_for_channels(c), 0)
+    got = _packed_hash_backward_cuda(*args)
+    want = packed_hash_backward_reference(*args)
+    torch.cuda.synchronize()
+    assert_close([got], [want], "packed_hash_bwd on a train batch",
+                 atol_rel=H2_ATOL_REL)
+    err = max_err([got], [want])
+    del got, want
+    ms = time_ms(lambda: _packed_hash_backward_cuda(*args), n=11)
+    plain_ms = time_ms(lambda: packed_hash_backward_reference(*args), n=3)
+    terms = list(packed_hash_scatter_terms(*args))
+    rows = torch.cat([t[0] for t in terms])
+    payload = torch.cat([t[1] for t in terms])
+    del terms
+    n_out = n_levels * n_rows * width // c
+    library_ms = time_ms(lambda: torch.zeros(
+        (n_out, c), device="cuda").index_add_(0, rows, payload), n=5)
+    del rows, payload
+    torch.cuda.empty_cache()
+    bound = hash_bwd_bytes(p, n_levels, c, field.global_feat.numel()) \
+        / HBM_BYTES_PER_S * 1e3
+    log(f"[train] packed_hash_bwd on a train batch (P={p}, "
+        f"{int((anc >= 0).sum())} valid): max abs err {err:.3g}; kernel "
+        f"{ms:.4f} ms, plain {plain_ms:.4f} ms, index_add_ {library_ms:.4f} "
+        f"ms, bound {bound:.4f} ms")
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound, "bound_by": "bytes", "library_ms": library_ms}
+
+
+def phase_train(wl):
+    """The train path: TRAIN_STEPS init-stage steps at 8192 rays through
+    make_train_step, counted (one warm-up, TIMED_STEPS timed, the rest for
+    the loss check); the state checked; one step from a common state
+    against the plain autograd pairs; H2 timed on a train batch."""
+    import copy
+
+    import numpy as np
+    import torch
+
+    from gfnerf_tpu_torch.engine.optimizers import (field_param_grads,
+                                                    field_param_groups)
+    from gfnerf_tpu_torch.model_components.losses import s3im_permutations
+    from gfnerf_tpu_torch.models.gfnerf import TrainState
+    from gfnerf_tpu_torch.train_bench import RAYS, make_batch, run_steps
+
+    dev = torch.device("cuda")
+    field = wl["field"]
+    gen = torch.Generator(device=dev).manual_seed(0)
+    batches = [make_batch(wl["images"], RAYS, seed, dev)
+               for seed in range(TRAIN_STEPS + 1)]
+    groups0 = {k: [p.detach().clone() for p in ps]
+               for k, ps in field_param_groups(field).items()}
+    block0 = field.block_feats.detach().clone()
+    oct0 = {k: getattr(wl["oct_dev"], k).clone()
+            for k in ("weight_stats", "alpha_stats", "visit_cnt")}
+    torch.cuda.synchronize()
+
+    # ---- the train path, counted ----
+    reset_launch_counts()
+    warm, losses = run_steps(wl, batches[:1], gen)
+    torch.cuda.reset_peak_memory_stats()
+    times, more = run_steps(wl, batches[1:1 + TIMED_STEPS], gen)
+    peak = torch.cuda.max_memory_allocated()
+    _, rest = run_steps(wl, batches[1 + TIMED_STEPS:TRAIN_STEPS], gen)
+    launches = launch_counts()
+    losses += more + rest
+    dt = float(np.mean(times))
+    log(f"[train] warm-up step {warm[0]:.3f}s; {TIMED_STEPS} steps of {RAYS} "
+        f"rays: {dt:.4f} s/step (mean; {', '.join(f'{t:.4f}' for t in times)})"
+        f" = {RAYS / dt:.1f} rays/s; peak memory {peak / 2**30:.2f} GiB")
+    log(f"[train] launches {launches}, expected {TRAIN_STEPS} each")
+    for name, n in launches.items():
+        if n != TRAIN_STEPS:
+            raise AssertionError(f"{name}: {n} launches in {TRAIN_STEPS} "
+                                 f"train steps")
+
+    # ---- the state after training ----
+    log(f"[train] losses {[round(x, 5) for x in losses]}")
+    if not all(np.isfinite(losses)):
+        raise AssertionError("non-finite training loss")
+    first, last = losses[0], float(np.mean(losses[-5:]))
+    if not last < first:
+        raise AssertionError(f"loss did not fall: {first} -> mean of the last "
+                             f"5 {last}")
+    for name, gs in field_param_grads(field).items():
+        for i, g in enumerate(gs):
+            if g is not None and not bool(torch.isfinite(g).all()):
+                raise AssertionError(f"non-finite gradient {name}[{i}]")
+    for name, ps in field_param_groups(field).items():
+        if name == "block":
+            continue
+        for i, (p, p0) in enumerate(zip(ps, groups0[name])):
+            if torch.equal(p, p0):
+                raise AssertionError(f"{name}[{i}] did not change")
+    if not torch.equal(field.block_feats, block0):
+        raise AssertionError("block_feats changed at the init stage")
+    moved = {k: int((getattr(wl["oct_dev"], k) != v).sum())
+             for k, v in oct0.items()}
+    log(f"[train] loss {first:.5f} -> {last:.5f} (mean of the last 5); "
+        f"global_feat and all {len(groups0['fields'])} MLP/appearance "
+        f"tensors changed, block_feats unchanged; octree nodes whose stats "
+        f"moved: {moved}")
+    if not any(moved.values()):
+        raise AssertionError("the occupancy statistics did not move")
+
+    # ---- one step, kernels vs the plain autograd pairs ----
+    batch = batches[TRAIN_STEPS]
+    noise = torch.rand((RAYS, wl["scfg"].max_samples), generator=gen,
+                       device=dev) + 0.5
+    perms = s3im_permutations(RAYS, generator=gen, device=dev)
+    outs = {}
+    for kind in ("kernels", "plain"):
+        state = TrainState(field=copy.deepcopy(field),
+                           opt_state=copy.deepcopy(wl["state"].opt_state),
+                           step=wl["state"].step)
+        oct_dev = copy.deepcopy(wl["oct_dev"])
+        if kind == "plain":
+            with plain_wrappers():
+                _, _, metrics, _ = wl["step_fn"](
+                    state, oct_dev, wl["cams"], batch, 1.0, noise=noise,
+                    s3im_perms=perms)
+        else:
+            _, _, metrics, _ = wl["step_fn"](
+                state, oct_dev, wl["cams"], batch, 1.0, noise=noise,
+                s3im_perms=perms)
+        torch.cuda.synchronize()
+        outs[kind] = (float(metrics["loss"]), field_param_grads(state.field))
+    (loss_k, grads_k), (loss_p, grads_p) = outs["kernels"], outs["plain"]
+    rel = abs(loss_k - loss_p) / abs(loss_p)
+    log(f"[train] one step, kernels vs plain: loss {loss_k:.7f} vs "
+        f"{loss_p:.7f} (rel {rel:.3g}, tol {TRAIN_LOSS_RTOL})")
+    if not rel <= TRAIN_LOSS_RTOL:
+        raise AssertionError(f"train step loss: kernels vs plain rel {rel}")
+    for name in ("fields", "base_encoding_init"):
+        scale = max(float(g.abs().max()) for g in grads_p[name])
+        err = max(float((a - b).abs().max())
+                  for a, b in zip(grads_k[name], grads_p[name]))
+        log(f"[train] {name} gradients, kernels vs plain: max abs err "
+            f"{err:.3g}, largest {scale:.3g} (tol {TRAIN_GRAD_TOL} of it)")
+        if not err <= TRAIN_GRAD_TOL * scale:
+            raise AssertionError(f"{name} gradients: kernels vs plain {err}")
+    if grads_k["block"][0] is not None or grads_p["block"][0] is not None:
+        raise AssertionError("the block table got a gradient at init")
+    del outs, grads_k, grads_p
+    torch.cuda.empty_cache()
+    stats = {"s_per_step": dt, "rays_per_s": RAYS / dt, "peak_bytes": peak,
+             "step_seconds": times, "first_loss": first, "last_loss": last}
+    return launches, stats, time_hash_bwd_on_batch(wl, batch, noise)
 
 
 def main() -> int:
@@ -368,22 +740,46 @@ def main() -> int:
     card = phase_device()
     phase_build()
     report = phase_kernels(n_samples=384)
-    launches, slice_stats, encode = phase_slice()
+    import torch
+
+    from gfnerf_tpu_torch.train_bench import build_train_workload
+
+    t0 = time.perf_counter()
+    wl = build_train_workload(torch.device("cuda"), seed=0)
+    tree, scfg = wl["tree"], wl["scfg"]
+    log(f"[workload] in {time.perf_counter() - t0:.1f}s "
+        f"({', '.join(f'{k} {v:.1f}s' for k, v in wl['timings'].items())}):"
+        f" {tree.n_nodes} nodes, {int(wl['oct_dev'].n_leaves)} valid leaves, "
+        f"{tree.n_volumes} volumes; S={scfg.max_samples}, sample_l "
+        f"{scfg.sample_l:.6f}")
+    render_launches, render_stats, encode = phase_render(wl)
+    train_launches, train_stats, hash_bwd = phase_train(wl)
     report["packed_hash_fwd"]["max_abs_err"] = max(
         report["packed_hash_fwd"]["max_abs_err"], encode.pop("max_abs_err"))
     report["packed_hash_fwd"].update(encode)
-    import torch
+    report["packed_hash_bwd"]["max_abs_err"] = max(
+        report["packed_hash_bwd"]["max_abs_err"], hash_bwd.pop("max_abs_err"))
+    report["packed_hash_bwd"].update(hash_bwd)
 
     sources = {
         "composite_fwd": ("gfnerf_tpu_torch/csrc/composite_fwd.cu",
                           "gfnerf_tpu/ops/pallas/composite.py:80"),
+        "composite_bwd": ("gfnerf_tpu_torch/csrc/composite_bwd.cu",
+                          "gfnerf_tpu/ops/pallas/composite.py:112"),
         "packed_hash_fwd": ("gfnerf_tpu_torch/csrc/packed_hash_fwd.cu",
                             "gfnerf_tpu/fields/packed_hash.py:202"),
+        "packed_hash_bwd": ("gfnerf_tpu_torch/csrc/packed_hash_bwd.cu",
+                            "gfnerf_tpu/fields/packed_hash.py:490"),
     }
     kernels = [{"name": name, "route": "cuda", "source": src,
-                "replaces": rep, "launches": launches[name], **report[name]}
+                "replaces": rep,
+                "launches": render_launches[name] + train_launches[name],
+                "launches_by_path": {"render": render_launches[name],
+                                     "train": train_launches[name]},
+                **report[name]}
                for name, (src, rep) in sources.items()]
-    log(f"[slice] {json.dumps(slice_stats)}")
+    log(f"[render] {json.dumps(render_stats)}")
+    log(f"[train] {json.dumps(train_stats)}")
     log(json.dumps({"kernels": kernels}))
     log(card)
     print(json.dumps({"ok": True, "device": {

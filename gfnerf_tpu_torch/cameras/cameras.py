@@ -32,7 +32,7 @@ class Cameras:
 
     @classmethod
     def from_numpy(cls, c2w, fx, fy, cx, cy, width, height,
-                   device="cpu") -> "Cameras":
+                   device="cuda") -> "Cameras":
         n = len(c2w)
 
         def f32(x):

@@ -3,11 +3,8 @@
 // Replaces gfnerf_tpu/fields/packed_hash.py:202 (packed_hash_encode_raw) and
 // :262 (_interp_level), which the JAX package builds from XLA gathers; it is
 // the same kernel class as the reference's Hash3DAnchored_cuda.cu. Per
-// (point, level):
-//   fma(p, scale_l, bias[level, vol]) -> supercell s, local cell l, fraction f
-//   row = (sx*ux ^ sy*uy ^ sz*uz) & (rows - 1)   (uint32, packed_hash.py:154)
-//         or the dense address vol*m^3 + (s mod m) . (m^2, m, 1) on the
-//         first dense levels (packed_hash.py:163-199)
+// (point, level), with the addressing of packed_hash_common.cuh (supercell,
+// local cell, fraction, hash or dense row):
 //   out[p, level*C + c] = trilinear sum over the cell's 8 corners, read from
 //         the row's [i][j][k][c] lattice at offsets (l + {0,1}) per axis.
 // Output is (P, L*C) f32, multiplied by (anchor >= 0) as the JAX encode does.
@@ -17,12 +14,13 @@
 // (point, level), threads of one point adjacent so the C output floats of a
 // point's levels are written contiguously; each thread reads only the 8
 // corners' C channels (C*2 bytes each, one vector load) instead of the whole
-// 256-byte row. The coordinate uses fmaf, as the fused XLA code does; the
-// corner sums follow _interp_level's z -> y -> x order.
+// 256-byte row. The corner sums follow _interp_level's z -> y -> x order.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "packed_hash_common.cuh"
 
 namespace {
 
@@ -63,21 +61,6 @@ struct Corner<8> {
   }
 };
 
-// floor(cell / PACK) as packed_hash._div_pack computes it (logical shift for
-// powers of two, multiply-shift for 3).
-template <int PACK>
-__device__ __forceinline__ int div_pack(int cell) {
-  if (PACK == 1) return cell;
-  if (PACK == 2) return (int)((unsigned)cell >> 1);
-  if (PACK == 3) return (int)(((unsigned)cell * 21846u) >> 16);
-  return cell / PACK;
-}
-
-__device__ __forceinline__ int pos_mod(int a, int m) {
-  const int r = a % m;
-  return r < 0 ? r + m : r;
-}
-
 template <int E, int C>
 __global__ void packed_hash_fwd_kernel(
     const __nv_bfloat16* __restrict__ table,  // (L, rows, W) bf16
@@ -89,43 +72,17 @@ __global__ void packed_hash_fwd_kernel(
     const int* __restrict__ anchors,          // (P,)
     float* __restrict__ out,                  // (P, L*C)
     long long n_points, int n_levels, int n_volumes, int n_rows, int width) {
-  constexpr int PACK = E - 1;
   const long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (t >= n_points * n_levels) return;
   const long long p = t / n_levels;
   const int l = (int)(t - p * n_levels);
 
-  const int anchor = anchors[p];
-  const float valid = anchor >= 0 ? 1.f : 0.f;
-  const int vol = min(max(anchor, 0), n_volumes - 1);
-  const int lv = (l * n_volumes + vol) * 3;
-  const float scale = scales[l];
-
-  int sup[3], loc[3];
-  float frac[3];
-#pragma unroll
-  for (int a = 0; a < 3; ++a) {
-    const float pk = fmaf(points[p * 3 + a], scale, bias[lv + a]);
-    const float cf = floorf(pk);
-    frac[a] = pk - cf;
-    const int cell = (int)cf;
-    sup[a] = div_pack<PACK>(cell);
-    loc[a] = (int)((unsigned)cell - (unsigned)sup[a] * (unsigned)PACK);
-  }
-
-  unsigned row;
-  const int m = dense_m[l];
-  if (m > 0) {
-    const long long h = (long long)vol * m * m * m +
-                        (long long)pos_mod(sup[0], m) * m * m +
-                        (long long)pos_mod(sup[1], m) * m + pos_mod(sup[2], m);
-    row = (unsigned)min(h, (long long)(n_rows - 1));
-  } else {
-    row = (((unsigned)sup[0] * (unsigned)primes[lv + 0]) ^
-           ((unsigned)sup[1] * (unsigned)primes[lv + 1]) ^
-           ((unsigned)sup[2] * (unsigned)primes[lv + 2])) &
-          (unsigned)(n_rows - 1);
-  }
+  const gfnerf::HashCell cell = gfnerf::locate<E - 1>(
+      primes, bias, scales, dense_m, points, anchors, p, l, n_volumes,
+      n_rows);
+  const float valid = cell.valid ? 1.f : 0.f;
+  const float* frac = cell.frac;
+  const unsigned row = cell.row;
   const __nv_bfloat16* rp = table + ((size_t)l * n_rows + row) * width;
 
   float res[C];
@@ -147,20 +104,11 @@ __global__ void packed_hash_fwd_kernel(
   } else {
     // per-axis weights (1-f) at lattice position l and f at l+1; the other
     // entries of _interp_level's factorized sum have weight 0 and add exact
-    // zeros. A position outside [0, E) (a cell the valid range never gives)
-    // gets weight 0, as in _interp_level, and its read is clamped in-row.
+    // zeros.
     float wt[3][2];
     int q[3][2];
-#pragma unroll
-    for (int a = 0; a < 3; ++a) {
-#pragma unroll
-      for (int u = 0; u < 2; ++u) {
-        const int pos = loc[a] + u;
-        const bool inside = pos >= 0 && pos < E;
-        wt[a][u] = inside ? (u == 0 ? 1.f - frac[a] : frac[a]) : 0.f;
-        q[a][u] = min(max(pos, 0), E - 1);
-      }
-    }
+    bool inside[3][2];
+    gfnerf::axis_factors<E>(cell, wt, q, inside);
     const float* wx = wt[0];
     const float* wy = wt[1];
     const float* wz = wt[2];

@@ -1,0 +1,204 @@
+"""Per-group Adam over the field's parameters.
+
+Port of ``gfnerf_tpu/engine/optimizers.py`` (nerfstudio's per-group
+optimizers with GF-NeRF's optimizer swapping, nerfacto.py:448-489).  The
+parameters fall into four groups: "fields" (the MLPs and the appearance
+embedding), "base_encoding_init" (the global hash table), "block" (the
+active focal residual table) and "camera_opt".  Each group runs the chain
+the JAX package builds with optax, in its order:
+
+    Adam scaling (b1, b2, eps 1e-15) -> + weight_decay * param
+    -> * schedule(count) -> * -1
+
+with its own Adam moments.  Adam's bias correction and the schedule read
+the count of applied updates, not the train step; the groups share it,
+since an update is applied to all groups or to none: it is skipped,
+moments and count left where they were, when any gradient is not finite
+(``optax.apply_if_finite``).  A gradient of None is a
+structural zero (a group that is not in the step's graph, as the block
+table at the init stage): its moments stay unallocated while they are
+zero, and its update is the weight decay alone.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, List, Optional
+
+import torch
+
+from gfnerf_tpu_torch.engine.schedulers import (
+    GFNerfExponentialDecaySchedulerConfig, gfnerf_exponential_decay_schedule)
+from gfnerf_tpu_torch.fields.field import STAGE_BLOCK, GFNeRFField
+
+GROUPS = ("fields", "base_encoding_init", "block", "camera_opt")
+
+
+@dataclasses.dataclass
+class OptimizersConfig:
+    fields_lr_init: float = 1e-2
+    fields_lr_final: float = 1e-4
+    block_lr_init: float = 5e-3          # nerfacto.py:481
+    block_weight_decay: float = 0.0
+    adam_eps: float = 1e-15
+    adam_b1: float = 0.9
+    adam_b2: float = 0.999
+    camera_opt_lr: float = 6e-4          # config.py:84
+    steps_perssampler_init: int = 30000
+    steps_per_split_dataset: int = 10000
+    n_split_dataset: int = 10
+    n_dataset_circles: int = 1
+
+
+def field_param_groups(field: GFNeRFField) -> Dict[str, List[torch.Tensor]]:
+    """The optimizer's parameters by group.  The "block" group holds block
+    0's table, a view into ``field.block_feats``: at the init stage, the
+    only one ported, it is the placeholder slice the JAX package's
+    ``optimizer_arg`` passes; "camera_opt" is empty (the camera optimizer is
+    not ported)."""
+    return {
+        "fields": [*field.base_net.w, *field.base_net.b, *field.mlp_head.w,
+                   *field.mlp_head.b, field.appearance_embedding],
+        "base_encoding_init": [field.global_feat],
+        "block": ([] if field.block_feats is None
+                  else [field.block_feats[0]]),
+        "camera_opt": [],
+    }
+
+
+def field_param_grads(field: GFNeRFField) -> Dict[str, list]:
+    """The gradients of :func:`field_param_groups`' parameters (None where
+    the backward reached none); the block table's is block 0's slice of
+    ``field.block_feats.grad``."""
+    grads = {name: [p.grad for p in ps]
+             for name, ps in field_param_groups(field).items()
+             if name != "block"}
+    block = field.block_feats
+    grads["block"] = ([] if block is None else [
+        None if block.grad is None else block.grad[0]])
+    return grads
+
+
+@dataclasses.dataclass
+class OptState:
+    """Adam's moments by group (None: all zero), the count of applied
+    updates, and the count of skipped ones."""
+
+    count: int
+    mu: Dict[str, List[Optional[torch.Tensor]]]
+    nu: Dict[str, List[Optional[torch.Tensor]]]
+    total_notfinite: int = 0
+    last_finite: bool = True
+
+
+def mask_frozen_grads(grads: Dict[str, list], stage: int) -> Dict[str, list]:
+    """Zero the gradients (or updates) of the groups a stage freezes: none
+    at the init stage; all but "block" at the block stage
+    (nerfacto_field.py:459-461, 527-529, 548-551)."""
+    if stage != STAGE_BLOCK:
+        return grads
+    return {name: (gs if name == "block" else
+                   [None if g is None else torch.zeros_like(g) for g in gs])
+            for name, gs in grads.items()}
+
+
+def _bias_correction(decay: float, count: int) -> float:
+    """1 - decay**count in float32, as optax computes it: f32(0.999) is not
+    0.999, and the difference reaches the update."""
+    return float(1.0 - torch.tensor(decay, dtype=torch.float32) ** count)
+
+
+class PerGroupAdam:
+    """``build_optimizer``'s transformation: ``init`` the state for a dict
+    of parameter groups, ``update`` it with a dict of gradients."""
+
+    def __init__(self, cfg: OptimizersConfig):
+        self.cfg = cfg
+        sched_cfg = GFNerfExponentialDecaySchedulerConfig(
+            lr_final=cfg.fields_lr_final,
+            max_steps=cfg.steps_perssampler_init,
+            n_split_dataset=cfg.n_split_dataset,
+            n_dataset_circles=cfg.n_dataset_circles,
+            steps_per_split_dataset=cfg.steps_per_split_dataset,
+            steps_perssampler_init=cfg.steps_perssampler_init)
+        lr = {"fields": cfg.fields_lr_init,
+              "base_encoding_init": cfg.fields_lr_init,
+              "block": cfg.block_lr_init, "camera_opt": cfg.camera_opt_lr}
+        self.schedules = {name: gfnerf_exponential_decay_schedule(
+            sched_cfg, lr[name]) for name in GROUPS}
+        self.weight_decay = {name: 0.0 for name in GROUPS}
+        self.weight_decay["block"] = cfg.block_weight_decay
+
+    def init(self, params: Dict[str, list]) -> OptState:
+        return OptState(count=0,
+                        mu={name: [None] * len(ps)
+                            for name, ps in params.items()},
+                        nu={name: [None] * len(ps)
+                            for name, ps in params.items()})
+
+    def update(self, grads: Dict[str, list], state: OptState,
+               params: Dict[str, list]):
+        """(updates, new state): one update per parameter (None where it is
+        exactly zero), or, if any gradient is not finite, no update and the
+        old moments and counts."""
+        given = [g for gs in grads.values() for g in gs if g is not None]
+        # one reduction on the device and one wait for it
+        finite = not given or bool(torch.stack(
+            [torch.isfinite(g).all() for g in given]).all())
+        if not finite:
+            return ({name: [None] * len(gs) for name, gs in grads.items()},
+                    dataclasses.replace(
+                        state, total_notfinite=state.total_notfinite + 1,
+                        last_finite=False))
+        new = OptState(count=state.count + 1, mu={}, nu={},
+                       total_notfinite=state.total_notfinite)
+        updates = {}
+        for name, gs in grads.items():
+            updates[name], new.mu[name], new.nu[name] = self._update_group(
+                name, gs, state.mu[name], state.nu[name], params[name],
+                state.count)
+        return updates, new
+
+    def _update_group(self, name, grads, mus, nus, params, count):
+        """(updates, mu, nu) of one group; ``count`` updates came before."""
+        cfg = self.cfg
+        b1, b2, eps = cfg.adam_b1, cfg.adam_b2, cfg.adam_eps
+        wd = self.weight_decay[name]
+        step_size = None
+        updates, new_mu, new_nu = [], [], []
+        for g, mu, nu, p in zip(grads, mus, nus, params):
+            if g is None and mu is None:
+                # Adam of a zero gradient with zero moments is exactly 0
+                u = None
+            else:
+                if g is None:
+                    g = torch.zeros_like(p)
+                g = g.to(torch.float32)
+                mu = (1 - b1) * g + (b1 * mu if mu is not None else 0.0)
+                nu = (1 - b2) * (g * g) + (b2 * nu if nu is not None else 0.0)
+                u = (mu / _bias_correction(b1, count + 1)) / (
+                    torch.sqrt(nu / _bias_correction(b2, count + 1)) + eps)
+            if wd:
+                u = (wd * p.detach()) if u is None else u + wd * p.detach()
+            if u is not None:
+                if step_size is None:   # float32 -> float: exact
+                    step_size = float(self.schedules[name](count))
+                u = -(u * step_size)
+            updates.append(u)
+            new_mu.append(mu)
+            new_nu.append(nu)
+        return updates, new_mu, new_nu
+
+
+def build_optimizer(cfg: OptimizersConfig) -> PerGroupAdam:
+    """The per-group Adam of ``gfnerf_tpu``'s ``build_optimizer``."""
+    return PerGroupAdam(cfg)
+
+
+@torch.no_grad()
+def apply_updates(params: Dict[str, list], updates: Dict[str, list]) -> None:
+    """Add each update to its parameter in place."""
+    for name, ps in params.items():
+        for p, u in zip(ps, updates[name]):
+            if u is not None:
+                p.add_(u)

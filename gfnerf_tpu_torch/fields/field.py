@@ -22,7 +22,6 @@ from typing import Optional
 import numpy as np
 import torch
 from torch import nn
-from torch.profiler import record_function
 
 from gfnerf_tpu_torch.fields.activations import trunc_exp
 from gfnerf_tpu_torch.fields.hash_encoding import N_CHANNELS, N_LEVELS
@@ -33,8 +32,10 @@ from gfnerf_tpu_torch.fields.packed_hash import (
     packed_hash_encode,
 )
 from gfnerf_tpu_torch.fields.sh_encoding import sh_encode_deg4
+from gfnerf_tpu_torch.utils.profiling import span
 
 STAGE_INIT = 0
+STAGE_BLOCK = 1
 
 
 @dataclasses.dataclass
@@ -163,7 +164,7 @@ class GFNeRFField(nn.Module):
     """The field's parameters (``nn.Parameter``) and hash state (buffers)."""
 
     def __init__(self, cfg: FieldConfig, params: FieldParams,
-                 statics: FieldStatics, device="cpu"):
+                 statics: FieldStatics, device="cuda"):
         super().__init__()
         _check_supported(cfg)
         self.cfg = cfg
@@ -213,7 +214,7 @@ class GFNeRFField(nn.Module):
 
 
 def params_from_jax(params, statics, cfg: FieldConfig,
-                    device="cpu") -> GFNeRFField:
+                    device="cuda") -> GFNeRFField:
     """A :class:`GFNeRFField` holding the JAX package's ``FieldParams`` and
     ``FieldStatics`` (any objects with those attributes whose leaves convert
     with ``np.asarray``)."""
@@ -251,11 +252,11 @@ def field_density(field: GFNeRFField, warp_pts: torch.Tensor,
     pts = ((warp_pts + 1.5) * (1.0 / 3.0)).reshape(-1, 3)
     anc = anchors.reshape(-1)
     pack = pack_for_channels(cfg.features_per_level, cfg.packed_row_width)
-    with record_function("render/encode"):
+    with span("encode"):
         feats = packed_hash_encode(field.global_feat, field.global_prim,
                                    field.global_bias, pts, anc,
                                    cfg.features_per_level, pack)
-    with record_function("render/base_mlp"):
+    with span("base_mlp"):
         h = apply_mlp(field.base_net, feats, compute_dtype=_mlp_dt(cfg))
         density = trunc_exp(h[:, 0] + cfg.density_bias) * (anc >= 0)
     return (density.reshape(lead_shape),

@@ -36,7 +36,7 @@ def init_mlp(
 class MLP(nn.Module):
     """Parameters of one MLP: ``w[i]`` (in, out) and ``b[i]`` (out,)."""
 
-    def __init__(self, params: dict, device="cpu"):
+    def __init__(self, params: dict, device="cuda"):
         super().__init__()
         self.w = nn.ParameterList(
             [nn.Parameter(torch.tensor(np.asarray(w, np.float32),

@@ -1,4 +1,4 @@
-"""Packed (supercell) anchored hash encoding, forward.
+"""Packed (supercell) anchored hash encoding, forward and table gradient.
 
 Port of ``gfnerf_tpu/fields/packed_hash.py``: the table is keyed by
 *supercell* (a cube of ``pack``^3 grid cells) and each row holds the feature
@@ -6,11 +6,15 @@ vectors of the supercell's whole ``(pack+1)^3`` corner lattice, padded to
 ``row_width``.  One row per (point, level) serves every corner of the
 trilinear interpolation.
 
-``packed_hash_encode_raw`` is the plain PyTorch version (the JAX package's
-XLA formulation, op for op); ``packed_hash_encode`` is the kernel wrapper: on
-a CPU tensor it runs the plain version, on a CUDA tensor it launches
-``csrc/packed_hash_fwd.cu`` or raises.  The backward (``_phe_bwd``) and the
-block-routed encode are not ported yet.
+``packed_hash_encode_raw`` is the plain PyTorch forward (the JAX package's
+XLA formulation, op for op) and ``packed_hash_backward_reference`` the plain
+dense table gradient (what the JAX package's ``_phe_bwd`` computes, summed
+in f32).  ``packed_hash_encode`` is the differentiable wrapper, with a
+gradient for the table only, as ``_phe_bwd`` has: on CPU tensors it runs
+the plain pair, on CUDA tensors the forward launches
+``csrc/packed_hash_fwd.cu`` (H1) and the backward ``csrc/packed_hash_bwd.cu``
+(H2), or raises.  ``plain_packed_hash_encode`` is the same function through
+the plain pair on any device.  The block-routed encode is not ported yet.
 
 Coordinates: the grid coordinate of level l is ``p * scale_l + bias``, which
 XLA contracts into one fused multiply-add in the jitted JAX encode.  The
@@ -21,6 +25,8 @@ jitted JAX encode.
 """
 
 from __future__ import annotations
+
+import itertools
 
 import numpy as np
 import torch
@@ -254,67 +260,195 @@ def _interp_level(rows, fx, fy, fz, lx, ly, lz, e, n_channels):
     return chans
 
 
+def packed_hash_scatter_terms(g, prim_pool, bias_pool, points, anchors,
+                              n_rows, row_width, n_channels, pack,
+                              dense_levels=0):
+    """The table gradient's terms, one (rows, payload) pair per (level,
+    corner): ``rows`` (P,) indexes the gradient viewed as
+    (L * n_rows * row_width / C, C) rows of C channels, and ``payload``
+    (P, C) is the corner's trilinear weight ``(wx * wy) * wz`` times the
+    point's upstream gradient.  The row and the per-axis (local cell,
+    fraction) are recomputed exactly as the forward computes them.  Lattice
+    entries outside the cell have weight exactly 0 (``_lattice_weights``)
+    and are not among the terms; points with anchor < 0 add zeros."""
+    n_levels, n_volumes = prim_pool.shape[:2]
+    C = n_channels
+    if row_width % C:
+        raise ValueError(f"row width {row_width} is not a multiple of {C} "
+                         f"channels")
+    e = pack + 1
+    p = points.shape[0]
+    valid = (anchors >= 0).to(torch.float32)
+    g = g.reshape(p, n_levels, C).to(torch.float32) * valid[:, None, None]
+    vol, prims, biases = _anchor_rows(prim_pool, bias_pool, anchors)
+    scales = _level_scales(n_levels)
+    dm, _ = dense_level_extents(n_levels, pack, n_volumes, n_rows,
+                                dense_levels)
+    for l in range(n_levels):
+        h, loc, frac = _level_coords(points, prims[l], biases[l], scales[l],
+                                     vol, pack, n_rows, int(dm[l]))
+        row_base = (l * n_rows + h) * (row_width // C)
+        wts = [(1.0 - f, f) for f in frac]
+        for corner in itertools.product((0, 1), repeat=3):
+            pos = [lc + u for lc, u in zip(loc, corner)]
+            inside = ((pos[0] >= 0) & (pos[0] < e) & (pos[1] >= 0)
+                      & (pos[1] < e) & (pos[2] >= 0) & (pos[2] < e))
+            w = (wts[0][corner[0]] * wts[1][corner[1]]
+                 * wts[2][corner[2]]) * inside
+            q = [x.clamp(0, e - 1) for x in pos]
+            yield row_base + (q[0] * e + q[1]) * e + q[2], w[:, None] * g[:, l]
+
+
+def packed_hash_backward_reference(g, prim_pool, bias_pool, points, anchors,
+                                   n_rows, row_width, n_channels, pack,
+                                   dense_levels=0):
+    """Plain dense table gradient (L, n_rows, row_width) f32 of the encode:
+    every term of :func:`packed_hash_scatter_terms` added with
+    ``index_add_``.  Columns past ``lattice * C`` stay zero."""
+    n_levels = prim_pool.shape[0]
+    grad = torch.zeros((n_levels * n_rows * row_width // n_channels,
+                        n_channels), dtype=torch.float32, device=g.device)
+    for rows, payload in packed_hash_scatter_terms(
+            g, prim_pool, bias_pool, points, anchors, n_rows, row_width,
+            n_channels, pack, dense_levels):
+        grad.index_add_(0, rows, payload)
+    return grad.view(n_levels, n_rows, row_width)
+
+
+class _PackedHashEncode(torch.autograd.Function):
+    """H1 forward and H2 table gradient on CUDA tensors; the plain pair on
+    CPU tensors or when ``plain`` is set.  No gradient flows to the points,
+    primes, biases or anchors (``_phe_bwd`` returns None for them)."""
+
+    @staticmethod
+    def forward(ctx, feat_pool, prim_pool, bias_pool, points, anchors,
+                n_channels, pack, dense_levels, plain):
+        ctx.save_for_backward(prim_pool, bias_pool, points, anchors)
+        ctx.table_shape = tuple(feat_pool.shape)
+        ctx.args = (n_channels, pack, dense_levels)
+        ctx.plain = plain or points.device.type == "cpu"
+        if ctx.plain:
+            return packed_hash_encode_raw(feat_pool, prim_pool, bias_pool,
+                                          points, anchors, n_channels, pack,
+                                          dense_levels)
+        return _packed_hash_encode_cuda(feat_pool, prim_pool, bias_pool,
+                                        points, anchors, n_channels, pack,
+                                        dense_levels)
+
+    @staticmethod
+    def backward(ctx, g):
+        if not ctx.needs_input_grad[0]:
+            return (None,) * 9
+        prim_pool, bias_pool, points, anchors = ctx.saved_tensors
+        _, n_rows, row_width = ctx.table_shape
+        args = (g, prim_pool, bias_pool, points, anchors, n_rows, row_width,
+                *ctx.args)
+        if ctx.plain:
+            grad = packed_hash_backward_reference(*args)
+        else:
+            grad = _packed_hash_backward_cuda(*args)
+        return (grad,) + (None,) * 8
+
+
 def packed_hash_encode(feat_pool, prim_pool, bias_pool, points, anchors,
                        n_channels: int, pack: int, dense_levels: int = 0):
-    """Forward packed encoding: the plain version for CPU tensors, the CUDA
-    kernel (``csrc/packed_hash_fwd.cu``) for CUDA tensors."""
-    if points.device.type == "cpu":
-        return packed_hash_encode_raw(feat_pool, prim_pool, bias_pool, points,
-                                      anchors, n_channels, pack, dense_levels)
-    return _packed_hash_encode_cuda(feat_pool, prim_pool, bias_pool, points,
-                                    anchors, n_channels, pack, dense_levels)
+    """Packed encoding (P, L * n_channels), differentiable in ``feat_pool``:
+    the plain pair for CPU tensors, the CUDA kernels (``csrc/
+    packed_hash_fwd.cu``, ``csrc/packed_hash_bwd.cu``) for CUDA tensors."""
+    return _PackedHashEncode.apply(feat_pool, prim_pool, bias_pool, points,
+                                   anchors, n_channels, pack, dense_levels,
+                                   False)
 
 
-packed_hash_encode.launches = 0
+def plain_packed_hash_encode(feat_pool, prim_pool, bias_pool, points,
+                             anchors, n_channels: int, pack: int,
+                             dense_levels: int = 0):
+    """``packed_hash_encode`` through the plain forward and backward on any
+    device (launches no kernel)."""
+    return _PackedHashEncode.apply(feat_pool, prim_pool, bias_pool, points,
+                                   anchors, n_channels, pack, dense_levels,
+                                   True)
+
+
+packed_hash_encode.launches = 0       # H1 launches
+packed_hash_encode.bwd_launches = 0   # H2 launches
+
+
+def _kernel_args(what, prim_pool, bias_pool, points, anchors, n_levels,
+                 n_rows, row_width, n_channels, pack, dense_levels, tensors):
+    """Check what both kernels take and return the device tensors of the
+    addressing: (primes i32, bias, scales, dense_m, points, anchors i32)."""
+    n_volumes = prim_pool.shape[1]
+    e = pack + 1
+    dev = points.device
+    if dev.type != "cuda":
+        raise ValueError(f"{what}: unsupported device {dev}")
+    if (e, n_channels) not in KERNEL_SHAPES:
+        raise ValueError(f"{what}: no kernel for lattice edge {e} x "
+                         f"{n_channels} channels (have {KERNEL_SHAPES})")
+    if e ** 3 * n_channels > row_width or row_width % 8:
+        raise ValueError(f"{what}: row width {row_width} does not hold a "
+                         f"{e}^3 x {n_channels} lattice in 16-byte aligned "
+                         f"rows")
+    if n_rows & (n_rows - 1):
+        raise ValueError(f"{what}: {n_rows} rows is not a power of two")
+    for name, t in (("prim_pool", prim_pool), ("bias_pool", bias_pool),
+                    ("anchors", anchors), *tensors):
+        if t.device != dev:
+            raise ValueError(f"{what}: {name} on {t.device}, points on {dev}")
+    if (points.dim() != 2 or points.shape[1] != 3
+            or points.dtype != torch.float32):
+        raise ValueError(f"{what}: points must be (P, 3) f32, got "
+                         f"{tuple(points.shape)} {points.dtype}")
+    p = points.shape[0]
+    if anchors.shape != (p,):
+        raise ValueError(f"{what}: anchors {tuple(anchors.shape)} != ({p},)")
+    scales = torch.as_tensor(_level_scales(n_levels), device=dev)
+    dm, _ = dense_level_extents(n_levels, pack, n_volumes, n_rows,
+                                dense_levels)
+    return (prim_pool.to(torch.int32).contiguous(),   # values < 2^30
+            bias_pool.to(torch.float32).contiguous(), scales,
+            torch.as_tensor(dm, dtype=torch.int32, device=dev),
+            points.contiguous(), anchors.to(torch.int32).contiguous())
 
 
 def _packed_hash_encode_cuda(feat_pool, prim_pool, bias_pool, points,
                              anchors, n_channels, pack, dense_levels):
     n_levels, n_rows, row_width = feat_pool.shape
-    n_volumes = prim_pool.shape[1]
-    e = pack + 1
-    dev = points.device
-    if points.device.type != "cuda":
-        raise ValueError(f"packed_hash_encode: unsupported device {dev}")
-    if (e, n_channels) not in KERNEL_SHAPES:
-        raise ValueError(f"packed_hash_encode: no kernel for lattice edge {e} "
-                         f"x {n_channels} channels (have {KERNEL_SHAPES})")
-    if e ** 3 * n_channels > row_width or row_width % 8:
-        raise ValueError(f"packed_hash_encode: row width {row_width} does not "
-                         f"hold a {e}^3 x {n_channels} lattice in 16-byte "
-                         f"aligned rows")
-    if n_rows & (n_rows - 1):
-        raise ValueError(f"packed_hash_encode: {n_rows} rows is not a power "
-                         f"of two")
-    for name, t in (("feat_pool", feat_pool), ("prim_pool", prim_pool),
-                    ("bias_pool", bias_pool), ("anchors", anchors)):
-        if t.device != dev:
-            raise ValueError(f"packed_hash_encode: {name} on {t.device}, "
-                             f"points on {dev}")
-    if (points.dim() != 2 or points.shape[1] != 3
-            or points.dtype != torch.float32):
-        raise ValueError(f"packed_hash_encode: points must be (P, 3) f32, got "
-                         f"{tuple(points.shape)} {points.dtype}")
-    p = points.shape[0]
-    if anchors.shape != (p,):
-        raise ValueError(f"packed_hash_encode: anchors {tuple(anchors.shape)} "
-                         f"!= ({p},)")
+    addr = _kernel_args("packed_hash_encode", prim_pool, bias_pool, points,
+                        anchors, n_levels, n_rows, row_width, n_channels,
+                        pack, dense_levels, [("feat_pool", feat_pool)])
     table = feat_pool.to(torch.bfloat16).contiguous()
-    primes = prim_pool.to(torch.int32).contiguous()   # values < 2^30
-    bias = bias_pool.to(torch.float32).contiguous()
-    scales = torch.as_tensor(_level_scales(n_levels), device=dev)
-    dm, _ = dense_level_extents(n_levels, pack, n_volumes, n_rows,
-                                dense_levels)
-    dense_m = torch.as_tensor(dm, dtype=torch.int32, device=dev)
-    pts = points.contiguous()
-    anc = anchors.to(torch.int32).contiguous()
+    p = points.shape[0]
     out = torch.empty((p, n_levels * n_channels), dtype=torch.float32,
-                      device=dev)
+                      device=points.device)
     err = build.library().gfnerf_packed_hash_fwd(
-        table.data_ptr(), primes.data_ptr(), bias.data_ptr(),
-        scales.data_ptr(), dense_m.data_ptr(), pts.data_ptr(),
-        anc.data_ptr(), out.data_ptr(), p, n_levels, n_volumes, n_rows,
-        row_width, n_channels, e, torch.cuda.current_stream(dev).cuda_stream)
+        table.data_ptr(), *(t.data_ptr() for t in addr), out.data_ptr(), p,
+        n_levels, prim_pool.shape[1], n_rows, row_width, n_channels, pack + 1,
+        torch.cuda.current_stream(points.device).cuda_stream)
     build.check(err, "gfnerf_packed_hash_fwd")
     packed_hash_encode.launches += 1
     return out
+
+
+def _packed_hash_backward_cuda(g, prim_pool, bias_pool, points, anchors,
+                               n_rows, row_width, n_channels, pack,
+                               dense_levels):
+    n_levels = prim_pool.shape[0]
+    p = points.shape[0]
+    if g.shape != (p, n_levels * n_channels):
+        raise ValueError(f"packed_hash_encode backward: gradient "
+                         f"{tuple(g.shape)} != ({p}, {n_levels * n_channels})")
+    addr = _kernel_args("packed_hash_encode backward", prim_pool, bias_pool,
+                        points, anchors, n_levels, n_rows, row_width,
+                        n_channels, pack, dense_levels, [("gradient", g)])
+    gc = g.to(torch.float32).contiguous()
+    grad = torch.empty((n_levels, n_rows, row_width), dtype=torch.float32,
+                       device=points.device)
+    err = build.library().gfnerf_packed_hash_bwd(
+        gc.data_ptr(), *(t.data_ptr() for t in addr), grad.data_ptr(), p,
+        n_levels, prim_pool.shape[1], n_rows, row_width, n_channels, pack + 1,
+        torch.cuda.current_stream(points.device).cuda_stream)
+    build.check(err, "gfnerf_packed_hash_bwd")
+    packed_hash_encode.bwd_launches += 1
+    return grad

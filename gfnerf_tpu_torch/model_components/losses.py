@@ -1,0 +1,83 @@
+"""Training losses of the GF-NeRF path.
+
+Port of ``gfnerf_tpu/model_components/losses.py``: Charbonnier, MSE and
+S3IM (the reference's ``nerfstudio/model_components/losses.py:713-794``).
+S3IM's random permutations come from an explicit ``torch.Generator``, or are
+passed in, since the two packages draw different random numbers.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+
+def mse_loss(pred: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
+    return torch.mean((pred - target) ** 2)
+
+
+def charbonnier_loss(pred, target, eps: float = 1e-6) -> torch.Tensor:
+    """CharbonnierLoss with out_norm='b': sum sqrt((x-y)^2+eps^2) / batch."""
+    loss = torch.sum(torch.sqrt((pred - target) ** 2 + eps * eps))
+    return loss / pred.shape[0]
+
+
+def _gaussian_kernel(size: int, sigma: float = 1.5) -> np.ndarray:
+    x = np.arange(size, dtype=np.float64)
+    g = np.exp(-((x - size // 2) ** 2) / (2.0 * sigma * sigma))
+    g = g / g.sum()
+    return np.outer(g, g).astype(np.float32)
+
+
+def s3im_permutations(n: int, repeat_time: int = 10,
+                      generator: torch.Generator | None = None,
+                      device=None) -> torch.Tensor:
+    """(repeat_time - 1, n) random permutations of the ray batch."""
+    return torch.stack([torch.randperm(n, generator=generator, device=device)
+                        for _ in range(repeat_time - 1)])
+
+
+def s3im_loss(
+    pred: torch.Tensor,     # (R, 3)
+    target: torch.Tensor,   # (R, 3)
+    perms: torch.Tensor,    # (repeat_time - 1, R) permutations
+    kernel_size: int = 4,
+    stride: int = 4,
+    patch_height: int = 32,
+) -> torch.Tensor:
+    """Stochastic structural-similarity loss (S3IM).
+
+    Repeats the ray batch ``len(perms) + 1`` times, the identity first and
+    then each permutation, reshapes it into a (patch_height x W)
+    pseudo-image and returns 1 - SSIM.
+    """
+    n = pred.shape[0]
+    idx = torch.cat([torch.arange(n, device=pred.device),
+                     perms.reshape(-1).to(pred.device)])
+    tar_patch = target[idx].T.reshape(1, 3, patch_height, -1)
+    src_patch = pred[idx].T.reshape(1, 3, patch_height, -1)
+    return 1.0 - _ssim(src_patch, tar_patch, kernel_size, stride)
+
+
+def _ssim(img1: torch.Tensor, img2: torch.Tensor, kernel_size: int,
+          stride: int) -> torch.Tensor:
+    c = img1.shape[1]
+    kernel = torch.as_tensor(_gaussian_kernel(kernel_size),
+                             device=img1.device)
+    weight = kernel[None, None].expand(c, 1, kernel_size, kernel_size)
+    pad = (kernel_size - 1) // 2
+
+    def conv(x):   # depthwise: the kernel applied per channel
+        return F.conv2d(x, weight, stride=stride, padding=pad, groups=c)
+
+    mu1 = conv(img1)
+    mu2 = conv(img2)
+    mu1_sq, mu2_sq, mu1_mu2 = mu1 * mu1, mu2 * mu2, mu1 * mu2
+    sigma1_sq = conv(img1 * img1) - mu1_sq
+    sigma2_sq = conv(img2 * img2) - mu2_sq
+    sigma12 = conv(img1 * img2) - mu1_mu2
+    c1, c2 = 0.01 ** 2, 0.03 ** 2
+    ssim_map = ((2 * mu1_mu2 + c1) * (2 * sigma12 + c2)) / (
+        (mu1_sq + mu2_sq + c1) * (sigma1_sq + sigma2_sq + c2))
+    return torch.mean(ssim_map)

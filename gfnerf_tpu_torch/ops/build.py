@@ -2,10 +2,12 @@
 
 Every ``gfnerf_tpu_torch/csrc/*.cu`` source is compiled by ``nvcc`` into one
 shared library with a plain C interface, ``gfnerf_tpu_torch/_build/
-libgfnerf_kernels.so``, and loaded with ``ctypes``.  The build runs at the
-first kernel launch (or on an explicit :func:`build_library` call) and is
-redone when a source changes: a stamp file beside the library records the
-sources' hash.  Each C entry point launches on the stream it is given and
+libgfnerf_kernels.so``, and loaded with ``ctypes``.  The sources are
+compiled in parallel, one ``nvcc`` process each, and linked once.  The build
+runs at the first kernel launch (or on an explicit :func:`build_library`
+call) and is redone when a source or a header changes: a stamp file beside
+the library records the hash of every ``csrc/*.cu`` and ``csrc/*.cuh`` and
+of the flags.  Each C entry point launches on the stream it is given and
 returns ``cudaGetLastError()``; :func:`check` raises if that is not 0.
 """
 
@@ -25,7 +27,7 @@ CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
 LIB_PATH = BUILD_DIR / "libgfnerf_kernels.so"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC"]
+              "-O3", "-Xcompiler", "-fPIC"]
 
 _P = ctypes.c_void_p
 _I64 = ctypes.c_longlong
@@ -33,17 +35,26 @@ _I32 = ctypes.c_int
 # C entry points: name -> argtypes (pointers and the stream as c_void_p)
 SIGNATURES = {
     "gfnerf_composite_fwd": [_P] * 9 + [_I64, _I64, _P],
+    "gfnerf_composite_bwd": [_P] * 13 + [_I64, _I64, _P],
     "gfnerf_packed_hash_fwd": [_P] * 8 + [_I64] + [_I32] * 6 + [_P],
+    "gfnerf_packed_hash_bwd": [_P] * 8 + [_I64] + [_I32] * 6 + [_P],
 }
 
 
 def _sources():
+    """The translation units, one object file each."""
     return sorted(CSRC_DIR.glob("*.cu"))
+
+
+def _stamped_files():
+    """Every file the build reads: the sources and the headers they
+    include."""
+    return sorted([*CSRC_DIR.glob("*.cu"), *CSRC_DIR.glob("*.cuh")])
 
 
 def _source_hash() -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in _sources():
+    for src in _stamped_files():
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return h.hexdigest()
@@ -72,21 +83,44 @@ def build_library(verbose: bool = False) -> dict:
             and stamp.read_text() == digest and not verbose):
         return {"built": False, "seconds": 0.0, "log": ""}
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = BUILD_DIR / f"libgfnerf_kernels.{os.getpid()}.so"
-    cmd = [_nvcc(), *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []),
-           "-o", str(tmp), *[str(s) for s in _sources()]]
+    nvcc = _nvcc()
+    tag = os.getpid()
+    ptxas = ["-Xptxas", "-v"] if verbose else []
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    seconds = time.perf_counter() - t0
-    if proc.returncode != 0:
+    compiles = []
+    for src in _sources():
+        obj = BUILD_DIR / f"{src.stem}.{tag}.o"
+        cmd = [nvcc, *NVCC_FLAGS, *ptxas, "-c", "-o", str(obj), str(src)]
+        compiles.append((cmd, obj, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True)))
+    log, failed = [], []
+    for cmd, _, proc in compiles:
+        out, _ = proc.communicate()
+        log.append(out)
+        if proc.returncode != 0:
+            failed.append(f"{' '.join(cmd)}\n{out}")
+    objs = [obj for _, obj, _ in compiles]
+    tmp = BUILD_DIR / f"libgfnerf_kernels.{tag}.so"
+    try:
+        if failed:
+            raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
+        cmd = [nvcc, *NVCC_FLAGS, "-shared", "-o", str(tmp),
+               *[str(o) for o in objs]]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        log.append(proc.stdout + proc.stderr)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n"
+                               f"{' '.join(cmd)}\n{log[-1]}")
+        os.replace(tmp, LIB_PATH)
+    finally:
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}"
-                           f"\n{proc.stdout}\n{proc.stderr}")
-    os.replace(tmp, LIB_PATH)
+        for obj in objs:
+            obj.unlink(missing_ok=True)
+    seconds = time.perf_counter() - t0
     stamp.write_text(digest)
     library.cache_clear()
-    return {"built": True, "seconds": seconds,
-            "log": proc.stdout + proc.stderr}
+    return {"built": True, "seconds": seconds, "log": "".join(log)}
 
 
 @functools.lru_cache(maxsize=1)

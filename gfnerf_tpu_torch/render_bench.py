@@ -37,6 +37,7 @@ from gfnerf_tpu_torch.models.gfnerf import (GFNeRFModelConfig,
 from gfnerf_tpu_torch.sampler.octree import build_octree
 from gfnerf_tpu_torch.sampler.perssampler import (SamplerConfig,
                                                   octree_to_device)
+from gfnerf_tpu_torch.utils.profiling import profile_device
 from gfnerf_tpu_torch.utils.synthetic import ring_cameras
 
 N_VIEWS = 4              # training views rendered before the frames
@@ -158,31 +159,6 @@ def frame_rays(c2w: np.ndarray, width: int, height: int, device):
             torch.as_tensor(d_w, dtype=torch.float32, device=device))
 
 
-def profile_frame(frame_fn) -> dict:
-    """Run frame_fn() once under torch.profiler.
-
-    Returns the device span (ms, first kernel start to last kernel end,
-    gaps included) of each ``render/*`` stage summed over chunks, the sum of
-    all kernel times (the device's busy time), and the busiest kernels."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        frame_fn()
-    on_device = [e for e in prof.key_averages()
-                 if e.device_type == DeviceType.CUDA]
-    stages = {e.key[len("render/"):]: e.device_time_total / 1e3
-              for e in on_device if e.key.startswith("render/")}
-    kernels = sorted(((e.key, e.self_device_time_total / 1e3, e.count)
-                      for e in on_device if not e.key.startswith("render/")),
-                     key=lambda k: -k[1])
-    return {"stage_device_span_ms": stages,
-            "device_busy_ms": sum(k[1] for k in kernels),
-            "top_kernels": [{"name": n[:100], "device_ms": t, "count": c}
-                            for n, t, c in kernels[:15]]}
-
-
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--chunk", type=int, default=CHUNK)
@@ -225,7 +201,7 @@ def main(argv=None):
         times.append(time.perf_counter() - t0)
     dt = float(np.median(times))
     if args.profile:
-        prof = profile_frame(frame)
+        prof = profile_device(frame)
         prof["device_busy_share"] = prof["device_busy_ms"] / (dt * 1e3)
         print(json.dumps({"profile": prof}))
     n = FRAME_WH[0] * FRAME_WH[1]

@@ -278,7 +278,7 @@ def build_octree(
     seed: int = 0,
     n_rand_pts: int = 32 * 32 * 32,
     vis_res_w: int = 128,
-    device="cpu",
+    device="cuda",
 ) -> PersOctree:
     """Construct the perspective octree from training cameras.
 

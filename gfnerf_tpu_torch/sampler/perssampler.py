@@ -3,8 +3,10 @@
 Port of ``gfnerf_tpu/sampler/perssampler.py``: the padded device octree
 (``OctreeDevice``), its upload (``octree_to_device``), the tree cut of the
 hierarchical march, and the perspective warp ``warp_points`` with its
-Jacobian-direction norm.  The scan march (``get_samples``/``locate_points``)
-and the occupancy update (``update_oct_nodes``) are not ported yet.
+Jacobian-direction norm, the occupancy statistics of the init stage
+(``update_oct_nodes``) and the march-fineness anneal
+(``ray_march_fineness``).  The scan march (``get_samples``/
+``locate_points``) is not ported yet.
 """
 
 from __future__ import annotations
@@ -18,6 +20,13 @@ import torch
 from gfnerf_tpu_torch.sampler.octree import PersOctree
 
 INIT_NODE_STAT = 1000  # PersSampler.h:14
+# occupancy-stat constants (PersSampler_cuda.cu:11-17)
+OCC_WEIGHT_BASE = 512
+ABS_WEIGHT_THRES = 0.01
+REL_WEIGHT_THRES = 0.1
+OCC_ALPHA_BASE = 32
+ABS_ALPHA_THRES = 0.02
+REL_ALPHA_THRES = 0.1
 CUT_F = 32  # max descendant leaves per tree-cut node
 
 
@@ -123,7 +132,7 @@ def build_tree_cut(tree: PersOctree, leaf_idx: np.ndarray,
 
 def octree_to_device(tree: PersOctree, capacity: int,
                      leaf_capacity: int | None = None,
-                     device="cpu") -> OctreeDevice:
+                     device="cuda") -> OctreeDevice:
     """Upload a host octree into padded device tensors."""
     m = tree.n_nodes
     if m > capacity:
@@ -232,3 +241,83 @@ def warp_jacobian_dir(oct: OctreeDevice, trans: torch.Tensor, p: torch.Tensor,
     """||J(p) . d|| for the warp (QueryFrameTransformJac, cu:172-188)."""
     return _jacobian_norm(oct.w2xz_flat[trans], oct.warp_weight_flat[trans],
                           p, d)
+
+
+# -------------------------------------------------------- occupancy stats ----
+
+
+def _scatter_max(base: torch.Tensor, index: torch.Tensor,
+                 src: torch.Tensor) -> torch.Tensor:
+    """base (C,) with base[i] = max(base[i], src[j]) for index[j] == i;
+    indices == C are dropped."""
+    out = torch.cat([base, base.new_zeros(1)])
+    out = out.scatter_reduce(0, index, src.to(base.dtype), reduce="amax",
+                             include_self=True)
+    return out[:-1]
+
+
+@torch.no_grad()
+def update_oct_nodes(oct: OctreeDevice, samples, weights: torch.Tensor,
+                     alphas: torch.Tensor) -> OctreeDevice:
+    """Occupancy statistics update (UpdateOctNodes, cu:518-677).
+
+    Per ray: thresholds rel/abs on the ray's max weight/alpha; per visited
+    node: +BASE if any sample exceeded, else -1; EMA-like integer stats
+    with clamping; nodes whose stats go negative get trans_idx = -1.
+    Returns a new OctreeDevice; weights and alphas (R, S) are not
+    differentiated.
+    """
+    cap = oct.centers.shape[0]
+    valid = samples.valid
+    node = torch.where(valid, samples.oct_idx, cap)   # cap -> dropped
+    w = torch.where(valid, weights, 0.0)
+    a = torch.where(valid, alphas, 0.0)
+    w_thres = torch.clamp(w.amax(-1, keepdim=True) * REL_WEIGHT_THRES,
+                          max=ABS_WEIGHT_THRES)
+    a_thres = torch.clamp(a.amax(-1, keepdim=True) * REL_ALPHA_THRES,
+                          max=ABS_ALPHA_THRES)
+    exceed_w = valid & (w > w_thres)
+    exceed_a = valid & (a > a_thres)
+
+    flat_node = node.reshape(-1)
+    minus = torch.full((cap,), -1, dtype=torch.int32, device=node.device)
+    adder_w = _scatter_max(minus, flat_node, torch.where(
+        exceed_w, OCC_WEIGHT_BASE, -1).reshape(-1))
+    adder_a = _scatter_max(minus, flat_node, torch.where(
+        exceed_a, OCC_ALPHA_BASE, -1).reshape(-1))
+    mark = _scatter_max(torch.zeros_like(minus), flat_node,
+                        valid.reshape(-1))
+
+    # max run length per node (atomicMax(visit_cnt, cur_visit_cnt), cu:556):
+    # running position within each same-node run, then scatter-max
+    s = valid.shape[1]
+    pos = torch.arange(s, device=node.device)[None, :]
+    change = torch.cat([torch.ones_like(node[:, :1], dtype=torch.bool),
+                        node[:, 1:] != node[:, :-1]], dim=1)
+    run_start = torch.cummax(torch.where(change, pos, -1), dim=1).values
+    run_pos = pos - run_start + 1
+    visit_cnt = _scatter_max(oct.visit_cnt, flat_node,
+                             torch.where(valid, run_pos, 0).reshape(-1))
+
+    def update_stats(stats, adder):
+        occ = (adder > 0).to(torch.int32)
+        stats = torch.maximum(stats, occ * adder)
+        stats = stats + mark * (1 - occ) * adder
+        return torch.clamp(stats, -100, 1 << 20)
+
+    weight_stats = update_stats(oct.weight_stats, adder_w)
+    alpha_stats = update_stats(oct.alpha_stats, adder_a)
+    trans_idx = torch.where((weight_stats < 0) | (alpha_stats < 0), -1,
+                            oct.trans_idx)
+    return dataclasses.replace(oct, weight_stats=weight_stats,
+                               alpha_stats=alpha_stats, visit_cnt=visit_cnt,
+                               trans_idx=trans_idx)
+
+
+def ray_march_fineness(cur_step: int, init_fineness: float = 16.0,
+                       decay_end_iter: int = 10000) -> float:
+    """Annealed march fineness (UpdateRayMarch, PersSampler.cpp:958-967)."""
+    if cur_step >= decay_end_iter:
+        return 1.0
+    progress = float(cur_step) / float(decay_end_iter)
+    return float(np.exp(np.log(init_fineness) * (1.0 - progress)))

@@ -139,7 +139,8 @@ def test_sh_encoding_and_mlp_match():
     x = rng.normal(size=(64, 16)).astype(np.float32)
     jp = {k: [jnp.asarray(a) for a in v] for k, v in params.items()}
     with torch.no_grad():
-        got = apply_mlp(MLP(params), torch.as_tensor(x), "sigmoid")
+        got = apply_mlp(MLP(params, device="cpu"), torch.as_tensor(x),
+                        "sigmoid")
     np.testing.assert_allclose(got.numpy(),
                                np.asarray(japply(jp, jnp.asarray(x),
                                                  "sigmoid")),

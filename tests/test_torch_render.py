@@ -43,7 +43,7 @@ def test_generate_rays_match():
                    fy=jnp.asarray(fy), cx=jnp.asarray(cx), cy=jnp.asarray(cy),
                    width=jnp.full(4, w, jnp.int32),
                    height=jnp.full(4, h, jnp.int32))
-    tc = T.Cameras.from_numpy(c2w, fx, fy, cx, cy, w, h)
+    tc = T.Cameras.from_numpy(c2w, fx, fy, cx, cy, w, h, device="cpu")
     coords = T.get_image_coords(h, w)
     np.testing.assert_array_equal(coords, J.get_image_coords(h, w))
 
@@ -149,18 +149,18 @@ JAX_FREE_SCRIPT = textwrap.dedent("""
     intri[:, 0, 2], intri[:, 1, 2], intri[:, 2, 2] = cx, cy, 1
     bounds = np.tile(np.array([[0.01, 50.0]], np.float32), (6, 1))
     tree = build_octree(c2w, intri, bounds, max_depth=5, bbox_levels=3,
-                        n_rand_pts=512, vis_res_w=16, seed=0)
+                        n_rand_pts=512, vis_res_w=16, seed=0, device="cpu")
     cfg = FieldConfig(num_images=6, n_volumes=tree.n_volumes, num_levels=4,
                       features_per_level=4, hash_layout="packed",
                       packed_rows_log2=10, n_blocks=2, hidden_dim=32,
                       hidden_dim_color=32, mlp_dtype="bfloat16")
-    field = GFNeRFField(cfg, *init_field_params(cfg, seed=0))
+    field = GFNeRFField(cfg, *init_field_params(cfg, seed=0), device="cpu")
     render = make_render_fn(
         GFNeRFModelConfig(scale_factor=1.0, samples_budget_per_ray=64),
         SamplerConfig(max_samples=64, sample_l=1.0 / 64))
     o = torch.as_tensor(np.repeat(c2w[:1, :, 3], 32, axis=0))
     d = -o / o.norm(dim=-1, keepdim=True)
-    out = render(field, octree_to_device(tree, 4096), o, d, 0)
+    out = render(field, octree_to_device(tree, 4096, device="cpu"), o, d, 0)
     assert out["rgb"].shape == (32, 3)
     assert all(bool(torch.isfinite(v).all()) for v in out.values())
     assert not any(m.split(".")[0] in ("jax", "jaxlib", "gfnerf_tpu")
@@ -201,7 +201,7 @@ def test_render_bench_camera_and_frame_chunks():
     assert sample_l > 1.0 / 256 and 0 < med <= s
     render = make_render_fn(GFNeRFModelConfig(samples_budget_per_ray=s),
                             SamplerConfig(max_samples=s, sample_l=sample_l))
-    cams = Cameras.from_numpy(c2w, fx, fy, cx, cy, 12, 9)
+    cams = Cameras.from_numpy(c2w, fx, fy, cx, cy, 12, 9, device="cpu")
     chunked = render_camera(render, field, toct, cams, 1, chunk=40)
     whole = render_camera(render, field, toct, cams, 1, chunk=10 ** 6)
     for k in KEYS:

@@ -1,6 +1,6 @@
-"""Parity of the ported octree builder, device upload, warp and fast march
-(gfnerf_tpu_torch/sampler/) with the JAX package's, on the tiny scene of
-tests/test_render_early.py."""
+"""Parity of the ported octree builder, device upload, warp, fast march and
+occupancy update (gfnerf_tpu_torch/sampler/) with the JAX package's, on the
+tiny scene of tests/test_render_early.py."""
 
 import dataclasses
 
@@ -28,7 +28,7 @@ def test_build_octree_identical(deeper):
         c2w, intri, bounds = tiny_cameras()
         kw = TREE_KW
         want = asdict_np(tiny_tree())
-    got = asdict_np(build_octree(c2w, intri, bounds, **kw))
+    got = asdict_np(build_octree(c2w, intri, bounds, device="cpu", **kw))
     assert got.keys() == want.keys()
     assert len(want["centers"]) > 40 and len(want["w2xz"]) > 4
     for name in want:
@@ -121,3 +121,56 @@ def test_get_samples_fast_matches(coarse_hits):
     for k in ("ts", "dists", "world_pts"):
         np.testing.assert_allclose(g[k][same], w[k][same], rtol=1e-5,
                                    atol=1e-6, err_msg=k)
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_update_oct_nodes_matches_jax(seed):
+    """The occupancy update from the same march samples and the same
+    weights and alphas: every statistic equal.  Some nodes start with low
+    stats so that the trans_idx = -1 path runs."""
+    import types
+
+    import jax.numpy as jnp
+    from gfnerf_tpu.sampler.fast_march import get_samples_fast as jmarch
+    from gfnerf_tpu.sampler.perssampler import SamplerConfig as JCfg
+    from gfnerf_tpu.sampler.perssampler import update_oct_nodes as jupdate
+    from gfnerf_tpu_torch.sampler.perssampler import update_oct_nodes
+
+    joct, toct = octree_pair()
+    o, d = tiny_rays(n_rays=256, seed=seed)
+    s = 64
+    rng = np.random.default_rng(seed)
+    noise = rng.uniform(0.5, 1.5, (len(o), s)).astype(np.float32)
+    samples = jmarch(joct, jnp.asarray(o), jnp.asarray(d), jnp.asarray(noise),
+                     jnp.asarray(1.0, jnp.float32),
+                     JCfg(max_samples=s, sample_l=1.0 / 64))
+    # nodes of odd id see no density: their stats fall
+    dense = (np.asarray(samples.oct_idx) % 2 == 0).astype(np.float32)
+    w = (rng.random((len(o), s)) ** 4 * 0.2 * dense).astype(np.float32)
+    a = (rng.random((len(o), s)) ** 4 * 0.3 * dense).astype(np.float32)
+    low = np.asarray(joct.weight_stats).copy()
+    low[::3] = 0
+    joct = joct.replace(weight_stats=jnp.asarray(low))
+    toct = dataclasses.replace(toct, weight_stats=torch.as_tensor(low))
+    want = jupdate(joct, samples, jnp.asarray(w), jnp.asarray(a))
+    got = update_oct_nodes(
+        toct, types.SimpleNamespace(
+            valid=torch.as_tensor(np.array(samples.valid)),
+            oct_idx=torch.as_tensor(np.array(samples.oct_idx)).long()),
+        torch.as_tensor(w), torch.as_tensor(a))
+    assert np.asarray(samples.valid).mean() > 0.2
+    for k in ("weight_stats", "alpha_stats", "visit_cnt", "trans_idx"):
+        g, x = to_np(getattr(got, k)), np.asarray(getattr(want, k))
+        assert g.dtype == x.dtype, k
+        np.testing.assert_array_equal(g, x, err_msg=k)
+    changed = to_np(got.trans_idx) != to_np(toct.trans_idx)
+    assert changed.any() and (to_np(got.visit_cnt) > 0).any()
+
+
+def test_ray_march_fineness_matches_jax():
+    from gfnerf_tpu.sampler.perssampler import ray_march_fineness as jf
+    from gfnerf_tpu_torch.sampler.perssampler import ray_march_fineness
+
+    for step in (0, 1, 2500, 9999, 10000, 20000):
+        assert ray_march_fineness(step) == jf(step)
+    assert ray_march_fineness(50, 8.0, 100) == jf(50, 8.0, 100)

@@ -47,7 +47,8 @@ def octree_pair(capacity: int = 4096):
     from gfnerf_tpu_torch.sampler.perssampler import octree_to_device
 
     tree = tiny_tree()
-    return jax_upload(tree, capacity), octree_to_device(tree, capacity)
+    return jax_upload(tree, capacity), octree_to_device(tree, capacity,
+                                                         device="cpu")
 
 
 def tiny_rays(n_rays: int = 64, seed: int = 3):
@@ -94,7 +95,8 @@ def field_pair(seed: int = 0, table_scale: float = 0.5, **over):
         table = rng.uniform(-table_scale, table_scale,
                             params.global_feat.shape).astype(np.float32)
         params = params.replace(global_feat=jnp.asarray(table))
-    field = params_from_jax(params, statics, FieldConfig(**kw))
+    field = params_from_jax(params, statics, FieldConfig(**kw),
+                            device="cpu")
     return jcfg, params, statics, field
 
 
