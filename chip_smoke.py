@@ -21,7 +21,8 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
                 1920x1080 frame in chunks of 32768 rays; outputs checked;
                 each forward kernel launched once per chunk; one chunk
                 against the plain versions; the hash encode timed against
-                its plain version on one chunk's real inputs.
+                its plain version on one chunk's real inputs, and level by
+                level.
   6. train    — with the counters reset: 20 init-stage steps of 8192 rays
                 through make_train_step (one warm-up, 5 timed: s/step,
                 rays/s, peak memory); all four kernels launched once per
@@ -29,10 +30,17 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
                 global table and every MLP changed, the block tables not,
                 the occupancy statistics moved; one step from a common
                 state with the kernels against the plain autograd pairs
-                (no kernel may launch in it); the hash backward timed
-                against its plain version and index_add_ on a train batch.
-The line before the last is a JSON object with each kernel's launches,
-error, times and bound; the last line is {"ok": true, "device": {...}}.
+                (no kernel may launch in it); on a train batch's points,
+                the hash encode timed against its plain version and level
+                by level, and the hash backward against its plain version
+                and index_add_, then level by level (its vector
+                reductions per level, counted
+                by the kernel and held against the same runs reckoned on
+                the host, and a launch per level timed); the host syncs of
+                one encode forward and backward.
+Before the last line come a JSON object with each kernel's launches, error,
+times and bound, and the card's name and power limit; the last line is
+{"ok": true, "device": {...}}.
 
 Run from the repository root:  python3 chip_smoke.py
 """
@@ -58,8 +66,8 @@ K2_RTOL, K2_ATOL_REL = 1e-4, 1e-6
 # H2 vs plain: both sum the same f32 terms with atomics, in different
 # orders; a row sums up to thousands of terms: 1e-5 of the largest entry
 H2_ATOL_REL = 1e-5
-# one chunk, kernels vs plain versions: the encodes agree to f32 rounding,
-# which can flip a bf16 rounding of a hidden activation (2^-8 relative)
+# one chunk, kernels vs plain versions: the encodes agree bit for bit (so
+# the bf16 MLPs see the same inputs), the composites to f32 rounding
 SLICE_ATOL = 2e-3
 # the train path: steps taken (one warm-up, TIMED_STEPS timed, the rest for
 # the loss check), and one step from a common state, kernels vs the plain
@@ -78,8 +86,10 @@ def log(msg: str) -> None:
     print(msg, flush=True)
 
 
-def time_ms(fn, n: int = 7) -> float:
-    """Median CUDA-event time of fn() in milliseconds, after one warm-up."""
+def time_ms(fn, n: int = 7, reps: int = 1) -> float:
+    """Median CUDA-event time of fn() in milliseconds, after one warm-up:
+    n samples, each of reps calls in a row between two events, so that
+    with reps > 1 the host's launch overhead overlaps the device's work."""
     import numpy as np
     import torch
 
@@ -90,10 +100,11 @@ def time_ms(fn, n: int = 7) -> float:
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        fn()
+        for _ in range(reps):
+            fn()
         end.record()
         end.synchronize()
-        times.append(start.elapsed_time(end))
+        times.append(start.elapsed_time(end) / reps)
     return float(np.median(times))
 
 
@@ -545,10 +556,14 @@ def time_encode_on_chunk(wl, fo, fd) -> dict:
         torch.cuda.synchronize()
         assert_close([got], [want], "packed hash on a frame chunk",
                      atol=H1_ATOL)
+        if not torch.equal(got, want):
+            raise AssertionError("packed hash on a frame chunk: not equal to "
+                                 "the plain version bit for bit")
         err = max_err([got], [want])
         del got, want
         ms = time_ms(lambda: _packed_hash_encode_cuda(*args))
         plain_ms = time_ms(lambda: packed_hash_encode_raw(*args), n=3)
+        levels, bf16_ms = hash_fwd_levels(args)
     p = pts.shape[0]
     table = field.global_feat
     bound = hash_fwd_bytes(p, table.shape[0], c, table.numel()) \
@@ -556,42 +571,203 @@ def time_encode_on_chunk(wl, fo, fd) -> dict:
     log(f"[render] packed_hash_fwd on a frame chunk (P={p}, "
         f"{int((anc >= 0).sum())} valid): max abs err {err:.3g}; kernel "
         f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound:.4f} ms")
+    log(f"[render] packed_hash_fwd on a frame chunk, given a bf16 table (no "
+        f"table cast): {bf16_ms:.4f} ms; each level alone: "
+        f"{[round(t, 4) for t in levels]} ms (sum {sum(levels):.4f})")
     return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound, "bound_by": "bytes", "library_ms": None}
+            "bound_ms": bound, "bound_by": "bytes", "library_ms": None,
+            "frame_chunk_bf16_table_ms": bf16_ms,
+            "frame_chunk_level_ms": levels}
 
 
-def time_hash_bwd_on_batch(wl, batch, noise) -> dict:
-    """H2, its plain version and index_add_ of the same precomputed
-    (rows, payload) terms, on the points one train batch gives it (8192
-    rays x 384 samples) and a random upstream gradient."""
+def level_pointers(addr, level) -> list:
+    """The addressing tensors of _kernel_args as the pointers of a launch
+    over one level alone: the level's slice of the primes and biases
+    (L, V, 3), scales (L,) and dense extents (L,), and all the points and
+    anchors (4-byte elements throughout)."""
+    prim, bias, scales, dense_m, pts, anc = addr
+    row = 4 * prim.shape[1] * 3 * level
+    return [prim.data_ptr() + row, bias.data_ptr() + row,
+            scales.data_ptr() + 4 * level, dense_m.data_ptr() + 4 * level,
+            pts.data_ptr(), anc.data_ptr()]
+
+
+def hash_fwd_levels(args) -> tuple:
+    """H1 level by level on the given inputs, the table handed over in bf16
+    (so the wrapper does not cast it; 10 launches per sample): the time of
+    a launch that does that level alone, whose output is held against that
+    level's columns of the whole kernel's, and the whole kernel's time.
+    Returns (per-level ms, whole ms)."""
+    import torch
+
+    from gfnerf_tpu_torch.fields.packed_hash import (_kernel_args,
+                                                     _packed_hash_encode_cuda)
+    from gfnerf_tpu_torch.ops import build
+
+    feat, prim, bias, pts, anc, c, pack, dense = args
+    n_levels, n_rows, width = feat.shape
+    n_volumes = prim.shape[1]
+    table = feat.detach().to(torch.bfloat16)
+    full = _packed_hash_encode_cuda(table, *args[1:])
+    whole_ms = time_ms(lambda: _packed_hash_encode_cuda(table, *args[1:]),
+                       reps=10)
+    addr = _kernel_args("packed_hash_fwd per level", prim, bias, pts, anc,
+                        n_levels, n_rows, width, c, pack, dense, [])
+    lib = build.library()
+    stream = torch.cuda.current_stream().cuda_stream
+    out = torch.empty((pts.shape[0], c), device="cuda")
+    times = []
+    for l in range(n_levels):
+        ptrs = level_pointers(addr, l)
+
+        def run():
+            build.check(lib.gfnerf_packed_hash_fwd(
+                table[l].data_ptr(), *ptrs, out.data_ptr(), pts.shape[0], 1,
+                n_volumes, n_rows, width, c, pack + 1, stream),
+                "gfnerf_packed_hash_fwd")
+
+        run()
+        torch.cuda.synchronize()
+        if not torch.equal(out, full[:, l * c:(l + 1) * c]):
+            raise AssertionError(f"packed_hash_fwd level {l} alone differs")
+        times.append(time_ms(run, reps=10))
+    return times, whole_ms
+
+
+def hash_bwd_levels(args) -> list:
+    """H2 level by level on the given inputs: the vector reductions the
+    kernel counted at each level, held against packed_hash_bwd_reductions
+    (the same runs reckoned on the host), and the time of a launch that
+    does that level alone (its 16 MB zero-fill included; 10 launches per
+    sample), whose result is held against that level of the whole
+    kernel's."""
+    import torch
+
+    from gfnerf_tpu_torch.fields.packed_hash import (
+        _kernel_args, _packed_hash_backward_cuda, packed_hash_bwd_reductions)
+    from gfnerf_tpu_torch.ops import build
+
+    g, prim, bias, pts, anc, n_rows, width, c, pack, dense = args
+    n_levels, n_volumes = prim.shape[:2]
+    ops = torch.zeros(n_levels, dtype=torch.int64, device="cuda")
+    full = _packed_hash_backward_cuda(*args, red_ops=ops)
+    want = packed_hash_bwd_reductions(prim, bias, pts, anc, n_rows, c, pack,
+                                      dense)
+    torch.cuda.synchronize()
+    if ops.tolist() != want.tolist():
+        raise AssertionError(f"packed_hash_bwd: reductions per level "
+                             f"{ops.tolist()}, runs reckoned on the host "
+                             f"{want.tolist()}")
+    addr = _kernel_args("packed_hash_bwd per level", prim, bias, pts, anc,
+                        n_levels, n_rows, width, c, pack, dense, [])
+    lib = build.library()
+    stream = torch.cuda.current_stream().cuda_stream
+    grad = torch.empty((n_rows, width), device="cuda")
+    per_level = []
+    for l in range(n_levels):
+        g_l = g[:, l * c:(l + 1) * c].contiguous()
+        ptrs = level_pointers(addr, l)
+
+        def run():
+            build.check(lib.gfnerf_packed_hash_bwd(
+                g_l.data_ptr(), *ptrs, grad.data_ptr(), None, pts.shape[0],
+                1, n_volumes, n_rows, width, c, pack + 1, stream),
+                "gfnerf_packed_hash_bwd")
+
+        run()
+        torch.cuda.synchronize()
+        assert_close([grad], [full[l]], f"packed_hash_bwd level {l} alone",
+                     atol_rel=H2_ATOL_REL)
+        ms = time_ms(run, reps=10)
+        per_level.append({"level": l, "reductions": int(ops[l]),
+                          "ms": ms})
+        log(f"[train] packed_hash_bwd level {l} alone: {int(ops[l])} vector "
+            f"reductions (host reckoning agrees), {ms:.4f} ms")
+    return per_level
+
+
+def host_syncs(fn) -> dict:
+    """Counts of the CUDA runtime calls that wait for the device
+    (profiling.HOST_WAITS) that fn() makes, from a torch.profiler trace."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from gfnerf_tpu_torch.utils.profiling import HOST_WAITS
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+    return {e.key: e.count for e in prof.key_averages()
+            if e.key in HOST_WAITS}
+
+
+def time_hash_on_batch(wl, batch, noise) -> tuple:
+    """H1 and H2 on the points one train batch gives them (8192 rays x 384
+    samples): H1 against its plain version; H2 against its plain version
+    and index_add_ of the same precomputed (rows, payload) terms, with a
+    random upstream gradient, and level by level; the host syncs of one
+    encode forward and backward with the level constants built at every
+    launch (the cache bypassed) and reused.  Returns (H1's, H2's report)."""
     import torch
 
     from gfnerf_tpu_torch.cameras.cameras import generate_rays_multi
-    from gfnerf_tpu_torch.fields.packed_hash import (
-        _packed_hash_backward_cuda, pack_for_channels,
-        packed_hash_backward_reference, packed_hash_scatter_terms)
+    from gfnerf_tpu_torch.fields import packed_hash as ph
 
     field = wl["field"]
     c = wl["fcfg"].features_per_level
+    pack = ph.pack_for_channels(c)
     rays = generate_rays_multi(wl["cams"], batch["camera_indices"],
                                batch["coords"])
     pts, anc = _marched_points(wl, rays["origins"], rays["directions"], noise)
     n_levels, n_rows, width = field.global_feat.shape
     p = pts.shape[0]
+    n_valid = int((anc >= 0).sum())
+
+    # ---- H1 ----
+    with torch.no_grad():
+        fargs = (field.global_feat, field.global_prim, field.global_bias,
+                 pts, anc, c, pack, 0)
+        got = ph._packed_hash_encode_cuda(*fargs)
+        want = ph.packed_hash_encode_raw(*fargs)
+        torch.cuda.synchronize()
+        assert_close([got], [want], "packed hash on a train batch",
+                     atol=H1_ATOL)
+        if not torch.equal(got, want):
+            raise AssertionError("packed hash on a train batch: not equal "
+                                 "to the plain version bit for bit")
+        if not bool((got[anc < 0] == 0).all()):
+            raise AssertionError("packed hash: masked anchors not zeroed")
+        fwd_err = max_err([got], [want])
+        del want
+        fwd_ms = time_ms(lambda: ph._packed_hash_encode_cuda(*fargs), n=21)
+        fwd_plain_ms = time_ms(lambda: ph.packed_hash_encode_raw(*fargs), n=3)
+        fwd_levels, fwd_bf16_ms = hash_fwd_levels(fargs)
+        del got
+    fwd_bound = hash_fwd_bytes(p, n_levels, c, field.global_feat.numel()) \
+        / HBM_BYTES_PER_S * 1e3
+    log(f"[train] packed_hash_fwd on a train batch (P={p}, {n_valid} valid): "
+        f"max abs err {fwd_err:.3g}; kernel {fwd_ms:.4f} ms, plain "
+        f"{fwd_plain_ms:.4f} ms, bound {fwd_bound:.4f} ms; given a bf16 "
+        f"table: {fwd_bf16_ms:.4f} ms; each level alone: "
+        f"{[round(t, 4) for t in fwd_levels]} ms (sum {sum(fwd_levels):.4f})")
+
+    # ---- H2 ----
     gen = torch.Generator(device="cuda").manual_seed(5)
     g = torch.randn((p, n_levels * c), generator=gen, device="cuda")
     args = (g, field.global_prim, field.global_bias, pts, anc, n_rows, width,
-            c, pack_for_channels(c), 0)
-    got = _packed_hash_backward_cuda(*args)
-    want = packed_hash_backward_reference(*args)
+            c, pack, 0)
+    got = ph._packed_hash_backward_cuda(*args)
+    want = ph.packed_hash_backward_reference(*args)
     torch.cuda.synchronize()
     assert_close([got], [want], "packed_hash_bwd on a train batch",
                  atol_rel=H2_ATOL_REL)
     err = max_err([got], [want])
-    del got, want
-    ms = time_ms(lambda: _packed_hash_backward_cuda(*args), n=11)
-    plain_ms = time_ms(lambda: packed_hash_backward_reference(*args), n=3)
-    terms = list(packed_hash_scatter_terms(*args))
+    del want
+    ms = time_ms(lambda: ph._packed_hash_backward_cuda(*args), n=11)
+    del got
+    plain_ms = time_ms(lambda: ph.packed_hash_backward_reference(*args), n=3)
+    terms = list(ph.packed_hash_scatter_terms(*args))
     rows = torch.cat([t[0] for t in terms])
     payload = torch.cat([t[1] for t in terms])
     del terms
@@ -602,12 +778,47 @@ def time_hash_bwd_on_batch(wl, batch, noise) -> dict:
     torch.cuda.empty_cache()
     bound = hash_bwd_bytes(p, n_levels, c, field.global_feat.numel()) \
         / HBM_BYTES_PER_S * 1e3
-    log(f"[train] packed_hash_bwd on a train batch (P={p}, "
-        f"{int((anc >= 0).sum())} valid): max abs err {err:.3g}; kernel "
-        f"{ms:.4f} ms, plain {plain_ms:.4f} ms, index_add_ {library_ms:.4f} "
-        f"ms, bound {bound:.4f} ms")
-    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound, "bound_by": "bytes", "library_ms": library_ms}
+    log(f"[train] packed_hash_bwd on a train batch (P={p}, {n_valid} valid): "
+        f"max abs err {err:.3g}; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms,"
+        f" index_add_ {library_ms:.4f} ms, bound {bound:.4f} ms")
+    levels = hash_bwd_levels(args)
+    n_red = sum(x["reductions"] for x in levels)
+    log(f"[train] packed_hash_bwd: {n_red} vector reductions in all "
+        f"({8 * n_valid * n_levels} corners of valid (point, level) pairs); "
+        f"levels alone sum to {sum(x['ms'] for x in levels):.4f} ms")
+
+    # ---- host syncs of one encode forward and backward ----
+    feat = field.global_feat.detach().clone().requires_grad_(True)
+    gout = torch.ones((p, n_levels * c), device="cuda")
+
+    def encode_fwd_bwd():
+        out = ph.packed_hash_encode(feat, field.global_prim,
+                                    field.global_bias, pts, anc, c, pack)
+        out.backward(gout)
+        torch.cuda.synchronize()
+
+    encode_fwd_bwd()
+    cached = ph._level_constants
+    ph._level_constants = cached.__wrapped__   # built at every launch
+    try:
+        syncs = {"cold": host_syncs(encode_fwd_bwd)}
+    finally:
+        ph._level_constants = cached
+    syncs["cached"] = host_syncs(encode_fwd_bwd)
+    log(f"[train] host calls in one encode forward + backward (one final "
+        f"cudaDeviceSynchronize included): level constants built per "
+        f"launch {syncs['cold']}, cached {syncs['cached']}")
+    del feat, gout
+    fwd = {"max_abs_err": fwd_err, "train_batch_ms": fwd_ms,
+           "train_batch_plain_ms": fwd_plain_ms,
+           "train_batch_bound_ms": fwd_bound,
+           "train_batch_bf16_table_ms": fwd_bf16_ms,
+           "train_batch_level_ms": fwd_levels}
+    bwd = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+           "bound_ms": bound, "bound_by": "bytes", "library_ms": library_ms,
+           "per_level": levels,
+           "host_syncs": syncs}
+    return fwd, bwd
 
 
 def phase_train(wl):
@@ -728,7 +939,7 @@ def phase_train(wl):
     torch.cuda.empty_cache()
     stats = {"s_per_step": dt, "rays_per_s": RAYS / dt, "peak_bytes": peak,
              "step_seconds": times, "first_loss": first, "last_loss": last}
-    return launches, stats, time_hash_bwd_on_batch(wl, batch, noise)
+    return launches, stats, time_hash_on_batch(wl, batch, noise)
 
 
 def main() -> int:
@@ -753,13 +964,13 @@ def main() -> int:
         f"{tree.n_volumes} volumes; S={scfg.max_samples}, sample_l "
         f"{scfg.sample_l:.6f}")
     render_launches, render_stats, encode = phase_render(wl)
-    train_launches, train_stats, hash_bwd = phase_train(wl)
-    report["packed_hash_fwd"]["max_abs_err"] = max(
-        report["packed_hash_fwd"]["max_abs_err"], encode.pop("max_abs_err"))
-    report["packed_hash_fwd"].update(encode)
-    report["packed_hash_bwd"]["max_abs_err"] = max(
-        report["packed_hash_bwd"]["max_abs_err"], hash_bwd.pop("max_abs_err"))
-    report["packed_hash_bwd"].update(hash_bwd)
+    train_launches, train_stats, (hash_fwd, hash_bwd) = phase_train(wl)
+    for name, *parts in (("packed_hash_fwd", encode, hash_fwd),
+                         ("packed_hash_bwd", hash_bwd)):
+        for part in parts:
+            report[name]["max_abs_err"] = max(report[name]["max_abs_err"],
+                                              part.pop("max_abs_err"))
+            report[name].update(part)
 
     sources = {
         "composite_fwd": ("gfnerf_tpu_torch/csrc/composite_fwd.cu",

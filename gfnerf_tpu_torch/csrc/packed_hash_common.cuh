@@ -1,7 +1,7 @@
-// Addressing of the packed (supercell) anchored hash, shared by the forward
-// (H1, packed_hash_fwd.cu) and the table-gradient backward (H2,
-// packed_hash_bwd.cu), so that the backward scatters into exactly the rows
-// and lattice entries that the forward read.
+// Addressing and thread mapping of the packed (supercell) anchored hash,
+// shared by the forward (H1, packed_hash_fwd.cu) and the table-gradient
+// backward (H2, packed_hash_bwd.cu), so that the backward scatters into
+// exactly the rows and lattice entries that the forward read.
 //
 // Per (point, level), as gfnerf_tpu/fields/packed_hash.py computes it:
 //   fma(p, scale_l, bias[level, vol]) -> supercell s, local cell l, fraction f
@@ -10,12 +10,23 @@
 //         first dense levels (packed_hash.py:163-199)
 // The coordinate uses fmaf, as the fused XLA code does; the division by
 // PACK is the shift / multiply-shift of packed_hash._div_pack.
+//
+// Thread mapping (TileMap): a block takes a tile of consecutive points at a
+// group of levels and stages their coordinates and anchors (and, in H2,
+// their upstream gradient) in shared memory.  Each warp then takes 32
+// consecutive points of the tile at ONE level, one point per lane.  The
+// points are ray-major and in t order, so on the coarse levels neighbouring
+// lanes fall into the same cell: H1's loads of a run hit the same sectors in
+// one instruction, and H2 merges each run of equal cells into one
+// contributor.
 
 #pragma once
 
 #include <cuda_runtime.h>
 
 namespace gfnerf {
+
+constexpr int kWarps = 8;  // warps per block, both kernels
 
 // floor(cell / PACK) as packed_hash._div_pack computes it (logical shift for
 // powers of two, multiply-shift for 3).
@@ -37,28 +48,24 @@ struct HashCell {
   unsigned row;   // row of the level's table
   int loc[3];     // local cell inside the supercell, per axis
   float frac[3];  // fraction inside the cell, per axis
-  bool valid;     // anchor >= 0 (a masked point reads row 0 of volume 0)
 };
 
+// The cell of a point with anchor >= 0 (the caller skips the others).
 template <int PACK>
 __device__ __forceinline__ HashCell locate(
     const int* __restrict__ primes,    // (L, V, 3) uint32 bits
     const float* __restrict__ bias,    // (L, V, 3)
     const float* __restrict__ scales,  // (L,)
     const int* __restrict__ dense_m,   // (L,) 0 = hashed level
-    const float* __restrict__ points,  // (P, 3)
-    const int* __restrict__ anchors,   // (P,)
-    long long p, int l, int n_volumes, int n_rows) {
+    const float pt[3], int anchor, int l, int n_volumes, int n_rows) {
   HashCell c;
-  const int anchor = anchors[p];
-  c.valid = anchor >= 0;
-  const int vol = min(max(anchor, 0), n_volumes - 1);
+  const int vol = min(anchor, n_volumes - 1);
   const int lv = (l * n_volumes + vol) * 3;
   const float scale = scales[l];
   int sup[3];
 #pragma unroll
   for (int a = 0; a < 3; ++a) {
-    const float pk = fmaf(points[p * 3 + a], scale, bias[lv + a]);
+    const float pk = fmaf(pt[a], scale, bias[lv + a]);
     const float cf = floorf(pk);
     c.frac[a] = pk - cf;
     const int cell = (int)cf;
@@ -98,6 +105,124 @@ __device__ __forceinline__ void axis_factors(const HashCell& c,
       q[a][u] = min(max(pos, 0), E - 1);
     }
   }
+}
+
+// A key equal for two cells of one level exactly when they touch the same
+// lattice entries with the same corners inside: the row, and per axis the
+// local cell clamped to [-2, E] (below -1 or from E on, both positions of
+// the axis lie outside the lattice).
+template <int E>
+__device__ __forceinline__ unsigned long long cell_key(const HashCell& c) {
+  unsigned long long k = c.row;
+#pragma unroll
+  for (int a = 0; a < 3; ++a)
+    k = (k << 4) | (unsigned)(min(max(c.loc[a], -2), E) + 2);
+  return k;
+}
+
+// Tiles of both kernels.  A launch covers a group of consecutive levels
+// (H1: all L; H2: a few, the launcher running the groups one after the
+// other on the stream), and a block takes a tile of consecutive points at
+// the group's levels.  Warp w of a block handles the (32-point slice,
+// level) pairs w, w + warps, ...; a tile holds enough slices for `passes`
+// pairs per warp.  More passes spread a block's fixed costs (the staging
+// round trip, the barriers, the write-back) over more work, and cost
+// shared memory.
+struct TileMap {
+  int group;          // levels per launch (the last may hold fewer)
+  int slices;         // 32-point slices per tile
+  int warps;          // warps per block
+  int points;         // points per tile
+  long long n_tiles;  // tiles (blocks) per launch
+  __host__ __device__ TileMap(int n_levels, int group_size, int passes,
+                              long long n_points) {
+    group = group_size > 0 && group_size < n_levels ? group_size : n_levels;
+    slices = (passes * kWarps + group - 1) / group;
+    warps = slices * group < kWarps ? slices * group : kWarps;
+    points = 32 * slices;
+    n_tiles = (n_points + points - 1) / points;
+  }
+};
+
+// This block's tile: points [p0, p0 + n_tile).
+struct BlockTile {
+  long long p0;
+  int n_tile;
+  __device__ BlockTile(const TileMap& map, long long n_points) {
+    p0 = (long long)blockIdx.x * map.points;
+    n_tile = (int)min((long long)map.points, n_points - p0);
+  }
+};
+
+// Rows of cols floats between global memory (row stride gstride) and
+// shared memory (row stride sstride), 16 bytes per global access where the
+// columns and the address allow it.  The points, anchors, upstream gradient
+// and output stream through once, so they move with evict-first hints
+// (ld.global.cs / st.global.cs): the L2 then keeps the table (H1) or the
+// gradient (H2).
+__device__ __forceinline__ bool vec4_rows(const float* global, int cols,
+                                          long long gstride) {
+  return cols % 4 == 0 && gstride % 4 == 0 &&
+         reinterpret_cast<size_t>(global) % 16 == 0;
+}
+
+__device__ __forceinline__ void load_rows(const float* __restrict__ global,
+                                          float* __restrict__ shared, int n,
+                                          int cols, long long gstride,
+                                          int sstride) {
+  if (vec4_rows(global, cols, gstride)) {
+    const int q = cols / 4;
+    for (int i = threadIdx.x; i < n * q; i += blockDim.x) {
+      const int r = i / q;
+      const int c = 4 * (i - r * q);
+      const float4 v =
+          __ldcs(reinterpret_cast<const float4*>(global + r * gstride + c));
+      float* d = shared + r * sstride + c;
+      d[0] = v.x;
+      d[1] = v.y;
+      d[2] = v.z;
+      d[3] = v.w;
+    }
+    return;
+  }
+  for (int i = threadIdx.x; i < n * cols; i += blockDim.x) {
+    const int r = i / cols;
+    shared[r * sstride + i - r * cols] =
+        __ldcs(global + r * gstride + i - r * cols);
+  }
+}
+
+__device__ __forceinline__ void store_rows(float* __restrict__ global,
+                                           const float* __restrict__ shared,
+                                           int n, int cols, long long gstride,
+                                           int sstride) {
+  if (vec4_rows(global, cols, gstride)) {
+    const int q = cols / 4;
+    for (int i = threadIdx.x; i < n * q; i += blockDim.x) {
+      const int r = i / q;
+      const int c = 4 * (i - r * q);
+      const float* v = shared + r * sstride + c;
+      __stcs(reinterpret_cast<float4*>(global + r * gstride + c),
+             make_float4(v[0], v[1], v[2], v[3]));
+    }
+    return;
+  }
+  for (int i = threadIdx.x; i < n * cols; i += blockDim.x) {
+    const int r = i / cols;
+    __stcs(global + r * gstride + i - r * cols,
+           shared[r * sstride + i - r * cols]);
+  }
+}
+
+// Stage the tile's points (3 floats each) and anchors in shared memory,
+// with evict-first loads; points past the end get anchor -1.
+__device__ __forceinline__ void stage_points(
+    const float* __restrict__ points, const int* __restrict__ anchors,
+    long long p0, int n_tile, int tile_points, float* s_pts, int* s_anc) {
+  for (int i = threadIdx.x; i < 3 * n_tile; i += blockDim.x)
+    s_pts[i] = __ldcs(points + p0 * 3 + i);
+  for (int i = threadIdx.x; i < tile_points; i += blockDim.x)
+    s_anc[i] = i < n_tile ? __ldcs(anchors + p0 + i) : -1;
 }
 
 }  // namespace gfnerf

@@ -9,12 +9,14 @@ trilinear interpolation.
 ``packed_hash_encode_raw`` is the plain PyTorch forward (the JAX package's
 XLA formulation, op for op) and ``packed_hash_backward_reference`` the plain
 dense table gradient (what the JAX package's ``_phe_bwd`` computes, summed
-in f32).  ``packed_hash_encode`` is the differentiable wrapper, with a
-gradient for the table only, as ``_phe_bwd`` has: on CPU tensors it runs
-the plain pair, on CUDA tensors the forward launches
-``csrc/packed_hash_fwd.cu`` (H1) and the backward ``csrc/packed_hash_bwd.cu``
-(H2), or raises.  ``plain_packed_hash_encode`` is the same function through
-the plain pair on any device.  The block-routed encode is not ported yet.
+in f32); ``packed_hash_bwd_reductions`` counts the reductions the table
+gradient's kernel issues, from the same addressing.  ``packed_hash_encode``
+is the differentiable wrapper, with a gradient for the table only, as
+``_phe_bwd`` has: on CPU tensors it runs the plain pair, on CUDA tensors
+the forward launches ``csrc/packed_hash_fwd.cu`` (H1) and the backward
+``csrc/packed_hash_bwd.cu`` (H2), or raises.  ``plain_packed_hash_encode``
+is the same function through the plain pair on any device.  The
+block-routed encode is not ported yet.
 
 Coordinates: the grid coordinate of level l is ``p * scale_l + bias``, which
 XLA contracts into one fused multiply-add in the jitted JAX encode.  The
@@ -26,6 +28,7 @@ jitted JAX encode.
 
 from __future__ import annotations
 
+import functools
 import itertools
 
 import numpy as np
@@ -315,6 +318,41 @@ def packed_hash_backward_reference(g, prim_pool, bias_pool, points, anchors,
     return grad.view(n_levels, n_rows, row_width)
 
 
+def packed_hash_bwd_reductions(prim_pool, bias_pool, points, anchors,
+                               n_rows, n_channels, pack, dense_levels=0,
+                               warp=32) -> torch.Tensor:
+    """(L,) int64: the vector reductions the table-gradient kernel (H2)
+    issues per level.  Its warps take ``warp`` consecutive points from a
+    multiple of ``warp`` on, at one level; a run of consecutive valid
+    points with equal (row, clamped local cell) is one contributor, which
+    adds each of its live corners with one reduction (two at 8 channels).
+    A masked point ends a run and adds nothing."""
+    n_levels, n_volumes = prim_pool.shape[:2]
+    e = pack + 1
+    p = points.shape[0]
+    valid = anchors >= 0
+    vol, prims, biases = _anchor_rows(prim_pool, bias_pool, anchors)
+    scales = _level_scales(n_levels)
+    dm, _ = dense_level_extents(n_levels, pack, n_volumes, n_rows,
+                                dense_levels)
+    first = torch.arange(p, device=points.device) % warp == 0
+    ops = []
+    for l in range(n_levels):
+        h, loc, _ = _level_coords(points, prims[l], biases[l], scales[l],
+                                  vol, pack, n_rows, int(dm[l]))
+        cl = [x.clamp(-2, e) for x in loc]
+        key = torch.stack([h, *cl], -1)
+        same = torch.zeros_like(valid)
+        same[1:] = (key[1:] == key[:-1]).all(-1) & valid[:-1]
+        head = valid & (first | ~same)
+        live = torch.ones_like(h)
+        for x in cl:   # live positions of the axis: loc and loc + 1 in [0, e)
+            live = live * (((x >= 0) & (x < e)).long()
+                           + ((x + 1 >= 0) & (x + 1 < e)).long())
+        ops.append((live * head).sum())
+    return torch.stack(ops) * (2 if n_channels == 8 else 1)
+
+
 class _PackedHashEncode(torch.autograd.Function):
     """H1 forward and H2 table gradient on CUDA tensors; the plain pair on
     CPU tensors or when ``plain`` is set.  No gradient flows to the points,
@@ -374,10 +412,23 @@ packed_hash_encode.launches = 0       # H1 launches
 packed_hash_encode.bwd_launches = 0   # H2 launches
 
 
+@functools.lru_cache(maxsize=32)
+def _level_constants(n_levels, pack, n_volumes, n_rows, dense_levels, dev):
+    """(scales f32, dense_m i32) of the levels on ``dev``, built once and
+    shared by every launch (the kernels only read them): a copy from host
+    memory would otherwise wait for the stream to drain at every launch."""
+    dm, _ = dense_level_extents(n_levels, pack, n_volumes, n_rows,
+                                dense_levels)
+    return (torch.as_tensor(_level_scales(n_levels), device=dev),
+            torch.as_tensor(dm, dtype=torch.int32, device=dev))
+
+
 def _kernel_args(what, prim_pool, bias_pool, points, anchors, n_levels,
                  n_rows, row_width, n_channels, pack, dense_levels, tensors):
     """Check what both kernels take and return the device tensors of the
-    addressing: (primes i32, bias, scales, dense_m, points, anchors i32)."""
+    addressing: (primes i32, bias, scales, dense_m, points, anchors i32).
+    Inputs that already have the kernel's type and layout are passed as
+    they are."""
     n_volumes = prim_pool.shape[1]
     e = pack + 1
     dev = points.device
@@ -403,17 +454,16 @@ def _kernel_args(what, prim_pool, bias_pool, points, anchors, n_levels,
     p = points.shape[0]
     if anchors.shape != (p,):
         raise ValueError(f"{what}: anchors {tuple(anchors.shape)} != ({p},)")
-    scales = torch.as_tensor(_level_scales(n_levels), device=dev)
-    dm, _ = dense_level_extents(n_levels, pack, n_volumes, n_rows,
-                                dense_levels)
+    scales, dense_m = _level_constants(n_levels, pack, n_volumes, n_rows,
+                                       dense_levels, dev)
     return (prim_pool.to(torch.int32).contiguous(),   # values < 2^30
-            bias_pool.to(torch.float32).contiguous(), scales,
-            torch.as_tensor(dm, dtype=torch.int32, device=dev),
+            bias_pool.to(torch.float32).contiguous(), scales, dense_m,
             points.contiguous(), anchors.to(torch.int32).contiguous())
 
 
 def _packed_hash_encode_cuda(feat_pool, prim_pool, bias_pool, points,
                              anchors, n_channels, pack, dense_levels):
+    """H1 on CUDA tensors."""
     n_levels, n_rows, row_width = feat_pool.shape
     addr = _kernel_args("packed_hash_encode", prim_pool, bias_pool, points,
                         anchors, n_levels, n_rows, row_width, n_channels,
@@ -433,12 +483,20 @@ def _packed_hash_encode_cuda(feat_pool, prim_pool, bias_pool, points,
 
 def _packed_hash_backward_cuda(g, prim_pool, bias_pool, points, anchors,
                                n_rows, row_width, n_channels, pack,
-                               dense_levels):
+                               dense_levels, red_ops=None):
+    """H2 on CUDA tensors.  ``red_ops``, an (L,) int64 tensor on the card,
+    if given, gets the number of vector reductions the kernel issued per
+    level added to it."""
     n_levels = prim_pool.shape[0]
     p = points.shape[0]
     if g.shape != (p, n_levels * n_channels):
         raise ValueError(f"packed_hash_encode backward: gradient "
                          f"{tuple(g.shape)} != ({p}, {n_levels * n_channels})")
+    if red_ops is not None and (red_ops.shape != (n_levels,)
+                                or red_ops.dtype != torch.int64
+                                or red_ops.device != points.device):
+        raise ValueError(f"packed_hash_encode backward: red_ops must be "
+                         f"({n_levels},) int64 on {points.device}")
     addr = _kernel_args("packed_hash_encode backward", prim_pool, bias_pool,
                         points, anchors, n_levels, n_rows, row_width,
                         n_channels, pack, dense_levels, [("gradient", g)])
@@ -446,8 +504,9 @@ def _packed_hash_backward_cuda(g, prim_pool, bias_pool, points, anchors,
     grad = torch.empty((n_levels, n_rows, row_width), dtype=torch.float32,
                        device=points.device)
     err = build.library().gfnerf_packed_hash_bwd(
-        gc.data_ptr(), *(t.data_ptr() for t in addr), grad.data_ptr(), p,
-        n_levels, prim_pool.shape[1], n_rows, row_width, n_channels, pack + 1,
+        gc.data_ptr(), *(t.data_ptr() for t in addr), grad.data_ptr(),
+        None if red_ops is None else red_ops.data_ptr(), p, n_levels,
+        prim_pool.shape[1], n_rows, row_width, n_channels, pack + 1,
         torch.cuda.current_stream(points.device).cuda_stream)
     build.check(err, "gfnerf_packed_hash_bwd")
     packed_hash_encode.bwd_launches += 1

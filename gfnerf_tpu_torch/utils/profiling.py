@@ -21,6 +21,12 @@ from torch.profiler import record_function
 # recorder object reaches; only profile_device sets it, and resets it.
 _events = None
 
+# CUDA runtime calls through which the host may wait for the device: the
+# synchronizes, and cudaMemcpyAsync, which PyTorch follows with a stream
+# synchronize when it copies from the host's pageable memory
+HOST_WAITS = ("cudaStreamSynchronize", "cudaDeviceSynchronize",
+              "cudaMemcpyAsync")
+
 
 @contextlib.contextmanager
 def span(name: str):
@@ -43,8 +49,8 @@ def profile_device(fn) -> dict:
     """Run fn() once under torch.profiler, with stage events on.
 
     Returns the device span (ms) of each stage summed over its entries, the
-    sum of all kernel times (the device's busy time), and the busiest
-    kernels."""
+    sum of all kernel times (the device's busy time), the busiest kernels,
+    and the count of each of HOST_WAITS."""
     global _events
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -60,12 +66,15 @@ def profile_device(fn) -> dict:
             stages[name] = stages.get(name, 0.0) + start.elapsed_time(end)
     finally:
         _events = None
+    events = prof.key_averages()
     kernels = sorted(((e.key, e.self_device_time_total / 1e3, e.count)
-                      for e in prof.key_averages()
+                      for e in events
                       if e.device_type == DeviceType.CUDA
                       and not e.key.startswith("gfnerf/")),
                      key=lambda k: -k[1])
     return {"stage_device_span_ms": stages,
             "device_busy_ms": sum(k[1] for k in kernels),
             "top_kernels": [{"name": n[:100], "device_ms": t, "count": c}
-                            for n, t, c in kernels[:15]]}
+                            for n, t, c in kernels[:15]],
+            "host_waits": {e.key: e.count for e in events
+                           if e.key in HOST_WAITS}}

@@ -42,6 +42,39 @@ def _points(p=4096, seed=1, n_invalid=0):
     return pts, anc
 
 
+# Inputs the kernels' level-major warps make risky: H2 merges runs of
+# consecutive points in one cell into one contributor, and both kernels
+# take tiles of several 32-point slices of consecutive points.
+RUN_CASES = ("one_cell", "runs", "runs_masked")
+
+
+def _run_points(case, n_rays=10, n_samples=97, seed=5):
+    """(points, anchors) of ``n_rays`` rays of ``n_samples`` consecutive
+    points (P is not a multiple of 32):
+    'one_cell': every point within 1e-6 of one point, one anchor: one cell
+        at every level;
+    'runs': each ray's points 2e-4 apart in t order from a random origin, one
+        anchor per ray: runs of equal cells cross the 32-point warps and the
+        tiles on the coarse levels;
+    'runs_masked': 'runs' with anchors < 0 inside the runs (single points,
+        a stretch, and the two points around a 32-point boundary)."""
+    rng = np.random.default_rng(seed)
+    p = n_rays * n_samples
+    if case == "one_cell":
+        pts = rng.uniform(0.45, 0.55, 3) + rng.uniform(0, 1e-6, (p, 3))
+        anc = np.full(p, 1)
+    else:
+        d = rng.standard_normal((n_rays, 1, 3))
+        d /= np.linalg.norm(d, axis=-1, keepdims=True)
+        t = np.arange(n_samples)[None, :, None] * 2e-4
+        pts = (rng.uniform(0.3, 0.7, (n_rays, 1, 3)) + t * d).reshape(p, 3)
+        anc = np.repeat(rng.integers(0, N_VOLUMES, n_rays), n_samples)
+        if case == "runs_masked":
+            for i in (5, 21, 22, 23, 24, 25, 31, 32, 64, 65, 90):
+                anc[i::n_samples] = -1
+    return pts.astype(np.float32), anc.astype(np.int32)
+
+
 def _jax_rows(prim_pool, bias_pool, points, anchors, n_rows, pack,
               dense_levels):
     """The JAX encode's addressing (packed_hash.py:230-253), level by level;
@@ -142,6 +175,37 @@ def test_encode_raw_matches_jax(c, n_invalid, dense):
     assert np.all(t[anc < 0] == 0)
 
 
+@pytest.mark.parametrize("case,dense", [("one_cell", 0), ("runs", 0),
+                                        ("runs_masked", 0), ("runs", 2)])
+def test_encode_raw_matches_jax_on_runs(case, dense):
+    """The plain forward against the jitted JAX encode on runs of equal
+    cells (atol 1e-6, as above); masked points exactly zero."""
+    import jax
+    import jax.numpy as jnp
+    from gfnerf_tpu.fields.packed_hash import packed_hash_encode_raw as jenc
+    from gfnerf_tpu_torch.fields.packed_hash import (pack_for_channels,
+                                                     packed_hash_encode_raw,
+                                                     packed_hash_rows)
+
+    want, _, feat = _tables(4)
+    pts, anc = _run_points(case)
+    pack = pack_for_channels(4)
+    targs = (torch.as_tensor(want[1].astype(np.int64)),
+             torch.as_tensor(want[2]), torch.as_tensor(pts),
+             torch.as_tensor(anc))
+    if case == "one_cell":
+        rows = packed_hash_rows(*targs, 1 << ROWS_LOG2, pack)
+        assert bool((rows == rows[:, :1]).all())
+    j = np.asarray(jax.jit(jenc, static_argnums=(5, 6, 7))(
+        jnp.asarray(feat), jnp.asarray(want[1]), jnp.asarray(want[2]),
+        jnp.asarray(pts), jnp.asarray(anc), 4, pack, dense))
+    t = packed_hash_encode_raw(torch.as_tensor(feat), *targs, 4, pack,
+                               dense).numpy()
+    assert np.abs(t).max() > 0.05
+    np.testing.assert_allclose(t, j, rtol=0, atol=1e-6)
+    assert np.all(t[anc < 0] == 0)
+
+
 def test_wrapper_cpu_takes_plain_path():
     from gfnerf_tpu_torch.fields.packed_hash import (packed_hash_encode,
                                                      packed_hash_encode_raw)
@@ -157,24 +221,41 @@ def test_wrapper_cpu_takes_plain_path():
     assert torch.equal(got, packed_hash_encode_raw(*args))
 
 
+# (channels, dense levels, inputs) of the kernel-vs-plain tests on the card:
+# random points at each lattice shape, and the run cases
+CARD_CASES = [(2, 0, "random"), (4, 0, "random"), (8, 0, "random"),
+              (4, 2, "random"), (4, 0, "one_cell"), (4, 0, "runs"),
+              (4, 0, "runs_masked"), (4, 2, "runs"), (2, 0, "runs_masked"),
+              (8, 0, "runs_masked")]
+
+
+def _card_inputs(c, case):
+    """(prim, bias, points, anchors) numpy for one card case: 2^16 random
+    points with 1000 masked, or 300 rays of 97 points."""
+    from gfnerf_tpu_torch.fields.packed_hash import init_packed_hash_params
+
+    _, prim, bias = init_packed_hash_params(7, ROWS_LOG2, N_VOLUMES,
+                                            N_LEVELS, c)
+    if case == "random":
+        pts, anc = _points(p=1 << 16, n_invalid=1000)
+    else:
+        pts, anc = _run_points(case, n_rays=300)
+    return prim.astype(np.int64), bias, pts, anc
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("c,dense", [(2, 0), (4, 0), (8, 0), (4, 2)])
-def test_kernel_matches_plain_on_card(c, dense):
+@pytest.mark.parametrize("c,dense,case", CARD_CASES)
+def test_kernel_matches_plain_on_card(c, dense, case):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernel has no CPU mode")
     from gfnerf_tpu_torch.fields.packed_hash import (pack_for_channels,
                                                      packed_hash_encode,
                                                      packed_hash_encode_raw)
 
-    from gfnerf_tpu_torch.fields.packed_hash import init_packed_hash_params
-
-    _, prim, bias = init_packed_hash_params(7, ROWS_LOG2, N_VOLUMES,
-                                            N_LEVELS, c)
     feat = np.random.default_rng(7).uniform(
         -0.5, 0.5, (N_LEVELS, 1 << ROWS_LOG2, 128)).astype(np.float32)
-    pts, anc = _points(p=1 << 16, n_invalid=1000)
     args = [torch.as_tensor(a, device="cuda") for a in
-            (feat, prim.astype(np.int64), bias, pts, anc)]
+            (feat, *_card_inputs(c, case))]
     pack = pack_for_channels(c)
     before = packed_hash_encode.launches
     got = packed_hash_encode(*args, c, pack, dense)
@@ -183,6 +264,7 @@ def test_kernel_matches_plain_on_card(c, dense):
     ref = packed_hash_encode_raw(*args, c, pack, dense)
     np.testing.assert_allclose(got.cpu().numpy(), ref.cpu().numpy(), rtol=0,
                                atol=1e-5)
+    assert bool((got[args[4] < 0] == 0).all())
 
 
 def _bwd_args(c, dense, n_invalid, p=4096, seed=3):
@@ -222,6 +304,70 @@ def test_backward_matches_jax_vjp(c, n_invalid, dense):
     assert np.all(tg[..., live:] == 0)
     assert np.abs(tg).max() > 1.0
     np.testing.assert_allclose(tg, np.asarray(jg), rtol=2e-2, atol=2e-2)
+
+
+@pytest.mark.parametrize("case,dense", [("one_cell", 0), ("runs", 0),
+                                        ("runs_masked", 0), ("runs", 2)])
+def test_backward_matches_jax_vjp_on_runs(case, dense):
+    """The plain table gradient against ``_phe_bwd``'s VJP on runs of equal
+    cells, at the tolerance above; columns past the lattice exactly zero."""
+    import jax
+    import jax.numpy as jnp
+    from gfnerf_tpu.fields.packed_hash import packed_hash_encode as jenc
+    from gfnerf_tpu_torch.fields.packed_hash import (
+        pack_for_channels, packed_hash_backward_reference)
+
+    want, _, _ = _tables(4)
+    pts, anc = _run_points(case)
+    g = np.random.default_rng(11).standard_normal(
+        (len(pts), N_LEVELS * 4)).astype(np.float32)
+    pack = pack_for_channels(4)
+    _, vjp = jax.vjp(lambda t: jenc(t, jnp.asarray(want[1]),
+                                    jnp.asarray(want[2]), jnp.asarray(pts),
+                                    jnp.asarray(anc), 4, pack, dense),
+                     jnp.asarray(want[0]))
+    (jg,) = vjp(jnp.asarray(g))
+    tg = packed_hash_backward_reference(
+        torch.as_tensor(g), torch.as_tensor(want[1].astype(np.int64)),
+        torch.as_tensor(want[2]), torch.as_tensor(pts), torch.as_tensor(anc),
+        1 << ROWS_LOG2, 128, 4, pack, dense).numpy()
+    assert np.all(tg[..., (pack + 1) ** 3 * 4:] == 0)
+    assert np.abs(tg).max() > 1.0
+    np.testing.assert_allclose(tg, np.asarray(jg), rtol=2e-2, atol=2e-2)
+
+
+@pytest.mark.parametrize("case", RUN_CASES)
+def test_bwd_reduction_count(case):
+    """The reductions H2 issues: one contributor per run of equal cells in a
+    32-point warp, 8 live corners each (two reductions a corner at 8
+    channels); with warps of one point, one per valid point and corner."""
+    from gfnerf_tpu_torch.fields.packed_hash import (
+        pack_for_channels, packed_hash_bwd_reductions)
+
+    want, _, _ = _tables(4)
+    pts, anc = _run_points(case)
+    args = (torch.as_tensor(want[1].astype(np.int64)),
+            torch.as_tensor(want[2]), torch.as_tensor(pts),
+            torch.as_tensor(anc), 1 << ROWS_LOG2)
+    pack = pack_for_channels(4)
+    ops = packed_hash_bwd_reductions(*args, 4, pack).numpy()
+    n_valid = int((anc >= 0).sum())
+    single = packed_hash_bwd_reductions(*args, 4, pack, warp=1).numpy()
+    assert np.array_equal(single, np.full(N_LEVELS, 8 * n_valid))
+    assert np.all(ops <= single)
+    assert np.array_equal(
+        packed_hash_bwd_reductions(*args, 8, pack).numpy(), 2 * ops)
+    if case == "one_cell":
+        assert np.array_equal(ops, np.full(N_LEVELS, 8 * -(-len(pts) // 32)))
+    else:   # runs are longer on the coarse levels
+        assert ops[0] < ops[-1]
+    if case == "runs_masked":
+        # no run continues across a masked point: more runs on the coarsest
+        # level than with the same points unmasked
+        unmasked = packed_hash_bwd_reductions(
+            *args[:3], torch.as_tensor(_run_points("runs")[1]), args[4], 4,
+            pack).numpy()
+        assert ops[0] > unmasked[0]
 
 
 @pytest.mark.parametrize("c,dense", [(2, 0), (4, 2), (8, 0)])
@@ -281,22 +427,23 @@ def test_autograd_cpu_takes_plain_pair():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("c,dense", [(2, 0), (4, 0), (8, 0), (4, 2)])
-def test_backward_kernel_matches_plain_on_card(c, dense):
+@pytest.mark.parametrize("c,dense,case", CARD_CASES)
+def test_backward_kernel_matches_plain_on_card(c, dense, case):
+    """H2 through autograd against the plain table gradient (1e-5 of the
+    largest entry; padding columns exactly 0), and the reductions it counts
+    per level against packed_hash_bwd_reductions: one contributor per run
+    of equal cells in a warp."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernel has no CPU mode")
     from gfnerf_tpu_torch.fields.packed_hash import (
-        init_packed_hash_params, pack_for_channels,
-        packed_hash_backward_reference, packed_hash_encode)
+        _packed_hash_backward_cuda, pack_for_channels,
+        packed_hash_backward_reference, packed_hash_bwd_reductions,
+        packed_hash_encode)
 
-    _, prim, bias = init_packed_hash_params(7, ROWS_LOG2, N_VOLUMES,
-                                            N_LEVELS, c)
-    pts, anc = _points(p=1 << 16, n_invalid=1000)
+    args = [torch.as_tensor(a, device="cuda") for a in _card_inputs(c, case)]
     feat = torch.zeros((N_LEVELS, 1 << ROWS_LOG2, 128), device="cuda",
                        requires_grad=True)
-    args = [torch.as_tensor(a, device="cuda") for a in
-            (prim.astype(np.int64), bias, pts, anc)]
-    g = torch.randn((len(pts), N_LEVELS * c), device="cuda",
+    g = torch.randn((len(args[2]), N_LEVELS * c), device="cuda",
                     generator=torch.Generator("cuda").manual_seed(c))
     pack = pack_for_channels(c)
     before = packed_hash_encode.bwd_launches
@@ -310,6 +457,50 @@ def test_backward_kernel_matches_plain_on_card(c, dense):
                                rtol=0, atol=1e-5 * scale)
     live = (pack + 1) ** 3 * c
     assert bool((feat.grad[..., live:] == 0).all())
+    ops = torch.zeros(N_LEVELS, dtype=torch.int64, device="cuda")
+    _packed_hash_backward_cuda(g, *args, 1 << ROWS_LOG2, 128, c, pack, dense,
+                               red_ops=ops)
+    want = packed_hash_bwd_reductions(*args, 1 << ROWS_LOG2, c, pack, dense)
+    assert ops.tolist() == want.tolist()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_levels,c", [(5, 4), (3, 2), (3, 8), (16, 4)])
+def test_kernels_at_other_level_counts(n_levels, c):
+    """H1 and H2 against their plain versions where the level count is not
+    the main path's: H2's launches of 8 / C levels end with a ragged group
+    (5 levels at C = 4) or take fewer levels than a group (3 at C = 2), and
+    H1's tile shrinks to fit 16 levels; H2's reduction count as well."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    from gfnerf_tpu_torch.fields.packed_hash import (
+        _packed_hash_backward_cuda, _packed_hash_encode_cuda,
+        init_packed_hash_params, pack_for_channels,
+        packed_hash_backward_reference, packed_hash_bwd_reductions,
+        packed_hash_encode_raw)
+
+    _, prim, bias = init_packed_hash_params(7, ROWS_LOG2, N_VOLUMES,
+                                            n_levels, c)
+    pts, anc = _run_points("runs_masked", n_rays=300)
+    feat = np.random.default_rng(7).uniform(
+        -0.5, 0.5, (n_levels, 1 << ROWS_LOG2, 128)).astype(np.float32)
+    args = [torch.as_tensor(a, device="cuda") for a in
+            (feat, prim.astype(np.int64), bias, pts, anc)]
+    pack = pack_for_channels(c)
+    got = _packed_hash_encode_cuda(*args, c, pack, 0)
+    ref = packed_hash_encode_raw(*args, c, pack)
+    np.testing.assert_allclose(got.cpu().numpy(), ref.cpu().numpy(), rtol=0,
+                               atol=1e-5)
+    g = torch.randn(got.shape, device="cuda",
+                    generator=torch.Generator("cuda").manual_seed(3))
+    bargs = (g, *args[1:], 1 << ROWS_LOG2, 128, c, pack, 0)
+    ops = torch.zeros(n_levels, dtype=torch.int64, device="cuda")
+    grad = _packed_hash_backward_cuda(*bargs, red_ops=ops)
+    ref = packed_hash_backward_reference(*bargs)
+    np.testing.assert_allclose(grad.cpu().numpy(), ref.cpu().numpy(), rtol=0,
+                               atol=1e-5 * float(ref.abs().max()))
+    want = packed_hash_bwd_reductions(*args[1:], 1 << ROWS_LOG2, c, pack)
+    assert ops.tolist() == want.tolist()
 
 
 def test_build_stamp_covers_headers(tmp_path, monkeypatch):
