@@ -25,16 +25,17 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
                 level.
   6. train    — with the counters reset: 20 init-stage steps of 8192 rays
                 through make_train_step (one warm-up, 5 timed: s/step,
-                rays/s, peak memory); all four kernels launched once per
-                step; loss and gradients finite, the loss falling, the
+                rays/s, peak memory); each kernel called once per step,
+                the hash backward's call launching once per group of
+                levels; loss and gradients finite, the loss falling, the
                 global table and every MLP changed, the block tables not,
                 the occupancy statistics moved; one step from a common
                 state with the kernels against the plain autograd pairs
                 (no kernel may launch in it); on a train batch's points,
                 the hash encode timed against its plain version and level
                 by level, and the hash backward against its plain version
-                and index_add_, then level by level (its vector
-                reductions per level, counted
+                and index_add_, at 1, 2, 4 and 8 levels per launch, then
+                level by level (its vector reductions per level, counted
                 by the kernel and held against the same runs reckoned on
                 the host, and a launch per level timed); the host syncs of
                 one encode forward and backward.
@@ -385,6 +386,7 @@ def reset_launch_counts() -> None:
 
     fused_composite.launches = fused_composite.bwd_launches = 0
     packed_hash_encode.launches = packed_hash_encode.bwd_launches = 0
+    packed_hash_encode.bwd_calls = 0
 
 
 class plain_wrappers:
@@ -521,9 +523,9 @@ def _marched_points(wl, o, d, noise):
 
 
 def hash_fwd_bytes(p, n_levels, n_channels, table_numel) -> int:
-    """H1: output, points, anchors, and the table's f32 read and bf16
-    copy."""
-    return 4 * p * n_levels * n_channels + 12 * p + 4 * p + 6 * table_numel
+    """H1: output, points, anchors, and one read of the f32 table (the
+    bf16 copy that the wrapper writes is not work the function needs)."""
+    return 4 * p * n_levels * n_channels + 12 * p + 4 * p + 4 * table_numel
 
 
 def hash_bwd_bytes(p, n_levels, n_channels, table_numel) -> int:
@@ -563,7 +565,7 @@ def time_encode_on_chunk(wl, fo, fd) -> dict:
         del got, want
         ms = time_ms(lambda: _packed_hash_encode_cuda(*args))
         plain_ms = time_ms(lambda: packed_hash_encode_raw(*args), n=3)
-        levels, bf16_ms = hash_fwd_levels(args)
+        kernel_ms, levels = hash_fwd_levels(args)
     p = pts.shape[0]
     table = field.global_feat
     bound = hash_fwd_bytes(p, table.shape[0], c, table.numel()) \
@@ -571,84 +573,67 @@ def time_encode_on_chunk(wl, fo, fd) -> dict:
     log(f"[render] packed_hash_fwd on a frame chunk (P={p}, "
         f"{int((anc >= 0).sum())} valid): max abs err {err:.3g}; kernel "
         f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound:.4f} ms")
-    log(f"[render] packed_hash_fwd on a frame chunk, given a bf16 table (no "
-        f"table cast): {bf16_ms:.4f} ms; each level alone: "
+    log(f"[render] packed_hash_fwd on a frame chunk, given the kernel's "
+        f"input types (no copies): {kernel_ms:.4f} ms; each level alone: "
         f"{[round(t, 4) for t in levels]} ms (sum {sum(levels):.4f})")
     return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound, "bound_by": "bytes", "library_ms": None,
-            "frame_chunk_bf16_table_ms": bf16_ms,
+            "frame_chunk_kernel_typed_ms": kernel_ms,
             "frame_chunk_level_ms": levels}
 
 
-def level_pointers(addr, level) -> list:
-    """The addressing tensors of _kernel_args as the pointers of a launch
-    over one level alone: the level's slice of the primes and biases
-    (L, V, 3), scales (L,) and dense extents (L,), and all the points and
-    anchors (4-byte elements throughout)."""
-    prim, bias, scales, dense_m, pts, anc = addr
-    row = 4 * prim.shape[1] * 3 * level
-    return [prim.data_ptr() + row, bias.data_ptr() + row,
-            scales.data_ptr() + 4 * level, dense_m.data_ptr() + 4 * level,
-            pts.data_ptr(), anc.data_ptr()]
+def kernel_typed(args, table=None) -> tuple:
+    """The hash wrappers' arguments with the tensors the kernels read
+    already in their types (int32 primes and anchors, and the table
+    ``table`` of H1 in bf16), so that the wrapper copies nothing: a time
+    taken on them is the kernel's alone."""
+    import torch
+
+    a = list(args)
+    a[1], a[4] = a[1].to(torch.int32), a[4].to(torch.int32)
+    if table is not None:
+        a[0] = table.detach().to(torch.bfloat16)
+    return tuple(a)
 
 
 def hash_fwd_levels(args) -> tuple:
-    """H1 level by level on the given inputs, the table handed over in bf16
-    (so the wrapper does not cast it; 10 launches per sample): the time of
-    a launch that does that level alone, whose output is held against that
-    level's columns of the whole kernel's, and the whole kernel's time.
-    Returns (per-level ms, whole ms)."""
+    """H1 on the given inputs in the kernel's types (10 launches per
+    sample): whole, and level by level, each launch over one level alone
+    held against that level's columns of the whole.  Returns (whole ms,
+    per-level ms)."""
     import torch
 
-    from gfnerf_tpu_torch.fields.packed_hash import (_kernel_args,
-                                                     _packed_hash_encode_cuda)
-    from gfnerf_tpu_torch.ops import build
+    from gfnerf_tpu_torch.fields.packed_hash import _packed_hash_encode_cuda
 
-    feat, prim, bias, pts, anc, c, pack, dense = args
-    n_levels, n_rows, width = feat.shape
-    n_volumes = prim.shape[1]
-    table = feat.detach().to(torch.bfloat16)
-    full = _packed_hash_encode_cuda(table, *args[1:])
-    whole_ms = time_ms(lambda: _packed_hash_encode_cuda(table, *args[1:]),
-                       reps=10)
-    addr = _kernel_args("packed_hash_fwd per level", prim, bias, pts, anc,
-                        n_levels, n_rows, width, c, pack, dense, [])
-    lib = build.library()
-    stream = torch.cuda.current_stream().cuda_stream
-    out = torch.empty((pts.shape[0], c), device="cuda")
+    typed = kernel_typed(args, table=args[0])
+    c = args[5]
+    full = _packed_hash_encode_cuda(*typed)
+    whole_ms = time_ms(lambda: _packed_hash_encode_cuda(*typed), reps=10)
     times = []
-    for l in range(n_levels):
-        ptrs = level_pointers(addr, l)
-
-        def run():
-            build.check(lib.gfnerf_packed_hash_fwd(
-                table[l].data_ptr(), *ptrs, out.data_ptr(), pts.shape[0], 1,
-                n_volumes, n_rows, width, c, pack + 1, stream),
-                "gfnerf_packed_hash_fwd")
-
-        run()
+    for l in range(args[0].shape[0]):
+        out = _packed_hash_encode_cuda(*typed, level=l)
         torch.cuda.synchronize()
         if not torch.equal(out, full[:, l * c:(l + 1) * c]):
             raise AssertionError(f"packed_hash_fwd level {l} alone differs")
-        times.append(time_ms(run, reps=10))
-    return times, whole_ms
+        times.append(time_ms(
+            lambda: _packed_hash_encode_cuda(*typed, level=l), reps=10))
+    return whole_ms, times
 
 
 def hash_bwd_levels(args) -> list:
     """H2 level by level on the given inputs: the vector reductions the
     kernel counted at each level, held against packed_hash_bwd_reductions
-    (the same runs reckoned on the host), and the time of a launch that
-    does that level alone (its 16 MB zero-fill included; 10 launches per
-    sample), whose result is held against that level of the whole
-    kernel's."""
+    (the same runs reckoned on the host), and the time of a launch over
+    that level alone (its 16 MB zero-fill included; 10 launches per
+    sample; inputs in the kernel's types), whose result is held against
+    that level of the whole kernel's."""
     import torch
 
     from gfnerf_tpu_torch.fields.packed_hash import (
-        _kernel_args, _packed_hash_backward_cuda, packed_hash_bwd_reductions)
-    from gfnerf_tpu_torch.ops import build
+        _packed_hash_backward_cuda, packed_hash_bwd_reductions)
 
     g, prim, bias, pts, anc, n_rows, width, c, pack, dense = args
-    n_levels, n_volumes = prim.shape[:2]
+    n_levels = prim.shape[0]
     ops = torch.zeros(n_levels, dtype=torch.int64, device="cuda")
     full = _packed_hash_backward_cuda(*args, red_ops=ops)
     want = packed_hash_bwd_reductions(prim, bias, pts, anc, n_rows, c, pack,
@@ -658,32 +643,47 @@ def hash_bwd_levels(args) -> list:
         raise AssertionError(f"packed_hash_bwd: reductions per level "
                              f"{ops.tolist()}, runs reckoned on the host "
                              f"{want.tolist()}")
-    addr = _kernel_args("packed_hash_bwd per level", prim, bias, pts, anc,
-                        n_levels, n_rows, width, c, pack, dense, [])
-    lib = build.library()
-    stream = torch.cuda.current_stream().cuda_stream
-    grad = torch.empty((n_rows, width), device="cuda")
     per_level = []
+    typed = kernel_typed(args)
     for l in range(n_levels):
-        g_l = g[:, l * c:(l + 1) * c].contiguous()
-        ptrs = level_pointers(addr, l)
-
-        def run():
-            build.check(lib.gfnerf_packed_hash_bwd(
-                g_l.data_ptr(), *ptrs, grad.data_ptr(), None, pts.shape[0],
-                1, n_volumes, n_rows, width, c, pack + 1, stream),
-                "gfnerf_packed_hash_bwd")
-
-        run()
+        largs = (g[:, l * c:(l + 1) * c].contiguous(), *typed[1:])
+        grad = _packed_hash_backward_cuda(*largs, level=l)
         torch.cuda.synchronize()
-        assert_close([grad], [full[l]], f"packed_hash_bwd level {l} alone",
+        assert_close([grad[0]], [full[l]], f"packed_hash_bwd level {l} alone",
                      atol_rel=H2_ATOL_REL)
-        ms = time_ms(run, reps=10)
+        ms = time_ms(lambda: _packed_hash_backward_cuda(*largs, level=l),
+                     reps=10)
         per_level.append({"level": l, "reductions": int(ops[l]),
                           "ms": ms})
         log(f"[train] packed_hash_bwd level {l} alone: {int(ops[l])} vector "
             f"reductions (host reckoning agrees), {ms:.4f} ms")
     return per_level
+
+
+def hash_bwd_groupings(args, want) -> dict:
+    """H2 on the given inputs, in the kernel's types, with each launch
+    covering 1, 2, 4 and 8 levels (the kernel's own choice is 8 / C): per
+    levels-per-launch, the launches of one call and the time of the call;
+    each result held against ``want``."""
+    import torch
+
+    from gfnerf_tpu_torch.fields.packed_hash import (
+        _packed_hash_backward_cuda, packed_hash_encode)
+
+    args = kernel_typed(args)
+    out = {}
+    for n in (1, 2, 4, 8):
+        before = packed_hash_encode.bwd_launches
+        got = _packed_hash_backward_cuda(*args, levels_per_launch=n)
+        launches = packed_hash_encode.bwd_launches - before
+        torch.cuda.synchronize()
+        assert_close([got], [want], f"packed_hash_bwd at {n} levels per "
+                     f"launch", atol_rel=H2_ATOL_REL)
+        del got
+        ms = time_ms(lambda: _packed_hash_backward_cuda(
+            *args, levels_per_launch=n), n=11)
+        out[n] = {"launches": launches, "ms": ms}
+    return out
 
 
 def host_syncs(fn) -> dict:
@@ -742,14 +742,14 @@ def time_hash_on_batch(wl, batch, noise) -> tuple:
         del want
         fwd_ms = time_ms(lambda: ph._packed_hash_encode_cuda(*fargs), n=21)
         fwd_plain_ms = time_ms(lambda: ph.packed_hash_encode_raw(*fargs), n=3)
-        fwd_levels, fwd_bf16_ms = hash_fwd_levels(fargs)
+        fwd_kernel_ms, fwd_levels = hash_fwd_levels(fargs)
         del got
     fwd_bound = hash_fwd_bytes(p, n_levels, c, field.global_feat.numel()) \
         / HBM_BYTES_PER_S * 1e3
     log(f"[train] packed_hash_fwd on a train batch (P={p}, {n_valid} valid): "
         f"max abs err {fwd_err:.3g}; kernel {fwd_ms:.4f} ms, plain "
-        f"{fwd_plain_ms:.4f} ms, bound {fwd_bound:.4f} ms; given a bf16 "
-        f"table: {fwd_bf16_ms:.4f} ms; each level alone: "
+        f"{fwd_plain_ms:.4f} ms, bound {fwd_bound:.4f} ms; given the "
+        f"kernel's input types: {fwd_kernel_ms:.4f} ms; each level alone: "
         f"{[round(t, 4) for t in fwd_levels]} ms (sum {sum(fwd_levels):.4f})")
 
     # ---- H2 ----
@@ -763,6 +763,7 @@ def time_hash_on_batch(wl, batch, noise) -> tuple:
     assert_close([got], [want], "packed_hash_bwd on a train batch",
                  atol_rel=H2_ATOL_REL)
     err = max_err([got], [want])
+    groupings = hash_bwd_groupings(args, want)
     del want
     ms = time_ms(lambda: ph._packed_hash_backward_cuda(*args), n=11)
     del got
@@ -781,6 +782,9 @@ def time_hash_on_batch(wl, batch, noise) -> tuple:
     log(f"[train] packed_hash_bwd on a train batch (P={p}, {n_valid} valid): "
         f"max abs err {err:.3g}; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms,"
         f" index_add_ {library_ms:.4f} ms, bound {bound:.4f} ms")
+    by_group = "; ".join(f"{n}: {x['launches']} launches, {x['ms']:.4f} ms"
+                         for n, x in groupings.items())
+    log(f"[train] packed_hash_bwd by levels per launch: {by_group}")
     levels = hash_bwd_levels(args)
     n_red = sum(x["reductions"] for x in levels)
     log(f"[train] packed_hash_bwd: {n_red} vector reductions in all "
@@ -798,25 +802,21 @@ def time_hash_on_batch(wl, batch, noise) -> tuple:
         torch.cuda.synchronize()
 
     encode_fwd_bwd()
-    cached = ph._level_constants
-    ph._level_constants = cached.__wrapped__   # built at every launch
-    try:
-        syncs = {"cold": host_syncs(encode_fwd_bwd)}
-    finally:
-        ph._level_constants = cached
-    syncs["cached"] = host_syncs(encode_fwd_bwd)
+    ph._level_constants.cache_clear()   # the next launch builds them anew
+    syncs = {"cold": host_syncs(encode_fwd_bwd),
+             "cached": host_syncs(encode_fwd_bwd)}
     log(f"[train] host calls in one encode forward + backward (one final "
-        f"cudaDeviceSynchronize included): level constants built per "
-        f"launch {syncs['cold']}, cached {syncs['cached']}")
+        f"cudaDeviceSynchronize included): level constants built at its "
+        f"first launch {syncs['cold']}, cached {syncs['cached']}")
     del feat, gout
     fwd = {"max_abs_err": fwd_err, "train_batch_ms": fwd_ms,
            "train_batch_plain_ms": fwd_plain_ms,
            "train_batch_bound_ms": fwd_bound,
-           "train_batch_bf16_table_ms": fwd_bf16_ms,
+           "train_batch_kernel_typed_ms": fwd_kernel_ms,
            "train_batch_level_ms": fwd_levels}
     bwd = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
            "bound_ms": bound, "bound_by": "bytes", "library_ms": library_ms,
-           "per_level": levels,
+           "per_level": levels, "by_levels_per_launch": groupings,
            "host_syncs": syncs}
     return fwd, bwd
 
@@ -833,6 +833,7 @@ def phase_train(wl):
 
     from gfnerf_tpu_torch.engine.optimizers import (field_param_grads,
                                                     field_param_groups)
+    from gfnerf_tpu_torch.fields.packed_hash import packed_hash_encode
     from gfnerf_tpu_torch.model_components.losses import s3im_permutations
     from gfnerf_tpu_torch.models.gfnerf import TrainState
     from gfnerf_tpu_torch.train_bench import RAYS, make_batch, run_steps
@@ -857,16 +858,23 @@ def phase_train(wl):
     peak = torch.cuda.max_memory_allocated()
     _, rest = run_steps(wl, batches[1 + TIMED_STEPS:TRAIN_STEPS], gen)
     launches = launch_counts()
+    bwd_calls = packed_hash_encode.bwd_calls
     losses += more + rest
     dt = float(np.mean(times))
     log(f"[train] warm-up step {warm[0]:.3f}s; {TIMED_STEPS} steps of {RAYS} "
         f"rays: {dt:.4f} s/step (mean; {', '.join(f'{t:.4f}' for t in times)})"
         f" = {RAYS / dt:.1f} rays/s; peak memory {peak / 2**30:.2f} GiB")
-    log(f"[train] launches {launches}, expected {TRAIN_STEPS} each")
-    for name, n in launches.items():
-        if n != TRAIN_STEPS:
-            raise AssertionError(f"{name}: {n} launches in {TRAIN_STEPS} "
-                                 f"train steps")
+    # H2's C entry point launches once per group of 8 / C levels
+    # (csrc/packed_hash_bwd.cu), each after a zero-fill of its group
+    n_levels = field.global_feat.shape[0]
+    h2_groups = -(-n_levels // max(1, 8 // wl["fcfg"].features_per_level))
+    expected = {name: TRAIN_STEPS * (h2_groups if name == "packed_hash_bwd"
+                                     else 1) for name in launches}
+    log(f"[train] launches {launches}, expected {expected}: each kernel once "
+        f"per step, H2 in {bwd_calls} calls of {h2_groups} launches")
+    if launches != expected or bwd_calls != TRAIN_STEPS:
+        raise AssertionError(f"launches {launches} (H2 calls {bwd_calls}) in "
+                             f"{TRAIN_STEPS} train steps, expected {expected}")
 
     # ---- the state after training ----
     log(f"[train] losses {[round(x, 5) for x in losses]}")
@@ -938,7 +946,8 @@ def phase_train(wl):
     del outs, grads_k, grads_p
     torch.cuda.empty_cache()
     stats = {"s_per_step": dt, "rays_per_s": RAYS / dt, "peak_bytes": peak,
-             "step_seconds": times, "first_loss": first, "last_loss": last}
+             "step_seconds": times, "first_loss": first, "last_loss": last,
+             "packed_hash_bwd_calls": bwd_calls}
     return launches, stats, time_hash_on_batch(wl, batch, noise)
 
 

@@ -28,6 +28,7 @@ jitted JAX encode.
 
 from __future__ import annotations
 
+import ctypes
 import functools
 import itertools
 
@@ -409,7 +410,8 @@ def plain_packed_hash_encode(feat_pool, prim_pool, bias_pool, points,
 
 
 packed_hash_encode.launches = 0       # H1 launches
-packed_hash_encode.bwd_launches = 0   # H2 launches
+packed_hash_encode.bwd_launches = 0   # H2 launches (one per group of levels)
+packed_hash_encode.bwd_calls = 0      # H2 calls, one per backward
 
 
 @functools.lru_cache(maxsize=32)
@@ -423,13 +425,15 @@ def _level_constants(n_levels, pack, n_volumes, n_rows, dense_levels, dev):
             torch.as_tensor(dm, dtype=torch.int32, device=dev))
 
 
-def _kernel_args(what, prim_pool, bias_pool, points, anchors, n_levels,
-                 n_rows, row_width, n_channels, pack, dense_levels, tensors):
+def _kernel_args(what, prim_pool, bias_pool, points, anchors, n_rows,
+                 row_width, n_channels, pack, dense_levels, tensors,
+                 level=None):
     """Check what both kernels take and return the device tensors of the
     addressing: (primes i32, bias, scales, dense_m, points, anchors i32).
     Inputs that already have the kernel's type and layout are passed as
-    they are."""
-    n_volumes = prim_pool.shape[1]
+    they are.  With ``level``, the primes, biases, scales and dense extents
+    are that level's rows alone, for a launch over that one level."""
+    n_levels, n_volumes = prim_pool.shape[:2]
     e = pack + 1
     dev = points.device
     if dev.type != "cuda":
@@ -443,6 +447,8 @@ def _kernel_args(what, prim_pool, bias_pool, points, anchors, n_levels,
                          f"rows")
     if n_rows & (n_rows - 1):
         raise ValueError(f"{what}: {n_rows} rows is not a power of two")
+    if level is not None and not 0 <= level < n_levels:
+        raise ValueError(f"{what}: level {level} of {n_levels}")
     for name, t in (("prim_pool", prim_pool), ("bias_pool", bias_pool),
                     ("anchors", anchors), *tensors):
         if t.device != dev:
@@ -454,21 +460,29 @@ def _kernel_args(what, prim_pool, bias_pool, points, anchors, n_levels,
     p = points.shape[0]
     if anchors.shape != (p,):
         raise ValueError(f"{what}: anchors {tuple(anchors.shape)} != ({p},)")
-    scales, dense_m = _level_constants(n_levels, pack, n_volumes, n_rows,
-                                       dense_levels, dev)
-    return (prim_pool.to(torch.int32).contiguous(),   # values < 2^30
-            bias_pool.to(torch.float32).contiguous(), scales, dense_m,
-            points.contiguous(), anchors.to(torch.int32).contiguous())
+    per_level = [prim_pool.to(torch.int32),   # values < 2^30
+                 bias_pool.to(torch.float32),
+                 *_level_constants(n_levels, pack, n_volumes, n_rows,
+                                   dense_levels, dev)]
+    if level is not None:
+        per_level = [t[level:level + 1] for t in per_level]
+    return (*(t.contiguous() for t in per_level), points.contiguous(),
+            anchors.to(torch.int32).contiguous())
 
 
 def _packed_hash_encode_cuda(feat_pool, prim_pool, bias_pool, points,
-                             anchors, n_channels, pack, dense_levels):
-    """H1 on CUDA tensors."""
+                             anchors, n_channels, pack, dense_levels,
+                             level=None):
+    """H1 on CUDA tensors: (P, L * C).  With ``level``, that level alone:
+    (P, C), its columns of the whole.  The kernel reads a bf16 copy of the
+    table, as the plain version does (no copy if it is bf16 already)."""
     n_levels, n_rows, row_width = feat_pool.shape
     addr = _kernel_args("packed_hash_encode", prim_pool, bias_pool, points,
-                        anchors, n_levels, n_rows, row_width, n_channels,
-                        pack, dense_levels, [("feat_pool", feat_pool)])
+                        anchors, n_rows, row_width, n_channels, pack,
+                        dense_levels, [("feat_pool", feat_pool)], level)
     table = feat_pool.to(torch.bfloat16).contiguous()
+    if level is not None:
+        table, n_levels = table[level:level + 1], 1
     p = points.shape[0]
     out = torch.empty((p, n_levels * n_channels), dtype=torch.float32,
                       device=points.device)
@@ -477,17 +491,22 @@ def _packed_hash_encode_cuda(feat_pool, prim_pool, bias_pool, points,
         n_levels, prim_pool.shape[1], n_rows, row_width, n_channels, pack + 1,
         torch.cuda.current_stream(points.device).cuda_stream)
     build.check(err, "gfnerf_packed_hash_fwd")
-    packed_hash_encode.launches += 1
+    if p:   # no points, no launch
+        packed_hash_encode.launches += 1
     return out
 
 
 def _packed_hash_backward_cuda(g, prim_pool, bias_pool, points, anchors,
                                n_rows, row_width, n_channels, pack,
-                               dense_levels, red_ops=None):
-    """H2 on CUDA tensors.  ``red_ops``, an (L,) int64 tensor on the card,
-    if given, gets the number of vector reductions the kernel issued per
-    level added to it."""
-    n_levels = prim_pool.shape[0]
+                               dense_levels, red_ops=None, level=None,
+                               levels_per_launch=0):
+    """H2 on CUDA tensors: the (L, rows, W) table gradient.  With
+    ``level``, that level alone: ``g`` is its (P, C) columns and the result
+    (1, rows, W).  ``red_ops``, an int64 tensor on the card with one entry
+    per level computed, if given, gets the number of vector reductions the
+    kernel issued per level added to it.  ``levels_per_launch`` > 0 sets
+    the levels each of the kernel's launches covers (0: its own choice)."""
+    n_levels = 1 if level is not None else prim_pool.shape[0]
     p = points.shape[0]
     if g.shape != (p, n_levels * n_channels):
         raise ValueError(f"packed_hash_encode backward: gradient "
@@ -498,16 +517,19 @@ def _packed_hash_backward_cuda(g, prim_pool, bias_pool, points, anchors,
         raise ValueError(f"packed_hash_encode backward: red_ops must be "
                          f"({n_levels},) int64 on {points.device}")
     addr = _kernel_args("packed_hash_encode backward", prim_pool, bias_pool,
-                        points, anchors, n_levels, n_rows, row_width,
-                        n_channels, pack, dense_levels, [("gradient", g)])
+                        points, anchors, n_rows, row_width, n_channels, pack,
+                        dense_levels, [("gradient", g)], level)
     gc = g.to(torch.float32).contiguous()
     grad = torch.empty((n_levels, n_rows, row_width), dtype=torch.float32,
                        device=points.device)
+    launches = ctypes.c_int(0)
     err = build.library().gfnerf_packed_hash_bwd(
         gc.data_ptr(), *(t.data_ptr() for t in addr), grad.data_ptr(),
-        None if red_ops is None else red_ops.data_ptr(), p, n_levels,
-        prim_pool.shape[1], n_rows, row_width, n_channels, pack + 1,
+        None if red_ops is None else red_ops.data_ptr(),
+        ctypes.addressof(launches), p, n_levels, prim_pool.shape[1], n_rows,
+        row_width, n_channels, pack + 1, levels_per_launch,
         torch.cuda.current_stream(points.device).cuda_stream)
     build.check(err, "gfnerf_packed_hash_bwd")
-    packed_hash_encode.bwd_launches += 1
+    packed_hash_encode.bwd_calls += 1
+    packed_hash_encode.bwd_launches += launches.value
     return grad

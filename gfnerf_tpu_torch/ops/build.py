@@ -37,7 +37,7 @@ SIGNATURES = {
     "gfnerf_composite_fwd": [_P] * 9 + [_I64, _I64, _P],
     "gfnerf_composite_bwd": [_P] * 13 + [_I64, _I64, _P],
     "gfnerf_packed_hash_fwd": [_P] * 8 + [_I64] + [_I32] * 6 + [_P],
-    "gfnerf_packed_hash_bwd": [_P] * 9 + [_I64] + [_I32] * 6 + [_P],
+    "gfnerf_packed_hash_bwd": [_P] * 10 + [_I64] + [_I32] * 7 + [_P],
 }
 
 

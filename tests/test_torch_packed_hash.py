@@ -446,10 +446,12 @@ def test_backward_kernel_matches_plain_on_card(c, dense, case):
     g = torch.randn((len(args[2]), N_LEVELS * c), device="cuda",
                     generator=torch.Generator("cuda").manual_seed(c))
     pack = pack_for_channels(c)
-    before = packed_hash_encode.bwd_launches
+    before = (packed_hash_encode.bwd_calls, packed_hash_encode.bwd_launches)
     packed_hash_encode(feat, *args, c, pack, dense).backward(g)
     torch.cuda.synchronize()
-    assert packed_hash_encode.bwd_launches == before + 1
+    # one call, whose C entry point launches once per group of 8 / C levels
+    assert (packed_hash_encode.bwd_calls, packed_hash_encode.bwd_launches) \
+        == (before[0] + 1, before[1] + -(-N_LEVELS // max(1, 8 // c)))
     ref = packed_hash_backward_reference(g, *args, 1 << ROWS_LOG2, 128, c,
                                          pack, dense)
     scale = float(ref.abs().max())
@@ -501,6 +503,79 @@ def test_kernels_at_other_level_counts(n_levels, c):
                                atol=1e-5 * float(ref.abs().max()))
     want = packed_hash_bwd_reductions(*args[1:], 1 << ROWS_LOG2, c, pack)
     assert ops.tolist() == want.tolist()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c", [2, 4, 8])
+def test_kernels_level_alone_and_launch_groups(c):
+    """Each kernel run over one level (``level``) gives that level of the
+    whole: H1 its columns bit for bit, H2 its gradient to 1e-5 of the
+    largest entry.  H2 at 1, 2 and 4 levels per launch gives the same
+    gradient and reports one launch per group; H1 given a bf16 table gives
+    the output of its f32 copy."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    from gfnerf_tpu_torch.fields.packed_hash import (
+        _packed_hash_backward_cuda, _packed_hash_encode_cuda,
+        pack_for_channels, packed_hash_encode)
+
+    feat = torch.as_tensor(np.random.default_rng(7).uniform(
+        -0.5, 0.5, (N_LEVELS, 1 << ROWS_LOG2, 128)).astype(np.float32),
+        device="cuda")
+    args = [torch.as_tensor(a, device="cuda")
+            for a in _card_inputs(c, "runs_masked")]
+    pack = pack_for_channels(c)
+    full = _packed_hash_encode_cuda(feat, *args, c, pack, 0)
+    assert torch.equal(_packed_hash_encode_cuda(
+        feat.to(torch.bfloat16), *args, c, pack, 0), full)
+    g = torch.randn(full.shape, device="cuda",
+                    generator=torch.Generator("cuda").manual_seed(c))
+    bargs = (*args, 1 << ROWS_LOG2, 128, c, pack, 0)
+    grad = _packed_hash_backward_cuda(g, *bargs)
+    tol = 1e-5 * float(grad.abs().max())
+    for l in range(N_LEVELS):
+        cols = slice(l * c, (l + 1) * c)
+        assert torch.equal(_packed_hash_encode_cuda(feat, *args, c, pack, 0,
+                                                    level=l), full[:, cols])
+        one = _packed_hash_backward_cuda(g[:, cols].contiguous(), *bargs,
+                                         level=l)
+        assert one.shape == (1, 1 << ROWS_LOG2, 128)
+        np.testing.assert_allclose(one[0].cpu().numpy(),
+                                   grad[l].cpu().numpy(), rtol=0, atol=tol)
+    for per_launch in (1, 2, 4):
+        before = packed_hash_encode.bwd_launches
+        got = _packed_hash_backward_cuda(g, *bargs,
+                                         levels_per_launch=per_launch)
+        assert packed_hash_encode.bwd_launches - before == \
+            -(-N_LEVELS // per_launch)
+        np.testing.assert_allclose(got.cpu().numpy(), grad.cpu().numpy(),
+                                   rtol=0, atol=tol)
+
+
+def test_signatures_match_entry_points():
+    """SIGNATURES, the argument types ctypes passes, agrees with every C
+    entry point's prototype: a pointer for each pointer, c_longlong for
+    long long, c_int for int, in order."""
+    import ctypes
+    import re
+
+    from gfnerf_tpu_torch.ops import build
+
+    proto = re.compile(r'extern "C" int (\w+)\(([^)]*)\)')
+    found = {}
+    for src in build._sources():
+        for name, params in proto.findall(src.read_text()):
+            kinds = []
+            for param in params.split(","):
+                if "*" in param:
+                    kinds.append(ctypes.c_void_p)
+                elif "long long" in param:
+                    kinds.append(ctypes.c_longlong)
+                else:
+                    assert re.fullmatch(r"\s*int \w+\s*", param), param
+                    kinds.append(ctypes.c_int)
+            found[name] = kinds
+    assert found == build.SIGNATURES
 
 
 def test_build_stamp_covers_headers(tmp_path, monkeypatch):
