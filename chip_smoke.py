@@ -7,12 +7,14 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
   2. build    — compiles gfnerf_tpu_torch/csrc/*.cu with nvcc for sm_90a,
                 one process per source, into gfnerf_tpu_torch/_build/ and
                 prints each kernel's registers.
-  3. kernels  — each hand-written kernel against its plain PyTorch version
-                on the card, at the main paths' shapes and at ragged and
-                edge cases (the composite backward where transmittance
-                underflows mid-ray; the hash backward's padding columns and
-                masked anchors); the composites timed against their plain
-                versions with CUDA events (median).
+  3. kernels  — each of the seven hand-written kernels against its plain
+                PyTorch version on the card, at the main paths' shapes and
+                at ragged and edge cases (the composite backward where
+                transmittance underflows mid-ray; the hash backward's
+                padding columns and masked anchors; dense levels in a small
+                table; the routed encode's masked and out-of-range blocks);
+                the composites timed against their plain versions with CUDA
+                events (median).
   4. workload — the bench's quality workload: 48 ring cameras and their
                 sphere-scene images, depth-8 octree, 8x4-level packed hash
                 field with random weights from seed 0, 384 march slots,
@@ -39,6 +41,31 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
                 by the kernel and held against the same runs reckoned on
                 the host, and a launch per level timed); the host syncs of
                 one encode forward and backward.
+  7. focal    — with the counters reset per block: 10 block-stage steps
+                (residual mode) on block 0, then 10 on block 1 from a new
+                optimizer state; launches per step (two encodes, one table
+                gradient into the block's table, no routed encode); frozen
+                parameters and the other block bit-unchanged, the active
+                table changed; a fixed batch's loss lower after each
+                block's steps; one step, kernels against the plain pairs
+                (loss and the active table's gradient).
+  8. focal    — with the counters reset: the 4 views as one mixed chunk
+     render     (view i in block i mod 2) and one 1920x1080 frame with a
+                block per ray, through render_chunk(..., stage_is_block=
+                True) with the trained tables; the composite, the encode
+                and the routed encode once per chunk; the mixed chunk's
+                rows against one-block renders; a routed chunk against the
+                plain path; the routed encode timed on a frame chunk
+                against its plain version, beside the stack's bf16 copy and
+                the residual add.
+  9. parity   — the bench's parity workload (anchored layout, 16 levels x
+                2 channels of 2^19 entries, 192 slots, fineness 4) built
+                anew; with the counters reset, 20 init-stage steps: the
+                composites and the anchored encode and table gradient once
+                per step, the packed kernels never; loss falls; one step
+                against the plain pairs; both anchored kernels timed on a
+                train batch against their plain versions, the table
+                gradient also against index_add_.
 Before the last line come a JSON object with each kernel's launches, error,
 times and bound, and the card's name and power limit; the last line is
 {"ok": true, "device": {...}}.
@@ -77,6 +104,7 @@ SLICE_ATOL = 2e-3
 # (MLPs) and 7e-5 (table); the limit, 2e-3 of the largest, is over 10x that
 TRAIN_STEPS = 20
 TIMED_STEPS = 5
+FOCAL_STEPS = 10   # focal steps per block
 TRAIN_LOSS_RTOL = 1e-4
 TRAIN_GRAD_TOL = 2e-3
 # the card's peak memory rate (H100 SXM data sheet), for the bounds
@@ -276,7 +304,9 @@ def check_composite_bwd() -> dict:
 
 def check_hash_bwd() -> float:
     """H2 against its plain version at 2^20 points (C = 4 with and without
-    dense levels, C = 2, C = 8) and at 1000 points with masked anchors;
+    dense levels, and with a dense level in a table of 2^13 rows, as a
+    focal block's may be; C = 2, C = 8) and at 1000 points with masked
+    anchors;
     the padding columns must stay exactly 0.  Returns the max error."""
     import torch
 
@@ -285,10 +315,11 @@ def check_hash_bwd() -> float:
         packed_hash_backward_reference)
 
     errs = []
-    for p, c, dense in ((1 << 20, 4, 0), (1 << 20, 4, 2), (1 << 20, 2, 0),
-                        (1 << 20, 8, 0), (1000, 4, 0)):
-        feat, prim, bias, pts, anc = _hash_inputs(p, c, n_volumes=16,
-                                                  seed=p + c + dense + 1)
+    for p, c, dense, rows_log2 in (
+            (1 << 20, 4, 0, 15), (1 << 20, 4, 2, 15), (1 << 20, 4, 2, 13),
+            (1 << 20, 2, 0, 15), (1 << 20, 8, 0, 15), (1000, 4, 0, 15)):
+        feat, prim, bias, pts, anc = _hash_inputs(
+            p, c, n_volumes=16, seed=p + c + dense + 1, rows_log2=rows_log2)
         n_levels, n_rows, width = feat.shape
         gen = torch.Generator(device="cuda").manual_seed(p + c)
         g = torch.randn((p, n_levels * c), generator=gen, device="cuda")
@@ -303,12 +334,126 @@ def check_hash_bwd() -> float:
         if not bool((got[..., live:] == 0).all()):
             raise AssertionError("packed_hash_bwd: padding columns written")
         errs.append(max_err([got], [want]))
-        log(f"[kernels] packed_hash_bwd P={p} C={c} dense_levels={dense}: "
-            f"max abs err {errs[-1]:.3g} (largest entry "
+        log(f"[kernels] packed_hash_bwd P={p} C={c} dense_levels={dense} "
+            f"rows=2^{rows_log2}: max abs err {errs[-1]:.3g} (largest entry "
             f"{float(want.abs().max()):.3g}); columns {live}.. exactly 0")
         del got, want, g, args
     torch.cuda.empty_cache()
     return max(errs)
+
+
+def check_hash_routed() -> float:
+    """H3 against its plain version, bit for bit, on 3 stacked tables with
+    each block's own primes and biases, a block per run of 384 points (a
+    ray's samples), some blocks and some anchors -1 and one block past the
+    last: C = 4 with and without dense levels, and with a dense level in
+    tables of 2^13 rows; C = 2; C = 8; 1000 points.  Returns the max
+    error."""
+    import numpy as np
+    import torch
+
+    from gfnerf_tpu_torch.fields.packed_hash import (
+        init_packed_hash_params, pack_for_channels, packed_hash_encode_routed,
+        packed_hash_encode_routed_raw)
+
+    n_blocks, n_volumes, n_levels = 3, 16, 8
+    errs = []
+    for p, c, dense, rows_log2 in (
+            (1 << 20, 4, 0, 15), (1 << 20, 4, 2, 15), (1 << 20, 4, 2, 13),
+            (1 << 18, 2, 0, 15), (1 << 18, 8, 0, 15), (1000, 4, 0, 15)):
+        seed = p + c + dense + rows_log2
+        _, prim, bias, pts, anc = _hash_inputs(p, c, n_volumes, seed,
+                                               n_levels, rows_log2)
+        pools = [init_packed_hash_params(seed + b, rows_log2, n_volumes,
+                                         n_levels, c)[1:]
+                 for b in range(n_blocks)]
+        prims = torch.as_tensor(np.stack([x[0] for x in pools]).astype(
+            np.int64), device="cuda")
+        biases = torch.as_tensor(np.stack([x[1] for x in pools]),
+                                 device="cuda")
+        gen = torch.Generator(device="cuda").manual_seed(seed)
+        tables = torch.rand((n_blocks, n_levels, 1 << rows_log2, 128),
+                            generator=gen, device="cuda") - 0.5
+        rng = np.random.default_rng(seed)
+        ray_blk = rng.integers(0, n_blocks, -(-p // 384))
+        ray_blk[rng.random(len(ray_blk)) < 0.05] = -1
+        blk = np.repeat(ray_blk, 384)[:p].astype(np.int32)
+        blk[p // 2] = n_blocks + 2   # clipped to the last block
+        blk = torch.as_tensor(blk, device="cuda")
+        pack = pack_for_channels(c)
+        tail = (prims, biases, pts, anc, blk, c, pack, dense)
+        got = packed_hash_encode_routed(tables, *tail)
+        want = packed_hash_encode_routed_raw(tables, *tail)
+        torch.cuda.synchronize()
+        errs.append(max_err([got], [want]))
+        if not torch.equal(got, want):
+            raise AssertionError(f"packed_hash_routed P={p} C={c} "
+                                 f"dense={dense}: max abs err {errs[-1]}, "
+                                 f"not equal bit for bit")
+        masked = (anc < 0) | (blk < 0)
+        if not bool((got[masked] == 0).all()) \
+                or not bool((got[~masked] != 0).any(-1).all()):
+            raise AssertionError("packed_hash_routed: masking is off")
+        log(f"[kernels] packed_hash_routed P={p} C={c} dense_levels={dense} "
+            f"rows=2^{rows_log2} B={n_blocks}: equal to the plain version; "
+            f"{int(masked.sum())} masked points exactly 0")
+        del got, want, tables, tail
+    torch.cuda.empty_cache()
+    return max(errs)
+
+
+def check_hash_anchored() -> tuple:
+    """H4 against its plain version (bit for bit) and H5 against its plain
+    version (H2's tolerance: the same f32 terms in another order), with
+    masked anchors: L = 16, C = 2, 2^19 entries a level at 2^20 points; L =
+    8, C = 4, 2^16 entries; L = 5, C = 2 at 1000 points.  Returns (H4's,
+    H5's max error)."""
+    import numpy as np
+    import torch
+
+    from gfnerf_tpu_torch.fields import hash_encoding as he
+
+    fwd_errs, bwd_errs = [], []
+    for p, c, n_levels, log2 in ((1 << 20, 2, 16, 19), (1 << 18, 4, 8, 16),
+                                 (1000, 2, 5, 12)):
+        seed = p + c + n_levels
+        n_volumes = 16
+        _, prim, bias = he.init_hash_params(seed, log2, n_volumes, n_levels,
+                                            c)
+        rng = np.random.default_rng(seed)
+        pts = rng.uniform(0.17, 0.83, (p, 3)).astype(np.float32)
+        anc = rng.integers(0, n_volumes, p).astype(np.int32)
+        anc[rng.random(p) < 0.05] = -1
+        addr = tuple(torch.as_tensor(x, device="cuda") for x in
+                     (prim.astype(np.int64), bias, pts, anc))
+        gen = torch.Generator(device="cuda").manual_seed(seed)
+        table = torch.rand((n_levels, 1 << log2, c), generator=gen,
+                           device="cuda") - 0.5
+        got = he._hash_encode_cuda(table, *addr)
+        want = he.hash_encode_raw(table, *addr)
+        torch.cuda.synchronize()
+        fwd_errs.append(max_err([got], [want]))
+        if not torch.equal(got, want):
+            raise AssertionError(f"hash_anchored_fwd P={p} C={c}: max abs "
+                                 f"err {fwd_errs[-1]}, not equal bit for bit")
+        if not bool((got[addr[3] < 0] == 0).all()):
+            raise AssertionError("hash_anchored_fwd: masked anchors not "
+                                 "zeroed")
+        g = torch.randn(got.shape, generator=gen, device="cuda")
+        args = (g, *addr, 1 << log2, c)
+        got = he._hash_backward_cuda(*args)
+        want = he.hash_backward_reference(*args)
+        torch.cuda.synchronize()
+        assert_close([got], [want], f"hash_anchored_bwd P={p} C={c}",
+                     atol_rel=H2_ATOL_REL)
+        bwd_errs.append(max_err([got], [want]))
+        log(f"[kernels] hash_anchored P={p} L={n_levels} C={c} "
+            f"local=2^{log2}: forward equal to the plain version; table "
+            f"gradient max abs err {bwd_errs[-1]:.3g} (largest entry "
+            f"{float(want.abs().max()):.3g})")
+        del got, want, g, args, table
+    torch.cuda.empty_cache()
+    return max(fwd_errs), max(bwd_errs)
 
 
 def phase_kernels(n_samples: int):
@@ -349,9 +494,11 @@ def phase_kernels(n_samples: int):
     # 2^15 x 128 rows), dense levels, the other two lattice shapes, anchors
     # < 0 throughout
     errs = []
-    for p, c, dense in ((1 << 20, 4, 0), (1 << 20, 4, 2), (1 << 18, 2, 0),
-                        (1 << 18, 8, 0), (1000, 4, 0)):
-        args = _hash_inputs(p, c, n_volumes=16, seed=p + c + dense)
+    for p, c, dense, rows_log2 in (
+            (1 << 20, 4, 0, 15), (1 << 20, 4, 2, 15), (1 << 20, 4, 2, 13),
+            (1 << 18, 2, 0, 15), (1 << 18, 8, 0, 15), (1000, 4, 0, 15)):
+        args = _hash_inputs(p, c, n_volumes=16, seed=p + c + dense,
+                            rows_log2=rows_log2)
         pack = pack_for_channels(c)
         got = packed_hash_encode(*args, c, pack, dense)
         want = packed_hash_encode_raw(*args, c, pack, dense)
@@ -361,32 +508,56 @@ def phase_kernels(n_samples: int):
         if not bool((got[args[4] < 0] == 0).all()):
             raise AssertionError("packed hash: masked anchors not zeroed")
         errs.append(max_err([got], [want]))
-        log(f"[kernels] packed_hash_fwd P={p} C={c} dense_levels={dense}: "
-            f"max abs err {errs[-1]:.3g}")
+        log(f"[kernels] packed_hash_fwd P={p} C={c} dense_levels={dense} "
+            f"rows=2^{rows_log2}: max abs err {errs[-1]:.3g}")
     del got, want, args
     torch.cuda.empty_cache()
     report["packed_hash_fwd"] = dict(max_abs_err=max(errs))
     report["packed_hash_bwd"] = dict(max_abs_err=check_hash_bwd())
+    report["packed_hash_routed"] = dict(max_abs_err=check_hash_routed())
+    fwd_err, bwd_err = check_hash_anchored()
+    report["hash_anchored_fwd"] = dict(max_abs_err=fwd_err)
+    report["hash_anchored_bwd"] = dict(max_abs_err=bwd_err)
     return report
 
 
-def launch_counts() -> dict:
-    from gfnerf_tpu_torch.fields.packed_hash import packed_hash_encode
+def _counted():
+    """The wrappers that carry launch counters."""
+    from gfnerf_tpu_torch.fields.hash_encoding import hash_encode
+    from gfnerf_tpu_torch.fields.packed_hash import (
+        packed_hash_encode, packed_hash_encode_routed)
     from gfnerf_tpu_torch.ops.composite import fused_composite
 
-    return {"composite_fwd": fused_composite.launches,
-            "composite_bwd": fused_composite.bwd_launches,
-            "packed_hash_fwd": packed_hash_encode.launches,
-            "packed_hash_bwd": packed_hash_encode.bwd_launches}
+    return fused_composite, packed_hash_encode, packed_hash_encode_routed, \
+        hash_encode
+
+
+def launch_counts() -> dict:
+    composite, packed, routed, anchored = _counted()
+    return {"composite_fwd": composite.launches,
+            "composite_bwd": composite.bwd_launches,
+            "packed_hash_fwd": packed.launches,
+            "packed_hash_bwd": packed.bwd_launches,
+            "packed_hash_routed": routed.launches,
+            "hash_anchored_fwd": anchored.launches,
+            "hash_anchored_bwd": anchored.bwd_launches}
 
 
 def reset_launch_counts() -> None:
-    from gfnerf_tpu_torch.fields.packed_hash import packed_hash_encode
-    from gfnerf_tpu_torch.ops.composite import fused_composite
+    composite, packed, routed, anchored = _counted()
+    composite.launches = composite.bwd_launches = 0
+    packed.launches = packed.bwd_launches = packed.bwd_calls = 0
+    routed.launches = 0
+    anchored.launches = anchored.bwd_launches = 0
 
-    fused_composite.launches = fused_composite.bwd_launches = 0
-    packed_hash_encode.launches = packed_hash_encode.bwd_launches = 0
-    packed_hash_encode.bwd_calls = 0
+
+def check_launches(what: str, launches: dict, expected: dict) -> None:
+    """Fail unless every kernel launched as often as ``expected`` says (a
+    kernel it does not name: never)."""
+    want = {name: expected.get(name, 0) for name in launches}
+    log(f"[{what}] launches {launches}")
+    if launches != want:
+        raise AssertionError(f"{what}: launches {launches}, expected {want}")
 
 
 class plain_wrappers:
@@ -396,26 +567,48 @@ class plain_wrappers:
 
     def __enter__(self):
         from gfnerf_tpu_torch.fields import field as field_mod
-        from gfnerf_tpu_torch.fields.packed_hash import \
-            plain_packed_hash_encode
+        from gfnerf_tpu_torch.fields.hash_encoding import plain_hash_encode
+        from gfnerf_tpu_torch.fields.packed_hash import (
+            plain_packed_hash_encode, plain_packed_hash_encode_routed)
         from gfnerf_tpu_torch.models import gfnerf as model_mod
         from gfnerf_tpu_torch.ops.composite import plain_fused_composite
 
-        self.mods = (model_mod, field_mod)
-        self.saved = (model_mod.fused_composite, field_mod.packed_hash_encode)
-        model_mod.fused_composite = plain_fused_composite
-        field_mod.packed_hash_encode = plain_packed_hash_encode
+        self.patched = [
+            (model_mod, "fused_composite", plain_fused_composite),
+            (field_mod, "packed_hash_encode", plain_packed_hash_encode),
+            (field_mod, "packed_hash_encode_routed",
+             plain_packed_hash_encode_routed),
+            (field_mod, "hash_encode", plain_hash_encode)]
+        self.saved = [getattr(mod, name) for mod, name, _ in self.patched]
+        for mod, name, plain in self.patched:
+            setattr(mod, name, plain)
         self.before = launch_counts()
         return self
 
     def __exit__(self, *exc):
-        model_mod, field_mod = self.mods
-        model_mod.fused_composite, field_mod.packed_hash_encode = self.saved
+        for (mod, name, _), saved in zip(self.patched, self.saved):
+            setattr(mod, name, saved)
         after = launch_counts()
         if exc[0] is None and after != self.before:
             raise AssertionError(f"plain run launched kernels: launch counts "
                                  f"{self.before} -> {after}")
         return False
+
+
+def check_rendered(out: dict, what: str, rgb_shape: tuple) -> float:
+    """A render's outputs: finite, accumulation in [0, 1], rgb of the
+    given shape.  Returns the share of rays with accumulation > 1e-3."""
+    import torch
+
+    for k, v in out.items():
+        if not bool(torch.isfinite(v).all()):
+            raise AssertionError(f"{what}: non-finite {k}")
+    acc = out["accumulation"]
+    if float(acc.min()) < 0 or float(acc.max()) > 1 + 1e-5:
+        raise AssertionError(f"{what}: accumulation outside [0, 1]")
+    if tuple(out["rgb"].shape) != rgb_shape:
+        raise AssertionError(f"{what}: rgb shape {tuple(out['rgb'].shape)}")
+    return float((acc > 1e-3).float().mean())
 
 
 def phase_render(wl):
@@ -462,25 +655,11 @@ def phase_render(wl):
         f"in {t_frame:.3f}s = {t_frame:.4f} s/frame, "
         f"{n_frame / t_frame:.1f} rays/s; peak memory "
         f"{peak / 2**30:.2f} GiB")
-    log(f"[render] launches {launches}, expected {expected} of each forward "
-        f"and no backward")
-    for name, n in launches.items():
-        if n != (0 if name.endswith("_bwd") else expected):
-            raise AssertionError(f"{name}: {n} launches on the render path")
-    for out, what in [(v, f"view {i}") for i, v in enumerate(views)] + [
-            (frame, "frame")]:
-        for k, v in out.items():
-            if not bool(torch.isfinite(v).all()):
-                raise AssertionError(f"{what}: non-finite {k}")
-        acc = out["accumulation"]
-        if float(acc.min()) < 0 or float(acc.max()) > 1 + 1e-5:
-            raise AssertionError(f"{what}: accumulation outside [0, 1]")
-        if what != "frame" and tuple(out["rgb"].shape) != (h, w, 3):
-            raise AssertionError(
-                f"{what}: rgb shape {tuple(out['rgb'].shape)}")
-    if tuple(frame["rgb"].shape) != (n_frame, 3):
-        raise AssertionError(f"frame rgb shape {tuple(frame['rgb'].shape)}")
-    hit = float((frame["accumulation"] > 1e-3).float().mean())
+    check_launches("render", launches, {"composite_fwd": expected,
+                                        "packed_hash_fwd": expected})
+    for i, out in enumerate(views):
+        check_rendered(out, f"view {i}", (h, w, 3))
+    hit = check_rendered(frame, "frame", (n_frame, 3))
     log(f"[render] outputs finite, accumulation in [0, 1]; frame rays with "
         f"accumulation > 1e-3: {hit:.4f}; mean rgb "
         f"{frame['rgb'].mean(0).tolist()}")
@@ -505,7 +684,7 @@ def phase_render(wl):
     return launches, stats, time_encode_on_chunk(wl, fo, fd)
 
 
-def _marched_points(wl, o, d, noise):
+def _marched_points(wl, o, d, noise, fineness: float = 1.0):
     """The encode's inputs for one ray batch: normalized warped points and
     anchors (P,), as field_density forms them."""
     import torch
@@ -515,7 +694,7 @@ def _marched_points(wl, o, d, noise):
 
     oct_dev, scfg = wl["oct_dev"], wl["scfg"]
     with torch.no_grad():
-        samples = sample_rays(oct_dev, o, d, noise, 1.0, scfg)
+        samples = sample_rays(oct_dev, o, d, noise, fineness, scfg)
         anc = samples.trans_idx.reshape(-1)
         warp = warp_points(oct_dev, anc.clamp(0, oct_dev.w2xz.shape[0] - 1),
                            samples.world_pts.reshape(-1, 3))
@@ -821,21 +1000,111 @@ def time_hash_on_batch(wl, batch, noise) -> tuple:
     return fwd, bwd
 
 
+def h2_launches_per_call(wl) -> int:
+    """Launches of one H2 call: one per group of 8 / C levels."""
+    fcfg = wl["fcfg"]
+    return -(-fcfg.num_levels // max(1, 8 // fcfg.features_per_level))
+
+
+def step_draws(wl, gen):
+    """March noise and S3IM permutations for one step, drawn once so that
+    two steps can share them."""
+    import torch
+
+    from gfnerf_tpu_torch.model_components.losses import s3im_permutations
+    from gfnerf_tpu_torch.train_bench import RAYS
+
+    noise = torch.rand((RAYS, wl["scfg"].max_samples), generator=gen,
+                       device="cuda") + 0.5
+    return noise, s3im_permutations(RAYS, generator=gen, device="cuda")
+
+
+def step_from_copy(wl, batch, noise, perms, focal_block=None, plain=False):
+    """One train step from a deep copy of the workload's field, optimizer
+    state and octree (the workload stays as it is): an init-stage step, or
+    with ``focal_block`` a block-stage step on that block from a fresh
+    optimizer state; with ``plain`` through the plain autograd pairs.
+    Returns (the loss, computed before the update; the new TrainState)."""
+    import contextlib
+    import copy
+
+    import torch
+
+    from gfnerf_tpu_torch.models.gfnerf import TrainState, init_train_state
+
+    focal = focal_block is not None
+    field = copy.deepcopy(wl["field"])
+    state = (init_train_state(field, wl["tx"]) if focal else
+             TrainState(field=field,
+                        opt_state=copy.deepcopy(wl["state"].opt_state),
+                        step=wl["state"].step))
+    with plain_wrappers() if plain else contextlib.nullcontext():
+        state, _, metrics, _ = wl["focal_step_fn" if focal else "step_fn"](
+            state, copy.deepcopy(wl["oct_dev"]), wl["cams"], batch,
+            wl["fineness"], noise=noise, s3im_perms=perms,
+            active_block=focal_block or 0)
+    torch.cuda.synchronize()
+    return float(metrics["loss"]), state
+
+
+def compare_step(wl, what, batch, noise, perms, focal_block=None) -> float:
+    """One step from a common state with the kernels and with the plain
+    autograd pairs (no kernel may launch in it): the loss to
+    TRAIN_LOSS_RTOL and the gradients to TRAIN_GRAD_TOL of the group's
+    largest.  Init stage: the MLPs' and the global table's gradients, none
+    for the block tables.  Block stage: the active table's gradient, read
+    from Adam's first moment of a fresh state (mu = (1 - b1) g), none for
+    any frozen parameter.  Returns the kernels' loss."""
+    import torch
+
+    from gfnerf_tpu_torch.engine.optimizers import field_param_grads
+
+    focal = focal_block is not None
+    outs = {}
+    for kind in ("kernels", "plain"):
+        loss, state = step_from_copy(wl, batch, noise, perms, focal_block,
+                                     plain=kind == "plain")
+        grads = field_param_grads(state.field)
+        if focal:
+            if any(g is not None for gs in grads.values() for g in gs):
+                raise AssertionError(f"{what}: a frozen parameter got a "
+                                     f"gradient")
+            b1 = wl["tx"].cfg.adam_b1
+            grads = {"block": [state.opt_state.mu["block"][0] / (1.0 - b1)]}
+        elif grads["block"][0] is not None:
+            raise AssertionError("the block table got a gradient at init")
+        outs[kind] = (loss, grads)
+    (loss_k, grads_k), (loss_p, grads_p) = outs["kernels"], outs["plain"]
+    rel = abs(loss_k - loss_p) / abs(loss_p)
+    log(f"[{what}] one step, kernels vs plain: loss {loss_k:.7f} vs "
+        f"{loss_p:.7f} (rel {rel:.3g}, tol {TRAIN_LOSS_RTOL})")
+    if not rel <= TRAIN_LOSS_RTOL:
+        raise AssertionError(f"{what} step loss: kernels vs plain rel {rel}")
+    for name in ("block",) if focal else ("fields", "base_encoding_init"):
+        scale = max(float(g.abs().max()) for g in grads_p[name])
+        err = max(float((a - b).abs().max())
+                  for a, b in zip(grads_k[name], grads_p[name]))
+        log(f"[{what}] {name} gradients, kernels vs plain: max abs err "
+            f"{err:.3g}, largest {scale:.3g} (tol {TRAIN_GRAD_TOL} of it)")
+        if not (scale > 0 and err <= TRAIN_GRAD_TOL * scale):
+            raise AssertionError(f"{what} {name} gradients: kernels vs "
+                                 f"plain {err} of {scale}")
+    del outs, grads_k, grads_p
+    torch.cuda.empty_cache()
+    return loss_k
+
+
 def phase_train(wl):
     """The train path: TRAIN_STEPS init-stage steps at 8192 rays through
     make_train_step, counted (one warm-up, TIMED_STEPS timed, the rest for
     the loss check); the state checked; one step from a common state
     against the plain autograd pairs; H2 timed on a train batch."""
-    import copy
-
     import numpy as np
     import torch
 
     from gfnerf_tpu_torch.engine.optimizers import (field_param_grads,
                                                     field_param_groups)
     from gfnerf_tpu_torch.fields.packed_hash import packed_hash_encode
-    from gfnerf_tpu_torch.model_components.losses import s3im_permutations
-    from gfnerf_tpu_torch.models.gfnerf import TrainState
     from gfnerf_tpu_torch.train_bench import RAYS, make_batch, run_steps
 
     dev = torch.device("cuda")
@@ -866,15 +1135,15 @@ def phase_train(wl):
         f" = {RAYS / dt:.1f} rays/s; peak memory {peak / 2**30:.2f} GiB")
     # H2's C entry point launches once per group of 8 / C levels
     # (csrc/packed_hash_bwd.cu), each after a zero-fill of its group
-    n_levels = field.global_feat.shape[0]
-    h2_groups = -(-n_levels // max(1, 8 // wl["fcfg"].features_per_level))
-    expected = {name: TRAIN_STEPS * (h2_groups if name == "packed_hash_bwd"
-                                     else 1) for name in launches}
-    log(f"[train] launches {launches}, expected {expected}: each kernel once "
-        f"per step, H2 in {bwd_calls} calls of {h2_groups} launches")
-    if launches != expected or bwd_calls != TRAIN_STEPS:
-        raise AssertionError(f"launches {launches} (H2 calls {bwd_calls}) in "
-                             f"{TRAIN_STEPS} train steps, expected {expected}")
+    h2_groups = h2_launches_per_call(wl)
+    check_launches("train", launches, {
+        "composite_fwd": TRAIN_STEPS, "composite_bwd": TRAIN_STEPS,
+        "packed_hash_fwd": TRAIN_STEPS,
+        "packed_hash_bwd": TRAIN_STEPS * h2_groups})
+    log(f"[train] each kernel once per step, H2 in {bwd_calls} calls of "
+        f"{h2_groups} launches")
+    if bwd_calls != TRAIN_STEPS:
+        raise AssertionError(f"H2: {bwd_calls} calls in {TRAIN_STEPS} steps")
 
     # ---- the state after training ----
     log(f"[train] losses {[round(x, 5) for x in losses]}")
@@ -907,48 +1176,389 @@ def phase_train(wl):
 
     # ---- one step, kernels vs the plain autograd pairs ----
     batch = batches[TRAIN_STEPS]
-    noise = torch.rand((RAYS, wl["scfg"].max_samples), generator=gen,
-                       device=dev) + 0.5
-    perms = s3im_permutations(RAYS, generator=gen, device=dev)
-    outs = {}
-    for kind in ("kernels", "plain"):
-        state = TrainState(field=copy.deepcopy(field),
-                           opt_state=copy.deepcopy(wl["state"].opt_state),
-                           step=wl["state"].step)
-        oct_dev = copy.deepcopy(wl["oct_dev"])
-        if kind == "plain":
-            with plain_wrappers():
-                _, _, metrics, _ = wl["step_fn"](
-                    state, oct_dev, wl["cams"], batch, 1.0, noise=noise,
-                    s3im_perms=perms)
-        else:
-            _, _, metrics, _ = wl["step_fn"](
-                state, oct_dev, wl["cams"], batch, 1.0, noise=noise,
-                s3im_perms=perms)
-        torch.cuda.synchronize()
-        outs[kind] = (float(metrics["loss"]), field_param_grads(state.field))
-    (loss_k, grads_k), (loss_p, grads_p) = outs["kernels"], outs["plain"]
-    rel = abs(loss_k - loss_p) / abs(loss_p)
-    log(f"[train] one step, kernels vs plain: loss {loss_k:.7f} vs "
-        f"{loss_p:.7f} (rel {rel:.3g}, tol {TRAIN_LOSS_RTOL})")
-    if not rel <= TRAIN_LOSS_RTOL:
-        raise AssertionError(f"train step loss: kernels vs plain rel {rel}")
-    for name in ("fields", "base_encoding_init"):
-        scale = max(float(g.abs().max()) for g in grads_p[name])
-        err = max(float((a - b).abs().max())
-                  for a, b in zip(grads_k[name], grads_p[name]))
-        log(f"[train] {name} gradients, kernels vs plain: max abs err "
-            f"{err:.3g}, largest {scale:.3g} (tol {TRAIN_GRAD_TOL} of it)")
-        if not err <= TRAIN_GRAD_TOL * scale:
-            raise AssertionError(f"{name} gradients: kernels vs plain {err}")
-    if grads_k["block"][0] is not None or grads_p["block"][0] is not None:
-        raise AssertionError("the block table got a gradient at init")
-    del outs, grads_k, grads_p
-    torch.cuda.empty_cache()
+    noise, perms = step_draws(wl, gen)
+    compare_step(wl, "train", batch, noise, perms)
     stats = {"s_per_step": dt, "rays_per_s": RAYS / dt, "peak_bytes": peak,
              "step_seconds": times, "first_loss": first, "last_loss": last,
              "packed_hash_bwd_calls": bwd_calls}
     return launches, stats, time_hash_on_batch(wl, batch, noise)
+
+
+def phase_focal(wl):
+    """The focal (block) stage's train path at the quality configuration,
+    residual mode, after the init phase's steps (the frozen groups' Adam
+    moments are live): FOCAL_STEPS steps on block 0 from the init phase's
+    optimizer state, then, the state made anew as at a split switch,
+    FOCAL_STEPS on block 1; counted per block.  Checked: launches per step
+    (K1 1, K2 1, H1 2: the frozen global encode and the block's; H2 one
+    call of its launches, into the block's table; H3 none); every frozen
+    parameter and the other block's table bit-unchanged, the active table
+    changed; losses finite; the loss of one fixed batch lower after a
+    block's steps than before; one step on block 1, kernels against the
+    plain autograd pairs."""
+    import numpy as np
+    import torch
+
+    from gfnerf_tpu_torch.engine.optimizers import field_param_groups
+    from gfnerf_tpu_torch.fields.packed_hash import packed_hash_encode
+    from gfnerf_tpu_torch.models.gfnerf import init_train_state
+    from gfnerf_tpu_torch.train_bench import RAYS, make_batch, run_steps
+
+    dev = torch.device("cuda")
+    field = wl["field"]
+    gen = torch.Generator(device=dev).manual_seed(1)
+    batches = [make_batch(wl["images"], RAYS, 100 + seed, dev)
+               for seed in range(2 * FOCAL_STEPS + 1)]
+    probe = batches[-1]
+    noise, perms = step_draws(wl, gen)
+    frozen0 = [p.detach().clone() for name, ps in
+               field_param_groups(field).items() if name != "block"
+               for p in ps]
+    compare_step(wl, "focal", probe, noise, perms, focal_block=1)
+
+    h2_groups = h2_launches_per_call(wl)
+    total, all_times = {}, []
+    for block in range(2):
+        if block:   # the optimizer state is made anew at a split switch
+            wl["state"] = init_train_state(field, wl["tx"])
+        stack0 = field.block_feats.detach().clone()
+        before, _ = step_from_copy(wl, probe, noise, perms, block)
+        reset_launch_counts()
+        times, losses = run_steps(
+            wl, batches[block * FOCAL_STEPS:(block + 1) * FOCAL_STEPS], gen,
+            focal_block=block)
+        launches = launch_counts()
+        bwd_calls = packed_hash_encode.bwd_calls
+        after, _ = step_from_copy(wl, probe, noise, perms, block)
+        check_launches(f"focal block {block}", launches, {
+            "composite_fwd": FOCAL_STEPS, "composite_bwd": FOCAL_STEPS,
+            "packed_hash_fwd": 2 * FOCAL_STEPS,
+            "packed_hash_bwd": FOCAL_STEPS * h2_groups})
+        if bwd_calls != FOCAL_STEPS:
+            raise AssertionError(f"H2: {bwd_calls} calls in {FOCAL_STEPS} "
+                                 f"focal steps")
+        for name, n in launches.items():
+            total[name] = total.get(name, 0) + n
+        all_times += times[1:]
+        log(f"[focal] block {block}: losses {[round(x, 5) for x in losses]}; "
+            f"the probe batch's loss {before:.6f} -> {after:.6f}")
+        if not all(np.isfinite(losses)):
+            raise AssertionError("non-finite focal loss")
+        if not after < before:
+            raise AssertionError(f"focal block {block}: the probe batch's "
+                                 f"loss did not fall: {before} -> {after}")
+        if torch.equal(field.block_feats[block], stack0[block]):
+            raise AssertionError(f"block {block}'s table did not change")
+        if not torch.equal(field.block_feats[1 - block], stack0[1 - block]):
+            raise AssertionError(f"block {1 - block}'s table changed during "
+                                 f"block {block}'s steps")
+    now = [p for name, ps in field_param_groups(field).items()
+           if name != "block" for p in ps]
+    if not all(torch.equal(a, b) for a, b in zip(now, frozen0)):
+        raise AssertionError("a frozen parameter changed at the block stage")
+    dt = float(np.mean(all_times))
+    log(f"[focal] {2 * FOCAL_STEPS} steps of {RAYS} rays, {FOCAL_STEPS} per "
+        f"block; all {len(frozen0)} frozen tensors and each step's other "
+        f"block bit-unchanged, the active tables changed; {dt:.4f} s/step "
+        f"(mean without each block's first) = {RAYS / dt:.1f} rays/s")
+    return total, {"s_per_step": dt, "rays_per_s": RAYS / dt}
+
+
+def phase_focal_render(wl):
+    """Block-routed rendering with the tables the focal phase trained,
+    counted: the 4 training views as ONE mixed chunk (view i in block i mod
+    2) and one 1920x1080 frame with a block per ray (one camera, one
+    block).  Checked: outputs; K1, H1 and H3 one launch a chunk, nothing
+    backward; the mixed chunk's rows against the two one-block renders; a
+    chunk of mixed blocks, some -1, against the plain path.  Then H3 timed
+    on a frame chunk."""
+    import torch
+
+    from gfnerf_tpu_torch.cameras.cameras import Cameras
+    from gfnerf_tpu_torch.models.gfnerf import make_render_fn
+    from gfnerf_tpu_torch.render_bench import (CHUNK, FRAME_WH, N_VIEWS,
+                                               frame_rays, mixed_view_rays,
+                                               render_rays)
+
+    dev = torch.device("cuda")
+    c2w, fx, fy, cx, cy, w, h = wl["cameras"]
+    field, oct_dev = wl["field"], wl["oct_dev"]
+    n_blocks = wl["fcfg"].n_blocks
+    render_fn = make_render_fn(wl["mcfg"], wl["scfg"])
+    views = [i * len(c2w) // N_VIEWS for i in range(N_VIEWS)]
+    vo, vd, vcam, vblk = mixed_view_rays(wl["cams"], views, n_blocks)
+    fo, fd = frame_rays(c2w[0], *FRAME_WH, dev)
+    n_frame = fo.shape[0]
+    fblk = torch.zeros(n_frame, dtype=torch.int32, device=dev)
+    n_chunks = -(-vo.shape[0] // CHUNK) + -(-n_frame // CHUNK)
+    torch.cuda.synchronize()
+
+    # ---- the routed render path, counted ----
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    mixed = render_rays(render_fn, field, oct_dev, vo, vd, vcam, CHUNK, vblk)
+    torch.cuda.synchronize()
+    t_mixed = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    frame = render_rays(render_fn, field, oct_dev, fo, fd, 0, CHUNK, fblk)
+    torch.cuda.synchronize()
+    t_frame = time.perf_counter() - t0
+    launches = launch_counts()
+    log(f"[focal render] {N_VIEWS} views as one mixed chunk of "
+        f"{vo.shape[0]} rays in {t_mixed:.3f}s; routed frame "
+        f"{FRAME_WH[0]}x{FRAME_WH[1]} in {t_frame:.4f} s/frame, "
+        f"{n_frame / t_frame:.1f} rays/s")
+    check_launches("focal render", launches, {
+        "composite_fwd": n_chunks, "packed_hash_fwd": n_chunks,
+        "packed_hash_routed": n_chunks})
+    check_rendered(mixed, "mixed chunk", (vo.shape[0], 3))
+    if not check_rendered(frame, "routed frame", (n_frame, 3)) > 0.0:
+        raise AssertionError("routed frame: no ray reached the scene")
+
+    # ---- the mixed chunk's rows are the one-block renders' ----
+    for b in range(n_blocks):
+        one = render_fn(field, oct_dev, vo, vd, vcam, b, True)
+        rows = vblk == b
+        err = max(float((mixed[k][rows] - one[k][rows]).abs().max())
+                  for k in mixed)
+        other = float((mixed["rgb"][~rows] - one["rgb"][~rows]).abs().max())
+        log(f"[focal render] mixed chunk, block {b}'s rays vs a render with "
+            f"that block alone: max abs err {err:.3g} (the other rays "
+            f"differ by up to {other:.3g})")
+        if not err <= SLICE_ATOL:
+            raise AssertionError(f"mixed chunk vs block {b}'s render: {err}")
+
+    # ---- one routed chunk through the plain versions ----
+    mid = n_frame // 2 - COMPARE_RAYS // 2
+    o, d = fo[mid:mid + COMPARE_RAYS], fd[mid:mid + COMPARE_RAYS]
+    blk = (torch.arange(COMPARE_RAYS, device=dev) % n_blocks).to(torch.int32)
+    blk[::17] = -1
+    got = render_fn(field, oct_dev, o, d, 0, blk, True)
+    with plain_wrappers():
+        want = render_fn(field, oct_dev, o, d, 0, blk, True)
+    torch.cuda.synchronize()
+    errs = {k: float((got[k] - want[k]).abs().max()) for k in got}
+    log(f"[focal render] {COMPARE_RAYS}-ray routed chunk (mixed blocks, "
+        f"some -1), kernels vs plain versions: max abs err {errs} (atol "
+        f"{SLICE_ATOL})")
+    for k, e in errs.items():
+        if not e <= SLICE_ATOL:
+            raise AssertionError(f"routed chunk {k}: kernels vs plain {e}")
+    stats = {"s_per_frame": t_frame, "rays_per_s": n_frame / t_frame,
+             "mixed_chunk_s": t_mixed}
+    return launches, stats, time_routed_on_chunk(wl, fo, fd)
+
+
+def time_routed_on_chunk(wl, fo, fd) -> dict:
+    """H3, kernel and plain version, on the inputs one frame chunk gives
+    it (32768 rays x 384 samples), with the trained tables of both blocks,
+    a block per ray (ray i in block i mod 2, every 17th ray -1): equal bit
+    for bit; timed given the bf16 stack the field keeps (the render's
+    form) and given the f32 stack (a bf16 copy per call); beside them the
+    copy alone and the residual add ``global + routed``."""
+    import torch
+
+    from gfnerf_tpu_torch.fields.packed_hash import (
+        pack_for_channels, packed_hash_encode_routed,
+        packed_hash_encode_routed_raw)
+    from gfnerf_tpu_torch.render_bench import CHUNK
+
+    field, scfg = wl["field"], wl["scfg"]
+    c = wl["fcfg"].features_per_level
+    mid = (fo.shape[0] - CHUNK) // 2
+    o, d = fo[mid:mid + CHUNK], fd[mid:mid + CHUNK]
+    s = scfg.max_samples
+    pts, anc = _marched_points(wl, o, d,
+                               torch.ones((CHUNK, s), device=o.device))
+    n_blocks = field.block_feats.shape[0]
+    ray_blk = (torch.arange(CHUNK, device=o.device) % n_blocks).to(
+        torch.int32)
+    ray_blk[::17] = -1
+    blk = ray_blk[:, None].expand(CHUNK, s).reshape(-1).contiguous()
+    with torch.no_grad():
+        stack = field.block_feats.detach()
+        bf16 = field.block_tables_bf16()
+        tail = (field.block_prims, field.block_biases, pts, anc, blk, c,
+                pack_for_channels(c), wl["fcfg"].block_dense_levels)
+        got = packed_hash_encode_routed(bf16, *tail)
+        want = packed_hash_encode_routed_raw(stack, *tail)
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            raise AssertionError(
+                f"routed encode on a frame chunk: not equal to the plain "
+                f"version bit for bit (max abs err {max_err([got], [want])})")
+        masked = (anc < 0) | (blk < 0)
+        if not bool((got[masked] == 0).all()):
+            raise AssertionError("routed encode: masked points not zeroed")
+        if not torch.equal(packed_hash_encode_routed(stack, *tail), want):
+            raise AssertionError("routed encode: f32 stack differs")
+        largest = float(want.abs().max())
+        del want
+        ms = time_ms(lambda: packed_hash_encode_routed(bf16, *tail))
+        f32_ms = time_ms(lambda: packed_hash_encode_routed(stack, *tail))
+        copy_ms = time_ms(lambda: stack.to(torch.bfloat16))
+        plain_ms = time_ms(
+            lambda: packed_hash_encode_routed_raw(stack, *tail), n=3)
+        other = got.clone()   # two inputs, as the field's sum has
+        add_ms = time_ms(lambda: got + other)
+        del other
+    p = pts.shape[0]
+    n_levels = stack.shape[1]
+    # output, points, anchors, blocks, and one read of each f32 table
+    n_bytes = 4 * p * n_levels * c + 12 * p + 4 * p + 4 * p \
+        + 4 * stack.numel()
+    bound = n_bytes / HBM_BYTES_PER_S * 1e3
+    log(f"[focal render] packed_hash_routed on a frame chunk (P={p}, "
+        f"{int((~masked).sum())} unmasked, B={n_blocks}, largest output "
+        f"{largest:.3g}): equal to the plain version; kernel {ms:.4f} ms "
+        f"given the bf16 stack, {f32_ms:.4f} ms given the f32 stack (its "
+        f"bf16 copy alone {copy_ms:.4f} ms), plain {plain_ms:.4f} ms, bound "
+        f"{bound:.4f} ms ({n_bytes / 1e6:.1f} MB); the residual add of two "
+        f"(P, {n_levels * c}) f32 encodes {add_ms:.4f} ms")
+    return {"max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound, "bound_by": "bytes", "library_ms": None,
+            "f32_stack_ms": f32_ms, "bf16_copy_ms": copy_ms,
+            "residual_add_ms": add_ms}
+
+
+def time_anchored_on_batch(wl, batch, noise) -> tuple:
+    """H4 and H5 on the points one parity train batch gives them (8192 rays
+    x 192 samples, L = 16, C = 2, 2^19 entries a level): H4 against its
+    plain version (bit for bit); H5 against its plain version and
+    index_add_ of the same precomputed (rows, payload) terms, with a random
+    upstream gradient.  Returns (H4's, H5's report)."""
+    import torch
+
+    from gfnerf_tpu_torch.cameras.cameras import generate_rays_multi
+    from gfnerf_tpu_torch.fields import hash_encoding as he
+
+    field = wl["field"]
+    rays = generate_rays_multi(wl["cams"], batch["camera_indices"],
+                               batch["coords"])
+    pts, anc = _marched_points(wl, rays["origins"], rays["directions"], noise,
+                               wl["fineness"])
+    table = field.global_feat.detach()
+    n_levels, local, c = table.shape
+    p = pts.shape[0]
+    n_valid = int((anc >= 0).sum())
+    addr = (field.global_prim, field.global_bias, pts, anc)
+    with torch.no_grad():
+        got = he._hash_encode_cuda(table, *addr)
+        want = he.hash_encode_raw(table, *addr)
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            raise AssertionError(
+                f"anchored encode on a train batch: not equal to the plain "
+                f"version bit for bit (max abs err {max_err([got], [want])})")
+        if not bool((got[anc < 0] == 0).all()):
+            raise AssertionError("anchored encode: masked anchors not zeroed")
+        del got, want
+        fwd_ms = time_ms(lambda: he._hash_encode_cuda(table, *addr), n=21)
+        typed = kernel_typed((table, *addr), table=table)
+        fwd_typed_ms = time_ms(lambda: he._hash_encode_cuda(*typed), n=21)
+        fwd_plain_ms = time_ms(lambda: he.hash_encode_raw(table, *addr), n=3)
+    # output or upstream gradient, points, anchors, and the f32 table read
+    # (H4) or its gradient zero-filled and written (H5) once
+    n_bytes = 4 * p * n_levels * c + 12 * p + 4 * p + 4 * table.numel()
+    bound = n_bytes / HBM_BYTES_PER_S * 1e3
+    log(f"[parity] hash_anchored_fwd on a train batch (P={p}, {n_valid} "
+        f"valid, L={n_levels}, C={c}, local={local}): equal to the plain "
+        f"version; kernel {fwd_ms:.4f} ms ({fwd_typed_ms:.4f} ms given the "
+        f"kernel's input types), plain {fwd_plain_ms:.4f} ms, bound "
+        f"{bound:.4f} ms ({n_bytes / 1e6:.1f} MB)")
+
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    g = torch.randn((p, n_levels * c), generator=gen, device="cuda")
+    args = (g, *addr, local, c)
+    got = he._hash_backward_cuda(*args)
+    want = he.hash_backward_reference(*args)
+    torch.cuda.synchronize()
+    assert_close([got], [want], "hash_anchored_bwd on a train batch",
+                 atol_rel=H2_ATOL_REL)
+    err = max_err([got], [want])
+    largest = float(want.abs().max())
+    del got, want
+    ms = time_ms(lambda: he._hash_backward_cuda(*args), n=11)
+    plain_ms = time_ms(lambda: he.hash_backward_reference(*args), n=3)
+    terms = list(he.hash_scatter_terms(*args))
+    rows = torch.cat([t[0] for t in terms])
+    payload = torch.cat([t[1] for t in terms])
+    del terms
+    library_ms = time_ms(lambda: torch.zeros(
+        (n_levels * local, c), device="cuda").index_add_(0, rows, payload),
+        n=5)
+    del rows, payload
+    torch.cuda.empty_cache()
+    log(f"[parity] hash_anchored_bwd on a train batch ({8 * n_valid * n_levels}"
+        f" vector reductions): max abs err {err:.3g} (largest entry "
+        f"{largest:.3g}); kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+        f"index_add_ {library_ms:.4f} ms, bound {bound:.4f} ms")
+    fwd = {"max_abs_err": 0.0, "ms": fwd_ms, "plain_ms": fwd_plain_ms,
+           "bound_ms": bound, "bound_by": "bytes", "library_ms": None,
+           "kernel_typed_ms": fwd_typed_ms}
+    bwd = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+           "bound_ms": bound, "bound_by": "bytes", "library_ms": library_ms}
+    return fwd, bwd
+
+
+def phase_parity():
+    """The anchored layout's train path: the bench's parity workload (16
+    levels x 2 channels of 2^19 entries, 192 march slots, sample_l 1/256,
+    fineness 4) built anew, then TRAIN_STEPS init-stage steps of 8192 rays,
+    counted: K1, K2, H4 and H5 once per step, the packed kernels never;
+    losses finite and falling, the global table changed, the block tables
+    not; one step against the plain autograd pairs; H4 and H5 timed on a
+    train batch."""
+    import numpy as np
+    import torch
+
+    from gfnerf_tpu_torch.train_bench import (RAYS, build_train_workload,
+                                              make_batch, run_steps)
+
+    dev = torch.device("cuda")
+    t0 = time.perf_counter()
+    wl = build_train_workload(dev, seed=0, config="parity")
+    field, scfg = wl["field"], wl["scfg"]
+    log(f"[parity] workload in {time.perf_counter() - t0:.1f}s: table "
+        f"{tuple(field.global_feat.shape)}, S={scfg.max_samples}, sample_l "
+        f"{scfg.sample_l:.6f}, fineness {wl['fineness']}")
+    gen = torch.Generator(device=dev).manual_seed(2)
+    batches = [make_batch(wl["images"], RAYS, 200 + seed, dev)
+               for seed in range(TRAIN_STEPS + 1)]
+    table0 = field.global_feat.detach().clone()
+    block0 = field.block_feats.detach().clone()
+    torch.cuda.synchronize()
+
+    reset_launch_counts()
+    warm, losses = run_steps(wl, batches[:1], gen)
+    torch.cuda.reset_peak_memory_stats()
+    times, more = run_steps(wl, batches[1:TRAIN_STEPS], gen)
+    peak = torch.cuda.max_memory_allocated()
+    launches = launch_counts()
+    losses += more
+    dt = float(np.mean(times))
+    log(f"[parity] warm-up step {warm[0]:.3f}s; {len(times)} steps of {RAYS} "
+        f"rays: {dt:.4f} s/step (mean) = {RAYS / dt:.1f} rays/s; peak memory "
+        f"{peak / 2**30:.2f} GiB")
+    check_launches("parity", launches, {
+        name: TRAIN_STEPS for name in ("composite_fwd", "composite_bwd",
+                                       "hash_anchored_fwd",
+                                       "hash_anchored_bwd")})
+    log(f"[parity] losses {[round(x, 5) for x in losses]}")
+    first, last = losses[0], float(np.mean(losses[-5:]))
+    if not all(np.isfinite(losses)) or not last < first:
+        raise AssertionError(f"parity loss did not fall: {first} -> mean of "
+                             f"the last 5 {last}")
+    if torch.equal(field.global_feat, table0):
+        raise AssertionError("the anchored table did not change")
+    if not torch.equal(field.block_feats, block0):
+        raise AssertionError("block_feats changed at the init stage")
+    batch = batches[TRAIN_STEPS]
+    noise, perms = step_draws(wl, gen)
+    compare_step(wl, "parity", batch, noise, perms)
+    stats = {"s_per_step": dt, "rays_per_s": RAYS / dt, "peak_bytes": peak,
+             "first_loss": first, "last_loss": last}
+    return launches, stats, time_anchored_on_batch(wl, batch, noise)
 
 
 def main() -> int:
@@ -972,34 +1582,49 @@ def main() -> int:
         f" {tree.n_nodes} nodes, {int(wl['oct_dev'].n_leaves)} valid leaves, "
         f"{tree.n_volumes} volumes; S={scfg.max_samples}, sample_l "
         f"{scfg.sample_l:.6f}")
-    render_launches, render_stats, encode = phase_render(wl)
-    train_launches, train_stats, (hash_fwd, hash_bwd) = phase_train(wl)
+    paths, stats = {}, {}
+    paths["render"], stats["render"], encode = phase_render(wl)
+    paths["train"], stats["train"], (hash_fwd, hash_bwd) = phase_train(wl)
+    paths["focal_train"], stats["focal_train"] = phase_focal(wl)
+    paths["focal_render"], stats["focal_render"], routed = \
+        phase_focal_render(wl)
+    del wl
+    torch.cuda.empty_cache()
+    paths["parity_train"], stats["parity_train"], (anc_fwd, anc_bwd) = \
+        phase_parity()
     for name, *parts in (("packed_hash_fwd", encode, hash_fwd),
-                         ("packed_hash_bwd", hash_bwd)):
+                         ("packed_hash_bwd", hash_bwd),
+                         ("packed_hash_routed", routed),
+                         ("hash_anchored_fwd", anc_fwd),
+                         ("hash_anchored_bwd", anc_bwd)):
         for part in parts:
             report[name]["max_abs_err"] = max(report[name]["max_abs_err"],
                                               part.pop("max_abs_err"))
             report[name].update(part)
 
+    csrc, jax_pkg = "gfnerf_tpu_torch/csrc/", "gfnerf_tpu/"
     sources = {
-        "composite_fwd": ("gfnerf_tpu_torch/csrc/composite_fwd.cu",
-                          "gfnerf_tpu/ops/pallas/composite.py:80"),
-        "composite_bwd": ("gfnerf_tpu_torch/csrc/composite_bwd.cu",
-                          "gfnerf_tpu/ops/pallas/composite.py:112"),
-        "packed_hash_fwd": ("gfnerf_tpu_torch/csrc/packed_hash_fwd.cu",
-                            "gfnerf_tpu/fields/packed_hash.py:202"),
-        "packed_hash_bwd": ("gfnerf_tpu_torch/csrc/packed_hash_bwd.cu",
-                            "gfnerf_tpu/fields/packed_hash.py:490"),
+        "composite_fwd": ("composite_fwd.cu", "ops/pallas/composite.py:80"),
+        "composite_bwd": ("composite_bwd.cu", "ops/pallas/composite.py:112"),
+        "packed_hash_fwd": ("packed_hash_fwd.cu",
+                            "fields/packed_hash.py:202"),
+        "packed_hash_bwd": ("packed_hash_bwd.cu",
+                            "fields/packed_hash.py:490"),
+        "packed_hash_routed": ("packed_hash_routed.cu",
+                               "fields/packed_hash.py:336"),
+        "hash_anchored_fwd": ("hash_anchored_fwd.cu",
+                              "fields/hash_encoding.py:188"),
+        "hash_anchored_bwd": ("hash_anchored_bwd.cu",
+                              "fields/hash_encoding.py:376"),
     }
-    kernels = [{"name": name, "route": "cuda", "source": src,
-                "replaces": rep,
-                "launches": render_launches[name] + train_launches[name],
-                "launches_by_path": {"render": render_launches[name],
-                                     "train": train_launches[name]},
+    kernels = [{"name": name, "route": "cuda", "source": csrc + src,
+                "replaces": jax_pkg + rep,
+                "launches": sum(p[name] for p in paths.values()),
+                "launches_by_path": {k: p[name] for k, p in paths.items()},
                 **report[name]}
                for name, (src, rep) in sources.items()]
-    log(f"[render] {json.dumps(render_stats)}")
-    log(f"[train] {json.dumps(train_stats)}")
+    for path, st in stats.items():
+        log(f"[{path}] {json.dumps(st)}")
     log(json.dumps({"kernels": kernels}))
     log(card)
     print(json.dumps({"ok": True, "device": {

@@ -53,6 +53,7 @@
 
 #include <algorithm>
 
+#include "corner_vec.cuh"
 #include "packed_hash_common.cuh"
 
 namespace {
@@ -67,37 +68,7 @@ template <int C>
 constexpr int kLevelGroupOf = C >= 8 ? 1 : 8 / C;
 constexpr int kPasses = 1;
 
-// One corner's C channels, added with vector reductions.
-template <int C>
-struct CornerRed;
-
-template <>
-struct CornerRed<2> {
-  static constexpr int kOps = 1;
-  __device__ static void add(float* p, const float* v) {
-    atomicAdd(reinterpret_cast<float2*>(p), make_float2(v[0], v[1]));
-  }
-};
-
-template <>
-struct CornerRed<4> {
-  static constexpr int kOps = 1;
-  __device__ static void add(float* p, const float* v) {
-    atomicAdd(reinterpret_cast<float4*>(p),
-              make_float4(v[0], v[1], v[2], v[3]));
-  }
-};
-
-template <>
-struct CornerRed<8> {
-  static constexpr int kOps = 2;
-  __device__ static void add(float* p, const float* v) {
-    atomicAdd(reinterpret_cast<float4*>(p),
-              make_float4(v[0], v[1], v[2], v[3]));
-    atomicAdd(reinterpret_cast<float4*>(p + 4),
-              make_float4(v[4], v[5], v[6], v[7]));
-  }
-};
+using gfnerf::CornerRed;  // one corner's C channels, vector reductions
 
 template <int E, int C>
 __global__ void __launch_bounds__(32 * gfnerf::kWarps) packed_hash_bwd_kernel(

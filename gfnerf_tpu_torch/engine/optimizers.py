@@ -15,9 +15,11 @@ the count of applied updates, not the train step; the groups share it,
 since an update is applied to all groups or to none: it is skipped,
 moments and count left where they were, when any gradient is not finite
 (``optax.apply_if_finite``).  A gradient of None is a
-structural zero (a group that is not in the step's graph, as the block
-table at the init stage): its moments stay unallocated while they are
-zero, and its update is the weight decay alone.
+structural zero (a group that is not in the step's graph: the block
+table at the init stage, the frozen groups at the block stage): its moments
+stay unallocated while they are zero and decay once they are not, as
+optax's do on a zero gradient, and its update is then Adam's on those
+moments plus the weight decay.
 """
 
 from __future__ import annotations
@@ -50,33 +52,48 @@ class OptimizersConfig:
     n_dataset_circles: int = 1
 
 
-def field_param_groups(field: GFNeRFField) -> Dict[str, List[torch.Tensor]]:
-    """The optimizer's parameters by group.  The "block" group holds block
-    0's table, a view into ``field.block_feats``: at the init stage, the
-    only one ported, it is the placeholder slice the JAX package's
-    ``optimizer_arg`` passes; "camera_opt" is empty (the camera optimizer is
-    not ported)."""
+def active_block_table(field: GFNeRFField, active_block: int = 0,
+                       requires_grad: bool = False) -> torch.Tensor:
+    """Block ``active_block``'s table (L, rows, W) as a tensor of its own
+    that shares the storage of ``field.block_feats``: a leaf for autograd
+    (``field.block_feats[b]`` is a view of a parameter, whose ``.grad``
+    would be the whole stack's), so that the focal step's gradient and
+    Adam's moments exist for one table, and an in-place update of it is the
+    write-back into the stack (gfnerf.py:632-637 of the JAX package)."""
+    return field.block_feats.detach()[active_block].requires_grad_(
+        requires_grad)
+
+
+def field_param_groups(field: GFNeRFField,
+                       active_table: Optional[torch.Tensor] = None
+                       ) -> Dict[str, List[torch.Tensor]]:
+    """The optimizer's parameters by group.  The "block" group holds the
+    active block's table, ``active_table`` (:func:`active_block_table`);
+    without one, block 0's, the placeholder the JAX package's
+    ``optimizer_arg`` passes to build the state.  "camera_opt" is empty (the
+    camera optimizer is not ported)."""
+    if field.block_feats is None:
+        block = []
+    elif active_table is not None:
+        block = [active_table]
+    else:
+        block = [active_block_table(field)]
     return {
         "fields": [*field.base_net.w, *field.base_net.b, *field.mlp_head.w,
                    *field.mlp_head.b, field.appearance_embedding],
         "base_encoding_init": [field.global_feat],
-        "block": ([] if field.block_feats is None
-                  else [field.block_feats[0]]),
+        "block": block,
         "camera_opt": [],
     }
 
 
-def field_param_grads(field: GFNeRFField) -> Dict[str, list]:
+def field_param_grads(field: GFNeRFField,
+                      active_table: Optional[torch.Tensor] = None
+                      ) -> Dict[str, list]:
     """The gradients of :func:`field_param_groups`' parameters (None where
-    the backward reached none); the block table's is block 0's slice of
-    ``field.block_feats.grad``."""
-    grads = {name: [p.grad for p in ps]
-             for name, ps in field_param_groups(field).items()
-             if name != "block"}
-    block = field.block_feats
-    grads["block"] = ([] if block is None else [
-        None if block.grad is None else block.grad[0]])
-    return grads
+    the backward reached none)."""
+    return {name: [p.grad for p in ps]
+            for name, ps in field_param_groups(field, active_table).items()}
 
 
 @dataclasses.dataclass
@@ -91,14 +108,20 @@ class OptState:
     last_finite: bool = True
 
 
+def frozen_groups(stage: int) -> tuple:
+    """The groups a stage freezes: none at the init stage; all but "block"
+    at the block stage (nerfacto_field.py:459-461, 527-529, 548-551)."""
+    return (tuple(g for g in GROUPS if g != "block")
+            if stage == STAGE_BLOCK else ())
+
+
 def mask_frozen_grads(grads: Dict[str, list], stage: int) -> Dict[str, list]:
-    """Zero the gradients (or updates) of the groups a stage freezes: none
-    at the init stage; all but "block" at the block stage
-    (nerfacto_field.py:459-461, 527-529, 548-551)."""
-    if stage != STAGE_BLOCK:
+    """Zero the gradients (or updates) of the groups the stage freezes."""
+    frozen = frozen_groups(stage)
+    if not frozen:
         return grads
-    return {name: (gs if name == "block" else
-                   [None if g is None else torch.zeros_like(g) for g in gs])
+    return {name: ([None if g is None else torch.zeros_like(g) for g in gs]
+                   if name in frozen else gs)
             for name, gs in grads.items()}
 
 
@@ -171,11 +194,13 @@ class PerGroupAdam:
                 # Adam of a zero gradient with zero moments is exactly 0
                 u = None
             else:
-                if g is None:
-                    g = torch.zeros_like(p)
-                g = g.to(torch.float32)
-                mu = (1 - b1) * g + (b1 * mu if mu is not None else 0.0)
-                nu = (1 - b2) * (g * g) + (b2 * nu if nu is not None else 0.0)
+                if g is None:   # a zero gradient: the moments decay
+                    mu, nu = b1 * mu, b2 * nu
+                else:
+                    g = g.to(torch.float32)
+                    mu = (1 - b1) * g + (b1 * mu if mu is not None else 0.0)
+                    nu = (1 - b2) * (g * g) + (b2 * nu if nu is not None
+                                               else 0.0)
                 u = (mu / _bias_correction(b1, count + 1)) / (
                     torch.sqrt(nu / _bias_correction(b2, count + 1)) + eps)
             if wd:

@@ -1,11 +1,15 @@
-"""GF-NeRF field: packed anchored hash encoding + density/colour MLPs.
+"""GF-NeRF field: anchored hash encoding + density/colour MLPs.
 
-Port of ``gfnerf_tpu/fields/field.py`` for the init stage of the packed
-layout: the global hash table feeds the shared ``base_network``
-(``density = trunc_exp(x + density_bias)`` masked by anchor validity), and
-the colour head runs with its first layer split into a per-ray part
-(SH(direction) and appearance embedding) and a per-sample part (geometry
-features).
+Port of ``gfnerf_tpu/fields/field.py`` for both hash layouts ("packed"
+supercell rows and the reference's "anchored" per-corner tables) and both
+stages.  At the init stage the global hash table feeds the shared
+``base_network`` (``density = trunc_exp(x + density_bias)`` masked by anchor
+validity); at the focal (block) stage the active block's table is added to
+the frozen global encode (``focal_mode="residual"``) or replaces it
+(``"finetune"``), and :func:`field_density_routed` picks the block per
+point for mixed eval chunks.  The colour head runs with its first layer
+split into a per-ray part (SH(direction) and appearance embedding) and a
+per-sample part (geometry features).
 
 The JAX package's trainable/fixed pytrees become one ``nn.Module``
 (:class:`GFNeRFField`): tables, MLP weights and the appearance embedding are
@@ -24,12 +28,18 @@ import torch
 from torch import nn
 
 from gfnerf_tpu_torch.fields.activations import trunc_exp
-from gfnerf_tpu_torch.fields.hash_encoding import N_CHANNELS, N_LEVELS
+from gfnerf_tpu_torch.fields.hash_encoding import (
+    N_CHANNELS,
+    N_LEVELS,
+    hash_encode,
+    init_hash_params,
+)
 from gfnerf_tpu_torch.fields.mlp import MLP, apply_mlp, init_mlp
 from gfnerf_tpu_torch.fields.packed_hash import (
     init_packed_hash_params,
     pack_for_channels,
     packed_hash_encode,
+    packed_hash_encode_routed,
 )
 from gfnerf_tpu_torch.fields.sh_encoding import sh_encode_deg4
 from gfnerf_tpu_torch.utils.profiling import span
@@ -43,8 +53,8 @@ class FieldConfig:
     """Field hyper-parameters (reference gfnerf/config.py:119-127); the JAX
     package's ``FieldConfig`` fields that the port reads or rejects
     (``_check_supported``), with its defaults.  Settings of the unported
-    options (anchored hash, semantics, proposal field, identity warp, focal
-    dense levels) join with those options."""
+    options (semantics, proposal field, identity warp) join with those
+    options."""
 
     num_images: int = 1
     geo_feat_dim: int = 15
@@ -54,17 +64,21 @@ class FieldConfig:
     num_layers_color: int = 3
     appearance_embedding_dim: int = 32
     use_appearance_embedding: bool = True
+    log2_hashmap_size: int = 21     # anchored layout: table entries (log2)
     num_levels: int = N_LEVELS
     features_per_level: int = N_CHANNELS
     n_blocks: int = 10
     n_volumes: int = 1
     use_semantics: bool = False
     camera_opt_mode: str = "off"
-    hash_layout: str = "anchored"   # only "packed" is ported
+    hash_layout: str = "anchored"   # "anchored" | "packed"
     mlp_dtype: str = "float32"      # "float32" | "bfloat16"
     packed_rows_log2: int = 15
     packed_row_width: int = 128
     block_rows_log2: Optional[int] = None
+    # first k residual levels addressed linearly where the per-volume grid
+    # fits the table (packed layout, residual mode only)
+    block_dense_levels: int = 0
     focal_mode: str = "residual"    # "residual" | "finetune"
     use_proposal: bool = False
     warp_mode: str = "pers"         # "pers" | "identity"
@@ -79,8 +93,8 @@ def _mlp_dt(cfg: FieldConfig) -> torch.dtype:
 class FieldParams:
     """Trainable parameters as numpy arrays (the JAX ``FieldParams``)."""
 
-    global_feat: np.ndarray              # (L, rows, W)
-    block_feats: Optional[np.ndarray]    # (n_blocks, L, rows, W)
+    global_feat: np.ndarray              # (L, rows, W) | (L, local, C)
+    block_feats: Optional[np.ndarray]    # (n_blocks,) + a table's shape
     base_net: dict
     mlp_head: dict
     appearance_embedding: np.ndarray     # (num_images, D)
@@ -97,8 +111,10 @@ class FieldStatics:
 
 
 def _check_supported(cfg: FieldConfig) -> None:
-    if cfg.hash_layout != "packed":
-        raise NotImplementedError("only the packed hash layout is ported")
+    if cfg.hash_layout not in ("packed", "anchored"):
+        raise ValueError(f"unknown hash layout {cfg.hash_layout!r}")
+    if cfg.focal_mode not in ("residual", "finetune"):
+        raise ValueError(f"unknown focal mode {cfg.focal_mode!r}")
     for name in ("use_semantics", "use_proposal"):
         if getattr(cfg, name):
             raise NotImplementedError(f"FieldConfig.{name} is not ported")
@@ -117,16 +133,17 @@ def init_field_params(cfg: FieldConfig, seed: int = 0):
     feat_in = cfg.num_levels * cfg.features_per_level
 
     def make_table(mode, rows_log2=None):
-        return init_packed_hash_params(
-            seed=int(rng.integers(1 << 31)),
-            n_rows_log2=(rows_log2 if rows_log2 is not None
-                         else cfg.packed_rows_log2),
-            n_volumes=cfg.n_volumes,
-            n_levels=cfg.num_levels,
-            n_channels=cfg.features_per_level,
-            row_width=cfg.packed_row_width,
-            init_mode=mode,
-        )
+        kw = dict(seed=int(rng.integers(1 << 31)), n_volumes=cfg.n_volumes,
+                  n_levels=cfg.num_levels,
+                  n_channels=cfg.features_per_level, init_mode=mode)
+        if cfg.hash_layout == "packed":
+            return init_packed_hash_params(
+                n_rows_log2=(rows_log2 if rows_log2 is not None
+                             else cfg.packed_rows_log2),
+                row_width=cfg.packed_row_width, **kw)
+        return init_hash_params(
+            log2_table_size=(rows_log2 if rows_log2 is not None
+                             else cfg.log2_hashmap_size), **kw)
 
     g_feat, g_prim, g_bias = make_table("reset")
     if cfg.n_blocks > 0 and cfg.focal_mode == "finetune":
@@ -189,6 +206,19 @@ class GFNeRFField(nn.Module):
         self.register_buffer("block_prims", buf(statics.block_prims, np.int64))
         self.register_buffer("block_biases",
                              buf(statics.block_biases, np.float32))
+        self._block_tables_bf16 = None   # (key, copy), see the method
+
+    def block_tables_bf16(self) -> torch.Tensor:
+        """The stacked block tables in bf16, the type the routed encode
+        reads, copied anew only after ``block_feats`` has changed (its
+        version counter counts every in-place update, the train step's
+        included): a render copies them once, not once per chunk."""
+        t = self.block_feats
+        key = (t._version, t.data_ptr(), t.device)
+        if self._block_tables_bf16 is None \
+                or self._block_tables_bf16[0] != key:
+            self._block_tables_bf16 = (key, t.detach().to(torch.bfloat16))
+        return self._block_tables_bf16[1]
 
     def to_numpy(self):
         """(FieldParams, FieldStatics) in numpy, primes back as uint32."""
@@ -239,26 +269,120 @@ def params_from_jax(params, statics, cfg: FieldConfig,
     return GFNeRFField(cfg, p, s, device)
 
 
+def _normalized(warp_pts: torch.Tensor) -> torch.Tensor:
+    """Normalized points (warp + 1.5) / 3 (nerfacto_field.py:431) as (P, 3),
+    with the division rounded as XLA compiles it: a multiply by f32(1/3)."""
+    return ((warp_pts + 1.5) * (1.0 / 3.0)).reshape(-1, 3)
+
+
+def _encode(cfg: FieldConfig, table, prim, bias, pts, anc,
+            dense_levels: int = 0) -> torch.Tensor:
+    """One table's encode (P, L * C) in the configured layout;
+    ``dense_levels`` applies to the packed layout only."""
+    if cfg.hash_layout == "packed":
+        pack = pack_for_channels(cfg.features_per_level, cfg.packed_row_width)
+        return packed_hash_encode(table, prim, bias, pts, anc,
+                                  cfg.features_per_level, pack, dense_levels)
+    return hash_encode(table, prim, bias, pts, anc)
+
+
+def _density_head(field: GFNeRFField, feats: torch.Tensor,
+                  anc: torch.Tensor):
+    """(density (P,), base MLP output (P, 1 + G)) of encoded features."""
+    cfg = field.cfg
+    h = apply_mlp(field.base_net, feats, compute_dtype=_mlp_dt(cfg))
+    return trunc_exp(h[:, 0] + cfg.density_bias) * (anc >= 0), h
+
+
 def field_density(field: GFNeRFField, warp_pts: torch.Tensor,
-                  anchors: torch.Tensor, stage: int = STAGE_INIT):
+                  anchors: torch.Tensor, stage: int = STAGE_INIT,
+                  active_block: int = 0,
+                  active_table: Optional[torch.Tensor] = None,
+                  with_shared: bool = False):
     """Density (...,) and geometry features (..., geo_feat_dim) at warped
-    points (..., 3) with anchors (...,) (-1 invalid).  Init stage only."""
-    if stage != STAGE_INIT:
-        raise NotImplementedError("the focal (block) stage is not ported")
+    points (..., 3) with anchors (...,) (-1 invalid).
+
+    At ``STAGE_BLOCK`` the block ``active_block``'s table joins: added to
+    the global encode, which is frozen and computed without a graph
+    (``focal_mode="residual"``), or in its place (``"finetune"``).
+    ``active_table``: the focal train step passes the active table as a
+    leaf of its own, so that the gradient and Adam's moments exist for one
+    table; when None the table is block ``active_block`` of
+    ``field.block_feats`` (eval).  ``with_shared`` adds a third value: at
+    the block stage the density of the frozen shared branch alone (no
+    gradient), which the empty-space penalty reads; None at the init stage.
+    """
     cfg = field.cfg
     lead_shape = anchors.shape
-    # normalized points (warp + 1.5) / 3 (nerfacto_field.py:431), with the
-    # division rounded as XLA compiles it: a multiply by f32(1/3)
-    pts = ((warp_pts + 1.5) * (1.0 / 3.0)).reshape(-1, 3)
+    pts = _normalized(warp_pts)
+    anc = anchors.reshape(-1)
+    block_stage = stage != STAGE_INIT
+    finetune = cfg.focal_mode == "finetune"
+    if block_stage and field.block_feats is None:
+        raise ValueError("the block stage needs block tables (n_blocks > 0)")
+    with span("encode"):
+        gfeats = None
+        # in finetune mode the block table replaces the global encode, which
+        # then runs only for the shared density
+        if not block_stage or not finetune or with_shared:
+            # frozen at the block stage: no graph, so no table gradient
+            with torch.set_grad_enabled(not block_stage
+                                        and torch.is_grad_enabled()):
+                gfeats = _encode(cfg, field.global_feat, field.global_prim,
+                                 field.global_bias, pts, anc)
+        if block_stage:
+            table = (active_table if active_table is not None
+                     else field.block_feats[active_block])
+            # dense levels change the addressing: residual tables only (a
+            # fine-tuned copy must hash like the global table)
+            feats = _encode(cfg, table, field.block_prims[active_block],
+                            field.block_biases[active_block], pts, anc,
+                            0 if finetune else cfg.block_dense_levels)
+            if not finetune:
+                feats = gfeats + feats
+        else:
+            feats = gfeats
+    with span("base_mlp"):
+        shared = None
+        if block_stage and with_shared:
+            with torch.no_grad():
+                shared = _density_head(field, gfeats, anc)[0].reshape(
+                    lead_shape)
+        density, h = _density_head(field, feats, anc)
+    out = (density.reshape(lead_shape),
+           h[:, 1:].reshape(*lead_shape, cfg.geo_feat_dim))
+    return out + (shared,) if with_shared else out
+
+
+def field_density_routed(field: GFNeRFField, warp_pts: torch.Tensor,
+                         anchors: torch.Tensor, blocks: torch.Tensor):
+    """Focal density with a block per point (..., ) (-1 masked), packed
+    layout, eval only: the global encode plus each point's own block's
+    residual (or, in finetune mode, that block's table alone), so that one
+    render chunk can mix rays of every cluster.  No gradient flows."""
+    cfg = field.cfg
+    if cfg.hash_layout != "packed":
+        raise ValueError("routed eval needs the packed layout")
+    if field.block_feats is None:
+        raise ValueError("routed eval needs block tables (n_blocks > 0)")
+    lead_shape = anchors.shape
+    pts = _normalized(warp_pts)
     anc = anchors.reshape(-1)
     pack = pack_for_channels(cfg.features_per_level, cfg.packed_row_width)
-    with span("encode"):
-        feats = packed_hash_encode(field.global_feat, field.global_prim,
-                                   field.global_bias, pts, anc,
-                                   cfg.features_per_level, pack)
-    with span("base_mlp"):
-        h = apply_mlp(field.base_net, feats, compute_dtype=_mlp_dt(cfg))
-        density = trunc_exp(h[:, 0] + cfg.density_bias) * (anc >= 0)
+    finetune = cfg.focal_mode == "finetune"
+    with torch.no_grad():
+        with span("encode"):
+            feats = packed_hash_encode_routed(
+                field.block_tables_bf16(), field.block_prims,
+                field.block_biases, pts, anc, blocks.reshape(-1),
+                cfg.features_per_level, pack,
+                0 if finetune else cfg.block_dense_levels)
+            if not finetune:
+                feats = packed_hash_encode(
+                    field.global_feat, field.global_prim, field.global_bias,
+                    pts, anc, cfg.features_per_level, pack) + feats
+        with span("base_mlp"):
+            density, h = _density_head(field, feats, anc)
     return (density.reshape(lead_shape),
             h[:, 1:].reshape(*lead_shape, cfg.geo_feat_dim))
 

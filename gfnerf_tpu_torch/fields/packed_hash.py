@@ -15,8 +15,13 @@ is the differentiable wrapper, with a gradient for the table only, as
 ``_phe_bwd`` has: on CPU tensors it runs the plain pair, on CUDA tensors
 the forward launches ``csrc/packed_hash_fwd.cu`` (H1) and the backward
 ``csrc/packed_hash_bwd.cu`` (H2), or raises.  ``plain_packed_hash_encode``
-is the same function through the plain pair on any device.  The
-block-routed encode is not ported yet.
+is the same function through the plain pair on any device.
+
+``packed_hash_encode_routed`` is the block-routed encode of the eval path
+(forward only): stacked tables ``(B, L, rows, W)``, primes and biases
+``(B, L, V, 3)`` and a block per point.  ``packed_hash_encode_routed_raw`` is
+its plain version; on CUDA tensors the wrapper launches
+``csrc/packed_hash_routed.cu`` (H3), or raises.
 
 Coordinates: the grid coordinate of level l is ``p * scale_l + bias``, which
 XLA contracts into one fused multiply-add in the jitted JAX encode.  The
@@ -35,7 +40,8 @@ import itertools
 import numpy as np
 import torch
 
-from gfnerf_tpu_torch.fields.hash_encoding import _level_scales, _random_primes
+from gfnerf_tpu_torch.fields.hash_encoding import (_fma, _level_scales,
+                                                   _random_primes)
 from gfnerf_tpu_torch.ops import build
 
 _U32 = 0xFFFFFFFF
@@ -107,11 +113,6 @@ def dense_level_extents(n_levels, pack, n_volumes, n_rows, dense_levels):
             m[l] = ml
             use[l] = True
     return m, use
-
-
-def _fma(a: torch.Tensor, s: float, b: torch.Tensor) -> torch.Tensor:
-    """a * s + b rounded once to f32, as a fused multiply-add rounds it."""
-    return (a.double() * float(s) + b.double()).float()
 
 
 def _div_pack(cell: torch.Tensor, pack: int) -> torch.Tensor:
@@ -209,6 +210,45 @@ def packed_hash_encode_raw(
         h, loc, frac = _level_coords(points, prims[l], biases[l], scales[l],
                                      vol, pack, n_rows, int(dm[l]))
         rows = flat[h + l * n_rows]                   # (P, row_width) bf16
+        outs.extend(_interp_level(rows, *frac, *loc, e, n_channels))
+    return torch.stack(outs, dim=-1) * valid
+
+
+def packed_hash_encode_routed_raw(
+    block_feats: torch.Tensor,   # (B, L, n_rows, row_width) f32 or bf16
+    block_prims: torch.Tensor,   # (B, L, V, 3) int64 (uint32 values)
+    block_biases: torch.Tensor,  # (B, L, V, 3) f32
+    points: torch.Tensor,        # (P, 3) f32
+    anchors: torch.Tensor,       # (P,) volume index; < 0 -> masked output
+    blocks: torch.Tensor,        # (P,) block index; < 0 -> masked output
+    n_channels: int,
+    pack: int,
+    dense_levels: int = 0,
+) -> torch.Tensor:
+    """Plain block-routed forward (packed_hash.py:336-393 of the JAX
+    package): each point reads the table of its own block, with that
+    block's primes and biases.  Returns (P, L * n_channels) f32, zero where
+    the anchor or the block is < 0; a block past the last is clipped to it.
+    """
+    n_blocks, n_levels, n_rows, row_width = block_feats.shape
+    n_volumes = block_prims.shape[2]
+    e = pack + 1
+    valid = ((anchors >= 0) & (blocks >= 0))[:, None]
+    vol = anchors.long().clamp(0, n_volumes - 1)
+    blk = blocks.long().clamp(0, n_blocks - 1)
+    prims = block_prims.long()[blk, :, vol]       # (P, L, 3)
+    biases = block_biases[blk, :, vol]
+    scales = _level_scales(n_levels)
+    dm, _ = dense_level_extents(n_levels, pack, n_volumes, n_rows,
+                                dense_levels)
+    flat = block_feats.to(torch.bfloat16).reshape(
+        n_blocks * n_levels * n_rows, row_width)
+    row_base = blk * (n_levels * n_rows)
+    outs = []
+    for l in range(n_levels):
+        h, loc, frac = _level_coords(points, prims[:, l], biases[:, l],
+                                     scales[l], vol, pack, n_rows, int(dm[l]))
+        rows = flat[row_base + l * n_rows + h]        # (P, row_width) bf16
         outs.extend(_interp_level(rows, *frac, *loc, e, n_channels))
     return torch.stack(outs, dim=-1) * valid
 
@@ -428,12 +468,13 @@ def _level_constants(n_levels, pack, n_volumes, n_rows, dense_levels, dev):
 def _kernel_args(what, prim_pool, bias_pool, points, anchors, n_rows,
                  row_width, n_channels, pack, dense_levels, tensors,
                  level=None):
-    """Check what both kernels take and return the device tensors of the
+    """Check what the kernels take and return the device tensors of the
     addressing: (primes i32, bias, scales, dense_m, points, anchors i32).
     Inputs that already have the kernel's type and layout are passed as
-    they are.  With ``level``, the primes, biases, scales and dense extents
+    they are.  The pools are (L, V, 3), or (B, L, V, 3) for the routed
+    encode.  With ``level``, the primes, biases, scales and dense extents
     are that level's rows alone, for a launch over that one level."""
-    n_levels, n_volumes = prim_pool.shape[:2]
+    n_levels, n_volumes = prim_pool.shape[-3:-1]
     e = pack + 1
     dev = points.device
     if dev.type != "cuda":
@@ -533,3 +574,71 @@ def _packed_hash_backward_cuda(g, prim_pool, bias_pool, points, anchors,
     packed_hash_encode.bwd_calls += 1
     packed_hash_encode.bwd_launches += launches.value
     return grad
+
+
+def packed_hash_encode_routed(block_feats, block_prims, block_biases, points,
+                              anchors, blocks, n_channels: int, pack: int,
+                              dense_levels: int = 0):
+    """Block-routed packed encoding (P, L * n_channels), forward only (the
+    eval path; no gradient flows): the plain version for CPU tensors, the
+    CUDA kernel (``csrc/packed_hash_routed.cu``) for CUDA tensors.  The
+    tables may be given in bf16, the type the kernel reads; an f32 stack is
+    copied to bf16 at every call."""
+    with torch.no_grad():
+        if points.device.type == "cpu":
+            return packed_hash_encode_routed_raw(
+                block_feats, block_prims, block_biases, points, anchors,
+                blocks, n_channels, pack, dense_levels)
+        return _packed_hash_routed_cuda(
+            block_feats, block_prims, block_biases, points, anchors, blocks,
+            n_channels, pack, dense_levels)
+
+
+def plain_packed_hash_encode_routed(block_feats, block_prims, block_biases,
+                                    points, anchors, blocks, n_channels: int,
+                                    pack: int, dense_levels: int = 0):
+    """``packed_hash_encode_routed`` through the plain version on any device
+    (launches no kernel)."""
+    with torch.no_grad():
+        return packed_hash_encode_routed_raw(
+            block_feats, block_prims, block_biases, points, anchors, blocks,
+            n_channels, pack, dense_levels)
+
+
+packed_hash_encode_routed.launches = 0   # H3 launches
+
+
+def _packed_hash_routed_cuda(block_feats, block_prims, block_biases, points,
+                             anchors, blocks, n_channels, pack, dense_levels):
+    """H3 on CUDA tensors: (P, L * C)."""
+    if block_feats.dim() != 4 or block_prims.dim() != 4 \
+            or block_prims.shape[:2] != block_feats.shape[:2] \
+            or block_biases.shape != block_prims.shape:
+        raise ValueError(
+            f"packed_hash_encode_routed: tables {tuple(block_feats.shape)}, "
+            f"primes {tuple(block_prims.shape)}, biases "
+            f"{tuple(block_biases.shape)} are not (B, L, rows, W) and "
+            f"(B, L, V, 3) twice")
+    n_blocks, n_levels, n_rows, row_width = block_feats.shape
+    p = points.shape[0]
+    if blocks.shape != (p,):
+        raise ValueError(f"packed_hash_encode_routed: blocks "
+                         f"{tuple(blocks.shape)} != ({p},)")
+    addr = _kernel_args("packed_hash_encode_routed", block_prims,
+                        block_biases, points, anchors, n_rows, row_width,
+                        n_channels, pack, dense_levels,
+                        [("block_feats", block_feats), ("blocks", blocks)])
+    tables = block_feats.to(torch.bfloat16).contiguous()
+    blk = blocks.to(torch.int32).contiguous()
+    out = torch.empty((p, n_levels * n_channels), dtype=torch.float32,
+                      device=points.device)
+    err = build.library().gfnerf_packed_hash_routed(
+        tables.data_ptr(), *(t.data_ptr() for t in addr), blk.data_ptr(),
+        out.data_ptr(), p,
+        n_blocks, n_levels, block_prims.shape[2], n_rows, row_width,
+        n_channels, pack + 1,
+        torch.cuda.current_stream(points.device).cuda_stream)
+    build.check(err, "gfnerf_packed_hash_routed")
+    if p:   # no points, no launch
+        packed_hash_encode_routed.launches += 1
+    return out

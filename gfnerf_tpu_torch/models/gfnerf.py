@@ -3,15 +3,17 @@
 Port of ``gfnerf_tpu/models/gfnerf.py``: ``sample_rays`` (fast march), the
 dense branch of ``model_forward`` with the deferred warp, the fused
 composite with the background and ``scale_factor`` handling,
-``make_render_fn`` (eval noise == 1), and ``make_train_step`` at the init
-stage: rays, march, field, Charbonnier + S3IM, backward, per-group Adam
-and the occupancy statistics.  The field's configuration travels with the
-:class:`GFNeRFField` module.
+``make_render_fn`` (eval noise == 1; at the block stage with one block or
+with a block per ray), and ``make_train_step`` at both stages: rays, march,
+field, Charbonnier + S3IM (at the block stage also the finetune trust
+region and the empty-space penalty), backward, per-group Adam, and at the
+init stage the occupancy statistics.  The field's configuration travels
+with the :class:`GFNeRFField` module.
 
 Not ported yet: per-ray budget compaction (``0 < samples_budget_per_ray <
-S``) and the focal (block) stage, in training and in block-routed
-rendering, which raise ``NotImplementedError``; proposal resampling,
-semantics and the camera optimizer, which have no config fields here yet.
+S``, with its routed branch), which raises ``NotImplementedError``;
+rematerialized evaluation (``remat_chunks``), proposal resampling, semantics
+and the camera optimizer, which have no config fields here yet.
 The JAX package's ``make_multi_train_step`` (K steps per dispatch) has no
 counterpart: a plain loop of steps replaces it.
 """
@@ -28,15 +30,18 @@ from gfnerf_tpu_torch.cameras.rays import WarpedSamples
 from gfnerf_tpu_torch.engine.optimizers import (
     OptState,
     PerGroupAdam,
+    active_block_table,
     apply_updates,
     field_param_grads,
     field_param_groups,
-    mask_frozen_grads,
+    frozen_groups,
 )
 from gfnerf_tpu_torch.fields.field import (
+    STAGE_BLOCK,
     STAGE_INIT,
     GFNeRFField,
     field_density,
+    field_density_routed,
     field_rgb_per_ray,
 )
 from gfnerf_tpu_torch.model_components.losses import (
@@ -58,8 +63,8 @@ from gfnerf_tpu_torch.utils.profiling import span
 @dataclasses.dataclass
 class GFNeRFModelConfig:
     """The fields of the JAX package's ``GFNeRFModelConfig``
-    (gfnerf/config.py:88-130) that the render path and the init-stage train
-    step read, with its defaults.  The block count lives on
+    (gfnerf/config.py:88-130) that the render path and the train step read,
+    with its defaults.  The block count lives on
     ``FieldConfig``; the split schedule lives on ``OptimizersConfig``.  The
     train loss is the one the JAX defaults select (method_configs.py:62-67),
     fixed: Charbonnier plus S3IM at weight 1, kernel 4, stride 4, 10
@@ -68,6 +73,14 @@ class GFNeRFModelConfig:
     scale_factor: float = 10.0
     background_color: str = "black"   # "black" | "white" | "last_sample"
     samples_budget_per_ray: int = 256
+    # block stage, residual mode: > 0 penalizes density the residual adds,
+    # relu(density - shared density), averaged over the samples the frozen
+    # shared branch deems empty (its alpha < empty_space_tau)
+    empty_space_penalty_mult: float = 0.0
+    empty_space_tau: float = 0.01
+    # block stage, finetune mode: > 0 pulls the active table toward the
+    # frozen global table, mult * mean((table - global)^2)
+    finetune_trust_mult: float = 0.0
 
 
 def sample_rays(oct_dev: OctreeDevice, rays_o, rays_d, noise_unscaled,
@@ -87,10 +100,19 @@ def model_forward(
     rel_camera_indices: torch.Tensor,   # (R,) int
     stage: int,
     oct_dev: OctreeDevice,
+    active_block: int = 0,
+    active_table: Optional[torch.Tensor] = None,
+    routed_blocks: Optional[torch.Tensor] = None,   # (R,) block per ray
 ):
     """Field + compositing for one ray batch, dense branch
     (gfnerf.py:291-370): the field runs on all R*S sample slots, warped here
-    from the march's world points (the deferred warp of the fast march)."""
+    from the march's world points (the deferred warp of the fast march).
+
+    At the block stage the field adds block ``active_block``'s table
+    (``active_table``, if given, in its place: the train step's leaf), or,
+    with ``routed_blocks`` (eval only), each ray's own block's.  With the
+    empty-space penalty on, the train path also returns "density" and
+    "density_shared" (R, S)."""
     r, s = samples.trans_idx.shape
     budget = model_cfg.samples_budget_per_ray
     if 0 < budget < s:
@@ -101,7 +123,20 @@ def model_forward(
         anc = samples.trans_idx.reshape(-1).clamp(0, n_trans - 1)
         warp = warp_points(oct_dev, anc, samples.world_pts.reshape(-1, 3)
                            ).reshape(r, s, 3)
-    density, geo = field_density(field, warp, samples.trans_idx, stage)
+    density_shared = None
+    if routed_blocks is not None and stage == STAGE_BLOCK:
+        density, geo = field_density_routed(
+            field, warp, samples.trans_idx,
+            routed_blocks[:, None].expand(r, s))
+    else:
+        # the penalty is train-only
+        with_shared = (stage == STAGE_BLOCK
+                       and model_cfg.empty_space_penalty_mult > 0)
+        density, geo, *shared = field_density(
+            field, warp, samples.trans_idx, stage, active_block,
+            active_table, with_shared)
+        if with_shared:
+            density_shared = shared[0]
     with span("color_head"):
         heads = field_rgb_per_ray(field, rays_d, geo, rel_camera_indices,
                                   stage)
@@ -114,26 +149,30 @@ def model_forward(
         rgb = rgb + (1.0 - acc) * heads["rgb"][..., -1, :]
     depth = depth / model_cfg.scale_factor
     oct_depth = samples.first_oct_dis[:, None] / model_cfg.scale_factor
-    return {
+    out = {
         "rgb": rgb, "accumulation": acc, "depth": depth,
         "oct_depth": oct_depth, "weights": weights, "alphas": alphas,
     }
+    if density_shared is not None:
+        out["density"] = density
+        out["density_shared"] = density_shared
+    return out
 
 
 def make_render_fn(model_cfg: GFNeRFModelConfig, sampler_cfg: SamplerConfig):
     """Eval/render for a chunk of rays (eval noise == 1,
     PersSampler_cuda.cu:381-383).  Returns ``render_chunk(field, oct_dev,
     rays_o, rays_d, rel_camera_index, active_block=0, stage_is_block=False)``
-    -> {rgb, accumulation, depth, oct_depth}."""
+    -> {rgb, accumulation, depth, oct_depth}.  With ``stage_is_block`` the
+    focal field renders: ``active_block`` is one block for the chunk, or an
+    (R,) tensor with a block per ray (packed layout), so that a chunk may
+    mix rays of every cluster."""
 
     @torch.no_grad()
     def render_chunk(field: GFNeRFField, oct_dev: OctreeDevice,
                      rays_o: torch.Tensor, rays_d: torch.Tensor,
                      rel_camera_index, active_block=0,
                      stage_is_block: bool = False):
-        if stage_is_block and field.cfg.n_blocks > 0:
-            raise NotImplementedError(
-                "focal (block-routed) rendering is not ported")
         r = rays_o.shape[0]
         noise = torch.ones((r, sampler_cfg.max_samples), device=rays_o.device)
         with span("march"):
@@ -141,8 +180,25 @@ def make_render_fn(model_cfg: GFNeRFModelConfig, sampler_cfg: SamplerConfig):
                                   sampler_cfg)
         rel = torch.as_tensor(rel_camera_index, dtype=torch.int64,
                               device=rays_o.device).expand(r)
-        out = model_forward(field, model_cfg, samples, rays_d, rel,
-                            STAGE_INIT, oct_dev)
+        if stage_is_block and field.cfg.n_blocks > 0:
+            routed = None
+            if not isinstance(active_block, int):
+                active_block = torch.as_tensor(active_block,
+                                               device=rays_o.device)
+                if active_block.dim() == 1:
+                    if field.cfg.hash_layout != "packed":
+                        raise ValueError("a block per ray needs the packed "
+                                         "layout")
+                    if active_block.shape[0] != r:
+                        raise ValueError(
+                            f"{active_block.shape[0]} blocks for {r} rays")
+                    routed, active_block = active_block, 0
+            out = model_forward(field, model_cfg, samples, rays_d, rel,
+                                STAGE_BLOCK, oct_dev, int(active_block),
+                                routed_blocks=routed)
+        else:
+            out = model_forward(field, model_cfg, samples, rays_d, rel,
+                                STAGE_INIT, oct_dev)
         return {k: out[k] for k in
                 ("rgb", "accumulation", "depth", "oct_depth")}
 
@@ -169,26 +225,40 @@ def make_train_step(model_cfg: GFNeRFModelConfig, sampler_cfg: SamplerConfig,
     """One training iteration (``_train_step_body``, gfnerf.py:499-664).
 
     Returns ``train_step(state, oct_dev, cameras, batch, fineness,
-    generator=None, noise=None, s3im_perms=None)`` ->
+    generator=None, noise=None, s3im_perms=None, active_block=0)`` ->
     (state, oct_dev, metrics, per-ray error).  ``batch`` holds
     ``camera_indices``, ``rel_camera_indices`` (R,) int, ``coords`` (R, 2)
     (y, x) and ``image`` (R, 3).  The march noise (R, S) in [0.5, 1.5) and
     the S3IM permutations are drawn from ``generator`` unless passed in.
-    Only the init stage is ported: at it the block tables are not in the
-    graph, their gradient is a structural zero and they do not change.
+
+    The optimizer's "block" group is block ``active_block``'s table, a leaf
+    of its own that shares the stack's storage
+    (``optimizers.active_block_table``), so its in-place update is the
+    write-back into ``field.block_feats``.  At the init stage the block
+    tables are not in the graph: that gradient is a structural zero and
+    the tables do not change.  At the block stage only that table is in
+    the graph and only it changes; the frozen groups get no gradient, their
+    moments decay, and their updates are dropped; the occupancy statistics
+    stay.  The caller re-initialises the optimizer state (``tx.init``) when
+    the active block changes, as the JAX pipeline does at a split switch.
     """
-    if stage != STAGE_INIT:
-        raise NotImplementedError("the focal (block) train step is not "
-                                  "ported")
+    if stage not in (STAGE_INIT, STAGE_BLOCK):
+        raise ValueError(f"unknown stage {stage}")
     if sampler_cfg.march != "fast":
         raise NotImplementedError("only the fast (leaf-list) march is ported")
+    block_stage = stage == STAGE_BLOCK
+    frozen = frozen_groups(stage)
 
     def train_step(state: TrainState, oct_dev: OctreeDevice, cameras: Cameras,
                    batch: dict, fineness: float,
                    generator: Optional[torch.Generator] = None,
                    noise: Optional[torch.Tensor] = None,
-                   s3im_perms: Optional[torch.Tensor] = None):
+                   s3im_perms: Optional[torch.Tensor] = None,
+                   active_block: int = 0):
         field = state.field
+        if block_stage and field.block_feats is None:
+            raise ValueError("the block stage needs block tables "
+                             "(n_blocks > 0)")
         target = batch["image"]
         r = target.shape[0]
         dev = target.device
@@ -210,28 +280,54 @@ def make_train_step(model_cfg: GFNeRFModelConfig, sampler_cfg: SamplerConfig,
                                   sampler_cfg)
 
         field.zero_grad(set_to_none=True)
+        active_table = (None if field.block_feats is None else
+                        active_block_table(field, active_block,
+                                           requires_grad=block_stage))
         out = model_forward(field, model_cfg, samples, rays["directions"],
-                            batch["rel_camera_indices"], stage, oct_dev)
+                            batch["rel_camera_indices"], stage, oct_dev,
+                            active_block, active_table)
         with span("loss"):
-            losses = {"rgb_loss": charbonnier_loss(out["rgb"], target),
-                      "s3im_loss": s3im_loss(out["rgb"], target, s3im_perms)}
-            total = losses["rgb_loss"] + losses["s3im_loss"]
+            losses = {"rgb_loss": charbonnier_loss(out["rgb"], target)}
+            if (block_stage and field.cfg.focal_mode == "finetune"
+                    and model_cfg.finetune_trust_mult > 0):
+                losses["trust_loss"] = model_cfg.finetune_trust_mult \
+                    * torch.mean((active_table
+                                  - field.global_feat.detach()) ** 2)
+            if "density_shared" in out:
+                # penalize density the residual adds where the frozen shared
+                # branch says empty; carving (a negative delta) stays free
+                ds = out["density_shared"]
+                alpha_s = 1.0 - torch.exp(-ds * samples.dists)
+                empty = ((alpha_s < model_cfg.empty_space_tau)
+                         & samples.valid).to(ds.dtype)
+                delta = torch.relu(out["density"] - ds)
+                losses["empty_space_loss"] = (
+                    model_cfg.empty_space_penalty_mult
+                    * torch.sum(delta * empty)
+                    / torch.clamp(torch.sum(empty), min=1.0))
+            losses["s3im_loss"] = s3im_loss(out["rgb"], target, s3im_perms)
+            total = sum(losses.values())
         with span("backward"):
-            total.backward()
+            # at the block stage the frozen parameters stay out of the
+            # backward: their gradients would be masked to zero anyway
+            total.backward(inputs=[active_table] if block_stage else None)
         with span("optimizer"):
-            params = field_param_groups(field)
-            grads = mask_frozen_grads(field_param_grads(field), stage)
-            updates, opt_state = tx.update(grads, state.opt_state, params)
+            params = field_param_groups(field, active_table)
+            updates, opt_state = tx.update(
+                field_param_grads(field, active_table), state.opt_state,
+                params)
             # freezing masks the updates, not just the grads: Adam's moments
             # turn zero grads into nonzero updates (gfnerf.py:625-631)
-            apply_updates(params, mask_frozen_grads(updates, stage))
+            apply_updates({name: ps for name, ps in params.items()
+                           if name not in frozen}, updates)
         new_state = TrainState(field=field, opt_state=opt_state,
                                step=state.step + 1)
         with span("occupancy"), torch.no_grad():
-            # occupancy stats only during init (nerfacto.py:605-614)
-            oct_dev = update_oct_nodes(oct_dev, samples,
-                                       out["weights"].detach(),
-                                       out["alphas"].detach())
+            if not block_stage:
+                # occupancy stats only during init (nerfacto.py:605-614)
+                oct_dev = update_oct_nodes(oct_dev, samples,
+                                           out["weights"].detach(),
+                                           out["alphas"].detach())
             rgb = out["rgb"].detach()
             err = torch.sum(torch.abs(rgb - target), dim=-1)  # gf_pipeline:179
             mse = torch.mean((rgb - target) ** 2)

@@ -15,7 +15,17 @@ line:
    "frame_seconds": [...], "rays_per_sec": ..., "chunk": ..., "config": ...,
    "views": ..., "views_seconds": ..., "device": ...}
 
-Run on a CUDA card:  python -m gfnerf_tpu_torch.render_bench [--profile]
+``--stage focal`` renders the block stage's field, block-routed
+(``render_chunk(..., stage_is_block=True)`` with a block per ray): the
+training views concatenated into one mixed chunk, view i in block i mod
+n_blocks, and the frames with an (R,) block vector of one block, each
+after an init-stage frame of the same rays (``init_frame_seconds``), so that
+the two are timed in turns.  The block tables, zero at init, are filled
+with small random values from a seed.  ``device_allocs_in_timed_frames``
+counts the allocator's ``cudaMalloc`` calls during the timed frames.
+
+Run on a CUDA card:
+  python -m gfnerf_tpu_torch.render_bench [--stage {init,focal}] [--profile]
 """
 
 from __future__ import annotations
@@ -44,6 +54,7 @@ N_VIEWS = 4              # training views rendered before the frames
 FRAME_WH = (1920, 1080)  # the timed frame's size
 FRAMES = 5               # timed frames, after one warm-up frame
 CHUNK = 32768            # rays per render chunk (scripts/render_bench.py)
+CONFIGS = ("quality", "parity")   # bench.py --config, the ported ones
 
 
 def calibrate_sample_l(oct_dev, c2w, fx, fy, cx, cy, w, h, S, device,
@@ -74,13 +85,18 @@ def calibrate_sample_l(oct_dev, c2w, fx, fy, cx, cy, w, h, S, device,
     return sample_l, med
 
 
-def build_workload(device="cuda", seed: int = 0):
-    """The bench scene, octree and field of the quality config
-    (profile_step.build_workload("quality")).
+def build_workload(device="cuda", seed: int = 0, config: str = "quality"):
+    """The bench scene, octree and field of one of ``bench.py``'s configs:
+    "quality" (profile_step.build_workload("quality"): packed layout, 8
+    levels x 4 channels, 384 slots, ``sample_l`` calibrated, fineness 1) or
+    "parity" (bench.py:386-399: the anchored layout, 16 levels x 2 channels
+    of 2^19 entries, 192 slots, ``sample_l`` 1/256, fineness 4).
 
     Returns a dict: cameras (numpy c2w, fx, fy, cx, cy, w, h), tree,
-    oct_dev, scfg, fcfg, mcfg, field, and "timings" (seconds per set-up
-    step)."""
+    oct_dev, scfg, fcfg, mcfg, field, fineness (the train step's), config,
+    and "timings" (seconds per set-up step)."""
+    if config not in CONFIGS:
+        raise ValueError(f"unknown config {config!r} (have {CONFIGS})")
     timings = {}
     n_cams = 48
     c2w, fx, fy, cx, cy, w, h = ring_cameras(n_cams, img_wh=(96, 72))
@@ -96,15 +112,22 @@ def build_workload(device="cuda", seed: int = 0):
     timings["octree"] = time.perf_counter() - t0
 
     t0 = time.perf_counter()
-    S = 384
-    sample_l, _ = calibrate_sample_l(oct_dev, c2w, fx, fy, cx, cy, w, h, S,
-                                     device)
+    common = dict(num_images=n_cams, n_volumes=tree.n_volumes, n_blocks=2,
+                  mlp_dtype="bfloat16")
+    if config == "parity":
+        S, sample_l, fineness = 192, 1.0 / 256, 4.0
+        fcfg = FieldConfig(num_levels=16, features_per_level=2,
+                           hash_layout="anchored", log2_hashmap_size=19,
+                           **common)
+    else:
+        S, fineness = 384, 1.0
+        sample_l, _ = calibrate_sample_l(oct_dev, c2w, fx, fy, cx, cy, w, h,
+                                         S, device)
+        fcfg = FieldConfig(num_levels=8, features_per_level=4,
+                           hash_layout="packed", packed_rows_log2=15,
+                           **common)
     timings["calibrate"] = time.perf_counter() - t0
     scfg = SamplerConfig(max_samples=S, sample_l=sample_l)
-    fcfg = FieldConfig(num_images=n_cams, n_volumes=tree.n_volumes,
-                       num_levels=8, features_per_level=4,
-                       hash_layout="packed", packed_rows_log2=15,
-                       n_blocks=2, mlp_dtype="bfloat16")
     mcfg = GFNeRFModelConfig(scale_factor=1.0, samples_budget_per_ray=S)
     t0 = time.perf_counter()
     field = GFNeRFField(fcfg, *init_field_params(fcfg, seed=seed),
@@ -113,17 +136,47 @@ def build_workload(device="cuda", seed: int = 0):
     return {
         "cameras": (c2w, fx, fy, cx, cy, w, h), "tree": tree,
         "oct_dev": oct_dev, "scfg": scfg, "fcfg": fcfg, "mcfg": mcfg,
-        "field": field, "timings": timings,
+        "field": field, "fineness": fineness, "config": config,
+        "timings": timings,
     }
 
 
 def render_rays(render_fn, field, oct_dev, rays_o, rays_d, rel_camera_index,
-                chunk: int):
-    """Render (N, 3) rays chunk by chunk; returns {key: (N, k)} tensors."""
+                chunk: int, blocks=None):
+    """Render (N, 3) rays chunk by chunk; returns {key: (N, k)} tensors.
+    ``rel_camera_index`` is one index or an (N,) tensor.  With ``blocks``
+    the focal field renders: one block for all rays, or an (N,) tensor with
+    a block per ray."""
+
+    def part(x, i):
+        return x[i:i + chunk] if isinstance(x, torch.Tensor) and x.dim() \
+            else x
+
     outs = [render_fn(field, oct_dev, rays_o[i:i + chunk],
-                      rays_d[i:i + chunk], rel_camera_index)
+                      rays_d[i:i + chunk], part(rel_camera_index, i),
+                      *(() if blocks is None else (part(blocks, i), True)))
             for i in range(0, rays_o.shape[0], chunk)]
     return {k: torch.cat([o[k] for o in outs]) for k in outs[0]}
+
+
+def mixed_view_rays(cameras: Cameras, view_ids, n_blocks: int):
+    """The rays of several training views as one batch, for one mixed
+    render chunk: (origins (N, 3), directions (N, 3), camera index (N,),
+    block (N,)), view number i of ``view_ids`` in block i mod n_blocks."""
+    o, d, cam, blk = [], [], [], []
+    dev = cameras.camera_to_worlds.device
+    for i, view in enumerate(view_ids):
+        coords = torch.as_tensor(
+            get_image_coords(int(cameras.height[view]),
+                             int(cameras.width[view])), device=dev)
+        rays = generate_rays(cameras, view, coords)
+        o.append(rays["origins"].reshape(-1, 3))
+        d.append(rays["directions"].reshape(-1, 3))
+        cam.append(torch.full((o[-1].shape[0],), view, dtype=torch.int64,
+                              device=dev))
+        blk.append(torch.full((o[-1].shape[0],), i % n_blocks,
+                              dtype=torch.int32, device=dev))
+    return torch.cat(o), torch.cat(d), torch.cat(cam), torch.cat(blk)
 
 
 def render_camera(render_fn, field, oct_dev, cameras: Cameras,
@@ -159,9 +212,25 @@ def frame_rays(c2w: np.ndarray, width: int, height: int, device):
             torch.as_tensor(d_w, dtype=torch.float32, device=device))
 
 
+def randomize_block_tables(field: GFNeRFField) -> None:
+    """Fill the block tables, zero at init in residual mode, with
+    uniform(-1e-2, 1e-2) values (the global table's init range) from a
+    fixed seed, so that the blocks of a benched focal render differ as
+    trained ones do."""
+    dev = field.block_feats.device
+    gen = torch.Generator(device=dev).manual_seed(1)
+    with torch.no_grad():
+        field.block_feats.copy_((torch.rand(
+            field.block_feats.shape, generator=gen, device=dev) - 0.5) * 2e-2)
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--chunk", type=int, default=CHUNK)
+    ap.add_argument("--stage", default="init", choices=["init", "focal"],
+                    help="focal: the block stage's field, routed: the views "
+                         "as one mixed chunk, view i in block i mod "
+                         "n_blocks, and the frame with a block per ray")
     ap.add_argument("--profile", action="store_true",
                     help="also profile one frame and print its per-stage "
                          "device times as a JSON line")
@@ -173,32 +242,53 @@ def main(argv=None):
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     wl = build_workload(dev)
+    field, oct_dev = wl["field"], wl["oct_dev"]
+    focal = args.stage == "focal"
     render_fn = make_render_fn(wl["mcfg"], wl["scfg"])
     c2w, fx, fy, cx, cy, w, h = wl["cameras"]
     cams = Cameras.from_numpy(c2w, fx, fy, cx, cy, w, h, device=dev)
+    view_ids = [i * len(c2w) // N_VIEWS for i in range(N_VIEWS)]
+    o, d = frame_rays(c2w[0], *FRAME_WH, dev)
+    frame_blocks = None
+    if focal:
+        randomize_block_tables(field)
+        frame_blocks = torch.zeros(o.shape[0], dtype=torch.int32, device=dev)
     t0 = time.perf_counter()
-    for i in range(N_VIEWS):
-        render_camera(render_fn, wl["field"], wl["oct_dev"], cams,
-                      i * len(c2w) // N_VIEWS, args.chunk)
+    if focal:   # all views in one chunk, each in its own block
+        vo, vd, vcam, vblk = mixed_view_rays(cams, view_ids,
+                                             wl["fcfg"].n_blocks)
+        render_rays(render_fn, field, oct_dev, vo, vd, vcam, args.chunk, vblk)
+    else:
+        for view in view_ids:
+            render_camera(render_fn, field, oct_dev, cams, view, args.chunk)
     torch.cuda.synchronize()
     t_views = time.perf_counter() - t0
-    o, d = frame_rays(c2w[0], *FRAME_WH, dev)
 
-    def frame():
-        out = render_rays(render_fn, wl["field"], wl["oct_dev"], o, d, 0,
-                          args.chunk)
+    def frame(blocks=frame_blocks):
+        out = render_rays(render_fn, field, oct_dev, o, d, 0, args.chunk,
+                          blocks)
         torch.cuda.synchronize()
         return out
 
     t0 = time.perf_counter()
     frame()
-    print(f"[render_bench] warm-up frame {time.perf_counter() - t0:.2f}s",
+    if focal:
+        frame(None)
+    print(f"[render_bench] warm-up {time.perf_counter() - t0:.2f}s",
           file=sys.stderr)
-    times = []
+    # focal: each routed frame follows an init-stage frame of the same rays,
+    # so that the two are compared in turns inside one run
+    times, init_times = [], []
+    allocs0 = torch.cuda.memory_stats()["num_device_alloc"]
     for _ in range(FRAMES):
+        if focal:
+            t0 = time.perf_counter()
+            frame(None)
+            init_times.append(time.perf_counter() - t0)
         t0 = time.perf_counter()
         frame()
         times.append(time.perf_counter() - t0)
+    allocs = torch.cuda.memory_stats()["num_device_alloc"] - allocs0
     dt = float(np.median(times))
     if args.profile:
         prof = profile_device(frame)
@@ -209,7 +299,10 @@ def main(argv=None):
         "metric": "render_seconds_per_1080p_frame", "value": dt,
         "unit": "s/frame (median)", "frame_seconds": times,
         "rays_per_sec": n / dt, "chunk": args.chunk,
-        "config": "quality", "views": N_VIEWS, "views_seconds": t_views,
+        "config": "quality", "stage": args.stage, "views": N_VIEWS,
+        "views_seconds": t_views,
+        **({"init_frame_seconds": init_times} if focal else {}),
+        "device_allocs_in_timed_frames": allocs,
         "device": torch.cuda.get_device_name(dev),
     }))
     return 0

@@ -97,6 +97,9 @@ def test_render_chunk_matches_jax(mlp_dtype, background):
 
 
 def test_compaction_and_focal_render_raise():
+    """What the render still refuses: per-ray budget compaction, at either
+    stage (not ported), and a focal render whose block vector does not
+    match the chunk's rays."""
     from gfnerf_tpu_torch.models.gfnerf import (GFNeRFModelConfig,
                                                 make_render_fn)
     from gfnerf_tpu_torch.sampler.perssampler import SamplerConfig
@@ -109,9 +112,12 @@ def test_compaction_and_focal_render_raise():
                              scfg)
     with pytest.raises(NotImplementedError):
         compact(field, toct, o, d, 0)
-    dense = make_render_fn(GFNeRFModelConfig(samples_budget_per_ray=0), scfg)
     with pytest.raises(NotImplementedError):
-        dense(field, toct, o, d, 0, stage_is_block=True)
+        compact(field, toct, o, d, 0, 1, stage_is_block=True)
+    dense = make_render_fn(GFNeRFModelConfig(samples_budget_per_ray=0), scfg)
+    with pytest.raises(ValueError):
+        dense(field, toct, o, d, 0, torch.zeros(5, dtype=torch.int64),
+              stage_is_block=True)
 
 
 JAX_FREE_SCRIPT = textwrap.dedent("""

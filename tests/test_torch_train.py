@@ -26,100 +26,17 @@ import numpy as np
 import pytest
 import torch
 
-from torch_parity import N_CAMS, IMG_WH, field_pair, octree_pair, to_np
+from torch_parity import IMG_WH, field_pair, octree_pair, to_np
+from torch_parity import TRAIN_R as R
+from torch_parity import TRAIN_S as S
+from torch_parity import TRAIN_SAMPLE_L as SAMPLE_L
+from torch_parity import jax_groups as _jax_groups
+from torch_parity import jax_train_step as _jax_step
+from torch_parity import port_train_step as _port_step
+from torch_parity import train_batch as _batch
+from torch_parity import train_cameras_np as _cameras_np
 
-R = 128
-S = 64
-SAMPLE_L = 1.0 / 32
 TABLE_TOL = 2e-2
-
-
-def _batch(seed=0):
-    rng = np.random.default_rng(seed)
-    w, h = IMG_WH
-    ki = rng.integers(0, N_CAMS, R).astype(np.int32)
-    coords = np.stack([rng.integers(0, h, R) + 0.5,
-                       rng.integers(0, w, R) + 0.5], -1).astype(np.float32)
-    image = rng.uniform(0.2, 0.9, (R, 3)).astype(np.float32)
-    return {"camera_indices": ki, "rel_camera_indices": ki,
-            "coords": coords, "image": image}
-
-
-def _cameras_np():
-    from tests.conftest import make_ring_cameras
-
-    c2w, intri = make_ring_cameras(N_CAMS, img_wh=IMG_WH)
-    return (c2w, intri[:, 0, 0], intri[:, 1, 1], intri[:, 0, 2],
-            intri[:, 1, 2])
-
-
-def _jax_step(jcfg, params, statics, joct, batch, mkw, key_seed):
-    """The JAX step, its outputs, and the noise and permutations it drew."""
-    import jax
-    import jax.numpy as jnp
-    from gfnerf_tpu.data.dataparsers.base import CamerasHost
-    from gfnerf_tpu.engine.optimizers import (OptimizersConfig,
-                                              build_optimizer, optimizer_arg)
-    from gfnerf_tpu.fields.field import STAGE_INIT
-    from gfnerf_tpu.models.gfnerf import (GFNeRFModelConfig, TrainState,
-                                          make_train_step)
-    from gfnerf_tpu.sampler.perssampler import SamplerConfig
-
-    c2w, fx, fy, cx, cy = _cameras_np()
-    w, h = IMG_WH
-    cams = CamerasHost(camera_to_worlds=c2w, fx=fx, fy=fy, cx=cx, cy=cy,
-                       width=np.full(N_CAMS, w, np.int32),
-                       height=np.full(N_CAMS, h, np.int32)).to_device()
-    tx = build_optimizer(OptimizersConfig(), params)
-    state = TrainState(params=params, opt_state=tx.init(optimizer_arg(params)),
-                       step=jnp.asarray(0, jnp.int32))
-    mcfg = GFNeRFModelConfig(n_blocks=2, **mkw)
-    step = make_train_step(jcfg, mcfg, SamplerConfig(max_samples=S,
-                                                     sample_l=SAMPLE_L),
-                           tx, STAGE_INIT)
-    key = jax.random.PRNGKey(key_seed)
-    out = step(state, statics, joct, cams,
-               {k: jnp.asarray(v) for k, v in batch.items()},
-               jnp.asarray(1.0, jnp.float32), jnp.asarray(0, jnp.int32), key)
-    # the step's own draws (gfnerf.py:512-514, losses.py:70-73)
-    k_noise, k_s3im, _ = jax.random.split(key, 3)
-    noise = (jax.random.uniform(k_noise, (R, S)) - 0.5) + 1.0
-    perms = [jax.random.permutation(k, R) for k in
-             jax.random.split(k_s3im, mcfg.s3im_repeat_time - 1)]
-    return out, np.array(noise), np.stack([np.asarray(p) for p in perms])
-
-
-def _port_step(field, toct, batch, mkw, noise, perms):
-    from gfnerf_tpu_torch.cameras.cameras import Cameras
-    from gfnerf_tpu_torch.engine.optimizers import (OptimizersConfig,
-                                                    build_optimizer)
-    from gfnerf_tpu_torch.models.gfnerf import (GFNeRFModelConfig,
-                                                init_train_state,
-                                                make_train_step)
-    from gfnerf_tpu_torch.sampler.perssampler import SamplerConfig
-
-    w, h = IMG_WH
-    cams = Cameras.from_numpy(*_cameras_np(), w, h, device="cpu")
-    tx = build_optimizer(OptimizersConfig())
-    state = init_train_state(field, tx)
-    step = make_train_step(GFNeRFModelConfig(**mkw),
-                           SamplerConfig(max_samples=S, sample_l=SAMPLE_L),
-                           tx)
-    tb = {k: torch.as_tensor(v) for k, v in batch.items()}
-    for k in ("camera_indices", "rel_camera_indices"):
-        tb[k] = tb[k].long()
-    return step(state, toct, cams, tb, 1.0, noise=torch.as_tensor(noise),
-                s3im_perms=torch.as_tensor(perms).long())
-
-
-def _jax_groups(tree):
-    """A JAX FieldParams-shaped tree as the port's group lists."""
-    return {
-        "fields": [*tree.base_net["w"], *tree.base_net["b"],
-                   *tree.mlp_head["w"], *tree.mlp_head["b"],
-                   tree.appearance_embedding],
-        "base_encoding_init": [tree.global_feat],
-    }
 
 
 def _jax_grads(opt_state):
@@ -231,6 +148,8 @@ def test_non_finite_step_is_skipped():
 
 
 def test_train_step_rejects_focal_stage():
+    """Where the focal step cannot run it is refused: a stage that does not
+    exist, and a field without block tables."""
     from gfnerf_tpu_torch.engine.optimizers import (OptimizersConfig,
                                                     build_optimizer)
     from gfnerf_tpu_torch.fields.field import STAGE_BLOCK
@@ -238,9 +157,18 @@ def test_train_step_rejects_focal_stage():
                                                 make_train_step)
     from gfnerf_tpu_torch.sampler.perssampler import SamplerConfig
 
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError):
         make_train_step(GFNeRFModelConfig(), SamplerConfig(),
-                        build_optimizer(OptimizersConfig()), STAGE_BLOCK)
+                        build_optimizer(OptimizersConfig()), STAGE_BLOCK + 1)
+    _, _, _, field = field_pair(mlp_dtype="float32", n_blocks=0)
+    _, toct = octree_pair()
+    rng = np.random.default_rng(2)
+    noise = rng.uniform(0.5, 1.5, (R, S)).astype(np.float32)
+    perms = np.stack([rng.permutation(R) for _ in range(9)])
+    with pytest.raises(ValueError):
+        _port_step(field, toct, _batch(), dict(
+            scale_factor=1.0, samples_budget_per_ray=S), noise, perms,
+            stage=STAGE_BLOCK)
 
 
 def test_train_steps_lower_the_loss():

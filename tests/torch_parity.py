@@ -3,8 +3,10 @@
 Builds the tiny scene of tests/test_render_early.py once per process (six
 ring cameras, a depth-5 tree), and hands the JAX package and the PyTorch port
 the same numpy inputs: the same octree, the same ``init_field_params`` seed,
-the same random tables.  Torch runs on the CPU with two threads, because the
-suite runs several pytest-xdist workers side by side.
+the same random tables; and runs one train step of either package on the
+same batch, march noise and S3IM permutations.  Torch runs on the CPU with
+two threads, because the suite runs several pytest-xdist workers side by
+side.
 """
 
 from __future__ import annotations
@@ -73,13 +75,15 @@ def field_kwargs(**over):
     return kw
 
 
-def field_pair(seed: int = 0, table_scale: float = 0.5, **over):
+def field_pair(seed: int = 0, table_scale: float = 0.5,
+               block_scale: float = 0.0, **over):
     """The same field in both packages.
 
     Both start from ``init_field_params(seed)``; with ``table_scale`` > 0
     the global table is then replaced, in both, by one numpy draw of
-    uniform(-table_scale, table_scale), so renders are not near-constant.
-    Returns (jax_cfg, jax_params, jax_statics, port_field).
+    uniform(-table_scale, table_scale), so renders are not near-constant;
+    with ``block_scale`` > 0 the block tables likewise, so the blocks
+    differ.  Returns (jax_cfg, jax_params, jax_statics, port_field).
     """
     import jax.numpy as jnp
 
@@ -95,6 +99,11 @@ def field_pair(seed: int = 0, table_scale: float = 0.5, **over):
         table = rng.uniform(-table_scale, table_scale,
                             params.global_feat.shape).astype(np.float32)
         params = params.replace(global_feat=jnp.asarray(table))
+    if block_scale > 0:
+        rng = np.random.default_rng(seed + 200)
+        tables = rng.uniform(-block_scale, block_scale,
+                             params.block_feats.shape).astype(np.float32)
+        params = params.replace(block_feats=jnp.asarray(tables))
     field = params_from_jax(params, statics, FieldConfig(**kw),
                             device="cpu")
     return jcfg, params, statics, field
@@ -111,3 +120,113 @@ def asdict_np(obj) -> dict:
     return {f.name: (None if getattr(obj, f.name) is None
                      else np.asarray(to_np(getattr(obj, f.name))))
             for f in dataclasses.fields(obj)}
+
+
+# ---- one train step of either package on the tiny scene ----
+
+TRAIN_R = 128
+TRAIN_S = 64
+TRAIN_SAMPLE_L = 1.0 / 32
+
+
+def train_batch(seed=0):
+    """A numpy batch of TRAIN_R random pixels with random colours."""
+    rng = np.random.default_rng(seed)
+    w, h = IMG_WH
+    ki = rng.integers(0, N_CAMS, TRAIN_R).astype(np.int32)
+    coords = np.stack([rng.integers(0, h, TRAIN_R) + 0.5,
+                       rng.integers(0, w, TRAIN_R) + 0.5], -1
+                      ).astype(np.float32)
+    image = rng.uniform(0.2, 0.9, (TRAIN_R, 3)).astype(np.float32)
+    return {"camera_indices": ki, "rel_camera_indices": ki,
+            "coords": coords, "image": image}
+
+
+def train_cameras_np():
+    from tests.conftest import make_ring_cameras
+
+    c2w, intri = make_ring_cameras(N_CAMS, img_wh=IMG_WH)
+    return (c2w, intri[:, 0, 0], intri[:, 1, 1], intri[:, 0, 2],
+            intri[:, 1, 2])
+
+
+def jax_train_step(jcfg, params, statics, joct, batch, mkw, key_seed,
+                   stage=0, active_block=0, state=None):
+    """One jitted JAX train step at ``stage``, from ``state`` (a fresh one
+    of ``params`` if None).  Returns its outputs (state, octree, metrics,
+    per-ray error), and the march noise and S3IM permutations it drew."""
+    import jax
+    import jax.numpy as jnp
+    from gfnerf_tpu.data.dataparsers.base import CamerasHost
+    from gfnerf_tpu.engine.optimizers import (OptimizersConfig,
+                                              build_optimizer, optimizer_arg)
+    from gfnerf_tpu.models.gfnerf import (GFNeRFModelConfig, TrainState,
+                                          make_train_step)
+    from gfnerf_tpu.sampler.perssampler import SamplerConfig
+
+    c2w, fx, fy, cx, cy = train_cameras_np()
+    w, h = IMG_WH
+    cams = CamerasHost(camera_to_worlds=c2w, fx=fx, fy=fy, cx=cx, cy=cy,
+                       width=np.full(N_CAMS, w, np.int32),
+                       height=np.full(N_CAMS, h, np.int32)).to_device()
+    tx = build_optimizer(OptimizersConfig(), params)
+    if state is None:
+        state = TrainState(params=params,
+                           opt_state=tx.init(optimizer_arg(params)),
+                           step=jnp.asarray(0, jnp.int32))
+    mcfg = GFNeRFModelConfig(n_blocks=2, **mkw)
+    step = make_train_step(jcfg, mcfg,
+                           SamplerConfig(max_samples=TRAIN_S,
+                                         sample_l=TRAIN_SAMPLE_L),
+                           tx, stage)
+    key = jax.random.PRNGKey(key_seed)
+    out = step(state, statics, joct, cams,
+               {k: jnp.asarray(v) for k, v in batch.items()},
+               jnp.asarray(1.0, jnp.float32),
+               jnp.asarray(active_block, jnp.int32), key)
+    # the step's own draws (gfnerf.py:512-514, losses.py:70-73)
+    k_noise, k_s3im, _ = jax.random.split(key, 3)
+    noise = (jax.random.uniform(k_noise, (TRAIN_R, TRAIN_S)) - 0.5) + 1.0
+    perms = [jax.random.permutation(k, TRAIN_R) for k in
+             jax.random.split(k_s3im, mcfg.s3im_repeat_time - 1)]
+    return out, np.array(noise), np.stack([np.asarray(p) for p in perms])
+
+
+def port_train_step(field, toct, batch, mkw, noise, perms, stage=0,
+                    active_block=0, state=None):
+    """One train step of the port at ``stage`` on the CPU, from ``state``
+    (a fresh one of ``field`` if None), with the given noise and
+    permutations."""
+    from gfnerf_tpu_torch.cameras.cameras import Cameras
+    from gfnerf_tpu_torch.engine.optimizers import (OptimizersConfig,
+                                                    build_optimizer)
+    from gfnerf_tpu_torch.models.gfnerf import (GFNeRFModelConfig,
+                                                init_train_state,
+                                                make_train_step)
+    from gfnerf_tpu_torch.sampler.perssampler import SamplerConfig
+
+    w, h = IMG_WH
+    cams = Cameras.from_numpy(*train_cameras_np(), w, h, device="cpu")
+    tx = build_optimizer(OptimizersConfig())
+    if state is None:
+        state = init_train_state(field, tx)
+    step = make_train_step(GFNeRFModelConfig(**mkw),
+                           SamplerConfig(max_samples=TRAIN_S,
+                                         sample_l=TRAIN_SAMPLE_L),
+                           tx, stage)
+    tb = {k: torch.as_tensor(v) for k, v in batch.items()}
+    for k in ("camera_indices", "rel_camera_indices"):
+        tb[k] = tb[k].long()
+    return step(state, toct, cams, tb, 1.0, noise=torch.as_tensor(noise),
+                s3im_perms=torch.as_tensor(perms).long(),
+                active_block=active_block)
+
+
+def jax_groups(tree):
+    """A JAX FieldParams-shaped tree as the port's group lists."""
+    return {
+        "fields": [*tree.base_net["w"], *tree.base_net["b"],
+                   *tree.mlp_head["w"], *tree.mlp_head["b"],
+                   tree.appearance_embedding],
+        "base_encoding_init": [tree.global_feat],
+    }
