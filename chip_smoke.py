@@ -1353,9 +1353,11 @@ def time_routed_on_chunk(wl, fo, fd) -> dict:
     """H3, kernel and plain version, on the inputs one frame chunk gives
     it (32768 rays x 384 samples), with the trained tables of both blocks,
     a block per ray (ray i in block i mod 2, every 17th ray -1): equal bit
-    for bit; timed given the bf16 stack the field keeps (the render's
-    form) and given the f32 stack (a bf16 copy per call); beside them the
-    copy alone and the residual add ``global + routed``."""
+    for bit.  Timed given the bf16 stack the field keeps (the render's
+    form; its bound reads that stack once, 2 bytes an element) and given
+    the f32 stack (a bf16 copy per call; its bound reads 4 bytes an
+    element); beside them the copy alone, at this stack and at the default
+    10 blocks, and the residual add ``global + routed``."""
     import torch
 
     from gfnerf_tpu_torch.fields.packed_hash import (
@@ -1383,10 +1385,11 @@ def time_routed_on_chunk(wl, fo, fd) -> dict:
         got = packed_hash_encode_routed(bf16, *tail)
         want = packed_hash_encode_routed_raw(stack, *tail)
         torch.cuda.synchronize()
+        err = max_err([got], [want])
         if not torch.equal(got, want):
             raise AssertionError(
                 f"routed encode on a frame chunk: not equal to the plain "
-                f"version bit for bit (max abs err {max_err([got], [want])})")
+                f"version bit for bit (max abs err {err})")
         masked = (anc < 0) | (blk < 0)
         if not bool((got[masked] == 0).all()):
             raise AssertionError("routed encode: masked points not zeroed")
@@ -1397,6 +1400,9 @@ def time_routed_on_chunk(wl, fo, fd) -> dict:
         ms = time_ms(lambda: packed_hash_encode_routed(bf16, *tail))
         f32_ms = time_ms(lambda: packed_hash_encode_routed(stack, *tail))
         copy_ms = time_ms(lambda: stack.to(torch.bfloat16))
+        ten = stack[:1].expand(10, *stack.shape[1:]).contiguous()
+        copy10_ms = time_ms(lambda: ten.to(torch.bfloat16))
+        del ten
         plain_ms = time_ms(
             lambda: packed_hash_encode_routed_raw(stack, *tail), n=3)
         other = got.clone()   # two inputs, as the field's sum has
@@ -1404,20 +1410,26 @@ def time_routed_on_chunk(wl, fo, fd) -> dict:
         del other
     p = pts.shape[0]
     n_levels = stack.shape[1]
-    # output, points, anchors, blocks, and one read of each f32 table
-    n_bytes = 4 * p * n_levels * c + 12 * p + 4 * p + 4 * p \
-        + 4 * stack.numel()
+    # output, points, anchors, blocks, and one read of each table in the
+    # type the timed call was given
+    point_bytes = 4 * p * n_levels * c + 12 * p + 4 * p + 4 * p
+    n_bytes = point_bytes + bf16.element_size() * bf16.numel()
     bound = n_bytes / HBM_BYTES_PER_S * 1e3
+    f32_bytes = point_bytes + stack.element_size() * stack.numel()
+    f32_bound = f32_bytes / HBM_BYTES_PER_S * 1e3
     log(f"[focal render] packed_hash_routed on a frame chunk (P={p}, "
         f"{int((~masked).sum())} unmasked, B={n_blocks}, largest output "
-        f"{largest:.3g}): equal to the plain version; kernel {ms:.4f} ms "
-        f"given the bf16 stack, {f32_ms:.4f} ms given the f32 stack (its "
-        f"bf16 copy alone {copy_ms:.4f} ms), plain {plain_ms:.4f} ms, bound "
-        f"{bound:.4f} ms ({n_bytes / 1e6:.1f} MB); the residual add of two "
-        f"(P, {n_levels * c}) f32 encodes {add_ms:.4f} ms")
-    return {"max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms,
+        f"{largest:.3g}): equal to the plain version (max abs err {err}); "
+        f"kernel {ms:.4f} ms given the bf16 stack, bound {bound:.4f} ms "
+        f"({n_bytes / 1e6:.1f} MB); {f32_ms:.4f} ms given the f32 stack, "
+        f"bound {f32_bound:.4f} ms ({f32_bytes / 1e6:.1f} MB); the bf16 copy "
+        f"alone {copy_ms:.4f} ms, of a 10-block stack {copy10_ms:.4f} ms; "
+        f"plain {plain_ms:.4f} ms; the residual add of two (P, "
+        f"{n_levels * c}) f32 encodes {add_ms:.4f} ms")
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound, "bound_by": "bytes", "library_ms": None,
-            "f32_stack_ms": f32_ms, "bf16_copy_ms": copy_ms,
+            "f32_stack_ms": f32_ms, "f32_stack_bound_ms": f32_bound,
+            "bf16_copy_ms": copy_ms, "bf16_copy_10_blocks_ms": copy10_ms,
             "residual_add_ms": add_ms}
 
 
@@ -1446,10 +1458,11 @@ def time_anchored_on_batch(wl, batch, noise) -> tuple:
         got = he._hash_encode_cuda(table, *addr)
         want = he.hash_encode_raw(table, *addr)
         torch.cuda.synchronize()
+        fwd_err = max_err([got], [want])
         if not torch.equal(got, want):
             raise AssertionError(
                 f"anchored encode on a train batch: not equal to the plain "
-                f"version bit for bit (max abs err {max_err([got], [want])})")
+                f"version bit for bit (max abs err {fwd_err})")
         if not bool((got[anc < 0] == 0).all()):
             raise AssertionError("anchored encode: masked anchors not zeroed")
         del got, want
@@ -1463,7 +1476,7 @@ def time_anchored_on_batch(wl, batch, noise) -> tuple:
     bound = n_bytes / HBM_BYTES_PER_S * 1e3
     log(f"[parity] hash_anchored_fwd on a train batch (P={p}, {n_valid} "
         f"valid, L={n_levels}, C={c}, local={local}): equal to the plain "
-        f"version; kernel {fwd_ms:.4f} ms ({fwd_typed_ms:.4f} ms given the "
+        f"version (max abs err {fwd_err}); kernel {fwd_ms:.4f} ms ({fwd_typed_ms:.4f} ms given the "
         f"kernel's input types), plain {fwd_plain_ms:.4f} ms, bound "
         f"{bound:.4f} ms ({n_bytes / 1e6:.1f} MB)")
 
@@ -1493,7 +1506,7 @@ def time_anchored_on_batch(wl, batch, noise) -> tuple:
         f" vector reductions): max abs err {err:.3g} (largest entry "
         f"{largest:.3g}); kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
         f"index_add_ {library_ms:.4f} ms, bound {bound:.4f} ms")
-    fwd = {"max_abs_err": 0.0, "ms": fwd_ms, "plain_ms": fwd_plain_ms,
+    fwd = {"max_abs_err": fwd_err, "ms": fwd_ms, "plain_ms": fwd_plain_ms,
            "bound_ms": bound, "bound_by": "bytes", "library_ms": None,
            "kernel_typed_ms": fwd_typed_ms}
     bwd = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,

@@ -212,7 +212,9 @@ class GFNeRFField(nn.Module):
         """The stacked block tables in bf16, the type the routed encode
         reads, copied anew only after ``block_feats`` has changed (its
         version counter counts every in-place update, the train step's
-        included): a render copies them once, not once per chunk."""
+        included): a render copies them once, not once per chunk.  An
+        assignment to ``block_feats.data`` is not counted: update the
+        tables in place (``copy_``), as the train step does."""
         t = self.block_feats
         key = (t._version, t.data_ptr(), t.device)
         if self._block_tables_bf16 is None \
