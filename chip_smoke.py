@@ -12,7 +12,9 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
                 at ragged and edge cases (the composite backward where
                 transmittance underflows mid-ray; the hash backward's
                 padding columns and masked anchors; dense levels in a small
-                table; the routed encode's masked and out-of-range blocks);
+                table; the routed encode's masked and out-of-range blocks;
+                the anchored table gradient on runs of equal cells with
+                masked anchors inside and two volumes sharing cells);
                 the composites timed against their plain versions with CUDA
                 events (median).
   4. workload — the bench's quality workload: 48 ring cameras and their
@@ -35,12 +37,13 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
                 state with the kernels against the plain autograd pairs
                 (no kernel may launch in it); on a train batch's points,
                 the hash encode timed against its plain version and level
-                by level, and the hash backward against its plain version
-                and index_add_, at 1, 2, 4 and 8 levels per launch, then
-                level by level (its vector reductions per level, counted
-                by the kernel and held against the same runs reckoned on
-                the host, and a launch per level timed); the host syncs of
-                one encode forward and backward.
+                by level, and added to a base (bit for bit; timed beside
+                the encode and a separate add); the hash backward against
+                its plain version and index_add_, at 1, 2, 4 and 8 levels
+                per launch, then level by level (its vector reductions per
+                level, counted by the kernel and held against the same
+                runs reckoned on the host, and a launch per level timed);
+                the host syncs of one encode forward and backward.
   7. focal    — with the counters reset per block: 10 block-stage steps
                 (residual mode) on block 0, then 10 on block 1 from a new
                 optimizer state; launches per step (two encodes, one table
@@ -48,16 +51,20 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
                 parameters and the other block bit-unchanged, the active
                 table changed; a fixed batch's loss lower after each
                 block's steps; one step, kernels against the plain pairs
-                (loss and the active table's gradient).
+                (loss and the active table's gradient); no addition in
+                the encode span (the block's encode adds itself to the
+                global one as it writes).
   8. focal    — with the counters reset: the 4 views as one mixed chunk
      render     (view i in block i mod 2) and one 1920x1080 frame with a
                 block per ray, through render_chunk(..., stage_is_block=
                 True) with the trained tables; the composite, the encode
                 and the routed encode once per chunk; the mixed chunk's
                 rows against one-block renders; a routed chunk against the
-                plain path; the routed encode timed on a frame chunk
-                against its plain version, beside the stack's bf16 copy and
-                the residual add.
+                plain path, and no addition in its encode span; the routed
+                encode on a frame chunk against its plain version, alone
+                and added to a base (bit for bit, in place and not), timed
+                in place on a base beside the encode followed by a
+                separate add, the stack's bf16 copy and the add alone.
   9. parity   — the bench's parity workload (anchored layout, 16 levels x
                 2 channels of 2^19 entries, 192 slots, fineness 4) built
                 anew; with the counters reset, 20 init-stage steps: the
@@ -65,7 +72,9 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
                 per step, the packed kernels never; loss falls; one step
                 against the plain pairs; both anchored kernels timed on a
                 train batch against their plain versions, the table
-                gradient also against index_add_.
+                gradient also against index_add_, with its reductions per
+                level (held against the host's reckoning) and its time at
+                1, 2, 4, 8 and 16 levels per launch.
 Before the last line come a JSON object with each kernel's launches, error,
 times and bound, and the card's name and power limit; the last line is
 {"ok": true, "device": {...}}.
@@ -402,12 +411,41 @@ def check_hash_routed() -> float:
     return max(errs)
 
 
+def anchored_run_inputs(n_volumes, bias, n_rays=3000, n_samples=97, seed=5):
+    """(points, anchors, bias) that H5's merging of runs makes risky:
+    ``n_rays`` rays of ``n_samples`` points 2e-4 apart in t order (a fifth
+    of a cell at scale 2^10, so runs of equal cells at every level, which
+    cross the 32-point warps: 97 is odd), one anchor per ray; anchors < 0
+    inside the runs (single points, a stretch, the two points around a
+    32-point boundary); volumes 0 and 1 given equal biases, and every
+    fourth ray alternating between them from point to point: equal cells
+    under other primes, which must not merge."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    d = rng.standard_normal((n_rays, 1, 3))
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    t = np.arange(n_samples)[None, :, None] * 2e-4
+    pts = (rng.uniform(0.3, 0.7, (n_rays, 1, 3)) + t * d).reshape(-1, 3)
+    anc = np.repeat(rng.integers(0, n_volumes, n_rays), n_samples).reshape(
+        n_rays, n_samples)
+    anc[::4] = np.arange(n_samples) % 2
+    for i in (5, 21, 22, 23, 24, 25, 31, 32, 64, 65, 90):
+        anc[1::2, i] = -1
+    bias = bias.copy()
+    bias[:, 1] = bias[:, 0]
+    return pts.astype(np.float32), anc.reshape(-1).astype(np.int32), bias
+
+
 def check_hash_anchored() -> tuple:
     """H4 against its plain version (bit for bit) and H5 against its plain
     version (H2's tolerance: the same f32 terms in another order), with
     masked anchors: L = 16, C = 2, 2^19 entries a level at 2^20 points; L =
-    8, C = 4, 2^16 entries; L = 5, C = 2 at 1000 points.  Returns (H4's,
-    H5's max error)."""
+    8, C = 4, 2^16 entries; L = 5, C = 2 at 1000 points; and, at both
+    channel counts, on runs of equal cells with masked anchors inside and
+    two volumes sharing cells (anchored_run_inputs).  H5's reductions per
+    level, counted by the kernel, must equal the runs reckoned on the host
+    (hash_bwd_reductions).  Returns (H4's, H5's max error)."""
     import numpy as np
     import torch
 
@@ -415,15 +453,21 @@ def check_hash_anchored() -> tuple:
 
     fwd_errs, bwd_errs = [], []
     for p, c, n_levels, log2 in ((1 << 20, 2, 16, 19), (1 << 18, 4, 8, 16),
-                                 (1000, 2, 5, 12)):
-        seed = p + c + n_levels
+                                 (1000, 2, 5, 12), ("runs", 2, 16, 19),
+                                 ("runs", 4, 8, 16)):
+        runs = p == "runs"
+        seed = c + n_levels + (0 if runs else p)
         n_volumes = 16
         _, prim, bias = he.init_hash_params(seed, log2, n_volumes, n_levels,
                                             c)
         rng = np.random.default_rng(seed)
-        pts = rng.uniform(0.17, 0.83, (p, 3)).astype(np.float32)
-        anc = rng.integers(0, n_volumes, p).astype(np.int32)
-        anc[rng.random(p) < 0.05] = -1
+        if runs:
+            pts, anc, bias = anchored_run_inputs(n_volumes, bias)
+            p = len(pts)
+        else:
+            pts = rng.uniform(0.17, 0.83, (p, 3)).astype(np.float32)
+            anc = rng.integers(0, n_volumes, p).astype(np.int32)
+            anc[rng.random(p) < 0.05] = -1
         addr = tuple(torch.as_tensor(x, device="cuda") for x in
                      (prim.astype(np.int64), bias, pts, anc))
         gen = torch.Generator(device="cuda").manual_seed(seed)
@@ -441,16 +485,29 @@ def check_hash_anchored() -> tuple:
                                  "zeroed")
         g = torch.randn(got.shape, generator=gen, device="cuda")
         args = (g, *addr, 1 << log2, c)
-        got = he._hash_backward_cuda(*args)
+        ops = torch.zeros(n_levels, dtype=torch.int64, device="cuda")
+        got = he._hash_backward_cuda(*args, red_ops=ops)
         want = he.hash_backward_reference(*args)
+        reckoned = he.hash_bwd_reductions(*addr)
         torch.cuda.synchronize()
         assert_close([got], [want], f"hash_anchored_bwd P={p} C={c}",
                      atol_rel=H2_ATOL_REL)
+        if ops.tolist() != reckoned.tolist():
+            raise AssertionError(
+                f"hash_anchored_bwd P={p} C={c}: reductions per level "
+                f"{ops.tolist()}, runs reckoned on the host "
+                f"{reckoned.tolist()}")
+        every = 8 * n_levels * int((addr[3] >= 0).sum())
+        if runs and not int(ops.sum()) < every // 2:
+            raise AssertionError("hash_anchored_bwd: the run inputs did not "
+                                 "merge")
         bwd_errs.append(max_err([got], [want]))
-        log(f"[kernels] hash_anchored P={p} L={n_levels} C={c} "
-            f"local=2^{log2}: forward equal to the plain version; table "
-            f"gradient max abs err {bwd_errs[-1]:.3g} (largest entry "
-            f"{float(want.abs().max()):.3g})")
+        log(f"[kernels] hash_anchored P={p}{' (runs)' if runs else ''} "
+            f"L={n_levels} C={c} local=2^{log2}: forward equal to the plain "
+            f"version; table gradient max abs err {bwd_errs[-1]:.3g} "
+            f"(largest entry {float(want.abs().max()):.3g}), "
+            f"{int(ops.sum())} reductions for {every} corners (host "
+            f"reckoning agrees)")
         del got, want, g, args, table
     torch.cuda.empty_cache()
     return max(fwd_errs), max(bwd_errs)
@@ -548,7 +605,7 @@ def reset_launch_counts() -> None:
     composite.launches = composite.bwd_launches = 0
     packed.launches = packed.bwd_launches = packed.bwd_calls = 0
     routed.launches = 0
-    anchored.launches = anchored.bwd_launches = 0
+    anchored.launches = anchored.bwd_launches = anchored.bwd_calls = 0
 
 
 def check_launches(what: str, launches: dict, expected: dict) -> None:
@@ -839,28 +896,25 @@ def hash_bwd_levels(args) -> list:
     return per_level
 
 
-def hash_bwd_groupings(args, want) -> dict:
-    """H2 on the given inputs, in the kernel's types, with each launch
-    covering 1, 2, 4 and 8 levels (the kernel's own choice is 8 / C): per
+def table_grad_groupings(name, backward, wrapper, args, want, sizes) -> dict:
+    """A table gradient (H2 or H5: ``backward``, counted on ``wrapper``) on
+    the given inputs, in the kernel's types, with each launch covering each
+    of ``sizes`` levels (the kernels' own choice is 8 / C): per
     levels-per-launch, the launches of one call and the time of the call;
     each result held against ``want``."""
     import torch
 
-    from gfnerf_tpu_torch.fields.packed_hash import (
-        _packed_hash_backward_cuda, packed_hash_encode)
-
     args = kernel_typed(args)
     out = {}
-    for n in (1, 2, 4, 8):
-        before = packed_hash_encode.bwd_launches
-        got = _packed_hash_backward_cuda(*args, levels_per_launch=n)
-        launches = packed_hash_encode.bwd_launches - before
+    for n in sizes:
+        before = wrapper.bwd_launches
+        got = backward(*args, levels_per_launch=n)
+        launches = wrapper.bwd_launches - before
         torch.cuda.synchronize()
-        assert_close([got], [want], f"packed_hash_bwd at {n} levels per "
-                     f"launch", atol_rel=H2_ATOL_REL)
+        assert_close([got], [want], f"{name} at {n} levels per launch",
+                     atol_rel=H2_ATOL_REL)
         del got
-        ms = time_ms(lambda: _packed_hash_backward_cuda(
-            *args, levels_per_launch=n), n=11)
+        ms = time_ms(lambda: backward(*args, levels_per_launch=n), n=11)
         out[n] = {"launches": launches, "ms": ms}
     return out
 
@@ -879,6 +933,78 @@ def host_syncs(fn) -> dict:
         fn()
     return {e.key: e.count for e in prof.key_averages()
             if e.key in HOST_WAITS}
+
+
+def encode_span_adds(fn) -> list:
+    """The names of the PyTorch additions (aten::add, aten::add_) that fn()
+    runs inside the model's ``gfnerf/encode`` spans, from a torch.profiler
+    trace of the host: the residual sum of two encodes is the encode
+    kernel's own, so there must be none."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    events = list(prof.events())
+    spans = [e.time_range for e in events if e.name == "gfnerf/encode"]
+    if not spans:
+        raise AssertionError("no gfnerf/encode span in the trace")
+    return [e.name for e in events if e.name in ("aten::add", "aten::add_")
+            and any(sp.start <= e.time_range.start
+                    and e.time_range.end <= sp.end for sp in spans)]
+
+
+def check_fused_residual(what, fn) -> None:
+    """Fail if fn(), a call of the model at the block stage, adds its two
+    encodes in a pass of its own."""
+    adds = encode_span_adds(fn)
+    log(f"[{what}] additions inside the encode span: {adds or 'none'} (the "
+        f"residual sum is the encode kernel's write-back)")
+    if adds:
+        raise AssertionError(f"{what}: a separate add in the encode span")
+
+
+def peak_extra_bytes(fn) -> int:
+    """The device memory fn() holds at its peak beyond what was allocated
+    before it."""
+    import torch
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    out = fn()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    del out
+    return peak - before
+
+
+def check_encode_with_base(what, encode, plain, base) -> None:
+    """An encode given a base against ``base + plain()``, bit for bit: out
+    of place (the base unchanged) and in place (the result is the base's
+    own storage).  ``encode(base, in_place)`` runs the kernel."""
+    import torch
+
+    want = base + plain()
+    keep = base.clone()
+    got = encode(keep, False)
+    torch.cuda.synchronize()
+    if not torch.equal(keep, base):
+        raise AssertionError(f"{what}: the base changed out of place")
+    err = max_err([got], [want])
+    if not torch.equal(got, want):
+        raise AssertionError(f"{what} with a base: max abs err {err}, not "
+                             f"equal to base + plain bit for bit")
+    del got
+    got = encode(keep, True)
+    torch.cuda.synchronize()
+    if got.data_ptr() != keep.data_ptr() or not torch.equal(got, want):
+        raise AssertionError(f"{what} with a base, in place: not base + "
+                             f"plain in the base's storage")
+    log(f"[kernels] {what} with a base: equal to base + plain bit for bit "
+        f"(max abs err {err}), out of place and in place")
 
 
 def time_hash_on_batch(wl, batch, noise) -> tuple:
@@ -922,9 +1048,26 @@ def time_hash_on_batch(wl, batch, noise) -> tuple:
         fwd_ms = time_ms(lambda: ph._packed_hash_encode_cuda(*fargs), n=21)
         fwd_plain_ms = time_ms(lambda: ph.packed_hash_encode_raw(*fargs), n=3)
         fwd_kernel_ms, fwd_levels = hash_fwd_levels(fargs)
-        del got
+        # the focal step's second encode: added to the first (here: got)
+        check_encode_with_base(
+            "packed_hash_fwd on a train batch",
+            lambda b, in_place: ph.packed_hash_encode(*fargs, b, in_place),
+            lambda: ph.packed_hash_encode_raw(*fargs), got)
+        typed = kernel_typed(fargs, table=fargs[0])
+        sum_ms = time_ms(lambda: got + ph.packed_hash_encode(*typed), n=21)
+        based_ms = time_ms(lambda: ph.packed_hash_encode(*typed, got), n=21)
+        buf = got.clone()
+        inplace_ms = time_ms(lambda: ph.packed_hash_encode(*typed, buf, True),
+                             n=21)
+        del got, buf
     fwd_bound = hash_fwd_bytes(p, n_levels, c, field.global_feat.numel()) \
         / HBM_BYTES_PER_S * 1e3
+    based_bound = fwd_bound + 4 * p * n_levels * c / HBM_BYTES_PER_S * 1e3
+    log(f"[train] packed_hash_fwd on a train batch, added to a base (P, "
+        f"{n_levels * c}) f32, in the kernel's input types: encode then a "
+        f"separate add {sum_ms:.4f} ms; the kernel given the base "
+        f"{based_ms:.4f} ms, in place {inplace_ms:.4f} ms; bound of either "
+        f"{based_bound:.4f} ms")
     log(f"[train] packed_hash_fwd on a train batch (P={p}, {n_valid} valid): "
         f"max abs err {fwd_err:.3g}; kernel {fwd_ms:.4f} ms, plain "
         f"{fwd_plain_ms:.4f} ms, bound {fwd_bound:.4f} ms; given the "
@@ -942,7 +1085,9 @@ def time_hash_on_batch(wl, batch, noise) -> tuple:
     assert_close([got], [want], "packed_hash_bwd on a train batch",
                  atol_rel=H2_ATOL_REL)
     err = max_err([got], [want])
-    groupings = hash_bwd_groupings(args, want)
+    groupings = table_grad_groupings(
+        "packed_hash_bwd", ph._packed_hash_backward_cuda,
+        ph.packed_hash_encode, args, want, (1, 2, 4, 8))
     del want
     ms = time_ms(lambda: ph._packed_hash_backward_cuda(*args), n=11)
     del got
@@ -992,7 +1137,11 @@ def time_hash_on_batch(wl, batch, noise) -> tuple:
            "train_batch_plain_ms": fwd_plain_ms,
            "train_batch_bound_ms": fwd_bound,
            "train_batch_kernel_typed_ms": fwd_kernel_ms,
-           "train_batch_level_ms": fwd_levels}
+           "train_batch_level_ms": fwd_levels,
+           "train_batch_then_add_ms": sum_ms,
+           "train_batch_with_base_ms": based_ms,
+           "train_batch_with_base_in_place_ms": inplace_ms,
+           "train_batch_with_base_bound_ms": based_bound}
     bwd = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
            "bound_ms": bound, "bound_by": "bytes", "library_ms": library_ms,
            "per_level": levels, "by_levels_per_launch": groupings,
@@ -1000,8 +1149,9 @@ def time_hash_on_batch(wl, batch, noise) -> tuple:
     return fwd, bwd
 
 
-def h2_launches_per_call(wl) -> int:
-    """Launches of one H2 call: one per group of 8 / C levels."""
+def table_grad_launches(wl) -> int:
+    """Launches of one table-gradient call (H2, or H5 in the anchored
+    layout): one per group of 8 / C levels."""
     fcfg = wl["fcfg"]
     return -(-fcfg.num_levels // max(1, 8 // fcfg.features_per_level))
 
@@ -1135,7 +1285,7 @@ def phase_train(wl):
         f" = {RAYS / dt:.1f} rays/s; peak memory {peak / 2**30:.2f} GiB")
     # H2's C entry point launches once per group of 8 / C levels
     # (csrc/packed_hash_bwd.cu), each after a zero-fill of its group
-    h2_groups = h2_launches_per_call(wl)
+    h2_groups = table_grad_launches(wl)
     check_launches("train", launches, {
         "composite_fwd": TRAIN_STEPS, "composite_bwd": TRAIN_STEPS,
         "packed_hash_fwd": TRAIN_STEPS,
@@ -1215,8 +1365,10 @@ def phase_focal(wl):
                field_param_groups(field).items() if name != "block"
                for p in ps]
     compare_step(wl, "focal", probe, noise, perms, focal_block=1)
+    check_fused_residual("focal", lambda: step_from_copy(
+        wl, probe, noise, perms, focal_block=1))
 
-    h2_groups = h2_launches_per_call(wl)
+    h2_groups = table_grad_launches(wl)
     total, all_times = {}, []
     for block in range(2):
         if block:   # the optimizer state is made anew at a split switch
@@ -1292,6 +1444,7 @@ def phase_focal_render(wl):
     fblk = torch.zeros(n_frame, dtype=torch.int32, device=dev)
     n_chunks = -(-vo.shape[0] // CHUNK) + -(-n_frame // CHUNK)
     torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
 
     # ---- the routed render path, counted ----
     reset_launch_counts()
@@ -1304,10 +1457,12 @@ def phase_focal_render(wl):
     torch.cuda.synchronize()
     t_frame = time.perf_counter() - t0
     launches = launch_counts()
+    peak = torch.cuda.max_memory_allocated()
     log(f"[focal render] {N_VIEWS} views as one mixed chunk of "
         f"{vo.shape[0]} rays in {t_mixed:.3f}s; routed frame "
         f"{FRAME_WH[0]}x{FRAME_WH[1]} in {t_frame:.4f} s/frame, "
-        f"{n_frame / t_frame:.1f} rays/s")
+        f"{n_frame / t_frame:.1f} rays/s; peak memory "
+        f"{peak / 2**30:.2f} GiB")
     check_launches("focal render", launches, {
         "composite_fwd": n_chunks, "packed_hash_fwd": n_chunks,
         "packed_hash_routed": n_chunks})
@@ -1337,6 +1492,8 @@ def phase_focal_render(wl):
     with plain_wrappers():
         want = render_fn(field, oct_dev, o, d, 0, blk, True)
     torch.cuda.synchronize()
+    check_fused_residual("focal render", lambda: render_fn(
+        field, oct_dev, o, d, 0, blk, True))
     errs = {k: float((got[k] - want[k]).abs().max()) for k in got}
     log(f"[focal render] {COMPARE_RAYS}-ray routed chunk (mixed blocks, "
         f"some -1), kernels vs plain versions: max abs err {errs} (atol "
@@ -1345,7 +1502,7 @@ def phase_focal_render(wl):
         if not e <= SLICE_ATOL:
             raise AssertionError(f"routed chunk {k}: kernels vs plain {e}")
     stats = {"s_per_frame": t_frame, "rays_per_s": n_frame / t_frame,
-             "mixed_chunk_s": t_mixed}
+             "mixed_chunk_s": t_mixed, "peak_bytes": peak}
     return launches, stats, time_routed_on_chunk(wl, fo, fd)
 
 
@@ -1353,15 +1510,19 @@ def time_routed_on_chunk(wl, fo, fd) -> dict:
     """H3, kernel and plain version, on the inputs one frame chunk gives
     it (32768 rays x 384 samples), with the trained tables of both blocks,
     a block per ray (ray i in block i mod 2, every 17th ray -1): equal bit
-    for bit.  Timed given the bf16 stack the field keeps (the render's
-    form; its bound reads that stack once, 2 bytes an element) and given
-    the f32 stack (a bf16 copy per call; its bound reads 4 bytes an
-    element); beside them the copy alone, at this stack and at the default
-    10 blocks, and the residual add ``global + routed``."""
+    for bit, alone and given the global encode as base (the render's form:
+    in place).  Timed given the bf16 stack the field keeps: in place on a
+    base (its bound reads the base as well), out of place on a base, and
+    alone followed by the separate add ``global + routed`` that the base
+    replaces, in turns; alone (its bound reads that stack once, 2 bytes
+    an element) and given the f32 stack (a bf16 copy per call; its bound
+    reads 4 bytes an element); beside them the copy alone, at this stack
+    and at the default 10 blocks, the add alone, and the memory the two
+    encodes hold at their peak in either form."""
     import torch
 
     from gfnerf_tpu_torch.fields.packed_hash import (
-        pack_for_channels, packed_hash_encode_routed,
+        pack_for_channels, packed_hash_encode, packed_hash_encode_routed,
         packed_hash_encode_routed_raw)
     from gfnerf_tpu_torch.render_bench import CHUNK
 
@@ -1399,6 +1560,39 @@ def time_routed_on_chunk(wl, fo, fd) -> dict:
         del want
         ms = time_ms(lambda: packed_hash_encode_routed(bf16, *tail))
         f32_ms = time_ms(lambda: packed_hash_encode_routed(stack, *tail))
+        gargs = (field.global_feat, field.global_prim, field.global_bias,
+                 pts, anc, c, pack_for_channels(c))
+        base = packed_hash_encode(*gargs)
+        check_encode_with_base(
+            "packed_hash_routed on a frame chunk",
+            lambda b, in_place: packed_hash_encode_routed(bf16, *tail, b,
+                                                          in_place),
+            lambda: packed_hash_encode_routed_raw(stack, *tail), base)
+        # separate, fused, fused, separate: the smaller median of each
+        buf = base.clone()
+        forms = {
+            "then_add": lambda: base + packed_hash_encode_routed(bf16, *tail),
+            "in_place": lambda: packed_hash_encode_routed(bf16, *tail, buf,
+                                                          True),
+            "out_of_place": lambda: packed_hash_encode_routed(bf16, *tail,
+                                                              base)}
+        turns = {name: [] for name in forms}
+        for name in ("then_add", "in_place", "out_of_place", "in_place",
+                     "then_add"):
+            turns[name].append(time_ms(forms[name]))
+        then_add_ms, inplace_ms, based_ms = (
+            min(turns[name]) for name in ("then_add", "in_place",
+                                          "out_of_place"))
+        based_plain_ms = time_ms(
+            lambda: packed_hash_encode_routed_raw(stack, *tail, base), n=3)
+        del buf, base
+        torch.cuda.empty_cache()
+        separate_peak = peak_extra_bytes(
+            lambda: packed_hash_encode(*gargs)
+            + packed_hash_encode_routed(bf16, *tail))
+        fused_peak = peak_extra_bytes(
+            lambda: packed_hash_encode_routed(
+                bf16, *tail, packed_hash_encode(*gargs), True))
         copy_ms = time_ms(lambda: stack.to(torch.bfloat16))
         ten = stack[:1].expand(10, *stack.shape[1:]).contiguous()
         copy10_ms = time_ms(lambda: ten.to(torch.bfloat16))
@@ -1417,20 +1611,38 @@ def time_routed_on_chunk(wl, fo, fd) -> dict:
     bound = n_bytes / HBM_BYTES_PER_S * 1e3
     f32_bytes = point_bytes + stack.element_size() * stack.numel()
     f32_bound = f32_bytes / HBM_BYTES_PER_S * 1e3
+    # with a base: its (P, L * C) f32 rows read once as well
+    based_bytes = n_bytes + 4 * p * n_levels * c
+    based_bound = based_bytes / HBM_BYTES_PER_S * 1e3
+    log(f"[focal render] packed_hash_routed on a frame chunk, added to the "
+        f"global encode: in place on the base {inplace_ms:.4f} ms (the "
+        f"render's form), out of place {based_ms:.4f} ms, alone and then a "
+        f"separate add {then_add_ms:.4f} ms; bound of each {based_bound:.4f}"
+        f" ms ({based_bytes / 1e6:.1f} MB); plain with a base "
+        f"{based_plain_ms:.4f} ms; memory held at the peak of both encodes: "
+        f"separate {separate_peak / 2**20:.1f} MiB, fused in place "
+        f"{fused_peak / 2**20:.1f} MiB")
     log(f"[focal render] packed_hash_routed on a frame chunk (P={p}, "
         f"{int((~masked).sum())} unmasked, B={n_blocks}, largest output "
         f"{largest:.3g}): equal to the plain version (max abs err {err}); "
-        f"kernel {ms:.4f} ms given the bf16 stack, bound {bound:.4f} ms "
+        f"kernel alone {ms:.4f} ms given the bf16 stack, bound {bound:.4f} ms "
         f"({n_bytes / 1e6:.1f} MB); {f32_ms:.4f} ms given the f32 stack, "
         f"bound {f32_bound:.4f} ms ({f32_bytes / 1e6:.1f} MB); the bf16 copy "
         f"alone {copy_ms:.4f} ms, of a 10-block stack {copy10_ms:.4f} ms; "
         f"plain {plain_ms:.4f} ms; the residual add of two (P, "
-        f"{n_levels * c}) f32 encodes {add_ms:.4f} ms")
-    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound, "bound_by": "bytes", "library_ms": None,
+        f"{n_levels * c}) f32 encodes alone {add_ms:.4f} ms")
+    # the kernels line reports the render's form: in place on a base
+    return {"max_abs_err": err, "ms": inplace_ms, "plain_ms": based_plain_ms,
+            "bound_ms": based_bound, "bound_by": "bytes", "library_ms": None,
+            "with_base_out_of_place_ms": based_ms,
+            "then_separate_add_ms": then_add_ms,
+            "no_base_ms": ms, "no_base_plain_ms": plain_ms,
+            "no_base_bound_ms": bound,
             "f32_stack_ms": f32_ms, "f32_stack_bound_ms": f32_bound,
             "bf16_copy_ms": copy_ms, "bf16_copy_10_blocks_ms": copy10_ms,
-            "residual_add_ms": add_ms}
+            "residual_add_ms": add_ms,
+            "encodes_peak_separate_bytes": separate_peak,
+            "encodes_peak_fused_bytes": fused_peak}
 
 
 def time_anchored_on_batch(wl, batch, noise) -> tuple:
@@ -1438,7 +1650,9 @@ def time_anchored_on_batch(wl, batch, noise) -> tuple:
     x 192 samples, L = 16, C = 2, 2^19 entries a level): H4 against its
     plain version (bit for bit); H5 against its plain version and
     index_add_ of the same precomputed (rows, payload) terms, with a random
-    upstream gradient.  Returns (H4's, H5's report)."""
+    upstream gradient, its vector reductions per level (counted by the
+    kernel, held against the runs reckoned on the host), and its time at
+    1, 2, 4, 8 and 16 levels per launch.  Returns (H4's, H5's report)."""
     import torch
 
     from gfnerf_tpu_torch.cameras.cameras import generate_rays_multi
@@ -1483,14 +1697,25 @@ def time_anchored_on_batch(wl, batch, noise) -> tuple:
     gen = torch.Generator(device="cuda").manual_seed(6)
     g = torch.randn((p, n_levels * c), generator=gen, device="cuda")
     args = (g, *addr, local, c)
-    got = he._hash_backward_cuda(*args)
+    ops = torch.zeros(n_levels, dtype=torch.int64, device="cuda")
+    got = he._hash_backward_cuda(*args, red_ops=ops)
     want = he.hash_backward_reference(*args)
+    reckoned = he.hash_bwd_reductions(*addr)
     torch.cuda.synchronize()
     assert_close([got], [want], "hash_anchored_bwd on a train batch",
                  atol_rel=H2_ATOL_REL)
+    if ops.tolist() != reckoned.tolist():
+        raise AssertionError(f"hash_anchored_bwd: reductions per level "
+                             f"{ops.tolist()}, runs reckoned on the host "
+                             f"{reckoned.tolist()}")
+    reductions = ops.tolist()
     err = max_err([got], [want])
     largest = float(want.abs().max())
-    del got, want
+    del got, reckoned
+    groupings = table_grad_groupings(
+        "hash_anchored_bwd", he._hash_backward_cuda, he.hash_encode, args,
+        want, (1, 2, 4, 8, 16))
+    del want
     ms = time_ms(lambda: he._hash_backward_cuda(*args), n=11)
     plain_ms = time_ms(lambda: he.hash_backward_reference(*args), n=3)
     terms = list(he.hash_scatter_terms(*args))
@@ -1502,15 +1727,23 @@ def time_anchored_on_batch(wl, batch, noise) -> tuple:
         n=5)
     del rows, payload
     torch.cuda.empty_cache()
-    log(f"[parity] hash_anchored_bwd on a train batch ({8 * n_valid * n_levels}"
-        f" vector reductions): max abs err {err:.3g} (largest entry "
-        f"{largest:.3g}); kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-        f"index_add_ {library_ms:.4f} ms, bound {bound:.4f} ms")
+    log(f"[parity] hash_anchored_bwd on a train batch: max abs err {err:.3g} "
+        f"(largest entry {largest:.3g}); kernel {ms:.4f} ms, plain "
+        f"{plain_ms:.4f} ms, index_add_ {library_ms:.4f} ms, bound "
+        f"{bound:.4f} ms")
+    log(f"[parity] hash_anchored_bwd: {sum(reductions)} vector reductions "
+        f"for {8 * n_valid * n_levels} corners of valid (point, level) "
+        f"pairs; per level {reductions} (host reckoning agrees)")
+    by_group = "; ".join(f"{n}: {x['launches']} launches, {x['ms']:.4f} ms"
+                         for n, x in groupings.items())
+    log(f"[parity] hash_anchored_bwd by levels per launch: {by_group}")
     fwd = {"max_abs_err": fwd_err, "ms": fwd_ms, "plain_ms": fwd_plain_ms,
            "bound_ms": bound, "bound_by": "bytes", "library_ms": None,
            "kernel_typed_ms": fwd_typed_ms}
     bwd = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-           "bound_ms": bound, "bound_by": "bytes", "library_ms": library_ms}
+           "bound_ms": bound, "bound_by": "bytes", "library_ms": library_ms,
+           "reductions_per_level": reductions,
+           "by_levels_per_launch": groupings}
     return fwd, bwd
 
 
@@ -1525,6 +1758,7 @@ def phase_parity():
     import numpy as np
     import torch
 
+    from gfnerf_tpu_torch.fields.hash_encoding import hash_encode
     from gfnerf_tpu_torch.train_bench import (RAYS, build_train_workload,
                                               make_batch, run_steps)
 
@@ -1548,15 +1782,23 @@ def phase_parity():
     times, more = run_steps(wl, batches[1:TRAIN_STEPS], gen)
     peak = torch.cuda.max_memory_allocated()
     launches = launch_counts()
+    bwd_calls = hash_encode.bwd_calls
     losses += more
     dt = float(np.mean(times))
     log(f"[parity] warm-up step {warm[0]:.3f}s; {len(times)} steps of {RAYS} "
         f"rays: {dt:.4f} s/step (mean) = {RAYS / dt:.1f} rays/s; peak memory "
         f"{peak / 2**30:.2f} GiB")
+    # H5's C entry point launches once per group of 8 / C levels
+    # (csrc/hash_anchored_bwd.cu), each after a zero-fill of its group
+    h5_groups = table_grad_launches(wl)
     check_launches("parity", launches, {
-        name: TRAIN_STEPS for name in ("composite_fwd", "composite_bwd",
-                                       "hash_anchored_fwd",
-                                       "hash_anchored_bwd")})
+        "composite_fwd": TRAIN_STEPS, "composite_bwd": TRAIN_STEPS,
+        "hash_anchored_fwd": TRAIN_STEPS,
+        "hash_anchored_bwd": TRAIN_STEPS * h5_groups})
+    log(f"[parity] each kernel once per step, H5 in {bwd_calls} calls of "
+        f"{h5_groups} launches")
+    if bwd_calls != TRAIN_STEPS:
+        raise AssertionError(f"H5: {bwd_calls} calls in {TRAIN_STEPS} steps")
     log(f"[parity] losses {[round(x, 5) for x in losses]}")
     first, last = losses[0], float(np.mean(losses[-5:]))
     if not all(np.isfinite(losses)) or not last < first:
@@ -1570,7 +1812,8 @@ def phase_parity():
     noise, perms = step_draws(wl, gen)
     compare_step(wl, "parity", batch, noise, perms)
     stats = {"s_per_step": dt, "rays_per_s": RAYS / dt, "peak_bytes": peak,
-             "first_loss": first, "last_loss": last}
+             "first_loss": first, "last_loss": last,
+             "hash_anchored_bwd_calls": bwd_calls}
     return launches, stats, time_anchored_on_batch(wl, batch, noise)
 
 

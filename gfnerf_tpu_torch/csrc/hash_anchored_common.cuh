@@ -24,6 +24,7 @@
 namespace gfnerf {
 
 struct AnchoredCell {
+  unsigned x0[3];    // per axis, the cell's lower corner (uint32 bits)
   unsigned h[3][2];  // per axis, the two corners' coordinate times prime
   float w[3][2];     // per axis, the two corners' weights (1 - f, f)
 };
@@ -45,6 +46,7 @@ __device__ __forceinline__ AnchoredCell locate_anchored(
     const float f = pk - cf;
     const unsigned x0 = (unsigned)(int)cf;
     const unsigned u = (unsigned)primes[lv + a];
+    c.x0[a] = x0;
     c.h[a][0] = x0 * u;
     c.h[a][1] = (x0 + 1u) * u;
     c.w[a][0] = 1.f - f;

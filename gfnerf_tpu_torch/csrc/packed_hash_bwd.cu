@@ -33,7 +33,8 @@
 //   Equal keys touch the same addresses, so the merge is exact up to the
 //   order of the f32 sum. A masked lane (anchor < 0) is a run of its own
 //   and adds nothing. The scan runs only as many steps as the warp's
-//   longest run needs: none on the fine levels.
+//   longest run needs: none on the fine levels. The run finding and the
+//   scan are warp_runs.cuh's, shared with the anchored layout's H5.
 // - Vector reductions: each corner's C channels are C*4 contiguous, aligned
 //   bytes, added with one 16-byte reduction (C = 4; two for C = 8, one
 //   8-byte reduction for C = 2) through CUDA's atomicAdd(float4*, float4)
@@ -51,14 +52,13 @@
 
 #include <cuda_runtime.h>
 
-#include <algorithm>
-
 #include "corner_vec.cuh"
 #include "packed_hash_common.cuh"
+#include "warp_runs.cuh"
 
 namespace {
 
-constexpr unsigned kFull = 0xffffffffu;
+constexpr unsigned kFull = gfnerf::kFullWarp;
 // Levels per launch: 8 / C, so that a launch's columns of a point's
 // upstream gradient are 32 bytes, one sector, and its gradient (2 levels x
 // 16 MB at the main path's shape) stays in the 50 MB L2 while its adds
@@ -143,22 +143,8 @@ __global__ void __launch_bounds__(32 * gfnerf::kWarps) packed_hash_bwd_kernel(
     // runs of equal keys among consecutive lanes; a masked lane is its own
     const unsigned long long left = __shfl_up_sync(kFull, key, 1);
     const bool head = !valid || lane == 0 || left != key;
-    const unsigned heads = __ballot_sync(kFull, head);
-    const unsigned later = lane == 31 ? 0u : heads & (kFull << (lane + 1));
-    const int run_end = later ? __ffs(later) - 1 : 32;
-    const int longest = __reduce_max_sync(kFull, run_end - lane);
-    // segmented suffix scan: lane i ends with the sum over [i, run_end)
-    for (int off = 1; off < longest; off <<= 1) {
-      const bool take = lane + off < run_end;
-#pragma unroll
-      for (int o = 0; o < 8; ++o) {
-#pragma unroll
-        for (int ch = 0; ch < C; ++ch) {
-          const float v = __shfl_down_sync(kFull, pay[o][ch], off);
-          if (take) pay[o][ch] += v;
-        }
-      }
-    }
+    // each run's payloads summed into its head (warp_runs.cuh)
+    gfnerf::sum_runs(pay, gfnerf::find_runs(head, lane), lane);
 
     int issued = 0;
     if (valid && head) {
@@ -201,25 +187,14 @@ int launch(const float* g, const int* primes, const float* bias,
         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
   }
-  const size_t level_floats = (size_t)n_rows * width;
-  for (int l0 = 0; l0 < n_levels; l0 += map.group) {
-    const int n_lev = std::min(map.group, n_levels - l0);
-    // zero the group's gradient right before its adds, which then find
-    // the zeroed lines in the L2
-    cudaError_t err = cudaMemsetAsync(grad + l0 * level_floats, 0,
-                                      sizeof(float) * n_lev * level_floats,
-                                      stream);
-    if (err != cudaSuccess) return (int)err;
-    if (map.n_tiles == 0) continue;
-    packed_hash_bwd_kernel<E, C><<<(unsigned)map.n_tiles, 32 * map.warps,
-                                   smem, stream>>>(
-        g, primes, bias, scales, dense_m, points, anchors, grad, red_ops,
-        n_points, n_levels, n_volumes, n_rows, width, map, l0, n_lev);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return (int)err;
-    ++*launches;
-  }
-  return (int)cudaSuccess;
+  return gfnerf::launch_level_groups(
+      map, n_levels, grad, (size_t)n_rows * width, stream, launches,
+      [&](int l0, int n_lev) {
+        packed_hash_bwd_kernel<E, C><<<(unsigned)map.n_tiles, 32 * map.warps,
+                                       smem, stream>>>(
+            g, primes, bias, scales, dense_m, points, anchors, grad, red_ops,
+            n_points, n_levels, n_volumes, n_rows, width, map, l0, n_lev);
+      });
 }
 
 }  // namespace

@@ -214,6 +214,61 @@ __device__ __forceinline__ void store_rows(float* __restrict__ global,
   }
 }
 
+// As store_rows, with the rows of `base` (laid out as `global`) added:
+// global = base + shared, one rounded f32 add per element.  `global` may be
+// `base` itself: each element is read and then written by one thread, so
+// neither pointer is __restrict__.
+__device__ __forceinline__ void store_rows_added(
+    float* global, const float* base, const float* __restrict__ shared, int n,
+    int cols, long long gstride, int sstride) {
+  if (vec4_rows(global, cols, gstride) &&
+      reinterpret_cast<size_t>(base) % 16 == 0) {
+    const int q = cols / 4;
+    for (int i = threadIdx.x; i < n * q; i += blockDim.x) {
+      const int r = i / q;
+      const int c = 4 * (i - r * q);
+      const float* v = shared + r * sstride + c;
+      const float4 b =
+          __ldcs(reinterpret_cast<const float4*>(base + r * gstride + c));
+      __stcs(reinterpret_cast<float4*>(global + r * gstride + c),
+             make_float4(__fadd_rn(b.x, v[0]), __fadd_rn(b.y, v[1]),
+                         __fadd_rn(b.z, v[2]), __fadd_rn(b.w, v[3])));
+    }
+    return;
+  }
+  for (int i = threadIdx.x; i < n * cols; i += blockDim.x) {
+    const int r = i / cols;
+    const long long at = r * gstride + i - r * cols;
+    __stcs(global + at,
+           __fadd_rn(__ldcs(base + at), shared[r * sstride + i - r * cols]));
+  }
+}
+
+// The launches of a table gradient (H2, H5): one per group of map.group
+// levels, each preceded by a cudaMemsetAsync of its group's gradient
+// (level_floats f32 a level) on the same stream, so that the group's adds
+// land in zeroed lines the L2 still holds.  launch_group(l0, n_lev)
+// launches the kernel over levels [l0, l0 + n_lev); *launches counts the
+// launches made.  Returns the first CUDA error, or cudaSuccess.
+template <class LaunchGroup>
+int launch_level_groups(const TileMap& map, int n_levels, float* grad,
+                        size_t level_floats, cudaStream_t stream,
+                        int* launches, LaunchGroup launch_group) {
+  for (int l0 = 0; l0 < n_levels; l0 += map.group) {
+    const int n_lev = map.group < n_levels - l0 ? map.group : n_levels - l0;
+    cudaError_t err = cudaMemsetAsync(grad + l0 * level_floats, 0,
+                                      sizeof(float) * n_lev * level_floats,
+                                      stream);
+    if (err != cudaSuccess) return (int)err;
+    if (map.n_tiles == 0) continue;
+    launch_group(l0, n_lev);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+    ++*launches;
+  }
+  return (int)cudaSuccess;
+}
+
 // Stage the tile's points (3 floats each) and anchors in shared memory,
 // with evict-first loads; points past the end get anchor -1.
 __device__ __forceinline__ void stage_points(

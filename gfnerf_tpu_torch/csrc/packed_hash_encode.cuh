@@ -5,6 +5,14 @@
 // time whether each point carries a block that picks its table, primes and
 // biases; with ROUTED false the block pointer is never read and the code is
 // H1's alone.
+//
+// Either form takes an optional base (P, L*C) f32, the encode of another
+// table that this one is a residual of: the write-back then reads the
+// tile's rows of the base with the same coalesced 16-byte accesses it
+// stores with and writes base + result, each result rounded to f32 before
+// the one add, so the output equals the separate sum of the two encodes bit
+// for bit.  That spares the sum's own pass (two (P, L*C) reads and one
+// write) and, with the output written over the base, its buffer.
 
 #pragma once
 
@@ -98,7 +106,8 @@ __global__ void __launch_bounds__(32 * kWarps) packed_hash_encode_kernel(
     const float* __restrict__ points,         // (P, 3)
     const int* __restrict__ anchors,          // (P,)
     const int* __restrict__ blocks,           // (P,), ROUTED only
-    float* __restrict__ out,                  // (P, L*C)
+    const float* base,                        // (P, L*C) or null; may be out
+    float* out,                               // (P, L*C)
     long long n_points, int n_blocks, int n_levels, int n_volumes, int n_rows,
     int width, TileMap map) {
   const BlockTile work(map, n_points);
@@ -144,16 +153,22 @@ __global__ void __launch_bounds__(32 * kWarps) packed_hash_encode_kernel(
   }
   __syncthreads();
 
-  // the tile's rows are contiguous: adjacent threads store them
-  store_rows(out + work.p0 * lc, s_out, work.n_tile, lc, lc, os);
+  // the tile's rows are contiguous: adjacent threads store them, added to
+  // the base's where there is one
+  if (base != nullptr)
+    store_rows_added(out + work.p0 * lc, base + work.p0 * lc, s_out,
+                     work.n_tile, lc, lc, os);
+  else
+    store_rows(out + work.p0 * lc, s_out, work.n_tile, lc, lc, os);
 }
 
 template <int E, int C, bool ROUTED>
 int launch_encode(const void* table, const int* primes, const float* bias,
                   const float* scales, const int* dense_m,
                   const float* points, const int* anchors, const int* blocks,
-                  float* out, long long n_points, int n_blocks, int n_levels,
-                  int n_volumes, int n_rows, int width, cudaStream_t stream) {
+                  const float* base, float* out, long long n_points,
+                  int n_blocks, int n_levels, int n_volumes, int n_rows,
+                  int width, cudaStream_t stream) {
   const TileMap map(n_levels, n_levels, kEncodePasses, n_points);
   const size_t smem =
       sizeof(float) * map.points * (n_levels * C + 1 + 3) +
@@ -168,8 +183,8 @@ int launch_encode(const void* table, const int* primes, const float* bias,
   packed_hash_encode_kernel<E, C, ROUTED>
       <<<(unsigned)map.n_tiles, 32 * map.warps, smem, stream>>>(
           static_cast<const __nv_bfloat16*>(table), primes, bias, scales,
-          dense_m, points, anchors, blocks, out, n_points, n_blocks, n_levels,
-          n_volumes, n_rows, width, map);
+          dense_m, points, anchors, blocks, base, out, n_points, n_blocks,
+          n_levels, n_volumes, n_rows, width, map);
   return (int)cudaGetLastError();
 }
 
@@ -180,22 +195,22 @@ template <bool ROUTED>
 int dispatch_encode(const void* table, const int* primes, const float* bias,
                     const float* scales, const int* dense_m,
                     const float* points, const int* anchors,
-                    const int* blocks, float* out, long long n_points,
-                    int n_blocks, int n_levels, int n_volumes, int n_rows,
-                    int width, int n_channels, int lattice_edge,
-                    cudaStream_t s) {
+                    const int* blocks, const float* base, float* out,
+                    long long n_points, int n_blocks, int n_levels,
+                    int n_volumes, int n_rows, int width, int n_channels,
+                    int lattice_edge, cudaStream_t s) {
   if (lattice_edge == 2 && n_channels == 8)
     return launch_encode<2, 8, ROUTED>(
-        table, primes, bias, scales, dense_m, points, anchors, blocks, out,
-        n_points, n_blocks, n_levels, n_volumes, n_rows, width, s);
+        table, primes, bias, scales, dense_m, points, anchors, blocks, base,
+        out, n_points, n_blocks, n_levels, n_volumes, n_rows, width, s);
   if (lattice_edge == 3 && n_channels == 4)
     return launch_encode<3, 4, ROUTED>(
-        table, primes, bias, scales, dense_m, points, anchors, blocks, out,
-        n_points, n_blocks, n_levels, n_volumes, n_rows, width, s);
+        table, primes, bias, scales, dense_m, points, anchors, blocks, base,
+        out, n_points, n_blocks, n_levels, n_volumes, n_rows, width, s);
   if (lattice_edge == 4 && n_channels == 2)
     return launch_encode<4, 2, ROUTED>(
-        table, primes, bias, scales, dense_m, points, anchors, blocks, out,
-        n_points, n_blocks, n_levels, n_volumes, n_rows, width, s);
+        table, primes, bias, scales, dense_m, points, anchors, blocks, base,
+        out, n_points, n_blocks, n_levels, n_volumes, n_rows, width, s);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -34,22 +34,26 @@
 // contraction), as the plain version's separate PyTorch operations round
 // them. The skipped lattice entries have weight exactly 0 there and add
 // exact zeros, so the output equals the plain version's bit for bit, and
-// the MLPs downstream see the same bf16 inputs on either path.
+// the MLPs downstream see the same bf16 inputs on either path. With a base
+// the write-back adds it (packed_hash_encode.cuh): bit-equal to the separate
+// sum, and the bound then counts the base's read as well.
 
 #include <cuda_runtime.h>
 
 #include "packed_hash_encode.cuh"
 
 // The kernel itself is packed_hash_encode.cuh's, shared with the routed
-// encode (H3), here without a block per point.
+// encode (H3), here without a block per point.  base: null, or (P, L*C) f32
+// that the output is added to (out = base + encode; out may be base): the
+// focal stage's residual sum of the frozen global encode and the block's.
 extern "C" int gfnerf_packed_hash_fwd(
     const void* table, const int* primes, const float* bias,
     const float* scales, const int* dense_m, const float* points,
-    const int* anchors, float* out, long long n_points, int n_levels,
-    int n_volumes, int n_rows, int width, int n_channels, int lattice_edge,
-    void* stream) {
+    const int* anchors, const float* base, float* out, long long n_points,
+    int n_levels, int n_volumes, int n_rows, int width, int n_channels,
+    int lattice_edge, void* stream) {
   return gfnerf::dispatch_encode<false>(
-      table, primes, bias, scales, dense_m, points, anchors, nullptr, out,
-      n_points, 1, n_levels, n_volumes, n_rows, width, n_channels,
+      table, primes, bias, scales, dense_m, points, anchors, nullptr, base,
+      out, n_points, 1, n_levels, n_volumes, n_rows, width, n_channels,
       lattice_edge, (cudaStream_t)stream);
 }

@@ -14,14 +14,19 @@
 //
 // Bound: as H1's, the random sector reads of the bf16 tables (B x 64 MB at
 // the main path's shape, more than the 50 MB L2 from B = 1 on) and the
-// (P, L*C) f32 output; the blocks add 4 bytes a point.
+// (P, L*C) f32 output; the blocks add 4 bytes a point, and a base its
+// (P, L*C) f32 read.
 // Design: H1's kernel (packed_hash_encode.cuh, ROUTED = true): the same
 // level-major warps over consecutive samples, the tile's blocks staged in
 // shared memory beside its anchors, masked points skipped, the output
 // staged and stored coalesced.  Consecutive samples belong to one ray and
 // rays carry one block each, so a warp's 32 points read one block's table
 // but for the warps that straddle two rays.  The interpolation rounds as
-// the plain version does: equal to it bit for bit.
+// the plain version does: equal to it bit for bit.  The eval path's
+// residual sum global + routed is folded into the write-back: given the
+// global encode as base the kernel stores base + result, in place when out
+// is base (packed_hash_encode.cuh), where a separate add took as long as
+// this kernel.
 
 #include <cuda_runtime.h>
 
@@ -30,12 +35,12 @@
 extern "C" int gfnerf_packed_hash_routed(
     const void* tables, const int* primes, const float* bias,
     const float* scales, const int* dense_m, const float* points,
-    const int* anchors, const int* blocks, float* out, long long n_points,
-    int n_blocks, int n_levels, int n_volumes, int n_rows, int width,
-    int n_channels, int lattice_edge, void* stream) {
+    const int* anchors, const int* blocks, const float* base, float* out,
+    long long n_points, int n_blocks, int n_levels, int n_volumes, int n_rows,
+    int width, int n_channels, int lattice_edge, void* stream) {
   if (n_blocks < 1) return (int)cudaErrorInvalidValue;
   return gfnerf::dispatch_encode<true>(
-      tables, primes, bias, scales, dense_m, points, anchors, blocks, out,
-      n_points, n_blocks, n_levels, n_volumes, n_rows, width, n_channels,
+      tables, primes, bias, scales, dense_m, points, anchors, blocks, base,
+      out, n_points, n_blocks, n_levels, n_volumes, n_rows, width, n_channels,
       lattice_edge, (cudaStream_t)stream);
 }

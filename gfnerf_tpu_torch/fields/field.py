@@ -278,14 +278,20 @@ def _normalized(warp_pts: torch.Tensor) -> torch.Tensor:
 
 
 def _encode(cfg: FieldConfig, table, prim, bias, pts, anc,
-            dense_levels: int = 0) -> torch.Tensor:
+            dense_levels: int = 0, base: Optional[torch.Tensor] = None,
+            in_place: bool = False) -> torch.Tensor:
     """One table's encode (P, L * C) in the configured layout;
-    ``dense_levels`` applies to the packed layout only."""
+    ``dense_levels`` applies to the packed layout only.  With ``base``,
+    another table's encode without a graph, the sum of the two: the packed
+    layout's kernel adds it as it writes (over the base with ``in_place``),
+    the anchored layout adds it in a pass of its own."""
     if cfg.hash_layout == "packed":
         pack = pack_for_channels(cfg.features_per_level, cfg.packed_row_width)
         return packed_hash_encode(table, prim, bias, pts, anc,
-                                  cfg.features_per_level, pack, dense_levels)
-    return hash_encode(table, prim, bias, pts, anc)
+                                  cfg.features_per_level, pack, dense_levels,
+                                  base, in_place)
+    feats = hash_encode(table, prim, bias, pts, anc)
+    return feats if base is None else base + feats
 
 
 def _density_head(field: GFNeRFField, feats: torch.Tensor,
@@ -336,12 +342,14 @@ def field_density(field: GFNeRFField, warp_pts: torch.Tensor,
             table = (active_table if active_table is not None
                      else field.block_feats[active_block])
             # dense levels change the addressing: residual tables only (a
-            # fine-tuned copy must hash like the global table)
+            # fine-tuned copy must hash like the global table).  The
+            # residual sum is the encode's own: added to the global
+            # features, over them unless the shared branch reads them again
             feats = _encode(cfg, table, field.block_prims[active_block],
                             field.block_biases[active_block], pts, anc,
-                            0 if finetune else cfg.block_dense_levels)
-            if not finetune:
-                feats = gfeats + feats
+                            0 if finetune else cfg.block_dense_levels,
+                            None if finetune else gfeats,
+                            not finetune and not with_shared)
         else:
             feats = gfeats
     with span("base_mlp"):
@@ -374,15 +382,17 @@ def field_density_routed(field: GFNeRFField, warp_pts: torch.Tensor,
     finetune = cfg.focal_mode == "finetune"
     with torch.no_grad():
         with span("encode"):
+            # the routed residual is added to the global features as it is
+            # written, over them
+            gfeats = None if finetune else packed_hash_encode(
+                field.global_feat, field.global_prim, field.global_bias,
+                pts, anc, cfg.features_per_level, pack)
             feats = packed_hash_encode_routed(
                 field.block_tables_bf16(), field.block_prims,
                 field.block_biases, pts, anc, blocks.reshape(-1),
                 cfg.features_per_level, pack,
-                0 if finetune else cfg.block_dense_levels)
-            if not finetune:
-                feats = packed_hash_encode(
-                    field.global_feat, field.global_prim, field.global_bias,
-                    pts, anc, cfg.features_per_level, pack) + feats
+                0 if finetune else cfg.block_dense_levels, gfeats,
+                gfeats is not None)
         with span("base_mlp"):
             density, h = _density_head(field, feats, anc)
     return (density.reshape(lead_shape),

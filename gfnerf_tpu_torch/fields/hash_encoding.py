@@ -13,7 +13,9 @@ JAX package's ``hash_encode_sorted`` runs (the table read through a bf16
 copy) and ``hash_backward_reference`` the plain dense table gradient
 (``index_add_`` of weight x upstream gradient, in f32; the JAX package's
 sort + prefix + run-end-difference backward with its bf16 payload is a TPU
-workaround and is not carried over).  ``hash_encode`` is the differentiable
+workaround and is not carried over); ``hash_bwd_reductions`` counts the
+reductions the table gradient's kernel makes, from the same addressing.
+``hash_encode`` is the differentiable
 wrapper, with a gradient for the table only: on CPU tensors it runs the
 plain pair, on CUDA tensors the forward launches
 ``csrc/hash_anchored_fwd.cu`` (H4) and the backward
@@ -28,6 +30,7 @@ indices agree exactly with the jitted JAX encode.
 
 from __future__ import annotations
 
+import ctypes
 import functools
 import itertools
 
@@ -146,17 +149,25 @@ def _fma(a: torch.Tensor, s: float, b: torch.Tensor) -> torch.Tensor:
     return (a.double() * float(s) + b.double()).float()
 
 
+def _level_cells(points, bias_l, scale):
+    """Per axis, each point's cell at one level: (lower corner (P,) int64
+    holding uint32 bits, fraction (P,) f32).  bias_l (P, 3) is each
+    point's bias."""
+    cells = []
+    for a in range(3):
+        pt = _fma(points[:, a], scale, bias_l[:, a])
+        x0f = torch.floor(pt)
+        cells.append((x0f.to(torch.int32).long() & _U32, pt - x0f))
+    return cells
+
+
 def _level_corners(points, prim_l, bias_l, scale, local_size):
     """The 8 corners of one level: a list of (index (P,) int64, weight (P,)
     f32) in the JAX encode's order, x outermost and z innermost
     (hash_encoding.py:242-262).  prim_l (P, 3) int64 and bias_l (P, 3) are
     each point's primes and biases."""
     per_axis = []
-    for a in range(3):
-        pt = _fma(points[:, a], scale, bias_l[:, a])
-        x0f = torch.floor(pt)
-        f = pt - x0f
-        x0 = x0f.to(torch.int32).long() & _U32        # uint32 bits
+    for a, (x0, f) in enumerate(_level_cells(points, bias_l, scale)):
         u = prim_l[:, a]
         per_axis.append((((x0 * u) & _U32, 1.0 - f),
                          ((((x0 + 1) & _U32) * u) & _U32, f)))
@@ -254,6 +265,31 @@ def hash_backward_reference(g, prim_pool, bias_pool, points, anchors,
     return grad.view(n_levels, local_size, n_channels)
 
 
+def hash_bwd_reductions(prim_pool, bias_pool, points, anchors,
+                        warp: int = 32) -> torch.Tensor:
+    """(L,) int64: the vector reductions the table-gradient kernel (H5)
+    makes per level.  Its warps take ``warp`` consecutive points from a
+    multiple of ``warp`` on, at one level; a run of consecutive valid
+    points in one cell, that is with equal (clamped volume, x0, y0, z0), is
+    one contributor, which adds its 8 corners with one reduction each.  A
+    masked point ends a run and adds nothing; equal cells of two volumes
+    (other primes) are two runs."""
+    n_levels = prim_pool.shape[0]
+    valid = anchors >= 0
+    vol = anchors.long().clamp(0, prim_pool.shape[1] - 1)
+    biases = bias_pool[:, vol]
+    scales = _level_scales(n_levels)
+    first = torch.arange(points.shape[0], device=points.device) % warp == 0
+    ops = []
+    for l in range(n_levels):
+        key = torch.stack([vol, *(x0 for x0, _ in _level_cells(
+            points, biases[l], scales[l]))], -1)
+        same = torch.zeros_like(valid)
+        same[1:] = (key[1:] == key[:-1]).all(-1) & valid[:-1]
+        ops.append(8 * (valid & (first | ~same)).sum())
+    return torch.stack(ops)
+
+
 class _HashEncode(torch.autograd.Function):
     """H4 forward and H5 table gradient on CUDA tensors; the plain pair on
     CPU tensors or when ``plain`` is set.  No gradient flows to the points,
@@ -302,7 +338,8 @@ def plain_hash_encode(feat_pool, prim_pool, bias_pool, points, anchors):
 
 
 hash_encode.launches = 0       # H4 launches
-hash_encode.bwd_launches = 0   # H5 launches
+hash_encode.bwd_launches = 0   # H5 launches (one per group of levels)
+hash_encode.bwd_calls = 0      # H5 calls, one per backward
 
 
 @functools.lru_cache(maxsize=32)
@@ -369,23 +406,35 @@ def _hash_encode_cuda(feat_pool, prim_pool, bias_pool, points, anchors):
 
 
 def _hash_backward_cuda(g, prim_pool, bias_pool, points, anchors, local_size,
-                        n_channels):
-    """H5 on CUDA tensors: the (L, local_size, C) table gradient."""
+                        n_channels, red_ops=None, levels_per_launch=0):
+    """H5 on CUDA tensors: the (L, local_size, C) table gradient.
+    ``red_ops``, an (L,) int64 tensor on the card, if given, gets the
+    number of vector reductions the kernel made per level added to it.
+    ``levels_per_launch`` > 0 sets the levels each of the kernel's launches
+    covers (0: its own choice)."""
     n_levels = prim_pool.shape[0]
     p = points.shape[0]
     if g.shape != (p, n_levels * n_channels):
         raise ValueError(f"hash_encode backward: gradient {tuple(g.shape)} "
                          f"!= ({p}, {n_levels * n_channels})")
+    if red_ops is not None and (red_ops.shape != (n_levels,)
+                                or red_ops.dtype != torch.int64
+                                or red_ops.device != points.device):
+        raise ValueError(f"hash_encode backward: red_ops must be "
+                         f"({n_levels},) int64 on {points.device}")
     addr = _kernel_args("hash_encode backward", prim_pool, bias_pool, points,
                         anchors, local_size, n_channels, [("gradient", g)])
     gc = g.to(torch.float32).contiguous()
     grad = torch.empty((n_levels, local_size, n_channels),
                        dtype=torch.float32, device=points.device)
+    launches = ctypes.c_int(0)
     err = build.library().gfnerf_hash_anchored_bwd(
-        gc.data_ptr(), *(t.data_ptr() for t in addr), grad.data_ptr(), p,
-        n_levels, prim_pool.shape[1], local_size, n_channels,
+        gc.data_ptr(), *(t.data_ptr() for t in addr), grad.data_ptr(),
+        None if red_ops is None else red_ops.data_ptr(),
+        ctypes.addressof(launches), p, n_levels, prim_pool.shape[1],
+        local_size, n_channels, levels_per_launch,
         torch.cuda.current_stream(points.device).cuda_stream)
     build.check(err, "gfnerf_hash_anchored_bwd")
-    if p:   # no points: the zero-fill alone, no launch
-        hash_encode.bwd_launches += 1
+    hash_encode.bwd_calls += 1
+    hash_encode.bwd_launches += launches.value
     return grad

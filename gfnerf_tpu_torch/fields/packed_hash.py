@@ -23,6 +23,12 @@ is the same function through the plain pair on any device.
 its plain version; on CUDA tensors the wrapper launches
 ``csrc/packed_hash_routed.cu`` (H3), or raises.
 
+Both encodes take an optional ``base``, another table's encode that theirs
+is a residual of, and return ``base + encode`` (the focal stage's sum of
+the global and the block's features): the kernels add it in their
+write-back, the result rounded first, so it equals the separate sum bit for
+bit; ``in_place`` writes it over the base.
+
 Coordinates: the grid coordinate of level l is ``p * scale_l + bias``, which
 XLA contracts into one fused multiply-add in the jitted JAX encode.  The
 plain version rounds it the same way by computing in float64 (the product is
@@ -36,6 +42,7 @@ from __future__ import annotations
 import ctypes
 import functools
 import itertools
+from typing import Optional
 
 import numpy as np
 import torch
@@ -190,8 +197,10 @@ def packed_hash_encode_raw(
     n_channels: int,
     pack: int,
     dense_levels: int = 0,
+    base: Optional[torch.Tensor] = None,   # (P, L * n_channels) f32
 ) -> torch.Tensor:
-    """Plain forward packed encoding. Returns (P, L * n_channels) f32.
+    """Plain forward packed encoding. Returns (P, L * n_channels) f32, added
+    to ``base`` if one is given (the residual sum of two encodes).
 
     Reads the table through a bf16 copy, as the JAX encode does
     (packed_hash.py:235).
@@ -211,7 +220,8 @@ def packed_hash_encode_raw(
                                      vol, pack, n_rows, int(dm[l]))
         rows = flat[h + l * n_rows]                   # (P, row_width) bf16
         outs.extend(_interp_level(rows, *frac, *loc, e, n_channels))
-    return torch.stack(outs, dim=-1) * valid
+    out = torch.stack(outs, dim=-1) * valid
+    return out if base is None else base + out
 
 
 def packed_hash_encode_routed_raw(
@@ -224,11 +234,14 @@ def packed_hash_encode_routed_raw(
     n_channels: int,
     pack: int,
     dense_levels: int = 0,
+    base: Optional[torch.Tensor] = None,   # (P, L * n_channels) f32
 ) -> torch.Tensor:
     """Plain block-routed forward (packed_hash.py:336-393 of the JAX
     package): each point reads the table of its own block, with that
     block's primes and biases.  Returns (P, L * n_channels) f32, zero where
-    the anchor or the block is < 0; a block past the last is clipped to it.
+    the anchor or the block is < 0; a block past the last is clipped to it;
+    added to ``base`` if one is given (the global encode the routed one is
+    a residual of, field.py:407-413 of the JAX package).
     """
     n_blocks, n_levels, n_rows, row_width = block_feats.shape
     n_volumes = block_prims.shape[2]
@@ -250,7 +263,8 @@ def packed_hash_encode_routed_raw(
                                      scales[l], vol, pack, n_rows, int(dm[l]))
         rows = flat[row_base + l * n_rows + h]        # (P, row_width) bf16
         outs.extend(_interp_level(rows, *frac, *loc, e, n_channels))
-    return torch.stack(outs, dim=-1) * valid
+    out = torch.stack(outs, dim=-1) * valid
+    return out if base is None else base + out
 
 
 def _interp_level(rows, fx, fy, fz, lx, ly, lz, e, n_channels):
@@ -394,30 +408,58 @@ def packed_hash_bwd_reductions(prim_pool, bias_pool, points, anchors,
     return torch.stack(ops) * (2 if n_channels == 8 else 1)
 
 
+def _check_base(what, base, points, n_cols, in_place):
+    """The base (P, n_cols) f32 an encode is added to, as the kernels and
+    the plain versions take it: on the points' device, without a gradient
+    (the sum's graph carries the encode's table alone), contiguous (copied
+    if not, which writing in place cannot be)."""
+    if base is None:
+        if in_place:
+            raise ValueError(f"{what}: in_place needs a base")
+        return None
+    if base.requires_grad:
+        raise ValueError(f"{what}: the base must not require a gradient")
+    if (base.shape != (points.shape[0], n_cols)
+            or base.dtype != torch.float32 or base.device != points.device):
+        raise ValueError(
+            f"{what}: base must be ({points.shape[0]}, {n_cols}) f32 on "
+            f"{points.device}, got {tuple(base.shape)} {base.dtype} on "
+            f"{base.device}")
+    if not base.is_contiguous():
+        if in_place:
+            raise ValueError(f"{what}: a base written in place must be "
+                             f"contiguous")
+        base = base.contiguous()
+    return base
+
+
 class _PackedHashEncode(torch.autograd.Function):
     """H1 forward and H2 table gradient on CUDA tensors; the plain pair on
     CPU tensors or when ``plain`` is set.  No gradient flows to the points,
-    primes, biases or anchors (``_phe_bwd`` returns None for them)."""
+    primes, biases, anchors or the base (``_phe_bwd`` returns None for the
+    first four; the base is a constant of the sum)."""
 
     @staticmethod
-    def forward(ctx, feat_pool, prim_pool, bias_pool, points, anchors,
-                n_channels, pack, dense_levels, plain):
+    def forward(ctx, feat_pool, prim_pool, bias_pool, points, anchors, base,
+                n_channels, pack, dense_levels, plain, in_place):
         ctx.save_for_backward(prim_pool, bias_pool, points, anchors)
         ctx.table_shape = tuple(feat_pool.shape)
         ctx.args = (n_channels, pack, dense_levels)
         ctx.plain = plain or points.device.type == "cpu"
+        args = (feat_pool, prim_pool, bias_pool, points, anchors, n_channels,
+                pack, dense_levels)
+        if in_place:
+            ctx.mark_dirty(base)
         if ctx.plain:
-            return packed_hash_encode_raw(feat_pool, prim_pool, bias_pool,
-                                          points, anchors, n_channels, pack,
-                                          dense_levels)
-        return _packed_hash_encode_cuda(feat_pool, prim_pool, bias_pool,
-                                        points, anchors, n_channels, pack,
-                                        dense_levels)
+            if in_place:
+                return base.add_(packed_hash_encode_raw(*args))
+            return packed_hash_encode_raw(*args, base=base)
+        return _packed_hash_encode_cuda(*args, base=base, in_place=in_place)
 
     @staticmethod
     def backward(ctx, g):
         if not ctx.needs_input_grad[0]:
-            return (None,) * 9
+            return (None,) * 11
         prim_pool, bias_pool, points, anchors = ctx.saved_tensors
         _, n_rows, row_width = ctx.table_shape
         args = (g, prim_pool, bias_pool, points, anchors, n_rows, row_width,
@@ -426,27 +468,47 @@ class _PackedHashEncode(torch.autograd.Function):
             grad = packed_hash_backward_reference(*args)
         else:
             grad = _packed_hash_backward_cuda(*args)
-        return (grad,) + (None,) * 8
+        return (grad,) + (None,) * 10
+
+
+def _apply_encode(plain, feat_pool, prim_pool, bias_pool, points, anchors,
+                  n_channels, pack, dense_levels, base, in_place):
+    base = _check_base("packed_hash_encode", base, points,
+                       feat_pool.shape[0] * n_channels, in_place)
+    return _PackedHashEncode.apply(feat_pool, prim_pool, bias_pool, points,
+                                   anchors, base, n_channels, pack,
+                                   dense_levels, plain, in_place)
 
 
 def packed_hash_encode(feat_pool, prim_pool, bias_pool, points, anchors,
-                       n_channels: int, pack: int, dense_levels: int = 0):
+                       n_channels: int, pack: int, dense_levels: int = 0,
+                       base: Optional[torch.Tensor] = None,
+                       in_place: bool = False):
     """Packed encoding (P, L * n_channels), differentiable in ``feat_pool``:
     the plain pair for CPU tensors, the CUDA kernels (``csrc/
-    packed_hash_fwd.cu``, ``csrc/packed_hash_bwd.cu``) for CUDA tensors."""
-    return _PackedHashEncode.apply(feat_pool, prim_pool, bias_pool, points,
-                                   anchors, n_channels, pack, dense_levels,
-                                   False)
+    packed_hash_fwd.cu``, ``csrc/packed_hash_bwd.cu``) for CUDA tensors.
+
+    With ``base`` (P, L * n_channels) f32, another table's encode that
+    this one is a residual of, the result is ``base + encode``, bit for bit
+    (on CUDA tensors the kernel's write-back adds it: no separate pass);
+    the table's gradient is the same with or without it.  The base must
+    not require a gradient.  With ``in_place`` the sum is written into
+    ``base``, which is returned."""
+    return _apply_encode(False, feat_pool, prim_pool, bias_pool, points,
+                         anchors, n_channels, pack, dense_levels, base,
+                         in_place)
 
 
 def plain_packed_hash_encode(feat_pool, prim_pool, bias_pool, points,
                              anchors, n_channels: int, pack: int,
-                             dense_levels: int = 0):
+                             dense_levels: int = 0,
+                             base: Optional[torch.Tensor] = None,
+                             in_place: bool = False):
     """``packed_hash_encode`` through the plain forward and backward on any
     device (launches no kernel)."""
-    return _PackedHashEncode.apply(feat_pool, prim_pool, bias_pool, points,
-                                   anchors, n_channels, pack, dense_levels,
-                                   True)
+    return _apply_encode(True, feat_pool, prim_pool, bias_pool, points,
+                         anchors, n_channels, pack, dense_levels, base,
+                         in_place)
 
 
 packed_hash_encode.launches = 0       # H1 launches
@@ -513,11 +575,15 @@ def _kernel_args(what, prim_pool, bias_pool, points, anchors, n_rows,
 
 def _packed_hash_encode_cuda(feat_pool, prim_pool, bias_pool, points,
                              anchors, n_channels, pack, dense_levels,
-                             level=None):
+                             level=None, base=None, in_place=False):
     """H1 on CUDA tensors: (P, L * C).  With ``level``, that level alone:
     (P, C), its columns of the whole.  The kernel reads a bf16 copy of the
-    table, as the plain version does (no copy if it is bf16 already)."""
+    table, as the plain version does (no copy if it is bf16 already).
+    With ``base`` (checked by the caller, :func:`_check_base`) the kernel
+    writes ``base + encode``, over the base with ``in_place``."""
     n_levels, n_rows, row_width = feat_pool.shape
+    if base is not None and level is not None:
+        raise ValueError("packed_hash_encode: a base goes with all levels")
     addr = _kernel_args("packed_hash_encode", prim_pool, bias_pool, points,
                         anchors, n_rows, row_width, n_channels, pack,
                         dense_levels, [("feat_pool", feat_pool)], level)
@@ -525,10 +591,11 @@ def _packed_hash_encode_cuda(feat_pool, prim_pool, bias_pool, points,
     if level is not None:
         table, n_levels = table[level:level + 1], 1
     p = points.shape[0]
-    out = torch.empty((p, n_levels * n_channels), dtype=torch.float32,
-                      device=points.device)
+    out = base if in_place else torch.empty(
+        (p, n_levels * n_channels), dtype=torch.float32, device=points.device)
     err = build.library().gfnerf_packed_hash_fwd(
-        table.data_ptr(), *(t.data_ptr() for t in addr), out.data_ptr(), p,
+        table.data_ptr(), *(t.data_ptr() for t in addr),
+        None if base is None else base.data_ptr(), out.data_ptr(), p,
         n_levels, prim_pool.shape[1], n_rows, row_width, n_channels, pack + 1,
         torch.cuda.current_stream(points.device).cuda_stream)
     build.check(err, "gfnerf_packed_hash_fwd")
@@ -576,41 +643,62 @@ def _packed_hash_backward_cuda(g, prim_pool, bias_pool, points, anchors,
     return grad
 
 
+def _apply_routed(plain, block_feats, block_prims, block_biases, points,
+                  anchors, blocks, n_channels, pack, dense_levels, base,
+                  in_place):
+    base = _check_base("packed_hash_encode_routed", base, points,
+                       block_feats.shape[1] * n_channels, in_place)
+    args = (block_feats, block_prims, block_biases, points, anchors, blocks,
+            n_channels, pack, dense_levels)
+    with torch.no_grad():
+        if not plain and points.device.type != "cpu":
+            return _packed_hash_routed_cuda(*args, base, in_place)
+        if in_place:
+            return base.add_(packed_hash_encode_routed_raw(*args))
+        return packed_hash_encode_routed_raw(*args, base)
+
+
 def packed_hash_encode_routed(block_feats, block_prims, block_biases, points,
                               anchors, blocks, n_channels: int, pack: int,
-                              dense_levels: int = 0):
+                              dense_levels: int = 0,
+                              base: Optional[torch.Tensor] = None,
+                              in_place: bool = False):
     """Block-routed packed encoding (P, L * n_channels), forward only (the
     eval path; no gradient flows): the plain version for CPU tensors, the
     CUDA kernel (``csrc/packed_hash_routed.cu``) for CUDA tensors.  The
     tables may be given in bf16, the type the kernel reads; an f32 stack is
-    copied to bf16 at every call."""
-    with torch.no_grad():
-        if points.device.type == "cpu":
-            return packed_hash_encode_routed_raw(
-                block_feats, block_prims, block_biases, points, anchors,
-                blocks, n_channels, pack, dense_levels)
-        return _packed_hash_routed_cuda(
-            block_feats, block_prims, block_biases, points, anchors, blocks,
-            n_channels, pack, dense_levels)
+    copied to bf16 at every call.
+
+    With ``base`` (P, L * n_channels) f32, the global encode the routed one
+    is a residual of, the result is ``base + encode``, bit for bit (on CUDA
+    tensors the kernel's write-back adds it: no separate pass); with
+    ``in_place`` it is written into ``base``, which is returned."""
+    return _apply_routed(False, block_feats, block_prims, block_biases,
+                         points, anchors, blocks, n_channels, pack,
+                         dense_levels, base, in_place)
 
 
 def plain_packed_hash_encode_routed(block_feats, block_prims, block_biases,
                                     points, anchors, blocks, n_channels: int,
-                                    pack: int, dense_levels: int = 0):
+                                    pack: int, dense_levels: int = 0,
+                                    base: Optional[torch.Tensor] = None,
+                                    in_place: bool = False):
     """``packed_hash_encode_routed`` through the plain version on any device
     (launches no kernel)."""
-    with torch.no_grad():
-        return packed_hash_encode_routed_raw(
-            block_feats, block_prims, block_biases, points, anchors, blocks,
-            n_channels, pack, dense_levels)
+    return _apply_routed(True, block_feats, block_prims, block_biases, points,
+                         anchors, blocks, n_channels, pack, dense_levels,
+                         base, in_place)
 
 
 packed_hash_encode_routed.launches = 0   # H3 launches
 
 
 def _packed_hash_routed_cuda(block_feats, block_prims, block_biases, points,
-                             anchors, blocks, n_channels, pack, dense_levels):
-    """H3 on CUDA tensors: (P, L * C)."""
+                             anchors, blocks, n_channels, pack, dense_levels,
+                             base=None, in_place=False):
+    """H3 on CUDA tensors: (P, L * C); with ``base`` (checked by the caller,
+    :func:`_check_base`) ``base + encode``, over the base with
+    ``in_place``."""
     if block_feats.dim() != 4 or block_prims.dim() != 4 \
             or block_prims.shape[:2] != block_feats.shape[:2] \
             or block_biases.shape != block_prims.shape:
@@ -630,11 +718,11 @@ def _packed_hash_routed_cuda(block_feats, block_prims, block_biases, points,
                         [("block_feats", block_feats), ("blocks", blocks)])
     tables = block_feats.to(torch.bfloat16).contiguous()
     blk = blocks.to(torch.int32).contiguous()
-    out = torch.empty((p, n_levels * n_channels), dtype=torch.float32,
-                      device=points.device)
+    out = base if in_place else torch.empty(
+        (p, n_levels * n_channels), dtype=torch.float32, device=points.device)
     err = build.library().gfnerf_packed_hash_routed(
         tables.data_ptr(), *(t.data_ptr() for t in addr), blk.data_ptr(),
-        out.data_ptr(), p,
+        None if base is None else base.data_ptr(), out.data_ptr(), p,
         n_blocks, n_levels, block_prims.shape[2], n_rows, row_width,
         n_channels, pack + 1,
         torch.cuda.current_stream(points.device).cuda_stream)

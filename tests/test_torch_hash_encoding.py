@@ -258,7 +258,8 @@ def test_wrapper_rejects_what_the_kernels_do_not_take():
 def test_kernels_match_plain_on_card(c, n_levels, log2):
     """H4 against the plain forward (bit for bit) and H5 through autograd
     against the plain table gradient (1e-5 of its largest entry: the same
-    f32 terms, added by atomics in another order), one launch each."""
+    f32 terms, added by atomics in another order): H4 one launch, H5 one
+    per group of 8 / C levels."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernels have no CPU mode")
     from gfnerf_tpu_torch.fields.hash_encoding import (
@@ -278,12 +279,164 @@ def test_kernels_match_plain_on_card(c, n_levels, log2):
     out.backward(g)
     torch.cuda.synchronize()
     assert (hash_encode.launches, hash_encode.bwd_launches) == (
-        before[0] + 1, before[1] + 1)
+        before[0] + 1, before[1] + -(-n_levels // (8 // c)))
     assert torch.equal(out.detach(), hash_encode_raw(table.detach(), *args))
     assert bool((out[args[3] < 0] == 0).all())
     ref = hash_backward_reference(g, *args, 1 << log2, c)
     np.testing.assert_allclose(table.grad.cpu().numpy(), ref.cpu().numpy(),
                                rtol=0, atol=1e-5 * float(ref.abs().max()))
+
+
+def _one_cell(p, anchors, shared_bias=False):
+    """Hand-made inputs of the reduction count: ``p`` points within 1e-7 of
+    one point (one cell at every level) with the given anchors; with
+    ``shared_bias`` volumes 0 and 1 have equal biases, so their cells are
+    equal too, under other primes."""
+    _, prim, bias = _tables(2)
+    if shared_bias:
+        bias = bias.copy()
+        bias[:, 1] = bias[:, 0]
+    pts = np.full((p, 3), 0.4371, np.float32)
+    pts += np.random.default_rng(0).uniform(0, 1e-7, (p, 3)).astype(
+        np.float32)
+    return _targs(prim, bias, pts, np.asarray(anchors, np.int32))
+
+
+# case -> (points, anchors, shared bias, reductions per level)
+REDUCTION_CASES = {
+    # one run of 32 points is one contributor of 8 corners
+    "one_warp": (32, [1] * 32, False, 8),
+    # a run that crosses a 32-point boundary counts once in each warp
+    "crosses_boundary": (64, [1] * 64, False, 16),
+    # a masked anchor splits its run in two and adds nothing itself
+    "masked_splits": (32, [1] * 10 + [-1] + [1] * 21, False, 16),
+    # masked points at a run's ends shorten it, no more
+    "masked_ends": (32, [-1] + [1] * 30 + [-1], False, 8),
+    # equal cells in two volumes (other primes) do not merge
+    "two_volumes": (32, [0, 1] * 16, True, 8 * 32),
+    # the same points in one volume do
+    "one_volume": (32, [0] * 32, True, 8),
+    # P not a multiple of 32: the last warp is short
+    "ragged": (45, [2] * 45, False, 16),
+    # nothing valid, nothing added
+    "all_masked": (40, [-1] * 40, False, 0),
+}
+
+
+@pytest.mark.parametrize("case", sorted(REDUCTION_CASES))
+def test_bwd_reduction_count(case):
+    """``hash_bwd_reductions`` on hand-made inputs: one contributor of 8
+    corners per run of equal (volume, cell) among a warp's 32 consecutive
+    points; with warps of one point, 8 per valid point."""
+    from gfnerf_tpu_torch.fields.hash_encoding import (hash_bwd_reductions,
+                                                       hash_corner_indices)
+
+    p, anchors, shared, want = REDUCTION_CASES[case]
+    args = _one_cell(p, anchors, shared)
+    cells = hash_corner_indices(*args, 1 << LOG2)
+    if case in ("one_warp", "crosses_boundary", "ragged"):
+        assert bool((cells == cells[..., :1]).all())   # one cell indeed
+    ops = hash_bwd_reductions(*args)
+    assert ops.dtype == torch.int64
+    assert ops.tolist() == [want] * N_LEVELS
+    n_valid = sum(a >= 0 for a in anchors)
+    assert hash_bwd_reductions(*args, warp=1).tolist() == \
+        [8 * n_valid] * N_LEVELS
+
+
+def _run_inputs(n_rays=40, n_samples=97, seed=5):
+    """(points, anchors, bias) with runs of equal cells: rays of points
+    2e-4 apart in t order, one anchor per ray; anchors < 0 inside the runs
+    of the odd rays; volumes 0 and 1 with equal biases and every fourth ray
+    alternating between them."""
+    _, prim, bias = _tables(2)
+    rng = np.random.default_rng(seed)
+    d = rng.standard_normal((n_rays, 1, 3))
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    t = np.arange(n_samples)[None, :, None] * 2e-4
+    pts = (rng.uniform(0.3, 0.7, (n_rays, 1, 3)) + t * d).reshape(-1, 3)
+    anc = np.repeat(rng.integers(0, N_VOLUMES, n_rays), n_samples).reshape(
+        n_rays, n_samples)
+    anc[::4] = np.arange(n_samples) % 2
+    for i in (5, 21, 22, 23, 24, 25, 31, 32, 64, 65, 90):
+        anc[1::2, i] = -1
+    bias = bias.copy()
+    bias[:, 1] = bias[:, 0]
+    return prim, bias, pts.astype(np.float32), anc.reshape(-1).astype(
+        np.int32)
+
+
+def test_bwd_reduction_count_on_runs():
+    """On rays of close points the count lies between one contributor per
+    warp and one per valid point, rises with the level (shorter runs on
+    finer grids), and equals a plain loop over the points."""
+    from gfnerf_tpu_torch.fields import hash_encoding as T
+
+    prim, bias, pts, anc = _run_inputs()
+    args = _targs(prim, bias, pts, anc)
+    ops = T.hash_bwd_reductions(*args).tolist()
+    single = T.hash_bwd_reductions(*args, warp=1).tolist()
+    assert single == [8 * int((anc >= 0).sum())] * N_LEVELS
+    assert all(8 * -(-len(pts) // 32) <= o < s for o, s in zip(ops, single))
+    assert ops[0] < ops[-1]
+    # the same count by a loop over the points, from the corner addressing's
+    # own cells
+    vol = np.clip(anc, 0, N_VOLUMES - 1)
+    scales = T._level_scales(N_LEVELS)
+    for l in range(N_LEVELS):
+        cells = T._level_cells(args[2], args[1][l][torch.as_tensor(vol).long()],
+                               scales[l])
+        key = np.stack([vol, *(x0.numpy() for x0, _ in cells)], -1)
+        heads = 0
+        for i in range(len(pts)):
+            if anc[i] < 0:
+                continue
+            joins = (i % 32 != 0 and anc[i - 1] >= 0
+                     and np.array_equal(key[i], key[i - 1]))
+            heads += not joins
+        assert ops[l] == 8 * heads, l
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c,n_levels,log2", [(2, 4, 10), (4, 4, 10),
+                                             (2, 16, 14)])
+def test_backward_kernel_merges_runs_on_card(c, n_levels, log2):
+    """H5 on runs of equal cells (masked anchors inside, two volumes sharing
+    cells) against the plain table gradient (1e-5 of its largest entry),
+    its reductions per level against ``hash_bwd_reductions``, and the same
+    gradient at 1, 2, 4 and 16 levels per launch, one launch per group."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    from gfnerf_tpu_torch.fields import hash_encoding as T
+
+    _, prim, _ = T.init_hash_params(7, log2, N_VOLUMES, n_levels, c)
+    _, bias, pts, anc = _run_inputs(n_rays=300)
+    bias = np.tile(bias, (n_levels // N_LEVELS + 1, 1, 1))[:n_levels]
+    args = [a.cuda() for a in _targs(prim, bias, pts, anc)]
+    g = torch.randn((len(pts), n_levels * c), device="cuda",
+                    generator=torch.Generator("cuda").manual_seed(c))
+    ops = torch.zeros(n_levels, dtype=torch.int64, device="cuda")
+    before = (T.hash_encode.bwd_calls, T.hash_encode.bwd_launches)
+    grad = T._hash_backward_cuda(g, *args, 1 << log2, c, red_ops=ops)
+    torch.cuda.synchronize()
+    # one call, whose C entry point launches once per group of 8 / C levels
+    assert (T.hash_encode.bwd_calls, T.hash_encode.bwd_launches) == (
+        before[0] + 1, before[1] + -(-n_levels // (8 // c)))
+    ref = T.hash_backward_reference(g, *args, 1 << log2, c)
+    tol = 1e-5 * float(ref.abs().max())
+    np.testing.assert_allclose(grad.cpu().numpy(), ref.cpu().numpy(), rtol=0,
+                               atol=tol)
+    want = T.hash_bwd_reductions(*args)
+    assert ops.tolist() == want.tolist()
+    assert int(ops.sum()) < 8 * n_levels * int((args[3] >= 0).sum())
+    for per_launch in (1, 2, 4, 16):
+        before = T.hash_encode.bwd_launches
+        got = T._hash_backward_cuda(g, *args, 1 << log2, c,
+                                    levels_per_launch=per_launch)
+        assert T.hash_encode.bwd_launches - before == \
+            -(-n_levels // min(per_launch, n_levels))
+        np.testing.assert_allclose(got.cpu().numpy(), ref.cpu().numpy(),
+                                   rtol=0, atol=tol)
 
 
 # ---- the anchored layout through the field and the train step ----

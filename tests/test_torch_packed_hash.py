@@ -552,6 +552,236 @@ def test_kernels_level_alone_and_launch_groups(c):
                                    rtol=0, atol=tol)
 
 
+# ---- the encodes added to a base (the focal stage's residual sum) ----
+
+N_BLOCKS = 3
+
+
+def _stacked(c, seed=7):
+    """(tables (B, L, rows, 128), primes (B, L, V, 3) uint32, biases) with
+    each block's own draws and random table values."""
+    from gfnerf_tpu_torch.fields.packed_hash import init_packed_hash_params
+
+    pools = [init_packed_hash_params(seed + b, ROWS_LOG2, N_VOLUMES, N_LEVELS,
+                                     c) for b in range(N_BLOCKS)]
+    tables = np.random.default_rng(seed).uniform(
+        -0.5, 0.5, (N_BLOCKS, N_LEVELS, 1 << ROWS_LOG2, 128)
+    ).astype(np.float32)
+    return (tables, np.stack([x[1] for x in pools]),
+            np.stack([x[2] for x in pools]))
+
+
+def _blocks(p, seed=2):
+    """A block per point, some -1 and one past the last (clipped)."""
+    rng = np.random.default_rng(seed)
+    blk = rng.integers(0, N_BLOCKS, p).astype(np.int32)
+    blk[rng.choice(p, p // 20, replace=False)] = -1
+    blk[0] = N_BLOCKS + 2
+    return blk
+
+
+def _base_like(p, c, seed=3):
+    return np.random.default_rng(seed).uniform(
+        -0.5, 0.5, (p, N_LEVELS * c)).astype(np.float32)
+
+
+@pytest.mark.parametrize("c,dense,in_place", [(4, 0, False), (4, 0, True),
+                                              (2, 2, False), (8, 0, True)])
+def test_encode_with_base_is_base_plus_encode(c, dense, in_place):
+    """``packed_hash_encode(..., base=)`` and its plain twin on CPU tensors
+    equal ``base + encode`` bit for bit; out of place the base is left as
+    it was, in place the result is the base itself."""
+    from gfnerf_tpu_torch.fields.packed_hash import (
+        pack_for_channels, packed_hash_encode, packed_hash_encode_raw,
+        plain_packed_hash_encode)
+
+    want_tables, _, feat = _tables(c)
+    pts, anc = _points(p=777, n_invalid=60, seed=c)
+    pack = pack_for_channels(c)
+    args = (torch.as_tensor(feat),
+            torch.as_tensor(want_tables[1].astype(np.int64)),
+            torch.as_tensor(want_tables[2]), torch.as_tensor(pts),
+            torch.as_tensor(anc), c, pack, dense)
+    base0 = torch.as_tensor(_base_like(len(pts), c))
+    want = base0 + packed_hash_encode_raw(*args)
+    assert torch.equal(packed_hash_encode_raw(*args, base=base0), want)
+    for fn in (packed_hash_encode, plain_packed_hash_encode):
+        base = base0.clone()
+        got = fn(*args, base=base, in_place=in_place)
+        assert torch.equal(got, want)
+        if in_place:
+            assert got.data_ptr() == base.data_ptr()
+        else:
+            assert torch.equal(base, base0)
+    # masked points keep the base
+    assert torch.equal(want[torch.as_tensor(anc) < 0],
+                       base0[torch.as_tensor(anc) < 0])
+    # a view with gaps is copied out of place and refused in place
+    wide = torch.zeros((len(pts), 2 * N_LEVELS * c))
+    wide[:, ::2] = base0
+    assert torch.equal(packed_hash_encode(*args, base=wide[:, ::2]), want)
+    with pytest.raises(ValueError):
+        packed_hash_encode(*args, base=wide[:, ::2], in_place=True)
+    with pytest.raises(ValueError):   # in place over nothing
+        packed_hash_encode(*args, in_place=True)
+    with pytest.raises(ValueError):   # not (P, L * C)
+        packed_hash_encode(*args, base=base0[:, :-1])
+
+
+@pytest.mark.parametrize("c,dense", [(4, 0), (4, 2), (2, 0), (8, 0)])
+def test_routed_on_base_matches_jax_residual_sum(c, dense):
+    """``packed_hash_encode_routed(..., base=global encode)`` against the
+    JAX package's eval residual ``packed_hash_encode(...) +
+    packed_hash_encode_routed(...)`` (fields/field.py:407-413) from the
+    same inputs: atol 1e-6, the routed encode's own tolerance; and equal to
+    ``base + routed`` of the plain versions bit for bit, in place and not.
+    Each JAX encode is jitted on its own, as the encode tests above run
+    them, and the two are added in f32: whether XLA:CPU contracts ``p *
+    scale + bias`` is decided per graph, and in one graph of both encodes
+    it does not at every lattice shape."""
+    import jax
+    import jax.numpy as jnp
+    from gfnerf_tpu.fields import packed_hash as J
+    from gfnerf_tpu_torch.fields import packed_hash as T
+
+    gtab, _, gfeat = _tables(c)
+    tables, prims, biases = _stacked(c)
+    pts, anc = _points(p=2048, n_invalid=100, seed=c + dense)
+    blk = _blocks(len(pts))
+    pack = T.pack_for_channels(c)
+    jpts, janc = jnp.asarray(pts), jnp.asarray(anc)
+    j = np.asarray(jax.jit(J.packed_hash_encode, static_argnums=(5, 6))(
+        jnp.asarray(gfeat), jnp.asarray(gtab[1]), jnp.asarray(gtab[2]), jpts,
+        janc, c, pack)) + np.asarray(
+            jax.jit(J.packed_hash_encode_routed, static_argnums=(6, 7, 8))(
+                jnp.asarray(tables), jnp.asarray(prims), jnp.asarray(biases),
+                jpts, janc, jnp.asarray(blk), c, pack, dense))
+    assert j.dtype == np.float32
+    tpts, tanc, tblk = (torch.as_tensor(x) for x in (pts, anc, blk))
+    glob = T.packed_hash_encode_raw(
+        torch.as_tensor(gfeat), torch.as_tensor(gtab[1].astype(np.int64)),
+        torch.as_tensor(gtab[2]), tpts, tanc, c, pack)
+    rargs = (torch.as_tensor(tables), torch.as_tensor(prims.astype(np.int64)),
+             torch.as_tensor(biases), tpts, tanc, tblk, c, pack, dense)
+    want = glob + T.packed_hash_encode_routed_raw(*rargs)
+    assert torch.equal(T.packed_hash_encode_routed_raw(*rargs, base=glob),
+                       want)
+    for fn in (T.packed_hash_encode_routed,
+               T.plain_packed_hash_encode_routed):
+        assert torch.equal(fn(*rargs, base=glob), want)
+        buf = glob.clone()
+        got = fn(*rargs, base=buf, in_place=True)
+        assert got.data_ptr() == buf.data_ptr() and torch.equal(got, want)
+    assert np.abs(want.numpy()).max() > 0.05
+    np.testing.assert_allclose(want.numpy(), j, rtol=0, atol=1e-6)
+    masked = (anc < 0) | (blk < 0)
+    assert masked.sum() > 100 and torch.equal(want[masked], glob[masked])
+
+
+def test_base_with_a_gradient_is_refused():
+    """The base is a constant of the sum: one that requires a gradient
+    raises, for both encodes, on any device's path."""
+    from gfnerf_tpu_torch.fields import packed_hash as T
+
+    want_tables, _, feat = _tables(4)
+    pts, anc = _points(p=64)
+    args = (torch.as_tensor(feat),
+            torch.as_tensor(want_tables[1].astype(np.int64)),
+            torch.as_tensor(want_tables[2]), torch.as_tensor(pts),
+            torch.as_tensor(anc), 4, 2)
+    base = torch.zeros((64, N_LEVELS * 4), requires_grad=True)
+    for fn in (T.packed_hash_encode, T.plain_packed_hash_encode):
+        with pytest.raises(ValueError, match="gradient"):
+            fn(*args, base=base)
+    tables, prims, biases = _stacked(4)
+    rargs = (torch.as_tensor(tables), torch.as_tensor(prims.astype(np.int64)),
+             torch.as_tensor(biases), args[3], args[4],
+             torch.as_tensor(_blocks(64)), 4, 2)
+    for fn in (T.packed_hash_encode_routed,
+               T.plain_packed_hash_encode_routed):
+        with pytest.raises(ValueError, match="gradient"):
+            fn(*rargs, base=base)
+
+
+@pytest.mark.parametrize("in_place", [False, True])
+def test_table_gradient_is_the_same_with_a_base(in_place):
+    """The table's gradient through ``packed_hash_encode(..., base=)``
+    equals the one without a base, bit for bit (the base adds a constant),
+    and nothing flows to the base."""
+    from gfnerf_tpu_torch.fields.packed_hash import packed_hash_encode
+
+    want, pts, anc, g = _bwd_args(4, 0, n_invalid=50, p=512)
+    args = [torch.as_tensor(want[1].astype(np.int64)),
+            torch.as_tensor(want[2]), torch.as_tensor(pts),
+            torch.as_tensor(anc)]
+    grads = []
+    for with_base in (False, True):
+        feat = torch.tensor(_tables(4)[2], requires_grad=True)
+        base = torch.as_tensor(_base_like(512, 4)) if with_base else None
+        out = packed_hash_encode(feat, *args, 4, 2, 0, base,
+                                 in_place and with_base)
+        assert out.requires_grad
+        out.backward(torch.as_tensor(g))
+        grads.append(feat.grad)
+        if with_base:
+            assert base.is_leaf != in_place   # in place: the output
+    assert float(grads[0].abs().max()) > 0
+    assert torch.equal(grads[0], grads[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c,dense,case", [(4, 0, "random"), (2, 0, "random"),
+                                          (8, 0, "random"), (4, 2, "runs"),
+                                          (4, 0, "runs_masked")])
+def test_kernels_with_base_match_plain_on_card(c, dense, case):
+    """H1 and H3 given a base against ``base + plain``, bit for bit, out of
+    place (the base unchanged) and in place (P is no multiple of the
+    tile), one launch each; H2 through a based encode gives the table
+    gradient of the encode without a base."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    from gfnerf_tpu_torch.fields import packed_hash as T
+
+    prim, bias, pts, anc = _card_inputs(c, case)
+    pts, anc = pts[:len(pts) - 37], anc[:len(anc) - 37]
+    feat = np.random.default_rng(7).uniform(
+        -0.5, 0.5, (N_LEVELS, 1 << ROWS_LOG2, 128)).astype(np.float32)
+    args = [torch.as_tensor(a, device="cuda") for a in
+            (feat, prim, bias, pts, anc)]
+    pack = T.pack_for_channels(c)
+    base0 = torch.as_tensor(_base_like(len(pts), c), device="cuda")
+    tables, prims, biases = _stacked(c)
+    rargs = [torch.as_tensor(a, device="cuda") for a in
+             (tables, prims.astype(np.int64), biases, pts, anc,
+              _blocks(len(pts)))]
+    for fn, fargs, plain, counter in (
+            (T.packed_hash_encode, (*args, c, pack, dense),
+             T.packed_hash_encode_raw, T.packed_hash_encode),
+            (T.packed_hash_encode_routed, (*rargs, c, pack, dense),
+             T.packed_hash_encode_routed_raw, T.packed_hash_encode_routed)):
+        want = base0 + plain(*fargs)
+        base = base0.clone()
+        before = counter.launches
+        got = fn(*fargs, base=base)
+        torch.cuda.synchronize()
+        assert counter.launches == before + 1
+        assert torch.equal(got, want) and torch.equal(base, base0)
+        got = fn(*fargs, base=base, in_place=True)
+        torch.cuda.synchronize()
+        assert got.data_ptr() == base.data_ptr() and torch.equal(got, want)
+    g = torch.randn((len(pts), N_LEVELS * c), device="cuda",
+                    generator=torch.Generator("cuda").manual_seed(c))
+    grads = []
+    for base in (None, base0.clone()):
+        table = args[0].clone().requires_grad_(True)
+        T.packed_hash_encode(table, *args[1:], c, pack, dense, base,
+                             base is not None).backward(g)
+        grads.append(table.grad)
+    tol = 1e-5 * float(grads[0].abs().max())   # atomics in another order
+    np.testing.assert_allclose(grads[1].cpu().numpy(), grads[0].cpu().numpy(),
+                               rtol=0, atol=tol)
+
+
 def test_signatures_match_entry_points():
     """SIGNATURES, the argument types ctypes passes, agrees with every C
     entry point's prototype: a pointer for each pointer, c_longlong for
