@@ -16,7 +16,10 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
                 the anchored table gradient on runs of equal cells with
                 masked anchors inside and two volumes sharing cells);
                 the composites timed against their plain versions with CUDA
-                events (median).
+                events (median); the composite backward in the train
+                step's form at 384 and 192 samples, its register kernel
+                and its tiled kernel in turns, 20 calls per event pair, and
+                their device time from the profiler.
   4. workload — the bench's quality workload: 48 ring cameras and their
                 sphere-scene images, depth-8 octree, 8x4-level packed hash
                 field with random weights from seed 0, 384 march slots,
@@ -68,13 +71,26 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
   9. parity   — the bench's parity workload (anchored layout, 16 levels x
                 2 channels of 2^19 entries, 192 slots, fineness 4) built
                 anew; with the counters reset, 20 init-stage steps: the
-                composites and the anchored encode and table gradient once
-                per step, the packed kernels never; loss falls; one step
-                against the plain pairs; both anchored kernels timed on a
-                train batch against their plain versions, the table
-                gradient also against index_add_, with its reductions per
-                level (held against the host's reckoning) and its time at
-                1, 2, 4, 8 and 16 levels per launch.
+                composites and the anchored encode and table gradient one
+                call per step (a launch per group of levels), the packed
+                kernels never; loss falls; one step against the plain
+                pairs; both anchored kernels timed on a train batch against
+                their plain versions: the encode from the f32 table against
+                the bf16 copy + kernel in turns, at 1, 2, 4, 8 and 16 levels
+                per launch, on a base (in place and not) against the encode
+                followed by a separate add, with the memory both forms hold,
+                and its sector requests per level; the table gradient also
+                against index_add_, with its reductions per level (held
+                against the host's reckoning) and its time at 1, 2, 4, 8
+                and 16 levels per launch.
+ 10. parity   — with the counters reset: 5 block-stage steps (residual
+     focal      mode) on block 0 of the parity workload from a fresh
+                optimizer state: the anchored encode twice a step, the
+                second on a base (the block's encode adds itself to the
+                frozen global one as it writes), the table gradient once,
+                into the block's table; no addition in the encode span;
+                frozen parameters and block 1 bit-unchanged; one step
+                against the plain pairs.
 Before the last line come a JSON object with each kernel's launches, error,
 times and bound, and the card's name and power limit; the last line is
 {"ok": true, "device": {...}}.
@@ -114,6 +130,7 @@ SLICE_ATOL = 2e-3
 TRAIN_STEPS = 20
 TIMED_STEPS = 5
 FOCAL_STEPS = 10   # focal steps per block
+PARITY_FOCAL_STEPS = 5   # anchored focal steps on block 0
 TRAIN_LOSS_RTOL = 1e-4
 TRAIN_GRAD_TOL = 2e-3
 # the card's peak memory rate (H100 SXM data sheet), for the bounds
@@ -144,6 +161,72 @@ def time_ms(fn, n: int = 7, reps: int = 1) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end) / reps)
     return float(np.median(times))
+
+
+def in_turns(forms: dict, order, **kw) -> dict:
+    """Each form's time: time_ms of each in the given order (the forms
+    alternating), the smaller median of its turns."""
+    turns = {name: [] for name in forms}
+    for name in order:
+        turns[name].append(time_ms(forms[name], **kw))
+    return {name: min(t) for name, t in turns.items()}
+
+
+def queued_device_ms(fn, calls: int = 20) -> float:
+    """The device time of one call of fn(), from CUDA events around
+    ``calls`` calls queued behind a spin kernel: the host has launched them
+    all before the device reaches the first, so the span holds the calls'
+    kernels and the gaps between launches, and no host time."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(100_000_000)   # about 50 ms at the H100's clock
+    start.record()
+    for _ in range(calls):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / calls
+
+
+def kernel_device_ms(fn, match: str, calls: int = 20, launches: int = 1,
+                     tries: int = 3) -> float:
+    """The mean device time of the kernels whose names contain ``match``
+    per call of fn() (``launches`` of them a call), from a torch.profiler
+    trace of ``calls`` calls (the kernels alone: no launch gaps, no host
+    time).  The profiler's CUDA tracing now and then loses kernel records
+    (none, or a part of a trace): a trace that does not hold all
+    calls x launches is taken again, up to ``tries`` times, and if none
+    does, the time is queued_device_ms's (the whole call, from CUDA
+    events)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    want = calls * launches
+    for attempt in range(1, tries + 1):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        kernels = [e for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA and match in e.key]
+        total = sum(e.self_device_time_total for e in kernels)
+        count = sum(e.count for e in kernels)
+        if count == want and total > 0:
+            return total / 1e3 / calls
+        log(f"[profiler] {match}: the trace holds {count} of {want} kernel "
+            f"records (try {attempt} of {tries})")
+    ms = queued_device_ms(fn, calls)
+    log(f"[profiler] {match}: no whole trace; {ms:.4f} ms per call from CUDA "
+        f"events around {calls} queued calls instead")
+    return ms
 
 
 def max_err(got, want) -> float:
@@ -247,20 +330,26 @@ def f32_bytes(*tensors) -> int:
 
 
 def check_composite_bwd() -> dict:
-    """K2 against its plain version at the train step's shape, a ragged
-    one, a tiny one and one whose transmittance underflows mid-ray, with
-    every cotangent and gradient; then as the train step calls it, through
-    autograd: cotangents of rgb and acc only, gradients of densities and
-    colours only.  Timed against the plain version in both forms at the
-    train step's shape; the train step's form is the one reported."""
+    """K2 against its plain version at both train configs' shapes (S = 384
+    and 192), a ragged one, a tiny one, one whose transmittance underflows
+    mid-ray, and past the register kernel's 512 samples (the tiled kernel),
+    with every cotangent and gradient; then as the train step calls it,
+    through autograd: cotangents of rgb and acc only, gradients of densities
+    and colours only.  Timed against the plain version in both forms at S =
+    384, and in the train step's form at S = 384 and 192: the register
+    kernel and the tiled kernel in turns, each as the kernels' device time
+    from the profiler and as the wrapper's, 20 calls per event pair.  The
+    train step's form at S = 384 is the one reported, by its device
+    time."""
     import torch
 
     from gfnerf_tpu_torch.ops.composite import (
         _composite_bwd_cuda, composite_backward_reference, fused_composite)
 
     errs = []
-    for r, s, opaque in ((8192, 384, False), (1000, 48, False),
-                         (7, 33, False), (1000, 48, True)):
+    for r, s, opaque in ((8192, 384, False), (8192, 192, False),
+                         (1000, 48, False), (7, 33, False), (1000, 48, True),
+                         (1000, 513, False), (1000, 513, True)):
         x = _composite_inputs(r, s, seed=r + s + 7)
         if opaque:   # sigma*dt up to 10: T underflows to 0 mid-ray
             x[0] = x[0] * 200.0
@@ -296,19 +385,57 @@ def check_composite_bwd() -> dict:
     del xs, out, got
     # bytes: the inputs K2 reads (t only with a depth cotangent) and the
     # outputs it writes, (R, S) for sigma, dt, t and (R, S, 3) for rgb
-    for form, args, n_bytes in (
-            ("all cotangents and gradients", (*x, g),
-             f32_bytes(*x, *g) + 4 * 6 * r * s),
-            ("train form", (*x, cots, need),
-             f32_bytes(x[0], x[1], x[3], *cots) + 4 * 4 * r * s)):
-        ms = time_ms(lambda: _composite_bwd_cuda(*args), n=21)
-        plain_ms = time_ms(lambda: composite_backward_reference(*args))
-        bound = n_bytes / HBM_BYTES_PER_S * 1e3
-        log(f"[kernels] composite_bwd R={r} S={s}, {form}: kernel {ms:.4f} "
-            f"ms, plain {plain_ms:.4f} ms, bound {bound:.4f} ms "
+    args = (*x, g)
+    n_bytes = f32_bytes(*x, *g) + 4 * 6 * r * s
+    all_ms = kernel_device_ms(lambda: _composite_bwd_cuda(*args),
+                              "composite_bwd_ray")
+    all_plain_ms = time_ms(lambda: composite_backward_reference(*args))
+    log(f"[kernels] composite_bwd R={r} S={s}, all cotangents and gradients:"
+        f" kernel {all_ms:.4f} ms (device time), plain {all_plain_ms:.4f} ms,"
+        f" bound {n_bytes / HBM_BYTES_PER_S * 1e3:.4f} ms "
+        f"({n_bytes / 1e6:.1f} MB)")
+    train = {}
+    for s in (384, 192):
+        x = _composite_inputs(r, s, seed=2)
+        g = _cotangents(r, s, seed=3)
+        cots = [None, None, g[2], g[3], None]
+        args = (*x, cots, need)
+        n_bytes = f32_bytes(x[0], x[1], x[3], *cots) + 4 * 4 * r * s
+        # register, tiled, tiled, register: the smaller of each's turns
+        turns = {False: [], True: []}
+        device = {False: [], True: []}
+        for tiled in (False, True, True, False):
+            turns[tiled].append(time_ms(
+                lambda: _composite_bwd_cuda(*args, tiled=tiled), n=21,
+                reps=20))
+            device[tiled].append(kernel_device_ms(
+                lambda: _composite_bwd_cuda(*args, tiled=tiled),
+                "composite_bwd_tiled" if tiled else "composite_bwd_ray"))
+        row = {"ms": min(device[False]), "tiled_ms": min(device[True]),
+               "wrapper_ms": min(turns[False]),
+               "tiled_wrapper_ms": min(turns[True]),
+               "plain_ms": time_ms(
+                   lambda: composite_backward_reference(*args)),
+               "bound_ms": n_bytes / HBM_BYTES_PER_S * 1e3}
+        train[s] = row
+        log(f"[kernels] composite_bwd R={r} S={s}, train form: device time "
+            f"per call from the profiler (20 calls), register kernel "
+            f"{row['ms']:.4f} ms (turns {device[False]}), tiled kernel "
+            f"{row['tiled_ms']:.4f} ms (turns {device[True]}); the wrapper, "
+            f"20 calls per event pair: register {row['wrapper_ms']:.4f} ms, "
+            f"tiled {row['tiled_wrapper_ms']:.4f} ms; plain "
+            f"{row['plain_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms "
             f"({n_bytes / 1e6:.1f} MB)")
-    return dict(max_abs_err=max(errs), ms=ms, plain_ms=plain_ms,
-                bound_ms=bound, bound_by="bytes", library_ms=None)
+    # the kernels line: the kernel's own time (a wrapper call's host work
+    # is about as long as the kernel, so 20 calls per event pair time the
+    # host in part)
+    main = train[384]
+    return dict(max_abs_err=max(errs), ms=main["ms"],
+                plain_ms=main["plain_ms"], bound_ms=main["bound_ms"],
+                bound_by="bytes", library_ms=None,
+                wrapper_ms=main["wrapper_ms"], tiled_ms=main["tiled_ms"],
+                tiled_wrapper_ms=main["tiled_wrapper_ms"],
+                all_cotangents_ms=all_ms, s192=train[192])
 
 
 def check_hash_bwd() -> float:
@@ -606,6 +733,7 @@ def reset_launch_counts() -> None:
     packed.launches = packed.bwd_launches = packed.bwd_calls = 0
     routed.launches = 0
     anchored.launches = anchored.bwd_launches = anchored.bwd_calls = 0
+    anchored.calls = anchored.base_calls = 0
 
 
 def check_launches(what: str, launches: dict, expected: dict) -> None:
@@ -1152,8 +1280,10 @@ def time_hash_on_batch(wl, batch, noise) -> tuple:
 def table_grad_launches(wl) -> int:
     """Launches of one table-gradient call (H2, or H5 in the anchored
     layout): one per group of 8 / C levels."""
+    from gfnerf_tpu_torch.fields.hash_encoding import table_grad_launches
+
     fcfg = wl["fcfg"]
-    return -(-fcfg.num_levels // max(1, 8 // fcfg.features_per_level))
+    return table_grad_launches(fcfg.num_levels, fcfg.features_per_level)
 
 
 def step_draws(wl, gen):
@@ -1576,13 +1706,10 @@ def time_routed_on_chunk(wl, fo, fd) -> dict:
                                                           True),
             "out_of_place": lambda: packed_hash_encode_routed(bf16, *tail,
                                                               base)}
-        turns = {name: [] for name in forms}
-        for name in ("then_add", "in_place", "out_of_place", "in_place",
-                     "then_add"):
-            turns[name].append(time_ms(forms[name]))
+        turns = in_turns(forms, ("then_add", "in_place", "out_of_place",
+                                 "in_place", "then_add"))
         then_add_ms, inplace_ms, based_ms = (
-            min(turns[name]) for name in ("then_add", "in_place",
-                                          "out_of_place"))
+            turns[name] for name in ("then_add", "in_place", "out_of_place"))
         based_plain_ms = time_ms(
             lambda: packed_hash_encode_routed_raw(stack, *tail, base), n=3)
         del buf, base
@@ -1645,14 +1772,163 @@ def time_routed_on_chunk(wl, fo, fd) -> dict:
             "encodes_peak_fused_bytes": fused_peak}
 
 
+def time_anchored_fwd(table, addr) -> dict:
+    """H4 on one parity train batch: equal to the plain version bit for bit
+    from the f32 table and from its bf16 copy, alone and on a base (in
+    place and not), and at 1, 2, 4, 8 and 16 levels a launch.  Timed, 10
+    calls per event pair: the wrapper call on the f32 table as the train
+    step makes it, against the bf16 copy followed by the kernel on it and
+    against the form before the redesign (the copy, then all levels in one
+    launch), in turns, and each one's kernel device time from the profiler;
+    each grouping; on a base in place and out of place against the encode
+    followed by a separate add, in turns, with the memory each form holds
+    at its peak; the sector requests per level (one 32-byte sector per
+    corner of each run of equal cells in a warp, as hash_bwd_reductions
+    reckons the table gradient's runs) and the rate they imply.  Returns
+    the report of the kernels line."""
+    import torch
+
+    from gfnerf_tpu_torch.fields import hash_encoding as he
+
+    n_levels, local, c = table.shape
+    pts, anc = addr[2], addr[3]
+    p = pts.shape[0]
+    bf16 = table.to(torch.bfloat16)
+    want = he.hash_encode_raw(table, *addr)
+    got = he._hash_encode_cuda(table, *addr)
+    torch.cuda.synchronize()
+    err = max_err([got], [want])
+    if not torch.equal(got, want):
+        raise AssertionError(f"anchored encode on a train batch: not equal "
+                             f"to the plain version bit for bit (max abs "
+                             f"err {err})")
+    if not bool((got[anc < 0] == 0).all()):
+        raise AssertionError("anchored encode: masked anchors not zeroed")
+    if not torch.equal(he._hash_encode_cuda(bf16, *addr), want):
+        raise AssertionError("anchored encode: the bf16 table differs")
+    base = got
+    check_encode_with_base(
+        "hash_anchored_fwd on a train batch",
+        lambda b, in_place: he.hash_encode(table, *addr, b, in_place),
+        lambda: he.hash_encode_raw(table, *addr), base)
+    # 10 calls per event pair: a call's host work then overlaps the
+    # kernels, as in a train step
+    groupings = {}
+    for n in (1, 2, 4, 8, 16):
+        before = he.hash_encode.launches
+        out = he._hash_encode_cuda(table, *addr, levels_per_launch=n)
+        launches = he.hash_encode.launches - before
+        torch.cuda.synchronize()
+        if not torch.equal(out, want) or launches != he.encode_launches(
+                n_levels, n):
+            raise AssertionError(f"anchored encode at {n} levels a launch: "
+                                 f"{launches} launches, equal "
+                                 f"{torch.equal(out, want)}")
+        del out
+        groupings[n] = {"launches": launches, "ms": time_ms(
+            lambda: he._hash_encode_cuda(table, *addr, levels_per_launch=n),
+            n=11, reps=10)}
+    del want
+    # the f32 read against the bf16 copy + kernel, and against the form
+    # before the redesign (the copy, then all 16 levels in one launch), in
+    # turns
+    fns = {
+        "f32": lambda: he._hash_encode_cuda(table, *addr),
+        "bf16_copy": lambda: he._hash_encode_cuda(table.to(torch.bfloat16),
+                                                  *addr),
+        "one_launch": lambda: he._hash_encode_cuda(
+            table.to(torch.bfloat16), *addr, levels_per_launch=n_levels)}
+    forms = in_turns(fns, ("f32", "bf16_copy", "one_launch", "one_launch",
+                           "bf16_copy", "f32"), n=11, reps=10)
+    per_call = {"f32": he.encode_launches(n_levels),
+                "bf16_copy": he.encode_launches(n_levels),
+                "one_launch": 1}
+    device = {name: kernel_device_ms(fn, "hash_anchored_fwd", calls=10,
+                                     launches=per_call[name])
+              for name, fn in fns.items()}
+    single_ms = time_ms(fns["f32"], n=21)
+    typed = kernel_typed((table, *addr))
+    typed_ms = time_ms(lambda: he._hash_encode_cuda(*typed), n=11, reps=10)
+    copy_ms = time_ms(lambda: table.to(torch.bfloat16), n=11, reps=10)
+    plain_ms = time_ms(lambda: he.hash_encode_raw(table, *addr), n=3)
+    # on a base: separate, fused, fused, separate
+    buf = base.clone()
+    based = in_turns({
+        "then_add": lambda: base + he.hash_encode(table, *addr),
+        "in_place": lambda: he.hash_encode(table, *addr, buf, True),
+        "out_of_place": lambda: he.hash_encode(table, *addr, base)},
+        ("then_add", "in_place", "out_of_place", "in_place", "then_add"),
+        n=11, reps=10)
+    based_plain_ms = time_ms(lambda: he.hash_encode_raw(table, *addr, base),
+                             n=3)
+    del buf
+    separate_peak = peak_extra_bytes(
+        lambda: base.clone() + he.hash_encode(table, *addr))
+    fused_peak = peak_extra_bytes(
+        lambda: he.hash_encode(table, *addr, base.clone(), True))
+    sectors = he.hash_bwd_reductions(*addr).tolist()
+    del base
+    torch.cuda.empty_cache()
+    # output, points, anchors, and the f32 table read once
+    n_bytes = 4 * p * n_levels * c + 12 * p + 4 * p + 4 * table.numel()
+    bound = n_bytes / HBM_BYTES_PER_S * 1e3
+    based_bound = (n_bytes + 4 * p * n_levels * c) / HBM_BYTES_PER_S * 1e3
+    sector_rate = sum(sectors) / (device["f32"] * 1e-3)
+    log(f"[parity] hash_anchored_fwd on a train batch (P={p}, "
+        f"{int((anc >= 0).sum())} valid, L={n_levels}, C={c}, "
+        f"local={local}): equal to the plain version from the f32 table and "
+        f"its bf16 copy (max abs err {err}); 10 calls per event pair, in "
+        f"turns: the wrapper on the f32 table {forms['f32']:.4f} ms, the "
+        f"bf16 copy + kernel {forms['bf16_copy']:.4f} ms, the copy + all "
+        f"{n_levels} levels in one launch {forms['one_launch']:.4f} ms; "
+        f"kernel device time {device['f32']:.4f}, {device['bf16_copy']:.4f},"
+        f" {device['one_launch']:.4f} ms; one call per event pair "
+        f"{single_ms:.4f} ms; given the kernel's input types {typed_ms:.4f}"
+        f" ms; the copy alone {copy_ms:.4f} ms; plain {plain_ms:.4f} ms; "
+        f"bound {bound:.4f} ms ({n_bytes / 1e6:.1f} MB)")
+    by_group = "; ".join(f"{n}: {x['launches']} launches, {x['ms']:.4f} ms"
+                         for n, x in groupings.items())
+    log(f"[parity] hash_anchored_fwd by levels per launch (f32 table): "
+        f"{by_group}")
+    log(f"[parity] hash_anchored_fwd sector requests per level (one 32-byte "
+        f"sector per corner of each run of equal cells in a warp): "
+        f"{sectors}, {sum(sectors)} in all ({32 * sum(sectors) / 1e9:.3f} "
+        f"GB): {sector_rate / 1e9:.1f} G sectors/s at the kernel's device "
+        f"time")
+    log(f"[parity] hash_anchored_fwd added to a base (P, {n_levels * c}) "
+        f"f32, 10 calls per event pair: in place {based['in_place']:.4f} ms,"
+        f" out of place {based['out_of_place']:.4f} ms, the encode then a "
+        f"separate add {based['then_add']:.4f} ms; bound {based_bound:.4f} "
+        f"ms; plain {based_plain_ms:.4f} ms; memory held at the peak beyond "
+        f"the base: separate {separate_peak / 2**20:.1f} MiB, in place "
+        f"{fused_peak / 2**20:.1f} MiB")
+    return {"max_abs_err": err, "ms": forms["f32"], "plain_ms": plain_ms,
+            "bound_ms": bound, "bound_by": "bytes", "library_ms": None,
+            "device_ms": device["f32"], "one_call_ms": single_ms,
+            "kernel_typed_ms": typed_ms, "bf16_copy_ms": forms["bf16_copy"],
+            "one_launch_ms": forms["one_launch"],
+            "bf16_copy_device_ms": device["bf16_copy"],
+            "one_launch_device_ms": device["one_launch"],
+            "copy_alone_ms": copy_ms,
+            "by_levels_per_launch": groupings,
+            "sectors_per_level": sectors, "sectors_per_s": sector_rate,
+            "with_base_in_place_ms": based["in_place"],
+            "with_base_out_of_place_ms": based["out_of_place"],
+            "then_separate_add_ms": based["then_add"],
+            "with_base_bound_ms": based_bound,
+            "with_base_plain_ms": based_plain_ms,
+            "encodes_peak_separate_bytes": separate_peak,
+            "encodes_peak_fused_bytes": fused_peak}
+
+
 def time_anchored_on_batch(wl, batch, noise) -> tuple:
     """H4 and H5 on the points one parity train batch gives them (8192 rays
-    x 192 samples, L = 16, C = 2, 2^19 entries a level): H4 against its
-    plain version (bit for bit); H5 against its plain version and
-    index_add_ of the same precomputed (rows, payload) terms, with a random
-    upstream gradient, its vector reductions per level (counted by the
-    kernel, held against the runs reckoned on the host), and its time at
-    1, 2, 4, 8 and 16 levels per launch.  Returns (H4's, H5's report)."""
+    x 192 samples, L = 16, C = 2, 2^19 entries a level): H4 as
+    time_anchored_fwd says; H5 against its plain version and index_add_ of
+    the same precomputed (rows, payload) terms, with a random upstream
+    gradient, its vector reductions per level (counted by the kernel, held
+    against the runs reckoned on the host), and its time at 1, 2, 4, 8 and
+    16 levels per launch.  Returns (H4's, H5's report)."""
     import torch
 
     from gfnerf_tpu_torch.cameras.cameras import generate_rays_multi
@@ -1669,30 +1945,10 @@ def time_anchored_on_batch(wl, batch, noise) -> tuple:
     n_valid = int((anc >= 0).sum())
     addr = (field.global_prim, field.global_bias, pts, anc)
     with torch.no_grad():
-        got = he._hash_encode_cuda(table, *addr)
-        want = he.hash_encode_raw(table, *addr)
-        torch.cuda.synchronize()
-        fwd_err = max_err([got], [want])
-        if not torch.equal(got, want):
-            raise AssertionError(
-                f"anchored encode on a train batch: not equal to the plain "
-                f"version bit for bit (max abs err {fwd_err})")
-        if not bool((got[anc < 0] == 0).all()):
-            raise AssertionError("anchored encode: masked anchors not zeroed")
-        del got, want
-        fwd_ms = time_ms(lambda: he._hash_encode_cuda(table, *addr), n=21)
-        typed = kernel_typed((table, *addr), table=table)
-        fwd_typed_ms = time_ms(lambda: he._hash_encode_cuda(*typed), n=21)
-        fwd_plain_ms = time_ms(lambda: he.hash_encode_raw(table, *addr), n=3)
-    # output or upstream gradient, points, anchors, and the f32 table read
-    # (H4) or its gradient zero-filled and written (H5) once
-    n_bytes = 4 * p * n_levels * c + 12 * p + 4 * p + 4 * table.numel()
-    bound = n_bytes / HBM_BYTES_PER_S * 1e3
-    log(f"[parity] hash_anchored_fwd on a train batch (P={p}, {n_valid} "
-        f"valid, L={n_levels}, C={c}, local={local}): equal to the plain "
-        f"version (max abs err {fwd_err}); kernel {fwd_ms:.4f} ms ({fwd_typed_ms:.4f} ms given the "
-        f"kernel's input types), plain {fwd_plain_ms:.4f} ms, bound "
-        f"{bound:.4f} ms ({n_bytes / 1e6:.1f} MB)")
+        fwd = time_anchored_fwd(table, addr)
+    # the upstream gradient, points, anchors, and the f32 gradient
+    # zero-filled and written once: the bytes of H4's bound
+    bound = fwd["bound_ms"]
 
     gen = torch.Generator(device="cuda").manual_seed(6)
     g = torch.randn((p, n_levels * c), generator=gen, device="cuda")
@@ -1737,9 +1993,6 @@ def time_anchored_on_batch(wl, batch, noise) -> tuple:
     by_group = "; ".join(f"{n}: {x['launches']} launches, {x['ms']:.4f} ms"
                          for n, x in groupings.items())
     log(f"[parity] hash_anchored_bwd by levels per launch: {by_group}")
-    fwd = {"max_abs_err": fwd_err, "ms": fwd_ms, "plain_ms": fwd_plain_ms,
-           "bound_ms": bound, "bound_by": "bytes", "library_ms": None,
-           "kernel_typed_ms": fwd_typed_ms}
     bwd = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
            "bound_ms": bound, "bound_by": "bytes", "library_ms": library_ms,
            "reductions_per_level": reductions,
@@ -1751,14 +2004,16 @@ def phase_parity():
     """The anchored layout's train path: the bench's parity workload (16
     levels x 2 channels of 2^19 entries, 192 march slots, sample_l 1/256,
     fineness 4) built anew, then TRAIN_STEPS init-stage steps of 8192 rays,
-    counted: K1, K2, H4 and H5 once per step, the packed kernels never;
-    losses finite and falling, the global table changed, the block tables
-    not; one step against the plain autograd pairs; H4 and H5 timed on a
-    train batch."""
+    counted: K1, K2, H4 and H5 one call per step (H4 and H5 a launch per
+    group of levels), the packed kernels never; losses finite and falling,
+    the global table changed, the block tables not; one step against the
+    plain autograd pairs; H4 and H5 timed on a train batch.  Returns the
+    workload too, for the parity focal phase."""
     import numpy as np
     import torch
 
-    from gfnerf_tpu_torch.fields.hash_encoding import hash_encode
+    from gfnerf_tpu_torch.fields.hash_encoding import (encode_launches,
+                                                       hash_encode)
     from gfnerf_tpu_torch.train_bench import (RAYS, build_train_workload,
                                               make_batch, run_steps)
 
@@ -1782,23 +2037,24 @@ def phase_parity():
     times, more = run_steps(wl, batches[1:TRAIN_STEPS], gen)
     peak = torch.cuda.max_memory_allocated()
     launches = launch_counts()
-    bwd_calls = hash_encode.bwd_calls
+    calls = (hash_encode.calls, hash_encode.bwd_calls)
     losses += more
     dt = float(np.mean(times))
     log(f"[parity] warm-up step {warm[0]:.3f}s; {len(times)} steps of {RAYS} "
         f"rays: {dt:.4f} s/step (mean) = {RAYS / dt:.1f} rays/s; peak memory "
         f"{peak / 2**30:.2f} GiB")
-    # H5's C entry point launches once per group of 8 / C levels
-    # (csrc/hash_anchored_bwd.cu), each after a zero-fill of its group
+    # H4's and H5's C entry points launch once per group of levels
+    # (csrc/hash_anchored_{fwd,bwd}.cu), H5 each after a zero-fill
+    h4_groups = encode_launches(field.global_feat.shape[0])
     h5_groups = table_grad_launches(wl)
     check_launches("parity", launches, {
         "composite_fwd": TRAIN_STEPS, "composite_bwd": TRAIN_STEPS,
-        "hash_anchored_fwd": TRAIN_STEPS,
+        "hash_anchored_fwd": TRAIN_STEPS * h4_groups,
         "hash_anchored_bwd": TRAIN_STEPS * h5_groups})
-    log(f"[parity] each kernel once per step, H5 in {bwd_calls} calls of "
-        f"{h5_groups} launches")
-    if bwd_calls != TRAIN_STEPS:
-        raise AssertionError(f"H5: {bwd_calls} calls in {TRAIN_STEPS} steps")
+    log(f"[parity] each kernel once per step, H4 in {calls[0]} calls of "
+        f"{h4_groups} launches, H5 in {calls[1]} calls of {h5_groups}")
+    if calls != (TRAIN_STEPS, TRAIN_STEPS):
+        raise AssertionError(f"H4, H5: {calls} calls in {TRAIN_STEPS} steps")
     log(f"[parity] losses {[round(x, 5) for x in losses]}")
     first, last = losses[0], float(np.mean(losses[-5:]))
     if not all(np.isfinite(losses)) or not last < first:
@@ -1813,8 +2069,76 @@ def phase_parity():
     compare_step(wl, "parity", batch, noise, perms)
     stats = {"s_per_step": dt, "rays_per_s": RAYS / dt, "peak_bytes": peak,
              "first_loss": first, "last_loss": last,
-             "hash_anchored_bwd_calls": bwd_calls}
-    return launches, stats, time_anchored_on_batch(wl, batch, noise)
+             "hash_anchored_bwd_calls": calls[1]}
+    return launches, stats, time_anchored_on_batch(wl, batch, noise), wl
+
+
+def phase_parity_focal(wl):
+    """The anchored layout's focal (block) stage, residual mode, after the
+    parity phase's init steps: PARITY_FOCAL_STEPS steps on block 0 from a
+    fresh optimizer state, counted.  Checked: H4 two calls a step, the
+    second on a base (the frozen global encode, which the block's encode
+    is added to as it writes); H5 one call a step, into the active block's
+    table only; no addition inside the encode span; every frozen parameter
+    and block 1 bit-unchanged, block 0 changed; losses finite; one step
+    from a common state, kernels against the plain autograd pairs."""
+    import numpy as np
+    import torch
+
+    from gfnerf_tpu_torch.engine.optimizers import field_param_groups
+    from gfnerf_tpu_torch.fields.hash_encoding import (encode_launches,
+                                                       hash_encode)
+    from gfnerf_tpu_torch.models.gfnerf import init_train_state
+    from gfnerf_tpu_torch.train_bench import RAYS, make_batch, run_steps
+
+    dev = torch.device("cuda")
+    field = wl["field"]
+    n = PARITY_FOCAL_STEPS
+    gen = torch.Generator(device=dev).manual_seed(3)
+    batches = [make_batch(wl["images"], RAYS, 300 + seed, dev)
+               for seed in range(n + 1)]
+    noise, perms = step_draws(wl, gen)
+    compare_step(wl, "parity focal", batches[n], noise, perms, focal_block=0)
+    check_fused_residual("parity focal", lambda: step_from_copy(
+        wl, batches[n], noise, perms, focal_block=0))
+    frozen0 = [p.detach().clone() for name, ps in
+               field_param_groups(field).items() if name != "block"
+               for p in ps]
+    stack0 = field.block_feats.detach().clone()
+    wl["state"] = init_train_state(field, wl["tx"])   # a split switch
+    torch.cuda.synchronize()
+
+    reset_launch_counts()
+    times, losses = run_steps(wl, batches[:n], gen, focal_block=0)
+    launches = launch_counts()
+    calls = (hash_encode.calls, hash_encode.base_calls, hash_encode.bwd_calls)
+    h4_groups = encode_launches(field.global_feat.shape[0])
+    check_launches("parity focal", launches, {
+        "composite_fwd": n, "composite_bwd": n,
+        "hash_anchored_fwd": 2 * n * h4_groups,
+        "hash_anchored_bwd": n * table_grad_launches(wl)})
+    log(f"[parity focal] H4 in {calls[0]} calls ({calls[1]} on a base), H5 "
+        f"in {calls[2]} calls")
+    if calls != (2 * n, n, n):
+        raise AssertionError(f"parity focal: H4 calls, H4 calls on a base, "
+                             f"H5 calls {calls}; expected {(2 * n, n, n)}")
+    log(f"[parity focal] losses {[round(x, 5) for x in losses]}")
+    if not all(np.isfinite(losses)):
+        raise AssertionError("non-finite parity focal loss")
+    if torch.equal(field.block_feats[0], stack0[0]):
+        raise AssertionError("block 0's table did not change")
+    if not torch.equal(field.block_feats[1], stack0[1]):
+        raise AssertionError("block 1's table changed during block 0's steps")
+    now = [p for name, ps in field_param_groups(field).items()
+           if name != "block" for p in ps]
+    if not all(torch.equal(a, b) for a, b in zip(now, frozen0)):
+        raise AssertionError("a frozen parameter changed at the block stage")
+    dt = float(np.mean(times[1:]))
+    log(f"[parity focal] {n} steps of {RAYS} rays on block 0: all "
+        f"{len(frozen0)} frozen tensors and block 1 bit-unchanged, block 0 "
+        f"changed; {dt:.4f} s/step (mean without the first) = "
+        f"{RAYS / dt:.1f} rays/s")
+    return launches, {"s_per_step": dt, "rays_per_s": RAYS / dt}
 
 
 def main() -> int:
@@ -1846,8 +2170,10 @@ def main() -> int:
         phase_focal_render(wl)
     del wl
     torch.cuda.empty_cache()
-    paths["parity_train"], stats["parity_train"], (anc_fwd, anc_bwd) = \
+    paths["parity_train"], stats["parity_train"], (anc_fwd, anc_bwd), wl = \
         phase_parity()
+    paths["parity_focal"], stats["parity_focal"] = phase_parity_focal(wl)
+    del wl
     for name, *parts in (("packed_hash_fwd", encode, hash_fwd),
                          ("packed_hash_bwd", hash_bwd),
                          ("packed_hash_routed", routed),

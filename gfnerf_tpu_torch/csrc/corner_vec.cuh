@@ -1,6 +1,8 @@
 // The C channels of one table corner as one vector access: a load of C bf16
-// values (the encodes H1, H3, H4 read a bf16 copy of the table) and a
-// reduction of C f32 values (the table gradients H2, H5 add into f32).
+// values (the encodes H1 and H3 read a bf16 copy of the table), a load of C
+// f32 values each rounded to bf16 in registers (H4 reads the f32 table and
+// gets the values a bf16 copy would hold), and a reduction of C f32 values
+// (the table gradients H2, H5 add into f32).
 // A corner's channels are contiguous and aligned to their own size in every
 // table layout of the port: (L, rows, W) packed rows with C-channel lattice
 // entries, and (L, local, C) anchored tables.
@@ -13,8 +15,14 @@
 
 namespace gfnerf {
 
+// An f32 value rounded to bf16 (to nearest, ties to even, as PyTorch's
+// .to(torch.bfloat16) rounds) and back.
+__device__ __forceinline__ float round_bf16(float x) {
+  return __bfloat162float(__float2bfloat16_rn(x));
+}
+
 template <int C>
-struct Corner;  // C bf16 values, loaded with one vector access
+struct Corner;  // C values, loaded with one vector access
 
 template <>
 struct Corner<2> {
@@ -22,6 +30,11 @@ struct Corner<2> {
     const __nv_bfloat162 x = *reinterpret_cast<const __nv_bfloat162*>(p);
     v[0] = __bfloat162float(x.x);
     v[1] = __bfloat162float(x.y);
+  }
+  __device__ static void load(const float* p, float* v) {
+    const float2 x = *reinterpret_cast<const float2*>(p);
+    v[0] = round_bf16(x.x);
+    v[1] = round_bf16(x.y);
   }
 };
 
@@ -34,6 +47,13 @@ struct Corner<4> {
     v[1] = __bfloat162float(h[0].y);
     v[2] = __bfloat162float(h[1].x);
     v[3] = __bfloat162float(h[1].y);
+  }
+  __device__ static void load(const float* p, float* v) {
+    const float4 x = *reinterpret_cast<const float4*>(p);
+    v[0] = round_bf16(x.x);
+    v[1] = round_bf16(x.y);
+    v[2] = round_bf16(x.z);
+    v[3] = round_bf16(x.w);
   }
 };
 

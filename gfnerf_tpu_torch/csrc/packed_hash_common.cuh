@@ -120,12 +120,12 @@ __device__ __forceinline__ unsigned long long cell_key(const HashCell& c) {
   return k;
 }
 
-// Tiles of both kernels.  A launch covers a group of consecutive levels
-// (H1: all L; H2: a few, the launcher running the groups one after the
-// other on the stream), and a block takes a tile of consecutive points at
-// the group's levels.  Warp w of a block handles the (32-point slice,
-// level) pairs w, w + warps, ...; a tile holds enough slices for `passes`
-// pairs per warp.  More passes spread a block's fixed costs (the staging
+// Tiles of the kernels.  A launch covers a group of consecutive levels
+// (H1: all L; H2, H4 and H5: a few, the launcher running the groups one
+// after the other on the stream), and a block takes a tile of consecutive
+// points at the group's levels.  Warp w of a block handles the (32-point
+// slice, level) pairs w, w + warps, ...; a tile holds enough slices for
+// `passes` pairs per warp.  More passes spread a block's fixed costs (the staging
 // round trip, the barriers, the write-back) over more work, and cost
 // shared memory.
 struct TileMap {
@@ -244,10 +244,12 @@ __device__ __forceinline__ void store_rows_added(
   }
 }
 
-// The launches of a table gradient (H2, H5): one per group of map.group
-// levels, each preceded by a cudaMemsetAsync of its group's gradient
-// (level_floats f32 a level) on the same stream, so that the group's adds
-// land in zeroed lines the L2 still holds.  launch_group(l0, n_lev)
+// The launches of a kernel over groups of levels: one per group of
+// map.group levels.  The table gradients (H2, H5) pass their gradient:
+// each launch is then preceded by a cudaMemsetAsync of its group's
+// gradient (level_floats f32 a level) on the same stream, so that the
+// group's adds land in zeroed lines the L2 still holds.  The anchored
+// encode (H4) passes null: nothing to zero.  launch_group(l0, n_lev)
 // launches the kernel over levels [l0, l0 + n_lev); *launches counts the
 // launches made.  Returns the first CUDA error, or cudaSuccess.
 template <class LaunchGroup>
@@ -256,10 +258,12 @@ int launch_level_groups(const TileMap& map, int n_levels, float* grad,
                         int* launches, LaunchGroup launch_group) {
   for (int l0 = 0; l0 < n_levels; l0 += map.group) {
     const int n_lev = map.group < n_levels - l0 ? map.group : n_levels - l0;
-    cudaError_t err = cudaMemsetAsync(grad + l0 * level_floats, 0,
-                                      sizeof(float) * n_lev * level_floats,
-                                      stream);
-    if (err != cudaSuccess) return (int)err;
+    cudaError_t err = cudaSuccess;
+    if (grad != nullptr) {
+      err = cudaMemsetAsync(grad + l0 * level_floats, 0,
+                            sizeof(float) * n_lev * level_floats, stream);
+      if (err != cudaSuccess) return (int)err;
+    }
     if (map.n_tiles == 0) continue;
     launch_group(l0, n_lev);
     err = cudaGetLastError();

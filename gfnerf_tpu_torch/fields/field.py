@@ -282,16 +282,15 @@ def _encode(cfg: FieldConfig, table, prim, bias, pts, anc,
             in_place: bool = False) -> torch.Tensor:
     """One table's encode (P, L * C) in the configured layout;
     ``dense_levels`` applies to the packed layout only.  With ``base``,
-    another table's encode without a graph, the sum of the two: the packed
-    layout's kernel adds it as it writes (over the base with ``in_place``),
-    the anchored layout adds it in a pass of its own."""
+    another table's encode without a graph, the sum of the two: either
+    layout's kernel adds it as it writes (over the base with
+    ``in_place``)."""
     if cfg.hash_layout == "packed":
         pack = pack_for_channels(cfg.features_per_level, cfg.packed_row_width)
         return packed_hash_encode(table, prim, bias, pts, anc,
                                   cfg.features_per_level, pack, dense_levels,
                                   base, in_place)
-    feats = hash_encode(table, prim, bias, pts, anc)
-    return feats if base is None else base + feats
+    return hash_encode(table, prim, bias, pts, anc, base, in_place)
 
 
 def _density_head(field: GFNeRFField, feats: torch.Tensor,

@@ -20,7 +20,11 @@ wrapper, with a gradient for the table only: on CPU tensors it runs the
 plain pair, on CUDA tensors the forward launches
 ``csrc/hash_anchored_fwd.cu`` (H4) and the backward
 ``csrc/hash_anchored_bwd.cu`` (H5), or raises.  ``plain_hash_encode`` is the
-same function through the plain pair on any device.
+same function through the plain pair on any device.  Both take an optional
+``base``, another table's encode that this one is a residual of, and return
+``base + encode`` (the focal stage's residual sum): on CUDA tensors H4 adds
+it as it writes, bit for bit the separate sum; ``in_place`` writes it over
+the base.
 
 Coordinates: ``p * scale_l + bias`` is one fused multiply-add in the jitted
 JAX encode (XLA contracts it) and a ``floor`` follows, so the plain version
@@ -33,6 +37,7 @@ from __future__ import annotations
 import ctypes
 import functools
 import itertools
+from typing import Optional
 
 import numpy as np
 import torch
@@ -208,9 +213,11 @@ def hash_encode_raw(
     bias_pool: torch.Tensor,   # (L, V, 3) f32
     points: torch.Tensor,      # (P, 3) f32, normalized ((warp+1.5)/3)
     anchors: torch.Tensor,     # (P,) volume index; < 0 -> masked output
+    base: Optional[torch.Tensor] = None,   # (P, L * C) f32
 ) -> torch.Tensor:
     """Plain forward anchored encoding. Returns (P, L * C) f32, laid out
-    ``out[:, level * C + c]``.
+    ``out[:, level * C + c]``, added to ``base`` if one is given (the
+    residual sum of two encodes).
 
     Reads the table through a bf16 copy, as ``hash_encode_sorted``'s forward
     does for even C (hash_encoding.py:224-232, :365-367)."""
@@ -229,7 +236,8 @@ def hash_encode_raw(
                                      local_size):
             acc = acc + w[:, None] * flat[idx + l * local_size].float()
         cols.append(acc * valid)
-    return torch.cat(cols, dim=-1)
+    out = torch.cat(cols, dim=-1)
+    return out if base is None else base + out
 
 
 def hash_scatter_terms(g, prim_pool, bias_pool, points, anchors,
@@ -290,26 +298,56 @@ def hash_bwd_reductions(prim_pool, bias_pool, points, anchors,
     return torch.stack(ops)
 
 
+def check_base(what, base, points, n_cols, in_place):
+    """The base (P, n_cols) f32 an encode is added to, as the kernels and
+    the plain versions take it: on the points' device, without a gradient
+    (the sum's graph carries the encode's table alone), contiguous (copied
+    if not, which writing in place cannot be)."""
+    if base is None:
+        if in_place:
+            raise ValueError(f"{what}: in_place needs a base")
+        return None
+    if base.requires_grad:
+        raise ValueError(f"{what}: the base must not require a gradient")
+    if (base.shape != (points.shape[0], n_cols)
+            or base.dtype != torch.float32 or base.device != points.device):
+        raise ValueError(
+            f"{what}: base must be ({points.shape[0]}, {n_cols}) f32 on "
+            f"{points.device}, got {tuple(base.shape)} {base.dtype} on "
+            f"{base.device}")
+    if not base.is_contiguous():
+        if in_place:
+            raise ValueError(f"{what}: a base written in place must be "
+                             f"contiguous")
+        base = base.contiguous()
+    return base
+
+
 class _HashEncode(torch.autograd.Function):
     """H4 forward and H5 table gradient on CUDA tensors; the plain pair on
     CPU tensors or when ``plain`` is set.  No gradient flows to the points,
-    primes, biases or anchors (``_hes_bwd`` returns None for them)."""
+    primes, biases, anchors (``_hes_bwd`` returns None for them) or the base
+    (a constant of the sum)."""
 
     @staticmethod
-    def forward(ctx, feat_pool, prim_pool, bias_pool, points, anchors, plain):
+    def forward(ctx, feat_pool, prim_pool, bias_pool, points, anchors, base,
+                plain, in_place):
         ctx.save_for_backward(prim_pool, bias_pool, points, anchors)
         ctx.table_shape = tuple(feat_pool.shape)
         ctx.plain = plain or points.device.type == "cpu"
+        args = (feat_pool, prim_pool, bias_pool, points, anchors)
+        if in_place:
+            ctx.mark_dirty(base)
         if ctx.plain:
-            return hash_encode_raw(feat_pool, prim_pool, bias_pool, points,
-                                   anchors)
-        return _hash_encode_cuda(feat_pool, prim_pool, bias_pool, points,
-                                 anchors)
+            if in_place:
+                return base.add_(hash_encode_raw(*args))
+            return hash_encode_raw(*args, base=base)
+        return _hash_encode_cuda(*args, base=base, in_place=in_place)
 
     @staticmethod
     def backward(ctx, g):
         if not ctx.needs_input_grad[0]:
-            return (None,) * 6
+            return (None,) * 8
         prim_pool, bias_pool, points, anchors = ctx.saved_tensors
         _, local_size, n_channels = ctx.table_shape
         args = (g, prim_pool, bias_pool, points, anchors, local_size,
@@ -318,28 +356,67 @@ class _HashEncode(torch.autograd.Function):
             grad = hash_backward_reference(*args)
         else:
             grad = _hash_backward_cuda(*args)
-        return (grad,) + (None,) * 5
+        return (grad,) + (None,) * 7
 
 
-def hash_encode(feat_pool, prim_pool, bias_pool, points, anchors):
+def _apply_encode(plain, feat_pool, prim_pool, bias_pool, points, anchors,
+                  base, in_place):
+    base = check_base("hash_encode", base, points,
+                      feat_pool.shape[0] * feat_pool.shape[2], in_place)
+    return _HashEncode.apply(feat_pool, prim_pool, bias_pool, points, anchors,
+                             base, plain, in_place)
+
+
+def hash_encode(feat_pool, prim_pool, bias_pool, points, anchors,
+                base: Optional[torch.Tensor] = None, in_place: bool = False):
     """Anchored encoding (P, L * C), differentiable in ``feat_pool``: the
     plain pair for CPU tensors, the CUDA kernels (``csrc/
     hash_anchored_fwd.cu``, ``csrc/hash_anchored_bwd.cu``) for CUDA
-    tensors."""
-    return _HashEncode.apply(feat_pool, prim_pool, bias_pool, points, anchors,
-                             False)
+    tensors.
+
+    With ``base`` (P, L * C) f32, another table's encode that this one is a
+    residual of, the result is ``base + encode``, bit for bit (on CUDA
+    tensors the kernel's write-back adds it: no separate pass); the table's
+    gradient is the same with or without it.  The base must not require a
+    gradient.  With ``in_place`` the sum is written into ``base``, which is
+    returned."""
+    return _apply_encode(False, feat_pool, prim_pool, bias_pool, points,
+                         anchors, base, in_place)
 
 
-def plain_hash_encode(feat_pool, prim_pool, bias_pool, points, anchors):
+def plain_hash_encode(feat_pool, prim_pool, bias_pool, points, anchors,
+                      base: Optional[torch.Tensor] = None,
+                      in_place: bool = False):
     """``hash_encode`` through the plain forward and backward on any device
     (launches no kernel)."""
-    return _HashEncode.apply(feat_pool, prim_pool, bias_pool, points, anchors,
-                             True)
+    return _apply_encode(True, feat_pool, prim_pool, bias_pool, points,
+                         anchors, base, in_place)
 
 
-hash_encode.launches = 0       # H4 launches
+hash_encode.calls = 0          # H4 calls, one per forward
+hash_encode.base_calls = 0     # of those, calls given a base
+hash_encode.launches = 0       # H4 launches (one per group of levels)
 hash_encode.bwd_launches = 0   # H5 launches (one per group of levels)
 hash_encode.bwd_calls = 0      # H5 calls, one per backward
+
+# H4's levels per launch when the caller does not set them (kLevelGroup of
+# csrc/hash_anchored_fwd.cu); H5's are 8 / C (csrc/hash_anchored_bwd.cu)
+FWD_LEVEL_GROUP = 4
+
+
+def encode_launches(n_levels: int, per_launch: int = 0) -> int:
+    """H4's launches for one call at ``per_launch`` levels a launch (0: the
+    kernel's own choice)."""
+    group = per_launch if per_launch > 0 else FWD_LEVEL_GROUP
+    return -(-n_levels // min(group, n_levels))
+
+
+def table_grad_launches(n_levels: int, n_channels: int,
+                        per_launch: int = 0) -> int:
+    """H5's launches for one call (one per group of levels; 0: the
+    kernel's own choice)."""
+    group = per_launch if per_launch > 0 else max(1, 8 // n_channels)
+    return -(-n_levels // min(group, n_levels))
 
 
 @functools.lru_cache(maxsize=32)
@@ -382,26 +459,40 @@ def _kernel_args(what, prim_pool, bias_pool, points, anchors, local_size,
             anchors.to(torch.int32).contiguous())
 
 
-def _hash_encode_cuda(feat_pool, prim_pool, bias_pool, points, anchors):
-    """H4 on CUDA tensors: (P, L * C).  The kernel reads a bf16 copy of the
-    table, as the plain version does (no copy if it is bf16 already)."""
+def _hash_encode_cuda(feat_pool, prim_pool, bias_pool, points, anchors,
+                      base=None, in_place=False, levels_per_launch=0):
+    """H4 on CUDA tensors: (P, L * C).  The kernel reads an f32 table and
+    rounds each value to bf16 as it reads it, the values of the bf16 copy
+    the plain version reads; a bf16 table it reads as it is.  With ``base``
+    (checked by the caller, :func:`check_base`) the kernel writes ``base +
+    encode``, over the base with ``in_place``.  ``levels_per_launch`` > 0
+    sets the levels each of the kernel's launches covers (0: its own
+    choice)."""
     n_levels, local_size, n_channels = feat_pool.shape
     if prim_pool.shape[0] != n_levels:
         raise ValueError(f"hash_encode: table of {n_levels} levels, primes "
                          f"of {prim_pool.shape[0]}")
+    if feat_pool.dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"hash_encode: the table must be f32 or bf16, got "
+                         f"{feat_pool.dtype}")
     addr = _kernel_args("hash_encode", prim_pool, bias_pool, points, anchors,
                         local_size, n_channels, [("feat_pool", feat_pool)])
-    table = feat_pool.to(torch.bfloat16).contiguous()
+    table = feat_pool.detach().contiguous()
     p = points.shape[0]
-    out = torch.empty((p, n_levels * n_channels), dtype=torch.float32,
-                      device=points.device)
+    out = base if in_place else torch.empty(
+        (p, n_levels * n_channels), dtype=torch.float32, device=points.device)
+    launches = ctypes.c_int(0)
     err = build.library().gfnerf_hash_anchored_fwd(
-        table.data_ptr(), *(t.data_ptr() for t in addr), out.data_ptr(), p,
-        n_levels, prim_pool.shape[1], local_size, n_channels,
+        table.data_ptr(), int(table.dtype == torch.bfloat16),
+        *(t.data_ptr() for t in addr),
+        None if base is None else base.data_ptr(), out.data_ptr(),
+        ctypes.addressof(launches), p, n_levels, prim_pool.shape[1],
+        local_size, n_channels, levels_per_launch,
         torch.cuda.current_stream(points.device).cuda_stream)
     build.check(err, "gfnerf_hash_anchored_fwd")
-    if p:   # no points, no launch
-        hash_encode.launches += 1
+    hash_encode.calls += 1
+    hash_encode.base_calls += base is not None
+    hash_encode.launches += launches.value
     return out
 
 

@@ -48,7 +48,7 @@ import numpy as np
 import torch
 
 from gfnerf_tpu_torch.fields.hash_encoding import (_fma, _level_scales,
-                                                   _random_primes)
+                                                   _random_primes, check_base)
 from gfnerf_tpu_torch.ops import build
 
 _U32 = 0xFFFFFFFF
@@ -408,31 +408,6 @@ def packed_hash_bwd_reductions(prim_pool, bias_pool, points, anchors,
     return torch.stack(ops) * (2 if n_channels == 8 else 1)
 
 
-def _check_base(what, base, points, n_cols, in_place):
-    """The base (P, n_cols) f32 an encode is added to, as the kernels and
-    the plain versions take it: on the points' device, without a gradient
-    (the sum's graph carries the encode's table alone), contiguous (copied
-    if not, which writing in place cannot be)."""
-    if base is None:
-        if in_place:
-            raise ValueError(f"{what}: in_place needs a base")
-        return None
-    if base.requires_grad:
-        raise ValueError(f"{what}: the base must not require a gradient")
-    if (base.shape != (points.shape[0], n_cols)
-            or base.dtype != torch.float32 or base.device != points.device):
-        raise ValueError(
-            f"{what}: base must be ({points.shape[0]}, {n_cols}) f32 on "
-            f"{points.device}, got {tuple(base.shape)} {base.dtype} on "
-            f"{base.device}")
-    if not base.is_contiguous():
-        if in_place:
-            raise ValueError(f"{what}: a base written in place must be "
-                             f"contiguous")
-        base = base.contiguous()
-    return base
-
-
 class _PackedHashEncode(torch.autograd.Function):
     """H1 forward and H2 table gradient on CUDA tensors; the plain pair on
     CPU tensors or when ``plain`` is set.  No gradient flows to the points,
@@ -473,7 +448,7 @@ class _PackedHashEncode(torch.autograd.Function):
 
 def _apply_encode(plain, feat_pool, prim_pool, bias_pool, points, anchors,
                   n_channels, pack, dense_levels, base, in_place):
-    base = _check_base("packed_hash_encode", base, points,
+    base = check_base("packed_hash_encode", base, points,
                        feat_pool.shape[0] * n_channels, in_place)
     return _PackedHashEncode.apply(feat_pool, prim_pool, bias_pool, points,
                                    anchors, base, n_channels, pack,
@@ -579,7 +554,7 @@ def _packed_hash_encode_cuda(feat_pool, prim_pool, bias_pool, points,
     """H1 on CUDA tensors: (P, L * C).  With ``level``, that level alone:
     (P, C), its columns of the whole.  The kernel reads a bf16 copy of the
     table, as the plain version does (no copy if it is bf16 already).
-    With ``base`` (checked by the caller, :func:`_check_base`) the kernel
+    With ``base`` (checked by the caller, :func:`check_base`) the kernel
     writes ``base + encode``, over the base with ``in_place``."""
     n_levels, n_rows, row_width = feat_pool.shape
     if base is not None and level is not None:
@@ -646,7 +621,7 @@ def _packed_hash_backward_cuda(g, prim_pool, bias_pool, points, anchors,
 def _apply_routed(plain, block_feats, block_prims, block_biases, points,
                   anchors, blocks, n_channels, pack, dense_levels, base,
                   in_place):
-    base = _check_base("packed_hash_encode_routed", base, points,
+    base = check_base("packed_hash_encode_routed", base, points,
                        block_feats.shape[1] * n_channels, in_place)
     args = (block_feats, block_prims, block_biases, points, anchors, blocks,
             n_channels, pack, dense_levels)
@@ -697,7 +672,7 @@ def _packed_hash_routed_cuda(block_feats, block_prims, block_biases, points,
                              anchors, blocks, n_channels, pack, dense_levels,
                              base=None, in_place=False):
     """H3 on CUDA tensors: (P, L * C); with ``base`` (checked by the caller,
-    :func:`_check_base`) ``base + encode``, over the base with
+    :func:`check_base`) ``base + encode``, over the base with
     ``in_place``."""
     if block_feats.dim() != 4 or block_prims.dim() != 4 \
             or block_prims.shape[:2] != block_feats.shape[:2] \

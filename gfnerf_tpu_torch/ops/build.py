@@ -35,11 +35,12 @@ _I32 = ctypes.c_int
 # C entry points: name -> argtypes (pointers and the stream as c_void_p)
 SIGNATURES = {
     "gfnerf_composite_fwd": [_P] * 9 + [_I64, _I64, _P],
-    "gfnerf_composite_bwd": [_P] * 13 + [_I64, _I64, _P],
+    "gfnerf_composite_bwd": [_P] * 13 + [_I64, _I64, _I32, _P],
     "gfnerf_packed_hash_fwd": [_P] * 9 + [_I64] + [_I32] * 6 + [_P],
     "gfnerf_packed_hash_bwd": [_P] * 10 + [_I64] + [_I32] * 7 + [_P],
     "gfnerf_packed_hash_routed": [_P] * 10 + [_I64] + [_I32] * 7 + [_P],
-    "gfnerf_hash_anchored_fwd": [_P] * 7 + [_I64] + [_I32] * 4 + [_P],
+    "gfnerf_hash_anchored_fwd": [_P, _I32] + [_P] * 8 + [_I64] + [_I32] * 5
+    + [_P],
     "gfnerf_hash_anchored_bwd": [_P] * 9 + [_I64] + [_I32] * 5 + [_P],
 }
 

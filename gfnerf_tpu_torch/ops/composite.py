@@ -164,14 +164,16 @@ def _ptr(x) -> int:
 
 
 def _composite_bwd_cuda(densities, dts, ts, rgbs, g,
-                        needs=(True, True, True, True)):
+                        needs=(True, True, True, True), tiled=False):
     """K2: ``composite_backward_reference`` on CUDA tensors; an output the
-    caller does not need is neither allocated nor written."""
+    caller does not need is neither allocated nor written.  Rays of up to
+    512 samples go to the kernel that holds a ray in registers, longer ones
+    (or any, with ``tiled``) to the tiled kernel."""
     r, s = _check_inputs("fused_composite backward", densities, dts, ts, rgbs)
     dev = densities.device
     if -(-s // 32) * 8 * 4 > 48 * 1024:
         raise ValueError(f"fused_composite backward: {s} samples per ray "
-                         f"exceed the kernel's shared memory")
+                         f"exceed the tiled kernel's shared memory")
     dens, dt, tt, col = (t.contiguous() for t in (densities, dts, ts, rgbs))
     cots = []
     for name, x, shape in zip(("g_weights", "g_alphas", "g_rgb", "g_acc",
@@ -188,7 +190,7 @@ def _composite_bwd_cuda(densities, dts, ts, rgbs, g,
                                                      (r, s, 3)))]
     err = build.library().gfnerf_composite_bwd(
         dens.data_ptr(), dt.data_ptr(), tt.data_ptr(), col.data_ptr(),
-        *map(_ptr, cots), *map(_ptr, outs), r, s,
+        *map(_ptr, cots), *map(_ptr, outs), r, s, int(tiled),
         torch.cuda.current_stream(dev).cuda_stream)
     build.check(err, "gfnerf_composite_bwd")
     fused_composite.bwd_launches += 1

@@ -252,3 +252,93 @@ def test_composite_backward_kernel_matches_plain_on_card(r, s, opaque, train):
     _close_bwd([t.grad.cpu().numpy() for t, k in zip(x, need) if k],
                [w.cpu().numpy() for w, k in zip(want, need) if k],
                f"R={r} S={s}", [n for n, k in zip(BWD_NAMES, need) if k])
+
+
+# rays around the warp width, the two train configs' lengths (192, 384),
+# the register kernel's longest ray (512) and the tiled kernel's shortest
+K2_LENGTHS = [1, 31, 32, 33, 192, 384, 512, 513]
+# cotangents given and gradients asked for: each cotangent present in two
+# forms and absent in two; "train" is the train step's call
+K2_FORMS = {
+    "all": ((True,) * 5, (True,) * 4),
+    "train": ((False, False, True, True, False), (True, False, False, True)),
+    "depth": ((False, False, False, False, True), (True,) * 4),
+    "weights": ((True, True, False, False, False), (True, True, False, True)),
+}
+
+
+def _k2_case(r, s, seed, form, opaque=False):
+    """Inputs, cotangents (None where absent) and needs on the card."""
+    x = list(_inputs(r, s, seed=seed))
+    if opaque:
+        x[0] = x[0] * 400.0
+    given, needs = K2_FORMS[form]
+    g = [torch.as_tensor(a, device="cuda") if k else None
+         for a, k in zip(_cotangents(r, s, seed), given)]
+    return [torch.as_tensor(a, device="cuda") for a in x], g, needs
+
+
+def _check_k2(x, g, needs, tag, tiled=False):
+    from gfnerf_tpu_torch.ops.composite import (_composite_bwd_cuda,
+                                                composite_backward_reference,
+                                                fused_composite)
+
+    before = fused_composite.bwd_launches
+    got = _composite_bwd_cuda(*x, g, needs, tiled=tiled)
+    torch.cuda.synchronize()
+    assert fused_composite.bwd_launches == before + 1
+    want = composite_backward_reference(*x, g, needs)
+    assert [a is None for a in got] == [b is None for b in want]
+    _close_bwd([a.cpu().numpy() for a in got if a is not None],
+               [b.cpu().numpy() for b in want if b is not None], tag,
+               [n for n, k in zip(BWD_NAMES, needs) if k])
+    return got
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("form", sorted(K2_FORMS))
+@pytest.mark.parametrize("s", K2_LENGTHS)
+def test_composite_backward_kernel_lengths_on_card(s, form):
+    """K2 against the plain backward at each ray length and cotangent form,
+    at the tolerance of ``_close_bwd``: up to 512 samples the ray is held
+    in registers (a lane's serial sums, then warp scans of the lane totals),
+    above it the tiled kernel runs; both sum in another order than the
+    plain cumulative sums, so they agree to f32 rounding.  203 rays: the
+    last block is short."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    x, g, needs = _k2_case(203, s, seed=s + 1, form=form)
+    _check_k2(x, g, needs, f"S={s} {form}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("s", [64, 384, 513])
+def test_composite_backward_kernel_opaque_on_card(s):
+    """Seed 84's rays with sigma x 400 (T underflows to 0 mid-ray: the
+    suffix must be summed from the later samples alone), every cotangent,
+    on the register kernel (64, 384) and the tiled one (513)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    x, g, needs = _k2_case(64, s, seed=84, form="all", opaque=True)
+    assert float(torch.exp(-torch.cumsum(x[0] * x[1], -1))[:, -1].max()) == 0
+    _check_k2(x, g, needs, f"S={s} opaque")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("s", [192, 384])
+def test_composite_backward_tiled_matches_register_on_card(s):
+    """At the train configs' lengths the tiled kernel (``tiled=True``) and
+    the register kernel both agree with the plain backward, and the register
+    kernel also takes inputs whose addresses allow no vector loads (a view
+    4 bytes into its storage)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    x, g, needs = _k2_case(1000, s, seed=3, form="train")
+    _check_k2(x, g, needs, f"S={s} tiled", tiled=True)
+    _check_k2(x, g, needs, f"S={s} register")
+    shifted = []
+    for t in x:
+        flat = torch.empty(t.numel() + 1, device="cuda")[1:]
+        shifted.append(flat.view(t.shape).copy_(t))
+    assert shifted[0].data_ptr() % 16 == 4
+    _check_k2(shifted, g, needs, f"S={s} unaligned")

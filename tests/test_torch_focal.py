@@ -240,6 +240,50 @@ def test_field_density_block_stage_matches_jax(focal_mode, with_shared):
     assert field.global_feat.grad is None and field.block_feats.grad is None
 
 
+@pytest.mark.parametrize("layout", ["packed", "anchored"])
+@pytest.mark.parametrize("with_shared", [False, True])
+def test_residual_sum_is_the_encodes_own(layout, with_shared, monkeypatch):
+    """At ``STAGE_BLOCK`` in residual mode, in either hash layout, the
+    block's encode is given the frozen global encode as its base (over it
+    in place unless the shared branch reads the global features again), so
+    the field adds no pass of its own; the densities equal those of the
+    separate sum bit for bit."""
+    from gfnerf_tpu_torch.fields import field as T
+
+    extra = (dict(hash_layout="anchored", log2_hashmap_size=12,
+                  features_per_level=2, block_rows_log2=10)
+             if layout == "anchored" else FOCAL["residual"])
+    _, _, _, field = field_pair(seed=2, block_scale=0.3,
+                                **{**extra, "focal_mode": "residual"})
+    warp, anc = _field_inputs(field.cfg.n_volumes)
+    tw, ta = torch.as_tensor(warp), torch.as_tensor(anc)
+    name = "hash_encode" if layout == "anchored" else "packed_hash_encode"
+    encode = getattr(T, name)
+    calls = []
+
+    def spy(*args):
+        calls.append(args)
+        return encode(*args)
+
+    monkeypatch.setattr(T, name, spy)
+    with torch.no_grad():
+        got = T.field_density(field, tw, ta, T.STAGE_BLOCK, 1,
+                              with_shared=with_shared)
+        monkeypatch.setattr(T, name, encode)
+        pts = T._normalized(tw)
+        glob = T._encode(field.cfg, field.global_feat, field.global_prim,
+                         field.global_bias, pts, ta.reshape(-1))
+        dense = 0 if layout == "anchored" else field.cfg.block_dense_levels
+        blk = T._encode(field.cfg, field.block_feats[1], field.block_prims[1],
+                        field.block_biases[1], pts, ta.reshape(-1), dense)
+        want = T._density_head(field, glob + blk, ta.reshape(-1))[0]
+    assert len(calls) == 2
+    base, in_place = calls[1][-2:]
+    assert torch.equal(base, glob) if with_shared else base is not None
+    assert in_place == (not with_shared)
+    assert torch.equal(got[0].reshape(-1), want)
+
+
 def test_field_density_init_stage_ignores_blocks():
     """At the init stage ``with_shared`` adds None and the block arguments
     change nothing."""

@@ -240,6 +240,83 @@ def test_autograd_cpu_takes_plain_pair():
     torch.testing.assert_close(grads[1], ref, rtol=0, atol=0)
 
 
+@pytest.mark.parametrize("c,in_place", [(2, False), (2, True), (4, False),
+                                        (4, True)])
+def test_encode_with_base_is_the_sum(c, in_place):
+    """``hash_encode`` and ``plain_hash_encode`` given a base return ``base +
+    hash_encode`` bit for bit; out of place the base is unchanged, in place
+    the result is the base's own storage.  Masked points add exact zeros."""
+    from gfnerf_tpu_torch.fields.hash_encoding import (hash_encode,
+                                                       hash_encode_raw,
+                                                       plain_hash_encode)
+
+    feat, prim, bias = _tables(c)
+    pts, anc = _points(p=1000, n_invalid=100, seed=c)
+    args = _targs(prim, bias, pts, anc)
+    table = torch.as_tensor(feat)
+    base0 = torch.as_tensor(np.random.default_rng(c).standard_normal(
+        (1000, N_LEVELS * c)).astype(np.float32))
+    want = base0 + hash_encode_raw(table, *args)
+    assert torch.equal(hash_encode_raw(table, *args, base=base0), want)
+    for fn in (hash_encode, plain_hash_encode):
+        base = base0.clone()
+        got = fn(table, *args, base, in_place)
+        assert torch.equal(got, want)
+        assert (got.data_ptr() == base.data_ptr()) == in_place
+        if not in_place:
+            assert torch.equal(base, base0)
+    assert torch.equal(want[args[3] < 0], base0[args[3] < 0])
+
+
+def test_encode_base_checks():
+    """A base that requires a gradient raises, as does ``in_place`` without
+    a base, a base of the wrong shape, or a base with gaps written in place;
+    a base with gaps out of place is copied and gives the same sum."""
+    from gfnerf_tpu_torch.fields.hash_encoding import hash_encode
+
+    feat, prim, bias = _tables(2)
+    pts, anc = _points(p=64)
+    args = _targs(prim, bias, pts, anc)
+    table = torch.as_tensor(feat)
+    cols = N_LEVELS * 2
+    with pytest.raises(ValueError, match="gradient"):
+        hash_encode(table, *args, torch.zeros((64, cols), requires_grad=True))
+    with pytest.raises(ValueError, match="needs a base"):
+        hash_encode(table, *args, None, True)
+    with pytest.raises(ValueError, match="base must be"):
+        hash_encode(table, *args, torch.zeros((64, cols + 1)))
+    wide = torch.ones((64, 2 * cols))
+    gaps = wide[:, ::2]
+    assert not gaps.is_contiguous()
+    with pytest.raises(ValueError, match="contiguous"):
+        hash_encode(table, *args, gaps, True)
+    assert torch.equal(hash_encode(table, *args, gaps),
+                       gaps.contiguous() + hash_encode(table, *args))
+
+
+@pytest.mark.parametrize("in_place", [False, True])
+def test_table_gradient_unchanged_with_base(in_place):
+    """The table's gradient through ``hash_encode`` given a base is the
+    gradient without one (the base is a constant of the sum); in place, the
+    base becomes the output of the table's graph."""
+    from gfnerf_tpu_torch.fields.hash_encoding import hash_encode
+
+    feat, prim, bias = _tables(2)
+    pts, anc = _points(p=512, n_invalid=50)
+    args = _targs(prim, bias, pts, anc)
+    g = torch.as_tensor(np.random.default_rng(1).standard_normal(
+        (512, N_LEVELS * 2)).astype(np.float32))
+    grads = []
+    for base in (None, torch.full((512, N_LEVELS * 2), 0.25)):
+        table = torch.tensor(feat, requires_grad=True)
+        out = hash_encode(table, *args, base, in_place and base is not None)
+        out.backward(g)
+        grads.append(table.grad)
+        if base is not None:
+            assert base.requires_grad == in_place
+    torch.testing.assert_close(grads[1], grads[0], rtol=0, atol=0)
+
+
 def test_wrapper_rejects_what_the_kernels_do_not_take():
     from gfnerf_tpu_torch.fields import hash_encoding as T
 
@@ -258,13 +335,14 @@ def test_wrapper_rejects_what_the_kernels_do_not_take():
 def test_kernels_match_plain_on_card(c, n_levels, log2):
     """H4 against the plain forward (bit for bit) and H5 through autograd
     against the plain table gradient (1e-5 of its largest entry: the same
-    f32 terms, added by atomics in another order): H4 one launch, H5 one
-    per group of 8 / C levels."""
+    f32 terms, added by atomics in another order): one call of each, H4
+    launching once per group of ``FWD_LEVEL_GROUP`` levels, H5 once per
+    group of 8 / C levels."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernels have no CPU mode")
     from gfnerf_tpu_torch.fields.hash_encoding import (
-        hash_backward_reference, hash_encode, hash_encode_raw,
-        init_hash_params)
+        encode_launches, hash_backward_reference, hash_encode,
+        hash_encode_raw, init_hash_params, table_grad_launches)
 
     _, prim, bias = init_hash_params(7, log2, N_VOLUMES, n_levels, c)
     feat = np.random.default_rng(7).uniform(
@@ -272,19 +350,68 @@ def test_kernels_match_plain_on_card(c, n_levels, log2):
     pts, anc = _points(p=(1 << 16) + 37, n_invalid=1000)
     args = [a.cuda() for a in _targs(prim, bias, pts, anc)]
     table = torch.tensor(feat, device="cuda", requires_grad=True)
-    before = (hash_encode.launches, hash_encode.bwd_launches)
+    before = (hash_encode.calls, hash_encode.launches,
+              hash_encode.bwd_launches)
     out = hash_encode(table, *args)
     g = torch.randn(out.shape, device="cuda",
                     generator=torch.Generator("cuda").manual_seed(c))
     out.backward(g)
     torch.cuda.synchronize()
-    assert (hash_encode.launches, hash_encode.bwd_launches) == (
-        before[0] + 1, before[1] + -(-n_levels // (8 // c)))
+    assert (hash_encode.calls, hash_encode.launches,
+            hash_encode.bwd_launches) == (
+        before[0] + 1, before[1] + encode_launches(n_levels),
+        before[2] + table_grad_launches(n_levels, c))
     assert torch.equal(out.detach(), hash_encode_raw(table.detach(), *args))
     assert bool((out[args[3] < 0] == 0).all())
     ref = hash_backward_reference(g, *args, 1 << log2, c)
     np.testing.assert_allclose(table.grad.cpu().numpy(), ref.cpu().numpy(),
                                rtol=0, atol=1e-5 * float(ref.abs().max()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c,n_levels", [(2, 16), (4, 5)])
+@pytest.mark.parametrize("table_type", ["f32", "bf16"])
+@pytest.mark.parametrize("per_launch", [1, 2, 4, 8, 16])
+def test_encode_groupings_and_base_on_card(per_launch, table_type, c,
+                                           n_levels):
+    """H4 at 1, 2, 4, 8 and 16 levels a launch, from the f32 table (each
+    value rounded to bf16 as it is read) and from its bf16 copy, without a
+    base, on a base out of place and in place: each equal to the plain
+    version bit for bit, masked points exactly 0 (or the base's), one
+    launch per group of levels."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    from gfnerf_tpu_torch.fields import hash_encoding as T
+
+    log2 = 14
+    _, prim, bias = T.init_hash_params(7, log2, N_VOLUMES, n_levels, c)
+    feat = np.random.default_rng(7).uniform(
+        -0.5, 0.5, (n_levels, 1 << log2, c)).astype(np.float32)
+    pts, anc = _points(p=(1 << 15) + 37, n_invalid=1000)
+    args = [a.cuda() for a in _targs(prim, bias, pts, anc)]
+    f32 = torch.as_tensor(feat, device="cuda")
+    table = f32 if table_type == "f32" else f32.to(torch.bfloat16)
+    want = T.hash_encode_raw(f32, *args)
+    base = torch.randn(want.shape, device="cuda",
+                       generator=torch.Generator("cuda").manual_seed(c))
+    for form in ("alone", "base", "in_place"):
+        before = T.hash_encode.launches
+        buf = base.clone()
+        got = T._hash_encode_cuda(table, *args,
+                                  base=None if form == "alone" else buf,
+                                  in_place=form == "in_place",
+                                  levels_per_launch=per_launch)
+        torch.cuda.synchronize()
+        assert T.hash_encode.launches - before == \
+            T.encode_launches(n_levels, per_launch)
+        expect = want if form == "alone" else base + want
+        assert torch.equal(got, expect), form
+        assert (got.data_ptr() == buf.data_ptr()) == (form == "in_place")
+        if form == "base":
+            assert torch.equal(buf, base)
+        masked = args[3] < 0
+        assert torch.equal(got[masked], torch.zeros_like(got[masked])
+                           if form == "alone" else base[masked])
 
 
 def _one_cell(p, anchors, shared_bias=False):
@@ -563,3 +690,68 @@ def test_anchored_train_step_matches_jax():
     for k in ("weight_stats", "alpha_stats", "visit_cnt", "trans_idx"):
         np.testing.assert_array_equal(to_np(getattr(to, k)),
                                       np.asarray(getattr(jo, k)), err_msg=k)
+
+
+@pytest.mark.parametrize("penalty", [0.0, 0.1])
+def test_anchored_focal_train_step_matches_jax(penalty):
+    """One focal (block-stage, residual) train step on block 1 of a tiny
+    anchored field against the JAX package's jitted step, from identical
+    parameters, batch, noise and permutations, f32 MLPs.  The block's encode
+    is added to the frozen global one by the encode itself (in place
+    without the empty-space penalty; beside the shared branch's global
+    features with it).
+
+    Held: the losses and per-ray errors to 1e-5 (the one-ulp coordinate
+    differences of ``test_anchored_field_density_matches_jax``'s residual
+    graph stay below that in a step's means); the active table's gradient
+    to 2e-2 of its largest (the JAX backward's bf16 payload) and its update
+    to 1e-5 where the gradient is sure; every frozen parameter and block 0
+    bit-unchanged."""
+    from gfnerf_tpu_torch.engine.optimizers import field_param_groups
+    from gfnerf_tpu_torch.fields.field import STAGE_BLOCK
+
+    jcfg, params, statics, field = field_pair(
+        mlp_dtype="float32", block_scale=0.3, focal_mode="residual",
+        block_rows_log2=10, **ANCHORED)
+    joct, toct = octree_pair()
+    mkw = dict(scale_factor=1.0, samples_budget_per_ray=TRAIN_S,
+               empty_space_penalty_mult=penalty, empty_space_tau=0.5)
+    before = {k: [to_np(p).copy() for p in ps]
+              for k, ps in field_param_groups(field).items()}
+    blocks_before = to_np(field.block_feats).copy()
+    (jstate, _, jm, jerr), noise, perms = jax_train_step(
+        jcfg, params, statics, joct, train_batch(1), mkw, key_seed=6,
+        stage=STAGE_BLOCK, active_block=1)
+    state, _, tm, terr = port_train_step(
+        field, toct, train_batch(1), mkw, noise, perms, stage=STAGE_BLOCK,
+        active_block=1)
+    keys = ["loss", "rgb_loss", "s3im_loss", "psnr"]
+    if penalty:
+        keys.append("empty_space_loss")
+        assert float(jm["empty_space_loss"]) > 1e-6
+    for k in keys:
+        np.testing.assert_allclose(float(tm[k]), float(jm[k]), rtol=1e-5,
+                                   atol=1e-7, err_msg=k)
+    np.testing.assert_allclose(terr.numpy(), np.asarray(jerr), rtol=1e-5,
+                               atol=1e-5)
+    adam = jstate.opt_state.inner_state.inner_states["block"].inner_state[0]
+    jg = np.asarray(adam.mu[1]) / 0.1   # mu was zero: mu = (1 - b1) g
+    scale = float(np.abs(jg).max())
+    assert scale > 0
+    mu = state.opt_state.mu["block"][0]
+    np.testing.assert_allclose(to_np(mu) / 0.1, jg, rtol=2e-2,
+                               atol=2e-2 * scale)
+    sure = np.abs(jg) > 4e-2 * scale
+    assert sure.sum() > 100
+    got = to_np(field.block_feats)
+    np.testing.assert_allclose(got[1][sure],
+                               np.asarray(jstate.params.block_feats)[1][sure],
+                               rtol=0, atol=1e-5)
+    assert not np.array_equal(got[1], blocks_before[1])
+    np.testing.assert_array_equal(got[0], blocks_before[0])
+    for name, ps in field_param_groups(field).items():
+        if name == "block":
+            continue
+        for i, p in enumerate(ps):
+            np.testing.assert_array_equal(to_np(p), before[name][i],
+                                          err_msg=f"{name}[{i}]")
