@@ -91,7 +91,17 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
                 into the block's table; no addition in the encode span;
                 frozen parameters and block 1 bit-unchanged; one step
                 against the plain pairs.
-Before the last line come a JSON object with each kernel's launches, error,
+ 11. pipeline — with the counters reset: gf-nerf-perf through the Trainer
+                (python -m gfnerf_tpu_torch.train's path) on the 48-view
+                synthetic scene: 24 init steps with milestone rebuilds at
+                8 and 16, the transition (48 error-map renders, 10 camera
+                clusters), 2 focal steps on each of the 10 blocks, eval
+                batches (the focal one block-routed), an eval image and a
+                checkpoint; then a fresh Trainer resumed from it for 2
+                steps (see phase_pipeline for the checks); s/step through
+                the Trainer against train_bench's loop on the same steps,
+                the host work around the step, host syncs a step.
+Each phase ends with a [clock] line.  Before the last line come a JSON object with each kernel's launches, error,
 times and bound, and the card's name and power limit; the last line is
 {"ok": true, "device": {...}}.
 
@@ -103,6 +113,7 @@ from __future__ import annotations
 import json
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -2141,15 +2152,411 @@ def phase_parity_focal(wl):
     return launches, {"s_per_step": dt, "rays_per_s": RAYS / dt}
 
 
+# the pipeline phase: gf-nerf-perf through the Trainer with these overrides
+# (apply_override, as the CLI applies them): 24 init steps, then 2 on each
+# of the 10 blocks; milestones at 8 and 16, compaction at 12; the eval
+# batch at steps 21 and 43, an eval image and the checkpoint at 43.  The
+# octree is the config's (max_level 16, bbox_levels 10, 32768 points a
+# leaf, a 128-wide visibility grid: on an H100's host 30.5 s, python -m
+# gfnerf_tpu_torch.octree_bench), and so are the field's widths.
+PIPELINE_INIT_STEPS = 24
+# the resumed step's active table against the continuing run's: H2's float
+# atomics sum in a varying order (the first H100 run: 0.93% of the entries
+# apart, by at most 5e-7); an update of a flipped gradient sign would be
+# the block learning rate, 5e-3
+RESUME_TABLE_ATOL = 1e-5
+PIPELINE_STEPS = 44
+PIPELINE_OVERRIDES = {
+    **{f"pipeline.{part}.{key}": value
+       for part in ("model", "datamanager", "optimizers")
+       for key, value in (("steps_perssampler_init", "24"),
+                          ("steps_per_split_dataset", "2"))},
+    "pipeline.sampler.sub_div_milestones": "8,16",
+    "pipeline.sampler.compact_freq": "12",
+    "pipeline.sampler.ray_march_fineness_decay_end_iter": "16",
+    "steps_per_eval_batch": "22",
+    "steps_per_eval_image": "44",
+    "steps_per_save": "44",
+}
+
+
+def _mean(xs) -> float:
+    import numpy as np
+
+    return float(np.mean(xs)) if len(xs) else float("nan")
+
+
+def phase_pipeline(tmp: Path):
+    """gf-nerf-perf trained through the Trainer on the synthetic scene (48
+    train and 4 val views at 96x72), counted: 24 init steps, the transition
+    (48 error maps, 10 camera clusters, block indices), 20 focal steps over
+    the 10 blocks, eval batches, an eval image and a checkpoint; then a
+    fresh Trainer resumed from the checkpoint for 2 more steps.  Checked:
+    finite losses; both milestone rebuilds grew the tree; 48 error-map
+    renders; 10 clusters; a fresh optimizer state at each of the 10 split
+    switches; during split k only block k's table changed; the eval image's
+    PSNR above its mean-image PSNR; the checkpoint written; the resumed
+    state equal to the saved one bit for bit, its start step 44, and its
+    first step equal to the continuing run's (the loss and every tensor but
+    the active table bit for bit; that table's gradient is summed with
+    float atomics by H2, in an order that varies from run to run, so its
+    update may differ in the last bits: by at most RESUME_TABLE_ATOL, 500
+    times below the block learning rate that a flipped update would
+    show).  Timed: steps through the Trainer, the same step through
+    train_bench's loop, the rebuilds, the transition, an eval batch, the
+    checkpoint's save and load; peak memory; host syncs a step."""
+    import copy
+
+    import numpy as np
+    import torch
+
+    from gfnerf_tpu_torch.configs.config_io import apply_override
+    from gfnerf_tpu_torch.configs.method_configs import get_method
+    from gfnerf_tpu_torch.data.dataparsers import build_dataparser
+    from gfnerf_tpu_torch.engine.trainer import Trainer
+    from gfnerf_tpu_torch.fields.field import STAGE_BLOCK, STAGE_INIT
+    from gfnerf_tpu_torch.pipelines.pipeline import GFNerfPipeline
+    from gfnerf_tpu_torch.train_bench import RAYS, make_batch, run_steps
+    from gfnerf_tpu_torch.utils.synthetic import make_synthetic_npz
+
+    scene = make_synthetic_npz(tmp / "scene", n_train=48, n_val=4,
+                               img_wh=(96, 72))
+
+    def make_trainer(iterations, **extra):
+        cfg = get_method("gf-nerf-perf")
+        for key, value in {**PIPELINE_OVERRIDES,
+                           "max_num_iterations": str(iterations),
+                           "output_dir": str(tmp / "out"),
+                           **extra}.items():
+            apply_override(cfg, key, value)
+        cfg.data = scene
+        return Trainer(cfg, build_dataparser("minimal", scene))
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    trainer = make_trainer(PIPELINE_STEPS)
+    trainer.setup()
+    p = trainer.pipeline
+    setup_s = time.perf_counter() - t0
+    scfg = p.sampler.sampler_config
+    log(f"[pipeline] setup {setup_s:.2f}s: {p.sampler.tree.n_nodes} nodes, "
+        f"{p.sampler.oct_dev.n_leaves} valid leaves; sample_l "
+        f"{scfg.sample_l:.6f}, max_hits {scfg.max_hits}, "
+        f"S={scfg.max_samples}; n_blocks {p.field_cfg.n_blocks}, "
+        f"{p.field_cfg.num_levels} levels x "
+        f"{p.field_cfg.features_per_level}, 2^"
+        f"{p.field_cfg.packed_rows_log2} rows, hidden "
+        f"{p.field_cfg.hidden_dim}, {p.field_cfg.mlp_dtype} MLPs, "
+        f"{p.config.datamanager.train_num_rays_per_batch} rays a batch")
+
+    # instrument the pipeline's callbacks on the instance
+    rec = {"steps": {}, "rebuilds": [], "switches": [], "error_map_renders":
+           0, "evals": [], "saves": [], "split_checks": []}
+    snap = {}
+    get_loss, after = p.get_train_loss_dict, p.after_train_iteration
+    rebuild, render = p.sampler.maybe_rebuild, p.render_camera
+    eval_batch, eval_image = (p.get_eval_loss_dict,
+                              p.get_eval_image_metrics_and_images)
+    save = p.save_checkpoint_state
+
+    def split_of(step):
+        return p.sampler.cur_split_idx(step)
+
+    def get_loss_w(step):
+        k = split_of(step)
+        if k >= 0 and (step == 0 or split_of(step - 1) != k):
+            snap["k"], snap["stack"] = k, p.field.block_feats.detach().clone()
+        t = time.perf_counter()
+        m = get_loss(step)
+        rec["steps"][step] = {"s": time.perf_counter() - t, **m}
+        if k >= 0 and split_of(step + 1) != k:
+            now = p.field.block_feats.detach()
+            changed = [b for b in range(now.shape[0])
+                       if not torch.equal(now[b], snap["stack"][b])]
+            rec["split_checks"].append((snap["k"], changed))
+            del snap["stack"]
+        return m
+
+    def after_w(step):
+        last = p._last_split_idx
+        t = time.perf_counter()
+        after(step)
+        rec["steps"][step]["after_s"] = time.perf_counter() - t
+        if p._last_split_idx != last:
+            rec["switches"].append((step, p._last_split_idx,
+                                    p.state.opt_state.count,
+                                    p.datamanager.split_idx))
+
+    def rebuild_w(step):
+        n = p.sampler.tree.n_nodes
+        t = time.perf_counter()
+        done = rebuild(step)
+        if done:
+            rec["rebuilds"].append((step, n, p.sampler.tree.n_nodes,
+                                    time.perf_counter() - t))
+        return done
+
+    def render_w(*args, **kw):
+        if kw.get("downscale") == 8:
+            rec["error_map_renders"] += 1
+        return render(*args, **kw)
+
+    def eval_batch_w(step):
+        t = time.perf_counter()
+        m = eval_batch(step)
+        torch.cuda.synchronize()
+        rec["evals"].append((step, time.perf_counter() - t,
+                             float(m["eval_psnr"])))
+        return m
+
+    def eval_image_w(step, idx=0):
+        metrics, images = eval_image(step, idx)
+        rec["eval_image"] = (step, idx, metrics)
+        return metrics, images
+
+    def save_w(ckpt_dir, step):
+        t = time.perf_counter()
+        save(ckpt_dir, step)
+        rec["saves"].append((step, time.perf_counter() - t))
+
+    p.get_train_loss_dict, p.after_train_iteration = get_loss_w, after_w
+    p.sampler.maybe_rebuild, p.render_camera = rebuild_w, render_w
+    p.get_eval_loss_dict = eval_batch_w
+    p.get_eval_image_metrics_and_images = eval_image_w
+    p.save_checkpoint_state = save_w
+
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    trainer.train()
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    launches = launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+
+    # the checks
+    steps = rec["steps"]
+    losses = [steps[i]["loss"] for i in range(PIPELINE_STEPS)]
+    if sorted(steps) != list(range(PIPELINE_STEPS)):
+        raise AssertionError(f"pipeline: steps run {sorted(steps)}")
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"pipeline: non-finite losses {losses}")
+    log(f"[pipeline] losses {[round(x, 5) for x in losses]}")
+    log(f"[pipeline] rebuilds (step, nodes before, after, s): "
+        f"{[(s, a, b, round(t, 3)) for s, a, b, t in rec['rebuilds']]}")
+    grown = [s for s, a, b, _ in rec["rebuilds"] if b > a]
+    if grown != [8, 16]:
+        raise AssertionError(f"pipeline: the milestone rebuilds grew the "
+                             f"tree at steps {grown}, expected [8, 16]")
+    maps = sorted((Path(p.sample_tmp_dir) / "npy").glob("*.npy"))
+    log(f"[pipeline] error maps: {rec['error_map_renders']} renders, "
+        f"{len(maps)} files ({maps[0].name} ... {maps[-1].name})")
+    if rec["error_map_renders"] != 48 or len(maps) != 48:
+        raise AssertionError(f"pipeline: {rec['error_map_renders']} "
+                             f"error-map renders and {len(maps)} maps, "
+                             f"expected 48 of each")
+    labels = p.sampler.cameras_labels
+    sizes = np.bincount(labels, minlength=10)
+    log(f"[pipeline] camera clusters: sizes {sizes.tolist()}")
+    if labels.shape != (48,) or len(np.unique(labels)) != 10:
+        raise AssertionError(f"pipeline: camera labels {labels}")
+    log(f"[pipeline] split switches (step, split, optimizer count after, "
+        f"datamanager split): {rec['switches']}")
+    want = [(PIPELINE_INIT_STEPS + 2 * k, k, 0, k) for k in range(10)]
+    if rec["switches"] != want:
+        raise AssertionError(f"pipeline: split switches {rec['switches']}, "
+                             f"expected {want}")
+    log(f"[pipeline] blocks changed during each split: "
+        f"{rec['split_checks']}")
+    if rec["split_checks"] != [(k, [k]) for k in range(10)]:
+        raise AssertionError(f"pipeline: blocks changed by split "
+                             f"{rec['split_checks']}")
+    step, idx, metrics = rec["eval_image"]
+    gt = p.datamanager.next_eval_image(idx)[1]["image"]
+    trivial = float(-10.0 * np.log10(np.mean((gt - gt.mean(axis=(0, 1)))
+                                             ** 2)))
+    log(f"[pipeline] eval image {idx} at step {step}: "
+        f"{json.dumps(metrics)}; mean-image PSNR {trivial:.4f}")
+    if not metrics["psnr"] > trivial:
+        raise AssertionError(f"pipeline: eval PSNR {metrics['psnr']} not "
+                             f"above the mean image's {trivial}")
+    log(f"[pipeline] eval batches (step, s, PSNR): {rec['evals']}")
+    ckpt = trainer.checkpoint_dir / f"step-{PIPELINE_STEPS - 1:09d}"
+    if not (ckpt / "state.pt").is_file():
+        raise AssertionError(f"pipeline: no checkpoint at {ckpt}")
+    h1, h2 = launches["packed_hash_fwd"], launches["packed_hash_bwd"]
+    log(f"[pipeline] launches in the run: {launches}")
+    wl = {"fcfg": p.field_cfg}
+    focal = PIPELINE_STEPS - PIPELINE_INIT_STEPS
+    if (launches["composite_bwd"] != PIPELINE_STEPS
+            or h2 != PIPELINE_STEPS * table_grad_launches(wl)
+            or h1 < PIPELINE_INIT_STEPS + 2 * focal
+            or launches["composite_fwd"] < PIPELINE_STEPS
+            or launches["packed_hash_routed"] < 1
+            or launches["hash_anchored_fwd"] or launches["hash_anchored_bwd"]):
+        raise AssertionError(f"pipeline: launches {launches}")
+
+    # resume from the checkpoint: the Trainer's setup builds the pipeline
+    # on the checkpoint's octree and march config, then loads the rest
+    load = GFNerfPipeline.load_checkpoint_state
+    loads = []
+
+    def load_w(self, ckpt_dir):
+        t = time.perf_counter()
+        out = load(self, ckpt_dir)
+        torch.cuda.synchronize()
+        loads.append(time.perf_counter() - t)
+        return out
+
+    GFNerfPipeline.load_checkpoint_state = load_w
+    try:
+        t0 = time.perf_counter()
+        trainer2 = make_trainer(PIPELINE_STEPS + 2, load_dir=str(
+            trainer.checkpoint_dir))
+        trainer2.setup()
+        torch.cuda.synchronize()
+        resume_setup_s = time.perf_counter() - t0
+    finally:
+        GFNerfPipeline.load_checkpoint_state = load
+    p2 = trainer2.pipeline
+    if trainer2._start_step != PIPELINE_STEPS or len(loads) != 1:
+        raise AssertionError(f"resumed at {trainer2._start_step} after "
+                             f"{len(loads)} loads")
+    for (name, a), b in zip(p.field.state_dict().items(),
+                            p2.field.state_dict().values()):
+        if not torch.equal(a, b):
+            raise AssertionError(f"resumed {name} differs from the saved")
+    for part in ("mu", "nu"):
+        for name, xs in getattr(p.state.opt_state, part).items():
+            for a, b in zip(xs, getattr(p2.state.opt_state, part)[name]):
+                if not ((a is None and b is None) or torch.equal(a, b)):
+                    raise AssertionError(f"resumed Adam {part} of {name}")
+    if (p2.state.opt_state.count, p2.state.step) != \
+            (p.state.opt_state.count, p.state.step):
+        raise AssertionError("resumed optimizer count or step differs")
+    if not (torch.equal(p2.generator.get_state(), p.generator.get_state())
+            and p2.sampler.tree.n_nodes == p.sampler.tree.n_nodes
+            and p2.sampler.sampler_config == p.sampler.sampler_config
+            and np.array_equal(p2.sampler.cameras_labels, labels)):
+        raise AssertionError("resumed generator, tree, march config or "
+                             "labels differ")
+    # one step each from the same state on the same batch: the continuing
+    # run's first, then the resumed Trainer's 2 steps, held against it
+    # after its first
+    p2.datamanager = copy.deepcopy(p.datamanager)
+    m1 = get_loss(PIPELINE_STEPS)
+    active = p.sampler.cur_split_idx(PIPELINE_STEPS)
+    resumed, diff = {}, {}
+    get_loss2 = p2.get_train_loss_dict
+
+    def get_loss2_w(step):
+        resumed[step] = get_loss2(step)
+        if step == PIPELINE_STEPS:
+            diff.update(bitwise=True, off_share=0.0, off_max=0.0)
+            for (name, a), b in zip(p.field.state_dict().items(),
+                                    p2.field.state_dict().values()):
+                if torch.equal(a, b):
+                    continue
+                diff["bitwise"] = False
+                if name != "block_feats":
+                    raise AssertionError(f"resumed step: {name} differs")
+                for blk in range(a.shape[0]):
+                    d = (a[blk] - b[blk]).abs()
+                    if blk != active and bool(d.any()):
+                        raise AssertionError(f"resumed step: block {blk} "
+                                             f"differs")
+                d = (a[active] - b[active]).abs()
+                diff.update(off_share=float((d > 0).float().mean()),
+                            off_max=float(d.max()))
+        return resumed[step]
+
+    p2.get_train_loss_dict = get_loss2_w
+    trainer2.train()
+    m2 = resumed[PIPELINE_STEPS]
+    log(f"[pipeline] resumed at step {trainer2._start_step}: state, march "
+        f"config and tree equal to the saved ones; its step "
+        f"{PIPELINE_STEPS} against the continuing run's: loss "
+        f"{m2['loss']!r} vs {m1['loss']!r}, every tensor bit for bit: "
+        f"{diff['bitwise']} (block {active}'s table: "
+        f"{diff['off_share']:.3g} of entries apart, at most "
+        f"{diff['off_max']:.3g})")
+    if m1["loss"] != m2["loss"] or diff["off_max"] > RESUME_TABLE_ATOL:
+        raise AssertionError("the resumed step differs from the continuing "
+                             "run's")
+    if sorted(resumed) != [PIPELINE_STEPS, PIPELINE_STEPS + 1] or not all(
+            np.isfinite(m["loss"]) for m in resumed.values()):
+        raise AssertionError(f"resumed steps {resumed}")
+    load_s = loads[0]
+
+    # times: the Trainer's steps (without the first 2 of each stage and the
+    # rebuild steps), the same step through train_bench's loop
+    rebuild_steps = {s for s, *_ in rec["rebuilds"]}
+    init_s = [steps[i]["s"] for i in range(2, PIPELINE_INIT_STEPS)
+              if i not in rebuild_steps]
+    init1_s = [steps[i]["s"] for i in range(16, PIPELINE_INIT_STEPS)
+               if i not in rebuild_steps]
+    focal_s = [steps[i]["s"] for i in range(PIPELINE_INIT_STEPS + 2,
+                                            PIPELINE_STEPS)]
+    switch_s = [steps[s]["after_s"] for s, *_ in rec["switches"][1:]]
+    images = np.asarray(p.datamanager.train_dataset.metadata[
+        "images_array"], np.float32) / 255.0
+    dev = p.device
+    gen = torch.Generator(device=dev).manual_seed(0)
+    bench = {"step_fn": p._train_step[STAGE_INIT],
+             "focal_step_fn": p._train_step[STAGE_BLOCK],
+             "state": p.state, "oct_dev": p.sampler.oct_dev,
+             "cams": p.cameras_dev, "fineness": 1.0}
+    batches = [make_batch(images, RAYS, 400 + i, dev) for i in range(6)]
+    run_steps(bench, batches[:1], gen)
+    bench_init, _ = run_steps(bench, batches[1:], gen)
+    run_steps(bench, batches[:1], gen, focal_block=0)
+    bench_focal, _ = run_steps(bench, batches[1:], gen, focal_block=0)
+    p.state = bench["state"]
+    p.sampler.oct_dev = bench["oct_dev"]
+    syncs = {"init": host_syncs(lambda: get_loss(1)),
+             "focal": host_syncs(lambda: get_loss(PIPELINE_STEPS + 2))}
+    stats = {
+        "setup_s": setup_s, "train_s": train_s,
+        "init_s_per_step": _mean(init_s),
+        "init_s_per_step_fineness_1": _mean(init1_s),
+        "focal_s_per_step": _mean(focal_s),
+        "bench_init_s_per_step": _mean(bench_init),
+        "bench_focal_s_per_step": _mean(bench_focal),
+        "rebuilds_s": {s: t for s, _, _, t in rec["rebuilds"]},
+        "transition_s": steps[PIPELINE_INIT_STEPS]["after_s"],
+        "split_switch_s": _mean(switch_s),
+        "eval_batch_s": [t for _, t, _ in rec["evals"]],
+        "checkpoint_save_s": [t for _, t in rec["saves"]],
+        "checkpoint_load_s": load_s, "resume_setup_s": resume_setup_s,
+        "peak_bytes": peak, "host_syncs": syncs,
+        "eval_psnr": float(metrics["psnr"]), "mean_image_psnr": trivial,
+        "nodes": p.sampler.tree.n_nodes,
+        "max_hits": p.sampler.sampler_config.max_hits,
+    }
+    log(f"[pipeline] Trainer: {_mean(init_s):.4f} s/init step "
+        f"({_mean(init1_s):.4f} at fineness 1), {_mean(focal_s):.4f} s/focal"
+        f" step; train_bench's loop on the same steps: "
+        f"{_mean(bench_init):.4f} init, {_mean(bench_focal):.4f} focal; "
+        f"host syncs a step: {syncs}; peak {peak / 2**30:.3f} GiB")
+    return launches, stats
+
+
 def main() -> int:
     if not (REPO / "gfnerf_tpu_torch").is_dir():
         print("chip_smoke: gfnerf_tpu_torch/ not found beside this script",
               file=sys.stderr)
         return 1
     sys.path.insert(0, str(REPO))
+    start = time.perf_counter()
+
+    def clock(name):
+        log(f"[clock] {name} done at {time.perf_counter() - start:.1f}s")
+
     card = phase_device()
     phase_build()
+    clock("build")
     report = phase_kernels(n_samples=384)
+    clock("kernels")
     import torch
 
     from gfnerf_tpu_torch.train_bench import build_train_workload
@@ -2164,16 +2571,26 @@ def main() -> int:
         f"{scfg.sample_l:.6f}")
     paths, stats = {}, {}
     paths["render"], stats["render"], encode = phase_render(wl)
+    clock("render")
     paths["train"], stats["train"], (hash_fwd, hash_bwd) = phase_train(wl)
+    clock("train")
     paths["focal_train"], stats["focal_train"] = phase_focal(wl)
+    clock("focal")
     paths["focal_render"], stats["focal_render"], routed = \
         phase_focal_render(wl)
+    clock("focal render")
     del wl
     torch.cuda.empty_cache()
     paths["parity_train"], stats["parity_train"], (anc_fwd, anc_bwd), wl = \
         phase_parity()
+    clock("parity")
     paths["parity_focal"], stats["parity_focal"] = phase_parity_focal(wl)
+    clock("parity focal")
     del wl
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(prefix="gfnerf_pipeline_") as tmp:
+        paths["pipeline"], stats["pipeline"] = phase_pipeline(Path(tmp))
+    clock("pipeline")
     for name, *parts in (("packed_hash_fwd", encode, hash_fwd),
                          ("packed_hash_bwd", hash_bwd),
                          ("packed_hash_routed", routed),

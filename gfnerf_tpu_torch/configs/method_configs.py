@@ -1,0 +1,150 @@
+"""Method registry.
+
+Port of ``gfnerf_tpu/configs/method_configs.py`` for the GF-NeRF methods
+whose paths are ported: ``gf-nerf`` (the paper's defaults), ``gf-nerf-tiny``
+(smoke tests) and ``gf-nerf-perf`` (packed supercell tables, 8 levels x 4
+channels, bf16 MLPs, 160 march slots).  The JAX package's other methods
+raise a "not ported" error from :func:`get_method`.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Dict
+
+from gfnerf_tpu_torch.data.datamanager import GFNerfDataManagerConfig
+from gfnerf_tpu_torch.engine.optimizers import OptimizersConfig
+from gfnerf_tpu_torch.engine.trainer import TrainerConfig
+from gfnerf_tpu_torch.models.gfnerf import GFNeRFModelConfig
+from gfnerf_tpu_torch.pipelines.pipeline import GFNerfPipelineConfig
+from gfnerf_tpu_torch.sampler.manager import PersSamplerManagerConfig
+
+# the JAX package's registered methods that have no port yet
+NOT_PORTED = ("gf-nerf-prop", "nerfacto", "instant-ngp", "mipnerf",
+              "tensorf", "neus", "vanilla-nerf", "nerfplayer-nerfacto",
+              "nerfplayer-ngp", "semantic-nerfw")
+
+
+def gf_nerf_config() -> TrainerConfig:
+    """The paper method, defaults from gfnerf/config.py:43-148."""
+    n_blocks = 10
+    n_split_dataset = 10
+    n_dataset_circles = 1
+    steps_init = 30000
+    steps_per_split = 10000
+    return TrainerConfig(
+        method_name="gf-nerf",
+        steps_per_eval_batch=1000,
+        steps_per_save=2000,
+        max_num_iterations=steps_init
+        + n_dataset_circles * steps_per_split * n_split_dataset,
+        pipeline=GFNerfPipelineConfig(
+            datamanager=GFNerfDataManagerConfig(
+                n_split_dataset=n_split_dataset,
+                steps_per_split_dataset=steps_per_split,
+                steps_perssampler_init=steps_init,
+                train_num_rays_per_batch=2048 * 4,
+                eval_num_rays_per_batch=2048,
+                train_num_images_to_sample_from=500,
+                train_num_times_to_repeat_images=1000,
+                patch_size=1,
+            ),
+            model=GFNeRFModelConfig(
+                n_blocks=n_blocks,
+                n_split_dataset=n_split_dataset,
+                steps_per_split_dataset=steps_per_split,
+                steps_perssampler_init=steps_init,
+                scale_factor=10.0,
+                s3im_patch_height=32,
+                background_color="black",
+            ),
+            sampler=PersSamplerManagerConfig(),
+            optimizers=OptimizersConfig(
+                fields_lr_init=1e-2,
+                fields_lr_final=1e-4,
+                steps_perssampler_init=steps_init,
+                steps_per_split_dataset=steps_per_split,
+                n_split_dataset=n_split_dataset,
+                n_dataset_circles=n_dataset_circles,
+            ),
+            field_log2_hashmap_size=21,
+            field_num_levels=16,
+            field_hidden_dim=128,
+            field_hidden_dim_color=128,
+            eval_num_rays_per_chunk=2048,
+        ),
+    )
+
+
+def gf_nerf_tiny_config() -> TrainerConfig:
+    """Shrunk config for smoke tests and small scenes."""
+    cfg = gf_nerf_config()
+    cfg.method_name = "gf-nerf-tiny"
+    cfg.max_num_iterations = 30
+    p = cfg.pipeline
+    p.datamanager.train_num_rays_per_batch = 256
+    p.datamanager.eval_num_rays_per_batch = 256
+    p.datamanager.n_split_dataset = 2
+    p.datamanager.steps_per_split_dataset = 10
+    p.datamanager.steps_perssampler_init = 10
+    p.model.n_blocks = 2
+    p.model.n_split_dataset = 2
+    p.model.steps_per_split_dataset = 10
+    p.model.steps_perssampler_init = 10
+    p.model.s3im_patch_height = 16
+    p.model.scale_factor = 1.0
+    p.sampler.bbox_levels = 4
+    p.sampler.max_level = 6
+    p.sampler.max_samples = 64
+    p.sampler.sample_l = 1.0 / 32
+    p.sampler.sub_div_milestones = (4, 8)
+    p.sampler.compact_freq = 10
+    p.sampler.node_capacity = 16384
+    p.sampler.n_rand_pts = 512
+    p.sampler.vis_res_w = 32
+    p.sampler.ray_march_fineness_decay_end_iter = 10
+    p.field_log2_hashmap_size = 12
+    p.eval_num_rays_per_chunk = 512
+    p.optimizers.steps_perssampler_init = 10
+    p.optimizers.steps_per_split_dataset = 10
+    p.optimizers.n_split_dataset = 2
+    cfg.steps_per_eval_batch = 10
+    cfg.steps_per_eval_image = 10 ** 9
+    cfg.steps_per_save = 10 ** 9
+    return cfg
+
+
+def gf_nerf_perf_config() -> TrainerConfig:
+    """Throughput-tuned gf-nerf: supercell-packed hash tables, 8 levels x 4
+    channels of 2^15 rows of 128, bf16 MLPs, and the march at the sample
+    budget (160 slots, so that no compaction runs)."""
+    cfg = gf_nerf_config()
+    cfg.method_name = "gf-nerf-perf"
+    p = cfg.pipeline
+    p.field_num_levels = 8
+    p.field_features_per_level = 4
+    p.field_hash_layout = "packed"
+    p.field_mlp_dtype = "bfloat16"
+    p.field_packed_rows_log2 = 15
+    p.model.samples_budget_per_ray = 160
+    p.sampler.max_samples = 160
+    # the JAX package's K steps per dispatch; the port runs one step per
+    # dispatch (the pipeline says so once)
+    p.steps_per_dispatch = 8
+    return cfg
+
+
+method_configs: Dict[str, Callable[[], TrainerConfig]] = {
+    "gf-nerf": gf_nerf_config,
+    "gf-nerf-tiny": gf_nerf_tiny_config,
+    "gf-nerf-perf": gf_nerf_perf_config,
+}
+
+def get_method(name: str) -> TrainerConfig:
+    """A fresh config of the registered method ``name``."""
+    if name in NOT_PORTED:
+        raise NotImplementedError(f"method {name!r} is not ported; ported: "
+                                  f"{sorted(method_configs)}")
+    if name not in method_configs:
+        raise KeyError(f"unknown method {name!r}; available: "
+                       f"{sorted(method_configs)}")
+    return method_configs[name]()

@@ -1,0 +1,192 @@
+"""GF-NeRF data manager.
+
+Port of ``gfnerf_tpu/data/datamanager.py`` (nerfstudio's
+``GFNerfDataManager``, base_datamanager.py:541-993) for one card:
+
+- the full train dataset and the "init" dataset, a linspaced subset of at
+  most ``max_init_images`` cameras (:660-686);
+- ``setup_train_split_oct`` (:783-861): on a split change, select the
+  cameras of one cluster, attach the error maps the pipeline rendered at
+  the transition, rebuild the image cache and pick the error-guided pixel
+  sampler;
+- ``next_train`` (:923-948): init or split cache, the ray batch with the
+  sampled ray indices for the pipeline's error-map write-back
+  (gf_pipeline.py:179-186), and ``focal_uniform_fraction``'s full-scene
+  rays at the end of a focal batch;
+- ``next_eval`` / ``next_eval_image``.
+
+Host side: numpy image caches and samplers; a batch is a dict of
+fixed-shape numpy arrays.  The parallel-blocks paths
+(``setup_train_splits_parallel``, ``next_train_parallel``) join with the
+multi-card focal stage.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import os
+from pathlib import Path
+from typing import Dict, Optional
+
+import numpy as np
+
+from gfnerf_tpu_torch.data.dataparsers.base import DataparserOutputs
+from gfnerf_tpu_torch.data.dataset import ImageCache, InputDataset
+from gfnerf_tpu_torch.data.pixel_samplers import (
+    ErrorPixelSampler,
+    PixelSampler,
+    collate_batch,
+)
+
+
+@dataclasses.dataclass
+class GFNerfDataManagerConfig:
+    n_split_dataset: int = 10
+    steps_per_split_dataset: int = 10000
+    steps_perssampler_init: int = 30000
+    train_num_rays_per_batch: int = 8192
+    eval_num_rays_per_batch: int = 2048
+    train_num_images_to_sample_from: int = 500
+    train_num_times_to_repeat_images: int = 1000
+    patch_size: int = 1
+    max_init_images: int = 100000   # base_datamanager.py:662
+    # fraction of each focal batch drawn uniformly from the full (init)
+    # dataset; these rays sit at the end of the batch (``n_split_rays``
+    # marks the boundary) and stay out of the error-map write-back
+    focal_uniform_fraction: float = 0.0
+
+
+class GFNerfDataManager:
+    def __init__(self, config: GFNerfDataManagerConfig, dataparser,
+                 seed: int = 0):
+        self.config = config
+        self.dataparser = dataparser
+        self.seed = seed
+        self.split_idx = -1
+
+        self.train_dataparser_outputs: DataparserOutputs = (
+            dataparser.get_dataparser_outputs(split="train"))
+        self.eval_dataparser_outputs: DataparserOutputs = (
+            dataparser.get_dataparser_outputs(split="val"))
+        self.train_dataset = InputDataset(self.train_dataparser_outputs)
+        self.eval_dataset = InputDataset(self.eval_dataparser_outputs)
+
+        # init dataset: linspaced subset (base_datamanager.py:660-686)
+        n_cameras = len(self.train_dataparser_outputs.cameras)
+        k = min(n_cameras, config.max_init_images)
+        init_indices = np.linspace(0, n_cameras - 1, k, dtype=np.int32)
+        self.init_outputs = self.train_dataparser_outputs.select(init_indices)
+        self.train_dataset_init = InputDataset(self.init_outputs)
+
+        self.setup_train()
+        self.setup_eval()
+
+    def setup_train(self):
+        cfg = self.config
+        self.init_cache = ImageCache(
+            self.train_dataset_init,
+            num_images_to_sample_from=cfg.train_num_images_to_sample_from,
+            num_times_to_repeat=cfg.train_num_times_to_repeat_images,
+            seed=self.seed)
+        self.init_pixel_sampler = PixelSampler(
+            cfg.train_num_rays_per_batch, cfg.patch_size, seed=self.seed)
+        self.split_cache: Optional[ImageCache] = None
+        self.split_pixel_sampler: Optional[PixelSampler] = None
+        self.split_outputs: Optional[DataparserOutputs] = None
+
+    def setup_eval(self):
+        self.eval_cache = ImageCache(self.eval_dataset, seed=self.seed + 1)
+        self.eval_pixel_sampler = PixelSampler(
+            self.config.eval_num_rays_per_batch, seed=self.seed + 1)
+
+    def _build_split(self, camera_labels: np.ndarray, cur_split_idx: int,
+                     sample_tmp_dir: Optional[str]):
+        """(outputs, sel, cache, sampler) for one cluster's focal split."""
+        cfg = self.config
+        error_map_filenames = None
+        if sample_tmp_dir is not None and os.path.isdir(sample_tmp_dir):
+            npy_dir = Path(sample_tmp_dir) / "npy"
+            error_map_filenames = [
+                npy_dir / (os.path.basename(str(f)) + ".npy")
+                for f in self.train_dataparser_outputs.image_filenames]
+
+        sel = np.where(np.asarray(camera_labels).reshape(-1)
+                       == cur_split_idx)[0]
+        outputs = self.train_dataparser_outputs.select(sel)
+        if error_map_filenames is not None:
+            outputs.metadata["error_map_filenames"] = [
+                error_map_filenames[i] for i in sel]
+        cache = ImageCache(
+            InputDataset(outputs),
+            num_images_to_sample_from=cfg.train_num_images_to_sample_from,
+            num_times_to_repeat=cfg.train_num_times_to_repeat_images,
+            seed=self.seed + cur_split_idx)
+        if error_map_filenames is not None:
+            sampler = ErrorPixelSampler(cfg.train_num_rays_per_batch,
+                                        seed=self.seed)
+        else:
+            sampler = PixelSampler(cfg.train_num_rays_per_batch,
+                                   cfg.patch_size, seed=self.seed)
+        return outputs, sel, cache, sampler
+
+    def setup_train_split_oct(self, camera_labels: Optional[np.ndarray],
+                              cur_split_idx: int,
+                              sample_tmp_dir: Optional[str]):
+        """Switch the active focal split (base_datamanager.py:783-861)."""
+        if self.split_idx == cur_split_idx:
+            return
+        if camera_labels is None:
+            raise ValueError("a focal split needs the camera labels")
+        self.split_idx = cur_split_idx
+        (self.split_outputs, self._split_indices, self.split_cache,
+         self.split_pixel_sampler) = self._build_split(
+            camera_labels, cur_split_idx, sample_tmp_dir)
+
+    def next_train(self, step: int) -> Dict[str, np.ndarray]:
+        """Fixed-shape host ray batch (base_datamanager.py:923-948)."""
+        cfg = self.config
+        init_stage = (cfg.steps_perssampler_init > 0
+                      and step < cfg.steps_perssampler_init)
+        if init_stage or self.split_cache is None:
+            cache, sampler = self.init_cache, self.init_pixel_sampler
+            outputs = self.init_outputs
+        else:
+            cache, sampler = self.split_cache, self.split_pixel_sampler
+            outputs = self.split_outputs
+        cache.step()
+        batch = sampler.sample(cache)
+        n_split = batch["image"].shape[0]
+        if (not init_stage and self.split_cache is not None
+                and cfg.focal_uniform_fraction > 0):
+            # full-scene uniform rays at the end of the batch, so that
+            # residual rows shared with empty space elsewhere keep getting
+            # a corrective gradient
+            n_mix = int(round(cfg.focal_uniform_fraction
+                              * cfg.train_num_rays_per_batch))
+            n_mix = min(max(n_mix, 0), cfg.train_num_rays_per_batch - 1)
+            if n_mix > 0:
+                n_split = cfg.train_num_rays_per_batch - n_mix
+                self.init_cache.step()
+                mix_idx = self.init_pixel_sampler.sample_indices_uniform(
+                    self.init_cache, n_mix)
+                mix = collate_batch(self.init_cache, mix_idx)
+                batch = {k: np.concatenate([batch[k][:n_split], mix[k]],
+                                           axis=0)
+                         for k in batch}
+        batch["n_split_rays"] = np.int32(n_split)
+        batch["step"] = np.int32(step)
+        batch["split_idx"] = np.int32(-1 if init_stage else self.split_idx)
+        batch["_cache"] = cache          # for error-map writeback
+        batch["_outputs"] = outputs      # cameras of the active dataset
+        return batch
+
+    def next_eval(self, step: int) -> Dict[str, np.ndarray]:
+        batch = self.eval_pixel_sampler.sample(self.eval_cache)
+        batch["step"] = np.int32(step)
+        batch["_outputs"] = self.eval_dataparser_outputs
+        return batch
+
+    def next_eval_image(self, idx: int):
+        """(camera index, full image) for image-metric eval."""
+        idx = idx % len(self.eval_dataset)
+        return idx, self.eval_dataset.get_data(idx)

@@ -1,0 +1,137 @@
+"""Trainer: the outer loop, checkpoints, eval cadence, logging.
+
+Port of ``gfnerf_tpu/engine/trainer.py`` (nerfstudio's ``trainer.py``,
+:90-479) for one card: setup (pipeline, config file, writer, checkpoint),
+the train loop with the pipeline's after-iteration callbacks, the periodic
+eval, and checkpoints in ``step-{:09d}`` directories pruned to the latest.
+The run's config is written as ``config.json``.  The viewer and its
+pause/stop control are not ported.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import os
+import shutil
+import time
+from pathlib import Path
+from typing import Optional
+
+from gfnerf_tpu_torch.configs.config_io import config_to_json
+from gfnerf_tpu_torch.pipelines.pipeline import GFNerfPipelineConfig
+from gfnerf_tpu_torch.utils.writer import (ETA, ITER_TRAIN_TIME,
+                                           TRAIN_RAYS_PER_SEC, EventWriter,
+                                           TimeWriter)
+
+
+@dataclasses.dataclass
+class TrainerConfig:
+    method_name: str = "gf-nerf"
+    experiment_name: Optional[str] = None
+    timestamp: str = "{timestamp}"
+    output_dir: Path = Path("outputs")
+    max_num_iterations: int = 130000
+    steps_per_eval_batch: int = 1000
+    steps_per_eval_image: int = 5000
+    steps_per_save: int = 2000
+    steps_per_log: int = 10
+    save_only_latest_checkpoint: bool = True
+    load_dir: Optional[Path] = None
+    load_step: Optional[int] = None
+    vis: str = "local"
+    data: Optional[Path] = None
+    device: str = "cuda"
+    pipeline: GFNerfPipelineConfig = dataclasses.field(
+        default_factory=GFNerfPipelineConfig)
+
+    def get_base_dir(self) -> Path:
+        exp = self.experiment_name or (Path(self.data).name if self.data
+                                       else "unnamed")
+        if self.timestamp == "{timestamp}":
+            self.timestamp = time.strftime("%Y-%m-%d_%H%M%S")
+        return Path(self.output_dir) / exp / self.method_name / self.timestamp
+
+
+class Trainer:
+    def __init__(self, config: TrainerConfig, dataparser):
+        self.config = config
+        self.dataparser = dataparser
+        self._start_step = 0
+
+    def setup(self):
+        cfg = self.config
+        self.writer = EventWriter(cfg.vis, steps_per_log=cfg.steps_per_log)
+        self.base_dir = cfg.get_base_dir()
+        os.makedirs(self.base_dir, exist_ok=True)
+        self.checkpoint_dir = self.base_dir / "nerfstudio_models"
+        (self.base_dir / "config.json").write_text(config_to_json(cfg))
+        ckpt_dir = (self._checkpoint_to_load() if cfg.load_dir is not None
+                    else None)
+        # a resumed pipeline takes its octree and march config from the
+        # checkpoint instead of building and calibrating them
+        self.pipeline = cfg.pipeline.build(self.dataparser, self.base_dir,
+                                           cfg.device, checkpoint=ckpt_dir)
+        if ckpt_dir is not None:
+            step = self.pipeline.load_checkpoint_state(ckpt_dir)
+            self._start_step = step + 1
+            print(f"[trainer] resumed from {ckpt_dir} at step "
+                  f"{self._start_step}")
+
+    def train(self):
+        cfg = self.config
+        num_rays = cfg.pipeline.datamanager.train_num_rays_per_batch
+        t_start = time.perf_counter()
+        for step in range(self._start_step, cfg.max_num_iterations):
+            with TimeWriter(None, ITER_TRAIN_TIME, step) as t:
+                metrics = self.pipeline.get_train_loss_dict(step)
+                self.pipeline.after_train_iteration(step)
+            if step % cfg.steps_per_log == 0:
+                self.writer.put_scalar(ITER_TRAIN_TIME, t.duration, step)
+                self.writer.put_scalar(TRAIN_RAYS_PER_SEC,
+                                       num_rays / t.duration, step)
+                frac = (step + 1 - self._start_step) / max(
+                    cfg.max_num_iterations - self._start_step, 1)
+                elapsed = time.perf_counter() - t_start
+                self.writer.put_scalar(ETA, elapsed / frac - elapsed, step)
+                self.writer.put_dict(metrics, step)
+                self.writer.flush(step)
+            self.eval_iteration(step)
+            if (step + 1) % cfg.steps_per_save == 0:
+                self.save_checkpoint(step)
+        last = cfg.max_num_iterations - 1
+        if not (last >= self._start_step
+                and (last + 1) % cfg.steps_per_save == 0):
+            self.save_checkpoint(last)   # unless the loop just saved it
+
+    def eval_iteration(self, step: int):
+        cfg = self.config
+        if (step + 1) % cfg.steps_per_eval_batch == 0:
+            metrics = self.pipeline.get_eval_loss_dict(step)
+            self.writer.put_dict(
+                {f"Eval Batch/{k}": v for k, v in metrics.items()}, step)
+        if (step + 1) % cfg.steps_per_eval_image == 0:
+            metrics, images = (
+                self.pipeline.get_eval_image_metrics_and_images(step))
+            self.writer.put_dict(
+                {f"Eval Images/{k}": v for k, v in metrics.items()}, step)
+            for name, img in images.items():
+                self.writer.put_image(f"Eval Images/{name}", img, step)
+
+    def save_checkpoint(self, step: int):
+        """trainer.py:351-379: step-{:09d} dirs, pruned to the latest."""
+        ckpt_dir = self.checkpoint_dir / f"step-{step:09d}"
+        os.makedirs(ckpt_dir, exist_ok=True)
+        self.pipeline.save_checkpoint_state(ckpt_dir, step)
+        if self.config.save_only_latest_checkpoint:
+            for other in sorted(self.checkpoint_dir.glob("step-*")):
+                if other != ckpt_dir:
+                    shutil.rmtree(other)
+
+    def _checkpoint_to_load(self) -> Path:
+        load_dir = Path(self.config.load_dir)
+        if self.config.load_step is not None:
+            return load_dir / f"step-{self.config.load_step:09d}"
+        found = sorted(load_dir.glob("step-*"))
+        if not found:
+            raise FileNotFoundError(f"no checkpoint under {load_dir}")
+        return found[-1]

@@ -127,7 +127,8 @@ def _check_supported(cfg: FieldConfig) -> None:
 def init_field_params(cfg: FieldConfig, seed: int = 0):
     """(FieldParams, FieldStatics) in numpy, bit-identical to the JAX
     package's ``init_field_params`` (field.py:163-274): the same generator
-    draws in the same order."""
+    draws in the same order.  The block tables, zero at the start, are a
+    read-only broadcast of one zero."""
     _check_supported(cfg)
     rng = np.random.default_rng(seed)
     feat_in = cfg.num_levels * cfg.features_per_level
@@ -145,9 +146,13 @@ def init_field_params(cfg: FieldConfig, seed: int = 0):
             log2_table_size=(rows_log2 if rows_log2 is not None
                              else cfg.log2_hashmap_size), **kw)
 
+    def zeros(shape):
+        # one zero broadcast: GFNeRFField makes the table on its device
+        return np.broadcast_to(np.zeros((), np.float32), shape)
+
     g_feat, g_prim, g_bias = make_table("reset")
     if cfg.n_blocks > 0 and cfg.focal_mode == "finetune":
-        block_feats = np.zeros((cfg.n_blocks,) + g_feat.shape, g_feat.dtype)
+        block_feats = zeros((cfg.n_blocks,) + g_feat.shape)
         block_prims = np.broadcast_to(
             g_prim[None], (cfg.n_blocks,) + g_prim.shape).copy()
         block_biases = np.broadcast_to(
@@ -155,7 +160,7 @@ def init_field_params(cfg: FieldConfig, seed: int = 0):
     elif cfg.n_blocks > 0:
         bts = [make_table("zero", cfg.block_rows_log2)
                for _ in range(cfg.n_blocks)]
-        block_feats = np.stack([b[0] for b in bts], axis=0)
+        block_feats = zeros((cfg.n_blocks,) + bts[0][0].shape)
         block_prims = np.stack([b[1] for b in bts], axis=0)
         block_biases = np.stack([b[2] for b in bts], axis=0)
     else:
@@ -187,8 +192,11 @@ class GFNeRFField(nn.Module):
         self.cfg = cfg
 
         def param(x):
-            return nn.Parameter(torch.tensor(
-                np.asarray(x, np.float32), device=device))
+            x = np.asarray(x, np.float32)
+            if x.size and not any(x.strides):   # one value broadcast
+                return nn.Parameter(torch.full(x.shape, float(x.flat[0]),
+                                               device=device))
+            return nn.Parameter(torch.tensor(x, device=device))
 
         def buf(x, dtype):
             return (None if x is None else torch.tensor(

@@ -52,11 +52,27 @@ RES_FINE_POW_2 = 10.0   # Hash3DAnchored.h:20
 RES_BASE_POW_2 = 3.0    # Hash3DAnchored.h:22
 
 
+# the odd primes below 128: trial division by them rejects about 77% of
+# odd 30-bit candidates before Miller-Rabin
+_SMALL_PRIMES = [p for p in range(3, 128, 2)
+                 if all(p % q for q in range(3, int(p ** 0.5) + 1, 2))]
+
+
 def _is_prime_vec(n: np.ndarray) -> np.ndarray:
-    """Deterministic Miller-Rabin for 32-bit ints (bases 2, 7, 61), vectorized."""
+    """Deterministic Miller-Rabin for 32-bit ints (bases 2, 7, 61), vectorized;
+    the candidates with a small odd factor are rejected first."""
     n = n.astype(np.uint64)
+    live = (n % 2 == 1) & (n > 2)
+    for p in _SMALL_PRIMES:
+        live &= (n % np.uint64(p) != 0) | (n == p)
+    res = np.zeros(n.shape, dtype=bool)
+    res[live] = _miller_rabin(n[live])
+    return res
+
+
+def _miller_rabin(n: np.ndarray) -> np.ndarray:
+    """Miller-Rabin with bases 2, 7 and 61 on odd uint64 n < 2^32."""
     res = np.ones(n.shape, dtype=bool)
-    res &= (n % 2 == 1) & (n > 2)
     d = (n - 1) >> 1
     r = np.ones_like(n)
     more = (d % 2 == 0)

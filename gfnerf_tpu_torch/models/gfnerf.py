@@ -63,13 +63,18 @@ from gfnerf_tpu_torch.utils.profiling import span
 @dataclasses.dataclass
 class GFNeRFModelConfig:
     """The fields of the JAX package's ``GFNeRFModelConfig``
-    (gfnerf/config.py:88-130) that the render path and the train step read,
-    with its defaults.  The block count lives on
-    ``FieldConfig``; the split schedule lives on ``OptimizersConfig``.  The
-    train loss is the one the JAX defaults select (method_configs.py:62-67),
-    fixed: Charbonnier plus S3IM at weight 1, kernel 4, stride 4, 10
-    repeats, patch height 32."""
+    (gfnerf/config.py:88-130) that the render path, the train step and the
+    pipeline read, with its defaults.  The pipeline reads the block count
+    and the split schedule.  The train loss is the one the JAX defaults
+    select (method_configs.py:62-67), fixed: Charbonnier plus S3IM at
+    weight 1, kernel 4, stride 4, 10 repeats; the S3IM patch height is
+    ``s3im_patch_height``."""
 
+    n_blocks: int = 10
+    n_split_dataset: int = 10
+    steps_per_split_dataset: int = 10000
+    steps_perssampler_init: int = 30000
+    s3im_patch_height: int = 32
     scale_factor: float = 10.0
     background_color: str = "black"   # "black" | "white" | "last_sample"
     samples_budget_per_ray: int = 256
@@ -305,7 +310,9 @@ def make_train_step(model_cfg: GFNeRFModelConfig, sampler_cfg: SamplerConfig,
                     model_cfg.empty_space_penalty_mult
                     * torch.sum(delta * empty)
                     / torch.clamp(torch.sum(empty), min=1.0))
-            losses["s3im_loss"] = s3im_loss(out["rgb"], target, s3im_perms)
+            losses["s3im_loss"] = s3im_loss(
+                out["rgb"], target, s3im_perms,
+                patch_height=model_cfg.s3im_patch_height)
             total = sum(losses.values())
         with span("backward"):
             # at the block stage the frozen parameters stay out of the

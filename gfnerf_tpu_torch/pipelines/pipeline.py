@@ -1,0 +1,560 @@
+"""GF-NeRF pipeline: datamanager + sampler + field + optimizer state.
+
+Port of ``gfnerf_tpu/pipelines/pipeline.py`` (``GFNerfPipeline``,
+gf_pipeline.py:77-299, with the model's training callbacks,
+nerfacto.py:323-520) for one card: host-side stage logic around the train
+and render functions of ``models/gfnerf.py``.
+
+- ``get_train_loss_dict``: the host batch, sent to the device in one copy;
+  the stage's train step; at the focal stage the per-ray error written
+  back into the active split's error maps (gf_pipeline.py:179-186); at the
+  init stage the octree's milestone rebuilds and compaction.  The metrics
+  (and at the focal stage the per-ray error) come back in one copy.
+- ``after_train_iteration``: at the transition (init -> block) the error
+  maps of every train view at 1/8 resolution (nerfacto.py:361-427), the
+  camera clustering (nerfacto.py:354-359), the octree's block indices and,
+  in finetune mode, every block table seeded with the global one; at every
+  split change a fresh optimizer state and the split's datamanager.
+- eval: per-ray block routing over an eval ray batch (the packed layout
+  renders one chunked stream, each ray with its nearest camera's block);
+  full images with PSNR, SSIM and the LPIPS proxy.
+- checkpoints: the field, the optimizer state, the step and the march's
+  random generator through ``torch.save``; the host octree, camera labels
+  and milestones as the JAX package's npz.
+
+Not ported: the K-steps-per-dispatch scan (``steps_per_dispatch`` is kept
+so that configs round-trip; one step runs per call), the parallel-blocks
+mesh, the early-termination renderer and the PNG previews of the error
+maps.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import json
+import os
+import sys
+import time
+from pathlib import Path
+from typing import Callable, Dict, Optional
+
+import numpy as np
+import torch
+
+from gfnerf_tpu_torch.cameras.cameras import (generate_rays,
+                                              generate_rays_multi,
+                                              get_image_coords)
+from gfnerf_tpu_torch.data.datamanager import (GFNerfDataManager,
+                                               GFNerfDataManagerConfig)
+from gfnerf_tpu_torch.engine.optimizers import (OptimizersConfig, OptState,
+                                                build_optimizer,
+                                                field_param_groups)
+from gfnerf_tpu_torch.fields.field import (STAGE_BLOCK, STAGE_INIT,
+                                           FieldConfig, GFNeRFField,
+                                           init_field_params)
+from gfnerf_tpu_torch.model_components.lpips import lpips
+from gfnerf_tpu_torch.models.gfnerf import (GFNeRFModelConfig, TrainState,
+                                            init_train_state, make_render_fn,
+                                            make_train_step)
+from gfnerf_tpu_torch.sampler.manager import (PersSamplerManager,
+                                              PersSamplerManagerConfig)
+from gfnerf_tpu_torch.sampler.octree import PersOctree
+from gfnerf_tpu_torch.sampler.perssampler import SamplerConfig
+
+# (step, rays, samples) -> (march noise (R, S), S3IM permutations (9, R))
+Draws = Callable[[int, int, int], tuple]
+
+
+@dataclasses.dataclass
+class GFNerfPipelineConfig:
+    datamanager: GFNerfDataManagerConfig = dataclasses.field(
+        default_factory=GFNerfDataManagerConfig)
+    model: GFNeRFModelConfig = dataclasses.field(
+        default_factory=GFNeRFModelConfig)
+    sampler: PersSamplerManagerConfig = dataclasses.field(
+        default_factory=PersSamplerManagerConfig)
+    optimizers: OptimizersConfig = dataclasses.field(
+        default_factory=OptimizersConfig)
+    field_log2_hashmap_size: int = 21
+    field_num_levels: int = 16
+    field_features_per_level: int = 2
+    field_hash_layout: str = "anchored"   # "anchored" | "packed"
+    field_packed_rows_log2: int = 15
+    field_block_rows_log2: Optional[int] = None
+    field_block_dense_levels: int = 0
+    field_focal_mode: str = "residual"    # "residual" | "finetune"
+    field_mlp_dtype: str = "float32"      # "float32" | "bfloat16"
+    field_density_bias: float = 1.0
+    field_hidden_dim: int = 128
+    field_hidden_dim_color: int = 128
+    use_appearance_embedding: bool = True
+    # False: focal splits sample pixels uniformly (the error maps are still
+    # rendered)
+    use_error_sampling: bool = True
+    eval_num_rays_per_chunk: int = 2048
+    camera_bounds: tuple = (0.01, 512.0)   # gf_pipeline.py:117-120
+    seed: int = 42
+    # the JAX package's K steps per dispatch; the port runs one step per
+    # call whatever it says
+    steps_per_dispatch: int = 1
+
+    def build(self, dataparser, base_dir, device="cuda",
+              draws: Optional[Draws] = None, checkpoint=None):
+        return GFNerfPipeline(self, dataparser, base_dir, device, draws,
+                              checkpoint)
+
+
+def _opt_state_dict(s: OptState) -> dict:
+    return {"count": s.count, "mu": s.mu, "nu": s.nu,
+            "total_notfinite": s.total_notfinite,
+            "last_finite": s.last_finite}
+
+
+class GFNerfPipeline:
+    def __init__(self, config: GFNerfPipelineConfig, dataparser,
+                 base_dir: Path, device="cuda",
+                 draws: Optional[Draws] = None, checkpoint=None):
+        """``draws``: the march noise and S3IM permutations of each step
+        (tests inject the JAX package's); None draws them from a
+        ``torch.Generator`` seeded with ``config.seed``.  ``checkpoint``: a
+        checkpoint directory whose octree and march config the sampler
+        takes instead of building and calibrating its own (the caller
+        then loads the rest with ``load_checkpoint_state``)."""
+        self.config = config
+        self.base_dir = Path(base_dir)
+        self.device = torch.device(device)
+        self.draws = draws
+        mcfg = config.model
+        if config.steps_per_dispatch > 1:
+            print(f"[pipeline] steps_per_dispatch={config.steps_per_dispatch}"
+                  " is not ported: one step per dispatch", file=sys.stderr)
+
+        self.datamanager = GFNerfDataManager(config.datamanager, dataparser,
+                                             seed=config.seed)
+        cams = self.datamanager.train_dataparser_outputs.cameras
+        n_cameras = len(cams)
+        bounds = np.tile(np.asarray(config.camera_bounds, np.float32),
+                         (n_cameras, 1))
+        saved = (_read_host_state(checkpoint) if checkpoint is not None
+                 else {})
+        self.sampler = PersSamplerManager(
+            c2w=cams.camera_to_worlds,
+            intri=cams.intrinsics_matrices(),
+            bounds=bounds,
+            config=config.sampler,
+            n_split_dataset=mcfg.n_split_dataset,
+            steps_per_split_dataset=mcfg.steps_per_split_dataset,
+            steps_perssampler_init=mcfg.steps_perssampler_init,
+            device=self.device,
+            tree=saved.get("tree"),
+            sampler_config=saved.get("sampler_config"),
+        )
+        # block centers = every (n_cams/n_blocks)-th camera (nerfacto.py:232-241)
+        step_n = max(n_cameras // mcfg.n_blocks, 1)
+        self.block_centers = np.stack([
+            cams.camera_to_worlds[min(i * step_n, n_cameras - 1), :, 3]
+            for i in range(mcfg.n_blocks)])
+
+        self.field_cfg = FieldConfig(
+            num_images=n_cameras,
+            hidden_dim=config.field_hidden_dim,
+            hidden_dim_color=config.field_hidden_dim_color,
+            log2_hashmap_size=config.field_log2_hashmap_size,
+            num_levels=config.field_num_levels,
+            features_per_level=config.field_features_per_level,
+            n_blocks=mcfg.n_blocks,
+            n_volumes=self.sampler.n_volumes,
+            use_appearance_embedding=config.use_appearance_embedding,
+            hash_layout=config.field_hash_layout,
+            packed_rows_log2=config.field_packed_rows_log2,
+            block_rows_log2=config.field_block_rows_log2,
+            block_dense_levels=config.field_block_dense_levels,
+            focal_mode=config.field_focal_mode,
+            mlp_dtype=config.field_mlp_dtype,
+            density_bias=config.field_density_bias,
+        )
+        params, statics = init_field_params(self.field_cfg, seed=config.seed)
+        self.field = GFNeRFField(self.field_cfg, params, statics,
+                                 device=self.device)
+        self.tx = build_optimizer(dataclasses.replace(
+            config.optimizers,
+            steps_perssampler_init=mcfg.steps_perssampler_init,
+            steps_per_split_dataset=mcfg.steps_per_split_dataset,
+            n_split_dataset=mcfg.n_split_dataset))
+        self.state = init_train_state(self.field, self.tx)
+        self._last_split_idx = -1
+        self.cameras_dev = cams.to_device(self.device)
+        self.eval_cameras_dev = (self.datamanager.eval_dataparser_outputs
+                                 .cameras.to_device(self.device))
+        self.generator = torch.Generator(device=self.device).manual_seed(
+            config.seed)
+        self.sample_tmp_dir: Optional[str] = None
+        self._build_step_fns()
+
+    def _build_step_fns(self):
+        """The train and render functions for the manager's current sampler
+        config (``max_hits`` can grow after a milestone rebuild)."""
+        mcfg = self.config.model
+        scfg = self.sampler.sampler_config
+        self._built_sampler_cfg = scfg
+        self._train_step = {
+            stage: make_train_step(mcfg, scfg, self.tx, stage)
+            for stage in (STAGE_INIT, STAGE_BLOCK)}
+        self._render_chunk = make_render_fn(mcfg, scfg)
+
+    # --------------------------------------------------------------- train ----
+
+    def stage_of(self, step: int) -> int:
+        mcfg = self.config.model
+        init = (mcfg.steps_perssampler_init > 0
+                and step < mcfg.steps_perssampler_init)
+        return STAGE_INIT if init else STAGE_BLOCK
+
+    def _device_batch(self, batch: dict) -> dict:
+        """The step's batch on the device, in one host-to-device copy: the
+        camera indices travel as float32, exact below 2^24."""
+        host = np.concatenate([
+            batch["rel_camera_indices"][:, None].astype(np.float32),
+            batch["coords"], batch["image"]], axis=1)
+        dev = torch.from_numpy(host).to(self.device)
+        cam = dev[:, 0].long()
+        return {"camera_indices": cam, "rel_camera_indices": cam,
+                "coords": dev[:, 1:3], "image": dev[:, 3:6]}
+
+    def get_train_loss_dict(self, step: int) -> Dict[str, float]:
+        stage = self.stage_of(step)
+        batch = self.datamanager.next_train(step)
+        cache = batch.pop("_cache")
+        batch.pop("_outputs")
+        dev_batch = self._device_batch(batch)
+        r = dev_batch["image"].shape[0]
+        noise = perms = None
+        if self.draws is not None:
+            noise, perms = self.draws(step, r,
+                                      self.sampler.sampler_config.max_samples)
+            noise = torch.as_tensor(noise, device=self.device)
+            perms = torch.as_tensor(perms, device=self.device).long()
+        self.state, self.sampler.oct_dev, metrics, err = \
+            self._train_step[stage](
+                self.state, self.sampler.oct_dev, self.cameras_dev,
+                dev_batch, self.sampler.fineness(step),
+                generator=self.generator, noise=noise, s3im_perms=perms,
+                active_block=max(self.sampler.cur_split_idx(step), 0))
+
+        # one device-to-host copy: the metrics, and at the focal stage the
+        # per-ray error of the split's rays (the mixed full-scene rays of
+        # focal_uniform_fraction sit at the end and index another cache)
+        names = list(metrics)
+        host = [torch.stack([metrics[k].float() for k in names])]
+        write_back = stage == STAGE_BLOCK and cache.error_maps is not None
+        ns = int(batch["n_split_rays"])
+        if write_back:
+            host.append(err[:ns].float())
+        host = torch.cat(host).cpu().numpy()
+        if write_back:
+            cache.update_error_map(batch["indices"][:ns], host[len(names):])
+
+        if stage == STAGE_INIT and self.sampler.maybe_rebuild(step) \
+                and self.sampler.sampler_config \
+                is not self._built_sampler_cfg:
+            self._build_step_fns()
+        return {k: float(v) for k, v in zip(names, host[:len(names)])}
+
+    def after_train_iteration(self, step: int):
+        """Stage-transition callbacks, in reference registration order
+        (nerfacto.py:516-519): error maps -> clustering -> datamanager."""
+        mcfg = self.config.model
+        if self.stage_of(step) != STAGE_BLOCK:
+            return
+        if self.sampler.cameras_labels is None:
+            self.render_init_error_maps(step)
+            self.sampler.train_cameras_clustering(mcfg.n_blocks)
+            self.sampler.update_block_idxs(self.block_centers)
+            if (self.field_cfg.focal_mode == "finetune"
+                    and self.field.block_feats is not None):
+                # seed every block table with the trained global table once,
+                # in place (the bf16 copy of the stack keys on its version)
+                with torch.no_grad():
+                    self.field.block_feats.copy_(
+                        self.field.global_feat.expand_as(
+                            self.field.block_feats))
+        cur = self.sampler.cur_split_idx(step)
+        if cur != self._last_split_idx:
+            # a fresh optimizer state at each split activation (the
+            # reference's add_optimizer/delete_optimizer swap,
+            # nerfacto.py:448-489); all but the block table are frozen
+            self.state = TrainState(
+                field=self.field,
+                opt_state=self.tx.init(field_param_groups(self.field)),
+                step=self.state.step)
+            self._last_split_idx = cur
+        self.datamanager.setup_train_split_oct(
+            self.sampler.cameras_labels, cur,
+            self.sample_tmp_dir if self.config.use_error_sampling else None)
+
+    # ---------------------------------------------------------------- eval ----
+
+    def get_eval_loss_dict(self, step: int) -> Dict[str, float]:
+        """Eval ray batch metrics (logged every steps_per_eval_batch).  Each
+        camera's rays take the block and appearance of the train camera
+        nearest to it: with the packed layout one chunked stream over the
+        batch, a block per ray; otherwise one stream per (block, nearest
+        camera) group."""
+        batch = self.datamanager.next_eval(step)
+        outputs = batch.pop("_outputs")
+        cam_idx = batch["camera_indices"]
+        coords = torch.as_tensor(batch["coords"], device=self.device)
+        rays = generate_rays_multi(
+            self.eval_cameras_dev,
+            torch.as_tensor(cam_idx, dtype=torch.int64, device=self.device),
+            coords)
+        stage = self.stage_of(step)
+        c2w = outputs.cameras.camera_to_worlds
+        r = len(cam_idx)
+        split_ray = np.zeros(r, np.int64)
+        nearest_ray = np.zeros(r, np.int64)
+        for cam in np.unique(cam_idx):
+            sel = np.nonzero(cam_idx == cam)[0]
+            split_idx, nearest = self.sampler.get_nearest_split_dataset(
+                c2w[cam, :3, 3])
+            split_ray[sel] = max(split_idx, 0)
+            nearest_ray[sel] = nearest
+        routed = (self.field_cfg.hash_layout == "packed"
+                  and self.field_cfg.n_blocks > 0)
+        if routed:
+            groups = [(None, np.arange(r))]
+        else:
+            gmap: Dict[tuple, list] = {}
+            for cam in np.unique(cam_idx):
+                sel = np.nonzero(cam_idx == cam)[0]
+                gmap.setdefault((int(split_ray[sel[0]]),
+                                 int(nearest_ray[sel[0]])), []).append(sel)
+            groups = [(k, np.concatenate(v)) for k, v in gmap.items()]
+        chunk = self.config.eval_num_rays_per_chunk
+        pred = torch.zeros((r, 3), device=self.device)
+        nearest_dev = torch.as_tensor(nearest_ray, device=self.device)
+        split_dev = torch.as_tensor(split_ray, device=self.device)
+        for gkey, sel in groups:
+            for start in range(0, len(sel), chunk):
+                ids = torch.as_tensor(sel[start:start + chunk],
+                                      device=self.device)
+                if routed:
+                    rel, ab = nearest_dev[ids], split_dev[ids]
+                else:
+                    rel, ab = gkey[1], gkey[0]
+                out = self._render_chunk(
+                    self.field, self.sampler.oct_dev, rays["origins"][ids],
+                    rays["directions"][ids], rel, ab, stage == STAGE_BLOCK)
+                pred[ids] = out["rgb"]
+        mse = float(np.mean((pred.cpu().numpy() - batch["image"]) ** 2))
+        return {"eval_rgb_mse": mse,
+                "eval_psnr": -10.0 * np.log10(mse + 1e-12)}
+
+    # ----------------------------------------------------------- rendering ----
+
+    def render_camera(self, cameras_host, cameras_dev, camera_idx: int,
+                      step: int, downscale: int = 1,
+                      rel_camera_index: Optional[int] = None,
+                      stage: Optional[int] = None,
+                      force_split_idx: Optional[int] = None) -> dict:
+        """Chunked full-image render of one camera (numpy (h, w, C)
+        outputs; base_model.py:162-186), with the block of the train camera
+        nearest to it (or ``force_split_idx``)."""
+        h = int(cameras_host.height[camera_idx]) // downscale
+        w = int(cameras_host.width[camera_idx]) // downscale
+        coords = torch.as_tensor(get_image_coords(h, w) * downscale,
+                                 device=self.device)
+        rays = generate_rays(cameras_dev, camera_idx, coords)
+        if stage is None:
+            stage = self.stage_of(step)
+        split_idx, nearest = self.sampler.get_nearest_split_dataset(
+            cameras_host.camera_to_worlds[camera_idx, :3, 3])
+        if force_split_idx is not None:
+            split_idx = force_split_idx
+        if rel_camera_index is None:
+            rel_camera_index = nearest
+        o = rays["origins"].reshape(-1, 3)
+        d = rays["directions"].reshape(-1, 3)
+        chunk = self.config.eval_num_rays_per_chunk
+        outs = [self._render_chunk(
+            self.field, self.sampler.oct_dev, o[s:s + chunk], d[s:s + chunk],
+            int(rel_camera_index), max(split_idx, 0), stage == STAGE_BLOCK)
+            for s in range(0, o.shape[0], chunk)]
+        return {k: torch.cat([out[k] for out in outs]).reshape(h, w, -1)
+                .cpu().numpy() for k in outs[0]}
+
+    def render_init_error_maps(self, step: int):
+        """Render all train views at 1/8 res with the init-stage field and
+        save their |error| maps (nerfacto.py:361-427), which the focal
+        splits' error-guided samplers read."""
+        sample_tmp = self.base_dir / "sample_tmp"
+        self.sample_tmp_dir = str(sample_tmp)
+        os.makedirs(sample_tmp / "npy", exist_ok=True)
+        dm = self.datamanager
+        cams = dm.train_dataparser_outputs.cameras
+        filenames = dm.train_dataparser_outputs.image_filenames
+        gii = dm.train_dataset.metadata["global_image_indices"]
+        down = 8
+        for idx in range(len(cams)):
+            gt = dm.train_dataset.get_image(idx)  # (H, W, 3)
+            h, w = gt.shape[:2]
+            pred = self.render_camera(cams, self.cameras_dev, idx, step,
+                                      downscale=down,
+                                      rel_camera_index=gii[idx],
+                                      stage=STAGE_INIT)["rgb"]
+            # nearest upsample to full res (nerfacto.py:404-406)
+            pred = pred.repeat(down, axis=0).repeat(down, axis=1)[:h, :w]
+            if pred.shape[:2] != (h, w):
+                ph, pw = pred.shape[:2]
+                pred = np.pad(pred, ((0, h - ph), (0, w - pw), (0, 0)),
+                              mode="edge")
+            error = np.abs(gt - pred).sum(axis=-1)  # (H, W)
+            base = os.path.basename(str(filenames[idx]))
+            np.save(sample_tmp / "npy" / (base + ".npy"), error)
+
+    def get_eval_image_metrics_and_images(self, step: int, idx: int = 0):
+        """PSNR, SSIM and the LPIPS proxy on one eval image
+        (gf_pipeline.py:195-268, nerfacto.py:716-747)."""
+        dm = self.datamanager
+        cam_idx, data = dm.next_eval_image(idx)
+        gt = data["image"]
+        t0 = time.perf_counter()
+        out = self.render_camera(dm.eval_dataparser_outputs.cameras,
+                                 self.eval_cameras_dev, cam_idx, step)
+        dt = time.perf_counter() - t0
+        pred = out["rgb"]
+        mse = float(np.mean((pred - gt) ** 2))
+        metrics = {
+            "psnr": -10.0 * np.log10(mse + 1e-12),
+            "ssim": compute_ssim(pred, gt),
+            # not comparable to pretrained-LPIPS tables
+            # (model_components/lpips.py)
+            "lpips_proxy": float(lpips(
+                torch.as_tensor(pred, device=self.device),
+                torch.as_tensor(gt, device=self.device))),
+            "num_rays_per_sec": gt.shape[0] * gt.shape[1] / dt,
+            "fps": 1.0 / dt,
+        }
+        images = {"img": np.concatenate([gt, pred], axis=1),
+                  "depth": out["depth"], "accumulation": out["accumulation"]}
+        return metrics, images
+
+    def get_average_eval_image_metrics(self, step: int):
+        n = len(self.datamanager.eval_dataset)
+        all_metrics = [self.get_eval_image_metrics_and_images(step, i)[0]
+                       for i in range(n)]
+        return {k: float(np.mean([m[k] for m in all_metrics]))
+                for k in all_metrics[0]}
+
+    # ------------------------------------------------------- checkpointing ----
+
+    def save_checkpoint_state(self, ckpt_dir, step: int):
+        """The field, optimizer state, step and march generator via
+        ``torch.save``; the host octree, labels and milestones as npz."""
+        ckpt_dir = Path(ckpt_dir)
+        torch.save({"field": self.field.state_dict(),
+                    "opt_state": _opt_state_dict(self.state.opt_state),
+                    "step": self.state.step,
+                    "generator": self.generator.get_state()},
+                   ckpt_dir / "state.pt")
+        t = self.sampler.tree
+        oct_dev = self.sampler.oct_dev
+
+        def host(x):
+            return x[:t.n_nodes].cpu().numpy()
+
+        np.savez(
+            ckpt_dir / "octree.npz",
+            centers=t.centers, side_lens=t.side_lens, parents=t.parents,
+            childs=t.childs, is_leaf=t.is_leaf,
+            trans_idx=host(oct_dev.trans_idx), block_idx=t.block_idx,
+            weight_stats=host(oct_dev.weight_stats),
+            alpha_stats=host(oct_dev.alpha_stats),
+            visit_cnt=host(oct_dev.visit_cnt),
+            w2xz=t.w2xz, weight=t.weight, t_center=t.t_center,
+            t_dis_summary=t.t_dis_summary, t_side_len=t.t_side_len,
+            milestones=np.asarray(self.sampler.milestones, np.int64),
+            cameras_labels=(self.sampler.cameras_labels
+                            if self.sampler.cameras_labels is not None
+                            else np.array([])),
+            step=step,
+        )
+        (ckpt_dir / "meta.json").write_text(json.dumps(
+            {"step": step, "sample_tmp_dir": self.sample_tmp_dir or "",
+             "sampler_config": dataclasses.asdict(
+                 self.sampler.sampler_config)}))
+
+    def load_checkpoint_state(self, ckpt_dir) -> int:
+        """Restore what ``save_checkpoint_state`` wrote; the field's tensors
+        are written in place.  Returns the checkpoint's step."""
+        ckpt_dir = Path(ckpt_dir)
+        saved = torch.load(ckpt_dir / "state.pt", map_location=self.device,
+                           weights_only=True)
+        self.field.load_state_dict(saved["field"])
+        self.state = TrainState(field=self.field,
+                                opt_state=OptState(**saved["opt_state"]),
+                                step=saved["step"])
+        # a generator's state is a CPU byte tensor, whatever its device
+        self.generator.set_state(saved["generator"].cpu())
+
+        saved = _read_host_state(ckpt_dir)
+        self.sampler.load_tree(saved["tree"])
+        self.sampler.milestones = saved["milestones"]
+        self.sampler.cameras_labels = saved["cameras_labels"]
+        self.sample_tmp_dir = saved["sample_tmp_dir"]
+        # the march config the run had (max_hits grows with the tree)
+        self.sampler.sampler_config = saved["sampler_config"]
+        if self.sampler.sampler_config != self._built_sampler_cfg:
+            self._build_step_fns()
+        return saved["step"]
+
+
+def _read_host_state(ckpt_dir) -> dict:
+    """The host side of a checkpoint that ``save_checkpoint_state`` wrote:
+    the octree, milestones, camera labels, march config, error-map
+    directory and step."""
+    ckpt_dir = Path(ckpt_dir)
+    data = np.load(ckpt_dir / "octree.npz")
+    tree = PersOctree(
+        centers=data["centers"], side_lens=data["side_lens"],
+        parents=data["parents"], childs=data["childs"],
+        is_leaf=data["is_leaf"], trans_idx=data["trans_idx"],
+        block_idx=data["block_idx"],
+        weight_stats=data["weight_stats"].astype(np.int64),
+        alpha_stats=data["alpha_stats"].astype(np.int64),
+        visit_cnt=data["visit_cnt"].astype(np.int64),
+        w2xz=data["w2xz"], weight=data["weight"], t_center=data["t_center"],
+        t_dis_summary=data["t_dis_summary"], t_side_len=data["t_side_len"])
+    labels = data["cameras_labels"]
+    meta = json.loads((ckpt_dir / "meta.json").read_text())
+    return {"tree": tree,
+            "milestones": [int(m) for m in data["milestones"]],
+            "cameras_labels": (labels.astype(np.int64) if labels.size
+                               else None),
+            "sampler_config": SamplerConfig(**meta["sampler_config"]),
+            "sample_tmp_dir": meta["sample_tmp_dir"] or None,
+            "step": int(meta["step"])}
+
+
+def compute_ssim(a: np.ndarray, b: np.ndarray) -> float:
+    """SSIM (gaussian sigma 1.5, standard constants) in numpy."""
+    from scipy.ndimage import gaussian_filter
+
+    a = a.astype(np.float64)
+    b = b.astype(np.float64)
+    c1, c2 = 0.01 ** 2, 0.03 ** 2
+    vals = []
+    for ch in range(a.shape[-1]):
+        x, y = a[..., ch], b[..., ch]
+        mx = gaussian_filter(x, 1.5)
+        my = gaussian_filter(y, 1.5)
+        mxy = gaussian_filter(x * y, 1.5)
+        mxx = gaussian_filter(x * x, 1.5)
+        myy = gaussian_filter(y * y, 1.5)
+        vx = mxx - mx ** 2
+        vy = myy - my ** 2
+        cov = mxy - mx * my
+        s = ((2 * mx * my + c1) * (2 * cov + c2)) / (
+            (mx ** 2 + my ** 2 + c1) * (vx + vy + c2))
+        vals.append(s.mean())
+    return float(np.mean(vals))

@@ -1,8 +1,9 @@
 """Perspective octree sampler — device-side state and the per-point warp.
 
 Port of ``gfnerf_tpu/sampler/perssampler.py``: the padded device octree
-(``OctreeDevice``), its upload (``octree_to_device``), the tree cut of the
-hierarchical march, and the perspective warp ``warp_points`` with its
+(``OctreeDevice``), its upload (``octree_to_device``) and the pull of its
+mutable state back to the host tree (``octree_from_device``), the tree cut
+of the hierarchical march, and the perspective warp ``warp_points`` with its
 Jacobian-direction norm, the occupancy statistics of the init stage
 (``update_oct_nodes``) and the march-fineness anneal
 (``ray_march_fineness``).  The scan march (``get_samples``/
@@ -182,6 +183,23 @@ def octree_to_device(tree: PersOctree, capacity: int,
         warp_weight_flat=dev(weight.reshape(len(weight), 36)),
         t_center=dev(tree.t_center),
         t_dis_summary=dev(tree.t_dis_summary),
+    )
+
+
+def octree_from_device(oct: OctreeDevice, tree: PersOctree) -> PersOctree:
+    """The host tree with the device's mutable state pulled back: the
+    occupancy statistics and the anchors the statistics invalidated."""
+    m = tree.n_nodes
+
+    def host(t, dtype):
+        return t[:m].cpu().numpy().astype(dtype)
+
+    return dataclasses.replace(
+        tree,
+        trans_idx=host(oct.trans_idx, np.int32),
+        weight_stats=host(oct.weight_stats, np.int64),
+        alpha_stats=host(oct.alpha_stats, np.int64),
+        visit_cnt=host(oct.visit_cnt, np.int64),
     )
 
 

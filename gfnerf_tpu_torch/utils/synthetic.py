@@ -1,11 +1,14 @@
 """Synthetic test scenes (analytic renders, no assets needed).
 
-Numpy copies of ``gfnerf_tpu/utils/synthetic.py``'s ``ring_cameras`` and
-``render_spheres``: ring cameras around coloured spheres, images rendered by
-direct ray-sphere intersection with Lambert shading.
+Numpy copies of ``gfnerf_tpu/utils/synthetic.py``'s ``ring_cameras``,
+``render_spheres`` and ``make_synthetic_npz``: ring cameras around coloured
+spheres, images rendered by direct ray-sphere intersection with Lambert
+shading, written as the minimal dataparser's npz files.
 """
 
 from __future__ import annotations
+
+from pathlib import Path
 
 import numpy as np
 
@@ -79,3 +82,30 @@ def render_spheres(c2w, fx, fy, cx, cy, w, h,
             best_t = np.where(hit, t, best_t)
         imgs[i] = img
     return imgs
+
+
+def make_synthetic_npz(path: Path, n_train: int = 24, n_val: int = 3,
+                       img_wh=(64, 48), seed: int = 0) -> Path:
+    """Write train.npz / val.npz consumable by the minimal dataparser: the
+    ring scene's views, ``n_val`` of them drawn as the validation split."""
+    path = Path(path)
+    path.mkdir(parents=True, exist_ok=True)
+    total = n_train + n_val
+    c2w, fx, fy, cx, cy, w, h = ring_cameras(total, img_wh=img_wh)
+    imgs = render_spheres(c2w, fx, fy, cx, cy, w, h)
+    rng = np.random.default_rng(seed)
+    val_idx = rng.choice(total, n_val, replace=False)
+    train_idx = np.setdiff1d(np.arange(total), val_idx)
+
+    def save(split, idx):
+        np.savez(
+            path / f"{split}.npz",
+            images=(imgs[idx] * 255).astype(np.uint8),
+            c2w=c2w[idx], fx=fx[idx], fy=fy[idx], cx=cx[idx], cy=cy[idx],
+            bounds=np.tile(np.array([[0.05, 20.0]], np.float32),
+                           (len(idx), 1)),
+        )
+
+    save("train", train_idx)
+    save("val", val_idx)
+    return path

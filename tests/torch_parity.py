@@ -25,6 +25,24 @@ TREE_KW = dict(max_depth=5, bbox_levels=3, n_rand_pts=512, vis_res_w=16,
                seed=0)
 
 
+def jax_minimal_parser(data):
+    """The JAX package's minimal npz parser with its images named as the
+    port's parser names them (image i of ``train.npz`` is ``train.npz#i``):
+    the JAX parser names every image after the npz, so its error maps would
+    share one file."""
+    from gfnerf_tpu.data.dataparsers.minimal_parser import (
+        MinimalDataParser, MinimalDataParserConfig)
+
+    class PerImageNames(MinimalDataParser):
+        def _generate_dataparser_outputs(self, split="train"):
+            out = super()._generate_dataparser_outputs(split)
+            out.image_filenames = [f.with_name(f"{f.name}#{i}") for i, f
+                                   in enumerate(out.image_filenames)]
+            return out
+
+    return PerImageNames(MinimalDataParserConfig(data=data))
+
+
 def tiny_cameras():
     """(c2w (6, 3, 4), intri (6, 3, 3), bounds (6, 2)) of the tiny scene."""
     from tests.conftest import make_ring_cameras

@@ -1,0 +1,125 @@
+"""The JAX package's pipeline on a scene, recorded for the port's parity test.
+
+Run as a script in a process of its own, with one JAX CPU device (the test
+process forces eight, under which the JAX pipeline shards its batches over a
+mesh, compiles more and is slower; the single-device run is the one-card
+reference).  Usage:
+
+  python tests/torch_pipeline_ref.py SCENE_DIR OUT_DIR STEPS RAYS PATCH_H \
+      LAYOUT
+
+Drives ``GFNerfPipeline`` of ``gf-nerf-tiny`` (with LAYOUT's field
+overrides, ``FIELD_OVERRIDES``, and the port parser's image names) as the
+Trainer does (the train step, then the after-iteration callbacks; the eval
+batch every ``steps_per_eval_batch`` and after the last step) for STEPS
+steps and writes OUT_DIR/ref.npz: each
+step's march noise and S3IM permutations (drawn from the pipeline's own key
+chain), its batch indices, losses and split index; the calibrated
+``sample_l`` and ``max_hits``; the host tree after every milestone rebuild;
+the camera labels, error maps and block indices at the transition; the eval
+PSNR; and the final field parameters.
+"""
+
+from __future__ import annotations
+
+import os
+import sys
+
+TREE_KEYS = ("centers", "side_lens", "parents", "childs", "is_leaf",
+             "trans_idx", "block_idx", "weight_stats", "alpha_stats")
+# the pipeline's field fields per hash layout: gf-nerf-tiny's own, and the
+# packed layout of gf-nerf-perf (8 levels x 4 channels) at 2^10 rows; the
+# MLPs stay f32 in both
+FIELD_OVERRIDES = {
+    "anchored": {},
+    "packed": {"field_hash_layout": "packed", "field_num_levels": 8,
+               "field_features_per_level": 4, "field_packed_rows_log2": 10},
+}
+
+
+def main(scene, out_dir, steps, rays, patch_h, layout):
+    import jax
+    import numpy as np
+
+    jax.config.update("jax_platforms", "cpu")
+    from gfnerf_tpu.configs.method_configs import gf_nerf_tiny_config
+    from torch_parity import jax_minimal_parser
+
+    cfg = gf_nerf_tiny_config()
+    cfg.pipeline.datamanager.train_num_rays_per_batch = rays
+    cfg.pipeline.model.s3im_patch_height = patch_h
+    for key, value in FIELD_OVERRIDES[layout].items():
+        setattr(cfg.pipeline, key, value)
+    p = cfg.pipeline.build(jax_minimal_parser(scene), out_dir)
+    rec = {"sample_l": p.sampler.sampler_config.sample_l,
+           "max_hits0": p.sampler.sampler_config.max_hits}
+    n_rep = cfg.pipeline.model.s3im_repeat_time
+    s = p.sampler.sampler_config.max_samples
+
+    batches = []
+    next_train = p.datamanager.next_train
+
+    def recording_next_train(step):
+        batch = next_train(step)
+        batches.append(np.asarray(batch["indices"]))
+        return batch
+
+    p.datamanager.next_train = recording_next_train
+    noise, perms, losses, splits, rebuilt = [], [], [], [], []
+    for step in range(steps):
+        # the step's own draws (pipeline.py:516, gfnerf.py:512-514,
+        # losses.py:70-73)
+        _, key = jax.random.split(p._rng)
+        k_noise, k_s3im, _ = jax.random.split(key, 3)
+        noise.append(np.asarray(
+            (jax.random.uniform(k_noise, (rays, s)) - 0.5) + 1.0))
+        perms.append(np.stack([np.asarray(jax.random.permutation(k, rays))
+                               for k in jax.random.split(k_s3im,
+                                                         n_rep - 1)]))
+        n_nodes = p.sampler.tree.n_nodes
+        m = p.get_train_loss_dict(step)
+        losses.append([m["loss"], m["rgb_loss"], m["s3im_loss"]])
+        if p.sampler.tree.n_nodes != n_nodes:
+            rebuilt.append(step)
+            for k in TREE_KEYS:
+                rec[f"tree{step}_{k}"] = getattr(p.sampler.tree, k)
+        labelled = p.sampler.cameras_labels is not None
+        p.after_train_iteration(step)
+        if not labelled and p.sampler.cameras_labels is not None:
+            rec["transition"] = step
+            rec["labels"] = p.sampler.cameras_labels
+            rec["block_idx"] = p.sampler.tree.block_idx
+            npy = os.path.join(p.sample_tmp_dir, "npy")
+            rec["error_map_files"] = np.stack(
+                [np.load(os.path.join(npy, f)) for f in sorted(
+                    os.listdir(npy))])
+        splits.append(p.datamanager.split_idx)
+        if (step + 1) % cfg.steps_per_eval_batch == 0 or step == steps - 1:
+            rec[f"eval_psnr{step}"] = p.get_eval_loss_dict(step)["eval_psnr"]
+    cache = p.datamanager.split_cache
+    rec.update(
+        noise=np.stack(noise), perms=np.stack(perms),
+        indices=np.stack(batches), losses=np.asarray(losses),
+        splits=np.asarray(splits), rebuilt=np.asarray(rebuilt),
+        max_hits=p.sampler.sampler_config.max_hits,
+        split_error_maps=cache.error_maps if cache else np.zeros(0),
+        split_cache_indices=cache.indices if cache else np.zeros(0))
+    params = p.state.params
+    rec["global_feat"] = np.asarray(params.global_feat)
+    rec["block_feats"] = np.asarray(params.block_feats)
+    for name in ("base_net", "mlp_head"):
+        for part in ("w", "b"):
+            for i, x in enumerate(getattr(params, name)[part]):
+                rec[f"{name}_{part}{i}"] = np.asarray(x)
+    rec["appearance_embedding"] = np.asarray(params.appearance_embedding)
+    np.savez(os.path.join(out_dir, "ref.npz"), **rec)
+
+
+if __name__ == "__main__":
+    # set before JAX starts; the test module imports FIELD_OVERRIDES only
+    os.environ["JAX_PLATFORMS"] = "cpu"
+    os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=1"
+    sys.path.insert(0, os.path.join(
+        os.path.dirname(os.path.abspath(__file__)), ".."))
+    main(sys.argv[1], sys.argv[2], int(sys.argv[3]), int(sys.argv[4]),
+         int(sys.argv[5]), sys.argv[6])
