@@ -8,7 +8,8 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
                 one process per source, into gfnerf_tpu_torch/_build/ and
                 prints each kernel's registers.
   3. kernels  — each of the seven hand-written kernels against its plain
-                PyTorch version on the card, at the main paths' shapes and
+                PyTorch version on the card, at the main paths' shapes (K2
+                also at gf-nerf's 1024 slots) and
                 at ragged and edge cases (the composite backward where
                 transmittance underflows mid-ray; the hash backward's
                 padding columns and masked anchors; dense levels in a small
@@ -101,6 +102,24 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
                 steps (see phase_pipeline for the checks); s/step through
                 the Trainer against train_bench's loop on the same steps,
                 the host work around the step, host syncs a step.
+ 12. gfnerf   — with the counters reset: gf-nerf, the paper's method, at
+                its full width through the Trainer (8192 rays, 1024 march
+                slots, a budget of 256 field samples a ray: the compacted
+                branch; anchored 16 levels x 2 of 2^21; 10 blocks; f32
+                MLPs): 10 init steps with a milestone rebuild at 8, the
+                transition, 2 focal steps on each of blocks 0 and 1, eval
+                batches, an eval image and a checkpoint; per step K1, K2
+                and H5 once, H4 once at init and twice at the focal stage;
+                then the compaction of a train batch under
+                set_sync_debug_mode("error"), H4 and H5 at the compacted
+                points (K = 2,097,152) against their plain versions, one
+                step against the plain pairs, one step at remat_chunks 8
+                against 0 (loss, gradients, peak memory), init steps at
+                fineness 1 and 16 and a focal step profiled (spans, busy
+                time, idle share), the
+                early-termination renderer against the single pass, and
+                python -m gfnerf_tpu_torch.eval and .render on the
+                checkpoint (PNG frames).
 Each phase ends with a [clock] line.  Before the last line come a JSON object with each kernel's launches, error,
 times and bound, and the card's name and power limit; the last line is
 {"ok": true, "device": {...}}.
@@ -342,16 +361,16 @@ def f32_bytes(*tensors) -> int:
 
 def check_composite_bwd() -> dict:
     """K2 against its plain version at both train configs' shapes (S = 384
-    and 192), a ragged one, a tiny one, one whose transmittance underflows
-    mid-ray, and past the register kernel's 512 samples (the tiled kernel),
-    with every cotangent and gradient; then as the train step calls it,
-    through autograd: cotangents of rgb and acc only, gradients of densities
-    and colours only.  Timed against the plain version in both forms at S =
-    384, and in the train step's form at S = 384 and 192: the register
-    kernel and the tiled kernel in turns, each as the kernels' device time
-    from the profiler and as the wrapper's, 20 calls per event pair.  The
-    train step's form at S = 384 is the one reported, by its device
-    time."""
+    and 192) and gf-nerf's (S = 1024), a ragged one, a tiny one, one whose
+    transmittance underflows mid-ray, and past the register kernel's 512
+    samples (the tiled kernel), with every cotangent and gradient; then as
+    the train step calls it, through autograd: cotangents of rgb and acc
+    only, gradients of densities and colours only.  Timed against the plain
+    version in both forms at S = 384, and in the train step's form at S =
+    384 and 192: the register kernel and the tiled kernel in turns, each as
+    the kernels' device time from the profiler and as the wrapper's, 20
+    calls per event pair; at S = 1024 the tiled kernel alone.  The train
+    step's form at S = 384 is the one reported, by its device time."""
     import torch
 
     from gfnerf_tpu_torch.ops.composite import (
@@ -359,7 +378,8 @@ def check_composite_bwd() -> dict:
 
     errs = []
     for r, s, opaque in ((8192, 384, False), (8192, 192, False),
-                         (1000, 48, False), (7, 33, False), (1000, 48, True),
+                         (8192, 1024, False), (1000, 48, False),
+                         (7, 33, False), (1000, 48, True),
                          (1000, 513, False), (1000, 513, True)):
         x = _composite_inputs(r, s, seed=r + s + 7)
         if opaque:   # sigma*dt up to 10: T underflows to 0 mid-ray
@@ -437,6 +457,27 @@ def check_composite_bwd() -> dict:
             f"tiled {row['tiled_wrapper_ms']:.4f} ms; plain "
             f"{row['plain_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms "
             f"({n_bytes / 1e6:.1f} MB)")
+    # gf-nerf's 1024 slots: past the register kernel's 512, the tiled
+    # kernel alone
+    s = 1024
+    x = _composite_inputs(r, s, seed=2)
+    g = _cotangents(r, s, seed=3)
+    cots = [None, None, g[2], g[3], None]
+    args = (*x, cots, need)
+    n_bytes = f32_bytes(x[0], x[1], x[3], *cots) + 4 * 4 * r * s
+    row = {"ms": kernel_device_ms(lambda: _composite_bwd_cuda(*args),
+                                  "composite_bwd_tiled"),
+           "wrapper_ms": time_ms(lambda: _composite_bwd_cuda(*args), n=21,
+                                 reps=20),
+           "plain_ms": time_ms(lambda: composite_backward_reference(*args)),
+           "bound_ms": n_bytes / HBM_BYTES_PER_S * 1e3}
+    train[s] = row
+    log(f"[kernels] composite_bwd R={r} S={s}, train form (the tiled "
+        f"kernel): device time {row['ms']:.4f} ms, the wrapper, 20 calls "
+        f"per event pair, {row['wrapper_ms']:.4f} ms; plain "
+        f"{row['plain_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms "
+        f"({n_bytes / 1e6:.1f} MB)")
+    del x, g, cots, args
     # the kernels line: the kernel's own time (a wrapper call's host work
     # is about as long as the kernel, so 20 calls per event pair time the
     # host in part)
@@ -446,7 +487,8 @@ def check_composite_bwd() -> dict:
                 bound_by="bytes", library_ms=None,
                 wrapper_ms=main["wrapper_ms"], tiled_ms=main["tiled_ms"],
                 tiled_wrapper_ms=main["tiled_wrapper_ms"],
-                all_cotangents_ms=all_ms, s192=train[192])
+                all_cotangents_ms=all_ms, s192=train[192],
+                s1024=train[1024])
 
 
 def check_hash_bwd() -> float:
@@ -2541,6 +2583,622 @@ def phase_pipeline(tmp: Path):
     return launches, stats
 
 
+# gf-nerf, the paper's registered method, through the Trainer at its full
+# width: 8192 rays, 1024 march slots and a budget of 256 field samples a
+# ray (the compacted branch), the anchored layout of 16 levels x 2
+# channels of 2^21 entries, 10 blocks, f32 MLPs of width 128.  Cut: 10 init
+# steps (the config's 30 k) with the milestone rebuild at 8 (2000) and the
+# fineness anneal over 8 steps (10 k), then 2 steps on each of the first 2
+# of the 10 blocks (10 k each); an eval batch every 7 steps, an eval image
+# and the checkpoint at 14.  The octree and the widths are the config's.
+GFNERF_INIT_STEPS = 10
+GFNERF_FOCAL_BLOCKS = 2
+GFNERF_STEPS = GFNERF_INIT_STEPS + 2 * GFNERF_FOCAL_BLOCKS
+GFNERF_OVERRIDES = {
+    **{f"pipeline.{part}.{key}": value
+       for part in ("model", "datamanager", "optimizers")
+       for key, value in (("steps_perssampler_init", str(GFNERF_INIT_STEPS)),
+                          ("steps_per_split_dataset", "2"))},
+    "pipeline.sampler.sub_div_milestones": "8",
+    "pipeline.sampler.ray_march_fineness_decay_end_iter": "8",
+    "steps_per_eval_batch": "7",
+    "steps_per_eval_image": str(GFNERF_STEPS),
+    "steps_per_save": str(GFNERF_STEPS),
+}
+# (slots, budget, levels, channels, log2 entries, blocks, hidden width,
+# MLP type, layout, rays a step)
+GFNERF_WIDTH = (1024, 256, 16, 2, 21, 10, 128, "float32", "anchored", 8192)
+GFNERF_REMAT_CHUNKS = 8
+# early termination at eps = 0 against the single pass: the JAX tests'
+# tolerance (tests/test_render_early.py), the head and tail composited
+# apart
+ET_RTOL, ET_ATOL = 1e-4, 1e-5
+ET_EPS = 5e-3
+
+
+def _step_counts() -> dict:
+    """The launch counters and H4's and H5's call counters."""
+    from gfnerf_tpu_torch.fields.hash_encoding import hash_encode
+
+    return {**launch_counts(), "hash_anchored_fwd_calls": hash_encode.calls,
+            "hash_anchored_bwd_calls": hash_encode.bwd_calls}
+
+
+def compacted_points(p, batch, noise, fineness):
+    """A train batch's marched samples compacted as model_forward does at
+    the pipeline's budget, without a host sync: compact_samples and a
+    scatter back run under torch.cuda.set_sync_debug_mode("error"), where
+    a sync raises.  Returns the normalized points (K, 3), their anchors
+    (K,) and the number of kept samples."""
+    import torch
+
+    from gfnerf_tpu_torch.cameras.cameras import generate_rays_multi
+    from gfnerf_tpu_torch.models.gfnerf import (compact_samples, sample_rays,
+                                                scatter_slots)
+
+    budget = p.config.model.samples_budget_per_ray
+    with torch.no_grad():
+        rays = generate_rays_multi(p.cameras_dev, batch["camera_indices"],
+                                   batch["coords"])
+        smp = sample_rays(p.sampler.oct_dev, rays["origins"],
+                          rays["directions"], noise, fineness,
+                          p.sampler.sampler_config)
+        torch.cuda.synchronize()
+        r, s = smp.valid.shape
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            idx, anc, _, warp = compact_samples(smp, budget,
+                                                p.sampler.oct_dev)
+            back = scatter_slots(idx, torch.ones_like(warp[:, 0]), r, s)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        keep = smp.valid & (torch.cumsum(smp.valid.int(), 1) <= budget)
+        n_kept = int(keep.sum())
+        if not (torch.equal(back != 0, keep)
+                and int((idx < r * s).sum()) == n_kept):
+            raise AssertionError("compaction: the kept slots are not each "
+                                 "ray's first budget valid samples")
+    return (warp + 1.5) * (1.0 / 3.0), anc, n_kept
+
+
+def time_anchored_at(table, addr, what) -> tuple:
+    """H4 and H5 at one shape: H4 equal to its plain version bit for bit,
+    H5 to H2's tolerance with its reductions per level held against the
+    host's reckoning; each timed (10 calls per event pair) against its
+    plain version, H5 also against index_add_ of the same terms; bounds
+    from the bytes.  Returns (H4's, H5's report)."""
+    import torch
+
+    from gfnerf_tpu_torch.fields import hash_encoding as he
+
+    n_levels, local, c = table.shape
+    p = addr[2].shape[0]
+    want = he.hash_encode_raw(table, *addr)
+    got = he._hash_encode_cuda(table, *addr)
+    torch.cuda.synchronize()
+    fwd_err = max_err([got], [want])
+    if not torch.equal(got, want):
+        raise AssertionError(f"{what} hash_anchored_fwd: max abs err "
+                             f"{fwd_err}, not equal bit for bit")
+    del got, want
+    n_bytes = hash_fwd_bytes(p, n_levels, c, table.numel())
+    fwd = {"max_abs_err": fwd_err,
+           "ms": time_ms(lambda: he._hash_encode_cuda(table, *addr), n=11,
+                         reps=10),
+           "plain_ms": time_ms(lambda: he.hash_encode_raw(table, *addr),
+                               n=3),
+           "bound_ms": n_bytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
+           "library_ms": None, "points": p}
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    g = torch.randn((p, n_levels * c), generator=gen, device="cuda")
+    args = (g, *addr, local, c)
+    ops = torch.zeros(n_levels, dtype=torch.int64, device="cuda")
+    got = he._hash_backward_cuda(*args, red_ops=ops)
+    want = he.hash_backward_reference(*args)
+    reckoned = he.hash_bwd_reductions(*addr)
+    torch.cuda.synchronize()
+    assert_close([got], [want], f"{what} hash_anchored_bwd",
+                 atol_rel=H2_ATOL_REL)
+    if ops.tolist() != reckoned.tolist():
+        raise AssertionError(f"{what} hash_anchored_bwd: reductions "
+                             f"{ops.tolist()}, reckoned {reckoned.tolist()}")
+    bwd_err = max_err([got], [want])
+    del got, want
+    terms = list(he.hash_scatter_terms(*args))
+    rows = torch.cat([t[0] for t in terms])
+    payload = torch.cat([t[1] for t in terms])
+    del terms
+    n_bytes = hash_bwd_bytes(p, n_levels, c, table.numel())
+    bwd = {"max_abs_err": bwd_err,
+           "ms": time_ms(lambda: he._hash_backward_cuda(*args), n=11),
+           "plain_ms": time_ms(lambda: he.hash_backward_reference(*args),
+                               n=3),
+           "bound_ms": n_bytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
+           "library_ms": time_ms(lambda: torch.zeros(
+               (n_levels * local, c), device="cuda").index_add_(
+                   0, rows, payload), n=5),
+           "points": p, "reductions": int(ops.sum())}
+    del rows, payload, g
+    torch.cuda.empty_cache()
+    for name, x in (("hash_anchored_fwd", fwd), ("hash_anchored_bwd", bwd)):
+        log(f"[{what}] {name} at K={p}, L={n_levels}, C={c}, local={local}:"
+            f" max abs err {x['max_abs_err']:.3g}; kernel {x['ms']:.4f} ms, "
+            f"plain {x['plain_ms']:.4f} ms, "
+            + (f"index_add_ {x['library_ms']:.4f} ms, "
+               if x["library_ms"] is not None else "")
+            + f"bound {x['bound_ms']:.4f} ms")
+    return fwd, bwd
+
+
+def remat_step(p, chunks, batch, noise, perms) -> tuple:
+    """One init-stage step at ``remat_chunks = chunks`` from a copy of the
+    pipeline's field, optimizer state and octree.  Returns (the loss, the
+    MLP and table gradients, the device memory the step held at its peak
+    beyond what was allocated before it)."""
+    import copy
+    import dataclasses
+
+    import torch
+
+    from gfnerf_tpu_torch.engine.optimizers import field_param_grads
+    from gfnerf_tpu_torch.models.gfnerf import TrainState, make_train_step
+
+    step_fn = make_train_step(
+        dataclasses.replace(p.config.model, remat_chunks=chunks),
+        p.sampler.sampler_config, p.tx)
+    field = copy.deepcopy(p.field)
+    state = TrainState(field=field,
+                       opt_state=copy.deepcopy(p.state.opt_state),
+                       step=p.state.step)
+    oct_dev = copy.deepcopy(p.sampler.oct_dev)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    state, _, metrics, _ = step_fn(state, oct_dev, p.cameras_dev, batch,
+                                   1.0, noise=noise, s3im_perms=perms)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - before
+    grads = field_param_grads(state.field)
+    return float(metrics["loss"]), grads, peak
+
+
+def profiled_step(p, wl, batch, noise, perms, focal_block=None,
+                  fineness=1.0) -> dict:
+    """One train step at ``fineness`` from a copy of the pipeline's state
+    (an init-stage step, or with ``focal_block`` a block-stage step on
+    that block from a fresh optimizer state), timed on the host clock to
+    its synchronize, then the same step again under profile_device: the
+    stages' device spans, the device's busy time and idle share, the
+    busiest kernels, the host waits."""
+    import copy
+
+    import torch
+
+    from gfnerf_tpu_torch.models.gfnerf import TrainState, init_train_state
+    from gfnerf_tpu_torch.utils.profiling import profile_device
+
+    focal = focal_block is not None
+    step_fn = wl["focal_step_fn" if focal else "step_fn"]
+
+    def fresh():
+        field = copy.deepcopy(p.field)
+        state = (init_train_state(field, p.tx) if focal else
+                 TrainState(field=field,
+                            opt_state=copy.deepcopy(p.state.opt_state),
+                            step=p.state.step))
+        return state, copy.deepcopy(p.sampler.oct_dev)
+
+    def step(state, oct_dev):
+        return step_fn(state, oct_dev, p.cameras_dev, batch, fineness,
+                       noise=noise, s3im_perms=perms,
+                       active_block=focal_block or 0)
+
+    times = []
+    for _ in range(2):
+        state, oct_dev = fresh()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        step(state, oct_dev)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t)
+        del state, oct_dev
+    state, oct_dev = fresh()
+    prof = profile_device(lambda: step(state, oct_dev))
+    del state, oct_dev
+    torch.cuda.empty_cache()
+    step_ms = min(times) * 1e3
+    prof["step_ms"] = step_ms
+    prof["idle_share"] = 1.0 - prof["device_busy_ms"] / step_ms
+    return prof
+
+
+def check_early_term(p, what) -> dict:
+    """The early-termination renderer on the trained field against the
+    single pass, both through the kernels, on eval view 0's rays in one
+    chunk.  Without compaction (budget 0): at eps = 0 equal (ET_RTOL,
+    ET_ATOL), at eps = ET_EPS every ray within eps.  With the config's
+    budget each phase caps its own segment's samples (the JAX package's
+    ``_seg_cfg``), which the single pass does not, so there the difference
+    is reported, not held.  The share of rays that survive phase 1 at
+    each."""
+    import dataclasses
+
+    import torch
+
+    from gfnerf_tpu_torch.cameras.cameras import (generate_rays,
+                                                  get_image_coords)
+    from gfnerf_tpu_torch.models.gfnerf import make_render_fn
+    from gfnerf_tpu_torch.models.render_early import EarlyTermRenderer
+
+    cams = p.datamanager.eval_dataparser_outputs.cameras
+    h, w = int(cams.height[0]), int(cams.width[0])
+    rays = generate_rays(p.eval_cameras_dev, 0, torch.as_tensor(
+        get_image_coords(h, w), device=p.device))
+    o = rays["origins"].reshape(-1, 3)
+    d = rays["directions"].reshape(-1, 3)
+    scfg = p.sampler.sampler_config
+    args = (p.field, p.sampler.oct_dev, o, d, 0, 0,
+            p.stage_of(int(p.state.step)) == 1)
+    out = {}
+    for budget in (0, p.config.model.samples_budget_per_ray):
+        mcfg = dataclasses.replace(p.config.model,
+                                   samples_budget_per_ray=budget)
+        single = make_render_fn(mcfg, scfg)(*args)
+        for eps in (0.0, ET_EPS):
+            et = EarlyTermRenderer(mcfg, scfg, eps=eps)
+            got = et.render_chunk(*args)
+            torch.cuda.synchronize()
+            errs = {k: float((got[k] - single[k]).abs().max())
+                    for k in ("rgb", "accumulation", "depth")}
+            out[f"budget {budget}, eps {eps}"] = {
+                "survivors": et.last_survivor_frac, "errs": errs}
+            log(f"[{what}] early termination, budget {budget}, eps {eps}: "
+                f"s1 {et.s1} of {scfg.max_samples} slots, "
+                f"{et.last_survivor_frac:.4f} of {o.shape[0]} rays survive "
+                f"phase 1; max abs difference from the single pass {errs}")
+            if budget:
+                continue
+            if eps == 0.0:
+                for k in ("rgb", "accumulation", "depth"):
+                    if not torch.allclose(got[k], single[k], rtol=ET_RTOL,
+                                          atol=ET_ATOL):
+                        raise AssertionError(
+                            f"early termination at eps 0: {k} differs from "
+                            f"the single pass")
+            elif max(errs["rgb"], errs["accumulation"]) > eps + ET_ATOL:
+                raise AssertionError(f"early termination at eps {eps}: a "
+                                     f"ray off by {errs}")
+    return out
+
+
+def phase_gfnerf(tmp: Path):
+    """gf-nerf through the Trainer at its full width (GFNERF_OVERRIDES) on
+    the pipeline phase's synthetic scene, counted: every init and focal
+    step launches K1, K2 and H5 once (H5 in one call of a launch per group
+    of levels) and H4 once at the init stage, twice at the focal stage
+    (the block's encode on the global one); the packed kernels never.
+    Checked: finite losses; the milestone rebuild ran; 48 error-map
+    renders; 10 clusters; each focal block's table alone changed in its
+    split; eval batches, the eval image and the checkpoint.  Then, from
+    the trained state: the compaction without a host sync; H4 and H5 at
+    the compacted points (K = 8192 x 256) timed; one step against the
+    plain autograd pairs; one step at remat_chunks 8 against one without
+    (loss and gradients, and the peak memory of each); init steps at
+    fineness 1 and 16 and a focal step profiled (profiled_step); the
+    early termination renderer
+    against the single pass (check_early_term); python -m
+    gfnerf_tpu_torch.eval and .render on the checkpoint.  Timed: s/step
+    (init, focal) and rays/s through the Trainer, peak memory, eval
+    s/image, s/frame with and without early termination."""
+    import numpy as np
+    import torch
+
+    from gfnerf_tpu_torch import eval as eval_entry
+    from gfnerf_tpu_torch import render as render_entry
+    from gfnerf_tpu_torch.configs.config_io import apply_override
+    from gfnerf_tpu_torch.configs.method_configs import get_method
+    from gfnerf_tpu_torch.data.dataparsers import build_dataparser
+    from gfnerf_tpu_torch.engine.trainer import Trainer
+    from gfnerf_tpu_torch.fields.field import STAGE_BLOCK, STAGE_INIT
+    from gfnerf_tpu_torch.fields.hash_encoding import encode_launches
+    from gfnerf_tpu_torch.render import read_png, spiral_cameras
+    from gfnerf_tpu_torch.train_bench import RAYS, make_batch
+    from gfnerf_tpu_torch.utils.synthetic import make_synthetic_npz
+
+    scene = tmp / "scene"
+    if not scene.is_dir():
+        make_synthetic_npz(scene, n_train=48, n_val=4, img_wh=(96, 72))
+    cfg = get_method("gf-nerf")
+    for key, value in {**GFNERF_OVERRIDES,
+                       "max_num_iterations": str(GFNERF_STEPS),
+                       "output_dir": str(tmp / "gfnerf_out")}.items():
+        apply_override(cfg, key, value)
+    cfg.data = scene
+    trainer = Trainer(cfg, build_dataparser("minimal", scene))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    trainer.setup()
+    setup_s = time.perf_counter() - t0
+    p = trainer.pipeline
+    fc, scfg, mcfg = p.field_cfg, p.sampler.sampler_config, p.config.model
+    log(f"[gfnerf] setup {setup_s:.2f}s: {p.sampler.tree.n_nodes} nodes, "
+        f"{p.sampler.n_volumes} volumes; S={scfg.max_samples}, budget "
+        f"{mcfg.samples_budget_per_ray}, sample_l {scfg.sample_l:.6f}, "
+        f"max_hits {scfg.max_hits}; {fc.hash_layout} {fc.num_levels} levels "
+        f"x {fc.features_per_level} of 2^{fc.log2_hashmap_size}, "
+        f"{fc.n_blocks} blocks, hidden {fc.hidden_dim}, {fc.mlp_dtype} MLPs,"
+        f" {p.config.datamanager.train_num_rays_per_batch} rays a batch")
+    width = (scfg.max_samples, mcfg.samples_budget_per_ray, fc.num_levels,
+             fc.features_per_level, fc.log2_hashmap_size, fc.n_blocks,
+             fc.hidden_dim, fc.mlp_dtype, fc.hash_layout,
+             p.config.datamanager.train_num_rays_per_batch)
+    if width != GFNERF_WIDTH:
+        raise AssertionError(f"gf-nerf is not at its full width: {width}")
+
+    rec = {"steps": {}, "rebuilds": [], "maps": 0, "evals": [],
+           "split_checks": []}
+    snap = {}
+    get_loss, rebuild, render = (p.get_train_loss_dict,
+                                 p.sampler.maybe_rebuild, p.render_camera)
+    eval_batch, eval_image = (p.get_eval_loss_dict,
+                              p.get_eval_image_metrics_and_images)
+
+    def get_loss_w(step):
+        k = p.sampler.cur_split_idx(step)
+        if k >= 0 and (step == 0 or p.sampler.cur_split_idx(step - 1) != k):
+            snap["k"], snap["stack"] = k, p.field.block_feats.detach().clone()
+        before = _step_counts()
+        t = time.perf_counter()
+        m = get_loss(step)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t
+        after = _step_counts()
+        rec["steps"][step] = {"s": dt, "counts": {
+            name: after[name] - before[name] for name in after}, **m}
+        if k >= 0 and p.sampler.cur_split_idx(step + 1) != k:
+            now = p.field.block_feats.detach()
+            rec["split_checks"].append((snap.pop("k"), [
+                b for b in range(now.shape[0])
+                if not torch.equal(now[b], snap["stack"][b])]))
+            del snap["stack"]
+        return m
+
+    def rebuild_w(step):
+        n = p.sampler.tree.n_nodes
+        t = time.perf_counter()
+        done = rebuild(step)
+        if done:
+            rec["rebuilds"].append((step, n, p.sampler.tree.n_nodes,
+                                    time.perf_counter() - t))
+        return done
+
+    def render_w(*args, **kw):
+        rec["maps"] += kw.get("downscale") == 8
+        return render(*args, **kw)
+
+    def eval_batch_w(step):
+        t = time.perf_counter()
+        m = eval_batch(step)
+        torch.cuda.synchronize()
+        rec["evals"].append((step, time.perf_counter() - t,
+                             float(m["eval_psnr"])))
+        return m
+
+    def eval_image_w(step, idx=0):
+        t = time.perf_counter()
+        metrics, images = eval_image(step, idx)
+        rec["eval_image"] = (step, time.perf_counter() - t, metrics)
+        return metrics, images
+
+    p.get_train_loss_dict, p.sampler.maybe_rebuild = get_loss_w, rebuild_w
+    p.render_camera, p.get_eval_loss_dict = render_w, eval_batch_w
+    p.get_eval_image_metrics_and_images = eval_image_w
+
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    trainer.train()
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    launches = launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    p.get_train_loss_dict, p.sampler.maybe_rebuild = get_loss, rebuild
+    p.render_camera = render
+    p.get_eval_loss_dict, p.get_eval_image_metrics_and_images = \
+        eval_batch, eval_image
+
+    steps = rec["steps"]
+    if sorted(steps) != list(range(GFNERF_STEPS)):
+        raise AssertionError(f"gf-nerf: steps run {sorted(steps)}")
+    losses = [steps[i]["loss"] for i in range(GFNERF_STEPS)]
+    log(f"[gfnerf] losses {[round(x, 5) for x in losses]}; samples per ray "
+        f"{[round(steps[i]['num_samples_per_ray'], 1) for i in steps]}")
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"gf-nerf: non-finite losses {losses}")
+    h4_groups = encode_launches(fc.num_levels)
+    h5_groups = table_grad_launches({"fcfg": fc})
+    for i in range(GFNERF_STEPS):
+        h4 = 1 if i < GFNERF_INIT_STEPS else 2
+        want = {"composite_fwd": 1, "composite_bwd": 1,
+                "hash_anchored_fwd_calls": h4,
+                "hash_anchored_fwd": h4 * h4_groups,
+                "hash_anchored_bwd_calls": 1,
+                "hash_anchored_bwd": h5_groups}
+        got = steps[i]["counts"]
+        if got != {name: want.get(name, 0) for name in got}:
+            raise AssertionError(f"gf-nerf step {i}: launches {got}, "
+                                 f"expected {want}")
+    log(f"[gfnerf] launches per step as expected: K1, K2 and H5 (a call of "
+        f"{h5_groups} launches) once, H4 once at init and twice at the "
+        f"focal stage ({h4_groups} launches a call), packed kernels never; "
+        f"in the whole run {launches}")
+    log(f"[gfnerf] rebuilds (step, nodes before, after, s): "
+        f"{[(s, a, b, round(t, 3)) for s, a, b, t in rec['rebuilds']]}")
+    if [s for s, *_ in rec["rebuilds"]] != [8]:
+        raise AssertionError(f"gf-nerf: rebuilds {rec['rebuilds']}")
+    labels = p.sampler.cameras_labels
+    if (rec["maps"] != 48 or labels is None
+            or len(np.unique(labels)) != fc.n_blocks):
+        raise AssertionError(f"gf-nerf transition: {rec['maps']} error maps,"
+                             f" labels {labels}")
+    log(f"[gfnerf] transition: 48 error-map renders, clusters "
+        f"{np.bincount(labels, minlength=fc.n_blocks).tolist()}; blocks "
+        f"changed in each split {rec['split_checks']}")
+    if rec["split_checks"] != [(k, [k]) for k in range(GFNERF_FOCAL_BLOCKS)]:
+        raise AssertionError(f"gf-nerf: blocks changed {rec['split_checks']}")
+    step, image_s, metrics = rec["eval_image"]
+    log(f"[gfnerf] eval batches (step, s, PSNR) {rec['evals']}; eval image "
+        f"at step {step} in {image_s:.3f}s: {json.dumps(metrics)}")
+    if len(rec["evals"]) != 2 or not np.isfinite(metrics["psnr"]):
+        raise AssertionError("gf-nerf: eval batches or image missing")
+    ckpt = trainer.checkpoint_dir / f"step-{GFNERF_STEPS - 1:09d}"
+    if not (ckpt / "state.pt").is_file():
+        raise AssertionError(f"gf-nerf: no checkpoint at {ckpt}")
+    rebuild_steps = {s for s, *_ in rec["rebuilds"]}
+    init_s = [steps[i]["s"] for i in range(2, GFNERF_INIT_STEPS)
+              if i not in rebuild_steps]
+    focal_s = [steps[i]["s"] for i in range(GFNERF_INIT_STEPS + 1,
+                                            GFNERF_STEPS, 2)]
+    log(f"[gfnerf] s a step through the Trainer: "
+        f"{[round(steps[i]['s'], 4) for i in range(GFNERF_STEPS)]}")
+    log(f"[gfnerf] Trainer: {_mean(init_s):.4f} s/init step "
+        f"({RAYS / _mean(init_s):.1f} rays/s), {_mean(focal_s):.4f} s/focal "
+        f"step ({RAYS / _mean(focal_s):.1f} rays/s; the second of each "
+        f"block's); peak {peak / 2**30:.3f} GiB; the run {train_s:.1f}s")
+
+    # from the trained state
+    images = np.asarray(p.datamanager.train_dataset.metadata[
+        "images_array"], np.float32) / 255.0
+    gen = torch.Generator(device=p.device).manual_seed(5)
+    wl = {"field": p.field, "state": p.state, "tx": p.tx,
+          "step_fn": p._train_step[STAGE_INIT],
+          "focal_step_fn": p._train_step[STAGE_BLOCK],
+          "oct_dev": p.sampler.oct_dev, "cams": p.cameras_dev,
+          "fineness": 1.0, "scfg": scfg, "fcfg": fc}
+    batch = make_batch(images, RAYS, 600, p.device)
+    noise, perms = step_draws(wl, gen)
+    pts, anc, n_kept = compacted_points(p, batch, noise, 1.0)
+    log(f"[gfnerf] compaction of a train batch without a host sync "
+        f"(set_sync_debug_mode error): {n_kept} of {RAYS} x "
+        f"{scfg.max_samples} slots kept into K = {pts.shape[0]}")
+    if pts.shape[0] != RAYS * mcfg.samples_budget_per_ray:
+        raise AssertionError(f"compaction: K = {pts.shape[0]}")
+    kernels = time_anchored_at(
+        p.field.global_feat.detach(),
+        (p.field.global_prim, p.field.global_bias, pts, anc), "gfnerf")
+    del pts, anc
+    compare_step(wl, "gfnerf", batch, noise, perms)
+    remat = {}
+    for chunks in (0, GFNERF_REMAT_CHUNKS):
+        remat[chunks] = remat_step(p, chunks, batch, noise, perms)
+    (l0, g0, peak0), (l8, g8, peak8) = remat[0], remat[GFNERF_REMAT_CHUNKS]
+    rel = abs(l8 - l0) / abs(l0)
+    errs = {}
+    for name in ("fields", "base_encoding_init"):
+        scale = max(float(g.abs().max()) for g in g0[name])
+        errs[name] = max(float((a - b).abs().max())
+                         for a, b in zip(g8[name], g0[name])) / scale
+    log(f"[gfnerf] one init step at remat_chunks {GFNERF_REMAT_CHUNKS} "
+        f"against 0 from the same state: loss {l8:.7f} vs {l0:.7f} (rel "
+        f"{rel:.3g}, tol {TRAIN_LOSS_RTOL}); gradients apart by {errs} of "
+        f"the group's largest (tol {TRAIN_GRAD_TOL}); peak memory beyond "
+        f"the state {peak8 / 2**30:.3f} GiB against {peak0 / 2**30:.3f} "
+        f"GiB")
+    if rel > TRAIN_LOSS_RTOL or max(errs.values()) > TRAIN_GRAD_TOL:
+        raise AssertionError("remat: the step differs from the one without")
+    del remat, g0, g8
+    torch.cuda.empty_cache()
+    # fineness 16: the first init steps' (the anneal starts there)
+    profiles = {"init step": profiled_step(p, wl, batch, noise, perms),
+                "init step at fineness 16": profiled_step(
+                    p, wl, batch, noise, perms, fineness=16.0),
+                "focal step": profiled_step(p, wl, batch, noise, perms, 0)}
+    for stage, prof in profiles.items():
+        spans = {k: round(v, 2)
+                 for k, v in prof["stage_device_span_ms"].items()}
+        top = [(k["name"][:60], round(k["device_ms"], 3), k["count"])
+               for k in prof["top_kernels"][:8]]
+        log(f"[gfnerf] one {stage}, profiled: {prof['step_ms']:.1f} ms "
+            f"on the host clock (the faster of 2), device busy "
+            f"{prof['device_busy_ms']:.2f} ms, idle share "
+            f"{prof['idle_share']:.3f}; stage device spans (ms) {spans}; "
+            f"busiest kernels {top}; host waits {prof['host_waits']}")
+    et = check_early_term(p, "gfnerf")
+
+    # s/frame along a spiral of 3 frames at the eval views' size, without
+    # and with early termination, in turns
+    cams = spiral_cameras(p.datamanager.eval_dataparser_outputs.cameras,
+                          steps=3)
+    cams_dev = cams.to_device(p.device)
+    frame_s = {False: [], True: []}
+    for early in (False, True, True, False):
+        p.config.eval_early_term = early
+        p._build_early_renderer()
+        for i in range(len(cams)):
+            t = time.perf_counter()
+            render(cams, cams_dev, i, int(p.state.step))
+            torch.cuda.synchronize()
+            frame_s[early].append(time.perf_counter() - t)
+    p.config.eval_early_term = False
+    p._build_early_renderer()
+    log(f"[gfnerf] s/frame at {int(cams.width[0])}x{int(cams.height[0])} "
+        f"along the spiral: {_mean(frame_s[False]):.4f} single pass, "
+        f"{_mean(frame_s[True]):.4f} with early termination (eps "
+        f"{p.config.eval_early_term_eps})")
+
+    # the entry points on the checkpoint
+    config_path = trainer.base_dir / "config.json"
+    del trainer, p, wl, render, get_loss, rebuild, eval_batch, eval_image
+    torch.cuda.empty_cache()
+    t = time.perf_counter()
+    eval_entry.main(["--load-config", str(config_path), "--output-path",
+                     str(tmp / "gfnerf_eval.json")])
+    eval_s = time.perf_counter() - t
+    doc = json.loads((tmp / "gfnerf_eval.json").read_text())
+    res = doc["results"]
+    if not all(np.isfinite(v) for v in res.values()):
+        raise AssertionError(f"gfnerf_tpu_torch.eval: {res}")
+    torch.cuda.empty_cache()
+    t = time.perf_counter()
+    render_entry.main(["--load-config", str(config_path), "--traj",
+                       "spiral", "--spiral-steps", "3", "--output-path",
+                       str(tmp / "gfnerf_frames")])
+    render_s = time.perf_counter() - t
+    frames = sorted((tmp / "gfnerf_frames").glob("*.png"))
+    shapes = [read_png(f).shape for f in frames]
+    if len(frames) != 3 or any(s != (72, 96, 3) for s in shapes):
+        raise AssertionError(f"gfnerf_tpu_torch.render wrote {frames} "
+                             f"{shapes}")
+    log(f"[gfnerf] python -m gfnerf_tpu_torch.eval on the checkpoint in "
+        f"{eval_s:.2f}s: {json.dumps(res)} (s/image "
+        f"{1.0 / res['fps']:.4f}); python -m gfnerf_tpu_torch.render --traj "
+        f"spiral --spiral-steps 3 in {render_s:.2f}s: "
+        f"{[f.name for f in frames]}, each 96x72 RGB")
+    torch.cuda.empty_cache()
+    stats = {
+        "setup_s": setup_s, "train_s": train_s,
+        "init_s_per_step": _mean(init_s), "focal_s_per_step": _mean(focal_s),
+        "init_rays_per_s": RAYS / _mean(init_s),
+        "focal_rays_per_s": RAYS / _mean(focal_s),
+        "peak_bytes": peak, "remat_peak_bytes": {0: peak0, 8: peak8},
+        "rebuilds_s": {s: t for s, _, _, t in rec["rebuilds"]},
+        "eval_batch_s": [t for _, t, _ in rec["evals"]],
+        "eval_image_s": image_s, "eval_s_per_image": 1.0 / res["fps"],
+        "eval_entry_s": eval_s, "render_entry_s": render_s,
+        "frame_s": _mean(frame_s[False]),
+        "frame_s_early_term": _mean(frame_s[True]),
+        "early_term": {str(k): v for k, v in et.items()},
+        "kept_samples": n_kept, "losses": losses,
+        "step_s": [steps[i]["s"] for i in range(GFNERF_STEPS)],
+        "profiles": {k: {n: v[n] for n in ("step_ms", "device_busy_ms",
+                                           "idle_share",
+                                           "stage_device_span_ms")}
+                     for k, v in profiles.items()},
+    }
+    return launches, stats, kernels
+
+
 def main() -> int:
     if not (REPO / "gfnerf_tpu_torch").is_dir():
         print("chip_smoke: gfnerf_tpu_torch/ not found beside this script",
@@ -2590,7 +3248,16 @@ def main() -> int:
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory(prefix="gfnerf_pipeline_") as tmp:
         paths["pipeline"], stats["pipeline"] = phase_pipeline(Path(tmp))
-    clock("pipeline")
+        clock("pipeline")
+        torch.cuda.empty_cache()
+        paths["gfnerf"], stats["gfnerf"], (gf_fwd, gf_bwd) = \
+            phase_gfnerf(Path(tmp))
+    clock("gfnerf")
+    for name, gf in (("hash_anchored_fwd", gf_fwd),
+                     ("hash_anchored_bwd", gf_bwd)):
+        report[name]["max_abs_err"] = max(report[name]["max_abs_err"],
+                                          gf["max_abs_err"])
+        report[name]["gfnerf"] = gf
     for name, *parts in (("packed_hash_fwd", encode, hash_fwd),
                          ("packed_hash_bwd", hash_bwd),
                          ("packed_hash_routed", routed),
@@ -2625,6 +3292,8 @@ def main() -> int:
     for path, st in stats.items():
         log(f"[{path}] {json.dumps(st)}")
     log(json.dumps({"kernels": kernels}))
+    log(f"[clock] the whole script {time.perf_counter() - start:.1f}s "
+        f"(165.7-196.5 s before the gfnerf phase)")
     log(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -58,13 +58,17 @@ class Trainer:
         self.dataparser = dataparser
         self._start_step = 0
 
-    def setup(self):
+    def setup(self, test_mode: str = "train"):
+        """``test_mode`` other than "train" (eval and render from a run's
+        checkpoint, ``utils/eval_utils.eval_setup``) leaves the run's
+        ``config.json`` as it is."""
         cfg = self.config
         self.writer = EventWriter(cfg.vis, steps_per_log=cfg.steps_per_log)
         self.base_dir = cfg.get_base_dir()
         os.makedirs(self.base_dir, exist_ok=True)
         self.checkpoint_dir = self.base_dir / "nerfstudio_models"
-        (self.base_dir / "config.json").write_text(config_to_json(cfg))
+        if test_mode == "train":
+            (self.base_dir / "config.json").write_text(config_to_json(cfg))
         ckpt_dir = (self._checkpoint_to_load() if cfg.load_dir is not None
                     else None)
         # a resumed pipeline takes its octree and march config from the

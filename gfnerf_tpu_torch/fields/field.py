@@ -438,6 +438,28 @@ def _head_from_pre(field: GFNeRFField, geo: torch.Tensor,
                      start_layer=1)
 
 
+def field_rgb(field: GFNeRFField, directions: torch.Tensor,
+              geo_feat: torch.Tensor, rel_camera_indices: torch.Tensor,
+              stage: int = STAGE_INIT):
+    """Colour head per point: unit view directions (..., 3), geometry
+    features (..., G) and appearance indices (...,), each point's own.
+    Returns {"rgb": (..., 3)}."""
+    lead_shape = directions.shape[:-1]
+    ray_pre = _head_ray_pre(field, directions.reshape(-1, 3),
+                            rel_camera_indices.reshape(-1))
+    rgb = _head_from_pre(field, geo_feat.reshape(-1, field.cfg.geo_feat_dim),
+                         ray_pre)
+    return {"rgb": rgb.reshape(*lead_shape, 3)}
+
+
+def field_rgb_compact(field: GFNeRFField, ray_pre: torch.Tensor,
+                      geo_k: torch.Tensor, ray_k: torch.Tensor):
+    """Colour head for the compacted path: ``ray_pre`` (R, H) from
+    :func:`_head_ray_pre`, computed once on the R rays, gathered to the K
+    kept samples' rays ``ray_k`` (K,).  Returns {"rgb": (K, 3)}."""
+    return {"rgb": _head_from_pre(field, geo_k, ray_pre[ray_k])}
+
+
 def field_rgb_per_ray(field: GFNeRFField, dirs_ray: torch.Tensor,
                       geo_feat: torch.Tensor, rel_ray: torch.Tensor,
                       stage: int = STAGE_INIT):

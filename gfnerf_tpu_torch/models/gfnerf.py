@@ -1,21 +1,23 @@
 """GF-NeRF model: sampler + field + composite + losses, render and train.
 
-Port of ``gfnerf_tpu/models/gfnerf.py``: ``sample_rays`` (fast march), the
-dense branch of ``model_forward`` with the deferred warp, the fused
-composite with the background and ``scale_factor`` handling,
-``make_render_fn`` (eval noise == 1; at the block stage with one block or
-with a block per ray), and ``make_train_step`` at both stages: rays, march,
-field, Charbonnier + S3IM (at the block stage also the finetune trust
-region and the empty-space penalty), backward, per-group Adam, and at the
-init stage the occupancy statistics.  The field's configuration travels
-with the :class:`GFNeRFField` module.
+Port of ``gfnerf_tpu/models/gfnerf.py``: ``sample_rays`` (fast march),
+``model_forward`` with the deferred warp in both branches: the dense one
+(the field on all R*S sample slots) and, when ``0 < samples_budget_per_ray
+< S``, the compacted one (each ray's first ``budget`` valid samples
+gathered into a (R * budget,) buffer, warped and evaluated there and
+scattered back; at the block stage also with a block per ray), each with
+``remat_chunks``; the fused composite with the background and
+``scale_factor`` handling, ``make_render_fn`` (eval noise == 1; at the block
+stage with one block or with a block per ray), and ``make_train_step`` at
+both stages: rays, march, field, Charbonnier + S3IM (at the block stage
+also the finetune trust region and the empty-space penalty), backward,
+per-group Adam, and at the init stage the occupancy statistics.  The
+field's configuration travels with the :class:`GFNeRFField` module.
 
-Not ported yet: per-ray budget compaction (``0 < samples_budget_per_ray <
-S``, with its routed branch), which raises ``NotImplementedError``;
-rematerialized evaluation (``remat_chunks``), proposal resampling, semantics
-and the camera optimizer, which have no config fields here yet.
-The JAX package's ``make_multi_train_step`` (K steps per dispatch) has no
-counterpart: a plain loop of steps replaces it.
+Not ported yet: proposal resampling, semantics and the camera optimizer,
+which have no config fields here yet.  The JAX package's
+``make_multi_train_step`` (K steps per dispatch) has no counterpart: a
+plain loop of steps replaces it.
 """
 
 from __future__ import annotations
@@ -24,6 +26,7 @@ import dataclasses
 from typing import Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from gfnerf_tpu_torch.cameras.cameras import Cameras, generate_rays_multi
 from gfnerf_tpu_torch.cameras.rays import WarpedSamples
@@ -40,8 +43,10 @@ from gfnerf_tpu_torch.fields.field import (
     STAGE_BLOCK,
     STAGE_INIT,
     GFNeRFField,
+    _head_ray_pre,
     field_density,
     field_density_routed,
+    field_rgb_compact,
     field_rgb_per_ray,
 )
 from gfnerf_tpu_torch.model_components.losses import (
@@ -86,6 +91,10 @@ class GFNeRFModelConfig:
     # block stage, finetune mode: > 0 pulls the active table toward the
     # frozen global table, mult * mean((table - global)^2)
     finetune_trust_mult: float = 0.0
+    # > 1: the field's evaluation under a gradient runs in this many chunks
+    # (points when compacting, which it must divide; rays otherwise), each
+    # recomputed in the backward instead of keeping its activations
+    remat_chunks: int = 0
 
 
 def sample_rays(oct_dev: OctreeDevice, rays_o, rays_d, noise_unscaled,
@@ -95,6 +104,81 @@ def sample_rays(oct_dev: OctreeDevice, rays_o, rays_d, noise_unscaled,
         raise NotImplementedError("only the fast (leaf-list) march is ported")
     return get_samples_fast(oct_dev, rays_o, rays_d, noise_unscaled,
                             fineness, scfg)
+
+
+def compact_indices(valid: torch.Tensor, budget: int) -> torch.Tensor:
+    """The flat (R * S) slots of each ray's first ``budget`` valid samples,
+    in slot order, in a (R * budget,) buffer padded with R * S: the JAX
+    package's ``jnp.nonzero(keep, size=k, fill_value=r * s)``, built with
+    no host sync (a cumulative sum gives each kept slot its place, a
+    scatter puts it there).  The per-ray cap keeps at most R * budget
+    slots, so none is cut."""
+    r, s = valid.shape
+    k = r * budget
+    cum = torch.cumsum(valid.to(torch.int32), dim=1)
+    keep = (valid & (cum <= budget)).reshape(-1)
+    place = torch.cumsum(keep.to(torch.int64), dim=0) - 1
+    # the slots not kept go to one spare place past the end
+    place = torch.where(keep, place, k)
+    idx = torch.full((k + 1,), r * s, dtype=torch.int64, device=valid.device)
+    idx.scatter_(0, place, torch.arange(r * s, device=valid.device))
+    return idx[:k]
+
+
+def compact_samples(samples: WarpedSamples, budget: int,
+                    oct_dev: OctreeDevice):
+    """Each ray's first ``budget`` valid samples, warped: (the flat slots
+    ``idx`` (K,), padded with R * S; the anchors (K,), -1 at the pads; the
+    rays (K,); the warped points (K, 3)), K = R * budget.  No host sync.
+
+    A pad's ray is its place mod R, whose values are dropped: the
+    backward of the colour head's gather ``ray_pre[ray_k]`` serializes
+    equal indices, and with all pads on one ray (the JAX package's
+    ``safe // s``) a march of few valid samples, the first steps' at
+    fineness 16, spent 1.37 s of a 1.47 s step there on an H100."""
+    r, s = samples.trans_idx.shape
+    with span("compact"):
+        idx = compact_indices(samples.valid, budget)
+        pad = idx >= r * s
+        safe = idx.clamp(max=r * s - 1)
+        anc_k = torch.where(pad, -1, samples.trans_idx.reshape(-1)[safe])
+        ray_k = torch.where(pad, torch.arange(idx.shape[0],
+                                              device=idx.device) % r,
+                            safe // s)
+    with span("warp"):
+        warp_k = warp_points(oct_dev,
+                             anc_k.clamp(0, oct_dev.w2xz.shape[0] - 1),
+                             samples.world_pts.reshape(-1, 3)[safe])
+    return idx, anc_k, ray_k, warp_k
+
+
+def scatter_slots(idx: torch.Tensor, vals: torch.Tensor, r: int,
+                  s: int) -> torch.Tensor:
+    """(K, ...) values of the kept slots ``idx`` (pads = r * s, dropped)
+    back on an (R, S, ...) grid of zeros; differentiable in ``vals`` (its
+    backward gathers)."""
+    out = vals.new_zeros((r * s + 1,) + vals.shape[1:])
+    return out.index_copy(0, idx, vals)[:r * s].reshape(
+        (r, s) + vals.shape[1:])
+
+
+def _chunked(n_chunks: int, fn, *args):
+    """``fn`` over ``n_chunks`` equal chunks of its tensor arguments (dim
+    0), each through ``torch.utils.checkpoint``: its activations are
+    recomputed in the backward.  ``fn`` returns a tuple of tensors (or
+    None) or a dict of them in its last place; the chunks' results are
+    concatenated."""
+    outs = [checkpoint(fn, *parts, use_reentrant=False)
+            for parts in zip(*(a.chunk(n_chunks) for a in args))]
+
+    def cat(xs):
+        if xs[0] is None:
+            return None
+        if isinstance(xs[0], dict):
+            return {name: torch.cat([x[name] for x in xs]) for name in xs[0]}
+        return torch.cat(xs)
+
+    return tuple(cat(list(xs)) for xs in zip(*outs))
 
 
 def model_forward(
@@ -109,42 +193,102 @@ def model_forward(
     active_table: Optional[torch.Tensor] = None,
     routed_blocks: Optional[torch.Tensor] = None,   # (R,) block per ray
 ):
-    """Field + compositing for one ray batch, dense branch
-    (gfnerf.py:291-370): the field runs on all R*S sample slots, warped here
-    from the march's world points (the deferred warp of the fast march).
+    """Field + compositing for one ray batch (gfnerf.py:149-370), with the
+    deferred warp of the fast march: warped coordinates come from the
+    march's world points here.
+
+    With ``0 < samples_budget_per_ray < S`` the field runs only on each
+    ray's first ``budget`` valid samples (the reference's per-ray
+    ``num_nerf_samples_per_ray``), gathered into a (R * budget,) buffer
+    (:func:`compact_samples`; pad slots at anchor -1), warped there, and
+    scattered back to (R, S) with the pads dropped; the other slots have
+    density and colour 0.  Otherwise it runs on all R * S slots.
 
     At the block stage the field adds block ``active_block``'s table
     (``active_table``, if given, in its place: the train step's leaf), or,
     with ``routed_blocks`` (eval only), each ray's own block's.  With the
     empty-space penalty on, the train path also returns "density" and
-    "density_shared" (R, S)."""
+    "density_shared" (R, S).  ``remat_chunks`` > 1 evaluates the field in
+    that many checkpointed chunks of points (compacted; it must divide R *
+    budget) or of rays (dense; it must divide R) when a gradient is being
+    recorded: the same outputs and gradients, activations recomputed in
+    the backward."""
     r, s = samples.trans_idx.shape
     budget = model_cfg.samples_budget_per_ray
-    if 0 < budget < s:
-        raise NotImplementedError(
-            f"per-ray budget compaction ({budget} < {s} slots) is not ported")
-    with span("warp"):
-        n_trans = oct_dev.w2xz.shape[0]
-        anc = samples.trans_idx.reshape(-1).clamp(0, n_trans - 1)
-        warp = warp_points(oct_dev, anc, samples.world_pts.reshape(-1, 3)
-                           ).reshape(r, s, 3)
+    routed = routed_blocks is not None and stage == STAGE_BLOCK
+    # the penalty is train-only
+    with_shared = (stage == STAGE_BLOCK and not routed
+                   and model_cfg.empty_space_penalty_mult > 0)
+    n_chunks = model_cfg.remat_chunks if torch.is_grad_enabled() else 0
+
+    def density_fn(warp, anc):
+        out = field_density(field, warp, anc, stage, active_block,
+                            active_table, with_shared)
+        return out if with_shared else out + (None,)
+
     density_shared = None
-    if routed_blocks is not None and stage == STAGE_BLOCK:
-        density, geo = field_density_routed(
-            field, warp, samples.trans_idx,
-            routed_blocks[:, None].expand(r, s))
+    if 0 < budget < s:
+        k = r * budget
+        idx, anc_k, ray_k, warp_k = compact_samples(samples, budget, oct_dev)
+        with span("color_head"):
+            ray_pre = _head_ray_pre(field, rays_d, rel_camera_indices)
+
+        def eval_points(warp, anc, ray):
+            dk, geo, shared = density_fn(warp, anc)
+            with span("color_head"):
+                return dk, shared, field_rgb_compact(field, ray_pre, geo, ray)
+
+        if routed:
+            blk_k = torch.where(idx >= r * s, -1, routed_blocks[ray_k])
+            density_k, geo_k = field_density_routed(field, warp_k, anc_k,
+                                                    blk_k)
+            shared_k = None
+            with span("color_head"):
+                heads_k = field_rgb_compact(field, ray_pre, geo_k, ray_k)
+        elif n_chunks > 1:
+            if k % n_chunks:
+                raise ValueError(f"remat_chunks={n_chunks} must divide "
+                                 f"rays*budget={k}")
+            density_k, shared_k, heads_k = _chunked(
+                n_chunks, eval_points, warp_k, anc_k, ray_k)
+        else:
+            density_k, shared_k, heads_k = eval_points(warp_k, anc_k, ray_k)
+        with span("compact"):
+            density = scatter_slots(idx, density_k, r, s)
+            if shared_k is not None:
+                density_shared = scatter_slots(idx, shared_k, r, s)
+            heads = {name: scatter_slots(idx, val, r, s)
+                     for name, val in heads_k.items()}
     else:
-        # the penalty is train-only
-        with_shared = (stage == STAGE_BLOCK
-                       and model_cfg.empty_space_penalty_mult > 0)
-        density, geo, *shared = field_density(
-            field, warp, samples.trans_idx, stage, active_block,
-            active_table, with_shared)
-        if with_shared:
-            density_shared = shared[0]
-    with span("color_head"):
-        heads = field_rgb_per_ray(field, rays_d, geo, rel_camera_indices,
-                                  stage)
+        with span("warp"):
+            anc = samples.trans_idx.reshape(-1).clamp(
+                0, oct_dev.w2xz.shape[0] - 1)
+            warp = warp_points(oct_dev, anc, samples.world_pts.reshape(-1, 3)
+                               ).reshape(r, s, 3)
+
+        def eval_rays(warp, anc, dirs, rel):
+            density, geo, shared = density_fn(warp, anc)
+            with span("color_head"):
+                return density, shared, field_rgb_per_ray(field, dirs, geo,
+                                                          rel, stage)
+
+        if routed:
+            density, geo = field_density_routed(
+                field, warp, samples.trans_idx,
+                routed_blocks[:, None].expand(r, s))
+            with span("color_head"):
+                heads = field_rgb_per_ray(field, rays_d, geo,
+                                          rel_camera_indices, stage)
+        elif n_chunks > 1:
+            if r % n_chunks:
+                raise ValueError(f"remat_chunks={n_chunks} must divide "
+                                 f"rays={r}")
+            density, density_shared, heads = _chunked(
+                n_chunks, eval_rays, warp, samples.trans_idx, rays_d,
+                rel_camera_indices)
+        else:
+            density, density_shared, heads = eval_rays(
+                warp, samples.trans_idx, rays_d, rel_camera_indices)
     with span("composite"):
         weights, alphas, rgb, acc, depth = fused_composite(
             density, samples.dists, samples.ts, heads["rgb"])
@@ -162,6 +306,37 @@ def model_forward(
         out["density"] = density
         out["density_shared"] = density_shared
     return out
+
+
+RENDER_KEYS = ("rgb", "accumulation", "depth", "oct_depth")
+
+
+def render_forward(field: GFNeRFField, model_cfg: GFNeRFModelConfig,
+                   samples: WarpedSamples, rays_d: torch.Tensor,
+                   rel_camera_index, oct_dev: OctreeDevice, active_block=0,
+                   stage_is_block: bool = False) -> dict:
+    """``model_forward`` as a render calls it: ``rel_camera_index`` one
+    index or an (R,) tensor; with ``stage_is_block`` the focal field, with
+    ``active_block`` one block for the chunk or an (R,) tensor with a block
+    per ray (packed layout).  Returns the full output dict."""
+    r = rays_d.shape[0]
+    rel = torch.as_tensor(rel_camera_index, dtype=torch.int64,
+                          device=rays_d.device).expand(r)
+    if not (stage_is_block and field.cfg.n_blocks > 0):
+        return model_forward(field, model_cfg, samples, rays_d, rel,
+                             STAGE_INIT, oct_dev)
+    routed = None
+    if not isinstance(active_block, int):
+        active_block = torch.as_tensor(active_block, device=rays_d.device)
+        if active_block.dim() == 1:
+            if field.cfg.hash_layout != "packed":
+                raise ValueError("a block per ray needs the packed layout")
+            if active_block.shape[0] != r:
+                raise ValueError(
+                    f"{active_block.shape[0]} blocks for {r} rays")
+            routed, active_block = active_block, 0
+    return model_forward(field, model_cfg, samples, rays_d, rel, STAGE_BLOCK,
+                         oct_dev, int(active_block), routed_blocks=routed)
 
 
 def make_render_fn(model_cfg: GFNeRFModelConfig, sampler_cfg: SamplerConfig):
@@ -183,29 +358,10 @@ def make_render_fn(model_cfg: GFNeRFModelConfig, sampler_cfg: SamplerConfig):
         with span("march"):
             samples = sample_rays(oct_dev, rays_o, rays_d, noise, 1.0,
                                   sampler_cfg)
-        rel = torch.as_tensor(rel_camera_index, dtype=torch.int64,
-                              device=rays_o.device).expand(r)
-        if stage_is_block and field.cfg.n_blocks > 0:
-            routed = None
-            if not isinstance(active_block, int):
-                active_block = torch.as_tensor(active_block,
-                                               device=rays_o.device)
-                if active_block.dim() == 1:
-                    if field.cfg.hash_layout != "packed":
-                        raise ValueError("a block per ray needs the packed "
-                                         "layout")
-                    if active_block.shape[0] != r:
-                        raise ValueError(
-                            f"{active_block.shape[0]} blocks for {r} rays")
-                    routed, active_block = active_block, 0
-            out = model_forward(field, model_cfg, samples, rays_d, rel,
-                                STAGE_BLOCK, oct_dev, int(active_block),
-                                routed_blocks=routed)
-        else:
-            out = model_forward(field, model_cfg, samples, rays_d, rel,
-                                STAGE_INIT, oct_dev)
-        return {k: out[k] for k in
-                ("rgb", "accumulation", "depth", "oct_depth")}
+        out = render_forward(field, model_cfg, samples, rays_d,
+                             rel_camera_index, oct_dev, active_block,
+                             stage_is_block)
+        return {k: out[k] for k in RENDER_KEYS}
 
     return render_chunk
 

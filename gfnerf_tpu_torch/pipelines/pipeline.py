@@ -21,11 +21,13 @@ and render functions of ``models/gfnerf.py``.
 - checkpoints: the field, the optimizer state, the step and the march's
   random generator through ``torch.save``; the host octree, camera labels
   and milestones as the JAX package's npz.
+- full-image renders (eval images, error maps, ``render.py``) optionally
+  through the two-phase early-termination renderer (``eval_early_term``,
+  ``enable_early_term``).
 
 Not ported: the K-steps-per-dispatch scan (``steps_per_dispatch`` is kept
 so that configs round-trip; one step runs per call), the parallel-blocks
-mesh, the early-termination renderer and the PNG previews of the error
-maps.
+mesh and the PNG previews of the error maps.
 """
 
 from __future__ import annotations
@@ -56,6 +58,7 @@ from gfnerf_tpu_torch.model_components.lpips import lpips
 from gfnerf_tpu_torch.models.gfnerf import (GFNeRFModelConfig, TrainState,
                                             init_train_state, make_render_fn,
                                             make_train_step)
+from gfnerf_tpu_torch.models.render_early import EarlyTermRenderer
 from gfnerf_tpu_torch.sampler.manager import (PersSamplerManager,
                                               PersSamplerManagerConfig)
 from gfnerf_tpu_torch.sampler.octree import PersOctree
@@ -92,6 +95,12 @@ class GFNerfPipelineConfig:
     # rendered)
     use_error_sampling: bool = True
     eval_num_rays_per_chunk: int = 2048
+    # full-image renders (render_camera: eval images, error maps, render)
+    # through the two-phase early-termination renderer
+    # (models/render_early.py): within eval_early_term_eps of the single
+    # pass; ignored for a background other than black
+    eval_early_term: bool = False
+    eval_early_term_eps: float = 5e-3
     camera_bounds: tuple = (0.01, 512.0)   # gf_pipeline.py:117-120
     seed: int = 42
     # the JAX package's K steps per dispatch; the port runs one step per
@@ -201,6 +210,31 @@ class GFNerfPipeline:
             stage: make_train_step(mcfg, scfg, self.tx, stage)
             for stage in (STAGE_INIT, STAGE_BLOCK)}
         self._render_chunk = make_render_fn(mcfg, scfg)
+        self._build_early_renderer()
+
+    def _build_early_renderer(self):
+        mcfg = self.config.model
+        self._early_renderer = None
+        if self.config.eval_early_term and mcfg.background_color == "black":
+            self._early_renderer = EarlyTermRenderer(
+                mcfg, self._built_sampler_cfg,
+                eps=self.config.eval_early_term_eps)
+
+    def enable_early_term(self, eps: Optional[float] = None) -> bool:
+        """Render full images through the early-termination renderer from
+        now on (``gfnerf_tpu_torch.render --early-term``).  Returns whether
+        it is on: False (with a note on stderr) for a background other
+        than black."""
+        self.config.eval_early_term = True
+        if eps is not None:
+            self.config.eval_early_term_eps = eps
+        self._build_early_renderer()
+        if self._early_renderer is None:
+            print("[pipeline] early-term rendering needs a black "
+                  "background; keeping the single-pass renderer",
+                  file=sys.stderr)
+            return False
+        return True
 
     # --------------------------------------------------------------- train ----
 
@@ -359,7 +393,8 @@ class GFNerfPipeline:
                       force_split_idx: Optional[int] = None) -> dict:
         """Chunked full-image render of one camera (numpy (h, w, C)
         outputs; base_model.py:162-186), with the block of the train camera
-        nearest to it (or ``force_split_idx``)."""
+        nearest to it (or ``force_split_idx``); through the
+        early-termination renderer when ``eval_early_term`` is on."""
         h = int(cameras_host.height[camera_idx]) // downscale
         w = int(cameras_host.width[camera_idx]) // downscale
         coords = torch.as_tensor(get_image_coords(h, w) * downscale,
@@ -376,7 +411,9 @@ class GFNerfPipeline:
         o = rays["origins"].reshape(-1, 3)
         d = rays["directions"].reshape(-1, 3)
         chunk = self.config.eval_num_rays_per_chunk
-        outs = [self._render_chunk(
+        render = (self._render_chunk if self._early_renderer is None
+                  else self._early_renderer.render_chunk)
+        outs = [render(
             self.field, self.sampler.oct_dev, o[s:s + chunk], d[s:s + chunk],
             int(rel_camera_index), max(split_idx, 0), stage == STAGE_BLOCK)
             for s in range(0, o.shape[0], chunk)]

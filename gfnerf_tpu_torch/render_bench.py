@@ -24,8 +24,14 @@ the two are timed in turns.  The block tables, zero at init, are filled
 with small random values from a seed.  ``device_allocs_in_timed_frames``
 counts the allocator's ``cudaMalloc`` calls during the timed frames.
 
+``--early-term`` renders the timed frames through the two-phase
+early-termination renderer (``models/render_early.py``; ``--et-s1``,
+``--et-eps``) and adds the share of rays that survived phase 1 in the last
+frame (``early_term``).  With random weights few rays saturate.
+
 Run on a CUDA card:
-  python -m gfnerf_tpu_torch.render_bench [--stage {init,focal}] [--profile]
+  python -m gfnerf_tpu_torch.render_bench [--stage {init,focal}]
+      [--early-term [--et-s1 N] [--et-eps EPS]] [--profile]
 """
 
 from __future__ import annotations
@@ -44,6 +50,7 @@ from gfnerf_tpu_torch.fields.field import (FieldConfig, GFNeRFField,
                                            init_field_params)
 from gfnerf_tpu_torch.models.gfnerf import (GFNeRFModelConfig,
                                             make_render_fn, sample_rays)
+from gfnerf_tpu_torch.models.render_early import EarlyTermRenderer
 from gfnerf_tpu_torch.sampler.octree import build_octree
 from gfnerf_tpu_torch.sampler.perssampler import (SamplerConfig,
                                                   octree_to_device)
@@ -231,6 +238,14 @@ def main(argv=None):
                     help="focal: the block stage's field, routed: the views "
                          "as one mixed chunk, view i in block i mod "
                          "n_blocks, and the frame with a block per ray")
+    ap.add_argument("--early-term", action="store_true",
+                    help="the frames through the two-phase early-termination "
+                         "renderer (models/render_early.py): saturated rays "
+                         "skip their tail samples")
+    ap.add_argument("--et-s1", type=int, default=0,
+                    help="head-segment samples (0: max(32, S // 4))")
+    ap.add_argument("--et-eps", type=float, default=5e-3,
+                    help="termination transmittance threshold")
     ap.add_argument("--profile", action="store_true",
                     help="also profile one frame and print its per-stage "
                          "device times as a JSON line")
@@ -264,9 +279,24 @@ def main(argv=None):
     torch.cuda.synchronize()
     t_views = time.perf_counter() - t0
 
+    et, survived = None, []
+    if args.early_term:
+        et = EarlyTermRenderer(wl["mcfg"], wl["scfg"], s1=args.et_s1 or None,
+                               eps=args.et_eps)
+
+    def et_chunk(*chunk_args):
+        out = et.render_chunk(*chunk_args)
+        survived.append((et.last_survivor_frac, chunk_args[2].shape[0]))
+        return out
+
     def frame(blocks=frame_blocks):
-        out = render_rays(render_fn, field, oct_dev, o, d, 0, args.chunk,
-                          blocks)
+        if et is not None and blocks is frame_blocks:
+            survived.clear()
+            out = render_rays(et_chunk, field, oct_dev, o, d, 0, args.chunk,
+                              blocks)
+        else:
+            out = render_rays(render_fn, field, oct_dev, o, d, 0, args.chunk,
+                              blocks)
         torch.cuda.synchronize()
         return out
 
@@ -303,6 +333,9 @@ def main(argv=None):
         "views_seconds": t_views,
         **({"init_frame_seconds": init_times} if focal else {}),
         "device_allocs_in_timed_frames": allocs,
+        **({"early_term": {"s1": et.s1, "eps": et.eps, "survivor_frac": sum(
+            f * n for f, n in survived) / sum(n for _, n in survived)}}
+           if et is not None else {}),
         "device": torch.cuda.get_device_name(dev),
     }))
     return 0

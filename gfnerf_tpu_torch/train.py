@@ -9,8 +9,10 @@ multi-host ones):
       [a.b.c=value ...] [--a.b.c value ...]
 
 Extra arguments are dotted config overrides, e.g.
-``pipeline.model.n_blocks=4``.  Methods: gf-nerf-perf, gf-nerf-tiny and
-gf-nerf (which needs the per-ray budget compaction, not ported yet).
+``pipeline.model.n_blocks=4``.  Methods: gf-nerf (the paper's: 1024 march
+slots, a budget of 256 field samples a ray), gf-nerf-perf and
+gf-nerf-tiny.  ``python -m gfnerf_tpu_torch.eval`` and ``python -m
+gfnerf_tpu_torch.render`` read a run's ``config.json`` and checkpoint.
 """
 
 from __future__ import annotations

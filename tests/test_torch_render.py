@@ -97,23 +97,39 @@ def test_render_chunk_matches_jax(mlp_dtype, background):
 
 
 def test_compaction_and_focal_render_raise():
-    """What the render still refuses: per-ray budget compaction, at either
-    stage (not ported), and a focal render whose block vector does not
-    match the chunk's rays."""
+    """What the render refuses: a focal render whose block vector does not
+    match the chunk's rays.  Per-ray budget compaction, which it refused
+    before it was ported, now renders at either stage as the JAX package's
+    make_render_fn does (f32 tolerance above; tests/test_torch_compaction.py
+    holds the branch in full)."""
+    import jax.numpy as jnp
+    from gfnerf_tpu.models.gfnerf import GFNeRFModelConfig as JModel
+    from gfnerf_tpu.models.gfnerf import make_render_fn as jax_render_fn
+    from gfnerf_tpu.sampler.perssampler import SamplerConfig as JSampler
     from gfnerf_tpu_torch.models.gfnerf import (GFNeRFModelConfig,
                                                 make_render_fn)
     from gfnerf_tpu_torch.sampler.perssampler import SamplerConfig
 
-    _, toct = octree_pair()
-    field = field_pair()[3]
-    o, d = (torch.as_tensor(x) for x in tiny_rays(n_rays=8))
-    scfg = SamplerConfig(max_samples=32, sample_l=1.0 / 64)
+    joct, toct = octree_pair()
+    jcfg, params, statics, field = field_pair(block_scale=0.3)
+    o_np, d_np = tiny_rays(n_rays=8)
+    o, d = torch.as_tensor(o_np), torch.as_tensor(d_np)
+    skw = dict(max_samples=32, sample_l=1.0 / 64)
+    scfg = SamplerConfig(**skw)
     compact = make_render_fn(GFNeRFModelConfig(samples_budget_per_ray=16),
                              scfg)
-    with pytest.raises(NotImplementedError):
-        compact(field, toct, o, d, 0)
-    with pytest.raises(NotImplementedError):
-        compact(field, toct, o, d, 0, 1, stage_is_block=True)
+    jax_compact = jax_render_fn(jcfg, JModel(n_blocks=2,
+                                             samples_budget_per_ray=16),
+                                JSampler(**skw))
+    for block in (False, True):
+        got = compact(field, toct, o, d, 0, 1, stage_is_block=block)
+        want = jax_compact(params, statics, joct, jnp.asarray(o_np),
+                           jnp.asarray(d_np), jnp.asarray(0, jnp.int32),
+                           jnp.asarray(1, jnp.int32), block)
+        for k in KEYS:
+            np.testing.assert_allclose(got[k].numpy(), np.asarray(want[k]),
+                                       rtol=1e-5, atol=ATOL["float32"],
+                                       err_msg=f"{k} block={block}")
     dense = make_render_fn(GFNeRFModelConfig(samples_budget_per_ray=0), scfg)
     with pytest.raises(ValueError):
         dense(field, toct, o, d, 0, torch.zeros(5, dtype=torch.int64),

@@ -140,6 +140,75 @@ def asdict_np(obj) -> dict:
             for f in dataclasses.fields(obj)}
 
 
+# ---- sample batches for model_forward in either package ----
+
+
+def samples_np(valid, n_volumes, seed=0):
+    """Samples (numpy) as tests/test_compaction.py makes them: world points
+    in [-0.5, 0.5], dt 0.01, anchors (a random volume) where valid, else
+    -1."""
+    r, s = valid.shape
+    rng = np.random.default_rng(seed)
+    anc = rng.integers(0, n_volumes, (r, s))
+    return {
+        "world_pts": rng.uniform(-0.5, 0.5, (r, s, 3)).astype(np.float32),
+        "dists": np.full((r, s), 0.01, np.float32),
+        "ts": np.cumsum(np.full((r, s), 0.01, np.float32), axis=1),
+        "trans_idx": np.where(valid, anc, -1),
+        "valid": valid,
+        "first_oct_dis": np.zeros(r, np.float32),
+    }
+
+
+def marched_np(n_rays=32, s=64, seed=3):
+    """The port's march of the tiny scene's rays (``tiny_rays(n_rays,
+    seed)``, eval noise) as numpy samples, and the rays' directions."""
+    from gfnerf_tpu_torch.models.gfnerf import sample_rays
+    from gfnerf_tpu_torch.sampler.perssampler import SamplerConfig
+
+    _, toct = octree_pair()
+    o, d = tiny_rays(n_rays=n_rays, seed=seed)
+    smp = sample_rays(toct, torch.as_tensor(o), torch.as_tensor(d),
+                      torch.ones((n_rays, s)), 1.0,
+                      SamplerConfig(max_samples=s, sample_l=1.0 / 64))
+    return {k: to_np(getattr(smp, k)) for k in
+            ("world_pts", "dists", "ts", "trans_idx", "valid",
+             "first_oct_dis")}, d
+
+
+def jax_samples(x):
+    """Numpy samples as the JAX package's WarpedSamples (no warp_pts: the
+    model warps them, ``warp_deferred``)."""
+    import jax.numpy as jnp
+    from gfnerf_tpu.cameras.rays import WarpedSamples
+
+    r, s = x["valid"].shape
+    z = jnp.zeros((r, s), jnp.int32)
+    return WarpedSamples(
+        world_pts=jnp.asarray(x["world_pts"]),
+        warp_pts=jnp.zeros((r, s, 3)), dists=jnp.asarray(x["dists"]),
+        ts=jnp.asarray(x["ts"]),
+        trans_idx=jnp.asarray(x["trans_idx"], jnp.int32), oct_idx=z,
+        block_idx=z, valid=jnp.asarray(x["valid"]),
+        num_valid=jnp.asarray(x["valid"].sum(1), jnp.int32),
+        first_oct_dis=jnp.asarray(x["first_oct_dis"]))
+
+
+def port_samples(x):
+    """Numpy samples as the port's WarpedSamples."""
+    from gfnerf_tpu_torch.cameras.rays import WarpedSamples
+
+    r, s = x["valid"].shape
+    z = torch.zeros((r, s), dtype=torch.int64)
+    valid = torch.as_tensor(x["valid"])
+    return WarpedSamples(
+        world_pts=torch.as_tensor(x["world_pts"]),
+        dists=torch.as_tensor(x["dists"]), ts=torch.as_tensor(x["ts"]),
+        trans_idx=torch.as_tensor(x["trans_idx"]).long(), oct_idx=z,
+        block_idx=z, valid=valid, num_valid=valid.sum(1),
+        first_oct_dis=torch.as_tensor(x["first_oct_dis"]))
+
+
 # ---- one train step of either package on the tiny scene ----
 
 TRAIN_R = 128
