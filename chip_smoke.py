@@ -120,8 +120,28 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
                 early-termination renderer against the single pass, and
                 python -m gfnerf_tpu_torch.eval and .render on the
                 checkpoint (PNG frames).
-Each phase ends with a [clock] line.  Before the last line come a JSON object with each kernel's launches, error,
-times and bound, and the card's name and power limit; the last line is
+ 13. prop     — with the counters reset: gf-nerf-prop (proposal-guided
+                resampling) at its full width through the Trainer (8192
+                rays, a dense 256-slot march, the probe's 4 levels x 4
+                channels of 2^12 rows on 2,097,152 lattice points, 64 fine
+                samples a ray for the packed 8 x 4 of 2^15, bf16 MLPs, 10
+                blocks), 24 init steps and 2 on each of blocks 0 and 1:
+                per step K1 and K2 once at (8192, 64), H1 twice at init
+                (probe, global) and three times at the focal stage (the
+                probe without a graph), H2
+                in two calls at init and one at the focal stage (the
+                block's table), H3-H5 never; the probe changed by the init
+                steps and bit-unchanged by the focal ones; the rgb loss
+                falling; eval PSNR above the mean image's; one step
+                against the plain pairs; K1, K2, H1 and H2 at these shapes
+                against their plain versions (H2 also against
+                index_add_); an init and a focal step profiled (the
+                gfnerf/proposal span); eval and render on the checkpoint,
+                render --early-term refused.
+Each phase ends with a [clock] line.  Before the last line come a JSON
+object with each kernel's launches, error, times and bound (K1, K2, H1 and
+H2 also at the prop phase's shapes, under "prop"), and the card's name and
+power limit; the last line is
 {"ok": true, "device": {...}}.
 
 Run from the repository root:  python3 chip_smoke.py
@@ -1352,11 +1372,13 @@ def step_draws(wl, gen):
     return noise, s3im_permutations(RAYS, generator=gen, device="cuda")
 
 
-def step_from_copy(wl, batch, noise, perms, focal_block=None, plain=False):
+def step_from_copy(wl, batch, noise, perms, focal_block=None, plain=False,
+                   prop_u=None):
     """One train step from a deep copy of the workload's field, optimizer
     state and octree (the workload stays as it is): an init-stage step, or
     with ``focal_block`` a block-stage step on that block from a fresh
-    optimizer state; with ``plain`` through the plain autograd pairs.
+    optimizer state; with ``plain`` through the plain autograd pairs;
+    ``prop_u``: the proposal branch's resampling draws.
     Returns (the loss, computed before the update; the new TrainState)."""
     import contextlib
     import copy
@@ -1375,19 +1397,22 @@ def step_from_copy(wl, batch, noise, perms, focal_block=None, plain=False):
         state, _, metrics, _ = wl["focal_step_fn" if focal else "step_fn"](
             state, copy.deepcopy(wl["oct_dev"]), wl["cams"], batch,
             wl["fineness"], noise=noise, s3im_perms=perms,
-            active_block=focal_block or 0)
+            active_block=focal_block or 0, prop_u=prop_u)
     torch.cuda.synchronize()
     return float(metrics["loss"]), state
 
 
-def compare_step(wl, what, batch, noise, perms, focal_block=None) -> float:
+def compare_step(wl, what, batch, noise, perms, focal_block=None,
+                 prop_u=None) -> float:
     """One step from a common state with the kernels and with the plain
     autograd pairs (no kernel may launch in it): the loss to
     TRAIN_LOSS_RTOL and the gradients to TRAIN_GRAD_TOL of the group's
     largest.  Init stage: the MLPs' and the global table's gradients, none
     for the block tables.  Block stage: the active table's gradient, read
     from Adam's first moment of a fresh state (mu = (1 - b1) g), none for
-    any frozen parameter.  Returns the kernels' loss."""
+    any frozen parameter.  On the proposal branch the probe is in
+    "fields", and ``prop_u`` gives both steps the same resampling draws.
+    Returns the kernels' loss."""
     import torch
 
     from gfnerf_tpu_torch.engine.optimizers import field_param_grads
@@ -1396,7 +1421,7 @@ def compare_step(wl, what, batch, noise, perms, focal_block=None) -> float:
     outs = {}
     for kind in ("kernels", "plain"):
         loss, state = step_from_copy(wl, batch, noise, perms, focal_block,
-                                     plain=kind == "plain")
+                                     plain=kind == "plain", prop_u=prop_u)
         grads = field_param_grads(state.field)
         if focal:
             if any(g is not None for gs in grads.values() for g in gs):
@@ -2648,7 +2673,8 @@ def compacted_points(p, batch, noise, fineness):
         torch.cuda.set_sync_debug_mode("error")
         try:
             idx, anc, _, warp = compact_samples(smp, budget,
-                                                p.sampler.oct_dev)
+                                                p.sampler.oct_dev,
+                                                p.field_cfg)
             back = scatter_slots(idx, torch.ones_like(warp[:, 0]), r, s)
         finally:
             torch.cuda.set_sync_debug_mode(0)
@@ -3199,6 +3225,557 @@ def phase_gfnerf(tmp: Path):
     return launches, stats, kernels
 
 
+# the pipeline phase's schedule (24 init steps, milestones at 8 and 16,
+# compaction at 12, the fineness anneal over 16), then 2 steps on each of
+# blocks 0 and 1: gf-nerf's 10 init steps left the eval image below the
+# mean image's PSNR (16.23 against 16.87 on an H100)
+PROP_INIT_STEPS = 24
+PROP_FOCAL_BLOCKS = 2
+PROP_STEPS = PROP_INIT_STEPS + 2 * PROP_FOCAL_BLOCKS
+PROP_OVERRIDES = {**PIPELINE_OVERRIDES,
+                  "steps_per_eval_batch": str(PROP_STEPS // 2),
+                  "steps_per_eval_image": str(PROP_STEPS),
+                  "steps_per_save": str(PROP_STEPS)}
+# (slots, budget, fine samples a ray, levels, channels, log2 rows, probe
+# levels, probe log2 rows, blocks, MLP type, layout, rays a step)
+PROP_WIDTH = (256, 256, 64, 8, 4, 15, 4, 12, 10, "bfloat16", "packed", 8192)
+
+
+class record_shapes:
+    """Within the block, the model's calls of K1 (the composite's (R, S))
+    and of H1 (the table's shape, the points, and whether the table is in
+    the graph, so that H2 will run on it), in call order; the counted
+    wrappers underneath launch as before."""
+
+    def __enter__(self):
+        import torch
+
+        from gfnerf_tpu_torch.fields import field as field_mod
+        from gfnerf_tpu_torch.models import gfnerf as model_mod
+
+        self.composite, self.encode = [], []
+        self.saved = (model_mod.fused_composite,
+                      field_mod.packed_hash_encode)
+        composite, encode = self.saved
+
+        def counted_composite(density, *args, **kw):
+            self.composite.append(tuple(density.shape))
+            return composite(density, *args, **kw)
+
+        def counted_encode(table, *args, **kw):
+            self.encode.append((tuple(table.shape), args[2].shape[0],
+                                table.requires_grad
+                                and torch.is_grad_enabled()))
+            return encode(table, *args, **kw)
+
+        model_mod.fused_composite = counted_composite
+        field_mod.packed_hash_encode = counted_encode
+        return self
+
+    def __exit__(self, *exc):
+        from gfnerf_tpu_torch.fields import field as field_mod
+        from gfnerf_tpu_torch.models import gfnerf as model_mod
+
+        model_mod.fused_composite, field_mod.packed_hash_encode = self.saved
+        return False
+
+
+def probe_points(p, batch, noise):
+    """The points and anchors the probe's encode gets on a train batch
+    (8192 rays x 256 slots), made as the proposal branch makes them: the
+    march, each ray's samples sorted by t, warped, normalized."""
+    import torch
+
+    from gfnerf_tpu_torch.cameras.cameras import generate_rays_multi
+    from gfnerf_tpu_torch.fields.field import _normalized
+    from gfnerf_tpu_torch.models.gfnerf import sample_rays, warp_or_identity
+
+    oct_dev = p.sampler.oct_dev
+    with torch.no_grad():
+        rays = generate_rays_multi(p.cameras_dev, batch["camera_indices"],
+                                   batch["coords"])
+        smp = sample_rays(oct_dev, rays["origins"], rays["directions"],
+                          noise, 1.0, p.sampler.sampler_config)
+        order = torch.argsort(torch.where(smp.valid, smp.ts, float("inf")),
+                              dim=1, stable=True)
+        anc = torch.gather(smp.trans_idx, 1, order).reshape(-1)
+        world = torch.gather(smp.world_pts, 1, order[..., None].expand(
+            *order.shape, 3)).reshape(-1, 3)
+        warp = warp_or_identity(p.field_cfg, oct_dev,
+                                anc.clamp(0, oct_dev.w2xz.shape[0] - 1),
+                                world)
+    return _normalized(warp), anc
+
+
+def check_prop_kernels(p, batch, noise) -> dict:
+    """K1 and K2 at the proposal branch's (8192, 64) and H1 and H2 on the
+    probe's table (4 levels x 4 channels of 2^12 rows) at a train batch's
+    2,097,152 probe points, each against its plain version and timed
+    (K2 and H2 also at the main path's tolerances; H2 also against
+    index_add_ of the same terms); bounds from the bytes.  Returns
+    {kernel: its report at these shapes}."""
+    import torch
+
+    from gfnerf_tpu_torch.fields import packed_hash as ph
+    from gfnerf_tpu_torch.fields.hash_encoding import table_grad_launches
+    from gfnerf_tpu_torch.ops.composite import (
+        _composite_bwd_cuda, composite_backward_reference,
+        composite_reference, fused_composite)
+
+    out = {}
+    r, s = batch["image"].shape[0], p.config.model.num_proposal_resamples
+    # ---- K1 ----
+    x = _composite_inputs(r, s, seed=64)
+    got, want = fused_composite(*x), composite_reference(*x)
+    torch.cuda.synchronize()
+    assert_close(got, want, f"[prop] composite R={r} S={s}", **K1_TOL)
+    out["composite_fwd"] = {
+        "shape": [r, s], "max_abs_err": max_err(got, want),
+        "ms": kernel_device_ms(lambda: fused_composite(*x),
+                               "composite_fwd_kernel"),
+        "wrapper_ms": time_ms(lambda: fused_composite(*x), n=21, reps=20),
+        "plain_ms": time_ms(lambda: composite_reference(*x)),
+        "bound_ms": composite_fwd_bytes(r, s) / HBM_BYTES_PER_S * 1e3,
+        "bound_by": "bytes", "library_ms": None}
+    # ---- K2, the train step's form and every cotangent ----
+    g = _cotangents(r, s, seed=65)
+    need = (True, False, False, True)
+    cots = [None, None, g[2], g[3], None]
+    args = (*x, cots, need)
+    got = _composite_bwd_cuda(*args)
+    want = composite_backward_reference(*args)
+    got_all = _composite_bwd_cuda(*x, g)
+    want_all = composite_backward_reference(*x, g)
+    torch.cuda.synchronize()
+    pairs = [(a, b) for a, b in zip(got, want) if b is not None]
+    assert_close([a for a, _ in pairs], [b for _, b in pairs],
+                 f"[prop] composite_bwd R={r} S={s}, train form",
+                 rtol=K2_RTOL, atol_rel=K2_ATOL_REL)
+    assert_close(got_all, want_all, f"[prop] composite_bwd R={r} S={s}",
+                 rtol=K2_RTOL, atol_rel=K2_ATOL_REL)
+    n_bytes = f32_bytes(x[0], x[1], x[3], *cots) + 4 * 4 * r * s
+    out["composite_bwd"] = {
+        "shape": [r, s],
+        "max_abs_err": max(max_err(*zip(*pairs)), max_err(got_all,
+                                                            want_all)),
+        "ms": kernel_device_ms(lambda: _composite_bwd_cuda(*args),
+                               "composite_bwd_ray"),
+        "wrapper_ms": time_ms(lambda: _composite_bwd_cuda(*args), n=21,
+                              reps=20),
+        "plain_ms": time_ms(lambda: composite_backward_reference(*args)),
+        "bound_ms": n_bytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
+        "library_ms": None}
+    del x, g, got, want, got_all, want_all, pairs, args
+    # ---- H1 and H2 on the probe's table ----
+    field = p.field
+    pts, anc = probe_points(p, batch, noise)
+    n_levels, n_rows, width = field.prop_feat.shape
+    c = 4
+    pack = ph.pack_for_channels(c, p.field_cfg.packed_row_width)
+    n_points, n_valid = pts.shape[0], int((anc >= 0).sum())
+    with torch.no_grad():
+        fargs = (field.prop_feat, field.prop_prim, field.prop_bias, pts, anc,
+                 c, pack, 0)
+        got = ph._packed_hash_encode_cuda(*fargs)
+        want = ph.packed_hash_encode_raw(*fargs)
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            raise AssertionError(f"[prop] packed_hash_fwd on the probe: max "
+                                 f"abs err {max_err([got], [want])}, not "
+                                 f"equal bit for bit")
+        del got, want
+        out["packed_hash_fwd"] = {
+            "shape": [pts.shape[0], n_levels, c, n_rows], "max_abs_err": 0.0,
+            "ms": time_ms(lambda: ph._packed_hash_encode_cuda(*fargs), n=21),
+            "plain_ms": time_ms(lambda: ph.packed_hash_encode_raw(*fargs),
+                                n=3),
+            "bound_ms": hash_fwd_bytes(pts.shape[0], n_levels, c,
+                                       field.prop_feat.numel())
+            / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
+            "library_ms": None}
+    gen = torch.Generator(device="cuda").manual_seed(66)
+    gout = torch.randn((pts.shape[0], n_levels * c), generator=gen,
+                       device="cuda")
+    bargs = (gout, field.prop_prim, field.prop_bias, pts, anc, n_rows, width,
+             c, pack, 0)
+    got = ph._packed_hash_backward_cuda(*bargs)
+    want = ph.packed_hash_backward_reference(*bargs)
+    torch.cuda.synchronize()
+    assert_close([got], [want], "[prop] packed_hash_bwd on the probe",
+                 atol_rel=H2_ATOL_REL)
+    err = max_err([got], [want])
+    del got, want
+    ops = torch.zeros(n_levels, dtype=torch.int64, device="cuda")
+    ph._packed_hash_backward_cuda(*bargs, red_ops=ops)
+    terms = list(ph.packed_hash_scatter_terms(*bargs))
+    rows = torch.cat([t[0] for t in terms])
+    payload = torch.cat([t[1] for t in terms])
+    del terms
+    n_out = n_levels * n_rows * width // c
+    out["packed_hash_bwd"] = {
+        "shape": [pts.shape[0], n_levels, c, n_rows], "max_abs_err": err,
+        "ms": time_ms(lambda: ph._packed_hash_backward_cuda(*bargs), n=11),
+        "plain_ms": time_ms(lambda: ph.packed_hash_backward_reference(
+            *bargs), n=3),
+        "library_ms": time_ms(lambda: torch.zeros(
+            (n_out, c), device="cuda").index_add_(0, rows, payload), n=5),
+        "bound_ms": hash_bwd_bytes(pts.shape[0], n_levels, c,
+                                   field.prop_feat.numel())
+        / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
+        "launches_per_call": table_grad_launches(n_levels, c),
+        "reductions_per_level": ops.tolist()}
+    del rows, payload, gout, pts, anc
+    torch.cuda.empty_cache()
+    for name, k in out.items():
+        log(f"[prop] {name} at {k['shape']}: max abs err "
+            f"{k['max_abs_err']:.3g}; kernel {k['ms']:.4f} ms"
+            + (f" (the wrapper, 20 calls per event pair, "
+               f"{k['wrapper_ms']:.4f} ms)" if "wrapper_ms" in k else "")
+            + f", plain {k['plain_ms']:.4f} ms, "
+            + (f"index_add_ {k['library_ms']:.4f} ms, "
+               if k["library_ms"] is not None else "")
+            + f"bound {k['bound_ms']:.4f} ms")
+    log(f"[prop] the probe's points: {n_valid} of {n_points} valid; "
+        f"H2's vector reductions per level "
+        f"{out['packed_hash_bwd']['reductions_per_level']} into "
+        f"{n_levels} x {n_rows} rows")
+    return out
+
+
+def phase_prop(tmp: Path):
+    """gf-nerf-prop (proposal-guided resampling) through the Trainer at its
+    full width (PROP_WIDTH) on the pipeline phase's synthetic scene, with
+    the pipeline phase's schedule cut to 2 focal blocks (PROP_OVERRIDES),
+    counted: every init step
+    launches K1 and K2 once at (8192, 64), H1 twice (the probe's 4 x 4 of
+    2^12 on 2,097,152 lattice points, then the main field's 8 x 4 of 2^15
+    on 524,288 fine points) and H2 in two calls (the probe's table and the
+    global one); every focal step K1 and K2 once, H1 three times (the
+    probe without a graph, the global encode, the block's on it) and H2
+    once, into the block's table; H3, H4 and H5 never.  Checked: the
+    probe's table and MLP changed by the init steps that reached it and
+    bit-unchanged by the focal steps; finite losses, the interlevel loss
+    included; the rgb loss falling over the init stage; the milestone
+    rebuilds and the compaction; 48 error-map renders; 10 clusters; eval
+    batches (a stream per block), the eval image's PSNR above its mean
+    image's, and the checkpoint.  Then, from the trained state: one step against the plain
+    autograd pairs; K1, K2, H1 and H2 at the new shapes
+    (check_prop_kernels); an init and a focal step profiled (the
+    gfnerf/proposal span among the stages); a step's peak memory beyond
+    its state; python -m gfnerf_tpu_torch.eval and .render on the
+    checkpoint, and .render --early-term refused."""
+    import numpy as np
+    import torch
+
+    from gfnerf_tpu_torch import eval as eval_entry
+    from gfnerf_tpu_torch import render as render_entry
+    from gfnerf_tpu_torch.configs.config_io import apply_override
+    from gfnerf_tpu_torch.configs.method_configs import get_method
+    from gfnerf_tpu_torch.data.dataparsers import build_dataparser
+    from gfnerf_tpu_torch.engine.trainer import Trainer
+    from gfnerf_tpu_torch.fields.field import STAGE_BLOCK, STAGE_INIT
+    from gfnerf_tpu_torch.fields.hash_encoding import table_grad_launches
+    from gfnerf_tpu_torch.fields.packed_hash import packed_hash_encode
+    from gfnerf_tpu_torch.render import read_png
+    from gfnerf_tpu_torch.train_bench import RAYS, make_batch
+    from gfnerf_tpu_torch.utils.synthetic import make_synthetic_npz
+
+    scene = tmp / "scene"
+    if not scene.is_dir():
+        make_synthetic_npz(scene, n_train=48, n_val=4, img_wh=(96, 72))
+    cfg = get_method("gf-nerf-prop")
+    for key, value in {**PROP_OVERRIDES,
+                       "max_num_iterations": str(PROP_STEPS),
+                       "output_dir": str(tmp / "prop_out")}.items():
+        apply_override(cfg, key, value)
+    cfg.data = scene
+    trainer = Trainer(cfg, build_dataparser("minimal", scene))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    trainer.setup()
+    setup_s = time.perf_counter() - t0
+    p = trainer.pipeline
+    fc, scfg, mcfg = p.field_cfg, p.sampler.sampler_config, p.config.model
+    rays = p.config.datamanager.train_num_rays_per_batch
+    width = (scfg.max_samples, mcfg.samples_budget_per_ray,
+             mcfg.num_proposal_resamples, fc.num_levels,
+             fc.features_per_level, fc.packed_rows_log2, fc.proposal_levels,
+             fc.proposal_rows_log2, fc.n_blocks, fc.mlp_dtype,
+             fc.hash_layout, rays)
+    log(f"[prop] setup {setup_s:.2f}s: {p.sampler.tree.n_nodes} nodes, "
+        f"{p.sampler.n_volumes} volumes; sample_l {scfg.sample_l:.6f}, "
+        f"max_hits {scfg.max_hits}; (slots, budget, fine samples, levels, "
+        f"channels, log2 rows, probe levels, probe log2 rows, blocks, MLPs,"
+        f" layout, rays) {width}")
+    if width != PROP_WIDTH:
+        raise AssertionError(f"gf-nerf-prop is not at its full width: "
+                             f"{width}")
+    k, s_march = mcfg.num_proposal_resamples, scfg.max_samples
+
+    def probe_params():
+        return [p.field.prop_feat, *p.field.prop_net.w, *p.field.prop_net.b]
+
+    rec = {"steps": {}, "rebuilds": [], "maps": 0, "evals": []}
+    get_loss, rebuild, render = (p.get_train_loss_dict,
+                                 p.sampler.maybe_rebuild, p.render_camera)
+    eval_batch, eval_image = (p.get_eval_loss_dict,
+                              p.get_eval_image_metrics_and_images)
+    shapes = record_shapes()
+
+    def counts():
+        return {**launch_counts(),
+                "packed_hash_bwd_calls": packed_hash_encode.bwd_calls}
+
+    def get_loss_w(step):
+        before = counts()
+        probe = [t.detach().clone() for t in probe_params()]
+        n_c, n_e = len(shapes.composite), len(shapes.encode)
+        t = time.perf_counter()
+        m = get_loss(step)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t
+        after = counts()
+        rec["steps"][step] = {
+            "s": dt, "counts": {name: after[name] - before[name]
+                                for name in after},
+            "composite": shapes.composite[n_c:], "encode": shapes.encode[n_e:],
+            "probe_changed": [not torch.equal(a, b) for a, b in
+                              zip(probe, probe_params())], **m}
+        return m
+
+    def rebuild_w(step):
+        n = p.sampler.tree.n_nodes
+        t = time.perf_counter()
+        done = rebuild(step)
+        if done:
+            rec["rebuilds"].append((step, n, p.sampler.tree.n_nodes,
+                                    time.perf_counter() - t))
+        return done
+
+    def render_w(*args, **kw):
+        rec["maps"] += kw.get("downscale") == 8
+        return render(*args, **kw)
+
+    def eval_batch_w(step):
+        t = time.perf_counter()
+        m = eval_batch(step)
+        torch.cuda.synchronize()
+        rec["evals"].append((step, time.perf_counter() - t,
+                             float(m["eval_psnr"])))
+        return m
+
+    def eval_image_w(step, idx=0):
+        t = time.perf_counter()
+        metrics, images = eval_image(step, idx)
+        rec["eval_image"] = (step, idx, time.perf_counter() - t, metrics)
+        return metrics, images
+
+    p.get_train_loss_dict, p.sampler.maybe_rebuild = get_loss_w, rebuild_w
+    p.render_camera, p.get_eval_loss_dict = render_w, eval_batch_w
+    p.get_eval_image_metrics_and_images = eval_image_w
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    with shapes:
+        trainer.train()
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    launches = launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    p.get_train_loss_dict, p.sampler.maybe_rebuild = get_loss, rebuild
+    p.render_camera = render
+    p.get_eval_loss_dict, p.get_eval_image_metrics_and_images = \
+        eval_batch, eval_image
+
+    steps = rec["steps"]
+    if sorted(steps) != list(range(PROP_STEPS)):
+        raise AssertionError(f"gf-nerf-prop: steps run {sorted(steps)}")
+    losses = [steps[i]["loss"] for i in range(PROP_STEPS)]
+    inter = [steps[i]["interlevel_loss"] for i in range(PROP_STEPS)]
+    rgb = [steps[i]["rgb_loss"] for i in range(PROP_STEPS)]
+    log(f"[prop] losses {[round(x, 5) for x in losses]}; interlevel "
+        f"{[round(x, 5) for x in inter]}; rgb {[round(x, 5) for x in rgb]};"
+        f" marched samples per ray "
+        f"{[round(steps[i]['num_samples_per_ray'], 1) for i in steps]}")
+    if not (all(np.isfinite(losses)) and all(np.isfinite(inter))):
+        raise AssertionError(f"gf-nerf-prop: non-finite losses {losses} "
+                             f"{inter}")
+    if not _mean(rgb[PROP_INIT_STEPS - 3:PROP_INIT_STEPS]) < _mean(rgb[:3]):
+        raise AssertionError(f"gf-nerf-prop: the rgb loss did not fall over "
+                             f"the init stage: {rgb}")
+    probe_shape = tuple(p.field.prop_feat.shape)
+    main_shape = tuple(p.field.global_feat.shape)
+    n_probe, n_fine = rays * s_march, rays * k
+    h2_probe = table_grad_launches(fc.proposal_levels, 4)
+    h2_main = table_grad_launches(fc.num_levels, fc.features_per_level)
+    for i in range(PROP_STEPS):
+        init = i < PROP_INIT_STEPS
+        want = ({"composite_fwd": 1, "composite_bwd": 1,
+                 "packed_hash_fwd": 2, "packed_hash_bwd": h2_probe + h2_main,
+                 "packed_hash_bwd_calls": 2} if init else
+                {"composite_fwd": 1, "composite_bwd": 1,
+                 "packed_hash_fwd": 3, "packed_hash_bwd": h2_main,
+                 "packed_hash_bwd_calls": 1})
+        want_encode = ([(probe_shape, n_probe, True),
+                        (main_shape, n_fine, True)] if init else
+                       [(probe_shape, n_probe, False),
+                        (main_shape, n_fine, False),
+                        (main_shape, n_fine, True)])
+        st = steps[i]
+        got = st["counts"]
+        if got != {name: want.get(name, 0) for name in got}:
+            raise AssertionError(f"gf-nerf-prop step {i}: launches {got}, "
+                                 f"expected {want}")
+        if st["composite"] != [(rays, k)] or st["encode"] != want_encode:
+            raise AssertionError(f"gf-nerf-prop step {i}: K1 at "
+                                 f"{st['composite']}, H1 at {st['encode']}")
+        if not init and any(st["probe_changed"]):
+            raise AssertionError(f"gf-nerf-prop focal step {i}: the probe "
+                                 f"changed {st['probe_changed']}")
+    changed = [steps[i]["probe_changed"] for i in range(PROP_INIT_STEPS)]
+    log(f"[prop] launches per step as expected: init K1 and K2 once at "
+        f"({rays}, {k}), H1 on the probe {probe_shape} at {n_probe} points "
+        f"and on the global table {main_shape} at {n_fine}, H2 in two calls"
+        f" ({h2_probe} + {h2_main} launches); focal K1 and K2 once, H1 "
+        f"three times (the probe without a graph), H2 once ({h2_main} "
+        f"launches, the block's table); H3, H4, H5 never; in the whole run "
+        f"{launches}")
+    log(f"[prop] the probe's table and MLP changed by init step (table, "
+        f"then the MLP's weights and biases): {changed}; bit-unchanged by "
+        f"every focal step")
+    if not all(any(c) for c in changed[2:]) or not all(
+            any(steps[i]["probe_changed"][j] for i in range(PROP_INIT_STEPS))
+            for j in range(len(changed[0]))):
+        raise AssertionError(f"gf-nerf-prop: the probe did not train at the "
+                             f"init stage: {changed}")
+    for name in ("packed_hash_routed", "hash_anchored_fwd",
+                 "hash_anchored_bwd"):
+        if launches[name]:
+            raise AssertionError(f"gf-nerf-prop: {name} launched")
+    log(f"[prop] rebuilds (step, nodes before, after, s): "
+        f"{[(s, a, b, round(t, 3)) for s, a, b, t in rec['rebuilds']]}")
+    if [s for s, *_ in rec["rebuilds"]] != [8, 12, 16]:
+        raise AssertionError(f"gf-nerf-prop: rebuilds {rec['rebuilds']}")
+    labels = p.sampler.cameras_labels
+    if (rec["maps"] != 48 or labels is None
+            or len(np.unique(labels)) != fc.n_blocks):
+        raise AssertionError(f"gf-nerf-prop transition: {rec['maps']} error "
+                             f"maps, labels {labels}")
+    step, idx, image_s, metrics = rec["eval_image"]
+    gt = p.datamanager.next_eval_image(idx)[1]["image"]
+    trivial = float(-10.0 * np.log10(np.mean((gt - gt.mean(axis=(0, 1)))
+                                             ** 2)))
+    log(f"[prop] eval batches (step, s, PSNR) {rec['evals']}; eval image "
+        f"{idx} at step {step} in {image_s:.3f}s: {json.dumps(metrics)}; "
+        f"mean-image PSNR {trivial:.4f}")
+    if len(rec["evals"]) != 2 or not metrics["psnr"] > trivial:
+        raise AssertionError(f"gf-nerf-prop: eval batches {rec['evals']}, "
+                             f"eval PSNR {metrics['psnr']} against the mean "
+                             f"image's {trivial}")
+    ckpt = trainer.checkpoint_dir / f"step-{PROP_STEPS - 1:09d}"
+    if not (ckpt / "state.pt").is_file():
+        raise AssertionError(f"gf-nerf-prop: no checkpoint at {ckpt}")
+    rebuild_steps = {s for s, *_ in rec["rebuilds"]}
+    init_s = [steps[i]["s"] for i in range(2, PROP_INIT_STEPS)
+              if i not in rebuild_steps]
+    focal_s = [steps[i]["s"] for i in range(PROP_INIT_STEPS + 1,
+                                            PROP_STEPS, 2)]
+    log(f"[prop] s a step through the Trainer: "
+        f"{[round(steps[i]['s'], 4) for i in range(PROP_STEPS)]}")
+    log(f"[prop] Trainer: {_mean(init_s):.4f} s/init step "
+        f"({RAYS / _mean(init_s):.1f} rays/s), {_mean(focal_s):.4f} s/focal "
+        f"step ({RAYS / _mean(focal_s):.1f} rays/s; the second of each "
+        f"block's); peak {peak / 2**30:.3f} GiB; the run {train_s:.1f}s")
+
+    # from the trained state
+    images = np.asarray(p.datamanager.train_dataset.metadata[
+        "images_array"], np.float32) / 255.0
+    gen = torch.Generator(device=p.device).manual_seed(9)
+    wl = {"field": p.field, "state": p.state, "tx": p.tx,
+          "step_fn": p._train_step[STAGE_INIT],
+          "focal_step_fn": p._train_step[STAGE_BLOCK],
+          "oct_dev": p.sampler.oct_dev, "cams": p.cameras_dev,
+          "fineness": 1.0, "scfg": scfg, "fcfg": fc}
+    batch = make_batch(images, RAYS, 700, p.device)
+    noise, perms = step_draws(wl, gen)
+    prop_u = torch.rand((RAYS, k + 1), generator=gen, device=p.device)
+    compare_step(wl, "prop", batch, noise, perms, prop_u=prop_u)
+    kernels = check_prop_kernels(p, batch, noise)
+    _, _, step_peak = remat_step(p, 0, batch, noise, perms)
+    log(f"[prop] one init step's peak memory beyond its state "
+        f"{step_peak / 2**30:.3f} GiB")
+    profiles = {"init step": profiled_step(p, wl, batch, noise, perms),
+                "focal step": profiled_step(p, wl, batch, noise, perms, 0)}
+    for stage, prof in profiles.items():
+        spans = {k: round(v, 2)
+                 for k, v in prof["stage_device_span_ms"].items()}
+        top = [(k["name"][:60], round(k["device_ms"], 3), k["count"])
+               for k in prof["top_kernels"][:8]]
+        log(f"[prop] one {stage}, profiled: {prof['step_ms']:.1f} ms on the "
+            f"host clock (the faster of 2), device busy "
+            f"{prof['device_busy_ms']:.2f} ms, idle share "
+            f"{prof['idle_share']:.3f}; stage device spans (ms) {spans}; "
+            f"busiest kernels {top}; host waits {prof['host_waits']}")
+        if "proposal" not in spans:
+            raise AssertionError(f"[prop] {stage}: no gfnerf/proposal span")
+
+    # the entry points on the checkpoint
+    config_path = trainer.base_dir / "config.json"
+    del trainer, p, wl, render, get_loss, rebuild, eval_batch, eval_image
+    torch.cuda.empty_cache()
+    t = time.perf_counter()
+    eval_entry.main(["--load-config", str(config_path), "--output-path",
+                     str(tmp / "prop_eval.json")])
+    eval_s = time.perf_counter() - t
+    res = json.loads((tmp / "prop_eval.json").read_text())["results"]
+    if not all(np.isfinite(v) for v in res.values()):
+        raise AssertionError(f"gfnerf_tpu_torch.eval: {res}")
+    torch.cuda.empty_cache()
+    frames_dir = tmp / "prop_frames"
+    render_args = ["--load-config", str(config_path), "--traj", "spiral",
+                   "--spiral-steps", "3", "--output-path", str(frames_dir)]
+    try:
+        render_entry.main(render_args + ["--early-term"])
+    except ValueError as e:
+        refused = str(e)
+    else:
+        raise AssertionError("render --early-term ran on a proposal run")
+    if "proposal" not in refused or frames_dir.exists():
+        raise AssertionError(f"render --early-term: {refused}")
+    t = time.perf_counter()
+    render_entry.main(render_args)
+    render_s = time.perf_counter() - t
+    frames = sorted(frames_dir.glob("*.png"))
+    shapes_ = [read_png(f).shape for f in frames]
+    if len(frames) != 3 or any(s != (72, 96, 3) for s in shapes_):
+        raise AssertionError(f"gfnerf_tpu_torch.render wrote {frames} "
+                             f"{shapes_}")
+    log(f"[prop] python -m gfnerf_tpu_torch.eval on the checkpoint in "
+        f"{eval_s:.2f}s: {json.dumps(res)}; .render --early-term refused "
+        f"({refused}); .render --traj spiral --spiral-steps 3 in "
+        f"{render_s:.2f}s: {[f.name for f in frames]}, each 96x72 RGB")
+    torch.cuda.empty_cache()
+    stats = {
+        "setup_s": setup_s, "train_s": train_s,
+        "init_s_per_step": _mean(init_s), "focal_s_per_step": _mean(focal_s),
+        "init_rays_per_s": RAYS / _mean(init_s),
+        "focal_rays_per_s": RAYS / _mean(focal_s),
+        "peak_bytes": peak, "step_peak_extra_bytes": step_peak,
+        "rebuilds_s": {s: t for s, _, _, t in rec["rebuilds"]},
+        "eval_batch_s": [t for _, t, _ in rec["evals"]],
+        "eval_image_s": image_s, "eval_psnr": metrics["psnr"],
+        "mean_image_psnr": trivial, "eval_entry_s": eval_s,
+        "render_entry_s": render_s, "losses": losses,
+        "interlevel_losses": inter,
+        "step_s": [steps[i]["s"] for i in range(PROP_STEPS)],
+        "profiles": {k: {n: v[n] for n in ("step_ms", "device_busy_ms",
+                                           "idle_share",
+                                           "stage_device_span_ms")}
+                     for k, v in profiles.items()},
+    }
+    return launches, stats, kernels
+
+
 def main() -> int:
     if not (REPO / "gfnerf_tpu_torch").is_dir():
         print("chip_smoke: gfnerf_tpu_torch/ not found beside this script",
@@ -3252,7 +3829,14 @@ def main() -> int:
         torch.cuda.empty_cache()
         paths["gfnerf"], stats["gfnerf"], (gf_fwd, gf_bwd) = \
             phase_gfnerf(Path(tmp))
-    clock("gfnerf")
+        clock("gfnerf")
+        torch.cuda.empty_cache()
+        paths["prop"], stats["prop"], prop = phase_prop(Path(tmp))
+    clock("prop")
+    for name, part in prop.items():
+        report[name]["max_abs_err"] = max(report[name]["max_abs_err"],
+                                          part["max_abs_err"])
+        report[name]["prop"] = part
     for name, gf in (("hash_anchored_fwd", gf_fwd),
                      ("hash_anchored_bwd", gf_bwd)):
         report[name]["max_abs_err"] = max(report[name]["max_abs_err"],
@@ -3293,7 +3877,7 @@ def main() -> int:
         log(f"[{path}] {json.dumps(st)}")
     log(json.dumps({"kernels": kernels}))
     log(f"[clock] the whole script {time.perf_counter() - start:.1f}s "
-        f"(165.7-196.5 s before the gfnerf phase)")
+        f"(171.6-226.6 s before the prop phase)")
     log(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -2,8 +2,10 @@
 
 Port of ``gfnerf_tpu/configs/method_configs.py`` for the GF-NeRF methods
 whose paths are ported: ``gf-nerf`` (the paper's defaults), ``gf-nerf-tiny``
-(smoke tests) and ``gf-nerf-perf`` (packed supercell tables, 8 levels x 4
-channels, bf16 MLPs, 160 march slots).  The JAX package's other methods
+(smoke tests), ``gf-nerf-perf`` (packed supercell tables, 8 levels x 4
+channels, bf16 MLPs, 160 march slots) and ``gf-nerf-prop`` (``gf-nerf-perf``
+with proposal-guided resampling: a 256-slot march feeds the probe, whose
+weights resample 64 fine samples a ray).  The JAX package's other methods
 raise a "not ported" error from :func:`get_method`.
 """
 
@@ -19,7 +21,7 @@ from gfnerf_tpu_torch.pipelines.pipeline import GFNerfPipelineConfig
 from gfnerf_tpu_torch.sampler.manager import PersSamplerManagerConfig
 
 # the JAX package's registered methods that have no port yet
-NOT_PORTED = ("gf-nerf-prop", "nerfacto", "instant-ngp", "mipnerf",
+NOT_PORTED = ("nerfacto", "instant-ngp", "mipnerf",
               "tensorf", "neus", "vanilla-nerf", "nerfplayer-nerfacto",
               "nerfplayer-ngp", "semantic-nerfw")
 
@@ -133,10 +135,26 @@ def gf_nerf_perf_config() -> TrainerConfig:
     return cfg
 
 
+def gf_nerf_prop_config() -> TrainerConfig:
+    """``gf-nerf-perf`` with proposal-guided resampling: the probe's weights
+    on a dense 256-slot march (the budget equals the slots, so nothing is
+    compacted) importance-resample 64 fine samples a ray for the main
+    field."""
+    cfg = gf_nerf_perf_config()
+    cfg.method_name = "gf-nerf-prop"
+    p = cfg.pipeline
+    p.field_use_proposal = True
+    p.model.num_proposal_resamples = 64
+    p.sampler.max_samples = 256
+    p.model.samples_budget_per_ray = 256
+    return cfg
+
+
 method_configs: Dict[str, Callable[[], TrainerConfig]] = {
     "gf-nerf": gf_nerf_config,
     "gf-nerf-tiny": gf_nerf_tiny_config,
     "gf-nerf-perf": gf_nerf_perf_config,
+    "gf-nerf-prop": gf_nerf_prop_config,
 }
 
 def get_method(name: str) -> TrainerConfig:

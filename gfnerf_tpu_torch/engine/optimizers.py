@@ -2,9 +2,10 @@
 
 Port of ``gfnerf_tpu/engine/optimizers.py`` (nerfstudio's per-group
 optimizers with GF-NeRF's optimizer swapping, nerfacto.py:448-489).  The
-parameters fall into four groups: "fields" (the MLPs and the appearance
-embedding), "base_encoding_init" (the global hash table), "block" (the
-active focal residual table) and "camera_opt".  Each group runs the chain
+parameters fall into four groups: "fields" (the MLPs, the appearance
+embedding and the proposal probe's table and MLP), "base_encoding_init"
+(the global hash table), "block" (the active focal residual table) and
+"camera_opt".  Each group runs the chain
 the JAX package builds with optax, in its order:
 
     Adam scaling (b1, b2, eps 1e-15) -> + weight_decay * param
@@ -70,17 +71,20 @@ def field_param_groups(field: GFNeRFField,
     """The optimizer's parameters by group.  The "block" group holds the
     active block's table, ``active_table`` (:func:`active_block_table`);
     without one, block 0's, the placeholder the JAX package's
-    ``optimizer_arg`` passes to build the state.  "camera_opt" is empty (the
-    camera optimizer is not ported)."""
+    ``optimizer_arg`` passes to build the state.  "fields" holds the
+    proposal probe, if the field has one (optimizers.py:82-84).
+    "camera_opt" is empty (the camera optimizer is not ported)."""
     if field.block_feats is None:
         block = []
     elif active_table is not None:
         block = [active_table]
     else:
         block = [active_block_table(field)]
+    probe = [] if field.prop_feat is None else [
+        field.prop_feat, *field.prop_net.w, *field.prop_net.b]
     return {
         "fields": [*field.base_net.w, *field.base_net.b, *field.mlp_head.w,
-                   *field.mlp_head.b, field.appearance_embedding],
+                   *field.mlp_head.b, field.appearance_embedding, *probe],
         "base_encoding_init": [field.global_feat],
         "block": block,
         "camera_opt": [],

@@ -9,7 +9,9 @@ the frozen global encode (``focal_mode="residual"``) or replaces it
 (``"finetune"``), and :func:`field_density_routed` picks the block per
 point for mixed eval chunks.  The colour head runs with its first layer
 split into a per-ray part (SH(direction) and appearance embedding) and a
-per-sample part (geometry features).
+per-sample part (geometry features).  With ``use_proposal`` the field also
+holds the proposal probe (a small packed table and a 16-wide MLP), whose
+:func:`proposal_density` guides the resampling of ``models/gfnerf.py``.
 
 The JAX package's trainable/fixed pytrees become one ``nn.Module``
 (:class:`GFNeRFField`): tables, MLP weights and the appearance embedding are
@@ -80,8 +82,15 @@ class FieldConfig:
     # fits the table (packed layout, residual mode only)
     block_dense_levels: int = 0
     focal_mode: str = "residual"    # "residual" | "finetune"
+    # the proposal probe: a packed table of proposal_levels x 4 channels of
+    # 2^proposal_rows_log2 rows, and a 16-wide MLP
     use_proposal: bool = False
-    warp_mode: str = "pers"         # "pers" | "identity"
+    proposal_levels: int = 4
+    proposal_rows_log2: int = 12
+    # "pers": the per-leaf perspective warp; "identity" (ablation): world
+    # coordinates / identity_warp_scale, clipped to [-1.5, 1.5]
+    warp_mode: str = "pers"
+    identity_warp_scale: float = 6.0
     density_bias: float = 1.0
 
 
@@ -98,6 +107,8 @@ class FieldParams:
     base_net: dict
     mlp_head: dict
     appearance_embedding: np.ndarray     # (num_images, D)
+    prop_feat: Optional[np.ndarray] = None   # (L_p, rows, W) probe table
+    prop_net: Optional[dict] = None          # probe MLP
 
 
 @dataclasses.dataclass
@@ -108,6 +119,8 @@ class FieldStatics:
     global_bias: np.ndarray              # (L, V, 3) f32
     block_prims: Optional[np.ndarray]    # (n_blocks, L, V, 3) uint32
     block_biases: Optional[np.ndarray]   # (n_blocks, L, V, 3) f32
+    prop_prim: Optional[np.ndarray] = None   # (L_p, V, 3) uint32
+    prop_bias: Optional[np.ndarray] = None   # (L_p, V, 3) f32
 
 
 def _check_supported(cfg: FieldConfig) -> None:
@@ -115,11 +128,10 @@ def _check_supported(cfg: FieldConfig) -> None:
         raise ValueError(f"unknown hash layout {cfg.hash_layout!r}")
     if cfg.focal_mode not in ("residual", "finetune"):
         raise ValueError(f"unknown focal mode {cfg.focal_mode!r}")
-    for name in ("use_semantics", "use_proposal"):
-        if getattr(cfg, name):
-            raise NotImplementedError(f"FieldConfig.{name} is not ported")
-    if cfg.warp_mode != "pers":
-        raise NotImplementedError("the identity-warp ablation is not ported")
+    if cfg.warp_mode not in ("pers", "identity"):
+        raise ValueError(f"unknown warp mode {cfg.warp_mode!r}")
+    if cfg.use_semantics:
+        raise NotImplementedError("FieldConfig.use_semantics is not ported")
     if cfg.camera_opt_mode != "off":
         raise NotImplementedError("the camera optimizer is not ported")
 
@@ -173,12 +185,23 @@ def init_field_params(cfg: FieldConfig, seed: int = 0):
         rng, head_in, 3, cfg.hidden_dim_color, cfg.num_layers_color - 1)
     appearance = rng.standard_normal(
         (cfg.num_images, cfg.appearance_embedding_dim)).astype(np.float32)
+    # (the semantics heads, unported, would draw here)
+    prop_feat = prop_net = prop_prim = prop_bias = None
+    if cfg.use_proposal:
+        # the table's own default row width, whatever packed_row_width says
+        # (field.py:236-247 of the JAX package)
+        prop_feat, prop_prim, prop_bias = init_packed_hash_params(
+            seed=int(rng.integers(1 << 31)),
+            n_rows_log2=cfg.proposal_rows_log2, n_volumes=cfg.n_volumes,
+            n_levels=cfg.proposal_levels, n_channels=4, init_mode="reset")
+        prop_net = init_mlp(rng, cfg.proposal_levels * 4, 1, 16, 1)
     params = FieldParams(
         global_feat=g_feat, block_feats=block_feats, base_net=base_net,
-        mlp_head=mlp_head, appearance_embedding=appearance)
+        mlp_head=mlp_head, appearance_embedding=appearance,
+        prop_feat=prop_feat, prop_net=prop_net)
     statics = FieldStatics(
         global_prim=g_prim, global_bias=g_bias, block_prims=block_prims,
-        block_biases=block_biases)
+        block_biases=block_biases, prop_prim=prop_prim, prop_bias=prop_bias)
     return params, statics
 
 
@@ -214,6 +237,12 @@ class GFNeRFField(nn.Module):
         self.register_buffer("block_prims", buf(statics.block_prims, np.int64))
         self.register_buffer("block_biases",
                              buf(statics.block_biases, np.float32))
+        self.prop_feat = (None if params.prop_feat is None
+                          else param(params.prop_feat))
+        self.prop_net = (None if params.prop_net is None
+                         else MLP(params.prop_net, device))
+        self.register_buffer("prop_prim", buf(statics.prop_prim, np.int64))
+        self.register_buffer("prop_bias", buf(statics.prop_bias, np.float32))
         self._block_tables_bf16 = None   # (key, copy), see the method
 
     def block_tables_bf16(self) -> torch.Tensor:
@@ -244,12 +273,16 @@ class GFNeRFField(nn.Module):
             block_feats=arr(self.block_feats),
             base_net=self.base_net.to_numpy(),
             mlp_head=self.mlp_head.to_numpy(),
-            appearance_embedding=arr(self.appearance_embedding))
+            appearance_embedding=arr(self.appearance_embedding),
+            prop_feat=arr(self.prop_feat),
+            prop_net=(None if self.prop_net is None
+                      else self.prop_net.to_numpy()))
         statics = FieldStatics(
             global_prim=u32(self.global_prim),
             global_bias=arr(self.global_bias),
             block_prims=u32(self.block_prims),
-            block_biases=arr(self.block_biases))
+            block_biases=arr(self.block_biases),
+            prop_prim=u32(self.prop_prim), prop_bias=arr(self.prop_bias))
         return params, statics
 
 
@@ -263,6 +296,8 @@ def params_from_jax(params, statics, cfg: FieldConfig,
         return None if x is None else np.asarray(x)
 
     def mlp(d):
+        if d is None:
+            return None
         return {"w": [arr(w) for w in d["w"]], "b": [arr(b) for b in d["b"]]}
 
     p = FieldParams(
@@ -270,12 +305,14 @@ def params_from_jax(params, statics, cfg: FieldConfig,
         block_feats=arr(params.block_feats),
         base_net=mlp(params.base_net),
         mlp_head=mlp(params.mlp_head),
-        appearance_embedding=arr(params.appearance_embedding))
+        appearance_embedding=arr(params.appearance_embedding),
+        prop_feat=arr(params.prop_feat), prop_net=mlp(params.prop_net))
     s = FieldStatics(
         global_prim=arr(statics.global_prim),
         global_bias=arr(statics.global_bias),
         block_prims=arr(statics.block_prims),
-        block_biases=arr(statics.block_biases))
+        block_biases=arr(statics.block_biases),
+        prop_prim=arr(statics.prop_prim), prop_bias=arr(statics.prop_bias))
     return GFNeRFField(cfg, p, s, device)
 
 
@@ -369,6 +406,27 @@ def field_density(field: GFNeRFField, warp_pts: torch.Tensor,
     out = (density.reshape(lead_shape),
            h[:, 1:].reshape(*lead_shape, cfg.geo_feat_dim))
     return out + (shared,) if with_shared else out
+
+
+def proposal_density(field: GFNeRFField, warp_pts: torch.Tensor,
+                     anchors: torch.Tensor) -> torch.Tensor:
+    """The proposal probe's density (...,) at warped points (..., 3) with
+    anchors (...,) (-1 masked), in the caller's span: the probe table's
+    packed encode (4
+    channels a level, read with the field's ``packed_row_width``, as the
+    JAX package reads it), the 16-wide MLP in the field's MLP type, and
+    ``trunc_exp(h + 1)`` (a fixed bias, not ``density_bias``).  The same
+    warped space and anchors as the main field (field.py:533-556)."""
+    cfg = field.cfg
+    lead_shape = anchors.shape
+    pts = _normalized(warp_pts)
+    anc = anchors.reshape(-1)
+    feats = packed_hash_encode(field.prop_feat, field.prop_prim,
+                               field.prop_bias, pts, anc, 4,
+                               pack_for_channels(4, cfg.packed_row_width))
+    h = apply_mlp(field.prop_net, feats, compute_dtype=_mlp_dt(cfg))
+    density = trunc_exp(h[:, 0] + 1.0) * (anc >= 0)
+    return density.reshape(lead_shape)
 
 
 def field_density_routed(field: GFNeRFField, warp_pts: torch.Tensor,

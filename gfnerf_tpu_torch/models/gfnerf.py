@@ -6,18 +6,22 @@ Port of ``gfnerf_tpu/models/gfnerf.py``: ``sample_rays`` (fast march),
 < S``, the compacted one (each ray's first ``budget`` valid samples
 gathered into a (R * budget,) buffer, warped and evaluated there and
 scattered back; at the block stage also with a block per ray), each with
-``remat_chunks``; the fused composite with the background and
+``remat_chunks``, and, with ``num_proposal_resamples`` > 0 and the field's
+proposal probe, the proposal branch (the probe on the t-sorted marched
+lattice, its weights importance-resampled into K fine samples a ray by
+``pdf_sample``, the main field on those); the identity-warp ablation in
+every branch; the fused composite with the background and
 ``scale_factor`` handling, ``make_render_fn`` (eval noise == 1; at the block
 stage with one block or with a block per ray), and ``make_train_step`` at
 both stages: rays, march, field, Charbonnier + S3IM (at the block stage
-also the finetune trust region and the empty-space penalty), backward,
+also the finetune trust region and the empty-space penalty; on the
+proposal branch the interlevel loss and the distortion loss), backward,
 per-group Adam, and at the init stage the occupancy statistics.  The
 field's configuration travels with the :class:`GFNeRFField` module.
 
-Not ported yet: proposal resampling, semantics and the camera optimizer,
-which have no config fields here yet.  The JAX package's
-``make_multi_train_step`` (K steps per dispatch) has no counterpart: a
-plain loop of steps replaces it.
+Not ported yet: semantics and the camera optimizer, which have no config
+fields here yet.  The JAX package's ``make_multi_train_step`` (K steps per
+dispatch) has no counterpart: a plain loop of steps replaces it.
 """
 
 from __future__ import annotations
@@ -25,11 +29,12 @@ from __future__ import annotations
 import dataclasses
 from typing import Optional
 
+import numpy as np
 import torch
 from torch.utils.checkpoint import checkpoint
 
 from gfnerf_tpu_torch.cameras.cameras import Cameras, generate_rays_multi
-from gfnerf_tpu_torch.cameras.rays import WarpedSamples
+from gfnerf_tpu_torch.cameras.rays import WarpedSamples, get_weights_f2nerf
 from gfnerf_tpu_torch.engine.optimizers import (
     OptState,
     PerGroupAdam,
@@ -42,18 +47,23 @@ from gfnerf_tpu_torch.engine.optimizers import (
 from gfnerf_tpu_torch.fields.field import (
     STAGE_BLOCK,
     STAGE_INIT,
+    FieldConfig,
     GFNeRFField,
     _head_ray_pre,
     field_density,
     field_density_routed,
     field_rgb_compact,
     field_rgb_per_ray,
+    proposal_density,
 )
 from gfnerf_tpu_torch.model_components.losses import (
     charbonnier_loss,
+    distortion_loss,
+    interlevel_loss,
     s3im_loss,
     s3im_permutations,
 )
+from gfnerf_tpu_torch.model_components.ray_samplers import pdf_sample
 from gfnerf_tpu_torch.ops.composite import fused_composite
 from gfnerf_tpu_torch.sampler.fast_march import get_samples_fast
 from gfnerf_tpu_torch.sampler.perssampler import (
@@ -95,6 +105,14 @@ class GFNeRFModelConfig:
     # (points when compacting, which it must divide; rays otherwise), each
     # recomputed in the backward instead of keeping its activations
     remat_chunks: int = 0
+    # > 0 (with the field's proposal probe, and no compaction): the probe's
+    # weights on the marched lattice importance-resample this many fine
+    # samples a ray, on which the main field runs; the probe learns from the
+    # interlevel loss, and the distortion loss (if its mult is > 0)
+    # regularizes the fine weights
+    num_proposal_resamples: int = 0
+    proposal_interlevel_mult: float = 1.0
+    distortion_loss_mult: float = 0.0
 
 
 def sample_rays(oct_dev: OctreeDevice, rays_o, rays_d, noise_unscaled,
@@ -104,6 +122,19 @@ def sample_rays(oct_dev: OctreeDevice, rays_o, rays_d, noise_unscaled,
         raise NotImplementedError("only the fast (leaf-list) march is ported")
     return get_samples_fast(oct_dev, rays_o, rays_d, noise_unscaled,
                             fineness, scfg)
+
+
+def warp_or_identity(field_cfg: FieldConfig, oct_dev: OctreeDevice,
+                     anchors: torch.Tensor,
+                     world_pts: torch.Tensor) -> torch.Tensor:
+    """``warp_points`` of world points (P, 3) at clipped anchors (P,), or
+    with ``warp_mode="identity"`` the ablation's world / scale clipped to
+    [-1.5, 1.5], the division rounded as XLA compiles it (a multiply by
+    the f32 reciprocal; gfnerf.py:58-62)."""
+    if field_cfg.warp_mode == "identity":
+        inv = np.float32(1.0) / np.float32(field_cfg.identity_warp_scale)
+        return torch.clamp(world_pts * float(inv), -1.5, 1.5)
+    return warp_points(oct_dev, anchors, world_pts)
 
 
 def compact_indices(valid: torch.Tensor, budget: int) -> torch.Tensor:
@@ -126,7 +157,7 @@ def compact_indices(valid: torch.Tensor, budget: int) -> torch.Tensor:
 
 
 def compact_samples(samples: WarpedSamples, budget: int,
-                    oct_dev: OctreeDevice):
+                    oct_dev: OctreeDevice, field_cfg: FieldConfig):
     """Each ray's first ``budget`` valid samples, warped: (the flat slots
     ``idx`` (K,), padded with R * S; the anchors (K,), -1 at the pads; the
     rays (K,); the warped points (K, 3)), K = R * budget.  No host sync.
@@ -135,7 +166,8 @@ def compact_samples(samples: WarpedSamples, budget: int,
     backward of the colour head's gather ``ray_pre[ray_k]`` serializes
     equal indices, and with all pads on one ray (the JAX package's
     ``safe // s``) a march of few valid samples, the first steps' at
-    fineness 16, spent 1.37 s of a 1.47 s step there on an H100."""
+    fineness 16, spent 1.37 s of a 1.47 s step there on an H100.  The
+    points are warped as ``field_cfg`` says (``warp_or_identity``)."""
     r, s = samples.trans_idx.shape
     with span("compact"):
         idx = compact_indices(samples.valid, budget)
@@ -146,9 +178,9 @@ def compact_samples(samples: WarpedSamples, budget: int,
                                               device=idx.device) % r,
                             safe // s)
     with span("warp"):
-        warp_k = warp_points(oct_dev,
-                             anc_k.clamp(0, oct_dev.w2xz.shape[0] - 1),
-                             samples.world_pts.reshape(-1, 3)[safe])
+        warp_k = warp_or_identity(
+            field_cfg, oct_dev, anc_k.clamp(0, oct_dev.w2xz.shape[0] - 1),
+            samples.world_pts.reshape(-1, 3)[safe])
     return idx, anc_k, ray_k, warp_k
 
 
@@ -192,6 +224,8 @@ def model_forward(
     active_block: int = 0,
     active_table: Optional[torch.Tensor] = None,
     routed_blocks: Optional[torch.Tensor] = None,   # (R,) block per ray
+    rays_o: Optional[torch.Tensor] = None,          # (R, 3)
+    prop_u: Optional[torch.Tensor] = None,     # (R, K + 1) in [0, 1)
 ):
     """Field + compositing for one ray batch (gfnerf.py:149-370), with the
     deferred warp of the fast march: warped coordinates come from the
@@ -212,7 +246,12 @@ def model_forward(
     that many checkpointed chunks of points (compacted; it must divide R *
     budget) or of rays (dense; it must divide R) when a gradient is being
     recorded: the same outputs and gradients, activations recomputed in
-    the backward."""
+    the backward.
+
+    Without compaction, with ``num_proposal_resamples`` > 0, the field's
+    proposal probe and ``rays_o``, the proposal branch runs instead
+    (:func:`_model_forward_proposal`; the uniform draws ``prop_u`` (R, K +
+    1) stratify its resampling, None in eval)."""
     r, s = samples.trans_idx.shape
     budget = model_cfg.samples_budget_per_ray
     routed = routed_blocks is not None and stage == STAGE_BLOCK
@@ -227,9 +266,18 @@ def model_forward(
         return out if with_shared else out + (None,)
 
     density_shared = None
+    if not 0 < budget < s and model_cfg.num_proposal_resamples > 0 \
+            and field.prop_feat is not None and rays_o is not None:
+        if routed:
+            raise ValueError("the proposal branch renders one block a "
+                             "chunk, not a block per ray")
+        return _model_forward_proposal(
+            field, model_cfg, samples, rays_o, rays_d, rel_camera_indices,
+            stage, oct_dev, active_block, active_table, prop_u)
     if 0 < budget < s:
         k = r * budget
-        idx, anc_k, ray_k, warp_k = compact_samples(samples, budget, oct_dev)
+        idx, anc_k, ray_k, warp_k = compact_samples(samples, budget, oct_dev,
+                                                    field.cfg)
         with span("color_head"):
             ray_pre = _head_ray_pre(field, rays_d, rel_camera_indices)
 
@@ -263,8 +311,9 @@ def model_forward(
         with span("warp"):
             anc = samples.trans_idx.reshape(-1).clamp(
                 0, oct_dev.w2xz.shape[0] - 1)
-            warp = warp_points(oct_dev, anc, samples.world_pts.reshape(-1, 3)
-                               ).reshape(r, s, 3)
+            warp = warp_or_identity(field.cfg, oct_dev, anc,
+                                    samples.world_pts.reshape(-1, 3)
+                                    ).reshape(r, s, 3)
 
         def eval_rays(warp, anc, dirs, rel):
             density, geo, shared = density_fn(warp, anc)
@@ -289,22 +338,117 @@ def model_forward(
         else:
             density, density_shared, heads = eval_rays(
                 warp, samples.trans_idx, rays_d, rel_camera_indices)
-    with span("composite"):
-        weights, alphas, rgb, acc, depth = fused_composite(
-            density, samples.dists, samples.ts, heads["rgb"])
-    if model_cfg.background_color == "white":
-        rgb = rgb + (1.0 - acc)
-    elif model_cfg.background_color == "last_sample":
-        rgb = rgb + (1.0 - acc) * heads["rgb"][..., -1, :]
-    depth = depth / model_cfg.scale_factor
-    oct_depth = samples.first_oct_dis[:, None] / model_cfg.scale_factor
-    out = {
-        "rgb": rgb, "accumulation": acc, "depth": depth,
-        "oct_depth": oct_depth, "weights": weights, "alphas": alphas,
-    }
+    out = _composite_out(model_cfg, samples, density, samples.dists,
+                         samples.ts, heads["rgb"])
     if density_shared is not None:
         out["density"] = density
         out["density_shared"] = density_shared
+    return out
+
+
+def _composite_out(model_cfg: GFNeRFModelConfig, samples: WarpedSamples,
+                   density, dists, ts, rgb_s) -> dict:
+    """The fused composite of (R, S) densities, spacings, positions and
+    (R, S, 3) colours, with the background and ``scale_factor``: {rgb,
+    accumulation, depth, oct_depth, weights, alphas}."""
+    with span("composite"):
+        weights, alphas, rgb, acc, depth = fused_composite(density, dists,
+                                                           ts, rgb_s)
+    if model_cfg.background_color == "white":
+        rgb = rgb + (1.0 - acc)
+    elif model_cfg.background_color == "last_sample":
+        rgb = rgb + (1.0 - acc) * rgb_s[..., -1, :]
+    depth = depth / model_cfg.scale_factor
+    oct_depth = samples.first_oct_dis[:, None] / model_cfg.scale_factor
+    return {"rgb": rgb, "accumulation": acc, "depth": depth,
+            "oct_depth": oct_depth, "weights": weights, "alphas": alphas}
+
+
+def _model_forward_proposal(field: GFNeRFField, model_cfg, samples,
+                            rays_o, rays_d, rel_camera_indices, stage,
+                            oct_dev, active_block, active_table,
+                            prop_u):
+    """Proposal-guided resampling on the marched lattice
+    (gfnerf.py:381-470):
+
+    1. each ray's samples sorted by t (a stable sort, invalid slots last)
+       and warped; the probe's density there (its graph only at the init
+       stage: it is frozen at the block stage);
+    2. monotone bin edges (the invalid tail at the ray's last end, a
+       running max, each bin ending where the next starts) and the probe's
+       weights on them;
+    3. K = ``num_proposal_resamples`` fine bins drawn from those weights
+       (``pdf_sample``), each fine sample at its bin's middle, anchored in
+       the marched segment that holds it (the count of segment starts at
+       or below it, less one), masked where that segment is invalid;
+    4. the main field and the fused composite on the (R, K) fine samples.
+
+    Besides the render outputs it returns "prop_weights", "prop_spacing"
+    and "fine_spacing" for the interlevel loss, and "march_weights" /
+    "march_alphas", the probe's weights and alphas, for the occupancy
+    statistics (in t-sorted order, which the JAX package pairs with the
+    samples in march order)."""
+    r, s = samples.trans_idx.shape
+    k = model_cfg.num_proposal_resamples
+    n_trans = oct_dev.w2xz.shape[0]
+    cfg = field.cfg
+    with span("proposal"):
+        order = torch.argsort(
+            torch.where(samples.valid, samples.ts, float("inf")), dim=1,
+            stable=True)
+
+        def take(x):
+            return torch.gather(x, 1, order)
+
+        ts_m, de_m = take(samples.ts), take(samples.dists)
+        anc_m, valid = take(samples.trans_idx), take(samples.valid)
+        world_m = torch.gather(samples.world_pts, 1,
+                               order[..., None].expand(r, s, 3))
+    with span("warp"):
+        warp_m = warp_or_identity(cfg, oct_dev,
+                                  anc_m.reshape(-1).clamp(0, n_trans - 1),
+                                  world_m.reshape(-1, 3)).reshape(r, s, 3)
+    with span("proposal"):
+        with torch.set_grad_enabled(torch.is_grad_enabled()
+                                    and stage == STAGE_INIT):
+            dens_p = proposal_density(field, warp_m, anc_m)
+            t_max = torch.amax(torch.where(valid, ts_m + de_m, 0.0), dim=1,
+                               keepdim=True)
+            ts_fix = torch.cummax(torch.where(valid, ts_m, t_max),
+                                  dim=1).values
+            de_fix = torch.where(valid, de_m, 0.0)
+            ends_fix = torch.cat([ts_fix[:, 1:],
+                                  ts_fix[:, -1:] + de_fix[:, -1:]], dim=1)
+            w_prop, a_prop, _ = get_weights_f2nerf(de_fix, dens_p)
+        bs, be = pdf_sample(ts_fix, ends_fix, w_prop, k, prop_u)
+        t_f = (bs + be) / 2.0                                   # (R, K)
+        # ts_fix is monotone: the count of starts <= t_f is a searchsorted
+        seg = torch.clamp(torch.searchsorted(ts_fix, t_f, right=True) - 1,
+                          0, s - 1)
+        anc_f = torch.where(torch.gather(valid, 1, seg),
+                            torch.gather(anc_m, 1, seg), -1)
+    with span("warp"):
+        # a masked fine sample sits at the origin of the march's masked
+        # slots, not at t = 0 on its ray: the warp is singular at a camera
+        # centre, and its NaN would reach the plain encode's masked output
+        # and the table gradient (the JAX package's jitted encode selects
+        # zeros there; the kernels skip masked points)
+        pos_f = torch.where(
+            anc_f[..., None] >= 0,
+            rays_o[:, None, :] + t_f[..., None] * rays_d[:, None, :], 0.0)
+        warp_f = warp_or_identity(cfg, oct_dev,
+                                  anc_f.reshape(-1).clamp(0, n_trans - 1),
+                                  pos_f.reshape(-1, 3)).reshape(r, k, 3)
+    density, geo = field_density(field, warp_f, anc_f, stage, active_block,
+                                 active_table)
+    with span("color_head"):
+        heads = field_rgb_per_ray(field, rays_d, geo, rel_camera_indices,
+                                  stage)
+    out = _composite_out(model_cfg, samples, density, be - bs, t_f,
+                         heads["rgb"])
+    out.update(prop_weights=w_prop, prop_spacing=(ts_fix, ends_fix),
+               fine_spacing=(bs, be), march_weights=w_prop,
+               march_alphas=a_prop, fine_anchors=anc_f)
     return out
 
 
@@ -314,17 +458,20 @@ RENDER_KEYS = ("rgb", "accumulation", "depth", "oct_depth")
 def render_forward(field: GFNeRFField, model_cfg: GFNeRFModelConfig,
                    samples: WarpedSamples, rays_d: torch.Tensor,
                    rel_camera_index, oct_dev: OctreeDevice, active_block=0,
-                   stage_is_block: bool = False) -> dict:
+                   stage_is_block: bool = False,
+                   rays_o: Optional[torch.Tensor] = None) -> dict:
     """``model_forward`` as a render calls it: ``rel_camera_index`` one
     index or an (R,) tensor; with ``stage_is_block`` the focal field, with
     ``active_block`` one block for the chunk or an (R,) tensor with a block
-    per ray (packed layout).  Returns the full output dict."""
+    per ray (packed layout, not on the proposal branch).  ``rays_o`` lets
+    the proposal branch run (its fine samples are placed on the rays).
+    Returns the full output dict."""
     r = rays_d.shape[0]
     rel = torch.as_tensor(rel_camera_index, dtype=torch.int64,
                           device=rays_d.device).expand(r)
     if not (stage_is_block and field.cfg.n_blocks > 0):
         return model_forward(field, model_cfg, samples, rays_d, rel,
-                             STAGE_INIT, oct_dev)
+                             STAGE_INIT, oct_dev, rays_o=rays_o)
     routed = None
     if not isinstance(active_block, int):
         active_block = torch.as_tensor(active_block, device=rays_d.device)
@@ -336,7 +483,8 @@ def render_forward(field: GFNeRFField, model_cfg: GFNeRFModelConfig,
                     f"{active_block.shape[0]} blocks for {r} rays")
             routed, active_block = active_block, 0
     return model_forward(field, model_cfg, samples, rays_d, rel, STAGE_BLOCK,
-                         oct_dev, int(active_block), routed_blocks=routed)
+                         oct_dev, int(active_block), routed_blocks=routed,
+                         rays_o=rays_o)
 
 
 def make_render_fn(model_cfg: GFNeRFModelConfig, sampler_cfg: SamplerConfig):
@@ -360,7 +508,7 @@ def make_render_fn(model_cfg: GFNeRFModelConfig, sampler_cfg: SamplerConfig):
                                   sampler_cfg)
         out = render_forward(field, model_cfg, samples, rays_d,
                              rel_camera_index, oct_dev, active_block,
-                             stage_is_block)
+                             stage_is_block, rays_o)
         return {k: out[k] for k in RENDER_KEYS}
 
     return render_chunk
@@ -386,11 +534,13 @@ def make_train_step(model_cfg: GFNeRFModelConfig, sampler_cfg: SamplerConfig,
     """One training iteration (``_train_step_body``, gfnerf.py:499-664).
 
     Returns ``train_step(state, oct_dev, cameras, batch, fineness,
-    generator=None, noise=None, s3im_perms=None, active_block=0)`` ->
-    (state, oct_dev, metrics, per-ray error).  ``batch`` holds
-    ``camera_indices``, ``rel_camera_indices`` (R,) int, ``coords`` (R, 2)
-    (y, x) and ``image`` (R, 3).  The march noise (R, S) in [0.5, 1.5) and
-    the S3IM permutations are drawn from ``generator`` unless passed in.
+    generator=None, noise=None, s3im_perms=None, active_block=0,
+    prop_u=None)`` -> (state, oct_dev, metrics, per-ray error).  ``batch``
+    holds ``camera_indices``, ``rel_camera_indices`` (R,) int, ``coords``
+    (R, 2) (y, x) and ``image`` (R, 3).  The march noise (R, S) in [0.5,
+    1.5), the S3IM permutations and, on the proposal branch, the
+    resampling's uniform draws ``prop_u`` (R, K + 1) in [0, 1) are drawn
+    from ``generator`` unless passed in.
 
     The optimizer's "block" group is block ``active_block``'s table, a leaf
     of its own that shares the stack's storage
@@ -400,8 +550,12 @@ def make_train_step(model_cfg: GFNeRFModelConfig, sampler_cfg: SamplerConfig,
     the tables do not change.  At the block stage only that table is in
     the graph and only it changes; the frozen groups get no gradient, their
     moments decay, and their updates are dropped; the occupancy statistics
-    stay.  The caller re-initialises the optimizer state (``tx.init``) when
-    the active block changes, as the JAX pipeline does at a split switch.
+    stay.  The proposal probe is in the "fields" group: at the block stage
+    it runs without a graph.  On the proposal branch the init stage's
+    occupancy statistics read the probe's weights on the marched lattice,
+    as the JAX package's do.  The caller re-initialises the optimizer
+    state (``tx.init``) when the active block changes, as the JAX pipeline
+    does at a split switch.
     """
     if stage not in (STAGE_INIT, STAGE_BLOCK):
         raise ValueError(f"unknown stage {stage}")
@@ -415,7 +569,8 @@ def make_train_step(model_cfg: GFNeRFModelConfig, sampler_cfg: SamplerConfig,
                    generator: Optional[torch.Generator] = None,
                    noise: Optional[torch.Tensor] = None,
                    s3im_perms: Optional[torch.Tensor] = None,
-                   active_block: int = 0):
+                   active_block: int = 0,
+                   prop_u: Optional[torch.Tensor] = None):
         field = state.field
         if block_stage and field.block_feats is None:
             raise ValueError("the block stage needs block tables "
@@ -433,6 +588,10 @@ def make_train_step(model_cfg: GFNeRFModelConfig, sampler_cfg: SamplerConfig,
             if s3im_perms is None:
                 s3im_perms = s3im_permutations(r, generator=generator,
                                                device=dev)
+            k = model_cfg.num_proposal_resamples
+            if prop_u is None and k > 0 and field.prop_feat is not None:
+                prop_u = torch.rand((r, k + 1), generator=generator,
+                                    device=dev)
         # sample positions are not optimized (the reference's CUDA sampler
         # has no autograd either)
         with span("march"), torch.no_grad():
@@ -446,7 +605,8 @@ def make_train_step(model_cfg: GFNeRFModelConfig, sampler_cfg: SamplerConfig,
                                            requires_grad=block_stage))
         out = model_forward(field, model_cfg, samples, rays["directions"],
                             batch["rel_camera_indices"], stage, oct_dev,
-                            active_block, active_table)
+                            active_block, active_table,
+                            rays_o=rays["origins"], prop_u=prop_u)
         with span("loss"):
             losses = {"rgb_loss": charbonnier_loss(out["rgb"], target)}
             if (block_stage and field.cfg.focal_mode == "finetune"
@@ -466,6 +626,16 @@ def make_train_step(model_cfg: GFNeRFModelConfig, sampler_cfg: SamplerConfig,
                     model_cfg.empty_space_penalty_mult
                     * torch.sum(delta * empty)
                     / torch.clamp(torch.sum(empty), min=1.0))
+            if "prop_weights" in out:
+                fb_s, fb_e = out["fine_spacing"]
+                losses["interlevel_loss"] = (
+                    model_cfg.proposal_interlevel_mult * interlevel_loss(
+                        out["weights"], fb_s, fb_e, out["prop_weights"],
+                        *out["prop_spacing"]))
+                if model_cfg.distortion_loss_mult > 0:
+                    losses["distortion_loss"] = (
+                        model_cfg.distortion_loss_mult * distortion_loss(
+                            out["weights"], fb_s, fb_e))
             losses["s3im_loss"] = s3im_loss(
                 out["rgb"], target, s3im_perms,
                 patch_height=model_cfg.s3im_patch_height)
@@ -488,9 +658,10 @@ def make_train_step(model_cfg: GFNeRFModelConfig, sampler_cfg: SamplerConfig,
         with span("occupancy"), torch.no_grad():
             if not block_stage:
                 # occupancy stats only during init (nerfacto.py:605-614)
-                oct_dev = update_oct_nodes(oct_dev, samples,
-                                           out["weights"].detach(),
-                                           out["alphas"].detach())
+                oct_dev = update_oct_nodes(
+                    oct_dev, samples,
+                    out.get("march_weights", out["weights"]).detach(),
+                    out.get("march_alphas", out["alphas"]).detach())
             rgb = out["rgb"].detach()
             err = torch.sum(torch.abs(rgb - target), dim=-1)  # gf_pipeline:179
             mse = torch.mean((rgb - target) ** 2)

@@ -32,7 +32,9 @@ scaled to its segment's share of the lattice (``_seg_cfg``): with a budget
 below S a phase caps its own segment's samples, which the single pass does
 not, so only the dense path (no budget, or one of S) matches the single
 pass at eps = 0.  ``remat_chunks`` does not apply (no backward).  The
-background must be black (a phase must not add its own background term).
+background must be black (a phase must not add its own background term),
+and the proposal branch is refused (render_early.py:106 of the JAX
+package): its fine samples are drawn from the whole ray's probe weights.
 """
 
 from __future__ import annotations
@@ -104,6 +106,10 @@ class EarlyTermRenderer:
             raise ValueError("early termination composes phases without a "
                              "background: it needs background_color "
                              "'black'")
+        if model_cfg.num_proposal_resamples > 0:
+            raise ValueError("early-termination rendering does not compose "
+                             "with proposal resampling: render with "
+                             "make_render_fn")
         self.eps = eps
         self.sampler_cfg = sampler_cfg
         self.cfg1 = _seg_cfg(model_cfg, self.s1, total)

@@ -16,14 +16,15 @@ and render functions of ``models/gfnerf.py``.
   in finetune mode, every block table seeded with the global one; at every
   split change a fresh optimizer state and the split's datamanager.
 - eval: per-ray block routing over an eval ray batch (the packed layout
-  renders one chunked stream, each ray with its nearest camera's block);
-  full images with PSNR, SSIM and the LPIPS proxy.
+  renders one chunked stream, each ray with its nearest camera's block;
+  not on the proposal branch, which renders a stream per block); full
+  images with PSNR, SSIM and the LPIPS proxy.
 - checkpoints: the field, the optimizer state, the step and the march's
   random generator through ``torch.save``; the host octree, camera labels
   and milestones as the JAX package's npz.
 - full-image renders (eval images, error maps, ``render.py``) optionally
   through the two-phase early-termination renderer (``eval_early_term``,
-  ``enable_early_term``).
+  ``enable_early_term``; not on the proposal branch).
 
 Not ported: the K-steps-per-dispatch scan (``steps_per_dispatch`` is kept
 so that configs round-trip; one step runs per call), the parallel-blocks
@@ -64,7 +65,8 @@ from gfnerf_tpu_torch.sampler.manager import (PersSamplerManager,
 from gfnerf_tpu_torch.sampler.octree import PersOctree
 from gfnerf_tpu_torch.sampler.perssampler import SamplerConfig
 
-# (step, rays, samples) -> (march noise (R, S), S3IM permutations (9, R))
+# (step, rays, samples) -> (march noise (R, S), S3IM permutations (9, R)),
+# and on the proposal branch a third, the resampling's draws (R, K + 1)
 Draws = Callable[[int, int, int], tuple]
 
 
@@ -87,7 +89,11 @@ class GFNerfPipelineConfig:
     field_block_dense_levels: int = 0
     field_focal_mode: str = "residual"    # "residual" | "finetune"
     field_mlp_dtype: str = "float32"      # "float32" | "bfloat16"
+    field_use_proposal: bool = False      # the proposal probe
+    field_warp_mode: str = "pers"         # "identity": the ablation
     field_density_bias: float = 1.0
+    field_proposal_levels: int = 4
+    field_proposal_rows_log2: int = 12
     field_hidden_dim: int = 128
     field_hidden_dim_color: int = 128
     use_appearance_embedding: bool = True
@@ -180,7 +186,11 @@ class GFNerfPipeline:
             block_dense_levels=config.field_block_dense_levels,
             focal_mode=config.field_focal_mode,
             mlp_dtype=config.field_mlp_dtype,
+            use_proposal=config.field_use_proposal,
+            warp_mode=config.field_warp_mode,
             density_bias=config.field_density_bias,
+            proposal_levels=config.field_proposal_levels,
+            proposal_rows_log2=config.field_proposal_rows_log2,
         )
         params, statics = init_field_params(self.field_cfg, seed=config.seed)
         self.field = GFNeRFField(self.field_cfg, params, statics,
@@ -215,7 +225,9 @@ class GFNerfPipeline:
     def _build_early_renderer(self):
         mcfg = self.config.model
         self._early_renderer = None
-        if self.config.eval_early_term and mcfg.background_color == "black":
+        if (self.config.eval_early_term
+                and mcfg.num_proposal_resamples == 0
+                and mcfg.background_color == "black"):
             self._early_renderer = EarlyTermRenderer(
                 mcfg, self._built_sampler_cfg,
                 eps=self.config.eval_early_term_eps)
@@ -224,7 +236,13 @@ class GFNerfPipeline:
         """Render full images through the early-termination renderer from
         now on (``gfnerf_tpu_torch.render --early-term``).  Returns whether
         it is on: False (with a note on stderr) for a background other
-        than black."""
+        than black.  Raises ValueError on the proposal branch, which the
+        renderer does not compose with."""
+        if self.config.model.num_proposal_resamples > 0:
+            raise ValueError(
+                "early-termination rendering does not compose with proposal "
+                "resampling (num_proposal_resamples > 0): render without "
+                "--early-term")
         self.config.eval_early_term = True
         if eps is not None:
             self.config.eval_early_term_eps = eps
@@ -262,18 +280,21 @@ class GFNerfPipeline:
         batch.pop("_outputs")
         dev_batch = self._device_batch(batch)
         r = dev_batch["image"].shape[0]
-        noise = perms = None
+        noise = perms = prop_u = None
         if self.draws is not None:
-            noise, perms = self.draws(step, r,
-                                      self.sampler.sampler_config.max_samples)
+            noise, perms, *rest = self.draws(
+                step, r, self.sampler.sampler_config.max_samples)
             noise = torch.as_tensor(noise, device=self.device)
             perms = torch.as_tensor(perms, device=self.device).long()
+            if rest:
+                prop_u = torch.as_tensor(rest[0], device=self.device)
         self.state, self.sampler.oct_dev, metrics, err = \
             self._train_step[stage](
                 self.state, self.sampler.oct_dev, self.cameras_dev,
                 dev_batch, self.sampler.fineness(step),
                 generator=self.generator, noise=noise, s3im_perms=perms,
-                active_block=max(self.sampler.cur_split_idx(step), 0))
+                active_block=max(self.sampler.cur_split_idx(step), 0),
+                prop_u=prop_u)
 
         # one device-to-host copy: the metrics, and at the focal stage the
         # per-ray error of the split's rays (the mixed full-scene rays of
@@ -332,8 +353,8 @@ class GFNerfPipeline:
         """Eval ray batch metrics (logged every steps_per_eval_batch).  Each
         camera's rays take the block and appearance of the train camera
         nearest to it: with the packed layout one chunked stream over the
-        batch, a block per ray; otherwise one stream per (block, nearest
-        camera) group."""
+        batch, a block per ray; otherwise (and on the proposal branch) one
+        stream per (block, nearest camera) group."""
         batch = self.datamanager.next_eval(step)
         outputs = batch.pop("_outputs")
         cam_idx = batch["camera_indices"]
@@ -354,6 +375,7 @@ class GFNerfPipeline:
             split_ray[sel] = max(split_idx, 0)
             nearest_ray[sel] = nearest
         routed = (self.field_cfg.hash_layout == "packed"
+                  and not self.field_cfg.use_proposal
                   and self.field_cfg.n_blocks > 0)
         if routed:
             groups = [(None, np.arange(r))]

@@ -24,13 +24,18 @@ the two are timed in turns.  The block tables, zero at init, are filled
 with small random values from a seed.  ``device_allocs_in_timed_frames``
 counts the allocator's ``cudaMalloc`` calls during the timed frames.
 
+``--config`` picks one of ``bench.py``'s configs (``build_workload``);
+``--stage focal`` needs one whose eval routes a block per ray (the packed
+layout without the proposal probe: "quality" or "perf160").
+
 ``--early-term`` renders the timed frames through the two-phase
 early-termination renderer (``models/render_early.py``; ``--et-s1``,
 ``--et-eps``) and adds the share of rays that survived phase 1 in the last
 frame (``early_term``).  With random weights few rays saturate.
 
 Run on a CUDA card:
-  python -m gfnerf_tpu_torch.render_bench [--stage {init,focal}]
+  python -m gfnerf_tpu_torch.render_bench
+      [--config {quality,perf160,prop,parity}] [--stage {init,focal}]
       [--early-term [--et-s1 N] [--et-eps EPS]] [--profile]
 """
 
@@ -61,7 +66,7 @@ N_VIEWS = 4              # training views rendered before the frames
 FRAME_WH = (1920, 1080)  # the timed frame's size
 FRAMES = 5               # timed frames, after one warm-up frame
 CHUNK = 32768            # rays per render chunk (scripts/render_bench.py)
-CONFIGS = ("quality", "parity")   # bench.py --config, the ported ones
+CONFIGS = ("quality", "perf160", "prop", "parity")   # bench.py --config
 
 
 def calibrate_sample_l(oct_dev, c2w, fx, fy, cx, cy, w, h, S, device,
@@ -95,9 +100,13 @@ def calibrate_sample_l(oct_dev, c2w, fx, fy, cx, cy, w, h, S, device,
 def build_workload(device="cuda", seed: int = 0, config: str = "quality"):
     """The bench scene, octree and field of one of ``bench.py``'s configs:
     "quality" (profile_step.build_workload("quality"): packed layout, 8
-    levels x 4 channels, 384 slots, ``sample_l`` calibrated, fineness 1) or
-    "parity" (bench.py:386-399: the anchored layout, 16 levels x 2 channels
-    of 2^19 entries, 192 slots, ``sample_l`` 1/256, fineness 4).
+    levels x 4 channels, 384 slots, ``sample_l`` calibrated, fineness 1),
+    "perf160" (bench.py:389-391: the same field, 160 slots, ``sample_l``
+    1/256, fineness 4), "prop" (bench.py:372-409: perf160's march and
+    field with the proposal probe, no compaction, 64 fine samples a ray
+    resampled from the probe's weights) or "parity" (bench.py:386-399:
+    the anchored layout, 16 levels x 2 channels of 2^19 entries, 192
+    slots, ``sample_l`` 1/256, fineness 4).
 
     Returns a dict: cameras (numpy c2w, fx, fy, cx, cy, w, h), tree,
     oct_dev, scfg, fcfg, mcfg, field, fineness (the train step's), config,
@@ -121,21 +130,27 @@ def build_workload(device="cuda", seed: int = 0, config: str = "quality"):
     t0 = time.perf_counter()
     common = dict(num_images=n_cams, n_volumes=tree.n_volumes, n_blocks=2,
                   mlp_dtype="bfloat16")
+    prop = config == "prop"
     if config == "parity":
         S, sample_l, fineness = 192, 1.0 / 256, 4.0
         fcfg = FieldConfig(num_levels=16, features_per_level=2,
                            hash_layout="anchored", log2_hashmap_size=19,
                            **common)
     else:
-        S, fineness = 384, 1.0
-        sample_l, _ = calibrate_sample_l(oct_dev, c2w, fx, fy, cx, cy, w, h,
-                                         S, device)
+        if config == "quality":
+            S, fineness = 384, 1.0
+            sample_l, _ = calibrate_sample_l(oct_dev, c2w, fx, fy, cx, cy, w,
+                                             h, S, device)
+        else:
+            S, sample_l, fineness = 160, 1.0 / 256, 4.0
         fcfg = FieldConfig(num_levels=8, features_per_level=4,
                            hash_layout="packed", packed_rows_log2=15,
-                           **common)
+                           use_proposal=prop, **common)
     timings["calibrate"] = time.perf_counter() - t0
     scfg = SamplerConfig(max_samples=S, sample_l=sample_l)
-    mcfg = GFNeRFModelConfig(scale_factor=1.0, samples_budget_per_ray=S)
+    mcfg = GFNeRFModelConfig(scale_factor=1.0,
+                             samples_budget_per_ray=0 if prop else S,
+                             num_proposal_resamples=64 if prop else 0)
     t0 = time.perf_counter()
     field = GFNeRFField(fcfg, *init_field_params(fcfg, seed=seed),
                         device=device)
@@ -233,6 +248,7 @@ def randomize_block_tables(field: GFNeRFField) -> None:
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--config", default="quality", choices=CONFIGS)
     ap.add_argument("--chunk", type=int, default=CHUNK)
     ap.add_argument("--stage", default="init", choices=["init", "focal"],
                     help="focal: the block stage's field, routed: the views "
@@ -250,13 +266,16 @@ def main(argv=None):
                     help="also profile one frame and print its per-stage "
                          "device times as a JSON line")
     args = ap.parse_args(argv)
+    if args.stage == "focal" and args.config in ("prop", "parity"):
+        ap.error(f"--stage focal routes a block per ray, which --config "
+                 f"{args.config} does not render")
     if not torch.cuda.is_available():
         print("render_bench: no CUDA card", file=sys.stderr)
         return 1
     dev = torch.device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    wl = build_workload(dev)
+    wl = build_workload(dev, config=args.config)
     field, oct_dev = wl["field"], wl["oct_dev"]
     focal = args.stage == "focal"
     render_fn = make_render_fn(wl["mcfg"], wl["scfg"])
@@ -329,7 +348,7 @@ def main(argv=None):
         "metric": "render_seconds_per_1080p_frame", "value": dt,
         "unit": "s/frame (median)", "frame_seconds": times,
         "rays_per_sec": n / dt, "chunk": args.chunk,
-        "config": "quality", "stage": args.stage, "views": N_VIEWS,
+        "config": args.config, "stage": args.stage, "views": N_VIEWS,
         "views_seconds": t_views,
         **({"init_frame_seconds": init_times} if focal else {}),
         "device_allocs_in_timed_frames": allocs,

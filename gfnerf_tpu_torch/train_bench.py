@@ -1,11 +1,13 @@
 """Training-throughput benchmark of the PyTorch port (one train step).
 
-The port's counterpart of ``bench.py --config {quality,parity} --stage
-{init,focal}``: the scene, octree and field of
+The port's counterpart of ``bench.py --config {quality,perf160,prop,parity}
+--stage {init,focal}``: the scene, octree and field of
 ``render_bench.build_workload`` (48 ring cameras at 96x72 around the
 synthetic sphere scene, depth-8 octree, bf16 MLPs; "quality": 8 levels x 4
 channels of 2^15 packed rows, 384 march slots, fineness 1, ``sample_l``
-calibrated; "parity": the anchored layout, 16 levels x 2 channels of 2^19
+calibrated; "perf160": the same field, 160 slots, ``sample_l`` 1/256,
+fineness 4; "prop": perf160 with the proposal probe, 64 fine samples a
+ray; "parity": the anchored layout, 16 levels x 2 channels of 2^19
 entries, 192 slots, ``sample_l`` 1/256, fineness 4), the training images
 rendered by ``render_spheres``, ``OptimizersConfig()`` defaults, and batches
 of 8192 rays drawn as ``bench.py`` draws them.  ``--stage focal`` times the
@@ -19,13 +21,14 @@ one JSON line:
    "config": "quality", "stage": "init", "device": ...}
 
 ``--profile`` also runs one step under the profiler and prints its
-per-stage device spans (rays, march, warp, encode, base MLP, colour head,
-composite, loss, backward, optimizer, occupancy), the device's busy time
-and idle share, and the busiest kernels.
+per-stage device spans (rays, march, warp, proposal, encode, base MLP,
+colour head, composite, loss, backward, optimizer, occupancy), the
+device's busy time and idle share, and the busiest kernels.
 
 Run on a CUDA card:
-  python -m gfnerf_tpu_torch.train_bench [--config {quality,parity}]
-      [--stage {init,focal}] [--profile]
+  python -m gfnerf_tpu_torch.train_bench
+      [--config {quality,perf160,prop,parity}] [--stage {init,focal}]
+      [--profile]
 """
 
 from __future__ import annotations

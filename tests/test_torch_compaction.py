@@ -277,6 +277,7 @@ def test_pads_spread_over_rays():
     in ``ray_k`` (its kept samples and its share of the pads), so the
     colour head gather's backward, which serializes equal indices, stays
     as cheap as with a full buffer.  The kept places keep their own ray."""
+    from gfnerf_tpu_torch.fields.field import FieldConfig
     from gfnerf_tpu_torch.models.gfnerf import compact_samples
 
     r, s, budget = 16, 32, 8
@@ -285,7 +286,8 @@ def test_pads_spread_over_rays():
     valid[3, :] = True
     _, toct = octree_pair()
     x = samples_np(valid, toct.w2xz.shape[0])
-    idx, anc, ray, _ = compact_samples(port_samples(x), budget, toct)
+    idx, anc, ray, _ = compact_samples(port_samples(x), budget, toct,
+                                       FieldConfig())
     kept = idx < r * s
     assert int(kept.sum()) == r - 1 + budget
     np.testing.assert_array_equal(ray[kept].numpy(),

@@ -203,7 +203,7 @@ def _fields(obj, prefix=""):
 
 
 @pytest.mark.parametrize("method", ["gf-nerf", "gf-nerf-tiny",
-                                    "gf-nerf-perf"])
+                                    "gf-nerf-perf", "gf-nerf-prop"])
 def test_method_configs_match_jax(method):
     from gfnerf_tpu.configs.method_configs import method_configs
     from gfnerf_tpu_torch.configs.method_configs import get_method

@@ -279,11 +279,21 @@ def jax_train_step(jcfg, params, statics, joct, batch, mkw, key_seed,
     return out, np.array(noise), np.stack([np.asarray(p) for p in perms])
 
 
+def jax_prop_u(key_seed, n_resamples, r=TRAIN_R):
+    """The proposal resampling's uniform draws (r, n_resamples + 1) of the
+    JAX train step with key ``key_seed`` (its third stream,
+    gfnerf.py:512, ray_samplers.py:86)."""
+    import jax
+
+    k_prop = jax.random.split(jax.random.PRNGKey(key_seed), 3)[2]
+    return np.array(jax.random.uniform(k_prop, (r, n_resamples + 1)))
+
+
 def port_train_step(field, toct, batch, mkw, noise, perms, stage=0,
-                    active_block=0, state=None):
+                    active_block=0, state=None, prop_u=None):
     """One train step of the port at ``stage`` on the CPU, from ``state``
     (a fresh one of ``field`` if None), with the given noise and
-    permutations."""
+    permutations (and, on the proposal branch, resampling draws)."""
     from gfnerf_tpu_torch.cameras.cameras import Cameras
     from gfnerf_tpu_torch.engine.optimizers import (OptimizersConfig,
                                                     build_optimizer)
@@ -306,14 +316,17 @@ def port_train_step(field, toct, batch, mkw, noise, perms, stage=0,
         tb[k] = tb[k].long()
     return step(state, toct, cams, tb, 1.0, noise=torch.as_tensor(noise),
                 s3im_perms=torch.as_tensor(perms).long(),
-                active_block=active_block)
+                active_block=active_block,
+                prop_u=None if prop_u is None else torch.as_tensor(prop_u))
 
 
 def jax_groups(tree):
     """A JAX FieldParams-shaped tree as the port's group lists."""
+    probe = [] if tree.prop_feat is None else [
+        tree.prop_feat, *tree.prop_net["w"], *tree.prop_net["b"]]
     return {
         "fields": [*tree.base_net["w"], *tree.base_net["b"],
                    *tree.mlp_head["w"], *tree.mlp_head["b"],
-                   tree.appearance_embedding],
+                   tree.appearance_embedding, *probe],
         "base_encoding_init": [tree.global_feat],
     }

@@ -8,13 +8,16 @@ reference).  Usage:
   python tests/torch_pipeline_ref.py SCENE_DIR OUT_DIR STEPS RAYS PATCH_H \
       LAYOUT
 
-Drives ``GFNerfPipeline`` of ``gf-nerf-tiny`` (with LAYOUT's field
-overrides, ``FIELD_OVERRIDES``, and the port parser's image names) as the
+Drives ``GFNerfPipeline`` of ``gf-nerf-tiny`` (with LAYOUT's overrides,
+``FIELD_OVERRIDES`` or ``PROP_OVERRIDES``, and the port parser's image
+names) as the
 Trainer does (the train step, then the after-iteration callbacks; the eval
 batch every ``steps_per_eval_batch`` and after the last step) for STEPS
 steps and writes OUT_DIR/ref.npz: each
 step's march noise and S3IM permutations (drawn from the pipeline's own key
-chain), its batch indices, losses and split index; the calibrated
+chain; with the proposal probe also the resampling's draws), its batch
+indices, losses, split index and whether its update was applied (finite
+gradients); the calibrated
 ``sample_l`` and ``max_hits``; the host tree after every milestone rebuild;
 the camera labels, error maps and block indices at the transition; the eval
 PSNR; and the final field parameters.
@@ -35,6 +38,14 @@ FIELD_OVERRIDES = {
     "packed": {"field_hash_layout": "packed", "field_num_levels": 8,
                "field_features_per_level": 4, "field_packed_rows_log2": 10},
 }
+# gf-nerf-tiny with the proposal probe (3 levels of 2^9 rows) and 16 fine
+# samples a ray resampled from its 64-slot march
+PROP_OVERRIDES = {
+    "prop": {"field_use_proposal": True, "field_proposal_levels": 3,
+             "field_proposal_rows_log2": 9,
+             "model.num_proposal_resamples": 16},
+}
+LOSS_KEYS = ("loss", "rgb_loss", "s3im_loss")
 
 
 def main(scene, out_dir, steps, rays, patch_h, layout):
@@ -48,9 +59,14 @@ def main(scene, out_dir, steps, rays, patch_h, layout):
     cfg = gf_nerf_tiny_config()
     cfg.pipeline.datamanager.train_num_rays_per_batch = rays
     cfg.pipeline.model.s3im_patch_height = patch_h
-    for key, value in FIELD_OVERRIDES[layout].items():
-        setattr(cfg.pipeline, key, value)
+    for key, value in {**FIELD_OVERRIDES, **PROP_OVERRIDES}[layout].items():
+        *path, leaf = key.split(".")
+        obj = cfg.pipeline
+        for part in path:
+            obj = getattr(obj, part)
+        setattr(obj, leaf, value)
     p = cfg.pipeline.build(jax_minimal_parser(scene), out_dir)
+    n_prop = cfg.pipeline.model.num_proposal_resamples
     rec = {"sample_l": p.sampler.sampler_config.sample_l,
            "max_hits0": p.sampler.sampler_config.max_hits}
     n_rep = cfg.pipeline.model.s3im_repeat_time
@@ -65,20 +81,25 @@ def main(scene, out_dir, steps, rays, patch_h, layout):
         return batch
 
     p.datamanager.next_train = recording_next_train
-    noise, perms, losses, splits, rebuilt = [], [], [], [], []
+    noise, perms, prop_u, losses, splits, rebuilt, applied = (
+        [], [], [], [], [], [], [])
+    loss_keys = LOSS_KEYS + (("interlevel_loss",) if n_prop else ())
     for step in range(steps):
         # the step's own draws (pipeline.py:516, gfnerf.py:512-514,
-        # losses.py:70-73)
+        # losses.py:70-73, ray_samplers.py:86)
         _, key = jax.random.split(p._rng)
-        k_noise, k_s3im, _ = jax.random.split(key, 3)
+        k_noise, k_s3im, k_prop = jax.random.split(key, 3)
         noise.append(np.asarray(
             (jax.random.uniform(k_noise, (rays, s)) - 0.5) + 1.0))
         perms.append(np.stack([np.asarray(jax.random.permutation(k, rays))
                                for k in jax.random.split(k_s3im,
                                                          n_rep - 1)]))
+        prop_u.append(np.asarray(jax.random.uniform(k_prop,
+                                                    (rays, n_prop + 1))))
         n_nodes = p.sampler.tree.n_nodes
         m = p.get_train_loss_dict(step)
-        losses.append([m["loss"], m["rgb_loss"], m["s3im_loss"]])
+        losses.append([m[k] for k in loss_keys])
+        applied.append(bool(p.state.opt_state.last_finite))
         if p.sampler.tree.n_nodes != n_nodes:
             rebuilt.append(step)
             for k in TREE_KEYS:
@@ -99,6 +120,7 @@ def main(scene, out_dir, steps, rays, patch_h, layout):
     cache = p.datamanager.split_cache
     rec.update(
         noise=np.stack(noise), perms=np.stack(perms),
+        prop_u=np.stack(prop_u), applied=np.asarray(applied),
         indices=np.stack(batches), losses=np.asarray(losses),
         splits=np.asarray(splits), rebuilt=np.asarray(rebuilt),
         max_hits=p.sampler.sampler_config.max_hits,
@@ -112,6 +134,8 @@ def main(scene, out_dir, steps, rays, patch_h, layout):
             for i, x in enumerate(getattr(params, name)[part]):
                 rec[f"{name}_{part}{i}"] = np.asarray(x)
     rec["appearance_embedding"] = np.asarray(params.appearance_embedding)
+    if params.prop_feat is not None:
+        rec["prop_feat"] = np.asarray(params.prop_feat)
     np.savez(os.path.join(out_dir, "ref.npz"), **rec)
 
 
