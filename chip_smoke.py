@@ -138,13 +138,43 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
                 index_add_); an init and a focal step profiled (the
                 gfnerf/proposal span); eval and render on the checkpoint,
                 render --early-term refused.
+ 14. nerfacto — with the counters reset: the stock nerfacto on the vanilla
+                pipeline through the Trainer at its full width (4096 rays,
+                proposal samples (256, 96) on two fields of 5 x 2 of 2^17,
+                48 field samples on 16 x 2 of 2^19, the pipeline phase's
+                scene), NERFACTO_STEPS steps: per step H4 and H5 three calls
+                each (1,048,576, 393,216 and 196,608 points), no other
+                kernel; losses finite, the rgb loss falling, every table
+                and MLP changed; the eval image's PSNR above its mean
+                image's; the checkpoint; one step against the plain pairs
+                (the loss and the three tables' gradients); H4 and H5 at
+                the three shapes against their plain versions (H5 also
+                against index_add_), H4 at points contracted onto the
+                hash's faces (exactly 0.0 and 1.0); s/step, rays/s, peak
+                memory, a profiled step's busy time and idle share; eval
+                and render on the checkpoint; then SEMANTIC_NERFW_STEPS
+                steps of semantic-nerfw on the scene with road masks.
+ 15. semantics — with the counters reset: gf-nerf-perf with semantics and
+                the SO3xR3 camera optimizer through the Trainer, on the
+                scene with road masks and on the pipeline phase's
+                checkpointed octree (not built again): 10 init steps, the
+                transition, 2 focal steps on block 0; launches per step
+                (K1, K2, H1, H2 as gf-nerf-perf's); the semantics loss and
+                the camera regularizer finite; the camera tangents moved by
+                the init steps, bit-unchanged by the focal ones; one step
+                against the plain pairs (K2 given the semantics' weights
+                cotangent), the tangents' gradient included.
 Each phase ends with a [clock] line.  Before the last line come a JSON
 object with each kernel's launches, error, times and bound (K1, K2, H1 and
-H2 also at the prop phase's shapes, under "prop"), and the card's name and
-power limit; the last line is
+H2 also at the prop phase's shapes, under "prop"; H4 and H5 at nerfacto's
+three, under "nerfacto"), and the card's name and power limit; the last
+line is
 {"ok": true, "device": {...}}.
 
 Run from the repository root:  python3 chip_smoke.py
+To work on one phase of the pipeline family (pipeline, gfnerf, prop,
+nerfacto, semantics; the last two read the pipeline phase's scene and
+checkpoint):  python3 chip_smoke.py --only pipeline,nerfacto,semantics
 """
 
 from __future__ import annotations
@@ -1407,11 +1437,13 @@ def compare_step(wl, what, batch, noise, perms, focal_block=None,
     """One step from a common state with the kernels and with the plain
     autograd pairs (no kernel may launch in it): the loss to
     TRAIN_LOSS_RTOL and the gradients to TRAIN_GRAD_TOL of the group's
-    largest.  Init stage: the MLPs' and the global table's gradients, none
-    for the block tables.  Block stage: the active table's gradient, read
-    from Adam's first moment of a fresh state (mu = (1 - b1) g), none for
-    any frozen parameter.  On the proposal branch the probe is in
-    "fields", and ``prop_u`` gives both steps the same resampling draws.
+    largest.  Init stage: the MLPs' (the semantics heads' included) and
+    the global table's gradients, and the camera tangents' where the field
+    has them; none for the block tables.  Block stage: the active table's
+    gradient, read from Adam's first moment of a fresh state (mu = (1 -
+    b1) g), none for any frozen parameter.  On the proposal branch the
+    probe is in "fields", and ``prop_u`` gives both steps the same
+    resampling draws.
     Returns the kernels' loss."""
     import torch
 
@@ -1438,7 +1470,10 @@ def compare_step(wl, what, batch, noise, perms, focal_block=None,
         f"{loss_p:.7f} (rel {rel:.3g}, tol {TRAIN_LOSS_RTOL})")
     if not rel <= TRAIN_LOSS_RTOL:
         raise AssertionError(f"{what} step loss: kernels vs plain rel {rel}")
-    for name in ("block",) if focal else ("fields", "base_encoding_init"):
+    names = ("block",) if focal else (
+        "fields", "base_encoding_init",
+        *(("camera_opt",) if grads_p["camera_opt"] else ()))
+    for name in names:
         scale = max(float(g.abs().max()) for g in grads_p[name])
         err = max(float((a - b).abs().max())
                   for a, b in zip(grads_k[name], grads_p[name]))
@@ -3776,6 +3811,624 @@ def phase_prop(tmp: Path):
     return launches, stats, kernels
 
 
+# nerfacto at its full width (the registered config, NERFACTO_WIDTH) on the
+# pipeline phase's scene: the steps a run takes (chosen so that the eval
+# image beats its mean image's PSNR; PERF.md section 6) and the first ones
+# the timing skips
+NERFACTO_STEPS = 300
+NERFACTO_WARMUP = 5
+NERFACTO_EVAL_EVERY = NERFACTO_STEPS
+NERFACTO_OVERRIDES = {
+    "steps_per_eval_image": str(NERFACTO_EVAL_EVERY),
+    "steps_per_save": str(NERFACTO_STEPS),
+    "steps_per_log": "100",
+}
+# (rays, proposal samples, field samples, levels, log2 entries, hidden,
+# geo features, colour hidden, appearance, proposal levels, proposal log2
+# entries, near, far, background)
+NERFACTO_WIDTH = (4096, (256, 96), 48, 16, 19, 64, 15, 64, 32, 5, 17, 0.05,
+                  1000.0, "last_sample")
+SEMANTIC_NERFW_STEPS = 4
+# nerfacto's step from a common state, kernels vs the plain pairs: the
+# forward is the same bit for bit (H4 equals its plain version), so the
+# loss is; the tables' gradients are H5's f32 atomics against index_add_,
+# the same terms in another order
+NERFACTO_TABLE_GRAD_TOL = 1e-4
+# gf-nerf-perf with semantics and the camera optimizer: 10 init steps and 2
+# focal steps on block 0, on the pipeline phase's octree and march config
+# (no tree built); no milestone rebuild, no eval batch
+SEMANTICS_INIT_STEPS = 10
+SEMANTICS_STEPS = SEMANTICS_INIT_STEPS + 2
+SEMANTICS_OVERRIDES = {
+    **{f"pipeline.{part}.{key}": value
+       for part in ("model", "datamanager", "optimizers")
+       for key, value in (("steps_perssampler_init",
+                           str(SEMANTICS_INIT_STEPS)),
+                          ("steps_per_split_dataset", "2"))},
+    "pipeline.sampler.sub_div_milestones": "1000",
+    "pipeline.sampler.ray_march_fineness_decay_end_iter": "8",
+    "pipeline.camera_opt_mode": "SO3xR3",
+    "pipeline.model.use_semantics": "true",
+    "pipeline.model.semantic_loss_weight": "0.5",
+    "steps_per_eval_batch": "1000",
+    "steps_per_eval_image": "1000",
+    "steps_per_save": "1000",
+}
+
+
+def road_scene(tmp: Path) -> Path:
+    """The pipeline phase's scene with road masks as its labels: the lower
+    half of each image is class 1 (tests/test_train_smoke.py's)."""
+    import numpy as np
+
+    src, dst = tmp / "scene", tmp / "scene_roads"
+    dst.mkdir(exist_ok=True)
+    for split in ("train", "val"):
+        d = dict(np.load(src / f"{split}.npz"))
+        n, h, w = d["images"].shape[:3]
+        masks = np.zeros((n, h, w), np.float32)
+        masks[:, h // 2:, :] = 1.0
+        d["road_masks"] = masks
+        np.savez(dst / f"{split}.npz", **d)
+    return dst
+
+
+class record_encodes:
+    """Within the block, the arguments of every hash_encode call that
+    nerfacto's model makes, in order (points and anchors cloned)."""
+
+    def __enter__(self):
+        from gfnerf_tpu_torch.models import nerfacto as nerfacto_mod
+
+        self.mod, self.saved, self.calls = (nerfacto_mod,
+                                            nerfacto_mod.hash_encode, [])
+
+        def rec(table, prim, bias, pts, anc, *a, **kw):
+            self.calls.append((table.detach(), prim, bias,
+                               pts.detach().clone(), anc.clone()))
+            return self.saved(table, prim, bias, pts, anc, *a, **kw)
+
+        nerfacto_mod.hash_encode = rec
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.hash_encode = self.saved
+        return False
+
+
+def nerfacto_step_pair(p, batch, draws) -> dict:
+    """nerfacto's loss and backward from two copies of the pipeline's model
+    on one batch and its draws, through the kernels and through the plain
+    pairs (no kernel may launch in the plain one): the loss to
+    TRAIN_LOSS_RTOL, the three tables' gradients to
+    NERFACTO_TABLE_GRAD_TOL of their largest, the MLPs' to TRAIN_GRAD_TOL
+    of their largest.  Returns the errors."""
+    import copy
+
+    import torch
+
+    from gfnerf_tpu_torch.fields.hash_encoding import plain_hash_encode
+    from gfnerf_tpu_torch.models import nerfacto as nerfacto_mod
+
+    runs, model0, encode = {}, p.model, nerfacto_mod.hash_encode
+    for kind in ("kernels", "plain"):
+        p.model = copy.deepcopy(model0)
+        before = launch_counts()
+        if kind == "plain":
+            nerfacto_mod.hash_encode = plain_hash_encode
+        try:
+            total, _ = p.loss(batch, draws)
+            total.backward()
+            torch.cuda.synchronize()
+            runs[kind] = (total.item(), p.model)
+        finally:
+            nerfacto_mod.hash_encode = encode
+            p.model = model0
+        if kind == "plain" and launch_counts() != before:
+            raise AssertionError("nerfacto: the plain step launched kernels")
+    (lk, mk), (lp, mp) = runs["kernels"], runs["plain"]
+    rel = abs(lk - lp) / abs(lp)
+    out = {"loss": (lk, lp, rel)}
+    if not rel <= TRAIN_LOSS_RTOL:
+        raise AssertionError(f"nerfacto step loss: kernels {lk} vs plain "
+                             f"{lp}")
+    tables = [("field", mk.field_feat, mp.field_feat)] + [
+        (f"proposal {i}", a, b)
+        for i, (a, b) in enumerate(zip(mk.prop_feats, mp.prop_feats))]
+    for name, a, b in tables:
+        scale = float(b.grad.abs().max())
+        err = float((a.grad - b.grad).abs().max())
+        out[name] = (err, scale)
+        if not (scale > 0 and err <= NERFACTO_TABLE_GRAD_TOL * scale):
+            raise AssertionError(f"nerfacto {name} table gradient: kernels "
+                                 f"vs plain {err} of {scale}")
+    mlps = [(a, b) for (n, a), b in zip(mk.named_parameters(),
+                                        mp.parameters()) if "feat" not in n]
+    scale = max(float(b.grad.abs().max()) for _, b in mlps)
+    err = max(float((a.grad - b.grad).abs().max()) for a, b in mlps)
+    out["mlps"] = (err, scale)
+    if not err <= TRAIN_GRAD_TOL * scale:
+        raise AssertionError(f"nerfacto MLP gradients: kernels vs plain "
+                             f"{err} of {scale}")
+    log(f"[nerfacto] one step, kernels vs plain: loss {lk:.7f} vs {lp:.7f} "
+        f"(rel {rel:.3g}, tol {TRAIN_LOSS_RTOL}); gradients (max abs err, "
+        f"largest): {({k: v for k, v in out.items() if k != 'loss'})}")
+    del runs, mk, mp
+    torch.cuda.empty_cache()
+    return out
+
+
+def nerfacto_batch(p, seed):
+    """A device batch of the vanilla pipeline's train views, and its
+    proposal draws, from ``seed`` (the pipeline's own sampler untouched)."""
+    import torch
+
+    from gfnerf_tpu_torch.data.pixel_samplers import (PixelSampler,
+                                                      collate_batch)
+
+    sampler = PixelSampler(p.config.train_num_rays_per_batch, seed=seed)
+    batch = p._device_batch(collate_batch(p.cache,
+                                          sampler.sample_indices(p.cache)))
+    gen = torch.Generator(device=p.device).manual_seed(seed)
+    counts = [*p.model_cfg.num_proposal_samples, p.model_cfg.num_nerf_samples]
+    r = batch["image"].shape[0]
+    draws = [torch.rand((r, n + 1), generator=gen, device=p.device)
+             for n in counts]
+    return batch, draws
+
+
+def phase_nerfacto(tmp: Path):
+    """nerfacto (the stock model family on the vanilla pipeline) through the
+    Trainer at its full width (NERFACTO_WIDTH) on the pipeline phase's
+    48-view scene, counted: every step calls H4 three times (the two
+    proposal levels' 5 x 2 of 2^17 at 1,048,576 and 393,216 points, then
+    the field's 16 x 2 of 2^19 at 196,608) and H5 three times, into the
+    same tables; no other kernel.  Checked: finite losses, the rgb loss
+    falling, every table and MLP changed; the eval image's PSNR above its
+    mean image's; the checkpoint.  Then from the trained model: one step
+    against the plain pairs; H4 and H5 at the three shapes against their
+    plain versions (H5 also against index_add_); s/step, rays/s, peak
+    memory; one profiled step (busy time, idle share);
+    python -m gfnerf_tpu_torch.eval and .render on the checkpoint; and
+    SEMANTIC_NERFW_STEPS steps of semantic-nerfw on the scene with road
+    masks, its semantics loss finite."""
+    import numpy as np
+    import torch
+
+    from gfnerf_tpu_torch import eval as eval_entry
+    from gfnerf_tpu_torch import render as render_entry
+    from gfnerf_tpu_torch.configs.config_io import apply_override
+    from gfnerf_tpu_torch.configs.method_configs import get_method
+    from gfnerf_tpu_torch.data.dataparsers import build_dataparser
+    from gfnerf_tpu_torch.engine.trainer import Trainer
+    from gfnerf_tpu_torch.fields.hash_encoding import (_hash_encode_cuda,
+                                                       encode_launches,
+                                                       hash_encode,
+                                                       hash_encode_raw,
+                                                       table_grad_launches)
+    from gfnerf_tpu_torch.models.nerfacto import normalize_positions
+    from gfnerf_tpu_torch.render import read_png
+    from gfnerf_tpu_torch.utils.profiling import profile_device
+
+    scene = tmp / "scene"
+    cfg = get_method("nerfacto")
+    for key, value in {**NERFACTO_OVERRIDES,
+                       "max_num_iterations": str(NERFACTO_STEPS),
+                       "output_dir": str(tmp / "nerfacto_out")}.items():
+        apply_override(cfg, key, value)
+    cfg.data = scene
+    trainer = Trainer(cfg, build_dataparser("minimal", scene))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    trainer.setup()
+    setup_s = time.perf_counter() - t0
+    p = trainer.pipeline
+    mc = p.model_cfg
+    width = (p.config.train_num_rays_per_batch,
+             tuple(mc.num_proposal_samples), mc.num_nerf_samples,
+             mc.num_levels, mc.log2_hashmap_size, mc.hidden_dim,
+             mc.geo_feat_dim, mc.hidden_dim_color,
+             mc.appearance_embedding_dim, mc.proposal_num_levels,
+             mc.proposal_log2_hashmap_size, mc.near_plane, mc.far_plane,
+             mc.background_color)
+    log(f"[nerfacto] setup {setup_s:.2f}s; (rays, proposal samples, field "
+        f"samples, levels, log2 entries, hidden, geo, colour hidden, "
+        f"appearance, proposal levels, proposal log2 entries, near, far, "
+        f"background) {width}; {len(p.train_dataset)} train views")
+    if width != NERFACTO_WIDTH:
+        raise AssertionError(f"nerfacto is not at its full width: {width}")
+    rays = p.config.train_num_rays_per_batch
+    start = {n: t.detach().clone() for n, t in p.model.named_parameters()}
+    rec = {"steps": {}}
+    get_loss, eval_image = (p.get_train_loss_dict,
+                            p.get_eval_image_metrics_and_images)
+
+    def counts():
+        return {**launch_counts(), "hash_anchored_fwd_calls":
+                hash_encode.calls,
+                "hash_anchored_bwd_calls": hash_encode.bwd_calls}
+
+    def get_loss_w(step):
+        before = counts()
+        t = time.perf_counter()
+        m = get_loss(step)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t
+        after = counts()
+        rec["steps"][step] = {"s": dt, "counts": {
+            k: after[k] - before[k] for k in after}, **m}
+        return m
+
+    def eval_image_w(step, idx=0):
+        t = time.perf_counter()
+        metrics, images = eval_image(step, idx)
+        rec.setdefault("eval_images", []).append(
+            (step, idx, time.perf_counter() - t, metrics))
+        return metrics, images
+
+    p.get_train_loss_dict = get_loss_w
+    p.get_eval_image_metrics_and_images = eval_image_w
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    trainer.train()
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    launches = launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    p.get_train_loss_dict = get_loss
+    p.get_eval_image_metrics_and_images = eval_image
+
+    steps = rec["steps"]
+    if sorted(steps) != list(range(NERFACTO_STEPS)):
+        raise AssertionError(f"nerfacto: steps run {sorted(steps)}")
+    h4 = 2 * encode_launches(mc.proposal_num_levels) + encode_launches(
+        mc.num_levels)
+    h5 = 2 * table_grad_launches(mc.proposal_num_levels, 2) + \
+        table_grad_launches(mc.num_levels, 2)
+    want = {"hash_anchored_fwd": h4, "hash_anchored_bwd": h5,
+            "hash_anchored_fwd_calls": 3, "hash_anchored_bwd_calls": 3}
+    for i in range(NERFACTO_STEPS):
+        got = steps[i]["counts"]
+        if got != {k: want.get(k, 0) for k in got}:
+            raise AssertionError(f"nerfacto step {i}: launches {got}, "
+                                 f"expected {want}")
+    log(f"[nerfacto] launches per step as expected: H4 in 3 calls ({h4} "
+        f"launches), H5 in 3 calls ({h5} launches), no other kernel; in the "
+        f"whole run {launches}")
+    keys = [k for k in steps[0] if k not in ("s", "counts")]
+    hist = {k: [steps[i][k] for i in range(NERFACTO_STEPS)] for k in keys}
+    every = max(NERFACTO_STEPS // 12, 1)
+    log(f"[nerfacto] losses every {every} steps: "
+        f"{ {k: [round(v, 5) for v in hist[k][::every]] for k in keys} }")
+    if not all(np.isfinite(v).all() for v in hist.values()):
+        raise AssertionError("nerfacto: a non-finite loss")
+    rgb = hist["rgb_loss"]
+    if not _mean(rgb[-10:]) < _mean(rgb[:10]):
+        raise AssertionError(f"nerfacto: the rgb loss did not fall: {rgb}")
+    unchanged = [n for n, t in p.model.named_parameters()
+                 if torch.equal(t.detach(), start[n])]
+    if unchanged:
+        raise AssertionError(f"nerfacto: unchanged parameters {unchanged}")
+    log(f"[nerfacto] every one of the {len(start)} parameter tensors "
+        f"changed (3 tables, 4 MLPs, the appearance embedding)")
+    step, idx, image_s, metrics = rec["eval_images"][-1]
+    gt = p.eval_dataset.get_image(idx)
+    trivial = float(-10.0 * np.log10(np.mean((gt - gt.mean(axis=(0, 1)))
+                                             ** 2)))
+    log(f"[nerfacto] eval image {idx} PSNR by step: "
+        f"{[(s, round(m['psnr'], 4)) for s, _, _, m in rec['eval_images']]}")
+    log(f"[nerfacto] eval image {idx} at step {step} in {image_s:.3f}s: "
+        f"{json.dumps(metrics)}; mean-image PSNR {trivial:.4f}")
+    if not metrics["psnr"] > trivial:
+        raise AssertionError(f"nerfacto: eval PSNR {metrics['psnr']} not "
+                             f"above the mean image's {trivial}")
+    ckpt = trainer.checkpoint_dir / f"step-{NERFACTO_STEPS - 1:09d}"
+    if not (ckpt / "state.pt").is_file():
+        raise AssertionError(f"nerfacto: no checkpoint at {ckpt}")
+    step_s = [steps[i]["s"] for i in range(NERFACTO_WARMUP, NERFACTO_STEPS)]
+    log(f"[nerfacto] Trainer: {_mean(step_s):.4f} s/step (median "
+        f"{float(np.median(step_s)):.4f}, after {NERFACTO_WARMUP} warm-up "
+        f"steps), {rays / _mean(step_s):.1f} rays/s; peak "
+        f"{peak / 2**30:.3f} GiB; the run {train_s:.1f}s")
+
+    # from the trained model: a step against the plain pairs, the kernels at
+    # the step's shapes, a profiled step
+    batch, draws = nerfacto_batch(p, 700)
+    pair = nerfacto_step_pair(p, batch, draws)
+    with torch.no_grad(), record_encodes() as enc:
+        p.loss(batch, draws)
+    shapes = [(tuple(c[0].shape), c[3].shape[0]) for c in enc.calls]
+    want_shapes = [((mc.proposal_num_levels,
+                     1 << mc.proposal_log2_hashmap_size, 2), rays * n)
+                   for n in mc.num_proposal_samples] + [
+        ((mc.num_levels, 1 << mc.log2_hashmap_size, 2),
+         rays * mc.num_nerf_samples)]
+    log(f"[nerfacto] H4's calls in a step (table, points): {shapes}")
+    if shapes != want_shapes:
+        raise AssertionError(f"nerfacto: encodes at {shapes}, expected "
+                             f"{want_shapes}")
+    kernels = {}
+    for name, (table, prim, bias, pts, anc) in zip(
+            ("proposal 0", "proposal 1", "field"), enc.calls):
+        far = int(((pts - 0.5).abs() > 0.25).any(-1).sum())
+        log(f"[nerfacto] {name}: {far} of {pts.shape[0]} points contracted "
+            f"(beyond the unit box), coordinates in "
+            f"[{float(pts.min()):.6f}, {float(pts.max()):.6f}]")
+        kernels[name] = time_anchored_at(table, (prim, bias, pts, anc),
+                                         f"nerfacto {name}")
+    # points so far that the contraction puts them on the hash's faces,
+    # exactly 0.0 or 1.0: H4's cell there equal to the plain _level_cells'
+    edge = normalize_positions(torch.tensor(
+        [[0.0, 0.0, 1e9], [-1e9, 3.0, 0.0], [5.0, 1e8, -1e12]],
+        device=p.device), mc)
+    table, prim, bias, _, _ = enc.calls[-1]
+    anc = torch.zeros(3, dtype=torch.int32, device=p.device)
+    if not (float(edge.max()) == 1.0 and float(edge.min()) == 0.0
+            and torch.equal(_hash_encode_cuda(table, prim, bias, edge, anc),
+                            hash_encode_raw(table, prim, bias, edge, anc))):
+        raise AssertionError("nerfacto: H4 at the contracted faces differs "
+                             "from the plain encode")
+    log("[nerfacto] H4 at points contracted onto the faces (coordinates "
+        "exactly 0.0 and 1.0) equal to the plain encode bit for bit")
+    del enc
+    torch.cuda.empty_cache()
+    times = []
+    for i in range(2):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        p.get_train_loss_dict(NERFACTO_STEPS + i)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t)
+    prof = profile_device(lambda: p.get_train_loss_dict(NERFACTO_STEPS + 2))
+    prof["step_ms"] = min(times) * 1e3
+    prof["idle_share"] = 1.0 - prof["device_busy_ms"] / prof["step_ms"]
+    spans = {k: round(v, 2) for k, v in prof["stage_device_span_ms"].items()}
+    top = [(k["name"][:60], round(k["device_ms"], 3), k["count"])
+           for k in prof["top_kernels"][:8]]
+    log(f"[nerfacto] one step, profiled: {prof['step_ms']:.1f} ms on the "
+        f"host clock (the faster of 2), device busy "
+        f"{prof['device_busy_ms']:.2f} ms, idle share "
+        f"{prof['idle_share']:.3f}; stage device spans (ms) {spans}; "
+        f"busiest kernels {top}; host waits {prof['host_waits']}")
+
+    # the entry points on the checkpoint
+    config_path = trainer.base_dir / "config.json"
+    del trainer, p, get_loss, eval_image, batch, draws
+    torch.cuda.empty_cache()
+    t = time.perf_counter()
+    eval_entry.main(["--load-config", str(config_path), "--output-path",
+                     str(tmp / "nerfacto_eval.json")])
+    eval_s = time.perf_counter() - t
+    res = json.loads((tmp / "nerfacto_eval.json").read_text())["results"]
+    if not all(np.isfinite(v) for v in res.values()):
+        raise AssertionError(f"gfnerf_tpu_torch.eval on nerfacto: {res}")
+    frames_dir = tmp / "nerfacto_frames"
+    t = time.perf_counter()
+    render_entry.main(["--load-config", str(config_path), "--traj", "spiral",
+                       "--spiral-steps", "2", "--output-path",
+                       str(frames_dir)])
+    render_s = time.perf_counter() - t
+    frames = sorted(frames_dir.glob("*.png"))
+    if len(frames) != 2 or any(read_png(f).shape != (72, 96, 3)
+                               for f in frames):
+        raise AssertionError(f"gfnerf_tpu_torch.render wrote {frames}")
+    log(f"[nerfacto] python -m gfnerf_tpu_torch.eval on the checkpoint in "
+        f"{eval_s:.2f}s: {json.dumps(res)}; .render --traj spiral "
+        f"--spiral-steps 2 in {render_s:.2f}s: {[f.name for f in frames]}, "
+        f"each 96x72 RGB")
+
+    # semantic-nerfw: a few steps on the scene with road masks
+    roads = road_scene(tmp)
+    cfg = get_method("semantic-nerfw")
+    for key, value in {"max_num_iterations": str(SEMANTIC_NERFW_STEPS),
+                       "steps_per_log": "1",
+                       "output_dir": str(tmp / "semantic_out")}.items():
+        apply_override(cfg, key, value)
+    cfg.data = roads
+    sem = Trainer(cfg, build_dataparser("minimal", roads))
+    sem.setup()
+    sem_losses = []
+    get_sem = sem.pipeline.get_train_loss_dict
+
+    def get_sem_w(step):
+        m = get_sem(step)
+        sem_losses.append(m)
+        return m
+
+    sem.pipeline.get_train_loss_dict = get_sem_w
+    before = counts()
+    t = time.perf_counter()
+    sem.train()
+    torch.cuda.synchronize()
+    sem_s = time.perf_counter() - t
+    after = counts()
+    sem_counts = {k: after[k] - before[k] for k in after}
+    sl = [m["semantics_loss"] for m in sem_losses]
+    log(f"[nerfacto] semantic-nerfw: {SEMANTIC_NERFW_STEPS} steps in "
+        f"{sem_s:.2f}s; semantics losses {sl}; losses "
+        f"{[round(m['loss'], 4) for m in sem_losses]}; launches {sem_counts}")
+    if len(sl) != SEMANTIC_NERFW_STEPS or not np.isfinite(sl).all() \
+            or sem_counts["hash_anchored_fwd_calls"] != \
+            3 * SEMANTIC_NERFW_STEPS:
+        raise AssertionError(f"semantic-nerfw: {sem_losses} {sem_counts}")
+    launches = {k: launches[k] + sem_counts[k] for k in launches}
+    del sem
+    torch.cuda.empty_cache()
+    stats = {
+        "setup_s": setup_s, "train_s": train_s,
+        "s_per_step": _mean(step_s),
+        "median_s_per_step": float(np.median(step_s)),
+        "rays_per_s": rays / _mean(step_s), "peak_bytes": peak,
+        "eval_image_s": image_s, "eval_psnr": metrics["psnr"],
+        "mean_image_psnr": trivial, "eval_entry": res,
+        "eval_entry_s": eval_s, "render_entry_s": render_s,
+        "losses_every_25_steps": {k: v[::25] for k, v in hist.items()},
+        "semantic_nerfw_losses": sem_losses,
+        "step_pair": pair,
+        "profile": {n: prof[n] for n in ("step_ms", "device_busy_ms",
+                                         "idle_share",
+                                         "stage_device_span_ms")},
+    }
+    return launches, stats, kernels
+
+
+def phase_semantics(tmp: Path):
+    """gf-nerf-perf with semantics (weight 0.5, 2 classes from the road
+    masks) and the camera optimizer (SO3xR3) through the Trainer at its
+    full width, on the pipeline phase's scene with road masks and on its
+    checkpoint's octree and march config (the config's tree is not built
+    again): SEMANTICS_INIT_STEPS init steps, the transition (48 error maps,
+    10 clusters), 2 focal steps on block 0.  Counted: every init step K1
+    and K2 once, H1 once and H2 in one call; every focal step K1 and K2
+    once, H1 twice (the block's encode on the global one) and H2 once;
+    H3-H5 never.  Checked: the semantics loss and the camera regularizer
+    finite at every step; the camera tangents moved by the init steps and
+    bit-unchanged by the focal ones (a step whose march finds no sample,
+    at the first steps' fineness, moves them not at all); one init step
+    from the trained state
+    against the plain pairs (K2 given the semantics' nonzero weights
+    cotangent), the camera tangents' gradient included."""
+    import numpy as np
+    import torch
+
+    from gfnerf_tpu_torch.configs.config_io import apply_override
+    from gfnerf_tpu_torch.configs.method_configs import get_method
+    from gfnerf_tpu_torch.data.dataparsers import build_dataparser
+    from gfnerf_tpu_torch.engine.trainer import Trainer
+    from gfnerf_tpu_torch.fields.field import STAGE_BLOCK, STAGE_INIT
+    from gfnerf_tpu_torch.fields.hash_encoding import table_grad_launches
+    from gfnerf_tpu_torch.fields.packed_hash import packed_hash_encode
+    from gfnerf_tpu_torch.pipelines.pipeline import GFNerfPipeline
+    from gfnerf_tpu_torch.train_bench import RAYS, make_batch
+
+    roads = tmp / "scene_roads"
+    if not roads.is_dir():
+        roads = road_scene(tmp)
+    tree_ckpt = sorted((tmp / "out").glob(
+        "scene/gf-nerf-perf/*/nerfstudio_models/step-*"))[-1]
+    cfg = get_method("gf-nerf-perf")
+    for key, value in {**SEMANTICS_OVERRIDES,
+                       "max_num_iterations": str(SEMANTICS_STEPS),
+                       "output_dir": str(tmp / "semantics_out")}.items():
+        apply_override(cfg, key, value)
+    cfg.data = roads
+
+    def build_on_tree(dataparser, base_dir, device="cuda", draws=None,
+                      checkpoint=None):
+        # the pipeline phase's tree and march config, no field state
+        return GFNerfPipeline(cfg.pipeline, dataparser, base_dir, device,
+                              draws, tree_ckpt)
+
+    cfg.pipeline.build = build_on_tree
+    trainer = Trainer(cfg, build_dataparser("minimal", roads))
+    t0 = time.perf_counter()
+    trainer.setup()
+    setup_s = time.perf_counter() - t0
+    p = trainer.pipeline
+    fc = p.field_cfg
+    log(f"[semantics] setup {setup_s:.2f}s on {tree_ckpt.name}'s tree "
+        f"({p.sampler.tree.n_nodes} nodes); camera_opt_mode "
+        f"{fc.camera_opt_mode}, use_semantics {fc.use_semantics} "
+        f"({fc.num_semantic_classes} classes), {fc.num_levels} x "
+        f"{fc.features_per_level} levels of 2^{fc.packed_rows_log2}, "
+        f"{p.config.datamanager.train_num_rays_per_batch} rays, "
+        f"{p.sampler.sampler_config.max_samples} slots")
+    if not (fc.use_semantics and fc.camera_opt_mode == "SO3xR3"):
+        raise AssertionError(f"semantics phase config: {fc}")
+    rec = {}
+    get_loss = p.get_train_loss_dict
+
+    def counts():
+        return {**launch_counts(),
+                "packed_hash_bwd_calls": packed_hash_encode.bwd_calls}
+
+    def get_loss_w(step):
+        before = counts()
+        adj = p.field.camera_adjustment.detach().clone()
+        t = time.perf_counter()
+        m = get_loss(step)
+        torch.cuda.synchronize()
+        after = counts()
+        rec[step] = {"s": time.perf_counter() - t, **m,
+                     "counts": {k: after[k] - before[k] for k in after},
+                     "moved": not torch.equal(
+                         adj, p.field.camera_adjustment.detach())}
+        return m
+
+    p.get_train_loss_dict = get_loss_w
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    trainer.train()
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    launches = launch_counts()
+    p.get_train_loss_dict = get_loss
+    if sorted(rec) != list(range(SEMANTICS_STEPS)):
+        raise AssertionError(f"semantics: steps run {sorted(rec)}")
+    h2 = table_grad_launches(fc.num_levels, fc.features_per_level)
+    for i in range(SEMANTICS_STEPS):
+        init = i < SEMANTICS_INIT_STEPS
+        want = {"composite_fwd": 1, "composite_bwd": 1,
+                "packed_hash_fwd": 1 if init else 2,
+                "packed_hash_bwd": h2, "packed_hash_bwd_calls": 1}
+        st = rec[i]
+        if st["counts"] != {k: want.get(k, 0) for k in st["counts"]}:
+            raise AssertionError(f"semantics step {i}: launches "
+                                 f"{st['counts']}, expected {want}")
+        for k in ("semantics_loss", "camera_opt_regularizer", "loss"):
+            if not np.isfinite(st[k]):
+                raise AssertionError(f"semantics step {i}: {k} {st[k]}")
+    moved = [rec[i]["moved"] for i in range(SEMANTICS_STEPS)]
+    # a step whose march found no sample (the first steps' fineness of 16)
+    # renders the background alone: no gradient reaches the tangents
+    sampled = [rec[i]["num_samples_per_ray"] > 0
+               for i in range(SEMANTICS_INIT_STEPS)]
+    per_step = [(round(rec[i]["semantics_loss"], 5),
+                 rec[i]["camera_opt_regularizer"], round(rec[i]["loss"], 5),
+                 round(rec[i]["num_samples_per_ray"], 1))
+                for i in range(SEMANTICS_STEPS)]
+    log(f"[semantics] per step (semantics loss, camera regularizer, loss, "
+        f"samples a ray): {per_step}")
+    log(f"[semantics] the camera tangents moved by step: {moved}; largest "
+        f"|tangent| "
+        f"{float(p.field.camera_adjustment.detach().abs().max()):.3g}; "
+        f"launches per step as expected (init K1, K2, H1 once, H2 one call "
+        f"of {h2}; focal H1 twice); in the whole run {launches}")
+    if not (any(sampled) and moved[:SEMANTICS_INIT_STEPS] == sampled
+            and not any(moved[SEMANTICS_INIT_STEPS:])):
+        raise AssertionError(f"semantics: the tangents moved {moved}, the "
+                             f"init steps that sampled {sampled}")
+    if p.sampler.cameras_labels is None or len(
+            np.unique(p.sampler.cameras_labels)) != fc.n_blocks:
+        raise AssertionError("semantics: no transition")
+    images = np.asarray(p.datamanager.train_dataset.metadata[
+        "images_array"], np.float32) / 255.0
+    wl = {"field": p.field, "state": p.state, "tx": p.tx,
+          "step_fn": p._train_step[STAGE_INIT],
+          "focal_step_fn": p._train_step[STAGE_BLOCK],
+          "oct_dev": p.sampler.oct_dev, "cams": p.cameras_dev,
+          "fineness": 1.0, "scfg": p.sampler.sampler_config, "fcfg": fc}
+    batch = make_batch(images, RAYS, 700, p.device)
+    h = images.shape[1]
+    batch["semantics"] = (batch["coords"][:, 0] >= h // 2).long()
+    gen = torch.Generator(device=p.device).manual_seed(9)
+    noise, perms = step_draws(wl, gen)
+    loss = compare_step(wl, "semantics", batch, noise, perms)
+    init_s = [rec[i]["s"] for i in range(2, SEMANTICS_INIT_STEPS)]
+    stats = {"setup_s": setup_s, "train_s": train_s,
+             "init_s_per_step": _mean(init_s),
+             "semantics_losses": [rec[i]["semantics_loss"]
+                                  for i in range(SEMANTICS_STEPS)],
+             "camera_opt_regularizers": [
+                 rec[i]["camera_opt_regularizer"]
+                 for i in range(SEMANTICS_STEPS)],
+             "compare_step_loss": loss}
+    del trainer, p, wl
+    torch.cuda.empty_cache()
+    return launches, stats
+
+
 def main() -> int:
     if not (REPO / "gfnerf_tpu_torch").is_dir():
         print("chip_smoke: gfnerf_tpu_torch/ not found beside this script",
@@ -3832,7 +4485,19 @@ def main() -> int:
         clock("gfnerf")
         torch.cuda.empty_cache()
         paths["prop"], stats["prop"], prop = phase_prop(Path(tmp))
-    clock("prop")
+        clock("prop")
+        torch.cuda.empty_cache()
+        paths["nerfacto"], stats["nerfacto"], nerfacto = \
+            phase_nerfacto(Path(tmp))
+        clock("nerfacto")
+        paths["semantics"], stats["semantics"] = phase_semantics(Path(tmp))
+    clock("semantics")
+    for name, i in (("hash_anchored_fwd", 0), ("hash_anchored_bwd", 1)):
+        report[name]["nerfacto"] = {shape: parts[i]
+                                    for shape, parts in nerfacto.items()}
+        report[name]["max_abs_err"] = max(
+            report[name]["max_abs_err"],
+            *(parts[i]["max_abs_err"] for parts in nerfacto.values()))
     for name, part in prop.items():
         report[name]["max_abs_err"] = max(report[name]["max_abs_err"],
                                           part["max_abs_err"])
@@ -3877,7 +4542,7 @@ def main() -> int:
         log(f"[{path}] {json.dumps(st)}")
     log(json.dumps({"kernels": kernels}))
     log(f"[clock] the whole script {time.perf_counter() - start:.1f}s "
-        f"(171.6-226.6 s before the prop phase)")
+        f"(274.3-284.0 s before the nerfacto and semantics phases)")
     log(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -3885,5 +4550,39 @@ def main() -> int:
     return 0
 
 
+def main_only(names) -> int:
+    """``--only pipeline,nerfacto,...``: the device and the build, then the
+    named phases of the temp-dir family (pipeline, gfnerf, prop, nerfacto,
+    semantics; the last two need the pipeline phase's scene and
+    checkpoint) in one temp dir, for work on one phase: their lines and
+    stats, no kernels line and no result line."""
+    if not (REPO / "gfnerf_tpu_torch").is_dir():
+        print("chip_smoke: gfnerf_tpu_torch/ not found beside this script",
+              file=sys.stderr)
+        return 1
+    sys.path.insert(0, str(REPO))
+    start = time.perf_counter()
+    phases = {"pipeline": phase_pipeline, "gfnerf": phase_gfnerf,
+              "prop": phase_prop, "nerfacto": phase_nerfacto,
+              "semantics": phase_semantics}
+    unknown = set(names) - set(phases)
+    if unknown:
+        print(f"chip_smoke: unknown phases {sorted(unknown)}",
+              file=sys.stderr)
+        return 2
+    log(phase_device())
+    phase_build()
+    with tempfile.TemporaryDirectory(prefix="gfnerf_pipeline_") as tmp:
+        for name in names:
+            out = phases[name](Path(tmp))
+            log(f"[{name}] launches {out[0]}")
+            log(f"[{name}] {json.dumps(out[1])}")
+            log(f"[clock] {name} done at "
+                f"{time.perf_counter() - start:.1f}s")
+    return 0
+
+
 if __name__ == "__main__":
+    if len(sys.argv) == 3 and sys.argv[1] == "--only":
+        sys.exit(main_only(sys.argv[2].split(",")))
     sys.exit(main())

@@ -5,8 +5,10 @@ whose paths are ported: ``gf-nerf`` (the paper's defaults), ``gf-nerf-tiny``
 (smoke tests), ``gf-nerf-perf`` (packed supercell tables, 8 levels x 4
 channels, bf16 MLPs, 160 march slots) and ``gf-nerf-prop`` (``gf-nerf-perf``
 with proposal-guided resampling: a 256-slot march feeds the probe, whose
-weights resample 64 fine samples a ray).  The JAX package's other methods
-raise a "not ported" error from :func:`get_method`.
+weights resample 64 fine samples a ray), and on the vanilla pipeline
+``nerfacto`` and ``semantic-nerfw`` with the JAX package's settings.  The
+JAX package's other methods raise a "not ported" error from
+:func:`get_method`.
 """
 
 from __future__ import annotations
@@ -18,12 +20,12 @@ from gfnerf_tpu_torch.engine.optimizers import OptimizersConfig
 from gfnerf_tpu_torch.engine.trainer import TrainerConfig
 from gfnerf_tpu_torch.models.gfnerf import GFNeRFModelConfig
 from gfnerf_tpu_torch.pipelines.pipeline import GFNerfPipelineConfig
+from gfnerf_tpu_torch.pipelines.vanilla_pipeline import VanillaPipelineConfig
 from gfnerf_tpu_torch.sampler.manager import PersSamplerManagerConfig
 
 # the JAX package's registered methods that have no port yet
-NOT_PORTED = ("nerfacto", "instant-ngp", "mipnerf",
-              "tensorf", "neus", "vanilla-nerf", "nerfplayer-nerfacto",
-              "nerfplayer-ngp", "semantic-nerfw")
+NOT_PORTED = ("instant-ngp", "mipnerf", "tensorf", "neus", "vanilla-nerf",
+              "nerfplayer-nerfacto", "nerfplayer-ngp")
 
 
 def gf_nerf_config() -> TrainerConfig:
@@ -150,11 +152,38 @@ def gf_nerf_prop_config() -> TrainerConfig:
     return cfg
 
 
+def nerfacto_config() -> TrainerConfig:
+    """Stock nerfacto: the proposal sampler and a hash field."""
+    return TrainerConfig(
+        method_name="nerfacto",
+        max_num_iterations=30000,
+        steps_per_eval_image=5000,
+        steps_per_save=2000,
+        pipeline=VanillaPipelineConfig(model_kind="nerfacto",
+                                       train_num_rays_per_batch=4096),
+    )
+
+
+def semantic_nerfw_config() -> TrainerConfig:
+    """Semantic NeRF-W: nerfacto, a semantics head and its
+    cross-entropy."""
+    return TrainerConfig(
+        method_name="semantic-nerfw",
+        max_num_iterations=30000,
+        steps_per_eval_image=5000,
+        steps_per_save=2000,
+        pipeline=VanillaPipelineConfig(model_kind="semantic-nerfw",
+                                       train_num_rays_per_batch=4096),
+    )
+
+
 method_configs: Dict[str, Callable[[], TrainerConfig]] = {
     "gf-nerf": gf_nerf_config,
     "gf-nerf-tiny": gf_nerf_tiny_config,
     "gf-nerf-perf": gf_nerf_perf_config,
     "gf-nerf-prop": gf_nerf_prop_config,
+    "nerfacto": nerfacto_config,
+    "semantic-nerfw": semantic_nerfw_config,
 }
 
 def get_method(name: str) -> TrainerConfig:

@@ -172,7 +172,10 @@ class GFNerfDataManager:
                 mix = collate_batch(self.init_cache, mix_idx)
                 batch = {k: np.concatenate([batch[k][:n_split], mix[k]],
                                            axis=0)
-                         for k in batch}
+                         for k in ("indices", "image", "camera_indices",
+                                   "rel_camera_indices", "coords",
+                                   "semantics")
+                         if k in batch and k in mix}
         batch["n_split_rays"] = np.int32(n_split)
         batch["step"] = np.int32(step)
         batch["split_idx"] = np.int32(-1 if init_stage else self.split_idx)

@@ -8,8 +8,8 @@ each overwriting the one before), the port names image i of ``train.npz``
 ``train.npz#i``.
 
 npz keys: images (N,H,W,3) uint8 or float, c2w (N,3,4), fx fy cx cy (N,),
-optionally bounds (N,2).  Semantic masks (``road_masks``) join with the
-semantic path.
+optionally bounds (N,2) and road_masks (N,H,W) (class labels, 0 and 1 for
+the reference's road masks), the semantics' labels.
 """
 
 from __future__ import annotations
@@ -62,6 +62,8 @@ class MinimalDataParser(DataParser):
             scene_box=scene_box,
             metadata={
                 "images_array": images,
+                "road_masks_array": (data["road_masks"]
+                                     if "road_masks" in data else None),
                 "bounds": data["bounds"] if "bounds" in data else None,
                 "global_image_indices": list(range(n)),
             },

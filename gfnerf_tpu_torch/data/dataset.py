@@ -2,10 +2,12 @@
 
 Port of ``gfnerf_tpu/data/dataset.py`` (nerfstudio's ``InputDataset`` and
 ``CacheDataloader``): images come from the dataparser's in-memory
-``images_array``; error maps (``.npy``) from the files the pipeline writes at
-the stage transition.  The cache holds a sampled subset of the images,
-resampled every ``num_times_to_repeat`` batches, and takes live error-map
-writes.  Decoding images from disk (``imageio``/``cv2``) is not ported.
+``images_array``, road masks (the semantic labels) from its
+``road_masks_array``; error maps (``.npy``) from the files the pipeline
+writes at the stage transition.  The cache holds a sampled subset of the
+images, resampled every ``num_times_to_repeat`` batches, and takes live
+error-map writes.  Decoding images from disk (``imageio``/``cv2``) is not
+ported.
 """
 
 from __future__ import annotations
@@ -42,10 +44,14 @@ class InputDataset:
         return np.asarray(img[..., :3], np.float32)
 
     def get_data(self, idx: int) -> Dict:
-        """Image, its global index and its error map, if any."""
+        """Image, its global index, and its road mask and error map, if
+        any."""
         data = {"image": self.get_image(idx), "image_idx": idx}
         gii = self.metadata.get("global_image_indices")
         data["rel_camera_idx"] = gii[idx] if gii else idx
+        masks = self.metadata.get("road_masks_array")
+        if masks is not None:
+            data["road_mask"] = np.asarray(masks[idx], np.float32)
         files = self.metadata.get("error_map_filenames")
         if files is not None and files[idx] is not None:
             p = Path(files[idx])
@@ -78,6 +84,7 @@ class ImageCache:
         self.indices: np.ndarray = None  # dataset indices of cached images
         self.images: np.ndarray = None   # (K, H, W, 3) float32
         self.rel_camera_idx: np.ndarray = None
+        self.road_masks: Optional[np.ndarray] = None  # (K, H, W) labels
         self.error_maps: Optional[np.ndarray] = None  # (K, H, W)
         self._reload()
 
@@ -93,6 +100,18 @@ class ImageCache:
         self.images = np.stack([d["image"] for d in datas])
         self.rel_camera_idx = np.asarray(
             [d["rel_camera_idx"] for d in datas], np.int32)
+        self.road_masks = None
+        if any("road_mask" in d for d in datas):
+            h, w = self.images.shape[1:3]
+            ms = []
+            for d in datas:
+                m = d.get("road_mask")
+                if m is None:
+                    m = np.zeros((h, w), np.float32)
+                elif m.ndim == 3:
+                    m = m[..., 0]
+                ms.append(m.astype(np.float32))
+            self.road_masks = np.stack(ms)
         self.error_maps = None
         if any("error_map" in d for d in datas):
             h, w = self.images.shape[1:3]

@@ -4,8 +4,9 @@ Port of ``gfnerf_tpu/data/pixel_samplers.py``: uniform and patch sampling
 (``PixelSampler``) and the error-guided sampler (``ErrorPixelSampler``, 20%
 of rays by multinomial over the live error map, the rest uniform).  Each
 produces (R, 3) integer indices (image in the cache, y, x) and the gathered
-pixels: a fixed-shape host batch for the train step.  The equirectangular
-and semantic samplers join with their features.
+pixels (and, where the cache holds road masks, each pixel's label as
+``semantics``): a fixed-shape host batch for the train step.  The
+equirectangular and class-weighted semantic samplers are not ported.
 """
 
 from __future__ import annotations
@@ -91,10 +92,16 @@ def collate_batch(cache: ImageCache, idx: np.ndarray) -> Dict[str, np.ndarray]:
 
     Returns a host batch: ray 'indices' (cache_img, y, x), rgb targets,
     camera indices into the split dataset, rel_camera_indices (global image
-    ids feeding the appearance embedding, pixel_samplers.py:114).
+    ids feeding the appearance embedding, pixel_samplers.py:114) and,
+    where the cache holds road masks, the pixels' int32 labels
+    ("semantics").
     """
     ki, yi, xi = idx[:, 0], idx[:, 1], idx[:, 2]
+    extra = {}
+    if cache.road_masks is not None:
+        extra["semantics"] = cache.road_masks[ki, yi, xi].astype(np.int32)
     return {
+        **extra,
         "indices": idx.astype(np.int32),
         "image": cache.images[ki, yi, xi].astype(np.float32),
         "camera_indices": cache.indices[ki].astype(np.int32),

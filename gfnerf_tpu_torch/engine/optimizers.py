@@ -2,10 +2,11 @@
 
 Port of ``gfnerf_tpu/engine/optimizers.py`` (nerfstudio's per-group
 optimizers with GF-NeRF's optimizer swapping, nerfacto.py:448-489).  The
-parameters fall into four groups: "fields" (the MLPs, the appearance
-embedding and the proposal probe's table and MLP), "base_encoding_init"
-(the global hash table), "block" (the active focal residual table) and
-"camera_opt".  Each group runs the chain
+parameters fall into four groups: "fields" (the MLPs, the semantics heads,
+the appearance embedding and the proposal probe's table and MLP),
+"base_encoding_init" (the global hash table), "block" (the active focal
+residual table) and "camera_opt" (the cameras' pose tangents, at
+``camera_opt_lr``).  Each group runs the chain
 the JAX package builds with optax, in its order:
 
     Adam scaling (b1, b2, eps 1e-15) -> + weight_decay * param
@@ -26,7 +27,7 @@ moments plus the weight decay.
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List, Optional
+from typing import Callable, Dict, List, Optional
 
 import torch
 
@@ -72,22 +73,27 @@ def field_param_groups(field: GFNeRFField,
     active block's table, ``active_table`` (:func:`active_block_table`);
     without one, block 0's, the placeholder the JAX package's
     ``optimizer_arg`` passes to build the state.  "fields" holds the
-    proposal probe, if the field has one (optimizers.py:82-84).
-    "camera_opt" is empty (the camera optimizer is not ported)."""
+    semantics heads and the proposal probe, if the field has them, and
+    "camera_opt" the camera tangents (optimizers.py:74-84)."""
     if field.block_feats is None:
         block = []
     elif active_table is not None:
         block = [active_table]
     else:
         block = [active_block_table(field)]
+    semantics = [] if field.mlp_semantics is None else [
+        *field.mlp_semantics.w, *field.mlp_semantics.b,
+        *field.semantics_head.w, *field.semantics_head.b]
     probe = [] if field.prop_feat is None else [
         field.prop_feat, *field.prop_net.w, *field.prop_net.b]
     return {
         "fields": [*field.base_net.w, *field.base_net.b, *field.mlp_head.w,
-                   *field.mlp_head.b, field.appearance_embedding, *probe],
+                   *field.mlp_head.b, field.appearance_embedding,
+                   *semantics, *probe],
         "base_encoding_init": [field.global_feat],
         "block": block,
-        "camera_opt": [],
+        "camera_opt": ([] if field.camera_adjustment is None
+                       else [field.camera_adjustment]),
     }
 
 
@@ -137,10 +143,22 @@ def _bias_correction(decay: float, count: int) -> float:
 
 class PerGroupAdam:
     """``build_optimizer``'s transformation: ``init`` the state for a dict
-    of parameter groups, ``update`` it with a dict of gradients."""
+    of parameter groups, ``update`` it with a dict of gradients.
 
-    def __init__(self, cfg: OptimizersConfig):
+    ``schedules`` (group -> count -> lr) replaces the GF-NeRF groups and
+    their schedules (the vanilla pipeline's one group, on optax's
+    ``exponential_decay``); ``skip_nonfinite=False`` applies every update,
+    as optax's plain ``adam`` does (no host wait for the finite check)."""
+
+    def __init__(self, cfg: OptimizersConfig,
+                 schedules: Optional[Dict[str, Callable]] = None,
+                 skip_nonfinite: bool = True):
         self.cfg = cfg
+        self.skip_nonfinite = skip_nonfinite
+        if schedules is not None:
+            self.schedules = schedules
+            self.weight_decay = {name: 0.0 for name in schedules}
+            return
         sched_cfg = GFNerfExponentialDecaySchedulerConfig(
             lr_final=cfg.fields_lr_final,
             max_steps=cfg.steps_perssampler_init,
@@ -170,8 +188,8 @@ class PerGroupAdam:
         old moments and counts."""
         given = [g for gs in grads.values() for g in gs if g is not None]
         # one reduction on the device and one wait for it
-        finite = not given or bool(torch.stack(
-            [torch.isfinite(g).all() for g in given]).all())
+        finite = (not self.skip_nonfinite or not given or bool(torch.stack(
+            [torch.isfinite(g).all() for g in given]).all()))
         if not finite:
             return ({name: [None] * len(gs) for name, gs in grads.items()},
                     dataclasses.replace(

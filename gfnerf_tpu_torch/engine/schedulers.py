@@ -3,7 +3,8 @@
 Port of ``gfnerf_tpu/engine/schedulers.py`` (nerfstudio's
 ``schedulers.py``): exponential decay with warm-up (:77-109) and the
 GF-NeRF variant (:138-185) that restarts the decay for every focal
-split-dataset phase (:163-171).  A schedule maps the step (an int or a
+split-dataset phase (:163-171), and optax's ``exponential_decay``, which
+the vanilla pipeline's Adam reads.  A schedule maps the step (an int or a
 tensor) to the learning rate as a float32 tensor, computed in float32 as
 the JAX package computes it.
 """
@@ -63,6 +64,22 @@ def exponential_decay_schedule(cfg: ExponentialDecaySchedulerConfig,
         return torch.where(step < cfg.warmup_steps,
                            _warmup(step, cfg, lr_init),
                            _decay(step, cfg, lr_init, lr_final))
+
+    return schedule
+
+
+def optax_exponential_decay(init_value: float, transition_steps: int,
+                            decay_rate: float):
+    """optax's ``exponential_decay`` (no staircase, no delay): ``init *
+    rate ** (count / transition_steps)``, in float32 as optax computes
+    it.  Returns count -> lr."""
+    init = _f32(init_value)
+    rate = _f32(decay_rate)
+
+    def schedule(count):
+        count = _f32(count)
+        return torch.where(count <= 0, init,
+                           init * torch.pow(rate, count / transition_steps))
 
     return schedule
 

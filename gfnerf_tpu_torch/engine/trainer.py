@@ -4,8 +4,9 @@ Port of ``gfnerf_tpu/engine/trainer.py`` (nerfstudio's ``trainer.py``,
 :90-479) for one card: setup (pipeline, config file, writer, checkpoint),
 the train loop with the pipeline's after-iteration callbacks, the periodic
 eval, and checkpoints in ``step-{:09d}`` directories pruned to the latest.
-The run's config is written as ``config.json``.  The viewer and its
-pause/stop control are not ported.
+The run's config is written as ``config.json``.  The pipeline is either
+kind the config names: GF-NeRF's or the vanilla one (which has no eval ray
+batch).  The viewer and its pause/stop control are not ported.
 """
 
 from __future__ import annotations
@@ -41,6 +42,7 @@ class TrainerConfig:
     vis: str = "local"
     data: Optional[Path] = None
     device: str = "cuda"
+    # GFNerfPipelineConfig or VanillaPipelineConfig
     pipeline: GFNerfPipelineConfig = dataclasses.field(
         default_factory=GFNerfPipelineConfig)
 
@@ -83,7 +85,10 @@ class Trainer:
 
     def train(self):
         cfg = self.config
-        num_rays = cfg.pipeline.datamanager.train_num_rays_per_batch
+        pcfg = cfg.pipeline
+        num_rays = (pcfg.datamanager.train_num_rays_per_batch
+                    if hasattr(pcfg, "datamanager")
+                    else pcfg.train_num_rays_per_batch)
         t_start = time.perf_counter()
         for step in range(self._start_step, cfg.max_num_iterations):
             with TimeWriter(None, ITER_TRAIN_TIME, step) as t:
@@ -109,7 +114,8 @@ class Trainer:
 
     def eval_iteration(self, step: int):
         cfg = self.config
-        if (step + 1) % cfg.steps_per_eval_batch == 0:
+        if ((step + 1) % cfg.steps_per_eval_batch == 0
+                and hasattr(self.pipeline, "get_eval_loss_dict")):
             metrics = self.pipeline.get_eval_loss_dict(step)
             self.writer.put_dict(
                 {f"Eval Batch/{k}": v for k, v in metrics.items()}, step)

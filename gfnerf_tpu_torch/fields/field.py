@@ -11,7 +11,12 @@ point for mixed eval chunks.  The colour head runs with its first layer
 split into a per-ray part (SH(direction) and appearance embedding) and a
 per-sample part (geometry features).  With ``use_proposal`` the field also
 holds the proposal probe (a small packed table and a 16-wide MLP), whose
-:func:`proposal_density` guides the resampling of ``models/gfnerf.py``.
+:func:`proposal_density` guides the resampling of ``models/gfnerf.py``;
+with ``use_semantics`` the semantics heads (two MLPs on the detached
+geometry features, logits per sample beside the colour); with a
+``camera_opt_mode`` other than "off" the cameras' pose tangents
+(``camera_adjustment``, zero at the start), which ``models/gfnerf.py``
+applies to the rays.
 
 The JAX package's trainable/fixed pytrees become one ``nn.Module``
 (:class:`GFNeRFField`): tables, MLP weights and the appearance embedding are
@@ -52,11 +57,9 @@ STAGE_BLOCK = 1
 
 @dataclasses.dataclass
 class FieldConfig:
-    """Field hyper-parameters (reference gfnerf/config.py:119-127); the JAX
-    package's ``FieldConfig`` fields that the port reads or rejects
-    (``_check_supported``), with its defaults.  Settings of the unported
-    options (semantics, proposal field, identity warp) join with those
-    options."""
+    """Field hyper-parameters (reference gfnerf/config.py:119-127): the JAX
+    package's ``FieldConfig`` fields that the port reads or checks
+    (``_check_supported``), with its defaults."""
 
     num_images: int = 1
     geo_feat_dim: int = 15
@@ -72,7 +75,8 @@ class FieldConfig:
     n_blocks: int = 10
     n_volumes: int = 1
     use_semantics: bool = False
-    camera_opt_mode: str = "off"
+    num_semantic_classes: int = 2
+    camera_opt_mode: str = "off"    # "off" | "SO3xR3" | "SE3"
     hash_layout: str = "anchored"   # "anchored" | "packed"
     mlp_dtype: str = "float32"      # "float32" | "bfloat16"
     packed_rows_log2: int = 15
@@ -107,6 +111,9 @@ class FieldParams:
     base_net: dict
     mlp_head: dict
     appearance_embedding: np.ndarray     # (num_images, D)
+    mlp_semantics: Optional[dict] = None     # geo -> 64
+    semantics_head: Optional[dict] = None    # 64 -> classes
+    camera_adjustment: Optional[np.ndarray] = None   # (num_images, 6)
     prop_feat: Optional[np.ndarray] = None   # (L_p, rows, W) probe table
     prop_net: Optional[dict] = None          # probe MLP
 
@@ -130,10 +137,9 @@ def _check_supported(cfg: FieldConfig) -> None:
         raise ValueError(f"unknown focal mode {cfg.focal_mode!r}")
     if cfg.warp_mode not in ("pers", "identity"):
         raise ValueError(f"unknown warp mode {cfg.warp_mode!r}")
-    if cfg.use_semantics:
-        raise NotImplementedError("FieldConfig.use_semantics is not ported")
-    if cfg.camera_opt_mode != "off":
-        raise NotImplementedError("the camera optimizer is not ported")
+    if cfg.camera_opt_mode not in ("off", "SO3xR3", "SE3"):
+        raise ValueError(f"unknown camera optimizer mode "
+                         f"{cfg.camera_opt_mode!r}")
 
 
 def init_field_params(cfg: FieldConfig, seed: int = 0):
@@ -185,7 +191,10 @@ def init_field_params(cfg: FieldConfig, seed: int = 0):
         rng, head_in, 3, cfg.hidden_dim_color, cfg.num_layers_color - 1)
     appearance = rng.standard_normal(
         (cfg.num_images, cfg.appearance_embedding_dim)).astype(np.float32)
-    # (the semantics heads, unported, would draw here)
+    mlp_semantics = semantics_head = None
+    if cfg.use_semantics:
+        mlp_semantics = init_mlp(rng, cfg.geo_feat_dim, 64, 64, 1)
+        semantics_head = init_mlp(rng, 64, cfg.num_semantic_classes, 64, 0)
     prop_feat = prop_net = prop_prim = prop_bias = None
     if cfg.use_proposal:
         # the table's own default row width, whatever packed_row_width says
@@ -195,10 +204,15 @@ def init_field_params(cfg: FieldConfig, seed: int = 0):
             n_rows_log2=cfg.proposal_rows_log2, n_volumes=cfg.n_volumes,
             n_levels=cfg.proposal_levels, n_channels=4, init_mode="reset")
         prop_net = init_mlp(rng, cfg.proposal_levels * 4, 1, 16, 1)
+    # zero tangents: no draw
+    camera_adjustment = (None if cfg.camera_opt_mode == "off" else
+                         np.zeros((cfg.num_images, 6), np.float32))
     params = FieldParams(
         global_feat=g_feat, block_feats=block_feats, base_net=base_net,
         mlp_head=mlp_head, appearance_embedding=appearance,
-        prop_feat=prop_feat, prop_net=prop_net)
+        mlp_semantics=mlp_semantics, semantics_head=semantics_head,
+        camera_adjustment=camera_adjustment, prop_feat=prop_feat,
+        prop_net=prop_net)
     statics = FieldStatics(
         global_prim=g_prim, global_bias=g_bias, block_prims=block_prims,
         block_biases=block_biases, prop_prim=prop_prim, prop_bias=prop_bias)
@@ -231,6 +245,12 @@ class GFNeRFField(nn.Module):
         self.base_net = MLP(params.base_net, device)
         self.mlp_head = MLP(params.mlp_head, device)
         self.appearance_embedding = param(params.appearance_embedding)
+        self.mlp_semantics = (None if params.mlp_semantics is None
+                              else MLP(params.mlp_semantics, device))
+        self.semantics_head = (None if params.semantics_head is None
+                               else MLP(params.semantics_head, device))
+        self.camera_adjustment = (None if params.camera_adjustment is None
+                                  else param(params.camera_adjustment))
         self.register_buffer("global_prim", buf(statics.global_prim, np.int64))
         self.register_buffer("global_bias",
                              buf(statics.global_bias, np.float32))
@@ -274,6 +294,11 @@ class GFNeRFField(nn.Module):
             base_net=self.base_net.to_numpy(),
             mlp_head=self.mlp_head.to_numpy(),
             appearance_embedding=arr(self.appearance_embedding),
+            mlp_semantics=(None if self.mlp_semantics is None
+                           else self.mlp_semantics.to_numpy()),
+            semantics_head=(None if self.semantics_head is None
+                            else self.semantics_head.to_numpy()),
+            camera_adjustment=arr(self.camera_adjustment),
             prop_feat=arr(self.prop_feat),
             prop_net=(None if self.prop_net is None
                       else self.prop_net.to_numpy()))
@@ -306,6 +331,9 @@ def params_from_jax(params, statics, cfg: FieldConfig,
         base_net=mlp(params.base_net),
         mlp_head=mlp(params.mlp_head),
         appearance_embedding=arr(params.appearance_embedding),
+        mlp_semantics=mlp(params.mlp_semantics),
+        semantics_head=mlp(params.semantics_head),
+        camera_adjustment=arr(params.camera_adjustment),
         prop_feat=arr(params.prop_feat), prop_net=mlp(params.prop_net))
     s = FieldStatics(
         global_prim=arr(statics.global_prim),
@@ -496,26 +524,51 @@ def _head_from_pre(field: GFNeRFField, geo: torch.Tensor,
                      start_layer=1)
 
 
+def _semantics_heads(field: GFNeRFField, geo: torch.Tensor) -> torch.Tensor:
+    """Semantic logits (P, classes) of geometry features (P, G), detached
+    (``pass_semantic_gradients=False``): the semantics loss trains the
+    two semantics MLPs alone."""
+    dt = _mlp_dt(field.cfg)
+    x = apply_mlp(field.mlp_semantics, geo.detach(), compute_dtype=dt)
+    return apply_mlp(field.semantics_head, x, compute_dtype=dt)
+
+
+def _with_semantics(field: GFNeRFField, out: dict, geo: torch.Tensor,
+                    lead_shape) -> dict:
+    """``out`` with "semantics" (lead_shape + (classes,)) added when the
+    field has the semantics heads."""
+    if field.cfg.use_semantics:
+        logits = _semantics_heads(field,
+                                  geo.reshape(-1, field.cfg.geo_feat_dim))
+        out["semantics"] = logits.reshape(*lead_shape,
+                                          field.cfg.num_semantic_classes)
+    return out
+
+
 def field_rgb(field: GFNeRFField, directions: torch.Tensor,
               geo_feat: torch.Tensor, rel_camera_indices: torch.Tensor,
               stage: int = STAGE_INIT):
     """Colour head per point: unit view directions (..., 3), geometry
     features (..., G) and appearance indices (...,), each point's own.
-    Returns {"rgb": (..., 3)}."""
+    Returns {"rgb": (..., 3)} (and with the semantics heads "semantics"
+    (..., classes))."""
     lead_shape = directions.shape[:-1]
+    geo = geo_feat.reshape(-1, field.cfg.geo_feat_dim)
     ray_pre = _head_ray_pre(field, directions.reshape(-1, 3),
                             rel_camera_indices.reshape(-1))
-    rgb = _head_from_pre(field, geo_feat.reshape(-1, field.cfg.geo_feat_dim),
-                         ray_pre)
-    return {"rgb": rgb.reshape(*lead_shape, 3)}
+    rgb = _head_from_pre(field, geo, ray_pre)
+    return _with_semantics(field, {"rgb": rgb.reshape(*lead_shape, 3)}, geo,
+                           lead_shape)
 
 
 def field_rgb_compact(field: GFNeRFField, ray_pre: torch.Tensor,
                       geo_k: torch.Tensor, ray_k: torch.Tensor):
     """Colour head for the compacted path: ``ray_pre`` (R, H) from
     :func:`_head_ray_pre`, computed once on the R rays, gathered to the K
-    kept samples' rays ``ray_k`` (K,).  Returns {"rgb": (K, 3)}."""
-    return {"rgb": _head_from_pre(field, geo_k, ray_pre[ray_k])}
+    kept samples' rays ``ray_k`` (K,).  Returns {"rgb": (K, 3)} (and
+    "semantics" (K, classes))."""
+    out = {"rgb": _head_from_pre(field, geo_k, ray_pre[ray_k])}
+    return _with_semantics(field, out, geo_k, geo_k.shape[:1])
 
 
 def field_rgb_per_ray(field: GFNeRFField, dirs_ray: torch.Tensor,
@@ -526,4 +579,5 @@ def field_rgb_per_ray(field: GFNeRFField, dirs_ray: torch.Tensor,
     r, s, _ = geo_feat.shape
     ray_pre = _head_ray_pre(field, dirs_ray, rel_ray)
     rgb = _head_from_pre(field, geo_feat, ray_pre[:, None, :])
-    return {"rgb": rgb.reshape(r, s, 3)}
+    return _with_semantics(field, {"rgb": rgb.reshape(r, s, 3)}, geo_feat,
+                           (r, s))

@@ -2,10 +2,10 @@
 
 Port of ``gfnerf_tpu/model_components/losses.py``: Charbonnier, MSE and
 S3IM (the reference's ``nerfstudio/model_components/losses.py:713-794``),
-and the proposal path's interlevel and distortion losses (mip-NeRF 360,
-nerfstudio losses.py:154, 186).  S3IM's random permutations come from an
-explicit ``torch.Generator``, or are passed in, since the two packages draw
-different random numbers.
+the proposal samplers' interlevel and distortion losses (mip-NeRF 360,
+nerfstudio losses.py:154, 186) and depth-nerfacto's DS-NeRF depth loss.
+S3IM's random permutations come from an explicit ``torch.Generator``, or
+are passed in, since the two packages draw different random numbers.
 """
 
 from __future__ import annotations
@@ -126,3 +126,18 @@ def distortion_loss(weights, spacing_starts, spacing_ends) -> torch.Tensor:
     intra = torch.sum(weights ** 2 * (spacing_ends - spacing_starts),
                       dim=-1) / 3.0
     return torch.mean(inter + intra)
+
+
+def ds_nerf_depth_loss(weights, termination_depth, steps, lengths,
+                       sigma: float = 0.01) -> torch.Tensor:
+    """DS-NeRF's depth log-likelihood (nerfstudio's DepthLossType.DS_NERF):
+    -log(w) under a Gaussian of variance ``sigma`` around each ray's
+    ground-truth depth (R, 1), weighted by the bins' ``lengths``; rays
+    whose depth is 0 (unknown) add nothing.  ``steps`` (R, S) are the
+    bins' midpoints."""
+    depth_mask = termination_depth > 0
+    loss = -torch.log(weights + 1e-7) * torch.exp(
+        -((steps - termination_depth[:, None]) ** 2) / (2 * sigma)
+    ) * lengths
+    loss = torch.sum(loss, dim=-1) * depth_mask[..., 0]
+    return torch.mean(loss)

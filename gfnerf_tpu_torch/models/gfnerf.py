@@ -15,13 +15,15 @@ every branch; the fused composite with the background and
 stage with one block or with a block per ray), and ``make_train_step`` at
 both stages: rays, march, field, Charbonnier + S3IM (at the block stage
 also the finetune trust region and the empty-space penalty; on the
-proposal branch the interlevel loss and the distortion loss), backward,
-per-group Adam, and at the init stage the occupancy statistics.  The
-field's configuration travels with the :class:`GFNeRFField` module.
+proposal branch the interlevel loss and the distortion loss; with the
+field's semantics heads the semantics cross-entropy; with its camera
+tangents the rays moved by them before the field, the march left on the
+rays as generated, and their L2 penalty), backward, per-group Adam, and
+at the init stage the occupancy statistics.  The field's configuration
+travels with the :class:`GFNeRFField` module.
 
-Not ported yet: semantics and the camera optimizer, which have no config
-fields here yet.  The JAX package's ``make_multi_train_step`` (K steps per
-dispatch) has no counterpart: a plain loop of steps replaces it.
+The JAX package's ``make_multi_train_step`` (K steps per dispatch) has no
+counterpart: a plain loop of steps replaces it.
 """
 
 from __future__ import annotations
@@ -33,6 +35,11 @@ import numpy as np
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from gfnerf_tpu_torch.cameras.camera_optimizers import (
+    CameraOptimizerConfig,
+    apply_to_rays,
+    pose_regularization,
+)
 from gfnerf_tpu_torch.cameras.cameras import Cameras, generate_rays_multi
 from gfnerf_tpu_torch.cameras.rays import WarpedSamples, get_weights_f2nerf
 from gfnerf_tpu_torch.engine.optimizers import (
@@ -64,6 +71,7 @@ from gfnerf_tpu_torch.model_components.losses import (
     s3im_permutations,
 )
 from gfnerf_tpu_torch.model_components.ray_samplers import pdf_sample
+from gfnerf_tpu_torch.model_components.renderers import render_weighted
 from gfnerf_tpu_torch.ops.composite import fused_composite
 from gfnerf_tpu_torch.sampler.fast_march import get_samples_fast
 from gfnerf_tpu_torch.sampler.perssampler import (
@@ -83,7 +91,9 @@ class GFNeRFModelConfig:
     and the split schedule.  The train loss is the one the JAX defaults
     select (method_configs.py:62-67), fixed: Charbonnier plus S3IM at
     weight 1, kernel 4, stride 4, 10 repeats; the S3IM patch height is
-    ``s3im_patch_height``."""
+    ``s3im_patch_height``.  With ``use_semantics`` (and the field's
+    semantics heads) the rendered logits' cross-entropy against the
+    batch's labels joins at ``semantic_loss_weight``."""
 
     n_blocks: int = 10
     n_split_dataset: int = 10
@@ -113,6 +123,8 @@ class GFNeRFModelConfig:
     num_proposal_resamples: int = 0
     proposal_interlevel_mult: float = 1.0
     distortion_loss_mult: float = 0.0
+    use_semantics: bool = False
+    semantic_loss_weight: float = 0.0
 
 
 def sample_rays(oct_dev: OctreeDevice, rays_o, rays_d, noise_unscaled,
@@ -343,6 +355,16 @@ def model_forward(
     if density_shared is not None:
         out["density"] = density
         out["density_shared"] = density_shared
+    return _semantics_out(model_cfg, out, heads)
+
+
+def _semantics_out(model_cfg: GFNeRFModelConfig, out: dict,
+                   heads: dict) -> dict:
+    """``out`` with the per-sample semantic logits rendered by the weights
+    (R, classes), when the model and the field both have them."""
+    if model_cfg.use_semantics and "semantics" in heads:
+        out["semantics"] = render_weighted(out["weights"],
+                                           heads["semantics"])
     return out
 
 
@@ -449,7 +471,7 @@ def _model_forward_proposal(field: GFNeRFField, model_cfg, samples,
     out.update(prop_weights=w_prop, prop_spacing=(ts_fix, ends_fix),
                fine_spacing=(bs, be), march_weights=w_prop,
                march_alphas=a_prop, fine_anchors=anc_f)
-    return out
+    return _semantics_out(model_cfg, out, heads)
 
 
 RENDER_KEYS = ("rgb", "accumulation", "depth", "oct_depth")
@@ -550,12 +572,16 @@ def make_train_step(model_cfg: GFNeRFModelConfig, sampler_cfg: SamplerConfig,
     the tables do not change.  At the block stage only that table is in
     the graph and only it changes; the frozen groups get no gradient, their
     moments decay, and their updates are dropped; the occupancy statistics
-    stay.  The proposal probe is in the "fields" group: at the block stage
-    it runs without a graph.  On the proposal branch the init stage's
-    occupancy statistics read the probe's weights on the marched lattice,
-    as the JAX package's do.  The caller re-initialises the optimizer
-    state (``tx.init``) when the active block changes, as the JAX pipeline
-    does at a split switch.
+    stay.  The proposal probe and the semantics heads are in the "fields"
+    group, the camera tangents in "camera_opt": all frozen at the block
+    stage (the probe runs without a graph there).  The camera tangents
+    move each ray (``apply_to_rays``) after the march, which keeps the
+    rays as generated; the field sees the moved ones.  ``batch`` may hold
+    ``semantics`` (R,) int labels, which the semantics loss reads.  On the
+    proposal branch the init stage's occupancy statistics read the probe's
+    weights on the marched lattice, as the JAX package's do.  The caller
+    re-initialises the optimizer state (``tx.init``) when the active block
+    changes, as the JAX pipeline does at a split switch.
     """
     if stage not in (STAGE_INIT, STAGE_BLOCK):
         raise ValueError(f"unknown stage {stage}")
@@ -603,10 +629,17 @@ def make_train_step(model_cfg: GFNeRFModelConfig, sampler_cfg: SamplerConfig,
         active_table = (None if field.block_feats is None else
                         active_block_table(field, active_block,
                                            requires_grad=block_stage))
-        out = model_forward(field, model_cfg, samples, rays["directions"],
+        cam_cfg = CameraOptimizerConfig(mode=field.cfg.camera_opt_mode)
+        rays_o, rays_d = rays["origins"], rays["directions"]
+        if field.camera_adjustment is not None:
+            with span("rays"):
+                rays_o, rays_d = apply_to_rays(
+                    cam_cfg, field.camera_adjustment,
+                    batch["camera_indices"], rays_o, rays_d)
+        out = model_forward(field, model_cfg, samples, rays_d,
                             batch["rel_camera_indices"], stage, oct_dev,
-                            active_block, active_table,
-                            rays_o=rays["origins"], prop_u=prop_u)
+                            active_block, active_table, rays_o=rays_o,
+                            prop_u=prop_u)
         with span("loss"):
             losses = {"rgb_loss": charbonnier_loss(out["rgb"], target)}
             if (block_stage and field.cfg.focal_mode == "finetune"
@@ -639,6 +672,16 @@ def make_train_step(model_cfg: GFNeRFModelConfig, sampler_cfg: SamplerConfig,
             losses["s3im_loss"] = s3im_loss(
                 out["rgb"], target, s3im_perms,
                 patch_height=model_cfg.s3im_patch_height)
+            if "semantics" in out and "semantics" in batch:
+                # cross-entropy of the rendered logits (nerfacto.py:676-681)
+                logp = torch.log_softmax(out["semantics"], dim=-1)
+                ce = -torch.gather(logp, 1,
+                                   batch["semantics"].long()[:, None])[:, 0]
+                losses["semantics_loss"] = (model_cfg.semantic_loss_weight
+                                            * torch.mean(ce))
+            if field.camera_adjustment is not None:
+                losses["camera_opt_regularizer"] = pose_regularization(
+                    cam_cfg, field.camera_adjustment)
             total = sum(losses.values())
         with span("backward"):
             # at the block stage the frozen parameters stay out of the

@@ -97,6 +97,7 @@ class GFNerfPipelineConfig:
     field_hidden_dim: int = 128
     field_hidden_dim_color: int = 128
     use_appearance_embedding: bool = True
+    camera_opt_mode: str = "off"          # "off" | "SO3xR3" | "SE3"
     # False: focal splits sample pixels uniformly (the error maps are still
     # rendered)
     use_error_sampling: bool = True
@@ -180,6 +181,8 @@ class GFNerfPipeline:
             n_blocks=mcfg.n_blocks,
             n_volumes=self.sampler.n_volumes,
             use_appearance_embedding=config.use_appearance_embedding,
+            use_semantics=mcfg.use_semantics,
+            camera_opt_mode=config.camera_opt_mode,
             hash_layout=config.field_hash_layout,
             packed_rows_log2=config.field_packed_rows_log2,
             block_rows_log2=config.field_block_rows_log2,
@@ -264,14 +267,19 @@ class GFNerfPipeline:
 
     def _device_batch(self, batch: dict) -> dict:
         """The step's batch on the device, in one host-to-device copy: the
-        camera indices travel as float32, exact below 2^24."""
-        host = np.concatenate([
-            batch["rel_camera_indices"][:, None].astype(np.float32),
-            batch["coords"], batch["image"]], axis=1)
-        dev = torch.from_numpy(host).to(self.device)
+        camera indices (and the semantic labels, if the batch has them)
+        travel as float32, exact below 2^24."""
+        cols = [batch["rel_camera_indices"][:, None].astype(np.float32),
+                batch["coords"], batch["image"]]
+        if "semantics" in batch:
+            cols.append(batch["semantics"][:, None].astype(np.float32))
+        dev = torch.from_numpy(np.concatenate(cols, axis=1)).to(self.device)
         cam = dev[:, 0].long()
-        return {"camera_indices": cam, "rel_camera_indices": cam,
-                "coords": dev[:, 1:3], "image": dev[:, 3:6]}
+        out = {"camera_indices": cam, "rel_camera_indices": cam,
+               "coords": dev[:, 1:3], "image": dev[:, 3:6]}
+        if "semantics" in batch:
+            out["semantics"] = dev[:, 6].long()
+        return out
 
     def get_train_loss_dict(self, step: int) -> Dict[str, float]:
         stage = self.stage_of(step)

@@ -1,0 +1,421 @@
+"""Vanilla pipeline for the stock model families.
+
+Port of ``gfnerf_tpu/pipelines/vanilla_pipeline.py`` (nerfstudio's
+``base_pipeline.py::VanillaPipeline``): one image cache over the train
+views, a uniform pixel sampler, one model and single-stage training.  A
+step is the loss, its backward, then one Adam over all the parameters at
+``exponential_decay(lr_init -> lr_final over max_steps)`` with eps 1e-15
+(optax's ``adam``: the port's ``PerGroupAdam`` with one group, every
+update applied).  Eval renders whole images in chunks; checkpoints hold
+the model, the optimizer state, the step and the draws' generator through
+``torch.save``, and the pixel sampler's state, so that a resumed run takes
+the batches the uninterrupted one would have taken.
+
+Ported kinds: "nerfacto" and "semantic-nerfw" (``models/nerfacto.py``,
+``models/semantic_nerfw.py``).  The JAX package's other kinds (vanilla-nerf,
+mipnerf, instant-ngp, tensorf, neus, the nerfplayer pair) raise "not
+ported", and so does ``dynamic_batch``, which only instant-ngp feeds;
+their settings are kept so that a run's ``config.json`` round-trips.  The
+GF-NeRF pipeline's own options raise here: early termination
+(``enable_early_term``, ``render --early-term``) and block routing
+(``render_camera``'s ``stage``, ``force_split_idx``); its config has no
+error-map or early-termination field, so overriding one raises.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import json
+import time
+from pathlib import Path
+from typing import Callable, List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from gfnerf_tpu_torch.cameras.cameras import (generate_rays,
+                                              generate_rays_multi,
+                                              get_image_coords)
+from gfnerf_tpu_torch.data.dataset import ImageCache, InputDataset
+from gfnerf_tpu_torch.data.pixel_samplers import PixelSampler
+from gfnerf_tpu_torch.engine.optimizers import (OptimizersConfig, OptState,
+                                                PerGroupAdam, apply_updates)
+from gfnerf_tpu_torch.engine.schedulers import optax_exponential_decay
+from gfnerf_tpu_torch.models import nerfacto as nerfacto_mod
+from gfnerf_tpu_torch.models import semantic_nerfw as snw
+from gfnerf_tpu_torch.models.nerfacto import NerfactoModel
+from gfnerf_tpu_torch.pipelines.pipeline import _opt_state_dict, compute_ssim
+from gfnerf_tpu_torch.utils.profiling import span
+
+PORTED_KINDS = ("nerfacto", "semantic-nerfw")
+
+# (step, rays) -> the proposal sampler's uniform draws, one array per level
+# and one for the final resample (ray_samplers.proposal_sample)
+VanillaDraws = Callable[[int, int], List[np.ndarray]]
+
+
+# The settings of the kinds that are not ported, as the JAX package
+# defines them, kept so that config.json round-trips.
+
+@dataclasses.dataclass
+class TensoRFConfig:
+    aabb_scale: float = 1.5
+    resolution: int = 128
+    density_channels: int = 16
+    appearance_channels: int = 24
+    appearance_dim: int = 27
+    num_coarse_samples: int = 128
+    num_fine_samples: int = 64
+    hidden_dim: int = 128
+    background_color: str = "white"
+    l1_mult: float = 5e-4
+    num_images: int = 1
+
+
+@dataclasses.dataclass
+class NeuSConfig:
+    scene_radius: float = 3.0
+    num_samples: int = 96
+    pos_frequencies: int = 6
+    dir_frequencies: int = 4
+    hidden_dim: int = 256
+    geo_feat_dim: int = 64
+    eikonal_mult: float = 0.1
+    background_color: str = "white"
+    num_images: int = 1
+
+
+@dataclasses.dataclass
+class InstantNGPConfig:
+    aabb_scale: float = 1.5
+    grid_resolution: int = 96
+    num_samples: int = 192
+    num_levels: int = 16
+    log2_hashmap_size: int = 19
+    hidden_dim: int = 64
+    geo_feat_dim: int = 15
+    occ_ema_decay: float = 0.95
+    occ_threshold: float = 0.01
+    background_color: str = "white"
+    num_images: int = 1
+
+
+@dataclasses.dataclass
+class NerfplayerConfig:
+    near_plane: float = 0.05
+    far_plane: float = 1000.0
+    temporal_dim: int = 64
+    num_levels: int = 16
+    base_resolution: int = 16
+    desired_resolution: int = 2048
+    level_dim: int = 2
+    log2_hashmap_size: int = 19
+    hidden_dim: int = 64
+    hidden_dim_color: int = 64
+    geo_feat_dim: int = 15
+    appearance_embedding_dim: int = 32
+    num_proposal_samples: Tuple[int, ...] = (256, 96)
+    num_nerf_samples: int = 48
+    prop_temporal_dim: int = 32
+    prop_num_levels: int = 5
+    prop_log2_hashmap_size: int = 17
+    prop_max_res: Tuple[int, ...] = (64, 256)
+    interlevel_loss_mult: float = 1.0
+    distortion_loss_mult: float = 0.002
+    temporal_tv_weight: float = 1.0
+    background_color: str = "last_sample"
+    use_scene_contraction: bool = True
+    num_images: int = 1
+
+
+@dataclasses.dataclass
+class NerfplayerNGPConfig:
+    aabb_scale: float = 1.5
+    grid_resolution: int = 64
+    num_samples: int = 192
+    temporal_dim: int = 64
+    num_levels: int = 16
+    level_dim: int = 2
+    base_resolution: int = 16
+    desired_resolution: int = 1024
+    log2_hashmap_size: int = 19
+    hidden_dim: int = 64
+    geo_feat_dim: int = 15
+    hidden_dim_color: int = 64
+    temporal_tv_weight: float = 1.0
+    background_color: str = "white"
+    occ_threshold: float = 1e-2
+    num_images: int = 1
+
+
+@dataclasses.dataclass
+class VanillaPipelineConfig:
+    model_kind: str = "nerfacto"
+    train_num_rays_per_batch: int = 4096
+    # the JAX package's DynamicBatchPipeline (rays a batch retargeted to a
+    # sample count); only instant-ngp feeds it, so it raises here
+    dynamic_batch: bool = False
+    target_num_samples: int = 1 << 18
+    eval_num_rays_per_chunk: int = 4096
+    lr_init: float = 1e-2
+    lr_final: float = 1e-4
+    max_steps: int = 30000
+    seed: int = 42
+    nerfacto: nerfacto_mod.NerfactoConfig = dataclasses.field(
+        default_factory=nerfacto_mod.NerfactoConfig)
+    vanilla: nerfacto_mod.VanillaNerfConfig = dataclasses.field(
+        default_factory=nerfacto_mod.VanillaNerfConfig)
+    mipnerf: nerfacto_mod.MipNerfConfig = dataclasses.field(
+        default_factory=nerfacto_mod.MipNerfConfig)
+    tensorf: TensoRFConfig = dataclasses.field(default_factory=TensoRFConfig)
+    neus: NeuSConfig = dataclasses.field(default_factory=NeuSConfig)
+    instant_ngp: InstantNGPConfig = dataclasses.field(
+        default_factory=InstantNGPConfig)
+    nerfplayer: NerfplayerConfig = dataclasses.field(
+        default_factory=NerfplayerConfig)
+    nerfplayer_ngp: NerfplayerNGPConfig = dataclasses.field(
+        default_factory=NerfplayerNGPConfig)
+    semantic_nerfw: snw.SemanticNerfWConfig = dataclasses.field(
+        default_factory=snw.SemanticNerfWConfig)
+
+    def build(self, dataparser, base_dir, device="cuda",
+              draws: Optional[VanillaDraws] = None, checkpoint=None):
+        """The pipeline (``checkpoint`` is the Trainer's: the caller loads
+        it with ``load_checkpoint_state``)."""
+        return VanillaPipeline(self, dataparser, base_dir, device, draws)
+
+
+@dataclasses.dataclass
+class VanillaState:
+    """The model (updated in place by each step), the optimizer's state
+    and the count of steps taken."""
+
+    model: NerfactoModel
+    opt_state: OptState
+    step: int = 0
+
+
+class VanillaPipeline:
+    def __init__(self, config: VanillaPipelineConfig, dataparser,
+                 base_dir: Path, device="cuda",
+                 draws: Optional[VanillaDraws] = None):
+        """``draws``: the proposal sampler's uniform draws of each step
+        (tests inject the JAX package's); None draws them from a
+        ``torch.Generator`` seeded with ``config.seed``."""
+        kind = config.model_kind
+        if kind not in PORTED_KINDS:
+            raise NotImplementedError(
+                f"model kind {kind!r} is not ported; ported: "
+                f"{list(PORTED_KINDS)}")
+        if config.dynamic_batch:
+            raise NotImplementedError(
+                "dynamic_batch is not ported (only instant-ngp feeds it)")
+        self.config = config
+        self.base_dir = Path(base_dir)
+        self.device = torch.device(device)
+        self.draws = draws
+        self.train_outputs = dataparser.get_dataparser_outputs("train")
+        self.eval_outputs = dataparser.get_dataparser_outputs("val")
+        self.train_dataset = InputDataset(self.train_outputs)
+        self.eval_dataset = InputDataset(self.eval_outputs)
+        self.cache = ImageCache(self.train_dataset, seed=config.seed)
+        self.pixel_sampler = PixelSampler(config.train_num_rays_per_batch,
+                                          seed=config.seed)
+        self.cameras_dev = self.train_outputs.cameras.to_device(self.device)
+        self.eval_cameras_dev = self.eval_outputs.cameras.to_device(
+            self.device)
+        n_images = len(self.train_outputs.cameras)
+        self.semantic = kind == "semantic-nerfw"
+        if self.semantic:
+            mcfg = dataclasses.replace(config.semantic_nerfw,
+                                       num_images=n_images)
+            params, statics = snw.init_semantic_nerfw_params(mcfg,
+                                                             config.seed)
+        else:
+            mcfg = dataclasses.replace(config.nerfacto, num_images=n_images)
+            params, statics = nerfacto_mod.init_nerfacto_params(mcfg,
+                                                                config.seed)
+        self.model_cfg = mcfg
+        self.model = NerfactoModel(mcfg, params, statics, self.device)
+        self.tx = PerGroupAdam(
+            OptimizersConfig(adam_eps=1e-15),
+            schedules={"all": optax_exponential_decay(
+                config.lr_init, config.max_steps,
+                config.lr_final / config.lr_init)},
+            skip_nonfinite=False)
+        self.state = VanillaState(model=self.model,
+                                  opt_state=self.tx.init(self._params()))
+        self.generator = torch.Generator(device=self.device).manual_seed(
+            config.seed)
+
+    def _params(self) -> dict:
+        return {"all": list(self.model.parameters())}
+
+    # --------------------------------------------------------------- train ----
+
+    def _device_batch(self, batch: dict) -> dict:
+        """The batch on the device in one host-to-device copy (indices and
+        labels as float32, exact below 2^24)."""
+        cols = [batch["camera_indices"][:, None].astype(np.float32),
+                batch["rel_camera_indices"][:, None].astype(np.float32),
+                batch["coords"], batch["image"]]
+        if "semantics" in batch:
+            cols.append(batch["semantics"][:, None].astype(np.float32))
+        dev = torch.from_numpy(np.concatenate(cols, axis=1)).to(self.device)
+        out = {"camera_indices": dev[:, 0].long(),
+               "rel_camera_indices": dev[:, 1].long(),
+               "coords": dev[:, 2:4], "image": dev[:, 4:7]}
+        if "semantics" in batch:
+            out["semantics"] = dev[:, 7].long()
+        return out
+
+    def _step_draws(self, step: int, r: int) -> List[torch.Tensor]:
+        """The proposal sampler's uniform draws for this step: injected, or
+        from the generator, (R, n + 1) for each level's n samples and the
+        final resample's."""
+        if self.draws is not None:
+            return [torch.as_tensor(np.asarray(x), device=self.device)
+                    for x in self.draws(step, r)]
+        counts = [*self.model_cfg.num_proposal_samples,
+                  self.model_cfg.num_nerf_samples]
+        return [torch.rand((r, n + 1), generator=self.generator,
+                           device=self.device) for n in counts]
+
+    def loss(self, batch: dict, draws=None):
+        """(total, (losses, outputs)) of the model's loss on a device
+        batch."""
+        with span("rays"):
+            rays = generate_rays_multi(self.cameras_dev,
+                                       batch["camera_indices"],
+                                       batch["coords"])
+        args = (self.model, rays["origins"], rays["directions"],
+                batch["rel_camera_indices"], batch["image"])
+        if self.semantic:
+            return snw.semantic_nerfw_loss(*args, batch.get("semantics"),
+                                           draws=draws)
+        return nerfacto_mod.nerfacto_loss(*args, draws=draws)
+
+    def get_train_loss_dict(self, step: int) -> dict:
+        """One step; the metrics come back in one device-to-host copy."""
+        self.cache.step()
+        batch = self._device_batch(self.pixel_sampler.sample(self.cache))
+        draws = self._step_draws(step, batch["image"].shape[0])
+        self.model.zero_grad(set_to_none=True)
+        total, (losses, out) = self.loss(batch, draws)
+        with span("backward"):
+            total.backward()
+        with span("optimizer"):
+            params = self._params()
+            updates, opt_state = self.tx.update(
+                {"all": [p.grad for p in params["all"]]},
+                self.state.opt_state, params)
+            apply_updates(params, updates)
+        self.state = VanillaState(model=self.model, opt_state=opt_state,
+                                  step=self.state.step + 1)
+        with torch.no_grad():
+            mse = torch.mean((out["rgb"] - batch["image"]) ** 2)
+            metrics = {"loss": total.detach(),
+                       **{k: v.detach() for k, v in losses.items()},
+                       "psnr": -10.0 * torch.log10(mse + 1e-12)}
+            host = torch.stack([v.float() for v in metrics.values()]).cpu()
+        return {k: float(v) for k, v in zip(metrics, host.numpy())}
+
+    def after_train_iteration(self, step: int):
+        pass
+
+    # ---------------------------------------------------------------- eval ----
+
+    @torch.no_grad()
+    def render_rays(self, rays_o: torch.Tensor, rays_d: torch.Tensor,
+                    rel_camera_index: int = 0) -> dict:
+        """rgb, accumulation and depth of a chunk of rays (no jitter; the
+        appearance of image ``rel_camera_index``, 0 as in the JAX
+        package)."""
+        rel = torch.full((rays_o.shape[0],), int(rel_camera_index),
+                         dtype=torch.int64, device=rays_o.device)
+        out = nerfacto_mod.nerfacto_forward(self.model, rays_o, rays_d, rel)
+        return {k: out[k] for k in ("rgb", "accumulation", "depth")}
+
+    def render_camera(self, cameras_host, cameras_dev, camera_idx: int,
+                      step: int = 0, downscale: int = 1,
+                      rel_camera_index: Optional[int] = None,
+                      stage: Optional[int] = None,
+                      force_split_idx: Optional[int] = None) -> dict:
+        """Chunked full-image render of one camera (numpy (h, w, C)
+        outputs).  ``stage`` and ``force_split_idx`` (GF-NeRF's block
+        routing) raise."""
+        if stage is not None or force_split_idx is not None:
+            raise ValueError("block routing is a GF-NeRF pipeline option; "
+                             "a vanilla pipeline has one model")
+        h = int(cameras_host.height[camera_idx]) // downscale
+        w = int(cameras_host.width[camera_idx]) // downscale
+        coords = torch.as_tensor(get_image_coords(h, w) * downscale,
+                                 device=self.device)
+        rays = generate_rays(cameras_dev, camera_idx, coords)
+        o = rays["origins"].reshape(-1, 3)
+        d = rays["directions"].reshape(-1, 3)
+        chunk = self.config.eval_num_rays_per_chunk
+        rel = 0 if rel_camera_index is None else rel_camera_index
+        outs = [self.render_rays(o[s:s + chunk], d[s:s + chunk], rel)
+                for s in range(0, o.shape[0], chunk)]
+        return {k: torch.cat([x[k] for x in outs]).reshape(h, w, -1)
+                .cpu().numpy() for k in outs[0]}
+
+    def enable_early_term(self, eps: Optional[float] = None) -> bool:
+        raise ValueError("early-termination rendering is a GF-NeRF pipeline "
+                         "option; render a vanilla pipeline without "
+                         "--early-term")
+
+    def get_eval_image_metrics_and_images(self, step: int, idx: int = 0):
+        """PSNR and SSIM of one eval image, its render's rays/s and fps;
+        images: gt | prediction side by side, and the depth."""
+        idx = idx % len(self.eval_dataset)
+        gt = self.eval_dataset.get_image(idx)
+        t0 = time.perf_counter()
+        out = self.render_camera(self.eval_outputs.cameras,
+                                 self.eval_cameras_dev, idx, step)
+        dt = time.perf_counter() - t0
+        pred = out["rgb"]
+        mse = float(np.mean((pred - gt) ** 2))
+        metrics = {"psnr": -10.0 * np.log10(mse + 1e-12),
+                   "ssim": compute_ssim(pred, gt),
+                   "num_rays_per_sec": gt.shape[0] * gt.shape[1] / dt,
+                   "fps": 1.0 / dt}
+        images = {"img": np.concatenate([gt, pred], axis=1),
+                  "depth": out["depth"]}
+        return metrics, images
+
+    def get_average_eval_image_metrics(self, step: int) -> dict:
+        ms = [self.get_eval_image_metrics_and_images(step, i)[0]
+              for i in range(len(self.eval_dataset))]
+        return {k: float(np.mean([m[k] for m in ms])) for k in ms[0]}
+
+    # ------------------------------------------------------- checkpointing ----
+
+    def save_checkpoint_state(self, ckpt_dir, step: int):
+        ckpt_dir = Path(ckpt_dir)
+        torch.save({"model": self.model.state_dict(),
+                    "opt_state": _opt_state_dict(self.state.opt_state),
+                    "step": self.state.step,
+                    "generator": self.generator.get_state()},
+                   ckpt_dir / "state.pt")
+        (ckpt_dir / "meta.json").write_text(json.dumps(
+            {"step": step, "sample_tmp_dir": "",
+             "pixel_sampler": self.pixel_sampler.rng.bit_generator.state,
+             "cache_count": self.cache._count}))
+
+    def load_checkpoint_state(self, ckpt_dir) -> int:
+        """Restore what ``save_checkpoint_state`` wrote (the model's
+        tensors in place).  Returns the checkpoint's step."""
+        ckpt_dir = Path(ckpt_dir)
+        saved = torch.load(ckpt_dir / "state.pt", map_location=self.device,
+                           weights_only=True)
+        self.model.load_state_dict(saved["model"])
+        self.state = VanillaState(model=self.model,
+                                  opt_state=OptState(**saved["opt_state"]),
+                                  step=saved["step"])
+        self.generator.set_state(saved["generator"].cpu())
+        meta = json.loads((ckpt_dir / "meta.json").read_text())
+        self.pixel_sampler.rng.bit_generator.state = meta["pixel_sampler"]
+        self.cache._count = meta["cache_count"]
+        return int(meta["step"])

@@ -187,7 +187,9 @@ def main(argv=None):
         cams = cameras_from_camera_path(
             json.loads(args.camera_path_filename.read_text()))
     else:
-        eval_cams = pipeline.datamanager.eval_dataparser_outputs.cameras
+        eval_cams = (pipeline.datamanager.eval_dataparser_outputs.cameras
+                     if hasattr(pipeline, "datamanager")
+                     else pipeline.eval_outputs.cameras)
         cams = (interpolate_cameras(eval_cams) if args.traj == "interpolate"
                 else spiral_cameras(eval_cams, steps=args.spiral_steps,
                                     radius=args.spiral_radius))

@@ -10,9 +10,11 @@ multi-host ones):
 
 Extra arguments are dotted config overrides, e.g.
 ``pipeline.model.n_blocks=4``.  Methods: gf-nerf (the paper's: 1024 march
-slots, a budget of 256 field samples a ray), gf-nerf-perf and
-gf-nerf-tiny.  ``python -m gfnerf_tpu_torch.eval`` and ``python -m
-gfnerf_tpu_torch.render`` read a run's ``config.json`` and checkpoint.
+slots, a budget of 256 field samples a ray), gf-nerf-perf, gf-nerf-prop,
+gf-nerf-tiny, and on the vanilla pipeline nerfacto and semantic-nerfw
+(whose labels are the npz's ``road_masks``).  ``python -m
+gfnerf_tpu_torch.eval`` and ``python -m gfnerf_tpu_torch.render`` read a
+run's ``config.json`` and checkpoint.
 """
 
 from __future__ import annotations

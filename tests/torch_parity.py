@@ -321,12 +321,19 @@ def port_train_step(field, toct, batch, mkw, noise, perms, stage=0,
 
 
 def jax_groups(tree):
-    """A JAX FieldParams-shaped tree as the port's group lists."""
+    """A JAX FieldParams-shaped tree as the port's group lists (the
+    semantics heads and the camera tangents where the tree has them)."""
+    semantics = [] if tree.mlp_semantics is None else [
+        *tree.mlp_semantics["w"], *tree.mlp_semantics["b"],
+        *tree.semantics_head["w"], *tree.semantics_head["b"]]
     probe = [] if tree.prop_feat is None else [
         tree.prop_feat, *tree.prop_net["w"], *tree.prop_net["b"]]
-    return {
+    groups = {
         "fields": [*tree.base_net["w"], *tree.base_net["b"],
                    *tree.mlp_head["w"], *tree.mlp_head["b"],
-                   tree.appearance_embedding, *probe],
+                   tree.appearance_embedding, *semantics, *probe],
         "base_encoding_init": [tree.global_feat],
     }
+    if tree.camera_adjustment is not None:
+        groups["camera_opt"] = [tree.camera_adjustment]
+    return groups
