@@ -164,17 +164,36 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
                 the init steps, bit-unchanged by the focal ones; one step
                 against the plain pairs (K2 given the semantics' weights
                 cotangent), the tangents' gradient included.
+ 16. instant- — with the counters reset: instant-ngp at its full width
+     ngp        through the Trainer (4096 rays, 192 samples, 16 x 2 of
+                2^19, grid 96) on a Blender scene written to disk as RGBA
+                PNGs with a transparent sky and read back by the blender
+                parser, NGP_STEPS steps: per step H4 once (786,432 samples)
+                and H5 once, H4 once more at every 16th (the occupancy
+                update, 884,736 points), no other kernel; losses finite,
+                the rgb loss falling, every tensor changed, the grid off
+                all ones and keeping fewer than all samples; the eval PSNR
+                above the mean image's; the checkpoint reloads to the same
+                grid and eval image; one step and one occupancy update
+                against the plain pairs; H4 at both shapes and H5 against
+                their plain versions (H5 also against index_add_); s/step,
+                rays/s, peak memory, a profiled step, the occupancy
+                update's time; eval and render on the checkpoint; a few
+                steps with dynamic_batch and on an instant-ngp-format scene
+                with distortion (its rays on the card against the CPU's);
+                PNG round trips of every colour type, depth and filter.
 Each phase ends with a [clock] line.  Before the last line come a JSON
 object with each kernel's launches, error, times and bound (K1, K2, H1 and
 H2 also at the prop phase's shapes, under "prop"; H4 and H5 at nerfacto's
-three, under "nerfacto"), and the card's name and power limit; the last
-line is
+three, under "nerfacto", and at instant-ngp's, under "instant_ngp"), and
+the card's name and power limit; the last line is
 {"ok": true, "device": {...}}.
 
 Run from the repository root:  python3 chip_smoke.py
 To work on one phase of the pipeline family (pipeline, gfnerf, prop,
-nerfacto, semantics; the last two read the pipeline phase's scene and
-checkpoint):  python3 chip_smoke.py --only pipeline,nerfacto,semantics
+nerfacto, semantics, instant-ngp; nerfacto and semantics read the pipeline
+phase's scene and checkpoint):
+python3 chip_smoke.py --only pipeline,nerfacto,semantics
 """
 
 from __future__ import annotations
@@ -4429,6 +4448,586 @@ def phase_semantics(tmp: Path):
     return launches, stats
 
 
+# instant-ngp on a Blender scene read from disk: 1500 steps, so that the
+# grid's empty cells fall below the threshold (0.95^k < 0.01 needs k >= 90
+# EMA updates, one every 16 steps)
+NGP_STEPS = 1500
+NGP_WARMUP = 5
+NGP_OVERRIDES = {
+    "steps_per_eval_image": str(NGP_STEPS),
+    "steps_per_save": str(NGP_STEPS),
+    "steps_per_log": "250",
+}
+# the scene: RGBA PNGs with a transparent sky (train views, val views,
+# width and height, focal length: a 58-degree field of view)
+NGP_SCENE = (24, 4, (200, 200), 180.0)
+# (rays, samples, levels, log2 entries, hidden, geo features, grid, EMA
+# decay, threshold, aabb_scale, background)
+INSTANT_NGP_WIDTH = (4096, 192, 16, 19, 64, 15, 96, 0.95, 0.01, 1.5, "white")
+NGP_DYNAMIC_STEPS = 4
+NGP_DISTORTED_STEPS = 4
+
+
+class record_ngp_encodes:
+    """Within the block, the arguments of every hash_encode call that
+    instant-ngp's model makes, in order (points and anchors cloned)."""
+
+    def __enter__(self):
+        from gfnerf_tpu_torch.models import instant_ngp as ngp_mod
+
+        self.mod, self.saved, self.calls = ngp_mod, ngp_mod.hash_encode, []
+
+        def rec(table, prim, bias, pts, anc, *a, **kw):
+            self.calls.append((table.detach(), prim, bias,
+                               pts.detach().clone(), anc.clone()))
+            return self.saved(table, prim, bias, pts, anc, *a, **kw)
+
+        ngp_mod.hash_encode = rec
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.hash_encode = self.saved
+        return False
+
+
+def ngp_step_pair(p, batch, draws) -> dict:
+    """instant-ngp's loss and backward from two copies of the pipeline's
+    model on one batch and its draws, through H4/H5 and through the plain
+    pairs (no kernel may launch in the plain one): the loss to
+    TRAIN_LOSS_RTOL, the table's gradient to NERFACTO_TABLE_GRAD_TOL of its
+    largest, the MLPs' to TRAIN_GRAD_TOL of their largest; then the
+    occupancy update from each copy with the same jitter, equal bit for
+    bit (H4 equals its plain version).  Returns the errors."""
+    import copy
+
+    import torch
+
+    from gfnerf_tpu_torch.fields.hash_encoding import plain_hash_encode
+    from gfnerf_tpu_torch.models import instant_ngp as ngp_mod
+
+    gen = torch.Generator(device=p.device).manual_seed(11)
+    jitter = ngp_mod.occupancy_jitter(p.model_cfg, gen, p.device)
+    runs, model0, encode = {}, p.model, ngp_mod.hash_encode
+    for kind in ("kernels", "plain"):
+        p.model = copy.deepcopy(model0)
+        before = launch_counts()
+        if kind == "plain":
+            ngp_mod.hash_encode = plain_hash_encode
+        try:
+            total, _ = p.loss(batch, draws)
+            total.backward()
+            ngp_mod.update_occupancy(p.model, jitter)
+            torch.cuda.synchronize()
+            runs[kind] = (total.item(), p.model)
+        finally:
+            ngp_mod.hash_encode = encode
+            p.model = model0
+        if kind == "plain" and launch_counts() != before:
+            raise AssertionError("instant-ngp: the plain step launched "
+                                 "kernels")
+    (lk, mk), (lp, mp) = runs["kernels"], runs["plain"]
+    rel = abs(lk - lp) / abs(lp)
+    out = {"loss": (lk, lp, rel)}
+    if not rel <= TRAIN_LOSS_RTOL:
+        raise AssertionError(f"instant-ngp step loss: kernels {lk} vs plain "
+                             f"{lp}")
+    scale = float(mp.feat.grad.abs().max())
+    err = float((mk.feat.grad - mp.feat.grad).abs().max())
+    out["table"] = (err, scale)
+    if not (scale > 0 and err <= NERFACTO_TABLE_GRAD_TOL * scale):
+        raise AssertionError(f"instant-ngp table gradient: kernels vs plain "
+                             f"{err} of {scale}")
+    mlps = [(a, b) for (n, a), b in zip(mk.named_parameters(),
+                                        mp.parameters()) if n != "feat"]
+    scale = max(float(b.grad.abs().max()) for _, b in mlps)
+    err = max(float((a.grad - b.grad).abs().max()) for a, b in mlps)
+    out["mlps"] = (err, scale)
+    if not err <= TRAIN_GRAD_TOL * scale:
+        raise AssertionError(f"instant-ngp MLP gradients: kernels vs plain "
+                             f"{err} of {scale}")
+    if not torch.equal(mk.occ, mp.occ):
+        raise AssertionError("instant-ngp: the occupancy update through H4 "
+                             "differs from the plain one")
+    log(f"[instant-ngp] one step, kernels vs plain: loss {lk:.7f} vs "
+        f"{lp:.7f} (rel {rel:.3g}, tol {TRAIN_LOSS_RTOL}); gradients (max "
+        f"abs err, largest): table {out['table']}, MLPs {out['mlps']}; the "
+        f"occupancy update equal bit for bit")
+    del runs, mk, mp
+    torch.cuda.empty_cache()
+    return out
+
+
+def png_round_trips(tmp: Path) -> int:
+    """Every PNG colour type and bit depth under every filter type through
+    write_png and read_png (this machine has no imageio to read them
+    with): grey at 1, 2, 4, 8, 16 bits, palette at 1, 2, 4, 8 with and
+    without tRNS, grey-alpha, RGB and RGBA at 8 and 16; a file split into
+    several IDAT chunks.  Returns the files checked."""
+    import struct
+    import zlib
+
+    import numpy as np
+
+    from gfnerf_tpu_torch.utils.image_io import png_size, read_png, write_png
+
+    rng = np.random.default_rng(21)
+    h, w = 13, 29
+    n = 0
+    for ftype in (0, 1, 2, 3, 4, [y % 5 for y in range(h)]):
+        cases = []
+        for depth in (1, 2, 4, 8):
+            idx = rng.integers(0, 1 << depth, (h, w)).astype(np.uint8)
+            want = (idx.astype(np.uint16) * 255 // ((1 << depth) - 1)
+                    ).astype(np.uint8)
+            cases.append((f"grey{depth}", idx, dict(bit_depth=depth), want))
+            for cols in (3, 4):
+                pal = rng.integers(0, 256, (1 << depth, cols)).astype(
+                    np.uint8)
+                cases.append((f"palette{depth}x{cols}", idx,
+                              dict(palette=pal, bit_depth=depth), pal[idx]))
+        for dtype in (np.uint8, np.uint16):
+            for c in (1, 2, 3, 4):
+                img = rng.integers(0, np.iinfo(dtype).max + 1, (h, w, c),
+                                   dtype=dtype)
+                img = img[..., 0] if c == 1 else img
+                cases.append((f"{c}ch{dtype.__name__}", img, {}, img))
+        for name, img, kw, want in cases:
+            path = tmp / f"rt_{name}.png"
+            write_png(path, img, filter_type=ftype, **kw)
+            got = read_png(path)
+            if got.dtype != want.dtype or not np.array_equal(got, want):
+                raise AssertionError(f"PNG round trip {name} filter {ftype}")
+            if png_size(path) != (w, h):
+                raise AssertionError(f"png_size {name}")
+            n += 1
+    # one image's stream split over several IDAT chunks
+    big = rng.integers(0, 256, (300, 400, 3), dtype=np.uint8)
+    write_png(tmp / "split.png", big, filter_type=4)
+    data = (tmp / "split.png").read_bytes()
+    pos, chunks = 8, []
+    while pos < len(data):
+        (k,) = struct.unpack(">I", data[pos:pos + 4])
+        chunks.append((data[pos + 4:pos + 8], data[pos + 8:pos + 8 + k]))
+        pos += 12 + k
+    idat = b"".join(b for t, b in chunks if t == b"IDAT")
+    parts = [idat[i:i + 8192] for i in range(0, len(idat), 8192)]
+
+    def chunk(kind, body):
+        return (struct.pack(">I", len(body)) + kind + body
+                + struct.pack(">I", zlib.crc32(kind + body) & 0xFFFFFFFF))
+
+    (tmp / "split.png").write_bytes(
+        data[:8] + chunk(b"IHDR", chunks[0][1])
+        + b"".join(chunk(b"IDAT", q) for q in parts) + chunk(b"IEND", b""))
+    if not np.array_equal(read_png(tmp / "split.png"), big):
+        raise AssertionError(f"PNG of {len(parts)} IDAT chunks")
+    return n + 1
+
+
+def distorted_ngp_scene(scene: Path, dst: Path) -> Path:
+    """An instant-ngp-format scene (one transforms.json with top-level
+    intrinsics, k1, k2 and p1, p2) over the Blender scene's train PNGs."""
+    import numpy as np
+
+    meta = json.loads((scene / "transforms_train.json").read_text())
+    dst.mkdir(exist_ok=True)
+    frames = [{"file_path": str((scene / fr["file_path"]).resolve())
+               + ".png", "transform_matrix": fr["transform_matrix"]}
+              for fr in meta["frames"]]
+    w, h = NGP_SCENE[2]
+    fl = 0.5 * w / np.tan(0.5 * meta["camera_angle_x"])
+    (dst / "transforms.json").write_text(json.dumps({
+        "fl_x": fl, "fl_y": fl, "cx": w / 2.0, "cy": h / 2.0,
+        "k1": 0.02, "k2": -0.005, "p1": 0.001, "p2": -0.0005,
+        "aabb_scale": 4, "frames": frames}))
+    return dst
+
+
+def phase_instant_ngp(tmp: Path):
+    """instant-ngp through the Trainer at its full width
+    (INSTANT_NGP_WIDTH) on a Blender scene written to disk as RGBA PNGs
+    (NGP_SCENE, the sky transparent) and read back by the blender parser,
+    counted: every step calls H4 once (the field at 4096 x 192 = 786,432
+    samples) and H5 once, and the steps at which the grid is updated (every
+    16th) call H4 once more (96^3 = 884,736 jittered points, forward only);
+    no other kernel.  Checked: finite losses, the rgb loss falling, every
+    tensor changed, the grid off all ones and the share of samples it
+    keeps below 1 at the end; the eval PSNR above the mean image's; the
+    checkpoint reloads to the same eval image, grid included.  Then from
+    the trained model: one step against the plain pairs; H4 at both shapes
+    and H5 at the train shape against their plain versions (H5 also
+    against index_add_); s/step, rays/s, peak memory; one profiled step
+    and the occupancy update's time; the eval and render entry points on
+    the checkpoint; NGP_DYNAMIC_STEPS steps with dynamic_batch (the batch
+    moves to a power of two at or below 4096); NGP_DISTORTED_STEPS steps
+    on an instant-ngp-format scene with distortion, its undistorted rays
+    against the same function on the CPU; PNG round trips of every colour
+    type, bit depth and filter."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from gfnerf_tpu_torch import eval as eval_entry
+    from gfnerf_tpu_torch import render as render_entry
+    from gfnerf_tpu_torch.cameras.cameras import generate_rays_multi
+    from gfnerf_tpu_torch.configs.config_io import apply_override
+    from gfnerf_tpu_torch.configs.method_configs import get_method
+    from gfnerf_tpu_torch.data.dataparsers import build_dataparser
+    from gfnerf_tpu_torch.data.pixel_samplers import (PixelSampler,
+                                                      collate_batch)
+    from gfnerf_tpu_torch.engine.trainer import Trainer
+    from gfnerf_tpu_torch.fields.hash_encoding import (encode_launches,
+                                                       hash_encode,
+                                                       table_grad_launches)
+    from gfnerf_tpu_torch.models import instant_ngp as ngp_mod
+    from gfnerf_tpu_torch.utils.eval_utils import eval_setup
+    from gfnerf_tpu_torch.utils.image_io import read_png
+    from gfnerf_tpu_torch.utils.profiling import profile_device
+    from gfnerf_tpu_torch.utils.synthetic import make_blender_fixture
+
+    n_train, n_val, wh, focal = NGP_SCENE
+    t0 = time.perf_counter()
+    scene = make_blender_fixture(tmp / "ngp_scene", n_train, n_val,
+                                 img_wh=wh, rgba=True, focal=focal)
+    scene_s = time.perf_counter() - t0
+    alpha = read_png(scene / "train" / "r_0.png")[..., 3]
+    log(f"[instant-ngp] Blender scene of {n_train} + {n_val} RGBA PNGs at "
+        f"{wh[0]}x{wh[1]} written in {scene_s:.2f}s; view 0's alpha: "
+        f"{float((alpha == 0).mean()):.3f} of the pixels transparent")
+    cfg = get_method("instant-ngp")
+    for key, value in {**NGP_OVERRIDES,
+                       "max_num_iterations": str(NGP_STEPS),
+                       "output_dir": str(tmp / "ngp_out")}.items():
+        apply_override(cfg, key, value)
+    cfg.data = scene
+    trainer = Trainer(cfg, build_dataparser("blender", scene))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    trainer.setup()
+    setup_s = time.perf_counter() - t0
+    p = trainer.pipeline
+    mc = p.model_cfg
+    width = (p.config.train_num_rays_per_batch, mc.num_samples,
+             mc.num_levels, mc.log2_hashmap_size, mc.hidden_dim,
+             mc.geo_feat_dim, mc.grid_resolution, mc.occ_ema_decay,
+             mc.occ_threshold, mc.aabb_scale, mc.background_color)
+    log(f"[instant-ngp] setup {setup_s:.2f}s (the images decoded from disk "
+        f"by the port's PNG reader); (rays, samples, levels, log2 entries, "
+        f"hidden, geo, grid, EMA decay, threshold, aabb_scale, background) "
+        f"{width}; {len(p.train_dataset)} train views")
+    if width != INSTANT_NGP_WIDTH:
+        raise AssertionError(f"instant-ngp is not at its full width: {width}")
+    rays = p.config.train_num_rays_per_batch
+    samples = rays * mc.num_samples
+    start = {n: t.detach().clone() for n, t in p.model.named_parameters()}
+    rec = {"steps": {}}
+    get_loss, eval_image = (p.get_train_loss_dict,
+                            p.get_eval_image_metrics_and_images)
+
+    def counts():
+        return {**launch_counts(), "hash_anchored_fwd_calls":
+                hash_encode.calls,
+                "hash_anchored_bwd_calls": hash_encode.bwd_calls}
+
+    def get_loss_w(step):
+        before = counts()
+        t = time.perf_counter()
+        m = get_loss(step)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t
+        after = counts()
+        rec["steps"][step] = {"s": dt, "counts": {
+            k: after[k] - before[k] for k in after}, **m}
+        return m
+
+    def eval_image_w(step, idx=0):
+        t = time.perf_counter()
+        metrics, images = eval_image(step, idx)
+        rec.setdefault("eval_images", []).append(
+            (step, idx, time.perf_counter() - t, metrics, images))
+        return metrics, images
+
+    p.get_train_loss_dict = get_loss_w
+    p.get_eval_image_metrics_and_images = eval_image_w
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    trainer.train()
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    launches = launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    p.get_train_loss_dict = get_loss
+    p.get_eval_image_metrics_and_images = eval_image
+
+    steps = rec["steps"]
+    if sorted(steps) != list(range(NGP_STEPS)):
+        raise AssertionError(f"instant-ngp: steps run {sorted(steps)}")
+    h4, h5 = encode_launches(mc.num_levels), table_grad_launches(
+        mc.num_levels, 2)
+    for i in range(NGP_STEPS):
+        extra = int(i % ngp_mod.OCC_UPDATE_EVERY == 0)
+        want = {"hash_anchored_fwd": h4 * (1 + extra),
+                "hash_anchored_bwd": h5,
+                "hash_anchored_fwd_calls": 1 + extra,
+                "hash_anchored_bwd_calls": 1}
+        got = steps[i]["counts"]
+        if got != {k: want.get(k, 0) for k in got}:
+            raise AssertionError(f"instant-ngp step {i}: launches {got}, "
+                                 f"expected {want}")
+    log(f"[instant-ngp] launches per step as expected: H4 once ({h4} "
+        f"launches), twice at every {ngp_mod.OCC_UPDATE_EVERY}th step (the "
+        f"occupancy update), H5 once ({h5} launches), no other kernel; in "
+        f"the whole run {launches}")
+    keys = [k for k in steps[0] if k not in ("s", "counts")]
+    hist = {k: [steps[i][k] for i in range(NGP_STEPS)] for k in keys}
+    every = max(NGP_STEPS // 12, 1)
+    log(f"[instant-ngp] metrics every {every} steps: "
+        f"{ {k: [round(v, 5) for v in hist[k][::every]] for k in keys} }")
+    if not all(np.isfinite(v).all() for v in hist.values()):
+        raise AssertionError("instant-ngp: a non-finite loss")
+    rgb = hist["rgb_loss"]
+    if not _mean(rgb[-10:]) < _mean(rgb[:10]):
+        raise AssertionError(f"instant-ngp: the rgb loss did not fall: "
+                             f"{rgb[::every]}")
+    unchanged = [n for n, t in p.model.named_parameters()
+                 if torch.equal(t.detach(), start[n])]
+    if unchanged:
+        raise AssertionError(f"instant-ngp: unchanged parameters {unchanged}")
+    occ = p.model.occ
+    keep_end = hist["num_samples_per_batch"][-1] / samples
+    occ_stats = {"min": float(occ.min()), "max": float(occ.max()),
+                 "ones": int((occ == 1.0).sum()),
+                 "below_threshold": float((occ <= mc.occ_threshold)
+                                          .float().mean()),
+                 "keep_frac_last_step": keep_end}
+    log(f"[instant-ngp] every one of the {len(start)} parameter tensors "
+        f"changed; the grid after {NGP_STEPS} steps: {occ_stats}")
+    if occ_stats["ones"] or not keep_end < 1.0:
+        raise AssertionError(f"instant-ngp: the grid {occ_stats}")
+    step, idx, image_s, metrics, images = rec["eval_images"][-1]
+    gt = p.eval_dataset.get_image(idx)
+    trivial = float(-10.0 * np.log10(np.mean((gt - gt.mean(axis=(0, 1)))
+                                             ** 2)))
+    log(f"[instant-ngp] eval image {idx} at step {step} in {image_s:.3f}s: "
+        f"{json.dumps(metrics)}; mean-image PSNR {trivial:.4f}")
+    if not metrics["psnr"] > trivial:
+        raise AssertionError(f"instant-ngp: eval PSNR {metrics['psnr']} not "
+                             f"above the mean image's {trivial}")
+    ckpt = trainer.checkpoint_dir / f"step-{NGP_STEPS - 1:09d}"
+    if not (ckpt / "state.pt").is_file():
+        raise AssertionError(f"instant-ngp: no checkpoint at {ckpt}")
+    step_s = [steps[i]["s"] for i in range(NGP_WARMUP, NGP_STEPS)]
+    occ_steps = [steps[i]["s"] for i in range(NGP_WARMUP, NGP_STEPS)
+                 if i % ngp_mod.OCC_UPDATE_EVERY == 0]
+    log(f"[instant-ngp] Trainer: {_mean(step_s):.4f} s/step (median "
+        f"{float(np.median(step_s)):.4f}, after {NGP_WARMUP} warm-up steps; "
+        f"the steps with an occupancy update {_mean(occ_steps):.4f}), "
+        f"{rays / _mean(step_s):.1f} rays/s; peak {peak / 2**30:.3f} GiB; "
+        f"the run {train_s:.1f}s")
+
+    # the checkpoint: a pipeline rebuilt from it renders the same eval image
+    config_path = trainer.base_dir / "config.json"
+    t = time.perf_counter()
+    _, loaded = eval_setup(config_path, "blender")
+    lp = loaded.pipeline
+    same_grid = torch.equal(lp.model.occ, p.model.occ)
+    again = lp.get_eval_image_metrics_and_images(step, idx)[1]["img"]
+    load_s = time.perf_counter() - t
+    if not (same_grid and np.array_equal(again, images["img"])):
+        raise AssertionError("instant-ngp: the checkpoint did not restore "
+                             "the grid and the eval image")
+    log(f"[instant-ngp] the checkpoint reloaded in {load_s:.2f}s: the grid "
+        f"equal, the eval image equal bit for bit")
+    del loaded, lp
+    torch.cuda.empty_cache()
+
+    # from the trained model: a step against the plain pairs, the kernels
+    # at the step's and the occupancy update's shapes, a profiled step
+    sampler = PixelSampler(rays, seed=700)
+    batch = p._device_batch(collate_batch(p.cache,
+                                          sampler.sample_indices(p.cache)))
+    gen = torch.Generator(device=p.device).manual_seed(700)
+    draws = [torch.rand((rays, mc.num_samples + 1), generator=gen,
+                        device=p.device)]
+    pair = ngp_step_pair(p, batch, draws)
+    jitter = ngp_mod.occupancy_jitter(mc, gen, p.device)
+    saved_occ = p.model.occ.clone()
+    with torch.no_grad(), record_ngp_encodes() as enc:
+        p.loss(batch, draws)
+        ngp_mod.update_occupancy(p.model, jitter)
+    p.model.occ.copy_(saved_occ)
+    shapes = [(tuple(c[0].shape), c[3].shape[0]) for c in enc.calls]
+    table_shape = (mc.num_levels, 1 << mc.log2_hashmap_size, 2)
+    want_shapes = [(table_shape, samples),
+                   (table_shape, mc.grid_resolution ** 3)]
+    log(f"[instant-ngp] H4's calls (table, points): {shapes}")
+    if shapes != want_shapes:
+        raise AssertionError(f"instant-ngp: encodes at {shapes}, expected "
+                             f"{want_shapes}")
+    kernels = {}
+    for name, (table, prim, bias, pts, anc) in zip(
+            ("train step", "occupancy update"), enc.calls):
+        kernels[name] = time_anchored_at(table, (prim, bias, pts, anc),
+                                         f"instant-ngp {name}")
+    del enc
+    torch.cuda.empty_cache()
+    occ_ms = time_ms(lambda: ngp_mod.update_occupancy(p.model, jitter), n=7)
+    p.model.occ.copy_(saved_occ)
+    log(f"[instant-ngp] the occupancy update (96^3 points, H4 and the base "
+        f"MLP, no graph): {occ_ms:.4f} ms, once every "
+        f"{ngp_mod.OCC_UPDATE_EVERY} steps")
+    times = []
+    for i in range(2):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        p.get_train_loss_dict(NGP_STEPS + 1 + i)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t)
+    prof = profile_device(lambda: p.get_train_loss_dict(NGP_STEPS + 3))
+    prof["step_ms"] = min(times) * 1e3
+    prof["idle_share"] = 1.0 - prof["device_busy_ms"] / prof["step_ms"]
+    spans = {k: round(v, 2) for k, v in prof["stage_device_span_ms"].items()}
+    top = [(k["name"][:60], round(k["device_ms"], 3), k["count"])
+           for k in prof["top_kernels"][:8]]
+    log(f"[instant-ngp] one step, profiled: {prof['step_ms']:.1f} ms on the "
+        f"host clock (the faster of 2), device busy "
+        f"{prof['device_busy_ms']:.2f} ms, idle share "
+        f"{prof['idle_share']:.3f}; stage device spans (ms) {spans}; "
+        f"busiest kernels {top}; host waits {prof['host_waits']}")
+
+    # the entry points on the checkpoint
+    del trainer, p, get_loss, eval_image, batch, draws, images
+    torch.cuda.empty_cache()
+    t = time.perf_counter()
+    eval_entry.main(["--load-config", str(config_path), "--output-path",
+                     str(tmp / "ngp_eval.json")])
+    eval_s = time.perf_counter() - t
+    res = json.loads((tmp / "ngp_eval.json").read_text())["results"]
+    if not all(np.isfinite(v) for v in res.values()):
+        raise AssertionError(f"gfnerf_tpu_torch.eval on instant-ngp: {res}")
+    frames_dir = tmp / "ngp_frames"
+    t = time.perf_counter()
+    render_entry.main(["--load-config", str(config_path), "--traj", "spiral",
+                       "--spiral-steps", "2", "--output-path",
+                       str(frames_dir)])
+    render_s = time.perf_counter() - t
+    frames = sorted(frames_dir.glob("*.png"))
+    if len(frames) != 2 or any(read_png(f).shape != (wh[1], wh[0], 3)
+                               for f in frames):
+        raise AssertionError(f"gfnerf_tpu_torch.render wrote {frames}")
+    log(f"[instant-ngp] python -m gfnerf_tpu_torch.eval on the checkpoint "
+        f"(the blender parser guessed from the scene) in {eval_s:.2f}s: "
+        f"{json.dumps(res)}; .render --traj spiral --spiral-steps 2 in "
+        f"{render_s:.2f}s: {[f.name for f in frames]}")
+
+    def short_run(name, parser, overrides, n_steps):
+        run_cfg = get_method("instant-ngp")
+        for key, value in {"max_num_iterations": str(n_steps),
+                           "steps_per_log": "1", "steps_per_save": "1000",
+                           "steps_per_eval_image": "1000",
+                           "output_dir": str(tmp / name), **overrides
+                           }.items():
+            apply_override(run_cfg, key, value)
+        run_cfg.data = parser.config.data
+        run = Trainer(run_cfg, parser)
+        run.setup()
+        got = []
+        inner = run.pipeline.get_train_loss_dict
+
+        def wrapped(step):
+            m = inner(step)
+            got.append(m)
+            return m
+
+        run.pipeline.get_train_loss_dict = wrapped
+        before = counts()
+        t = time.perf_counter()
+        run.train()
+        torch.cuda.synchronize()
+        after = counts()
+        return run, got, time.perf_counter() - t, {
+            k: after[k] - before[k] for k in after}
+
+    # dynamic_batch: the kept samples retarget the rays a batch
+    run, dyn, dyn_s, dyn_counts = short_run(
+        "ngp_dynamic", build_dataparser("blender", scene),
+        {"pipeline.dynamic_batch": "true"}, NGP_DYNAMIC_STEPS)
+    sizes = [m["num_rays_per_batch"] for m in dyn]
+    log(f"[instant-ngp] dynamic_batch, {NGP_DYNAMIC_STEPS} steps in "
+        f"{dyn_s:.2f}s: rays a batch after each {sizes}, kept samples "
+        f"{[m['num_samples_per_batch'] for m in dyn]} (target "
+        f"{run.pipeline.config.target_num_samples}); launches {dyn_counts}")
+    if not (all(n & (n - 1) == 0 and 256 <= n <= rays for n in sizes)
+            and sizes[0] < rays):
+        raise AssertionError(f"instant-ngp dynamic_batch: {sizes}")
+    del run
+    torch.cuda.empty_cache()
+
+    # an instant-ngp-format scene with distortion: a few steps, and the
+    # undistorted rays on the card against the CPU's
+    ngp_dir = distorted_ngp_scene(scene, tmp / "ngp_distorted")
+    parser = build_dataparser("instant-ngp", ngp_dir)
+    run, dist, dist_s, dist_counts = short_run(
+        "ngp_distorted_out", parser, {}, NGP_DISTORTED_STEPS)
+    host = run.pipeline.train_outputs.cameras
+    rng = np.random.default_rng(5)
+    n_rays = 65536
+    idx = rng.integers(0, len(host), n_rays)
+    coords = np.stack([rng.uniform(0, wh[1], n_rays),
+                       rng.uniform(0, wh[0], n_rays)], -1).astype(np.float32)
+    outs = {}
+    for dev in ("cuda", "cpu"):
+        outs[dev] = generate_rays_multi(
+            host.to_device(dev), torch.as_tensor(idx, device=dev),
+            torch.as_tensor(coords, device=dev))
+    ray_err = max(float((outs["cuda"][k].cpu() - outs["cpu"][k]).abs().max())
+                  for k in ("directions", "origins", "pixel_area"))
+    pinhole = float((outs["cpu"]["directions"] - generate_rays_multi(
+        dataclasses.replace(host, distortion_params=None).to_device("cpu"),
+        torch.as_tensor(idx), torch.as_tensor(coords))["directions"]
+        ).abs().max())
+    log(f"[instant-ngp] instant-ngp-format scene (k1 k2 p1 p2, "
+        f"{len(host)} train views): {NGP_DISTORTED_STEPS} steps in "
+        f"{dist_s:.2f}s, losses {[round(m['loss'], 5) for m in dist]}, "
+        f"launches {dist_counts}; generate_rays_multi on the card vs the "
+        f"CPU over {n_rays} rays: max abs err {ray_err:.3g} (the "
+        f"undistortion moves directions by up to {pinhole:.3g})")
+    if not (ray_err <= 1e-6 and pinhole > 1e-4
+            and all(np.isfinite(m["loss"]) for m in dist)
+            and dist_counts["hash_anchored_bwd_calls"]
+            == NGP_DISTORTED_STEPS):
+        raise AssertionError(f"instant-ngp distorted: {ray_err} {pinhole} "
+                             f"{dist} {dist_counts}")
+    del run
+    torch.cuda.empty_cache()
+    n_png = png_round_trips(tmp)
+    log(f"[instant-ngp] {n_png} PNGs round-tripped through write_png and "
+        f"read_png: every colour type, bit depth and filter type, and one "
+        f"file of several IDAT chunks")
+    launches = {k: launches[k] + dyn_counts[k] + dist_counts[k]
+                for k in launches}
+    stats = {
+        "scene_s": scene_s, "setup_s": setup_s, "train_s": train_s,
+        "s_per_step": _mean(step_s),
+        "median_s_per_step": float(np.median(step_s)),
+        "occupancy_step_s": _mean(occ_steps), "occupancy_update_ms": occ_ms,
+        "rays_per_s": rays / _mean(step_s), "peak_bytes": peak,
+        "eval_image_s": image_s, "eval_psnr": metrics["psnr"],
+        "mean_image_psnr": trivial, "eval_entry": res,
+        "eval_entry_s": eval_s, "render_entry_s": render_s,
+        "grid": occ_stats, "dynamic_batch_sizes": sizes,
+        "distorted_ray_err": ray_err, "png_files": n_png,
+        "losses_every_125_steps": {k: v[::125] for k, v in hist.items()},
+        "step_pair": pair,
+        "profile": {n: prof[n] for n in ("step_ms", "device_busy_ms",
+                                         "idle_share",
+                                         "stage_device_span_ms")},
+    }
+    return launches, stats, kernels
+
+
 def main() -> int:
     if not (REPO / "gfnerf_tpu_torch").is_dir():
         print("chip_smoke: gfnerf_tpu_torch/ not found beside this script",
@@ -4491,7 +5090,19 @@ def main() -> int:
             phase_nerfacto(Path(tmp))
         clock("nerfacto")
         paths["semantics"], stats["semantics"] = phase_semantics(Path(tmp))
-    clock("semantics")
+        clock("semantics")
+        torch.cuda.empty_cache()
+        paths["instant_ngp"], stats["instant_ngp"], ngp = \
+            phase_instant_ngp(Path(tmp))
+    clock("instant-ngp")
+    for name, i in (("hash_anchored_fwd", 0), ("hash_anchored_bwd", 1)):
+        # the occupancy update runs H4 alone: no H5 at its shape
+        on_path = {shape: parts[i] for shape, parts in ngp.items()
+                   if i == 0 or shape == "train step"}
+        report[name]["instant_ngp"] = on_path
+        report[name]["max_abs_err"] = max(
+            report[name]["max_abs_err"],
+            *(part["max_abs_err"] for part in on_path.values()))
     for name, i in (("hash_anchored_fwd", 0), ("hash_anchored_bwd", 1)):
         report[name]["nerfacto"] = {shape: parts[i]
                                     for shape, parts in nerfacto.items()}
@@ -4542,7 +5153,7 @@ def main() -> int:
         log(f"[{path}] {json.dumps(st)}")
     log(json.dumps({"kernels": kernels}))
     log(f"[clock] the whole script {time.perf_counter() - start:.1f}s "
-        f"(274.3-284.0 s before the nerfacto and semantics phases)")
+        f"(243.4 s before the instant-ngp phase)")
     log(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -4553,9 +5164,10 @@ def main() -> int:
 def main_only(names) -> int:
     """``--only pipeline,nerfacto,...``: the device and the build, then the
     named phases of the temp-dir family (pipeline, gfnerf, prop, nerfacto,
-    semantics; the last two need the pipeline phase's scene and
-    checkpoint) in one temp dir, for work on one phase: their lines and
-    stats, no kernels line and no result line."""
+    semantics, instant-ngp; nerfacto and semantics need the pipeline
+    phase's scene and checkpoint, instant-ngp writes its own scene) in one
+    temp dir, for work on one phase: their lines and stats, no kernels
+    line and no result line."""
     if not (REPO / "gfnerf_tpu_torch").is_dir():
         print("chip_smoke: gfnerf_tpu_torch/ not found beside this script",
               file=sys.stderr)
@@ -4564,7 +5176,8 @@ def main_only(names) -> int:
     start = time.perf_counter()
     phases = {"pipeline": phase_pipeline, "gfnerf": phase_gfnerf,
               "prop": phase_prop, "nerfacto": phase_nerfacto,
-              "semantics": phase_semantics}
+              "semantics": phase_semantics,
+              "instant-ngp": phase_instant_ngp}
     unknown = set(names) - set(phases)
     if unknown:
         print(f"chip_smoke: unknown phases {sorted(unknown)}",

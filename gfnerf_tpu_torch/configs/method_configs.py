@@ -6,7 +6,8 @@ whose paths are ported: ``gf-nerf`` (the paper's defaults), ``gf-nerf-tiny``
 channels, bf16 MLPs, 160 march slots) and ``gf-nerf-prop`` (``gf-nerf-perf``
 with proposal-guided resampling: a 256-slot march feeds the probe, whose
 weights resample 64 fine samples a ray), and on the vanilla pipeline
-``nerfacto`` and ``semantic-nerfw`` with the JAX package's settings.  The
+``nerfacto``, ``semantic-nerfw`` and ``instant-ngp`` with the JAX
+package's settings.  The
 JAX package's other methods raise a "not ported" error from
 :func:`get_method`.
 """
@@ -24,7 +25,7 @@ from gfnerf_tpu_torch.pipelines.vanilla_pipeline import VanillaPipelineConfig
 from gfnerf_tpu_torch.sampler.manager import PersSamplerManagerConfig
 
 # the JAX package's registered methods that have no port yet
-NOT_PORTED = ("instant-ngp", "mipnerf", "tensorf", "neus", "vanilla-nerf",
+NOT_PORTED = ("mipnerf", "tensorf", "neus", "vanilla-nerf",
               "nerfplayer-nerfacto", "nerfplayer-ngp")
 
 
@@ -177,6 +178,18 @@ def semantic_nerfw_config() -> TrainerConfig:
     )
 
 
+def instant_ngp_config() -> TrainerConfig:
+    """Instant-NGP: a hash field sampled through an occupancy grid."""
+    return TrainerConfig(
+        method_name="instant-ngp",
+        max_num_iterations=30000,
+        steps_per_eval_image=5000,
+        steps_per_save=2000,
+        pipeline=VanillaPipelineConfig(model_kind="instant-ngp",
+                                       train_num_rays_per_batch=4096),
+    )
+
+
 method_configs: Dict[str, Callable[[], TrainerConfig]] = {
     "gf-nerf": gf_nerf_config,
     "gf-nerf-tiny": gf_nerf_tiny_config,
@@ -184,6 +197,7 @@ method_configs: Dict[str, Callable[[], TrainerConfig]] = {
     "gf-nerf-prop": gf_nerf_prop_config,
     "nerfacto": nerfacto_config,
     "semantic-nerfw": semantic_nerfw_config,
+    "instant-ngp": instant_ngp_config,
 }
 
 def get_method(name: str) -> TrainerConfig:

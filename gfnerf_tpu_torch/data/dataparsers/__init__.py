@@ -1,18 +1,48 @@
-"""Port of ``gfnerf_tpu.data.dataparsers``: the base types and the minimal
-npz parser (the one dataparser whose images need no decoding)."""
+"""Port of ``gfnerf_tpu.data.dataparsers``: the base types and the
+registry of the parsers ported so far (nerfstudio, blender, the minimal
+npz parser and instant-ngp).  The JAX package's other parsers raise "not
+ported"."""
 
 from __future__ import annotations
 
 from pathlib import Path
 
+# the JAX package's registered parsers that have no port yet
+NOT_PORTED = ("dnerf", "scannet", "sdfstudio", "phototourism", "sitcoms3d",
+              "arkitscenes", "nuscenes", "dycheck")
 
-def build_dataparser(name: str, data: Path):
-    """The dataparser ``name`` over the dataset directory ``data``."""
-    if name != "minimal":
-        raise NotImplementedError(
-            f"dataparser {name!r} is not ported (it decodes images from "
-            "disk); use 'minimal'")
+
+def registry():
+    """name -> (ParserClass, ConfigClass) of the ported parsers."""
+    from gfnerf_tpu_torch.data.dataparsers.blender_parser import (
+        BlenderDataParser, BlenderDataParserConfig)
+    from gfnerf_tpu_torch.data.dataparsers.extra_parsers import (
+        InstantNGPDataParser, InstantNGPDataParserConfig)
     from gfnerf_tpu_torch.data.dataparsers.minimal_parser import (
         MinimalDataParser, MinimalDataParserConfig)
+    from gfnerf_tpu_torch.data.dataparsers.nerfstudio_parser import (
+        NerfstudioDataParser, NerfstudioDataParserConfig)
 
-    return MinimalDataParser(MinimalDataParserConfig(data=Path(data)))
+    return {
+        "nerfstudio": (NerfstudioDataParser, NerfstudioDataParserConfig),
+        "blender": (BlenderDataParser, BlenderDataParserConfig),
+        "minimal": (MinimalDataParser, MinimalDataParserConfig),
+        "instant-ngp": (InstantNGPDataParser, InstantNGPDataParserConfig),
+    }
+
+
+def build_dataparser(name: str, data: Path, scale_factor: float = None):
+    """The dataparser ``name`` over the dataset ``data`` (with
+    ``scale_factor`` where its config has one)."""
+    if name in NOT_PORTED:
+        raise NotImplementedError(
+            f"dataparser {name!r} is not ported; ported: {sorted(registry())}")
+    reg = registry()
+    if name not in reg:
+        raise ValueError(
+            f"unknown dataparser {name!r}; available: {sorted(reg)}")
+    parser_cls, cfg_cls = reg[name]
+    cfg = cfg_cls(data=Path(data))
+    if scale_factor is not None and hasattr(cfg, "scale_factor"):
+        cfg.scale_factor = scale_factor
+    return parser_cls(cfg)

@@ -10,7 +10,7 @@ from __future__ import annotations
 
 import dataclasses
 from pathlib import Path
-from typing import Dict, List
+from typing import Dict, List, Optional
 
 import numpy as np
 
@@ -39,6 +39,8 @@ class CamerasHost:
     cy: np.ndarray
     width: np.ndarray
     height: np.ndarray
+    distortion_params: Optional[np.ndarray] = None  # (N, 6)
+    camera_type: int = 0
 
     def __len__(self):
         return len(self.camera_to_worlds)
@@ -48,7 +50,11 @@ class CamerasHost:
             camera_to_worlds=self.camera_to_worlds[idx],
             fx=self.fx[idx], fy=self.fy[idx],
             cx=self.cx[idx], cy=self.cy[idx],
-            width=self.width[idx], height=self.height[idx])
+            width=self.width[idx], height=self.height[idx],
+            distortion_params=(self.distortion_params[idx]
+                               if self.distortion_params is not None
+                               else None),
+            camera_type=self.camera_type)
 
     def intrinsics_matrices(self) -> np.ndarray:
         n = len(self)
@@ -63,7 +69,9 @@ class CamerasHost:
     def to_device(self, device="cuda") -> Cameras:
         return Cameras.from_numpy(self.camera_to_worlds, self.fx, self.fy,
                                   self.cx, self.cy, self.width, self.height,
-                                  device=device)
+                                  device=device,
+                                  distortion_params=self.distortion_params,
+                                  camera_type=self.camera_type)
 
 
 @dataclasses.dataclass
@@ -73,6 +81,9 @@ class DataparserOutputs:
     image_filenames: List[Path]
     cameras: CamerasHost
     scene_box: SceneBox
+    mask_filenames: Optional[List[Path]] = None
+    dataparser_scale: float = 1.0
+    dataparser_transform: Optional[np.ndarray] = None  # (3, 4)
     metadata: Dict = dataclasses.field(default_factory=dict)
 
     def select(self, indices) -> "DataparserOutputs":
@@ -84,13 +95,18 @@ class DataparserOutputs:
             return None if lst is None else [lst[i] for i in indices]
 
         md = dict(self.metadata)
-        for key in ("global_image_indices", "error_map_filenames"):
+        for key in ("depth_filenames", "normal_filenames",
+                    "road_mask_filenames", "all_mask_filenames",
+                    "global_image_indices", "error_map_filenames"):
             if md.get(key) is not None:
                 md[key] = sel_list(md[key])
         return DataparserOutputs(
             image_filenames=sel_list(self.image_filenames),
             cameras=self.cameras[np.asarray(indices)],
             scene_box=self.scene_box,
+            mask_filenames=sel_list(self.mask_filenames),
+            dataparser_scale=self.dataparser_scale,
+            dataparser_transform=self.dataparser_transform,
             metadata=md,
         )
 

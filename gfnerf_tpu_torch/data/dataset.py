@@ -2,12 +2,17 @@
 
 Port of ``gfnerf_tpu/data/dataset.py`` (nerfstudio's ``InputDataset`` and
 ``CacheDataloader``): images come from the dataparser's in-memory
-``images_array``, road masks (the semantic labels) from its
-``road_masks_array``; error maps (``.npy``) from the files the pipeline
-writes at the stage transition.  The cache holds a sampled subset of the
-images, resampled every ``num_times_to_repeat`` batches, and takes live
-error-map writes.  Decoding images from disk (``imageio``/``cv2``) is not
-ported.
+``images_array`` (the minimal parser's npz) or from the image files it
+names, decoded by ``utils/image_io.py`` (PNG on ``zlib``; other formats
+through ``imageio`` where it imports); road masks (the semantic labels)
+from ``road_masks_array`` or from files; depth (``.npy``), all-masks and
+error maps from ``.npy`` or image files.  The cache holds a sampled
+subset of the images, resampled every ``num_times_to_repeat`` batches,
+and takes live error-map writes; an error map of another size is resized
+to the images' (``cv2.INTER_LINEAR``'s rule, ``image_io.resize_linear``).
+
+Unlike the JAX package, which leaves 16-bit images in [0, 65535], the
+port divides them by 65535.
 """
 
 from __future__ import annotations
@@ -19,44 +24,83 @@ from typing import Dict, Optional
 import numpy as np
 
 from gfnerf_tpu_torch.data.dataparsers.base import DataparserOutputs
+from gfnerf_tpu_torch.utils.image_io import (read_image, resize_area,
+                                             resize_linear)
+
+
+def _load_image(path: Path, scale_factor: float = 1.0,
+                alpha_color: Optional[str] = None) -> np.ndarray:
+    """An image file as float32 (H, W, 3) in [0, 1]: uint8 over 255,
+    uint16 over 65535; resized by ``scale_factor`` (area averaging, before
+    the channels are fixed, as the JAX package does); grey repeated to
+    three channels; RGBA composited over ``alpha_color`` (white when it is
+    None or "white", else black)."""
+    img = np.asarray(read_image(path))
+    if img.dtype == np.uint8:
+        img = img.astype(np.float32) / 255.0
+    elif img.dtype == np.uint16:
+        img = img.astype(np.float32) / 65535.0
+    else:
+        img = img.astype(np.float32)
+    if scale_factor != 1.0:
+        img = resize_area(img, scale_factor)
+    if img.ndim == 2:
+        img = np.repeat(img[..., None], 3, axis=-1)
+    if img.shape[-1] == 4:
+        alpha = img[..., 3:4]
+        bg = 1.0 if alpha_color in (None, "white") else 0.0
+        img = img[..., :3] * alpha + bg * (1 - alpha)
+    return img[..., :3]
 
 
 class InputDataset:
-    """Per-image access to pixels and error maps (base_dataset.py:41-182)."""
+    """Per-image access to pixels and side channels
+    (base_dataset.py:41-182)."""
 
-    def __init__(self, dataparser_outputs: DataparserOutputs):
+    def __init__(self, dataparser_outputs: DataparserOutputs,
+                 scale_factor: float = 1.0):
         self.outputs = dataparser_outputs
+        self.scale_factor = scale_factor
         self.cameras = dataparser_outputs.cameras
         self.metadata = dataparser_outputs.metadata
         self._images_array = self.metadata.get("images_array")
+        self.alpha_color = self.metadata.get("alpha_color")
 
     def __len__(self):
         return len(self.outputs.image_filenames)
 
     def get_image(self, idx: int) -> np.ndarray:
-        if self._images_array is None:
-            raise NotImplementedError(
-                "loading images from disk is not ported: the dataparser must "
-                "provide metadata['images_array']")
-        img = self._images_array[idx]
-        if img.dtype == np.uint8:
-            img = img.astype(np.float32) / 255.0
-        return np.asarray(img[..., :3], np.float32)
+        if self._images_array is not None:
+            img = self._images_array[idx]
+            if img.dtype == np.uint8:
+                img = img.astype(np.float32) / 255.0
+            return np.asarray(img[..., :3], np.float32)
+        return _load_image(self.outputs.image_filenames[idx],
+                           self.scale_factor, self.alpha_color)
 
     def get_data(self, idx: int) -> Dict:
-        """Image, its global index, and its road mask and error map, if
-        any."""
+        """Image, its global index, and its side channels where the
+        dataparser names them (base_dataset.py:105-158): depth, road mask,
+        all-mask and error map, each from a ``.npy`` or an image file."""
         data = {"image": self.get_image(idx), "image_idx": idx}
-        gii = self.metadata.get("global_image_indices")
-        data["rel_camera_idx"] = gii[idx] if gii else idx
-        masks = self.metadata.get("road_masks_array")
+        md = self.metadata
+        masks = md.get("road_masks_array")
         if masks is not None:
             data["road_mask"] = np.asarray(masks[idx], np.float32)
-        files = self.metadata.get("error_map_filenames")
-        if files is not None and files[idx] is not None:
+        gii = md.get("global_image_indices")
+        data["rel_camera_idx"] = gii[idx] if gii else idx
+        for key, name in (("depth_filenames", "depth"),
+                          ("road_mask_filenames", "road_mask"),
+                          ("all_mask_filenames", "all_mask"),
+                          ("error_map_filenames", "error_map")):
+            files = md.get(key)
+            if files is None or files[idx] is None:
+                continue
             p = Path(files[idx])
-            if p.exists():
-                data["error_map"] = np.load(p).astype(np.float32).squeeze()
+            if p.suffix == ".npy" and p.exists():
+                data[name] = np.load(p).astype(np.float32).squeeze()
+            elif p.exists():
+                data[name] = _load_image(p, self.scale_factor)
         return data
 
 
@@ -121,9 +165,7 @@ class ImageCache:
                 if em is None:
                     em = np.ones((h, w), np.float32)
                 elif em.shape != (h, w):
-                    raise NotImplementedError(
-                        f"an error map of shape {em.shape} for images of "
-                        f"{(h, w)}: resizing (cv2) is not ported")
+                    em = resize_linear(em, (w, h))
                 ems.append(em.astype(np.float32))
             self.error_maps = np.stack(ems)
 

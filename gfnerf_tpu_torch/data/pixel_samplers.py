@@ -1,12 +1,14 @@
 """Pixel samplers (host-side numpy).
 
 Port of ``gfnerf_tpu/data/pixel_samplers.py``: uniform and patch sampling
-(``PixelSampler``) and the error-guided sampler (``ErrorPixelSampler``, 20%
-of rays by multinomial over the live error map, the rest uniform).  Each
+(``PixelSampler``), the error-guided sampler (``ErrorPixelSampler``, 20%
+of rays by multinomial over the live error map, the rest uniform) and the
+equirectangular sampler (``EquirectangularPixelSampler``, rows drawn by
+sin(theta)).  Each
 produces (R, 3) integer indices (image in the cache, y, x) and the gathered
 pixels (and, where the cache holds road masks, each pixel's label as
 ``semantics``): a fixed-shape host batch for the train step.  The
-equirectangular and class-weighted semantic samplers are not ported.
+class-weighted semantic sampler is not ported.
 """
 
 from __future__ import annotations
@@ -26,6 +28,9 @@ class PixelSampler:
         self.num_rays_per_batch = num_rays_per_batch
         self.patch_size = patch_size
         self.rng = np.random.default_rng(seed)
+
+    def set_num_rays_per_batch(self, n: int):
+        self.num_rays_per_batch = n
 
     def sample_indices(self, cache: ImageCache) -> np.ndarray:
         k, h, w = cache.images.shape[:3]
@@ -57,6 +62,23 @@ class PixelSampler:
 
     def sample(self, cache: ImageCache) -> Dict[str, np.ndarray]:
         return collate_batch(cache, self.sample_indices(cache))
+
+
+class EquirectangularPixelSampler(PixelSampler):
+    """Uniform-on-sphere sampling for equirectangular images (reference
+    pixel_samplers.py sample_method_equirectangular): latitude rows are
+    drawn with density proportional to sin(theta) -- y = acos(1-2u)/pi --
+    so pole pixels are not oversampled; longitudes stay uniform."""
+
+    def sample_indices(self, cache: ImageCache) -> np.ndarray:
+        k, h, w = cache.images.shape[:3]
+        r = self.num_rays_per_batch
+        ki = self.rng.integers(0, k, r)
+        u = self.rng.random(r)
+        yi = np.minimum((np.arccos(1 - 2 * u) / np.pi * h).astype(np.int64),
+                        h - 1)
+        xi = self.rng.integers(0, w, r)
+        return np.stack([ki, yi, xi], axis=-1)
 
 
 class ErrorPixelSampler(PixelSampler):

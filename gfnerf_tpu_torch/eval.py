@@ -6,7 +6,8 @@ checkpoint, renders every eval image and writes one JSON file with the
 mean PSNR, SSIM, LPIPS proxy, rays/s and fps:
 
   python -m gfnerf_tpu_torch.eval --load-config RUN/config.json
-      [--output-path eval_output.json] [--dataparser minimal]
+      [--output-path eval_output.json]
+      [--dataparser {minimal,blender,nerfstudio,instant-ngp}]
 """
 
 from __future__ import annotations
@@ -16,14 +17,18 @@ import json
 import sys
 from pathlib import Path
 
+from gfnerf_tpu_torch.train import DATAPARSERS
+
 
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--load-config", type=Path, required=True)
     parser.add_argument("--output-path", type=Path,
                         default=Path("eval_output.json"))
-    parser.add_argument("--dataparser", default="minimal",
-                        choices=["minimal"])
+    parser.add_argument("--dataparser", default=None,
+                        choices=DATAPARSERS,
+                        help="default: guessed from the run's data "
+                             "directory")
     args = parser.parse_args(argv)
 
     from gfnerf_tpu_torch.utils.eval_utils import eval_setup

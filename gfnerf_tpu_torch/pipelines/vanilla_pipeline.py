@@ -11,12 +11,20 @@ the model, the optimizer state, the step and the draws' generator through
 ``torch.save``, and the pixel sampler's state, so that a resumed run takes
 the batches the uninterrupted one would have taken.
 
-Ported kinds: "nerfacto" and "semantic-nerfw" (``models/nerfacto.py``,
-``models/semantic_nerfw.py``).  The JAX package's other kinds (vanilla-nerf,
-mipnerf, instant-ngp, tensorf, neus, the nerfplayer pair) raise "not
-ported", and so does ``dynamic_batch``, which only instant-ngp feeds;
-their settings are kept so that a run's ``config.json`` round-trips.  The
-GF-NeRF pipeline's own options raise here: early termination
+Ported kinds: "nerfacto", "semantic-nerfw" and "instant-ngp"
+(``models/nerfacto.py``, ``models/semantic_nerfw.py``,
+``models/instant_ngp.py``).  instant-ngp's occupancy grid is updated
+before every 16th step (``step % 16 == 0``), reports the samples the grid
+kept (``num_samples_per_batch``) and, with ``dynamic_batch``, retargets
+the rays a batch so that the kept samples approach
+``target_num_samples``: a power of two within [256, the configured
+batch].  Unlike the JAX package's, the port's checkpoint holds the grid
+(a buffer of the model), so a resumed or evaluated run starts from the
+trained grid and not from all ones.  The JAX package's other kinds
+(vanilla-nerf, mipnerf, tensorf, neus, the nerfplayer pair) raise "not
+ported"; their settings are kept so that a run's ``config.json``
+round-trips.  The GF-NeRF pipeline's own options raise here: early
+termination
 (``enable_early_term``, ``render --early-term``) and block routing
 (``render_camera``'s ``stage``, ``force_split_idx``); its config has no
 error-map or early-termination field, so overriding one raises.
@@ -41,17 +49,21 @@ from gfnerf_tpu_torch.data.pixel_samplers import PixelSampler
 from gfnerf_tpu_torch.engine.optimizers import (OptimizersConfig, OptState,
                                                 PerGroupAdam, apply_updates)
 from gfnerf_tpu_torch.engine.schedulers import optax_exponential_decay
+from gfnerf_tpu_torch.models import instant_ngp as ngp
 from gfnerf_tpu_torch.models import nerfacto as nerfacto_mod
 from gfnerf_tpu_torch.models import semantic_nerfw as snw
-from gfnerf_tpu_torch.models.nerfacto import NerfactoModel
+from gfnerf_tpu_torch.models.instant_ngp import InstantNGPConfig
 from gfnerf_tpu_torch.pipelines.pipeline import _opt_state_dict, compute_ssim
 from gfnerf_tpu_torch.utils.profiling import span
 
-PORTED_KINDS = ("nerfacto", "semantic-nerfw")
+PORTED_KINDS = ("nerfacto", "semantic-nerfw", "instant-ngp")
 
-# (step, rays) -> the proposal sampler's uniform draws, one array per level
-# and one for the final resample (ray_samplers.proposal_sample)
+# (step, rays) -> the step's uniform draws: nerfacto's, one array per
+# proposal level and one for the final resample
+# (ray_samplers.proposal_sample); instant-ngp's, one (R, S + 1) array
 VanillaDraws = Callable[[int, int], List[np.ndarray]]
+# step -> instant-ngp's occupancy jitter (g, g, g, 3)
+OccupancyDraws = Callable[[int], np.ndarray]
 
 
 # The settings of the kinds that are not ported, as the JAX package
@@ -81,21 +93,6 @@ class NeuSConfig:
     hidden_dim: int = 256
     geo_feat_dim: int = 64
     eikonal_mult: float = 0.1
-    background_color: str = "white"
-    num_images: int = 1
-
-
-@dataclasses.dataclass
-class InstantNGPConfig:
-    aabb_scale: float = 1.5
-    grid_resolution: int = 96
-    num_samples: int = 192
-    num_levels: int = 16
-    log2_hashmap_size: int = 19
-    hidden_dim: int = 64
-    geo_feat_dim: int = 15
-    occ_ema_decay: float = 0.95
-    occ_threshold: float = 0.01
     background_color: str = "white"
     num_images: int = 1
 
@@ -152,8 +149,8 @@ class NerfplayerNGPConfig:
 class VanillaPipelineConfig:
     model_kind: str = "nerfacto"
     train_num_rays_per_batch: int = 4096
-    # the JAX package's DynamicBatchPipeline (rays a batch retargeted to a
-    # sample count); only instant-ngp feeds it, so it raises here
+    # the JAX package's DynamicBatchPipeline: rays a batch retargeted to a
+    # sample count (only instant-ngp reports one)
     dynamic_batch: bool = False
     target_num_samples: int = 1 << 18
     eval_num_rays_per_chunk: int = 4096
@@ -179,10 +176,12 @@ class VanillaPipelineConfig:
         default_factory=snw.SemanticNerfWConfig)
 
     def build(self, dataparser, base_dir, device="cuda",
-              draws: Optional[VanillaDraws] = None, checkpoint=None):
+              draws: Optional[VanillaDraws] = None, checkpoint=None,
+              occupancy_draws: Optional[OccupancyDraws] = None):
         """The pipeline (``checkpoint`` is the Trainer's: the caller loads
         it with ``load_checkpoint_state``)."""
-        return VanillaPipeline(self, dataparser, base_dir, device, draws)
+        return VanillaPipeline(self, dataparser, base_dir, device, draws,
+                               occupancy_draws)
 
 
 @dataclasses.dataclass
@@ -190,7 +189,7 @@ class VanillaState:
     """The model (updated in place by each step), the optimizer's state
     and the count of steps taken."""
 
-    model: NerfactoModel
+    model: torch.nn.Module
     opt_state: OptState
     step: int = 0
 
@@ -198,22 +197,22 @@ class VanillaState:
 class VanillaPipeline:
     def __init__(self, config: VanillaPipelineConfig, dataparser,
                  base_dir: Path, device="cuda",
-                 draws: Optional[VanillaDraws] = None):
-        """``draws``: the proposal sampler's uniform draws of each step
-        (tests inject the JAX package's); None draws them from a
-        ``torch.Generator`` seeded with ``config.seed``."""
+                 draws: Optional[VanillaDraws] = None,
+                 occupancy_draws: Optional[OccupancyDraws] = None):
+        """``draws``: each step's uniform draws, ``occupancy_draws``
+        instant-ngp's occupancy jitter (tests inject the JAX package's);
+        None draws them from a ``torch.Generator`` seeded with
+        ``config.seed``."""
         kind = config.model_kind
         if kind not in PORTED_KINDS:
             raise NotImplementedError(
                 f"model kind {kind!r} is not ported; ported: "
                 f"{list(PORTED_KINDS)}")
-        if config.dynamic_batch:
-            raise NotImplementedError(
-                "dynamic_batch is not ported (only instant-ngp feeds it)")
         self.config = config
         self.base_dir = Path(base_dir)
         self.device = torch.device(device)
         self.draws = draws
+        self.occupancy_draws = occupancy_draws
         self.train_outputs = dataparser.get_dataparser_outputs("train")
         self.eval_outputs = dataparser.get_dataparser_outputs("val")
         self.train_dataset = InputDataset(self.train_outputs)
@@ -226,17 +225,27 @@ class VanillaPipeline:
             self.device)
         n_images = len(self.train_outputs.cameras)
         self.semantic = kind == "semantic-nerfw"
-        if self.semantic:
-            mcfg = dataclasses.replace(config.semantic_nerfw,
+        self.ngp = kind == "instant-ngp"
+        if self.ngp:
+            mcfg = dataclasses.replace(config.instant_ngp,
                                        num_images=n_images)
-            params, statics = snw.init_semantic_nerfw_params(mcfg,
-                                                             config.seed)
+            self.model = ngp.InstantNGPModel(
+                mcfg, *ngp.init_instant_ngp_params(mcfg, config.seed),
+                self.device)
         else:
-            mcfg = dataclasses.replace(config.nerfacto, num_images=n_images)
-            params, statics = nerfacto_mod.init_nerfacto_params(mcfg,
-                                                                config.seed)
+            if self.semantic:
+                mcfg = dataclasses.replace(config.semantic_nerfw,
+                                           num_images=n_images)
+                params, statics = snw.init_semantic_nerfw_params(
+                    mcfg, config.seed)
+            else:
+                mcfg = dataclasses.replace(config.nerfacto,
+                                           num_images=n_images)
+                params, statics = nerfacto_mod.init_nerfacto_params(
+                    mcfg, config.seed)
+            self.model = nerfacto_mod.NerfactoModel(mcfg, params, statics,
+                                                    self.device)
         self.model_cfg = mcfg
-        self.model = NerfactoModel(mcfg, params, statics, self.device)
         self.tx = PerGroupAdam(
             OptimizersConfig(adam_eps=1e-15),
             schedules={"all": optax_exponential_decay(
@@ -270,16 +279,27 @@ class VanillaPipeline:
         return out
 
     def _step_draws(self, step: int, r: int) -> List[torch.Tensor]:
-        """The proposal sampler's uniform draws for this step: injected, or
-        from the generator, (R, n + 1) for each level's n samples and the
-        final resample's."""
+        """The step's uniform draws: injected, or from the generator.
+        nerfacto's: (R, n + 1) for each proposal level's n samples and the
+        final resample's; instant-ngp's: (R, S + 1), the stratification."""
         if self.draws is not None:
             return [torch.as_tensor(np.asarray(x), device=self.device)
                     for x in self.draws(step, r)]
-        counts = [*self.model_cfg.num_proposal_samples,
-                  self.model_cfg.num_nerf_samples]
+        counts = ([self.model_cfg.num_samples] if self.ngp
+                  else [*self.model_cfg.num_proposal_samples,
+                        self.model_cfg.num_nerf_samples])
         return [torch.rand((r, n + 1), generator=self.generator,
                            device=self.device) for n in counts]
+
+    def update_occupancy(self, step: int) -> None:
+        """instant-ngp's grid update with this step's jitter (injected, or
+        from the generator)."""
+        jitter = (torch.as_tensor(np.asarray(self.occupancy_draws(step)),
+                                  device=self.device)
+                  if self.occupancy_draws is not None
+                  else ngp.occupancy_jitter(self.model_cfg, self.generator,
+                                            self.device))
+        ngp.update_occupancy(self.model, jitter)
 
     def loss(self, batch: dict, draws=None):
         """(total, (losses, outputs)) of the model's loss on a device
@@ -288,6 +308,10 @@ class VanillaPipeline:
             rays = generate_rays_multi(self.cameras_dev,
                                        batch["camera_indices"],
                                        batch["coords"])
+        if self.ngp:
+            return ngp.instant_ngp_loss(
+                self.model, rays["origins"], rays["directions"],
+                batch["image"], None if draws is None else draws[0])
         args = (self.model, rays["origins"], rays["directions"],
                 batch["rel_camera_indices"], batch["image"])
         if self.semantic:
@@ -296,10 +320,14 @@ class VanillaPipeline:
         return nerfacto_mod.nerfacto_loss(*args, draws=draws)
 
     def get_train_loss_dict(self, step: int) -> dict:
-        """One step; the metrics come back in one device-to-host copy."""
+        """One step; the metrics come back in one device-to-host copy.
+        instant-ngp: the grid is updated first at every 16th step; with
+        ``dynamic_batch`` the next batch's rays are retargeted after."""
         self.cache.step()
         batch = self._device_batch(self.pixel_sampler.sample(self.cache))
         draws = self._step_draws(step, batch["image"].shape[0])
+        if self.ngp and step % ngp.OCC_UPDATE_EVERY == 0:
+            self.update_occupancy(step)
         self.model.zero_grad(set_to_none=True)
         total, (losses, out) = self.loss(batch, draws)
         with span("backward"):
@@ -317,8 +345,28 @@ class VanillaPipeline:
             metrics = {"loss": total.detach(),
                        **{k: v.detach() for k, v in losses.items()},
                        "psnr": -10.0 * torch.log10(mse + 1e-12)}
+            if "keep_frac" in out:
+                metrics["num_samples_per_batch"] = (
+                    out["keep_frac"] * out["weights"].numel())
             host = torch.stack([v.float() for v in metrics.values()]).cpu()
-        return {k: float(v) for k, v in zip(metrics, host.numpy())}
+        metrics = {k: float(v) for k, v in zip(metrics, host.numpy())}
+        if self.config.dynamic_batch and "num_samples_per_batch" in metrics:
+            self._retarget_batch_size(metrics["num_samples_per_batch"])
+            metrics["num_rays_per_batch"] = \
+                self.pixel_sampler.num_rays_per_batch
+        return metrics
+
+    def _retarget_batch_size(self, num_samples: float):
+        """The JAX package's DynamicBatchPipeline rule (reference
+        dynamic_batch.py:72-77): rays scaled by target / kept samples,
+        rounded down to a power of two within [256, the configured
+        batch]."""
+        cur = self.pixel_sampler.num_rays_per_batch
+        want = cur * self.config.target_num_samples / max(num_samples, 1.0)
+        bucket = 1 << max(8, int(np.log2(max(want, 1.0))))
+        bucket = min(bucket, self.config.train_num_rays_per_batch)
+        if bucket != cur:
+            self.pixel_sampler.set_num_rays_per_batch(bucket)
 
     def after_train_iteration(self, step: int):
         pass
@@ -328,9 +376,12 @@ class VanillaPipeline:
     @torch.no_grad()
     def render_rays(self, rays_o: torch.Tensor, rays_d: torch.Tensor,
                     rel_camera_index: int = 0) -> dict:
-        """rgb, accumulation and depth of a chunk of rays (no jitter; the
-        appearance of image ``rel_camera_index``, 0 as in the JAX
-        package)."""
+        """rgb, accumulation and depth of a chunk of rays (no jitter; for
+        nerfacto the appearance of image ``rel_camera_index``, 0 as in the
+        JAX package; instant-ngp through its grid)."""
+        if self.ngp:
+            out = ngp.instant_ngp_forward(self.model, rays_o, rays_d)
+            return {k: out[k] for k in ("rgb", "accumulation", "depth")}
         rel = torch.full((rays_o.shape[0],), int(rel_camera_index),
                          dtype=torch.int64, device=rays_o.device)
         out = nerfacto_mod.nerfacto_forward(self.model, rays_o, rays_d, rel)
@@ -402,6 +453,7 @@ class VanillaPipeline:
         (ckpt_dir / "meta.json").write_text(json.dumps(
             {"step": step, "sample_tmp_dir": "",
              "pixel_sampler": self.pixel_sampler.rng.bit_generator.state,
+             "num_rays_per_batch": self.pixel_sampler.num_rays_per_batch,
              "cache_count": self.cache._count}))
 
     def load_checkpoint_state(self, ckpt_dir) -> int:
@@ -417,5 +469,7 @@ class VanillaPipeline:
         self.generator.set_state(saved["generator"].cpu())
         meta = json.loads((ckpt_dir / "meta.json").read_text())
         self.pixel_sampler.rng.bit_generator.state = meta["pixel_sampler"]
+        self.pixel_sampler.set_num_rays_per_batch(meta.get(
+            "num_rays_per_batch", self.config.train_num_rays_per_batch))
         self.cache._count = meta["cache_count"]
         return int(meta["step"])

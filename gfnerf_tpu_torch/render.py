@@ -5,9 +5,9 @@ RenderTrajectory, render.py:47-365): a camera-path JSON, a trajectory
 interpolated through the eval cameras or a spiral around the first one; an
 optional appearance index per frame (``--embedding-indices``); the
 two-phase early-termination renderer (``--early-term``).  Frames are
-written as PNG files by a small writer on the standard library's ``zlib``
-(the card's machine has neither ``imageio`` nor ``cv2``); video output
-needs ``cv2`` and is not ported.
+written as PNG files by ``utils/image_io.py``'s writer on the standard
+library's ``zlib`` (the card's machine has neither ``imageio`` nor
+``cv2``); video output needs ``cv2`` and is not ported.
 
   python -m gfnerf_tpu_torch.render --load-config RUN/config.json
       [--traj {spiral,interpolate,filename}] [--spiral-steps N]
@@ -21,50 +21,15 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
-import struct
 import sys
-import zlib
 from pathlib import Path
 
 import numpy as np
 
 from gfnerf_tpu_torch.data.dataparsers.base import CamerasHost
-
-
-def write_png(path, rgb: np.ndarray) -> None:
-    """An (H, W, 3) uint8 image as an 8-bit RGB PNG."""
-    rgb = np.ascontiguousarray(rgb, dtype=np.uint8)
-    h, w, c = rgb.shape
-    if c != 3:
-        raise ValueError(f"write_png: (H, W, 3) expected, got {rgb.shape}")
-
-    def chunk(kind: bytes, data: bytes) -> bytes:
-        return (struct.pack(">I", len(data)) + kind + data
-                + struct.pack(">I", zlib.crc32(kind + data) & 0xFFFFFFFF))
-
-    # each row after a filter byte of 0 (none)
-    rows = np.concatenate([np.zeros((h, 1), np.uint8),
-                           rgb.reshape(h, w * 3)], axis=1)
-    Path(path).write_bytes(
-        b"\x89PNG\r\n\x1a\n"
-        + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0))
-        + chunk(b"IDAT", zlib.compress(rows.tobytes(), 6))
-        + chunk(b"IEND", b""))
-
-
-def read_png(path) -> np.ndarray:
-    """An image :func:`write_png` wrote, (H, W, 3) uint8."""
-    data = Path(path).read_bytes()
-    if data[:8] != b"\x89PNG\r\n\x1a\n":
-        raise ValueError(f"{path}: not a PNG")
-    pos, chunks = 8, {}
-    while pos < len(data):
-        (n,) = struct.unpack(">I", data[pos:pos + 4])
-        chunks[data[pos + 4:pos + 8]] = data[pos + 8:pos + 8 + n]
-        pos += 12 + n
-    w, h = struct.unpack(">II", chunks[b"IHDR"][:8])
-    rows = np.frombuffer(zlib.decompress(chunks[b"IDAT"]), np.uint8)
-    return rows.reshape(h, 1 + 3 * w)[:, 1:].reshape(h, w, 3)
+from gfnerf_tpu_torch.train import DATAPARSERS
+# the PNG codec lives in utils/image_io.py; these names stay importable here
+from gfnerf_tpu_torch.utils.image_io import read_png, write_png  # noqa: F401
 
 
 def cameras_from_camera_path(path_json: dict) -> CamerasHost:
@@ -159,8 +124,10 @@ def main(argv=None):
     parser.add_argument("--downscale-factor", type=int, default=1)
     parser.add_argument("--embedding-indices", type=int, nargs="*",
                         default=None)
-    parser.add_argument("--dataparser", default="minimal",
-                        choices=["minimal"])
+    parser.add_argument("--dataparser", default=None,
+                        choices=DATAPARSERS,
+                        help="default: guessed from the run's data "
+                             "directory")
     parser.add_argument("--early-term", action="store_true",
                         help="two-phase early-termination rendering "
                              "(models/render_early.py): saturated rays skip "

@@ -3,7 +3,8 @@
 The port's counterpart of ``scripts/train.py`` (its arguments, minus the
 multi-host ones):
 
-  python -m gfnerf_tpu_torch.train METHOD --data DIR [--dataparser minimal]
+  python -m gfnerf_tpu_torch.train METHOD --data DIR
+      [--dataparser {minimal,blender,nerfstudio,instant-ngp}]
       [--max-num-iterations N] [--output-dir DIR] [--experiment-name NAME]
       [--load-dir DIR] [--vis local] [--device {cuda,cpu}]
       [a.b.c=value ...] [--a.b.c value ...]
@@ -11,8 +12,9 @@ multi-host ones):
 Extra arguments are dotted config overrides, e.g.
 ``pipeline.model.n_blocks=4``.  Methods: gf-nerf (the paper's: 1024 march
 slots, a budget of 256 field samples a ray), gf-nerf-perf, gf-nerf-prop,
-gf-nerf-tiny, and on the vanilla pipeline nerfacto and semantic-nerfw
-(whose labels are the npz's ``road_masks``).  ``python -m
+gf-nerf-tiny, and on the vanilla pipeline nerfacto, semantic-nerfw
+(whose labels are the npz's ``road_masks``) and instant-ngp (e.g. on a
+Blender scene of PNGs, ``--dataparser blender``).  ``python -m
 gfnerf_tpu_torch.eval`` and ``python -m gfnerf_tpu_torch.render`` read a
 run's ``config.json`` and checkpoint.
 """
@@ -22,6 +24,9 @@ from __future__ import annotations
 import argparse
 import sys
 from pathlib import Path
+
+# the dataparsers the port has (data/dataparsers/__init__.py)
+DATAPARSERS = ["minimal", "blender", "nerfstudio", "instant-ngp"]
 
 
 def parse_overrides(extra) -> list:
@@ -49,7 +54,7 @@ def main(argv=None):
     parser.add_argument("method", help="registered method name")
     parser.add_argument("--data", type=Path, required=True)
     parser.add_argument("--dataparser", default="minimal",
-                        choices=["minimal"])
+                        choices=DATAPARSERS)
     parser.add_argument("--output-dir", type=Path, default=Path("outputs"))
     parser.add_argument("--experiment-name", default=None)
     parser.add_argument("--max-num-iterations", type=int, default=None)

@@ -4,7 +4,9 @@ Port of ``gfnerf_tpu/utils/eval_utils.py`` (nerfstudio's
 ``eval_utils.py``): ``eval_setup`` reads a training run's ``config.json``,
 rebuilds its pipeline in test mode on the checkpoint's octree and march
 config (the resume path: no octree build, no calibration) and loads the
-latest checkpoint.
+latest checkpoint; without a dataparser's name it guesses one from the
+data directory (``transforms.json``: nerfstudio, ``transforms_train.json``:
+blender, else minimal).
 """
 
 from __future__ import annotations
@@ -29,8 +31,17 @@ def eval_setup(config_path: Path, dataparser_name: Optional[str] = None):
     config.output_dir = base_dir.parent.parent.parent
     config.experiment_name = base_dir.parent.parent.name
     config.timestamp = base_dir.name
-    dataparser = build_dataparser(dataparser_name or "minimal",
-                                  Path(config.data))
+    name = dataparser_name
+    if name is None:
+        # guessed from the data's layout, as the JAX package guesses it
+        data = Path(config.data)
+        if (data / "transforms.json").exists():
+            name = "nerfstudio"
+        elif (data / "transforms_train.json").exists():
+            name = "blender"
+        else:
+            name = "minimal"
+    dataparser = build_dataparser(name, Path(config.data))
     trainer = Trainer(config, dataparser)
     trainer.setup(test_mode="test")
     return config, trainer

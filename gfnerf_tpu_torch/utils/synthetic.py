@@ -1,16 +1,22 @@
 """Synthetic test scenes (analytic renders, no assets needed).
 
 Numpy copies of ``gfnerf_tpu/utils/synthetic.py``'s ``ring_cameras``,
-``render_spheres`` and ``make_synthetic_npz``: ring cameras around coloured
-spheres, images rendered by direct ray-sphere intersection with Lambert
-shading, written as the minimal dataparser's npz files.
+``render_spheres``, ``make_synthetic_npz`` and ``make_blender_fixture``:
+ring cameras around coloured spheres, images rendered by direct
+ray-sphere intersection with Lambert shading, written as the minimal
+dataparser's npz files or as a Blender-layout scene of PNGs (through
+``image_io.write_png``; optionally RGBA with the spheres' coverage as
+alpha, a transparent sky as in the published Blender scenes).
 """
 
 from __future__ import annotations
 
+import json
 from pathlib import Path
 
 import numpy as np
+
+from gfnerf_tpu_torch.utils.image_io import write_png
 
 SPHERES = np.array([
     # x, y, z, radius, r, g, b
@@ -43,12 +49,15 @@ def ring_cameras(n: int = 24, radius: float = 4.0, height: float = 1.2,
 
 
 def render_spheres(c2w, fx, fy, cx, cy, w, h,
-                   spheres: np.ndarray = SPHERES) -> np.ndarray:
-    """Analytic render: nearest sphere hit, Lambert-shaded. (N, H, W, 3)."""
+                   spheres: np.ndarray = SPHERES,
+                   coverage: bool = False) -> np.ndarray:
+    """Analytic render: nearest sphere hit, Lambert-shaded. (N, H, W, 3);
+    with ``coverage``, (N, H, W, 4): the fourth channel 1 where a ray hits
+    a sphere, 0 on the sky."""
     n = len(c2w)
     yy, xx = np.meshgrid(np.arange(h) + 0.5, np.arange(w) + 0.5,
                          indexing="ij")
-    imgs = np.zeros((n, h, w, 3), np.float32)
+    imgs = np.zeros((n, h, w, 4 if coverage else 3), np.float32)
     light = np.array([0.4, 0.3, 0.85])
     light = light / np.linalg.norm(light)
     for i in range(n):
@@ -80,7 +89,9 @@ def render_spheres(c2w, fx, fy, cx, cy, w, h,
             col = np.stack([cr * lam, cg * lam, cb * lam], axis=-1)
             img = np.where(hit[..., None], col, img)
             best_t = np.where(hit, t, best_t)
-        imgs[i] = img
+        imgs[i, ..., :3] = img
+        if coverage:
+            imgs[i, ..., 3] = np.isfinite(best_t)
     return imgs
 
 
@@ -108,4 +119,35 @@ def make_synthetic_npz(path: Path, n_train: int = 24, n_val: int = 3,
 
     save("train", train_idx)
     save("val", val_idx)
+    return path
+
+
+def make_blender_fixture(path: Path, n_train: int = 10, n_eval: int = 2,
+                         img_wh=(40, 30), rgba: bool = False,
+                         focal: float = 55.0) -> Path:
+    """Write a Blender-format dataset (transforms_{split}.json and PNGs)
+    from the synthetic renderer: train, val and test (the same views as
+    val).  ``rgba``: RGBA PNGs whose alpha is the spheres' coverage (the
+    sky transparent, as in the published Blender scenes); else RGB with
+    the sky drawn, as the JAX package writes them."""
+    path = Path(path)
+    total = n_train + n_eval
+    c2w, fx, fy, cx, cy, w, h = ring_cameras(total, img_wh=img_wh,
+                                             focal=focal)
+    imgs = render_spheres(c2w, fx, fy, cx, cy, w, h, coverage=rgba)
+    cam_angle_x = 2 * np.arctan(w / (2 * fx[0]))
+    splits = (("train", 0, n_train), ("val", n_train, total),
+              ("test", n_train, total))
+    for split, lo, hi in splits:
+        (path / split).mkdir(parents=True, exist_ok=True)
+        frames = []
+        for i in range(lo, hi):
+            m = np.eye(4)
+            m[:3, :4] = c2w[i]
+            write_png(path / split / f"r_{i}.png",
+                      (imgs[i] * 255).astype(np.uint8))
+            frames.append({"file_path": f"./{split}/r_{i}",
+                           "transform_matrix": m.tolist()})
+        (path / f"transforms_{split}.json").write_text(json.dumps(
+            {"camera_angle_x": float(cam_angle_x), "frames": frames}))
     return path

@@ -624,11 +624,11 @@ def _fields(obj, prefix=""):
     return out
 
 
-@pytest.mark.parametrize("method", ["nerfacto", "semantic-nerfw"])
+@pytest.mark.parametrize("method", ["nerfacto", "semantic-nerfw",
+                                    "instant-ngp"])
 def test_methods_registered_with_jax_settings(method):
     """get_method gives the JAX package's settings, every field of the
-    vanilla pipeline's config included; the other vanilla kinds and
-    dynamic_batch raise."""
+    vanilla pipeline's config included; the other vanilla kinds raise."""
     from gfnerf_tpu.configs.method_configs import method_configs
     from gfnerf_tpu_torch.configs.method_configs import get_method
     from gfnerf_tpu_torch.pipelines.vanilla_pipeline import (
@@ -639,14 +639,12 @@ def test_methods_registered_with_jax_settings(method):
     for k in set(got) & set(want) - {"vis"}:
         assert got[k] == want[k], (k, got[k], want[k])
     assert sum(k.startswith("pipeline.") for k in got) > 100
-    for kind in ("vanilla-nerf", "mipnerf", "instant-ngp", "tensorf", "neus",
+    for kind in ("vanilla-nerf", "mipnerf", "tensorf", "neus",
                  "nerfplayer-nerfacto", "nerfplayer-ngp"):
         with pytest.raises(NotImplementedError, match="not ported"):
             VanillaPipelineConfig(model_kind=kind).build(None, ".", "cpu")
         with pytest.raises(NotImplementedError, match="not ported"):
             get_method(kind)
-    with pytest.raises(NotImplementedError, match="dynamic_batch"):
-        VanillaPipelineConfig(dynamic_batch=True).build(None, ".", "cpu")
 
 
 # ---- on the card ----
