@@ -7,7 +7,7 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
   2. build    — compiles gfnerf_tpu_torch/csrc/*.cu with nvcc for sm_90a,
                 one process per source, into gfnerf_tpu_torch/_build/ and
                 prints each kernel's registers.
-  3. kernels  — each of the seven hand-written kernels against its plain
+  3. kernels  — seven of the hand-written kernels against their plain
                 PyTorch version on the card, at the main paths' shapes (K2
                 also at gf-nerf's 1024 slots) and
                 at ragged and edge cases (the composite backward where
@@ -182,18 +182,48 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
                 steps with dynamic_batch and on an instant-ngp-format scene
                 with distortion (its rays on the card against the CPU's);
                 PNG round trips of every colour type, depth and filter.
+ 17. scan     — with the counters reset: gf-nerf-perf with the scan march
+                (pipeline.sampler.march=scan, kernel M1) through the Trainer
+                on the pipeline phase's scene and schedule, 24 init + 2
+                focal steps on each of blocks 0 and 1: per step M1, K1 and
+                K2 once, H1 once at init and twice at the focal stage, H2
+                one call; the routed eval batch (H3) and the eval PSNR above
+                the mean image's; an init and a focal step profiled (the
+                gfnerf/march span); M1 against the plain scan (rows that
+                differ, errors) on the train batch (8192 x 160), gf-nerf's
+                march (8192 x 1024) and a render chunk (32768 x 384), the
+                plain scan timed on each; the scan against the fast march
+                (coverage, held to the JAX package's pair's figures); one
+                step against the plain pairs (M1 among them); M1 timed on
+                the train batch and a render chunk against its bound;
+                three gf-nerf init steps with the scan (1024 slots, budget
+                256: the compacted branch at gf-nerf's width); a 1920x1080
+                frame of the quality workload through the scan.
+ 18. stock    — vanilla-nerf, mipnerf, tensorf and neus, each at its
+                registered width through the Trainer on the instant-ngp
+                phase's Blender scene (STOCK_STEPS steps): no kernel
+                launches; finite losses, the rgb loss falling, every
+                parameter changed, the eval PSNR above the mean image's, the
+                checkpoint; s/step, rays/s, peak memory, a profiled step;
+                one step on the card against the same step on the CPU.
 Each phase ends with a [clock] line.  Before the last line come a JSON
 object with each kernel's launches, error, times and bound (K1, K2, H1 and
 H2 also at the prop phase's shapes, under "prop"; H4 and H5 at nerfacto's
-three, under "nerfacto", and at instant-ngp's, under "instant_ngp"), and
-the card's name and power limit; the last line is
+three, under "nerfacto", and at instant-ngp's, under "instant_ngp"; M1 at
+the train batch, with its render chunk under "render_chunk"), and the
+card's name and power limit; the last line is
 {"ok": true, "device": {...}}.
 
 Run from the repository root:  python3 chip_smoke.py
 To work on one phase of the pipeline family (pipeline, gfnerf, prop,
-nerfacto, semantics, instant-ngp; nerfacto and semantics read the pipeline
-phase's scene and checkpoint):
+nerfacto, semantics, instant-ngp, scan, stock; nerfacto and semantics read
+the pipeline phase's scene and checkpoint):
 python3 chip_smoke.py --only pipeline,nerfacto,semantics
+python3 chip_smoke.py --only scan,stock
+Either form takes ``--coverage-case PATH`` last: the scan phase then writes
+the octree and rays of its coverage check there, for
+``python tests/torch_parity.py scan-coverage PATH`` (the JAX package's
+scan and fast march on the same case, on the CPU).
 """
 
 from __future__ import annotations
@@ -833,24 +863,27 @@ def _counted():
     from gfnerf_tpu_torch.fields.packed_hash import (
         packed_hash_encode, packed_hash_encode_routed)
     from gfnerf_tpu_torch.ops.composite import fused_composite
+    from gfnerf_tpu_torch.ops.scan_march import scan_march
 
     return fused_composite, packed_hash_encode, packed_hash_encode_routed, \
-        hash_encode
+        hash_encode, scan_march
 
 
 def launch_counts() -> dict:
-    composite, packed, routed, anchored = _counted()
+    composite, packed, routed, anchored, march = _counted()
     return {"composite_fwd": composite.launches,
             "composite_bwd": composite.bwd_launches,
             "packed_hash_fwd": packed.launches,
             "packed_hash_bwd": packed.bwd_launches,
             "packed_hash_routed": routed.launches,
             "hash_anchored_fwd": anchored.launches,
-            "hash_anchored_bwd": anchored.bwd_launches}
+            "hash_anchored_bwd": anchored.bwd_launches,
+            "scan_march": march.launches}
 
 
 def reset_launch_counts() -> None:
-    composite, packed, routed, anchored = _counted()
+    composite, packed, routed, anchored, march = _counted()
+    march.launches = 0
     composite.launches = composite.bwd_launches = 0
     packed.launches = packed.bwd_launches = packed.bwd_calls = 0
     routed.launches = 0
@@ -879,9 +912,11 @@ class plain_wrappers:
             plain_packed_hash_encode, plain_packed_hash_encode_routed)
         from gfnerf_tpu_torch.models import gfnerf as model_mod
         from gfnerf_tpu_torch.ops.composite import plain_fused_composite
+        from gfnerf_tpu_torch.sampler.perssampler import get_samples
 
         self.patched = [
             (model_mod, "fused_composite", plain_fused_composite),
+            (model_mod, "scan_march", get_samples),
             (field_mod, "packed_hash_encode", plain_packed_hash_encode),
             (field_mod, "packed_hash_encode_routed",
              plain_packed_hash_encode_routed),
@@ -5028,6 +5063,764 @@ def phase_instant_ngp(tmp: Path):
     return launches, stats, kernels
 
 
+# gf-nerf-perf with the scan march (kernel M1) through the Trainer, on the
+# pipeline phase's scene and schedule: 24 init steps (milestone rebuilds at
+# 8 and 16), the transition, 2 focal steps on each of blocks 0 and 1.  The
+# octree and the widths are the config's; only the march differs.
+SCAN_STEPS = PIPELINE_INIT_STEPS + 4
+SCAN_OVERRIDES = {**PIPELINE_OVERRIDES,
+                  "pipeline.sampler.march": "scan",
+                  "steps_per_eval_batch": "1000",
+                  "steps_per_eval_image": "1000",
+                  "steps_per_save": "1000"}
+# M1 against the plain scan on the same rays and noise, at the main
+# path's shapes (the train batch at S = 160, gf-nerf's march at S = 1024,
+# a render chunk at S = 384): the share of rays whose valid, trans, oct or
+# block rows may differ (M1 repeats the plain version's roundings, so none
+# is expected), and the relative error of t, dt and the points on the rest
+M1_DIFFER_SHARE = 1e-3
+M1_RTOL = 1e-5
+# the scan against the fast march: rays, and where to write the case (the
+# octree and the rays) for the JAX package's pair on the CPU
+# (``--coverage-case PATH``; tests/torch_parity.py scan-coverage PATH)
+COVERAGE_RAYS = 512
+COVERAGE_CASE = None
+# Past the scene the trained octree's leaves grow shorter than a step: the
+# fast march places floor(length / step) = 0 samples in such a leaf, the
+# scan steps into it and emits one, so their last t and leaves differ there.
+# The JAX package's own pair does the same: on this check's octree and rays
+# from an H100 run of this script (``--coverage-case``, then
+# ``tests/torch_parity.py scan-coverage``) it gave the figures below, equal
+# to the port's on the card and on the CPU.  The port's pair is held to
+# them: the shares and the leaf coverage within COVERAGE_SHARE_TOL, the
+# median last-t gap within COVERAGE_GAP_RTOL of it.
+COVERAGE_JAX = {"last_t_share": 0.0, "median_last_t_diff": 105.59359741210938,
+                "leaf_coverage": 0.7964599747003611}
+COVERAGE_SHARE_TOL = 0.05
+COVERAGE_GAP_RTOL = 0.1
+# the compacted branch: gf-nerf's march of 1024 slots, budget 256
+SCAN_GFNERF_SLOTS, SCAN_GFNERF_BUDGET = 1024, 256
+
+
+def check_scan_march(oct_dev, scfg, o, d, s, seed, what,
+                     eval_noise=False) -> dict:
+    """M1 against the plain scan (``perssampler.get_samples``) on rays o, d
+    at S = s with the same noise (a render's, all ones, with
+    ``eval_noise``): the rays whose rows differ (at most M1_DIFFER_SHARE
+    of them), the largest error of t, dt, the world and the warped points
+    on the others relative to each one's largest value (at most M1_RTOL),
+    num_valid and the first-hit distance.  Also the plain scan's time for
+    the call (CUDA events around it)."""
+    import dataclasses
+
+    import torch
+
+    from gfnerf_tpu_torch.ops.scan_march import scan_march
+    from gfnerf_tpu_torch.sampler.perssampler import get_samples
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    r = o.shape[0]
+    noise = (torch.ones((r, s), device="cuda") if eval_noise else
+             torch.rand((r, s), generator=gen, device="cuda") + 0.5)
+    cfg = dataclasses.replace(scfg, max_samples=s, march="scan")
+    got = scan_march(oct_dev, o, d, noise, cfg)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    want = get_samples(oct_dev, o, d, noise, cfg)
+    end.record()
+    torch.cuda.synchronize()
+    plain_ms = start.elapsed_time(end)
+    bad = torch.zeros(r, dtype=torch.bool, device="cuda")
+    for k in ("valid", "trans_idx", "oct_idx", "block_idx"):
+        bad |= (getattr(got, k) != getattr(want, k)).reshape(r, -1).any(1)
+    ok = ~bad
+    errs = {}
+    for k in ("ts", "dists", "world_pts", "warp_pts"):
+        g, w = getattr(got, k)[ok], getattr(want, k)[ok]
+        errs[k] = float((g - w).abs().max()) / max(float(w.abs().max()),
+                                                   1e-30)
+    same = bool(torch.equal(got.num_valid[ok], want.num_valid[ok])
+                and torch.equal(got.first_oct_dis[ok], want.first_oct_dis[ok]))
+    bitwise = all(torch.equal(getattr(got, k), getattr(want, k)) for k in (
+        "ts", "dists", "world_pts", "warp_pts", "valid", "trans_idx",
+        "oct_idx", "block_idx", "num_valid", "first_oct_dis"))
+    out = {"what": what, "rays": r, "S": s,
+           "differing_rays": int(bad.sum()),
+           "max_rel_err": max(errs.values()), "rel_errs": errs,
+           "bit_for_bit": bitwise,
+           "valid_samples": int(want.valid.sum()),
+           "max_abs_err": max(float((getattr(got, k) - getattr(want, k))
+                                    .abs().max()) for k in
+                              ("ts", "dists", "world_pts", "warp_pts")),
+           "plain_ms": plain_ms}
+    log(f"[scan] M1 vs the plain scan on {what}, {r} rays at S={s}: {out}")
+    if not (out["differing_rays"] <= M1_DIFFER_SHARE * r
+            and out["max_rel_err"] <= M1_RTOL and same
+            and out["valid_samples"] > r):
+        raise AssertionError(f"scan: M1 against the plain scan on {what}: "
+                             f"{out}, num_valid and first hits equal: {same}")
+    return out
+
+
+def coverage_figures(fast, scan) -> dict:
+    """The scan against the fast march, as tests/test_fast_march.py:53
+    compares them: each a dict of numpy valid, ts, oct_idx (R, S) and
+    first_oct_dis (R,).  Per ray with samples in both, the shares whose
+    fast-march count is at least 0.6 of the scan's and whose first and last
+    t agree within 0.2 and 0.5 (that test's bounds), the median gaps, the
+    share of the scan's leaves that the fast march visits too; the share of
+    the first hits of the rays both hit that agree (1e-3)."""
+    import numpy as np
+
+    fv, sv, fts, sts = fast["valid"], scan["valid"], fast["ts"], scan["ts"]
+    fo, so = fast["oct_idx"], scan["oct_idx"]
+    count, tmin, tmax, leaves, dmin, dmax = [], [], [], [], [], []
+    for r in range(sv.shape[0]):
+        if not sv[r].any() or not fv[r].any():
+            continue
+        count.append(fv[r].sum() >= 0.6 * sv[r].sum())
+        dmin.append(abs(fts[r][fv[r]].min() - sts[r][sv[r]].min()))
+        dmax.append(abs(fts[r][fv[r]].max() - sts[r][sv[r]].max()))
+        tmin.append(dmin[-1] < 0.2)
+        tmax.append(dmax[-1] < 0.5)
+        scan_leaves = set(so[r][sv[r]].tolist())
+        leaves.append(len(scan_leaves & set(fo[r][fv[r]].tolist()))
+                      / len(scan_leaves))
+    f_fod, s_fod = fast["first_oct_dis"], scan["first_oct_dis"]
+    both = (f_fod < 1e8) & (s_fod < 1e8)
+    hits = np.isclose(f_fod[both], s_fod[both], rtol=1e-3, atol=1e-3)
+    return {"rays_with_samples": len(count),
+            "count_share": float(np.mean(count)),
+            "first_t_share": float(np.mean(tmin)),
+            "last_t_share": float(np.mean(tmax)),
+            "median_first_t_diff": float(np.median(dmin)),
+            "median_last_t_diff": float(np.median(dmax)),
+            "leaf_coverage": float(np.mean(leaves)),
+            "first_hit_share": float(hits.mean()) if both.any() else 0.0,
+            "samples_scan": int(sv.sum()), "samples_fast": int(fv.sum())}
+
+
+def scan_coverage(oct_dev, scfg, o, d) -> dict:
+    """The scan against the fast march on the same rays with eval noise
+    and 1024 slots, so that neither march runs out of slots
+    (``coverage_figures``).  Fails unless 95% of the rays pass the count
+    and first-t bounds and 95% of the first hits agree, and the last-t
+    share, the median last-t gap and the leaf coverage are the JAX
+    package's on this octree (COVERAGE_JAX).  With COVERAGE_CASE set, the octree, the rays
+    and the sampler config are written there (npz) for the JAX package's
+    pair on the CPU."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from gfnerf_tpu_torch.ops.scan_march import scan_march
+    from gfnerf_tpu_torch.sampler.fast_march import get_samples_fast
+
+    cfg = dataclasses.replace(scfg, max_samples=1024)
+    noise = torch.ones((o.shape[0], 1024), device="cuda")
+    fast = get_samples_fast(oct_dev, o, d, noise, 1.0,
+                            dataclasses.replace(cfg, march="fast"))
+    scan = scan_march(oct_dev, o, d, noise,
+                      dataclasses.replace(cfg, march="scan"))
+
+    def host(x):
+        return {k: getattr(x, k).cpu().numpy() for k in
+                ("valid", "ts", "oct_idx", "first_oct_dis")}
+
+    out = coverage_figures(host(fast), host(scan))
+    log(f"[scan] coverage, the scan against the fast march on "
+        f"{o.shape[0]} train rays (1024 slots, eval noise): {out}")
+    if COVERAGE_CASE is not None:
+        tables = {f"oct_{f.name}": (v.cpu().numpy() if torch.is_tensor(v)
+                                    else np.asarray(v))
+                  for f in dataclasses.fields(oct_dev)
+                  for v in [getattr(oct_dev, f.name)]}
+        Path(COVERAGE_CASE).parent.mkdir(parents=True, exist_ok=True)
+        np.savez_compressed(
+            COVERAGE_CASE, rays_o=o.cpu().numpy(), rays_d=d.cpu().numpy(),
+            sampler_config=json.dumps(dataclasses.asdict(cfg)),
+            card=json.dumps(out), **tables)
+        log(f"[scan] the coverage case written to {COVERAGE_CASE}")
+    jax = COVERAGE_JAX
+    if not (out["rays_with_samples"] > o.shape[0] // 2
+            and out["count_share"] >= 0.95
+            and out["first_t_share"] >= 0.95
+            and out["first_hit_share"] >= 0.95
+            and abs(out["last_t_share"] - jax["last_t_share"])
+            <= COVERAGE_SHARE_TOL
+            and abs(out["leaf_coverage"] - jax["leaf_coverage"])
+            <= COVERAGE_SHARE_TOL
+            and abs(out["median_last_t_diff"] - jax["median_last_t_diff"])
+            <= COVERAGE_GAP_RTOL * jax["median_last_t_diff"]):
+        raise AssertionError(f"scan coverage: {out}, the JAX package's "
+                             f"pair on this octree {jax}")
+    return out
+
+
+def scan_march_bytes(r: int, s: int, oct_dev) -> int:
+    """The bytes M1 must move for r rays of s slots: each ray's origin and
+    direction and each slot's noise read once, each output written once
+    (per slot the world and warped points, delta, t, three int32 indices,
+    valid; per ray the count and the first-hit distance), and the octree's
+    rows (its nodes, not the padding to its capacity) and the warp tables
+    read once."""
+    per_slot = 4 + 12 + 12 + 4 + 4 + 3 * 4 + 1
+    per_ray = 24 + 8 + 4
+    node_row = sum(t[0].numel() * t.element_size() for t in (
+        oct_dev.centers, oct_dev.side_lens, oct_dev.childs, oct_dev.is_leaf,
+        oct_dev.trans_idx, oct_dev.block_idx))
+    warp = sum(t.numel() * t.element_size() for t in (
+        oct_dev.w2xz_flat, oct_dev.warp_weight_flat, oct_dev.t_center,
+        oct_dev.t_dis_summary))
+    return r * s * per_slot + r * per_ray + oct_dev.n_nodes * node_row + warp
+
+
+def time_scan_march(oct_dev, scfg, o, d, what, eval_noise=False) -> dict:
+    """M1 on rays o, d with the configuration's slots and train noise (or
+    a render's, ``eval_noise``): CUDA-event medians of 10 calls per event
+    pair, and its bound (the bytes it must move over the card's rate)."""
+    import dataclasses
+
+    import torch
+
+    from gfnerf_tpu_torch.ops.scan_march import scan_march
+
+    r, s = o.shape[0], scfg.max_samples
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    noise = (torch.ones((r, s), device="cuda") if eval_noise else
+             torch.rand((r, s), generator=gen, device="cuda") + 0.5)
+    cfg = dataclasses.replace(scfg, march="scan")
+    ms = time_ms(lambda: scan_march(oct_dev, o, d, noise, cfg), n=7, reps=10)
+    nbytes = scan_march_bytes(r, s, oct_dev)
+    out = {"rays": r, "S": s, "ms": ms, "bytes": nbytes,
+           "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes"}
+    log(f"[scan] M1 on {what} (R={r}, S={s}): {ms:.4f} ms, bound "
+        f"{out['bound_ms']:.4f} ms ({nbytes / 1e6:.1f} MB)")
+    return out
+
+
+def phase_scan(tmp: Path):
+    """gf-nerf-perf with ``pipeline.sampler.march=scan`` through the
+    Trainer on the pipeline phase's scene and schedule (SCAN_STEPS), the
+    march through M1, counted: every step launches M1 once, K1 and K2
+    once, H1 once at init and twice at the focal stage, H2 one call; the
+    transition's error-map renders and the eval go through M1 too.
+    Checked: finite losses, the rebuilds, the transition, both blocks'
+    steps; the routed eval batch (H3) and the eval image's PSNR above the
+    mean image's.  Then M1 against the plain scan on the train batch (S =
+    160), the plain scan timed there; the scan against the fast march
+    (coverage); one step with the kernels against the plain pairs (M1
+    among them); M1 timed on the train batch and on a render chunk; M1
+    against the plain scan on gf-nerf's march (S = 1024) and one gf-nerf
+    step with the scan (budget 256: the compacted branch); one 1920x1080
+    frame of render_bench's quality workload through the scan, and M1
+    against the plain scan on one of its chunks (S = 384).  Returns (launches by path, stats, M1's report)."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from gfnerf_tpu_torch.cameras.cameras import generate_rays_multi
+    from gfnerf_tpu_torch.configs.config_io import apply_override
+    from gfnerf_tpu_torch.configs.method_configs import get_method
+    from gfnerf_tpu_torch.data.dataparsers import build_dataparser
+    from gfnerf_tpu_torch.engine.optimizers import build_optimizer
+    from gfnerf_tpu_torch.engine.trainer import Trainer
+    from gfnerf_tpu_torch.fields.field import (STAGE_BLOCK, STAGE_INIT,
+                                               FieldConfig, GFNeRFField,
+                                               init_field_params)
+    from gfnerf_tpu_torch.models.gfnerf import (init_train_state,
+                                                make_render_fn,
+                                                make_train_step)
+    from gfnerf_tpu_torch.render_bench import (CHUNK, FRAME_WH,
+                                               build_workload, frame_rays,
+                                               render_rays)
+    from gfnerf_tpu_torch.train_bench import RAYS, make_batch
+    from gfnerf_tpu_torch.utils.profiling import profile_device
+    from gfnerf_tpu_torch.utils.synthetic import make_synthetic_npz
+
+    scene = tmp / "scene"
+    if not (scene / "train.npz").is_file():
+        make_synthetic_npz(scene, n_train=48, n_val=4, img_wh=(96, 72))
+    cfg = get_method("gf-nerf-perf")
+    for key, value in {**SCAN_OVERRIDES,
+                       "max_num_iterations": str(SCAN_STEPS),
+                       "output_dir": str(tmp / "scan_out")}.items():
+        apply_override(cfg, key, value)
+    cfg.data = scene
+    trainer = Trainer(cfg, build_dataparser("minimal", scene))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    trainer.setup()
+    setup_s = time.perf_counter() - t0
+    p = trainer.pipeline
+    scfg = p.sampler.sampler_config
+    log(f"[scan] setup {setup_s:.2f}s: {p.sampler.tree.n_nodes} nodes; "
+        f"march {scfg.march}, S={scfg.max_samples}, sample_l "
+        f"{scfg.sample_l:.6f}, locate_iters {scfg.locate_iters}")
+    if scfg.march != "scan":
+        raise AssertionError(f"scan: the sampler config says {scfg}")
+    rec = {}
+    get_loss = p.get_train_loss_dict
+
+    def get_loss_w(step):
+        before = launch_counts()
+        t = time.perf_counter()
+        m = get_loss(step)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t
+        after = launch_counts()
+        rec[step] = {"s": dt, "counts": {k: after[k] - before[k]
+                                         for k in after}, **m}
+        return m
+
+    p.get_train_loss_dict = get_loss_w
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    trainer.train()
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    p.get_train_loss_dict = get_loss
+    if sorted(rec) != list(range(SCAN_STEPS)):
+        raise AssertionError(f"scan: steps run {sorted(rec)}")
+    losses = [rec[i]["loss"] for i in range(SCAN_STEPS)]
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"scan: non-finite losses {losses}")
+    h2 = table_grad_launches({"fcfg": p.field_cfg})
+    for i in range(SCAN_STEPS):
+        focal = i >= PIPELINE_INIT_STEPS
+        want = {"scan_march": 1, "composite_fwd": 1, "composite_bwd": 1,
+                "packed_hash_fwd": 2 if focal else 1,
+                "packed_hash_bwd": h2}
+        got = rec[i]["counts"]
+        if got != {k: want.get(k, 0) for k in got}:
+            raise AssertionError(f"scan step {i}: launches {rec[i]['counts']}"
+                                 f", expected {want}")
+    if p.sampler.cameras_labels is None:
+        raise AssertionError("scan: no transition")
+    log(f"[scan] losses {[round(x, 5) for x in losses]}")
+    log(f"[scan] samples a ray by step: "
+        f"{[round(rec[i]['num_samples_per_ray'], 1) for i in range(SCAN_STEPS)]}")
+
+    # the routed eval batch and the eval image, at the focal stage
+    last = SCAN_STEPS - 1
+    before = launch_counts()
+    t = time.perf_counter()
+    eval_m = p.get_eval_loss_dict(last)
+    torch.cuda.synchronize()
+    eval_s = time.perf_counter() - t
+    eval_launches = {k: v - before[k] for k, v in launch_counts().items()}
+    metrics, _ = p.get_eval_image_metrics_and_images(last, 0)
+    launches = launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    gt = p.datamanager.next_eval_image(0)[1]["image"]
+    trivial = float(-10.0 * np.log10(np.mean((gt - gt.mean(axis=(0, 1)))
+                                             ** 2)))
+    log(f"[scan] routed eval batch in {eval_s:.3f}s: {json.dumps(eval_m)}; "
+        f"its launches {eval_launches}; eval image 0: {json.dumps(metrics)}; "
+        f"mean-image PSNR {trivial:.4f}; launches in the run {launches}")
+    if not (eval_launches["packed_hash_routed"] >= 1
+            and eval_launches["scan_march"] >= 1):
+        raise AssertionError(f"scan: the eval batch launched "
+                             f"{eval_launches}")
+    if not metrics["psnr"] > trivial:
+        raise AssertionError(f"scan: eval PSNR {metrics['psnr']} not above "
+                             f"the mean image's {trivial}")
+    # an init step (at fineness 1) and a focal step, each the faster of 2
+    # on the host clock, then profiled
+    profiles = {}
+    for step in (PIPELINE_INIT_STEPS - 2, last):
+        times = []
+        for _ in range(2):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            get_loss(step)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t)
+        prof = profile_device(lambda: get_loss(step))
+        prof["step_ms"] = min(times) * 1e3
+        profiles[step] = prof
+        prof["idle_share"] = 1.0 - prof["device_busy_ms"] / prof["step_ms"]
+        spans = {k: round(v, 2) for k, v in
+                 prof["stage_device_span_ms"].items()}
+        top = [(k["name"][:50], round(k["device_ms"], 3), k["count"])
+               for k in prof["top_kernels"][:6]]
+        log(f"[scan] step {step} profiled: {prof['step_ms']:.1f} ms on the "
+            f"host clock, device busy {prof['device_busy_ms']:.2f} ms, idle "
+            f"share {prof['idle_share']:.3f}; spans {spans}; busiest {top}")
+
+    # M1 against the plain scan, coverage, a step against the plain pairs
+    images = np.asarray(p.datamanager.train_dataset.metadata[
+        "images_array"], np.float32) / 255.0
+    batch = make_batch(images, RAYS, 800, p.device)
+    rays = generate_rays_multi(p.cameras_dev, batch["camera_indices"],
+                               batch["coords"])
+    o, d = rays["origins"], rays["directions"]
+    oct_dev = p.sampler.oct_dev
+    compare = [check_scan_march(oct_dev, scfg, o, d, scfg.max_samples,
+                                seed=1, what="the train batch")]
+    n = COVERAGE_RAYS
+    coverage = scan_coverage(oct_dev, scfg, o[:n], d[:n])
+    wl = {"field": p.field, "state": p.state, "tx": p.tx,
+          "step_fn": p._train_step[STAGE_INIT],
+          "focal_step_fn": p._train_step[STAGE_BLOCK],
+          "oct_dev": oct_dev, "cams": p.cameras_dev, "fineness": 1.0,
+          "scfg": scfg, "fcfg": p.field_cfg}
+    gen = torch.Generator(device=p.device).manual_seed(8)
+    noise, perms = step_draws(wl, gen)
+    compare_step(wl, "scan", batch, noise, perms)
+    train_m1 = time_scan_march(oct_dev, scfg, o, d, "the train batch")
+
+    # s/step through the Trainer (without the first 2 of each stage, the
+    # rebuild and the profiled steps)
+    skip = {8, 16, 12, 24, PIPELINE_INIT_STEPS - 1}
+    init_s = [rec[i]["s"] for i in range(2, PIPELINE_INIT_STEPS)
+              if i not in skip]
+    focal_s = [rec[i]["s"] for i in (PIPELINE_INIT_STEPS + 1,
+                                     PIPELINE_INIT_STEPS + 3)
+               if i not in skip]
+    log(f"[scan] Trainer: {_mean(init_s):.4f} s/init step "
+        f"({RAYS / _mean(init_s):.1f} rays/s), {_mean(focal_s):.4f} s/focal"
+        f" step; peak {peak / 2**30:.3f} GiB; the run {train_s:.1f}s")
+    paths = {"scan_pipeline": launches}
+
+    # the compacted branch: one gf-nerf step with the scan at gf-nerf's
+    # width on this octree
+    gcfg = get_method("gf-nerf").pipeline
+    fcfg = FieldConfig(
+        num_images=p.field_cfg.num_images, hidden_dim=gcfg.field_hidden_dim,
+        hidden_dim_color=gcfg.field_hidden_dim_color,
+        log2_hashmap_size=gcfg.field_log2_hashmap_size,
+        num_levels=gcfg.field_num_levels,
+        features_per_level=gcfg.field_features_per_level,
+        n_blocks=gcfg.model.n_blocks, n_volumes=p.sampler.n_volumes,
+        hash_layout=gcfg.field_hash_layout, mlp_dtype=gcfg.field_mlp_dtype)
+    del trainer, wl
+    torch.cuda.empty_cache()
+    gfield = GFNeRFField(fcfg, *init_field_params(fcfg, seed=0),
+                         device="cuda")
+    tx = build_optimizer(gcfg.optimizers)
+    gmcfg = dataclasses.replace(gcfg.model,
+                                samples_budget_per_ray=SCAN_GFNERF_BUDGET)
+    gscfg = dataclasses.replace(scfg, max_samples=SCAN_GFNERF_SLOTS)
+    compare.append(check_scan_march(oct_dev, gscfg, o, d, SCAN_GFNERF_SLOTS,
+                                    seed=2, what="gf-nerf's march"))
+    step_fn = make_train_step(gmcfg, gscfg, tx, STAGE_INIT)
+    state = init_train_state(gfield, tx)
+    reset_launch_counts()
+    times = []
+    for i in range(3):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        state, _, gm, _ = step_fn(state, oct_dev, p.cameras_dev, batch, 1.0,
+                                  generator=gen)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t)
+    gl = launch_counts()
+    log(f"[scan] gf-nerf with the scan ({SCAN_GFNERF_SLOTS} slots, budget "
+        f"{SCAN_GFNERF_BUDGET}: the compacted branch), 3 init steps: loss "
+        f"{float(gm['loss']):.5f}, samples a ray "
+        f"{float(gm['num_samples_per_ray']):.1f}, s/step "
+        f"{[round(x, 4) for x in times]}; launches {gl}")
+    if not (np.isfinite(float(gm["loss"])) and gl["scan_march"] == 3
+            and gl["hash_anchored_bwd"] > 0 and gl["composite_bwd"] == 3):
+        raise AssertionError(f"scan: the gf-nerf step {gm}, {gl}")
+    paths["scan_gfnerf"] = gl
+    del gfield, state, step_fn, tx
+    torch.cuda.empty_cache()
+
+    # one 1080p frame of the quality workload through the scan
+    qwl = build_workload(torch.device("cuda"), seed=0, config="quality")
+    qscfg = dataclasses.replace(qwl["scfg"], march="scan")
+    render_fn = make_render_fn(qwl["mcfg"], qscfg)
+    fo, fd = frame_rays(qwl["cameras"][0][0], *FRAME_WH, torch.device("cuda"))
+    reset_launch_counts()
+    render_rays(render_fn, qwl["field"], qwl["oct_dev"], fo[:CHUNK],
+                fd[:CHUNK], 0, CHUNK)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    frame = render_rays(render_fn, qwl["field"], qwl["oct_dev"], fo, fd, 0,
+                        CHUNK)
+    torch.cuda.synchronize()
+    frame_s = time.perf_counter() - t
+    fl = launch_counts()
+    n_chunks = -(-fo.shape[0] // CHUNK)
+    hit = check_rendered(frame, "scan frame", (fo.shape[0], 3))
+    log(f"[scan] a {FRAME_WH[0]}x{FRAME_WH[1]} frame of the quality "
+        f"workload through the scan (S={qscfg.max_samples}): {frame_s:.3f} s"
+        f", {fo.shape[0] / frame_s:.1f} rays/s; rays that hit "
+        f"{hit:.4f}; launches {fl}")
+    if fl["scan_march"] != n_chunks + 1:
+        raise AssertionError(f"scan frame: launches {fl}")
+    mid = fo.shape[0] // 2 - CHUNK // 2
+    render_m1 = time_scan_march(qwl["oct_dev"], qscfg, fo[mid:mid + CHUNK],
+                                fd[mid:mid + CHUNK], "a render chunk",
+                                eval_noise=True)
+    compare.append(check_scan_march(
+        qwl["oct_dev"], qscfg, fo[mid:mid + CHUNK], fd[mid:mid + CHUNK],
+        qscfg.max_samples, seed=3, what="a render chunk", eval_noise=True))
+    paths["scan_render"] = fl
+    del qwl, frame
+    torch.cuda.empty_cache()
+
+    report = {"max_abs_err": max(c["max_abs_err"] for c in compare),
+              "ms": train_m1["ms"], "plain_ms": compare[0]["plain_ms"],
+              "bound_ms": train_m1["bound_ms"], "bound_by": "bytes",
+              "library_ms": None, "train_batch": train_m1,
+              "render_chunk": render_m1, "vs_plain": compare}
+    stats = {"setup_s": setup_s, "train_s": train_s,
+             "init_s_per_step": _mean(init_s),
+             "focal_s_per_step": _mean(focal_s), "peak_bytes": peak,
+             "eval_psnr": float(metrics["psnr"]), "mean_image_psnr": trivial,
+             "profiles": {s: {k: v for k, v in prof.items()
+                              if k != "top_kernels"}
+                          for s, prof in profiles.items()},
+             "coverage": coverage, "frame_s": frame_s,
+             "gfnerf_step_s": times}
+    return paths, stats, report
+
+
+# the four static-scene families on the vanilla pipeline, each at its
+# registered width through the Trainer on the instant-ngp phase's Blender
+# scene (read by the blender parser): steps run (cut from the configs'
+# 30 k to 100 k), and the rays of the step held against the CPU
+STOCK_KINDS = ("vanilla-nerf", "mipnerf", "tensorf", "neus")
+STOCK_STEPS = {"vanilla-nerf": 300, "mipnerf": 300, "tensorf": 300,
+               "neus": 300}
+STOCK_WARMUP = 5
+STOCK_PAIR_RAYS = 256
+# the card's step against the CPU's: the f32 sums run in other orders, and
+# the positional encodings (up to 2^9 x 2 pi a unit) turn a position one
+# ulp apart, from resampled bins one ulp apart, into features 1e-3 apart.
+# So each gradient is held by its norm, to 2e-2 of it, and its largest
+# entry's error (relative to the tensor's largest entry) to the larger of
+# STOCK_GRAD_MAX_FLOOR and STOCK_ULP_FACTOR times the function's own
+# sensitivity: the same error between the CPU's step and the CPU's step on
+# ray origins moved by one ulp
+STOCK_GRAD_NORM_TOL = 2e-2
+STOCK_GRAD_MAX_FLOOR = 5e-3
+STOCK_ULP_FACTOR = 2.0
+
+
+def stock_step_pair(p, batch, draws) -> dict:
+    """The family's loss and backward on the first STOCK_PAIR_RAYS rays of
+    a batch and their draws, from copies of the pipeline's model: on the
+    card, on the CPU (the plain path: these families call no kernel), and
+    on the CPU with the ray origins moved by one ulp.  The loss to
+    TRAIN_LOSS_RTOL, every gradient's difference to STOCK_GRAD_NORM_TOL of
+    its norm, and the largest entry's difference relative to the tensor's
+    largest to the larger of STOCK_GRAD_MAX_FLOOR and STOCK_ULP_FACTOR
+    times the one-ulp step's.  Returns the errors."""
+    import copy
+
+    import torch
+
+    from gfnerf_tpu_torch.cameras.cameras import generate_rays_multi
+
+    n = STOCK_PAIR_RAYS
+    rays = generate_rays_multi(p.cameras_dev, batch["camera_indices"][:n],
+                               batch["coords"][:n])
+    outs = {}
+    for run, dev in (("cuda", "cuda"), ("cpu", "cpu"), ("cpu_ulp", "cpu")):
+        model = copy.deepcopy(p.model).to(dev)
+        r = {k: v.to(dev) for k, v in rays.items()}
+        if run == "cpu_ulp":
+            r["origins"] = torch.nextafter(
+                r["origins"], torch.full_like(r["origins"], float("inf")))
+        total, _ = p.spec.loss(
+            model, r, {k: v[:n].to(dev) for k, v in batch.items()},
+            [x[:n].to(dev) for x in draws])
+        total.backward()
+        outs[run] = (float(total.detach()),
+                     {name: q.grad.detach().cpu() for name, q
+                      in model.named_parameters()})
+    (lk, gk), (lp, gp) = outs["cuda"], outs["cpu"]
+    gu = outs["cpu_ulp"][1]
+    rel = abs(lk - lp) / abs(lp)
+    norm_err = {k: float((gk[k] - gp[k]).norm() / gp[k].norm().clamp(
+        min=1e-30)) for k in gp}
+
+    def max_err(g):
+        return {k: float((g[k] - gp[k]).abs().max()
+                         / gp[k].abs().max().clamp(min=1e-30)) for k in gp}
+
+    card_max, ulp_max = max_err(gk), max_err(gu)
+    worst = max(norm_err, key=norm_err.get)
+    max_tol = max(STOCK_GRAD_MAX_FLOOR,
+                  STOCK_ULP_FACTOR * max(ulp_max.values()))
+    out = {"loss_card": lk, "loss_cpu": lp, "loss_rel_err": rel,
+           "grad_norm_err": norm_err[worst], "grad_norm_err_of": worst,
+           "grad_max_err_rel_to_largest": max(card_max.values()),
+           "grad_max_err_of": max(card_max, key=card_max.get),
+           "one_ulp_grad_max_err": max(ulp_max.values()),
+           "one_ulp_grad_max_err_of": max(ulp_max, key=ulp_max.get),
+           "grad_max_err_tol": max_tol}
+    log(f"[stock] {p.kind}: one step of {n} rays on the card against the "
+        f"CPU: {out}")
+    if not (rel <= TRAIN_LOSS_RTOL
+            and norm_err[worst] <= STOCK_GRAD_NORM_TOL
+            and out["grad_max_err_rel_to_largest"] <= max_tol):
+        raise AssertionError(f"{p.kind}: the card's step against the CPU's "
+                             f"{out}")
+    return out
+
+
+def phase_stock(tmp: Path):
+    """vanilla-nerf, mipnerf, tensorf and neus, each through the Trainer at
+    its registered width on the Blender scene the instant-ngp phase writes
+    (written here if that phase did not run), counted: no kernel launches.
+    Checked per family: finite losses, the rgb loss falling, every
+    parameter changed, the eval PSNR above the mean image's, the checkpoint
+    written.  Timed: s/step and rays/s through the Trainer, peak memory, a
+    profiled step (busy time, idle share, spans); one step on the card
+    against the CPU."""
+    import numpy as np
+    import torch
+
+    from gfnerf_tpu_torch.configs.config_io import apply_override
+    from gfnerf_tpu_torch.configs.method_configs import get_method
+    from gfnerf_tpu_torch.data.dataparsers import build_dataparser
+    from gfnerf_tpu_torch.data.pixel_samplers import (PixelSampler,
+                                                      collate_batch)
+    from gfnerf_tpu_torch.engine.trainer import Trainer
+    from gfnerf_tpu_torch.utils.profiling import profile_device
+    from gfnerf_tpu_torch.utils.synthetic import make_blender_fixture
+
+    n_train, n_val, wh, focal = NGP_SCENE
+    scene = tmp / "ngp_scene"
+    if not (scene / "transforms_train.json").is_file():
+        make_blender_fixture(scene, n_train, n_val, img_wh=wh, rgba=True,
+                             focal=focal)
+    paths, stats = {}, {}
+    for kind in STOCK_KINDS:
+        n_steps = STOCK_STEPS[kind]
+        cfg = get_method(kind)
+        for key, value in {"max_num_iterations": str(n_steps),
+                           "steps_per_eval_image": str(n_steps),
+                           "steps_per_save": str(n_steps),
+                           "steps_per_log": "100",
+                           "output_dir": str(tmp / f"{kind}_out")}.items():
+            apply_override(cfg, key, value)
+        cfg.data = scene
+        trainer = Trainer(cfg, build_dataparser("blender", scene))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        trainer.setup()
+        p = trainer.pipeline
+        rays = p.config.train_num_rays_per_batch
+        mc = p.model_cfg
+        width = {k: v for k, v in vars(mc).items() if k != "num_images"}
+        log(f"[stock] {kind}: {rays} rays a batch, draws "
+            f"{p.spec.draw_counts(p.model_cfg)} samples a level; {width}; "
+            f"{sum(q.numel() for q in p.model.parameters())} parameters")
+        start = {k: q.detach().clone() for k, q in
+                 p.model.named_parameters()}
+        rec, evals = {}, []
+        get_loss, eval_image = (p.get_train_loss_dict,
+                                p.get_eval_image_metrics_and_images)
+
+        def get_loss_w(step, get_loss=get_loss, rec=rec):
+            t = time.perf_counter()
+            m = get_loss(step)
+            torch.cuda.synchronize()
+            rec[step] = {"s": time.perf_counter() - t, **m}
+            return m
+
+        def eval_image_w(step, idx=0, eval_image=eval_image, evals=evals):
+            metrics, images = eval_image(step, idx)
+            evals.append((step, idx, metrics))
+            return metrics, images
+
+        p.get_train_loss_dict = get_loss_w
+        p.get_eval_image_metrics_and_images = eval_image_w
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        trainer.train()
+        torch.cuda.synchronize()
+        train_s = time.perf_counter() - t0
+        launches = launch_counts()
+        peak = torch.cuda.max_memory_allocated()
+        p.get_train_loss_dict = get_loss
+        p.get_eval_image_metrics_and_images = eval_image
+        check_launches(f"stock {kind}", launches, {})
+        if sorted(rec) != list(range(n_steps)):
+            raise AssertionError(f"{kind}: steps run {sorted(rec)}")
+        rgb_key = "rgb_loss_fine" if kind in ("vanilla-nerf", "mipnerf") \
+            else "rgb_loss"
+        hist = [rec[i][rgb_key] for i in range(n_steps)]
+        if not all(np.isfinite(rec[i]["loss"]) for i in range(n_steps)):
+            raise AssertionError(f"{kind}: a non-finite loss")
+        if not _mean(hist[-10:]) < _mean(hist[:10]):
+            raise AssertionError(f"{kind}: the rgb loss did not fall")
+        unchanged = [k for k, q in p.model.named_parameters()
+                     if torch.equal(q.detach(), start[k])]
+        if unchanged:
+            raise AssertionError(f"{kind}: unchanged parameters {unchanged}")
+        if not evals:
+            raise AssertionError(f"{kind}: no eval image")
+        step, idx, metrics = evals[-1]
+        gt = p.eval_dataset.get_image(idx)
+        trivial = float(-10.0 * np.log10(np.mean(
+            (gt - gt.mean(axis=(0, 1))) ** 2)))
+        every = max(n_steps // 6, 1)
+        log(f"[stock] {kind}: {rgb_key} every {every} steps "
+            f"{[round(x, 5) for x in hist[::every]]}; eval image {idx} at "
+            f"step {step}: {json.dumps(metrics)}; mean-image PSNR "
+            f"{trivial:.4f}")
+        if not metrics["psnr"] > trivial:
+            raise AssertionError(f"{kind}: eval PSNR {metrics['psnr']} not "
+                                 f"above the mean image's {trivial}")
+        ckpt = trainer.checkpoint_dir / f"step-{n_steps - 1:09d}"
+        if not (ckpt / "state.pt").is_file():
+            raise AssertionError(f"{kind}: no checkpoint at {ckpt}")
+        step_s = [rec[i]["s"] for i in range(STOCK_WARMUP, n_steps)]
+        sampler = PixelSampler(rays, seed=900)
+        batch = p._device_batch(collate_batch(
+            p.cache, sampler.sample_indices(p.cache)))
+        gen = torch.Generator(device=p.device).manual_seed(900)
+        draws = [torch.rand((rays, k + 1), generator=gen, device=p.device)
+                 for k in p.spec.draw_counts(p.model_cfg)]
+        pair = stock_step_pair(p, batch, draws)
+        times = []
+        for i in range(2):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            p.get_train_loss_dict(n_steps + i)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t)
+        prof = profile_device(lambda: p.get_train_loss_dict(n_steps + 2))
+        prof["step_ms"] = min(times) * 1e3
+        prof["idle_share"] = 1.0 - prof["device_busy_ms"] / prof["step_ms"]
+        spans = {k: round(v, 2) for k, v in
+                 prof["stage_device_span_ms"].items()}
+        top = [(k["name"][:50], round(k["device_ms"], 3), k["count"])
+               for k in prof["top_kernels"][:5]]
+        log(f"[stock] {kind}: Trainer {_mean(step_s):.4f} s/step (median "
+            f"{float(np.median(step_s)):.4f}, after {STOCK_WARMUP} warm-up "
+            f"steps), {rays / _mean(step_s):.1f} rays/s; peak "
+            f"{peak / 2**30:.3f} GiB; the run {train_s:.1f}s; one step "
+            f"profiled: {prof['step_ms']:.1f} ms on the host clock (the "
+            f"faster of 2), device busy {prof['device_busy_ms']:.2f} ms, "
+            f"idle share {prof['idle_share']:.3f}; spans {spans}; busiest "
+            f"kernels {top}")
+        paths[f"stock_{kind}"] = launches
+        stats[kind] = {"steps": n_steps, "s_per_step": _mean(step_s),
+                       "rays_per_s": rays / _mean(step_s),
+                       "peak_bytes": peak, "train_s": train_s,
+                       "eval_psnr": float(metrics["psnr"]),
+                       "mean_image_psnr": trivial,
+                       "device_busy_ms": prof["device_busy_ms"],
+                       "step_ms": prof["step_ms"],
+                       "idle_share": prof["idle_share"],
+                       "spans": prof["stage_device_span_ms"], **pair}
+        del trainer, p, get_loss, eval_image, get_loss_w, eval_image_w
+        torch.cuda.empty_cache()
+    return paths, stats
+
+
 def main() -> int:
     if not (REPO / "gfnerf_tpu_torch").is_dir():
         print("chip_smoke: gfnerf_tpu_torch/ not found beside this script",
@@ -5094,7 +5887,24 @@ def main() -> int:
         torch.cuda.empty_cache()
         paths["instant_ngp"], stats["instant_ngp"], ngp = \
             phase_instant_ngp(Path(tmp))
-    clock("instant-ngp")
+        clock("instant-ngp")
+        torch.cuda.empty_cache()
+        scan_paths, stats["scan"], report["scan_march"] = \
+            phase_scan(Path(tmp))
+        paths.update(scan_paths)
+        clock("scan")
+        torch.cuda.empty_cache()
+        stock_paths, stats["stock"] = phase_stock(Path(tmp))
+        paths.update(stock_paths)
+    clock("stock")
+    fast, scan = stats["pipeline"], stats["scan"]
+    log(f"[scan] gf-nerf-perf through the Trainer, the scan (M1) against "
+        f"the fast march on the same scene and schedule: "
+        f"{scan['init_s_per_step']:.4f} vs {fast['init_s_per_step']:.4f} "
+        f"s/init step, {scan['focal_s_per_step']:.4f} vs "
+        f"{fast['focal_s_per_step']:.4f} s/focal step; eval PSNR "
+        f"{scan['eval_psnr']:.3f} after {SCAN_STEPS} steps vs "
+        f"{fast['eval_psnr']:.3f} after {PIPELINE_STEPS}")
     for name, i in (("hash_anchored_fwd", 0), ("hash_anchored_bwd", 1)):
         # the occupancy update runs H4 alone: no H5 at its shape
         on_path = {shape: parts[i] for shape, parts in ngp.items()
@@ -5142,6 +5952,7 @@ def main() -> int:
                               "fields/hash_encoding.py:188"),
         "hash_anchored_bwd": ("hash_anchored_bwd.cu",
                               "fields/hash_encoding.py:376"),
+        "scan_march": ("scan_march.cu", "sampler/perssampler.py:337"),
     }
     kernels = [{"name": name, "route": "cuda", "source": csrc + src,
                 "replaces": jax_pkg + rep,
@@ -5152,8 +5963,7 @@ def main() -> int:
     for path, st in stats.items():
         log(f"[{path}] {json.dumps(st)}")
     log(json.dumps({"kernels": kernels}))
-    log(f"[clock] the whole script {time.perf_counter() - start:.1f}s "
-        f"(243.4 s before the instant-ngp phase)")
+    log(f"[clock] the whole script {time.perf_counter() - start:.1f}s")
     log(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -5164,10 +5974,11 @@ def main() -> int:
 def main_only(names) -> int:
     """``--only pipeline,nerfacto,...``: the device and the build, then the
     named phases of the temp-dir family (pipeline, gfnerf, prop, nerfacto,
-    semantics, instant-ngp; nerfacto and semantics need the pipeline
-    phase's scene and checkpoint, instant-ngp writes its own scene) in one
-    temp dir, for work on one phase: their lines and stats, no kernels
-    line and no result line."""
+    semantics, instant-ngp, scan, stock; nerfacto and semantics need the
+    pipeline phase's scene and checkpoint, instant-ngp writes its own
+    scene, scan and stock write theirs when the pipeline and instant-ngp
+    phases did not run) in one temp dir, for work on one phase: their
+    lines and stats, no kernels line and no result line."""
     if not (REPO / "gfnerf_tpu_torch").is_dir():
         print("chip_smoke: gfnerf_tpu_torch/ not found beside this script",
               file=sys.stderr)
@@ -5177,7 +5988,8 @@ def main_only(names) -> int:
     phases = {"pipeline": phase_pipeline, "gfnerf": phase_gfnerf,
               "prop": phase_prop, "nerfacto": phase_nerfacto,
               "semantics": phase_semantics,
-              "instant-ngp": phase_instant_ngp}
+              "instant-ngp": phase_instant_ngp, "scan": phase_scan,
+              "stock": phase_stock}
     unknown = set(names) - set(phases)
     if unknown:
         print(f"chip_smoke: unknown phases {sorted(unknown)}",
@@ -5190,12 +6002,21 @@ def main_only(names) -> int:
             out = phases[name](Path(tmp))
             log(f"[{name}] launches {out[0]}")
             log(f"[{name}] {json.dumps(out[1])}")
+            if name == "scan":
+                log(f"[scan] M1 {json.dumps(out[2])}")
             log(f"[clock] {name} done at "
                 f"{time.perf_counter() - start:.1f}s")
     return 0
 
 
 if __name__ == "__main__":
-    if len(sys.argv) == 3 and sys.argv[1] == "--only":
-        sys.exit(main_only(sys.argv[2].split(",")))
+    args = sys.argv[1:]
+    if args[-2:-1] == ["--coverage-case"]:
+        COVERAGE_CASE = args[-1]
+        args = args[:-2]
+    if len(args) == 2 and args[0] == "--only":
+        sys.exit(main_only(args[1].split(",")))
+    if args:
+        print(f"chip_smoke: unknown arguments {args}", file=sys.stderr)
+        sys.exit(2)
     sys.exit(main())

@@ -1,8 +1,9 @@
 """Sample containers and compositing weights.
 
 Port of ``gfnerf_tpu/cameras/rays.py``: ``WarpedSamples`` (fixed-shape
-(R, S) samples with a validity mask; without ``warp_pts``, since the fast
-march leaves the warp to the model) and ``get_weights_f2nerf``.
+(R, S) samples with a validity mask; ``warp_pts`` is filled by the scan
+march and left None by the fast march, which leaves the warp to the model)
+and ``get_weights_f2nerf``.
 """
 
 from __future__ import annotations
@@ -20,13 +21,16 @@ class WarpedSamples:
     world_pts: torch.Tensor     # (R, S, 3) sample positions, world space
     dists: torch.Tensor         # (R, S) warp-space step along the ray
     ts: torch.Tensor            # (R, S) distance along the ray
-    trans_idx: torch.Tensor     # (R, S) int64 warp/volume anchor (-1 invalid)
-    oct_idx: torch.Tensor       # (R, S) int64 octree node (-1 invalid)
-    block_idx: torch.Tensor     # (R, S) int64 focal block (-1 unassigned)
+    # the three indices are int32 after the scan march (as the JAX
+    # package's), int64 after the fast march
+    trans_idx: torch.Tensor     # (R, S) warp/volume anchor (-1 invalid)
+    oct_idx: torch.Tensor       # (R, S) octree node (-1 invalid)
+    block_idx: torch.Tensor     # (R, S) focal block (-1 unassigned)
     valid: torch.Tensor         # (R, S) bool
     num_valid: torch.Tensor     # (R,) int64
     first_oct_dis: torch.Tensor  # (R,) t of the first octree hit (1e9 if none)
     num_hits: Optional[torch.Tensor] = None  # (R,) leaf hits before top-k
+    warp_pts: Optional[torch.Tensor] = None  # (R, S, 3) warped (scan march)
 
 
 def get_weights_f2nerf(deltas: torch.Tensor, densities: torch.Tensor):

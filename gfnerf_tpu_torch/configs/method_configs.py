@@ -6,10 +6,10 @@ whose paths are ported: ``gf-nerf`` (the paper's defaults), ``gf-nerf-tiny``
 channels, bf16 MLPs, 160 march slots) and ``gf-nerf-prop`` (``gf-nerf-perf``
 with proposal-guided resampling: a 256-slot march feeds the probe, whose
 weights resample 64 fine samples a ray), and on the vanilla pipeline
-``nerfacto``, ``semantic-nerfw`` and ``instant-ngp`` with the JAX
-package's settings.  The
-JAX package's other methods raise a "not ported" error from
-:func:`get_method`.
+``nerfacto``, ``semantic-nerfw``, ``instant-ngp``, ``mipnerf``,
+``tensorf``, ``neus`` and ``vanilla-nerf`` with the JAX package's
+settings.  The JAX package's nerfplayer pair raises a "not ported" error
+from :func:`get_method`.
 """
 
 from __future__ import annotations
@@ -25,8 +25,7 @@ from gfnerf_tpu_torch.pipelines.vanilla_pipeline import VanillaPipelineConfig
 from gfnerf_tpu_torch.sampler.manager import PersSamplerManagerConfig
 
 # the JAX package's registered methods that have no port yet
-NOT_PORTED = ("mipnerf", "tensorf", "neus", "vanilla-nerf",
-              "nerfplayer-nerfacto", "nerfplayer-ngp")
+NOT_PORTED = ("nerfplayer-nerfacto", "nerfplayer-ngp")
 
 
 def gf_nerf_config() -> TrainerConfig:
@@ -190,6 +189,62 @@ def instant_ngp_config() -> TrainerConfig:
     )
 
 
+def mipnerf_config() -> TrainerConfig:
+    """mip-NeRF: the integrated positional encoding over conical
+    frustums."""
+    return TrainerConfig(
+        method_name="mipnerf",
+        max_num_iterations=100000,
+        steps_per_eval_image=10000,
+        steps_per_save=5000,
+        pipeline=VanillaPipelineConfig(model_kind="mipnerf",
+                                       train_num_rays_per_batch=1024,
+                                       lr_init=5e-4, lr_final=5e-6,
+                                       max_steps=100000),
+    )
+
+
+def tensorf_config() -> TrainerConfig:
+    """TensoRF with the vector-matrix factorization."""
+    return TrainerConfig(
+        method_name="tensorf",
+        max_num_iterations=30000,
+        steps_per_eval_image=5000,
+        steps_per_save=2000,
+        pipeline=VanillaPipelineConfig(model_kind="tensorf",
+                                       train_num_rays_per_batch=4096,
+                                       lr_init=2e-2, lr_final=2e-3),
+    )
+
+
+def neus_config() -> TrainerConfig:
+    """NeuS surface reconstruction: an SDF field and the eikonal term."""
+    return TrainerConfig(
+        method_name="neus",
+        max_num_iterations=100000,
+        steps_per_eval_image=10000,
+        steps_per_save=5000,
+        pipeline=VanillaPipelineConfig(model_kind="neus",
+                                       train_num_rays_per_batch=1024,
+                                       lr_init=5e-4, lr_final=2.5e-5,
+                                       max_steps=100000),
+    )
+
+
+def vanilla_nerf_config() -> TrainerConfig:
+    """The original NeRF: the frequency encoding, coarse and fine MLPs."""
+    return TrainerConfig(
+        method_name="vanilla-nerf",
+        max_num_iterations=100000,
+        steps_per_eval_image=10000,
+        steps_per_save=5000,
+        pipeline=VanillaPipelineConfig(model_kind="vanilla-nerf",
+                                       train_num_rays_per_batch=1024,
+                                       lr_init=5e-4, lr_final=5e-5,
+                                       max_steps=100000),
+    )
+
+
 method_configs: Dict[str, Callable[[], TrainerConfig]] = {
     "gf-nerf": gf_nerf_config,
     "gf-nerf-tiny": gf_nerf_tiny_config,
@@ -198,6 +253,10 @@ method_configs: Dict[str, Callable[[], TrainerConfig]] = {
     "nerfacto": nerfacto_config,
     "semantic-nerfw": semantic_nerfw_config,
     "instant-ngp": instant_ngp_config,
+    "mipnerf": mipnerf_config,
+    "tensorf": tensorf_config,
+    "neus": neus_config,
+    "vanilla-nerf": vanilla_nerf_config,
 }
 
 def get_method(name: str) -> TrainerConfig:

@@ -165,9 +165,11 @@ def init_hash_params(
     return feat, primes, bias
 
 
-def _fma(a: torch.Tensor, s: float, b: torch.Tensor) -> torch.Tensor:
-    """a * s + b rounded once to f32, as a fused multiply-add rounds it."""
-    return (a.double() * float(s) + b.double()).float()
+def _fma(a: torch.Tensor, s, b: torch.Tensor) -> torch.Tensor:
+    """a * s + b rounded once to f32, as a fused multiply-add rounds it; s
+    a float or a tensor."""
+    s = s.double() if isinstance(s, torch.Tensor) else float(s)
+    return (a.double() * s + b.double()).float()
 
 
 def _level_cells(points, bias_l, scale):

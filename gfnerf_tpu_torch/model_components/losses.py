@@ -3,7 +3,9 @@
 Port of ``gfnerf_tpu/model_components/losses.py``: Charbonnier, MSE and
 S3IM (the reference's ``nerfstudio/model_components/losses.py:713-794``),
 the proposal samplers' interlevel and distortion losses (mip-NeRF 360,
-nerfstudio losses.py:154, 186) and depth-nerfacto's DS-NeRF depth loss.
+nerfstudio losses.py:154, 186), depth-nerfacto's DS-NeRF depth loss, the
+scale-and-shift-invariant depth loss, the orientation and predicted-normal
+regularizers, and the TV loss on octree-leaf boundary samples.
 S3IM's random permutations come from an explicit ``torch.Generator``, or
 are passed in, since the two packages draw different random numbers.
 """
@@ -141,3 +143,53 @@ def ds_nerf_depth_loss(weights, termination_depth, steps, lengths,
     ) * lengths
     loss = torch.sum(loss, dim=-1) * depth_mask[..., 0]
     return torch.mean(loss)
+
+
+def scale_and_shift_invariant_depth_loss(prediction, target, mask):
+    """MiDaS's scale- and shift-invariant MSE (nerfstudio losses.py:685,
+    ``ScaleAndShiftInvariantLoss`` with alpha 0): each image's scale and
+    shift solved in closed form, then the masked MSE.  prediction,
+    target, mask: (B, H, W)."""
+    a00 = torch.sum(mask * prediction * prediction, dim=(1, 2))
+    a01 = torch.sum(mask * prediction, dim=(1, 2))
+    a11 = torch.sum(mask, dim=(1, 2))
+    b0 = torch.sum(mask * prediction * target, dim=(1, 2))
+    b1 = torch.sum(mask * target, dim=(1, 2))
+    det = a00 * a11 - a01 * a01
+    valid = det > 0
+    scale = torch.where(valid, (a11 * b0 - a01 * b1) / (det + 1e-12), 0.0)
+    shift = torch.where(valid, (-a01 * b0 + a00 * b1) / (det + 1e-12), 0.0)
+    pred_ssi = scale[:, None, None] * prediction + shift[:, None, None]
+    res = (pred_ssi - target) ** 2 * mask
+    return torch.sum(res) / torch.clamp(torch.sum(mask), min=1.0)
+
+
+def orientation_loss(weights, normals, view_dirs):
+    """mip-NeRF 360's orientation regularizer (nerfstudio
+    ``orientation_loss``): normals (R, S, 3) facing away from the camera
+    along view_dirs (R, 3), weighted by the weights (R, S) taken as
+    constants."""
+    w = weights.detach()
+    n_dot_v = torch.sum(normals * -view_dirs[:, None, :], dim=-1)
+    return torch.mean(torch.sum(w * torch.clamp(-n_dot_v, min=0.0) ** 2,
+                                dim=-1))
+
+
+def pred_normal_loss(weights, normals, pred_normals):
+    """The predicted normals' agreement with the density-gradient ones
+    (nerfstudio ``pred_normal_loss``), weighted by the weights taken as
+    constants."""
+    w = weights.detach()
+    return torch.mean(torch.sum(
+        w * (1.0 - torch.sum(normals * pred_normals, dim=-1)), dim=-1))
+
+
+def tv_edge_loss(field_fn, edge_pts, edge_trans):
+    """The TV loss over octree-leaf boundary samples (the reference's
+    ``GetEdgeSamples`` mechanism, PersSampler_cuda.cu:479-516): the field
+    ``field_fn(points (N, 3), anchors (N,))`` should agree when a boundary
+    point is queried through either adjacent warp.  edge_pts (N, 2, 3) and
+    edge_trans (N, 2) as ``perssampler.get_edge_samples`` returns them."""
+    fa = field_fn(edge_pts[:, 0], edge_trans[:, 0])
+    fb = field_fn(edge_pts[:, 1], edge_trans[:, 1])
+    return torch.mean((fa - fb) ** 2)

@@ -38,10 +38,12 @@ def pdf_sample(spacing_starts: torch.Tensor,   # (R, S_old)
                weights: torch.Tensor,          # (R, S_old)
                num_samples: int,
                jitter: Optional[torch.Tensor] = None,
-               histogram_padding: float = 0.01):
+               histogram_padding: float = 0.01,
+               include_original: bool = False):
     """Importance-sample ``num_samples`` new bins from a weight histogram
     over the bins [starts, ends).  Returns (starts, ends), each (R,
-    num_samples), without a graph.
+    num_samples), without a graph; with ``include_original`` the new edges
+    and the old ones sorted together, each (R, num_samples + S_old + 1).
 
     ``jitter`` (R, num_samples + 1), uniform draws in [0, 1), places each
     new bin edge at random within its stratum (training); None places it
@@ -85,6 +87,9 @@ def pdf_sample(spacing_starts: torch.Tensor,   # (R, S_old)
         t = torch.clamp(torch.nan_to_num((u - cdf_g0) / (cdf_g1 - cdf_g0),
                                          nan=0.0), 0.0, 1.0)
         bins = bins_g0 + t * (bins_g1 - bins_g0)
+        if include_original:
+            bins = torch.sort(torch.cat([bins, existing_bins], dim=-1),
+                              dim=-1).values
     return bins[:, :-1], bins[:, 1:]
 
 
@@ -125,7 +130,9 @@ def spaced_sample(nears: torch.Tensor,       # (R, 1)
         fn, fn_inv = torch.log, torch.exp
     else:
         raise ValueError(f"unknown spacing {spacing!r}")
-    euclid = fn_inv(bins * fn(fars) + (1.0 - bins) * fn(nears))  # (R, S+1)
+    # bins * far + (1 - bins) * near, the first product contracted into a
+    # multiply-add as XLA compiles the JAX package's
+    euclid = fn_inv(_fma(bins, fn(fars), (1.0 - bins) * fn(nears)))
     spacing_bins = bins.expand(r, num_samples + 1)
     return (euclid[:, :-1], euclid[:, 1:], spacing_bins[:, :-1],
             spacing_bins[:, 1:])

@@ -1,7 +1,9 @@
 """GF-NeRF model: sampler + field + composite + losses, render and train.
 
-Port of ``gfnerf_tpu/models/gfnerf.py``: ``sample_rays`` (fast march),
-``model_forward`` with the deferred warp in both branches: the dense one
+Port of ``gfnerf_tpu/models/gfnerf.py``: ``sample_rays`` (the fast march,
+or the scan march, kernel M1 on the card), ``model_forward`` in both
+branches, the warp deferred to the model after the fast march and read
+from the samples after the scan march: the dense one
 (the field on all R*S sample slots) and, when ``0 < samples_budget_per_ray
 < S``, the compacted one (each ray's first ``budget`` valid samples
 gathered into a (R * budget,) buffer, warped and evaluated there and
@@ -73,6 +75,7 @@ from gfnerf_tpu_torch.model_components.losses import (
 from gfnerf_tpu_torch.model_components.ray_samplers import pdf_sample
 from gfnerf_tpu_torch.model_components.renderers import render_weighted
 from gfnerf_tpu_torch.ops.composite import fused_composite
+from gfnerf_tpu_torch.ops.scan_march import scan_march
 from gfnerf_tpu_torch.sampler.fast_march import get_samples_fast
 from gfnerf_tpu_torch.sampler.perssampler import (
     OctreeDevice,
@@ -129,11 +132,16 @@ class GFNeRFModelConfig:
 
 def sample_rays(oct_dev: OctreeDevice, rays_o, rays_d, noise_unscaled,
                 fineness, scfg: SamplerConfig) -> WarpedSamples:
-    """The leaf-list march; noise_unscaled in [0.5, 1.5]."""
-    if scfg.march != "fast":
-        raise NotImplementedError("only the fast (leaf-list) march is ported")
-    return get_samples_fast(oct_dev, rays_o, rays_d, noise_unscaled,
-                            fineness, scfg)
+    """The vectorized leaf-list march ("fast") or the sequential
+    point-location march ("scan", which fills ``warp_pts``);
+    noise_unscaled in [0.5, 1.5]."""
+    if scfg.march == "fast":
+        return get_samples_fast(oct_dev, rays_o, rays_d, noise_unscaled,
+                                fineness, scfg)
+    if scfg.march != "scan":
+        raise ValueError(f"unknown march {scfg.march!r}")
+    return scan_march(oct_dev, rays_o, rays_d, noise_unscaled * fineness,
+                      scfg)
 
 
 def warp_or_identity(field_cfg: FieldConfig, oct_dev: OctreeDevice,
@@ -179,7 +187,9 @@ def compact_samples(samples: WarpedSamples, budget: int,
     equal indices, and with all pads on one ray (the JAX package's
     ``safe // s``) a march of few valid samples, the first steps' at
     fineness 16, spent 1.37 s of a 1.47 s step there on an H100.  The
-    points are warped as ``field_cfg`` says (``warp_or_identity``)."""
+    scan march's ``warp_pts`` are gathered; after the fast march, which
+    leaves them None, the points are warped as ``field_cfg`` says
+    (``warp_or_identity``)."""
     r, s = samples.trans_idx.shape
     with span("compact"):
         idx = compact_indices(samples.valid, budget)
@@ -190,9 +200,12 @@ def compact_samples(samples: WarpedSamples, budget: int,
                                               device=idx.device) % r,
                             safe // s)
     with span("warp"):
-        warp_k = warp_or_identity(
-            field_cfg, oct_dev, anc_k.clamp(0, oct_dev.w2xz.shape[0] - 1),
-            samples.world_pts.reshape(-1, 3)[safe])
+        if samples.warp_pts is None:
+            warp_k = warp_or_identity(
+                field_cfg, oct_dev, anc_k.clamp(0, oct_dev.w2xz.shape[0] - 1),
+                samples.world_pts.reshape(-1, 3)[safe])
+        else:
+            warp_k = samples.warp_pts.reshape(-1, 3)[safe]
     return idx, anc_k, ray_k, warp_k
 
 
@@ -239,9 +252,12 @@ def model_forward(
     rays_o: Optional[torch.Tensor] = None,          # (R, 3)
     prop_u: Optional[torch.Tensor] = None,     # (R, K + 1) in [0, 1)
 ):
-    """Field + compositing for one ray batch (gfnerf.py:149-370), with the
-    deferred warp of the fast march: warped coordinates come from the
-    march's world points here.
+    """Field + compositing for one ray batch (gfnerf.py:149-370).  The
+    warped coordinates are the samples' ``warp_pts`` (the scan march's);
+    where those are None (the fast march's) they come from the world
+    points here, the JAX package's ``warp_deferred``.  The proposal branch
+    warps its t-sorted world points after either march, as the JAX
+    package's does.
 
     With ``0 < samples_budget_per_ray < S`` the field runs only on each
     ray's first ``budget`` valid samples (the reference's per-ray
@@ -321,11 +337,14 @@ def model_forward(
                      for name, val in heads_k.items()}
     else:
         with span("warp"):
-            anc = samples.trans_idx.reshape(-1).clamp(
-                0, oct_dev.w2xz.shape[0] - 1)
-            warp = warp_or_identity(field.cfg, oct_dev, anc,
-                                    samples.world_pts.reshape(-1, 3)
-                                    ).reshape(r, s, 3)
+            if samples.warp_pts is None:
+                anc = samples.trans_idx.reshape(-1).clamp(
+                    0, oct_dev.w2xz.shape[0] - 1)
+                warp = warp_or_identity(field.cfg, oct_dev, anc,
+                                        samples.world_pts.reshape(-1, 3)
+                                        ).reshape(r, s, 3)
+            else:
+                warp = samples.warp_pts
 
         def eval_rays(warp, anc, dirs, rel):
             density, geo, shared = density_fn(warp, anc)
@@ -585,8 +604,6 @@ def make_train_step(model_cfg: GFNeRFModelConfig, sampler_cfg: SamplerConfig,
     """
     if stage not in (STAGE_INIT, STAGE_BLOCK):
         raise ValueError(f"unknown stage {stage}")
-    if sampler_cfg.march != "fast":
-        raise NotImplementedError("only the fast (leaf-list) march is ported")
     block_stage = stage == STAGE_BLOCK
     frozen = frozen_groups(stage)
 

@@ -51,6 +51,7 @@ from gfnerf_tpu_torch.model_components.renderers import (
     render_rgb,
 )
 from gfnerf_tpu_torch.model_components.scene_colliders import aabb_collider
+from gfnerf_tpu_torch.models.nerfacto import to_numpy_tree
 from gfnerf_tpu_torch.utils.profiling import span
 
 # the occupancy grid is updated before the step of every 16th
@@ -119,16 +120,8 @@ def params_from_jax(params, statics, model_state, cfg: InstantNGPConfig,
     """An :class:`InstantNGPModel` holding the JAX package's params,
     statics and model_state dicts, whose leaves convert with
     ``np.asarray``."""
-
-    def conv(x):
-        if isinstance(x, dict):
-            return {k: conv(v) for k, v in x.items()}
-        if isinstance(x, (list, tuple)):
-            return [conv(v) for v in x]
-        return np.asarray(x)
-
-    return InstantNGPModel(cfg, conv(params), conv(statics),
-                           conv(model_state), device)
+    return InstantNGPModel(cfg, to_numpy_tree(params), to_numpy_tree(statics),
+                           to_numpy_tree(model_state), device)
 
 
 def _aabb(cfg: InstantNGPConfig, device) -> torch.Tensor:

@@ -18,10 +18,16 @@ and H5 table gradient on the card), as the JAX package's
 package's order, so that one seed gives both packages the same bits;
 :class:`NerfactoModel` holds them as ``nn.Parameter``s (the hash primes and
 biases as buffers).  The losses are nerfacto's (MSE, interlevel, distortion)
-and depth-nerfacto's DS-NeRF depth term.  Mip-NeRF and vanilla NeRF, in the
-same JAX module, are not ported: their settings (``MipNerfConfig``,
-``VanillaNerfConfig``) are kept so that a vanilla pipeline's config
-round-trips.
+and depth-nerfacto's DS-NeRF depth term.
+
+The second half of the JAX module, vanilla NeRF and mip-NeRF: vanilla
+NeRF's coarse and fine frequency-encoded MLPs between fixed near and far
+planes (the fine pass resamples by the coarse weights and keeps the coarse
+edges, ``pdf_sample(..., include_original=True)``); mip-NeRF's integrated
+positional encoding over each bin's conical frustum, one shared MLP for
+both levels, its cones' radius from the rays' pixel area.  Their random
+draws are tensors the caller passes (the stratification, then the
+resampling), as nerfacto's are.
 """
 
 from __future__ import annotations
@@ -31,11 +37,14 @@ from typing import List, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from gfnerf_tpu_torch.cameras.rays import get_weights_f2nerf
 from gfnerf_tpu_torch.fields.activations import trunc_exp
-from gfnerf_tpu_torch.fields.hash_encoding import hash_encode, init_hash_params
+from gfnerf_tpu_torch.fields.encodings import nerf_frequency_encode
+from gfnerf_tpu_torch.fields.hash_encoding import (_fma, hash_encode,
+                                                   init_hash_params)
 from gfnerf_tpu_torch.fields.mlp import MLP, apply_mlp, init_mlp
 from gfnerf_tpu_torch.fields.sh_encoding import sh_encode_deg4
 from gfnerf_tpu_torch.model_components.losses import (
@@ -44,7 +53,9 @@ from gfnerf_tpu_torch.model_components.losses import (
     interlevel_loss,
     mse_loss,
 )
-from gfnerf_tpu_torch.model_components.ray_samplers import proposal_sample
+from gfnerf_tpu_torch.model_components.ray_samplers import (pdf_sample,
+                                                           proposal_sample,
+                                                           spaced_sample)
 from gfnerf_tpu_torch.model_components.renderers import (
     render_accumulation,
     render_expected_depth,
@@ -80,8 +91,7 @@ class NerfactoConfig:
 
 @dataclasses.dataclass
 class VanillaNerfConfig:
-    """Vanilla NeRF's settings (not ported: kept for the config's round
-    trip)."""
+    """Vanilla NeRF's settings."""
 
     near_plane: float = 2.0
     far_plane: float = 6.0
@@ -95,8 +105,7 @@ class VanillaNerfConfig:
 
 @dataclasses.dataclass
 class MipNerfConfig:
-    """Mip-NeRF's settings (not ported: kept for the config's round
-    trip)."""
+    """Mip-NeRF's settings."""
 
     near_plane: float = 2.0
     far_plane: float = 6.0
@@ -186,20 +195,23 @@ class NerfactoModel(nn.Module):
                 getattr(self, f"prop_bias_{level}"))
 
 
+def to_numpy_tree(x):
+    """A JAX package's params tree (dicts and lists of arrays) with every
+    leaf as a numpy array."""
+    if isinstance(x, dict):
+        return {k: to_numpy_tree(v) for k, v in x.items()}
+    if isinstance(x, (list, tuple)):
+        return [to_numpy_tree(v) for v in x]
+    return np.asarray(x)
+
+
 def nerfacto_params_from_jax(params, statics, cfg: NerfactoConfig,
                              device="cuda") -> NerfactoModel:
     """A :class:`NerfactoModel` holding the JAX package's nerfacto (or
     semantic-nerfw) params and statics dicts, whose leaves convert with
     ``np.asarray``."""
-
-    def conv(x):
-        if isinstance(x, dict):
-            return {k: conv(v) for k, v in x.items()}
-        if isinstance(x, (list, tuple)):
-            return [conv(v) for v in x]
-        return np.asarray(x)
-
-    return NerfactoModel(cfg, conv(params), conv(statics), device)
+    return NerfactoModel(cfg, to_numpy_tree(params), to_numpy_tree(statics),
+                         device)
 
 
 def normalize_positions(pos: torch.Tensor,
@@ -324,3 +336,269 @@ def depth_nerfacto_loss(model: NerfactoModel, rays_o, rays_d, rel, target,
             out["weights"], depth_gt, mid, lengths)
         total = total + losses["depth_loss"]
     return total, (losses, out)
+
+
+# ------------------------------------------------------------ vanilla NeRF ----
+
+
+class NerfMLPs(nn.Module):
+    """One NeRF field's three MLPs: ``mlp1`` (the encoded position to a
+    hidden code), ``mlp2`` (the code and the encoding again to density and
+    features), ``head`` (the features and the encoded direction to
+    colour)."""
+
+    def __init__(self, params: dict, device="cuda"):
+        super().__init__()
+        self.mlp1 = MLP(params["mlp1"], device)
+        self.mlp2 = MLP(params["mlp2"], device)
+        self.head = MLP(params["head"], device)
+
+
+def _nerf_mlps_params(rng: np.random.Generator, pos_dim: int, dir_dim: int,
+                      hidden: int) -> dict:
+    return {"mlp1": init_mlp(rng, pos_dim, hidden, hidden, 3),
+            "mlp2": init_mlp(rng, hidden + pos_dim, hidden + 1, hidden, 3),
+            "head": init_mlp(rng, hidden + dir_dim, 3, hidden // 2, 0)}
+
+
+def init_vanilla_params(cfg: VanillaNerfConfig, seed: int = 0) -> dict:
+    """{"coarse": ..., "fine": ...}, each {mlp1, mlp2, head}, numpy, drawn
+    from ``default_rng(seed)`` in the JAX package's order."""
+    rng = np.random.default_rng(seed)
+    pos_dim = 3 * cfg.pos_frequencies * 2 + 3
+    dir_dim = 3 * cfg.dir_frequencies * 2 + 3
+    return {level: _nerf_mlps_params(rng, pos_dim, dir_dim, cfg.hidden_dim)
+            for level in ("coarse", "fine")}
+
+
+class VanillaNerfModel(nn.Module):
+    """Vanilla NeRF: the coarse and the fine field."""
+
+    def __init__(self, cfg: VanillaNerfConfig, params: dict, device="cuda"):
+        super().__init__()
+        self.cfg = cfg
+        self.coarse = NerfMLPs(params["coarse"], device)
+        self.fine = NerfMLPs(params["fine"], device)
+
+
+def vanilla_params_from_jax(params, cfg: VanillaNerfConfig,
+                            device="cuda") -> VanillaNerfModel:
+    """A :class:`VanillaNerfModel` holding the JAX package's params."""
+    return VanillaNerfModel(cfg, to_numpy_tree(params), device)
+
+
+def _vanilla_field(mlps: NerfMLPs, cfg: VanillaNerfConfig, pos, dirs):
+    """Density (P,) and colour (P, 3) at positions and directions (P,
+    3)."""
+    pe = nerf_frequency_encode(pos, cfg.pos_frequencies, 0.0,
+                               cfg.pos_frequencies - 1, include_input=True)
+    de = nerf_frequency_encode(dirs, cfg.dir_frequencies, 0.0,
+                               cfg.dir_frequencies - 1, include_input=True)
+    h = torch.relu(apply_mlp(mlps.mlp1, pe))
+    h2 = apply_mlp(mlps.mlp2, torch.cat([h, pe], -1))
+    density = torch.relu(h2[..., 0])
+    feat = torch.relu(h2[..., 1:])
+    rgb = apply_mlp(mlps.head, torch.cat([feat, de], -1),
+                    output_activation="sigmoid")
+    return density, rgb
+
+
+def _render_level(w, rgb_s, mid, background: str) -> dict:
+    return {"rgb": render_rgb(w, rgb_s, background),
+            "accumulation": render_accumulation(w),
+            "depth": render_expected_depth(w, mid), "weights": w}
+
+
+def _draw(draws, i):
+    return None if draws is None else draws[i]
+
+
+def vanilla_forward(model: VanillaNerfModel, rays_o: torch.Tensor,
+                    rays_d: torch.Tensor,
+                    draws: Optional[List[torch.Tensor]] = None) -> dict:
+    """Render (R,) rays between the near and far planes: {"coarse": ...,
+    "fine": ...}, each rgb (R, 3), accumulation and depth (R, 1), weights.
+    ``draws``: None (eval: even coarse bins, each fine edge at its
+    stratum's middle), or the coarse stratification (R, n_coarse + 1) and
+    the fine resampling's (R, n_importance + 1), uniform in [0, 1)."""
+    cfg = model.cfg
+    r = rays_o.shape[0]
+    nears, fars = near_far_collider(rays_o, rays_d, cfg.near_plane,
+                                    cfg.far_plane)
+    outs = {}
+    with span("rays"):
+        bs, be, ss, se = spaced_sample(nears, fars, cfg.num_coarse_samples,
+                                       jitter=_draw(draws, 0))
+    for level in ("coarse", "fine"):
+        with span("rays"):
+            if level == "fine":
+                ss, se = pdf_sample(ss, se, outs["coarse"]["weights"],
+                                    cfg.num_importance_samples,
+                                    _draw(draws, 1), include_original=True)
+                bs = ss * fars + (1 - ss) * nears
+                be = se * fars + (1 - se) * nears
+            mid = (bs + be) / 2.0
+            # o + t d as one multiply-add, as XLA compiles the JAX
+            # package's: the encoding's 2^9 multiplies an ulp here
+            pos = _fma(mid[..., None], rays_d[:, None, :],
+                       rays_o[:, None, :])
+            dirs = rays_d[:, None, :].expand(pos.shape)
+        with span("base_mlp"):
+            density, rgb_s = _vanilla_field(getattr(model, level), cfg,
+                                            pos.reshape(-1, 3),
+                                            dirs.reshape(-1, 3))
+        with span("composite"):
+            w = get_weights_f2nerf(be - bs, density.reshape(r, -1))[0]
+            outs[level] = _render_level(w, rgb_s.reshape(r, -1, 3), mid,
+                                        cfg.background_color)
+    return outs
+
+
+def vanilla_loss(model: VanillaNerfModel, rays_o, rays_d, target,
+                 draws=None):
+    """(total, (losses, outputs)): the coarse and the fine MSE."""
+    outs = vanilla_forward(model, rays_o, rays_d, draws)
+    with span("loss"):
+        losses = {"rgb_loss_coarse": mse_loss(outs["coarse"]["rgb"], target),
+                  "rgb_loss_fine": mse_loss(outs["fine"]["rgb"], target)}
+        total = sum(losses.values())
+    return total, (losses, outs)
+
+
+# ------------------------------------------------------------------ mipnerf ----
+
+
+def integrated_pos_enc(means: torch.Tensor, covs_diag: torch.Tensor,
+                       num_frequencies: int) -> torch.Tensor:
+    """mip-NeRF's integrated positional encoding of Gaussians (means and
+    diagonal covariances (..., 3)): E[sin(2^j x)] = sin(2^j mu) exp(-0.5
+    4^j sigma^2), and the cosines likewise; (..., 6 F), per frequency the
+    three sines then the three cosines."""
+    freqs = torch.pow(2.0, torch.arange(num_frequencies, dtype=torch.float32,
+                                        device=means.device))
+    scaled = means[..., None, :] * freqs[:, None]             # (..., F, 3)
+    var = covs_diag[..., None, :] * (freqs[:, None] ** 2)
+    damp = torch.exp(-0.5 * var)
+    enc = torch.cat([torch.sin(scaled) * damp, torch.cos(scaled) * damp],
+                    dim=-1)
+    return enc.reshape(*means.shape[:-1], -1)
+
+
+def conical_frustum_gaussian(rays_o, rays_d, starts, ends, radius):
+    """The mean and diagonal covariance (R, S, 3) of each bin's conical
+    frustum (mip-NeRF section 3.1), radius (R,) the cone's at unit
+    distance."""
+    mu = (starts + ends) / 2.0
+    hw = (ends - starts) / 2.0
+    common = hw ** 2 / torch.clamp(3 * mu ** 2 + hw ** 2, min=1e-10)
+    t_mean = mu + 2 * mu * common
+    t_var = hw ** 2 / 3 - (4 / 15) * (hw ** 4 * (12 * mu ** 2 - hw ** 2)
+                                      / torch.clamp((3 * mu ** 2 + hw ** 2)
+                                                    ** 2, min=1e-10))
+    r_var = radius[..., None] ** 2 * (
+        mu ** 2 / 4 + (5 / 12) * hw ** 2
+        - (4 / 15) * hw ** 4 / torch.clamp(3 * mu ** 2 + hw ** 2, min=1e-10))
+    means = rays_o[:, None, :] + t_mean[..., None] * rays_d[:, None, :]
+    d2 = (rays_d ** 2)[:, None, :]
+    d_norm2 = torch.sum(d2, dim=-1, keepdim=True)
+    covs = (t_var[..., None] * d2
+            + r_var[..., None] * (1.0 - d2 / torch.clamp(d_norm2, min=1e-10)))
+    return means, covs
+
+
+def init_mipnerf_params(cfg: MipNerfConfig, seed: int = 0) -> dict:
+    """{mlp1, mlp2, head} of the one MLP both levels share, numpy, drawn
+    from ``default_rng(seed)`` in the JAX package's order."""
+    rng = np.random.default_rng(seed)
+    return _nerf_mlps_params(rng, 3 * cfg.num_frequencies * 2,
+                             3 * cfg.dir_frequencies * 2 + 3, cfg.hidden_dim)
+
+
+class MipNerfModel(NerfMLPs):
+    """mip-NeRF: one field for both levels."""
+
+    def __init__(self, cfg: MipNerfConfig, params: dict, device="cuda"):
+        super().__init__(params, device)
+        self.cfg = cfg
+
+
+def mipnerf_params_from_jax(params, cfg: MipNerfConfig,
+                            device="cuda") -> MipNerfModel:
+    """A :class:`MipNerfModel` holding the JAX package's params."""
+    return MipNerfModel(cfg, to_numpy_tree(params), device)
+
+
+def _mipnerf_level(model: MipNerfModel, rays_o, rays_d, radius, bs,
+                   be) -> dict:
+    cfg = model.cfg
+    with span("rays"):
+        means, covs = conical_frustum_gaussian(rays_o, rays_d, bs, be,
+                                               radius)
+    with span("encode"):
+        pe = integrated_pos_enc(means, covs, cfg.num_frequencies)
+        de = nerf_frequency_encode(rays_d[:, None, :].expand(means.shape),
+                                   cfg.dir_frequencies, 0.0,
+                                   cfg.dir_frequencies - 1,
+                                   include_input=True)
+    with span("base_mlp"):
+        h = torch.relu(apply_mlp(model.mlp1, pe))
+        h2 = apply_mlp(model.mlp2, torch.cat([h, pe], -1))
+        density = F.softplus(h2[..., 0] - 1.0)
+        feat = torch.relu(h2[..., 1:])
+        rgb = apply_mlp(model.head, torch.cat([feat, de], -1),
+                        output_activation="sigmoid")
+    with span("composite"):
+        w = get_weights_f2nerf(be - bs, density)[0]
+        return _render_level(w, rgb, (bs + be) / 2.0, cfg.background_color)
+
+
+def cone_radius(pixel_area: Optional[torch.Tensor], r: int,
+                device) -> torch.Tensor:
+    """Each ray's cone radius at unit distance: sqrt(pixel area) / sqrt(3)
+    (the division by the constant a multiply by its f32 reciprocal, as XLA
+    compiles it), or 1e-3 without a pixel area (the JAX package's eval and
+    render pass none)."""
+    if pixel_area is None:
+        return torch.full((r,), 1e-3, device=device)
+    inv = float(np.float32(1.0) / np.float32(1.7320508))
+    return torch.sqrt(pixel_area[:, 0]) * inv
+
+
+def mipnerf_forward(model: MipNerfModel, rays_o: torch.Tensor,
+                    rays_d: torch.Tensor,
+                    pixel_area: Optional[torch.Tensor] = None,
+                    draws: Optional[List[torch.Tensor]] = None) -> dict:
+    """Render (R,) rays: {"coarse": ..., "fine": ...} as
+    :func:`vanilla_forward`'s, both levels through the one MLP, the fine
+    bins resampled by the coarse weights (without the coarse edges).
+    ``pixel_area`` (R, 1) sets the cones' radii (training); None gives
+    every cone radius 1e-3 (eval and render, as in the JAX package)."""
+    cfg = model.cfg
+    r = rays_o.shape[0]
+    nears, fars = near_far_collider(rays_o, rays_d, cfg.near_plane,
+                                    cfg.far_plane)
+    radius = cone_radius(pixel_area, r, rays_o.device)
+    with span("rays"):
+        bs, be, ss, se = spaced_sample(nears, fars, cfg.num_coarse_samples,
+                                       jitter=_draw(draws, 0))
+    coarse = _mipnerf_level(model, rays_o, rays_d, radius, bs, be)
+    with span("rays"):
+        ss2, se2 = pdf_sample(ss, se, coarse["weights"],
+                              cfg.num_importance_samples, _draw(draws, 1))
+        bs2 = ss2 * fars + (1 - ss2) * nears
+        be2 = se2 * fars + (1 - se2) * nears
+    fine = _mipnerf_level(model, rays_o, rays_d, radius, bs2, be2)
+    return {"coarse": coarse, "fine": fine}
+
+
+def mipnerf_loss(model: MipNerfModel, rays_o, rays_d, target,
+                 pixel_area=None, draws=None):
+    """(total, (losses, outputs)): 0.1 x the coarse MSE and the fine
+    MSE."""
+    outs = mipnerf_forward(model, rays_o, rays_d, pixel_area, draws)
+    with span("loss"):
+        losses = {
+            "rgb_loss_coarse": 0.1 * mse_loss(outs["coarse"]["rgb"], target),
+            "rgb_loss_fine": mse_loss(outs["fine"]["rgb"], target)}
+        total = sum(losses.values())
+    return total, (losses, outs)

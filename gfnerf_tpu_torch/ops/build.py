@@ -32,6 +32,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _P = ctypes.c_void_p
 _I64 = ctypes.c_longlong
 _I32 = ctypes.c_int
+_F32 = ctypes.c_float
 # C entry points: name -> argtypes (pointers and the stream as c_void_p)
 SIGNATURES = {
     "gfnerf_composite_fwd": [_P] * 9 + [_I64, _I64, _P],
@@ -42,6 +43,8 @@ SIGNATURES = {
     "gfnerf_hash_anchored_fwd": [_P, _I32] + [_P] * 8 + [_I64] + [_I32] * 5
     + [_P],
     "gfnerf_hash_anchored_bwd": [_P] * 9 + [_I64] + [_I32] * 5 + [_P],
+    "gfnerf_scan_march": [_P] * 23 + [_I64, _I32, _I32, _I32, _F32, _I32,
+                                      _F32, _F32, _P],
 }
 
 

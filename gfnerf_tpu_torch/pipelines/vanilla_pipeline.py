@@ -11,21 +11,25 @@ the model, the optimizer state, the step and the draws' generator through
 ``torch.save``, and the pixel sampler's state, so that a resumed run takes
 the batches the uninterrupted one would have taken.
 
-Ported kinds: "nerfacto", "semantic-nerfw" and "instant-ngp"
-(``models/nerfacto.py``, ``models/semantic_nerfw.py``,
-``models/instant_ngp.py``).  instant-ngp's occupancy grid is updated
+Ported kinds: "nerfacto", "semantic-nerfw", "instant-ngp",
+"vanilla-nerf", "mipnerf", "tensorf" and "neus" (``models/nerfacto.py``,
+``models/semantic_nerfw.py``, ``models/instant_ngp.py``,
+``models/tensorf.py``, ``models/neus.py``).  mip-NeRF trains on cones
+whose radius comes from the rays' pixel area; its eval and render pass
+none, so their cones have radius 1e-3, as the JAX package's do.  For
+vanilla-nerf and mip-NeRF the step's PSNR, eval and render read the fine
+level.  instant-ngp's occupancy grid is updated
 before every 16th step (``step % 16 == 0``), reports the samples the grid
 kept (``num_samples_per_batch``) and, with ``dynamic_batch``, retargets
 the rays a batch so that the kept samples approach
 ``target_num_samples``: a power of two within [256, the configured
 batch].  Unlike the JAX package's, the port's checkpoint holds the grid
 (a buffer of the model), so a resumed or evaluated run starts from the
-trained grid and not from all ones.  The JAX package's other kinds
-(vanilla-nerf, mipnerf, tensorf, neus, the nerfplayer pair) raise "not
-ported"; their settings are kept so that a run's ``config.json``
-round-trips.  The GF-NeRF pipeline's own options raise here: early
-termination
-(``enable_early_term``, ``render --early-term``) and block routing
+trained grid and not from all ones.  The JAX package's nerfplayer pair
+raises "not ported"; its settings are kept so that a run's
+``config.json`` round-trips.  The GF-NeRF pipeline's own options raise
+here: early termination (``enable_early_term``, ``render --early-term``)
+and block routing
 (``render_camera``'s ``stage``, ``force_split_idx``); its config has no
 error-map or early-termination field, so overriding one raises.
 """
@@ -51,16 +55,106 @@ from gfnerf_tpu_torch.engine.optimizers import (OptimizersConfig, OptState,
 from gfnerf_tpu_torch.engine.schedulers import optax_exponential_decay
 from gfnerf_tpu_torch.models import instant_ngp as ngp
 from gfnerf_tpu_torch.models import nerfacto as nerfacto_mod
+from gfnerf_tpu_torch.models import neus as neus_mod
 from gfnerf_tpu_torch.models import semantic_nerfw as snw
+from gfnerf_tpu_torch.models import tensorf as tensorf_mod
 from gfnerf_tpu_torch.models.instant_ngp import InstantNGPConfig
+from gfnerf_tpu_torch.models.neus import NeuSConfig
+from gfnerf_tpu_torch.models.tensorf import TensoRFConfig
 from gfnerf_tpu_torch.pipelines.pipeline import _opt_state_dict, compute_ssim
 from gfnerf_tpu_torch.utils.profiling import span
 
-PORTED_KINDS = ("nerfacto", "semantic-nerfw", "instant-ngp")
 
+@dataclasses.dataclass(frozen=True)
+class ModelKind:
+    """One model family of the vanilla pipeline: where its settings live,
+    how its model is built, its loss, its render forward and its draws."""
+
+    settings: str        # the VanillaPipelineConfig field of its settings
+    per_image: bool      # the settings take the train images' count
+    build: Callable      # (settings, seed, device) -> model
+    # (model, rays, device batch, draws) -> (total, (losses, outputs))
+    loss: Callable
+    forward: Callable    # (model, o, d, rel) -> outputs, no jitter
+    draw_counts: Callable  # settings -> the n of each (R, n + 1) draw
+    two_level: bool = False  # outputs {"coarse": ..., "fine": ...}
+    grid: bool = False   # an occupancy grid, updated every 16th step
+
+
+def _nerfacto_kind(settings: str, init, loss) -> ModelKind:
+    return ModelKind(
+        settings=settings, per_image=True,
+        build=lambda c, seed, dev: nerfacto_mod.NerfactoModel(
+            c, *init(c, seed), dev),
+        loss=loss, forward=nerfacto_mod.nerfacto_forward,
+        draw_counts=lambda c: [*c.num_proposal_samples, c.num_nerf_samples])
+
+
+def _coarse_fine(c) -> List[int]:
+    return [c.num_coarse_samples, c.num_importance_samples]
+
+
+KINDS = {
+    "nerfacto": _nerfacto_kind(
+        "nerfacto", nerfacto_mod.init_nerfacto_params,
+        lambda m, rays, b, dr: nerfacto_mod.nerfacto_loss(
+            m, rays["origins"], rays["directions"], b["rel_camera_indices"],
+            b["image"], draws=dr)),
+    "semantic-nerfw": _nerfacto_kind(
+        "semantic_nerfw", snw.init_semantic_nerfw_params,
+        lambda m, rays, b, dr: snw.semantic_nerfw_loss(
+            m, rays["origins"], rays["directions"], b["rel_camera_indices"],
+            b["image"], b.get("semantics"), draws=dr)),
+    "instant-ngp": ModelKind(
+        settings="instant_ngp", per_image=True,
+        build=lambda c, seed, dev: ngp.InstantNGPModel(
+            c, *ngp.init_instant_ngp_params(c, seed), dev),
+        loss=lambda m, rays, b, dr: ngp.instant_ngp_loss(
+            m, rays["origins"], rays["directions"], b["image"],
+            None if dr is None else dr[0]),
+        forward=lambda m, o, d, rel: ngp.instant_ngp_forward(m, o, d),
+        draw_counts=lambda c: [c.num_samples], grid=True),
+    "vanilla-nerf": ModelKind(
+        settings="vanilla", per_image=False,
+        build=lambda c, seed, dev: nerfacto_mod.VanillaNerfModel(
+            c, nerfacto_mod.init_vanilla_params(c, seed), dev),
+        loss=lambda m, rays, b, dr: nerfacto_mod.vanilla_loss(
+            m, rays["origins"], rays["directions"], b["image"], dr),
+        forward=lambda m, o, d, rel: nerfacto_mod.vanilla_forward(m, o, d),
+        draw_counts=_coarse_fine, two_level=True),
+    # mip-NeRF trains on cones of the rays' pixel area; its render passes
+    # none (cones of radius 1e-3), as the JAX package's does
+    "mipnerf": ModelKind(
+        settings="mipnerf", per_image=False,
+        build=lambda c, seed, dev: nerfacto_mod.MipNerfModel(
+            c, nerfacto_mod.init_mipnerf_params(c, seed), dev),
+        loss=lambda m, rays, b, dr: nerfacto_mod.mipnerf_loss(
+            m, rays["origins"], rays["directions"], b["image"],
+            rays["pixel_area"], dr),
+        forward=lambda m, o, d, rel: nerfacto_mod.mipnerf_forward(m, o, d),
+        draw_counts=_coarse_fine, two_level=True),
+    "tensorf": ModelKind(
+        settings="tensorf", per_image=True,
+        build=lambda c, seed, dev: tensorf_mod.TensoRFModel(
+            c, tensorf_mod.init_tensorf_params(c, seed), dev),
+        loss=lambda m, rays, b, dr: tensorf_mod.tensorf_loss(
+            m, rays["origins"], rays["directions"], b["image"], dr),
+        forward=lambda m, o, d, rel: tensorf_mod.tensorf_forward(m, o, d),
+        draw_counts=lambda c: [c.num_coarse_samples, c.num_fine_samples]),
+    "neus": ModelKind(
+        settings="neus", per_image=True,
+        build=lambda c, seed, dev: neus_mod.NeuSModel(
+            c, neus_mod.init_neus_params(c, seed), dev),
+        loss=lambda m, rays, b, dr: neus_mod.neus_loss(
+            m, rays["origins"], rays["directions"], b["image"], dr),
+        forward=lambda m, o, d, rel: neus_mod.neus_forward(m, o, d),
+        draw_counts=lambda c: [c.num_samples]),
+}
 # (step, rays) -> the step's uniform draws: nerfacto's, one array per
 # proposal level and one for the final resample
-# (ray_samplers.proposal_sample); instant-ngp's, one (R, S + 1) array
+# (ray_samplers.proposal_sample); instant-ngp's and neus's, one (R, S + 1)
+# array; vanilla-nerf's, mipnerf's and tensorf's, the coarse
+# stratification (R, S_coarse + 1) and the resampling's (R, S_fine + 1)
 VanillaDraws = Callable[[int, int], List[np.ndarray]]
 # step -> instant-ngp's occupancy jitter (g, g, g, 3)
 OccupancyDraws = Callable[[int], np.ndarray]
@@ -68,34 +162,6 @@ OccupancyDraws = Callable[[int], np.ndarray]
 
 # The settings of the kinds that are not ported, as the JAX package
 # defines them, kept so that config.json round-trips.
-
-@dataclasses.dataclass
-class TensoRFConfig:
-    aabb_scale: float = 1.5
-    resolution: int = 128
-    density_channels: int = 16
-    appearance_channels: int = 24
-    appearance_dim: int = 27
-    num_coarse_samples: int = 128
-    num_fine_samples: int = 64
-    hidden_dim: int = 128
-    background_color: str = "white"
-    l1_mult: float = 5e-4
-    num_images: int = 1
-
-
-@dataclasses.dataclass
-class NeuSConfig:
-    scene_radius: float = 3.0
-    num_samples: int = 96
-    pos_frequencies: int = 6
-    dir_frequencies: int = 4
-    hidden_dim: int = 256
-    geo_feat_dim: int = 64
-    eikonal_mult: float = 0.1
-    background_color: str = "white"
-    num_images: int = 1
-
 
 @dataclasses.dataclass
 class NerfplayerConfig:
@@ -204,10 +270,10 @@ class VanillaPipeline:
         None draws them from a ``torch.Generator`` seeded with
         ``config.seed``."""
         kind = config.model_kind
-        if kind not in PORTED_KINDS:
+        if kind not in KINDS:
             raise NotImplementedError(
                 f"model kind {kind!r} is not ported; ported: "
-                f"{list(PORTED_KINDS)}")
+                f"{list(KINDS)}")
         self.config = config
         self.base_dir = Path(base_dir)
         self.device = torch.device(device)
@@ -224,27 +290,12 @@ class VanillaPipeline:
         self.eval_cameras_dev = self.eval_outputs.cameras.to_device(
             self.device)
         n_images = len(self.train_outputs.cameras)
-        self.semantic = kind == "semantic-nerfw"
-        self.ngp = kind == "instant-ngp"
-        if self.ngp:
-            mcfg = dataclasses.replace(config.instant_ngp,
-                                       num_images=n_images)
-            self.model = ngp.InstantNGPModel(
-                mcfg, *ngp.init_instant_ngp_params(mcfg, config.seed),
-                self.device)
-        else:
-            if self.semantic:
-                mcfg = dataclasses.replace(config.semantic_nerfw,
-                                           num_images=n_images)
-                params, statics = snw.init_semantic_nerfw_params(
-                    mcfg, config.seed)
-            else:
-                mcfg = dataclasses.replace(config.nerfacto,
-                                           num_images=n_images)
-                params, statics = nerfacto_mod.init_nerfacto_params(
-                    mcfg, config.seed)
-            self.model = nerfacto_mod.NerfactoModel(mcfg, params, statics,
-                                                    self.device)
+        self.kind = kind
+        self.spec = KINDS[kind]
+        mcfg = getattr(config, self.spec.settings)
+        if self.spec.per_image:
+            mcfg = dataclasses.replace(mcfg, num_images=n_images)
+        self.model = self.spec.build(mcfg, config.seed, self.device)
         self.model_cfg = mcfg
         self.tx = PerGroupAdam(
             OptimizersConfig(adam_eps=1e-15),
@@ -281,15 +332,15 @@ class VanillaPipeline:
     def _step_draws(self, step: int, r: int) -> List[torch.Tensor]:
         """The step's uniform draws: injected, or from the generator.
         nerfacto's: (R, n + 1) for each proposal level's n samples and the
-        final resample's; instant-ngp's: (R, S + 1), the stratification."""
+        final resample's; instant-ngp's and neus's: (R, S + 1), the
+        stratification; vanilla-nerf's, mipnerf's and tensorf's: the
+        coarse stratification's and the resampling's."""
         if self.draws is not None:
             return [torch.as_tensor(np.asarray(x), device=self.device)
                     for x in self.draws(step, r)]
-        counts = ([self.model_cfg.num_samples] if self.ngp
-                  else [*self.model_cfg.num_proposal_samples,
-                        self.model_cfg.num_nerf_samples])
         return [torch.rand((r, n + 1), generator=self.generator,
-                           device=self.device) for n in counts]
+                           device=self.device)
+                for n in self.spec.draw_counts(self.model_cfg)]
 
     def update_occupancy(self, step: int) -> None:
         """instant-ngp's grid update with this step's jitter (injected, or
@@ -308,16 +359,7 @@ class VanillaPipeline:
             rays = generate_rays_multi(self.cameras_dev,
                                        batch["camera_indices"],
                                        batch["coords"])
-        if self.ngp:
-            return ngp.instant_ngp_loss(
-                self.model, rays["origins"], rays["directions"],
-                batch["image"], None if draws is None else draws[0])
-        args = (self.model, rays["origins"], rays["directions"],
-                batch["rel_camera_indices"], batch["image"])
-        if self.semantic:
-            return snw.semantic_nerfw_loss(*args, batch.get("semantics"),
-                                           draws=draws)
-        return nerfacto_mod.nerfacto_loss(*args, draws=draws)
+        return self.spec.loss(self.model, rays, batch, draws)
 
     def get_train_loss_dict(self, step: int) -> dict:
         """One step; the metrics come back in one device-to-host copy.
@@ -326,7 +368,7 @@ class VanillaPipeline:
         self.cache.step()
         batch = self._device_batch(self.pixel_sampler.sample(self.cache))
         draws = self._step_draws(step, batch["image"].shape[0])
-        if self.ngp and step % ngp.OCC_UPDATE_EVERY == 0:
+        if self.spec.grid and step % ngp.OCC_UPDATE_EVERY == 0:
             self.update_occupancy(step)
         self.model.zero_grad(set_to_none=True)
         total, (losses, out) = self.loss(batch, draws)
@@ -341,7 +383,8 @@ class VanillaPipeline:
         self.state = VanillaState(model=self.model, opt_state=opt_state,
                                   step=self.state.step + 1)
         with torch.no_grad():
-            mse = torch.mean((out["rgb"] - batch["image"]) ** 2)
+            rgb = (out["fine"] if self.spec.two_level else out)["rgb"]
+            mse = torch.mean((rgb - batch["image"]) ** 2)
             metrics = {"loss": total.detach(),
                        **{k: v.detach() for k, v in losses.items()},
                        "psnr": -10.0 * torch.log10(mse + 1e-12)}
@@ -378,13 +421,13 @@ class VanillaPipeline:
                     rel_camera_index: int = 0) -> dict:
         """rgb, accumulation and depth of a chunk of rays (no jitter; for
         nerfacto the appearance of image ``rel_camera_index``, 0 as in the
-        JAX package; instant-ngp through its grid)."""
-        if self.ngp:
-            out = ngp.instant_ngp_forward(self.model, rays_o, rays_d)
-            return {k: out[k] for k in ("rgb", "accumulation", "depth")}
+        JAX package; instant-ngp through its grid; vanilla-nerf's and
+        mip-NeRF's fine level, mip-NeRF's cones of radius 1e-3)."""
         rel = torch.full((rays_o.shape[0],), int(rel_camera_index),
                          dtype=torch.int64, device=rays_o.device)
-        out = nerfacto_mod.nerfacto_forward(self.model, rays_o, rays_d, rel)
+        out = self.spec.forward(self.model, rays_o, rays_d, rel)
+        if self.spec.two_level:
+            out = out["fine"]
         return {k: out[k] for k in ("rgb", "accumulation", "depth")}
 
     def render_camera(self, cameras_host, cameras_dev, camera_idx: int,

@@ -62,6 +62,10 @@ class PersSamplerManagerConfig:
     # 1024-intersection bound (PersSampler_cuda.cu:7-9)
     max_hits: int = 64
     auto_max_hits: bool = True
+    # the march the train and render functions take: "fast" (leaf-list) or
+    # "scan" (sequential point location, the reference's own semantics);
+    # the calibrations march with the fast march, as the JAX package's do
+    march: str = "fast"
 
 
 class PersSamplerManager:
@@ -122,6 +126,8 @@ class PersSamplerManager:
             sample_l=sample_l,
             scale_by_dis=config.scale_by_dis,
             global_near=config.global_near,
+            locate_iters=config.max_level + 8,
+            march=config.march,
             max_hits=self._calibrate_max_hits(config.max_hits),
         )
 

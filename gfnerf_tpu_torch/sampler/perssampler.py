@@ -5,19 +5,24 @@ Port of ``gfnerf_tpu/sampler/perssampler.py``: the padded device octree
 mutable state back to the host tree (``octree_from_device``), the tree cut
 of the hierarchical march, and the perspective warp ``warp_points`` with its
 Jacobian-direction norm, the occupancy statistics of the init stage
-(``update_oct_nodes``) and the march-fineness anneal
-(``ray_march_fineness``).  The scan march (``get_samples``/
-``locate_points``) is not ported yet.
+(``update_oct_nodes``), the march-fineness anneal (``ray_march_fineness``),
+the scan march (``get_samples`` with its top-down point location
+``locate_points``: the plain version of kernel M1,
+``ops/scan_march.py``) and the TV-loss edge samples
+(``get_edge_samples``).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import sys
+from typing import Optional
 
 import numpy as np
 import torch
 
+from gfnerf_tpu_torch.cameras.rays import WarpedSamples
+from gfnerf_tpu_torch.fields.hash_encoding import _fma
 from gfnerf_tpu_torch.sampler.octree import PersOctree
 
 INIT_NODE_STAT = 1000  # PersSampler.h:14
@@ -62,15 +67,18 @@ class OctreeDevice:
 @dataclasses.dataclass(frozen=True)
 class SamplerConfig:
     """Sampling hyper-parameters (gfnerf/perssampler.py:48-76): the fields
-    of the JAX ``SamplerConfig`` that the fast march reads, with its
-    defaults.  ``global_far`` and ``locate_iters`` join with the scan march
-    and ``locate_points``."""
+    of the JAX ``SamplerConfig``, with its defaults.  ``global_far`` and
+    ``locate_iters`` (the descent's depth bound, at least the tree's) are
+    read by the scan march alone; ``max_hits``, ``ray_chunk`` and
+    ``coarse_hits`` by the fast march alone."""
 
     max_samples: int = 1024     # MAX_SAMPLE_PER_RAY
     sample_l: float = 1.0 / 256
     scale_by_dis: bool = True
     global_near: float = 0.01
-    march: str = "fast"         # only the leaf-list march is ported
+    global_far: float = 1e8
+    locate_iters: int = 24      # >= max tree depth
+    march: str = "fast"         # "fast" (leaf-list) | "scan" (sequential)
     max_hits: int = 64          # leaf hits per ray (fast march)
     ray_chunk: int = 1024       # slab-test ray chunking
     coarse_hits: int = 0        # hierarchical march (0 = brute force)
@@ -261,6 +269,199 @@ def warp_jacobian_dir(oct: OctreeDevice, trans: torch.Tensor, p: torch.Tensor,
                           p, d)
 
 
+# ---------------------------------------------------------------- scan ----
+
+
+def locate_points(oct: OctreeDevice, p: torch.Tensor, locate_iters: int):
+    """Top-down point location for a batch of points (perssampler.py:236).
+
+    p: (R, 3).  Returns (node (R,), cube centre (R, 3), cube side (R,),
+    trans (R,), block (R,)), the indices int64.  Each of ``locate_iters``
+    levels takes the child octant of ``p >= c``; a missing child ends the
+    descent at that (empty) octant's cube with trans and block -1.  The
+    loop stops once every point is done: later levels change nothing."""
+    r = p.shape[0]
+    dev = p.device
+    u = torch.zeros(r, dtype=torch.int64, device=dev)
+    c = oct.centers[0].expand(r, 3)
+    s = oct.side_lens[0].expand(r)
+    done = torch.zeros(r, dtype=torch.bool, device=dev)
+    virt = torch.zeros_like(done)
+    for _ in range(locate_iters):
+        leaf = oct.is_leaf[u]
+        bits = p >= c
+        oct_id = (bits[:, 0].long() * 4 + bits[:, 1].long() * 2
+                  + bits[:, 2].long())
+        child = oct.childs[u, oct_id].long()
+        has_child = child >= 0
+        descend = ~done & ~leaf
+        offset = bits.to(p.dtype) - 0.5
+        c = torch.where(descend[:, None], c + s[:, None] * 0.5 * offset, c)
+        s = torch.where(descend, s * 0.5, s)
+        u = torch.where(descend & has_child, child, u)
+        virt = virt | (descend & ~has_child)
+        done = done | leaf | (descend & ~has_child)
+        if bool(done.all()):
+            break
+    trans = torch.where(virt | ~oct.is_leaf[u], -1, oct.trans_idx[u].long())
+    block = torch.where(virt, -1, oct.block_idx[u].long())
+    return u, c, s, trans, block
+
+
+def _ray_aabb(o, d, center, side):
+    """Slab test (near, far) (R,) of rays o, d (R, 3) against cubes center
+    (R, 3), side (R,)."""
+    hf = side[:, None] * 0.5
+    small = torch.where(d >= 0, 1e-10, -1e-10)
+    inv = 1.0 / torch.where(d.abs() < 1e-10, small, d)
+    t0 = (center - hf - o) * inv
+    t1 = (center + hf - o) * inv
+    return (torch.amax(torch.minimum(t0, t1), dim=-1),
+            torch.amin(torch.maximum(t0, t1), dim=-1))
+
+
+def _norm3(v: torch.Tensor) -> torch.Tensor:
+    """The length of (..., 3) vectors: x x, then y y and z z added by
+    multiply-adds (as XLA:CPU contracts them in the JAX package's jitted
+    march, and as kernel M1 forms them with ``fmaf``)."""
+    x = v[..., 0] * v[..., 0]
+    x = _fma(v[..., 1], v[..., 1], x)
+    return torch.sqrt(_fma(v[..., 2], v[..., 2], x))
+
+
+def _weighted3_seq(wf: torch.Tensor, v: torch.Tensor) -> list:
+    """``_weighted3`` summed by multiply-adds in the order of the 12
+    projections (the order kernel M1 sums in)."""
+    out = []
+    for c in range(3):
+        acc = wf[..., c * 12] * v[..., 0]
+        for k in range(1, 12):
+            acc = _fma(wf[..., c * 12 + k], v[..., k], acc)
+        out.append(acc)
+    return out
+
+
+def _scan_warp(oct: OctreeDevice, trc: torch.Tensor, p: torch.Tensor,
+               d: torch.Tensor):
+    """(warped points (R, 3), ||J(p) . d|| (R,)) at clamped anchors trc:
+    ``warp_points`` and ``warp_jacobian_dir`` with their sums taken in a
+    fixed order."""
+    g = oct.w2xz_flat[trc]
+    wf = oct.warp_weight_flat[trc]
+    a, b = _proj_terms(g, p)
+    ad, bd = _dir_terms(g, d)
+    jd = _weighted3_seq(wf, ad / b - (a / (b * b)) * bd)
+    jn = torch.sqrt(jd[0] ** 2 + jd[1] ** 2 + jd[2] ** 2)
+    return torch.stack(_weighted3_seq(wf, a / b), dim=-1), jn
+
+
+def get_samples(oct: OctreeDevice, rays_o: torch.Tensor, rays_d: torch.Tensor,
+                noise: torch.Tensor, cfg: SamplerConfig) -> WarpedSamples:
+    """The scan march (``get_samples``, perssampler.py:337-429; the
+    reference's ``PersSampler::GetSamples``, PersSampler_cuda.cu:321-477):
+    one sequential march per ray over the S = noise.shape[1] slots, the
+    plain version of kernel M1.
+
+    noise (R, S) is the per-slot march noise already times the fineness.
+    Each slot locates its point ``o + t d`` top-down (``locate_points``);
+    in a valid leaf it steps ``sample_l * noise / |J.d|`` (times the
+    distance scale), the warp-space delta being ``sample_l * noise``; in an
+    empty region it skips past the cube's exit in whole steps of the last
+    step taken (quantized skip).  The first valid-leaf slot of a ray is
+    consumed without being emitted, and empty regions use up slots too, as
+    in the JAX package, whose distribution of samples matches the
+    reference's.  Returns fixed-shape (R, S) samples with ``warp_pts``."""
+    r, s_slots = noise.shape
+    d = rays_d / _norm3(rays_d)[:, None]
+    o = rays_o
+    n_trans = oct.w2xz.shape[0]
+    root_near, root_far = _ray_aabb(o, d, oct.centers[0].expand(r, 3),
+                                    oct.side_lens[0].expand(r))
+    t = torch.clamp(root_near, min=cfg.global_near)
+    alive = (root_near < root_far) & (root_far > cfg.global_near)
+    t_end = torch.clamp(root_far, max=cfg.global_far)
+    prev_step = torch.zeros_like(t)
+    first = torch.ones_like(alive)
+    first_oct = torch.full_like(t, 1e9)
+    outs = []
+    for i in range(s_slots):
+        p = _fma(t[:, None], d, o)
+        u, cc, cs, trans, block = locate_points(oct, p, cfg.locate_iters)
+        valid_leaf = trans >= 0
+        trc = trans.clamp(0, n_trans - 1)
+        warp_p, jn = _scan_warp(oct, trc, p, d)
+        jnorm = jn + 1e-6
+        radius = torch.clamp(_norm3(o - oct.t_center[trc])
+                             / oct.t_dis_summary[trc], min=1.0)
+        step_world = cfg.sample_l * noise[:, i] / jnorm
+        if cfg.scale_by_dis:
+            step_world = step_world * radius
+        emit = alive & valid_leaf & ~first
+        dt = step_world * jnorm                 # warp-space delta (cu:285)
+        # the first valid leaf's entry distance (cu:229-234)
+        cube_near, cube_far = _ray_aabb(o, d, cc, cs)
+        hit_first = alive & valid_leaf & (first_oct >= 1e8)
+        first_oct = torch.where(
+            hit_first, torch.clamp(cube_near, min=cfg.global_near),
+            first_oct)
+        # a valid leaf: one step; an empty region: a quantized skip past
+        # the cube's exit (cu:295-305)
+        exit_t = torch.maximum(cube_far, t) + 1e-4 * cs
+        q = torch.clamp(torch.ceil((exit_t - t)
+                                   / torch.clamp(prev_step, min=1e-8)),
+                        min=1.0)
+        skip_t = torch.where(prev_step > 0, t + prev_step * q, exit_t)
+        t_next = torch.where(valid_leaf, t + step_world, skip_t)
+        outs.append((p, warp_p, dt, t, trans, u, block, emit))
+        prev_step = torch.where(valid_leaf, step_world, prev_step)
+        first = first & ~(alive & valid_leaf)
+        alive = alive & (t_next < t_end)
+        t = t_next
+    world, warp, dts, ts, trans, node, block, valid = (
+        torch.stack(x, dim=1) for x in zip(*outs))
+    return WarpedSamples(
+        world_pts=torch.where(valid[..., None], world, 0.0),
+        warp_pts=torch.where(valid[..., None], warp, 0.0),
+        dists=torch.where(valid, dts, 0.0),
+        ts=torch.where(valid, ts, 0.0),
+        trans_idx=torch.where(valid, trans, -1).to(torch.int32),
+        oct_idx=torch.where(valid, node, -1).to(torch.int32),
+        block_idx=torch.where(valid, block, -1).to(torch.int32),
+        valid=valid,
+        num_valid=valid.sum(dim=-1),
+        first_oct_dis=first_oct)
+
+
+def get_edge_samples(edge_t_idx: torch.Tensor, edge_center: torch.Tensor,
+                     edge_dirs: torch.Tensor, n_pts: int,
+                     generator: Optional[torch.Generator] = None,
+                     draws: Optional[tuple] = None):
+    """Points on octree-leaf boundary faces for the TV loss
+    (``get_edge_samples``, perssampler.py:516; the reference's
+    ``PersSampler::GetEdgeSamples``, PersSampler_cuda.cu:479-516): random
+    face-adjacency edges of the host octree's edge pool
+    (``octree.construct_edge_pool``), a random (u, v) in [-1, 1]^2 on the
+    shared face, each point twice with the two adjacent warp anchors.
+
+    ``draws`` = (edge indices (n_pts,) int, uniforms (n_pts, 2) in [0,
+    1)), or None to draw them from ``generator``.  Returns (points (n_pts,
+    2, 3), anchors (n_pts, 2))."""
+    dev = edge_center.device
+    if draws is None:
+        n_edges = max(int(edge_t_idx.shape[0]), 1)
+        eidx = torch.randint(0, n_edges, (n_pts,), generator=generator,
+                             device=dev)
+        uv = torch.rand((n_pts, 2), generator=generator, device=dev)
+    else:
+        eidx, uv = (torch.as_tensor(x, device=dev) for x in draws)
+    eidx = eidx.long()
+    coord = uv * 2.0 - 1.0
+    dirs = edge_dirs[eidx]
+    pts = (edge_center[eidx] + dirs[:, 0] * coord[:, 0:1]
+           + dirs[:, 1] * coord[:, 1:2])
+    return torch.stack([pts, pts], dim=1), edge_t_idx[eidx]
+
+
 # -------------------------------------------------------- occupancy stats ----
 
 
@@ -287,7 +488,7 @@ def update_oct_nodes(oct: OctreeDevice, samples, weights: torch.Tensor,
     """
     cap = oct.centers.shape[0]
     valid = samples.valid
-    node = torch.where(valid, samples.oct_idx, cap)   # cap -> dropped
+    node = torch.where(valid, samples.oct_idx.long(), cap)   # cap -> dropped
     w = torch.where(valid, weights, 0.0)
     a = torch.where(valid, alphas, 0.0)
     w_thres = torch.clamp(w.amax(-1, keepdim=True) * REL_WEIGHT_THRES,

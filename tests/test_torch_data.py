@@ -213,10 +213,14 @@ def test_method_configs_match_jax(method):
     assert len(shared) > 60
     for k in shared:
         assert got[k] == want[k], (k, got[k], want[k])
-    # the port's own fields: the device, and "local" logging (TensorBoard
-    # is not ported)
-    assert set(got) - set(want) == {"device"}
+    # the port's own fields: the device, "local" logging (TensorBoard is
+    # not ported), and the march, which the JAX manager leaves at
+    # SamplerConfig's default (the port carries it through config.json)
+    from gfnerf_tpu.sampler.perssampler import SamplerConfig
+
+    assert set(got) - set(want) == {"device", "pipeline.sampler.march"}
     assert got["vis"] == "local" and got["device"] == "cuda"
+    assert got["pipeline.sampler.march"] == SamplerConfig().march
 
 
 def test_unported_methods_raise():

@@ -625,10 +625,11 @@ def _fields(obj, prefix=""):
 
 
 @pytest.mark.parametrize("method", ["nerfacto", "semantic-nerfw",
-                                    "instant-ngp"])
+                                    "instant-ngp", "vanilla-nerf", "mipnerf",
+                                    "tensorf", "neus"])
 def test_methods_registered_with_jax_settings(method):
     """get_method gives the JAX package's settings, every field of the
-    vanilla pipeline's config included; the other vanilla kinds raise."""
+    vanilla pipeline's config included; the nerfplayer pair raises."""
     from gfnerf_tpu.configs.method_configs import method_configs
     from gfnerf_tpu_torch.configs.method_configs import get_method
     from gfnerf_tpu_torch.pipelines.vanilla_pipeline import (
@@ -639,8 +640,7 @@ def test_methods_registered_with_jax_settings(method):
     for k in set(got) & set(want) - {"vis"}:
         assert got[k] == want[k], (k, got[k], want[k])
     assert sum(k.startswith("pipeline.") for k in got) > 100
-    for kind in ("vanilla-nerf", "mipnerf", "tensorf", "neus",
-                 "nerfplayer-nerfacto", "nerfplayer-ngp"):
+    for kind in ("nerfplayer-nerfacto", "nerfplayer-ngp"):
         with pytest.raises(NotImplementedError, match="not ported"):
             VanillaPipelineConfig(model_kind=kind).build(None, ".", "cpu")
         with pytest.raises(NotImplementedError, match="not ported"):

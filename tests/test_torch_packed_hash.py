@@ -785,7 +785,7 @@ def test_kernels_with_base_match_plain_on_card(c, dense, case):
 def test_signatures_match_entry_points():
     """SIGNATURES, the argument types ctypes passes, agrees with every C
     entry point's prototype: a pointer for each pointer, c_longlong for
-    long long, c_int for int, in order."""
+    long long, c_int for int, c_float for float, in order."""
     import ctypes
     import re
 
@@ -801,6 +801,8 @@ def test_signatures_match_entry_points():
                     kinds.append(ctypes.c_void_p)
                 elif "long long" in param:
                     kinds.append(ctypes.c_longlong)
+                elif re.fullmatch(r"\s*float \w+\s*", param):
+                    kinds.append(ctypes.c_float)
                 else:
                     assert re.fullmatch(r"\s*int \w+\s*", param), param
                     kinds.append(ctypes.c_int)

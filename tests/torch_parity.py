@@ -177,8 +177,8 @@ def marched_np(n_rays=32, s=64, seed=3):
 
 
 def jax_samples(x):
-    """Numpy samples as the JAX package's WarpedSamples (no warp_pts: the
-    model warps them, ``warp_deferred``)."""
+    """Numpy samples as the JAX package's WarpedSamples (``warp_pts`` zero
+    unless ``x`` has them: then the model warps, ``warp_deferred``)."""
     import jax.numpy as jnp
     from gfnerf_tpu.cameras.rays import WarpedSamples
 
@@ -186,7 +186,9 @@ def jax_samples(x):
     z = jnp.zeros((r, s), jnp.int32)
     return WarpedSamples(
         world_pts=jnp.asarray(x["world_pts"]),
-        warp_pts=jnp.zeros((r, s, 3)), dists=jnp.asarray(x["dists"]),
+        warp_pts=jnp.asarray(x.get("warp_pts", np.zeros((r, s, 3),
+                                                        np.float32))),
+        dists=jnp.asarray(x["dists"]),
         ts=jnp.asarray(x["ts"]),
         trans_idx=jnp.asarray(x["trans_idx"], jnp.int32), oct_idx=z,
         block_idx=z, valid=jnp.asarray(x["valid"]),
@@ -206,7 +208,9 @@ def port_samples(x):
         dists=torch.as_tensor(x["dists"]), ts=torch.as_tensor(x["ts"]),
         trans_idx=torch.as_tensor(x["trans_idx"]).long(), oct_idx=z,
         block_idx=z, valid=valid, num_valid=valid.sum(1),
-        first_oct_dis=torch.as_tensor(x["first_oct_dis"]))
+        first_oct_dis=torch.as_tensor(x["first_oct_dis"]),
+        warp_pts=(torch.as_tensor(x["warp_pts"]) if "warp_pts" in x
+                  else None))
 
 
 # ---- one train step of either package on the tiny scene ----
@@ -238,9 +242,9 @@ def train_cameras_np():
 
 
 def jax_train_step(jcfg, params, statics, joct, batch, mkw, key_seed,
-                   stage=0, active_block=0, state=None):
+                   stage=0, active_block=0, state=None, march="fast"):
     """One jitted JAX train step at ``stage``, from ``state`` (a fresh one
-    of ``params`` if None).  Returns its outputs (state, octree, metrics,
+    of ``params`` if None), marching with ``march``.  Returns its outputs (state, octree, metrics,
     per-ray error), and the march noise and S3IM permutations it drew."""
     import jax
     import jax.numpy as jnp
@@ -264,7 +268,8 @@ def jax_train_step(jcfg, params, statics, joct, batch, mkw, key_seed,
     mcfg = GFNeRFModelConfig(n_blocks=2, **mkw)
     step = make_train_step(jcfg, mcfg,
                            SamplerConfig(max_samples=TRAIN_S,
-                                         sample_l=TRAIN_SAMPLE_L),
+                                         sample_l=TRAIN_SAMPLE_L,
+                                         march=march),
                            tx, stage)
     key = jax.random.PRNGKey(key_seed)
     out = step(state, statics, joct, cams,
@@ -290,10 +295,11 @@ def jax_prop_u(key_seed, n_resamples, r=TRAIN_R):
 
 
 def port_train_step(field, toct, batch, mkw, noise, perms, stage=0,
-                    active_block=0, state=None, prop_u=None):
+                    active_block=0, state=None, prop_u=None, march="fast"):
     """One train step of the port at ``stage`` on the CPU, from ``state``
     (a fresh one of ``field`` if None), with the given noise and
-    permutations (and, on the proposal branch, resampling draws)."""
+    permutations (and, on the proposal branch, resampling draws),
+    marching with ``march``."""
     from gfnerf_tpu_torch.cameras.cameras import Cameras
     from gfnerf_tpu_torch.engine.optimizers import (OptimizersConfig,
                                                     build_optimizer)
@@ -309,7 +315,8 @@ def port_train_step(field, toct, batch, mkw, noise, perms, stage=0,
         state = init_train_state(field, tx)
     step = make_train_step(GFNeRFModelConfig(**mkw),
                            SamplerConfig(max_samples=TRAIN_S,
-                                         sample_l=TRAIN_SAMPLE_L),
+                                         sample_l=TRAIN_SAMPLE_L,
+                                         march=march),
                            tx, stage)
     tb = {k: torch.as_tensor(v) for k, v in batch.items()}
     for k in ("camera_indices", "rel_camera_indices"):
@@ -337,3 +344,67 @@ def jax_groups(tree):
     if tree.camera_adjustment is not None:
         groups["camera_opt"] = [tree.camera_adjustment]
     return groups
+
+
+def scan_coverage_case(path) -> dict:
+    """The scan against the fast march on the octree and rays that
+    ``chip_smoke.py --coverage-case PATH`` wrote from the card: the JAX
+    package's pair and the port's plain pair, each on the CPU with the
+    case's sampler config (1024 slots, eval noise), measured by
+    ``chip_smoke.coverage_figures``.  Returns {"card": ..., "jax": ...,
+    "port_cpu": ...}."""
+    import json
+    import sys
+    from pathlib import Path
+
+    import jax.numpy as jnp
+
+    sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+    from chip_smoke import coverage_figures
+    from gfnerf_tpu.sampler import perssampler as J
+    from gfnerf_tpu.sampler.fast_march import get_samples_fast as jax_fast
+    from gfnerf_tpu_torch.sampler import perssampler as T
+    from gfnerf_tpu_torch.sampler.fast_march import get_samples_fast
+
+    case = np.load(path)
+    cfg = json.loads(str(case["sampler_config"]))
+    tables = {k[4:]: case[k] for k in case.files if k.startswith("oct_")}
+    o, d = case["rays_o"], case["rays_d"]
+    noise = np.ones((o.shape[0], cfg["max_samples"]), np.float32)
+    keys = ("valid", "ts", "oct_idx", "first_oct_dis")
+
+    def host(x):
+        return {k: np.asarray(getattr(x, k)) for k in keys}
+
+    joct = J.OctreeDevice(**{k: jnp.asarray(v) for k, v in tables.items()})
+    jcfg = J.SamplerConfig(**cfg)
+    jo, jd, jn = jnp.asarray(o), jnp.asarray(d), jnp.asarray(noise)
+    out = {"card": json.loads(str(case["card"]))}
+    out["jax"] = coverage_figures(
+        host(jax_fast(joct, jo, jd, jn, jnp.asarray(1.0),
+                      dataclasses.replace(jcfg, march="fast"))),
+        host(J.get_samples(joct, jo, jd, jn,
+                           dataclasses.replace(jcfg, march="scan"))))
+    toct = T.OctreeDevice(**{
+        k: (int(v) if v.ndim == 0 else torch.as_tensor(v))
+        for k, v in tables.items()})
+    tcfg = T.SamplerConfig(**cfg)
+    to, td, tn = (torch.as_tensor(x) for x in (o, d, noise))
+    with torch.no_grad():
+        out["port_cpu"] = coverage_figures(
+            host(get_samples_fast(toct, to, td, tn, 1.0,
+                                  dataclasses.replace(tcfg, march="fast"))),
+            host(T.get_samples(toct, to, td, tn,
+                               dataclasses.replace(tcfg, march="scan"))))
+    return out
+
+
+if __name__ == "__main__":
+    # python tests/torch_parity.py scan-coverage CASE.npz
+    import json
+    import sys
+
+    if sys.argv[1:2] != ["scan-coverage"] or len(sys.argv) != 3:
+        sys.exit("usage: python tests/torch_parity.py scan-coverage CASE.npz")
+    for name, figures in scan_coverage_case(sys.argv[2]).items():
+        print(name, json.dumps(figures))
