@@ -195,10 +195,16 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
                 plain scan timed on each; the scan against the fast march
                 (coverage, held to the JAX package's pair's figures); one
                 step against the plain pairs (M1 among them); M1 timed on
-                the train batch and a render chunk against its bound;
-                three gf-nerf init steps with the scan (1024 slots, budget
-                256: the compacted branch at gf-nerf's width); a 1920x1080
-                frame of the quality workload through the scan.
+                the train batch, gf-nerf's march and a render chunk
+                against its bound, and by part (one line: the train
+                rays each repeated 32 times in a row, rays that miss the
+                root, 8192 to 65536 train rays); M1 bit for bit with the
+                plain scan at the edge shapes (R = 1, 3, 8193; S = 1,
+                1024, 33; rays that miss the root; an anchor change at
+                nearly every emitted slot); three gf-nerf init steps with
+                the scan (1024 slots, budget 256: the compacted branch at
+                gf-nerf's width); a 1920x1080 frame of the quality
+                workload through the scan.
  18. stock    — vanilla-nerf, mipnerf, tensorf and neus, each at its
                 registered width through the Trainer on the instant-ngp
                 phase's Blender scene (STOCK_STEPS steps): no kernel
@@ -210,7 +216,9 @@ Each phase ends with a [clock] line.  Before the last line come a JSON
 object with each kernel's launches, error, times and bound (K1, K2, H1 and
 H2 also at the prop phase's shapes, under "prop"; H4 and H5 at nerfacto's
 three, under "nerfacto", and at instant-ngp's, under "instant_ngp"; M1 at
-the train batch, with its render chunk under "render_chunk"), and the
+the train batch, with its render chunk, gf-nerf's march and the by-part
+inputs under "render_chunk", "gfnerf_march" and "by_part", each with its
+bound), and the
 card's name and power limit; the last line is
 {"ok": true, "device": {...}}.
 
@@ -5100,17 +5108,30 @@ COVERAGE_SHARE_TOL = 0.05
 COVERAGE_GAP_RTOL = 0.1
 # the compacted branch: gf-nerf's march of 1024 slots, budget 256
 SCAN_GFNERF_SLOTS, SCAN_GFNERF_BUDGET = 1024, 256
+# M1 by part: the train batch's rays at these counts (the first also the
+# count of the repeated and the missing rays), each of the first count /
+# SCAN_PART_REPEAT rays repeated SCAN_PART_REPEAT times in a row
+SCAN_PART_RAYS = (8192, 16384, 32768, 65536)
+SCAN_PART_REPEAT = 32
+# the edge case whose anchor changes at nearly every slot: the train
+# noise times this, and the least share of its emitted slots whose anchor
+# differs from the previous emitted slot's
+SCAN_EDGE_NOISE = 16.0
+SCAN_EDGE_CHANGES = 0.8
 
 
 def check_scan_march(oct_dev, scfg, o, d, s, seed, what,
-                     eval_noise=False) -> dict:
+                     eval_noise=False, noise_scale=1.0, edge=False) -> dict:
     """M1 against the plain scan (``perssampler.get_samples``) on rays o, d
     at S = s with the same noise (a render's, all ones, with
-    ``eval_noise``): the rays whose rows differ (at most M1_DIFFER_SHARE
-    of them), the largest error of t, dt, the world and the warped points
-    on the others relative to each one's largest value (at most M1_RTOL),
-    num_valid and the first-hit distance.  Also the plain scan's time for
-    the call (CUDA events around it)."""
+    ``eval_noise``; train noise times ``noise_scale``): the rays whose rows
+    differ (at most M1_DIFFER_SHARE of them), the largest error of t, dt,
+    the world and the warped points on the others relative to each one's
+    largest value (at most M1_RTOL), num_valid and the first-hit distance.
+    Also the plain scan's time for the call (CUDA events around it), and
+    the share of a ray's emitted slots whose anchor differs from the
+    previous emitted slot's.  An ``edge`` case (an edge shape, rays that
+    miss) must be equal bit for bit and need not emit a sample a ray."""
     import dataclasses
 
     import torch
@@ -5121,7 +5142,8 @@ def check_scan_march(oct_dev, scfg, o, d, s, seed, what,
     gen = torch.Generator(device="cuda").manual_seed(seed)
     r = o.shape[0]
     noise = (torch.ones((r, s), device="cuda") if eval_noise else
-             torch.rand((r, s), generator=gen, device="cuda") + 0.5)
+             (torch.rand((r, s), generator=gen, device="cuda") + 0.5)
+             * noise_scale)
     cfg = dataclasses.replace(scfg, max_samples=s, march="scan")
     got = scan_march(oct_dev, o, d, noise, cfg)
     start = torch.cuda.Event(enable_timing=True)
@@ -5145,8 +5167,13 @@ def check_scan_march(oct_dev, scfg, o, d, s, seed, what,
     bitwise = all(torch.equal(getattr(got, k), getattr(want, k)) for k in (
         "ts", "dists", "world_pts", "warp_pts", "valid", "trans_idx",
         "oct_idx", "block_idx", "num_valid", "first_oct_dis"))
+    trans, valid = want.trans_idx.cpu().numpy(), want.valid.cpu().numpy()
+    runs = [row[v] for row, v in zip(trans, valid)]
+    pairs = sum(max(len(x) - 1, 0) for x in runs)
     out = {"what": what, "rays": r, "S": s,
            "differing_rays": int(bad.sum()),
+           "anchor_change_share": sum(int((x[1:] != x[:-1]).sum())
+                                      for x in runs) / max(pairs, 1),
            "max_rel_err": max(errs.values()), "rel_errs": errs,
            "bit_for_bit": bitwise,
            "valid_samples": int(want.valid.sum()),
@@ -5157,7 +5184,7 @@ def check_scan_march(oct_dev, scfg, o, d, s, seed, what,
     log(f"[scan] M1 vs the plain scan on {what}, {r} rays at S={s}: {out}")
     if not (out["differing_rays"] <= M1_DIFFER_SHARE * r
             and out["max_rel_err"] <= M1_RTOL and same
-            and out["valid_samples"] > r):
+            and (out["bit_for_bit"] if edge else out["valid_samples"] > r)):
         raise AssertionError(f"scan: M1 against the plain scan on {what}: "
                              f"{out}, num_valid and first hits equal: {same}")
     return out
@@ -5259,28 +5286,38 @@ def scan_coverage(oct_dev, scfg, o, d) -> dict:
     return out
 
 
-def scan_march_bytes(r: int, s: int, oct_dev) -> int:
+def scan_march_bytes(r: int, s: int, oct_dev, noise_slots: int,
+                     tables: bool = True) -> int:
     """The bytes M1 must move for r rays of s slots: each ray's origin and
-    direction and each slot's noise read once, each output written once
-    (per slot the world and warped points, delta, t, three int32 indices,
-    valid; per ray the count and the first-hit distance), and the octree's
-    rows (its nodes, not the padding to its capacity) and the warp tables
-    read once."""
-    per_slot = 4 + 12 + 12 + 4 + 4 + 3 * 4 + 1
+    direction read once, each output written once (per slot the world and
+    warped points, delta, t, three int32 indices, valid: 45 B; per ray the
+    count and the first-hit distance), the noise of the ``noise_slots``
+    slots that use it (those in a valid leaf: no other slot reads its
+    noise), and the octree's rows (its nodes, not the padding to its
+    capacity) and the warp tables read once (none of them for rays that
+    miss the root: ``tables`` False)."""
+    per_slot = 12 + 12 + 4 + 4 + 3 * 4 + 1
     per_ray = 24 + 8 + 4
+    nbytes = r * s * per_slot + r * per_ray + 4 * noise_slots
+    if not tables:
+        return nbytes
     node_row = sum(t[0].numel() * t.element_size() for t in (
         oct_dev.centers, oct_dev.side_lens, oct_dev.childs, oct_dev.is_leaf,
         oct_dev.trans_idx, oct_dev.block_idx))
     warp = sum(t.numel() * t.element_size() for t in (
         oct_dev.w2xz_flat, oct_dev.warp_weight_flat, oct_dev.t_center,
         oct_dev.t_dis_summary))
-    return r * s * per_slot + r * per_ray + oct_dev.n_nodes * node_row + warp
+    return nbytes + oct_dev.n_nodes * node_row + warp
 
 
-def time_scan_march(oct_dev, scfg, o, d, what, eval_noise=False) -> dict:
+def time_scan_march(oct_dev, scfg, o, d, what=None, eval_noise=False,
+                    tables=True) -> dict:
     """M1 on rays o, d with the configuration's slots and train noise (or
     a render's, ``eval_noise``): CUDA-event medians of 10 calls per event
-    pair, and its bound (the bytes it must move over the card's rate)."""
+    pair, and its bound (the bytes it must move over the card's rate, the
+    noise counted for the slots of this run's outputs that use it;
+    ``tables`` as ``scan_march_bytes`` takes it).  Logged when ``what``
+    names the input."""
     import dataclasses
 
     import torch
@@ -5293,11 +5330,87 @@ def time_scan_march(oct_dev, scfg, o, d, what, eval_noise=False) -> dict:
              torch.rand((r, s), generator=gen, device="cuda") + 0.5)
     cfg = dataclasses.replace(scfg, march="scan")
     ms = time_ms(lambda: scan_march(oct_dev, o, d, noise, cfg), n=7, reps=10)
-    nbytes = scan_march_bytes(r, s, oct_dev)
+    # the slots in a valid leaf: the emitted ones and each ray's first
+    out = scan_march(oct_dev, o, d, noise, cfg)
+    noise_slots = int(out.num_valid.sum()) + int(
+        (out.first_oct_dis < 1e8).sum())
+    nbytes = scan_march_bytes(r, s, oct_dev, noise_slots, tables)
     out = {"rays": r, "S": s, "ms": ms, "bytes": nbytes,
+           "noise_slots": noise_slots,
            "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes"}
-    log(f"[scan] M1 on {what} (R={r}, S={s}): {ms:.4f} ms, bound "
-        f"{out['bound_ms']:.4f} ms ({nbytes / 1e6:.1f} MB)")
+    if what:
+        log(f"[scan] M1 on {what} (R={r}, S={s}): {ms:.4f} ms, bound "
+            f"{out['bound_ms']:.4f} ms ({nbytes / 1e6:.1f} MB)")
+    return out
+
+
+def miss_rays(oct_dev, r: int, seed: int):
+    """r rays that miss the root cube: origins two sides from its centre
+    in random directions, pointing further away."""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    u = torch.randn((r, 3), generator=gen, device="cuda")
+    u = u / u.norm(dim=-1, keepdim=True)
+    return oct_dev.centers[0] + 2.0 * oct_dev.side_lens[0] * u, u
+
+
+def scan_by_part(oct_dev, scfg, cams, images) -> dict:
+    """M1 on inputs that isolate its parts, each timed as
+    ``time_scan_march`` times the train batch (S = the config's): the
+    same work with each of SCAN_PART_RAYS[0] / SCAN_PART_REPEAT train rays
+    repeated SCAN_PART_REPEAT times in a row (each copy its own noise: a
+    warp's table reads fall on few rows), rays that miss the root (the
+    write path alone), and the train batch's rays at every count of
+    SCAN_PART_RAYS (how the time grows with the card's fill).  One line."""
+    from gfnerf_tpu_torch.cameras.cameras import generate_rays_multi
+    from gfnerf_tpu_torch.train_bench import make_batch
+
+    batch = make_batch(images, SCAN_PART_RAYS[-1], 801, "cuda")
+    rays = generate_rays_multi(cams, batch["camera_indices"],
+                               batch["coords"])
+    o, d = rays["origins"], rays["directions"]
+    n, k = SCAN_PART_RAYS[0], SCAN_PART_REPEAT
+    out = {"repeated": time_scan_march(
+        oct_dev, scfg, o[:n // k].repeat_interleave(k, 0),
+        d[:n // k].repeat_interleave(k, 0)),
+        "miss": time_scan_march(oct_dev, scfg, *miss_rays(oct_dev, n, 5),
+                                tables=False)}
+    for r in SCAN_PART_RAYS:
+        out[f"rays_{r}"] = time_scan_march(oct_dev, scfg, o[:r], d[:r])
+    log(f"[scan] M1 by part (ms, bound ms): "
+        + ", ".join(f"{name} {x['rays']}x{x['S']} {x['ms']:.4f} "
+                    f"({x['bound_ms']:.4f})" for name, x in out.items()))
+    return out
+
+
+def scan_edge_cases(oct_dev, scfg, cams, images, o, d) -> list:
+    """M1 against the plain scan, bit for bit, at the edge shapes: R = 1,
+    3 and 8193 (no multiple of a block's rays) at S = 1, 1024 and 33; rays
+    that miss the root; the train batch with SCAN_EDGE_NOISE times its
+    noise, so that most steps leave their leaf and the anchor changes at
+    nearly every emitted slot (at SCAN_EDGE_CHANGES of them at least)."""
+    from gfnerf_tpu_torch.cameras.cameras import generate_rays_multi
+    from gfnerf_tpu_torch.train_bench import make_batch
+
+    batch = make_batch(images, 8193, 802, "cuda")
+    rays = generate_rays_multi(cams, batch["camera_indices"],
+                               batch["coords"])
+    s, miss = scfg.max_samples, "rays that miss the root"
+    cases = [(o[:1], d[:1], 1, 1.0, "one ray, one slot"),
+             (o[:3], d[:3], 1024, 1.0, "three rays"),
+             (rays["origins"], rays["directions"], 33, 1.0, "8193 rays"),
+             (*miss_rays(oct_dev, o.shape[0], 6), s, 1.0, miss),
+             (o, d, s, SCAN_EDGE_NOISE, "the train batch, large noise")]
+    out = [check_scan_march(oct_dev, scfg, co, cd, cs, seed=10 + i,
+                            what=what, noise_scale=scale, edge=True)
+           for i, (co, cd, cs, scale, what) in enumerate(cases)]
+    missed = next(x for x in out if x["what"] == miss)
+    if missed["valid_samples"] != 0:
+        raise AssertionError(f"scan: {miss} emitted samples: {missed}")
+    if out[-1]["anchor_change_share"] < SCAN_EDGE_CHANGES:
+        raise AssertionError(f"scan: the anchor changes at too few slots of "
+                             f"{out[-1]['what']}: {out[-1]}")
     return out
 
 
@@ -5473,6 +5586,8 @@ def phase_scan(tmp: Path):
     noise, perms = step_draws(wl, gen)
     compare_step(wl, "scan", batch, noise, perms)
     train_m1 = time_scan_march(oct_dev, scfg, o, d, "the train batch")
+    by_part = scan_by_part(oct_dev, scfg, p.cameras_dev, images)
+    compare += scan_edge_cases(oct_dev, scfg, p.cameras_dev, images, o, d)
 
     # s/step through the Trainer (without the first 2 of each stage, the
     # rebuild and the profiled steps)
@@ -5508,6 +5623,7 @@ def phase_scan(tmp: Path):
     gscfg = dataclasses.replace(scfg, max_samples=SCAN_GFNERF_SLOTS)
     compare.append(check_scan_march(oct_dev, gscfg, o, d, SCAN_GFNERF_SLOTS,
                                     seed=2, what="gf-nerf's march"))
+    gfnerf_m1 = time_scan_march(oct_dev, gscfg, o, d, "gf-nerf's march")
     step_fn = make_train_step(gmcfg, gscfg, tx, STAGE_INIT)
     state = init_train_state(gfield, tx)
     reset_launch_counts()
@@ -5570,7 +5686,8 @@ def phase_scan(tmp: Path):
               "ms": train_m1["ms"], "plain_ms": compare[0]["plain_ms"],
               "bound_ms": train_m1["bound_ms"], "bound_by": "bytes",
               "library_ms": None, "train_batch": train_m1,
-              "render_chunk": render_m1, "vs_plain": compare}
+              "render_chunk": render_m1, "gfnerf_march": gfnerf_m1,
+              "by_part": by_part, "vs_plain": compare}
     stats = {"setup_s": setup_s, "train_s": train_s,
              "init_s_per_step": _mean(init_s),
              "focal_s_per_step": _mean(focal_s), "peak_bytes": peak,

@@ -5,9 +5,11 @@
 ``locate_points``, ``:236``): one sequential octree march per ray over the
 S = noise.shape[1] slots.  On CPU tensors it runs the plain version,
 ``sampler.perssampler.get_samples``; on CUDA tensors it launches
-``csrc/scan_march.cu`` (M1: one thread per ray runs the whole loop) or
-raises.  There is no backward: the train step takes no gradient through
-the samples.  ``scan_march.launches`` counts the kernel's launches.
+``csrc/scan_march.cu`` (M1: a group of lanes marches each ray, the
+anchor's projections held across slots, the outputs staged and written
+coalesced) or raises.  There is no backward: the train step takes no
+gradient through the samples.  ``scan_march.launches`` counts the
+kernel's launches.
 """
 
 from __future__ import annotations

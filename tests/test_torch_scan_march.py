@@ -1,7 +1,9 @@
 """The port's scan march (``gfnerf_tpu_torch/sampler/perssampler.py``
 ``get_samples`` with ``locate_points``, the plain version of kernel M1,
 ``ops/scan_march.py``) against the JAX package's on the CPU, and the model
-on its samples: ``locate_points``; ``get_samples`` at S = 64 and 256;
+on its samples: ``locate_points``; ``get_samples`` at S = 64 and 256,
+and at kernel M1's edges (S = 1 and 33, one ray, rays that miss the root,
+zero direction components);
 ``get_edge_samples`` with the JAX package's draws handed over;
 ``tv_edge_loss``; the port's fast march against its scan, as
 tests/test_fast_march.py holds the JAX pair, and the two pairs' coverage
@@ -11,7 +13,9 @@ compacted and proposal branches at both stages; whole train steps with
 ``march="scan"``; ``make_render_fn`` and the early-termination renderer on
 the scan; the config's ``march`` through ``config.json`` and a CPU run of
 ``python -m gfnerf_tpu_torch.train`` with it.  On a card (``cuda``): M1
-against the plain scan.
+against the plain scan, also at R = 1, 3 and 8193, S = 1, 33 and 1024,
+on rays that miss the root and on rays whose anchor changes at most
+slots.
 
 Sizes: the tiny scene of tests/torch_parity.py (six ring views, a depth-5
 tree), 64 rays.  Tolerances, and why:
@@ -33,7 +37,7 @@ tree), 64 rays.  Tolerances, and why:
   gradients 1e-3 of the group's largest, the table's 2e-2).
 - M1 on the card: the rays whose rows differ at most 0.1% (bit for bit is
   expected: M1 repeats the plain version's roundings), 1e-5 relative on
-  the rest.
+  the rest; at the edge cases bit for bit.
 """
 
 from __future__ import annotations
@@ -66,13 +70,18 @@ def _noise(s, fineness, seed=0):
 def scan_pair(s, fineness):
     """(JAX samples, port samples) of the scan march of the tiny scene's
     rays, as numpy dicts."""
+    o, d = tiny_rays(n_rays=N_RAYS, seed=3)
+    return _samples_pair(o, d, _noise(s, fineness), s)
+
+
+def _samples_pair(o, d, noise, s):
+    """(JAX samples, port samples) of the scan march of rays o, d with the
+    given noise on the tiny scene's octree, as numpy dicts."""
     import jax.numpy as jnp
     from gfnerf_tpu.sampler import perssampler as J
     from gfnerf_tpu_torch.sampler import perssampler as T
 
     joct, toct = octree_pair()
-    o, d = tiny_rays(n_rays=N_RAYS, seed=3)
-    noise = _noise(s, fineness)
     js = J.get_samples(joct, jnp.asarray(o), jnp.asarray(d),
                        jnp.asarray(noise),
                        J.SamplerConfig(max_samples=s, sample_l=SAMPLE_L,
@@ -137,6 +146,70 @@ def test_get_samples_matches_jax(s, fineness):
     # the masked slots are zero and -1, as JAX's
     assert (got["trans_idx"][~got["valid"]] == -1).all()
     assert (got["warp_pts"][~got["valid"]] == 0).all()
+
+
+EDGE_CASES = ("one_slot", "33_slots", "one_ray", "miss", "zero_dir")
+
+
+def _edge_inputs(case):
+    """(rays_o, rays_d, noise, S) of an edge case on the tiny scene: S = 1
+    or 33 (the kernel's chunks are 32 slots), one ray, half the rays
+    outside the root cube pointing away from it, or rays with a zero
+    direction component (x = +0 on even rays, z = -0 on odd ones: the slab
+    test's inverse is then 1e10)."""
+    o, d = tiny_rays(n_rays=N_RAYS, seed=3)
+    s = {"one_slot": 1, "33_slots": 33}.get(case, 64)
+    noise = _noise(s, 2.0)
+    if case == "one_ray":
+        o, d, noise = o[:1], d[:1], noise[:1]
+    elif case == "miss":
+        _, toct = octree_pair()
+        rng = np.random.default_rng(4)
+        u = rng.normal(size=(N_RAYS // 2, 3))
+        u /= np.linalg.norm(u, axis=-1, keepdims=True)
+        o, d = o.copy(), d.copy()
+        o[::2] = (to_np(toct.centers[0])
+                  + 2.0 * float(toct.side_lens[0]) * u)
+        d[::2] = u
+    elif case == "zero_dir":
+        d = d.copy()
+        d[0::2, 0] = 0.0
+        d[1::2, 2] = -0.0
+        d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    return (o.astype(np.float32), d.astype(np.float32),
+            noise.astype(np.float32), s)
+
+
+@pytest.mark.parametrize("case", EDGE_CASES)
+def test_get_samples_edges_match_jax(case):
+    """The scan march against the JAX package's at the shapes and rays
+    where kernel M1's chunks and lane groups have edges (``_edge_inputs``),
+    with ``test_get_samples_matches_jax``'s tolerances: at most 2% of the
+    rays differ in their rows, the rest to 1e-5.  At S = 1 no slot is
+    emitted (a ray's first valid slot never is); rays that miss the root
+    emit nothing and keep the first-hit distance 1e9."""
+    o, d, noise, s = _edge_inputs(case)
+    want, got = _samples_pair(o, d, noise, s)
+    assert got["valid"].shape == (o.shape[0], s)
+    bad = differing_rays(want, got)
+    assert bad.mean() <= DIFFERING_RAYS, bad.sum()
+    ok = ~bad
+    for k in VALUE_KEYS + ("first_oct_dis",):
+        np.testing.assert_allclose(got[k][ok], want[k][ok], rtol=1e-5,
+                                   atol=1e-5, err_msg=k)
+    np.testing.assert_array_equal(got["num_valid"][ok],
+                                  want["num_valid"][ok])
+    assert (got["trans_idx"][~got["valid"]] == -1).all()
+    assert (got["world_pts"][~got["valid"]] == 0).all()
+    if case == "one_slot":
+        assert not got["valid"].any() and (got["first_oct_dis"] < 1e8).any()
+    elif case == "miss":
+        for x in (got, want):
+            assert not x["valid"][::2].any()
+            assert (x["first_oct_dis"][::2] == np.float32(1e9)).all()
+        assert got["valid"][1::2].sum() > N_RAYS
+    else:
+        assert got["valid"].sum() >= o.shape[0] * min(s, 64) // 8
 
 
 def test_scan_march_wrapper_runs_plain_on_cpu():
@@ -503,13 +576,23 @@ def test_scan_config_through_config_json_and_train(tmp_path):
     assert scfg["global_far"] == SamplerConfig().global_far
 
 
+# M1 on the card: (rays, slots, rays' kind), the last five the edges of
+# its lane groups (8 rays a block) and chunks (32 slots)
+M1_CASES = [(2048, 64, "ring"), (2048, 384, "ring"), (1, 1, "ring"),
+            (3, 1024, "ring"), (8193, 33, "ring"), (2048, 64, "miss"),
+            (2048, 64, "fine")]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("s", [64, 384])
-def test_m1_matches_plain_on_card(s):
+@pytest.mark.parametrize("r,s,rays", M1_CASES)
+def test_m1_matches_plain_on_card(r, s, rays):
     """M1 against the plain scan on the card, on an octree built by the
     port on the synthetic ring (numpy only: the CUDA tests run without
     JAX): at most 0.1% of the rays differ in their rows, the rest to 1e-5
-    relative; one launch a call."""
+    relative; one launch a call.  The edge cases (R = 1, 3, 8193; S = 1,
+    33, 1024; rays that miss the root; rays whose anchor changes at 80% of
+    their emitted slots or more: a finer tree, split up to depth 8, and 16
+    times the noise) must be equal bit for bit."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernel has no CPU mode")
     from gfnerf_tpu_torch.ops.scan_march import scan_march
@@ -524,15 +607,21 @@ def test_m1_matches_plain_on_card(s):
     intri[:, 0, 0], intri[:, 1, 1] = fx, fy
     intri[:, 0, 2], intri[:, 1, 2], intri[:, 2, 2] = cx, cy, 1
     bounds = np.tile(np.array([[0.01, 50.0]], np.float32), (12, 1))
-    tree = build_octree(c2w, intri, bounds, max_depth=6, bbox_levels=4,
-                        n_rand_pts=512, vis_res_w=16, seed=0, device="cuda")
-    oct_dev = octree_to_device(tree, 4096, device="cuda")
+    fine = dict(max_depth=8, split_dist_thres=12.0) if rays == "fine" else \
+        dict(max_depth=6)
+    tree = build_octree(c2w, intri, bounds, bbox_levels=4, n_rand_pts=512,
+                        vis_res_w=16, seed=0, device="cuda", **fine)
+    oct_dev = octree_to_device(tree, 1 << 16, device="cuda")
     rng = np.random.default_rng(2)
-    r = 2048
     o = np.repeat(c2w[:, :, 3], r // 12 + 1, axis=0)[:r]
     d = -o + rng.normal(0, 0.6, o.shape)
+    if rays == "miss":
+        d = rng.normal(size=o.shape)
+        d /= np.linalg.norm(d, axis=-1, keepdims=True)
+        o = (to_np(oct_dev.centers[0])
+             + 2.0 * float(oct_dev.side_lens[0]) * d)
     d = d / np.linalg.norm(d, axis=-1, keepdims=True)
-    noise = rng.uniform(0.5, 1.5, (r, s)) * 2.0
+    noise = rng.uniform(0.5, 1.5, (r, s)) * (16.0 if rays == "fine" else 2.0)
     o, d, noise = (torch.as_tensor(x, dtype=torch.float32, device="cuda")
                    for x in (o, d, noise))
     cfg = SamplerConfig(max_samples=s, sample_l=1.0 / 64, march="scan")
@@ -541,6 +630,17 @@ def test_m1_matches_plain_on_card(s):
     torch.cuda.synchronize()
     assert scan_march.launches == before + 1
     want = get_samples(oct_dev, o, d, noise, cfg)
+    if (r, s, rays) not in M1_CASES[:2]:
+        for k in ROW_KEYS + VALUE_KEYS + ("num_valid", "first_oct_dis"):
+            assert torch.equal(getattr(got, k), getattr(want, k)), k
+        if rays == "miss":
+            assert not bool(want.valid.any())
+        elif rays == "fine":
+            runs = [row[row >= 0] for row in want.trans_idx.cpu().numpy()]
+            pairs = sum(max(len(x) - 1, 0) for x in runs)
+            changes = sum(int((x[1:] != x[:-1]).sum()) for x in runs)
+            assert pairs > r and changes >= 0.8 * pairs, (changes, pairs)
+        return
     bad = torch.zeros(r, dtype=torch.bool, device="cuda")
     for k in ROW_KEYS:
         bad |= (getattr(got, k) != getattr(want, k)).reshape(r, -1).any(1)
