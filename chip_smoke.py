@@ -212,22 +212,46 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
                 parameter changed, the eval PSNR above the mean image's, the
                 checkpoint; s/step, rays/s, peak memory, a profiled step;
                 one step on the card against the same step on the CPU.
+ 19. nerfplayer — with the counters reset per method: nerfplayer-nerfacto
+                and nerfplayer-ngp at their registered widths through the
+                Trainer (NPL_STEPS steps each) on a D-NeRF scene written
+                to disk (24 + 4 RGBA PNGs at 200x200, a sphere moving with
+                the frame's time) and read back by the dnerf parser: per
+                step T1 and T2 three calls each (nerfacto: proposals at
+                1,048,576 and 393,216 points on 5 x 2 levels with T = 32,
+                the field at 196,608 on 16 x 2 with T = 64) or once each
+                and T1 once more at every 16th step (ngp: 786,432 points,
+                the occupancy update's 262,144), no other kernel; finite
+                losses, the rgb loss falling, every tensor changed, ngp's
+                grid off all ones; every val frame's PSNR with its time
+                beside its mean image's (eval rays take train camera 0's
+                time: the frame at that time must beat its mean image);
+                the checkpoint reloaded to the same eval image (and grid);
+                one step against the plain pairs (and one occupancy
+                update); T1 bit for bit and T2 to 1e-5 of the largest
+                against their plain versions at every step shape, timed
+                (T2 also against index_add_), and at the edge inputs (t =
+                0, 1 and every window-row boundary, the faces 0.0 and 1.0,
+                dense and hashed levels); s/step, rays/s, peak memory, a
+                profiled step; eval and render on each checkpoint.
 Each phase ends with a [clock] line.  Before the last line come a JSON
 object with each kernel's launches, error, times and bound (K1, K2, H1 and
 H2 also at the prop phase's shapes, under "prop"; H4 and H5 at nerfacto's
 three, under "nerfacto", and at instant-ngp's, under "instant_ngp"; M1 at
 the train batch, with its render chunk, gf-nerf's march and the by-part
 inputs under "render_chunk", "gfnerf_march" and "by_part", each with its
-bound), and the
+bound; T1 and T2 at nerfplayer-nerfacto's field, with every shape of the
+pair's steps under "nerfplayer"), and the
 card's name and power limit; the last line is
 {"ok": true, "device": {...}}.
 
 Run from the repository root:  python3 chip_smoke.py
 To work on one phase of the pipeline family (pipeline, gfnerf, prop,
-nerfacto, semantics, instant-ngp, scan, stock; nerfacto and semantics read
-the pipeline phase's scene and checkpoint):
+nerfacto, semantics, instant-ngp, scan, stock, nerfplayer; nerfacto and
+semantics read the pipeline phase's scene and checkpoint):
 python3 chip_smoke.py --only pipeline,nerfacto,semantics
 python3 chip_smoke.py --only scan,stock
+python3 chip_smoke.py --only nerfplayer
 Either form takes ``--coverage-case PATH`` last: the scan phase then writes
 the octree and rays of its coverage check there, for
 ``python tests/torch_parity.py scan-coverage PATH`` (the JAX package's
@@ -872,13 +896,15 @@ def _counted():
         packed_hash_encode, packed_hash_encode_routed)
     from gfnerf_tpu_torch.ops.composite import fused_composite
     from gfnerf_tpu_torch.ops.scan_march import scan_march
+    from gfnerf_tpu_torch.ops.temporal_grid import (temporal_grid_bwd,
+                                                    temporal_grid_fwd)
 
     return fused_composite, packed_hash_encode, packed_hash_encode_routed, \
-        hash_encode, scan_march
+        hash_encode, scan_march, temporal_grid_fwd, temporal_grid_bwd
 
 
 def launch_counts() -> dict:
-    composite, packed, routed, anchored, march = _counted()
+    composite, packed, routed, anchored, march, t_fwd, t_bwd = _counted()
     return {"composite_fwd": composite.launches,
             "composite_bwd": composite.bwd_launches,
             "packed_hash_fwd": packed.launches,
@@ -886,12 +912,14 @@ def launch_counts() -> dict:
             "packed_hash_routed": routed.launches,
             "hash_anchored_fwd": anchored.launches,
             "hash_anchored_bwd": anchored.bwd_launches,
-            "scan_march": march.launches}
+            "scan_march": march.launches,
+            "temporal_grid_fwd": t_fwd.launches,
+            "temporal_grid_bwd": t_bwd.launches}
 
 
 def reset_launch_counts() -> None:
-    composite, packed, routed, anchored, march = _counted()
-    march.launches = 0
+    composite, packed, routed, anchored, march, t_fwd, t_bwd = _counted()
+    march.launches = t_fwd.launches = t_bwd.launches = 0
     composite.launches = composite.bwd_launches = 0
     packed.launches = packed.bwd_launches = packed.bwd_calls = 0
     routed.launches = 0
@@ -5938,6 +5966,601 @@ def phase_stock(tmp: Path):
     return paths, stats
 
 
+# NeRFPlayer: both methods through the Trainer at their registered widths on
+# a D-NeRF scene written to disk (NPL_SCENE, a sphere moving with the time)
+# and read back by the dnerf parser
+NPL_STEPS = {"nerfplayer-nerfacto": 400, "nerfplayer-ngp": 400}
+NPL_WARMUP = 5
+NPL_OVERRIDES = {"steps_per_log": "100", "steps_per_eval_batch": "100000"}
+# train views, val views, width and height, focal length
+NPL_SCENE = (24, 4, (200, 200), 180.0)
+# (rays, proposal samples, field samples, levels, C, T, log2 entries,
+# finest resolution, proposal levels, proposal T, proposal log2 entries,
+# proposal finest resolutions, background)
+NPL_NERFACTO_WIDTH = (4096, (256, 96), 48, 16, 2, 64, 19, 2048, 5, 32, 17,
+                      (64, 256), "last_sample")
+# (rays, samples, levels, C, T, log2 entries, finest resolution, grid,
+# threshold, aabb_scale, background)
+NPL_NGP_WIDTH = (4096, 192, 16, 2, 64, 19, 1024, 64, 0.01, 1.5, "white")
+# T2 against its plain version: the same f32 terms added by atomics in
+# other orders, H2's and H5's limit
+T2_ATOL_REL = 1e-5
+
+
+class record_temporal_encodes:
+    """Within the block, the arguments of every temporal_grid_encode call
+    that the nerfplayer models make, in order (points and times cloned)."""
+
+    def __enter__(self):
+        from gfnerf_tpu_torch.models import nerfplayer as npl
+
+        self.mod, self.saved, self.calls = npl, npl.temporal_grid_encode, []
+
+        def rec(table, st, xyz, times, *a, **kw):
+            self.calls.append((table.detach(), st, xyz.detach().clone(),
+                               times.detach().clone()))
+            return self.saved(table, st, xyz, times, *a, **kw)
+
+        npl.temporal_grid_encode = rec
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.temporal_grid_encode = self.saved
+        return False
+
+
+def temporal_bytes(table, st, xyz, times, gradient: bool) -> dict:
+    """What T1 or T2 must move at these inputs: the points (12 B) and times
+    (4 B) a point, the output (T1) or upstream gradient (T2) of L * C f32
+    a point; T1 the table's distinct f32 channels the window reads (C + 1
+    a corner), and the 32-byte sectors they fall in (reported, not
+    counted); T2 the dense (rows, C + T) f32 gradient written once."""
+    import torch
+
+    from gfnerf_tpu_torch.fields.temporal_grid import temporal_scatter_terms
+
+    p = xyz.shape[0]
+    io = p * (12 + 4 + 4 * st.n_levels * st.level_dim)
+    if gradient:
+        return {"bytes": io + 4 * table.numel()}
+    g = torch.ones((p, st.n_levels * st.level_dim), device=xyz.device)
+    entries = torch.cat([i.reshape(-1) for i, _ in
+                         temporal_scatter_terms(g, st, xyz, times)])
+    distinct = torch.unique(entries)
+    sectors = int(torch.unique(distinct // 8).numel())
+    return {"bytes": io + 4 * int(distinct.numel()),
+            "table_entries": int(distinct.numel()),
+            "table_sectors": sectors}
+
+
+def time_temporal_at(table, st, xyz, times, what, backward=True) -> tuple:
+    """T1 (and T2) at one shape: T1 equal to its plain version bit for bit,
+    T2 to T2_ATOL_REL of the largest entry; each timed with 10 calls per
+    event pair against its plain version, T2 also against index_add_ of
+    the plain terms into the flat table; bounds from the bytes.  Returns
+    (T1's, T2's or None)."""
+    import torch
+
+    from gfnerf_tpu_torch.fields import temporal_grid as tg
+    from gfnerf_tpu_torch.ops import temporal_grid as ops
+
+    tables = st.tables(xyz.device)
+    p = xyz.shape[0]
+    want = tg.temporal_grid_encode_raw(table, st, xyz, times)
+    got = ops.temporal_grid_fwd(table, tables, xyz, times)
+    torch.cuda.synchronize()
+    fwd_err = max_err([got], [want])
+    if not torch.equal(got, want):
+        raise AssertionError(f"{what} temporal_grid_fwd: max abs err "
+                             f"{fwd_err}, not equal bit for bit")
+    del got, want
+    moved = temporal_bytes(table, st, xyz, times, gradient=False)
+    fwd = {"max_abs_err": fwd_err,
+           "ms": time_ms(lambda: ops.temporal_grid_fwd(table, tables, xyz,
+                                                       times), n=11, reps=10),
+           "plain_ms": time_ms(lambda: tg.temporal_grid_encode_raw(
+               table, st, xyz, times), n=3),
+           "bound_ms": moved["bytes"] / HBM_BYTES_PER_S * 1e3,
+           "bound_by": "bytes", "library_ms": None, "points": p,
+           "rows": table.shape[0], "levels": st.n_levels,
+           "table_entries_read": moved["table_entries"],
+           "table_sectors_read": moved["table_sectors"]}
+    bwd = None
+    if backward:
+        gen = torch.Generator(device="cuda").manual_seed(9)
+        g = torch.randn((p, st.n_levels * st.level_dim), generator=gen,
+                        device="cuda")
+        rows = table.shape[0]
+        got = ops.temporal_grid_bwd(g, tables, xyz, times, rows)
+        want = tg.temporal_backward_reference(g, st, xyz, times, rows)
+        torch.cuda.synchronize()
+        assert_close([got], [want], f"{what} temporal_grid_bwd",
+                     atol_rel=T2_ATOL_REL)
+        bwd_err = max_err([got], [want])
+        del got, want
+        terms = list(tg.temporal_scatter_terms(g, st, xyz, times))
+        idx = torch.cat([i.reshape(-1) for i, _ in terms])
+        vals = torch.cat([v.reshape(-1) for _, v in terms])
+        del terms
+        moved = temporal_bytes(table, st, xyz, times, gradient=True)
+        bwd = {"max_abs_err": bwd_err,
+               "ms": time_ms(lambda: ops.temporal_grid_bwd(
+                   g, tables, xyz, times, rows), n=11, reps=10),
+               "plain_ms": time_ms(lambda: tg.temporal_backward_reference(
+                   g, st, xyz, times, rows), n=3),
+               "bound_ms": moved["bytes"] / HBM_BYTES_PER_S * 1e3,
+               "bound_by": "bytes",
+               "library_ms": time_ms(lambda: torch.zeros(
+                   rows * st.width, device="cuda").index_add_(0, idx, vals),
+                   n=5, reps=2),
+               "points": p, "rows": rows, "levels": st.n_levels,
+               "terms": int(idx.numel())}
+        del idx, vals, g
+    torch.cuda.empty_cache()
+    for name, x in (("temporal_grid_fwd", fwd), ("temporal_grid_bwd", bwd)):
+        if x is None:
+            continue
+        log(f"[{what}] {name} at P={p}, L={st.n_levels}, "
+            f"C={st.level_dim}, T={st.temporal_dim}, rows={table.shape[0]}: "
+            f"max abs err {x['max_abs_err']:.3g}; kernel {x['ms']:.4f} ms, "
+            f"plain {x['plain_ms']:.4f} ms, "
+            + (f"index_add_ {x['library_ms']:.4f} ms, "
+               if x["library_ms"] is not None else "")
+            + f"bound {x['bound_ms']:.4f} ms"
+            + (f" ({x['table_entries_read']} table entries in "
+               f"{x['table_sectors_read']} sectors)"
+               if "table_entries_read" in x else ""))
+    return fwd, bwd
+
+
+def temporal_edge_cases(table, st, what) -> int:
+    """T1 bit for bit and T2 to T2_ATOL_REL at the edge inputs on one
+    grid (dense and hashed levels): the cube's 8 corners (coordinates
+    exactly 0.0 and 1.0), points on the coarsest level's cell edges, times
+    0, 1 and every window row's boundary, and a ragged 8193 points.
+    Returns the points checked."""
+    import numpy as np
+    import torch
+
+    from gfnerf_tpu_torch.fields import temporal_grid as tg
+    from gfnerf_tpu_torch.ops import temporal_grid as ops
+
+    if not (st.hashed.any() and not st.hashed.all()):
+        raise AssertionError(f"{what}: the grid lacks dense or hashed "
+                             f"levels: {st.hashed.tolist()}")
+    rng = np.random.default_rng(13)
+    corners = np.array([[a, b, c] for a in (0, 1) for b in (0, 1)
+                        for c in (0, 1)], np.float32)
+    res = int(st.resolutions[0])
+    edges = rng.integers(0, res + 1, (64, 3)) / np.float32(res)
+    bounds = np.arange(st.n_rows + 1) / np.float32(st.time_scale)
+    xyz = np.concatenate([np.repeat(corners, len(bounds), 0),
+                          edges.astype(np.float32),
+                          rng.random((8193, 3), np.float32)])
+    t = np.concatenate([np.tile(bounds, len(corners)),
+                        rng.choice(bounds, 64),
+                        rng.random(8193, np.float32)]).astype(np.float32)
+    t[-2:] = [0.0, 1.0]
+    xyz, t = (torch.tensor(x, device="cuda") for x in (xyz, t))
+    g = torch.randn((xyz.shape[0], st.n_levels * st.level_dim),
+                    generator=torch.Generator(device="cuda").manual_seed(4),
+                    device="cuda")
+    for sl in (slice(0, -8193), slice(-8193, None)):
+        x, tt = xyz[sl].contiguous(), t[sl].contiguous()
+        tables = st.tables(x.device)
+        if not torch.equal(ops.temporal_grid_fwd(table, tables, x, tt),
+                           tg.temporal_grid_encode_raw(table, st, x, tt)):
+            raise AssertionError(f"{what}: T1 at the edge inputs differs "
+                                 f"from the plain encode")
+        assert_close([ops.temporal_grid_bwd(g[sl].contiguous(), tables, x,
+                                            tt, table.shape[0])],
+                     [tg.temporal_backward_reference(
+                         g[sl].contiguous(), st, x, tt, table.shape[0])],
+                     f"{what}: T2 at the edge inputs", atol_rel=T2_ATOL_REL)
+    torch.cuda.empty_cache()
+    return int(xyz.shape[0])
+
+
+def nerfplayer_step_pair(p, batch, draws, occupancy=None) -> dict:
+    """The loss and backward from two copies of the pipeline's model on one
+    batch and its draws, through T1/T2 and through the plain pairs (no
+    kernel may launch in the plain one): the loss to TRAIN_LOSS_RTOL, each
+    table's gradient to NERFACTO_TABLE_GRAD_TOL of its largest, the other
+    parameters' to TRAIN_GRAD_TOL of their largest; with ``occupancy``
+    (nerfplayer-ngp's draws) one occupancy update from each copy, equal bit
+    for bit.  Returns the errors."""
+    import copy
+
+    import torch
+
+    from gfnerf_tpu_torch.fields.temporal_grid import (
+        plain_temporal_grid_encode)
+    from gfnerf_tpu_torch.models import nerfplayer as npl
+
+    what = p.kind
+    runs, model0, encode = {}, p.model, npl.temporal_grid_encode
+    for kind in ("kernels", "plain"):
+        p.model = copy.deepcopy(model0)
+        before = launch_counts()
+        if kind == "plain":
+            npl.temporal_grid_encode = plain_temporal_grid_encode
+        try:
+            total, _ = p.loss(batch, draws)
+            total.backward()
+            if occupancy is not None:
+                npl.update_ngp_occupancy(p.model, *occupancy)
+            torch.cuda.synchronize()
+            runs[kind] = (total.item(), p.model)
+        finally:
+            npl.temporal_grid_encode = encode
+            p.model = model0
+        if kind == "plain" and launch_counts() != before:
+            raise AssertionError(f"{what}: the plain step launched kernels")
+    (lk, mk), (lp, mp) = runs["kernels"], runs["plain"]
+    rel = abs(lk - lp) / abs(lp)
+    out = {"loss": (lk, lp, rel)}
+    if not rel <= TRAIN_LOSS_RTOL:
+        raise AssertionError(f"{what} step loss: kernels {lk} vs plain {lp}")
+    tables = {id(t) for t, _ in mk.grids()}
+    for (name, a), b in zip(mk.named_parameters(), mp.parameters()):
+        if id(a) not in tables:
+            continue
+        scale = float(b.grad.abs().max())
+        err = float((a.grad - b.grad).abs().max())
+        out[name] = (err, scale)
+        if not (scale > 0 and err <= NERFACTO_TABLE_GRAD_TOL * scale):
+            raise AssertionError(f"{what} {name} gradient: kernels vs plain "
+                                 f"{err} of {scale}")
+    rest = [(a, b) for a, b in zip(mk.parameters(), mp.parameters())
+            if id(a) not in tables]
+    scale = max(float(b.grad.abs().max()) for _, b in rest)
+    err = max(float((a.grad - b.grad).abs().max()) for a, b in rest)
+    out["mlps"] = (err, scale)
+    if not err <= TRAIN_GRAD_TOL * scale:
+        raise AssertionError(f"{what} MLP gradients: kernels vs plain {err} "
+                             f"of {scale}")
+    if occupancy is not None and not torch.equal(mk.occ, mp.occ):
+        raise AssertionError(f"{what}: the occupancy update through T1 "
+                             f"differs from the plain one")
+    log(f"[nerfplayer] {what}, one step, kernels vs plain: loss {lk:.7f} vs "
+        f"{lp:.7f} (rel {rel:.3g}, tol {TRAIN_LOSS_RTOL}); gradients (max "
+        f"abs err, largest): {({k: v for k, v in out.items() if k != 'loss'})}"
+        + ("; the occupancy update equal bit for bit" if occupancy else ""))
+    del runs, mk, mp
+    torch.cuda.empty_cache()
+    return out
+
+
+def nerfplayer_run(tmp: Path, scene: Path, method: str) -> tuple:
+    """One nerfplayer method through the Trainer at its registered width,
+    NPL_STEPS[method] steps, counted; returns (launches, stats, the
+    trained pipeline's trainer, T1/T2 reports at the step's shapes, the
+    run's config.json)."""
+    import numpy as np
+    import torch
+
+    from gfnerf_tpu_torch.configs.config_io import apply_override
+    from gfnerf_tpu_torch.configs.method_configs import get_method
+    from gfnerf_tpu_torch.data.dataparsers import build_dataparser
+    from gfnerf_tpu_torch.data.pixel_samplers import (PixelSampler,
+                                                      collate_batch)
+    from gfnerf_tpu_torch.engine.trainer import Trainer
+    from gfnerf_tpu_torch.models import nerfplayer as npl
+    from gfnerf_tpu_torch.models.instant_ngp import OCC_UPDATE_EVERY
+    from gfnerf_tpu_torch.ops.temporal_grid import (temporal_grid_bwd,
+                                                    temporal_grid_fwd)
+    from gfnerf_tpu_torch.utils.eval_utils import eval_setup
+    from gfnerf_tpu_torch.utils.profiling import profile_device
+
+    n_steps = NPL_STEPS[method]
+    ngp = method == "nerfplayer-ngp"
+    cfg = get_method(method)
+    for key, value in {**NPL_OVERRIDES,
+                       "max_num_iterations": str(n_steps),
+                       "steps_per_eval_image": str(n_steps),
+                       "steps_per_save": str(n_steps),
+                       "output_dir": str(tmp / f"{method}_out")}.items():
+        apply_override(cfg, key, value)
+    cfg.data = scene
+    trainer = Trainer(cfg, build_dataparser("dnerf", scene))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    trainer.setup()
+    setup_s = time.perf_counter() - t0
+    p = trainer.pipeline
+    mc = p.model_cfg
+    rays = p.config.train_num_rays_per_batch
+    if ngp:
+        width = (rays, mc.num_samples, mc.num_levels, mc.level_dim,
+                 mc.temporal_dim, mc.log2_hashmap_size,
+                 mc.desired_resolution, mc.grid_resolution,
+                 mc.occ_threshold, mc.aabb_scale, mc.background_color)
+        want_width = NPL_NGP_WIDTH
+    else:
+        width = (rays, tuple(mc.num_proposal_samples), mc.num_nerf_samples,
+                 mc.num_levels, mc.level_dim, mc.temporal_dim,
+                 mc.log2_hashmap_size, mc.desired_resolution,
+                 mc.prop_num_levels, mc.prop_temporal_dim,
+                 mc.prop_log2_hashmap_size, tuple(mc.prop_max_res),
+                 mc.background_color)
+        want_width = NPL_NERFACTO_WIDTH
+    rows = [int(t.shape[0]) for t, _ in p.model.grids()]
+    log(f"[nerfplayer] {method}: setup {setup_s:.2f}s; width {width}; grid "
+        f"rows {rows} (field first, {sum(rows) * 66 * 4 / 2**30:.3f} GiB "
+        f"of tables at 66 channels); {len(p.train_dataset)} train views at "
+        f"times {np.round(p.model.camera_times.cpu().numpy(), 4).tolist()}")
+    if width != want_width:
+        raise AssertionError(f"{method} is not at its registered width: "
+                             f"{width}")
+    start = {n: t.detach().clone() for n, t in p.model.named_parameters()}
+    rec = {"steps": {}}
+    get_loss = p.get_train_loss_dict
+
+    def get_loss_w(step):
+        before = launch_counts()
+        t = time.perf_counter()
+        m = get_loss(step)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t
+        after = launch_counts()
+        rec["steps"][step] = {"s": dt, "counts": {
+            k: after[k] - before[k] for k in after}, **m}
+        return m
+
+    p.get_train_loss_dict = get_loss_w
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    trainer.train()
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    launches = launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    p.get_train_loss_dict = get_loss
+
+    steps = rec["steps"]
+    if sorted(steps) != list(range(n_steps)):
+        raise AssertionError(f"{method}: steps run {sorted(steps)}")
+    calls = 1 if ngp else 1 + len(mc.num_proposal_samples)
+    for i in range(n_steps):
+        extra = int(ngp and i % OCC_UPDATE_EVERY == 0)
+        want = {"temporal_grid_fwd": calls + extra,
+                "temporal_grid_bwd": calls}
+        got = steps[i]["counts"]
+        if got != {k: want.get(k, 0) for k in got}:
+            raise AssertionError(f"{method} step {i}: launches {got}, "
+                                 f"expected {want}")
+    log(f"[nerfplayer] {method}: launches per step as expected: T1 {calls} "
+        + ("(and once more at every 16th step, the occupancy update) "
+           if ngp else "")
+        + f"and T2 {calls}, no other kernel; in the whole run {launches}")
+    keys = [k for k in steps[0] if k not in ("s", "counts")]
+    hist = {k: [steps[i][k] for i in range(n_steps)] for k in keys}
+    every = max(n_steps // 12, 1)
+    log(f"[nerfplayer] {method}: metrics every {every} steps: "
+        f"{ {k: [round(v, 5) for v in hist[k][::every]] for k in keys} }")
+    if not all(np.isfinite(v).all() for v in hist.values()):
+        raise AssertionError(f"{method}: a non-finite loss")
+    rgb = hist["rgb_loss"]
+    if not _mean(rgb[-10:]) < _mean(rgb[:10]):
+        raise AssertionError(f"{method}: the rgb loss did not fall: "
+                             f"{rgb[::every]}")
+    unchanged = [n for n, t in p.model.named_parameters()
+                 if torch.equal(t.detach(), start[n])]
+    if unchanged:
+        raise AssertionError(f"{method}: unchanged parameters {unchanged}")
+    del start
+    stats = {"setup_s": setup_s, "train_s": train_s, "peak_bytes": peak,
+             "grid_rows": rows}
+    if ngp:
+        occ = p.model.occ
+        stats["grid"] = {"min": float(occ.min()), "max": float(occ.max()),
+                         "ones": int((occ == 1.0).sum()),
+                         "below_threshold": float(
+                             (occ <= mc.occ_threshold).float().mean())}
+        log(f"[nerfplayer] {method}: the grid after {n_steps} steps "
+            f"{stats['grid']}")
+        if stats["grid"]["ones"]:
+            raise AssertionError(f"{method}: the grid {stats['grid']}")
+    log(f"[nerfplayer] {method}: every one of the "
+        f"{len(list(p.model.parameters()))} parameter tensors changed")
+    ckpt = trainer.checkpoint_dir / f"step-{n_steps - 1:09d}"
+    if not (ckpt / "state.pt").is_file():
+        raise AssertionError(f"{method}: no checkpoint at {ckpt}")
+    step_s = [steps[i]["s"] for i in range(NPL_WARMUP, n_steps)]
+    stats.update({"s_per_step": _mean(step_s),
+                  "median_s_per_step": float(np.median(step_s)),
+                  "rays_per_s": rays / _mean(step_s)})
+    if ngp:
+        occ_s = [steps[i]["s"] for i in range(NPL_WARMUP, n_steps)
+                 if i % OCC_UPDATE_EVERY == 0]
+        stats["occupancy_step_s"] = _mean(occ_s)
+    log(f"[nerfplayer] {method}: Trainer: {stats['s_per_step']:.4f} s/step "
+        f"(median {stats['median_s_per_step']:.4f}, after {NPL_WARMUP} "
+        f"warm-up steps"
+        + (f"; the steps with an occupancy update "
+           f"{stats['occupancy_step_s']:.4f}" if ngp else "")
+        + f"), {stats['rays_per_s']:.1f} rays/s; peak {peak / 2**30:.3f} "
+        f"GiB; the run {train_s:.1f}s")
+
+    # every val frame's PSNR, with its time, against its mean image's; eval
+    # rays take train camera 0's time: the frames at that time must beat
+    # their mean image
+    t0_time = float(p.model.camera_times[0])
+    frames = []
+    for idx in range(len(p.eval_dataset)):
+        metrics, _ = p.get_eval_image_metrics_and_images(n_steps, idx)
+        gt = p.eval_dataset.get_image(idx)
+        trivial = float(-10.0 * np.log10(np.mean(
+            (gt - gt.mean(axis=(0, 1))) ** 2)))
+        frames.append({"idx": idx, "time": float(
+            p.eval_outputs.metadata["times"][idx]), "psnr": metrics["psnr"],
+            "mean_image_psnr": trivial})
+    log(f"[nerfplayer] {method}: eval PSNR of every val frame (time, PSNR, "
+        f"mean-image PSNR), all rendered at train camera 0's time "
+        f"{t0_time}: "
+        f"{[(f['time'], round(f['psnr'], 4), round(f['mean_image_psnr'], 4)) for f in frames]}")
+    gated = [f for f in frames if f["time"] == t0_time]
+    if not gated or not all(f["psnr"] > f["mean_image_psnr"] for f in gated):
+        raise AssertionError(f"{method}: the frames at camera 0's time do "
+                             f"not beat their mean image: {frames}")
+    stats["eval_frames"] = frames
+
+    # the checkpoint: a pipeline rebuilt from it renders the same frame 0
+    config_path = trainer.base_dir / "config.json"
+    _, loaded = eval_setup(config_path)
+    lp = loaded.pipeline
+    a = lp.get_eval_image_metrics_and_images(n_steps, 0)[1]["img"]
+    b = p.get_eval_image_metrics_and_images(n_steps, 0)[1]["img"]
+    same = np.array_equal(a, b) and torch.equal(lp.model.camera_times,
+                                                p.model.camera_times)
+    if ngp:
+        same = same and torch.equal(lp.model.occ, p.model.occ)
+    if not same:
+        raise AssertionError(f"{method}: the checkpoint did not restore the "
+                             f"model" + (" and the grid" if ngp else ""))
+    log(f"[nerfplayer] {method}: the checkpoint reloaded (the dnerf parser "
+        f"guessed from the frames' times): the eval image equal bit for bit"
+        + (", the grid equal" if ngp else ""))
+    del loaded, lp
+    torch.cuda.empty_cache()
+
+    # from the trained model: a step against the plain pairs, T1 and T2 at
+    # the step's shapes, a profiled step
+    sampler = PixelSampler(rays, seed=700)
+    batch = p._device_batch(collate_batch(p.cache,
+                                          sampler.sample_indices(p.cache)))
+    gen = torch.Generator(device=p.device).manual_seed(700)
+    draws = [torch.rand((rays, n + 1), generator=gen, device=p.device)
+             for n in p.spec.draw_counts(mc)]
+    draws += p.spec.extra_draws(p.model, rays, gen, p.device)
+    occupancy = npl.occupancy_draws(mc, gen, p.device) if ngp else None
+    stats["step_pair"] = nerfplayer_step_pair(p, batch, draws, occupancy)
+    saved_occ = p.model.occ.clone() if ngp else None
+    with torch.no_grad(), record_temporal_encodes() as enc:
+        p.loss(batch, draws)
+        if ngp:
+            npl.update_ngp_occupancy(p.model, *occupancy)
+    if ngp:
+        p.model.occ.copy_(saved_occ)
+    shapes = [(tuple(c[0].shape), c[2].shape[0]) for c in enc.calls]
+    log(f"[nerfplayer] {method}: T1's calls in a step (table, points): "
+        f"{shapes}")
+    if ngp:
+        names = ["train step", "occupancy update"]
+        want_p = [rays * mc.num_samples, mc.grid_resolution ** 3]
+    else:
+        names = [f"proposal {i}" for i in range(len(mc.num_proposal_samples))
+                 ] + ["field"]
+        want_p = [rays * n for n in mc.num_proposal_samples] + [
+            rays * mc.num_nerf_samples]
+    if [s[1] for s in shapes] != want_p:
+        raise AssertionError(f"{method}: encodes at {shapes}, expected "
+                             f"points {want_p}")
+    kernels = {}
+    for name, (table, st, xyz, times) in zip(names, enc.calls):
+        kernels[name] = time_temporal_at(
+            table, st, xyz, times, f"nerfplayer {method} {name}",
+            backward=name != "occupancy update")
+    field_table, field_st = enc.calls[-1 if not ngp else 0][:2]
+    n_edge = temporal_edge_cases(field_table, field_st, method)
+    log(f"[nerfplayer] {method}: T1 bit for bit and T2 to {T2_ATOL_REL} of "
+        f"the largest at {n_edge} edge points on the field's grid (levels "
+        f"hashed {field_st.hashed.astype(int).tolist()}): the cube's "
+        f"corners at every window-row boundary time, cell edges, t = 0 and "
+        f"1, a ragged 8193")
+    del enc
+    torch.cuda.empty_cache()
+    times_s = []
+    for i in range(2):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        p.get_train_loss_dict(n_steps + 1 + i)
+        torch.cuda.synchronize()
+        times_s.append(time.perf_counter() - t)
+    prof = profile_device(lambda: p.get_train_loss_dict(n_steps + 3))
+    prof["step_ms"] = min(times_s) * 1e3
+    prof["idle_share"] = 1.0 - prof["device_busy_ms"] / prof["step_ms"]
+    spans = {k: round(v, 2) for k, v in prof["stage_device_span_ms"].items()}
+    top = [(k["name"][:60], round(k["device_ms"], 3), k["count"])
+           for k in prof["top_kernels"][:8]]
+    log(f"[nerfplayer] {method}: one step, profiled: {prof['step_ms']:.1f} "
+        f"ms on the host clock (the faster of 2), device busy "
+        f"{prof['device_busy_ms']:.2f} ms, idle share "
+        f"{prof['idle_share']:.3f}; stage device spans (ms) {spans}; "
+        f"busiest kernels {top}; host waits {prof['host_waits']}")
+    stats["profile"] = {n: prof[n] for n in ("step_ms", "device_busy_ms",
+                                             "idle_share",
+                                             "stage_device_span_ms")}
+    stats["losses_every_25_steps"] = {k: v[::25] for k, v in hist.items()}
+    del trainer, p, get_loss, batch, draws
+    torch.cuda.empty_cache()
+    return launches, stats, kernels, config_path
+
+
+def phase_nerfplayer(tmp: Path):
+    """The NeRFPlayer pair through the Trainer at their registered widths
+    on a D-NeRF scene written to disk (NPL_SCENE: RGBA PNGs, a sphere
+    moving with the frame's time) and read back by the dnerf parser:
+    nerfplayer-nerfacto (NPL_NERFACTO_WIDTH) with T1 and T2 three calls a
+    step each, nerfplayer-ngp (NPL_NGP_WIDTH) with T1 and T2 once a step
+    and T1 once more at every 16th (the occupancy update); no other
+    kernel.  Per method (nerfplayer_run): finite losses, the rgb loss
+    falling, every tensor changed, the checkpoint (reloaded to the same
+    eval image; ngp's grid off all ones and reloaded equal), every val
+    frame's PSNR with its time beside its mean image's (the frames at
+    train camera 0's time must beat it: eval rays take that time), one
+    step against the plain pairs (ngp: and an occupancy update), T1 and T2
+    at the step's shapes against their plain versions and timed, the edge
+    inputs on the field's grid, s/step, rays/s, peak memory and a profiled
+    step; then python -m gfnerf_tpu_torch.eval and .render on each
+    checkpoint."""
+    import numpy as np
+
+    from gfnerf_tpu_torch import eval as eval_entry
+    from gfnerf_tpu_torch import render as render_entry
+    from gfnerf_tpu_torch.utils.image_io import read_png
+    from gfnerf_tpu_torch.utils.synthetic import make_dnerf_fixture
+
+    n_train, n_val, wh, focal = NPL_SCENE
+    t0 = time.perf_counter()
+    scene = make_dnerf_fixture(tmp / "dnerf_scene", n_train, n_val,
+                               img_wh=wh, focal=focal)
+    log(f"[nerfplayer] D-NeRF scene of {n_train} + {n_val} RGBA PNGs at "
+        f"{wh[0]}x{wh[1]} written in {time.perf_counter() - t0:.2f}s")
+    paths, stats, kernels = {}, {}, {}
+    for method in NPL_STEPS:
+        launches, st, ker, config_path = nerfplayer_run(tmp, scene, method)
+        key = method.replace("-", "_")
+        paths[key] = launches
+        t = time.perf_counter()
+        eval_entry.main(["--load-config", str(config_path), "--output-path",
+                         str(tmp / f"{key}_eval.json")])
+        eval_s = time.perf_counter() - t
+        res = json.loads((tmp / f"{key}_eval.json").read_text())["results"]
+        if not all(np.isfinite(v) for v in res.values()):
+            raise AssertionError(f"gfnerf_tpu_torch.eval on {method}: {res}")
+        frames_dir = tmp / f"{key}_frames"
+        t = time.perf_counter()
+        render_entry.main(["--load-config", str(config_path), "--traj",
+                           "spiral", "--spiral-steps", "2", "--output-path",
+                           str(frames_dir)])
+        render_s = time.perf_counter() - t
+        frames = sorted(frames_dir.glob("*.png"))
+        if len(frames) != 2 or any(read_png(f).shape != (wh[1], wh[0], 3)
+                                   for f in frames):
+            raise AssertionError(f"gfnerf_tpu_torch.render wrote {frames}")
+        log(f"[nerfplayer] {method}: python -m gfnerf_tpu_torch.eval on the "
+            f"checkpoint in {eval_s:.2f}s: {json.dumps(res)}; .render --traj "
+            f"spiral --spiral-steps 2 in {render_s:.2f}s: "
+            f"{[f.name for f in frames]}")
+        st.update({"eval_entry": res, "eval_entry_s": eval_s,
+                   "render_entry_s": render_s})
+        stats[key] = st
+        kernels.update({f"{key} {name}": rep for name, rep in ker.items()})
+    return paths, stats, kernels
+
+
 def main() -> int:
     if not (REPO / "gfnerf_tpu_torch").is_dir():
         print("chip_smoke: gfnerf_tpu_torch/ not found beside this script",
@@ -6013,7 +6636,11 @@ def main() -> int:
         torch.cuda.empty_cache()
         stock_paths, stats["stock"] = phase_stock(Path(tmp))
         paths.update(stock_paths)
-    clock("stock")
+        clock("stock")
+        torch.cuda.empty_cache()
+        npl_paths, stats["nerfplayer"], npl = phase_nerfplayer(Path(tmp))
+        paths.update(npl_paths)
+    clock("nerfplayer")
     fast, scan = stats["pipeline"], stats["scan"]
     log(f"[scan] gf-nerf-perf through the Trainer, the scan (M1) against "
         f"the fast march on the same scene and schedule: "
@@ -6045,6 +6672,15 @@ def main() -> int:
         report[name]["max_abs_err"] = max(report[name]["max_abs_err"],
                                           gf["max_abs_err"])
         report[name]["gfnerf"] = gf
+    # T1 and T2 at every shape of the nerfplayer pair's steps, the
+    # nerfplayer-nerfacto field's at the top level
+    for name, i in (("temporal_grid_fwd", 0), ("temporal_grid_bwd", 1)):
+        on_path = {shape: parts[i] for shape, parts in npl.items()
+                   if parts[i] is not None}
+        report[name] = {**on_path["nerfplayer_nerfacto field"],
+                        "nerfplayer": on_path}
+        report[name]["max_abs_err"] = max(part["max_abs_err"]
+                                          for part in on_path.values())
     for name, *parts in (("packed_hash_fwd", encode, hash_fwd),
                          ("packed_hash_bwd", hash_bwd),
                          ("packed_hash_routed", routed),
@@ -6070,6 +6706,10 @@ def main() -> int:
         "hash_anchored_bwd": ("hash_anchored_bwd.cu",
                               "fields/hash_encoding.py:376"),
         "scan_march": ("scan_march.cu", "sampler/perssampler.py:337"),
+        "temporal_grid_fwd": ("temporal_grid_fwd.cu",
+                              "fields/temporal_grid.py:117"),
+        "temporal_grid_bwd": ("temporal_grid_bwd.cu",
+                              "fields/temporal_grid.py:163"),
     }
     kernels = [{"name": name, "route": "cuda", "source": csrc + src,
                 "replaces": jax_pkg + rep,
@@ -6091,11 +6731,12 @@ def main() -> int:
 def main_only(names) -> int:
     """``--only pipeline,nerfacto,...``: the device and the build, then the
     named phases of the temp-dir family (pipeline, gfnerf, prop, nerfacto,
-    semantics, instant-ngp, scan, stock; nerfacto and semantics need the
-    pipeline phase's scene and checkpoint, instant-ngp writes its own
-    scene, scan and stock write theirs when the pipeline and instant-ngp
-    phases did not run) in one temp dir, for work on one phase: their
-    lines and stats, no kernels line and no result line."""
+    semantics, instant-ngp, scan, stock, nerfplayer; nerfacto and
+    semantics need the pipeline phase's scene and checkpoint, instant-ngp
+    and nerfplayer write their own scenes, scan and stock write theirs
+    when the pipeline and instant-ngp phases did not run) in one temp dir,
+    for work on one phase: their lines and stats, no kernels line and no
+    result line."""
     if not (REPO / "gfnerf_tpu_torch").is_dir():
         print("chip_smoke: gfnerf_tpu_torch/ not found beside this script",
               file=sys.stderr)
@@ -6106,7 +6747,7 @@ def main_only(names) -> int:
               "prop": phase_prop, "nerfacto": phase_nerfacto,
               "semantics": phase_semantics,
               "instant-ngp": phase_instant_ngp, "scan": phase_scan,
-              "stock": phase_stock}
+              "stock": phase_stock, "nerfplayer": phase_nerfplayer}
     unknown = set(names) - set(phases)
     if unknown:
         print(f"chip_smoke: unknown phases {sorted(unknown)}",
@@ -6121,6 +6762,8 @@ def main_only(names) -> int:
             log(f"[{name}] {json.dumps(out[1])}")
             if name == "scan":
                 log(f"[scan] M1 {json.dumps(out[2])}")
+            if name == "nerfplayer":
+                log(f"[nerfplayer] T1/T2 {json.dumps(out[2])}")
             log(f"[clock] {name} done at "
                 f"{time.perf_counter() - start:.1f}s")
     return 0

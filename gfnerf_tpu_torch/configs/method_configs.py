@@ -7,9 +7,9 @@ channels, bf16 MLPs, 160 march slots) and ``gf-nerf-prop`` (``gf-nerf-perf``
 with proposal-guided resampling: a 256-slot march feeds the probe, whose
 weights resample 64 fine samples a ray), and on the vanilla pipeline
 ``nerfacto``, ``semantic-nerfw``, ``instant-ngp``, ``mipnerf``,
-``tensorf``, ``neus`` and ``vanilla-nerf`` with the JAX package's
-settings.  The JAX package's nerfplayer pair raises a "not ported" error
-from :func:`get_method`.
+``tensorf``, ``neus``, ``vanilla-nerf``, ``nerfplayer-nerfacto`` and
+``nerfplayer-ngp`` with the JAX package's settings: all 13 of its
+methods.
 """
 
 from __future__ import annotations
@@ -25,7 +25,7 @@ from gfnerf_tpu_torch.pipelines.vanilla_pipeline import VanillaPipelineConfig
 from gfnerf_tpu_torch.sampler.manager import PersSamplerManagerConfig
 
 # the JAX package's registered methods that have no port yet
-NOT_PORTED = ("nerfplayer-nerfacto", "nerfplayer-ngp")
+NOT_PORTED = ()
 
 
 def gf_nerf_config() -> TrainerConfig:
@@ -189,6 +189,32 @@ def instant_ngp_config() -> TrainerConfig:
     )
 
 
+def nerfplayer_nerfacto_config() -> TrainerConfig:
+    """NeRFPlayer on the nerfacto pipeline: time-conditioned temporal grids
+    and the temporal TV term."""
+    return TrainerConfig(
+        method_name="nerfplayer-nerfacto",
+        max_num_iterations=30000,
+        steps_per_eval_image=5000,
+        steps_per_save=2000,
+        pipeline=VanillaPipelineConfig(model_kind="nerfplayer-nerfacto",
+                                       train_num_rays_per_batch=4096),
+    )
+
+
+def nerfplayer_ngp_config() -> TrainerConfig:
+    """NeRFPlayer on the instant-ngp pipeline: an occupancy grid updated at
+    random times and a temporal field."""
+    return TrainerConfig(
+        method_name="nerfplayer-ngp",
+        max_num_iterations=30000,
+        steps_per_eval_image=5000,
+        steps_per_save=2000,
+        pipeline=VanillaPipelineConfig(model_kind="nerfplayer-ngp",
+                                       train_num_rays_per_batch=4096),
+    )
+
+
 def mipnerf_config() -> TrainerConfig:
     """mip-NeRF: the integrated positional encoding over conical
     frustums."""
@@ -257,6 +283,8 @@ method_configs: Dict[str, Callable[[], TrainerConfig]] = {
     "tensorf": tensorf_config,
     "neus": neus_config,
     "vanilla-nerf": vanilla_nerf_config,
+    "nerfplayer-nerfacto": nerfplayer_nerfacto_config,
+    "nerfplayer-ngp": nerfplayer_ngp_config,
 }
 
 def get_method(name: str) -> TrainerConfig:

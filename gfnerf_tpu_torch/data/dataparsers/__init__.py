@@ -1,15 +1,15 @@
 """Port of ``gfnerf_tpu.data.dataparsers``: the base types and the
 registry of the parsers ported so far (nerfstudio, blender, the minimal
-npz parser and instant-ngp).  The JAX package's other parsers raise "not
-ported"."""
+npz parser, instant-ngp, and the dynamic formats dnerf and dycheck).  The
+JAX package's other parsers raise "not ported"."""
 
 from __future__ import annotations
 
 from pathlib import Path
 
 # the JAX package's registered parsers that have no port yet
-NOT_PORTED = ("dnerf", "scannet", "sdfstudio", "phototourism", "sitcoms3d",
-              "arkitscenes", "nuscenes", "dycheck")
+NOT_PORTED = ("scannet", "sdfstudio", "phototourism", "sitcoms3d",
+              "arkitscenes", "nuscenes")
 
 
 def registry():
@@ -17,7 +17,9 @@ def registry():
     from gfnerf_tpu_torch.data.dataparsers.blender_parser import (
         BlenderDataParser, BlenderDataParserConfig)
     from gfnerf_tpu_torch.data.dataparsers.extra_parsers import (
-        InstantNGPDataParser, InstantNGPDataParserConfig)
+        DNeRFDataParser, DNeRFDataParserConfig, DycheckDataParser,
+        DycheckDataParserConfig, InstantNGPDataParser,
+        InstantNGPDataParserConfig)
     from gfnerf_tpu_torch.data.dataparsers.minimal_parser import (
         MinimalDataParser, MinimalDataParserConfig)
     from gfnerf_tpu_torch.data.dataparsers.nerfstudio_parser import (
@@ -28,6 +30,8 @@ def registry():
         "blender": (BlenderDataParser, BlenderDataParserConfig),
         "minimal": (MinimalDataParser, MinimalDataParserConfig),
         "instant-ngp": (InstantNGPDataParser, InstantNGPDataParserConfig),
+        "dnerf": (DNeRFDataParser, DNeRFDataParserConfig),
+        "dycheck": (DycheckDataParser, DycheckDataParserConfig),
     }
 
 

@@ -7,7 +7,7 @@ mean PSNR, SSIM, LPIPS proxy, rays/s and fps:
 
   python -m gfnerf_tpu_torch.eval --load-config RUN/config.json
       [--output-path eval_output.json]
-      [--dataparser {minimal,blender,nerfstudio,instant-ngp}]
+      [--dataparser {minimal,blender,nerfstudio,instant-ngp,dnerf,dycheck}]
 """
 
 from __future__ import annotations

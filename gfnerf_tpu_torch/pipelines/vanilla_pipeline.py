@@ -12,22 +12,26 @@ the model, the optimizer state, the step and the draws' generator through
 the batches the uninterrupted one would have taken.
 
 Ported kinds: "nerfacto", "semantic-nerfw", "instant-ngp",
-"vanilla-nerf", "mipnerf", "tensorf" and "neus" (``models/nerfacto.py``,
-``models/semantic_nerfw.py``, ``models/instant_ngp.py``,
-``models/tensorf.py``, ``models/neus.py``).  mip-NeRF trains on cones
+"vanilla-nerf", "mipnerf", "tensorf", "neus", "nerfplayer-nerfacto" and
+"nerfplayer-ngp" (``models/nerfacto.py``, ``models/semantic_nerfw.py``,
+``models/instant_ngp.py``, ``models/tensorf.py``, ``models/neus.py``,
+``models/nerfplayer.py``).  mip-NeRF trains on cones
 whose radius comes from the rays' pixel area; its eval and render pass
 none, so their cones have radius 1e-3, as the JAX package's do.  For
 vanilla-nerf and mip-NeRF the step's PSNR, eval and render read the fine
-level.  instant-ngp's occupancy grid is updated
-before every 16th step (``step % 16 == 0``), reports the samples the grid
-kept (``num_samples_per_batch``) and, with ``dynamic_batch``, retargets
+level.  The nerfplayer pair takes each train camera's time from the
+dataparser's ``metadata["times"]`` (zeros without them); eval and render
+pass ``rel = 0`` for every ray, so every eval image and frame is rendered
+at train camera 0's time and with its appearance, as in the JAX package.
+instant-ngp's and nerfplayer-ngp's occupancy grids are updated
+before every 16th step (``step % 16 == 0``); instant-ngp reports the
+samples the grid kept (``num_samples_per_batch``) and, with
+``dynamic_batch``, retargets
 the rays a batch so that the kept samples approach
 ``target_num_samples``: a power of two within [256, the configured
 batch].  Unlike the JAX package's, the port's checkpoint holds the grid
 (a buffer of the model), so a resumed or evaluated run starts from the
-trained grid and not from all ones.  The JAX package's nerfplayer pair
-raises "not ported"; its settings are kept so that a run's
-``config.json`` round-trips.  The GF-NeRF pipeline's own options raise
+trained grid and not from all ones.  The GF-NeRF pipeline's own options raise
 here: early termination (``enable_early_term``, ``render --early-term``)
 and block routing
 (``render_camera``'s ``stage``, ``force_split_idx``); its config has no
@@ -55,10 +59,13 @@ from gfnerf_tpu_torch.engine.optimizers import (OptimizersConfig, OptState,
 from gfnerf_tpu_torch.engine.schedulers import optax_exponential_decay
 from gfnerf_tpu_torch.models import instant_ngp as ngp
 from gfnerf_tpu_torch.models import nerfacto as nerfacto_mod
+from gfnerf_tpu_torch.models import nerfplayer as npl
 from gfnerf_tpu_torch.models import neus as neus_mod
 from gfnerf_tpu_torch.models import semantic_nerfw as snw
 from gfnerf_tpu_torch.models import tensorf as tensorf_mod
 from gfnerf_tpu_torch.models.instant_ngp import InstantNGPConfig
+from gfnerf_tpu_torch.models.nerfplayer import (NerfplayerConfig,
+                                                NerfplayerNGPConfig)
 from gfnerf_tpu_torch.models.neus import NeuSConfig
 from gfnerf_tpu_torch.models.tensorf import TensoRFConfig
 from gfnerf_tpu_torch.pipelines.pipeline import _opt_state_dict, compute_ssim
@@ -72,19 +79,24 @@ class ModelKind:
 
     settings: str        # the VanillaPipelineConfig field of its settings
     per_image: bool      # the settings take the train images' count
-    build: Callable      # (settings, seed, device) -> model
+    # (settings, seed, device, train metadata) -> model
+    build: Callable
     # (model, rays, device batch, draws) -> (total, (losses, outputs))
     loss: Callable
     forward: Callable    # (model, o, d, rel) -> outputs, no jitter
     draw_counts: Callable  # settings -> the n of each (R, n + 1) draw
     two_level: bool = False  # outputs {"coarse": ..., "fine": ...}
-    grid: bool = False   # an occupancy grid, updated every 16th step
+    # (model, rays, generator, device) -> the draws after draw_counts'
+    extra_draws: Optional[Callable] = None
+    # an occupancy grid, updated before every 16th step: (its draws
+    # (model, generator, device) -> tensors, its update (model, *draws))
+    occupancy: Optional[Tuple[Callable, Callable]] = None
 
 
 def _nerfacto_kind(settings: str, init, loss) -> ModelKind:
     return ModelKind(
         settings=settings, per_image=True,
-        build=lambda c, seed, dev: nerfacto_mod.NerfactoModel(
+        build=lambda c, seed, dev, meta: nerfacto_mod.NerfactoModel(
             c, *init(c, seed), dev),
         loss=loss, forward=nerfacto_mod.nerfacto_forward,
         draw_counts=lambda c: [*c.num_proposal_samples, c.num_nerf_samples])
@@ -107,16 +119,19 @@ KINDS = {
             b["image"], b.get("semantics"), draws=dr)),
     "instant-ngp": ModelKind(
         settings="instant_ngp", per_image=True,
-        build=lambda c, seed, dev: ngp.InstantNGPModel(
+        build=lambda c, seed, dev, meta: ngp.InstantNGPModel(
             c, *ngp.init_instant_ngp_params(c, seed), dev),
         loss=lambda m, rays, b, dr: ngp.instant_ngp_loss(
             m, rays["origins"], rays["directions"], b["image"],
             None if dr is None else dr[0]),
         forward=lambda m, o, d, rel: ngp.instant_ngp_forward(m, o, d),
-        draw_counts=lambda c: [c.num_samples], grid=True),
+        draw_counts=lambda c: [c.num_samples],
+        occupancy=(lambda m, gen, dev: [ngp.occupancy_jitter(m.cfg, gen,
+                                                             dev)],
+                   ngp.update_occupancy)),
     "vanilla-nerf": ModelKind(
         settings="vanilla", per_image=False,
-        build=lambda c, seed, dev: nerfacto_mod.VanillaNerfModel(
+        build=lambda c, seed, dev, meta: nerfacto_mod.VanillaNerfModel(
             c, nerfacto_mod.init_vanilla_params(c, seed), dev),
         loss=lambda m, rays, b, dr: nerfacto_mod.vanilla_loss(
             m, rays["origins"], rays["directions"], b["image"], dr),
@@ -126,7 +141,7 @@ KINDS = {
     # none (cones of radius 1e-3), as the JAX package's does
     "mipnerf": ModelKind(
         settings="mipnerf", per_image=False,
-        build=lambda c, seed, dev: nerfacto_mod.MipNerfModel(
+        build=lambda c, seed, dev, meta: nerfacto_mod.MipNerfModel(
             c, nerfacto_mod.init_mipnerf_params(c, seed), dev),
         loss=lambda m, rays, b, dr: nerfacto_mod.mipnerf_loss(
             m, rays["origins"], rays["directions"], b["image"],
@@ -135,7 +150,7 @@ KINDS = {
         draw_counts=_coarse_fine, two_level=True),
     "tensorf": ModelKind(
         settings="tensorf", per_image=True,
-        build=lambda c, seed, dev: tensorf_mod.TensoRFModel(
+        build=lambda c, seed, dev, meta: tensorf_mod.TensoRFModel(
             c, tensorf_mod.init_tensorf_params(c, seed), dev),
         loss=lambda m, rays, b, dr: tensorf_mod.tensorf_loss(
             m, rays["origins"], rays["directions"], b["image"], dr),
@@ -143,72 +158,52 @@ KINDS = {
         draw_counts=lambda c: [c.num_coarse_samples, c.num_fine_samples]),
     "neus": ModelKind(
         settings="neus", per_image=True,
-        build=lambda c, seed, dev: neus_mod.NeuSModel(
+        build=lambda c, seed, dev, meta: neus_mod.NeuSModel(
             c, neus_mod.init_neus_params(c, seed), dev),
         loss=lambda m, rays, b, dr: neus_mod.neus_loss(
             m, rays["origins"], rays["directions"], b["image"], dr),
         forward=lambda m, o, d, rel: neus_mod.neus_forward(m, o, d),
         draw_counts=lambda c: [c.num_samples]),
+    # each grid's TV window row follows the sampler's draws
+    "nerfplayer-nerfacto": ModelKind(
+        settings="nerfplayer", per_image=True,
+        build=lambda c, seed, dev, meta: npl.NerfplayerModel(
+            c, *npl.init_nerfplayer_params(c, seed, meta.get("times")), dev),
+        loss=lambda m, rays, b, dr: npl.nerfplayer_loss(
+            m, rays["origins"], rays["directions"], b["rel_camera_indices"],
+            b["image"], *((None, None) if dr is None else (dr[:-1], dr[-1]))),
+        forward=npl.nerfplayer_forward,
+        draw_counts=lambda c: [*c.num_proposal_samples, c.num_nerf_samples],
+        extra_draws=lambda m, r, gen, dev: [npl.tv_rows(m, gen, dev)]),
+    # the stratification (R, S), then the grid's TV window row
+    "nerfplayer-ngp": ModelKind(
+        settings="nerfplayer_ngp", per_image=True,
+        build=lambda c, seed, dev, meta: npl.NerfplayerNGPModel(
+            c, *npl.init_nerfplayer_ngp_params(c, seed, meta.get("times")),
+            dev),
+        loss=lambda m, rays, b, dr: npl.nerfplayer_ngp_loss(
+            m, rays["origins"], rays["directions"], b["rel_camera_indices"],
+            b["image"], *((None, None) if dr is None else dr)),
+        forward=npl.nerfplayer_ngp_forward,
+        draw_counts=lambda c: [],
+        extra_draws=lambda m, r, gen, dev: [
+            torch.rand((r, m.cfg.num_samples), generator=gen, device=dev),
+            npl.tv_rows(m, gen, dev)],
+        occupancy=(lambda m, gen, dev: npl.occupancy_draws(m.cfg, gen, dev),
+                   npl.update_ngp_occupancy)),
 }
-# (step, rays) -> the step's uniform draws: nerfacto's, one array per
+# (step, rays) -> the step's draws: nerfacto's, one uniform array per
 # proposal level and one for the final resample
 # (ray_samplers.proposal_sample); instant-ngp's and neus's, one (R, S + 1)
 # array; vanilla-nerf's, mipnerf's and tensorf's, the coarse
-# stratification (R, S_coarse + 1) and the resampling's (R, S_fine + 1)
+# stratification (R, S_coarse + 1) and the resampling's (R, S_fine + 1);
+# nerfplayer-nerfacto's, nerfacto's and then the grids' TV window rows
+# (field first, int64); nerfplayer-ngp's, the stratification (R, S) and
+# the grid's TV window row (1,)
 VanillaDraws = Callable[[int, int], List[np.ndarray]]
-# step -> instant-ngp's occupancy jitter (g, g, g, 3)
-OccupancyDraws = Callable[[int], np.ndarray]
-
-
-# The settings of the kinds that are not ported, as the JAX package
-# defines them, kept so that config.json round-trips.
-
-@dataclasses.dataclass
-class NerfplayerConfig:
-    near_plane: float = 0.05
-    far_plane: float = 1000.0
-    temporal_dim: int = 64
-    num_levels: int = 16
-    base_resolution: int = 16
-    desired_resolution: int = 2048
-    level_dim: int = 2
-    log2_hashmap_size: int = 19
-    hidden_dim: int = 64
-    hidden_dim_color: int = 64
-    geo_feat_dim: int = 15
-    appearance_embedding_dim: int = 32
-    num_proposal_samples: Tuple[int, ...] = (256, 96)
-    num_nerf_samples: int = 48
-    prop_temporal_dim: int = 32
-    prop_num_levels: int = 5
-    prop_log2_hashmap_size: int = 17
-    prop_max_res: Tuple[int, ...] = (64, 256)
-    interlevel_loss_mult: float = 1.0
-    distortion_loss_mult: float = 0.002
-    temporal_tv_weight: float = 1.0
-    background_color: str = "last_sample"
-    use_scene_contraction: bool = True
-    num_images: int = 1
-
-
-@dataclasses.dataclass
-class NerfplayerNGPConfig:
-    aabb_scale: float = 1.5
-    grid_resolution: int = 64
-    num_samples: int = 192
-    temporal_dim: int = 64
-    num_levels: int = 16
-    level_dim: int = 2
-    base_resolution: int = 16
-    desired_resolution: int = 1024
-    log2_hashmap_size: int = 19
-    hidden_dim: int = 64
-    geo_feat_dim: int = 15
-    hidden_dim_color: int = 64
-    temporal_tv_weight: float = 1.0
-    background_color: str = "white"
-    occ_threshold: float = 1e-2
-    num_images: int = 1
+# step -> the occupancy update's draws: instant-ngp's jitter (g, g, g, 3);
+# nerfplayer-ngp's [jitter (g^3, 3), times (g^3,)]
+OccupancyDraws = Callable[[int], object]
 
 
 @dataclasses.dataclass
@@ -295,7 +290,8 @@ class VanillaPipeline:
         mcfg = getattr(config, self.spec.settings)
         if self.spec.per_image:
             mcfg = dataclasses.replace(mcfg, num_images=n_images)
-        self.model = self.spec.build(mcfg, config.seed, self.device)
+        self.model = self.spec.build(mcfg, config.seed, self.device,
+                                     self.train_outputs.metadata)
         self.model_cfg = mcfg
         self.tx = PerGroupAdam(
             OptimizersConfig(adam_eps=1e-15),
@@ -330,27 +326,35 @@ class VanillaPipeline:
         return out
 
     def _step_draws(self, step: int, r: int) -> List[torch.Tensor]:
-        """The step's uniform draws: injected, or from the generator.
-        nerfacto's: (R, n + 1) for each proposal level's n samples and the
-        final resample's; instant-ngp's and neus's: (R, S + 1), the
-        stratification; vanilla-nerf's, mipnerf's and tensorf's: the
-        coarse stratification's and the resampling's."""
+        """The step's draws: injected, or from the generator.
+        nerfacto's: (R, n + 1) uniforms for each proposal level's n
+        samples and the final resample's; instant-ngp's and neus's: (R, S
+        + 1), the stratification; vanilla-nerf's, mipnerf's and tensorf's:
+        the coarse stratification's and the resampling's; the nerfplayer
+        pair's: see ``VanillaDraws``."""
         if self.draws is not None:
             return [torch.as_tensor(np.asarray(x), device=self.device)
                     for x in self.draws(step, r)]
-        return [torch.rand((r, n + 1), generator=self.generator,
-                           device=self.device)
-                for n in self.spec.draw_counts(self.model_cfg)]
+        out = [torch.rand((r, n + 1), generator=self.generator,
+                          device=self.device)
+               for n in self.spec.draw_counts(self.model_cfg)]
+        if self.spec.extra_draws is not None:
+            out += self.spec.extra_draws(self.model, r, self.generator,
+                                         self.device)
+        return out
 
     def update_occupancy(self, step: int) -> None:
-        """instant-ngp's grid update with this step's jitter (injected, or
-        from the generator)."""
-        jitter = (torch.as_tensor(np.asarray(self.occupancy_draws(step)),
-                                  device=self.device)
-                  if self.occupancy_draws is not None
-                  else ngp.occupancy_jitter(self.model_cfg, self.generator,
-                                            self.device))
-        ngp.update_occupancy(self.model, jitter)
+        """The occupancy grid's update with this step's draws (injected,
+        or from the generator)."""
+        draw, update = self.spec.occupancy
+        if self.occupancy_draws is not None:
+            got = self.occupancy_draws(step)
+            draws = [torch.as_tensor(np.asarray(x), device=self.device)
+                     for x in (got if isinstance(got, (list, tuple))
+                               else [got])]
+        else:
+            draws = draw(self.model, self.generator, self.device)
+        update(self.model, *draws)
 
     def loss(self, batch: dict, draws=None):
         """(total, (losses, outputs)) of the model's loss on a device
@@ -363,12 +367,13 @@ class VanillaPipeline:
 
     def get_train_loss_dict(self, step: int) -> dict:
         """One step; the metrics come back in one device-to-host copy.
-        instant-ngp: the grid is updated first at every 16th step; with
+        instant-ngp and nerfplayer-ngp: the grid is updated first at every
+        16th step; instant-ngp with
         ``dynamic_batch`` the next batch's rays are retargeted after."""
         self.cache.step()
         batch = self._device_batch(self.pixel_sampler.sample(self.cache))
         draws = self._step_draws(step, batch["image"].shape[0])
-        if self.spec.grid and step % ngp.OCC_UPDATE_EVERY == 0:
+        if self.spec.occupancy and step % ngp.OCC_UPDATE_EVERY == 0:
             self.update_occupancy(step)
         self.model.zero_grad(set_to_none=True)
         total, (losses, out) = self.loss(batch, draws)

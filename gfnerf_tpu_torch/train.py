@@ -4,7 +4,7 @@ The port's counterpart of ``scripts/train.py`` (its arguments, minus the
 multi-host ones):
 
   python -m gfnerf_tpu_torch.train METHOD --data DIR
-      [--dataparser {minimal,blender,nerfstudio,instant-ngp}]
+      [--dataparser {minimal,blender,nerfstudio,instant-ngp,dnerf,dycheck}]
       [--max-num-iterations N] [--output-dir DIR] [--experiment-name NAME]
       [--load-dir DIR] [--vis local] [--device {cuda,cpu}]
       [a.b.c=value ...] [--a.b.c value ...]
@@ -13,8 +13,11 @@ Extra arguments are dotted config overrides, e.g.
 ``pipeline.model.n_blocks=4``.  Methods: gf-nerf (the paper's: 1024 march
 slots, a budget of 256 field samples a ray), gf-nerf-perf, gf-nerf-prop,
 gf-nerf-tiny, and on the vanilla pipeline nerfacto, semantic-nerfw
-(whose labels are the npz's ``road_masks``) and instant-ngp (e.g. on a
-Blender scene of PNGs, ``--dataparser blender``).  ``python -m
+(whose labels are the npz's ``road_masks``), instant-ngp (e.g. on a
+Blender scene of PNGs, ``--dataparser blender``), mipnerf, tensorf, neus,
+vanilla-nerf, and the dynamic-scene pair nerfplayer-nerfacto and
+nerfplayer-ngp (on a D-NeRF or DyCheck capture, ``--dataparser dnerf`` or
+``dycheck``, whose frames carry times).  ``python -m
 gfnerf_tpu_torch.eval`` and ``python -m gfnerf_tpu_torch.render`` read a
 run's ``config.json`` and checkpoint.
 """
@@ -26,7 +29,8 @@ import sys
 from pathlib import Path
 
 # the dataparsers the port has (data/dataparsers/__init__.py)
-DATAPARSERS = ["minimal", "blender", "nerfstudio", "instant-ngp"]
+DATAPARSERS = ["minimal", "blender", "nerfstudio", "instant-ngp", "dnerf",
+               "dycheck"]
 
 
 def parse_overrides(extra) -> list:

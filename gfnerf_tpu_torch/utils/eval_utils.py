@@ -5,8 +5,9 @@ Port of ``gfnerf_tpu/utils/eval_utils.py`` (nerfstudio's
 rebuilds its pipeline in test mode on the checkpoint's octree and march
 config (the resume path: no octree build, no calibration) and loads the
 latest checkpoint; without a dataparser's name it guesses one from the
-data directory (``transforms.json``: nerfstudio, ``transforms_train.json``:
-blender, else minimal).
+data directory (``transforms.json``: nerfstudio; ``transforms_train.json``:
+dnerf where its frames carry a ``time``, else blender; ``scene.json`` with
+``splits/``: dycheck; else minimal).
 """
 
 from __future__ import annotations
@@ -33,15 +34,26 @@ def eval_setup(config_path: Path, dataparser_name: Optional[str] = None):
     config.timestamp = base_dir.name
     name = dataparser_name
     if name is None:
-        # guessed from the data's layout, as the JAX package guesses it
-        data = Path(config.data)
-        if (data / "transforms.json").exists():
-            name = "nerfstudio"
-        elif (data / "transforms_train.json").exists():
-            name = "blender"
-        else:
-            name = "minimal"
+        # guessed from the data's layout
+        name = guess_dataparser(Path(config.data))
     dataparser = build_dataparser(name, Path(config.data))
     trainer = Trainer(config, dataparser)
     trainer.setup(test_mode="test")
     return config, trainer
+
+
+def guess_dataparser(data: Path) -> str:
+    """The dataparser a data directory's layout names: the JAX package's
+    guess (nerfstudio, blender, minimal) with the dynamic formats told
+    apart (a Blender layout whose frames carry times is D-NeRF's)."""
+    import json
+
+    if (data / "transforms.json").exists():
+        return "nerfstudio"
+    if (data / "transforms_train.json").exists():
+        frames = json.loads((data / "transforms_train.json").read_text())[
+            "frames"]
+        return "dnerf" if frames and "time" in frames[0] else "blender"
+    if (data / "scene.json").exists() and (data / "splits").is_dir():
+        return "dycheck"
+    return "minimal"

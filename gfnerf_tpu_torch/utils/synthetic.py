@@ -7,6 +7,8 @@ ray-sphere intersection with Lambert shading, written as the minimal
 dataparser's npz files or as a Blender-layout scene of PNGs (through
 ``image_io.write_png``; optionally RGBA with the spheres' coverage as
 alpha, a transparent sky as in the published Blender scenes).
+``make_dnerf_fixture`` writes a dynamic scene in the D-NeRF layout: a
+sphere whose centre moves with the frame's time, beside two still ones.
 """
 
 from __future__ import annotations
@@ -148,6 +150,55 @@ def make_blender_fixture(path: Path, n_train: int = 10, n_eval: int = 2,
                       (imgs[i] * 255).astype(np.uint8))
             frames.append({"file_path": f"./{split}/r_{i}",
                            "transform_matrix": m.tolist()})
+        (path / f"transforms_{split}.json").write_text(json.dumps(
+            {"camera_angle_x": float(cam_angle_x), "frames": frames}))
+    return path
+
+
+def moving_spheres(t: float) -> np.ndarray:
+    """The dynamic scene at time ``t`` in [0, 1]: SPHERES' two small ones
+    still, the large one shrunk to radius 0.6 and moved half a turn round
+    the z axis on a circle of radius 0.7, rising by 0.3."""
+    out = SPHERES.copy()
+    ang = np.pi * t
+    out[0, :4] = [0.7 * np.cos(ang), 0.7 * np.sin(ang), 0.3 * t - 0.15, 0.6]
+    return out
+
+
+def make_dnerf_fixture(path: Path, n_train: int = 24, n_val: int = 4,
+                       img_wh=(200, 200), focal: float = 180.0,
+                       n_times: int = 4) -> Path:
+    """Write a D-NeRF-layout dataset (transforms_{train,val,test}.json with
+    a ``time`` a frame, RGBA PNGs with a transparent sky) of a scene seen
+    at ``n_times`` times by several cameras each, as a multi-camera video
+    capture: train view i on a ring of 2 n_train positions at position
+    2i, at time (i mod n_times) / (n_times - 1), so each time's views are
+    spread round the ring; val view j (test: the same) at the odd position
+    between, 2 j n_train / n_val + 1, at time (j mod n_times) / (n_times -
+    1), so that val view 0 shares train view 0's time 0."""
+    path = Path(path)
+    c2w, fx, fy, cx, cy, w, h = ring_cameras(2 * n_train, img_wh=img_wh,
+                                             focal=focal)
+    step = max(n_times - 1, 1)
+    views = [(2 * i, (i % n_times) / step) for i in range(n_train)] + [
+        (2 * (j * n_train // n_val) + 1, (j % n_times) / step)
+        for j in range(n_val)]
+    cam_angle_x = 2 * np.arctan(w / (2 * fx[0]))
+    splits = (("train", 0, n_train), ("val", n_train, n_train + n_val),
+              ("test", n_train, n_train + n_val))
+    for split, lo, hi in splits:
+        (path / split).mkdir(parents=True, exist_ok=True)
+        frames = []
+        for i in range(lo, hi):
+            v, t = views[i]
+            img = render_spheres(c2w[v:v + 1], fx, fy, cx, cy, w, h,
+                                 spheres=moving_spheres(t), coverage=True)[0]
+            m = np.eye(4)
+            m[:3, :4] = c2w[v]
+            write_png(path / split / f"r_{i}.png",
+                      (img * 255).astype(np.uint8))
+            frames.append({"file_path": f"./{split}/r_{i}",
+                           "transform_matrix": m.tolist(), "time": t})
         (path / f"transforms_{split}.json").write_text(json.dumps(
             {"camera_angle_x": float(cam_angle_x), "frames": frames}))
     return path

@@ -21,6 +21,7 @@ CPU.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
 import sys
@@ -554,24 +555,186 @@ def test_instant_ngp_parser_matches_jax(tmp_path, case):
 
 
 def test_dataparser_registry():
-    """``build_dataparser`` builds the four ported parsers (``scale_factor``
-    where the config has one) and raises "not ported" for the JAX
-    package's other eight, ValueError for an unknown name."""
+    """``build_dataparser`` builds the six ported parsers (``scale_factor``
+    where the config has one), the dynamic formats dnerf and dycheck among
+    them, and raises "not ported" for the JAX package's other six,
+    ValueError for an unknown name."""
     from gfnerf_tpu.data.dataparsers import registry as jax_registry
     from gfnerf_tpu_torch.data.dataparsers import (NOT_PORTED,
                                                    build_dataparser,
                                                    registry)
 
     assert set(registry()) == {"nerfstudio", "blender", "minimal",
-                               "instant-ngp"}
+                               "instant-ngp", "dnerf", "dycheck"}
     assert set(registry()) | set(NOT_PORTED) == set(jax_registry())
+    assert set(NOT_PORTED) == {"scannet", "sdfstudio", "phototourism",
+                               "sitcoms3d", "arkitscenes", "nuscenes"}
     assert build_dataparser("blender", Path("x"), 0.5).config.scale_factor \
+        == 0.5
+    assert build_dataparser("dnerf", Path("x"), 0.5).config.scale_factor \
         == 0.5
     for name in NOT_PORTED:
         with pytest.raises(NotImplementedError, match="not ported"):
             build_dataparser(name, Path("x"))
     with pytest.raises(ValueError, match="unknown"):
         build_dataparser("no-such-parser", Path("x"))
+
+
+def _pose(i, n=8, radius=4.0):
+    """tests/test_extra_parsers.py's ring pose looking at the origin."""
+    a = 2 * np.pi * i / n
+    c = np.array([radius * np.cos(a), radius * np.sin(a), 1.5])
+    z = c / np.linalg.norm(c)
+    x = np.cross(np.array([0, 0, 1.0]), z)
+    x /= np.linalg.norm(x) + 1e-9
+    y = np.cross(z, x)
+    m = np.eye(4)
+    m[:3, 0], m[:3, 1], m[:3, 2], m[:3, 3] = x, y, z, c
+    return m
+
+
+def _cv2_png(path, w=8, h=6):
+    import cv2
+
+    path.parent.mkdir(parents=True, exist_ok=True)
+    cv2.imwrite(str(path), _rgb(0, h, w))
+
+
+def _same_dynamic_outputs(to, jo):
+    """_same_outputs with the metadata's arrays compared exactly."""
+    for key in set(to.metadata) | set(jo.metadata):
+        a, b = to.metadata.get(key), jo.metadata.get(key)
+        if isinstance(b, np.ndarray):
+            assert isinstance(a, np.ndarray) and a.dtype == b.dtype, key
+            np.testing.assert_array_equal(a, b, err_msg=key)
+        else:
+            assert a == b, key
+    _same_outputs(dataclasses.replace(to, metadata={}),
+                  dataclasses.replace(jo, metadata={}))
+
+
+@pytest.mark.parametrize("fixture", ["jax-test", "dnerf-fixture"])
+def test_dnerf_parser_matches_jax(tmp_path, fixture):
+    """The D-NeRF parser on tests/test_extra_parsers.py's test_dnerf layout
+    (8x6 PNGs by cv2, times i / 3) and on the port's make_dnerf_fixture
+    (RGBA, a moving sphere): cameras exact, times equal, as float32; the
+    images as the JAX dataset loads them, exact; the scale factor."""
+    import json
+
+    from gfnerf_tpu.data.dataparsers.extra_parsers import (
+        DNeRFDataParser, DNeRFDataParserConfig)
+    from gfnerf_tpu.data.dataset import InputDataset as JaxDataset
+    from gfnerf_tpu_torch.data.dataparsers import build_dataparser
+    from gfnerf_tpu_torch.data.dataset import InputDataset
+    from gfnerf_tpu_torch.utils.synthetic import make_dnerf_fixture
+
+    if fixture == "jax-test":
+        path = tmp_path
+        for split in ("train", "val"):
+            frames = []
+            for i in range(4):
+                name = f"{split}_{i}"
+                _cv2_png(path / f"{name}.png")
+                frames.append({"file_path": f"./{name}",
+                               "transform_matrix": _pose(i, 4).tolist(),
+                               "time": i / 3.0})
+            (path / f"transforms_{split}.json").write_text(
+                json.dumps({"camera_angle_x": 0.7, "frames": frames}))
+        want = {"train": np.arange(4) / 3.0, "val": np.arange(4) / 3.0}
+    else:
+        path = make_dnerf_fixture(tmp_path / "s", 6, 3, img_wh=(20, 14),
+                                  focal=18.0)
+        want = {"train": np.arange(6) % 4 / 3.0, "val": np.arange(3) / 3.0,
+                "test": np.arange(3) / 3.0}
+    for split, times in want.items():
+        for scale in (None, 0.5):
+            jo = DNeRFDataParser(DNeRFDataParserConfig(
+                data=path, scale_factor=scale or 1.0)).get_dataparser_outputs(
+                split)
+            to = build_dataparser("dnerf", path, scale).get_dataparser_outputs(
+                split)
+            _same_dynamic_outputs(to, jo)
+        assert to.metadata["times"].dtype == np.float32
+        np.testing.assert_allclose(to.metadata["times"], times, atol=1e-6)
+        np.testing.assert_array_equal(InputDataset(to).get_image(1),
+                                      JaxDataset(jo).get_image(1))
+
+
+def _dycheck_scene(path, n=3, factor=1, depth=False, val=False):
+    """tests/test_extra_parsers.py's test_dycheck layout (extra.json,
+    scene.json, splits, a camera file a frame, rgb/{d}x PNGs by cv2), with
+    the time ids 0, 2, 4, optionally depth .npy files and a val split."""
+    import json
+
+    (path / "extra.json").write_text(json.dumps(
+        {"factor": factor, "fps": 30, "bbox": [[-1] * 3, [1] * 3],
+         "lookat": [0, 0, 0], "up": [0, 1, 0]}))
+    (path / "scene.json").write_text(json.dumps(
+        {"center": [0.1, -0.2, 0.3], "scale": 0.5, "near": 0.1,
+         "far": 2.0}))
+    (path / "splits").mkdir()
+    names = [f"0_{i:05d}" for i in range(n)]
+    (path / "splits" / "train.json").write_text(json.dumps(
+        {"frame_names": names, "time_ids": [2 * i for i in range(n)]}))
+    if val:
+        (path / "splits" / "val.json").write_text(json.dumps(
+            {"frame_names": names[1:], "time_ids": [1, 3][:n - 1]}))
+    (path / "camera").mkdir()
+    for i, name in enumerate(names):
+        pose = _pose(i, n)
+        cam = {"orientation": pose[:3, :3].T.tolist(),
+               "position": pose[:3, 3].tolist(),
+               "focal_length": 350.0, "principal_point": [4.0, 3.0],
+               "image_size": [8 * factor, 6 * factor],
+               "pixel_aspect_ratio": 1.0 if i else 1.25}
+        (path / "camera" / f"{name}.json").write_text(json.dumps(cam))
+        _cv2_png(path / "rgb" / f"{factor}x" / f"{name}.png")
+        if depth:
+            (path / "depth" / f"{factor}x").mkdir(parents=True,
+                                                  exist_ok=True)
+            np.save(path / "depth" / f"{factor}x" / f"{name}.npy",
+                    np.full((6, 8, 1), 0.5 + i, np.float32))
+    return path
+
+
+@pytest.mark.parametrize("case", ["jax-test", "depth-val", "factor-2"])
+def test_dycheck_parser_matches_jax(tmp_path, case):
+    """The DyCheck parser against the JAX package's: the cameras exact
+    (OpenCV to nerfstudio, centred and scaled by the scene's scale), the
+    times (time ids over the largest), the depth files, the scene scale;
+    a missing val split falls back to train, the extra.json factor picks
+    the rgb/{d}x directory; the depth maps as the JAX dataset loads
+    them."""
+    from gfnerf_tpu.data.dataparsers.extra_parsers import (
+        DycheckDataParser, DycheckDataParserConfig)
+    from gfnerf_tpu.data.dataset import InputDataset as JaxDataset
+    from gfnerf_tpu_torch.data.dataparsers import build_dataparser
+    from gfnerf_tpu_torch.data.dataset import InputDataset
+
+    path = _dycheck_scene(tmp_path, depth=case == "depth-val",
+                          val=case == "depth-val",
+                          factor=2 if case == "factor-2" else 1)
+    for split in ("train", "val"):
+        jo = DycheckDataParser(DycheckDataParserConfig(
+            data=path)).get_dataparser_outputs(split)
+        to = build_dataparser("dycheck", path).get_dataparser_outputs(split)
+        _same_dynamic_outputs(to, jo)
+        if split == "train" or case != "depth-val":
+            np.testing.assert_allclose(to.metadata["times"], [0, 0.5, 1.0])
+            assert len(to.image_filenames) == 3
+        else:
+            np.testing.assert_allclose(to.metadata["times"], [1 / 3, 1.0])
+        assert to.dataparser_scale == pytest.approx(1.5 / 4 / 2.0)
+        assert (to.metadata["depth_filenames"] is None) == (
+            case != "depth-val")
+        if case == "depth-val":
+            a = InputDataset(to).get_data(0)
+            b = JaxDataset(jo).get_data(0)
+            np.testing.assert_array_equal(a["depth"], b["depth"])
+            np.testing.assert_array_equal(a["image"], b["image"])
+    if case == "factor-2":
+        assert all("/2x/" in str(f) for f in to.image_filenames)
+        assert int(to.cameras.width[0]) == 8
 
 
 # ---- cameras ----

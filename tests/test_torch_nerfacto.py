@@ -626,25 +626,27 @@ def _fields(obj, prefix=""):
 
 @pytest.mark.parametrize("method", ["nerfacto", "semantic-nerfw",
                                     "instant-ngp", "vanilla-nerf", "mipnerf",
-                                    "tensorf", "neus"])
+                                    "tensorf", "neus", "nerfplayer-nerfacto",
+                                    "nerfplayer-ngp"])
 def test_methods_registered_with_jax_settings(method):
     """get_method gives the JAX package's settings, every field of the
-    vanilla pipeline's config included; the nerfplayer pair raises."""
+    vanilla pipeline's config included (the nerfplayer pair's too, now
+    ported); a kind the pipeline does not have raises "not ported"."""
     from gfnerf_tpu.configs.method_configs import method_configs
-    from gfnerf_tpu_torch.configs.method_configs import get_method
+    from gfnerf_tpu_torch.configs.method_configs import NOT_PORTED, get_method
     from gfnerf_tpu_torch.pipelines.vanilla_pipeline import (
-        VanillaPipelineConfig)
+        KINDS, VanillaPipelineConfig)
 
     got, want = _fields(get_method(method)), _fields(method_configs[method]())
     assert set(got) - set(want) == {"device"}
     for k in set(got) & set(want) - {"vis"}:
         assert got[k] == want[k], (k, got[k], want[k])
     assert sum(k.startswith("pipeline.") for k in got) > 100
-    for kind in ("nerfplayer-nerfacto", "nerfplayer-ngp"):
-        with pytest.raises(NotImplementedError, match="not ported"):
-            VanillaPipelineConfig(model_kind=kind).build(None, ".", "cpu")
-        with pytest.raises(NotImplementedError, match="not ported"):
-            get_method(kind)
+    assert NOT_PORTED == ()
+    assert get_method(method).pipeline.model_kind in KINDS
+    with pytest.raises(NotImplementedError, match="not ported"):
+        VanillaPipelineConfig(model_kind="no-such-kind").build(None, ".",
+                                                               "cpu")
 
 
 # ---- on the card ----

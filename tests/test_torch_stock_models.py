@@ -507,19 +507,13 @@ def test_pipeline_checkpoint_round_trip(blender_scene, tmp_path):
 
 
 def test_get_method_all_thirteen():
-    """Every method the JAX package registers: all but the nerfplayer pair
-    give a config, those two raise "not ported"."""
+    """Every method the JAX package registers gives a config of its name
+    (the nerfplayer pair's too, now ported): none raises "not ported"."""
     from gfnerf_tpu.configs.method_configs import method_configs
     from gfnerf_tpu_torch.configs.method_configs import get_method
 
     assert len(method_configs) == 13
-    raised = []
     for name in method_configs:
-        try:
-            cfg = get_method(name)
-        except NotImplementedError as err:
-            assert "not ported" in str(err)
-            raised.append(name)
-            continue
-        assert cfg.method_name == name
-    assert sorted(raised) == ["nerfplayer-nerfacto", "nerfplayer-ngp"]
+        assert get_method(name).method_name == name
+    assert get_method("nerfplayer-ngp").pipeline.model_kind == \
+        "nerfplayer-ngp"
