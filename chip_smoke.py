@@ -221,7 +221,11 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
                 1,048,576 and 393,216 points on 5 x 2 levels with T = 32,
                 the field at 196,608 on 16 x 2 with T = 64) or once each
                 and T1 once more at every 16th step (ngp: 786,432 points,
-                the occupancy update's 262,144), no other kernel; finite
+                the occupancy update's 262,144), each call a launch per
+                group of levels (ops.temporal_grid's
+                FWD_LEVELS_PER_LAUNCH, BWD_LEVELS_PER_LAUNCH: T1 one per
+                8 levels, T2 one per 2: 4 + 14 launches a nerfacto step,
+                2 + 8 an ngp step), no other kernel; finite
                 losses, the rgb loss falling, every tensor changed, ngp's
                 grid off all ones; every val frame's PSNR with its time
                 beside its mean image's (eval rays take train camera 0's
@@ -230,9 +234,11 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
                 one step against the plain pairs (and one occupancy
                 update); T1 bit for bit and T2 to 1e-5 of the largest
                 against their plain versions at every step shape, timed
-                (T2 also against index_add_), and at the edge inputs (t =
-                0, 1 and every window-row boundary, the faces 0.0 and 1.0,
-                dense and hashed levels); s/step, rays/s, peak memory, a
+                (T2 also against index_add_, with its reductions per level
+                beside its terms; both at 1, 2, 4, 8 and 16 levels a
+                launch at the field), and at the edge inputs (t = 0, 1 and
+                every window-row boundary, the faces 0.0 and 1.0, dense
+                and hashed levels); s/step, rays/s, peak memory, a
                 profiled step; eval and render on each checkpoint.
 Each phase ends with a [clock] line.  Before the last line come a JSON
 object with each kernel's launches, error, times and bound (K1, K2, H1 and
@@ -241,7 +247,8 @@ three, under "nerfacto", and at instant-ngp's, under "instant_ngp"; M1 at
 the train batch, with its render chunk, gf-nerf's march and the by-part
 inputs under "render_chunk", "gfnerf_march" and "by_part", each with its
 bound; T1 and T2 at nerfplayer-nerfacto's field, with every shape of the
-pair's steps under "nerfplayer"), and the
+pair's steps under "nerfplayer", T2's reductions per level and both
+kernels' times at 1-16 levels a launch at the field), and the
 card's name and power limit; the last line is
 {"ok": true, "device": {...}}.
 
@@ -5985,6 +5992,8 @@ NPL_NGP_WIDTH = (4096, 192, 16, 2, 64, 19, 1024, 64, 0.01, 1.5, "white")
 # T2 against its plain version: the same f32 terms added by atomics in
 # other orders, H2's and H5's limit
 T2_ATOL_REL = 1e-5
+# levels a launch of T1 and T2, timed at nerfplayer-nerfacto's field
+TEMPORAL_GROUPS = (1, 2, 4, 8, 16)
 
 
 class record_temporal_encodes:
@@ -6033,12 +6042,16 @@ def temporal_bytes(table, st, xyz, times, gradient: bool) -> dict:
             "table_sectors": sectors}
 
 
-def time_temporal_at(table, st, xyz, times, what, backward=True) -> tuple:
+def time_temporal_at(table, st, xyz, times, what, backward=True,
+                     sweep=False) -> tuple:
     """T1 (and T2) at one shape: T1 equal to its plain version bit for bit,
     T2 to T2_ATOL_REL of the largest entry; each timed with 10 calls per
     event pair against its plain version, T2 also against index_add_ of
-    the plain terms into the flat table; bounds from the bytes.  Returns
-    (T1's, T2's or None)."""
+    the plain terms into the flat table; bounds from the bytes; T2's
+    reductions per level beside its terms (8 (C + 1) a point and level).
+    With ``sweep``, both also timed at TEMPORAL_GROUPS levels a launch
+    (equal to the plain versions at each).  Returns (T1's, T2's or
+    None)."""
     import torch
 
     from gfnerf_tpu_torch.fields import temporal_grid as tg
@@ -6065,18 +6078,41 @@ def time_temporal_at(table, st, xyz, times, what, backward=True) -> tuple:
            "rows": table.shape[0], "levels": st.n_levels,
            "table_entries_read": moved["table_entries"],
            "table_sectors_read": moved["table_sectors"]}
+    if sweep:
+        fwd["levels_per_launch_ms"] = {}
+        for grp in TEMPORAL_GROUPS:
+            if not torch.equal(ops.temporal_grid_fwd(
+                    table, tables, xyz, times, levels_per_launch=grp),
+                    tg.temporal_grid_encode_raw(table, st, xyz, times)):
+                raise AssertionError(f"{what} temporal_grid_fwd at {grp} "
+                                     f"levels a launch: not bit for bit")
+            fwd["levels_per_launch_ms"][grp] = time_ms(
+                lambda g=grp: ops.temporal_grid_fwd(
+                    table, tables, xyz, times, levels_per_launch=g),
+                n=11, reps=10)
     bwd = None
     if backward:
         gen = torch.Generator(device="cuda").manual_seed(9)
         g = torch.randn((p, st.n_levels * st.level_dim), generator=gen,
                         device="cuda")
         rows = table.shape[0]
-        got = ops.temporal_grid_bwd(g, tables, xyz, times, rows)
+        red = torch.zeros(st.n_levels, dtype=torch.int64, device="cuda")
+        got = ops.temporal_grid_bwd(g, tables, xyz, times, rows, red_ops=red)
         want = tg.temporal_backward_reference(g, st, xyz, times, rows)
         torch.cuda.synchronize()
         assert_close([got], [want], f"{what} temporal_grid_bwd",
                      atol_rel=T2_ATOL_REL)
         bwd_err = max_err([got], [want])
+        groups_ms = {}
+        for grp in TEMPORAL_GROUPS if sweep else ():
+            assert_close([ops.temporal_grid_bwd(g, tables, xyz, times, rows,
+                                                levels_per_launch=grp)],
+                         [want], f"{what} temporal_grid_bwd at {grp} levels "
+                         f"a launch", atol_rel=T2_ATOL_REL)
+            groups_ms[grp] = time_ms(
+                lambda gr=grp: ops.temporal_grid_bwd(
+                    g, tables, xyz, times, rows, levels_per_launch=gr),
+                n=11, reps=10)
         del got, want
         terms = list(tg.temporal_scatter_terms(g, st, xyz, times))
         idx = torch.cat([i.reshape(-1) for i, _ in terms])
@@ -6094,7 +6130,11 @@ def time_temporal_at(table, st, xyz, times, what, backward=True) -> tuple:
                    rows * st.width, device="cuda").index_add_(0, idx, vals),
                    n=5, reps=2),
                "points": p, "rows": rows, "levels": st.n_levels,
-               "terms": int(idx.numel())}
+               "terms": int(idx.numel()),
+               "reductions_per_level": red.tolist(),
+               "terms_per_level": p * 8 * (st.level_dim + 1)}
+        if sweep:
+            bwd["levels_per_launch_ms"] = groups_ms
         del idx, vals, g
     torch.cuda.empty_cache()
     for name, x in (("temporal_grid_fwd", fwd), ("temporal_grid_bwd", bwd)):
@@ -6109,7 +6149,12 @@ def time_temporal_at(table, st, xyz, times, what, backward=True) -> tuple:
             + f"bound {x['bound_ms']:.4f} ms"
             + (f" ({x['table_entries_read']} table entries in "
                f"{x['table_sectors_read']} sectors)"
-               if "table_entries_read" in x else ""))
+               if "table_entries_read" in x else "")
+            + (f"; reductions per level {x['reductions_per_level']} of "
+               f"{x['terms_per_level']} terms a level"
+               if "reductions_per_level" in x else "")
+            + (f"; levels a launch: ms {x['levels_per_launch_ms']}"
+               if "levels_per_launch_ms" in x else ""))
     return fwd, bwd
 
 
@@ -6247,8 +6292,9 @@ def nerfplayer_run(tmp: Path, scene: Path, method: str) -> tuple:
     from gfnerf_tpu_torch.engine.trainer import Trainer
     from gfnerf_tpu_torch.models import nerfplayer as npl
     from gfnerf_tpu_torch.models.instant_ngp import OCC_UPDATE_EVERY
-    from gfnerf_tpu_torch.ops.temporal_grid import (temporal_grid_bwd,
-                                                    temporal_grid_fwd)
+    from gfnerf_tpu_torch.ops.temporal_grid import (BWD_LEVELS_PER_LAUNCH,
+                                                    FWD_LEVELS_PER_LAUNCH,
+                                                    n_launches)
     from gfnerf_tpu_torch.utils.eval_utils import eval_setup
     from gfnerf_tpu_torch.utils.profiling import profile_device
 
@@ -6321,19 +6367,30 @@ def nerfplayer_run(tmp: Path, scene: Path, method: str) -> tuple:
     steps = rec["steps"]
     if sorted(steps) != list(range(n_steps)):
         raise AssertionError(f"{method}: steps run {sorted(steps)}")
-    calls = 1 if ngp else 1 + len(mc.num_proposal_samples)
+    # the step's encodes: a launch per group of levels each
+    levels = [mc.num_levels] if ngp else (
+        [mc.prop_num_levels] * len(mc.num_proposal_samples)
+        + [mc.num_levels])
+    calls = {k: sum(n_launches(n, per) for n in levels) for k, per in (
+        ("temporal_grid_fwd", FWD_LEVELS_PER_LAUNCH),
+        ("temporal_grid_bwd", BWD_LEVELS_PER_LAUNCH))}
+    occ_calls = n_launches(mc.num_levels, FWD_LEVELS_PER_LAUNCH)
     for i in range(n_steps):
-        extra = int(ngp and i % OCC_UPDATE_EVERY == 0)
-        want = {"temporal_grid_fwd": calls + extra,
-                "temporal_grid_bwd": calls}
+        extra = occ_calls if ngp and i % OCC_UPDATE_EVERY == 0 else 0
+        want = {"temporal_grid_fwd": calls["temporal_grid_fwd"] + extra,
+                "temporal_grid_bwd": calls["temporal_grid_bwd"]}
         got = steps[i]["counts"]
         if got != {k: want.get(k, 0) for k in got}:
             raise AssertionError(f"{method} step {i}: launches {got}, "
                                  f"expected {want}")
-    log(f"[nerfplayer] {method}: launches per step as expected: T1 {calls} "
-        + ("(and once more at every 16th step, the occupancy update) "
-           if ngp else "")
-        + f"and T2 {calls}, no other kernel; in the whole run {launches}")
+    log(f"[nerfplayer] {method}: launches per step as expected: T1 "
+        f"{calls['temporal_grid_fwd']} "
+        + (f"(and {occ_calls} more at every 16th step, the occupancy "
+           f"update) " if ngp else "")
+        + f"and T2 {calls['temporal_grid_bwd']} ({len(levels)} encodes of "
+        f"{levels} levels; {FWD_LEVELS_PER_LAUNCH or 'all'} and "
+        f"{BWD_LEVELS_PER_LAUNCH} levels a launch), no other kernel; in the "
+        f"whole run {launches}")
     keys = [k for k in steps[0] if k not in ("s", "counts")]
     hist = {k: [steps[i][k] for i in range(n_steps)] for k in keys}
     every = max(n_steps // 12, 1)
@@ -6461,7 +6518,7 @@ def nerfplayer_run(tmp: Path, scene: Path, method: str) -> tuple:
     for name, (table, st, xyz, times) in zip(names, enc.calls):
         kernels[name] = time_temporal_at(
             table, st, xyz, times, f"nerfplayer {method} {name}",
-            backward=name != "occupancy update")
+            backward=name != "occupancy update", sweep=name == "field")
     field_table, field_st = enc.calls[-1 if not ngp else 0][:2]
     n_edge = temporal_edge_cases(field_table, field_st, method)
     log(f"[nerfplayer] {method}: T1 bit for bit and T2 to {T2_ATOL_REL} of "
@@ -6504,7 +6561,9 @@ def phase_nerfplayer(tmp: Path):
     moving with the frame's time) and read back by the dnerf parser:
     nerfplayer-nerfacto (NPL_NERFACTO_WIDTH) with T1 and T2 three calls a
     step each, nerfplayer-ngp (NPL_NGP_WIDTH) with T1 and T2 once a step
-    and T1 once more at every 16th (the occupancy update); no other
+    and T1 once more at every 16th (the occupancy update), each call a
+    launch per group of levels (T1 8 levels a launch, T2 two: the
+    kernels' own grouping, which the launch count follows); no other
     kernel.  Per method (nerfplayer_run): finite losses, the rgb loss
     falling, every tensor changed, the checkpoint (reloaded to the same
     eval image; ngp's grid off all ones and reloaded equal), every val

@@ -14,7 +14,8 @@ hash modulo the level's rows (in uint32 arithmetic), and the slots are
 summed over the corners with the trilinear weights ``((wx * wy) * wz)``.
 
 :func:`make_temporal_grid` builds the table and the statics with numpy
-exactly as the JAX package does.  :func:`temporal_grid_encode_raw` is the
+exactly as the JAX package does (:func:`temporal_grid_statics` the statics
+alone).  :func:`temporal_grid_encode_raw` is the
 plain PyTorch forward: it gathers only the ``level_dim + 1`` channels a
 corner uses, at ``(row) * (C + T) + channel`` of the flat table, in the
 JAX package's order of every sum; :func:`temporal_backward_reference` is
@@ -78,16 +79,42 @@ class TemporalGridStatics:
     def time_scale(self) -> float:
         return float(max(self.temporal_dim - 2, 1))
 
+    def check_kernel_facts(self) -> None:
+        """Raise unless the grid holds what T1 and T2 assume: a contiguous
+        window (at row r the slots read the channels r .. r + C - 1, slot
+        c the one congruent to c mod C, the interpolating slot is r mod C,
+        its old channel r and its new channel r + C), at most T - 1 rows
+        (so a channel of the row follows every window), hashed levels of a
+        power of two of rows, and level offsets that are multiples of 8
+        rows.  make_temporal_grid's grids hold all four."""
+        c, r = self.level_dim, np.arange(self.n_rows)
+        slots = np.arange(c)
+        closed = r[:, None] + (slots[None, :] - r[:, None]) % c
+        if not (np.array_equal(self.sel_pass, closed)
+                and np.array_equal(self.sel_old, r)
+                and np.array_equal(self.sel_new, r + c)
+                and np.array_equal(self.interp_pos, r % c)):
+            raise ValueError("temporal grid: the window rows are not the "
+                             "contiguous channels r .. r + C")
+        if self.n_rows > max(self.temporal_dim - 1, 0):
+            raise ValueError(f"temporal grid: {self.n_rows} window rows at "
+                             f"T = {self.temporal_dim}")
+        sizes = np.diff(self.offsets)
+        hashed = sizes[self.hashed]
+        if (hashed & (hashed - 1)).any():
+            raise ValueError(f"temporal grid: hashed levels of "
+                             f"{hashed.tolist()} rows, not all powers of two")
+        if (self.offsets % 8).any():
+            raise ValueError(f"temporal grid: level offsets "
+                             f"{self.offsets.tolist()} not multiples of 8")
+
     def tables(self, device) -> ops.GridTables:
-        """The statics as device tensors (built once per device)."""
+        """The statics as device tensors (built once per device), after
+        :meth:`check_kernel_facts`."""
         device = torch.device(device)
         if device not in self._device:
+            self.check_kernel_facts()
             c = self.level_dim
-            if not np.array_equal(
-                    self.sel_pass[np.arange(self.n_rows), self.interp_pos],
-                    self.sel_old):
-                raise ValueError("temporal grid: sel_old is not the "
-                                 "interpolating slot's passthrough channel")
             win = np.concatenate([self.sel_pass, self.sel_new[:, None],
                                   self.interp_pos[:, None]], 1)
             self._device[device] = ops.GridTables(
@@ -103,8 +130,7 @@ class TemporalGridStatics:
         return self._device[device]
 
 
-def make_temporal_grid(
-    seed: int,
+def temporal_grid_statics(
     temporal_dim: int = 64,
     num_levels: int = 16,
     level_dim: int = 2,
@@ -112,9 +138,8 @@ def make_temporal_grid(
     log2_hashmap_size: int = 19,
     desired_resolution: int | None = None,
     per_level_scale: float = 2.0,
-):
-    """(embeddings (rows, level_dim + temporal_dim) f32 numpy, statics),
-    drawn exactly as the JAX package draws them."""
+) -> TemporalGridStatics:
+    """A grid's statics, as the JAX package builds them (no table)."""
     if desired_resolution is not None:
         per_level_scale = float(np.exp2(
             np.log2(desired_resolution / base_resolution)
@@ -143,10 +168,7 @@ def make_temporal_grid(
         sel_pass.append(list(active))
         active[pos] = nxt
         nxt += 1
-
-    rng = np.random.default_rng(seed)
-    emb = rng.uniform(-1e-4, 1e-4, (offsets[-1], c + t)).astype(np.float32)
-    statics = TemporalGridStatics(
+    return TemporalGridStatics(
         offsets=np.asarray(offsets, np.int64),
         resolutions=np.asarray(resolutions, np.int32),
         hashed=np.asarray(hashed, bool),
@@ -155,6 +177,26 @@ def make_temporal_grid(
         sel_new=np.asarray(sel_new, np.int32),
         interp_pos=np.asarray(interp_pos, np.int32),
         level_dim=level_dim, temporal_dim=temporal_dim)
+
+
+def make_temporal_grid(
+    seed: int,
+    temporal_dim: int = 64,
+    num_levels: int = 16,
+    level_dim: int = 2,
+    base_resolution: int = 16,
+    log2_hashmap_size: int = 19,
+    desired_resolution: int | None = None,
+    per_level_scale: float = 2.0,
+):
+    """(embeddings (rows, level_dim + temporal_dim) f32 numpy, statics),
+    drawn exactly as the JAX package draws them."""
+    statics = temporal_grid_statics(temporal_dim, num_levels, level_dim,
+                                    base_resolution, log2_hashmap_size,
+                                    desired_resolution, per_level_scale)
+    rng = np.random.default_rng(seed)
+    emb = rng.uniform(-1e-4, 1e-4, (int(statics.offsets[-1]), statics.width)
+                      ).astype(np.float32)
     return emb, statics
 
 

@@ -45,8 +45,10 @@ SIGNATURES = {
     "gfnerf_hash_anchored_bwd": [_P] * 9 + [_I64] + [_I32] * 5 + [_P],
     "gfnerf_scan_march": [_P] * 23 + [_I64, _I32, _I32, _I32, _F32, _I32,
                                       _F32, _F32, _P],
-    "gfnerf_temporal_grid_fwd": [_P] * 8 + [_I64] + [_I32] * 4 + [_F32, _P],
-    "gfnerf_temporal_grid_bwd": [_P] * 8 + [_I64] + [_I32] * 4 + [_F32, _P],
+    "gfnerf_temporal_grid_fwd": [_P] * 8 + [_I64] + [_I32] * 4
+    + [_F32, _I32, _P],
+    "gfnerf_temporal_grid_bwd": [_P] * 9 + [_I64, _I64] + [_I32] * 4
+    + [_F32, _I32, _P],
 }
 
 

@@ -8,8 +8,12 @@ the JAX package's draws handed over; ``update_ngp_occupancy``; a few
 ``VanillaPipeline`` steps of each kind against the JAX pipeline on a small
 D-NeRF scene; the two reference traits the port keeps or repairs (eval
 rays at camera 0's time; the nerfplayer-ngp checkpoint holding the grid);
-the entry points.  On a card (``cuda``): T1 and T2 against the plain pair,
-and each model's step through the kernels against the plain pair.
+the entry points; ``tables()``'s checks of what T1 and T2 assume (a
+contiguous window, hashed levels of a power of two of rows), and every
+registered grid passing them; the plain table gradient on ray-major
+samples.  On a card (``cuda``): T1 and T2 against the plain pair (also on
+ray-major samples whose runs T2 merges), and each model's step through the
+kernels against the plain pair.
 
 Sizes: 3-4 levels, T = 4-6, 2^6-2^10 rows; 32 rays.  Tolerances, and why:
 - the tables, the window tables and the parameters at the start: bit for
@@ -94,6 +98,35 @@ def encode_inputs(st, n=257, seed=0):
         max(st.temporal_dim - 2, 1))
     t[16:16 + len(bounds)] = np.clip(bounds, 0, 1)
     t[:2] = [0.0, 1.0]
+    table = rng.uniform(-1, 1, (int(st.offsets[-1]), st.width)).astype(
+        np.float32)
+    return xyz, t, table
+
+
+def ray_major_inputs(st, n_rays=6, n_samples=40, lead=0, seed=7):
+    """Samples as a step gives them: ray-major, in t order, one time a
+    ray (its camera's), after ``lead`` scattered points.  Each ray crosses
+    a short segment (its samples a few hundredths of the cube apart), so
+    consecutive samples share the coarse levels' cells: the runs T2 merges.
+    Ray 1 retraces ray 0 at a time one window row later, so the two share
+    their coarse cells at different window rows (numpy)."""
+    rng = np.random.default_rng(seed)
+    o = rng.uniform(0.3, 0.7, (n_rays, 3))
+    d = rng.normal(size=(n_rays, 3))
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    scale = np.float32(max(st.temporal_dim - 2, 1))
+    rows = rng.integers(0, st.n_rows, n_rays)
+    t_ray = (rows + rng.uniform(0.1, 0.9, n_rays)) / scale
+    if n_rays > 1:
+        o[1], d[1] = o[0], d[0]
+        t_ray[1] = t_ray[0] + 1 / scale if rows[0] + 1 < st.n_rows \
+            else t_ray[0] - 1 / scale
+    step = np.linspace(0.0, 0.1, n_samples)
+    xyz = np.clip(o[:, None] + step[None, :, None] * d[:, None], 0, 1)
+    xyz = np.concatenate([rng.uniform(0, 1, (lead, 3)),
+                          xyz.reshape(-1, 3)]).astype(np.float32)
+    t = np.concatenate([rng.uniform(0, 1, lead),
+                        np.repeat(t_ray, n_samples)]).astype(np.float32)
     table = rng.uniform(-1, 1, (int(st.offsets[-1]), st.width)).astype(
         np.float32)
     return xyz, t, table
@@ -212,6 +245,94 @@ def test_tv_loss_matches_jax():
         np.testing.assert_allclose(emb.grad.numpy(), np.asarray(jg),
                                    rtol=1e-6, atol=0)
 
+
+
+@pytest.mark.parametrize("fault", ["window-order", "window-new",
+                                   "hashed-rows", "offsets"])
+def test_tables_check_the_kernels_assumptions(fault):
+    """tables() raises on a grid that breaks what T1 and T2 assume: the
+    window rows' closed form (slots in another order; another new
+    channel), hashed levels of a power of two of rows, offsets that are
+    multiples of 8 rows."""
+    from gfnerf_tpu_torch.fields.temporal_grid import make_temporal_grid
+
+    _, st = make_temporal_grid(0, 6, 4, 2, 4, 10, 64)
+    st.tables("cpu")   # the grid as built passes
+    if fault == "window-order":
+        bad = dict(sel_pass=st.sel_pass[:, ::-1].copy(),
+                   interp_pos=(1 - st.interp_pos).astype(np.int32))
+    elif fault == "window-new":
+        bad = dict(sel_new=st.sel_new[::-1].copy())
+    elif fault == "hashed-rows":
+        assert st.hashed.any()
+        offsets = st.offsets.copy()
+        offsets[-1] -= 8   # the last, hashed level 8 rows short
+        bad = dict(offsets=offsets)
+    else:
+        offsets = st.offsets.copy()
+        offsets[1:] += 4
+        bad = dict(offsets=offsets)
+    broken = dataclasses.replace(st, _device={}, **bad)
+    with pytest.raises(ValueError, match="temporal grid"):
+        broken.tables("cpu")
+
+
+@pytest.mark.parametrize("level_dim", [1, 2, 4])
+def test_registered_grids_hold_the_kernels_assumptions(level_dim):
+    """Every grid of the registered nerfplayer widths (nerfplayer-nerfacto's
+    field and both proposals, nerfplayer-ngp's field), at C = 1, 2 and 4,
+    holds what T1 and T2 assume; the hashed levels are 2^log2 rows."""
+    from gfnerf_tpu_torch.fields.temporal_grid import temporal_grid_statics
+    from gfnerf_tpu_torch.models.nerfplayer import (NerfplayerConfig,
+                                                    NerfplayerNGPConfig)
+
+    a, b = NerfplayerConfig(), NerfplayerNGPConfig()
+    grids = [(a.temporal_dim, a.num_levels, a.base_resolution,
+              a.log2_hashmap_size, a.desired_resolution),
+             (b.temporal_dim, b.num_levels, b.base_resolution,
+              b.log2_hashmap_size, b.desired_resolution)]
+    grids += [(a.prop_temporal_dim, a.prop_num_levels, a.base_resolution,
+               a.prop_log2_hashmap_size, res) for res in a.prop_max_res]
+    for t, levels, base, log2, finest in grids:
+        st = temporal_grid_statics(t, levels, level_dim, base, log2, finest)
+        st.check_kernel_facts()
+        sizes = np.diff(st.offsets)
+        assert st.hashed.any()
+        assert (sizes[st.hashed] == 1 << log2).all()
+
+
+@pytest.mark.parametrize("grid", sorted(GRIDS))
+def test_table_gradient_on_ray_major_samples_matches_jax_vjp(grid):
+    """The plain table gradient against jax.vjp of the JAX encode on the
+    samples a step gives (ray-major, in t order, one time a ray), two
+    rays sharing their coarse cells at different window rows: the pattern
+    T2's run merging targets."""
+    import jax
+    import jax.numpy as jnp
+    from gfnerf_tpu.fields import temporal_grid as J
+    from gfnerf_tpu_torch.fields.temporal_grid import (
+        plain_temporal_grid_encode)
+
+    _, js, _, ts = grid_pair(grid)
+    xyz, t, table = ray_major_inputs(ts, lead=5)
+    row = np.minimum((t * np.float32(ts.time_scale)).astype(np.int64),
+                     ts.n_rows - 1)
+    first = 5 + np.arange(2) * 40
+    assert row[first[0]] != row[first[1]]
+    cell = np.floor(xyz * np.float32(ts.resolutions[0])).astype(np.int64)
+    assert (cell[first[0]:first[0] + 40] == cell[first[1]:first[1] + 40]
+            ).all()
+    g = np.random.default_rng(8).standard_normal(
+        (len(xyz), ts.n_levels * ts.level_dim)).astype(np.float32)
+    _, vjp = jax.vjp(lambda e: J.temporal_grid_encode(
+        e, js, jnp.asarray(xyz), jnp.asarray(t)), jnp.asarray(table))
+    want = np.asarray(vjp(jnp.asarray(g))[0])
+    emb = torch.tensor(table, requires_grad=True)
+    plain_temporal_grid_encode(emb, ts, torch.from_numpy(xyz),
+                               torch.from_numpy(t)).backward(
+        torch.from_numpy(g))
+    np.testing.assert_allclose(emb.grad.numpy(), want, rtol=0,
+                               atol=1e-6 * np.abs(want).max())
 
 # ---- the models ----
 
@@ -715,14 +836,50 @@ def test_trainer_runs_on_a_dnerf_scene(scene, tmp_path, kind):
 # ---- on the card ----
 
 
+# ray-major cases of the card test: (rays, samples a ray, scattered points
+# before them).  "ray-runs": runs within warps; "breaks": a run broken at a
+# window-row change (ray 1 retraces ray 0 one row later) and at cell
+# changes; "warp-boundary": two long rays from lane 16 on, their runs
+# across warp boundaries; "ragged-runs": 161 points, a ray's run in the
+# last, ragged warp.
+RAY_CASES = {"ray-runs": (16, 24, 0), "breaks": (4, 40, 3),
+             "warp-boundary": (2, 64, 16), "ragged-runs": (7, 23, 0)}
+
+
+@pytest.mark.parametrize("case", sorted(RAY_CASES))
+def test_ray_major_cases_hold_their_patterns(case):
+    """Each ray-major case of the card test holds, on the coarsest level,
+    what T2's merge must handle: consecutive samples of one cell that a
+    window-row change splits, samples of one row that a cell change
+    splits, and runs that cross a warp boundary (lane 31 to lane 0)."""
+    from gfnerf_tpu_torch.fields import temporal_grid as T
+
+    levels, t, log2, base, finest = GRIDS["mixed"]
+    _, st = T.make_temporal_grid(1, t, levels, 2, base, log2, finest)
+    xyz, times, _ = ray_major_inputs(st, *RAY_CASES[case])
+    row = np.minimum((times * np.float32(st.time_scale)).astype(np.int64),
+                     st.n_rows - 1)
+    cell = np.floor(xyz * np.float32(st.resolutions[0])).astype(np.int64)
+    same_cell = (cell[1:] == cell[:-1]).all(1)
+    same_row = row[1:] == row[:-1]
+    warp_start = np.arange(1, len(xyz)) % 32 == 0
+    assert (same_cell & ~same_row).any()
+    assert (~same_cell & same_row).any()
+    assert (same_cell & same_row & warp_start).any()
+    if case == "ragged-runs":
+        assert len(xyz) % 32 != 0
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("case", ["hashed", "mixed", "dense", "c4",
-                                  "one-point", "ragged"])
+@pytest.mark.parametrize("case", ["hashed", "mixed", "dense", "c4", "c1",
+                                  "one-point", "ragged", *RAY_CASES])
 def test_t1_t2_match_plain_on_card(case):
     """T1 equals the plain encode bit for bit and T2 the plain table
     gradient to 1e-5 of its largest entry (the same f32 terms added by
     atomics in another order), on faces, cell edges and window-row
-    boundaries; launches counted."""
+    boundaries, and on ray-major samples whose runs T2 merges (fewer
+    reductions than terms at the coarsest level); at one and at all
+    levels a launch; launches counted."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernels have no CPU mode")
     from gfnerf_tpu_torch.fields import temporal_grid as T
@@ -730,28 +887,48 @@ def test_t1_t2_match_plain_on_card(case):
 
     grid = case if case in GRIDS else "mixed"
     levels, t, log2, base, finest = GRIDS[grid]
-    _, st = T.make_temporal_grid(1, t, levels, 4 if case == "c4" else 2,
-                                 base, log2, finest)
-    n = {"one-point": 1, "ragged": 1025}.get(case, 257)
-    xyz, times, table = encode_inputs(st, n=max(n, 24))
-    xyz, times = xyz[:n], times[:n]
+    _, st = T.make_temporal_grid(1, t, levels,
+                                 {"c4": 4, "c1": 1}.get(case, 2), base, log2,
+                                 finest)
+    if case in RAY_CASES:
+        n_rays, n_samples, lead = RAY_CASES[case]
+        xyz, times, table = ray_major_inputs(st, n_rays, n_samples, lead)
+    else:
+        n = {"one-point": 1, "ragged": 1025}.get(case, 257)
+        xyz, times, table = encode_inputs(st, n=max(n, 24))
+        xyz, times = xyz[:n], times[:n]
     dev = "cuda"
     args = (torch.tensor(table, device=dev), st,
             torch.tensor(xyz, device=dev), torch.tensor(times, device=dev))
-    launches = (ops.temporal_grid_fwd.launches,
-                ops.temporal_grid_bwd.launches)
-    got = ops.temporal_grid_fwd(args[0], st.tables(dev), *args[2:])
+    tables = st.tables(dev)
     want = T.temporal_grid_encode_raw(*args)
-    assert torch.equal(got, want)
     g = torch.randn(want.shape, generator=torch.Generator(
         device=dev).manual_seed(2), device=dev)
-    gk = ops.temporal_grid_bwd(g, st.tables(dev), *args[2:], table.shape[0])
     gp = T.temporal_backward_reference(g, st, *args[2:], table.shape[0])
-    torch.cuda.synchronize()
-    torch.testing.assert_close(gk, gp, rtol=0,
-                               atol=1e-5 * float(gp.abs().max()))
-    assert (ops.temporal_grid_fwd.launches - launches[0],
-            ops.temporal_grid_bwd.launches - launches[1]) == (1, 1)
+    for group in (None, 1):
+        launches = (ops.temporal_grid_fwd.launches,
+                    ops.temporal_grid_bwd.launches)
+        got = ops.temporal_grid_fwd(args[0], tables, *args[2:],
+                                    levels_per_launch=group)
+        assert torch.equal(got, want)
+        red = torch.zeros(levels, dtype=torch.int64, device=dev)
+        gk = ops.temporal_grid_bwd(g, tables, *args[2:], table.shape[0],
+                                   red_ops=red, levels_per_launch=group)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(gk, gp, rtol=0,
+                                   atol=1e-5 * float(gp.abs().max()))
+        per = [ops.n_launches(levels, ops.FWD_LEVELS_PER_LAUNCH
+                              if group is None else group),
+               ops.n_launches(levels, ops.BWD_LEVELS_PER_LAUNCH
+                              if group is None else group)]
+        assert (ops.temporal_grid_fwd.launches - launches[0],
+                ops.temporal_grid_bwd.launches - launches[1]) == tuple(per)
+        # every lane a run of its own: at most 2 reductions a corner at C
+        # = 1 and 2, 3 at C = 4
+        terms = len(xyz) * 8 * (3 if st.level_dim == 4 else 2)
+        assert 0 < int(red[0]) <= terms
+        if case in RAY_CASES:
+            assert int(red[0]) < terms
 
 
 @pytest.mark.cuda
@@ -759,7 +936,8 @@ def test_t1_t2_match_plain_on_card(case):
 def test_model_kernels_match_plain_on_card(kind):
     """One loss and backward of each small model on the card through T1
     and T2 (nerfacto: three calls each; ngp: one, and T1 once more in the
-    occupancy update) and through the plain pairs, on the same draws:
+    occupancy update; a launch per group of levels a call) and through the
+    plain pairs, on the same draws:
     losses to 1e-5 relative, every gradient to 1e-5 of its largest; the
     occupancy update equal bit for bit."""
     if not torch.cuda.is_available():
@@ -776,13 +954,16 @@ def test_model_kernels_match_plain_on_card(kind):
         params["field_emb"] = rng.uniform(-1, 1, params["field_emb"].shape)
         params["prop_embs"] = [rng.uniform(-1, 1, e.shape)
                                for e in params["prop_embs"]]
-        state, loss, calls = None, T.nerfplayer_loss, (3, 3)
+        state, loss = None, T.nerfplayer_loss
+        levels = [cfg.prop_num_levels] * 2 + [cfg.num_levels]
+        calls = (levels, levels)
     else:
         cfg = T.NerfplayerNGPConfig(**SMALL_NGP, num_images=4)
         params, statics, state = T.init_nerfplayer_ngp_params(cfg, 0, TIMES)
         params["field_emb"] = rng.uniform(-1, 1, params["field_emb"].shape)
         state["occ"] = np.random.default_rng(6).uniform(0, 0.02, (16,) * 3)
-        loss, calls = T.nerfplayer_ngp_loss, (2, 1)
+        loss = T.nerfplayer_ngp_loss
+        calls = ([cfg.num_levels] * 2, [cfg.num_levels])
     o, d, tgt, rel = rays()
     gen = torch.Generator(device="cuda").manual_seed(0)
     runs = []
@@ -813,9 +994,12 @@ def test_model_kernels_match_plain_on_card(kind):
                 T.update_ngp_occupancy(model, *occ_draws)
         finally:
             T.temporal_grid_encode = encode
+        want = (0, 0) if plain else tuple(
+            sum(ops.n_launches(n, per) for n in levels) for levels, per in
+            zip(calls, (ops.FWD_LEVELS_PER_LAUNCH,
+                        ops.BWD_LEVELS_PER_LAUNCH)))
         assert (ops.temporal_grid_fwd.launches - before[0],
-                ops.temporal_grid_bwd.launches - before[1]) == (
-            (0, 0) if plain else calls)
+                ops.temporal_grid_bwd.launches - before[1]) == want
         runs.append((losses, [p.grad.clone() for p in model.parameters()],
                      None if state is None else model.occ.clone()))
     (kl, kg, ko), (pl, pg, po) = runs
