@@ -240,6 +240,26 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
                 every window-row boundary, the faces 0.0 and 1.0, dense
                 and hashed levels); s/step, rays/s, peak memory, a
                 profiled step; eval and render on each checkpoint.
+ 20. captures — the six remaining capture formats (scannet, sdfstudio,
+                phototourism, sitcoms3d, arkitscenes, nuscenes) written
+                from the ring scene and parsed through build_dataparser
+                (split sizes, finite poses, the auto-scaled translations,
+                metadata, files: a [captures] line each); then, with the
+                counters reset, gf-nerf-perf at its registered width
+                through gfnerf_tpu_torch.train's command line on a
+                Phototourism capture of 54 PNGs at 192x144 (the sky
+                gradient) read at half
+                size (camera_res_scale_factor 0.5: the cameras scaled with
+                the images), clipped at CAPTURE_MAX_NORM, with MSE, the
+                march's near plane at 1, on the config's octree,
+                CAPTURE_STEPS init steps: per step K1, K2 and H1 once, H2
+                one call; the loss
+                falling, every val frame above its mean image's PSNR, each
+                group's pre-clip norm a step and the steps it was clipped
+                on (at least one), one step's profiler records of K1, K2,
+                H1 and H2, one step against the plain pairs under the clip
+                (the norms and the clipped moments too); s/step through the
+                Trainer and the phase's own peak memory.
 Each phase ends with a [clock] line.  Before the last line come a JSON
 object with each kernel's launches, error, times and bound (K1, K2, H1 and
 H2 also at the prop phase's shapes, under "prop"; H4 and H5 at nerfacto's
@@ -254,11 +274,15 @@ card's name and power limit; the last line is
 
 Run from the repository root:  python3 chip_smoke.py
 To work on one phase of the pipeline family (pipeline, gfnerf, prop,
-nerfacto, semantics, instant-ngp, scan, stock, nerfplayer; nerfacto and
-semantics read the pipeline phase's scene and checkpoint):
+nerfacto, semantics, instant-ngp, scan, stock, nerfplayer, captures;
+nerfacto and semantics read the pipeline phase's scene and checkpoint),
+or to train the captures phase's capture once a variant
+(capture-variants: reported, not checked):
 python3 chip_smoke.py --only pipeline,nerfacto,semantics
 python3 chip_smoke.py --only scan,stock
 python3 chip_smoke.py --only nerfplayer
+python3 chip_smoke.py --only captures
+python3 chip_smoke.py --only capture-variants
 Either form takes ``--coverage-case PATH`` last: the scan phase then writes
 the octree and rays of its coverage check there, for
 ``python tests/torch_parity.py scan-coverage PATH`` (the JAX package's
@@ -360,40 +384,64 @@ def queued_device_ms(fn, calls: int = 20) -> float:
     return start.elapsed_time(end) / calls
 
 
+def profiled_counts(fn, key, done=None, tries: int = 3):
+    """({name: (records, device us)} summed over the events of a
+    torch.profiler trace of fn() that ``key(event)`` names (None: left
+    out), whether ``done(counts)`` held): the trace is taken again, up to
+    ``tries`` times, while ``done`` does not hold, since the profiler's
+    CUDA tracing now and then loses kernel records (none, or a part of a
+    trace).  fn() synchronizes where the trace must hold its kernels."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for attempt in range(1, tries + 1):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+        counts = {}
+        for e in prof.key_averages():
+            name = key(e)
+            if name is not None:
+                n, us = counts.get(name, (0, 0.0))
+                counts[name] = (n + e.count, us + e.self_device_time_total)
+        if done is None or done(counts):
+            return counts, True
+        log(f"[profiler] the trace holds "
+            f"{ {k: n for k, (n, _) in counts.items()} } records (try "
+            f"{attempt} of {tries})")
+    return counts, False
+
+
 def kernel_device_ms(fn, match: str, calls: int = 20, launches: int = 1,
                      tries: int = 3) -> float:
     """The mean device time of the kernels whose names contain ``match``
     per call of fn() (``launches`` of them a call), from a torch.profiler
     trace of ``calls`` calls (the kernels alone: no launch gaps, no host
-    time).  The profiler's CUDA tracing now and then loses kernel records
-    (none, or a part of a trace): a trace that does not hold all
-    calls x launches is taken again, up to ``tries`` times, and if none
-    does, the time is queued_device_ms's (the whole call, from CUDA
-    events)."""
+    time), taken again while it does not hold all calls x launches
+    (profiled_counts); if none does, the time is queued_device_ms's (the
+    whole call, from CUDA events)."""
     import torch
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
     want = calls * launches
-    for attempt in range(1, tries + 1):
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            for _ in range(calls):
-                fn()
-            torch.cuda.synchronize()
-        kernels = [e for e in prof.key_averages()
-                   if e.device_type == DeviceType.CUDA and match in e.key]
-        total = sum(e.self_device_time_total for e in kernels)
-        count = sum(e.count for e in kernels)
-        if count == want and total > 0:
-            return total / 1e3 / calls
-        log(f"[profiler] {match}: the trace holds {count} of {want} kernel "
-            f"records (try {attempt} of {tries})")
+
+    def run():
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+
+    counts, whole = profiled_counts(
+        run, lambda e: match if (e.device_type == DeviceType.CUDA
+                                 and match in e.key) else None,
+        lambda got: got.get(match, (0, 0.0))[0] == want
+        and got[match][1] > 0, tries)
+    if whole:
+        return counts[match][1] / 1e3 / calls
     ms = queued_device_ms(fn, calls)
-    log(f"[profiler] {match}: no whole trace; {ms:.4f} ms per call from CUDA "
-        f"events around {calls} queued calls instead")
+    log(f"[profiler] {match}: no whole trace of {want} kernel records; "
+        f"{ms:.4f} ms per call from CUDA events around {calls} queued calls "
+        f"instead")
     return ms
 
 
@@ -1251,16 +1299,13 @@ def host_syncs(fn) -> dict:
     """Counts of the CUDA runtime calls that wait for the device
     (profiling.HOST_WAITS) that fn() makes, from a torch.profiler trace."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     from gfnerf_tpu_torch.utils.profiling import HOST_WAITS
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        fn()
-    return {e.key: e.count for e in prof.key_averages()
-            if e.key in HOST_WAITS}
+    counts, _ = profiled_counts(
+        fn, lambda e: e.key if e.key in HOST_WAITS else None)
+    return {k: n for k, (n, _) in counts.items()}
 
 
 def encode_span_adds(fn) -> list:
@@ -1540,17 +1585,24 @@ def compare_step(wl, what, batch, noise, perms, focal_block=None,
     gradient, read from Adam's first moment of a fresh state (mu = (1 -
     b1) g), none for any frozen parameter.  On the proposal branch the
     probe is in "fields", and ``prop_u`` gives both steps the same
-    resampling draws.
+    resampling draws.  Under a clip (the optimizer's ``max_norm``) also
+    each group's pre-clip norm and Adam's new first moments (the clipped
+    gradients' mix), to TRAIN_GRAD_TOL of their largest.
     Returns the kernels' loss."""
     import torch
 
     from gfnerf_tpu_torch.engine.optimizers import field_param_grads
 
     focal = focal_block is not None
-    outs = {}
+    clip = wl["tx"].cfg.max_norm is not None
+    outs, clipped = {}, {}
     for kind in ("kernels", "plain"):
         loss, state = step_from_copy(wl, batch, noise, perms, focal_block,
                                      plain=kind == "plain", prop_u=prop_u)
+        if clip:
+            clipped[kind] = ({g: float(v) for g, v in
+                              wl["tx"].grad_norms.items()},
+                             state.opt_state.mu)
         grads = field_param_grads(state.field)
         if focal:
             if any(g is not None for gs in grads.values() for g in gs):
@@ -1579,7 +1631,23 @@ def compare_step(wl, what, batch, noise, perms, focal_block=None,
         if not (scale > 0 and err <= TRAIN_GRAD_TOL * scale):
             raise AssertionError(f"{what} {name} gradients: kernels vs "
                                  f"plain {err} of {scale}")
-    del outs, grads_k, grads_p
+    if clip:
+        (norms_k, mu_k), (norms_p, mu_p) = clipped["kernels"], \
+            clipped["plain"]
+        for name in names:
+            rel = abs(norms_k[name] - norms_p[name]) / norms_p[name]
+            scale = max(float(m.abs().max()) for m in mu_p[name])
+            err = max(float((a - b).abs().max())
+                      for a, b in zip(mu_k[name], mu_p[name]))
+            log(f"[{what}] {name} under the clip at "
+                f"{wl['tx'].cfg.max_norm}: pre-clip norm {norms_k[name]:.6g}"
+                f" vs {norms_p[name]:.6g} (rel {rel:.3g}); Adam's first "
+                f"moments max abs err {err:.3g}, largest {scale:.3g}")
+            if not (rel <= TRAIN_GRAD_TOL and scale > 0
+                    and err <= TRAIN_GRAD_TOL * scale):
+                raise AssertionError(f"{what} {name} under the clip: norms "
+                                     f"rel {rel}, moments {err} of {scale}")
+    del outs, grads_k, grads_p, clipped
     torch.cuda.empty_cache()
     return loss_k
 
@@ -5740,8 +5808,8 @@ def phase_scan(tmp: Path):
 # scene (read by the blender parser): steps run (cut from the configs'
 # 30 k to 100 k), and the rays of the step held against the CPU
 STOCK_KINDS = ("vanilla-nerf", "mipnerf", "tensorf", "neus")
-STOCK_STEPS = {"vanilla-nerf": 300, "mipnerf": 300, "tensorf": 300,
-               "neus": 300}
+STOCK_STEPS = {"vanilla-nerf": 200, "mipnerf": 200, "tensorf": 200,
+               "neus": 200}
 STOCK_WARMUP = 5
 STOCK_PAIR_RAYS = 256
 # the card's step against the CPU's: the f32 sums run in other orders, and
@@ -6620,6 +6688,466 @@ def phase_nerfplayer(tmp: Path):
     return paths, stats, kernels
 
 
+# Captures read from disk: the six remaining formats, each written from the
+# ring scene (CAPTURE_PARSE: views, width and height, focal length) by
+# synthetic.CAPTURE_FIXTURES and parsed through build_dataparser; then
+# gf-nerf-perf at its registered width (8192 rays, 160 slots) through the
+# train entry point on a Phototourism capture (CAPTURE_SCENE: 54 PNGs at
+# 192x144 with the fixtures' sky gradient, read at half size: the bench
+# scene's 96x72 and focal length 55; the parser's scale factor 4 keeps the
+# ring's radius of 4), clipped at CAPTURE_MAX_NORM and with MSE, for
+# CAPTURE_STEPS init steps with the pipeline phase's milestones and
+# fineness schedule (one compaction, at step 50), on the sampler's octree
+# CAPTURE_TREE, with the march's near plane at 1 (the capture's nearest
+# surface is 2.37 from the cameras; at the config's 0.01 each training
+# view is fitted by a screen of density 0.3-0.8 in front of its camera,
+# which its neighbours' val views look through).  The phase's variants
+# (phase_capture_variants, ``--only capture-variants``) train the same
+# capture with the sky or over black, on either tree, through the
+# Phototourism or the minimal parser, with the cameras scaled with the
+# images or left at full size (the JAX package's datamanager), at either
+# near plane
+CAPTURE_PARSE = (24, (64, 48), 55.0)
+CAPTURE_SCENE = (54, (192, 144), 110.0)
+CAPTURE_STEPS = 100
+CAPTURE_WARMUP = 2
+CAPTURE_LOG_EVERY = 10
+CAPTURE_MAX_NORM = 0.02
+CAPTURE_OVERRIDES = {
+    "pipeline.datamanager.camera_res_scale_factor": "0.5",
+    "pipeline.optimizers.max_norm": str(CAPTURE_MAX_NORM),
+    "pipeline.model.use_ch_loss": "false",
+    "pipeline.sampler.sub_div_milestones": "8,16",
+    "pipeline.sampler.compact_freq": "50",
+    "pipeline.sampler.ray_march_fineness_decay_end_iter": "16",
+    "pipeline.sampler.global_near": "1.0",
+    "steps_per_eval_batch": "25",
+    "steps_per_eval_image": str(CAPTURE_STEPS),
+    "steps_per_save": str(CAPTURE_STEPS),
+    "steps_per_log": "100",
+}
+# the sampler's octree: the config's (bbox_levels 10, a root box 512 wide)
+# or the bench's (octree_bench.BENCH_TREE: bbox_levels 4, a root box 8
+# wide, around the ring of radius 4)
+CAPTURE_TREES = {"config": {},
+                 "bench": {"pipeline.sampler.max_level": "8",
+                           "pipeline.sampler.bbox_levels": "4",
+                           "pipeline.sampler.n_rand_pts": "4096",
+                           "pipeline.sampler.vis_res_w": "64"}}
+CAPTURE_TREE = "config"
+# (sky, tree, parser, cameras scaled with the images, more overrides) of
+# each variant; the captures phase's own is the sky, the config's tree,
+# Phototourism, scaled, no more overrides
+_NEAR0 = {"pipeline.sampler.global_near": "0.01"}
+_LAST0 = {**_NEAR0, "pipeline.model.background_color": "last_sample"}
+CAPTURE_VARIANTS = [(True, "bench", "phototourism", True, _NEAR0),
+                    (True, "config", "phototourism", True, _NEAR0),
+                    (True, "bench", "minimal", True, _NEAR0),
+                    (True, "config", "minimal", True, _NEAR0),
+                    (True, "bench", "phototourism", True, _LAST0),
+                    (True, "config", "phototourism", True, _LAST0),
+                    (False, "bench", "phototourism", True, _NEAR0),
+                    (False, "bench", "phototourism", False, _NEAR0),
+                    (True, "config", "phototourism", False, _NEAR0),
+                    (True, "bench", "phototourism", True, {}),
+                    (True, "config", "phototourism", False, {})]
+# the kernels of a gf-nerf-perf init step, by the names their records carry
+# in a profiler trace
+CAPTURE_KERNEL_RECORDS = {"composite_fwd": "composite_fwd",
+                          "composite_bwd": "composite_bwd",
+                          "packed_hash_fwd": "packed_hash_encode",
+                          "packed_hash_bwd": "packed_hash_bwd"}
+
+
+def parse_captures(tmp: Path) -> dict:
+    """Each of the six formats written (CAPTURE_PARSE) and parsed, train
+    and val, through build_dataparser (nuscenes: its scene's name, the
+    dataset root as ``data_dir``): the JAX tests' facts checked (the split
+    sizes, finite poses, the auto-scaled formats' largest translation at
+    their scale, the metadata and masks present, the files there).
+    Returns {format: (train cameras, val cameras, parse s)}."""
+    import math
+
+    import numpy as np
+
+    from gfnerf_tpu_torch.data.dataparsers import build_dataparser
+    from gfnerf_tpu_torch.utils.synthetic import (CAPTURE_FIXTURES,
+                                                  NUSCENES_SCENE)
+
+    n, wh, focal = CAPTURE_PARSE
+    scale = {"scannet": 1.0, "phototourism": 3.0, "arkitscenes": 1.0,
+             "nuscenes": 1.0}
+    meta = {"scannet": {"depth_filenames", "depth_unit_scale_factor"},
+            "arkitscenes": {"depth_filenames", "depth_unit_scale_factor"},
+            "sdfstudio": {"depth_filenames", "normal_filenames"}}
+    out = {}
+    for fmt, write in CAPTURE_FIXTURES.items():
+        t0 = time.perf_counter()
+        data = write(tmp / f"capture_{fmt}", n, wh, focal)
+        write_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        if fmt == "nuscenes":
+            parser = build_dataparser(fmt, Path(NUSCENES_SCENE))
+            parser.config.data_dir = parser.config.mask_dir = data
+        else:
+            parser = build_dataparser(fmt, data)
+        train = parser.get_dataparser_outputs("train")
+        val = parser.get_dataparser_outputs("val")
+        parse_s = time.perf_counter() - t0
+        want = (n, n) if fmt in ("sdfstudio", "sitcoms3d") else (
+            math.ceil(0.9 * n), n - math.ceil(0.9 * n))
+        got = (len(train.cameras), len(val.cameras))
+        poses = train.cameras.camera_to_worlds
+        top = float(np.abs(poses[:, :3, 3]).max())
+        files = [*train.image_filenames, *(train.mask_filenames or []),
+                 *(train.metadata.get("depth_filenames") or []),
+                 *(train.metadata.get("normal_filenames") or [])]
+        log(f"[captures] {fmt}: {got[0]} train and {got[1]} val cameras "
+            f"parsed in {parse_s:.3f}s (written in {write_s:.2f}s); "
+            f"{train.cameras.width[0]}x{train.cameras.height[0]}, fx "
+            f"{float(train.cameras.fx[0]):.3f}; largest |translation| "
+            f"{top:.4f}; metadata {sorted(train.metadata)}")
+        if got != want or len(train.image_filenames) != want[0]:
+            raise AssertionError(f"captures {fmt}: {got} cameras, {want} "
+                                 f"expected")
+        if not np.isfinite(poses).all():
+            raise AssertionError(f"captures {fmt}: non-finite poses")
+        if fmt in scale and abs(top - scale[fmt]) > 1e-5 * scale[fmt]:
+            raise AssertionError(f"captures {fmt}: largest translation "
+                                 f"{top}, the parser scales to {scale[fmt]}")
+        if not meta.get(fmt, set()) <= set(train.metadata):
+            raise AssertionError(f"captures {fmt}: metadata "
+                                 f"{sorted(train.metadata)}")
+        if fmt == "nuscenes" and not train.mask_filenames:
+            raise AssertionError("captures nuscenes: no masks")
+        missing = [f for f in files if not Path(f).is_file()]
+        if missing:
+            raise AssertionError(f"captures {fmt}: missing {missing[:3]}")
+        out[fmt] = (got[0], got[1], parse_s)
+    return out
+
+
+def capture_scene(tmp: Path, sky: bool, parser: str) -> Path:
+    """CAPTURE_SCENE written for ``parser``: a Phototourism capture at full
+    size (with the sky or over black), or the minimal parser's npz of the
+    same cameras and views at half size (with the sky)."""
+    from gfnerf_tpu_torch.utils.synthetic import (make_phototourism_fixture,
+                                                  make_synthetic_npz)
+
+    n, wh, focal = CAPTURE_SCENE
+    if parser == "phototourism":
+        return make_phototourism_fixture(
+            tmp / f"capture_{'sky' if sky else 'black'}", n, wh, focal,
+            sky=sky)
+    if not sky:
+        raise ValueError("the minimal parser's scene has its sky")
+    # ring_cameras' focal length 55 is CAPTURE_SCENE's at half size
+    return make_synthetic_npz(tmp / "capture_npz", n_train=n - n // 10,
+                              n_val=n // 10, img_wh=(wh[0] // 2, wh[1] // 2))
+
+
+def capture_trainer(tmp: Path, tag: str, scene: Path, parser: str,
+                    tree: str, scaled: bool = True, extra=None):
+    """``train.build_trainer`` on ``scene`` through ``parser`` with
+    CAPTURE_OVERRIDES on the octree ``tree`` (CAPTURE_TREES); without
+    ``scaled``, the cameras left at the parser's size while the images are
+    read at half size, as the JAX package's datamanager leaves them;
+    ``extra``, more overrides.  Returns (the trainer, its argv)."""
+    from unittest import mock
+
+    from gfnerf_tpu_torch import train as train_entry
+    from gfnerf_tpu_torch.data import datamanager
+
+    over = {**CAPTURE_OVERRIDES, **CAPTURE_TREES[tree], **(extra or {})}
+    argv = ["gf-nerf-perf", "--data", str(scene), "--dataparser", parser]
+    if parser == "phototourism":
+        argv += ["--dataparser-scale-factor", "4.0"]
+    else:   # the npz holds the half-size views
+        over["pipeline.datamanager.camera_res_scale_factor"] = "1.0"
+    if not scaled:   # the Trainer's eval image would take the camera's size
+        over["steps_per_eval_image"] = str(CAPTURE_STEPS + 1)
+    argv += ["--output-dir", str(tmp / f"{tag}_out"), "--experiment-name",
+             tag, "--max-num-iterations", str(CAPTURE_STEPS),
+             *(f"{k}={v}" for k, v in over.items())]
+    rescale = (datamanager.rescale_cameras if scaled
+               else lambda outputs, scale: outputs)
+    with mock.patch.object(datamanager, "rescale_cameras", rescale):
+        return train_entry.build_trainer(argv), argv
+
+
+def capture_frames(p, step: int, train_idx=()) -> list:
+    """[(split, index, PSNR, its mean image's PSNR, median depth, mean
+    accumulation)] of every
+    val frame and of the train frames ``train_idx``, rendered at ``step``
+    at the image's size (cameras left at full size cast its pixels through
+    their own intrinsics, as the JAX package's datamanager does)."""
+    import dataclasses
+
+    import numpy as np
+
+    dm = p.datamanager
+    out = []
+    for split, cams, cams_dev, ds, idxs in (
+            ("val", dm.eval_dataparser_outputs.cameras, p.eval_cameras_dev,
+             dm.eval_dataset, range(len(dm.eval_dataset))),
+            ("train", dm.train_dataparser_outputs.cameras, p.cameras_dev,
+             dm.train_dataset, train_idx)):
+        for i in idxs:
+            gt = ds.get_image(i)
+            at_size = dataclasses.replace(
+                cams, width=np.full_like(cams.width, gt.shape[1]),
+                height=np.full_like(cams.height, gt.shape[0]))
+            r = p.render_camera(at_size, cams_dev, i, step)
+            psnr = -10.0 * np.log10(np.mean((r["rgb"] - gt) ** 2) + 1e-12)
+            trivial = -10.0 * np.log10(np.mean(
+                (gt - gt.mean(axis=(0, 1))) ** 2))
+            out.append((split, int(i), float(psnr), float(trivial),
+                        float(np.median(r["depth"])),
+                        float(np.mean(r["accumulation"]))))
+    return out
+
+
+def phase_capture_variants(tmp: Path):
+    """The capture of phase_captures trained once a variant
+    (CAPTURE_VARIANTS: the sky or black, the octree, the parser, the
+    cameras scaled or not, more overrides: the near plane, the background),
+    CAPTURE_STEPS steps each;
+    reported, not
+    checked: the losses, every val frame's PSNR beside its mean image's
+    (the captures phase's gate: each above), two train frames' PSNR, and
+    the frames' median depth."""
+    import numpy as np
+    import torch
+
+    out = {}
+    for sky, tree, parser, scaled, extra in CAPTURE_VARIANTS:
+        tag = "-".join([
+            "sky" if sky else "black", tree, parser,
+            "scaled" if scaled else "unscaled",
+            *(f"{k.rsplit('.', 1)[-1]}={v}" for k, v in extra.items())])
+        scene = capture_scene(tmp, sky, parser)
+        t0 = time.perf_counter()
+        trainer, _ = capture_trainer(tmp, tag, scene, parser, tree, scaled,
+                                     extra)
+        setup_s = time.perf_counter() - t0
+        p = trainer.pipeline
+        losses = []
+        get_loss = p.get_train_loss_dict
+
+        def get_loss_w(step, get_loss=get_loss, losses=losses):
+            m = get_loss(step)
+            losses.append(float(m["loss"]))
+            return m
+
+        p.get_train_loss_dict = get_loss_w
+        t0 = time.perf_counter()
+        trainer.train()
+        torch.cuda.synchronize()
+        train_s = time.perf_counter() - t0
+        frames = capture_frames(
+            p, CAPTURE_STEPS - 1,
+            train_idx=(0, len(p.datamanager.train_dataset) // 2))
+        val = [f for f in frames if f[0] == "val"]
+        passed = all(f[2] > f[3] for f in val)
+        log(f"[capture-variants] {tag}: setup {setup_s:.2f}s, "
+            f"{p.sampler.tree.n_nodes} nodes, {CAPTURE_STEPS} steps in "
+            f"{train_s:.1f}s; losses every {CAPTURE_LOG_EVERY} "
+            f"{[round(x, 5) for x in losses[::CAPTURE_LOG_EVERY]]}; frames "
+            f"(split, index, PSNR, mean-image PSNR, median depth, mean "
+            f"accumulation) {[(f[0], f[1], *(round(x, 3) for x in f[2:])) for f in frames]}"
+            f"; val mean {np.mean([f[2] for f in val]):.3f} vs "
+            f"{np.mean([f[3] for f in val]):.3f}; gate "
+            f"{'passed' if passed else 'failed'}")
+        out[tag] = {"setup_s": setup_s, "train_s": train_s,
+                    "losses": losses, "frames": frames, "gate": passed}
+        del trainer, p
+        torch.cuda.empty_cache()
+    return {}, out
+
+
+def phase_captures(tmp: Path):
+    """The six capture formats written and parsed (parse_captures), then
+    gf-nerf-perf through ``gfnerf_tpu_torch.train``'s command line
+    (``train.build_trainer``, then its ``train``) on a Phototourism capture
+    (CAPTURE_SCENE) with ``--dataparser phototourism``, the images read at
+    half size, the gradients clipped and the rgb loss MSE
+    (CAPTURE_OVERRIDES), counted: every step K1, K2 and H1 once, H2 one
+    call; nothing else.  Checked: the images and cameras at half size, the
+    losses finite and falling, every val frame's PSNR above its mean
+    image's, each group's pre-clip norm a step and the steps it was
+    clipped on (at least one), one step's profiler records of K1, K2, H1
+    and H2, one step from the trained state against the plain pairs under
+    the clip (the loss, the gradients, the norms and the clipped moments),
+    the checkpoint.  Timed: s/step through the Trainer, the phase's peak
+    memory above what it found allocated."""
+    import numpy as np
+    import torch
+    from torch.autograd import DeviceType
+
+    from gfnerf_tpu_torch.fields.field import STAGE_BLOCK, STAGE_INIT
+    from gfnerf_tpu_torch.fields.hash_encoding import table_grad_launches
+    from gfnerf_tpu_torch.fields.packed_hash import packed_hash_encode
+    from gfnerf_tpu_torch.train_bench import RAYS, make_batch
+
+    parsed = parse_captures(tmp)
+    n, wh, focal = CAPTURE_SCENE
+    t0 = time.perf_counter()
+    scene = capture_scene(tmp, True, "phototourism")
+    write_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    trainer, argv = capture_trainer(tmp, "captures", scene, "phototourism",
+                                    CAPTURE_TREE)
+    setup_s = time.perf_counter() - t0
+    p = trainer.pipeline
+    dm, fc = p.datamanager, p.field_cfg
+    cams = dm.train_dataparser_outputs.cameras
+    shape = dm.init_cache.images.shape
+    log(f"[captures] python -m gfnerf_tpu_torch.train {' '.join(argv)}")
+    log(f"[captures] phototourism: {n} views at {wh[0]}x{wh[1]} written in "
+        f"{write_s:.2f}s; setup {setup_s:.2f}s: {len(cams)} train and "
+        f"{len(dm.eval_dataparser_outputs.cameras)} val cameras, images "
+        f"{shape[1:3]}, cameras {int(cams.width[0])}x{int(cams.height[0])} "
+        f"fx {float(cams.fx[0]):.3f}; {p.sampler.tree.n_nodes} nodes; "
+        f"{CAPTURE_TREE}'s octree; {fc.num_levels} levels x "
+        f"{fc.features_per_level} of 2^{fc.packed_rows_log2}, "
+        f"{dm.config.train_num_rays_per_batch} rays, "
+        f"{p.sampler.sampler_config.max_samples} slots")
+    half = (wh[1] // 2, wh[0] // 2)
+    if (shape[1:3] != half or (int(cams.width[0]), int(cams.height[0]))
+            != (half[1], half[0]) or float(cams.fx[0]) != focal / 2):
+        raise AssertionError(f"captures: images {shape}, cameras "
+                             f"{cams.width[0]}x{cams.height[0]} fx "
+                             f"{cams.fx[0]}, expected half size")
+    if (dm.config.train_num_rays_per_batch, p.sampler.sampler_config
+            .max_samples) != (RAYS, 160):
+        raise AssertionError("captures: not gf-nerf-perf's width")
+    rec, evals = {}, []
+    get_loss, eval_batch = p.get_train_loss_dict, p.get_eval_loss_dict
+
+    def counts():
+        return {**launch_counts(),
+                "packed_hash_bwd_calls": packed_hash_encode.bwd_calls}
+
+    def get_loss_w(step):
+        before = counts()
+        t = time.perf_counter()
+        m = get_loss(step)
+        torch.cuda.synchronize()
+        after = counts()
+        rec[step] = {"s": time.perf_counter() - t, **m,
+                     "counts": {k: after[k] - before[k] for k in after}}
+        return m
+
+    def eval_batch_w(step):
+        m = eval_batch(step)
+        evals.append((step, float(m["eval_psnr"])))
+        return m
+
+    p.get_train_loss_dict, p.get_eval_loss_dict = get_loss_w, eval_batch_w
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    trainer.train()
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    launches = launch_counts()
+    peak = torch.cuda.max_memory_allocated() - held
+    p.get_train_loss_dict, p.get_eval_loss_dict = get_loss, eval_batch
+    if sorted(rec) != list(range(CAPTURE_STEPS)):
+        raise AssertionError(f"captures: steps run {sorted(rec)}")
+    h2 = table_grad_launches(fc.num_levels, fc.features_per_level)
+    want = {"composite_fwd": 1, "composite_bwd": 1, "packed_hash_fwd": 1,
+            "packed_hash_bwd": h2, "packed_hash_bwd_calls": 1}
+    for i in range(CAPTURE_STEPS):
+        got = rec[i]["counts"]
+        if got != {k: want.get(k, 0) for k in got}:
+            raise AssertionError(f"captures step {i}: launches {got}, "
+                                 f"expected {want}")
+    losses = [rec[i]["loss"] for i in range(CAPTURE_STEPS)]
+    every = CAPTURE_LOG_EVERY
+    log(f"[captures] every {every} steps: losses "
+        f"{[round(x, 5) for x in losses[::every]]}; samples a ray "
+        f"{[round(rec[i]['num_samples_per_ray'], 1) for i in range(0, CAPTURE_STEPS, every)]}"
+        f"; eval batches (step, PSNR) {[(s, round(v, 3)) for s, v in evals]}")
+    if not (np.isfinite(losses).all()
+            and _mean(losses[-10:]) < _mean(losses[:10])):
+        raise AssertionError(f"captures: the loss did not fall: {losses}")
+    groups = sorted({k for i in rec for k in rec[i]
+                     if k.startswith("grad_norm_")})
+    norms = {g[len("grad_norm_"):]: [rec[i].get(g) for i in
+                                     range(CAPTURE_STEPS)] for g in groups}
+    clipped = {g: sum(v is not None and v >= CAPTURE_MAX_NORM for v in vs)
+               for g, vs in norms.items()}
+    early = {g: sum(v is not None and v >= CAPTURE_MAX_NORM for v in vs[:24])
+             for g, vs in norms.items()}
+    log(f"[captures] pre-clip norms every {every} steps (limit "
+        f"{CAPTURE_MAX_NORM}): "
+        f"{ {g: [None if v is None else round(v, 5) for v in vs[::every]] for g, vs in norms.items()} }; "
+        f"steps clipped {clipped} of {CAPTURE_STEPS}, {early} of the "
+        f"first 24")
+    if set(norms) != {"fields", "base_encoding_init"} or not sum(
+            clipped.values()):
+        raise AssertionError(f"captures: the clip {clipped}, norms {norms}")
+    # every val frame against its mean image
+    frames = [f[1:] for f in capture_frames(p, CAPTURE_STEPS - 1)]
+    log(f"[captures] val frames (index, PSNR, mean-image PSNR, median "
+        f"depth, mean accumulation): "
+        f"{[(f[0], *(round(x, 3) for x in f[1:])) for f in frames]}")
+    if not all(f[1] > f[2] for f in frames):
+        raise AssertionError(f"captures: eval PSNR not above the mean "
+                             f"image's: {frames}")
+    ckpt = trainer.checkpoint_dir / f"step-{CAPTURE_STEPS - 1:09d}"
+    if not (ckpt / "state.pt").is_file():
+        raise AssertionError(f"captures: no checkpoint at {ckpt}")
+    # one more step profiled: its kernels' records
+    def kernel_of(event):
+        if event.device_type != DeviceType.CUDA:
+            return None
+        return next((k for k, match in CAPTURE_KERNEL_RECORDS.items()
+                     if match in event.key), None)
+
+    def one_step():
+        p.get_train_loss_dict(CAPTURE_STEPS)
+        torch.cuda.synchronize()
+
+    traced, _ = profiled_counts(
+        one_step, kernel_of, lambda got: all(
+            got.get(k, (0,))[0] == want[k] for k in CAPTURE_KERNEL_RECORDS))
+    records = {k: traced.get(k, (0,))[0] for k in CAPTURE_KERNEL_RECORDS}
+    log(f"[captures] one step's profiler records {records}")
+    if not all(records[k] >= 1 for k in CAPTURE_KERNEL_RECORDS):
+        raise AssertionError(f"captures: kernel records {records}")
+    wl = {"field": p.field, "state": p.state, "tx": p.tx,
+          "step_fn": p._train_step[STAGE_INIT],
+          "focal_step_fn": p._train_step[STAGE_BLOCK],
+          "oct_dev": p.sampler.oct_dev, "cams": p.cameras_dev,
+          "fineness": 1.0, "scfg": p.sampler.sampler_config, "fcfg": fc}
+    batch = make_batch(dm.init_cache.images, RAYS, 800, p.device)
+    gen = torch.Generator(device=p.device).manual_seed(11)
+    noise, perms = step_draws(wl, gen)
+    pair_loss = compare_step(wl, "captures", batch, noise, perms)
+    step_s = [rec[i]["s"] for i in range(CAPTURE_WARMUP, CAPTURE_STEPS)]
+    log(f"[captures] Trainer {_mean(step_s):.4f} s/step (median "
+        f"{float(np.median(step_s)):.4f}, after {CAPTURE_WARMUP} warm-up "
+        f"steps), {RAYS / _mean(step_s):.1f} rays/s; the phase's peak "
+        f"{peak / 2**30:.3f} GiB above the {held / 2**30:.3f} it found "
+        f"allocated; the run {train_s:.1f}s; launches "
+        f"{launches}")
+    stats = {"parsed": parsed, "tree": CAPTURE_TREE, "setup_s": setup_s,
+             "train_s": train_s, "eval_batches": evals,
+             "s_per_step": _mean(step_s), "rays_per_s": RAYS / _mean(step_s),
+             "peak_bytes": peak, "losses": losses, "grad_norms": norms,
+             "clipped_steps": clipped, "max_norm": CAPTURE_MAX_NORM,
+             "val_frames": frames, "profiler_records": records,
+             "compare_step_loss": pair_loss}
+    del trainer, p, wl
+    torch.cuda.empty_cache()
+    return launches, stats
+
+
 def main() -> int:
     if not (REPO / "gfnerf_tpu_torch").is_dir():
         print("chip_smoke: gfnerf_tpu_torch/ not found beside this script",
@@ -6699,7 +7227,10 @@ def main() -> int:
         torch.cuda.empty_cache()
         npl_paths, stats["nerfplayer"], npl = phase_nerfplayer(Path(tmp))
         paths.update(npl_paths)
-    clock("nerfplayer")
+        clock("nerfplayer")
+        torch.cuda.empty_cache()
+        paths["captures"], stats["captures"] = phase_captures(Path(tmp))
+    clock("captures")
     fast, scan = stats["pipeline"], stats["scan"]
     log(f"[scan] gf-nerf-perf through the Trainer, the scan (M1) against "
         f"the fast march on the same scene and schedule: "
@@ -6790,9 +7321,11 @@ def main() -> int:
 def main_only(names) -> int:
     """``--only pipeline,nerfacto,...``: the device and the build, then the
     named phases of the temp-dir family (pipeline, gfnerf, prop, nerfacto,
-    semantics, instant-ngp, scan, stock, nerfplayer; nerfacto and
-    semantics need the pipeline phase's scene and checkpoint, instant-ngp
-    and nerfplayer write their own scenes, scan and stock write theirs
+    semantics, instant-ngp, scan, stock, nerfplayer, captures,
+    capture-variants; nerfacto
+    and semantics need the pipeline phase's scene and checkpoint,
+    instant-ngp, nerfplayer and captures write their own scenes, scan and
+    stock write theirs
     when the pipeline and instant-ngp phases did not run) in one temp dir,
     for work on one phase: their lines and stats, no kernels line and no
     result line."""
@@ -6806,7 +7339,9 @@ def main_only(names) -> int:
               "prop": phase_prop, "nerfacto": phase_nerfacto,
               "semantics": phase_semantics,
               "instant-ngp": phase_instant_ngp, "scan": phase_scan,
-              "stock": phase_stock, "nerfplayer": phase_nerfplayer}
+              "stock": phase_stock, "nerfplayer": phase_nerfplayer,
+              "captures": phase_captures,
+              "capture-variants": phase_capture_variants}
     unknown = set(names) - set(phases)
     if unknown:
         print(f"chip_smoke: unknown phases {sorted(unknown)}",

@@ -13,7 +13,7 @@ import dataclasses
 import importlib
 import json
 from pathlib import Path
-from typing import Any, get_args, get_origin
+from typing import Any, List, get_args, get_origin
 
 _PACKAGE = "gfnerf_tpu_torch."
 
@@ -127,5 +127,6 @@ def apply_override(config: Any, dotted: str, value: str):
         ann = {"int": int, "float": float, "bool": bool, "str": str,
                "Path": Path, "Optional[Path]": Path, "Optional[int]": int,
                "Optional[str]": str, "Optional[float]": float,
+               "Optional[List[float]]": List[float],
                "tuple": tuple}.get(ann, type(cur) if cur is not None else str)
     setattr(obj, leaf, _coerce(value, ann))

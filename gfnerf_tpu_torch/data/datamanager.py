@@ -15,6 +15,15 @@ Port of ``gfnerf_tpu/data/datamanager.py`` (nerfstudio's
   rays at the end of a focal batch;
 - ``next_eval`` / ``next_eval_image``.
 
+Images are resized by ``camera_res_scale_factor`` as they load, in every
+dataset (train, init, eval and each split); unlike the JAX package, which
+leaves the cameras at the parser's size, the cameras are scaled with
+them (nerfstudio's ``rescale_output_resolution``: fx, fy, cx, cy times
+the factor, the width and height truncated), so that a pixel of the
+resized image is cast through its own intrinsics.  With
+``semantic_sample_weights`` a focal split draws uniformly without patches,
+as the JAX package's class-weighted sampler does.
+
 Host side: numpy image caches and samplers; a batch is a dict of
 fixed-shape numpy arrays.  The parallel-blocks paths
 (``setup_train_splits_parallel``, ``next_train_parallel``) join with the
@@ -26,11 +35,12 @@ from __future__ import annotations
 import dataclasses
 import os
 from pathlib import Path
-from typing import Dict, Optional
+from typing import Dict, List, Optional
 
 import numpy as np
 
-from gfnerf_tpu_torch.data.dataparsers.base import DataparserOutputs
+from gfnerf_tpu_torch.data.dataparsers.base import (CamerasHost,
+                                                    DataparserOutputs)
 from gfnerf_tpu_torch.data.dataset import ImageCache, InputDataset
 from gfnerf_tpu_torch.data.pixel_samplers import (
     ErrorPixelSampler,
@@ -49,11 +59,33 @@ class GFNerfDataManagerConfig:
     train_num_images_to_sample_from: int = 500
     train_num_times_to_repeat_images: int = 1000
     patch_size: int = 1
+    camera_res_scale_factor: float = 1.0
     max_init_images: int = 100000   # base_datamanager.py:662
+    # the JAX package's class weights of the focal splits' sampler, which
+    # it keeps unused: set, the splits draw without patches
+    semantic_sample_weights: Optional[List[float]] = None
     # fraction of each focal batch drawn uniformly from the full (init)
     # dataset; these rays sit at the end of the batch (``n_split_rays``
     # marks the boundary) and stay out of the error-map write-back
     focal_uniform_fraction: float = 0.0
+
+
+def rescale_cameras(outputs: DataparserOutputs,
+                    scale: float) -> DataparserOutputs:
+    """``outputs`` with its cameras scaled to images resized by ``scale``
+    (nerfstudio's ``Cameras.rescale_output_resolution``); the same object
+    at scale 1."""
+    if scale == 1.0:
+        return outputs
+    c = outputs.cameras
+    f32 = np.float32(scale)
+    cameras = CamerasHost(
+        camera_to_worlds=c.camera_to_worlds,
+        fx=c.fx * f32, fy=c.fy * f32, cx=c.cx * f32, cy=c.cy * f32,
+        width=(c.width * scale).astype(c.width.dtype),
+        height=(c.height * scale).astype(c.height.dtype),
+        distortion_params=c.distortion_params, camera_type=c.camera_type)
+    return dataclasses.replace(outputs, cameras=cameras)
 
 
 class GFNerfDataManager:
@@ -64,19 +96,21 @@ class GFNerfDataManager:
         self.seed = seed
         self.split_idx = -1
 
-        self.train_dataparser_outputs: DataparserOutputs = (
-            dataparser.get_dataparser_outputs(split="train"))
-        self.eval_dataparser_outputs: DataparserOutputs = (
-            dataparser.get_dataparser_outputs(split="val"))
-        self.train_dataset = InputDataset(self.train_dataparser_outputs)
-        self.eval_dataset = InputDataset(self.eval_dataparser_outputs)
+        scale = config.camera_res_scale_factor
+        self.train_dataparser_outputs: DataparserOutputs = rescale_cameras(
+            dataparser.get_dataparser_outputs(split="train"), scale)
+        self.eval_dataparser_outputs: DataparserOutputs = rescale_cameras(
+            dataparser.get_dataparser_outputs(split="val"), scale)
+        self.train_dataset = InputDataset(self.train_dataparser_outputs,
+                                          scale)
+        self.eval_dataset = InputDataset(self.eval_dataparser_outputs, scale)
 
         # init dataset: linspaced subset (base_datamanager.py:660-686)
         n_cameras = len(self.train_dataparser_outputs.cameras)
         k = min(n_cameras, config.max_init_images)
         init_indices = np.linspace(0, n_cameras - 1, k, dtype=np.int32)
         self.init_outputs = self.train_dataparser_outputs.select(init_indices)
-        self.train_dataset_init = InputDataset(self.init_outputs)
+        self.train_dataset_init = InputDataset(self.init_outputs, scale)
 
         self.setup_train()
         self.setup_eval()
@@ -117,7 +151,7 @@ class GFNerfDataManager:
             outputs.metadata["error_map_filenames"] = [
                 error_map_filenames[i] for i in sel]
         cache = ImageCache(
-            InputDataset(outputs),
+            InputDataset(outputs, cfg.camera_res_scale_factor),
             num_images_to_sample_from=cfg.train_num_images_to_sample_from,
             num_times_to_repeat=cfg.train_num_times_to_repeat_images,
             seed=self.seed + cur_split_idx)
@@ -125,8 +159,13 @@ class GFNerfDataManager:
             sampler = ErrorPixelSampler(cfg.train_num_rays_per_batch,
                                         seed=self.seed)
         else:
-            sampler = PixelSampler(cfg.train_num_rays_per_batch,
-                                   cfg.patch_size, seed=self.seed)
+            # the JAX package's class-weighted sampler, which
+            # semantic_sample_weights selects, draws as this one does
+            # without patches, its weights unused
+            patch = (1 if cfg.semantic_sample_weights is not None
+                     else cfg.patch_size)
+            sampler = PixelSampler(cfg.train_num_rays_per_batch, patch,
+                                   seed=self.seed)
         return outputs, sel, cache, sampler
 
     def setup_train_split_oct(self, camera_labels: Optional[np.ndarray],

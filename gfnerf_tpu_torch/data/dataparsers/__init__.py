@@ -1,25 +1,17 @@
 """Port of ``gfnerf_tpu.data.dataparsers``: the base types and the
-registry of the parsers ported so far (nerfstudio, blender, the minimal
-npz parser, instant-ngp, and the dynamic formats dnerf and dycheck).  The
-JAX package's other parsers raise "not ported"."""
+registry of every parser the JAX package registers (nerfstudio, blender,
+the minimal npz parser, and the formats of ``extra_parsers``)."""
 
 from __future__ import annotations
 
 from pathlib import Path
 
-# the JAX package's registered parsers that have no port yet
-NOT_PORTED = ("scannet", "sdfstudio", "phototourism", "sitcoms3d",
-              "arkitscenes", "nuscenes")
-
 
 def registry():
-    """name -> (ParserClass, ConfigClass) of the ported parsers."""
+    """name -> (ParserClass, ConfigClass), under the JAX package's names."""
+    from gfnerf_tpu_torch.data.dataparsers import extra_parsers as ep
     from gfnerf_tpu_torch.data.dataparsers.blender_parser import (
         BlenderDataParser, BlenderDataParserConfig)
-    from gfnerf_tpu_torch.data.dataparsers.extra_parsers import (
-        DNeRFDataParser, DNeRFDataParserConfig, DycheckDataParser,
-        DycheckDataParserConfig, InstantNGPDataParser,
-        InstantNGPDataParserConfig)
     from gfnerf_tpu_torch.data.dataparsers.minimal_parser import (
         MinimalDataParser, MinimalDataParserConfig)
     from gfnerf_tpu_torch.data.dataparsers.nerfstudio_parser import (
@@ -29,18 +21,23 @@ def registry():
         "nerfstudio": (NerfstudioDataParser, NerfstudioDataParserConfig),
         "blender": (BlenderDataParser, BlenderDataParserConfig),
         "minimal": (MinimalDataParser, MinimalDataParserConfig),
-        "instant-ngp": (InstantNGPDataParser, InstantNGPDataParserConfig),
-        "dnerf": (DNeRFDataParser, DNeRFDataParserConfig),
-        "dycheck": (DycheckDataParser, DycheckDataParserConfig),
+        "instant-ngp": (ep.InstantNGPDataParser, ep.InstantNGPDataParserConfig),
+        "dnerf": (ep.DNeRFDataParser, ep.DNeRFDataParserConfig),
+        "scannet": (ep.ScanNetDataParser, ep.ScanNetDataParserConfig),
+        "sdfstudio": (ep.SDFStudioDataParser, ep.SDFStudioDataParserConfig),
+        "phototourism": (ep.PhototourismDataParser,
+                         ep.PhototourismDataParserConfig),
+        "sitcoms3d": (ep.Sitcoms3DDataParser, ep.Sitcoms3DDataParserConfig),
+        "arkitscenes": (ep.ARKitScenesDataParser,
+                        ep.ARKitScenesDataParserConfig),
+        "nuscenes": (ep.NuScenesDataParser, ep.NuScenesDataParserConfig),
+        "dycheck": (ep.DycheckDataParser, ep.DycheckDataParserConfig),
     }
 
 
 def build_dataparser(name: str, data: Path, scale_factor: float = None):
     """The dataparser ``name`` over the dataset ``data`` (with
     ``scale_factor`` where its config has one)."""
-    if name in NOT_PORTED:
-        raise NotImplementedError(
-            f"dataparser {name!r} is not ported; ported: {sorted(registry())}")
     reg = registry()
     if name not in reg:
         raise ValueError(

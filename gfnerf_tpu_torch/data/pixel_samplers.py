@@ -7,8 +7,9 @@ equirectangular sampler (``EquirectangularPixelSampler``, rows drawn by
 sin(theta)).  Each
 produces (R, 3) integer indices (image in the cache, y, x) and the gathered
 pixels (and, where the cache holds road masks, each pixel's label as
-``semantics``): a fixed-shape host batch for the train step.  The
-class-weighted semantic sampler is not ported.
+``semantics``): a fixed-shape host batch for the train step.  The JAX
+package's class-weighted sampler draws as the uniform one does without
+patches (its weights unused), so the uniform one stands in for it.
 """
 
 from __future__ import annotations

@@ -9,14 +9,20 @@ residual table) and "camera_opt" (the cameras' pose tangents, at
 ``camera_opt_lr``).  Each group runs the chain
 the JAX package builds with optax, in its order:
 
-    Adam scaling (b1, b2, eps 1e-15) -> + weight_decay * param
-    -> * schedule(count) -> * -1
+    [clip by the group's global norm] -> Adam scaling (b1, b2, eps 1e-15)
+    -> + weight_decay * param -> * schedule(count) -> * -1
 
-with its own Adam moments.  Adam's bias correction and the schedule read
+with its own Adam moments.  The clip (``max_norm``; None, the default of
+every registered method, leaves it out) is optax's
+``clip_by_global_norm`` inside each group's chain: the norm is the
+group's, sqrt of the sum over its gradients of sum(g^2), and where it is
+not below ``max_norm`` every gradient of the group becomes (g / norm) *
+max_norm.  Adam's bias correction and the schedule read
 the count of applied updates, not the train step; the groups share it,
 since an update is applied to all groups or to none: it is skipped,
 moments and count left where they were, when any gradient is not finite
-(``optax.apply_if_finite``).  A gradient of None is a
+(``optax.apply_if_finite``, which reads the gradients before the clip).
+A gradient of None is a
 structural zero (a group that is not in the step's graph: the block
 table at the init stage, the frozen groups at the block stage): its moments
 stay unallocated while they are zero and decay once they are not, as
@@ -48,6 +54,7 @@ class OptimizersConfig:
     adam_b1: float = 0.9
     adam_b2: float = 0.999
     camera_opt_lr: float = 6e-4          # config.py:84
+    max_norm: Optional[float] = None
     steps_perssampler_init: int = 30000
     steps_per_split_dataset: int = 10000
     n_split_dataset: int = 10
@@ -135,6 +142,23 @@ def mask_frozen_grads(grads: Dict[str, list], stage: int) -> Dict[str, list]:
             for name, gs in grads.items()}
 
 
+def clip_by_global_norm(grads: List[Optional[torch.Tensor]],
+                        max_norm: float) -> tuple:
+    """(clipped gradients, norm) of one group, as optax's
+    ``clip_by_global_norm``: norm = sqrt(sum of sum(g^2)) over the given
+    gradients (a None is a structural zero: it adds nothing and stays
+    None), then each g kept where norm < max_norm, else (g / norm) *
+    max_norm.  A NaN gradient gives a NaN norm and NaN gradients.  The
+    norm is a 0-d tensor on the gradients' device (None without any)."""
+    given = [g for g in grads if g is not None]
+    if not given:
+        return grads, None
+    norm = torch.sqrt(sum(torch.sum(g * g) for g in given))
+    keep = norm < max_norm
+    return [None if g is None else torch.where(keep, g, (g / norm) * max_norm)
+            for g in grads], norm
+
+
 def _bias_correction(decay: float, count: int) -> float:
     """1 - decay**count in float32, as optax computes it: f32(0.999) is not
     0.999, and the difference reaches the update."""
@@ -148,13 +172,18 @@ class PerGroupAdam:
     ``schedules`` (group -> count -> lr) replaces the GF-NeRF groups and
     their schedules (the vanilla pipeline's one group, on optax's
     ``exponential_decay``); ``skip_nonfinite=False`` applies every update,
-    as optax's plain ``adam`` does (no host wait for the finite check)."""
+    as optax's plain ``adam`` does (no host wait for the finite check).
+    With ``cfg.max_norm`` each group's gradients are clipped by their norm
+    first, and ``grad_norms`` holds each group's norm before the clip (0-d
+    tensors, for the groups that had a gradient) after every applied
+    update."""
 
     def __init__(self, cfg: OptimizersConfig,
                  schedules: Optional[Dict[str, Callable]] = None,
                  skip_nonfinite: bool = True):
         self.cfg = cfg
         self.skip_nonfinite = skip_nonfinite
+        self.grad_norms: Dict[str, torch.Tensor] = {}
         if schedules is not None:
             self.schedules = schedules
             self.weight_decay = {name: 0.0 for name in schedules}
@@ -190,6 +219,7 @@ class PerGroupAdam:
         # one reduction on the device and one wait for it
         finite = (not self.skip_nonfinite or not given or bool(torch.stack(
             [torch.isfinite(g).all() for g in given]).all()))
+        self.grad_norms = {}
         if not finite:
             return ({name: [None] * len(gs) for name, gs in grads.items()},
                     dataclasses.replace(
@@ -209,6 +239,12 @@ class PerGroupAdam:
         cfg = self.cfg
         b1, b2, eps = cfg.adam_b1, cfg.adam_b2, cfg.adam_eps
         wd = self.weight_decay[name]
+        if cfg.max_norm is not None:
+            grads, norm = clip_by_global_norm(
+                [None if g is None else g.to(torch.float32) for g in grads],
+                cfg.max_norm)
+            if norm is not None:
+                self.grad_norms[name] = norm
         step_size = None
         updates, new_mu, new_nu = [], [], []
         for g, mu, nu, p in zip(grads, mus, nus, params):

@@ -69,6 +69,7 @@ from gfnerf_tpu_torch.model_components.losses import (
     charbonnier_loss,
     distortion_loss,
     interlevel_loss,
+    mse_loss,
     s3im_loss,
     s3im_permutations,
 )
@@ -91,17 +92,22 @@ class GFNeRFModelConfig:
     """The fields of the JAX package's ``GFNeRFModelConfig``
     (gfnerf/config.py:88-130) that the render path, the train step and the
     pipeline read, with its defaults.  The pipeline reads the block count
-    and the split schedule.  The train loss is the one the JAX defaults
-    select (method_configs.py:62-67), fixed: Charbonnier plus S3IM at
-    weight 1, kernel 4, stride 4, 10 repeats; the S3IM patch height is
-    ``s3im_patch_height``.  With ``use_semantics`` (and the field's
-    semantics heads) the rendered logits' cross-entropy against the
-    batch's labels joins at ``semantic_loss_weight``."""
+    and the split schedule.  The train loss: the rgb term, Charbonnier
+    (``use_ch_loss``, the default) or MSE, plus S3IM at
+    ``s3im_loss_mult`` (0 drops it) with its kernel, stride, repeats and
+    patch height.  With ``use_semantics`` (and the field's semantics heads)
+    the rendered logits' cross-entropy against the batch's labels joins at
+    ``semantic_loss_weight``."""
 
     n_blocks: int = 10
     n_split_dataset: int = 10
     steps_per_split_dataset: int = 10000
     steps_perssampler_init: int = 30000
+    use_ch_loss: bool = True
+    s3im_loss_mult: float = 1.0
+    s3im_kernel_size: int = 4
+    s3im_stride: int = 4
+    s3im_repeat_time: int = 10
     s3im_patch_height: int = 32
     scale_factor: float = 10.0
     background_color: str = "black"   # "black" | "white" | "last_sample"
@@ -628,9 +634,10 @@ def make_train_step(model_cfg: GFNeRFModelConfig, sampler_cfg: SamplerConfig,
                 noise = (torch.rand((r, sampler_cfg.max_samples),
                                     generator=generator, device=dev)
                          - 0.5) + 1.0
-            if s3im_perms is None:
-                s3im_perms = s3im_permutations(r, generator=generator,
-                                               device=dev)
+            if s3im_perms is None and model_cfg.s3im_loss_mult > 0:
+                s3im_perms = s3im_permutations(
+                    r, model_cfg.s3im_repeat_time, generator=generator,
+                    device=dev)
             k = model_cfg.num_proposal_resamples
             if prop_u is None and k > 0 and field.prop_feat is not None:
                 prop_u = torch.rand((r, k + 1), generator=generator,
@@ -658,7 +665,9 @@ def make_train_step(model_cfg: GFNeRFModelConfig, sampler_cfg: SamplerConfig,
                             active_block, active_table, rays_o=rays_o,
                             prop_u=prop_u)
         with span("loss"):
-            losses = {"rgb_loss": charbonnier_loss(out["rgb"], target)}
+            rgb_loss = (charbonnier_loss if model_cfg.use_ch_loss
+                        else mse_loss)
+            losses = {"rgb_loss": rgb_loss(out["rgb"], target)}
             if (block_stage and field.cfg.focal_mode == "finetune"
                     and model_cfg.finetune_trust_mult > 0):
                 losses["trust_loss"] = model_cfg.finetune_trust_mult \
@@ -686,9 +695,12 @@ def make_train_step(model_cfg: GFNeRFModelConfig, sampler_cfg: SamplerConfig,
                     losses["distortion_loss"] = (
                         model_cfg.distortion_loss_mult * distortion_loss(
                             out["weights"], fb_s, fb_e))
-            losses["s3im_loss"] = s3im_loss(
-                out["rgb"], target, s3im_perms,
-                patch_height=model_cfg.s3im_patch_height)
+            if model_cfg.s3im_loss_mult > 0:
+                losses["s3im_loss"] = model_cfg.s3im_loss_mult * s3im_loss(
+                    out["rgb"], target, s3im_perms,
+                    kernel_size=model_cfg.s3im_kernel_size,
+                    stride=model_cfg.s3im_stride,
+                    patch_height=model_cfg.s3im_patch_height)
             if "semantics" in out and "semantics" in batch:
                 # cross-entropy of the rendered logits (nerfacto.py:676-681)
                 logp = torch.log_softmax(out["semantics"], dim=-1)
@@ -709,6 +721,9 @@ def make_train_step(model_cfg: GFNeRFModelConfig, sampler_cfg: SamplerConfig,
             updates, opt_state = tx.update(
                 field_param_grads(field, active_table), state.opt_state,
                 params)
+            # each group's gradient norm before the clip (max_norm only)
+            grad_norms = {f"grad_norm_{name}": n
+                          for name, n in tx.grad_norms.items()}
             # freezing masks the updates, not just the grads: Adam's moments
             # turn zero grads into nonzero updates (gfnerf.py:625-631)
             apply_updates({name: ps for name, ps in params.items()
@@ -730,6 +745,7 @@ def make_train_step(model_cfg: GFNeRFModelConfig, sampler_cfg: SamplerConfig,
                 **{k: v.detach() for k, v in losses.items()},
                 "psnr": -10.0 * torch.log10(mse + 1e-12),
                 "num_samples_per_ray": samples.num_valid.float().mean(),
+                **grad_norms,
             }
             if samples.num_hits is not None:
                 # rays whose farthest leaf hits the max_hits top-k dropped

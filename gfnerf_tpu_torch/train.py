@@ -4,10 +4,14 @@ The port's counterpart of ``scripts/train.py`` (its arguments, minus the
 multi-host ones):
 
   python -m gfnerf_tpu_torch.train METHOD --data DIR
-      [--dataparser {minimal,blender,nerfstudio,instant-ngp,dnerf,dycheck}]
+      [--dataparser {minimal,nerfstudio,blender,instant-ngp,dnerf,scannet,
+                     sdfstudio,phototourism,sitcoms3d,arkitscenes,nuscenes,
+                     dycheck}] [--dataparser-scale-factor F]
       [--max-num-iterations N] [--output-dir DIR] [--experiment-name NAME]
       [--load-dir DIR] [--vis local] [--device {cuda,cpu}]
       [a.b.c=value ...] [--a.b.c value ...]
+
+The default parser is ``minimal`` (the JAX script's is ``nerfstudio``).
 
 Extra arguments are dotted config overrides, e.g.
 ``pipeline.model.n_blocks=4``.  Methods: gf-nerf (the paper's: 1024 march
@@ -17,7 +21,10 @@ gf-nerf-tiny, and on the vanilla pipeline nerfacto, semantic-nerfw
 Blender scene of PNGs, ``--dataparser blender``), mipnerf, tensorf, neus,
 vanilla-nerf, and the dynamic-scene pair nerfplayer-nerfacto and
 nerfplayer-ngp (on a D-NeRF or DyCheck capture, ``--dataparser dnerf`` or
-``dycheck``, whose frames carry times).  ``python -m
+``dycheck``, whose frames carry times).  A COLMAP capture in the wild
+trains with ``--dataparser phototourism``, e.g. at half its image size and
+with gradient clipping: ``pipeline.datamanager.camera_res_scale_factor=0.5
+pipeline.optimizers.max_norm=1.0``.  ``python -m
 gfnerf_tpu_torch.eval`` and ``python -m gfnerf_tpu_torch.render`` read a
 run's ``config.json`` and checkpoint.
 """
@@ -28,9 +35,10 @@ import argparse
 import sys
 from pathlib import Path
 
-# the dataparsers the port has (data/dataparsers/__init__.py)
-DATAPARSERS = ["minimal", "blender", "nerfstudio", "instant-ngp", "dnerf",
-               "dycheck"]
+# the JAX script's dataparsers (data/dataparsers/__init__.py)
+DATAPARSERS = ["minimal", "nerfstudio", "blender", "instant-ngp", "dnerf",
+               "scannet", "sdfstudio", "phototourism", "sitcoms3d",
+               "arkitscenes", "nuscenes", "dycheck"]
 
 
 def parse_overrides(extra) -> list:
@@ -52,13 +60,17 @@ def parse_overrides(extra) -> list:
     return out
 
 
-def main(argv=None):
+def build_trainer(argv=None):
+    """The Trainer the command line ``argv`` describes, set up (None, with
+    a note on stderr, where it asks for a card that is not there)."""
     parser = argparse.ArgumentParser(
         description=__doc__.splitlines()[0])
     parser.add_argument("method", help="registered method name")
     parser.add_argument("--data", type=Path, required=True)
     parser.add_argument("--dataparser", default="minimal",
                         choices=DATAPARSERS)
+    parser.add_argument("--dataparser-scale-factor", type=float,
+                        default=None)
     parser.add_argument("--output-dir", type=Path, default=Path("outputs"))
     parser.add_argument("--experiment-name", default=None)
     parser.add_argument("--max-num-iterations", type=int, default=None)
@@ -91,10 +103,18 @@ def main(argv=None):
         if not torch.cuda.is_available():
             print("train: no CUDA card (pass --device cpu to train on the "
                   "CPU)", file=sys.stderr)
-            return 1
+            return None
 
-    trainer = Trainer(config, build_dataparser(args.dataparser, args.data))
+    trainer = Trainer(config, build_dataparser(
+        args.dataparser, args.data, args.dataparser_scale_factor))
     trainer.setup()
+    return trainer
+
+
+def main(argv=None):
+    trainer = build_trainer(argv)
+    if trainer is None:
+        return 1
     trainer.train()
     print(f"training complete; outputs in {trainer.base_dir}")
     return 0

@@ -11,8 +11,11 @@ The JAX package reads images with ``imageio`` and resizes them with
 - :func:`write_png`: grey, grey and alpha, RGB and RGBA at 8 or 16 bits,
   palette images and 1/2/4-bit grey, each row under a filter type the
   caller may choose.
-- :func:`png_size`: (width, height) from the IHDR chunk.
-- :func:`resize_area` (``cv2.INTER_AREA`` for a downscale) and
+- :func:`png_size`: (width, height) from the IHDR chunk;
+  :func:`jpeg_size`: from a JPEG's start-of-frame segment;
+  :func:`image_size`: either, else the decoded image's.
+- :func:`resize_area` (``cv2.INTER_AREA``: area averaging for a
+  downscale, OpenCV's area-weighted linear rule for an upscale) and
   :func:`resize_linear` (``cv2.INTER_LINEAR``, half-pixel centres).
 - :func:`read_image`: a PNG through :func:`read_png`; any other format
   through ``imageio`` where it imports, else a ``NotImplementedError``
@@ -29,6 +32,13 @@ from typing import Optional, Sequence, Tuple, Union
 import numpy as np
 
 PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
+JPEG_SOI = b"\xff\xd8"
+# start-of-frame markers (baseline, extended, progressive, lossless, and
+# their differential and arithmetic-coded forms): SOF0-SOF15 less DHT
+# (C4), JPG (C8) and DAC (CC), which share the range
+_JPEG_SOF = frozenset(range(0xC0, 0xD0)) - {0xC4, 0xC8, 0xCC}
+# markers that stand alone, without a length: TEM, RST0-7, SOI
+_JPEG_STANDALONE = frozenset([0x01, *range(0xD0, 0xD8), 0xD8])
 # samples per pixel of each colour type
 _CHANNELS = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}
 _DEPTHS = {0: (1, 2, 4, 8, 16), 2: (8, 16), 3: (1, 2, 4, 8), 4: (8, 16),
@@ -72,6 +82,38 @@ def png_size(path) -> Tuple[int, int]:
     if head[:8] != PNG_SIGNATURE or head[12:16] != b"IHDR":
         raise ValueError(f"{path}: not a PNG")
     return struct.unpack(">II", head[16:24])
+
+
+def jpeg_size(path) -> Tuple[int, int]:
+    """(width, height) of a JPEG, from its start-of-frame segment: the
+    segments before it are skipped by their lengths."""
+    data = Path(path).read_bytes()
+    if data[:2] != JPEG_SOI:
+        raise ValueError(f"{path}: not a JPEG")
+    pos = 2
+    while pos < len(data):
+        if data[pos] != 0xFF:
+            raise ValueError(f"{path}: no marker at byte {pos}")
+        while pos < len(data) and data[pos] == 0xFF:   # fill bytes
+            pos += 1
+        if pos >= len(data):
+            break
+        marker = data[pos]
+        pos += 1
+        if marker in _JPEG_STANDALONE:
+            continue
+        if marker in (0xD9, 0xDA):   # EOI, or SOS: the scan before a frame
+            break
+        if pos + 2 > len(data):
+            break
+        (n,) = struct.unpack(">H", data[pos:pos + 2])
+        if marker in _JPEG_SOF:
+            if pos + 7 > len(data):
+                break
+            h, w = struct.unpack(">HH", data[pos + 3:pos + 7])
+            return w, h
+        pos += n
+    raise ValueError(f"{path}: no start-of-frame segment before the scan")
 
 
 def _paeth(a: int, b: int, c: int) -> int:
@@ -293,11 +335,15 @@ def read_image(path) -> np.ndarray:
 
 
 def image_size(path) -> Tuple[int, int]:
-    """(width, height) of an image file (a PNG's from its header)."""
+    """(width, height) of an image file: a PNG's from its header, a
+    JPEG's from its start-of-frame segment, any other format's from the
+    image :func:`read_image` decodes."""
     with open(path, "rb") as f:
-        png = f.read(8) == PNG_SIGNATURE
-    if png:
+        head = f.read(8)
+    if head == PNG_SIGNATURE:
         return png_size(path)
+    if head[:2] == JPEG_SOI:
+        return jpeg_size(path)
     img = read_image(path)
     return img.shape[1], img.shape[0]
 
@@ -320,6 +366,26 @@ def _area_weights(src: int, dst: int) -> np.ndarray:
             m[d, s] = np.float32(1.0 / cell)
         if fs2 - s2 > 1e-3:
             m[d, s2] = np.float32(min(min(fs2 - s2, 1.0), cell) / cell)
+    return m
+
+
+def _area_up_weights(src: int, dst: int) -> np.ndarray:
+    """(dst, src) weights of ``cv2.INTER_AREA`` along one axis for an
+    upscale (resize.cpp's linear coefficients in area mode): output d reads
+    source s = floor(d / k) and s + 1, with k = dst / src, at the weight
+    fx = (d + 1) - (s + 1) k clamped at 0, its fractional part; the last
+    source pixel alone at the edge."""
+    inv = dst / src
+    scale = 1.0 / inv
+    m = np.zeros((dst, src), np.float64)
+    for d in range(dst):
+        s = int(np.floor(d * scale))
+        f = np.float32((d + 1) - (s + 1) * inv)
+        f = 0.0 if f <= 0 else float(f - np.floor(f))
+        if s >= src - 1:
+            f, s = 0.0, src - 1
+        m[d, s] += np.float32(1.0 - f)
+        m[d, min(s + 1, src - 1)] += f
     return m
 
 
@@ -350,16 +416,17 @@ def _separable(img: np.ndarray, wy: np.ndarray, wx: np.ndarray
 
 def resize_area(img: np.ndarray, scale: float) -> np.ndarray:
     """``cv2.resize(img, (int(w * scale), int(h * scale)),
-    interpolation=cv2.INTER_AREA)`` for ``scale < 1``, on (H, W[, C])
-    float images; f32 out.  ``scale > 1`` raises."""
-    if scale > 1.0:
-        raise NotImplementedError(
-            f"resize_area: upscaling (scale {scale}) is not supported")
+    interpolation=cv2.INTER_AREA)`` on (H, W[, C]) float images; f32 out.
+    Below 1 each output pixel averages the source area it covers; above 1
+    OpenCV's area-weighted linear rule (an integer factor repeats each
+    pixel)."""
     h, w = img.shape[:2]
     dw, dh = int(w * scale), int(h * scale)
     if (dw, dh) == (w, h):
         return np.asarray(img, np.float32)
-    return _separable(img, _area_weights(h, dh), _area_weights(w, dw))
+    # OpenCV averages areas only where neither axis grows
+    weights = (_area_weights if dw <= w and dh <= h else _area_up_weights)
+    return _separable(img, weights(h, dh), weights(w, dw))
 
 
 def resize_linear(img: np.ndarray, size: Tuple[int, int]) -> np.ndarray:

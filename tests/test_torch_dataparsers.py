@@ -182,7 +182,8 @@ def test_png_repairs_and_refusals(tmp_path, monkeypatch):
     reads whole through ``render.read_png`` (a repair: every chunk is
     joined, not only the last).  Adam7
     interlacing raises and names it; a JPEG goes through imageio, and
-    without imageio raises and names it."""
+    without imageio raises and names it (its size still comes from its
+    start-of-frame segment)."""
     import imageio.v2 as imageio
     from PIL import Image
 
@@ -207,8 +208,7 @@ def test_png_repairs_and_refusals(tmp_path, monkeypatch):
     monkeypatch.setitem(sys.modules, "imageio.v2", None)
     with pytest.raises(NotImplementedError, match="imageio"):
         image_io.read_image(tmp_path / "a.jpg")
-    with pytest.raises(NotImplementedError, match="upscaling"):
-        image_io.resize_area(np.zeros((4, 4), np.float32), 2.0)
+    assert image_io.image_size(tmp_path / "a.jpg") == (W, H)
 
 
 # ---- _load_image and the dataset ----
@@ -555,27 +555,28 @@ def test_instant_ngp_parser_matches_jax(tmp_path, case):
 
 
 def test_dataparser_registry():
-    """``build_dataparser`` builds the six ported parsers (``scale_factor``
-    where the config has one), the dynamic formats dnerf and dycheck among
-    them, and raises "not ported" for the JAX package's other six,
+    """``registry`` has the JAX package's twelve names, each with a config
+    class of the JAX one's fields and defaults; ``build_dataparser`` builds
+    every one (``scale_factor`` where the config has one) and raises
     ValueError for an unknown name."""
     from gfnerf_tpu.data.dataparsers import registry as jax_registry
-    from gfnerf_tpu_torch.data.dataparsers import (NOT_PORTED,
-                                                   build_dataparser,
-                                                   registry)
+    from gfnerf_tpu_torch.data.dataparsers import build_dataparser, registry
 
-    assert set(registry()) == {"nerfstudio", "blender", "minimal",
-                               "instant-ngp", "dnerf", "dycheck"}
-    assert set(registry()) | set(NOT_PORTED) == set(jax_registry())
-    assert set(NOT_PORTED) == {"scannet", "sdfstudio", "phototourism",
-                               "sitcoms3d", "arkitscenes", "nuscenes"}
+    reg, jreg = registry(), jax_registry()
+    assert sorted(reg) == sorted(jreg) and len(reg) == 12
+    for name, (parser_cls, cfg_cls) in reg.items():
+        jcfg_cls = jreg[name][1]
+        assert parser_cls.__name__ == jreg[name][0].__name__
+        got = {f.name: f.default for f in dataclasses.fields(cfg_cls)}
+        want = {f.name: f.default for f in dataclasses.fields(jcfg_cls)}
+        assert got == want, name
+        assert isinstance(build_dataparser(name, Path("x")), parser_cls)
     assert build_dataparser("blender", Path("x"), 0.5).config.scale_factor \
         == 0.5
     assert build_dataparser("dnerf", Path("x"), 0.5).config.scale_factor \
         == 0.5
-    for name in NOT_PORTED:
-        with pytest.raises(NotImplementedError, match="not ported"):
-            build_dataparser(name, Path("x"))
+    assert build_dataparser("phototourism", Path("x")).config.scale_factor \
+        == 3.0
     with pytest.raises(ValueError, match="unknown"):
         build_dataparser("no-such-parser", Path("x"))
 

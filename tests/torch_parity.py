@@ -298,8 +298,8 @@ def port_train_step(field, toct, batch, mkw, noise, perms, stage=0,
                     active_block=0, state=None, prop_u=None, march="fast"):
     """One train step of the port at ``stage`` on the CPU, from ``state``
     (a fresh one of ``field`` if None), with the given noise and
-    permutations (and, on the proposal branch, resampling draws),
-    marching with ``march``."""
+    permutations (drawn by the step where ``perms`` is None; and, on the
+    proposal branch, resampling draws), marching with ``march``."""
     from gfnerf_tpu_torch.cameras.cameras import Cameras
     from gfnerf_tpu_torch.engine.optimizers import (OptimizersConfig,
                                                     build_optimizer)
@@ -322,7 +322,8 @@ def port_train_step(field, toct, batch, mkw, noise, perms, stage=0,
     for k in ("camera_indices", "rel_camera_indices"):
         tb[k] = tb[k].long()
     return step(state, toct, cams, tb, 1.0, noise=torch.as_tensor(noise),
-                s3im_perms=torch.as_tensor(perms).long(),
+                s3im_perms=(None if perms is None
+                            else torch.as_tensor(perms).long()),
                 active_block=active_block,
                 prop_u=None if prop_u is None else torch.as_tensor(prop_u))
 

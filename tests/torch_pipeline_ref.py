@@ -9,8 +9,8 @@ reference).  Usage:
       LAYOUT
 
 Drives ``GFNerfPipeline`` of ``gf-nerf-tiny`` (with LAYOUT's overrides,
-``FIELD_OVERRIDES`` or ``PROP_OVERRIDES``, and the port parser's image
-names) as the
+``FIELD_OVERRIDES``, ``PROP_OVERRIDES`` or ``CLIP_OVERRIDES``, and the port
+parser's image names) as the
 Trainer does (the train step, then the after-iteration callbacks; the eval
 batch every ``steps_per_eval_batch`` and after the last step) for STEPS
 steps and writes OUT_DIR/ref.npz: each
@@ -45,6 +45,15 @@ PROP_OVERRIDES = {
              "field_proposal_rows_log2": 9,
              "model.num_proposal_resamples": 16},
 }
+# gf-nerf-tiny's anchored layout with gradient clipping (a limit between
+# the groups' norms, so each is clipped on some steps and not on others)
+# and the loss switches: MSE, and S3IM at half weight with kernel 2,
+# stride 2 and 4 repeats
+CLIP_OVERRIDES = {
+    "clip": {"optimizers.max_norm": 0.003, "model.use_ch_loss": False,
+             "model.s3im_loss_mult": 0.5, "model.s3im_kernel_size": 2,
+             "model.s3im_stride": 2, "model.s3im_repeat_time": 4},
+}
 LOSS_KEYS = ("loss", "rgb_loss", "s3im_loss")
 
 
@@ -59,7 +68,8 @@ def main(scene, out_dir, steps, rays, patch_h, layout):
     cfg = gf_nerf_tiny_config()
     cfg.pipeline.datamanager.train_num_rays_per_batch = rays
     cfg.pipeline.model.s3im_patch_height = patch_h
-    for key, value in {**FIELD_OVERRIDES, **PROP_OVERRIDES}[layout].items():
+    for key, value in {**FIELD_OVERRIDES, **PROP_OVERRIDES,
+                       **CLIP_OVERRIDES}[layout].items():
         *path, leaf = key.split(".")
         obj = cfg.pipeline
         for part in path:
