@@ -260,6 +260,21 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
                 H1 and H2, one step against the plain pairs under the clip
                 (the norms and the clipped moments too); s/step through the
                 Trainer and the phase's own peak memory.
+ 21. tools    — the exporter, the viewer and the live viewer on the
+                pipeline phase's run (its focal stage), the counters reset
+                for each part: gfnerf_tpu_torch.export's point cloud (48
+                views at downscale 4), poses (python -m, a process of its
+                own), density mesh (64^3, the threshold a quantile of the
+                grid's densities), TSDF (8 views, 64^3) and texture;
+                per render chunk K1 once and H1 twice, per density chunk H1
+                once; every file finite inside the octree's root cube; the
+                point cloud and the mesh against the plain versions; a
+                ViewerServer on an ephemeral port: the page, /scene,
+                /render at 640x480 (rgb, depth, accumulation) and at
+                downscale 4, its rgb PNG equal to render_camera's image, a
+                camera path read back; a Trainer with vis viewer resumed
+                for up to 12 steps: pause, resume, a render while training,
+                stop and its checkpoint, /status (see phase_tools).
 Each phase ends with a [clock] line.  Before the last line come a JSON
 object with each kernel's launches, error, times and bound (K1, K2, H1 and
 H2 also at the prop phase's shapes, under "prop"; H4 and H5 at nerfacto's
@@ -274,8 +289,9 @@ card's name and power limit; the last line is
 
 Run from the repository root:  python3 chip_smoke.py
 To work on one phase of the pipeline family (pipeline, gfnerf, prop,
-nerfacto, semantics, instant-ngp, scan, stock, nerfplayer, captures;
-nerfacto and semantics read the pipeline phase's scene and checkpoint),
+nerfacto, semantics, instant-ngp, scan, stock, nerfplayer, captures,
+tools; nerfacto, semantics and tools read the pipeline phase's scene and
+checkpoint),
 or to train the captures phase's capture once a variant
 (capture-variants: reported, not checked):
 python3 chip_smoke.py --only pipeline,nerfacto,semantics
@@ -283,6 +299,7 @@ python3 chip_smoke.py --only scan,stock
 python3 chip_smoke.py --only nerfplayer
 python3 chip_smoke.py --only captures
 python3 chip_smoke.py --only capture-variants
+python3 chip_smoke.py --only pipeline,tools
 Either form takes ``--coverage-case PATH`` last: the scan phase then writes
 the octree and rays of its coverage check there, for
 ``python tests/torch_parity.py scan-coverage PATH`` (the JAX package's
@@ -6044,7 +6061,7 @@ def phase_stock(tmp: Path):
 # NeRFPlayer: both methods through the Trainer at their registered widths on
 # a D-NeRF scene written to disk (NPL_SCENE, a sphere moving with the time)
 # and read back by the dnerf parser
-NPL_STEPS = {"nerfplayer-nerfacto": 400, "nerfplayer-ngp": 400}
+NPL_STEPS = {"nerfplayer-nerfacto": 300, "nerfplayer-ngp": 300}
 NPL_WARMUP = 5
 NPL_OVERRIDES = {"steps_per_log": "100", "steps_per_eval_batch": "100000"}
 # train views, val views, width and height, focal length
@@ -7148,6 +7165,514 @@ def phase_captures(tmp: Path):
     return launches, stats
 
 
+# the tools phase: the exporter, the viewer and a Trainer with the viewer
+# attached, on the pipeline phase's run (gf-nerf-perf after 44 steps, in
+# its focal stage).  The point cloud from every train view at downscale 4,
+# the density mesh on a 64^3 grid, the TSDF from 8 views at 64^3, the
+# texture on that mesh; viewer requests at 640x480 and at downscale 4;
+# the live Trainer resumed from the checkpoint for up to 12 steps
+TOOLS_POINT_VIEWS = 48
+TOOLS_DOWNSCALE = 4
+TOOLS_MESH_RES = 64
+# the density mesh's threshold: this quantile of the grid's positive
+# densities
+TOOLS_DENSITY_QUANTILE = 0.99
+TOOLS_TSDF = (8, 64)             # views, resolution
+TOOLS_VIEW_WH = (640, 480)
+TOOLS_REQUESTS = 3               # timed viewer requests at each size
+TOOLS_LIVE_STEPS = 12
+# the point cloud, kernels against plain: its count within 0.5%, the
+# pixels both keep within SLICE_ATOL of the scene's size
+TOOLS_COUNT_RTOL = 5e-3
+
+
+def _ply_points(path: Path):
+    """(points (N, 3), colours (N, 3)) of write_ply's binary PLY."""
+    import numpy as np
+
+    data = path.read_bytes()
+    head = b"end_header\n"
+    n = int(data.split(b"element vertex ")[1].split(b"\n")[0])
+    rows = np.frombuffer(data[data.index(head) + len(head):], np.dtype(
+        [("p", "<f4", (3,)), ("c", "u1", (3,))]))
+    if len(rows) != n:
+        raise AssertionError(f"{path.name}: {len(rows)} rows, header {n}")
+    return rows["p"], rows["c"]
+
+
+def _obj_mesh(path: Path):
+    """(vertices (V, 3), faces) of an OBJ: the face lines' first indices."""
+    import numpy as np
+
+    verts, faces = [], []
+    for line in path.read_text().splitlines():
+        if line.startswith("v "):
+            verts.append([float(x) for x in line.split()[1:4]])
+        elif line.startswith("f "):
+            faces.append([int(x.split("/")[0]) for x in line.split()[1:]])
+    return np.asarray(verts).reshape(-1, 3), faces
+
+
+def sphere_distance(pts):
+    """Each point's distance to the nearest sphere surface of the
+    synthetic scene."""
+    import numpy as np
+
+    from gfnerf_tpu_torch.utils.synthetic import SPHERES
+
+    pts = np.asarray(pts, np.float64).reshape(-1, 3)
+    c, r = SPHERES[:, :3].astype(np.float64), SPHERES[:, 3]
+    return np.abs(np.linalg.norm(pts[:, None] - c[None], axis=-1)
+                  - r[None]).min(axis=1)
+
+
+def tools_run_dir(tmp: Path) -> Path:
+    """The pipeline phase's first run: its checkpoint of step 43."""
+    for config in sorted((tmp / "out").glob(
+            "scene/gf-nerf-perf/*/config.json")):
+        if (config.parent / "nerfstudio_models"
+                / f"step-{PIPELINE_STEPS - 1:09d}").is_dir():
+            return config.parent
+    raise AssertionError("tools: no checkpoint of the pipeline phase's run "
+                         "(run the pipeline phase first: --only "
+                         "pipeline,tools)")
+
+
+def _http(url: str, doc=None) -> bytes:
+    import urllib.request
+
+    req = url if doc is None else urllib.request.Request(
+        url, data=json.dumps(doc).encode())
+    with urllib.request.urlopen(req, timeout=300) as res:
+        return res.read()
+
+
+def phase_tools(tmp: Path):
+    """The exporter, the viewer and the live viewer on the pipeline phase's
+    run (gf-nerf-perf, 44 steps: its focal stage), each part with the
+    launch counters reset.
+
+    Export, through gfnerf_tpu_torch.export's ``main`` (the command line's
+    function; poses through ``python -m gfnerf_tpu_torch.export`` in a
+    process of its own): the point cloud of the 48 train views at
+    downscale 4, the density mesh at 64^3 (its threshold the
+    TOOLS_DENSITY_QUANTILE quantile of the grid's positive densities), the
+    TSDF of 8 views at 64^3, the texture on the mesh.  Checked: K1 once and H1 twice a render chunk
+    (the focal stage: the global encode, then the view's block on it),
+    H1 once a density chunk of 65536 points, nothing else; every file read
+    back, finite and inside the octree's root cube, the point cloud and
+    both meshes non-empty; the poses the train cameras; the texture at the
+    atlas's size; the point cloud and the mesh again through the plain
+    versions (the count within TOOLS_COUNT_RTOL, the depths of the pixels
+    both keep within SLICE_ATOL of the scene's size; the mesh's OBJ equal
+    byte for byte, or the vertices that differ reported).  Reported: each
+    mode's seconds, the point cloud's and the TSDF's median distance to the
+    nearest sphere.
+
+    Viewer: a ViewerServer on 127.0.0.1 at an ephemeral port.  Checked: the
+    page; /scene's 48 cameras, the tree's nodes and valid leaves, the
+    blocks' counts; /render at 640x480 (rgb, depth, accumulation) and at
+    downscale 4: PNGs of the size, the rgb one equal to the quantized
+    render_camera output for the same pose, the launches a chunk as in
+    the export; a /camera_path document read back by the render script.
+    Reported: seconds a request at both sizes.
+
+    Live: a Trainer with vis "viewer", resumed from the checkpoint for up to
+    TOOLS_LIVE_STEPS steps, driven over HTTP.  Checked: pause holds the
+    step count for 1 s; resume continues it; a render while training (over
+    HTTP and through render_outputs) is finite and never inside a step;
+    stop saves the checkpoint of the step before the one it stopped on,
+    K2 once a step; /status shows the published step and loss."""
+    import subprocess
+    import threading
+
+    import numpy as np
+    import torch
+
+    from gfnerf_tpu_torch import export as export_mod
+    from gfnerf_tpu_torch.configs.config_io import apply_override
+    from gfnerf_tpu_torch.configs.method_configs import get_method
+    from gfnerf_tpu_torch.data.dataparsers import build_dataparser
+    from gfnerf_tpu_torch.engine.trainer import Trainer
+    from gfnerf_tpu_torch.exporter import exporter
+    from gfnerf_tpu_torch.fields.field import STAGE_BLOCK
+    from gfnerf_tpu_torch.render import cameras_from_camera_path
+    from gfnerf_tpu_torch.utils.eval_utils import eval_setup
+    from gfnerf_tpu_torch.utils.image_io import decode_png, read_png
+    from gfnerf_tpu_torch.viewer.server import ViewerServer, quantize
+
+    t_phase = time.perf_counter()
+    run = tools_run_dir(tmp)
+    config = run / "config.json"
+    out = tmp / "exports"
+    total = {k: 0 for k in launch_counts()}
+    stats = {"export_s": {}, "viewer_s_per_request": {}}
+
+    def counted(fn):
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        got = launch_counts()
+        for k, v in got.items():
+            total[k] += v
+        return res, got, dt
+
+    t0 = time.perf_counter()
+    _, loaded = eval_setup(config)
+    p = loaded.pipeline
+    setup_s = time.perf_counter() - t0
+    chunk = p.config.eval_num_rays_per_chunk
+    focal = p.stage_of(int(p.state.step)) == STAGE_BLOCK
+    h1_a_chunk = 2 if focal else 1
+    cams = p.datamanager.train_dataparser_outputs.cameras
+    tree = p.sampler.tree
+    lo = np.asarray(tree.centers[0]) - float(tree.side_lens[0]) / 2
+    hi = np.asarray(tree.centers[0]) + float(tree.side_lens[0]) / 2
+    pos = cams.camera_to_worlds[:, :, 3]
+    scene_size = float(np.linalg.norm(pos[:, None] - pos[None], axis=-1)
+                       .max())
+    scale = export_mod.depth_scale(p)
+    log(f"[tools] {run.name}: step {p.state.step} (focal stage: {focal}), "
+        f"render chunks of {chunk} rays, root cube {lo.tolist()} .. "
+        f"{hi.tolist()}, scene size {scene_size:.3f}; eval_setup "
+        f"{setup_s:.2f}s")
+
+    def render_chunks(views, down):
+        return sum(-(-(int(cams.height[i]) // down)
+                     * (int(cams.width[i]) // down) // chunk) for i in views)
+
+    def expect(what, got, chunks=0, density_chunks=0):
+        check_launches(what, got, {
+            "composite_fwd": chunks,
+            "packed_hash_fwd": h1_a_chunk * chunks + density_chunks})
+
+    def inside(pts, what):
+        pts = np.asarray(pts)
+        if not (np.isfinite(pts).all() and (pts >= lo).all()
+                and (pts <= hi).all()):
+            raise AssertionError(f"tools: {what} not finite or outside the "
+                                 f"root cube")
+
+    def export(mode, *extra):
+        argv = [mode, "--load-config", str(config), "--output-dir", str(out),
+                *extra]
+        rc, got, dt = counted(lambda: export_mod.main(argv))
+        if rc != 0:
+            raise AssertionError(f"tools: export {mode} returned {rc}")
+        stats["export_s"][mode] = dt
+        return got
+
+    def plain(fn):
+        """fn() through the plain versions (no kernel may launch)."""
+        reset_launch_counts()
+        with plain_wrappers():
+            return fn()
+
+    # ---- point cloud, through the kernels and the plain versions ----
+    renders = {"kernels": [], "plain": []}
+    make_render = export_mod.camera_render_fn
+
+    def recording(which, render):
+        def recorded(c, i, downscale=1):
+            res = render(c, i, downscale=downscale)
+            renders[which].append(res)
+            return res
+        return recorded
+
+    try:
+        export_mod.camera_render_fn = lambda pipe, c: recording(
+            "kernels", make_render(pipe, c))
+        got = export("pointcloud", "--num-views", str(TOOLS_POINT_VIEWS),
+                     "--downscale-factor", str(TOOLS_DOWNSCALE))
+    finally:
+        export_mod.camera_render_fn = make_render
+    n_plain = plain(lambda: exporter.export_point_cloud(
+        recording("plain", make_render(p, cams)), cams,
+        tmp / "plain_point_cloud.ply", num_views=TOOLS_POINT_VIEWS,
+        downscale=TOOLS_DOWNSCALE, depth_scale=scale))
+    expect("tools pointcloud", got,
+           render_chunks(range(TOOLS_POINT_VIEWS), TOOLS_DOWNSCALE))
+    pts, _ = _ply_points(out / "point_cloud.ply")
+    inside(pts, "the point cloud")
+    worst = 0.0
+    for k, q in zip(renders["kernels"], renders["plain"]):
+        both = ((k["accumulation"] > 0.5) & (q["accumulation"] > 0.5))
+        if both.any():
+            worst = max(worst, float(np.abs(k["depth"] - q["depth"])[both]
+                                     .max()) * scale)
+    pc_dist = sphere_distance(pts)
+    log(f"[tools] point cloud: {len(pts)} points ({n_plain} through the "
+        f"plain versions); the depth of the pixels both keep differs by "
+        f"{worst:.3g} (limit {SLICE_ATOL * scene_size:.3g}); median "
+        f"distance to the nearest sphere {np.median(pc_dist):.4f}")
+    if (not len(pts) or len(renders["kernels"]) != TOOLS_POINT_VIEWS
+            or abs(len(pts) - n_plain) > TOOLS_COUNT_RTOL * len(pts)
+            or not worst <= SLICE_ATOL * scene_size):
+        raise AssertionError("tools: the point cloud, kernels against plain")
+
+    # ---- poses, in a process of its own ----
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "gfnerf_tpu_torch.export", "poses",
+         "--load-config", str(config), "--output-dir", str(out)],
+        cwd=str(REPO), capture_output=True, text=True, timeout=600)
+    stats["export_s"]["poses (own process)"] = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"tools: export poses: {proc.stderr[-3000:]}")
+    frames = json.loads((out / "camera_poses.json").read_text())
+    poses = np.asarray([f["transform"] for f in frames])
+    if len(frames) != len(cams) or not np.array_equal(
+            poses[:, :3], cams.camera_to_worlds):
+        raise AssertionError("tools: the poses are not the train cameras")
+
+    # ---- density mesh, kernels and plain ----
+    # the grid's densities choose the threshold: the exporter's default,
+    # 5, is past every grid point's density after 44 steps (the field
+    # reads warped space, its densities per warped unit)
+    aabb = export_mod.mesh_aabb(p)
+    res = TOOLS_MESH_RES
+    axes = [np.linspace(aabb[0][d], aabb[1][d], res + 1, dtype=np.float32)
+            for d in range(3)]
+    grid = np.stack(np.meshgrid(*axes, indexing="ij"), -1).reshape(-1, 3)
+    n_density = -(-len(grid) // 65536)
+    dens, got, _ = counted(lambda: np.concatenate([
+        export_mod.density_fn(p, grid[i:i + 65536])
+        for i in range(0, len(grid), 65536)]))
+    expect("tools grid densities", got, density_chunks=n_density)
+    at_points = export_mod.density_fn(p, pts[::max(len(pts) // 4096, 1)])
+    if not (dens > 0).any():
+        raise AssertionError("tools: no grid point has a density")
+    threshold = float(np.quantile(dens[dens > 0], TOOLS_DENSITY_QUANTILE))
+    log(f"[tools] the {res + 1}^3 grid's densities: max {dens.max():.4g}, "
+        f"quantiles 0.5/0.9/0.99 of the positive "
+        f"{np.quantile(dens[dens > 0], [0.5, 0.9, 0.99]).round(4).tolist()}"
+        f", {int((dens >= 5.0).sum())} points at 5 or more; at the point "
+        f"cloud's points median {np.median(at_points):.4g}; the mesh's "
+        f"threshold {threshold:.4g}")
+    got = export("mesh", "--resolution", str(res), "--density-threshold",
+                 repr(threshold))
+    expect("tools mesh", got, density_chunks=n_density)
+    plain(lambda: exporter.export_marching_cubes_mesh(
+        lambda x: export_mod.density_fn(p, x), aabb, res, threshold,
+        tmp / "plain_mesh.obj"))
+    mesh_text = (out / "mesh.obj").read_text()
+    plain_text = (tmp / "plain_mesh.obj").read_text()
+    verts, faces = _obj_mesh(out / "mesh.obj")
+    inside(verts, "the density mesh")
+    same = mesh_text == plain_text
+    vs = {ln for ln in mesh_text.splitlines() if ln.startswith("v ")}
+    ps = {ln for ln in plain_text.splitlines() if ln.startswith("v ")}
+    log(f"[tools] density mesh at {res}^3: {len(verts)} vertices, "
+        f"{len(faces)} faces; the plain versions' OBJ "
+        + ("equal byte for byte" if same else
+           f"differs: {len(vs ^ ps)} vertices in one and not the other"))
+    stats.update(mesh_equal_to_plain=same, mesh_threshold=threshold,
+                 grid_density_max=float(dens.max()))
+    if not len(faces):
+        raise AssertionError("tools: the density mesh is empty")
+
+    # ---- TSDF ----
+    n_tsdf, tsdf_res = TOOLS_TSDF
+    got = export("tsdf", "--resolution", str(tsdf_res), "--num-views",
+                 str(n_tsdf), "--downscale-factor", str(TOOLS_DOWNSCALE))
+    step = max(len(cams) // n_tsdf, 1)
+    expect("tools tsdf", got, render_chunks(range(0, len(cams), step),
+                                            TOOLS_DOWNSCALE))
+    tsdf, _ = _obj_mesh(out / "tsdf_mesh.obj")
+    inside(tsdf, "the TSDF mesh")
+    tsdf_dist = sphere_distance(tsdf)
+    log(f"[tools] TSDF of {n_tsdf} views at {tsdf_res}^3: {len(tsdf)} "
+        f"vertices, median distance to the nearest sphere "
+        f"{np.median(tsdf_dist) if len(tsdf) else float('nan'):.4f}")
+    if not len(tsdf):
+        raise AssertionError("tools: the TSDF mesh is empty")
+
+    # ---- texture on the density mesh ----
+    got = export("texture")
+    expect("tools texture", got, -(-len(faces) * 64 // chunk))
+    tex = read_png(out / "texture.png")
+    cols = int(np.ceil(np.sqrt(len(faces))))
+    rows = int(np.ceil(len(faces) / cols))
+    tverts, tfaces = _obj_mesh(out / "mesh.obj")
+    inside(tverts, "the textured mesh")
+    log(f"[tools] texture: {len(tfaces)} faces, atlas {tex.shape}, mean "
+        f"colour {tex.reshape(-1, 3).mean(0).round(2).tolist()}")
+    if (tex.shape != (rows * 8, cols * 8, 3) or len(tfaces) != len(faces)
+            or not np.allclose(tverts, verts, rtol=0, atol=1e-5)):
+        raise AssertionError("tools: the textured mesh or its atlas")
+    log(f"[tools] export seconds {json.dumps(stats['export_s'])}")
+
+    # ---- viewer ----
+    server = ViewerServer(p, port=0, save_dir=tmp / "viewer_paths",
+                          default_radius=float(np.linalg.norm(
+                              pos, axis=1).mean())).start()
+    base = f"http://127.0.0.1:{server.port}"
+    try:
+        if b"<canvas" not in _http(base + "/"):
+            raise AssertionError("tools: the viewer's page")
+        scene = json.loads(_http(base + "/scene"))
+        blocks = scene["blocks"]
+        log(f"[tools] /scene: {len(scene['cameras'])} cameras, octree "
+            f"{scene['octree']}, blocks {blocks}")
+        if (len(scene["cameras"]) != len(cams) or scene["octree"] != {
+                "n_nodes": tree.n_nodes,
+                "n_leaves": int(p.sampler.oct_dev.n_leaves)}
+                or len(blocks) != p.field_cfg.n_blocks
+                or sum(blocks.values()) != len(cams)):
+            raise AssertionError(f"tools: /scene {scene}")
+        w, h = TOOLS_VIEW_WH
+        req = {"c2w": cams.camera_to_worlds[0].tolist(), "width": w,
+               "height": h}
+        for down in (1, TOOLS_DOWNSCALE):
+            size = {"downscale": down}
+            n_chunks = -(-(h // down) * (w // down) // chunk)
+            for output in ("rgb", "depth", "accumulation"):
+                png, got, _ = counted(lambda: _http(
+                    base + "/render", {**req, **size, "output": output}))
+                img = decode_png(png)
+                if img.shape != (h // down, w // down, 3):
+                    raise AssertionError(f"tools: /render {output} "
+                                         f"{img.shape}")
+                expect(f"tools /render {output} {w // down}x{h // down}",
+                       got, n_chunks)
+                if output == "rgb":
+                    want = quantize(server.render_outputs({**req, **size})[
+                        "rgb"])
+                    if not np.array_equal(img, want):
+                        raise AssertionError(
+                            f"tools: /render's PNG differs from "
+                            f"render_camera's image at downscale {down} in "
+                            f"{int((img != want).any(-1).sum())} pixels")
+            times = []
+            for _ in range(TOOLS_REQUESTS):
+                _, _, dt = counted(lambda: _http(base + "/render",
+                                                 {**req, **size}))
+                times.append(dt)
+            stats["viewer_s_per_request"][f"{w // down}x{h // down}"] = \
+                _mean(times)
+        doc = json.loads(_http(base + "/camera_path", {
+            "keyframes": [cams.camera_to_worlds[0].tolist(),
+                          cams.camera_to_worlds[len(cams) // 4].tolist()],
+            "width": 320, "height": 240, "fps": 24, "seconds": 1.0}))
+        path_cams = cameras_from_camera_path(doc)
+        if (path_cams.camera_to_worlds.shape != (24, 3, 4)
+                or not np.allclose(path_cams.camera_to_worlds[0],
+                                   cams.camera_to_worlds[0], atol=1e-5)):
+            raise AssertionError("tools: the camera path did not read back")
+    finally:
+        server.shutdown()
+    log(f"[tools] viewer: the PNGs of /render equal render_camera's "
+        f"images; s/request {json.dumps(stats['viewer_s_per_request'])}; "
+        f"a camera path of 24 frames read back")
+
+    # ---- a live Trainer with the viewer ----
+    cfg = get_method("gf-nerf-perf")
+    for key, value in {**PIPELINE_OVERRIDES,
+                       "max_num_iterations": str(PIPELINE_STEPS
+                                                 + TOOLS_LIVE_STEPS),
+                       "output_dir": str(tmp / "tools_out"),
+                       "load_dir": str(run / "nerfstudio_models"),
+                       "vis": "viewer", "viewer_port": "0",
+                       "steps_per_log": "1"}.items():
+        apply_override(cfg, key, value)
+    cfg.data = tmp / "scene"
+    trainer = Trainer(cfg, build_dataparser("minimal", cfg.data))
+    trainer.setup()
+    tp = trainer.pipeline
+    steps, busy, overlaps = [], {"step": False, "render": False}, [0]
+    step_fn, render_fn = tp.get_train_loss_dict, tp.render_camera
+
+    def step_w(step):
+        busy["step"] = True
+        overlaps[0] += busy["render"]
+        try:
+            return step_fn(step)
+        finally:
+            steps.append(step)
+            busy["step"] = False
+
+    def render_w(*args, **kw):
+        busy["render"] = True
+        overlaps[0] += busy["step"]
+        try:
+            return render_fn(*args, **kw)
+        finally:
+            busy["render"] = False
+
+    tp.get_train_loss_dict, tp.render_camera = step_w, render_w
+    live = f"http://127.0.0.1:{trainer.viewer.port}"
+    small = {**req, "downscale": TOOLS_DOWNSCALE}
+    rec = {}
+
+    def wait_steps(n):
+        t0 = time.perf_counter()
+        while len(steps) < n:
+            if time.perf_counter() - t0 > 300:
+                raise AssertionError(f"tools: {len(steps)} live steps")
+            time.sleep(0.002)
+
+    def drive():
+        thread = threading.Thread(target=trainer.train, daemon=True)
+        thread.start()
+        try:
+            wait_steps(2)
+            _http(live + "/control", {"action": "pause"})
+            time.sleep(0.3)                       # the step in flight ends
+            rec["paused_at"] = len(steps)
+            rec["paused_status"] = json.loads(_http(live + "/status"))
+            time.sleep(1.0)
+            rec["after_1s"] = len(steps)
+            rec["paused_png"] = decode_png(_http(live + "/render", small))
+            _http(live + "/control", {"action": "resume"})
+            wait_steps(rec["paused_at"] + 1)
+            rec["resumed_at"] = len(steps)
+            rec["live_png"] = decode_png(_http(live + "/render", small))
+            rec["live_out"] = trainer.viewer.render_outputs(small)
+            _http(live + "/control", {"action": "stop"})
+            thread.join(timeout=300)
+            if thread.is_alive():
+                raise AssertionError("tools: the live Trainer did not stop")
+            rec["status"] = json.loads(_http(live + "/status"))
+        finally:
+            trainer.viewer.shutdown()
+
+    _, got, live_s = counted(drive)
+    ckpts = sorted(c.name for c in trainer.checkpoint_dir.glob("step-*"))
+    st = rec["status"]
+    log(f"[tools] live: steps {steps}; paused after {rec['paused_at']} "
+        f"steps, {rec['after_1s']} after 1 s; resumed to "
+        f"{rec['resumed_at']}; stopped after {len(steps)}, checkpoint "
+        f"{ckpts}; /status step {st.get('step')} loss {st.get('loss')} "
+        f"rays/s {st.get('rays_per_sec')}; renders inside a step: "
+        f"{overlaps[0]}; {live_s:.2f}s; launches {got}")
+    finite = all(bool(np.isfinite(v).all()) for v in rec["live_out"].values())
+    if (rec["after_1s"] != rec["paused_at"]
+            or not rec["paused_status"]["paused"]
+            or rec["resumed_at"] <= rec["paused_at"]
+            or steps != list(range(PIPELINE_STEPS, PIPELINE_STEPS
+                                   + len(steps)))
+            or len(steps) >= TOOLS_LIVE_STEPS
+            or ckpts != [f"step-{steps[-1]:09d}"]
+            or st.get("step") != steps[-1] or not np.isfinite(st["loss"])
+            or not st["stopping"] or overlaps[0] or not finite
+            or rec["live_png"].shape != (h // TOOLS_DOWNSCALE,
+                                         w // TOOLS_DOWNSCALE, 3)
+            or got["composite_bwd"] != len(steps)):
+        raise AssertionError("tools: the live viewer's checks")
+    stats.update(
+        eval_setup_s=setup_s, points=len(pts), plain_points=n_plain,
+        point_depth_err=worst, mesh_vertices=len(verts),
+        mesh_faces=len(faces), tsdf_vertices=len(tsdf),
+        atlas=list(tex.shape), live_s=live_s, live_steps=len(steps),
+        point_sphere_dist_median=float(np.median(pc_dist)),
+        tsdf_sphere_dist_median=float(np.median(tsdf_dist)),
+        phase_s=time.perf_counter() - t_phase)
+    log(f"[tools] the phase in {stats['phase_s']:.1f}s")
+    return total, stats
+
+
 def main() -> int:
     if not (REPO / "gfnerf_tpu_torch").is_dir():
         print("chip_smoke: gfnerf_tpu_torch/ not found beside this script",
@@ -7230,7 +7755,10 @@ def main() -> int:
         clock("nerfplayer")
         torch.cuda.empty_cache()
         paths["captures"], stats["captures"] = phase_captures(Path(tmp))
-    clock("captures")
+        clock("captures")
+        torch.cuda.empty_cache()
+        paths["tools"], stats["tools"] = phase_tools(Path(tmp))
+    clock("tools")
     fast, scan = stats["pipeline"], stats["scan"]
     log(f"[scan] gf-nerf-perf through the Trainer, the scan (M1) against "
         f"the fast march on the same scene and schedule: "
@@ -7321,9 +7849,9 @@ def main() -> int:
 def main_only(names) -> int:
     """``--only pipeline,nerfacto,...``: the device and the build, then the
     named phases of the temp-dir family (pipeline, gfnerf, prop, nerfacto,
-    semantics, instant-ngp, scan, stock, nerfplayer, captures,
-    capture-variants; nerfacto
-    and semantics need the pipeline phase's scene and checkpoint,
+    semantics, instant-ngp, scan, stock, nerfplayer, captures, tools,
+    capture-variants; nerfacto, semantics and tools need the pipeline
+    phase's scene and checkpoint,
     instant-ngp, nerfplayer and captures write their own scenes, scan and
     stock write theirs
     when the pipeline and instant-ngp phases did not run) in one temp dir,
@@ -7341,7 +7869,8 @@ def main_only(names) -> int:
               "instant-ngp": phase_instant_ngp, "scan": phase_scan,
               "stock": phase_stock, "nerfplayer": phase_nerfplayer,
               "captures": phase_captures,
-              "capture-variants": phase_capture_variants}
+              "capture-variants": phase_capture_variants,
+              "tools": phase_tools}
     unknown = set(names) - set(phases)
     if unknown:
         print(f"chip_smoke: unknown phases {sorted(unknown)}",

@@ -6,7 +6,11 @@ the train loop with the pipeline's after-iteration callbacks, the periodic
 eval, and checkpoints in ``step-{:09d}`` directories pruned to the latest.
 The run's config is written as ``config.json``.  The pipeline is either
 kind the config names: GF-NeRF's or the vanilla one (which has no eval ray
-batch).  The viewer and its pause/stop control are not ported.
+batch).  With ``vis`` "viewer" the web viewer serves renders and the
+training controls (pause, resume, stop and save) from its own threads
+while the loop trains; each step and each render hold one lock, because
+the optimizer updates the tables in place.  Eval images of depth and
+accumulation go to the writer colormapped.
 """
 
 from __future__ import annotations
@@ -14,15 +18,19 @@ from __future__ import annotations
 import dataclasses
 import os
 import shutil
+import threading
 import time
 from pathlib import Path
 from typing import Optional
 
 from gfnerf_tpu_torch.configs.config_io import config_to_json
 from gfnerf_tpu_torch.pipelines.pipeline import GFNerfPipelineConfig
+from gfnerf_tpu_torch.utils.colormaps import (apply_colormap,
+                                              apply_depth_colormap)
 from gfnerf_tpu_torch.utils.writer import (ETA, ITER_TRAIN_TIME,
                                            TRAIN_RAYS_PER_SEC, EventWriter,
                                            TimeWriter)
+from gfnerf_tpu_torch.viewer.server import TrainControl, ViewerServer
 
 
 @dataclasses.dataclass
@@ -39,7 +47,8 @@ class TrainerConfig:
     save_only_latest_checkpoint: bool = True
     load_dir: Optional[Path] = None
     load_step: Optional[int] = None
-    vis: str = "local"
+    vis: str = "local"           # "local" or "viewer"
+    viewer_port: int = 7007
     data: Optional[Path] = None
     device: str = "cuda"
     # GFNerfPipelineConfig or VanillaPipelineConfig
@@ -59,6 +68,11 @@ class Trainer:
         self.config = config
         self.dataparser = dataparser
         self._start_step = 0
+        # the viewer's pause/stop state, and the lock that a train step and
+        # a render each hold
+        self.control = TrainControl()
+        self.lock = threading.Lock()
+        self.viewer = None
 
     def setup(self, test_mode: str = "train"):
         """``test_mode`` other than "train" (eval and render from a run's
@@ -82,6 +96,13 @@ class Trainer:
             self._start_step = step + 1
             print(f"[trainer] resumed from {ckpt_dir} at step "
                   f"{self._start_step}")
+        if "viewer" in cfg.vis and test_mode == "train":
+            self.viewer = ViewerServer(
+                self.pipeline, port=cfg.viewer_port, save_dir=self.base_dir,
+                control=self.control, lock=self.lock).start()
+            print(f"[trainer] viewer: http://{self.viewer.host}:"
+                  f"{self.viewer.port} (renders and training controls "
+                  "while training)", flush=True)
 
     def train(self):
         cfg = self.config
@@ -91,7 +112,14 @@ class Trainer:
                     else pcfg.train_num_rays_per_batch)
         t_start = time.perf_counter()
         for step in range(self._start_step, cfg.max_num_iterations):
-            with TimeWriter(None, ITER_TRAIN_TIME, step) as t:
+            # the viewer's training controls, between steps
+            self.control.wait_if_paused()
+            if self.control.stop:
+                print(f"[trainer] stop requested from the viewer at step "
+                      f"{step}")
+                self.save_checkpoint(step - 1 if step > 0 else 0)
+                return
+            with self.lock, TimeWriter(None, ITER_TRAIN_TIME, step) as t:
                 metrics = self.pipeline.get_train_loss_dict(step)
                 self.pipeline.after_train_iteration(step)
             if step % cfg.steps_per_log == 0:
@@ -104,6 +132,10 @@ class Trainer:
                 self.writer.put_scalar(ETA, elapsed / frac - elapsed, step)
                 self.writer.put_dict(metrics, step)
                 self.writer.flush(step)
+                self.control.publish(
+                    step=step, rays_per_sec=num_rays / t.duration,
+                    **{k: v for k, v in metrics.items()
+                       if k in ("loss", "psnr")})
             self.eval_iteration(step)
             if (step + 1) % cfg.steps_per_save == 0:
                 self.save_checkpoint(step)
@@ -125,6 +157,11 @@ class Trainer:
             self.writer.put_dict(
                 {f"Eval Images/{k}": v for k, v in metrics.items()}, step)
             for name, img in images.items():
+                if name == "depth":
+                    img = apply_depth_colormap(
+                        img, images.get("accumulation"))
+                elif name == "accumulation":
+                    img = apply_colormap(img)
                 self.writer.put_image(f"Eval Images/{name}", img, step)
 
     def save_checkpoint(self, step: int):

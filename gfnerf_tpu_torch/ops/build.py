@@ -9,6 +9,8 @@ call) and is redone when a source or a header changes: a stamp file beside
 the library records the hash of every ``csrc/*.cu`` and ``csrc/*.cuh`` and
 of the flags.  Each C entry point launches on the stream it is given and
 returns ``cudaGetLastError()``; :func:`check` raises if that is not 0.
+Building and loading hold one lock, so that two threads that launch their
+first kernel at once (the trainer's and the viewer's) build once.
 """
 
 from __future__ import annotations
@@ -19,6 +21,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 
@@ -82,12 +85,21 @@ def _nvcc() -> str:
                        "toolkit to build")
 
 
+# held while the library is built or loaded (re-entered by library())
+_LOCK = threading.RLock()
+
+
 def build_library(verbose: bool = False) -> dict:
     """Compile csrc/*.cu into LIB_PATH unless the stamp says it is current.
 
     Returns {"built": bool, "seconds": float, "log": str}; with ``verbose``
     nvcc also prints each kernel's registers and spills (-Xptxas -v).
     """
+    with _LOCK:
+        return _build_library(verbose)
+
+
+def _build_library(verbose: bool) -> dict:
     digest = _source_hash()
     stamp = BUILD_DIR / "libgfnerf_kernels.stamp"
     if (LIB_PATH.exists() and stamp.exists()
@@ -130,13 +142,18 @@ def build_library(verbose: bool = False) -> dict:
             obj.unlink(missing_ok=True)
     seconds = time.perf_counter() - t0
     stamp.write_text(digest)
-    library.cache_clear()
+    _load.cache_clear()
     return {"built": True, "seconds": seconds, "log": "".join(log)}
 
 
-@functools.lru_cache(maxsize=1)
 def library() -> ctypes.CDLL:
     """The loaded kernel library, built first if missing or stale."""
+    with _LOCK:
+        return _load()
+
+
+@functools.lru_cache(maxsize=1)
+def _load() -> ctypes.CDLL:
     build_library()
     lib = ctypes.CDLL(str(LIB_PATH))
     for name, argtypes in SIGNATURES.items():

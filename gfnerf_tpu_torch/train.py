@@ -8,7 +8,7 @@ multi-host ones):
                      sdfstudio,phototourism,sitcoms3d,arkitscenes,nuscenes,
                      dycheck}] [--dataparser-scale-factor F]
       [--max-num-iterations N] [--output-dir DIR] [--experiment-name NAME]
-      [--load-dir DIR] [--vis local] [--device {cuda,cpu}]
+      [--load-dir DIR] [--vis {local,viewer}] [--device {cuda,cpu}]
       [a.b.c=value ...] [--a.b.c value ...]
 
 The default parser is ``minimal`` (the JAX script's is ``nerfstudio``).
@@ -74,7 +74,10 @@ def build_trainer(argv=None):
     parser.add_argument("--output-dir", type=Path, default=Path("outputs"))
     parser.add_argument("--experiment-name", default=None)
     parser.add_argument("--max-num-iterations", type=int, default=None)
-    parser.add_argument("--vis", default="local", choices=["local"])
+    parser.add_argument("--vis", default="local",
+                        choices=["local", "viewer"],
+                        help="viewer: serve the web viewer while training, "
+                             "on viewer_port (an override, default 7007)")
     parser.add_argument("--load-dir", type=Path, default=None)
     parser.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
     args, extra = parser.parse_known_args(argv)

@@ -10,7 +10,8 @@ The JAX package reads images with ``imageio`` and resizes them with
   Adam7 interlacing raises.
 - :func:`write_png`: grey, grey and alpha, RGB and RGBA at 8 or 16 bits,
   palette images and 1/2/4-bit grey, each row under a filter type the
-  caller may choose.
+  caller may choose.  :func:`encode_png` and :func:`decode_png` do the
+  same in memory (the viewer's ``/render`` answers with PNG bytes).
 - :func:`png_size`: (width, height) from the IHDR chunk;
   :func:`jpeg_size`: from a JPEG's start-of-frame segment;
   :func:`image_size`: either, else the decoded image's.
@@ -180,7 +181,13 @@ def read_png(path) -> np.ndarray:
     W, 3) RGB or (H, W, 4) RGBA; uint16 at bit depth 16, else uint8.  Grey
     below 8 bits is scaled to 0-255; a palette image becomes RGB, or RGBA
     where a ``tRNS`` chunk gives the entries' alpha."""
-    chunks = _chunks(Path(path).read_bytes(), path)
+    return decode_png(Path(path).read_bytes(), path)
+
+
+def decode_png(data: bytes, path="<bytes>") -> np.ndarray:
+    """:func:`read_png` of a PNG file's bytes (``path`` names it in
+    errors)."""
+    chunks = _chunks(data, path)
     if not chunks or chunks[0][0] != b"IHDR":
         raise ValueError(f"{path}: no IHDR chunk first")
     w, h, depth, ctype = _ihdr(chunks[0][1], path)
@@ -242,7 +249,15 @@ def write_png(path, img: np.ndarray,
               filter_type: Union[int, Sequence[int]] = 0,
               palette: Optional[np.ndarray] = None,
               bit_depth: Optional[int] = None) -> None:
-    """Write ``img`` as a PNG.
+    """Write ``img`` as a PNG file (:func:`encode_png`'s bytes)."""
+    Path(path).write_bytes(encode_png(img, filter_type, palette, bit_depth))
+
+
+def encode_png(img: np.ndarray,
+               filter_type: Union[int, Sequence[int]] = 0,
+               palette: Optional[np.ndarray] = None,
+               bit_depth: Optional[int] = None) -> bytes:
+    """``img`` as the bytes of a PNG file.
 
     ``img``: (H, W) grey, (H, W, 2) grey and alpha, (H, W, 3) RGB or (H,
     W, 4) RGBA, uint8 (8 bits) or uint16 (16 bits).  With ``palette`` (N,
@@ -311,12 +326,12 @@ def write_png(path, img: np.ndarray,
         extra = chunk(b"PLTE", palette[:, :3].tobytes())
         if palette.shape[1] == 4:
             extra += chunk(b"tRNS", palette[:, 3].tobytes())
-    Path(path).write_bytes(
-        PNG_SIGNATURE
-        + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, depth, ctype, 0, 0, 0))
-        + extra
-        + chunk(b"IDAT", zlib.compress(rows.tobytes(), 6))
-        + chunk(b"IEND", b""))
+    return (PNG_SIGNATURE
+            + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, depth, ctype, 0,
+                                         0, 0))
+            + extra
+            + chunk(b"IDAT", zlib.compress(rows.tobytes(), 6))
+            + chunk(b"IEND", b""))
 
 
 def read_image(path) -> np.ndarray:

@@ -3,7 +3,8 @@
 Port of ``gfnerf_tpu/utils/writer.py`` (nerfstudio's ``writer.py``): a
 buffered event API (put_scalar / put_dict / put_image) flushed to the local
 terminal printer.  TensorBoard and W&B need packages the port does not
-depend on: ``vis`` other than "local" raises.
+depend on: ``vis`` other than "local" or "viewer" (the web viewer, which
+the Trainer starts; events still go to the terminal) raises.
 """
 
 from __future__ import annotations
@@ -41,10 +42,10 @@ class EventWriter:
     """Multiplexes events to the configured backends."""
 
     def __init__(self, vis: str = "local", steps_per_log: int = 10):
-        if vis != "local":
+        if vis not in ("local", "viewer"):
             raise NotImplementedError(
                 f"vis={vis!r} is not ported (TensorBoard and W&B); use "
-                "'local'")
+                "'local' or 'viewer'")
         self.backends: List = [LocalWriter(steps_per_log)]
 
     def put_scalar(self, name: str, value, step: int):

@@ -204,10 +204,10 @@ def _fields(obj, prefix=""):
 
 
 # the JAX config fields the port leaves out: mixed precision (the perf
-# methods' bf16 MLPs are the field's ``mlp_dtype``), the viewer, and the
-# multi-card focal stage's fields until it is ported
-JAX_ONLY_FIELDS = {"mixed_precision", "viewer_port",
-                   "pipeline.parallel_blocks", "pipeline.parallel_block_axis"}
+# methods' bf16 MLPs are the field's ``mlp_dtype``) and the multi-card
+# focal stage's fields until it is ported
+JAX_ONLY_FIELDS = {"mixed_precision", "pipeline.parallel_blocks",
+                   "pipeline.parallel_block_axis"}
 
 
 @pytest.mark.parametrize("method", ["gf-nerf", "gf-nerf-tiny",
