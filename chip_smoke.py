@@ -275,6 +275,28 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
                 camera path read back; a Trainer with vis viewer resumed
                 for up to 12 steps: pause, resume, a render while training,
                 stop and its checkpoint, /status (see phase_tools).
+ 22. parallel — gf-nerf-perf over 4 ranks, launched as
+                torch.distributed.run launches gfnerf_tpu_torch.train
+                (spawned processes, each through train.build_trainer),
+                with parallel_blocks on a (data 2, block 2) grid: under
+                gloo on one card and, where the machine has 4 cards, under
+                NCCL with a card per rank.  At the initial state one
+                data-parallel init step against one process on the union
+                batch (gradients within 1e-5 of each group's largest, the
+                loss to 1e-5 relative); then the Trainer's 8 init steps
+                (a milestone rebuild at 4), the transition (the error-map
+                renders split over the ranks), 5 phases x 2 steps of the
+                rotation; after every step the digests of the frozen
+                tensors, the octree and the error maps equal on every
+                rank, each block table on its group's data ranks, every
+                table on every rank after each sync; each phase moves
+                exactly blocks {p, p + 5}; per rank and step K1, K2 and H2
+                once, H1 once at init and twice at the focal stage; rank
+                0's checkpoint loaded into a one-card Trainer (the ranks'
+                final state bit for bit), resumed 2 steps, an eval image
+                beside its mean image's PSNR; s/step at world 4 against one
+                process, peak memory per rank, the backend (see
+                phase_parallel).
 Each phase ends with a [clock] line.  Before the last line come a JSON
 object with each kernel's launches, error, times and bound (K1, K2, H1 and
 H2 also at the prop phase's shapes, under "prop"; H4 and H5 at nerfacto's
@@ -290,8 +312,8 @@ card's name and power limit; the last line is
 Run from the repository root:  python3 chip_smoke.py
 To work on one phase of the pipeline family (pipeline, gfnerf, prop,
 nerfacto, semantics, instant-ngp, scan, stock, nerfplayer, captures,
-tools; nerfacto, semantics and tools read the pipeline phase's scene and
-checkpoint),
+tools, parallel; nerfacto, semantics and tools read the pipeline phase's
+scene and checkpoint),
 or to train the captures phase's capture once a variant
 (capture-variants: reported, not checked):
 python3 chip_smoke.py --only pipeline,nerfacto,semantics
@@ -300,6 +322,7 @@ python3 chip_smoke.py --only nerfplayer
 python3 chip_smoke.py --only captures
 python3 chip_smoke.py --only capture-variants
 python3 chip_smoke.py --only pipeline,tools
+python3 chip_smoke.py --only parallel
 Either form takes ``--coverage-case PATH`` last: the scan phase then writes
 the octree and rays of its coverage check there, for
 ``python tests/torch_parity.py scan-coverage PATH`` (the JAX package's
@@ -7673,6 +7696,575 @@ def phase_tools(tmp: Path):
     return total, stats
 
 
+# gf-nerf-perf over 4 ranks, the concurrent focal stage on a (data 2,
+# block 2) grid: at its width (8192 rays a batch, a block group's at the
+# focal stage; S = 160; 10 blocks), on the pipeline phase's 48-view scene.
+# Cut: 8 init steps (the config's 30 k) with a milestone rebuild at 4
+# (2000) and the fineness anneal over 8 steps (10 k), then 2 steps a phase
+# (10 k): the first focal step data-parallel on block 0 (the transition
+# runs after it), then 5 phases of the rotation, phase p training blocks
+# {p, p + 5}; an eval image and the checkpoint at 17.  The octree is the
+# bench's (octree_bench.BENCH_TREE), to keep rank 0's build short.
+PARALLEL_WORLD = 4
+PARALLEL_INIT_STEPS = 8
+PARALLEL_STEPS = PARALLEL_INIT_STEPS + 10
+PARALLEL_OVERRIDES = {
+    **{f"pipeline.{part}.{key}": value
+       for part in ("model", "datamanager", "optimizers")
+       for key, value in (("steps_perssampler_init",
+                           str(PARALLEL_INIT_STEPS)),
+                          ("steps_per_split_dataset", "2"))},
+    "pipeline.sampler.sub_div_milestones": "4",
+    "pipeline.sampler.ray_march_fineness_decay_end_iter": "8",
+    "steps_per_eval_batch": "100000",
+    "steps_per_eval_image": str(PARALLEL_STEPS),
+    "steps_per_save": str(PARALLEL_STEPS),
+    "steps_per_log": "100",
+    **CAPTURE_TREES["bench"],
+}
+# seconds a collective or the rendezvous may wait (rank 0's octree build,
+# the checks at a barrier), and the ranks' whole run
+PARALLEL_GROUP_TIMEOUT = 300.0
+PARALLEL_JOIN_S = 600.0
+# the all-reduced gradient against the one-process step on the union
+# batch: the table's (H2's f32 sums, taken in another order) within this
+# of its largest entry (the smoke's kernel limit), the loss relative
+PARALLEL_GRAD_TOL = 1e-5
+PARALLEL_LOSS_RTOL = 1e-5
+# the bf16 MLPs' ("fields"): every weight-gradient product rounds to bf16,
+# so the sum of the 4 ranks' rounded products is up to 4 half-ulps of
+# theirs plus one of the one-process product's from that product: 2^-6 of
+# the largest entry (on an H100: one ulp at an entry of 0.1, 2.4e-3 of the
+# largest)
+PARALLEL_BF16_GRAD_TOL = 2.0 ** -6
+PARALLEL_TIMED_ONE = 3   # one-process init steps timed after the check
+
+
+def _rank_counts() -> dict:
+    from gfnerf_tpu_torch.fields.packed_hash import packed_hash_encode
+
+    return {**launch_counts(),
+            "packed_hash_bwd_calls": packed_hash_encode.bwd_calls}
+
+
+def parallel_digest(p) -> dict:
+    """Digests of a pipeline's state: "frozen" (the field's tensors but
+    the block tables, ``parallel_tensor_sums``), "octree" (the nodes,
+    their block indices and occupancy statistics), "maps" (a SHA-256 of every error map its caches hold) and
+    "blocks" (one per block table).  Equal states give equal digests."""
+    import hashlib
+
+    import numpy as np
+
+    dev = parallel_tensor_sums
+    state = p.field.state_dict()
+    blocks = state.pop("block_feats")
+    dm = p.datamanager
+    caches = [dm.init_cache, dm.split_cache] + [
+        v[2] for _, v in sorted(getattr(dm, "_parallel_splits", {}).items())]
+    h = hashlib.sha256()
+    for c in caches:
+        if c is not None and c.error_maps is not None:
+            h.update(np.ascontiguousarray(c.error_maps).tobytes())
+    return {"frozen": dev([v for _, v in sorted(state.items())]),
+            "octree": dev([getattr(p.sampler.oct_dev, k) for k in (
+                "centers", "side_lens", "childs", "trans_idx", "block_idx",
+                "weight_stats", "alpha_stats", "visit_cnt")]),
+            "maps": h.hexdigest(),
+            "blocks": [tuple(dev([b])) for b in blocks]}
+
+
+def parallel_grad_check(p, comm) -> dict:
+    """At the common initial state: one data-parallel init step (copies of
+    the field, this rank's slice of a batch of the config's rays, the
+    whole batch's noise and S3IM permutations from one seed) and, on rank
+    0, the one-process step on the whole batch; the all-reduced gradients
+    against the one-process ones, each within PARALLEL_GRAD_TOL of its
+    group's largest, the loss within PARALLEL_LOSS_RTOL.  Then rank 0 times
+    PARALLEL_TIMED_ONE one-process steps while the others wait."""
+    import copy
+
+    import numpy as np
+    import torch
+
+    from gfnerf_tpu_torch.data.pixel_samplers import PixelSampler
+    from gfnerf_tpu_torch.engine.optimizers import field_param_groups
+    from gfnerf_tpu_torch.fields.field import STAGE_INIT
+    from gfnerf_tpu_torch.model_components.losses import s3im_permutations
+    from gfnerf_tpu_torch.models.gfnerf import (init_train_state,
+                                                make_train_step)
+    from gfnerf_tpu_torch.parallel import make_dp_train_step
+
+    mcfg, scfg = p.config.model, p.sampler.sampler_config
+    rays = p.config.datamanager.train_num_rays_per_batch
+    batch = PixelSampler(rays, seed=1234).sample(p.datamanager.init_cache)
+    gen = torch.Generator(device=p.device).manual_seed(7)
+    noise = (torch.rand((rays, scfg.max_samples), generator=gen,
+                        device=p.device) - 0.5) + 1.0
+    perms = s3im_permutations(rays, mcfg.s3im_repeat_time, generator=gen,
+                              device=p.device)
+
+    def step(fn, rows):
+        field = copy.deepcopy(p.field)
+        state = init_train_state(field, p.tx)
+        dev_batch = p._device_batch({k: batch[k][rows] for k in (
+            "rel_camera_indices", "coords", "image")})
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        _, _, m, _ = fn(state, p.sampler.oct_dev, p.cameras_dev, dev_batch,
+                        1.0, noise=noise, s3im_perms=perms)
+        torch.cuda.synchronize()
+        grads = {k: [q.grad.detach().clone() for q in qs
+                     if q.grad is not None]
+                 for k, qs in field_param_groups(field).items()}
+        return float(m["loss"]), grads, time.perf_counter() - t
+
+    r = rays // comm.size
+    dp_loss, dp_grads, dp_s = step(
+        make_dp_train_step(mcfg, scfg, p.tx, comm, STAGE_INIT),
+        slice(comm.rank * r, (comm.rank + 1) * r))
+    out = {"dp_loss": dp_loss, "dp_s": dp_s, "grad_digest": [
+        dev_sum for g in sorted(dp_grads) for dev_sum in
+        parallel_tensor_sums(dp_grads[g])]}
+    if comm.rank == 0:
+        one = make_train_step(mcfg, scfg, p.tx, STAGE_INIT)
+        one_loss, one_grads, _ = step(one, slice(None))
+        errs = {}
+        for g, want in one_grads.items():
+            if not want:
+                continue
+            scale = max(float(x.abs().max()) for x in want)
+            worst = max(float((a - b).abs().max())
+                        for a, b in zip(dp_grads[g], want))
+            tol = (PARALLEL_BF16_GRAD_TOL if g == "fields"
+                   and p.field_cfg.mlp_dtype == "bfloat16"
+                   else PARALLEL_GRAD_TOL)
+            errs[g] = {"max_abs_err": worst, "largest": scale, "tol": tol}
+        bad = [g for g, e in errs.items()
+               if not (e["largest"] > 0
+                       and e["max_abs_err"] <= e["tol"] * e["largest"])]
+        if bad or abs(dp_loss - one_loss) > PARALLEL_LOSS_RTOL * abs(
+                one_loss):
+            raise AssertionError(f"parallel: the data-parallel step against "
+                                 f"one process: loss {dp_loss!r} vs "
+                                 f"{one_loss!r}, gradients {errs}")
+        out.update(one_loss=one_loss, grad_errs=errs,
+                   one_s=[step(one, slice(None))[2]
+                          for _ in range(PARALLEL_TIMED_ONE)])
+    comm.barrier()
+    return out
+
+
+def parallel_tensor_sums(ts) -> list:
+    """Two sums of each tensor's bits on the card (of its int32 view, or
+    its values widened where its elements are not 4 bytes): the sum and
+    the index-weighted sum; equal tensors give equal sums."""
+    import torch
+
+    sums = []
+    for t in ts:
+        t = t.detach().reshape(-1).contiguous()
+        x = (t.view(torch.int32) if t.element_size() == 4
+             else t.to(torch.int64)).long()
+        w = torch.arange(x.numel(), device=x.device) % 65521 + 1
+        sums += [x.sum(), (x * w).sum()]
+    return torch.stack(sums).tolist() if sums else []
+
+
+def parallel_rank(rank, world, port, out, backend, scene):
+    """One rank of the parallel phase, launched as ``torch.distributed.run``
+    launches ``gfnerf_tpu_torch.train`` (its environment, then
+    ``train.build_trainer``): the gradient check at the initial state,
+    then the Trainer's run, each step counted, timed and digested; writes
+    what it saw to OUT/rank{rank}.pt."""
+    import os
+
+    sys.path.insert(0, str(REPO))
+    os.environ.update(RANK=str(rank), WORLD_SIZE=str(world),
+                      LOCAL_RANK=str(rank), LOCAL_WORLD_SIZE=str(world),
+                      MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port))
+    import torch
+
+    from gfnerf_tpu_torch.parallel import comm as pcomm
+    from gfnerf_tpu_torch.train import build_trainer
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    argv = ["gf-nerf-perf", "--data", scene, "--output-dir",
+            str(Path(out) / "runs"), "--experiment-name", "parallel",
+            "--parallel-blocks", "--dist-backend", backend,
+            "--dist-timeout", str(PARALLEL_GROUP_TIMEOUT),
+            "--max-num-iterations", str(PARALLEL_STEPS),
+            *[f"{k}={v}" for k, v in PARALLEL_OVERRIDES.items()]]
+    try:
+        t0 = time.perf_counter()
+        trainer = build_trainer(argv)
+        p, comm = trainer.pipeline, trainer.comm
+        rec = {"setup_s": time.perf_counter() - t0, "backend": comm.backend,
+               "device": torch.cuda.current_device(),
+               "coords": p.grid.coords(comm.rank),
+               "n_block_axis": p.n_block_axis,
+               "grad_check": parallel_grad_check(p, comm),
+               "steps": {}, "digests": {}, "syncs": []}
+        get_loss, after = p.get_train_loss_dict, p.after_train_iteration
+        sync = p.sync_block_tables
+
+        def get_loss_w(step):
+            before = _rank_counts()
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            m = get_loss(step)
+            torch.cuda.synchronize()
+            now = _rank_counts()
+            rec["steps"][step] = {
+                "s": time.perf_counter() - t, "metrics": m,
+                "launches": {k: now[k] - before[k] for k in now},
+                "nodes": p.sampler.tree.n_nodes}
+            return m
+
+        def after_w(step):
+            t = time.perf_counter()
+            after(step)
+            rec["steps"][step]["after_s"] = time.perf_counter() - t
+            rec["digests"][step] = parallel_digest(p)
+
+        def sync_w():
+            sync()
+            rec["syncs"].append((max(rec["steps"], default=-1),
+                                 parallel_digest(p)["blocks"]))
+
+        # each collective timed (the card synchronised around it): seconds
+        # and bytes a step
+        coll = {"s": 0.0, "bytes": 0}
+        groups = [comm] + ([p._data_comm] if p._parallel else [])
+        for c in groups:
+            for name in ("all_reduce", "all_gather", "broadcast"):
+                def timed(*a, _fn=getattr(c, name), **k):
+                    torch.cuda.synchronize()
+                    t = time.perf_counter()
+                    out = _fn(*a, **k)
+                    torch.cuda.synchronize()
+                    coll["s"] += time.perf_counter() - t
+                    coll["bytes"] += a[0].numel() * a[0].element_size()
+                    return out
+                setattr(c, name, timed)
+
+        def get_loss_c(step):
+            coll.update(s=0.0, bytes=0)
+            m = get_loss_w(step)
+            rec["steps"][step].update(coll_s=coll["s"],
+                                      coll_bytes=coll["bytes"])
+            return m
+
+        p.get_train_loss_dict, p.after_train_iteration = get_loss_c, after_w
+        p.sync_block_tables = sync_w
+        reset_launch_counts()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        trainer.train()
+        torch.cuda.synchronize()
+        rec.update(train_s=time.perf_counter() - t0,
+                   launches=launch_counts(),
+                   peak_bytes=torch.cuda.max_memory_allocated(),
+                   base_dir=str(trainer.base_dir),
+                   labels=p.sampler.cameras_labels.tolist(),
+                   end=parallel_digest(p))
+        torch.save(rec, Path(out) / f"rank{rank}.pt")
+    except BaseException:
+        # the parent reports the first rank to fail, often one that lost
+        # its peer: each rank logs its own error
+        import traceback
+
+        log(f"[parallel] rank {rank} failed:\n{traceback.format_exc()}")
+        raise
+    finally:
+        pcomm.shutdown()
+
+
+def run_parallel_ranks(out: Path, scene: Path, backend: str) -> list:
+    """PARALLEL_WORLD spawned ranks under ``backend``; their records."""
+    import socket
+
+    import torch
+    import torch.multiprocessing as mp
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    out.mkdir(parents=True, exist_ok=True)
+    ctx = mp.start_processes(
+        parallel_rank, args=(PARALLEL_WORLD, port, str(out), backend,
+                             str(scene)),
+        nprocs=PARALLEL_WORLD, join=False, start_method="spawn")
+    deadline = time.monotonic() + PARALLEL_JOIN_S
+    while not ctx.join(timeout=max(deadline - time.monotonic(), 0.0)):
+        if time.monotonic() >= deadline:
+            for proc in ctx.processes:
+                proc.kill()
+            raise TimeoutError(f"parallel: {PARALLEL_WORLD} ranks under "
+                               f"{backend} outlasted {PARALLEL_JOIN_S} s")
+    return [torch.load(out / f"rank{k}.pt", weights_only=False)
+            for k in range(PARALLEL_WORLD)]
+
+
+def check_parallel_ranks(ranks: list, backend: str, table_grad_calls: int
+                         ) -> dict:
+    """The checks of one run of the ranks (see phase_parallel); returns its
+    figures."""
+    import numpy as np
+
+    tag = f"[parallel {backend}]"
+    steps = range(PARALLEL_STEPS)
+    rank0 = ranks[0]
+    if rank0["n_block_axis"] != 2 or sorted(
+            rk["coords"] for rk in ranks) != [(0, 0), (0, 1), (1, 0),
+                                              (1, 1)]:
+        raise AssertionError(f"{tag} grid {[rk['coords'] for rk in ranks]}")
+    # the gradient check
+    gc = rank0["grad_check"]
+    if len({tuple(rk["grad_check"]["grad_digest"]) for rk in ranks}) != 1:
+        raise AssertionError(f"{tag} the all-reduced gradients differ "
+                             "between ranks")
+    log(f"{tag} one data-parallel init step against one process on the "
+        f"union batch (8192 rays): loss {gc['dp_loss']!r} vs "
+        f"{gc['one_loss']!r}; gradients, max abs error / largest entry: "
+        + ", ".join(f"{g} {e['max_abs_err']:.3g} / {e['largest']:.3g} "
+                    f"(limit {e['tol']} of the largest)"
+                    for g, e in gc["grad_errs"].items())
+        + "; the all-reduced gradients bit-identical on every rank")
+    # digests after every step: the frozen tensors, the octree and the
+    # error maps on every rank; each table on its group's data ranks
+    for step in steps:
+        ds = [rk["digests"][step] for rk in ranks]
+        for key in ("frozen", "octree", "maps"):
+            if len({json.dumps(d[key]) for d in ds}) != 1:
+                raise AssertionError(f"{tag} step {step}: {key} differs "
+                                     "between ranks")
+        for g in range(2):
+            mates = [d["blocks"] for rk, d in zip(ranks, ds)
+                     if rk["coords"][1] == g]
+            if mates[0] != mates[1]:
+                raise AssertionError(f"{tag} step {step}: group {g}'s "
+                                     "data ranks differ")
+        if step < PARALLEL_INIT_STEPS + 1 and len(
+                {json.dumps(d["blocks"]) for d in ds}) != 1:
+            raise AssertionError(f"{tag} step {step}: tables differ")
+    syncs = [rk["syncs"] for rk in ranks]
+    if any(s != syncs[0] for s in syncs[1:]):
+        raise AssertionError(f"{tag} the synced tables differ")
+    first = PARALLEL_INIT_STEPS
+    want_at = [first] + [first + 1 + 2 * k for k in range(4)] + [
+        PARALLEL_STEPS - 1]
+    at = [s for s, _ in syncs[0]]
+    # a sync at each phase's first concurrent step, then the eval's and
+    # the checkpoint's (nothing new to send)
+    if at[:len(want_at)] != want_at:
+        raise AssertionError(f"{tag} syncs after steps {at}")
+    marks = [(first - 1, rank0["digests"][first - 1]["blocks"])] + \
+        syncs[0][1:len(want_at)]
+    moved = [[b for b in range(10) if x[b] != y[b]]
+             for (_, x), (_, y) in zip(marks, marks[1:])]
+    log(f"{tag} blocks moved in each phase: {moved}")
+    if moved != [[p, p + 5] for p in range(5)]:
+        raise AssertionError(f"{tag} blocks moved by phase {moved}")
+    # from the last init step (the octree: from the transition, which
+    # uploads the block indices) to the end
+    frozen = [s for s in range(first, PARALLEL_STEPS)
+              if rank0["digests"][s]["frozen"]
+              != rank0["digests"][first - 1]["frozen"]]
+    octree = [s for s in range(first + 1, PARALLEL_STEPS)
+              if rank0["digests"][s]["octree"]
+              != rank0["digests"][first]["octree"]]
+    if frozen or octree:
+        raise AssertionError(f"{tag} at the focal stage the frozen "
+                             f"parameters moved at steps {frozen}, the "
+                             f"octree at {octree}")
+    # launches a step, on every rank
+    per_step = {}
+    for rk in ranks:
+        for s in steps:
+            got = rk["steps"][s]["launches"]
+            focal = s >= first
+            want = {"composite_fwd": 1, "composite_bwd": 1,
+                    "packed_hash_fwd": 2 if focal else 1,
+                    "packed_hash_bwd": table_grad_calls,
+                    "packed_hash_bwd_calls": 1}
+            want = {k: want.get(k, 0) for k in got}
+            if got != want:
+                raise AssertionError(f"{tag} rank {rk['coords']} step {s}: "
+                                     f"launches {got}, expected {want}")
+            per_step[("focal" if focal else "init")] = got
+    log(f"{tag} launches a step on each rank: {per_step}")
+    losses = [rank0["steps"][s]["metrics"]["loss"] for s in steps]
+    if not np.all(np.isfinite(losses)):
+        raise AssertionError(f"{tag} losses {losses}")
+    for s in range(first + 1, PARALLEL_STEPS):
+        m = rank0["steps"][s]["metrics"]
+        p = (s - first) // 2
+        if not {f"block_{p}_loss", f"block_{p + 5}_loss"} <= set(m):
+            raise AssertionError(f"{tag} step {s} metrics {sorted(m)}")
+    log(f"{tag} losses {[round(x, 5) for x in losses]}")
+    nodes = [rank0["steps"][s]["nodes"] for s in steps]
+    grown = [s for s in range(1, first) if nodes[s] != nodes[s - 1]]
+    log(f"{tag} octree nodes after each step {nodes}; camera clusters "
+        f"{np.bincount(rank0['labels'], minlength=10).tolist()}")
+    if grown != [4] or len(set(map(tuple, (rk["labels"]
+                                             for rk in ranks)))) != 1:
+        raise AssertionError(f"{tag} the milestone rebuild changed the "
+                             f"tree at {grown}; or the labels differ")
+    init = [s for s in range(2, first) if s != 4]
+    focal = range(first + 2, PARALLEL_STEPS)
+    init_s = [rank0["steps"][s]["s"] for s in init]
+    focal_s = [rank0["steps"][s]["s"] for s in focal]
+    coll = {stage: {"s": _mean([rank0["steps"][s]["coll_s"] for s in ss]),
+                    "bytes": _mean([rank0["steps"][s]["coll_bytes"]
+                                    for s in ss])}
+            for stage, ss in (("init", init), ("focal", focal))}
+    log(f"{tag} rank 0's time in collectives a step (the card "
+        f"synchronised around each; the wait for the other ranks "
+        f"included): init {coll['init']['s']:.4f} s for "
+        f"{coll['init']['bytes'] / 2**20:.2f} MiB, focal "
+        f"{coll['focal']['s']:.4f} s for "
+        f"{coll['focal']['bytes'] / 2**20:.2f} MiB")
+    return {"backend": backend, "setup_s": rank0["setup_s"],
+            "collectives_per_step": coll,
+            "train_s": rank0["train_s"],
+            "init_s_per_step": _mean(init_s),
+            "focal_s_per_step": _mean(focal_s),
+            "one_process_init_s_per_step": _mean(gc["one_s"]),
+            "transition_s": rank0["steps"][first]["after_s"],
+            "peak_bytes": [rk["peak_bytes"] for rk in ranks],
+            "devices": [rk["device"] for rk in ranks],
+            "grad_errs": gc["grad_errs"],
+            "loss_vs_one": [gc["dp_loss"], gc["one_loss"]],
+            "launches": {k: sum(rk["launches"][k] for rk in ranks)
+                         for k in rank0["launches"]}}
+
+
+def phase_parallel(tmp: Path):
+    """gf-nerf-perf over 4 ranks with ``parallel_blocks`` (data 2 x block 2)
+    through the Trainer, launched as ``torch.distributed.run`` would: under
+    gloo on one card and, where the machine has 4 cards, under NCCL with a
+    card per rank.  Checked: at the initial state one data-parallel init
+    step against one process on the union batch (the all-reduced
+    gradients within PARALLEL_GRAD_TOL of each group's largest, the loss
+    within PARALLEL_LOSS_RTOL; the all-reduced gradients bit-identical on
+    every rank); after every step the frozen tensors, the octree and the
+    error maps equal on every rank, each table on its group's data ranks,
+    every table on every rank after each sync; in each phase exactly
+    blocks {p, p + 5} move, the frozen parameters and the octree not; per
+    rank and step K1, K2 and H2 (one call) once, H1 once at init and twice
+    at the focal stage; rank 0's checkpoint, loaded into a one-card
+    Trainer, equal to the ranks' final state, resumed for 2 steps and
+    evaluated.  Printed: s/step at world 4 against one process, peak
+    memory per rank, the backend."""
+    from types import SimpleNamespace
+
+    import numpy as np
+    import torch
+
+    from gfnerf_tpu_torch.configs.config_io import apply_override
+    from gfnerf_tpu_torch.configs.method_configs import get_method
+    from gfnerf_tpu_torch.data.dataparsers import build_dataparser
+    from gfnerf_tpu_torch.engine.trainer import Trainer
+    from gfnerf_tpu_torch.utils.synthetic import make_synthetic_npz
+
+    t_phase = time.perf_counter()
+    scene = tmp / "scene"
+    if not (scene / "train.npz").exists():
+        make_synthetic_npz(scene, n_train=48, n_val=4, img_wh=(96, 72))
+    torch.cuda.empty_cache()
+    cards = torch.cuda.device_count()
+    backends = ["gloo"] + (["nccl"] if cards >= PARALLEL_WORLD else [])
+    if "nccl" not in backends:
+        log(f"[parallel] NCCL: not run ({cards} card(s); it needs a card "
+            f"per rank)")
+    fields = get_method("gf-nerf-perf").pipeline
+    stats, launches = {}, None
+    for backend in backends:
+        t0 = time.perf_counter()
+        ranks = run_parallel_ranks(tmp / f"parallel_{backend}", scene,
+                                   backend)
+        wall = time.perf_counter() - t0
+        st = check_parallel_ranks(ranks, backend, table_grad_launches(
+            {"fcfg": SimpleNamespace(num_levels=fields.field_num_levels,
+                                     features_per_level=(
+                                         fields.field_features_per_level))}))
+        st["ranks_wall_s"] = wall
+        got = st.pop("launches")
+        launches = got if launches is None else {
+            k: launches[k] + got[k] for k in launches}
+        log(f"[parallel {backend}] {PARALLEL_WORLD} ranks on cards "
+            f"{st['devices']}: setup {st['setup_s']:.2f}s, the Trainer's "
+            f"{PARALLEL_STEPS} steps {st['train_s']:.2f}s; "
+            f"{st['init_s_per_step']:.4f} s/init step at world 4 against "
+            f"{st['one_process_init_s_per_step']:.4f} for one process on "
+            f"the same card and batch; {st['focal_s_per_step']:.4f} s a "
+            f"concurrent focal step (2 blocks, 8192 rays each); the "
+            f"transition {st['transition_s']:.2f}s; peak memory per rank "
+            f"{[round(b / 2**30, 3) for b in st['peak_bytes']]} GiB; the "
+            f"ranks' processes {wall:.1f}s in all")
+        stats[backend] = st
+        if backend == "gloo":
+            base = Path(ranks[0]["base_dir"])
+            final = ranks[0]["end"]
+
+    # rank 0's checkpoint in a one-card Trainer: the ranks' final state,
+    # resumed for 2 steps, an eval image
+    cfg = get_method("gf-nerf-perf")
+    for key, value in {**PARALLEL_OVERRIDES,
+                       "max_num_iterations": str(PARALLEL_STEPS + 2),
+                       "load_dir": str(base / "nerfstudio_models")}.items():
+        apply_override(cfg, key, value)
+    cfg.data = scene
+    cfg.output_dir = base.parent.parent.parent
+    cfg.experiment_name = base.parent.parent.name
+    cfg.timestamp = base.name
+    trainer = Trainer(cfg, build_dataparser("minimal", scene))
+    trainer.setup()
+    p = trainer.pipeline
+    loaded = parallel_digest(p)
+    if (trainer._start_step != PARALLEL_STEPS or p.comm is not None
+            or loaded["frozen"] != final["frozen"]
+            or loaded["blocks"] != final["blocks"]):
+        raise AssertionError("parallel: rank 0's checkpoint does not load "
+                             "the ranks' final state into one card")
+    resumed = {}
+    get_loss = p.get_train_loss_dict
+
+    def get_loss_w(step):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        resumed[step] = dict(get_loss(step))
+        torch.cuda.synchronize()
+        resumed[step]["s"] = time.perf_counter() - t
+        return resumed[step]
+
+    p.get_train_loss_dict = get_loss_w
+    trainer.train()
+    metrics, _ = p.get_eval_image_metrics_and_images(PARALLEL_STEPS + 1)
+    gt = p.datamanager.next_eval_image(0)[1]["image"]
+    trivial = float(-10.0 * np.log10(np.mean((gt - gt.mean(axis=(0, 1)))
+                                             ** 2)))
+    if sorted(resumed) != [PARALLEL_STEPS, PARALLEL_STEPS + 1] or not all(
+            np.isfinite(m["loss"]) for m in resumed.values()) \
+            or not np.isfinite(metrics["psnr"]):
+        raise AssertionError(f"parallel: the resumed steps {resumed} or "
+                             f"the eval image {metrics}")
+    log(f"[parallel] rank 0's checkpoint in one card: the ranks' final "
+        f"state bit for bit; resumed steps {PARALLEL_STEPS} and "
+        f"{PARALLEL_STEPS + 1}: loss "
+        f"{[round(m['loss'], 5) for m in resumed.values()]}, "
+        f"{[round(m['s'], 4) for m in resumed.values()]} s (one process, a "
+        f"sequential focal step); eval image 0: PSNR {metrics['psnr']:.4f}"
+        f" against its mean image's {trivial:.4f}")
+    stats.update(resumed_s=[m["s"] for m in resumed.values()],
+                 eval_psnr=float(metrics["psnr"]), mean_image_psnr=trivial,
+                 phase_s=time.perf_counter() - t_phase)
+    log(f"[parallel] the phase in {stats['phase_s']:.1f}s")
+    return launches, stats
+
+
 def main() -> int:
     if not (REPO / "gfnerf_tpu_torch").is_dir():
         print("chip_smoke: gfnerf_tpu_torch/ not found beside this script",
@@ -7758,7 +8350,10 @@ def main() -> int:
         clock("captures")
         torch.cuda.empty_cache()
         paths["tools"], stats["tools"] = phase_tools(Path(tmp))
-    clock("tools")
+        clock("tools")
+        torch.cuda.empty_cache()
+        paths["parallel"], stats["parallel"] = phase_parallel(Path(tmp))
+    clock("parallel")
     fast, scan = stats["pipeline"], stats["scan"]
     log(f"[scan] gf-nerf-perf through the Trainer, the scan (M1) against "
         f"the fast march on the same scene and schedule: "
@@ -7850,8 +8445,9 @@ def main_only(names) -> int:
     """``--only pipeline,nerfacto,...``: the device and the build, then the
     named phases of the temp-dir family (pipeline, gfnerf, prop, nerfacto,
     semantics, instant-ngp, scan, stock, nerfplayer, captures, tools,
-    capture-variants; nerfacto, semantics and tools need the pipeline
-    phase's scene and checkpoint,
+    capture-variants, parallel; nerfacto, semantics and tools need the
+    pipeline phase's scene and checkpoint, parallel writes the scene when
+    the pipeline phase did not run,
     instant-ngp, nerfplayer and captures write their own scenes, scan and
     stock write theirs
     when the pipeline and instant-ngp phases did not run) in one temp dir,
@@ -7870,7 +8466,7 @@ def main_only(names) -> int:
               "stock": phase_stock, "nerfplayer": phase_nerfplayer,
               "captures": phase_captures,
               "capture-variants": phase_capture_variants,
-              "tools": phase_tools}
+              "tools": phase_tools, "parallel": phase_parallel}
     unknown = set(names) - set(phases)
     if unknown:
         print(f"chip_smoke: unknown phases {sorted(unknown)}",

@@ -1,7 +1,7 @@
 """GF-NeRF data manager.
 
 Port of ``gfnerf_tpu/data/datamanager.py`` (nerfstudio's
-``GFNerfDataManager``, base_datamanager.py:541-993) for one card:
+``GFNerfDataManager``, base_datamanager.py:541-993):
 
 - the full train dataset and the "init" dataset, a linspaced subset of at
   most ``max_init_images`` cameras (:660-686);
@@ -25,9 +25,11 @@ resized image is cast through its own intrinsics.  With
 as the JAX package's class-weighted sampler does.
 
 Host side: numpy image caches and samplers; a batch is a dict of
-fixed-shape numpy arrays.  The parallel-blocks paths
-(``setup_train_splits_parallel``, ``next_train_parallel``) join with the
-multi-card focal stage.
+fixed-shape numpy arrays.  The concurrent focal stage of multi-card
+training activates several clusters' splits at once
+(``setup_train_splits_parallel``) and draws one batch from each
+(``next_train_parallel``).  In multi-card training every rank runs the same
+datamanager from the same seed and makes the same batches.
 """
 
 from __future__ import annotations
@@ -134,8 +136,10 @@ class GFNerfDataManager:
             self.config.eval_num_rays_per_batch, seed=self.seed + 1)
 
     def _build_split(self, camera_labels: np.ndarray, cur_split_idx: int,
-                     sample_tmp_dir: Optional[str]):
-        """(outputs, sel, cache, sampler) for one cluster's focal split."""
+                     sample_tmp_dir: Optional[str],
+                     num_rays_per_batch: Optional[int] = None):
+        """(outputs, sel, cache, sampler) for one cluster's focal split,
+        ``num_rays_per_batch`` rays a batch (the config's if None)."""
         cfg = self.config
         error_map_filenames = None
         if sample_tmp_dir is not None and os.path.isdir(sample_tmp_dir):
@@ -155,17 +159,16 @@ class GFNerfDataManager:
             num_images_to_sample_from=cfg.train_num_images_to_sample_from,
             num_times_to_repeat=cfg.train_num_times_to_repeat_images,
             seed=self.seed + cur_split_idx)
+        n_rays = num_rays_per_batch or cfg.train_num_rays_per_batch
         if error_map_filenames is not None:
-            sampler = ErrorPixelSampler(cfg.train_num_rays_per_batch,
-                                        seed=self.seed)
+            sampler = ErrorPixelSampler(n_rays, seed=self.seed)
         else:
             # the JAX package's class-weighted sampler, which
             # semantic_sample_weights selects, draws as this one does
             # without patches, its weights unused
             patch = (1 if cfg.semantic_sample_weights is not None
                      else cfg.patch_size)
-            sampler = PixelSampler(cfg.train_num_rays_per_batch, patch,
-                                   seed=self.seed)
+            sampler = PixelSampler(n_rays, patch, seed=self.seed)
         return outputs, sel, cache, sampler
 
     def setup_train_split_oct(self, camera_labels: Optional[np.ndarray],
@@ -180,6 +183,56 @@ class GFNerfDataManager:
         (self.split_outputs, self._split_indices, self.split_cache,
          self.split_pixel_sampler) = self._build_split(
             camera_labels, cur_split_idx, sample_tmp_dir)
+
+    def setup_train_splits_parallel(self, camera_labels: np.ndarray,
+                                    split_indices: List[int],
+                                    sample_tmp_dir: Optional[str],
+                                    num_rays_per_group: int):
+        """Activate several clusters' splits at once, one for each block
+        group of the concurrent focal step; a split active already keeps
+        its cache and sampler."""
+        current = getattr(self, "_parallel_splits", {})
+        self._parallel_splits = {
+            s: current[s] if s in current else self._build_split(
+                camera_labels, s, sample_tmp_dir, num_rays_per_group)
+            for s in split_indices}
+
+    def next_train_parallel(self, step: int,
+                            split_indices: List[int]) -> List[Dict]:
+        """One batch from each active split, in ``split_indices`` order.
+        ``focal_uniform_fraction`` applies to each: the batch's tail is
+        full-scene uniform rays, after ``n_split_rays``, the boundary of
+        the group's error write-back."""
+        cfg = self.config
+        batches = []
+        for s in split_indices:
+            outputs, _, cache, sampler = self._parallel_splits[s]
+            cache.step()
+            batch = sampler.sample(cache)
+            n_rays = batch["image"].shape[0]
+            n_split = n_rays
+            if cfg.focal_uniform_fraction > 0:
+                n_mix = min(max(int(round(
+                    cfg.focal_uniform_fraction * n_rays)), 0), n_rays - 1)
+                if n_mix > 0:
+                    n_split = n_rays - n_mix
+                    self.init_cache.step()
+                    mix_idx = self.init_pixel_sampler.sample_indices_uniform(
+                        self.init_cache, n_mix)
+                    mix = collate_batch(self.init_cache, mix_idx)
+                    batch = {k: np.concatenate([batch[k][:n_split], mix[k]],
+                                               axis=0)
+                             for k in ("indices", "image", "camera_indices",
+                                       "rel_camera_indices", "coords",
+                                       "semantics")
+                             if k in batch and k in mix}
+            batch["n_split_rays"] = np.int32(n_split)
+            batch["step"] = np.int32(step)
+            batch["split_idx"] = np.int32(s)
+            batch["_cache"] = cache
+            batch["_outputs"] = outputs
+            batches.append(batch)
+        return batches
 
     def next_train(self, step: int) -> Dict[str, np.ndarray]:
         """Fixed-shape host ray batch (base_datamanager.py:923-948)."""

@@ -22,7 +22,9 @@ the count of applied updates, not the train step; the groups share it,
 since an update is applied to all groups or to none: it is skipped,
 moments and count left where they were, when any gradient is not finite
 (``optax.apply_if_finite``, which reads the gradients before the clip).
-A gradient of None is a
+In a data-parallel step the
+gradients are summed over the ranks first (``all_reduce_grads``).  A
+gradient of None is a
 structural zero (a group that is not in the step's graph: the block
 table at the init stage, the frozen groups at the block stage): its moments
 stay unallocated while they are zero and decay once they are not, as
@@ -111,6 +113,27 @@ def field_param_grads(field: GFNeRFField,
     the backward reached none)."""
     return {name: [p.grad for p in ps]
             for name, ps in field_param_groups(field, active_table).items()}
+
+
+def all_reduce_grads(grads: Dict[str, list], comm) -> Dict[str, list]:
+    """The gradients summed over the ranks of ``comm`` (a
+    :class:`~gfnerf_tpu_torch.parallel.comm.Comm`), written back in place,
+    in one all-reduce per group of its gradients flattened into one
+    bucket.  A None (a group out of the step's graph: the block table at
+    the init stage, the frozen groups at the block stage) stays None: the
+    graph's structure is the stage's, the same on every rank.  Every rank
+    gets the same sums, so the clip and Adam that follow apply the same
+    update everywhere."""
+    for gs in grads.values():
+        given = [g for g in gs if g is not None]
+        if not given:
+            continue
+        bucket = comm.all_reduce(torch.cat([g.reshape(-1) for g in given]))
+        at = 0
+        for g in given:
+            g.copy_(bucket[at:at + g.numel()].view_as(g))
+            at += g.numel()
+    return grads
 
 
 @dataclasses.dataclass

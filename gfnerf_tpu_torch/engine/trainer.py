@@ -1,7 +1,7 @@
 """Trainer: the outer loop, checkpoints, eval cadence, logging.
 
 Port of ``gfnerf_tpu/engine/trainer.py`` (nerfstudio's ``trainer.py``,
-:90-479) for one card: setup (pipeline, config file, writer, checkpoint),
+:90-479): setup (pipeline, config file, writer, checkpoint),
 the train loop with the pipeline's after-iteration callbacks, the periodic
 eval, and checkpoints in ``step-{:09d}`` directories pruned to the latest.
 The run's config is written as ``config.json``.  The pipeline is either
@@ -11,6 +11,13 @@ training controls (pause, resume, stop and save) from its own threads
 while the loop trains; each step and each render hold one lock, because
 the optimizer updates the tables in place.  Eval images of depth and
 accumulation go to the writer colormapped.
+
+In a process group of several ranks (``initialize_multihost``; the
+GF-NeRF pipeline only) every rank runs the loop; rank 0 alone writes the
+config, the logs, the evals and the checkpoints (in the one-card format,
+which ``eval``, ``render`` and ``export`` read as they are), while the
+others wait at a barrier; the run's directory is rank 0's.  The viewer
+does not run over several ranks.
 """
 
 from __future__ import annotations
@@ -24,6 +31,7 @@ from pathlib import Path
 from typing import Optional
 
 from gfnerf_tpu_torch.configs.config_io import config_to_json
+from gfnerf_tpu_torch.parallel import comm as parallel_comm
 from gfnerf_tpu_torch.pipelines.pipeline import GFNerfPipelineConfig
 from gfnerf_tpu_torch.utils.colormaps import (apply_colormap,
                                               apply_depth_colormap)
@@ -73,17 +81,31 @@ class Trainer:
         self.control = TrainControl()
         self.lock = threading.Lock()
         self.viewer = None
+        self.comm = parallel_comm.world()
+        # rank 0 writes; one card is rank 0
+        self.is_main = self.comm is None or self.comm.rank == 0
 
     def setup(self, test_mode: str = "train"):
         """``test_mode`` other than "train" (eval and render from a run's
         checkpoint, ``utils/eval_utils.eval_setup``) leaves the run's
         ``config.json`` as it is."""
         cfg = self.config
+        if self.comm is not None:
+            if not isinstance(cfg.pipeline, GFNerfPipelineConfig):
+                raise ValueError("training over several ranks covers the "
+                                 "GF-NeRF pipeline only")
+            if "viewer" in cfg.vis:
+                raise ValueError("the viewer does not run over several "
+                                 "ranks: train with --vis local")
+            # one run directory: rank 0's timestamp
+            if cfg.timestamp == "{timestamp}":
+                cfg.timestamp = self.comm.broadcast_object(
+                    time.strftime("%Y-%m-%d_%H%M%S"))
         self.writer = EventWriter(cfg.vis, steps_per_log=cfg.steps_per_log)
         self.base_dir = cfg.get_base_dir()
         os.makedirs(self.base_dir, exist_ok=True)
         self.checkpoint_dir = self.base_dir / "nerfstudio_models"
-        if test_mode == "train":
+        if test_mode == "train" and self.is_main:
             (self.base_dir / "config.json").write_text(config_to_json(cfg))
         ckpt_dir = (self._checkpoint_to_load() if cfg.load_dir is not None
                     else None)
@@ -122,7 +144,7 @@ class Trainer:
             with self.lock, TimeWriter(None, ITER_TRAIN_TIME, step) as t:
                 metrics = self.pipeline.get_train_loss_dict(step)
                 self.pipeline.after_train_iteration(step)
-            if step % cfg.steps_per_log == 0:
+            if step % cfg.steps_per_log == 0 and self.is_main:
                 self.writer.put_scalar(ITER_TRAIN_TIME, t.duration, step)
                 self.writer.put_scalar(TRAIN_RAYS_PER_SEC,
                                        num_rays / t.duration, step)
@@ -144,14 +166,31 @@ class Trainer:
                 and (last + 1) % cfg.steps_per_save == 0):
             self.save_checkpoint(last)   # unless the loop just saved it
 
+    def _on_main(self, fn) -> None:
+        """``fn()`` on rank 0 while the other ranks wait, every rank's
+        concurrent-stage tables synced first; on one card, ``fn()``."""
+        if self.comm is None:
+            fn()
+            return
+        self.pipeline.sync_block_tables()
+        if self.is_main:
+            fn()
+        self.comm.barrier()
+
     def eval_iteration(self, step: int):
         cfg = self.config
-        if ((step + 1) % cfg.steps_per_eval_batch == 0
-                and hasattr(self.pipeline, "get_eval_loss_dict")):
+        batch = ((step + 1) % cfg.steps_per_eval_batch == 0
+                 and hasattr(self.pipeline, "get_eval_loss_dict"))
+        image = (step + 1) % cfg.steps_per_eval_image == 0
+        if batch or image:
+            self._on_main(lambda: self._eval(step, batch, image))
+
+    def _eval(self, step: int, batch: bool, image: bool):
+        if batch:
             metrics = self.pipeline.get_eval_loss_dict(step)
             self.writer.put_dict(
                 {f"Eval Batch/{k}": v for k, v in metrics.items()}, step)
-        if (step + 1) % cfg.steps_per_eval_image == 0:
+        if image:
             metrics, images = (
                 self.pipeline.get_eval_image_metrics_and_images(step))
             self.writer.put_dict(
@@ -165,7 +204,11 @@ class Trainer:
                 self.writer.put_image(f"Eval Images/{name}", img, step)
 
     def save_checkpoint(self, step: int):
-        """trainer.py:351-379: step-{:09d} dirs, pruned to the latest."""
+        """trainer.py:351-379: step-{:09d} dirs, pruned to the latest; by
+        rank 0."""
+        self._on_main(lambda: self._save_checkpoint(step))
+
+    def _save_checkpoint(self, step: int):
         ckpt_dir = self.checkpoint_dir / f"step-{step:09d}"
         os.makedirs(ckpt_dir, exist_ok=True)
         self.pipeline.save_checkpoint_state(ckpt_dir, step)

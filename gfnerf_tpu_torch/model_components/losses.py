@@ -7,7 +7,9 @@ nerfstudio losses.py:154, 186), depth-nerfacto's DS-NeRF depth loss, the
 scale-and-shift-invariant depth loss, the orientation and predicted-normal
 regularizers, and the TV loss on octree-leaf boundary samples.
 S3IM's random permutations come from an explicit ``torch.Generator``, or
-are passed in, since the two packages draw different random numbers.
+are passed in, since the two packages draw different random numbers; in a
+data-parallel step S3IM runs over the whole batch, gathered from every rank
+(``s3im_loss_whole_batch``).
 """
 
 from __future__ import annotations
@@ -62,6 +64,21 @@ def s3im_loss(
     tar_patch = target[idx].T.reshape(1, 3, patch_height, -1)
     src_patch = pred[idx].T.reshape(1, 3, patch_height, -1)
     return 1.0 - _ssim(src_patch, tar_patch, kernel_size, stride)
+
+
+def s3im_loss_whole_batch(pred: torch.Tensor, target: torch.Tensor,
+                          perms: torch.Tensor, comm, **kw) -> torch.Tensor:
+    """S3IM over the whole batch of a data-parallel step: every rank's
+    rays gathered in rank order (``comm``, a
+    :class:`~gfnerf_tpu_torch.parallel.comm.Comm`), ``perms`` permuting the
+    whole batch, the gradient reaching this rank's own rays alone.  The
+    value is the same on every rank, and the sum of the ranks' gradients is
+    S3IM's gradient on the whole batch."""
+    n = pred.shape[0]
+    both = comm.all_gather(torch.cat([pred.detach(), target], dim=1))
+    lo, hi = comm.rank * n, (comm.rank + 1) * n
+    full = torch.cat([both[:lo, :3], pred, both[hi:, :3]])
+    return s3im_loss(full, both[:, 3:], perms, **kw)
 
 
 def _ssim(img1: torch.Tensor, img2: torch.Tensor, kernel_size: int,

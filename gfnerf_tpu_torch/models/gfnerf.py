@@ -48,6 +48,7 @@ from gfnerf_tpu_torch.engine.optimizers import (
     OptState,
     PerGroupAdam,
     active_block_table,
+    all_reduce_grads,
     apply_updates,
     field_param_grads,
     field_param_groups,
@@ -71,6 +72,7 @@ from gfnerf_tpu_torch.model_components.losses import (
     interlevel_loss,
     mse_loss,
     s3im_loss,
+    s3im_loss_whole_batch,
     s3im_permutations,
 )
 from gfnerf_tpu_torch.model_components.ray_samplers import pdf_sample
@@ -577,7 +579,7 @@ def init_train_state(field: GFNeRFField, tx: PerGroupAdam) -> TrainState:
 
 
 def make_train_step(model_cfg: GFNeRFModelConfig, sampler_cfg: SamplerConfig,
-                    tx: PerGroupAdam, stage: int = STAGE_INIT):
+                    tx: PerGroupAdam, stage: int = STAGE_INIT, comm=None):
     """One training iteration (``_train_step_body``, gfnerf.py:499-664).
 
     Returns ``train_step(state, oct_dev, cameras, batch, fineness,
@@ -607,6 +609,21 @@ def make_train_step(model_cfg: GFNeRFModelConfig, sampler_cfg: SamplerConfig,
     weights on the marched lattice, as the JAX package's do.  The caller
     re-initialises the optimizer state (``tx.init``) when the active block
     changes, as the JAX pipeline does at a split switch.
+
+    ``comm`` (a :class:`~gfnerf_tpu_torch.parallel.comm.Comm`; None: one
+    card) makes it the data-parallel step: each rank passes its slice of
+    the whole batch (rank k the k-th of equal slices) and the whole batch's
+    draws (``noise``, ``s3im_perms``, ``prop_u``, or the same generator
+    state on every rank), and the step equals the one-card step on the
+    whole batch.  Each ray-mean term is this rank's share of the whole
+    batch's (times R / R_all); the empty-space term's count is the whole
+    batch's; S3IM runs over the gathered batch (``s3im_loss_whole_batch``);
+    the terms of the parameters alone (trust, camera regularizer) enter
+    rank 0's backward only.  The gradients are summed over the ranks
+    (``all_reduce_grads``) before the clip and Adam, so every rank applies
+    the same update; the occupancy statistics merge by a maximum
+    (``update_oct_nodes``); the metrics are the whole batch's, on every
+    rank.  The per-ray error stays this rank's.
     """
     if stage not in (STAGE_INIT, STAGE_BLOCK):
         raise ValueError(f"unknown stage {stage}")
@@ -627,21 +644,27 @@ def make_train_step(model_cfg: GFNeRFModelConfig, sampler_cfg: SamplerConfig,
         target = batch["image"]
         r = target.shape[0]
         dev = target.device
+        # data-parallel: this rank's rays are [lo, lo + r) of the r_all
+        r_all, lo = (r, 0) if comm is None else (r * comm.size,
+                                                 r * comm.rank)
         with span("rays"):
             rays = generate_rays_multi(cameras, batch["camera_indices"],
                                        batch["coords"])
             if noise is None:   # PersSampler_cuda GetSamples:385-389
-                noise = (torch.rand((r, sampler_cfg.max_samples),
+                noise = (torch.rand((r_all, sampler_cfg.max_samples),
                                     generator=generator, device=dev)
                          - 0.5) + 1.0
             if s3im_perms is None and model_cfg.s3im_loss_mult > 0:
                 s3im_perms = s3im_permutations(
-                    r, model_cfg.s3im_repeat_time, generator=generator,
+                    r_all, model_cfg.s3im_repeat_time, generator=generator,
                     device=dev)
             k = model_cfg.num_proposal_resamples
             if prop_u is None and k > 0 and field.prop_feat is not None:
-                prop_u = torch.rand((r, k + 1), generator=generator,
+                prop_u = torch.rand((r_all, k + 1), generator=generator,
                                     device=dev)
+            if comm is not None:
+                noise = noise[lo:lo + r]
+                prop_u = None if prop_u is None else prop_u[lo:lo + r]
         # sample positions are not optimized (the reference's CUDA sampler
         # has no autograd either)
         with span("march"), torch.no_grad():
@@ -664,10 +687,20 @@ def make_train_step(model_cfg: GFNeRFModelConfig, sampler_cfg: SamplerConfig,
                             batch["rel_camera_indices"], stage, oct_dev,
                             active_block, active_table, rays_o=rays_o,
                             prop_u=prop_u)
+        # a ray-mean term of this rank's rays as its share of the whole
+        # batch's (R / R_all); the terms of the parameters alone enter one
+        # rank's backward
+        share = r / r_all
+        param_terms = ("trust_loss", "camera_opt_regularizer")
+        whole_terms = ("s3im_loss", *param_terms)
+
+        def part(term):
+            return term if comm is None else term * share
+
         with span("loss"):
             rgb_loss = (charbonnier_loss if model_cfg.use_ch_loss
                         else mse_loss)
-            losses = {"rgb_loss": rgb_loss(out["rgb"], target)}
+            losses = {"rgb_loss": part(rgb_loss(out["rgb"], target))}
             if (block_stage and field.cfg.focal_mode == "finetune"
                     and model_cfg.finetune_trust_mult > 0):
                 losses["trust_loss"] = model_cfg.finetune_trust_mult \
@@ -681,46 +714,54 @@ def make_train_step(model_cfg: GFNeRFModelConfig, sampler_cfg: SamplerConfig,
                 empty = ((alpha_s < model_cfg.empty_space_tau)
                          & samples.valid).to(ds.dtype)
                 delta = torch.relu(out["density"] - ds)
+                n_empty = torch.sum(empty)
+                if comm is not None:   # the whole batch's count
+                    n_empty = comm.all_reduce(n_empty.detach().clone())
                 losses["empty_space_loss"] = (
                     model_cfg.empty_space_penalty_mult
                     * torch.sum(delta * empty)
-                    / torch.clamp(torch.sum(empty), min=1.0))
+                    / torch.clamp(n_empty, min=1.0))
             if "prop_weights" in out:
                 fb_s, fb_e = out["fine_spacing"]
-                losses["interlevel_loss"] = (
+                losses["interlevel_loss"] = part(
                     model_cfg.proposal_interlevel_mult * interlevel_loss(
                         out["weights"], fb_s, fb_e, out["prop_weights"],
                         *out["prop_spacing"]))
                 if model_cfg.distortion_loss_mult > 0:
-                    losses["distortion_loss"] = (
+                    losses["distortion_loss"] = part(
                         model_cfg.distortion_loss_mult * distortion_loss(
                             out["weights"], fb_s, fb_e))
             if model_cfg.s3im_loss_mult > 0:
-                losses["s3im_loss"] = model_cfg.s3im_loss_mult * s3im_loss(
-                    out["rgb"], target, s3im_perms,
-                    kernel_size=model_cfg.s3im_kernel_size,
-                    stride=model_cfg.s3im_stride,
-                    patch_height=model_cfg.s3im_patch_height)
+                s3im_kw = dict(kernel_size=model_cfg.s3im_kernel_size,
+                               stride=model_cfg.s3im_stride,
+                               patch_height=model_cfg.s3im_patch_height)
+                losses["s3im_loss"] = model_cfg.s3im_loss_mult * (
+                    s3im_loss(out["rgb"], target, s3im_perms, **s3im_kw)
+                    if comm is None else s3im_loss_whole_batch(
+                        out["rgb"], target, s3im_perms, comm, **s3im_kw))
             if "semantics" in out and "semantics" in batch:
                 # cross-entropy of the rendered logits (nerfacto.py:676-681)
                 logp = torch.log_softmax(out["semantics"], dim=-1)
                 ce = -torch.gather(logp, 1,
                                    batch["semantics"].long()[:, None])[:, 0]
-                losses["semantics_loss"] = (model_cfg.semantic_loss_weight
-                                            * torch.mean(ce))
+                losses["semantics_loss"] = part(
+                    model_cfg.semantic_loss_weight * torch.mean(ce))
             if field.camera_adjustment is not None:
                 losses["camera_opt_regularizer"] = pose_regularization(
                     cam_cfg, field.camera_adjustment)
-            total = sum(losses.values())
+            total = sum(losses.values()) if comm is None else sum(
+                v for k, v in losses.items()
+                if k not in param_terms or comm.rank == 0)
         with span("backward"):
             # at the block stage the frozen parameters stay out of the
             # backward: their gradients would be masked to zero anyway
             total.backward(inputs=[active_table] if block_stage else None)
         with span("optimizer"):
             params = field_param_groups(field, active_table)
-            updates, opt_state = tx.update(
-                field_param_grads(field, active_table), state.opt_state,
-                params)
+            grads = field_param_grads(field, active_table)
+            if comm is not None:   # the whole batch's gradient, every rank
+                grads = all_reduce_grads(grads, comm)
+            updates, opt_state = tx.update(grads, state.opt_state, params)
             # each group's gradient norm before the clip (max_norm only)
             grad_norms = {f"grad_norm_{name}": n
                           for name, n in tx.grad_norms.items()}
@@ -736,9 +777,16 @@ def make_train_step(model_cfg: GFNeRFModelConfig, sampler_cfg: SamplerConfig,
                 oct_dev = update_oct_nodes(
                     oct_dev, samples,
                     out.get("march_weights", out["weights"]).detach(),
-                    out.get("march_alphas", out["alphas"]).detach())
+                    out.get("march_alphas", out["alphas"]).detach(),
+                    comm=comm)
             rgb = out["rgb"].detach()
             err = torch.sum(torch.abs(rgb - target), dim=-1)  # gf_pipeline:179
+            if comm is not None:
+                metrics = _whole_batch_metrics(
+                    comm, losses, whole_terms, rgb, target, samples,
+                    sampler_cfg.max_hits, r_all)
+                metrics.update(grad_norms)
+                return new_state, oct_dev, metrics, err
             mse = torch.mean((rgb - target) ** 2)
             metrics = {
                 "loss": total.detach(),
@@ -754,3 +802,28 @@ def make_train_step(model_cfg: GFNeRFModelConfig, sampler_cfg: SamplerConfig,
         return new_state, oct_dev, metrics, err
 
     return train_step
+
+
+def _whole_batch_metrics(comm, losses: dict, whole_terms: tuple,
+                         rgb: torch.Tensor, target: torch.Tensor, samples,
+                         max_hits: int, r_all: int) -> dict:
+    """The data-parallel step's metrics, the whole batch's on every rank,
+    in one all-reduce: the ranks' shares of each ray term, the squared
+    error, the valid samples and the truncated rays summed; the terms in
+    ``whole_terms`` (already the whole batch's) as they are."""
+    shared = [k for k in losses if k not in whole_terms]
+    sums = [losses[k].detach().float() for k in shared]
+    sums += [torch.sum((rgb - target) ** 2),
+             samples.num_valid.float().sum()]
+    if samples.num_hits is not None:
+        sums.append((samples.num_hits > max_hits).float().sum())
+    sums = comm.all_reduce(torch.stack(sums))
+    terms = {k: (sums[shared.index(k)] if k in shared
+                 else losses[k].detach()) for k in losses}
+    n = len(shared)
+    metrics = {"loss": sum(terms.values()), **terms,
+               "psnr": -10.0 * torch.log10(sums[n] / (3 * r_all) + 1e-12),
+               "num_samples_per_ray": sums[n + 1] / r_all}
+    if samples.num_hits is not None:
+        metrics["frac_truncated_rays"] = sums[n + 2] / r_all
+    return metrics

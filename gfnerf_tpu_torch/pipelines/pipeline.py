@@ -2,8 +2,10 @@
 
 Port of ``gfnerf_tpu/pipelines/pipeline.py`` (``GFNerfPipeline``,
 gf_pipeline.py:77-299, with the model's training callbacks,
-nerfacto.py:323-520) for one card: host-side stage logic around the train
-and render functions of ``models/gfnerf.py``.
+nerfacto.py:323-520): host-side stage logic around the train and render
+functions of ``models/gfnerf.py``, on one card or, in a process group of
+several ranks (``torch.distributed``, :mod:`gfnerf_tpu_torch.parallel`), on
+one card per rank.
 
 - ``get_train_loss_dict``: the host batch, sent to the device in one copy;
   the stage's train step; at the focal stage the per-ray error written
@@ -26,9 +28,27 @@ and render functions of ``models/gfnerf.py``.
   through the two-phase early-termination renderer (``eval_early_term``,
   ``enable_early_term``; not on the proposal branch).
 
+Multi-card training (a process group of W > 1 ranks): every rank runs the
+same host state from the same seed (the datamanager's batches, the
+generator's draws; the octree and march config rank 0 builds, broadcast),
+so that the host's decisions (rebuilds, clustering, splits) agree.  A
+data-parallel step (the init stage, and the focal stage without
+``parallel_blocks``) gives rank k the k-th of W slices of the batch and
+equals the one-card step on the whole batch (``make_dp_train_step``); the
+per-ray error is gathered, so every rank writes the same error maps.  The
+transition's error-map renders are split over the ranks and gathered.
+With ``parallel_blocks`` the ranks form a (data, block) grid
+(``parallel.sharding.multihost_grid``): at the focal stage block group g
+trains block g * B + phase (B = n_blocks / groups; the phase advances every
+``steps_per_split_dataset`` steps) on its own cluster's rays, split over
+its data ranks (``_train_parallel_block``); the groups' tables are
+broadcast from each group's data rank 0 at each rotation and before an
+eval or a checkpoint (``sync_block_tables``), after which every rank holds
+every table bit for bit.
+
 Not ported: the K-steps-per-dispatch scan (``steps_per_dispatch`` is kept
-so that configs round-trip; one step runs per call), the parallel-blocks
-mesh and the PNG previews of the error maps.
+so that configs round-trip; one step runs per call) and the PNG previews
+of the error maps.
 """
 
 from __future__ import annotations
@@ -50,6 +70,7 @@ from gfnerf_tpu_torch.cameras.cameras import (generate_rays,
 from gfnerf_tpu_torch.data.datamanager import (GFNerfDataManager,
                                                GFNerfDataManagerConfig)
 from gfnerf_tpu_torch.engine.optimizers import (OptimizersConfig, OptState,
+                                                active_block_table,
                                                 build_optimizer,
                                                 field_param_groups)
 from gfnerf_tpu_torch.fields.field import (STAGE_BLOCK, STAGE_INIT,
@@ -60,6 +81,10 @@ from gfnerf_tpu_torch.models.gfnerf import (GFNeRFModelConfig, TrainState,
                                             init_train_state, make_render_fn,
                                             make_train_step)
 from gfnerf_tpu_torch.models.render_early import EarlyTermRenderer
+from gfnerf_tpu_torch.parallel import comm as parallel_comm
+from gfnerf_tpu_torch.parallel.sharding import (block_axis, block_optimizer,
+                                                make_parallel_block_step,
+                                                multihost_grid)
 from gfnerf_tpu_torch.sampler.manager import (PersSamplerManager,
                                               PersSamplerManagerConfig)
 from gfnerf_tpu_torch.sampler.octree import PersOctree
@@ -110,14 +135,22 @@ class GFNerfPipelineConfig:
     eval_early_term_eps: float = 5e-3
     camera_bounds: tuple = (0.01, 512.0)   # gf_pipeline.py:117-120
     seed: int = 42
+    # multi-card training: train the focal residual tables concurrently on
+    # a (data, block) grid of the ranks (parallel/sharding.py
+    # make_parallel_block_step) instead of one block at a time; needs >= 2
+    # ranks; the block axis takes min(n_blocks, the largest divisor of the
+    # rank count that divides n_blocks)
+    parallel_blocks: bool = False
+    # block-axis size for parallel_blocks; 0 = auto
+    parallel_block_axis: int = 0
     # the JAX package's K steps per dispatch; the port runs one step per
     # call whatever it says
     steps_per_dispatch: int = 1
 
     def build(self, dataparser, base_dir, device="cuda",
-              draws: Optional[Draws] = None, checkpoint=None):
+              draws: Optional[Draws] = None, checkpoint=None, comm=None):
         return GFNerfPipeline(self, dataparser, base_dir, device, draws,
-                              checkpoint)
+                              checkpoint, comm)
 
 
 def _opt_state_dict(s: OptState) -> dict:
@@ -129,17 +162,22 @@ def _opt_state_dict(s: OptState) -> dict:
 class GFNerfPipeline:
     def __init__(self, config: GFNerfPipelineConfig, dataparser,
                  base_dir: Path, device="cuda",
-                 draws: Optional[Draws] = None, checkpoint=None):
+                 draws: Optional[Draws] = None, checkpoint=None, comm=None):
         """``draws``: the march noise and S3IM permutations of each step
-        (tests inject the JAX package's); None draws them from a
-        ``torch.Generator`` seeded with ``config.seed``.  ``checkpoint``: a
-        checkpoint directory whose octree and march config the sampler
-        takes instead of building and calibrating its own (the caller
-        then loads the rest with ``load_checkpoint_state``)."""
+        (tests inject the JAX package's; in a data-parallel step the whole
+        batch's, in a concurrent focal step a rank's share's); None draws
+        them from a ``torch.Generator`` seeded with ``config.seed``.
+        ``checkpoint``: a checkpoint directory whose octree and march
+        config the sampler takes instead of building and calibrating its
+        own (the caller then loads the rest with
+        ``load_checkpoint_state``).  ``comm``: the process group to train
+        over (None: the world group ``initialize_multihost`` set up, if
+        any; else one card)."""
         self.config = config
         self.base_dir = Path(base_dir)
         self.device = torch.device(device)
         self.draws = draws
+        self.comm = comm if comm is not None else parallel_comm.world()
         mcfg = config.model
         if config.steps_per_dispatch > 1:
             print(f"[pipeline] steps_per_dispatch={config.steps_per_dispatch}"
@@ -153,6 +191,10 @@ class GFNerfPipeline:
                          (n_cameras, 1))
         saved = (_read_host_state(checkpoint) if checkpoint is not None
                  else {})
+        if self.comm is not None and checkpoint is None \
+                and self.comm.rank != 0:
+            # rank 0 builds and calibrates the octree once for every rank
+            saved = self.comm.broadcast_object(None)
         self.sampler = PersSamplerManager(
             c2w=cams.camera_to_worlds,
             intri=cams.intrinsics_matrices(),
@@ -165,6 +207,11 @@ class GFNerfPipeline:
             tree=saved.get("tree"),
             sampler_config=saved.get("sampler_config"),
         )
+        if self.comm is not None and checkpoint is None \
+                and self.comm.rank == 0:
+            self.comm.broadcast_object(
+                {"tree": self.sampler.tree,
+                 "sampler_config": self.sampler.sampler_config})
         # block centers = every (n_cams/n_blocks)-th camera (nerfacto.py:232-241)
         step_n = max(n_cameras // mcfg.n_blocks, 1)
         self.block_centers = np.stack([
@@ -211,7 +258,48 @@ class GFNerfPipeline:
         self.generator = torch.Generator(device=self.device).manual_seed(
             config.seed)
         self.sample_tmp_dir: Optional[str] = None
+        self._setup_grid()
         self._build_step_fns()
+
+    def _setup_grid(self):
+        """The ranks' (data, block) grid (pipeline.py:209-280 of the JAX
+        package): with ``parallel_blocks`` and more than one block, the
+        block axis ``parallel.sharding.block_axis`` gives; each block
+        group's data ranks form a group of their own, over which its
+        concurrent focal step averages."""
+        config, mcfg, comm = self.config, self.config.model, self.comm
+        self.grid = None
+        self.n_block_axis = 1
+        self._parallel = False
+        if comm is None:
+            return
+        rays = config.datamanager.train_num_rays_per_batch
+        if rays % comm.size:
+            raise ValueError(f"{rays} rays a batch do not split over "
+                             f"{comm.size} ranks")
+        if config.parallel_blocks and mcfg.n_blocks > 1:
+            self.n_block_axis = block_axis(comm.size, mcfg.n_blocks,
+                                           config.parallel_block_axis)
+        self.grid = multihost_grid(comm.size, comm.n_hosts,
+                                   self.n_block_axis)
+        self._parallel = self.n_block_axis > 1
+        if not self._parallel:
+            return
+        if mcfg.num_proposal_resamples > 0:
+            raise ValueError("parallel_blocks: the concurrent focal step "
+                             "has no proposal branch (neither has the JAX "
+                             "package's)")
+        # every rank makes every group, in one order
+        groups = [comm.new_group(self.grid.data_ranks(g))
+                  for g in range(self.n_block_axis)]
+        self._data_index, self._block_group = self.grid.coords(comm.rank)
+        self._data_comm = groups[self._block_group]
+        self._tx_block = block_optimizer()
+        self._opt_blocks = None      # (block, its Adam state)
+        # the (group, block) tables trained since the last sync, and the
+        # phase whose first step synced them
+        self._unsynced_blocks: set = set()
+        self._synced_phase = -1
 
     def _build_step_fns(self):
         """The train and render functions for the manager's current sampler
@@ -219,9 +307,13 @@ class GFNerfPipeline:
         mcfg = self.config.model
         scfg = self.sampler.sampler_config
         self._built_sampler_cfg = scfg
+        # over several ranks, the data-parallel step (make_dp_train_step)
         self._train_step = {
-            stage: make_train_step(mcfg, scfg, self.tx, stage)
+            stage: make_train_step(mcfg, scfg, self.tx, stage, self.comm)
             for stage in (STAGE_INIT, STAGE_BLOCK)}
+        if self._parallel:
+            self._pb_step = make_parallel_block_step(
+                mcfg, scfg, self._tx_block, self._data_comm)
         self._render_chunk = make_render_fn(mcfg, scfg)
         self._build_early_renderer()
 
@@ -281,17 +373,124 @@ class GFNerfPipeline:
             out["semantics"] = dev[:, 6].long()
         return out
 
+    # ------------------------------------------- the concurrent focal stage ----
+
+    def parallel_phase(self, step: int) -> int:
+        """The rotation's phase: with B = n_blocks / block groups, phase p
+        trains blocks {g * B + p : g} concurrently."""
+        mcfg = self.config.model
+        bps = mcfg.n_blocks // self.n_block_axis
+        rel = max(step - mcfg.steps_perssampler_init, 0)
+        return (rel // mcfg.steps_per_split_dataset) % bps
+
+    def parallel_active_blocks(self, step: int) -> list:
+        bps = self.config.model.n_blocks // self.n_block_axis
+        p = self.parallel_phase(step)
+        return [g * bps + p for g in range(self.n_block_axis)]
+
+    def _train_parallel_block(self, step: int) -> Dict[str, float]:
+        """One concurrent focal step (pipeline.py:355-400 of the JAX
+        package): every rank draws every group's batch (the same host
+        state everywhere), trains its group's block on its share of the
+        group's rays, and gathers every group's loss and errors, which it
+        writes into every group's error maps (cut at ``n_split_rays``).
+        The splits of the step's blocks are activated here: the JAX
+        pipeline activates those of the step just trained, after it, and
+        fails at the first rotation.  The first step of a phase first
+        syncs the tables the last phase trained."""
+        phase = self.parallel_phase(step)
+        if phase != self._synced_phase:
+            self.sync_block_tables()
+            self._synced_phase = phase
+        blocks = self.parallel_active_blocks(step)
+        self.datamanager.setup_train_splits_parallel(
+            self.sampler.cameras_labels, blocks,
+            self.sample_tmp_dir if self.config.use_error_sampling else None,
+            self.config.datamanager.train_num_rays_per_batch)
+        batches = self.datamanager.next_train_parallel(step, blocks)
+        g, d = self._block_group, self._data_index
+        block = blocks[g]
+        mine = batches[g]
+        r = len(mine["image"]) // self.grid.n_data
+        dev_batch = self._device_batch(
+            {k: mine[k][d * r:(d + 1) * r] for k in
+             ("rel_camera_indices", "coords", "image")})
+        noise = perms = None
+        if self.draws is not None:
+            noise, perms, *_ = self.draws(
+                step, r, self.sampler.sampler_config.max_samples)
+            noise = torch.as_tensor(noise, device=self.device)
+            perms = torch.as_tensor(perms, device=self.device).long()
+        if self._opt_blocks is None or self._opt_blocks[0] != block:
+            # a fresh block Adam for a table it has not stepped
+            self._opt_blocks = (block, self._tx_block.init(
+                {"block": [active_block_table(self.field, block)]}))
+        opt, loss, err = self._pb_step(
+            self.field, self._opt_blocks[1], self.sampler.oct_dev,
+            self.cameras_dev, dev_batch, self.sampler.fineness(step), block,
+            generator=self.generator, noise=noise, s3im_perms=perms)
+        self._opt_blocks = (block, opt)
+        self._unsynced_blocks.update(enumerate(blocks))
+        self.state = TrainState(field=self.field,
+                                opt_state=self.state.opt_state,
+                                step=self.state.step + 1)
+        # every rank's loss and errors, in one gather and one copy
+        rows = self.comm.all_gather(
+            torch.cat([loss.reshape(1), err.float()])[None])
+        rows = rows.cpu().numpy()
+        losses = []
+        for gi, (b, batch) in enumerate(zip(blocks, batches)):
+            ranks = self.grid.data_ranks(gi)
+            losses.append(rows[ranks[0], 0])
+            cache = batch["_cache"]
+            if cache.error_maps is not None:
+                ns = int(batch["n_split_rays"])
+                errs = np.concatenate([rows[k, 1:] for k in ranks])
+                cache.update_error_map(batch["indices"][:ns], errs[:ns])
+        losses = np.asarray(losses, np.float32)
+        return {"loss": float(losses.mean()),
+                **{f"block_{b}_loss": float(v)
+                   for b, v in zip(blocks, losses)}}
+
+    @torch.no_grad()
+    def sync_block_tables(self) -> None:
+        """Broadcast each block group's tables trained since the last sync
+        from the group's data rank 0 (every rank calls it: at the first
+        step of each phase, and before an eval or a checkpoint); after it
+        every rank holds every table bit for bit.  A no-op off the
+        concurrent focal stage."""
+        if not self._parallel:
+            return
+        for g, b in sorted(self._unsynced_blocks):
+            table = self.field.block_feats[b].detach().clone()
+            self.comm.broadcast(table, src=self.grid.data_ranks(g)[0])
+            # in place, through the parameter: its version moves, which
+            # renews the stack's bf16 copy
+            self.field.block_feats[b].copy_(table)
+        self._unsynced_blocks.clear()
+
     def get_train_loss_dict(self, step: int) -> Dict[str, float]:
         stage = self.stage_of(step)
+        if (stage == STAGE_BLOCK and self._parallel
+                and self.sampler.cameras_labels is not None):
+            return self._train_parallel_block(step)
         batch = self.datamanager.next_train(step)
         cache = batch.pop("_cache")
         batch.pop("_outputs")
+        r = r_all = len(batch["image"])
+        if self.comm is not None:
+            # this rank's slice; the draws stay the whole batch's
+            r = r_all // self.comm.size
+            lo = self.comm.rank * r
+            batch = {k: (v[lo:lo + r] if k in ("rel_camera_indices",
+                                               "coords", "image",
+                                               "semantics") else v)
+                     for k, v in batch.items()}
         dev_batch = self._device_batch(batch)
-        r = dev_batch["image"].shape[0]
         noise = perms = prop_u = None
         if self.draws is not None:
             noise, perms, *rest = self.draws(
-                step, r, self.sampler.sampler_config.max_samples)
+                step, r_all, self.sampler.sampler_config.max_samples)
             noise = torch.as_tensor(noise, device=self.device)
             perms = torch.as_tensor(perms, device=self.device).long()
             if rest:
@@ -312,6 +511,8 @@ class GFNerfPipeline:
         write_back = stage == STAGE_BLOCK and cache.error_maps is not None
         ns = int(batch["n_split_rays"])
         if write_back:
+            if self.comm is not None:   # the whole batch's, every rank
+                err = self.comm.all_gather(err.float())
             host.append(err[:ns].float())
         host = torch.cat(host).cpu().numpy()
         if write_back:
@@ -341,6 +542,15 @@ class GFNerfPipeline:
                     self.field.block_feats.copy_(
                         self.field.global_feat.expand_as(
                             self.field.block_feats))
+        if self._parallel:
+            # the JAX package's parallel branch (pipeline.py:559-571): a
+            # fresh block Adam at each rotation (each step activates its
+            # own splits, _train_parallel_block)
+            phase = self.parallel_phase(step)
+            if phase != self._last_split_idx:
+                self._opt_blocks = None
+                self._last_split_idx = phase
+            return
         cur = self.sampler.cur_split_idx(step)
         if cur != self._last_split_idx:
             # a fresh optimizer state at each split activation (the
@@ -454,7 +664,10 @@ class GFNerfPipeline:
         """Render all train views at 1/8 res with the init-stage field and
         save their |error| maps (nerfacto.py:361-427), which the focal
         splits' error-guided samplers read."""
-        sample_tmp = self.base_dir / "sample_tmp"
+        # each rank writes its own copy (rank 0 the checkpoint's)
+        rank = 0 if self.comm is None else self.comm.rank
+        sample_tmp = self.base_dir / ("sample_tmp" if rank == 0
+                                      else f"sample_tmp_rank{rank}")
         self.sample_tmp_dir = str(sample_tmp)
         os.makedirs(sample_tmp / "npy", exist_ok=True)
         dm = self.datamanager
@@ -462,13 +675,16 @@ class GFNerfPipeline:
         filenames = dm.train_dataparser_outputs.image_filenames
         gii = dm.train_dataset.metadata["global_image_indices"]
         down = 8
+        preds = self._render_views_split(
+            lambda idx: self.render_camera(
+                cams, self.cameras_dev, idx, step, downscale=down,
+                rel_camera_index=gii[idx], stage=STAGE_INIT)["rgb"],
+            [(int(cams.height[i]) // down, int(cams.width[i]) // down)
+             for i in range(len(cams))])
         for idx in range(len(cams)):
             gt = dm.train_dataset.get_image(idx)  # (H, W, 3)
             h, w = gt.shape[:2]
-            pred = self.render_camera(cams, self.cameras_dev, idx, step,
-                                      downscale=down,
-                                      rel_camera_index=gii[idx],
-                                      stage=STAGE_INIT)["rgb"]
+            pred = preds[idx]
             # nearest upsample to full res (nerfacto.py:404-406)
             pred = pred.repeat(down, axis=0).repeat(down, axis=1)[:h, :w]
             if pred.shape[:2] != (h, w):
@@ -478,6 +694,23 @@ class GFNerfPipeline:
             error = np.abs(gt - pred).sum(axis=-1)  # (H, W)
             base = os.path.basename(str(filenames[idx]))
             np.save(sample_tmp / "npy" / (base + ".npy"), error)
+
+    def _render_views_split(self, render, sizes: list) -> list:
+        """``render(i)`` ((h, w, 3) numpy) of every view i of ``sizes``:
+        on one card all here; over several ranks rank k renders views k,
+        k + W, ..., and one all-reduce of a zero-padded buffer gives every
+        rank every render."""
+        if self.comm is None:
+            return [render(i) for i in range(len(sizes))]
+        comm = self.comm
+        offsets = np.cumsum([0] + [h * w * 3 for h, w in sizes])
+        flat = torch.zeros(int(offsets[-1]), device=comm.device)
+        for i in range(comm.rank, len(sizes), comm.size):
+            flat[offsets[i]:offsets[i + 1]] = torch.as_tensor(
+                render(i), device=comm.device).reshape(-1)
+        flat = comm.all_reduce(flat).cpu().numpy()
+        return [flat[offsets[i]:offsets[i + 1]].reshape(h, w, 3)
+                for i, (h, w) in enumerate(sizes)]
 
     def get_eval_image_metrics_and_images(self, step: int, idx: int = 0):
         """PSNR, SSIM and the LPIPS proxy on one eval image

@@ -477,14 +477,19 @@ def _scatter_max(base: torch.Tensor, index: torch.Tensor,
 
 @torch.no_grad()
 def update_oct_nodes(oct: OctreeDevice, samples, weights: torch.Tensor,
-                     alphas: torch.Tensor) -> OctreeDevice:
+                     alphas: torch.Tensor, comm=None) -> OctreeDevice:
     """Occupancy statistics update (UpdateOctNodes, cu:518-677).
 
     Per ray: thresholds rel/abs on the ray's max weight/alpha; per visited
     node: +BASE if any sample exceeded, else -1; EMA-like integer stats
     with clamping; nodes whose stats go negative get trans_idx = -1.
     Returns a new OctreeDevice; weights and alphas (R, S) are not
-    differentiated.
+    differentiated.  With ``comm`` (a data-parallel step's
+    :class:`~gfnerf_tpu_torch.parallel.comm.Comm`) the per-node adders,
+    marks and visit counts, scatter-maxima of each rank's rays, are merged
+    by a maximum over the ranks before the statistics update: the maximum
+    is associative, so every rank's octree equals the one-card octree of
+    the whole batch.
     """
     cap = oct.centers.shape[0]
     valid = samples.valid
@@ -517,6 +522,12 @@ def update_oct_nodes(oct: OctreeDevice, samples, weights: torch.Tensor,
     run_pos = pos - run_start + 1
     visit_cnt = _scatter_max(oct.visit_cnt, flat_node,
                              torch.where(valid, run_pos, 0).reshape(-1))
+    if comm is not None:   # the whole batch's maxima, in one all-reduce
+        merged = comm.all_reduce(
+            torch.stack([adder_w, adder_a, mark,
+                         visit_cnt.to(adder_w.dtype)]), op="max")
+        adder_w, adder_a, mark = merged[0], merged[1], merged[2]
+        visit_cnt = merged[3].to(visit_cnt.dtype)
 
     def update_stats(stats, adder):
         occ = (adder > 0).to(torch.int32)

@@ -203,11 +203,10 @@ def _fields(obj, prefix=""):
     return out
 
 
-# the JAX config fields the port leaves out: mixed precision (the perf
-# methods' bf16 MLPs are the field's ``mlp_dtype``) and the multi-card
-# focal stage's fields until it is ported
-JAX_ONLY_FIELDS = {"mixed_precision", "pipeline.parallel_blocks",
-                   "pipeline.parallel_block_axis"}
+# the JAX config field the port leaves out: mixed precision (the JAX
+# trainer's, which nothing reads; the perf methods' bf16 MLPs are the
+# field's ``mlp_dtype``)
+JAX_ONLY_FIELDS = {"mixed_precision"}
 
 
 @pytest.mark.parametrize("method", ["gf-nerf", "gf-nerf-tiny",
@@ -271,6 +270,8 @@ def test_overrides_and_json_round_trip():
                  "pipeline.model.s3im_kernel_size": "2",
                  "pipeline.model.s3im_stride": "3",
                  "pipeline.model.s3im_repeat_time": "5",
+                 "pipeline.parallel_blocks": "true",
+                 "pipeline.parallel_block_axis": "2",
                  "output-dir": "runs", "steps_per_save": "44"}
     for k, v in overrides.items():
         apply_override(cfg, k, v)
@@ -283,6 +284,8 @@ def test_overrides_and_json_round_trip():
     assert cfg.output_dir == Path("runs")
     assert cfg.pipeline.optimizers.max_norm == 0.5
     assert cfg.pipeline.model.use_ch_loss is False
+    assert cfg.pipeline.parallel_blocks is True
+    assert cfg.pipeline.parallel_block_axis == 2
     # the class weights become a list of floats in the port; the JAX
     # package's override keeps the text (its sampler never reads them)
     key = "pipeline.datamanager.semantic_sample_weights"

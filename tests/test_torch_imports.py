@@ -1,8 +1,11 @@
-"""The port and ``chip_smoke.py`` import neither JAX nor the JAX package
-(``gfnerf_tpu`` and its modules, numpy-only ones included), nor the image
-libraries the card's machine lacks (cv2, PIL, imageio, skimage).
+"""The port, ``chip_smoke.py`` and the ranks of the multi-card tests
+(``tests/torch_dist_worker.py``, spawned processes) import neither JAX nor
+the JAX package (``gfnerf_tpu`` and its modules, numpy-only ones included),
+nor the image libraries the card's machine lacks (cv2, PIL, imageio,
+skimage).
 
-Every ``.py`` under ``gfnerf_tpu_torch/`` and ``chip_smoke.py`` is parsed;
+Every ``.py`` under ``gfnerf_tpu_torch/``, ``chip_smoke.py`` and
+``tests/torch_dist_worker.py`` is parsed;
 each ``import``/``from ... import`` statement, and each
 ``importlib.import_module``/``__import__`` call with a literal name, is
 checked, wherever it sits (module level or inside a function).  One import
@@ -23,7 +26,7 @@ REPO = Path(__file__).resolve().parent.parent
 FORBIDDEN = ("jax", "jaxlib", "gfnerf_tpu", "cv2", "PIL", "imageio",
              "skimage")
 FILES = sorted((REPO / "gfnerf_tpu_torch").rglob("*.py")) + [
-    REPO / "chip_smoke.py"]
+    REPO / "chip_smoke.py", REPO / "tests" / "torch_dist_worker.py"]
 # (file, module): the guarded optional import described above
 KNOWN = {("gfnerf_tpu_torch/utils/image_io.py", "imageio.v2")}
 
@@ -78,6 +81,8 @@ def _guarded(node, parents) -> bool:
 def test_files_found():
     assert len(FILES) > 60
     assert REPO / "gfnerf_tpu_torch" / "viewer" / "server.py" in FILES
+    for name in ("__init__.py", "comm.py", "sharding.py"):
+        assert REPO / "gfnerf_tpu_torch" / "parallel" / name in FILES
 
 
 @pytest.mark.parametrize("path", FILES,
