@@ -297,6 +297,32 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
                 beside its mean image's PSNR; s/step at world 4 against one
                 process, peak memory per rank, the backend (see
                 phase_parallel).
+ 23. quality  — with the counters reset: gf-nerf's quality run through
+                gfnerf_tpu_torch.quality_run's own functions (--config
+                perf --diag --n-blocks 2: packed 8 x 4 of 2^15, 4096 rays,
+                384 samples) on the textured scene of 72 + 6 views at
+                160x120, QUALITY_INIT_STEPS init steps and
+                QUALITY_SPLIT_STEPS a block: K1, K2, H1 and H2 launched,
+                no other kernel; after init the eval PSNR at least
+                QUALITY_INIT_MARGIN_DB above the mean image's; after the
+                first split the shared field's renders within
+                QUALITY_FROZEN_DB of after init's and the untrained block's
+                within QUALITY_UNTRAINED_DB of the shared field's (the
+                difference printed); the routed PSNR against after init's
+                printed, not checked.
+ 24. midscale — gfnerf_tpu_torch.midscale_run at reduced steps and scene
+                (MIDSCALE_ARGS: 48 views at 100x75 in the nerfstudio
+                layout, 60 init steps with rebuilds at 7, 15 and 30, 4
+                blocks of 40, 1024 rays of 192 samples, a checkpoint every
+                120 steps), its train and eval processes run through
+                ``chip_smoke.py --counted`` (each writes its launch counts
+                as it exits or is killed), train with --vis tensorboard: phase 1 at least 2 rebuilds and
+                killed past kill_at, phase 2 resumed at its checkpoint's
+                step + 1 with no rebuild, rc 0 and the last step's
+                checkpoint, eval rc 0 with a finite PSNR above the black
+                image's (the mean image's beside it), each run's event file
+                read back (CRCs, scalars, the config); K1, K2, H1 and H2
+                launched over the three processes, no other kernel.
 Each phase ends with a [clock] line.  Before the last line come a JSON
 object with each kernel's launches, error, times and bound (K1, K2, H1 and
 H2 also at the prop phase's shapes, under "prop"; H4 and H5 at nerfacto's
@@ -312,7 +338,8 @@ card's name and power limit; the last line is
 Run from the repository root:  python3 chip_smoke.py
 To work on one phase of the pipeline family (pipeline, gfnerf, prop,
 nerfacto, semantics, instant-ngp, scan, stock, nerfplayer, captures,
-tools, parallel; nerfacto, semantics and tools read the pipeline phase's
+tools, parallel, quality, midscale; nerfacto, semantics and tools read
+the pipeline phase's
 scene and checkpoint),
 or to train the captures phase's capture once a variant
 (capture-variants: reported, not checked):
@@ -323,6 +350,7 @@ python3 chip_smoke.py --only captures
 python3 chip_smoke.py --only capture-variants
 python3 chip_smoke.py --only pipeline,tools
 python3 chip_smoke.py --only parallel
+python3 chip_smoke.py --only quality,midscale
 Either form takes ``--coverage-case PATH`` last: the scan phase then writes
 the octree and rays of its coverage check there, for
 ``python tests/torch_parity.py scan-coverage PATH`` (the JAX package's
@@ -8265,6 +8293,233 @@ def phase_parallel(tmp: Path):
     return launches, stats
 
 
+QUALITY_INIT_STEPS = 200
+QUALITY_SPLIT_STEPS = 60
+QUALITY_INIT_MARGIN_DB = 2.0    # after init: PSNR above the mean image's
+QUALITY_FROZEN_DB = 0.1         # shared-only after split 0 vs after init
+QUALITY_UNTRAINED_DB = 1e-3     # the untrained block vs shared-only
+# the quality phase's kernels: K1-H2 run, no other
+QUALITY_KERNELS = ("composite_fwd", "composite_bwd", "packed_hash_fwd",
+                   "packed_hash_bwd")
+
+
+def check_path_kernels(what: str, launches: dict, on_path) -> None:
+    """Fail unless each kernel of ``on_path`` launched and no other did."""
+    log(f"[{what}] launches {launches}")
+    idle = [k for k in on_path if not launches[k]]
+    stray = [k for k, n in launches.items() if n and k not in on_path]
+    if idle or stray:
+        raise AssertionError(f"{what}: kernels of the path never launched "
+                             f"{idle}, kernels off the path launched "
+                             f"{stray}: {launches}")
+
+
+def phase_quality(tmp: Path):
+    """quality_run --config perf --diag --n-blocks 2 on the textured scene
+    at 160x120 through its own functions (scene, baselines, config, run,
+    diag evals), the counters reset: after init the PSNR beats the mean
+    image's by QUALITY_INIT_MARGIN_DB; after the first split the shared
+    field renders as after init (QUALITY_FROZEN_DB) and the untrained block
+    as the shared field (QUALITY_UNTRAINED_DB); the routed delta printed."""
+    import math
+
+    from gfnerf_tpu_torch import quality_run
+
+    out = tmp / "quality"
+    args = quality_run.parse_args([
+        "--config", "perf", "--diag", "--n-blocks", "2",
+        "--init-steps", str(QUALITY_INIT_STEPS),
+        "--split-steps", str(QUALITY_SPLIT_STEPS),
+        "--scene-dir", str(out / "scene"), "--out", str(out / "q.json"),
+        "--output-dir", str(out / "runs")])
+    t0 = time.perf_counter()
+    reset_launch_counts()
+    res = quality_run.run(args, log=lambda m: log(f"[quality] {m}"))
+    launches = launch_counts()
+    seconds = time.perf_counter() - t0
+    check_path_kernels("quality", launches, QUALITY_KERNELS)
+    base, init = res["baselines"], res["after_init"]
+    diag = res["after_split0_diag"]
+    shared = diag["shared_only"]["psnr"]
+    untrained = diag["block1"]["psnr"] - shared
+    stats = {"seconds": seconds, "s_per_step": res["s_per_step"],
+             "minutes": res["minutes"], "baselines": base,
+             "after_init": init, "after_split0": res["after_split0"],
+             "final": res["final"],
+             "diag_after_split0": {k: v["psnr"] for k, v in diag.items()
+                                   if k != "routing"},
+             "diag_final": {k: v["psnr"]
+                            for k, v in res["final_diag"].items()
+                            if k != "routing"},
+             "routing": diag["routing"],
+             "untrained_block_minus_shared_db": untrained,
+             "routed_minus_init_db": {
+                 m: res[m]["psnr"] - init["psnr"]
+                 for m in ("after_split0", "final")}}
+    log(f"[quality] after init PSNR {init['psnr']:.4f} (mean image "
+        f"{base['mean_psnr']:.4f}, black {base['black_psnr']:.4f}); after "
+        f"split 0 shared-only {shared:.4f}, block 1 (untrained) minus "
+        f"shared-only {untrained:.3e} dB; routed minus after-init "
+        f"{stats['routed_minus_init_db']} (printed, not checked)")
+    if not init["psnr"] - base["mean_psnr"] >= QUALITY_INIT_MARGIN_DB:
+        raise AssertionError(
+            f"quality: after init PSNR {init['psnr']:.4f} is not "
+            f"{QUALITY_INIT_MARGIN_DB} dB above the mean image's "
+            f"{base['mean_psnr']:.4f}")
+    if not abs(shared - init["psnr"]) <= QUALITY_FROZEN_DB:
+        raise AssertionError(
+            f"quality: shared-only PSNR after split 0 {shared:.4f} is not "
+            f"after init's {init['psnr']:.4f} within {QUALITY_FROZEN_DB} dB")
+    if not (math.isfinite(untrained)
+            and abs(untrained) <= QUALITY_UNTRAINED_DB):
+        raise AssertionError(
+            f"quality: the untrained block's render is {untrained:.3e} dB "
+            f"from shared-only's (limit {QUALITY_UNTRAINED_DB})")
+    return launches, stats
+
+
+# midscale_run at reduced steps and scene: 48 cameras at 100x75, the batch
+# of its --fast run, a checkpoint every 120 steps (at 119, just before
+# kill_at 120, and at the last; each holds the tables and Adam's moments,
+# about 2 GB)
+MIDSCALE_ARGS = ["--fast", "--init-steps", "60", "--split-steps", "40",
+                 "--n-cams", "48", "--img-wh", "100x75",
+                 "steps_per_save=120"]
+
+
+def run_counted(counts_dir: str, argv) -> int:
+    """``chip_smoke.py --counted DIR -m MODULE ARGS...``: run MODULE as
+    ``python -m`` would and write the kernels' launch counts to
+    DIR/<pid>.json as it exits, also on SIGTERM (then with exit code 143):
+    the midscale phase's train and eval processes report what they
+    launched."""
+    import os
+    import runpy
+    import signal
+
+    if argv[:1] != ["-m"] or len(argv) < 2:
+        print("chip_smoke: --counted DIR -m MODULE [ARGS...]",
+              file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(REPO))
+
+    def dump():
+        Path(counts_dir, f"{os.getpid()}.json").write_text(
+            json.dumps(launch_counts()))
+
+    def on_term(signum, frame):
+        dump()
+        sys.stdout.flush()
+        os._exit(128 + signum)
+
+    signal.signal(signal.SIGTERM, on_term)
+    sys.argv = [argv[1], *argv[2:]]
+    try:
+        runpy.run_module(argv[1], run_name="__main__", alter_sys=True)
+    except SystemExit as e:
+        dump()
+        return e.code if isinstance(e.code, int) else 1
+    dump()
+    return 0
+
+
+def phase_midscale(tmp: Path):
+    """midscale_run at reduced steps (MIDSCALE_ARGS) with its train and
+    eval processes counted (``run_counted``) and TensorBoard events
+    (``--vis tensorboard`` passed on to train): phase 1 logs at least two
+    octree rebuilds and is killed past kill_at; phase 2 resumes at its
+    checkpoint's step + 1, logs no rebuild and ends with the last step's
+    checkpoint and rc 0; eval exits 0 with a finite PSNR above the black
+    image's (the mean image's printed beside it); each run's event file
+    reads back with its scalars and config."""
+    import math
+
+    from gfnerf_tpu_torch import midscale_run
+    from gfnerf_tpu_torch.utils.writer import read_events
+
+    out = tmp / "midscale"
+    counts = out / "counts"
+    counts.mkdir(parents=True, exist_ok=True)
+    args = midscale_run.parse_args([
+        *MIDSCALE_ARGS, "--out-dir", str(out), "--scene-dir",
+        str(out / "scene"), "--run-dir", str(out / "runs"),
+        "--vis", "tensorboard"])
+    t0 = time.perf_counter()
+    summary = midscale_run.run(
+        args, python=[sys.executable, str(REPO / "chip_smoke.py"),
+                      "--counted", str(counts)],
+        log=lambda m: log(f"[midscale] {m}"))
+    seconds = time.perf_counter() - t0
+    launches = {k: 0 for k in launch_counts()}
+    per_process = [json.loads(f.read_text())
+                   for f in sorted(counts.glob("*.json"))]
+    for c in per_process:
+        for k, n in c.items():
+            launches[k] += n
+    if len(per_process) != 3:
+        raise AssertionError(f"midscale: {len(per_process)} processes "
+                             "reported their launches, not 3")
+    check_path_kernels("midscale", launches, QUALITY_KERNELS)
+    sched = midscale_run.schedule(args)
+    ckpt_step = int(summary["resume_ckpts"][-1].split("-")[1])
+    ev = summary.get("eval", {}).get("results", {})
+    psnr = ev.get("psnr", float("nan"))
+    base = summary["baselines"]
+    runs = sorted((out / "runs").glob("midscale/gf-nerf/*"))
+    tb = {}
+    for run in runs:
+        events = [e for f in sorted(run.glob("events.out.tfevents.*"))
+                  for e in read_events(f)]
+        tags = {v["tag"] for e in events for v in e.get("values", [])}
+        tb[run.name] = {"events": len(events),
+                        "steps": sorted({e["step"] for e in events
+                                         if "values" in e}),
+                        "config": "config/text_summary" in tags,
+                        "loss": "loss" in tags}
+    stats = {"seconds": seconds, **{k: summary[k] for k in (
+        "total_steps", "kill_at", "killed_at_logged_step", "resume_ckpts",
+        "phase2_resumed_at", "phase2_rc", "phase2_ckpts", "eval_rc",
+        "phase1_rebuilds", "phase2_rebuilds", "phase1_max_hits_events",
+        "phase1_minutes", "phase2_minutes", "phase1_first_step_s",
+        "phase2_first_step_s", "eval_minutes", "phase1_s_per_step",
+        "phase2_s_per_step", "baselines")},
+        "eval": ev, "tensorboard": tb,
+        "launches_per_process": per_process}
+    log(f"[midscale] killed at logged step "
+        f"{summary['killed_at_logged_step']} (kill_at {sched['kill_at']}), "
+        f"resumed at {summary['phase2_resumed_at']} from step "
+        f"{ckpt_step}; rebuilds {summary['phase1_rebuilds']} + "
+        f"{summary['phase2_rebuilds']}; eval PSNR {psnr:.4f} against the "
+        f"black image's {base['black_psnr']:.4f} and the mean image's "
+        f"{base['mean_psnr']:.4f}; TensorBoard {json.dumps(tb)}")
+    fails = []
+    if summary["phase1_rebuilds"] < 2:
+        fails.append(f"phase 1 logged {summary['phase1_rebuilds']} octree "
+                     "rebuilds, not >= 2")
+    if summary["killed_at_logged_step"] < sched["kill_at"]:
+        fails.append("phase 1 was not killed past kill_at")
+    if summary["phase2_resumed_at"] != ckpt_step + 1:
+        fails.append(f"phase 2 resumed at {summary['phase2_resumed_at']}, "
+                     f"not at its checkpoint's step {ckpt_step} + 1")
+    last = f"step-{sched['total'] - 1:09d}"
+    if summary["phase2_rc"] != 0 or last not in summary["phase2_ckpts"]:
+        fails.append(f"phase 2 rc {summary['phase2_rc']}, checkpoints "
+                     f"{summary['phase2_ckpts']} (expected {last})")
+    if summary["phase2_rebuilds"] != 0:
+        fails.append(f"phase 2 logged {summary['phase2_rebuilds']} "
+                     "rebuilds")
+    if summary["eval_rc"] != 0 or not (math.isfinite(psnr)
+                                       and psnr > base["black_psnr"]):
+        fails.append(f"eval rc {summary['eval_rc']}, PSNR {psnr} against "
+                     f"the black image's {base['black_psnr']}")
+    if len(tb) != 2 or not all(t["config"] and t["loss"]
+                               for t in tb.values()):
+        fails.append(f"event files {tb}")
+    if fails:
+        raise AssertionError("midscale: " + "; ".join(fails))
+    return launches, stats
+
+
 def main() -> int:
     if not (REPO / "gfnerf_tpu_torch").is_dir():
         print("chip_smoke: gfnerf_tpu_torch/ not found beside this script",
@@ -8353,7 +8608,13 @@ def main() -> int:
         clock("tools")
         torch.cuda.empty_cache()
         paths["parallel"], stats["parallel"] = phase_parallel(Path(tmp))
-    clock("parallel")
+        clock("parallel")
+        torch.cuda.empty_cache()
+        paths["quality"], stats["quality"] = phase_quality(Path(tmp))
+        clock("quality")
+        torch.cuda.empty_cache()
+        paths["midscale"], stats["midscale"] = phase_midscale(Path(tmp))
+    clock("midscale")
     fast, scan = stats["pipeline"], stats["scan"]
     log(f"[scan] gf-nerf-perf through the Trainer, the scan (M1) against "
         f"the fast march on the same scene and schedule: "
@@ -8445,7 +8706,8 @@ def main_only(names) -> int:
     """``--only pipeline,nerfacto,...``: the device and the build, then the
     named phases of the temp-dir family (pipeline, gfnerf, prop, nerfacto,
     semantics, instant-ngp, scan, stock, nerfplayer, captures, tools,
-    capture-variants, parallel; nerfacto, semantics and tools need the
+    capture-variants, parallel, quality, midscale; nerfacto, semantics
+    and tools need the
     pipeline phase's scene and checkpoint, parallel writes the scene when
     the pipeline phase did not run,
     instant-ngp, nerfplayer and captures write their own scenes, scan and
@@ -8466,7 +8728,8 @@ def main_only(names) -> int:
               "stock": phase_stock, "nerfplayer": phase_nerfplayer,
               "captures": phase_captures,
               "capture-variants": phase_capture_variants,
-              "tools": phase_tools, "parallel": phase_parallel}
+              "tools": phase_tools, "parallel": phase_parallel,
+              "quality": phase_quality, "midscale": phase_midscale}
     unknown = set(names) - set(phases)
     if unknown:
         print(f"chip_smoke: unknown phases {sorted(unknown)}",
@@ -8490,11 +8753,14 @@ def main_only(names) -> int:
 
 if __name__ == "__main__":
     args = sys.argv[1:]
+    if args[:1] == ["--counted"] and len(args) > 1:
+        sys.exit(run_counted(args[1], args[2:]))
     if args[-2:-1] == ["--coverage-case"]:
         COVERAGE_CASE = args[-1]
         args = args[:-2]
     if len(args) == 2 and args[0] == "--only":
         sys.exit(main_only(args[1].split(",")))
+
     if args:
         print(f"chip_smoke: unknown arguments {args}", file=sys.stderr)
         sys.exit(2)

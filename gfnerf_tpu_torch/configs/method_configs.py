@@ -14,6 +14,7 @@ methods.
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Callable, Dict
 
 from gfnerf_tpu_torch.data.datamanager import GFNerfDataManagerConfig
@@ -26,6 +27,21 @@ from gfnerf_tpu_torch.sampler.manager import PersSamplerManagerConfig
 
 # the JAX package's registered methods that have no port yet
 NOT_PORTED = ()
+
+# the entry-point group a package names its methods in (its
+# ``entry_points.txt``: ``[gfnerf_tpu_torch.method_configs]`` then ``name =
+# module:attribute``, the attribute a MethodSpecification or a callable
+# returning one)
+ENTRY_POINT_GROUP = "gfnerf_tpu_torch.method_configs"
+
+
+@dataclasses.dataclass
+class MethodSpecification:
+    """A method registered by another package (nerfstudio's
+    ``plugins/types.py``)."""
+
+    config: TrainerConfig
+    description: str = ""
 
 
 def gf_nerf_config() -> TrainerConfig:
@@ -286,6 +302,41 @@ method_configs: Dict[str, Callable[[], TrainerConfig]] = {
     "nerfplayer-nerfacto": nerfplayer_nerfacto_config,
     "nerfplayer-ngp": nerfplayer_ngp_config,
 }
+
+descriptions = {
+    "gf-nerf": "Global-guided Focal NeRF (two-stage).",
+    "gf-nerf-tiny": "Shrunk gf-nerf for smoke tests.",
+    "gf-nerf-perf": "Throughput-tuned gf-nerf (8 levels x 4 channels).",
+    "nerfacto": "Proposal-sampler + hash-field model (nerfstudio nerfacto).",
+    "instant-ngp": "Hash field + occupancy-grid sampler (instant-ngp).",
+    "mipnerf": "mip-NeRF (integrated positional encoding, coarse/fine).",
+    "tensorf": "TensoRF (vector-matrix factorized field).",
+    "neus": "NeuS surface reconstruction (SDF field + eikonal).",
+    "vanilla-nerf": "Original NeRF (frequency encoding, coarse/fine MLPs).",
+}
+
+
+def discover_methods() -> Dict[str, Callable[[], TrainerConfig]]:
+    """The registered methods and those other packages name in the
+    ``ENTRY_POINT_GROUP`` entry points (plugins/registry.py:34-50); a
+    plugin's method is a shallow copy of its spec's config.  A plugin
+    that fails to load prints a line and leaves the registry as it is."""
+    methods = dict(method_configs)
+    try:
+        from importlib.metadata import entry_points
+
+        for ep in entry_points(group=ENTRY_POINT_GROUP):
+            spec = ep.load()
+            if callable(spec) and not isinstance(spec, MethodSpecification):
+                spec = spec()
+            if isinstance(spec, MethodSpecification):
+                methods[spec.config.method_name] = (
+                    lambda s=spec: dataclasses.replace(s.config))
+                descriptions[spec.config.method_name] = spec.description
+    except Exception as e:
+        print(f"[plugins] discovery failed: {e}")
+    return methods
+
 
 def get_method(name: str) -> TrainerConfig:
     """A fresh config of the registered method ``name``."""

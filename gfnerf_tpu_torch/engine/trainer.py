@@ -3,8 +3,11 @@
 Port of ``gfnerf_tpu/engine/trainer.py`` (nerfstudio's ``trainer.py``,
 :90-479): setup (pipeline, config file, writer, checkpoint),
 the train loop with the pipeline's after-iteration callbacks, the periodic
-eval, and checkpoints in ``step-{:09d}`` directories pruned to the latest.
-The run's config is written as ``config.json``.  The pipeline is either
+eval, and checkpoints in ``step-{:09d}`` directories pruned to the latest
+(each written as ``step-{:09d}.tmp`` and renamed once whole, which the
+JAX package's trainer does not do).  The run's config is written as
+``config.json``, and to the event writer's backends (``vis``: TensorBoard
+by default, as in the JAX package).  The pipeline is either
 kind the config names: GF-NeRF's or the vanilla one (which has no eval ray
 batch).  With ``vis`` "viewer" the web viewer serves renders and the
 training controls (pause, resume, stop and save) from its own threads
@@ -55,7 +58,9 @@ class TrainerConfig:
     save_only_latest_checkpoint: bool = True
     load_dir: Optional[Path] = None
     load_step: Optional[int] = None
-    vis: str = "local"           # "local" or "viewer"
+    # backends by substring: "tensorboard", "wandb", "local", "viewer"
+    # (the web viewer), "viewer+tensorboard"
+    vis: str = "tensorboard"
     viewer_port: int = 7007
     data: Optional[Path] = None
     device: str = "cuda"
@@ -101,12 +106,16 @@ class Trainer:
             if cfg.timestamp == "{timestamp}":
                 cfg.timestamp = self.comm.broadcast_object(
                     time.strftime("%Y-%m-%d_%H%M%S"))
-        self.writer = EventWriter(cfg.vis, steps_per_log=cfg.steps_per_log)
         self.base_dir = cfg.get_base_dir()
         os.makedirs(self.base_dir, exist_ok=True)
+        # rank 0 alone logs: the other ranks print to the terminal only
+        self.writer = EventWriter(cfg.vis if self.is_main else "local",
+                                  self.base_dir,
+                                  steps_per_log=cfg.steps_per_log)
         self.checkpoint_dir = self.base_dir / "nerfstudio_models"
         if test_mode == "train" and self.is_main:
             (self.base_dir / "config.json").write_text(config_to_json(cfg))
+            self.writer.put_config(config_to_json(cfg))
         ckpt_dir = (self._checkpoint_to_load() if cfg.load_dir is not None
                     else None)
         # a resumed pipeline takes its octree and march config from the
@@ -209,19 +218,31 @@ class Trainer:
         self._on_main(lambda: self._save_checkpoint(step))
 
     def _save_checkpoint(self, step: int):
+        """Written into ``step-N.tmp/`` and renamed to ``step-N/`` once
+        whole, so that a run killed while it saves leaves no torn
+        ``step-N/`` for a resume to pick."""
         ckpt_dir = self.checkpoint_dir / f"step-{step:09d}"
-        os.makedirs(ckpt_dir, exist_ok=True)
-        self.pipeline.save_checkpoint_state(ckpt_dir, step)
+        tmp_dir = ckpt_dir.with_name(ckpt_dir.name + ".tmp")
+        if tmp_dir.exists():
+            shutil.rmtree(tmp_dir)
+        os.makedirs(tmp_dir)
+        self.pipeline.save_checkpoint_state(tmp_dir, step)
+        if ckpt_dir.exists():
+            shutil.rmtree(ckpt_dir)
+        os.rename(tmp_dir, ckpt_dir)
         if self.config.save_only_latest_checkpoint:
             for other in sorted(self.checkpoint_dir.glob("step-*")):
                 if other != ckpt_dir:
                     shutil.rmtree(other)
 
     def _checkpoint_to_load(self) -> Path:
+        """The newest whole checkpoint under ``load_dir`` (``step-N.tmp``
+        directories are saves that did not finish), or ``load_step``'s."""
         load_dir = Path(self.config.load_dir)
         if self.config.load_step is not None:
             return load_dir / f"step-{self.config.load_step:09d}"
-        found = sorted(load_dir.glob("step-*"))
+        found = sorted(p for p in load_dir.glob("step-*")
+                       if not p.name.endswith(".tmp"))
         if not found:
             raise FileNotFoundError(f"no checkpoint under {load_dir}")
         return found[-1]

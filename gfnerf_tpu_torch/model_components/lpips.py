@@ -6,7 +6,9 @@ squared distance, uniform layer weights) over a deterministic, randomly
 initialized VGG16-shaped conv stack drawn from a fixed numpy seed, so that
 there are no weights to fetch.  Scores are comparable across checkpoints of
 this code base, not with published pretrained-LPIPS tables; the eval
-reports it as ``lpips_proxy``.
+reports it as ``lpips_proxy``.  ``load_weights`` installs other kernels
+(pretrained VGG16 ones, where a user has them) in the JAX package's
+layout.
 """
 
 from __future__ import annotations
@@ -41,15 +43,37 @@ def _default_weights():
     return weights
 
 
+_loaded_weights = None
+
+
+def _torch_layout(weights) -> list:
+    """Stages of (3, 3, c_in, c_out) kernels as (c_out, c_in, 3, 3) CPU
+    tensors, the layout ``conv2d`` takes."""
+    return [[torch.as_tensor(np.asarray(k, np.float32)).permute(3, 2, 0, 1)
+             .contiguous() for k in stage] for stage in weights]
+
+
+def load_weights(weights) -> None:
+    """Install pretrained VGG16 kernels (a list of stages, each a list of
+    (3, 3, c_in, c_out) arrays, as the JAX package's ``load_weights``
+    takes them) in place of the random features; None restores those."""
+    global _loaded_weights
+    _loaded_weights = None if weights is None else _torch_layout(weights)
+
+
+@functools.lru_cache(maxsize=1)
+def _default_torch_weights() -> list:
+    return _torch_layout(_default_weights())
+
+
 def _features(x: torch.Tensor) -> list:
     """x (N, 3, H, W) in [0, 1] -> the stages' feature maps."""
     x = (x - 0.5) / 0.5
     feats = []
-    weights = _default_weights()
+    weights = _loaded_weights or _default_torch_weights()
     for si, stage in enumerate(weights):
         for k in stage:
-            w = torch.as_tensor(k, device=x.device).permute(3, 2, 0, 1)
-            x = F.relu(F.conv2d(x, w, padding=1))
+            x = F.relu(F.conv2d(x, k.to(x.device), padding=1))
         feats.append(x)
         if si < len(weights) - 1:
             x = F.avg_pool2d(x, 2)

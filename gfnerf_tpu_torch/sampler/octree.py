@@ -3,7 +3,8 @@ visibility test).
 
 Port of ``gfnerf_tpu/sampler/octree.py``: the numpy builder and the host
 maintenance (``construct_edge_pool``, ``proc_octree``'s compaction and
-milestone subdivision, ``mark_invisible_nodes``, ``update_block_idxs``) are
+milestone subdivision, ``mark_invisible_nodes``, ``update_block_idxs``,
+and the .obj dumps ``vis_octree_obj`` and ``vis_cameras_obj``) are
 copied as they are, so a tree built or rebuilt from the same inputs is
 identical array for array; the jitted visibility test
 (``_make_visibility_fn``) becomes a torch function that runs on the
@@ -626,3 +627,34 @@ def update_block_idxs(tree: PersOctree, block_centers: np.ndarray) -> None:
     d = np.linalg.norm(
         tree.centers[:, None, :] - block_centers[None, :, :], axis=-1)
     tree.block_idx = np.argmin(d, axis=1).astype(np.int32)
+
+
+# ------------------------------------------------------------- debug viz ----
+
+
+def vis_octree_obj(tree: PersOctree, output_path) -> None:
+    """Wireframe .obj of the octree: each node's 8 corners as vertices, a
+    leaf's 12 edges as lines (PersSampler::VisOctree,
+    PersSampler.cpp:478-514; the same bytes as the JAX package's)."""
+    with open(output_path, "w") as f:
+        for i in range(tree.n_nodes):
+            for st in range(8):
+                off = np.array([(st >> 2 & 1) - 0.5, (st >> 1 & 1) - 0.5,
+                                (st & 1) - 0.5])
+                xyz = tree.centers[i] + off * tree.side_lens[i]
+                f.write(f"v {xyz[0]} {xyz[1]} {xyz[2]}\n")
+        for i in range(tree.n_nodes):
+            if not tree.is_leaf[i]:
+                continue
+            for a in range(8):
+                for b in range(a + 1, 8):
+                    if a ^ b in (1, 2, 4):
+                        f.write(f"l {i * 8 + a + 1} {i * 8 + b + 1}\n")
+
+
+def vis_cameras_obj(c2w: np.ndarray, output_path) -> None:
+    """The cameras' positions as .obj vertices (persoctree.py:337-342)."""
+    with open(output_path, "w") as f:
+        for i in range(len(c2w)):
+            pos = c2w[i, :, 3]
+            f.write(f"v {pos[0]} {pos[1]} {pos[2]}\n")

@@ -7,7 +7,9 @@ The port's counterpart of ``scripts/train.py``:
                      sdfstudio,phototourism,sitcoms3d,arkitscenes,nuscenes,
                      dycheck}] [--dataparser-scale-factor F]
       [--max-num-iterations N] [--output-dir DIR] [--experiment-name NAME]
-      [--load-dir DIR] [--vis {local,viewer}] [--device {cuda,cpu}]
+      [--load-dir DIR]
+      [--vis {tensorboard,wandb,local,viewer,viewer+tensorboard}]
+      [--device {cuda,cpu}]
       [--parallel-blocks] [--num-machines N --machine-rank I
       --dist-url tcp://HOST:PORT] [--dist-backend {nccl,gloo}]
       [a.b.c=value ...] [--a.b.c value ...]
@@ -33,7 +35,11 @@ gf-nerf-tiny, and on the vanilla pipeline nerfacto, semantic-nerfw
 Blender scene of PNGs, ``--dataparser blender``), mipnerf, tensorf, neus,
 vanilla-nerf, and the dynamic-scene pair nerfplayer-nerfacto and
 nerfplayer-ngp (on a D-NeRF or DyCheck capture, ``--dataparser dnerf`` or
-``dycheck``, whose frames carry times).  A COLMAP capture in the wild
+``dycheck``, whose frames carry times).  Other packages add methods
+through the ``gfnerf_tpu_torch.method_configs`` entry points
+(``configs/method_configs.discover_methods``).  Events go to a
+TensorBoard file in the run's directory unless ``--vis`` says otherwise,
+as in the JAX script.  A COLMAP capture in the wild
 trains with ``--dataparser phototourism``, e.g. at half its image size and
 with gradient clipping: ``pipeline.datamanager.camera_res_scale_factor=0.5
 pipeline.optimizers.max_norm=1.0``.  ``python -m
@@ -86,10 +92,15 @@ def build_trainer(argv=None):
     parser.add_argument("--output-dir", type=Path, default=Path("outputs"))
     parser.add_argument("--experiment-name", default=None)
     parser.add_argument("--max-num-iterations", type=int, default=None)
-    parser.add_argument("--vis", default="local",
-                        choices=["local", "viewer"],
-                        help="viewer: serve the web viewer while training, "
-                             "on viewer_port (an override, default 7007)")
+    parser.add_argument("--vis", default="tensorboard",
+                        choices=["tensorboard", "wandb", "local", "viewer",
+                                 "viewer+tensorboard"],
+                        help="where events go besides the terminal: a "
+                             "TensorBoard event file in the run's "
+                             "directory, W&B (where wandb imports), or "
+                             "nowhere (local); viewer: serve the web viewer "
+                             "while training, on viewer_port (an override, "
+                             "default 7007)")
     parser.add_argument("--load-dir", type=Path, default=None)
     parser.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
     parser.add_argument("--parallel-blocks", action="store_true",
@@ -112,11 +123,16 @@ def build_trainer(argv=None):
     args, extra = parser.parse_known_args(argv)
 
     from gfnerf_tpu_torch.configs.config_io import apply_override
-    from gfnerf_tpu_torch.configs.method_configs import get_method
+    from gfnerf_tpu_torch.configs.method_configs import discover_methods
     from gfnerf_tpu_torch.data.dataparsers import build_dataparser
     from gfnerf_tpu_torch.engine.trainer import Trainer
 
-    config = get_method(args.method)
+    methods = discover_methods()
+    if args.method not in methods:
+        print(f"unknown method {args.method!r}; available: "
+              f"{sorted(methods)}", file=sys.stderr)
+        raise SystemExit(1)
+    config = methods[args.method]()
     config.data = args.data
     config.output_dir = args.output_dir
     config.vis = args.vis

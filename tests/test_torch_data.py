@@ -216,19 +216,19 @@ def test_method_configs_match_jax(method):
     from gfnerf_tpu_torch.configs.method_configs import get_method
 
     got, want = _fields(get_method(method)), _fields(method_configs[method]())
-    shared = sorted(set(got) & set(want) - {"vis"})
+    shared = sorted(set(got) & set(want))
     assert len(shared) > 60
     for k in shared:
         assert got[k] == want[k], (k, got[k], want[k])
     # every JAX field but the listed ones is the port's too
     assert set(want) - set(got) == JAX_ONLY_FIELDS
-    # the port's own fields: the device, "local" logging (TensorBoard is
-    # not ported), and the march, which the JAX manager leaves at
-    # SamplerConfig's default (the port carries it through config.json)
+    # the port's own fields: the device, and the march, which the JAX
+    # manager leaves at SamplerConfig's default (the port carries it
+    # through config.json); logging goes to TensorBoard in both
     from gfnerf_tpu.sampler.perssampler import SamplerConfig
 
     assert set(got) - set(want) == {"device", "pipeline.sampler.march"}
-    assert got["vis"] == "local" and got["device"] == "cuda"
+    assert got["vis"] == "tensorboard" and got["device"] == "cuda"
     assert got["pipeline.sampler.march"] == SamplerConfig().march
 
 
@@ -243,10 +243,11 @@ def test_unported_methods_raise():
             get_method(name)
     with pytest.raises(KeyError):
         get_method("no-such-method")
-    from gfnerf_tpu_torch.utils.writer import EventWriter
+    from gfnerf_tpu_torch.utils.writer import EventWriter, TensorboardWriter
 
-    with pytest.raises(NotImplementedError, match="not ported"):
-        EventWriter("tensorboard")
+    # the TensorBoard backend is ported: vis "tensorboard" makes one
+    assert any(isinstance(b, TensorboardWriter)
+               for b in EventWriter("tensorboard").backends)
 
 
 def test_overrides_and_json_round_trip():

@@ -6,7 +6,7 @@ mesh, compiles more and is slower; the single-device run is the one-card
 reference).  Usage:
 
   python tests/torch_pipeline_ref.py SCENE_DIR OUT_DIR STEPS RAYS PATCH_H \
-      LAYOUT
+      LAYOUT [diag]
 
 Drives ``GFNerfPipeline`` of ``gf-nerf-tiny`` (with LAYOUT's overrides,
 ``FIELD_OVERRIDES``, ``PROP_OVERRIDES`` or ``CLIP_OVERRIDES``, and the port
@@ -20,7 +20,9 @@ indices, losses, split index and whether its update was applied (finite
 gradients); the calibrated
 ``sample_l`` and ``max_hits``; the host tree after every milestone rebuild;
 the camera labels, error maps and block indices at the transition; the eval
-PSNR; and the final field parameters.
+PSNR; and the final field parameters.  With ``diag``, also
+``scripts/quality_run.py``'s ``diag_eval`` after the last step (as JSON,
+``diag``).
 """
 
 from __future__ import annotations
@@ -57,7 +59,7 @@ CLIP_OVERRIDES = {
 LOSS_KEYS = ("loss", "rgb_loss", "s3im_loss")
 
 
-def main(scene, out_dir, steps, rays, patch_h, layout):
+def main(scene, out_dir, steps, rays, patch_h, layout, diag=False):
     import jax
     import numpy as np
 
@@ -146,6 +148,18 @@ def main(scene, out_dir, steps, rays, patch_h, layout):
     rec["appearance_embedding"] = np.asarray(params.appearance_embedding)
     if params.prop_feat is not None:
         rec["prop_feat"] = np.asarray(params.prop_feat)
+    if diag:
+        import importlib.util
+        import json
+
+        script = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                              "..", "scripts", "quality_run.py")
+        spec = importlib.util.spec_from_file_location("jax_quality_run",
+                                                      script)
+        quality_run = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(quality_run)
+        rec["diag"] = np.array(json.dumps(quality_run.diag_eval(
+            p, steps, cfg.pipeline.model.n_blocks)))
     np.savez(os.path.join(out_dir, "ref.npz"), **rec)
 
 
@@ -156,4 +170,4 @@ if __name__ == "__main__":
     sys.path.insert(0, os.path.join(
         os.path.dirname(os.path.abspath(__file__)), ".."))
     main(sys.argv[1], sys.argv[2], int(sys.argv[3]), int(sys.argv[4]),
-         int(sys.argv[5]), sys.argv[6])
+         int(sys.argv[5]), sys.argv[6], sys.argv[7:] == ["diag"])
