@@ -6,8 +6,17 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
                 power limit.
   2. build    — compiles gfnerf_tpu_torch/csrc/*.cu with nvcc for sm_90a,
                 one process per source, into gfnerf_tpu_torch/_build/ and
-                prints each kernel's registers.
-  3. kernels  — seven of the hand-written kernels against their plain
+                prints each kernel's registers; then the JPEG codec
+                (csrc/jpeg/*.cpp, host code) with g++.
+  3. jpeg     — the codec: the fixtures of tests/data/jpeg (Pillow's and
+                cv2's files: baseline, optimized, progressive, restarts,
+                4:2:2, grey) decoded equal to the imageio decodes stored
+                beside them and to the plain numpy decoder; the encoder
+                equal to its plain version byte for byte; a 4000x3000
+                image at quality 90 decoded on one host thread (under
+                JPEG_DECODE_LIMIT_S) and 16 of them on a thread pool
+                (Mpixel/s), a 1920x1080 frame encoded at 4:4:4 and 4:2:0.
+  4. kernels  — seven of the hand-written kernels against their plain
                 PyTorch version on the card, at the main paths' shapes (K2
                 also at gf-nerf's 1024 slots) and
                 at ragged and edge cases (the composite backward where
@@ -20,18 +29,20 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
                 events (median); the composite backward in the train
                 step's form at 384 and 192 samples, its register kernel
                 and its tiled kernel in turns, 20 calls per event pair, and
-                their device time from the profiler.
-  4. workload — the bench's quality workload: 48 ring cameras and their
+                their device time from the profiler; K1 at the render
+                chunk timed 20 calls an event pair, by the profiler's
+                device time and one call an event pair.
+  5. workload — the bench's quality workload: 48 ring cameras and their
                 sphere-scene images, depth-8 octree, 8x4-level packed hash
                 field with random weights from seed 0, 384 march slots,
                 per-group Adam with the default config.
-  5. render   — with the launch counters reset: 4 training views and one
+  6. render   — with the launch counters reset: 4 training views and one
                 1920x1080 frame in chunks of 32768 rays; outputs checked;
                 each forward kernel launched once per chunk; one chunk
                 against the plain versions; the hash encode timed against
                 its plain version on one chunk's real inputs, and level by
                 level.
-  6. train    — with the counters reset: 20 init-stage steps of 8192 rays
+  7. train    — with the counters reset: 20 init-stage steps of 8192 rays
                 through make_train_step (one warm-up, 5 timed: s/step,
                 rays/s, peak memory); each kernel called once per step,
                 the hash backward's call launching once per group of
@@ -48,7 +59,7 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
                 level, counted by the kernel and held against the same
                 runs reckoned on the host, and a launch per level timed);
                 the host syncs of one encode forward and backward.
-  7. focal    — with the counters reset per block: 10 block-stage steps
+  8. focal    — with the counters reset per block: 10 block-stage steps
                 (residual mode) on block 0, then 10 on block 1 from a new
                 optimizer state; launches per step (two encodes, one table
                 gradient into the block's table, no routed encode); frozen
@@ -58,7 +69,7 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
                 (loss and the active table's gradient); no addition in
                 the encode span (the block's encode adds itself to the
                 global one as it writes).
-  8. focal    — with the counters reset: the 4 views as one mixed chunk
+  9. focal    — with the counters reset: the 4 views as one mixed chunk
      render     (view i in block i mod 2) and one 1920x1080 frame with a
                 block per ray, through render_chunk(..., stage_is_block=
                 True) with the trained tables; the composite, the encode
@@ -69,7 +80,7 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
                 and added to a base (bit for bit, in place and not), timed
                 in place on a base beside the encode followed by a
                 separate add, the stack's bf16 copy and the add alone.
-  9. parity   — the bench's parity workload (anchored layout, 16 levels x
+ 10. parity   — the bench's parity workload (anchored layout, 16 levels x
                 2 channels of 2^19 entries, 192 slots, fineness 4) built
                 anew; with the counters reset, 20 init-stage steps: the
                 composites and the anchored encode and table gradient one
@@ -84,7 +95,7 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
                 against index_add_, with its reductions per level (held
                 against the host's reckoning) and its time at 1, 2, 4, 8
                 and 16 levels per launch.
- 10. parity   — with the counters reset: 5 block-stage steps (residual
+ 11. parity   — with the counters reset: 5 block-stage steps (residual
      focal      mode) on block 0 of the parity workload from a fresh
                 optimizer state: the anchored encode twice a step, the
                 second on a base (the block's encode adds itself to the
@@ -92,7 +103,7 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
                 into the block's table; no addition in the encode span;
                 frozen parameters and block 1 bit-unchanged; one step
                 against the plain pairs.
- 11. pipeline — with the counters reset: gf-nerf-perf through the Trainer
+ 12. pipeline — with the counters reset: gf-nerf-perf through the Trainer
                 (python -m gfnerf_tpu_torch.train's path) on the 48-view
                 synthetic scene: 24 init steps with milestone rebuilds at
                 8 and 16, the transition (48 error-map renders, 10 camera
@@ -102,7 +113,7 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
                 steps (see phase_pipeline for the checks); s/step through
                 the Trainer against train_bench's loop on the same steps,
                 the host work around the step, host syncs a step.
- 12. gfnerf   — with the counters reset: gf-nerf, the paper's method, at
+ 13. gfnerf   — with the counters reset: gf-nerf, the paper's method, at
                 its full width through the Trainer (8192 rays, 1024 march
                 slots, a budget of 256 field samples a ray: the compacted
                 branch; anchored 16 levels x 2 of 2^21; 10 blocks; f32
@@ -120,7 +131,7 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
                 early-termination renderer against the single pass, and
                 python -m gfnerf_tpu_torch.eval and .render on the
                 checkpoint (PNG frames).
- 13. prop     — with the counters reset: gf-nerf-prop (proposal-guided
+ 14. prop     — with the counters reset: gf-nerf-prop (proposal-guided
                 resampling) at its full width through the Trainer (8192
                 rays, a dense 256-slot march, the probe's 4 levels x 4
                 channels of 2^12 rows on 2,097,152 lattice points, 64 fine
@@ -138,7 +149,7 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
                 index_add_); an init and a focal step profiled (the
                 gfnerf/proposal span); eval and render on the checkpoint,
                 render --early-term refused.
- 14. nerfacto — with the counters reset: the stock nerfacto on the vanilla
+ 15. nerfacto — with the counters reset: the stock nerfacto on the vanilla
                 pipeline through the Trainer at its full width (4096 rays,
                 proposal samples (256, 96) on two fields of 5 x 2 of 2^17,
                 48 field samples on 16 x 2 of 2^19, the pipeline phase's
@@ -154,7 +165,7 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
                 memory, a profiled step's busy time and idle share; eval
                 and render on the checkpoint; then SEMANTIC_NERFW_STEPS
                 steps of semantic-nerfw on the scene with road masks.
- 15. semantics — with the counters reset: gf-nerf-perf with semantics and
+ 16. semantics — with the counters reset: gf-nerf-perf with semantics and
                 the SO3xR3 camera optimizer through the Trainer, on the
                 scene with road masks and on the pipeline phase's
                 checkpointed octree (not built again): 10 init steps, the
@@ -164,7 +175,7 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
                 the init steps, bit-unchanged by the focal ones; one step
                 against the plain pairs (K2 given the semantics' weights
                 cotangent), the tangents' gradient included.
- 16. instant- — with the counters reset: instant-ngp at its full width
+ 17. instant- — with the counters reset: instant-ngp at its full width
      ngp        through the Trainer (4096 rays, 192 samples, 16 x 2 of
                 2^19, grid 96) on a Blender scene written to disk as RGBA
                 PNGs with a transparent sky and read back by the blender
@@ -182,7 +193,7 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
                 steps with dynamic_batch and on an instant-ngp-format scene
                 with distortion (its rays on the card against the CPU's);
                 PNG round trips of every colour type, depth and filter.
- 17. scan     — with the counters reset: gf-nerf-perf with the scan march
+ 18. scan     — with the counters reset: gf-nerf-perf with the scan march
                 (pipeline.sampler.march=scan, kernel M1) through the Trainer
                 on the pipeline phase's scene and schedule, 24 init + 2
                 focal steps on each of blocks 0 and 1: per step M1, K1 and
@@ -205,14 +216,14 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
                 the scan (1024 slots, budget 256: the compacted branch at
                 gf-nerf's width); a 1920x1080 frame of the quality
                 workload through the scan.
- 18. stock    — vanilla-nerf, mipnerf, tensorf and neus, each at its
+ 19. stock    — vanilla-nerf, mipnerf, tensorf and neus, each at its
                 registered width through the Trainer on the instant-ngp
                 phase's Blender scene (STOCK_STEPS steps): no kernel
                 launches; finite losses, the rgb loss falling, every
                 parameter changed, the eval PSNR above the mean image's, the
                 checkpoint; s/step, rays/s, peak memory, a profiled step;
                 one step on the card against the same step on the CPU.
- 19. nerfplayer — with the counters reset per method: nerfplayer-nerfacto
+ 20. nerfplayer — with the counters reset per method: nerfplayer-nerfacto
                 and nerfplayer-ngp at their registered widths through the
                 Trainer (NPL_STEPS steps each) on a D-NeRF scene written
                 to disk (24 + 4 RGBA PNGs at 200x200, a sphere moving with
@@ -240,15 +251,16 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
                 every window-row boundary, the faces 0.0 and 1.0, dense
                 and hashed levels); s/step, rays/s, peak memory, a
                 profiled step; eval and render on each checkpoint.
- 20. captures — the six remaining capture formats (scannet, sdfstudio,
+ 21. captures — the six remaining capture formats (scannet, sdfstudio,
                 phototourism, sitcoms3d, arkitscenes, nuscenes) written
                 from the ring scene and parsed through build_dataparser
                 (split sizes, finite poses, the auto-scaled translations,
                 metadata, files: a [captures] line each); then, with the
                 counters reset, gf-nerf-perf at its registered width
                 through gfnerf_tpu_torch.train's command line on a
-                Phototourism capture of 54 PNGs at 192x144 (the sky
-                gradient) read at half
+                Phototourism capture of 54 JPEGs at 192x144 (the sky
+                gradient; the port's encoder at quality 95, 4:2:0, decoded
+                by the port's codec on the datamanager's pool) read at half
                 size (camera_res_scale_factor 0.5: the cameras scaled with
                 the images), clipped at CAPTURE_MAX_NORM, with MSE, the
                 march's near plane at 1, on the config's octree,
@@ -260,7 +272,7 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
                 H1 and H2, one step against the plain pairs under the clip
                 (the norms and the clipped moments too); s/step through the
                 Trainer and the phase's own peak memory.
- 21. tools    — the exporter, the viewer and the live viewer on the
+ 22. tools    — the exporter, the viewer and the live viewer on the
                 pipeline phase's run (its focal stage), the counters reset
                 for each part: gfnerf_tpu_torch.export's point cloud (48
                 views at downscale 4), poses (python -m, a process of its
@@ -268,14 +280,18 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
                 grid's densities), TSDF (8 views, 64^3) and texture;
                 per render chunk K1 once and H1 twice, per density chunk H1
                 once; every file finite inside the octree's root cube; the
-                point cloud and the mesh against the plain versions; a
-                ViewerServer on an ephemeral port: the page, /scene,
+                point cloud and the mesh against the plain versions;
+                gfnerf_tpu_torch.render along a spiral of 8 frames as
+                render.mp4 (K1 once and H1 twice a chunk): the MP4's
+                boxes, 24 fps, each sample decoded by the codec against
+                the frame's PNG pixels; a ViewerServer on an ephemeral
+                port: the page, /scene,
                 /render at 640x480 (rgb, depth, accumulation) and at
                 downscale 4, its rgb PNG equal to render_camera's image, a
                 camera path read back; a Trainer with vis viewer resumed
                 for up to 12 steps: pause, resume, a render while training,
                 stop and its checkpoint, /status (see phase_tools).
- 22. parallel — gf-nerf-perf over 4 ranks, launched as
+ 23. parallel — gf-nerf-perf over 4 ranks, launched as
                 torch.distributed.run launches gfnerf_tpu_torch.train
                 (spawned processes, each through train.build_trainer),
                 with parallel_blocks on a (data 2, block 2) grid: under
@@ -297,7 +313,7 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
                 beside its mean image's PSNR; s/step at world 4 against one
                 process, peak memory per rank, the backend (see
                 phase_parallel).
- 23. quality  — with the counters reset: gf-nerf's quality run through
+ 24. quality  — with the counters reset: gf-nerf's quality run through
                 gfnerf_tpu_torch.quality_run's own functions (--config
                 perf --diag --n-blocks 2: packed 8 x 4 of 2^15, 4096 rays,
                 384 samples) on the textured scene of 72 + 6 views at
@@ -310,7 +326,7 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
                 within QUALITY_UNTRAINED_DB of the shared field's (the
                 difference printed); the routed PSNR against after init's
                 printed, not checked.
- 24. midscale — gfnerf_tpu_torch.midscale_run at reduced steps and scene
+ 25. midscale — gfnerf_tpu_torch.midscale_run at reduced steps and scene
                 (MIDSCALE_ARGS: 48 views at 100x75 in the nerfstudio
                 layout, 60 init steps with rebuilds at 7, 15 and 30, 4
                 blocks of 40, 1024 rays of 192 samples, a checkpoint every
@@ -351,6 +367,7 @@ python3 chip_smoke.py --only capture-variants
 python3 chip_smoke.py --only pipeline,tools
 python3 chip_smoke.py --only parallel
 python3 chip_smoke.py --only quality,midscale
+python3 chip_smoke.py --only jpeg
 Either form takes ``--coverage-case PATH`` last: the scan phase then writes
 the octree and rays of its coverage check there, for
 ``python tests/torch_parity.py scan-coverage PATH`` (the JAX package's
@@ -559,6 +576,138 @@ def phase_build():
         if "registers" in line or "spill" in line or "Compiling" in line:
             log(f"[build]   {line.strip()}")
     build.library()
+    res = build.build_jpeg_library()
+    log(f"[build] g++ {' '.join(build.CXX_FLAGS)} -> "
+        f"{build.JPEG_LIB_PATH.relative_to(REPO)} in {res['seconds']:.2f}s")
+    build.jpeg_library()
+
+
+# the JPEG codec (gfnerf_tpu_torch/csrc/jpeg/, host code): the committed
+# fixtures of tests/data/jpeg (Pillow's and cv2's files, one progressive,
+# one with restarts, one grey) against imageio's decodes stored beside
+# them and against the plain numpy versions; the rates on a 4000x3000
+# photo-sized image and a 1920x1080 frame
+JPEG_FIXTURES = REPO / "tests" / "data" / "jpeg"
+JPEG_BIG_WH = (4000, 3000)
+JPEG_FRAME_WH = (1920, 1080)
+JPEG_POOL_IMAGES = 16
+JPEG_DECODE_LIMIT_S = 1.0      # a 4000x3000 decode on one host thread
+
+
+def jpeg_test_image(w: int, h: int, seed: int):
+    """(h, w, 3) uint8 with a photo's mix: smooth gradients, sharp-edged
+    rectangles and sensor-like noise (sigma 4)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    y = np.linspace(0.0, 1.0, h, dtype=np.float32)[:, None]
+    x = np.linspace(0.0, 1.0, w, dtype=np.float32)[None, :]
+    img = np.empty((h, w, 3), np.float32)
+    for c in range(3):
+        img[..., c] = 128 + 60 * np.sin(6.0 * x + 2 * c) * np.cos(
+            4.0 * y - c) + 40 * (x - y)
+    for _ in range(40):
+        x0, y0 = int(rng.integers(0, w)), int(rng.integers(0, h))
+        img[y0:y0 + int(rng.integers(8, h // 4)),
+            x0:x0 + int(rng.integers(8, w // 4))] = rng.uniform(0, 255, 3)
+    img += rng.normal(0.0, 4.0, (h, w, 1)).astype(np.float32)
+    return np.clip(img, 0, 255).astype(np.uint8)
+
+
+def phase_jpeg(card: str) -> dict:
+    """The codec against the committed fixtures and its plain versions,
+    and its rates: decode on one thread and on a pool, encode."""
+    import concurrent.futures
+    import os
+
+    import numpy as np
+
+    from gfnerf_tpu_torch.utils.jpeg import (decode_jpeg,
+                                             decode_jpeg_reference,
+                                             encode_jpeg,
+                                             encode_jpeg_reference)
+
+    want = np.load(JPEG_FIXTURES / "decodes.npz")
+    files = sorted(JPEG_FIXTURES.glob("*.jpg"))
+    if not files or sorted(f.stem for f in files) != sorted(want.files):
+        raise AssertionError(f"jpeg: fixtures {[f.name for f in files]} "
+                             f"against decodes {sorted(want.files)}")
+    for f in files:
+        data = f.read_bytes()
+        got = decode_jpeg(data)
+        plain = decode_jpeg_reference(data)
+        if not (np.array_equal(got, want[f.stem])
+                and np.array_equal(plain, got)):
+            raise AssertionError(f"jpeg: {f.name} differs from imageio's "
+                                 "decode or from the plain version")
+        kind = ("progressive" if b"\xff\xc2" in data else "baseline") + (
+            ", restarts" if b"\xff\xdd" in data else "")
+        log(f"[jpeg] {f.name} ({len(data)} bytes, {kind}) {got.shape}: "
+            f"equal to imageio's decode and to the plain version")
+    small = jpeg_test_image(96, 72, 1)
+    for src, sub in ((small, "4:2:0"), (small, "4:4:4"),
+                     (small[..., 1], "4:2:0")):
+        data = encode_jpeg(src, 90, sub)
+        if data != encode_jpeg_reference(src, 90, sub):
+            raise AssertionError(f"jpeg: the encoder at {sub} "
+                                 f"{src.shape} differs from the plain one")
+        if decode_jpeg(data).shape != src.shape:
+            raise AssertionError("jpeg: an encoded image decodes to "
+                                 "another shape")
+    log("[jpeg] encode_jpeg at 96x72 (4:2:0, 4:4:4, grey, quality 90) "
+        "equal to the plain version byte for byte")
+
+    w, h = JPEG_BIG_WH
+    big = jpeg_test_image(w, h, 2)
+    t0 = time.perf_counter()
+    data = encode_jpeg(big, 90, "4:2:0")
+    enc_big_s = time.perf_counter() - t0
+    one = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        out = decode_jpeg(data)
+        one.append(time.perf_counter() - t0)
+    psnr = float(10 * np.log10(255.0 ** 2 / np.mean(
+        (out.astype(np.float32) - big) ** 2)))
+    threads = os.cpu_count() or 1
+    with concurrent.futures.ThreadPoolExecutor(threads) as ex:
+        list(ex.map(decode_jpeg, [data] * threads))
+        t0 = time.perf_counter()
+        list(ex.map(decode_jpeg, [data] * JPEG_POOL_IMAGES))
+        pool_s = time.perf_counter() - t0
+    mpix = w * h / 1e6
+    one_s = float(np.median(one))
+    fw, fh = JPEG_FRAME_WH
+    frame = jpeg_test_image(fw, fh, 3)
+    enc = {}
+    for sub in ("4:4:4", "4:2:0"):
+        ts = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            encode_jpeg(frame, 90, sub)
+            ts.append(time.perf_counter() - t0)
+        enc[sub] = float(np.median(ts))
+    stats = {"card": card, "decode_4000x3000_s": one_s,
+             "decode_mpix_per_s_one_thread": mpix / one_s,
+             "decode_mpix_per_s_pool": JPEG_POOL_IMAGES * mpix / pool_s,
+             "pool_threads": threads, "jpeg_bytes": len(data),
+             "encode_4000x3000_s": enc_big_s, "round_trip_psnr": psnr,
+             "encode_1920x1080_s": enc,
+             "encode_mpix_per_s_1920x1080": {
+                 k: fw * fh / 1e6 / v for k, v in enc.items()}}
+    log(f"[jpeg] {card}: a {w}x{h} JPEG (quality 90, 4:2:0, "
+        f"{len(data) / 1e6:.3f} MB, PSNR {psnr:.2f} dB) decodes in "
+        f"{one_s:.4f} s on one host thread ({mpix / one_s:.2f} Mpixel/s; "
+        f"runs {[round(t, 4) for t in one]}), "
+        f"{stats['decode_mpix_per_s_pool']:.2f} Mpixel/s over "
+        f"{JPEG_POOL_IMAGES} images on a pool of {threads} threads; "
+        f"encoded in {enc_big_s:.4f} s; a {fw}x{fh} frame encodes in "
+        f"{enc['4:4:4']:.4f} s at 4:4:4 (the video's), {enc['4:2:0']:.4f} "
+        f"s at 4:2:0")
+    if one_s >= JPEG_DECODE_LIMIT_S:
+        raise AssertionError(f"jpeg: a {w}x{h} decode took {one_s:.3f} s "
+                             f"on one thread (limit {JPEG_DECODE_LIMIT_S})")
+    return stats
 
 
 def _composite_inputs(r, s, seed):
@@ -970,14 +1119,25 @@ def phase_kernels(n_samples: int):
         errs.append(max_err(got, want))
         log(f"[kernels] composite_fwd R={r} S={s}: max abs err {errs[-1]:.3g}")
     x = _composite_inputs(CHUNK, n_samples, seed=1)
-    ms = time_ms(lambda: fused_composite(*x))
+    # one call an event pair times the wrapper's host work in part; 20
+    # calls a pair (as the other kernels are timed) and the profiler's
+    # device time read the kernel
+    one_call_ms = time_ms(lambda: fused_composite(*x))
+    ms = time_ms(lambda: fused_composite(*x), n=21, reps=20)
+    device_ms = kernel_device_ms(lambda: fused_composite(*x),
+                                 "composite_fwd_kernel")
     plain_ms = time_ms(lambda: composite_reference(*x))
-    log(f"[kernels] composite_fwd R={CHUNK} S={n_samples}: kernel {ms:.4f} ms,"
-        f" plain {plain_ms:.4f} ms")
     bound = composite_fwd_bytes(CHUNK, n_samples) / HBM_BYTES_PER_S * 1e3
+    log(f"[kernels] composite_fwd R={CHUNK} S={n_samples}: kernel "
+        f"{ms:.4f} ms (20 calls an event pair), device time {device_ms:.4f}"
+        f" ms, one call an event pair {one_call_ms:.4f} ms; plain "
+        f"{plain_ms:.4f} ms; bound {bound:.4f} ms, half the bound's rate "
+        f"{2 * bound:.4f} ms")
     report["composite_fwd"] = dict(max_abs_err=max(errs), ms=ms,
                                    plain_ms=plain_ms, bound_ms=bound,
-                                   bound_by="bytes", library_ms=None)
+                                   bound_by="bytes", library_ms=None,
+                                   device_ms=device_ms,
+                                   one_call_ms=one_call_ms)
     del x
     report["composite_bwd"] = check_composite_bwd()
 
@@ -6896,9 +7056,10 @@ def parse_captures(tmp: Path) -> dict:
 
 
 def capture_scene(tmp: Path, sky: bool, parser: str) -> Path:
-    """CAPTURE_SCENE written for ``parser``: a Phototourism capture at full
-    size (with the sky or over black), or the minimal parser's npz of the
-    same cameras and views at half size (with the sky)."""
+    """CAPTURE_SCENE written for ``parser``: a Phototourism capture of
+    JPEGs (the port's encoder at quality 95, 4:2:0) at full size
+    (with the sky or over black), or the minimal parser's npz of the same
+    cameras and views at half size (with the sky)."""
     from gfnerf_tpu_torch.utils.synthetic import (make_phototourism_fixture,
                                                   make_synthetic_npz)
 
@@ -6906,7 +7067,7 @@ def capture_scene(tmp: Path, sky: bool, parser: str) -> Path:
     if parser == "phototourism":
         return make_phototourism_fixture(
             tmp / f"capture_{'sky' if sky else 'black'}", n, wh, focal,
-            sky=sky)
+            sky=sky, image_format="jpeg")
     if not sky:
         raise ValueError("the minimal parser's scene has its sky")
     # ring_cameras' focal length 55 is CAPTURE_SCENE's at half size
@@ -7057,11 +7218,19 @@ def phase_captures(tmp: Path):
     from gfnerf_tpu_torch.fields.packed_hash import packed_hash_encode
     from gfnerf_tpu_torch.train_bench import RAYS, make_batch
 
+    from gfnerf_tpu_torch.utils.jpeg import jpeg_info
+    from gfnerf_tpu_torch.utils.synthetic import JPEG_QUALITY
+
     parsed = parse_captures(tmp)
     n, wh, focal = CAPTURE_SCENE
     t0 = time.perf_counter()
     scene = capture_scene(tmp, True, "phototourism")
     write_s = time.perf_counter() - t0
+    files = sorted((scene / "dense" / "images").iterdir())
+    if (len(files) != n or any(f.suffix != ".jpg" for f in files)
+            or {jpeg_info(f.read_bytes()) for f in files} != {(*wh, 3)}):
+        raise AssertionError(f"captures: the capture's files {files[:3]}")
+    jpeg_bytes = sum(f.stat().st_size for f in files)
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -7075,8 +7244,10 @@ def phase_captures(tmp: Path):
     cams = dm.train_dataparser_outputs.cameras
     shape = dm.init_cache.images.shape
     log(f"[captures] python -m gfnerf_tpu_torch.train {' '.join(argv)}")
-    log(f"[captures] phototourism: {n} views at {wh[0]}x{wh[1]} written in "
-        f"{write_s:.2f}s; setup {setup_s:.2f}s: {len(cams)} train and "
+    log(f"[captures] phototourism: {n} views at {wh[0]}x{wh[1]} written "
+        f"as JPEG (quality {JPEG_QUALITY}, 4:2:0, {jpeg_bytes} "
+        f"bytes) in {write_s:.2f}s and decoded by the port's codec on the "
+        f"datamanager's pool; setup {setup_s:.2f}s: {len(cams)} train and "
         f"{len(dm.eval_dataparser_outputs.cameras)} val cameras, images "
         f"{shape[1:3]}, cameras {int(cams.width[0])}x{int(cams.height[0])} "
         f"fx {float(cams.fx[0]):.3f}; {p.sampler.tree.n_nodes} nodes; "
@@ -7205,6 +7376,7 @@ def phase_captures(tmp: Path):
         f"allocated; the run {train_s:.1f}s; launches "
         f"{launches}")
     stats = {"parsed": parsed, "tree": CAPTURE_TREE, "setup_s": setup_s,
+             "image_format": "jpeg", "jpeg_bytes": jpeg_bytes,
              "train_s": train_s, "eval_batches": evals,
              "s_per_step": _mean(step_s), "rays_per_s": RAYS / _mean(step_s),
              "peak_bytes": peak, "losses": losses, "grad_norms": norms,
@@ -7232,6 +7404,8 @@ TOOLS_TSDF = (8, 64)             # views, resolution
 TOOLS_VIEW_WH = (640, 480)
 TOOLS_REQUESTS = 3               # timed viewer requests at each size
 TOOLS_LIVE_STEPS = 12
+TOOLS_VIDEO_FRAMES = 8           # the render script's spiral, at full size
+TOOLS_VIDEO_MIN_PSNR = 35.0      # a video frame against its PNG frame
 # the point cloud, kernels against plain: its count within 0.5%, the
 # pixels both keep within SLICE_ATOL of the scene's size
 TOOLS_COUNT_RTOL = 5e-3
@@ -7320,6 +7494,14 @@ def phase_tools(tmp: Path):
     mode's seconds, the point cloud's and the TSDF's median distance to the
     nearest sphere.
 
+    Video: gfnerf_tpu_torch.render's ``main`` along a spiral of
+    TOOLS_VIDEO_FRAMES frames as ``render.mp4``, and the same frames
+    rendered and quantized as the script writes its PNGs, each with K1
+    once and H1 twice a chunk.  Checked: the MP4's boxes (ftyp, mdat,
+    moov; an mp4v entry naming JPEG), one sample a frame at 24 fps, every
+    sample decoded by the port's codec to its frame's size with a PSNR of
+    at least TOOLS_VIDEO_MIN_PSNR against it.
+
     Viewer: a ViewerServer on 127.0.0.1 at an ephemeral port.  Checked: the
     page; /scene's 48 cameras, the tree's nodes and valid leaves, the
     blocks' counts; /render at 640x480 (rgb, depth, accumulation) and at
@@ -7341,15 +7523,19 @@ def phase_tools(tmp: Path):
     import torch
 
     from gfnerf_tpu_torch import export as export_mod
+    from gfnerf_tpu_torch import render as render_entry
     from gfnerf_tpu_torch.configs.config_io import apply_override
     from gfnerf_tpu_torch.configs.method_configs import get_method
     from gfnerf_tpu_torch.data.dataparsers import build_dataparser
     from gfnerf_tpu_torch.engine.trainer import Trainer
     from gfnerf_tpu_torch.exporter import exporter
     from gfnerf_tpu_torch.fields.field import STAGE_BLOCK
-    from gfnerf_tpu_torch.render import cameras_from_camera_path
+    from gfnerf_tpu_torch.render import (cameras_from_camera_path,
+                                         spiral_cameras)
     from gfnerf_tpu_torch.utils.eval_utils import eval_setup
     from gfnerf_tpu_torch.utils.image_io import decode_png, read_png
+    from gfnerf_tpu_torch.utils.jpeg import decode_jpeg
+    from gfnerf_tpu_torch.utils.video import read_mp4
     from gfnerf_tpu_torch.viewer.server import ViewerServer, quantize
 
     t_phase = time.perf_counter()
@@ -7554,6 +7740,51 @@ def phase_tools(tmp: Path):
             or not np.allclose(tverts, verts, rtol=0, atol=1e-5)):
         raise AssertionError("tools: the textured mesh or its atlas")
     log(f"[tools] export seconds {json.dumps(stats['export_s'])}")
+
+    # ---- the render script's video against the frames it renders ----
+    # (the frames as the script writes its PNGs, from the loaded pipeline:
+    # the same checkpoint, spiral and quantization, one eval_setup fewer)
+    spiral = spiral_cameras(p.datamanager.eval_dataparser_outputs.cameras,
+                            steps=TOOLS_VIDEO_FRAMES)
+    spiral_dev = spiral.to_device(p.device)
+    at = int(p.state.step)
+    pngs, got_png, png_s = counted(lambda: [
+        (np.clip(p.render_camera(spiral, spiral_dev, i, at)["rgb"], 0, 1)
+         * 255).astype(np.uint8) for i in range(len(spiral))])
+    rc, got, video_s = counted(lambda: render_entry.main([
+        "--load-config", str(config), "--traj", "spiral", "--spiral-steps",
+        str(TOOLS_VIDEO_FRAMES), "--output-format", "video",
+        "--output-path", str(tmp / "tools_video")]))
+    if rc or len(pngs) != TOOLS_VIDEO_FRAMES:
+        raise AssertionError(f"tools: render returned {rc}; {len(pngs)} "
+                             f"frames")
+    frame_chunks = sum(-(-f.shape[0] * f.shape[1] // chunk) for f in pngs)
+    expect("tools spiral frames", got_png, frame_chunks)
+    expect("tools render --output-format video", got, frame_chunks)
+    video = read_mp4(tmp / "tools_video" / "render.mp4")
+    decoded = [decode_jpeg(sample) for sample in video["samples"]]
+    psnrs = [float(10 * np.log10(255.0 ** 2 / np.mean(
+        (d.astype(np.float64) - f) ** 2))) for d, f in zip(decoded, pngs)]
+    log(f"[tools] render --output-format video: {video['top']} boxes, "
+        f"{video['codec']} entry (objectTypeIndication "
+        f"{video['object_type']:#x}), {len(video['samples'])} samples of "
+        f"{video['width']}x{video['height']} at {video['fps']} fps, "
+        f"{sum(map(len, video['samples']))} bytes, in {video_s:.2f}s "
+        f"(its eval_setup included; the frames alone {png_s:.2f}s); each "
+        f"sample decoded by the codec against the frame's PNG pixels: PSNR "
+        f"{[round(x, 2) for x in psnrs]} dB; launches {got}")
+    if (video["top"] != [b"ftyp", b"mdat", b"moov"]
+            or (video["codec"], video["object_type"]) != ("mp4v", 0x6C)
+            or video["fps"] != 24.0
+            or len(set(video["deltas"])) != 1
+            or len(decoded) != TOOLS_VIDEO_FRAMES
+            or any(d.shape != f.shape for d, f in zip(decoded, pngs))
+            or (video["height"], video["width"], 3) != pngs[0].shape
+            or min(psnrs) < TOOLS_VIDEO_MIN_PSNR):
+        raise AssertionError("tools: the video's checks")
+    stats.update(video_s=video_s, video_frames_s=png_s,
+                 video_psnr=psnrs,
+                 video_bytes=sum(map(len, video["samples"])))
 
     # ---- viewer ----
     server = ViewerServer(p, port=0, save_dir=tmp / "viewer_paths",
@@ -8534,6 +8765,8 @@ def main() -> int:
     card = phase_device()
     phase_build()
     clock("build")
+    jpeg_stats = phase_jpeg(card)
+    clock("jpeg")
     report = phase_kernels(n_samples=384)
     clock("kernels")
     import torch
@@ -8693,6 +8926,7 @@ def main() -> int:
                for name, (src, rep) in sources.items()]
     for path, st in stats.items():
         log(f"[{path}] {json.dumps(st)}")
+    log(f"[jpeg] {json.dumps(jpeg_stats)}")
     log(json.dumps({"kernels": kernels}))
     log(f"[clock] the whole script {time.perf_counter() - start:.1f}s")
     log(card)
@@ -8706,7 +8940,8 @@ def main_only(names) -> int:
     """``--only pipeline,nerfacto,...``: the device and the build, then the
     named phases of the temp-dir family (pipeline, gfnerf, prop, nerfacto,
     semantics, instant-ngp, scan, stock, nerfplayer, captures, tools,
-    capture-variants, parallel, quality, midscale; nerfacto, semantics
+    capture-variants, parallel, quality, midscale; and jpeg, the codec
+    alone; nerfacto, semantics
     and tools need the
     pipeline phase's scene and checkpoint, parallel writes the scene when
     the pipeline phase did not run,
@@ -8729,16 +8964,21 @@ def main_only(names) -> int:
               "captures": phase_captures,
               "capture-variants": phase_capture_variants,
               "tools": phase_tools, "parallel": phase_parallel,
-              "quality": phase_quality, "midscale": phase_midscale}
+              "quality": phase_quality, "midscale": phase_midscale,
+              "jpeg": phase_jpeg}
     unknown = set(names) - set(phases)
     if unknown:
         print(f"chip_smoke: unknown phases {sorted(unknown)}",
               file=sys.stderr)
         return 2
-    log(phase_device())
+    card = phase_device()
+    log(card)
     phase_build()
     with tempfile.TemporaryDirectory(prefix="gfnerf_pipeline_") as tmp:
         for name in names:
+            if name == "jpeg":
+                log(f"[jpeg] {json.dumps(phase_jpeg(card))}")
+                continue
             out = phases[name](Path(tmp))
             log(f"[{name}] launches {out[0]}")
             log(f"[{name}] {json.dumps(out[1])}")

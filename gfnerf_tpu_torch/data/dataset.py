@@ -3,8 +3,9 @@
 Port of ``gfnerf_tpu/data/dataset.py`` (nerfstudio's ``InputDataset`` and
 ``CacheDataloader``): images come from the dataparser's in-memory
 ``images_array`` (the minimal parser's npz) or from the image files it
-names, decoded by ``utils/image_io.py`` (PNG on ``zlib``; other formats
-through ``imageio`` where it imports); road masks (the semantic labels)
+names, decoded by ``utils/image_io.py`` (PNG on ``zlib``, JPEG by the
+port's codec on every device, other formats through ``imageio`` where it
+imports); road masks (the semantic labels)
 from ``road_masks_array`` or from files; depth (``.npy``), all-masks and
 error maps from ``.npy`` or image files.  The cache holds a sampled
 subset of the images, resampled every ``num_times_to_repeat`` batches,
@@ -105,7 +106,9 @@ class InputDataset:
 
 
 class ImageCache:
-    """Thread-pooled cache of up to N images (CacheDataloader semantics).
+    """Thread-pooled cache of up to N images (CacheDataloader semantics):
+    the pool's threads decode at once (the JPEG codec's C calls and zlib
+    run without the GIL).
 
     Holds images (and error maps) for a sampled subset of the dataset,
     resampled every ``num_times_to_repeat`` batches.

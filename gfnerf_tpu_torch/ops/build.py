@@ -11,6 +11,12 @@ of the flags.  Each C entry point launches on the stream it is given and
 returns ``cudaGetLastError()``; :func:`check` raises if that is not 0.
 Building and loading hold one lock, so that two threads that launch their
 first kernel at once (the trainer's and the viewer's) build once.
+
+The JPEG codec (``csrc/jpeg/*.cpp``, host code) is a library of its own,
+``_build/libgfnerf_jpeg.so``, compiled by the host C++ compiler (``g++``,
+the one ``nvcc`` drives) so that it builds where there is no CUDA toolkit:
+:func:`jpeg_library` builds it at first use, under the same lock and on a
+stamp of its sources, flags and compiler, and a failed build raises.
 """
 
 from __future__ import annotations
@@ -160,6 +166,85 @@ def _load() -> ctypes.CDLL:
         fn = getattr(lib, name)
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
+    return lib
+
+
+JPEG_DIR = CSRC_DIR / "jpeg"
+JPEG_LIB_PATH = BUILD_DIR / "libgfnerf_jpeg.so"
+CXX_FLAGS = ["-std=c++17", "-O2", "-fPIC", "-shared", "-fno-math-errno"]
+_C = ctypes.c_char_p
+JPEG_SIGNATURES = {
+    "gfnerf_jpeg_info": ([_C, _I64, _P, _C, _I64], ctypes.c_int),
+    "gfnerf_jpeg_decode": ([_C, _I64, _P, _I64, _C, _I64], ctypes.c_int),
+    "gfnerf_jpeg_encode_bound": ([_I32, _I32, _I32, _I32], _I64),
+    "gfnerf_jpeg_encode": ([_P, _I32, _I32, _I32, _I32, _I32, _P, _I64, _C,
+                            _I64], _I64),
+}
+
+
+def _cxx() -> str:
+    found = shutil.which("g++")
+    if not found:
+        raise RuntimeError("g++ not found: the JPEG codec needs a C++17 "
+                           "compiler to build")
+    return found
+
+
+def build_jpeg_library() -> dict:
+    """Compile csrc/jpeg/*.cpp into JPEG_LIB_PATH unless its stamp says it
+    is current; {"built": bool, "seconds": float, "log": str}.  Raises
+    RuntimeError if the compiler fails."""
+    with _LOCK:
+        return _build_jpeg_library()
+
+
+def _build_jpeg_library() -> dict:
+    cxx = _cxx()
+    version = subprocess.run([cxx, "-dumpfullversion", "-dumpmachine"],
+                             capture_output=True, text=True).stdout
+    h = hashlib.sha256(" ".join([cxx, version, *CXX_FLAGS]).encode())
+    sources = sorted(JPEG_DIR.glob("*.cpp"))
+    for src in sorted([*sources, *JPEG_DIR.glob("*.h")]):
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    digest = h.hexdigest()
+    stamp = BUILD_DIR / "libgfnerf_jpeg.stamp"
+    if (JPEG_LIB_PATH.exists() and stamp.exists()
+            and stamp.read_text() == digest):
+        return {"built": False, "seconds": 0.0, "log": ""}
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = BUILD_DIR / f"libgfnerf_jpeg.{os.getpid()}.so"
+    cmd = [cxx, *CXX_FLAGS, "-o", str(tmp), *map(str, sources)]
+    t0 = time.perf_counter()
+    try:
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"JPEG codec build failed ({proc.returncode})"
+                               f":\n{' '.join(cmd)}\n{proc.stdout}"
+                               f"{proc.stderr}")
+        os.replace(tmp, JPEG_LIB_PATH)
+    finally:
+        tmp.unlink(missing_ok=True)
+    stamp.write_text(digest)
+    _load_jpeg.cache_clear()
+    return {"built": True, "seconds": time.perf_counter() - t0,
+            "log": proc.stdout + proc.stderr}
+
+
+def jpeg_library() -> ctypes.CDLL:
+    """The loaded JPEG codec, built first if missing or stale."""
+    with _LOCK:
+        return _load_jpeg()
+
+
+@functools.lru_cache(maxsize=1)
+def _load_jpeg() -> ctypes.CDLL:
+    build_jpeg_library()
+    lib = ctypes.CDLL(str(JPEG_LIB_PATH))
+    for name, (argtypes, restype) in JPEG_SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = restype
     return lib
 
 

@@ -6,12 +6,15 @@ interpolated through the eval cameras or a spiral around the first one; an
 optional appearance index per frame (``--embedding-indices``); the
 two-phase early-termination renderer (``--early-term``).  Frames are
 written as PNG files by ``utils/image_io.py``'s writer on the standard
-library's ``zlib`` (the card's machine has neither ``imageio`` nor
-``cv2``); video output needs ``cv2`` and is not ported.
+library's ``zlib``, or with ``--output-format video`` as ``render.mp4``:
+24 fps Motion-JPEG (``utils/video.py``; each frame encoded by the port's
+JPEG codec as it is rendered) where the JAX script writes ``mp4v`` through
+``cv2`` (the card's machine has neither ``imageio`` nor ``cv2``).
 
   python -m gfnerf_tpu_torch.render --load-config RUN/config.json
       [--traj {spiral,interpolate,filename}] [--spiral-steps N]
       [--camera-path-filename PATH] [--output-path DIR]
+      [--output-format {images,video}]
       [--downscale-factor K] [--embedding-indices I ...]
       [--early-term] [--et-eps EPS]
 """
@@ -137,9 +140,9 @@ def main(argv=None):
                              "(default: the pipeline config's, 5e-3)")
     args = parser.parse_args(argv)
     if args.output_format == "video":
-        raise NotImplementedError("video output needs cv2, which the port "
-                                  "does not depend on; use --output-format "
-                                  "images")
+        from gfnerf_tpu_torch.ops.build import jpeg_library
+
+        jpeg_library()      # a codec that cannot build fails before rendering
     if args.traj == "filename" and args.camera_path_filename is None:
         parser.error("--traj filename needs --camera-path-filename")
 
@@ -162,6 +165,11 @@ def main(argv=None):
                                     radius=args.spiral_radius))
     cams_dev = cams.to_device(pipeline.device)
     args.output_path.mkdir(parents=True, exist_ok=True)
+    video = None
+    if args.output_format == "video":
+        from gfnerf_tpu_torch.utils.video import Mp4Writer
+
+        video = Mp4Writer(args.output_path / "render.mp4", fps=24)
     for i in range(len(cams)):
         rel = (args.embedding_indices[i % len(args.embedding_indices)]
                if args.embedding_indices else None)
@@ -169,8 +177,13 @@ def main(argv=None):
                                      downscale=args.downscale_factor,
                                      rel_camera_index=rel)
         rgb = (np.clip(out["rgb"], 0, 1) * 255).astype(np.uint8)
-        write_png(args.output_path / f"{i:05d}.png", rgb)
+        if video is None:
+            write_png(args.output_path / f"{i:05d}.png", rgb)
+        else:
+            video.add(rgb)
         print(f"rendered frame {i + 1}/{len(cams)}")
+    if video is not None:
+        print(f"wrote {video.close()}")
     return 0
 
 

@@ -18,9 +18,10 @@ The JAX package reads images with ``imageio`` and resizes them with
 - :func:`resize_area` (``cv2.INTER_AREA``: area averaging for a
   downscale, OpenCV's area-weighted linear rule for an upscale) and
   :func:`resize_linear` (``cv2.INTER_LINEAR``, half-pixel centres).
-- :func:`read_image`: a PNG through :func:`read_png`; any other format
-  through ``imageio`` where it imports, else a ``NotImplementedError``
-  that names it (JPEG on a machine without ``imageio``).
+- :func:`read_image`: a PNG through :func:`read_png`, a JPEG through the
+  port's codec (``utils/jpeg.decode_jpeg``, the pixels ``imageio`` gives),
+  on every device; any other format through ``imageio`` where it imports,
+  else a ``NotImplementedError`` that names it.
 """
 
 from __future__ import annotations
@@ -335,11 +336,20 @@ def encode_png(img: np.ndarray,
 
 
 def read_image(path) -> np.ndarray:
-    """An image file as a numpy array: a PNG through :func:`read_png`, any
-    other format through ``imageio`` where it imports."""
-    with open(path, "rb") as f:
-        if f.read(8) == PNG_SIGNATURE:
-            return read_png(path)
+    """An image file as a numpy array: a PNG through :func:`read_png`, a
+    JPEG through :func:`utils.jpeg.decode_jpeg` ((H, W) grey or (H, W, 3)
+    uint8; a build or decode failure raises), any other format through
+    ``imageio`` where it imports."""
+    data = Path(path).read_bytes()
+    if data[:8] == PNG_SIGNATURE:
+        return decode_png(data, path)
+    if data[:2] == JPEG_SOI:
+        from gfnerf_tpu_torch.utils.jpeg import decode_jpeg
+
+        try:
+            return decode_jpeg(data)
+        except ValueError as e:
+            raise ValueError(f"{path}: {e}") from None
     try:
         import imageio.v2 as imageio
     except ImportError as e:

@@ -469,17 +469,33 @@ def write_colmap_model(sparse: Path, c2w: np.ndarray, fx, fy, cx, cy,
             f.write(struct.pack("<Q", 0))
 
 
+# the quality of make_phototourism_fixture's JPEGs
+JPEG_QUALITY = 95
+
+
 def make_phototourism_fixture(path: Path, n: int = 12, img_wh=(64, 48),
-                              focal: float = 55.0, sky: bool = True) -> Path:
-    """A Phototourism capture: ``dense/images/im_{i}.png`` and COLMAP's
-    binary model in ``dense/sparse`` (``write_colmap_model``); without
-    ``sky`` the spheres over black."""
+                              focal: float = 55.0, sky: bool = True,
+                              image_format: str = "png") -> Path:
+    """A Phototourism capture: ``dense/images/im_{i}.png`` (or, with
+    ``image_format="jpeg"``, ``im_{i}.jpg`` from the port's encoder at
+    JPEG_QUALITY, 4:2:0, as a camera writes them) and COLMAP's binary model
+    in ``dense/sparse`` (``write_colmap_model``); without ``sky`` the
+    spheres over black."""
+    if image_format not in ("png", "jpeg"):
+        raise ValueError(f"image_format: png or jpeg, got {image_format!r}")
     path = Path(path)
     cams, c2w4, imgs = _ring_scene(n, img_wh, focal, sky=sky)
-    names = [f"im_{i}.png" for i in range(n)]
+    ext = ".png" if image_format == "png" else ".jpg"
+    names = [f"im_{i}{ext}" for i in range(n)]
     (path / "dense" / "images").mkdir(parents=True, exist_ok=True)
     for name, img in zip(names, imgs):
-        write_png(path / "dense" / "images" / name, img)
+        if image_format == "png":
+            write_png(path / "dense" / "images" / name, img)
+        else:
+            from gfnerf_tpu_torch.utils.jpeg import encode_jpeg
+
+            (path / "dense" / "images" / name).write_bytes(
+                encode_jpeg(img, JPEG_QUALITY, "4:2:0"))
     write_colmap_model(path / "dense" / "sparse", c2w4, *cams[1:5],
                        *img_wh, names)
     return path

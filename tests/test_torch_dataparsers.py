@@ -181,9 +181,10 @@ def test_png_repairs_and_refusals(tmp_path, monkeypatch):
     """A file whose encoder split its image data over several IDAT chunks
     reads whole through ``render.read_png`` (a repair: every chunk is
     joined, not only the last).  Adam7
-    interlacing raises and names it; a JPEG goes through imageio, and
-    without imageio raises and names it (its size still comes from its
-    start-of-frame segment)."""
+    interlacing raises and names it; a JPEG decodes through the port's
+    codec to imageio's pixels, also without imageio (its size from its
+    start-of-frame segment); another format without imageio raises and
+    names it."""
     import imageio.v2 as imageio
     from PIL import Image
 
@@ -202,12 +203,17 @@ def test_png_repairs_and_refusals(tmp_path, monkeypatch):
     with pytest.raises(NotImplementedError, match="Adam7"):
         image_io.read_png(tmp_path / "i.png")
     imageio.imwrite(tmp_path / "a.jpg", _rgb())
-    assert image_io.read_image(tmp_path / "a.jpg").shape == (H, W, 3)
+    want = imageio.imread(tmp_path / "a.jpg")
+    np.testing.assert_array_equal(image_io.read_image(tmp_path / "a.jpg"),
+                                  want)
     assert image_io.image_size(tmp_path / "a.jpg") == (W, H)
+    imageio.imwrite(tmp_path / "a.bmp", _rgb())
     monkeypatch.setitem(sys.modules, "imageio", None)
     monkeypatch.setitem(sys.modules, "imageio.v2", None)
+    np.testing.assert_array_equal(image_io.read_image(tmp_path / "a.jpg"),
+                                  want)
     with pytest.raises(NotImplementedError, match="imageio"):
-        image_io.read_image(tmp_path / "a.jpg")
+        image_io.read_image(tmp_path / "a.bmp")
     assert image_io.image_size(tmp_path / "a.jpg") == (W, H)
 
 

@@ -4,8 +4,9 @@ the compacted branch runs at both stages) across the transition into a
 temporary directory; ``gfnerf_tpu_torch.eval`` writes its metrics JSON
 from the run's checkpoint; ``gfnerf_tpu_torch.render`` writes valid PNG
 frames along a spiral and an interpolated trajectory, with and without
-early termination; the camera-path reader gives the cameras the JAX
-package's ``scripts/render.py`` gives for the same file.
+early termination, and refuses video when the JPEG codec cannot build;
+the camera-path reader gives the cameras the JAX package's
+``scripts/render.py`` gives for the same file.
 """
 
 import json
@@ -118,12 +119,28 @@ def test_render_writes_png_frames(run_dir, tmp_path, traj, extra, frames):
     assert _read_png(files[0]).max() > 0
 
 
-def test_render_refuses_video(run_dir, tmp_path):
+def test_render_refuses_video(run_dir, tmp_path, monkeypatch):
+    """Video needs the port's JPEG codec: with its build made to fail (an
+    unknown compiler flag) ``--output-format video`` raises before it
+    renders and writes no file.  (tests/test_torch_video.py holds the
+    video that a working codec writes.)"""
     from gfnerf_tpu_torch import render
+    from gfnerf_tpu_torch.ops import build
 
-    with pytest.raises(NotImplementedError, match="cv2"):
-        render.main(["--load-config", str(run_dir / "config.json"),
-                     "--output-format", "video"])
+    monkeypatch.setattr(build, "BUILD_DIR", tmp_path / "build")
+    monkeypatch.setattr(build, "JPEG_LIB_PATH",
+                        tmp_path / "build" / "libgfnerf_jpeg.so")
+    monkeypatch.setattr(build, "CXX_FLAGS",
+                        build.CXX_FLAGS + ["--no-such-flag"])
+    build._load_jpeg.cache_clear()
+    try:
+        with pytest.raises(RuntimeError, match="JPEG codec build failed"):
+            render.main(["--load-config", str(run_dir / "config.json"),
+                         "--output-format", "video", "--output-path",
+                         str(tmp_path / "out")])
+    finally:
+        build._load_jpeg.cache_clear()
+    assert not (tmp_path / "out").exists()
 
 
 def test_png_writer_round_trip(tmp_path):

@@ -10,9 +10,9 @@ each ``import``/``from ... import`` statement, and each
 ``importlib.import_module``/``__import__`` call with a literal name, is
 checked, wherever it sits (module level or inside a function).  One import
 is known and held to its form: ``utils/image_io.read_image`` decodes a
-non-PNG file through imageio where it imports, inside a ``try`` whose
-``ImportError`` handler raises ``NotImplementedError`` (on the card a JPEG
-raises; the CPU tests read cv2 JPEG fixtures through it).
+file that is neither PNG nor JPEG through imageio where it imports, inside
+a ``try`` whose ``ImportError`` handler raises ``NotImplementedError`` (PNG
+and JPEG go through the port's own decoders on every device).
 """
 
 from __future__ import annotations

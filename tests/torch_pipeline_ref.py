@@ -6,7 +6,7 @@ mesh, compiles more and is slower; the single-device run is the one-card
 reference).  Usage:
 
   python tests/torch_pipeline_ref.py SCENE_DIR OUT_DIR STEPS RAYS PATCH_H \
-      LAYOUT [diag]
+      LAYOUT [diag] [phototourism]
 
 Drives ``GFNerfPipeline`` of ``gf-nerf-tiny`` (with LAYOUT's overrides,
 ``FIELD_OVERRIDES``, ``PROP_OVERRIDES`` or ``CLIP_OVERRIDES``, and the port
@@ -22,7 +22,8 @@ gradients); the calibrated
 the camera labels, error maps and block indices at the transition; the eval
 PSNR; and the final field parameters.  With ``diag``, also
 ``scripts/quality_run.py``'s ``diag_eval`` after the last step (as JSON,
-``diag``).
+``diag``).  With ``phototourism``, SCENE_DIR is a Phototourism capture read
+by the JAX package's Phototourism parser (its images through ``imageio``).
 """
 
 from __future__ import annotations
@@ -59,7 +60,8 @@ CLIP_OVERRIDES = {
 LOSS_KEYS = ("loss", "rgb_loss", "s3im_loss")
 
 
-def main(scene, out_dir, steps, rays, patch_h, layout, diag=False):
+def main(scene, out_dir, steps, rays, patch_h, layout, diag=False,
+         dataparser="minimal"):
     import jax
     import numpy as np
 
@@ -77,7 +79,14 @@ def main(scene, out_dir, steps, rays, patch_h, layout, diag=False):
         for part in path:
             obj = getattr(obj, part)
         setattr(obj, leaf, value)
-    p = cfg.pipeline.build(jax_minimal_parser(scene), out_dir)
+    if dataparser == "minimal":
+        parser = jax_minimal_parser(scene)
+    else:
+        from gfnerf_tpu.data.dataparsers import registry
+
+        parser_cls, parser_cfg = registry()[dataparser]
+        parser = parser_cls(parser_cfg(data=scene))
+    p = cfg.pipeline.build(parser, out_dir)
     n_prop = cfg.pipeline.model.num_proposal_resamples
     rec = {"sample_l": p.sampler.sampler_config.sample_l,
            "max_hits0": p.sampler.sampler_config.max_hits}
@@ -170,4 +179,5 @@ if __name__ == "__main__":
     sys.path.insert(0, os.path.join(
         os.path.dirname(os.path.abspath(__file__)), ".."))
     main(sys.argv[1], sys.argv[2], int(sys.argv[3]), int(sys.argv[4]),
-         int(sys.argv[5]), sys.argv[6], sys.argv[7:] == ["diag"])
+         int(sys.argv[5]), sys.argv[6], "diag" in sys.argv[7:],
+         "phototourism" if "phototourism" in sys.argv[7:] else "minimal")
