@@ -311,8 +311,19 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
                 0's checkpoint loaded into a one-card Trainer (the ranks'
                 final state bit for bit), resumed 2 steps, an eval image
                 beside its mean image's PSNR; s/step at world 4 against one
-                process, peak memory per rank, the backend (see
-                phase_parallel).
+                process, peak memory per rank, the backend.  Then, under
+                each backend, the same 4 ranks with --vis viewer
+                viewer_port=0: rank 0 serves, this process drives it over
+                HTTP in the concurrent stage (pause, a 640x480 render, 1 s
+                in which no rank steps, resume, a render while training,
+                pause, render B of a camera of the other group's block,
+                stop): the ranks' steps and syncs equal, one checkpoint
+                holding every rank's final state, render B equal pixel for
+                pixel to the one-card render of that checkpoint and unlike
+                one with the block's table as its phase began, K1, K2, H1
+                and H2 launched and no other kernel; a render's seconds
+                paused and while training, a control broadcast's seconds a
+                step (see phase_parallel).
  24. quality  — with the counters reset: gf-nerf's quality run through
                 gfnerf_tpu_torch.quality_run's own functions (--config
                 perf --diag --n-blocks 2: packed 8 x 4 of 2^15, 4096 rays,
@@ -8400,6 +8411,324 @@ def check_parallel_ranks(ranks: list, backend: str, table_grad_calls: int
                          for k in rank0["launches"]}}
 
 
+# The viewer over the parallel run's 4 ranks, config and scene, launched
+# as ``torch.distributed.run`` would launch ``train ... --vis viewer
+# viewer_port=0``: rank 0 serves it; this process drives it over HTTP into
+# the concurrent focal stage (PARALLEL_VIEWER_AT steps taken): pause,
+# render A, PARALLEL_VIEWER_HELD_S in which no rank may step, resume, a
+# render while training (its sync at the next step boundary), 2 more
+# steps, pause, render B (a training camera of the block the other group
+# trains in that phase), stop.  Renders at PARALLEL_VIEWER_WH.
+PARALLEL_VIEWER_AT = PARALLEL_INIT_STEPS + 2
+PARALLEL_VIEWER_HELD_S = 1.0
+PARALLEL_VIEWER_WH = (640, 480)
+PARALLEL_VIEWER_OVERRIDES = {**PARALLEL_OVERRIDES,
+                             "steps_per_eval_image": "1000000",
+                             "steps_per_save": "1000000",
+                             "steps_per_log": "1"}
+
+
+def parallel_viewer_rank(rank, world, port, out, backend, scene):
+    """One rank of the viewer drive (``train.build_trainer`` with ``--vis
+    viewer viewer_port=0``): rank 0 writes its viewer's port and grid
+    coordinates to OUT/viewer.json; every rank records each step's
+    wall-clock start and end, each sync of the block tables (the step in
+    flight or last taken, the tables' digests), the seconds of each
+    control broadcast (``TrainControl.agree``), the launch counts of its
+    run and its final state's digests; rank 0 also the tables of the
+    blocks trained in the last phase, as that phase's first step synced
+    them.  Writes OUT/rank{rank}.pt."""
+    import os
+
+    sys.path.insert(0, str(REPO))
+    os.environ.update(RANK=str(rank), WORLD_SIZE=str(world),
+                      LOCAL_RANK=str(rank), LOCAL_WORLD_SIZE=str(world),
+                      MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port))
+    import torch
+
+    from gfnerf_tpu_torch.parallel import comm as pcomm
+    from gfnerf_tpu_torch.train import build_trainer
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    argv = ["gf-nerf-perf", "--data", scene, "--output-dir",
+            str(Path(out) / "runs"), "--experiment-name", "viewer",
+            "--parallel-blocks", "--dist-backend", backend,
+            "--dist-timeout", str(PARALLEL_GROUP_TIMEOUT),
+            "--max-num-iterations", "100000", "--vis", "viewer",
+            "viewer_port=0",
+            *[f"{k}={v}" for k, v in PARALLEL_VIEWER_OVERRIDES.items()]]
+    try:
+        trainer = build_trainer(argv)
+        p, comm = trainer.pipeline, trainer.comm
+        rec = {"steps": {}, "syncs": [], "agree": [],
+               "serves": trainer.viewer is not None,
+               "coords": p.grid.coords(comm.rank)}
+        state = {"in_step": None, "last": -1, "phase": None}
+        get_loss, sync = p.get_train_loss_dict, p.sync_block_tables
+        agree = trainer.control.agree
+
+        def get_loss_w(step):
+            t0 = time.time()
+            state["in_step"] = step
+            m = get_loss(step)
+            torch.cuda.synchronize()
+            state.update(in_step=None, last=step)
+            rec["steps"][step] = {"t0": t0, "t1": time.time(),
+                                  "loss": m["loss"]}
+            return m
+
+        def sync_w():
+            sync()
+            step = state["in_step"]
+            inside = step is not None
+            rec["syncs"].append((step if inside else state["last"], inside,
+                                 parallel_digest(p)["blocks"]))
+            if inside and rank == 0:
+                state["phase"] = (step, {
+                    b: p.field.block_feats[b].detach().cpu().clone()
+                    for b in p.parallel_active_blocks(step)})
+
+        def agree_w(c):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            got = agree(c)
+            rec["agree"].append({"after": state["last"], "paused": got.paused,
+                                 "sync": got.sync,
+                                 "s": time.perf_counter() - t})
+            return got
+
+        p.get_train_loss_dict, p.sync_block_tables = get_loss_w, sync_w
+        trainer.control.agree = agree_w
+        if rank == 0:
+            info = Path(out) / "viewer.json"
+            info.with_suffix(".tmp").write_text(json.dumps({
+                "port": trainer.viewer.port, "coords": rec["coords"],
+                "n_block_axis": p.n_block_axis,
+                "n_blocks": p.config.model.n_blocks}))
+            os.replace(info.with_suffix(".tmp"), info)
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        trainer.train()
+        torch.cuda.synchronize()
+        rec.update(train_s=time.perf_counter() - t0,
+                   launches=launch_counts(), base_dir=str(trainer.base_dir),
+                   phase_start=state["phase"], end=parallel_digest(p))
+        torch.save(rec, Path(out) / f"rank{rank}.pt")
+    except BaseException:
+        import traceback
+
+        log(f"[parallel viewer] rank {rank} failed:\n"
+            f"{traceback.format_exc()}")
+        raise
+    finally:
+        pcomm.shutdown()
+
+
+def run_parallel_viewer(out: Path, scene: Path, backend: str) -> tuple:
+    """The viewer drive under ``backend`` (see PARALLEL_VIEWER_AT): the
+    ranks' records, and what this process saw and timed."""
+    import socket
+
+    import torch
+    import torch.multiprocessing as mp
+
+    from gfnerf_tpu_torch.utils.image_io import decode_png
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    out.mkdir(parents=True, exist_ok=True)
+    ctx = mp.start_processes(
+        parallel_viewer_rank, args=(PARALLEL_WORLD, port, str(out), backend,
+                                    str(scene)),
+        nprocs=PARALLEL_WORLD, join=False, start_method="spawn")
+    deadline = time.monotonic() + PARALLEL_JOIN_S
+    seen = {}
+    try:
+        def until(cond):
+            while not cond():
+                if ctx.join(timeout=0):
+                    raise AssertionError("parallel viewer: the ranks ended "
+                                         "before the stop")
+                if time.monotonic() >= deadline:
+                    raise TimeoutError(f"parallel viewer: {backend} ranks "
+                                       f"outlasted {PARALLEL_JOIN_S} s")
+                time.sleep(0.02)
+
+        info = out / "viewer.json"
+        until(info.exists)
+        doc = json.loads(info.read_text())
+        base = f"http://127.0.0.1:{doc['port']}"
+
+        def status():
+            return json.loads(_http(base + "/status"))
+
+        def render(c2w, key):
+            w, h = PARALLEL_VIEWER_WH
+            req = {"c2w": c2w, "width": w, "height": h}
+            t = time.perf_counter()
+            png = _http(base + "/render", req)
+            seen[key + "_s"] = time.perf_counter() - t
+            seen[key] = decode_png(png)
+            return req
+
+        until(lambda: status().get("step", -1) >= PARALLEL_VIEWER_AT)
+        cams = json.loads(_http(base + "/scene"))["cameras"]
+        _http(base + "/control", {"action": "pause"})
+        until(lambda: status()["held"])
+        held_at = int(status()["step"])
+        t0 = time.time()
+        time.sleep(PARALLEL_VIEWER_HELD_S)
+        seen["no_step_window"] = (t0, time.time())
+        render(cams[0]["c2w"], "render_a")
+        seen["held"] = (held_at, int(status()["step"]))
+        _http(base + "/control", {"action": "resume"})
+        until(lambda: status()["step"] > held_at)
+        render(cams[1]["c2w"], "render_c")
+        resumed = status()["step"]
+        until(lambda: status()["step"] >= resumed + 2)
+        _http(base + "/control", {"action": "pause"})
+        until(lambda: status()["held"])
+        step_b = int(status()["step"])
+        # the block the other group trains in step_b's phase
+        bps = doc["n_blocks"] // doc["n_block_axis"]
+        phase = (max(step_b - PARALLEL_INIT_STEPS, 0) // 2) % bps
+        block = (1 - doc["coords"][1]) * bps + phase
+        cam = next(c for c in cams if c["cluster"] == block)
+        seen.update(step_b=step_b, block_b=block, camera_b=cam["index"],
+                    req_b=render(cam["c2w"], "render_b"))
+        _http(base + "/control", {"action": "stop"})
+        while not ctx.join(timeout=max(deadline - time.monotonic(), 0.0)):
+            if time.monotonic() >= deadline:
+                raise TimeoutError(f"parallel viewer: {backend} ranks "
+                                   f"outlasted {PARALLEL_JOIN_S} s")
+    except BaseException:
+        for proc in ctx.processes:
+            if proc.is_alive():
+                proc.kill()
+        raise
+    return [torch.load(out / f"rank{k}.pt", weights_only=False)
+            for k in range(PARALLEL_WORLD)], seen
+
+
+def check_parallel_viewer(ranks: list, seen: dict, backend: str) -> tuple:
+    """The viewer drive's checks: no rank stepped while held; every rank
+    took the same steps and the same syncs (the phases', the pauses' and
+    the render's while training, the checkpoint's); one checkpoint, rank
+    0's, whose one-card load holds every rank's final state; render B
+    equal, pixel for pixel, to the one-card render of that checkpoint at
+    the same request, and unlike a render with that block's table as the
+    phase's first step synced it; K1, K2, H1 and H2 launched on the ranks
+    and no other kernel.  Returns (launches, figures)."""
+    import numpy as np
+    import torch
+
+    from gfnerf_tpu_torch.utils.eval_utils import eval_setup
+    from gfnerf_tpu_torch.utils.image_io import decode_png
+    from gfnerf_tpu_torch.viewer.server import ViewerServer
+
+    tag = f"[parallel viewer {backend}]"
+    fails = []
+    rank0 = ranks[0]
+    steps = sorted(rank0["steps"])
+    t0, t1 = seen["no_step_window"]
+    stepped = {k: [s for s, r in rk["steps"].items() if t0 <= r["t0"] <= t1]
+               for k, rk in enumerate(ranks)}
+    if any(stepped.values()) or seen["held"][0] != seen["held"][1]:
+        fails.append(f"steps while held: {stepped}, {seen['held']}")
+    if steps != list(range(len(steps))) or any(
+            sorted(rk["steps"]) != steps for rk in ranks):
+        fails.append("the ranks took different steps")
+    if [rk["serves"] for rk in ranks] != [True, False, False, False]:
+        fails.append("a rank other than 0 serves")
+    syncs = rank0["syncs"]
+    if any(rk["syncs"] != syncs for rk in ranks[1:]):
+        fails.append("the ranks' syncs differ")
+    boundary = [s for s, inside, _ in syncs if not inside]
+    held_at = seen["held"][0]
+    if not (held_at in boundary and seen["step_b"] in boundary
+            and any(held_at < s < seen["step_b"] for s in boundary)):
+        fails.append(f"syncs at boundaries after steps {boundary}: not the "
+                     f"pauses' ({held_at}, {seen['step_b']}) and the "
+                     "render's between them")
+    base = Path(rank0["base_dir"])
+    ckpts = sorted(c.name for c in (base / "nerfstudio_models").iterdir())
+    if ckpts != [f"step-{steps[-1]:09d}"]:
+        fails.append(f"checkpoints {ckpts} after steps up to {steps[-1]}")
+    t = time.perf_counter()
+    _, trainer = eval_setup(base / "config.json")
+    setup_s = time.perf_counter() - t
+    p = trainer.pipeline
+    loaded = parallel_digest(p)
+    for rk in ranks:
+        if (rk["end"]["frozen"], rk["end"]["blocks"]) != (
+                loaded["frozen"], loaded["blocks"]):
+            fails.append(f"rank {rk['coords']}'s final state is not the "
+                         "checkpoint's")
+    server = ViewerServer(p, port=0)
+    t = time.perf_counter()
+    want = decode_png(server._render(seen["req_b"]))
+    one_s = time.perf_counter() - t
+    got = seen["render_b"]
+    diff = int(np.abs(got.astype(int) - want.astype(int)).max())
+    step, tables = rank0["phase_start"]
+    block = seen["block_b"]
+    with torch.no_grad():
+        p.field.block_feats[block].copy_(tables[block].to(p.device))
+    stale = decode_png(server._render(seen["req_b"]))
+    stale_px = int((stale != got).any(-1).sum())
+    w, h = PARALLEL_VIEWER_WH
+    log(f"{tag} render B (block {block}, camera {seen['camera_b']}, paused "
+        f"after step {seen['step_b']}) against the one-card render of "
+        f"{ckpts}: max abs pixel difference {diff} (limit 0); with block "
+        f"{block}'s table as step {step} synced it, {stale_px} of {w * h} "
+        f"pixels differ (must be > 0)")
+    if diff or got.shape != (h, w, 3):
+        fails.append(f"render B differs from the one-card render by {diff}")
+    if not stale_px:
+        fails.append("render B equals the render with the phase's first "
+                     "table: the check cannot see the sync")
+    for key in ("render_a", "render_c"):
+        if seen[key].shape != (h, w, 3) or not seen[key].std() > 0:
+            fails.append(f"{key} {seen[key].shape}")
+    launches = {k: sum(rk["launches"][k] for rk in ranks)
+                for k in rank0["launches"]}
+    try:
+        check_path_kernels(f"parallel viewer {backend}", launches,
+                           QUALITY_KERNELS)
+    except AssertionError as e:
+        fails.append(str(e))
+    if fails:
+        raise AssertionError(f"{tag} " + "; ".join(fails))
+    plain = [a["s"] for a in rank0["agree"]
+             if not (a["paused"] or a["sync"])]
+    focal = [rank0["steps"][s]["t1"] - rank0["steps"][s]["t0"]
+             for s in steps if s > PARALLEL_INIT_STEPS + 1]
+    figures = {"render_paused_s": seen["render_a_s"],
+               "render_training_s": seen["render_c_s"],
+               "render_b_s": seen["render_b_s"], "one_card_render_s": one_s,
+               "control_broadcast_s_mean": _mean(plain),
+               "control_broadcast_s_median": float(np.median(plain)),
+               "control_broadcasts": len(rank0["agree"]),
+               "focal_s_per_step": _mean(focal), "steps": len(steps),
+               "syncs": len(syncs), "train_s": rank0["train_s"],
+               "eval_setup_s": setup_s}
+    log(f"{tag} a render at {w}x{h} over HTTP: {seen['render_a_s']:.4f} s "
+        f"paused, {seen['render_c_s']:.4f} s while training (its wait for "
+        f"the step boundary's sync included), {seen['render_b_s']:.4f} s "
+        f"paused (render B); one card, the checkpoint: {one_s:.4f} s")
+    log(f"{tag} a control broadcast on rank 0 at a step boundary (the card "
+        f"synchronised before it; the wait for the other ranks included): "
+        f"mean {figures['control_broadcast_s_mean']:.6f} s, median "
+        f"{figures['control_broadcast_s_median']:.6f} s over {len(plain)} "
+        f"boundaries that neither paused nor synced, against "
+        f"{figures['focal_s_per_step']:.4f} s a concurrent focal step; "
+        f"{len(steps)} steps, {len(syncs)} syncs on every rank; "
+        f"launches {launches}")
+    return launches, figures
+
+
 def phase_parallel(tmp: Path):
     """gf-nerf-perf over 4 ranks with ``parallel_blocks`` (data 2 x block 2)
     through the Trainer, launched as ``torch.distributed.run`` would: under
@@ -8415,8 +8744,12 @@ def phase_parallel(tmp: Path):
     rank and step K1, K2 and H2 (one call) once, H1 once at init and twice
     at the focal stage; rank 0's checkpoint, loaded into a one-card
     Trainer, equal to the ranks' final state, resumed for 2 steps and
-    evaluated.  Printed: s/step at world 4 against one process, peak
-    memory per rank, the backend."""
+    evaluated.  Then under each backend the viewer over the 4 ranks
+    (``run_parallel_viewer``, ``check_parallel_viewer``): paused, rendered,
+    resumed and stopped over HTTP.  Printed: s/step at world 4 against one
+    process, peak memory per rank, the backend; a 640x480 render's seconds
+    paused and while training, a control broadcast's seconds a step, the
+    phase's seconds."""
     from types import SimpleNamespace
 
     import numpy as np
@@ -8467,6 +8800,13 @@ def phase_parallel(tmp: Path):
         if backend == "gloo":
             base = Path(ranks[0]["base_dir"])
             final = ranks[0]["end"]
+        t0 = time.perf_counter()
+        got, st["viewer"] = check_parallel_viewer(*run_parallel_viewer(
+            tmp / f"parallel_viewer_{backend}", scene, backend), backend)
+        st["viewer"]["drive_s"] = time.perf_counter() - t0
+        launches = {k: launches[k] + got[k] for k in launches}
+        log(f"[parallel viewer {backend}] the drive in "
+            f"{st['viewer']['drive_s']:.1f}s")
 
     # rank 0's checkpoint in a one-card Trainer: the ranks' final state,
     # resumed for 2 steps, an eval image

@@ -19,8 +19,16 @@ In a process group of several ranks (``initialize_multihost``; the
 GF-NeRF pipeline only) every rank runs the loop; rank 0 alone writes the
 config, the logs, the evals and the checkpoints (in the one-card format,
 which ``eval``, ``render`` and ``export`` read as they are), while the
-others wait at a barrier; the run's directory is rank 0's.  The viewer
-does not run over several ranks.
+others wait at a barrier; the run's directory is rank 0's.  With the
+viewer, rank 0 alone serves it, and at each step boundary every rank
+acts on rank 0's controls, agreed in one broadcast
+(``TrainControl.agree``): a pause holds every rank in a poll of that
+broadcast every ``TrainControl.POLL_S`` (so that no collective waits on
+the pause, whatever the group's timeout), syncing the block tables at
+its first poll; a render that asked for a sync (``render_outputs``)
+gets it at the next boundary on every rank and is served before the next
+step; a stop saves (synced tables, rank 0 writes) and every rank
+returns.  A run without the viewer adds no collective.
 """
 
 from __future__ import annotations
@@ -99,9 +107,6 @@ class Trainer:
             if not isinstance(cfg.pipeline, GFNerfPipelineConfig):
                 raise ValueError("training over several ranks covers the "
                                  "GF-NeRF pipeline only")
-            if "viewer" in cfg.vis:
-                raise ValueError("the viewer does not run over several "
-                                 "ranks: train with --vis local")
             # one run directory: rank 0's timestamp
             if cfg.timestamp == "{timestamp}":
                 cfg.timestamp = self.comm.broadcast_object(
@@ -127,7 +132,9 @@ class Trainer:
             self._start_step = step + 1
             print(f"[trainer] resumed from {ckpt_dir} at step "
                   f"{self._start_step}")
-        if "viewer" in cfg.vis and test_mode == "train":
+        # over several ranks the controls cross ranks at every boundary
+        self._agree = self.comm is not None and "viewer" in cfg.vis
+        if "viewer" in cfg.vis and test_mode == "train" and self.is_main:
             self.viewer = ViewerServer(
                 self.pipeline, port=cfg.viewer_port, save_dir=self.base_dir,
                 control=self.control, lock=self.lock).start()
@@ -144,11 +151,11 @@ class Trainer:
         t_start = time.perf_counter()
         for step in range(self._start_step, cfg.max_num_iterations):
             # the viewer's training controls, between steps
-            self.control.wait_if_paused()
-            if self.control.stop:
+            if self._stop_requested():
                 print(f"[trainer] stop requested from the viewer at step "
                       f"{step}")
                 self.save_checkpoint(step - 1 if step > 0 else 0)
+                self.control.release()
                 return
             with self.lock, TimeWriter(None, ITER_TRAIN_TIME, step) as t:
                 metrics = self.pipeline.get_train_loss_dict(step)
@@ -174,14 +181,46 @@ class Trainer:
         if not (last >= self._start_step
                 and (last + 1) % cfg.steps_per_save == 0):
             self.save_checkpoint(last)   # unless the loop just saved it
+        # the tables are synced: renders still waiting may go
+        self.control.release()
+
+    def _stop_requested(self) -> bool:
+        """The viewer's controls at a step boundary: True to stop.  On one
+        process (and over several ranks without the viewer, which no one
+        controls) the local pause and stop.  Over several ranks with the
+        viewer every rank acts on rank 0's controls, agreed in one
+        broadcast a poll: a sync of the block tables where a render asked
+        for one (rank 0 then lets its renders finish) and at the first poll
+        of a pause; while paused, a poll every ``POLL_S``."""
+        ctl = self.control
+        if not self._agree:
+            ctl.wait_if_paused()
+            return ctl.stop
+        synced = False
+        while True:
+            agreed = ctl.agree(self.comm)
+            if agreed.stop:
+                ctl.held = False
+                return True
+            if agreed.sync or (agreed.paused and not synced):
+                with self.lock:
+                    self.pipeline.sync_block_tables()
+                synced = True
+                ctl.served(agreed.ticket)
+            ctl.held = agreed.paused
+            if not agreed.paused:
+                return False
+            time.sleep(ctl.POLL_S)
 
     def _on_main(self, fn) -> None:
         """``fn()`` on rank 0 while the other ranks wait, every rank's
-        concurrent-stage tables synced first; on one card, ``fn()``."""
+        concurrent-stage tables synced first (under the step lock: the
+        viewer may be rendering); on one card, ``fn()``."""
         if self.comm is None:
             fn()
             return
-        self.pipeline.sync_block_tables()
+        with self.lock:
+            self.pipeline.sync_block_tables()
         if self.is_main:
             fn()
         self.comm.barrier()

@@ -44,7 +44,8 @@ trains block g * B + phase (B = n_blocks / groups; the phase advances every
 its data ranks (``_train_parallel_block``); the groups' tables are
 broadcast from each group's data rank 0 at each rotation and before an
 eval or a checkpoint (``sync_block_tables``), after which every rank holds
-every table bit for bit.
+every table bit for bit; a viewer render on rank 0 waits for such a sync
+where ``tables_stale`` says it must (``engine/trainer.py``).
 
 Not ported: the K-steps-per-dispatch scan (``steps_per_dispatch`` is kept
 so that configs round-trip; one step runs per call) and the PNG previews
@@ -468,6 +469,13 @@ class GFNerfPipeline:
             # renews the stack's bf16 copy
             self.field.block_feats[b].copy_(table)
         self._unsynced_blocks.clear()
+
+    def tables_stale(self) -> bool:
+        """Whether a block group trained a table since the last
+        ``sync_block_tables``, so that this rank may hold another group's
+        table stale (a render must wait for a sync); False off the
+        concurrent focal stage."""
+        return self._parallel and bool(self._unsynced_blocks)
 
     def get_train_loss_dict(self, step: int) -> Dict[str, float]:
         stage = self.stage_of(step)

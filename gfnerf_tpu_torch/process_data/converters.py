@@ -5,9 +5,10 @@ reimplementations of the reference's ``nerfstudio/process_data/
 {polycam,record3d,metashape,realitycapture,insta360,hloc}_utils`` (each
 cited per function), with the same output files.  Where the JAX package
 reads images with ``cv2`` or PIL, the port reads sizes from the files'
-headers (``utils/image_io.image_size``) and pixels with ``read_png``, and
-writes PNGs with ``write_png``: a JPEG whose pixels are needed (an
-insta360 frame) raises and names the file.  Video is decoded by the
+headers (``utils/image_io.image_size``) and pixels with ``read_image``
+(a PNG by the port's decoder, a JPEG by its codec), and writes PNGs with
+``write_png``: a JPEG the codec refuses (CMYK, arithmetic coding) raises
+and names the file.  Video is decoded by the
 ``ffmpeg`` program when it is on ``PATH``; without it the video paths
 raise.  hloc runs when its package is installed and raises with
 instructions otherwise.
@@ -26,8 +27,8 @@ from typing import Dict, List, Optional
 
 import numpy as np
 
-from gfnerf_tpu_torch.utils.image_io import (PNG_SIGNATURE, image_size,
-                                             read_png, write_png)
+from gfnerf_tpu_torch.utils.image_io import (image_size, read_image,
+                                             write_png)
 
 
 def _write_transforms(output_dir: Path, data: dict):
@@ -307,15 +308,11 @@ def realitycapture_to_json(image_filename_map: Dict[str, Path],
 
 
 def _load_image(path: Path) -> np.ndarray:
-    """(H, W, 3) uint8 RGB pixels of a PNG: grey repeated, alpha dropped,
-    16-bit samples reduced to their high byte.  Other formats raise."""
-    path = Path(path)
-    with open(path, "rb") as f:
-        if f.read(8) != PNG_SIGNATURE:
-            raise ValueError(
-                f"{path}: only PNG pixels are decoded (no JPEG decoder); "
-                "convert the frames to PNG first")
-    img = read_png(path)
+    """(H, W, 3) uint8 RGB pixels of an image file (``read_image``: a PNG
+    or a JPEG on every device): grey repeated, alpha dropped, 16-bit
+    samples reduced to their high byte.  A file the decoder refuses raises
+    and names it."""
+    img = read_image(path)
     if img.dtype == np.uint16:
         img = (img >> 8).astype(np.uint8)
     if img.ndim == 2:

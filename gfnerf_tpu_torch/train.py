@@ -25,7 +25,10 @@ NCCL on cards and gloo on the CPU unless ``--dist-backend`` says; NCCL needs
 a card per rank and raises otherwise (gloo lets ranks share a card).  The
 init stage and the sequential focal stage train data-parallel;
 ``--parallel-blocks`` trains the focal tables concurrently on a (data,
-block) grid of the ranks.
+block) grid of the ranks.  ``--vis viewer`` (on ``viewer_port=N``) serves
+the web viewer from rank 0, which prints its URL; every rank pauses,
+stops, and syncs its block tables for a render as rank 0's controls say,
+at step boundaries (``engine/trainer.py``).
 
 Extra arguments are dotted config overrides, e.g.
 ``pipeline.model.n_blocks=4``.  Methods: gf-nerf (the paper's: 1024 march

@@ -6,8 +6,9 @@ The JAX package reads images with ``imageio`` and resizes them with
 - :func:`read_png`: a PNG decoder.  Every IDAT chunk, filter types 0-4
   (Paeth with the specification's tie order), colour types 0 (grey), 2
   (RGB), 3 (palette, with ``tRNS`` alpha), 4 (grey and alpha) and 6
-  (RGBA) at bit depths 8 and 16, and grey and palette at 1, 2 and 4 bits.
-  Adam7 interlacing raises.
+  (RGBA) at bit depths 8 and 16, and grey and palette at 1, 2 and 4 bits;
+  plain or Adam7-interlaced (each of the seven passes a sub-image of its
+  own, unfiltered, then scattered into the full image).
 - :func:`write_png`: grey, grey and alpha, RGB and RGBA at 8 or 16 bits,
   palette images and 1/2/4-bit grey, each row under a filter type the
   caller may choose.  :func:`encode_png` and :func:`decode_png` do the
@@ -45,6 +46,9 @@ _JPEG_STANDALONE = frozenset([0x01, *range(0xD0, 0xD8), 0xD8])
 _CHANNELS = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}
 _DEPTHS = {0: (1, 2, 4, 8, 16), 2: (8, 16), 3: (1, 2, 4, 8), 4: (8, 16),
            6: (8, 16)}
+# Adam7's passes (PNG specification 8.2): first column and row, steps
+_ADAM7 = ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4),
+          (0, 2, 2, 4), (1, 0, 2, 2), (0, 1, 1, 2))
 
 
 def _chunks(data: bytes, path) -> list:
@@ -71,10 +75,23 @@ def _ihdr(payload: bytes, path) -> tuple:
     if comp != 0 or filt != 0:
         raise ValueError(f"{path}: unknown compression {comp} or filter "
                          f"method {filt}")
-    if interlace == 1:
-        raise NotImplementedError(
-            f"{path}: Adam7 interlacing is not supported by this decoder")
-    return w, h, depth, ctype
+    if interlace not in (0, 1):
+        raise ValueError(f"{path}: unknown interlace method {interlace}")
+    return w, h, depth, ctype, interlace
+
+
+def _passes(w: int, h: int, interlace: int) -> list:
+    """[(x0, y0, dx, dy, width, height)] of the image's passes: the whole
+    image, or Adam7's seven sub-images, those that hold no pixel left
+    out (they have no scanlines in the stream)."""
+    if not interlace:
+        return [(0, 0, 1, 1, w, h)]
+    out = []
+    for x0, y0, dx, dy in _ADAM7:
+        pw, ph = -(-(w - x0) // dx), -(-(h - y0) // dy)
+        if pw > 0 and ph > 0:
+            out.append((x0, y0, dx, dy, pw, ph))
+    return out
 
 
 def png_size(path) -> Tuple[int, int]:
@@ -191,19 +208,26 @@ def decode_png(data: bytes, path="<bytes>") -> np.ndarray:
     chunks = _chunks(data, path)
     if not chunks or chunks[0][0] != b"IHDR":
         raise ValueError(f"{path}: no IHDR chunk first")
-    w, h, depth, ctype = _ihdr(chunks[0][1], path)
+    w, h, depth, ctype, interlace = _ihdr(chunks[0][1], path)
     idat = b"".join(p for k, p in chunks if k == b"IDAT")
     if not idat:
         raise ValueError(f"{path}: no IDAT chunk")
     channels = _CHANNELS[ctype]
     bits = channels * depth
-    stride = (w * bits + 7) // 8
+    passes = [(*p, (p[4] * bits + 7) // 8)
+              for p in _passes(w, h, interlace)]
     raw = np.frombuffer(zlib.decompress(idat), np.uint8)
-    if raw.size < h * (stride + 1):
+    need = sum(ph * (stride + 1) for *_, ph, stride in passes)
+    if raw.size < need:
         raise ValueError(f"{path}: image data ends early ({raw.size} of "
-                         f"{h * (stride + 1)} bytes)")
-    lines = _unfilter(raw, h, stride, max(1, bits // 8))
-    img = _samples(lines, w, depth, channels)
+                         f"{need} bytes)")
+    img = np.zeros((h, w, channels), np.uint16 if depth == 16 else np.uint8)
+    pos = 0
+    for x0, y0, dx, dy, pw, ph, stride in passes:
+        n = ph * (stride + 1)
+        lines = _unfilter(raw[pos:pos + n], ph, stride, max(1, bits // 8))
+        img[y0::dy, x0::dx] = _samples(lines, pw, depth, channels)
+        pos += n
     if ctype == 3:
         plte = next((p for k, p in chunks if k == b"PLTE"), None)
         if plte is None:

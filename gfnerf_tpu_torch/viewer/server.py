@@ -15,7 +15,12 @@ Training controls: attached to a live Trainer, the server exposes the
 reference viewer's training panel (``viewer_utils.py:65-280``: pause and
 resume, stop and save, the step, loss and rays/s) through ``/status`` and
 ``/control``; the Trainer checks a shared :class:`TrainControl` between
-steps.
+steps.  Over several ranks rank 0 alone serves; at every step boundary
+the ranks agree on its controls (:meth:`TrainControl.agree`, one
+broadcast), a pause holds every rank in a poll of one such broadcast
+every ``POLL_S``, and a render that would read a block table another
+rank trained since the last sync waits until every rank has synced the
+tables (:meth:`TrainControl.request_sync`).
 
 Threads: renders run on the server's threads while the Trainer's Adam
 updates the tables in place, so the Trainer hands the server the lock it
@@ -39,7 +44,7 @@ import threading
 import time
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from pathlib import Path
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -54,23 +59,49 @@ EXPORT_MODES = {"pointcloud": "pointcloud", "poses": "poses",
                 "mesh": "mesh", "tsdf": "tsdf", "textured": "texture"}
 
 
+class Agreed(NamedTuple):
+    """The controls every rank acts on at a step boundary: rank 0's
+    ``paused``, ``stop`` and pending render sync, and (rank 0's) the last
+    render request the sync covers."""
+    paused: bool
+    stop: bool
+    sync: bool
+    ticket: int
+
+
 class TrainControl:
     """State shared by the viewer's threads and the Trainer's loop.
 
     The viewer sets ``paused`` and ``stop`` from its handlers; the Trainer
     calls :meth:`wait_if_paused` between steps and publishes its metrics
     into ``status`` (the reference's training-state machine,
-    ``viewer_utils.py:65-280``, without the websocket bridge).
+    ``viewer_utils.py:65-280``, without the websocket bridge).  Over
+    several ranks the Trainer calls :meth:`agree` instead, and a render
+    of stale block tables asks for a sync (:meth:`request_sync`), which
+    the Trainer runs on every rank at its next boundary and acknowledges
+    (:meth:`served`).
     """
 
     HISTORY_LEN = 240   # metric samples kept for the page's sparklines
+    POLL_S = 0.2        # a paused loop's poll
+    # seconds a render waits for the ranks' sync, and the loop for the
+    # renders the sync released
+    SYNC_WAIT_S = 120.0
 
     def __init__(self):
         self.paused = False
         self.stop = False          # stop and save at the next step boundary
+        self.sync_pending = False  # a render waits for the tables' sync
+        self.held = False          # the loop is held at a step boundary
         self.status: dict = {}     # latest published train metrics
         self.history: list = []    # bounded [{metric: value}] trail
         self._lock = threading.Lock()
+        # render requests for a sync: raised, covered by a finished sync,
+        # and those not yet rendered
+        self._sync = threading.Condition()
+        self._requested = 0
+        self._served = 0
+        self._rendering: set = set()
 
     def publish(self, **metrics):
         clean = {}
@@ -95,7 +126,69 @@ class TrainControl:
 
     def wait_if_paused(self, poll_s: float = 0.2):
         while self.paused and not self.stop:
+            self.held = True
             time.sleep(poll_s)
+        self.held = False
+
+    def agree(self, comm) -> Agreed:
+        """Every rank's controls as rank 0 holds them: ``paused``, ``stop``
+        and the pending render sync packed into one int32 tensor and
+        broadcast from rank 0 (``Comm.broadcast``).  Rank 0's pending flag
+        is taken into this agreement, with the requests raised so far."""
+        with self._sync:
+            ticket = self._requested
+            flags = [self.paused, self.stop, self.sync_pending]
+            self.sync_pending = False
+        t = torch.tensor(flags, dtype=torch.int32, device=comm.device)
+        paused, stop, sync = (bool(v) for v in comm.broadcast(t).tolist())
+        if comm.rank != 0:
+            # rank 0 keeps its own: its handlers may have moved them since
+            self.paused, self.stop = paused, stop
+        return Agreed(paused, stop, sync, ticket)
+
+    def request_sync(self) -> int:
+        """A render's request for the ranks' sync of the block tables:
+        raises the pending flag and waits until a sync that every rank
+        joined after this call has finished; the request's ticket (hand
+        it to :meth:`render_done` once rendered).  Raises TimeoutError
+        after ``SYNC_WAIT_S``."""
+        with self._sync:
+            self._requested += 1
+            ticket = self._requested
+            self._rendering.add(ticket)
+            self.sync_pending = True
+            if not self._sync.wait_for(lambda: self._served >= ticket,
+                                       self.SYNC_WAIT_S):
+                self._rendering.discard(ticket)
+                raise TimeoutError(
+                    "the ranks did not sync the block tables for this "
+                    f"render within {self.SYNC_WAIT_S} s")
+        return ticket
+
+    def render_done(self, ticket: int) -> None:
+        """The request ``ticket``'s render has finished."""
+        with self._sync:
+            self._rendering.discard(ticket)
+            self._sync.notify_all()
+
+    def release(self) -> None:
+        """Release every render waiting for a sync (the run has ended, its
+        tables synced by the last checkpoint)."""
+        with self._sync:
+            self._served = self._requested
+            self._sync.notify_all()
+
+    def served(self, ticket: int) -> None:
+        """After a sync every rank joined: release the renders whose
+        requests it covers (up to ``ticket``) and wait (bounded by
+        ``SYNC_WAIT_S``) until they have rendered, so that no step runs
+        between the sync and their renders."""
+        with self._sync:
+            self._served = max(self._served, ticket)
+            self._sync.notify_all()
+            self._sync.wait_for(
+                lambda: not any(t <= self._served for t in self._rendering),
+                self.SYNC_WAIT_S)
 
 
 _PAGE = """<!DOCTYPE html>
@@ -706,9 +799,12 @@ class ViewerServer:
         self.httpd: Optional[ThreadingHTTPServer] = None
 
     def _status(self, with_history: bool = False) -> bytes:
+        """The controls and the latest metrics; ``held``: the training
+        loop waits at a step boundary under the pause."""
         doc = {"training": self.control is not None}
         if self.control is not None:
             doc.update(self.control.snapshot(with_history=with_history))
+            doc["held"] = self.control.held
         return json.dumps(doc).encode()
 
     def _control(self, req: dict) -> bytes:
@@ -823,7 +919,11 @@ class ViewerServer:
         """The pipeline's ``render_camera`` outputs for a request's pose
         (``c2w`` (3, 4)), size, ``downscale`` and ``fov`` in degrees, at
         the pipeline's current step, under the step lock and without
-        gradients."""
+        gradients.  Over several ranks, where this rank's block tables are
+        stale (``tables_stale``: another block group trained one since the
+        last sync), it first waits for a sync of every rank
+        (``TrainControl.request_sync``) and renders before the next
+        step."""
         from gfnerf_tpu_torch.data.dataparsers.base import CamerasHost
 
         c2w = np.asarray(req["c2w"], np.float32).reshape(1, 3, 4)
@@ -840,12 +940,25 @@ class ViewerServer:
             width=np.array([w], np.int32), height=np.array([h], np.int32),
         )
         pipe = self.pipeline
-        with self._lock, torch.no_grad():
-            state = getattr(pipe, "state", None)
-            step = int(state.step) if state is not None else 0
-            cams_dev = cams.to_device(getattr(pipe, "device", "cpu"))
-            return pipe.render_camera(cams, cams_dev, 0, step,
-                                      downscale=down)
+        stale = getattr(pipe, "tables_stale", None)
+        ticket = None
+        try:
+            while True:
+                with self._lock, torch.no_grad():
+                    if stale is None or not stale():
+                        state = getattr(pipe, "state", None)
+                        step = int(state.step) if state is not None else 0
+                        cams_dev = cams.to_device(getattr(pipe, "device",
+                                                          "cpu"))
+                        return pipe.render_camera(cams, cams_dev, 0, step,
+                                                  downscale=down)
+                if ticket is not None or self.control is None:
+                    raise RuntimeError("the block tables are stale and no "
+                                       "sync of the ranks came")
+                ticket = self.control.request_sync()
+        finally:
+            if ticket is not None:
+                self.control.render_done(ticket)
 
     def _render(self, req: dict) -> bytes:
         """A request's render as PNG bytes: ``output`` rgb, depth or

@@ -265,15 +265,59 @@ def test_insta360_single_file_frames_match_jax(tmp_path):
     _same_pngs(tmp_path / "t", tmp_path / "j", 10)
 
 
+def _jpeg_frames(root: Path, n, shape, seed, **save):
+    """``n`` smooth frames written by PIL as JPEGs (``save``: its options);
+    smooth, so that the codec's chroma upsampling has edges to blend."""
+    from PIL import Image
+
+    root.mkdir(parents=True, exist_ok=True)
+    rng = np.random.default_rng(seed)
+    y, x = np.mgrid[:shape[0], :shape[1]]
+    for i in range(n):
+        ph = rng.uniform(0, 6, 3)
+        img = np.stack([127 + 120 * np.sin(x / 9.0 + y / 13.0 + ph[c])
+                        for c in range(3)], -1).astype(np.uint8)
+        img = np.clip(img.astype(int) + rng.integers(-20, 20, img.shape),
+                      0, 255).astype(np.uint8)
+        if len(shape) == 2:
+            img = img[..., 0]
+        Image.fromarray(img).save(root / f"f_{i:03d}.jpg", **save)
+
+
+@pytest.mark.parametrize("kind", ["colour-420", "grey"])
+def test_insta360_jpeg_frames_match_jax(tmp_path, kind):
+    """insta360 frames given as JPEGs (PIL's, quality 90: colour at 4:2:0,
+    and one-component grey) decode through the port's codec to the PNGs
+    the JAX function writes from PIL's decode, pixel for pixel."""
+    from gfnerf_tpu.process_data.converters import \
+        insta360_single_frames_to_images as J
+    from gfnerf_tpu_torch.process_data.converters import \
+        insta360_single_frames_to_images
+
+    shape = (120, 240) if kind == "grey" else (120, 240, 3)
+    save = {"quality": 90}
+    if kind != "grey":
+        save["subsampling"] = 2   # 4:2:0
+    _jpeg_frames(tmp_path / "src", 4, shape, 5, **save)
+    frames = sorted((tmp_path / "src").iterdir())
+    got = insta360_single_frames_to_images(frames, tmp_path / "t", 8)
+    assert got == J(frames, tmp_path / "j", 8)
+    _same_pngs(tmp_path / "t", tmp_path / "j", 8)
+
+
 def test_jpeg_frame_refused_with_its_name(tmp_path):
-    cv2 = pytest.importorskip("cv2")
+    """A JPEG the port's codec does not decode (four components, CMYK)
+    raises and names the file and the feature; nothing falls back."""
+    from PIL import Image
+
     from gfnerf_tpu_torch.process_data.converters import \
         insta360_single_frames_to_images
 
     path = tmp_path / "src" / "frame.jpg"
     path.parent.mkdir()
-    cv2.imwrite(str(path), np.zeros((20, 40, 3), np.uint8))
-    with pytest.raises(ValueError, match="frame.jpg.*PNG"):
+    Image.fromarray(np.zeros((20, 40, 3), np.uint8)).convert("CMYK").save(
+        path)
+    with pytest.raises(ValueError, match="frame.jpg.*CMYK"):
         insta360_single_frames_to_images([path], tmp_path / "out", 2)
 
 

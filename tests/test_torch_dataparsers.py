@@ -5,8 +5,9 @@ CPU.
 - PNG: ``read_png`` against ``imageio.v2.imread`` (PIL's and cv2's files
   in every colour type and bit depth, one image whose encoder split it
   into many IDAT chunks; 16-bit files, which this imageio reads as 8-bit,
-  against ``cv2.imread``): exact.  ``write_png`` under each filter type,
-  read back by imageio or cv2: exact.
+  against ``cv2.imread``): exact.  Adam7-interlaced files (written here
+  with ``zlib``) against imageio: exact.  ``write_png`` under each filter
+  type, read back by imageio or cv2: exact.
 - ``_load_image`` against the JAX package's: exact for 8-bit files; with
   a ``scale_factor``, through ``resize_area`` against ``cv2.INTER_AREA``,
   1e-5.  ``resize_area`` and ``resize_linear`` against cv2 at 1e-5.
@@ -180,8 +181,9 @@ def test_write_png_palette_and_low_depth(tmp_path, depth):
 def test_png_repairs_and_refusals(tmp_path, monkeypatch):
     """A file whose encoder split its image data over several IDAT chunks
     reads whole through ``render.read_png`` (a repair: every chunk is
-    joined, not only the last).  Adam7
-    interlacing raises and names it; a JPEG decodes through the port's
+    joined, not only the last).  An Adam7-interlaced file reads as
+    imageio reads it; an unknown interlace method raises and names it; a
+    JPEG decodes through the port's
     codec to imageio's pixels, also without imageio (its size from its
     start-of-frame segment); another format without imageio raises and
     names it."""
@@ -196,11 +198,13 @@ def test_png_repairs_and_refusals(tmp_path, monkeypatch):
     assert (tmp_path / "split.png").read_bytes().count(b"IDAT") > 1
     np.testing.assert_array_equal(render_read_png(tmp_path / "split.png"),
                                   img)
-    image_io.write_png(tmp_path / "i.png", _rgb())
+    (tmp_path / "i.png").write_bytes(_adam7_png(_rgb(), 2, 8))
+    np.testing.assert_array_equal(image_io.read_png(tmp_path / "i.png"),
+                                  imageio.imread(tmp_path / "i.png"))
     data = bytearray((tmp_path / "i.png").read_bytes())
-    data[8 + 8 + 12] = 1          # IHDR's interlace byte
+    data[8 + 8 + 12] = 2          # IHDR's interlace byte: no such method
     (tmp_path / "i.png").write_bytes(bytes(data))
-    with pytest.raises(NotImplementedError, match="Adam7"):
+    with pytest.raises(ValueError, match="interlace method 2"):
         image_io.read_png(tmp_path / "i.png")
     imageio.imwrite(tmp_path / "a.jpg", _rgb())
     want = imageio.imread(tmp_path / "a.jpg")
@@ -215,6 +219,82 @@ def test_png_repairs_and_refusals(tmp_path, monkeypatch):
     with pytest.raises(NotImplementedError, match="imageio"):
         image_io.read_image(tmp_path / "a.bmp")
     assert image_io.image_size(tmp_path / "a.jpg") == (W, H)
+
+
+# Adam7's passes: first column and row, steps (PNG specification 8.2)
+ADAM7 = ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4),
+         (0, 2, 2, 4), (1, 0, 2, 2), (0, 1, 1, 2))
+
+
+def _adam7_png(img, ctype, depth) -> bytes:
+    """``img`` as an Adam7-interlaced PNG, written here with ``zlib``
+    (neither PIL nor cv2 writes one): pass k's scanlines all under filter
+    type k % 5, empty passes left out as the specification says."""
+    import struct
+    import zlib
+
+    img = np.asarray(img)
+    h, w = img.shape[:2]
+    bpp = (1 if img.ndim == 2 else img.shape[2]) * depth // 8
+    stream = bytearray()
+    for k, (x0, y0, dx, dy) in enumerate(ADAM7):
+        sub = img[y0::dy, x0::dx]
+        if sub.size == 0:
+            continue
+        raw = sub.astype(">u2" if depth == 16 else np.uint8)
+        x = np.frombuffer(raw.tobytes(), np.uint8).reshape(
+            sub.shape[0], -1).astype(np.int32)
+        a = np.zeros_like(x)
+        a[:, bpp:] = x[:, :-bpp]
+        b = np.zeros_like(x)
+        b[1:] = x[:-1]
+        c = np.zeros_like(x)
+        c[1:, bpp:] = x[:-1, :-bpp]
+        p = a + b - c
+        pa, pb, pc = np.abs(p - a), np.abs(p - b), np.abs(p - c)
+        paeth = np.where((pa <= pb) & (pa <= pc), a,
+                         np.where(pb <= pc, b, c))
+        pred = [0 * x, a, b, (a + b) >> 1, paeth][k % 5]
+        for row in (x - pred) & 0xFF:
+            stream += bytes([k % 5]) + row.astype(np.uint8).tobytes()
+
+    def chunk(kind, data):
+        return (struct.pack(">I", len(data)) + kind + data
+                + struct.pack(">I", zlib.crc32(kind + data) & 0xFFFFFFFF))
+
+    return (b"\x89PNG\r\n\x1a\n"
+            + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, depth, ctype,
+                                         0, 0, 1))
+            + chunk(b"IDAT", zlib.compress(bytes(stream)))
+            + chunk(b"IEND", b""))
+
+
+@pytest.mark.parametrize("wh", [(1, 1), (3, 5), (33, 17)])
+@pytest.mark.parametrize("ctype,depth", [(0, 8), (2, 8), (4, 8), (6, 8),
+                                         (2, 16)])
+def test_adam7_matches_imageio(tmp_path, wh, ctype, depth):
+    """Adam7-interlaced PNGs (grey, RGB, grey and alpha, RGBA at 8 bits,
+    RGB at 16; at 1x1 and 3x5 some passes are empty) decode to
+    ``imageio.v2.imread``'s pixels and to the written ones, with no
+    tolerance.  This imageio reads 16-bit RGB as its high bytes."""
+    import imageio.v2 as imageio
+
+    from gfnerf_tpu_torch.utils import image_io
+
+    w, h = wh
+    c = {0: 1, 2: 3, 4: 2, 6: 4}[ctype]
+    img = _rgb(ctype + depth, h, w, c,
+               np.uint16 if depth == 16 else np.uint8)
+    img = img[..., 0] if c == 1 else img
+    path = tmp_path / "adam7.png"
+    path.write_bytes(_adam7_png(img, ctype, depth))
+    got = image_io.read_png(path)
+    want = imageio.imread(path)
+    np.testing.assert_array_equal(got, img)
+    if depth == 16 and want.dtype == np.uint8:
+        got = (got >> 8).astype(np.uint8)
+    assert got.dtype == want.dtype
+    np.testing.assert_array_equal(got, want)
 
 
 # ---- _load_image and the dataset ----

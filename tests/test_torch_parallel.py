@@ -23,7 +23,8 @@ held against the JAX package's mesh steps on the conftest's 8 CPU devices.
   tolerance, the others bit for bit), the per-group losses (1e-5
   relative) and the errors (1e-5), at 2 blocks and at 10 blocks through
   all 5 phases of the rotation.
-- The Trainer across the transition with ``parallel_blocks``, rank 0's
+- The Trainer across the transition with ``parallel_blocks`` (no
+  collective at its step boundaries without the viewer), rank 0's
   checkpoint in a one-process pipeline, and the launch flags.
 
 Every spawned run has a deadline (``torch_dist_worker.run_ranks``), so a
@@ -635,6 +636,16 @@ def test_trainer_ranks_bit_identical_every_step(trainer_run):
         assert other["base_dir"] == ranks[0]["base_dir"]
         for k, v in ranks[0]["end"].items():
             assert torch.equal(v, other["end"][k]), k
+
+
+def test_no_collective_at_step_boundaries_without_viewer(trainer_run):
+    """Without ``--vis viewer`` a step boundary runs no collective and no
+    control broadcast on any rank (with it, one broadcast a boundary:
+    tests/test_torch_viewer_ranks.py)."""
+    for rk in trainer_run:
+        assert len(rk["boundaries"]) == 14
+        assert rk["boundaries"] == [
+            {"collectives": 0, "agrees": 0, "syncs": 0}] * 14
 
 
 def test_rank0_checkpoint_loads_into_one_process_pipeline(trainer_run,

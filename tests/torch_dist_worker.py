@@ -1,5 +1,6 @@
-"""Rank functions of tests/test_torch_parallel.py, run in processes of their
-own (``torch.multiprocessing``, start method ``spawn``), one per rank of a
+"""Rank functions of tests/test_torch_parallel.py and
+tests/test_torch_viewer_ranks.py, run in processes of their own
+(``torch.multiprocessing``, start method ``spawn``), one per rank of a
 gloo process group on the CPU.
 
 Imports neither JAX nor the test module: a rank imports torch and the port
@@ -30,24 +31,42 @@ def free_port() -> int:
         return s.getsockname()[1]
 
 
-def _entry(rank, fn, world, port, args):
+def _entry(rank, fn, world, port, args, group_timeout):
     torch.set_num_threads(1)
     from gfnerf_tpu_torch.parallel import comm
 
-    comm.initialize_multihost(f"tcp://127.0.0.1:{port}", world, rank,
-                              "gloo", timeout_s=GROUP_TIMEOUT)
+    world_comm = comm.initialize_multihost(
+        f"tcp://127.0.0.1:{port}", world, rank, "gloo",
+        timeout_s=GROUP_TIMEOUT)
+    if group_timeout is not None:
+        # the rendezvous waits GROUP_TIMEOUT (the ranks start unevenly);
+        # every collective of the run, on a world group of its own and the
+        # groups made from it, waits at most group_timeout
+        import datetime
+
+        import torch.distributed as dist
+
+        timeout = datetime.timedelta(seconds=group_timeout)
+        comm._WORLD = comm.Comm(range(world),
+                                dist.new_group(list(range(world)),
+                                               timeout=timeout),
+                                "gloo", timeout, world_comm.n_hosts)
     try:
         fn(rank, world, *args)
     finally:
         comm.shutdown()
 
 
-def run_ranks(fn, world: int, *args, timeout: float = 120.0) -> None:
+def run_ranks(fn, world: int, *args, timeout: float = 120.0,
+              group_timeout=None) -> None:
     """``fn(rank, world, *args)`` in ``world`` spawned ranks of one gloo
-    group; raises if a rank fails or the ranks outlast ``timeout``."""
+    group; raises if a rank fails or the ranks outlast ``timeout``.
+    ``group_timeout``: the seconds each collective of ``fn`` may wait
+    (GROUP_TIMEOUT by default)."""
     import torch.multiprocessing as mp
 
-    ctx = mp.start_processes(_entry, args=(fn, world, free_port(), args),
+    ctx = mp.start_processes(_entry, args=(fn, world, free_port(), args,
+                                           group_timeout),
                              nprocs=world, join=False, start_method="spawn")
     deadline = time.monotonic() + timeout
     while not ctx.join(timeout=max(deadline - time.monotonic(), 0.0)):
@@ -221,12 +240,134 @@ def trainer_run(rank, world, scene, out, overrides):
 
     p.get_train_loss_dict, p.after_train_iteration = get_loss_w, after_w
     p.sync_block_tables = sync_w
+    rec["boundaries"] = count_boundary_collectives(trainer)
     rec["start_blocks"] = p.field.block_feats.detach().clone()
     trainer.train()
     rec["end"] = {k: v.detach().clone()
                   for k, v in p.field.state_dict().items()}
     rec["base_dir"] = str(trainer.base_dir)
     rec["n_block_axis"] = p.n_block_axis
+    torch.save(rec, Path(out) / f"rank{rank}.pt")
+
+
+def count_collectives() -> dict:
+    """Counts every collective this process runs through ``Comm`` (the
+    outermost call: a gather under gloo is one, not its all-reduce):
+    ``{"n": calls so far}``."""
+    from gfnerf_tpu_torch.parallel.comm import Comm
+
+    counter = {"n": 0, "depth": 0}
+    if getattr(Comm, "_counted", None) is not None:
+        return Comm._counted
+    for name in ("all_reduce", "all_gather", "broadcast",
+                 "broadcast_object"):
+        def counted(self, *a, _fn=getattr(Comm, name), **k):
+            counter["depth"] += 1
+            try:
+                if counter["depth"] == 1 and self.size > 1:
+                    counter["n"] += 1
+                return _fn(self, *a, **k)
+            finally:
+                counter["depth"] -= 1
+        setattr(Comm, name, counted)
+    Comm._counted = counter
+    return counter
+
+
+def count_boundary_collectives(trainer) -> list:
+    """Wraps the Trainer's step boundary (``_stop_requested``): the list
+    it returns gets, for each boundary, the collectives run in it, the
+    control broadcasts among them and the table syncs it called."""
+    counter = count_collectives()
+    out = []
+    p = trainer.pipeline
+    boundary = trainer._stop_requested
+    agree = trainer.control.agree
+
+    def agree_w(comm):
+        out[-1]["agrees"] += 1
+        return agree(comm)
+
+    def boundary_w():
+        n0 = counter["n"]
+        syncs = p.sync_block_tables
+        box = {"collectives": 0, "agrees": 0, "syncs": 0}
+        out.append(box)
+
+        def sync_w():
+            box["syncs"] += 1
+            return syncs()
+
+        p.sync_block_tables = sync_w
+        try:
+            return boundary()
+        finally:
+            p.sync_block_tables = syncs
+            box["collectives"] = counter["n"] - n0
+
+    trainer._stop_requested = boundary_w
+    trainer.control.agree = agree_w
+    return out
+
+
+def viewer_run(rank, world, scene, out, overrides):
+    """``gf-nerf-tiny`` through the Trainer with ``--vis viewer
+    viewer_port=0`` over the group: rank 0 writes its viewer's port and
+    its grid coordinates to OUT/viewer.json; every rank records each step
+    (its wall-clock start and end, its metrics), each sync of the block
+    tables (the step in flight or last taken, the tables' digests; rank 0
+    also the tables at the sync inside a step, a phase's first), each
+    step boundary's collectives, and its final state."""
+    import json
+    import os
+    import time as clock
+
+    from gfnerf_tpu_torch.train import build_trainer
+
+    argv = ["gf-nerf-tiny", "--data", str(scene), "--device", "cpu",
+            "--output-dir", str(Path(out) / "runs"),
+            "--experiment-name", "viewer", "--vis", "viewer",
+            "viewer_port=0", *overrides]
+    trainer = build_trainer(argv)
+    p = trainer.pipeline
+    rec = {"steps": {}, "syncs": [], "phase_start_blocks": []}
+    state = {"in_step": None, "last": -1}
+    get_loss = p.get_train_loss_dict
+
+    def get_loss_w(step):
+        t0 = clock.time()
+        state["in_step"] = step
+        m = get_loss(step)
+        state["in_step"], state["last"] = None, step
+        rec["steps"][step] = {"t0": t0, "t1": clock.time(), "metrics": m}
+        return m
+
+    sync = p.sync_block_tables
+
+    def sync_w():
+        sync()
+        inside = state["in_step"] is not None
+        rec["syncs"].append((state["in_step"] if inside else state["last"],
+                             inside, digest(p)["blocks"]))
+        if rank == 0 and inside:
+            rec["phase_start_blocks"].append(
+                (state["in_step"], p.field.block_feats.detach().clone()))
+
+    p.get_train_loss_dict, p.sync_block_tables = get_loss_w, sync_w
+    rec["boundaries"] = count_boundary_collectives(trainer)
+    if rank == 0:
+        info = Path(out) / "viewer.json"
+        info.with_suffix(".tmp").write_text(json.dumps({
+            "port": trainer.viewer.port, "coords": p.grid.coords(0),
+            "n_block_axis": p.n_block_axis,
+            "n_blocks": p.config.model.n_blocks}))
+        os.replace(info.with_suffix(".tmp"), info)
+    else:
+        rec["viewer"] = trainer.viewer
+    trainer.train()
+    rec["end"] = {k: v.detach().clone()
+                  for k, v in p.field.state_dict().items()}
+    rec["base_dir"] = str(trainer.base_dir)
     torch.save(rec, Path(out) / f"rank{rank}.pt")
 
 
