@@ -80,6 +80,23 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
                 and added to a base (bit for bit, in place and not), timed
                 in place on a base beside the encode followed by a
                 separate add, the stack's bf16 copy and the add alone.
+ 9a. window   — K = 8 steps a dispatch (gf-nerf-perf's and gf-nerf-prop's
+                steps_per_dispatch): on the quality workload at the init
+                and focal stages and on the prop workload, at 8192 rays,
+                make_multi_train_step's window (one CUDA graph of the step
+                replayed 8 times): a replayed window's launches 8 times a
+                step's; a replayed window against the same window run
+                eagerly from deep copies of the state, from the same
+                injected draws and from the same generator state (each
+                first step's loss bit for bit, each step's to 1e-3
+                relative, the parameters at the pipeline parity test's
+                share and within a step of the learning rate per step of
+                the window, beside two eager windows' spread; the
+                generator at the same Philox offset); no host sync under
+                set_sync_debug_mode("error") around a replayed window;
+                single steps and windows timed in turns (s/step,
+                peak memory, the capture's peak) and a window profiled
+                (the device's busy share).
  10. parity   — the bench's parity workload (anchored layout, 16 levels x
                 2 channels of 2^19 entries, 192 slots, fineness 4) built
                 anew; with the counters reset, 20 init-stage steps: the
@@ -109,10 +126,16 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
                 8 and 16, the transition (48 error-map renders, 10 camera
                 clusters), 2 focal steps on each of the 10 blocks, eval
                 batches (the focal one block-routed), an eval image and a
-                checkpoint; then a fresh Trainer resumed from it for 2
-                steps (see phase_pipeline for the checks); s/step through
-                the Trainer against train_bench's loop on the same steps,
-                the host work around the step, host syncs a step.
+                checkpoint, at K = 8 (8 steps in the window [0, 8), 36
+                single: as the JAX package's rule predicts); then a fresh
+                Trainer resumed from it for 2 steps (see phase_pipeline
+                for the checks); s/step through the Trainer against
+                train_bench's loop on the same steps, the host work around
+                the step, host syncs of a focal step and of a window
+                against 8 single steps (one against 8 or more); the
+                Trainer on init steps 0-8 again at K = 1 and K = 8 in
+                turns (the second K = 8 run captures nothing), and a
+                window taken apart on the host and profiled.
  13. gfnerf   — with the counters reset: gf-nerf, the paper's method, at
                 its full width through the Trainer (8192 rays, 1024 march
                 slots, a budget of 256 field samples a ray: the compacted
@@ -350,7 +373,10 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
                 image's (the mean image's beside it), each run's event file
                 read back (CRCs, scalars, the config); K1, K2, H1 and H2
                 launched over the three processes, no other kernel.
-Each phase ends with a [clock] line.  Before the last line come a JSON
+Each phase ends with a [clock] line.  The script builds each octree and
+draws each hash table's primes once (SetupReuse): a later phase that asks
+for the same gets a copy, and its setup line counts the reuses.  Before
+the last line come a JSON
 object with each kernel's launches, error, times and bound (K1, K2, H1 and
 H2 also at the prop phase's shapes, under "prop"; H4 and H5 at nerfacto's
 three, under "nerfacto", and at instant-ngp's, under "instant_ngp"; M1 at
@@ -365,7 +391,7 @@ card's name and power limit; the last line is
 Run from the repository root:  python3 chip_smoke.py
 To work on one phase of the pipeline family (pipeline, gfnerf, prop,
 nerfacto, semantics, instant-ngp, scan, stock, nerfplayer, captures,
-tools, parallel, quality, midscale; nerfacto, semantics and tools read
+tools, parallel, quality, midscale, window; nerfacto, semantics and tools read
 the pipeline phase's
 scene and checkpoint),
 or to train the captures phase's capture once a variant
@@ -379,6 +405,7 @@ python3 chip_smoke.py --only pipeline,tools
 python3 chip_smoke.py --only parallel
 python3 chip_smoke.py --only quality,midscale
 python3 chip_smoke.py --only jpeg
+python3 chip_smoke.py --only window,pipeline
 Either form takes ``--coverage-case PATH`` last: the scan phase then writes
 the octree and rays of its coverage check there, for
 ``python tests/torch_parity.py scan-coverage PATH`` (the JAX package's
@@ -423,6 +450,76 @@ TRAIN_LOSS_RTOL = 1e-4
 TRAIN_GRAD_TOL = 2e-3
 # the card's peak memory rate (H100 SXM data sheet), for the bounds
 HBM_BYTES_PER_S = 3.35e12
+
+
+class SetupReuse:
+    """The octrees and the hash tables' primes this script has built,
+    handed out again (copies) when a later phase asks for the same ones.
+    Both are functions of their arguments (the cameras, bounds and sampler
+    settings; the generator's state and count), and the smoke builds the
+    pipeline phase's tree again in the gfnerf, prop and scan phases and
+    draws the same primes in many pipelines; a process that serves users
+    builds one pipeline and pays both.  So the pipeline phase's setup (the
+    first build) and the tools phase's first ``eval_setup`` (its primes
+    drawn anew, ``forget_primes``) are what one process pays; the other
+    phases' setup seconds are on reused builds, and their lines say so
+    (``note``)."""
+
+    def __init__(self):
+        self.trees, self.primes = {}, {}
+        self.hits = {"trees": 0, "primes": 0}
+
+    def install(self) -> None:
+        import copy
+        import hashlib
+
+        import numpy as np
+
+        from gfnerf_tpu_torch.fields import hash_encoding, packed_hash
+        from gfnerf_tpu_torch.sampler import manager
+
+        build, draw = manager.build_octree, hash_encoding._random_primes
+
+        def build_octree(*arrays, **kw):
+            h = hashlib.sha256(repr(sorted(
+                (k, str(v)) for k, v in kw.items())).encode())
+            for a in arrays:
+                a = np.ascontiguousarray(a)
+                h.update(repr((a.dtype.str, a.shape)).encode())
+                h.update(a.tobytes())
+            key = h.hexdigest()
+            if key in self.trees:
+                self.hits["trees"] += 1
+            else:
+                self.trees[key] = build(*arrays, **kw)
+            return copy.deepcopy(self.trees[key])
+
+        def random_primes(rng, count):
+            key = (repr(rng.bit_generator.state), count)
+            if key in self.primes:
+                self.hits["primes"] += 1
+                out, after = self.primes[key]
+                rng.bit_generator.state = after
+                return out.copy()
+            out = draw(rng, count)
+            self.primes[key] = (out.copy(), rng.bit_generator.state)
+            return out
+
+        manager.build_octree = build_octree
+        hash_encoding._random_primes = random_primes
+        packed_hash._random_primes = random_primes
+
+    def forget_primes(self) -> None:
+        self.primes.clear()
+
+    def note(self) -> str:
+        """The reuses since the last note, as a line's words."""
+        got, self.hits = self.hits, {"trees": 0, "primes": 0}
+        return (f"reused from earlier phases: {got['trees']} octree(s), "
+                f"{got['primes']} prime draw(s)")
+
+
+SETUP_REUSE = SetupReuse()
 
 
 def log(msg: str) -> None:
@@ -2672,6 +2769,11 @@ PIPELINE_INIT_STEPS = 24
 # the block learning rate, 5e-3
 RESUME_TABLE_ATOL = 1e-5
 PIPELINE_STEPS = 44
+# the phases that hold each step's launches through the Trainer on
+# gf-nerf-perf or gf-nerf-prop (whose steps_per_dispatch is 8) take one
+# step a dispatch: a window's launches fall in its first step; the window
+# is checked by the window and pipeline phases
+ONE_STEP_A_DISPATCH = {"pipeline.steps_per_dispatch": "1"}
 PIPELINE_OVERRIDES = {
     **{f"pipeline.{part}.{key}": value
        for part in ("model", "datamanager", "optimizers")
@@ -2692,6 +2794,167 @@ def _mean(xs) -> float:
     return float(np.mean(xs)) if len(xs) else float("nan")
 
 
+class _timed_calls:
+    """fn with the host seconds of its calls summed in ``s`` (its other
+    attributes passed through)."""
+
+    def __init__(self, fn):
+        self.fn, self.s = fn, 0.0
+
+    def __call__(self, *args, **kw):
+        t = time.perf_counter()
+        try:
+            return self.fn(*args, **kw)
+        finally:
+            self.s += time.perf_counter() - t
+
+    def __getattr__(self, name):
+        return getattr(self.fn, name)
+
+
+def trainer_at_both_k(trainer, get_loss, after, what: str) -> dict:
+    """A phase's Trainer (the pipeline phase's schedule: 24 init steps) on
+    its init steps 0 to WINDOW_TRAINER_STEPS - 1 again (the milestones
+    passed, compaction off, no eval and no save), at K = 1 and at K =
+    WINDOW_K in turns, twice each (``get_loss`` and ``after``: the
+    pipeline's own methods), from no kept graph and the card's cache
+    emptied.  Checked: each K = WINDOW_K run's steps in windows and single
+    steps as ``predict_windows`` says, no buffered metric left; the first
+    K = WINDOW_K run captures once, the second not at all (it replays the
+    kept graph).  Then two more K = WINDOW_K runs of one window each: the
+    first taken apart on the host (the batches drawn, their staging, the
+    calls that enqueue the replays, the rest: the copy back's wait for the
+    card, and the rows), the second profiled (the card's busy share).
+    Returns the s/step of each run over its first WINDOW_K steps (the
+    window's calls), each run's peak allocated and reserved bytes and captures, and
+    the window's parts."""
+    import numpy as np
+    import torch
+
+    from gfnerf_tpu_torch.utils.profiling import profile_device
+
+    p = trainer.pipeline
+    k = WINDOW_K
+    p.sampler.cfg.compact_freq = 10 ** 6
+    trainer.config.max_num_iterations = WINDOW_TRAINER_STEPS
+    trainer._start_step = 0
+    trainer.save_checkpoint = lambda step: None
+    trainer.eval_iteration = lambda step: None
+    spans, runs, mem, caps = [], {}, {}, {}
+    profiled = {}
+
+    def captures():
+        return sum(f.captures for f in p._multi_step_fns.values())
+
+    def get_loss_w(step):
+        t = time.perf_counter()
+        if profiled.get("at") == step:   # the window's wall inside
+            got = []
+
+            def window():
+                t_in = time.perf_counter()
+                got.append(get_loss(step))
+                torch.cuda.synchronize()
+                got.append(time.perf_counter() - t_in)
+
+            profiled["prof"] = profile_device(window)
+            m, profiled["wall_s"] = got
+        else:
+            m = get_loss(step)
+        torch.cuda.synchronize()
+        spans[-1].append(time.perf_counter() - t)
+        return m
+
+    p.get_train_loss_dict, p.after_train_iteration = get_loss_w, after
+    want = predict_windows(WINDOW_TRAINER_STEPS, k, PIPELINE_INIT_STEPS, 2,
+                           10, (), 10 ** 6)
+
+    def run(kk):
+        p.config.steps_per_dispatch = kk
+        before = (p._k_steps_scanned, p._k_steps_fallback, captures())
+        spans.append([])
+        torch.cuda.reset_peak_memory_stats()
+        trainer.train()
+        got = (p._k_steps_scanned - before[0],
+               p._k_steps_fallback - before[1])
+        if (kk == k and got != want) or p._pending_metrics:
+            raise AssertionError(f"{what}: K={kk} Trainer run: coverage "
+                                 f"{got}, predicted {want}; metrics left "
+                                 f"{sorted(p._pending_metrics)}")
+        runs.setdefault(kk, []).append(float(np.mean(spans[-1][:k])))
+        mem.setdefault(kk, []).append((torch.cuda.max_memory_allocated(),
+                                       torch.cuda.max_memory_reserved()))
+        caps.setdefault(kk, []).append(captures() - before[2])
+
+    for fn in p._multi_step_fns.values():
+        fn.reset()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    for kk in (1, k, 1, k):
+        run(kk)
+    if caps[k] != [1, 0] or any(caps[1]):
+        raise AssertionError(f"{what}: captures in the Trainer's runs: K={k}"
+                             f" {caps[k]}, K=1 {caps[1]} (want [1, 0] and "
+                             f"none)")
+    # one window taken apart on the host, then one window profiled
+    dm = p.datamanager
+    draw, stage = (_timed_calls(dm.next_train),
+                   _timed_calls(p._stage_window))
+    key = (0, k)
+    enqueue = p._multi_step_fns[key] = _timed_calls(p._multi_step_fns[key])
+    dm.next_train, p._stage_window = draw, stage
+    c0 = captures()
+    trainer.config.max_num_iterations = k   # one window
+    p.config.steps_per_dispatch = k
+    try:
+        spans.append([])
+        trainer.train()
+        win_s = spans[-1][0]
+        del dm.next_train, p._stage_window
+        p._multi_step_fns[key] = enqueue.fn
+        profiled["at"] = 0
+        spans.append([])
+        trainer.train()
+    finally:
+        dm.__dict__.pop("next_train", None)
+        p.__dict__.pop("_stage_window", None)
+        p._multi_step_fns[key] = enqueue.fn
+        profiled.pop("at", None)
+        trainer.config.max_num_iterations = WINDOW_TRAINER_STEPS
+    if captures() != c0:
+        raise AssertionError(f"{what}: the last Trainer windows captured")
+    prof = profiled["prof"]
+    parts = {"window_s": win_s, "draw_s": draw.s, "stage_s": stage.s,
+             "enqueue_s": enqueue.s,
+             "rest_s": win_s - draw.s - stage.s - enqueue.s,
+             "profiled_window_s": profiled["wall_s"],
+             "device_busy_ms": prof["device_busy_ms"],
+             "busy_share": prof["device_busy_ms"] / (profiled["wall_s"]
+                                                     * 1e3),
+             "host_waits": prof["host_waits"],
+             "top_kernels": [(t["name"][:60], round(t["device_ms"], 2))
+                             for t in prof["top_kernels"][:6]]}
+    gib = {kk: [(round(a / 2**30, 3), round(r / 2**30, 3)) for a, r in v]
+           for kk, v in mem.items()}
+    log(f"[{what}] the Trainer on steps 0-{WINDOW_TRAINER_STEPS - 1} "
+        f"again, in turns from no kept graph, s/step over steps 0-{k - 1}: "
+        f"K=1 "
+        f"{runs[1]} vs K={k} {runs[k]} (captures {caps[k]}; {want[0]} steps "
+        f"in windows, {want[1]} single); peak GiB (allocated, reserved): "
+        f"K=1 {gib[1]}, K={k} {gib[k]}; a window {win_s:.4f} s: the "
+        f"batches drawn {draw.s:.4f}, staged {stage.s:.4f}, the replays "
+        f"enqueued {enqueue.s:.4f}, the rest (the copy back, its wait for "
+        f"the card) {parts['rest_s']:.4f}; a window under the profiler "
+        f"{profiled['wall_s']:.4f} s, device busy "
+        f"{prof['device_busy_ms']:.2f} ms ({parts['busy_share']:.1%}), "
+        f"host waits {prof['host_waits']}, busiest kernels "
+        f"{parts['top_kernels']}")
+    p.config.steps_per_dispatch = k
+    return {"trainer_s_per_step_k8": runs[k], "trainer_s_per_step_k1": runs[1],
+            "trainer_peak_bytes_k1": mem[1], "trainer_peak_bytes_k8": mem[k],
+            "trainer_captures_k8": caps[k], "trainer_window_parts": parts}
+
+
 def phase_pipeline(tmp: Path):
     """gf-nerf-perf trained through the Trainer on the synthetic scene (48
     train and 4 val views at 96x72), counted: 24 init steps, the transition
@@ -2708,9 +2971,13 @@ def phase_pipeline(tmp: Path):
     float atomics by H2, in an order that varies from run to run, so its
     update may differ in the last bits: by at most RESUME_TABLE_ATOL, 500
     times below the block learning rate that a flipped update would
-    show).  Timed: steps through the Trainer, the same step through
-    train_bench's loop, the rebuilds, the transition, an eval batch, the
-    checkpoint's save and load; peak memory; host syncs a step."""
+    show); at K = 8 (gf-nerf-perf's steps_per_dispatch) the steps in
+    windows and the single steps as ``predict_windows`` says, no buffered
+    metric left, the state at step 44; a window's host syncs one, K single
+    steps' at least K.  Timed: single steps through the Trainer, the same
+    step through train_bench's loop, the rebuilds, the transition, an eval
+    batch, the checkpoint's save and load; peak memory; host syncs of a
+    focal step, a window and K single steps; ``trainer_at_both_k``."""
     import copy
 
     import numpy as np
@@ -2740,13 +3007,16 @@ def phase_pipeline(tmp: Path):
 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
+    SETUP_REUSE.note()   # this setup's reuses alone
     t0 = time.perf_counter()
     trainer = make_trainer(PIPELINE_STEPS)
     trainer.setup()
     p = trainer.pipeline
     setup_s = time.perf_counter() - t0
     scfg = p.sampler.sampler_config
-    log(f"[pipeline] setup {setup_s:.2f}s: {p.sampler.tree.n_nodes} nodes, "
+    reused = SETUP_REUSE.note()
+    log(f"[pipeline] setup {setup_s:.2f}s ({reused})"
+        f": {p.sampler.tree.n_nodes} nodes, "
         f"{p.sampler.oct_dev.n_leaves} valid leaves; sample_l "
         f"{scfg.sample_l:.6f}, max_hits {scfg.max_hits}, "
         f"S={scfg.max_samples}; n_blocks {p.field_cfg.n_blocks}, "
@@ -2839,6 +3109,17 @@ def phase_pipeline(tmp: Path):
     train_s = time.perf_counter() - t0
     launches = launch_counts()
     peak = torch.cuda.max_memory_allocated()
+    # K = 8 windows where the JAX package's rule lets them fit
+    k = p.config.steps_per_dispatch
+    coverage = (p._k_steps_scanned, p._k_steps_fallback)
+    want = predict_windows(PIPELINE_STEPS, k, PIPELINE_INIT_STEPS, 2, 10,
+                           (8, 16), 12)
+    log(f"[pipeline] K={k}: {coverage[0]} steps in windows, {coverage[1]} "
+        f"single (predicted {want}); metrics left {p._pending_metrics}")
+    if k != WINDOW_K or coverage != want or p._pending_metrics \
+            or p.state.step != PIPELINE_STEPS:
+        raise AssertionError(f"pipeline: K {k}, coverage {coverage}, "
+                             f"predicted {want}, step {p.state.step}")
 
     # the checks
     steps = rec["steps"]
@@ -2994,10 +3275,11 @@ def phase_pipeline(tmp: Path):
         raise AssertionError(f"resumed steps {resumed}")
     load_s = loads[0]
 
-    # times: the Trainer's steps (without the first 2 of each stage and the
-    # rebuild steps), the same step through train_bench's loop
+    # times: the Trainer's single steps (without the window [0, 8), the
+    # first single step and the rebuild steps), the same step through
+    # train_bench's loop
     rebuild_steps = {s for s, *_ in rec["rebuilds"]}
-    init_s = [steps[i]["s"] for i in range(2, PIPELINE_INIT_STEPS)
+    init_s = [steps[i]["s"] for i in range(9, PIPELINE_INIT_STEPS)
               if i not in rebuild_steps]
     init1_s = [steps[i]["s"] for i in range(16, PIPELINE_INIT_STEPS)
                if i not in rebuild_steps]
@@ -3019,8 +3301,25 @@ def phase_pipeline(tmp: Path):
     bench_focal, _ = run_steps(bench, batches[1:], gen, focal_block=0)
     p.state = bench["state"]
     p.sampler.oct_dev = bench["oct_dev"]
-    syncs = {"init": host_syncs(lambda: get_loss(1)),
-             "focal": host_syncs(lambda: get_loss(PIPELINE_STEPS + 2))}
+    # host syncs: a focal step; at the init stage a window of K steps (its
+    # graph captured by a first window) against K single steps
+    syncs = {"focal": host_syncs(lambda: get_loss(PIPELINE_STEPS + 2))}
+    p.total_train_steps = None
+    get_loss(1)   # the window [1, 9): no compaction step (12) in it
+    p._pending_metrics.clear()
+    syncs["init_window"] = host_syncs(lambda: get_loss(13))   # [13, 21)
+    p._pending_metrics.clear()
+    p.config.steps_per_dispatch = 1
+    syncs["init_singles"] = host_syncs(
+        lambda: [get_loss(1 + i) for i in range(k)])
+    p.config.steps_per_dispatch = k
+
+    # (the profiler's stop adds one cudaDeviceSynchronize to each trace)
+    waits = {key: n.get("cudaStreamSynchronize", 0)
+             for key, n in syncs.items()}
+    if waits["init_window"] != 1 or waits["init_singles"] < k:
+        raise AssertionError(f"pipeline: host syncs {syncs}")
+    trainer_k = trainer_at_both_k(trainer, get_loss, after, "pipeline")
     stats = {
         "setup_s": setup_s, "train_s": train_s,
         "init_s_per_step": _mean(init_s),
@@ -3034,7 +3333,8 @@ def phase_pipeline(tmp: Path):
         "eval_batch_s": [t for _, t, _ in rec["evals"]],
         "checkpoint_save_s": [t for _, t in rec["saves"]],
         "checkpoint_load_s": load_s, "resume_setup_s": resume_setup_s,
-        "peak_bytes": peak, "host_syncs": syncs,
+        "peak_bytes": peak, "host_syncs": syncs, "k_coverage": coverage,
+        **trainer_k,
         "eval_psnr": float(metrics["psnr"]), "mean_image_psnr": trivial,
         "nodes": p.sampler.tree.n_nodes,
         "max_hits": p.sampler.sampler_config.max_hits,
@@ -3044,6 +3344,354 @@ def phase_pipeline(tmp: Path):
         f" step; train_bench's loop on the same steps: "
         f"{_mean(bench_init):.4f} init, {_mean(bench_focal):.4f} focal; "
         f"host syncs a step: {syncs}; peak {peak / 2**30:.3f} GiB")
+    return launches, stats
+
+
+# K steps a dispatch: the window of gf-nerf-perf and gf-nerf-prop
+# (steps_per_dispatch, bench.py:415)
+WINDOW_K = 8
+# a window replayed from its CUDA graph against the same window run
+# eagerly on the card from the same state and draws: the first step's
+# loss bit for bit (no update comes before it); H2's float atomics sum in
+# a varying order, so from the second step on two runs part as two eager
+# runs of the window do (their spread is reported beside): each step's
+# loss to 1e-3 relative (two eager prop windows part by 1.5e-4 at step
+# 8), the parameters at the pipeline parity test's share (at most 10%
+# of a tensor's entries apart by more than 1e-4) and none apart by more
+# than one step of the largest learning rate (1e-2) for each step of the
+# window (an Adam update of a near-zero gradient may flip its sign at
+# any of them)
+WINDOW_LOSS_RTOL = 1e-3
+WINDOW_SHARE, WINDOW_ENTRY_ATOL, WINDOW_MAX = 0.10, 1e-4, 8 * 1e-2
+# the counters' names -> a piece of the names of their kernels in a trace
+WINDOW_KERNEL_NAMES = {"composite_fwd": "composite_fwd_kernel",
+                       "composite_bwd": "composite_bwd_",
+                       "packed_hash_fwd": "packed_hash_encode_kernel",
+                       "packed_hash_bwd": "packed_hash_bwd_kernel"}
+# timed in turns: single steps against windows, twice each
+WINDOW_SINGLE_STEPS = 8
+WINDOW_TIMED = 2
+# gf-nerf-perf through the Trainer at both K: the pipeline phase's run
+# takes its init steps 0-8 again (its milestones passed, compaction off):
+# the window [0, 8), then one single step
+WINDOW_TRAINER_STEPS = 9
+
+
+def predict_windows(total: int, k: int, init_steps: int, split_steps: int,
+                    n_splits: int, milestones, compact_freq: int) -> tuple:
+    """(steps in windows, single steps) of a run of ``total`` steps at K =
+    ``k`` by the JAX pipeline's rule (``_k_window_ok``,
+    gfnerf_tpu/pipelines/pipeline.py:399-426), written out on its own: a
+    window fits if it ends by ``total``, stays in one stage, at the focal
+    stage in one split, and at the init stage has no milestone at or
+    before its last step and no compaction step; a single step at the init
+    stage passes the milestones it reaches (the rebuild)."""
+    ms = sorted(milestones)
+
+    def stage(s):
+        return 0 if s < init_steps else 1
+
+    def split(s):
+        return -1 if s < init_steps else \
+            ((s - init_steps) // split_steps) % n_splits
+
+    scanned = single = step = 0
+    while step < total:
+        span = range(step, step + k)
+        ok = step + k <= total and len({stage(s) for s in span}) == 1
+        if ok and stage(step) == 1:
+            ok = len({split(s) for s in span}) == 1
+        elif ok:
+            ok = not (ms and ms[0] <= step + k - 1) and not any(
+                s > 0 and s % compact_freq == 0 for s in span)
+        if ok:
+            scanned += k
+            step += k
+            continue
+        single += 1
+        if stage(step) == 0:
+            while ms and ms[0] <= step:
+                ms.pop(0)
+        step += 1
+    return scanned, single
+
+
+def _apart(a, b) -> tuple:
+    """(share of entries apart by more than WINDOW_ENTRY_ATOL, largest
+    difference) of two tensors."""
+    d = (a.float() - b.float()).abs()
+    return float((d > WINDOW_ENTRY_ATOL).float().mean()), float(d.max())
+
+
+def _philox_offset(gen) -> int:
+    """A CUDA generator's Philox offset (its state's second 8 bytes)."""
+    state = gen.get_state()
+    return int.from_bytes(bytes(state[8:16].tolist()), "little")
+
+
+def window_checks(wl, what: str, focal_block=None) -> dict:
+    """A K = WINDOW_K window of the train_bench workload ``wl`` at 8192
+    rays, on the card: captured by a first window, then checked and timed.
+    Checked: the launches of a replayed window (K times a step's, by the
+    counters and by the kernels' records in a profiled window's trace); a
+    replayed window against the same window run eagerly from deep copies
+    of the state, from the same injected draws (the first step's loss bit
+    for bit, each step's to WINDOW_LOSS_RTOL, every parameter at
+    WINDOW_SHARE / WINDOW_MAX; two eager windows' spread reported beside
+    it) and
+    from the same generator state (the same, and the generator at the
+    same Philox offset, which every replay moved); no host sync under
+    ``torch.cuda.set_sync_debug_mode("error")`` around a replayed window.
+    Timed in turns: single steps (K = 1) and windows, s/step and peak
+    memory; the device's busy share of a profiled window."""
+    import copy
+
+    import numpy as np
+    import torch
+
+    from gfnerf_tpu_torch.engine.optimizers import field_param_groups
+    from gfnerf_tpu_torch.model_components.losses import s3im_permutations
+    from gfnerf_tpu_torch.models.gfnerf import TrainState
+    from gfnerf_tpu_torch.train_bench import (RAYS, make_batch, run_steps,
+                                              run_windows, stack_window)
+    from gfnerf_tpu_torch.utils.profiling import profile_device
+
+    k = WINDOW_K
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(7)
+    seed = 900 if focal_block is None else 1900
+    n_windows = 4 + 2 * WINDOW_TIMED + 1
+    flat = [make_batch(wl["images"], RAYS, seed + i, dev)
+            for i in range(n_windows * k + 1 + WINDOW_SINGLE_STEPS)]
+    windows = [stack_window(flat[i * k:(i + 1) * k])
+               for i in range(n_windows)]
+    singles = flat[n_windows * k:]
+    n_prop = wl["mcfg"].num_proposal_resamples
+    per_step = {"composite_fwd": 1, "composite_bwd": 1,
+                "packed_hash_fwd": 1 if focal_block is None else 2,
+                "packed_hash_bwd": table_grad_launches(wl)}
+    if n_prop:   # the probe's table: H1 once more, H2 at its levels
+        from gfnerf_tpu_torch.fields.hash_encoding import \
+            table_grad_launches as tgl
+
+        per_step["packed_hash_fwd"] += 1
+        per_step["packed_hash_bwd"] += tgl(wl["fcfg"].proposal_levels,
+                                           wl["fcfg"].features_per_level)
+
+    def draws():
+        d = {"noise": torch.rand((k, RAYS, wl["scfg"].max_samples),
+                                 generator=gen, device=dev) + 0.5,
+             "s3im_perms": torch.stack([s3im_permutations(
+                 RAYS, generator=gen, device=dev) for _ in range(k)])}
+        if n_prop:
+            d["prop_u"] = torch.rand((k, RAYS, n_prop + 1), generator=gen,
+                                     device=dev)
+        return d
+
+    def copy_of():
+        field = copy.deepcopy(wl["state"].field)
+        return {**wl, "state": TrainState(
+            field=field, opt_state=copy.deepcopy(wl["state"].opt_state),
+            step=wl["state"].step), "oct_dev": copy.deepcopy(wl["oct_dev"]),
+                "window_fns": {}}
+
+    def params_apart(a, b) -> dict:
+        out = {}
+        for name, ps in field_param_groups(a).items():
+            for i, (x, y) in enumerate(zip(ps, field_param_groups(b)[name])):
+                out[f"{name}[{i}]"] = _apart(x.detach(), y.detach())
+        return out
+
+    # single steps from no kept graph and an emptied cache, then the
+    # capture (the window's first step eager, then 7 replays): its peak
+    # holds the graph's pool, which later replays reuse
+    for fn in wl.get("window_fns", {}).values():
+        fn.reset()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    run_steps(wl, singles[:2], gen, focal_block)
+    k1_peak = (torch.cuda.max_memory_allocated(),
+               torch.cuda.max_memory_reserved())
+    torch.cuda.reset_peak_memory_stats()
+    cap_s, _ = run_windows(wl, windows[:1], gen, k, focal_block)
+    cap_peak = (torch.cuda.max_memory_allocated(),
+                torch.cuda.max_memory_reserved())
+    reset_launch_counts()
+    run_windows(wl, windows[1:2], gen, k, focal_block)
+    check_launches(f"window {what}", launch_counts(),
+                   {n: k * v for n, v in per_step.items()})
+
+    # the same generator state, eager and replayed (the graph the first
+    # windows captured: all 8 steps replayed)
+    eager_wl = copy_of()
+    gen2 = torch.Generator(device=dev)
+    gen2.set_state(gen.get_state())
+    offset0 = _philox_offset(gen)
+    _, eager_gen_losses = run_windows(eager_wl, windows[3:4], gen2, k,
+                                      focal_block, graph=False)
+    _, graph_gen_losses = run_windows(wl, windows[3:4], gen, k, focal_block)
+    offsets = (offset0, _philox_offset(gen), _philox_offset(gen2))
+    del eager_wl
+    # the same draws, eager twice and replayed (a graph of its own: the
+    # window's first step eager, 7 replayed)
+    d = draws()
+    eager_wl, eager2_wl = copy_of(), copy_of()
+    _, eager_losses = run_windows(eager_wl, windows[2:3], None, k,
+                                  focal_block, draws=[d], graph=False)
+    _, eager2_losses = run_windows(eager2_wl, windows[2:3], None, k,
+                                   focal_block, draws=[d], graph=False)
+    _, graph_losses = run_windows(wl, windows[2:3], None, k, focal_block,
+                                  draws=[d])
+    apart = params_apart(wl["state"].field, eager_wl["state"].field)
+    worst = max(apart.values(), key=lambda v: v[1])
+    eager_spread = max(params_apart(eager2_wl["state"].field,
+                                    eager_wl["state"].field).values(),
+                       key=lambda v: v[1])
+    del eager_wl, eager2_wl
+    log(f"[window] {what}: replayed against eager, the same draws: losses "
+        f"{graph_losses[0]} vs {eager_losses[0]}; parameters apart at most "
+        f"{worst} (two eager windows: {eager_spread}, losses "
+        f"{eager2_losses[0]}); the same "
+        f"generator: losses {graph_gen_losses[0]} vs "
+        f"{eager_gen_losses[0]}, Philox offset {offsets[0]} -> "
+        f"{offsets[1]} (eager {offsets[2]})")
+    for got, want in ((graph_losses, eager_losses),
+                      (graph_gen_losses, eager_gen_losses)):
+        if got[0][0] != want[0][0]:
+            raise AssertionError(f"window {what}: the first step's loss "
+                                 f"{got[0][0]!r} replayed, {want[0][0]!r} "
+                                 f"eager")
+        np.testing.assert_allclose(got[0], want[0], rtol=WINDOW_LOSS_RTOL,
+                                   err_msg=f"window {what}: losses")
+    for name, (share, big) in apart.items():
+        if share > WINDOW_SHARE or big > WINDOW_MAX:
+            raise AssertionError(f"window {what}: {name} replayed against "
+                                 f"eager: {share:.4g} of entries apart, at "
+                                 f"most {big:.4g}")
+    if offsets[1] != offsets[2] or offsets[1] == offsets[0]:
+        raise AssertionError(f"window {what}: the replays left the "
+                             f"generator at {offsets[1]}, eager steps at "
+                             f"{offsets[2]} (from {offsets[0]})")
+
+    # no host sync in a replayed window (the same-draws graph)
+    fn = wl["window_fns"][(0 if focal_block is None else 1, k)]
+    fine = torch.full((k,), float(wl["fineness"]), device=dev)
+    d = draws()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        wl["state"], wl["oct_dev"], _, _ = fn(
+            wl["state"], wl["oct_dev"], wl["cams"], windows[4], fine,
+            active_block=focal_block or 0, draws=d)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    # the generator's graph again before the timed windows
+    run_windows(wl, windows[7:8], gen, k, focal_block)
+
+    # timed in turns
+    turns = {"k1": [], "k8": [], "k1_peak": [], "k8_peak": []}
+    run_steps(wl, singles[:1], gen, focal_block)
+    for t in range(WINDOW_TIMED):
+        torch.cuda.reset_peak_memory_stats()
+        times, _ = run_steps(wl, singles[1:], gen, focal_block)
+        turns["k1"].append(float(np.mean(times)))
+        turns["k1_peak"].append(torch.cuda.max_memory_allocated())
+        torch.cuda.reset_peak_memory_stats()
+        times, _ = run_windows(wl, windows[5 + t:6 + t], gen, k,
+                               focal_block)
+        turns["k8"].append(float(np.sum(times)) / k)
+        turns["k8_peak"].append(torch.cuda.max_memory_allocated())
+    reserved = torch.cuda.memory_reserved()
+    win_s = []
+
+    def one_window():
+        t0 = time.perf_counter()
+        run_windows(wl, windows[-1:], gen, k, focal_block)
+        win_s.append(time.perf_counter() - t0)
+
+    # the launches of a replayed window counted in its trace, by kernel
+    # name: what the counters added for it (K times a step's) must be what
+    # the graph ran (the trace is taken again if it lost records)
+    for attempt in range(1, 4):
+        win_s.clear()
+        prof = profile_device(one_window)
+        traced = {name: sum(c for key, c in prof["kernel_counts"].items()
+                            if pattern in key)
+                  for name, pattern in WINDOW_KERNEL_NAMES.items()}
+        if traced == {n: k * v for n, v in per_step.items()}:
+            break
+        log(f"[profiler] window {what}: the trace holds {traced} kernel "
+            f"records (try {attempt} of 3)")
+    else:
+        raise AssertionError(f"window {what}: a replayed window's trace "
+                             f"holds {traced} launches, not {k} x "
+                             f"{per_step}")
+    busy = prof["device_busy_ms"] / (win_s[0] * 1e3)
+    out = {"capture_window_s": cap_s[0], "s_per_step_k1": turns["k1"],
+           "s_per_step_k8": turns["k8"], "peak_bytes_k1": turns["k1_peak"],
+           "peak_bytes_k8_replays": turns["k8_peak"],
+           "k1_peak_bytes_fresh": k1_peak[0],
+           "k1_peak_reserved_bytes_fresh": k1_peak[1],
+           "capture_peak_bytes": cap_peak[0],
+           "capture_peak_reserved_bytes": cap_peak[1],
+           "reserved_bytes_after": reserved,
+           "profiled_window_s": win_s[0],
+           "window_device_busy_ms": prof["device_busy_ms"],
+           "window_busy_share": busy, "window_traced_launches": traced,
+           "loss_rel_diff_draws": float(np.max(np.abs(
+               np.asarray(graph_losses[0]) - eager_losses[0])
+               / np.abs(eager_losses[0]))),
+           "eager_loss_rel_diff_draws": float(np.max(np.abs(
+               np.asarray(eager2_losses[0]) - eager_losses[0])
+               / np.abs(eager_losses[0]))),
+           "params_apart_max": worst,
+           "eager_params_apart_max": eager_spread}
+    log(f"[window] {what}: s/step K=1 {turns['k1']} vs K={k} "
+        f"{turns['k8']}; peak GiB allocated: K=1 "
+        f"{[round(x / 2**30, 3) for x in turns['k1_peak']]} (from an "
+        f"emptied cache and no graph {k1_peak[0] / 2**30:.3f}, reserved "
+        f"{k1_peak[1] / 2**30:.3f}), the capture "
+        f"window {cap_peak[0] / 2**30:.3f} (reserved "
+        f"{cap_peak[1] / 2**30:.3f}), replayed windows outside the graph's "
+        f"pool {[round(x / 2**30, 3) for x in turns['k8_peak']]}; a window "
+        f"{win_s[0]:.4f} s, device busy {prof['device_busy_ms']:.2f} ms "
+        f"({busy:.1%}), its launches in the trace {traced}; the capture's "
+        f"window {cap_s[0]:.2f} s")
+    return out
+
+
+def phase_window(tmp: Path, wl=None):
+    """K = 8 steps a dispatch on the card: ``window_checks`` on the
+    quality workload (``wl``, the main flow's, or built here) at the init
+    and focal stages and on the prop workload at the init stage, all at
+    8192 rays (the Trainer's windows: ``phase_pipeline``).  Counted: every
+    launch of the phase (the replays', the eager windows', the single
+    steps')."""
+    import torch
+
+    from gfnerf_tpu_torch.models.gfnerf import init_train_state
+    from gfnerf_tpu_torch.train_bench import build_train_workload
+
+    dev = torch.device("cuda")
+    reset_launch_counts()
+    stats = {}
+    if wl is None:
+        wl = build_train_workload(dev, seed=0, config="quality")
+    stats["quality_init"] = window_checks(wl, "quality init")
+    wl["state"] = init_train_state(wl["field"], wl["tx"])
+    stats["quality_focal"] = window_checks(wl, "quality focal",
+                                           focal_block=0)
+    wl.pop("window_fns", None)
+    launches = launch_counts()
+    prop = build_train_workload(dev, seed=0, config="prop")
+    reset_launch_counts()
+    stats["prop_init"] = window_checks(prop, "prop init")
+    del prop
+    torch.cuda.empty_cache()
+    for name, n in launch_counts().items():
+        launches[name] += n
     return launches, stats
 
 
@@ -3383,12 +4031,15 @@ def phase_gfnerf(tmp: Path):
     trainer = Trainer(cfg, build_dataparser("minimal", scene))
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
+    SETUP_REUSE.note()   # this setup's reuses alone
     t0 = time.perf_counter()
     trainer.setup()
     setup_s = time.perf_counter() - t0
     p = trainer.pipeline
     fc, scfg, mcfg = p.field_cfg, p.sampler.sampler_config, p.config.model
-    log(f"[gfnerf] setup {setup_s:.2f}s: {p.sampler.tree.n_nodes} nodes, "
+    reused = SETUP_REUSE.note()
+    log(f"[gfnerf] setup {setup_s:.2f}s ({reused})"
+        f": {p.sampler.tree.n_nodes} nodes, "
         f"{p.sampler.n_volumes} volumes; S={scfg.max_samples}, budget "
         f"{mcfg.samples_budget_per_ray}, sample_l {scfg.sample_l:.6f}, "
         f"max_hits {scfg.max_hits}; {fc.hash_layout} {fc.num_levels} levels "
@@ -3671,7 +4322,7 @@ def phase_gfnerf(tmp: Path):
 PROP_INIT_STEPS = 24
 PROP_FOCAL_BLOCKS = 2
 PROP_STEPS = PROP_INIT_STEPS + 2 * PROP_FOCAL_BLOCKS
-PROP_OVERRIDES = {**PIPELINE_OVERRIDES,
+PROP_OVERRIDES = {**PIPELINE_OVERRIDES, **ONE_STEP_A_DISPATCH,
                   "steps_per_eval_batch": str(PROP_STEPS // 2),
                   "steps_per_eval_image": str(PROP_STEPS),
                   "steps_per_save": str(PROP_STEPS)}
@@ -3902,7 +4553,9 @@ def phase_prop(tmp: Path):
     (check_prop_kernels); an init and a focal step profiled (the
     gfnerf/proposal span among the stages); a step's peak memory beyond
     its state; python -m gfnerf_tpu_torch.eval and .render on the
-    checkpoint, and .render --early-term refused."""
+    checkpoint, and .render --early-term refused.  The counted run takes
+    one step a dispatch; then ``trainer_at_both_k`` trains the Trainer's
+    init steps again in gf-nerf-prop's K = 8 windows and at K = 1."""
     import numpy as np
     import torch
 
@@ -3931,6 +4584,7 @@ def phase_prop(tmp: Path):
     trainer = Trainer(cfg, build_dataparser("minimal", scene))
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
+    SETUP_REUSE.note()   # this setup's reuses alone
     t0 = time.perf_counter()
     trainer.setup()
     setup_s = time.perf_counter() - t0
@@ -3942,7 +4596,9 @@ def phase_prop(tmp: Path):
              fc.features_per_level, fc.packed_rows_log2, fc.proposal_levels,
              fc.proposal_rows_log2, fc.n_blocks, fc.mlp_dtype,
              fc.hash_layout, rays)
-    log(f"[prop] setup {setup_s:.2f}s: {p.sampler.tree.n_nodes} nodes, "
+    reused = SETUP_REUSE.note()
+    log(f"[prop] setup {setup_s:.2f}s ({reused})"
+        f": {p.sampler.tree.n_nodes} nodes, "
         f"{p.sampler.n_volumes} volumes; sample_l {scfg.sample_l:.6f}, "
         f"max_hits {scfg.max_hits}; (slots, budget, fine samples, levels, "
         f"channels, log2 rows, probe levels, probe log2 rows, blocks, MLPs,"
@@ -4160,6 +4816,9 @@ def phase_prop(tmp: Path):
 
     # the entry points on the checkpoint
     config_path = trainer.base_dir / "config.json"
+    # gf-nerf-prop's own K = 8 windows through the Trainer
+    trainer_k = trainer_at_both_k(trainer, get_loss,
+                                  p.after_train_iteration, "prop")
     del trainer, p, wl, render, get_loss, rebuild, eval_batch, eval_image
     torch.cuda.empty_cache()
     t = time.perf_counter()
@@ -4195,7 +4854,7 @@ def phase_prop(tmp: Path):
         f"{render_s:.2f}s: {[f.name for f in frames]}, each 96x72 RGB")
     torch.cuda.empty_cache()
     stats = {
-        "setup_s": setup_s, "train_s": train_s,
+        **trainer_k, "setup_s": setup_s, "train_s": train_s,
         "init_s_per_step": _mean(init_s), "focal_s_per_step": _mean(focal_s),
         "init_rays_per_s": RAYS / _mean(init_s),
         "focal_rays_per_s": RAYS / _mean(focal_s),
@@ -4244,6 +4903,7 @@ NERFACTO_TABLE_GRAD_TOL = 1e-4
 SEMANTICS_INIT_STEPS = 10
 SEMANTICS_STEPS = SEMANTICS_INIT_STEPS + 2
 SEMANTICS_OVERRIDES = {
+    **ONE_STEP_A_DISPATCH,
     **{f"pipeline.{part}.{key}": value
        for part in ("model", "datamanager", "optimizers")
        for key, value in (("steps_perssampler_init",
@@ -4726,12 +5386,15 @@ def phase_semantics(tmp: Path):
 
     cfg.pipeline.build = build_on_tree
     trainer = Trainer(cfg, build_dataparser("minimal", roads))
+    SETUP_REUSE.note()   # this setup's reuses alone
     t0 = time.perf_counter()
     trainer.setup()
     setup_s = time.perf_counter() - t0
     p = trainer.pipeline
     fc = p.field_cfg
-    log(f"[semantics] setup {setup_s:.2f}s on {tree_ckpt.name}'s tree "
+    reused = SETUP_REUSE.note()
+    log(f"[semantics] setup {setup_s:.2f}s ({reused})"
+        f" on {tree_ckpt.name}'s tree "
         f"({p.sampler.tree.n_nodes} nodes); camera_opt_mode "
         f"{fc.camera_opt_mode}, use_semantics {fc.use_semantics} "
         f"({fc.num_semantic_classes} classes), {fc.num_levels} x "
@@ -5418,7 +6081,7 @@ def phase_instant_ngp(tmp: Path):
 # 8 and 16), the transition, 2 focal steps on each of blocks 0 and 1.  The
 # octree and the widths are the config's; only the march differs.
 SCAN_STEPS = PIPELINE_INIT_STEPS + 4
-SCAN_OVERRIDES = {**PIPELINE_OVERRIDES,
+SCAN_OVERRIDES = {**PIPELINE_OVERRIDES, **ONE_STEP_A_DISPATCH,
                   "pipeline.sampler.march": "scan",
                   "steps_per_eval_batch": "1000",
                   "steps_per_eval_image": "1000",
@@ -5808,12 +6471,15 @@ def phase_scan(tmp: Path):
     trainer = Trainer(cfg, build_dataparser("minimal", scene))
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
+    SETUP_REUSE.note()   # this setup's reuses alone
     t0 = time.perf_counter()
     trainer.setup()
     setup_s = time.perf_counter() - t0
     p = trainer.pipeline
     scfg = p.sampler.sampler_config
-    log(f"[scan] setup {setup_s:.2f}s: {p.sampler.tree.n_nodes} nodes; "
+    reused = SETUP_REUSE.note()
+    log(f"[scan] setup {setup_s:.2f}s ({reused})"
+        f": {p.sampler.tree.n_nodes} nodes; "
         f"march {scfg.march}, S={scfg.max_samples}, sample_l "
         f"{scfg.sample_l:.6f}, locate_iters {scfg.locate_iters}")
     if scfg.march != "scan":
@@ -6953,6 +7619,7 @@ CAPTURE_WARMUP = 2
 CAPTURE_LOG_EVERY = 10
 CAPTURE_MAX_NORM = 0.02
 CAPTURE_OVERRIDES = {
+    **ONE_STEP_A_DISPATCH,
     "pipeline.datamanager.camera_res_scale_factor": "0.5",
     "pipeline.optimizers.max_norm": str(CAPTURE_MAX_NORM),
     "pipeline.model.use_ch_loss": "false",
@@ -7489,8 +8156,7 @@ def phase_tools(tmp: Path):
     launch counters reset.
 
     Export, through gfnerf_tpu_torch.export's ``main`` (the command line's
-    function; poses through ``python -m gfnerf_tpu_torch.export`` in a
-    process of its own): the point cloud of the 48 train views at
+    function): the point cloud of the 48 train views at
     downscale 4, the density mesh at 64^3 (its threshold the
     TOOLS_DENSITY_QUANTILE quantile of the grid's positive densities), the
     TSDF of 8 views at 64^3, the texture on the mesh.  Checked: K1 once and H1 twice a render chunk
@@ -7527,7 +8193,6 @@ def phase_tools(tmp: Path):
     HTTP and through render_outputs) is finite and never inside a step;
     stop saves the checkpoint of the step before the one it stopped on,
     K2 once a step; /status shows the published step and loss."""
-    import subprocess
     import threading
 
     import numpy as np
@@ -7567,10 +8232,13 @@ def phase_tools(tmp: Path):
             total[k] += v
         return res, got, dt
 
+    SETUP_REUSE.forget_primes()   # one process's eval_setup: drawn anew
+    SETUP_REUSE.note()
     t0 = time.perf_counter()
     _, loaded = eval_setup(config)
     p = loaded.pipeline
     setup_s = time.perf_counter() - t0
+    reused = SETUP_REUSE.note()
     chunk = p.config.eval_num_rays_per_chunk
     focal = p.stage_of(int(p.state.step)) == STAGE_BLOCK
     h1_a_chunk = 2 if focal else 1
@@ -7585,7 +8253,7 @@ def phase_tools(tmp: Path):
     log(f"[tools] {run.name}: step {p.state.step} (focal stage: {focal}), "
         f"render chunks of {chunk} rays, root cube {lo.tolist()} .. "
         f"{hi.tolist()}, scene size {scene_size:.3f}; eval_setup "
-        f"{setup_s:.2f}s")
+        f"{setup_s:.2f}s (one process's: {reused})")
 
     def render_chunks(views, down):
         return sum(-(-(int(cams.height[i]) // down)
@@ -7660,15 +8328,8 @@ def phase_tools(tmp: Path):
             or not worst <= SLICE_ATOL * scene_size):
         raise AssertionError("tools: the point cloud, kernels against plain")
 
-    # ---- poses, in a process of its own ----
-    t0 = time.perf_counter()
-    proc = subprocess.run(
-        [sys.executable, "-m", "gfnerf_tpu_torch.export", "poses",
-         "--load-config", str(config), "--output-dir", str(out)],
-        cwd=str(REPO), capture_output=True, text=True, timeout=600)
-    stats["export_s"]["poses (own process)"] = time.perf_counter() - t0
-    if proc.returncode != 0:
-        raise AssertionError(f"tools: export poses: {proc.stderr[-3000:]}")
+    # ---- poses ----
+    expect("tools poses", export("poses"))
     frames = json.loads((out / "camera_poses.json").read_text())
     poses = np.asarray([f["transform"] for f in frames])
     if len(frames) != len(cams) or not np.array_equal(
@@ -7750,7 +8411,8 @@ def phase_tools(tmp: Path):
     if (tex.shape != (rows * 8, cols * 8, 3) or len(tfaces) != len(faces)
             or not np.allclose(tverts, verts, rtol=0, atol=1e-5)):
         raise AssertionError("tools: the textured mesh or its atlas")
-    log(f"[tools] export seconds {json.dumps(stats['export_s'])}")
+    log(f"[tools] export seconds {json.dumps(stats['export_s'])} (each "
+        f"mode's eval_setup included; {SETUP_REUSE.note()})")
 
     # ---- the render script's video against the frames it renders ----
     # (the frames as the script writes its PNGs, from the loaded pipeline:
@@ -7979,6 +8641,7 @@ PARALLEL_WORLD = 4
 PARALLEL_INIT_STEPS = 8
 PARALLEL_STEPS = PARALLEL_INIT_STEPS + 10
 PARALLEL_OVERRIDES = {
+    **ONE_STEP_A_DISPATCH,
     **{f"pipeline.{part}.{key}": value
        for part in ("model", "datamanager", "optimizers")
        for key, value in (("steps_perssampler_init",
@@ -9097,6 +9760,7 @@ def main() -> int:
               file=sys.stderr)
         return 1
     sys.path.insert(0, str(REPO))
+    SETUP_REUSE.install()
     start = time.perf_counter()
 
     def clock(name):
@@ -9131,6 +9795,9 @@ def main() -> int:
     paths["focal_render"], stats["focal_render"], routed = \
         phase_focal_render(wl)
     clock("focal render")
+    with tempfile.TemporaryDirectory(prefix="gfnerf_window_") as tmp:
+        paths["window"], stats["window"] = phase_window(Path(tmp), wl)
+    clock("window")
     del wl
     torch.cuda.empty_cache()
     paths["parity_train"], stats["parity_train"], (anc_fwd, anc_bwd), wl = \
@@ -9295,6 +9962,7 @@ def main_only(names) -> int:
               file=sys.stderr)
         return 1
     sys.path.insert(0, str(REPO))
+    SETUP_REUSE.install()
     start = time.perf_counter()
     phases = {"pipeline": phase_pipeline, "gfnerf": phase_gfnerf,
               "prop": phase_prop, "nerfacto": phase_nerfacto,
@@ -9305,7 +9973,7 @@ def main_only(names) -> int:
               "capture-variants": phase_capture_variants,
               "tools": phase_tools, "parallel": phase_parallel,
               "quality": phase_quality, "midscale": phase_midscale,
-              "jpeg": phase_jpeg}
+              "window": phase_window, "jpeg": phase_jpeg}
     unknown = set(names) - set(phases)
     if unknown:
         print(f"chip_smoke: unknown phases {sorted(unknown)}",

@@ -14,6 +14,7 @@ render path) does not.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Optional
 
 import numpy as np
@@ -92,6 +93,15 @@ def camera_ray_directions(coords: torch.Tensor, fx, fy, cx, cy,
     raise ValueError(camera_type)
 
 
+@functools.lru_cache(maxsize=8)
+def _pixel_steps(dtype, device) -> tuple:
+    """The (y, x) steps to a pixel's right and lower neighbours, (0, 1)
+    and (1, 0), on ``device``: copied there once, so that a train step
+    replayed as a CUDA graph copies nothing from the host."""
+    return (torch.tensor([0.0, 1.0], dtype=dtype, device=device),
+            torch.tensor([1.0, 0.0], dtype=dtype, device=device))
+
+
 def _unit(w: torch.Tensor) -> torch.Tensor:
     return w / torch.linalg.norm(w, dim=-1, keepdim=True)
 
@@ -113,8 +123,9 @@ def generate_rays(cameras: Cameras, camera_index: int, coords: torch.Tensor):
         return _unit(camera_ray_directions(pix, fx, fy, cx, cy, *wh) @ rot_t)
 
     d_world = world_unit(coords)
-    d_dx = world_unit(coords + coords.new_tensor([0.0, 1.0]))
-    d_dy = world_unit(coords + coords.new_tensor([1.0, 0.0]))
+    step_x, step_y = _pixel_steps(coords.dtype, coords.device)
+    d_dx = world_unit(coords + step_x)
+    d_dy = world_unit(coords + step_y)
     dx = torch.linalg.norm(d_dx - d_world, dim=-1)
     dy = torch.linalg.norm(d_dy - d_world, dim=-1)
     return {
@@ -149,10 +160,11 @@ def generate_rays_multi(cameras: Cameras, camera_indices: torch.Tensor,
         d_cam = torch.stack([und[..., 0], -und[..., 1],
                              -torch.ones_like(und[..., 0])], dim=-1)
     d_world = world_unit(d_cam)
+    step_x, step_y = _pixel_steps(coords.dtype, coords.device)
     d_dx = world_unit(camera_ray_directions(
-        coords + coords.new_tensor([0.0, 1.0]), fx, fy, cx, cy, *wh))
+        coords + step_x, fx, fy, cx, cy, *wh))
     d_dy = world_unit(camera_ray_directions(
-        coords + coords.new_tensor([1.0, 0.0]), fx, fy, cx, cy, *wh))
+        coords + step_y, fx, fy, cx, cy, *wh))
     dx = torch.linalg.norm(d_dx - d_world, dim=-1)
     dy = torch.linalg.norm(d_dy - d_world, dim=-1)
     return {

@@ -22,7 +22,13 @@ the count of applied updates, not the train step; the groups share it,
 since an update is applied to all groups or to none: it is skipped,
 moments and count left where they were, when any gradient is not finite
 (``optax.apply_if_finite``, which reads the gradients before the clip).
-In a data-parallel step the
+The update waits for nothing on the host: the finite check is a
+select on the device (parameters, moments and count kept where any
+gradient is not finite), the count and the skip counters are device
+tensors, and each group's learning rate and Adam's bias corrections are
+read from device tables indexed by the count, so that a step can be
+replayed as a CUDA graph (``models/gfnerf.make_multi_train_step``).  In a
+data-parallel step the
 gradients are summed over the ranks first (``all_reduce_grads``).  A
 gradient of None is a
 structural zero (a group that is not in the step's graph: the block
@@ -35,8 +41,10 @@ moments plus the weight decay.
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Dict, List, Optional
+import math
+from typing import Callable, Dict, List, Optional, Union
 
+import numpy as np
 import torch
 
 from gfnerf_tpu_torch.engine.schedulers import (
@@ -139,13 +147,16 @@ def all_reduce_grads(grads: Dict[str, list], comm) -> Dict[str, list]:
 @dataclasses.dataclass
 class OptState:
     """Adam's moments by group (None: all zero), the count of applied
-    updates, and the count of skipped ones."""
+    updates, the count of skipped ones and whether the last update was
+    applied: 0-d device tensors (int64, int64, bool) after an update; a
+    checkpoint written with host numbers loads as it is (the first update
+    moves them to the device)."""
 
-    count: int
+    count: Union[int, torch.Tensor]
     mu: Dict[str, List[Optional[torch.Tensor]]]
     nu: Dict[str, List[Optional[torch.Tensor]]]
-    total_notfinite: int = 0
-    last_finite: bool = True
+    total_notfinite: Union[int, torch.Tensor] = 0
+    last_finite: Union[bool, torch.Tensor] = True
 
 
 def frozen_groups(stage: int) -> tuple:
@@ -182,10 +193,26 @@ def clip_by_global_norm(grads: List[Optional[torch.Tensor]],
             for g in grads], norm
 
 
-def _bias_correction(decay: float, count: int) -> float:
-    """1 - decay**count in float32, as optax computes it: f32(0.999) is not
-    0.999, and the difference reaches the update."""
-    return float(1.0 - torch.tensor(decay, dtype=torch.float32) ** count)
+def _bias_corrections(decay: float, n: int) -> torch.Tensor:
+    """(n,) float32: 1 - b ** (c + 1) for c = 0 .. n - 1, b = f32(decay),
+    as ``1.0 - torch.tensor(decay, dtype=torch.float32) ** (c + 1)``
+    rounds it on the CPU (a Python int exponent: b * b and b * b * b for
+    2 and 3, else the double ``pow`` rounded to f32), which optax's f32
+    ``1 - decay ** count`` is held to."""
+    b = np.float32(decay)
+    powers = np.array([np.float32(math.pow(float(b), k))
+                       for k in range(1, n + 1)], np.float32)
+    powers[1:3] = [b * b, b * b * b][:max(n - 1, 0)]
+    return torch.from_numpy(np.float32(1.0) - powers)
+
+
+def _on(x, dtype, device) -> torch.Tensor:
+    """``x`` (a host number or a 0-d tensor) as a 0-d tensor of ``dtype``
+    on ``device``."""
+    if isinstance(x, torch.Tensor) and x.dtype == dtype \
+            and x.device == device:
+        return x
+    return torch.as_tensor(x, dtype=dtype).to(device)
 
 
 class PerGroupAdam:
@@ -195,11 +222,18 @@ class PerGroupAdam:
     ``schedules`` (group -> count -> lr) replaces the GF-NeRF groups and
     their schedules (the vanilla pipeline's one group, on optax's
     ``exponential_decay``); ``skip_nonfinite=False`` applies every update,
-    as optax's plain ``adam`` does (no host wait for the finite check).
-    With ``cfg.max_norm`` each group's gradients are clipped by their norm
-    first, and ``grad_norms`` holds each group's norm before the clip (0-d
-    tensors, for the groups that had a gradient) after every applied
-    update."""
+    as optax's plain ``adam`` does.  With ``cfg.max_norm`` each group's
+    gradients are clipped by their norm first, and ``grad_norms`` holds
+    each group's norm before the clip (0-d tensors, for the groups that had
+    a gradient) after every update.
+
+    The learning rates ``schedules[name](c)`` and the bias corrections
+    ``1 - b ** (c + 1)`` are tables on the device over the counts c = 0 ..
+    ``max_count`` (the whole GF-NeRF schedule by default; ``reserve``
+    raises it, as the Trainer does to its iteration count), built once in
+    float32 as the host numbers were (so the update is the one a host
+    float gave, bit for bit, on the CPU); a count past the last entry reads
+    the last entry."""
 
     def __init__(self, cfg: OptimizersConfig,
                  schedules: Optional[Dict[str, Callable]] = None,
@@ -207,6 +241,9 @@ class PerGroupAdam:
         self.cfg = cfg
         self.skip_nonfinite = skip_nonfinite
         self.grad_norms: Dict[str, torch.Tensor] = {}
+        self.max_count = (cfg.steps_perssampler_init + cfg.n_dataset_circles
+                          * cfg.n_split_dataset * cfg.steps_per_split_dataset)
+        self._tables: Dict[tuple, torch.Tensor] = {}
         if schedules is not None:
             self.schedules = schedules
             self.weight_decay = {name: 0.0 for name in schedules}
@@ -226,6 +263,33 @@ class PerGroupAdam:
         self.weight_decay = {name: 0.0 for name in GROUPS}
         self.weight_decay["block"] = cfg.block_weight_decay
 
+    def reserve(self, n: int) -> None:
+        """Make the tables cover the counts up to ``n``."""
+        if n > self.max_count:
+            self.max_count = n
+            self._tables.clear()
+
+    def table(self, what: str, device) -> torch.Tensor:
+        """The (max_count + 1,) float32 table ``what`` on ``device``: a
+        group's name (its learning rate at each count), or "bc1" / "bc2"
+        (Adam's bias corrections 1 - b1 ** (c + 1), 1 - b2 ** (c + 1),
+        the f32 powers optax takes).  Built on the host once per length
+        and device."""
+        key = (what, self.max_count, torch.device(device))
+        got = self._tables.get(key)
+        if got is None:
+            if what in ("bc1", "bc2"):
+                host = _bias_corrections(
+                    self.cfg.adam_b1 if what == "bc1" else self.cfg.adam_b2,
+                    self.max_count + 1)
+            else:
+                n = self.max_count + 1
+                host = torch.broadcast_to(torch.as_tensor(
+                    self.schedules[what](torch.arange(n)),
+                    dtype=torch.float32), (n,)).contiguous()
+            got = self._tables[key] = host.to(device)
+        return got
+
     def init(self, params: Dict[str, list]) -> OptState:
         return OptState(count=0,
                         mu={name: [None] * len(ps)
@@ -236,29 +300,48 @@ class PerGroupAdam:
     def update(self, grads: Dict[str, list], state: OptState,
                params: Dict[str, list]):
         """(updates, new state): one update per parameter (None where it is
-        exactly zero), or, if any gradient is not finite, no update and the
-        old moments and counts."""
+        exactly zero).  With ``skip_nonfinite`` the new state's
+        ``last_finite`` says whether every gradient was finite; where it
+        is False the updates are zeros (so :func:`apply_updates` leaves the
+        parameters where they were, as optax's ``apply_if_finite`` does)
+        and the moments and count stay as they were (selects on the
+        device: nothing here waits for it)."""
         given = [g for gs in grads.values() for g in gs if g is not None]
-        # one reduction on the device and one wait for it
-        finite = (not self.skip_nonfinite or not given or bool(torch.stack(
-            [torch.isfinite(g).all() for g in given]).all()))
+        dev = next(p.device for ps in params.values() for p in ps)
+        count = _on(state.count, torch.int64, dev)
+        if self.skip_nonfinite and given:
+            finite = torch.stack([torch.isfinite(g).all()
+                                  for g in given]).all()
+        else:
+            finite = None
         self.grad_norms = {}
-        if not finite:
-            return ({name: [None] * len(gs) for name, gs in grads.items()},
-                    dataclasses.replace(
-                        state, total_notfinite=state.total_notfinite + 1,
-                        last_finite=False))
-        new = OptState(count=state.count + 1, mu={}, nu={},
-                       total_notfinite=state.total_notfinite)
+        idx = count.clamp(max=self.max_count).reshape(1)
+        bc = [torch.index_select(self.table(t, dev), 0, idx).reshape(())
+              for t in ("bc1", "bc2")]
+        new = OptState(count=None, mu={}, nu={})
         updates = {}
         for name, gs in grads.items():
             updates[name], new.mu[name], new.nu[name] = self._update_group(
                 name, gs, state.mu[name], state.nu[name], params[name],
-                state.count)
+                idx, bc, finite)
+        skipped = _on(state.total_notfinite, torch.int64, dev)
+        if finite is None:
+            new.count = count + 1
+            new.total_notfinite = skipped
+            new.last_finite = torch.ones((), dtype=torch.bool, device=dev)
+        else:
+            new.count = count + finite.to(torch.int64)
+            new.total_notfinite = skipped + (~finite).to(torch.int64)
+            new.last_finite = finite
         return updates, new
 
-    def _update_group(self, name, grads, mus, nus, params, count):
-        """(updates, mu, nu) of one group; ``count`` updates came before."""
+    def _update_group(self, name, grads, mus, nus, params, idx, bc, finite):
+        """(updates, mu, nu) of one group; ``idx`` (1,) is the count of the
+        updates that came before, ``bc`` its bias corrections; where
+        ``finite`` (a 0-d device bool, or None) is False the old moments
+        are kept and the updates are zeros: the gradients read as zeros,
+        the moments' decays as 1 and the step size as 0 (0-d selects, one
+        select over each gradient)."""
         cfg = self.cfg
         b1, b2, eps = cfg.adam_b1, cfg.adam_b2, cfg.adam_eps
         wd = self.weight_decay[name]
@@ -268,6 +351,12 @@ class PerGroupAdam:
                 cfg.max_norm)
             if norm is not None:
                 self.grad_norms[name] = norm
+        d1, c1, d2, c2 = b1, 1 - b1, b2, 1 - b2
+        if finite is not None:
+            zero = torch.zeros((), dtype=torch.float32, device=finite.device)
+            d1, c1, d2, c2 = (torch.where(finite, zero + a, zero + b)
+                              for a, b in ((b1, 1.0), (1 - b1, 0.0),
+                                           (b2, 1.0), (1 - b2, 0.0)))
         step_size = None
         updates, new_mu, new_nu = [], [], []
         for g, mu, nu, p in zip(grads, mus, nus, params):
@@ -276,19 +365,22 @@ class PerGroupAdam:
                 u = None
             else:
                 if g is None:   # a zero gradient: the moments decay
-                    mu, nu = b1 * mu, b2 * nu
+                    mu, nu = d1 * mu, d2 * nu
                 else:
                     g = g.to(torch.float32)
-                    mu = (1 - b1) * g + (b1 * mu if mu is not None else 0.0)
-                    nu = (1 - b2) * (g * g) + (b2 * nu if nu is not None
-                                               else 0.0)
-                u = (mu / _bias_correction(b1, count + 1)) / (
-                    torch.sqrt(nu / _bias_correction(b2, count + 1)) + eps)
+                    if finite is not None:
+                        g = torch.where(finite, g, 0.0)
+                    mu = c1 * g + (d1 * mu if mu is not None else 0.0)
+                    nu = c2 * (g * g) + (d2 * nu if nu is not None else 0.0)
+                u = (mu / bc[0]) / (torch.sqrt(nu / bc[1]) + eps)
             if wd:
                 u = (wd * p.detach()) if u is None else u + wd * p.detach()
             if u is not None:
-                if step_size is None:   # float32 -> float: exact
-                    step_size = float(self.schedules[name](count))
+                if step_size is None:
+                    step_size = torch.index_select(
+                        self.table(name, u.device), 0, idx).reshape(())
+                    if finite is not None:   # optax's skipped update: 0
+                        step_size = torch.where(finite, step_size, 0.0)
                 u = -(u * step_size)
             updates.append(u)
             new_mu.append(mu)

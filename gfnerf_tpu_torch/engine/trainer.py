@@ -29,6 +29,13 @@ its first poll; a render that asked for a sync (``render_outputs``)
 gets it at the next boundary on every rank and is served before the next
 step; a stop saves (synced tables, rank 0 writes) and every rank
 returns.  A run without the viewer adds no collective.
+
+With K steps a dispatch (``steps_per_dispatch``) the pipeline trains a
+window at its first step and returns buffered metrics at the others; the
+loop, its controls, evals and saves go on step by step, acting at a
+window's inner boundaries on the window-end state, as the JAX package's
+do.  At the end the share of steps trained in windows is printed and
+written as the ``k_dispatch_coverage`` scalar.
 """
 
 from __future__ import annotations
@@ -149,6 +156,9 @@ class Trainer:
                     if hasattr(pcfg, "datamanager")
                     else pcfg.train_num_rays_per_batch)
         t_start = time.perf_counter()
+        # K-step windows do not run past the last iteration, and the
+        # optimizers' learning-rate tables cover it
+        self.pipeline.reserve_steps(cfg.max_num_iterations)
         for step in range(self._start_step, cfg.max_num_iterations):
             # the viewer's training controls, between steps
             if self._stop_requested():
@@ -181,6 +191,17 @@ class Trainer:
         if not (last >= self._start_step
                 and (last + 1) % cfg.steps_per_save == 0):
             self.save_checkpoint(last)   # unless the loop just saved it
+        # the share of steps trained in K-step windows, against the single
+        # steps at the windows' boundaries (trainer.py:159-169 of the JAX
+        # package)
+        scanned = getattr(self.pipeline, "_k_steps_scanned", 0)
+        fallback = getattr(self.pipeline, "_k_steps_fallback", 0)
+        if scanned + fallback > 0:
+            cov = scanned / (scanned + fallback)
+            print(f"[trainer] K-dispatch coverage: {scanned} scanned + "
+                  f"{fallback} single-step fallback = {cov:.1%} scanned")
+            if self.is_main:
+                self.writer.put_scalar("k_dispatch_coverage", cov, last)
         # the tables are synced: renders still waiting may go
         self.control.release()
 

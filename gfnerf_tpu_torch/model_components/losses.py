@@ -14,6 +14,8 @@ data-parallel step S3IM runs over the whole batch, gathered from every rank
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 import torch.nn.functional as F
@@ -34,6 +36,13 @@ def _gaussian_kernel(size: int, sigma: float = 1.5) -> np.ndarray:
     g = np.exp(-((x - size // 2) ** 2) / (2.0 * sigma * sigma))
     g = g / g.sum()
     return np.outer(g, g).astype(np.float32)
+
+
+@functools.lru_cache(maxsize=8)
+def _gaussian_kernel_on(size: int, device: torch.device) -> torch.Tensor:
+    """``_gaussian_kernel`` on ``device``, copied there once: a step
+    replayed as a CUDA graph copies nothing from the host."""
+    return torch.as_tensor(_gaussian_kernel(size), device=device)
 
 
 def s3im_permutations(n: int, repeat_time: int = 10,
@@ -84,8 +93,7 @@ def s3im_loss_whole_batch(pred: torch.Tensor, target: torch.Tensor,
 def _ssim(img1: torch.Tensor, img2: torch.Tensor, kernel_size: int,
           stride: int) -> torch.Tensor:
     c = img1.shape[1]
-    kernel = torch.as_tensor(_gaussian_kernel(kernel_size),
-                             device=img1.device)
+    kernel = _gaussian_kernel_on(kernel_size, img1.device)
     weight = kernel[None, None].expand(c, 1, kernel_size, kernel_size)
     pad = (kernel_size - 1) // 2
 

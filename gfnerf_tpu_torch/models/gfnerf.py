@@ -24,8 +24,10 @@ rays as generated, and their L2 penalty), backward, per-group Adam, and
 at the init stage the occupancy statistics.  The field's configuration
 travels with the :class:`GFNeRFField` module.
 
-The JAX package's ``make_multi_train_step`` (K steps per dispatch) has no
-counterpart: a plain loop of steps replaces it.
+``make_multi_train_step`` trains K steps a call: one by one on the CPU;
+on the card one step captured as a CUDA graph and replayed, the window's
+inputs and outputs staged on the device (the JAX package's ``lax.scan``
+window).
 """
 
 from __future__ import annotations
@@ -827,3 +829,295 @@ def _whole_batch_metrics(comm, losses: dict, whole_terms: tuple,
     if samples.num_hits is not None:
         metrics["frac_truncated_rays"] = sums[n + 2] / r_all
     return metrics
+
+
+def launch_counters() -> list:
+    """(wrapper, attribute) of every kernel's launch and call counter: a
+    window replayed from a CUDA graph calls no wrapper, so
+    :func:`make_multi_train_step` adds each counter's captured count times
+    the replays.  Taken from the modules that define the wrappers (a
+    caller may wrap the names this module imported)."""
+    from gfnerf_tpu_torch.fields.hash_encoding import hash_encode
+    from gfnerf_tpu_torch.fields.packed_hash import (
+        packed_hash_encode, packed_hash_encode_routed)
+    from gfnerf_tpu_torch.ops.composite import fused_composite
+    from gfnerf_tpu_torch.ops.scan_march import scan_march
+    from gfnerf_tpu_torch.ops.temporal_grid import (temporal_grid_bwd,
+                                                    temporal_grid_fwd)
+
+    return [(fused_composite, "launches"), (fused_composite, "bwd_launches"),
+            (packed_hash_encode, "launches"),
+            (packed_hash_encode, "bwd_launches"),
+            (packed_hash_encode, "bwd_calls"),
+            (packed_hash_encode_routed, "launches"),
+            (hash_encode, "calls"), (hash_encode, "base_calls"),
+            (hash_encode, "launches"), (hash_encode, "bwd_launches"),
+            (hash_encode, "bwd_calls"), (scan_march, "launches"),
+            (temporal_grid_fwd, "launches"), (temporal_grid_bwd, "launches")]
+
+
+def _copy_state(dst, src, what: str) -> None:
+    """Write the tensors of ``src`` (an OptState or an OctreeDevice) into
+    ``dst``'s, where they are other tensors; host numbers of ``dst``
+    must not differ (a dataclass of the same structure).  A None moment in
+    ``src`` (all zero) zeroes ``dst``'s; a tensor where ``dst`` has None,
+    or another shape, raises: the graph's state has another structure."""
+    for f in dataclasses.fields(dst):
+        a, b = getattr(dst, f.name), getattr(src, f.name)
+        if isinstance(a, dict):   # a group's moments
+            for name, xs in a.items():
+                for x, y in zip(xs, b[name]):
+                    _copy_tensor(x, y, f"{what}.{f.name}[{name}]")
+        elif isinstance(a, torch.Tensor):
+            _copy_tensor(a, b, f"{what}.{f.name}")
+        elif a != b:
+            raise RuntimeError(f"{what}.{f.name}: {b!r} where the graph "
+                               f"holds {a!r}")
+
+
+def _copy_tensor(dst, src, what: str) -> None:
+    if dst is src:
+        return
+    if dst is None:
+        raise RuntimeError(f"{what}: a tensor where the graph holds none")
+    if src is None:
+        dst.zero_()
+        return
+    if src.shape != dst.shape:
+        raise RuntimeError(f"{what}: {tuple(src.shape)} where the graph "
+                           f"holds {tuple(dst.shape)}")
+    dst.copy_(src)
+
+
+def _state_layout(obj) -> tuple:
+    """The structure a graph's state must keep: the shape and type of each
+    tensor of an OptState or OctreeDevice (None where a moment is
+    unallocated) and its host numbers."""
+    out = []
+    for f in dataclasses.fields(obj):
+        v = getattr(obj, f.name)
+        if isinstance(v, dict):
+            v = tuple((k, tuple(None if x is None else (tuple(x.shape),
+                                                        x.dtype)
+                                for x in xs)) for k, xs in v.items())
+        elif isinstance(v, torch.Tensor):
+            v = (tuple(v.shape), v.dtype)
+        out.append((f.name, v))
+    return tuple(out)
+
+
+class _StepGraph:
+    """One train step captured as a CUDA graph with its static buffers:
+    the state it reads and writes back (``opt_state``, ``oct_dev``), the
+    step's inputs (batch, fineness, draws) and its output row (the
+    metrics, then the per-ray error)."""
+
+    def __init__(self, key, state: TrainState, oct_dev, inputs: dict,
+                 names: list):
+        self.key = key
+        self.opt_state = state.opt_state
+        self.oct_dev = oct_dev
+        self.layout = (_state_layout(state.opt_state),
+                       _state_layout(oct_dev))
+        self.inputs = inputs
+        self.names = names
+        self.graph = torch.cuda.CUDAGraph()
+        self.out = None
+        self.counts = []
+
+
+def make_multi_train_step(model_cfg: GFNeRFModelConfig,
+                          sampler_cfg: SamplerConfig, tx: PerGroupAdam,
+                          stage: int, n_steps: int, comm=None):
+    """K = ``n_steps`` train steps a call (``make_multi_train_step``,
+    gfnerf.py:669-705 of the JAX package, whose ``lax.scan`` runs them in
+    one dispatch).  Returns ``multi_step(state, oct_dev, cameras, batches,
+    finenesses, active_block=0, generator=None, draws=None, graph=True)``
+    -> (state, oct_dev, metrics {name: (K,)}, errors (K, R)), the same as
+    K calls of ``make_train_step``'s step in order: ``batches`` holds the
+    step's batch keys stacked (K, R, ...), ``finenesses`` is (K,) float32,
+    one march fineness a step; ``draws`` (None: from ``generator``) holds
+    "noise" (K, R, S) and "s3im_perms" (K, n, R), and on the proposal
+    branch "prop_u" (K, R, k + 1); every tensor on the state's device.
+
+    On the CPU, and with ``graph=False``, the steps run one by one.  On a
+    CUDA card the step is captured once into a
+    ``torch.cuda.CUDAGraph``, after an eager warm-up step on the capture's
+    stream (the window's first step): the lazy builds, the cached
+    constants and the optimizer's moments then exist, and the step's Python
+    structure is the one every replay repeats.  The graph writes its new
+    state back into the buffers it read (the optimizer state, the
+    octree's statistics; the field's parameters are updated in place), and
+    ``generator`` is registered with it, so that K replays draw the
+    numbers K eager steps would draw.  Each replay's inputs
+    are copied into the graph's buffers from the window's stacks on the
+    device, and its metrics and errors out of them: the window waits for
+    nothing on the host.  The graph is kept for the next window while its
+    key holds: the active block and its table's address, the generator,
+    the batch's and draws' shapes and the state's structure; a state held in
+    other tensors (after single steps) is copied in first.  One graph is
+    kept a function: a new key captures anew (``multi_step.captures``
+    counts the captures; the capture first hands the card's cached free
+    blocks back, so that neither a dropped graph's pool nor the warm-up
+    step's freed memory stays reserved beside the new graph's pool).  A capture or a replay that
+    fails raises; nothing falls back to eager steps.  The launch counters
+    count the captured launches once per replay.  With ``comm`` (the
+    data-parallel step over several ranks) the steps run eagerly: the
+    collectives are not captured.
+
+    ``remat_chunks`` > 0 recomputes the field in the backward through
+    ``torch.utils.checkpoint``, whose random-state stash a capture does
+    not allow: with more than one step a call it raises."""
+    if n_steps > 1 and model_cfg.remat_chunks > 0:
+        raise ValueError(
+            f"steps_per_dispatch={n_steps} replays the step as a CUDA graph "
+            f"and remat_chunks={model_cfg.remat_chunks} checkpoints the "
+            "field, which a capture does not allow: set one of them off")
+    step_fn = make_train_step(model_cfg, sampler_cfg, tx, stage, comm)
+    cache = {"graph": None}
+
+    def eager(state, oct_dev, cameras, batches, finenesses, active_block,
+              generator, draws):
+        metrics, errs = [], []
+        for i in range(n_steps):
+            state, oct_dev, m, err = step_fn(
+                state, oct_dev, cameras, {k: v[i] for k, v in
+                                          batches.items()},
+                finenesses[i], generator=generator,
+                active_block=active_block, **_draws_of(draws, i))
+            metrics.append(m)
+            errs.append(err)
+        return (state, oct_dev,
+                {k: torch.stack([m[k].reshape(()) for m in metrics])
+                 for k in metrics[0]}, torch.stack(errs))
+
+    def capture(state, oct_dev, cameras, batches, finenesses, active_block,
+                generator, draws, key):
+        """The window's first step, eager on a side stream, then its
+        capture on that stream; returns (graph, state, oct_dev, the first
+        step's output row)."""
+        side = torch.cuda.Stream(device=finenesses.device)
+        side.wait_stream(torch.cuda.current_stream(finenesses.device))
+        with torch.cuda.stream(side):
+            state, oct_dev, m, err = step_fn(
+                state, oct_dev, cameras, {k: v[0] for k, v in
+                                          batches.items()},
+                finenesses[0], generator=generator,
+                active_block=active_block, **_draws_of(draws, 0))
+            names = list(m)
+            first = torch.cat([torch.stack([m[k].float().reshape(())
+                                            for k in names]), err.float()])
+            # the warm-up step's freed blocks and a dropped graph's pool go
+            # back to the card: the capture's pool is the step's memory
+            torch.cuda.synchronize(finenesses.device)
+            torch.cuda.empty_cache()
+            inputs = {"batch": {k: torch.empty_like(v[0])
+                                for k, v in batches.items()},
+                      "fineness": torch.empty_like(finenesses[0]),
+                      "draws": {k: torch.empty_like(v[0])
+                                for k, v in (draws or {}).items()}}
+            g = _StepGraph(key, state, oct_dev, inputs, names)
+            if generator is not None and draws is None:
+                g.graph.register_generator_state(generator)
+            counters = launch_counters()
+            before = [getattr(o, a) for o, a in counters]
+            with torch.cuda.graph(g.graph, stream=side):
+                st, od, m2, err2 = step_fn(
+                    state, oct_dev, cameras, inputs["batch"],
+                    inputs["fineness"], generator=generator,
+                    active_block=active_block, **inputs["draws"])
+                if list(m2) != names:
+                    raise RuntimeError(f"the captured step's metrics "
+                                       f"{list(m2)} are not the warm-up "
+                                       f"step's {names}")
+                _copy_state(g.opt_state, st.opt_state, "opt_state")
+                _copy_state(g.oct_dev, od, "oct_dev")
+                g.out = torch.cat([torch.stack([m2[k].float().reshape(())
+                                                for k in names]),
+                                   err2.float()])
+            # the capture launched nothing: its counts are the replays'
+            g.counts = [getattr(o, a) - b
+                        for (o, a), b in zip(counters, before)]
+            for (o, a), b in zip(counters, before):
+                setattr(o, a, b)
+        torch.cuda.current_stream(finenesses.device).wait_stream(side)
+        return g, state, oct_dev, first
+
+    def replay(g, i, batches, finenesses, draws):
+        for k, v in g.inputs["batch"].items():
+            v.copy_(batches[k][i])
+        g.inputs["fineness"].copy_(finenesses[i])
+        for k, v in g.inputs["draws"].items():
+            v.copy_(draws[k][i])
+        g.graph.replay()
+        return g.out
+
+    def multi_step(state: TrainState, oct_dev: OctreeDevice,
+                   cameras: Cameras, batches: dict,
+                   finenesses: torch.Tensor, active_block: int = 0,
+                   generator: Optional[torch.Generator] = None,
+                   draws: Optional[dict] = None, graph: bool = True):
+        if finenesses.shape != (n_steps,):
+            raise ValueError(f"finenesses {tuple(finenesses.shape)} for "
+                             f"{n_steps} steps")
+        if (not graph or finenesses.device.type != "cuda"
+                or comm is not None):
+            return eager(state, oct_dev, cameras, batches, finenesses,
+                         active_block, generator, draws)
+        field = state.field
+        table = (None if field.block_feats is None else
+                 active_block_table(field, active_block).data_ptr())
+        key = (active_block, table, id(generator),
+               tuple((k, tuple(v.shape), v.dtype)
+                     for k, v in sorted(batches.items())),
+               None if draws is None else tuple(
+                   (k, tuple(v.shape), v.dtype)
+                   for k, v in sorted(draws.items())))
+        g = cache["graph"]
+        rows = []
+        if (g is None or g.key != key
+                or g.layout != (_state_layout(state.opt_state),
+                                _state_layout(oct_dev))):
+            g = cache["graph"] = None   # its memory goes before the capture
+            g, state, oct_dev, first = capture(
+                state, oct_dev, cameras, batches, finenesses, active_block,
+                generator, draws, key)
+            cache["graph"] = g
+            multi_step.captures += 1
+            rows.append(first)
+        else:   # the state as the graph's buffers
+            _copy_state(g.opt_state, state.opt_state, "opt_state")
+            _copy_state(g.oct_dev, oct_dev, "oct_dev")
+        out = torch.empty((n_steps, g.out.shape[0]), dtype=torch.float32,
+                          device=finenesses.device)
+        for i, row in enumerate(rows):
+            out[i].copy_(row)
+        for i in range(len(rows), n_steps):
+            out[i].copy_(replay(g, i, batches, finenesses, draws))
+        replays = n_steps - len(rows)
+        for (o, a), n in zip(launch_counters(), g.counts):
+            setattr(o, a, getattr(o, a) + n * replays)
+        # the replays moved no version counter: caches keyed on one (the
+        # routed encode's bf16 copy of the block tables) must renew
+        for p in field.parameters():
+            torch.autograd.graph.increment_version(p)
+        m = len(g.names)
+        return (TrainState(field=field, opt_state=g.opt_state,
+                           step=state.step + replays),
+                g.oct_dev, {k: out[:, j] for j, k in enumerate(g.names)},
+                out[:, m:])
+
+    def reset():
+        """Drop the kept graph and its memory."""
+        cache["graph"] = None
+
+    multi_step.reset = reset
+    multi_step.captures = 0
+    return multi_step
+
+
+def _draws_of(draws: Optional[dict], i: int) -> dict:
+    """Step i's draws as ``make_train_step``'s keyword arguments."""
+    if draws is None:
+        return {}
+    return {k: v[i] for k, v in draws.items()}

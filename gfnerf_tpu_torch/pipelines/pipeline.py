@@ -47,9 +47,25 @@ eval or a checkpoint (``sync_block_tables``), after which every rank holds
 every table bit for bit; a viewer render on rank 0 waits for such a sync
 where ``tables_stale`` says it must (``engine/trainer.py``).
 
-Not ported: the K-steps-per-dispatch scan (``steps_per_dispatch`` is kept
-so that configs round-trip; one step runs per call) and the PNG previews
-of the error maps.
+K steps a dispatch (``steps_per_dispatch`` K > 1, the JAX package's
+``lax.scan`` window, pipeline.py:399-494 there): where ``_k_window_ok``
+allows (the whole window inside ``total_train_steps``, in one stage and
+one split, no milestone at or before its last step, no compaction step in
+it, not the concurrent focal step), ``get_train_loss_dict`` draws the K
+batches first, stages them and the K finenesses (and injected draws) on
+the device in one host-to-device copy, trains the K steps through
+``make_multi_train_step`` (on the card one CUDA graph replayed K times;
+over several ranks K eager data-parallel steps) and reads the K metric
+rows, and at the focal stage the K error vectors, back in one copy; the
+error maps take the K vectors in step order after the window, so that a
+window's later batches are drawn from maps up to K - 1 steps stale, as in
+the JAX package.  Steps 2..K return metrics buffered at the first.  The
+milestone rebuilds run on single steps only.  ``_k_steps_scanned`` and
+``_k_steps_fallback`` count the steps in windows and the single steps.
+
+At the transition the error maps are also written as PNG previews
+(``sample_tmp/{png,gt,pred}/<image>.png``: the error over its maximum,
+the ground truth and the upsampled render, each as ``to8`` gives it).
 """
 
 from __future__ import annotations
@@ -80,6 +96,7 @@ from gfnerf_tpu_torch.fields.field import (STAGE_BLOCK, STAGE_INIT,
 from gfnerf_tpu_torch.model_components.lpips import lpips
 from gfnerf_tpu_torch.models.gfnerf import (GFNeRFModelConfig, TrainState,
                                             init_train_state, make_render_fn,
+                                            make_multi_train_step,
                                             make_train_step)
 from gfnerf_tpu_torch.models.render_early import EarlyTermRenderer
 from gfnerf_tpu_torch.parallel import comm as parallel_comm
@@ -90,6 +107,7 @@ from gfnerf_tpu_torch.sampler.manager import (PersSamplerManager,
                                               PersSamplerManagerConfig)
 from gfnerf_tpu_torch.sampler.octree import PersOctree
 from gfnerf_tpu_torch.sampler.perssampler import SamplerConfig
+from gfnerf_tpu_torch.utils.image_io import write_png
 
 # (step, rays, samples) -> (march noise (R, S), S3IM permutations (9, R)),
 # and on the proposal branch a third, the resampling's draws (R, K + 1)
@@ -144,8 +162,9 @@ class GFNerfPipelineConfig:
     parallel_blocks: bool = False
     # block-axis size for parallel_blocks; 0 = auto
     parallel_block_axis: int = 0
-    # the JAX package's K steps per dispatch; the port runs one step per
-    # call whatever it says
+    # K > 1: train K steps a dispatch where a window fits (the module's
+    # docstring); keep eval and checkpoint intervals multiples of K: inside
+    # a window the Trainer sees buffered metrics and the window-end state
     steps_per_dispatch: int = 1
 
     def build(self, dataparser, base_dir, device="cuda",
@@ -180,9 +199,11 @@ class GFNerfPipeline:
         self.draws = draws
         self.comm = comm if comm is not None else parallel_comm.world()
         mcfg = config.model
-        if config.steps_per_dispatch > 1:
-            print(f"[pipeline] steps_per_dispatch={config.steps_per_dispatch}"
-                  " is not ported: one step per dispatch", file=sys.stderr)
+        # the Trainer sets the run's length: no window runs past it
+        self.total_train_steps: Optional[int] = None
+        self._pending_metrics: Dict[int, Dict[str, float]] = {}
+        self._k_steps_scanned = 0
+        self._k_steps_fallback = 0
 
         self.datamanager = GFNerfDataManager(config.datamanager, dataparser,
                                              seed=config.seed)
@@ -312,6 +333,8 @@ class GFNerfPipeline:
         self._train_step = {
             stage: make_train_step(mcfg, scfg, self.tx, stage, self.comm)
             for stage in (STAGE_INIT, STAGE_BLOCK)}
+        # (stage, K) -> make_multi_train_step's window, built at first use
+        self._multi_step_fns: Dict[tuple, Callable] = {}
         if self._parallel:
             self._pb_step = make_parallel_block_step(
                 mcfg, scfg, self._tx_block, self._data_comm)
@@ -359,20 +382,10 @@ class GFNerfPipeline:
         return STAGE_INIT if init else STAGE_BLOCK
 
     def _device_batch(self, batch: dict) -> dict:
-        """The step's batch on the device, in one host-to-device copy: the
-        camera indices (and the semantic labels, if the batch has them)
-        travel as float32, exact below 2^24."""
-        cols = [batch["rel_camera_indices"][:, None].astype(np.float32),
-                batch["coords"], batch["image"]]
-        if "semantics" in batch:
-            cols.append(batch["semantics"][:, None].astype(np.float32))
-        dev = torch.from_numpy(np.concatenate(cols, axis=1)).to(self.device)
-        cam = dev[:, 0].long()
-        out = {"camera_indices": cam, "rel_camera_indices": cam,
-               "coords": dev[:, 1:3], "image": dev[:, 3:6]}
-        if "semantics" in batch:
-            out["semantics"] = dev[:, 6].long()
-        return out
+        """The step's batch on the device, in one host-to-device copy
+        (``_stage_window``'s of one step)."""
+        stacked, _, _ = self._stage_window([batch], [], None)
+        return {k: v[0] for k, v in stacked.items()}
 
     # ------------------------------------------- the concurrent focal stage ----
 
@@ -477,8 +490,156 @@ class GFNerfPipeline:
         concurrent focal stage."""
         return self._parallel and bool(self._unsynced_blocks)
 
-    def get_train_loss_dict(self, step: int) -> Dict[str, float]:
+    # ---------------------------------------------- K steps a dispatch ----
+
+    def reserve_steps(self, n: int) -> None:
+        """The run trains ``n`` steps (the Trainer's iteration count): no
+        window runs past them, and the optimizers' learning-rate tables
+        cover that many counts."""
+        self.total_train_steps = n
+        self.tx.reserve(n)
+        if self._parallel:
+            self._tx_block.reserve(n)
+
+    def _k_window_ok(self, step: int, k: int) -> bool:
+        """Whether steps [step, step + k) may train as one window
+        (pipeline.py:399-426 of the JAX package): none of them past
+        ``total_train_steps``, one stage, at the focal stage one split and
+        not the concurrent focal step, at the init stage no milestone at or
+        before the window's last step and no compaction step in it."""
+        if (self.total_train_steps is not None
+                and step + k > self.total_train_steps):
+            return False
+        if len({self.stage_of(step + i) for i in range(k)}) > 1:
+            return False
+        if self.stage_of(step) == STAGE_BLOCK:
+            if self._parallel and self.sampler.cameras_labels is not None:
+                return False
+            return len({self.sampler.cur_split_idx(step + i)
+                        for i in range(k)}) == 1
+        ms = self.sampler.milestones
+        if ms and ms[0] <= step + k - 1:
+            return False
+        cf = self.sampler.cfg.compact_freq
+        return not any((step + i) > 0 and (step + i) % cf == 0
+                       for i in range(k))
+
+    def _stage_window(self, batches: list, finenesses: list,
+                      draws: Optional[list]) -> tuple:
+        """The window's inputs on the device in one host-to-device copy
+        (pinned and asynchronous on a card): every step's batch (this
+        rank's rays; camera indices and labels as float32, exact below
+        2^24), the (K,) finenesses and, if injected, the draws (the
+        permutations as float32 too).  Returns (batches {key: (K, R,
+        ...)}, finenesses (K,), draws {key: (K, ...)} or None)."""
+        sem = all("semantics" in b for b in batches)
+        cols = np.stack([np.concatenate(
+            [b["rel_camera_indices"][:, None].astype(np.float32),
+             b["coords"], b["image"]]
+            + ([b["semantics"][:, None].astype(np.float32)] if sem else []),
+            axis=1) for b in batches])
+        parts = [cols, np.asarray(finenesses, np.float32)]
+        names = ["noise", "s3im_perms", "prop_u"]
+        if draws is not None:
+            parts += [np.stack([d[j] for d in draws]).astype(np.float32)
+                      for j in range(len(draws[0]))]
+        flat = torch.from_numpy(np.concatenate(
+            [np.ascontiguousarray(x, np.float32).reshape(-1)
+             for x in parts]))
+        if self.device.type == "cuda":
+            dev = flat.pin_memory().to(self.device, non_blocking=True)
+        else:
+            dev = flat.to(self.device)
+        views, at = [], 0
+        for x in parts:
+            views.append(dev[at:at + x.size].view(x.shape))
+            at += x.size
+        cols, fine = views[0], views[1]
+        cam = cols[..., 0].long()
+        out = {"camera_indices": cam, "rel_camera_indices": cam,
+               "coords": cols[..., 1:3], "image": cols[..., 3:6]}
+        if sem:
+            out["semantics"] = cols[..., 6].long()
+        if draws is None:
+            return out, fine, None
+        got = {name: v for name, v in zip(names, views[2:])}
+        got["s3im_perms"] = got["s3im_perms"].long()
+        return out, fine, got
+
+    def _train_k_steps(self, step: int, k: int) -> Dict[str, float]:
+        """Steps [step, step + k) as one window (pipeline.py:428-494 of
+        the JAX package): the k batches drawn first, each step its own
+        fineness, the k error vectors written into the split's error maps
+        after the window, in step order (``n_split_rays`` of each); the
+        metrics of steps 2..k buffered in ``_pending_metrics``."""
         stage = self.stage_of(step)
+        fn = self._multi_step_fns.get((stage, k))
+        if fn is None:
+            fn = self._multi_step_fns[(stage, k)] = make_multi_train_step(
+                self.config.model, self.sampler.sampler_config, self.tx,
+                stage, k, self.comm)
+        for key, other in self._multi_step_fns.items():
+            if key != (stage, k):   # one kept graph: its memory goes
+                other.reset()
+        batches = [self.datamanager.next_train(step + i) for i in range(k)]
+        caches = [b.pop("_cache") for b in batches]
+        for b in batches:
+            b.pop("_outputs")
+        r = r_all = len(batches[0]["image"])
+        if self.comm is not None:   # this rank's slice of every batch
+            r = r_all // self.comm.size
+            lo = self.comm.rank * r
+            rays = [{key: b[key][lo:lo + r] for key in
+                     ("rel_camera_indices", "coords", "image", "semantics")
+                     if key in b} for b in batches]
+        else:
+            rays = batches
+        draws = None
+        if self.draws is not None:
+            draws = [self.draws(step + i, r_all,
+                                self.sampler.sampler_config.max_samples)
+                     for i in range(k)]
+        dev_batches, fine, dev_draws = self._stage_window(
+            rays, [self.sampler.fineness(step + i) for i in range(k)],
+            draws)
+        self.state, self.sampler.oct_dev, metrics, errs = fn(
+            self.state, self.sampler.oct_dev, self.cameras_dev, dev_batches,
+            fine, active_block=max(self.sampler.cur_split_idx(step), 0),
+            generator=self.generator, draws=dev_draws)
+        # one device-to-host copy: the (k, metrics) rows, and at the focal
+        # stage the error vectors of the whole batch
+        names = list(metrics)
+        host = [torch.stack([metrics[n].float() for n in names], 1)]
+        write_back = stage == STAGE_BLOCK and any(
+            c.error_maps is not None for c in caches)
+        if write_back:
+            if self.comm is not None:   # (world * k, r) -> (k, r_all)
+                errs = self.comm.all_gather(errs.float()).view(
+                    self.comm.size, k, r).transpose(0, 1).reshape(k, r_all)
+            host.append(errs.float())
+        host = torch.cat(host, 1).cpu().numpy()
+        if write_back:
+            for i, (b, cache) in enumerate(zip(batches, caches)):
+                if cache.error_maps is not None:
+                    ns = int(b["n_split_rays"])
+                    cache.update_error_map(b["indices"][:ns],
+                                           host[i, len(names):][:ns])
+        rows = [{n: float(v) for n, v in zip(names, host[i, :len(names)])}
+                for i in range(k)]
+        for i in range(1, k):
+            self._pending_metrics[step + i] = rows[i]
+        return rows[0]
+
+    def get_train_loss_dict(self, step: int) -> Dict[str, float]:
+        if step in self._pending_metrics:   # trained in the last window
+            return self._pending_metrics.pop(step)
+        stage = self.stage_of(step)
+        k = self.config.steps_per_dispatch
+        if k > 1 and self._k_window_ok(step, k):
+            self._k_steps_scanned += k
+            return self._train_k_steps(step, k)
+        if k > 1:
+            self._k_steps_fallback += 1
         if (stage == STAGE_BLOCK and self._parallel
                 and self.sampler.cameras_labels is not None):
             return self._train_parallel_block(step)
@@ -671,13 +832,17 @@ class GFNerfPipeline:
     def render_init_error_maps(self, step: int):
         """Render all train views at 1/8 res with the init-stage field and
         save their |error| maps (nerfacto.py:361-427), which the focal
-        splits' error-guided samplers read."""
+        splits' error-guided samplers read, and their PNG previews: the
+        error over its maximum (grey), the ground truth and the upsampled
+        render, each clipped to [0, 1] and truncated to 8 bits
+        (pipeline.py:731-759 of the JAX package)."""
         # each rank writes its own copy (rank 0 the checkpoint's)
         rank = 0 if self.comm is None else self.comm.rank
         sample_tmp = self.base_dir / ("sample_tmp" if rank == 0
                                       else f"sample_tmp_rank{rank}")
         self.sample_tmp_dir = str(sample_tmp)
-        os.makedirs(sample_tmp / "npy", exist_ok=True)
+        for sub in ("gt", "pred", "npy", "png"):
+            os.makedirs(sample_tmp / sub, exist_ok=True)
         dm = self.datamanager
         cams = dm.train_dataparser_outputs.cameras
         filenames = dm.train_dataparser_outputs.image_filenames
@@ -702,6 +867,10 @@ class GFNerfPipeline:
             error = np.abs(gt - pred).sum(axis=-1)  # (H, W)
             base = os.path.basename(str(filenames[idx]))
             np.save(sample_tmp / "npy" / (base + ".npy"), error)
+            write_png(sample_tmp / "png" / (base + ".png"),
+                      _to8(error / max(error.max(), 1e-6)))
+            write_png(sample_tmp / "gt" / (base + ".png"), _to8(gt))
+            write_png(sample_tmp / "pred" / (base + ".png"), _to8(pred))
 
     def _render_views_split(self, render, sizes: list) -> list:
         """``render(i)`` ((h, w, 3) numpy) of every view i of ``sizes``:
@@ -842,6 +1011,11 @@ def _read_host_state(ckpt_dir) -> dict:
             "sampler_config": SamplerConfig(**meta["sampler_config"]),
             "sample_tmp_dir": meta["sample_tmp_dir"] or None,
             "step": int(meta["step"])}
+
+
+def _to8(x: np.ndarray) -> np.ndarray:
+    """[0, 1] floats as uint8, clipped and truncated (x * 255)."""
+    return (np.clip(x, 0, 1) * 255).astype(np.uint8)
 
 
 def compute_ssim(a: np.ndarray, b: np.ndarray) -> float:

@@ -307,6 +307,11 @@ class VanillaPipeline:
     def _params(self) -> dict:
         return {"all": list(self.model.parameters())}
 
+    def reserve_steps(self, n: int) -> None:
+        """The run trains ``n`` steps (the Trainer's iteration count): the
+        optimizer's learning-rate table covers that many counts."""
+        self.tx.reserve(n)
+
     # --------------------------------------------------------------- train ----
 
     def _device_batch(self, batch: dict) -> dict:

@@ -12,23 +12,33 @@ entries, 192 slots, ``sample_l`` 1/256, fineness 4), the training images
 rendered by ``render_spheres``, ``OptimizersConfig()`` defaults, and batches
 of 8192 rays drawn as ``bench.py`` draws them.  ``--stage focal`` times the
 block stage's step on block 0 from a fresh optimizer state, as ``bench.py``
-does.  One warm-up step, then timed steps, each ending in a device
-synchronize; the batches are staged on the card before the timer.  Prints
-one JSON line:
+does.  The batches are staged on the card before the timer.
+
+``--steps-per-dispatch K`` (default 8, ``bench.py:415``'s window) trains
+K steps a dispatch through ``make_multi_train_step``: one CUDA graph of
+the step replayed K times, each window's stacked batches staged on the
+device; one warm-up window (it captures the graph), then 10 timed
+windows, each ending in a device synchronize (where the pipeline reads
+its one copy back): s/step is their total over 10 K steps.  ``1`` keeps
+the loop of single steps, each ending in a synchronize: one warm-up
+step, then 10 timed.  Prints one JSON line:
 
   {"metric": "train_rays_per_sec_per_chip", "value": <rays / mean step s>,
    "unit": "rays/s", "step_seconds": [...], "rays": 8192,
-   "config": "quality", "stage": "init", "device": ...}
+   "steps_per_dispatch": 8, "config": "quality", "stage": "init",
+   "device": ...}
 
-``--profile`` also runs one step under the profiler and prints its
-per-stage device spans (rays, march, warp, proposal, encode, base MLP,
-colour head, composite, loss, backward, optimizer, occupancy), the
-device's busy time and idle share, and the busiest kernels.
+(``step_seconds``: per step, or per window divided by K.)  ``--profile``
+also runs one step (one window at K > 1) under the profiler and prints
+its per-stage device spans (rays, march, warp, proposal, encode, base
+MLP, colour head, composite, loss, backward, optimizer, occupancy; a
+replayed window records only the first step's spans), the device's busy
+time and idle share, and the busiest kernels.
 
 Run on a CUDA card:
   python -m gfnerf_tpu_torch.train_bench
       [--config {quality,perf160,prop,parity}] [--stage {init,focal}]
-      [--profile]
+      [--steps-per-dispatch K] [--profile]
 """
 
 from __future__ import annotations
@@ -45,13 +55,16 @@ from gfnerf_tpu_torch.cameras.cameras import Cameras
 from gfnerf_tpu_torch.engine.optimizers import (OptimizersConfig,
                                                 build_optimizer)
 from gfnerf_tpu_torch.fields.field import STAGE_BLOCK, STAGE_INIT
-from gfnerf_tpu_torch.models.gfnerf import init_train_state, make_train_step
+from gfnerf_tpu_torch.models.gfnerf import (init_train_state,
+                                            make_multi_train_step,
+                                            make_train_step)
 from gfnerf_tpu_torch.render_bench import CONFIGS, build_workload
 from gfnerf_tpu_torch.utils.profiling import profile_device
 from gfnerf_tpu_torch.utils.synthetic import render_spheres
 
 RAYS = 8192   # rays per step (bench.py)
-STEPS = 10    # timed steps, after one warm-up step
+STEPS = 10    # timed steps (or windows), after one warm-up
+K = 8         # steps a dispatch (bench.py:415)
 
 
 def build_train_workload(device="cuda", seed: int = 0,
@@ -108,16 +121,61 @@ def run_steps(wl: dict, batches, generator, focal_block=None):
     return times, losses
 
 
+def stack_window(batches) -> dict:
+    """K batches of ``make_batch`` as one window's (K, R, ...) stacks."""
+    return {k: torch.stack([b[k] for b in batches]) for k in batches[0]}
+
+
+def run_windows(wl: dict, windows, generator, k: int, focal_block=None,
+                draws=None, graph=True):
+    """One window of k steps per stacked batch (``stack_window``) at the
+    workload's fineness, through ``make_multi_train_step`` (kept in
+    wl["window_fns"]), each ending in a synchronize: init-stage windows,
+    or with ``focal_block`` block-stage windows on that block.  ``draws``
+    (one per window, or None: the generator's) and ``graph`` go to the
+    window function; another stage's kept graph is dropped.  Returns
+    (seconds per window, (k,) losses per
+    window); updates wl["state"] and wl["oct_dev"]."""
+    stage = STAGE_INIT if focal_block is None else STAGE_BLOCK
+    fns = wl.setdefault("window_fns", {})
+    fn = fns.get((stage, k))
+    if fn is None:
+        fn = fns[(stage, k)] = make_multi_train_step(
+            wl["mcfg"], wl["scfg"], wl["tx"], stage, k)
+    for key, other in fns.items():
+        if key != (stage, k):   # one kept graph, as in the pipeline
+            other.reset()
+    fine = torch.full((k,), float(wl["fineness"]), dtype=torch.float32,
+                      device=wl["state"].field.global_feat.device)
+    times, losses = [], []
+    for i, batches in enumerate(windows):
+        t0 = time.perf_counter()
+        wl["state"], wl["oct_dev"], metrics, _ = fn(
+            wl["state"], wl["oct_dev"], wl["cams"], batches, fine,
+            active_block=focal_block or 0, generator=generator,
+            draws=None if draws is None else draws[i], graph=graph)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        losses.append(metrics["loss"].tolist())
+    return times, losses
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--config", default="quality", choices=CONFIGS)
     ap.add_argument("--stage", default="init", choices=["init", "focal"],
                     help="focal: the block stage's step on block 0 "
                          "(residual table, frozen shared parameters)")
+    ap.add_argument("--steps-per-dispatch", type=int, default=K,
+                    help="steps a dispatch: K > 1 replays the step as a "
+                         "CUDA graph K times a window; 1 runs single steps")
     ap.add_argument("--profile", action="store_true",
-                    help="also profile one step and print its per-stage "
-                         "device spans as a JSON line")
+                    help="also profile one step (one window at K > 1) and "
+                         "print its per-stage device spans as a JSON line")
     args = ap.parse_args(argv)
+    k = args.steps_per_dispatch
+    if k < 1:
+        ap.error("--steps-per-dispatch must be at least 1")
     if not torch.cuda.is_available():
         print("train_bench: no CUDA card", file=sys.stderr)
         return 1
@@ -128,23 +186,33 @@ def main(argv=None):
     block = 0 if args.stage == "focal" else None   # bench.py:451
     gen = torch.Generator(device=dev).manual_seed(0)
     batches = [make_batch(wl["images"], RAYS, seed, dev)
-               for seed in range(STEPS + 2)]
+               for seed in range((STEPS + 2) * k)]
+    if k > 1:
+        batches = [stack_window(batches[i:i + k])
+                   for i in range(0, len(batches), k)]
+
+    def run(part):
+        if k == 1:
+            return run_steps(wl, part, gen, block)
+        return run_windows(wl, part, gen, k, block)
+
     torch.cuda.synchronize()   # staged before the timer (bench.py:459-473)
-    warm, _ = run_steps(wl, batches[:1], gen, block)
-    print(f"[train_bench] warm-up step {warm[0]:.2f}s", file=sys.stderr)
+    warm, _ = run(batches[:1])
+    print(f"[train_bench] warm-up {'step' if k == 1 else 'window'} "
+          f"{warm[0]:.2f}s", file=sys.stderr)
     torch.cuda.reset_peak_memory_stats()
-    times, losses = run_steps(wl, batches[1:STEPS + 1], gen, block)
+    times, losses = run(batches[1:STEPS + 1])
+    times = [t / k for t in times]
     dt = float(np.mean(times))
     if args.profile:
-        prof = profile_device(lambda: run_steps(wl, batches[-1:], gen,
-                                                 block))
-        prof["device_busy_share"] = prof["device_busy_ms"] / (dt * 1e3)
+        prof = profile_device(lambda: run(batches[-1:]))
+        prof["device_busy_share"] = prof["device_busy_ms"] / (dt * k * 1e3)
         prof["device_idle_share"] = 1.0 - prof["device_busy_share"]
         print(json.dumps({"profile": prof}))
     print(json.dumps({
         "metric": "train_rays_per_sec_per_chip", "value": RAYS / dt,
         "unit": "rays/s", "step_seconds": times, "rays": RAYS,
-        "config": args.config, "stage": args.stage,
+        "steps_per_dispatch": k, "config": args.config, "stage": args.stage,
         "device": torch.cuda.get_device_name(dev),
         "losses": losses, "peak_bytes": torch.cuda.max_memory_allocated(),
     }))

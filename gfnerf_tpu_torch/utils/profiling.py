@@ -50,7 +50,8 @@ def profile_device(fn) -> dict:
 
     Returns the device span (ms) of each stage summed over its entries, the
     sum of all kernel times (the device's busy time), the busiest kernels,
-    and the count of each of HOST_WAITS."""
+    the count of each kernel's records by name, and the count of each of
+    HOST_WAITS."""
     global _events
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -76,5 +77,6 @@ def profile_device(fn) -> dict:
             "device_busy_ms": sum(k[1] for k in kernels),
             "top_kernels": [{"name": n[:100], "device_ms": t, "count": c}
                             for n, t, c in kernels[:15]],
+            "kernel_counts": {n: c for n, _, c in kernels},
             "host_waits": {e.key: e.count for e in events
                            if e.key in HOST_WAITS}}

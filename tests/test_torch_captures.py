@@ -674,7 +674,9 @@ def test_max_norm_matches_optax():
 
         assert state.last_finite == (step != 3)
         if step == 3:
-            assert tx.grad_norms == {}
+            # skipped on the device, with no host wait: the norms are
+            # still the step's, NaN for the group of the NaN gradient
+            assert not np.isfinite(float(tx.grad_norms["fields"]))
         else:
             for name, gs in grads.items():
                 if name == "block" and step < 2:

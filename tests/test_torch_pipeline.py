@@ -12,7 +12,9 @@ gfnerf_tpu_torch.engine.trainer) on the CPU.
   in a process of its own) records each step's march noise and S3IM
   permutations from its key chain, and the port's pipeline takes them as
   its ``draws``.  Both packages' parsers name each image on its own, so
-  the transition writes one error map per view.  A third run ("clip")
+  the transition writes one error map per view, and its PNG previews
+  (``sample_tmp/{png,gt,pred}``), which decode pixel for pixel as the JAX
+  run's files.  A third run ("clip")
   takes the anchored layout with ``max_norm`` 0.003 (between the groups'
   norms: the MLPs' about 0.2 clipped every step, the global table's
   0.002-0.005 on some, the block table's about 0.002 never) and the loss
@@ -64,6 +66,7 @@ STEPS = 16    # the transition after step 9 (gf-nerf-tiny: 10 init steps)
 # the hash layouts, and the anchored one with clipping and the loss switches
 LAYOUTS = {**FIELD_OVERRIDES, **CLIP_OVERRIDES}
 MAP_RTOL = {"anchored": 1e-4, "packed": 2e-4, "clip": 1e-4}   # see above
+PREVIEW_SHARE = 0.01   # check_previews
 RAYS = 128
 PATCH_H = 8
 TREE_KEYS = ("centers", "side_lens", "parents", "childs", "is_leaf",
@@ -207,7 +210,7 @@ def jax_refs(scene, tmp_path_factory):
     for layout, proc in procs.items():
         log, _ = proc.communicate(timeout=600)
         assert proc.returncode == 0, log.decode()[-4000:]
-    return {layout: dict(np.load(out / "ref.npz"))
+    return {layout: {**np.load(out / "ref.npz"), "dir": out}
             for layout, out in outs.items()}
 
 
@@ -267,6 +270,39 @@ def run_port(scene, out_dir, ref, layout):
     return rec
 
 
+def check_previews(port_dir: Path, jax_dir: Path, jax_errors) -> None:
+    """The transition's PNG previews (``sample_tmp/{png,gt,pred}``), the
+    port's against the JAX run's imageio files: the same names; the
+    ground truths pixel for pixel; the port's writer given the JAX run's
+    error maps (``jax_errors``, by name) writes the JAX run's error
+    previews pixel for pixel; the two runs' own error and render previews
+    at most one level apart, at no more than PREVIEW_SHARE of a file's
+    pixels (their floats agree to about 1e-4, and a value that close to a
+    level's edge truncates to either side; measured at most 0.65%, at
+    the anchored layout's error previews; the render previews equal)."""
+    from gfnerf_tpu_torch.pipelines.pipeline import _to8
+    from gfnerf_tpu_torch.utils.image_io import encode_png, decode_png, \
+        read_png
+
+    names = sorted(p.name for p in (jax_dir / "png").iterdir())
+    assert len(names) == 12 == len(jax_errors)
+    for sub in ("png", "gt", "pred"):
+        assert sorted(p.name for p in (port_dir / sub).iterdir()) == names
+        for name in names:
+            got = read_png(port_dir / sub / name)
+            want = read_png(jax_dir / sub / name)
+            if sub == "gt":
+                np.testing.assert_array_equal(got, want, err_msg=name)
+                continue
+            off = got.astype(int) - want.astype(int)
+            assert np.abs(off).max() <= 1, (sub, name)
+            assert (off != 0).mean() <= PREVIEW_SHARE, (sub, name)
+    for name, err in zip(names, jax_errors):
+        again = decode_png(encode_png(_to8(err / max(err.max(), 1e-6))))
+        np.testing.assert_array_equal(again, read_png(jax_dir / "png" / name),
+                                      err_msg=name)
+
+
 @pytest.mark.parametrize("layout", list(LAYOUTS))
 def test_pipeline_matches_jax(scene, jax_refs, tmp_path, layout):
     ref = jax_refs[layout]
@@ -299,6 +335,8 @@ def test_pipeline_matches_jax(scene, jax_refs, tmp_path, layout):
     np.testing.assert_allclose(got["error_map_files"],
                                ref["error_map_files"], rtol=MAP_RTOL[layout],
                                atol=1e-5)
+    check_previews(tmp_path / "sample_tmp", ref["dir"] / "sample_tmp",
+                   ref["error_map_files"])
     np.testing.assert_array_equal(got["splits"], ref["splits"])
     np.testing.assert_array_equal(got["split_cache_indices"],
                                   ref["split_cache_indices"])

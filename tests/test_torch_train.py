@@ -144,7 +144,10 @@ def test_non_finite_step_is_skipped():
     opt = state.opt_state
     assert not opt.last_finite and opt.total_notfinite == 1
     assert opt.count == 0
-    assert all(m is None for ms in opt.mu.values() for m in ms)
+    # the moments stay zero: unallocated, or (a select on the device
+    # keeps the skipped step's old moments) allocated as zeros
+    assert all(m is None or not bool(m.any())
+               for ms in (*opt.mu.values(), *opt.nu.values()) for m in ms)
 
 
 def test_train_step_rejects_focal_stage():

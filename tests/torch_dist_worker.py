@@ -204,7 +204,8 @@ def block_steps(rank, world, case_path, out):
 def trainer_run(rank, world, scene, out, overrides):
     """``gf-nerf-tiny`` through the Trainer (``train.build_trainer``'s
     path) over the group, with ``overrides``; records every step's
-    metrics, the block stack after every step and at the end, the digests
+    metrics, the counts of steps in K-step windows and single steps, the
+    block stack after every step and at the end, the digests
     of the parameters, the octree statistics and the error maps after
     every step, and the block tables' digests after every sync (with the
     last step trained)."""
@@ -247,6 +248,8 @@ def trainer_run(rank, world, scene, out, overrides):
                   for k, v in p.field.state_dict().items()}
     rec["base_dir"] = str(trainer.base_dir)
     rec["n_block_axis"] = p.n_block_axis
+    # the steps trained in K-step windows and as single steps
+    rec["windows"] = (p._k_steps_scanned, p._k_steps_fallback)
     torch.save(rec, Path(out) / f"rank{rank}.pt")
 
 

@@ -6,7 +6,7 @@ mesh, compiles more and is slower; the single-device run is the one-card
 reference).  Usage:
 
   python tests/torch_pipeline_ref.py SCENE_DIR OUT_DIR STEPS RAYS PATCH_H \
-      LAYOUT [diag] [phototourism]
+      LAYOUT [diag] [phototourism] [k=K]
 
 Drives ``GFNerfPipeline`` of ``gf-nerf-tiny`` (with LAYOUT's overrides,
 ``FIELD_OVERRIDES``, ``PROP_OVERRIDES`` or ``CLIP_OVERRIDES``, and the port
@@ -20,7 +20,13 @@ indices, losses, split index and whether its update was applied (finite
 gradients); the calibrated
 ``sample_l`` and ``max_hits``; the host tree after every milestone rebuild;
 the camera labels, error maps and block indices at the transition; the eval
-PSNR; and the final field parameters.  With ``diag``, also
+PSNR; and the final field parameters.  With ``k=K`` (K > 1) the pipeline
+trains K steps a dispatch where its ``_k_window_ok`` allows (as the
+Trainer runs it: ``total_train_steps`` = STEPS), and each step's draws
+come from the window's key chain (one split of the pipeline's key a
+window, one split of the window's key a step: pipeline.py:456 and
+gfnerf.py:693-696 of the JAX package); the record adds the counts of
+steps in windows and single steps.  With ``diag``, also
 ``scripts/quality_run.py``'s ``diag_eval`` after the last step (as JSON,
 ``diag``).  With ``phototourism``, SCENE_DIR is a Phototourism capture read
 by the JAX package's Phototourism parser (its images through ``imageio``).
@@ -61,7 +67,7 @@ LOSS_KEYS = ("loss", "rgb_loss", "s3im_loss")
 
 
 def main(scene, out_dir, steps, rays, patch_h, layout, diag=False,
-         dataparser="minimal"):
+         dataparser="minimal", k_steps=1):
     import jax
     import numpy as np
 
@@ -86,7 +92,9 @@ def main(scene, out_dir, steps, rays, patch_h, layout, diag=False,
 
         parser_cls, parser_cfg = registry()[dataparser]
         parser = parser_cls(parser_cfg(data=scene))
+    cfg.pipeline.steps_per_dispatch = k_steps
     p = cfg.pipeline.build(parser, out_dir)
+    p.total_train_steps = steps
     n_prop = cfg.pipeline.model.num_proposal_resamples
     rec = {"sample_l": p.sampler.sampler_config.sample_l,
            "max_hits0": p.sampler.sampler_config.max_hits}
@@ -105,15 +113,24 @@ def main(scene, out_dir, steps, rays, patch_h, layout, diag=False,
     noise, perms, prop_u, losses, splits, rebuilt, applied = (
         [], [], [], [], [], [], [])
     loss_keys = LOSS_KEYS + (("interlevel_loss",) if n_prop else ())
+    step_keys = {}
     for step in range(steps):
-        # the step's own draws (pipeline.py:516, gfnerf.py:512-514,
-        # losses.py:70-73, ray_samplers.py:86)
-        _, key = jax.random.split(p._rng)
-        k_noise, k_s3im, k_prop = jax.random.split(key, 3)
+        # the step's own key: the pipeline's next (pipeline.py:516), or in
+        # a window the window key's next (pipeline.py:456, gfnerf.py:693)
+        if step not in p._pending_metrics:
+            _, key = jax.random.split(p._rng)
+            if k_steps > 1 and p._k_window_ok(step, k_steps):
+                for i in range(k_steps):
+                    key, step_keys[step + i] = jax.random.split(key)
+            else:
+                step_keys[step] = key
+        # its draws (gfnerf.py:512-514, losses.py:70-73,
+        # ray_samplers.py:86)
+        k_noise, k_s3im, k_prop = jax.random.split(step_keys.pop(step), 3)
         noise.append(np.asarray(
             (jax.random.uniform(k_noise, (rays, s)) - 0.5) + 1.0))
-        perms.append(np.stack([np.asarray(jax.random.permutation(k, rays))
-                               for k in jax.random.split(k_s3im,
+        perms.append(np.stack([np.asarray(jax.random.permutation(q, rays))
+                               for q in jax.random.split(k_s3im,
                                                          n_rep - 1)]))
         prop_u.append(np.asarray(jax.random.uniform(k_prop,
                                                     (rays, n_prop + 1))))
@@ -140,6 +157,8 @@ def main(scene, out_dir, steps, rays, patch_h, layout, diag=False,
             rec[f"eval_psnr{step}"] = p.get_eval_loss_dict(step)["eval_psnr"]
     cache = p.datamanager.split_cache
     rec.update(
+        k_scanned=p._k_steps_scanned, k_fallback=p._k_steps_fallback,
+        pending=len(p._pending_metrics), final_step=int(p.state.step),
         noise=np.stack(noise), perms=np.stack(perms),
         prop_u=np.stack(prop_u), applied=np.asarray(applied),
         indices=np.stack(batches), losses=np.asarray(losses),
@@ -178,6 +197,8 @@ if __name__ == "__main__":
     os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=1"
     sys.path.insert(0, os.path.join(
         os.path.dirname(os.path.abspath(__file__)), ".."))
+    extra = sys.argv[7:]
     main(sys.argv[1], sys.argv[2], int(sys.argv[3]), int(sys.argv[4]),
-         int(sys.argv[5]), sys.argv[6], "diag" in sys.argv[7:],
-         "phototourism" if "phototourism" in sys.argv[7:] else "minimal")
+         int(sys.argv[5]), sys.argv[6], "diag" in extra,
+         "phototourism" if "phototourism" in extra else "minimal",
+         next((int(a[2:]) for a in extra if a.startswith("k=")), 1))
