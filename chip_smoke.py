@@ -3423,10 +3423,57 @@ def _apart(a, b) -> tuple:
     return float((d > WINDOW_ENTRY_ATOL).float().mean()), float(d.max())
 
 
+def _params_apart(a, b) -> dict:
+    """``_apart`` of each parameter of two fields, by group."""
+    from gfnerf_tpu_torch.engine.optimizers import field_param_groups
+
+    out = {}
+    for name, ps in field_param_groups(a).items():
+        for i, (x, y) in enumerate(zip(ps, field_param_groups(b)[name])):
+            out[f"{name}[{i}]"] = _apart(x.detach(), y.detach())
+    return out
+
+
+def workload_copy(wl) -> dict:
+    """A train_bench workload with deep copies of its field, optimizer
+    state and octree, and no window functions of its own yet."""
+    import copy
+
+    from gfnerf_tpu_torch.models.gfnerf import TrainState
+
+    field = copy.deepcopy(wl["state"].field)
+    return {**wl, "state": TrainState(
+        field=field, opt_state=copy.deepcopy(wl["state"].opt_state),
+        step=wl["state"].step), "oct_dev": copy.deepcopy(wl["oct_dev"]),
+            "window_fns": {}}
+
+
 def _philox_offset(gen) -> int:
     """A CUDA generator's Philox offset (its state's second 8 bytes)."""
     state = gen.get_state()
     return int.from_bytes(bytes(state[8:16].tolist()), "little")
+
+
+def traced_window_launches(what: str, one_window, expected: dict):
+    """Profile ``one_window()``, which runs one replayed window, and count
+    the records of WINDOW_KERNEL_NAMES' kernels in its trace by name: what
+    the counters add for a replayed window (``expected``: K times a
+    step's) must be what the graph ran.  The trace is taken again if it
+    lost records, 3 times at most; raises past them.  Returns the profile
+    and the counts."""
+    from gfnerf_tpu_torch.utils.profiling import profile_device
+
+    for attempt in range(1, 4):
+        prof = profile_device(one_window)
+        traced = {name: sum(c for key, c in prof["kernel_counts"].items()
+                            if pattern in key)
+                  for name, pattern in WINDOW_KERNEL_NAMES.items()}
+        if traced == expected:
+            return prof, traced
+        log(f"[profiler] window {what}: the trace holds {traced} kernel "
+            f"records (try {attempt} of 3)")
+    raise AssertionError(f"window {what}: a replayed window's trace holds "
+                         f"{traced} launches, not {expected}")
 
 
 def window_checks(wl, what: str, focal_block=None) -> dict:
@@ -3444,18 +3491,14 @@ def window_checks(wl, what: str, focal_block=None) -> dict:
     ``torch.cuda.set_sync_debug_mode("error")`` around a replayed window.
     Timed in turns: single steps (K = 1) and windows, s/step and peak
     memory; the device's busy share of a profiled window."""
-    import copy
-
     import numpy as np
     import torch
 
-    from gfnerf_tpu_torch.engine.optimizers import field_param_groups
     from gfnerf_tpu_torch.model_components.losses import s3im_permutations
-    from gfnerf_tpu_torch.models.gfnerf import TrainState
     from gfnerf_tpu_torch.train_bench import (RAYS, make_batch, run_steps,
                                               run_windows, stack_window)
-    from gfnerf_tpu_torch.utils.profiling import profile_device
 
+    params_apart = _params_apart
     k = WINDOW_K
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(7)
@@ -3489,18 +3532,7 @@ def window_checks(wl, what: str, focal_block=None) -> dict:
         return d
 
     def copy_of():
-        field = copy.deepcopy(wl["state"].field)
-        return {**wl, "state": TrainState(
-            field=field, opt_state=copy.deepcopy(wl["state"].opt_state),
-            step=wl["state"].step), "oct_dev": copy.deepcopy(wl["oct_dev"]),
-                "window_fns": {}}
-
-    def params_apart(a, b) -> dict:
-        out = {}
-        for name, ps in field_param_groups(a).items():
-            for i, (x, y) in enumerate(zip(ps, field_param_groups(b)[name])):
-                out[f"{name}[{i}]"] = _apart(x.detach(), y.detach())
-        return out
+        return workload_copy(wl)
 
     # single steps from no kept graph and an emptied cache, then the
     # capture (the window's first step eager, then 7 replays): its peak
@@ -3611,23 +3643,9 @@ def window_checks(wl, what: str, focal_block=None) -> dict:
         run_windows(wl, windows[-1:], gen, k, focal_block)
         win_s.append(time.perf_counter() - t0)
 
-    # the launches of a replayed window counted in its trace, by kernel
-    # name: what the counters added for it (K times a step's) must be what
-    # the graph ran (the trace is taken again if it lost records)
-    for attempt in range(1, 4):
-        win_s.clear()
-        prof = profile_device(one_window)
-        traced = {name: sum(c for key, c in prof["kernel_counts"].items()
-                            if pattern in key)
-                  for name, pattern in WINDOW_KERNEL_NAMES.items()}
-        if traced == {n: k * v for n, v in per_step.items()}:
-            break
-        log(f"[profiler] window {what}: the trace holds {traced} kernel "
-            f"records (try {attempt} of 3)")
-    else:
-        raise AssertionError(f"window {what}: a replayed window's trace "
-                             f"holds {traced} launches, not {k} x "
-                             f"{per_step}")
+    prof, traced = traced_window_launches(
+        what, one_window, {n: k * v for n, v in per_step.items()})
+    win_s[:] = win_s[-1:]
     busy = prof["device_busy_ms"] / (win_s[0] * 1e3)
     out = {"capture_window_s": cap_s[0], "s_per_step_k1": turns["k1"],
            "s_per_step_k8": turns["k8"], "peak_bytes_k1": turns["k1_peak"],
@@ -3662,11 +3680,196 @@ def window_checks(wl, what: str, focal_block=None) -> dict:
     return out
 
 
+# gf-nerf-perf's window with the field recomputed in the backward:
+# train_bench's "perf160" workload (gf-nerf-perf's field and its 160-slot
+# march) at remat_chunks 8 (the mid-scale run's override,
+# midscale_run.py), its windows compared in turns with single steps at
+# remat 8, and its memory with the same window at remat 0
+WINDOW_REMAT_CHUNKS = 8
+WINDOW_REMAT_CONFIG = "perf160"
+
+
+def remat_window_checks() -> dict:
+    """A K = WINDOW_K window of gf-nerf-perf at remat_chunks
+    WINDOW_REMAT_CHUNKS on the card (``torch.utils.checkpoint`` inside the
+    captured step).  Checked: the window captured and replayed against the
+    same window run eagerly from deep copies of the state and the same
+    injected draws (the first step's loss bit for bit, each step's to
+    WINDOW_LOSS_RTOL, every parameter at WINDOW_SHARE / WINDOW_MAX); a
+    replayed window's launches, K times an eager step's, by the counters
+    and by the kernels' records in a profiled replayed window's trace (the
+    recomputed encode launches H1 again in the backward).  Timed in turns:
+    8 single steps and replayed windows at remat 8, s/step; peak memory
+    allocated and reserved of the replays at remat 8 and of the capture
+    window at remat 8 and, from the same emptied cache, at remat 0."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from gfnerf_tpu_torch.fields.field import STAGE_INIT
+    from gfnerf_tpu_torch.model_components.losses import s3im_permutations
+    from gfnerf_tpu_torch.models.gfnerf import make_train_step
+    from gfnerf_tpu_torch.train_bench import (RAYS, build_train_workload,
+                                              make_batch, run_steps,
+                                              run_windows, stack_window)
+
+    k = WINDOW_K
+    dev = torch.device("cuda")
+    t0 = time.perf_counter()
+    base = build_train_workload(dev, seed=0, config=WINDOW_REMAT_CONFIG)
+    setup_s = time.perf_counter() - t0
+    gen = torch.Generator(device=dev).manual_seed(11)
+
+    def at(chunks):
+        mcfg = dataclasses.replace(base["mcfg"], remat_chunks=chunks)
+        return {**base, "mcfg": mcfg, "window_fns": {},
+                "step_fn": make_train_step(mcfg, base["scfg"], base["tx"],
+                                           STAGE_INIT)}
+
+    def draws():
+        return {"noise": torch.rand((k, RAYS, base["scfg"].max_samples),
+                                    generator=gen, device=dev) + 0.5,
+                "s3im_perms": torch.stack([s3im_permutations(
+                    RAYS, generator=gen, device=dev) for _ in range(k)])}
+
+    n_windows = 4 + WINDOW_TIMED
+    flat = [make_batch(base["images"], RAYS, 2900 + i, dev)
+            for i in range(n_windows * k + 1 + WINDOW_SINGLE_STEPS)]
+    windows = [stack_window(flat[i * k:(i + 1) * k])
+               for i in range(n_windows)]
+    singles = flat[n_windows * k:]
+
+    def peaks():
+        return (torch.cuda.max_memory_allocated(),
+                torch.cuda.max_memory_reserved())
+
+    def fresh():
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+
+    # remat 0: the capture window from an emptied cache and no graph, a
+    # copy of the state held (as at remat 8 below)
+    plain = at(0)
+    held = workload_copy(plain)
+    fresh()
+    run_windows(plain, windows[:1], None, k, draws=[draws()])
+    plain_capture = peaks()
+    for fn in plain["window_fns"].values():
+        fn.reset()
+    del held, plain
+
+    # remat 8: the same draws captured and, from a copy, eager
+    rwl = at(WINDOW_REMAT_CHUNKS)
+    d = draws()
+    eager_wl = workload_copy(rwl)
+    fresh()
+    cap_s, graph_losses = run_windows(rwl, windows[2:3], None, k, draws=[d])
+    remat_capture = peaks()
+    _, eager_losses = run_windows(eager_wl, windows[2:3], None, k,
+                                  draws=[d], graph=False)
+    fn = rwl["window_fns"][(STAGE_INIT, k)]
+    if fn.captures != 1:
+        raise AssertionError(f"window remat: {fn.captures} captures")
+    apart = _params_apart(rwl["state"].field, eager_wl["state"].field)
+    worst = max(apart.values(), key=lambda v: v[1])
+    del eager_wl
+    log(f"[window] remat {WINDOW_REMAT_CHUNKS} ({WINDOW_REMAT_CONFIG}): "
+        f"replayed against eager, the same draws: losses {graph_losses[0]} "
+        f"vs {eager_losses[0]}; parameters apart at most {worst}")
+    if graph_losses[0][0] != eager_losses[0][0]:
+        raise AssertionError(f"window remat: the first step's loss "
+                             f"{graph_losses[0][0]!r} replayed, "
+                             f"{eager_losses[0][0]!r} eager")
+    np.testing.assert_allclose(graph_losses[0], eager_losses[0],
+                               rtol=WINDOW_LOSS_RTOL,
+                               err_msg="window remat: losses")
+    for name, (share, big) in apart.items():
+        if share > WINDOW_SHARE or big > WINDOW_MAX:
+            raise AssertionError(f"window remat: {name} replayed against "
+                                 f"eager: {share:.4g} of entries apart, at "
+                                 f"most {big:.4g}")
+
+    # a replayed window launches K times what an eager step launches: by
+    # the counters, and by the kernels' records in a replayed window's
+    # trace (the checkpoint's recompute launches H1 again in the backward)
+    before = launch_counts()
+    run_steps(rwl, singles[:1], gen)
+    mid = launch_counts()
+    run_windows(rwl, windows[3:4], None, k, draws=[draws()])
+    after = launch_counts()
+    step_launches = {n: mid[n] - before[n] for n in mid}
+    window_launches = {n: after[n] - mid[n] for n in mid}
+    if window_launches != {n: k * v for n, v in step_launches.items()} \
+            or step_launches["packed_hash_fwd"] != 2 * WINDOW_REMAT_CHUNKS:
+        raise AssertionError(f"window remat: a replayed window launched "
+                             f"{window_launches}, a step {step_launches}")
+    prof, traced = traced_window_launches(
+        "remat", lambda: run_windows(rwl, windows[1:2], None, k,
+                                     draws=[draws()]),
+        {n: k * step_launches[n] for n in WINDOW_KERNEL_NAMES})
+
+    # timed in turns: single steps at remat 8 against replayed windows
+    turns = {"k1": [], "k8": [], "k1_peak": [], "k8_peak": []}
+    for t in range(WINDOW_TIMED):
+        torch.cuda.reset_peak_memory_stats()
+        times, _ = run_steps(rwl, singles[1:], gen)
+        turns["k1"].append(float(np.mean(times)))
+        turns["k1_peak"].append(peaks())
+        torch.cuda.reset_peak_memory_stats()
+        times, _ = run_windows(rwl, windows[4 + t:5 + t], None, k,
+                               draws=[draws()])
+        turns["k8"].append(float(np.sum(times)) / k)
+        turns["k8_peak"].append(peaks())
+    for fn in rwl["window_fns"].values():
+        fn.reset()
+    del rwl, base
+    torch.cuda.empty_cache()
+    gib = 2.0 ** 30
+    out = {"config": WINDOW_REMAT_CONFIG,
+           "remat_chunks": WINDOW_REMAT_CHUNKS, "setup_s": setup_s,
+           "capture_window_s": cap_s[0],
+           "s_per_step_k1": turns["k1"], "s_per_step_k8": turns["k8"],
+           "peak_bytes_k1": [a for a, _ in turns["k1_peak"]],
+           "peak_reserved_bytes_k1": [r for _, r in turns["k1_peak"]],
+           "peak_bytes_k8_replays": [a for a, _ in turns["k8_peak"]],
+           "peak_reserved_bytes_k8_replays": [r for _, r in
+                                              turns["k8_peak"]],
+           "capture_peak_bytes": remat_capture[0],
+           "capture_peak_reserved_bytes": remat_capture[1],
+           "remat0_capture_peak_bytes": plain_capture[0],
+           "remat0_capture_peak_reserved_bytes": plain_capture[1],
+           "step_launches": step_launches, "window_traced_launches": traced,
+           "window_device_busy_ms": prof["device_busy_ms"],
+           "loss_rel_diff_draws": float(np.max(np.abs(
+               np.asarray(graph_losses[0]) - eager_losses[0])
+               / np.abs(eager_losses[0]))),
+           "params_apart_max": worst}
+    log(f"[window] remat {WINDOW_REMAT_CHUNKS}: s/step K=1 {turns['k1']} "
+        f"vs K={k} {turns['k8']}; "
+        f"peak GiB allocated / reserved: the capture window "
+        f"{remat_capture[0] / gib:.3f} / {remat_capture[1] / gib:.3f} at "
+        f"remat {WINDOW_REMAT_CHUNKS}, {plain_capture[0] / gib:.3f} / "
+        f"{plain_capture[1] / gib:.3f} at remat 0; replayed windows "
+        f"{[round(a / gib, 3) for a, _ in turns['k8_peak']]} / "
+        f"{[round(r / gib, 3) for _, r in turns['k8_peak']]}; single "
+        f"steps {[round(a / gib, 3) for a, _ in turns['k1_peak']]} / "
+        f"{[round(r / gib, 3) for _, r in turns['k1_peak']]}; a step's "
+        f"launches {step_launches}, a replayed window's in its trace "
+        f"{traced}; the workload in {setup_s:.1f}s")
+    return out
+
+
 def phase_window(tmp: Path, wl=None):
     """K = 8 steps a dispatch on the card: ``window_checks`` on the
     quality workload (``wl``, the main flow's, or built here) at the init
     and focal stages and on the prop workload at the init stage, all at
-    8192 rays (the Trainer's windows: ``phase_pipeline``).  Counted: every
+    8192 rays (the Trainer's windows: ``phase_pipeline``), and
+    ``remat_window_checks``: gf-nerf-perf's window at remat_chunks 8
+    replayed against the same window eager, its launches counted and
+    traced, timed against single steps, its memory against the window at
+    remat 0.  Counted: every
     launch of the phase (the replays', the eager windows', the single
     steps')."""
     import torch
@@ -3690,6 +3893,10 @@ def phase_window(tmp: Path, wl=None):
     stats["prop_init"] = window_checks(prop, "prop init")
     del prop
     torch.cuda.empty_cache()
+    for name, n in launch_counts().items():
+        launches[name] += n
+    reset_launch_counts()
+    stats["remat"] = remat_window_checks()
     for name, n in launch_counts().items():
         launches[name] += n
     return launches, stats
@@ -8914,8 +9121,12 @@ def parallel_rank(rank, world, port, out, backend, scene):
         pcomm.shutdown()
 
 
-def run_parallel_ranks(out: Path, scene: Path, backend: str) -> list:
-    """PARALLEL_WORLD spawned ranks under ``backend``; their records."""
+def spawn_ranks(fn, out: Path, scene: Path, backend: str, world: int,
+                join_s: float, what: str, saved=None) -> list:
+    """``world`` spawned processes of ``fn(rank, world, port, out,
+    backend, scene)``, a free port of this host for their rendezvous,
+    killed past ``join_s`` seconds (a TimeoutError naming ``what``); the
+    records OUT/rank{k}.pt of the ranks ``saved`` (all by default)."""
     import socket
 
     import torch
@@ -8926,18 +9137,23 @@ def run_parallel_ranks(out: Path, scene: Path, backend: str) -> list:
         port = s.getsockname()[1]
     out.mkdir(parents=True, exist_ok=True)
     ctx = mp.start_processes(
-        parallel_rank, args=(PARALLEL_WORLD, port, str(out), backend,
-                             str(scene)),
-        nprocs=PARALLEL_WORLD, join=False, start_method="spawn")
-    deadline = time.monotonic() + PARALLEL_JOIN_S
+        fn, args=(world, port, str(out), backend, str(scene)),
+        nprocs=world, join=False, start_method="spawn")
+    deadline = time.monotonic() + join_s
     while not ctx.join(timeout=max(deadline - time.monotonic(), 0.0)):
         if time.monotonic() >= deadline:
             for proc in ctx.processes:
                 proc.kill()
-            raise TimeoutError(f"parallel: {PARALLEL_WORLD} ranks under "
-                               f"{backend} outlasted {PARALLEL_JOIN_S} s")
+            raise TimeoutError(f"{what}: {world} ranks under {backend} "
+                               f"outlasted {join_s} s")
     return [torch.load(out / f"rank{k}.pt", weights_only=False)
-            for k in range(PARALLEL_WORLD)]
+            for k in (range(world) if saved is None else saved)]
+
+
+def run_parallel_ranks(out: Path, scene: Path, backend: str) -> list:
+    """PARALLEL_WORLD spawned ranks under ``backend``; their records."""
+    return spawn_ranks(parallel_rank, out, scene, backend, PARALLEL_WORLD,
+                       PARALLEL_JOIN_S, "parallel")
 
 
 def check_parallel_ranks(ranks: list, backend: str, table_grad_calls: int
@@ -9409,7 +9625,11 @@ def phase_parallel(tmp: Path):
     Trainer, equal to the ranks' final state, resumed for 2 steps and
     evaluated.  Then under each backend the viewer over the 4 ranks
     (``run_parallel_viewer``, ``check_parallel_viewer``): paused, rendered,
-    resumed and stopped over HTTP.  Printed: s/step at world 4 against one
+    resumed and stopped over HTTP.  Where the machine has 2 or more cards,
+    the NCCL window leg (``phase_parallel_window``): a data-parallel
+    window of 8 steps captured with its collectives, against the same
+    window eager and one process on the union batch, every rank
+    bit-identical after it.  Printed: s/step at world 4 against one
     process, peak memory per rank, the backend; a 640x480 render's seconds
     paused and while training, a control broadcast's seconds a step, the
     phase's seconds."""
@@ -9471,6 +9691,9 @@ def phase_parallel(tmp: Path):
         log(f"[parallel viewer {backend}] the drive in "
             f"{st['viewer']['drive_s']:.1f}s")
 
+    got, stats["window"] = phase_parallel_window(tmp)
+    launches = {k: launches[k] + got.get(k, 0) for k in launches}
+
     # rank 0's checkpoint in a one-card Trainer: the ranks' final state,
     # resumed for 2 steps, an eval image
     cfg = get_method("gf-nerf-perf")
@@ -9525,6 +9748,579 @@ def phase_parallel(tmp: Path):
                  phase_s=time.perf_counter() - t_phase)
     log(f"[parallel] the phase in {stats['phase_s']:.1f}s")
     return launches, stats
+
+
+# K steps a dispatch over NCCL ranks: gf-nerf-perf data-parallel (block
+# axis 1) over 2 or 4 cards, a card per rank, 8192 rays a step split over
+# the ranks, K = WINDOW_K windows at the init stage.  The checks start from
+# the pipeline's initial state; then the Trainer trains
+# PARALLEL_WINDOW_STEPS steps, all in windows (no milestone, no compaction
+# step and one stage in them), on the same octree.
+PARALLEL_WINDOW_STEPS = 3 * WINDOW_K
+PARALLEL_WINDOW_OVERRIDES = {
+    "pipeline.steps_per_dispatch": str(WINDOW_K),
+    # the march fineness at 1 from the first window's end on (the checks
+    # take the finenesses of steps K to 2K - 1)
+    "pipeline.sampler.ray_march_fineness_decay_end_iter": str(WINDOW_K),
+    "steps_per_eval_batch": "100000", "steps_per_eval_image": "100000",
+    "steps_per_save": "100000", "steps_per_log": "100",
+    **CAPTURE_TREES["bench"],
+}
+# timed in turns on every rank: captured windows, eager windows and
+# single data-parallel steps, K each
+PARALLEL_WINDOW_TIMED = 2
+# The parameters after a window over the ranks: Adam's eps of 1e-15 turns
+# any near-zero gradient into a whole learning-rate step of its sign, so a
+# gradient summed in another order (NCCL's protocol under capture, H2's
+# atomics on each rank, the ranks' sums against one process's) moves an
+# entry by up to 2 lr a step.  An eager window of the data-parallel step
+# sits up to 37% of a tensor's entries past WINDOW_ENTRY_ATOL from one
+# process on the union batch after 8 steps, and two eager windows from
+# the same draws up to 12% apart (4 H100s of one host, 8192 rays).  So
+# each tensor of the captured window is held to at most
+# WINDOW_MAX apart (8 steps of the largest learning rate) and to at most
+# WINDOW_SHARE of its entries more than the eager reference's spread: two
+# eager windows' against the eager one; the eager window's against one
+# process.
+# seconds a collective (or a window's replayed ones) may wait, and the
+# ranks' whole run
+PARALLEL_WINDOW_GROUP_TIMEOUT = 120.0
+PARALLEL_WINDOW_JOIN_S = 300.0
+
+
+def parallel_window_world(cards: int) -> int:
+    """The ranks of the NCCL window leg on a machine of ``cards`` cards: 4
+    where there are 4, else 2 (the batch's 8192 rays split evenly); 0
+    below 2 cards."""
+    return 4 if cards >= 4 else (2 if cards >= 2 else 0)
+
+
+class _recorded_updates:
+    """Within the block, the gradients the first ``tx.update`` call of the
+    optimizer ``tx`` receives (the window's first step, eager), cloned."""
+
+    def __init__(self, tx):
+        self.tx, self.grads = tx, None
+
+    def __enter__(self):
+        update = type(self.tx).update
+
+        def recording(grads, opt_state, params):
+            if self.grads is None:
+                self.grads = {k: [None if g is None else g.detach().clone()
+                                  for g in gs] for k, gs in grads.items()}
+            return update(self.tx, grads, opt_state, params)
+
+        self.tx.update = recording
+        return self
+
+    def __exit__(self, *exc):
+        del self.tx.update
+
+
+class _counted_collectives:
+    """Within the block, the calls of ``comm``'s collectives."""
+
+    def __init__(self, comm):
+        self.comm, self.calls = comm, 0
+
+    def __enter__(self):
+        for name in ("all_reduce", "all_gather", "broadcast"):
+            def counted(*a, _fn=getattr(type(self.comm), name), **k):
+                self.calls += 1
+                return _fn(self.comm, *a, **k)
+            setattr(self.comm, name, counted)
+        return self
+
+    def __exit__(self, *exc):
+        for name in ("all_reduce", "all_gather", "broadcast"):
+            delattr(self.comm, name)
+
+
+def nccl_kernels(prof) -> int:
+    """The NCCL kernels' records in a ``profile_device`` trace (not the
+    ``nccl:...`` annotations the profiler mirrors on the device)."""
+    return sum(c for key, c in prof["kernel_counts"].items()
+               if key.startswith(("ncclDevKernel", "ncclKernel")))
+
+
+def parallel_window_checks(p, comm) -> dict:
+    """The window over the ranks of ``comm`` from the pipeline ``p``'s
+    initial state (copies of it), every rank in lockstep: a window of
+    WINDOW_K data-parallel steps captured and replayed against the same
+    window run eagerly (twice: their spread), from the same draws; on
+    rank 0 the window of one
+    process on the union batch from the same draws (the others wait); the
+    collectives of an eager step (calls, and NCCL kernels in its trace)
+    against a replayed window's per step; timed in turns: captured and
+    eager windows and single steps; a replayed window's busy share; peak
+    memory at K = 1 and K = WINDOW_K.  Returns what the parent checks."""
+    import copy
+
+    import torch
+
+    from gfnerf_tpu_torch.data.pixel_samplers import PixelSampler
+    from gfnerf_tpu_torch.fields.field import STAGE_INIT
+    from gfnerf_tpu_torch.model_components.losses import s3im_permutations
+    from gfnerf_tpu_torch.models.gfnerf import (TrainState,
+                                                make_multi_train_step,
+                                                window_mode)
+    from gfnerf_tpu_torch.utils.profiling import profile_device
+
+    k = WINDOW_K
+    mcfg, scfg = p.config.model, p.sampler.sampler_config
+    rays = p.config.datamanager.train_num_rays_per_batch
+    r = rays // comm.size
+    mine = slice(comm.rank * r, (comm.rank + 1) * r)
+    keys = ("rel_camera_indices", "coords", "image")
+    n_windows = 3 + 2 * PARALLEL_WINDOW_TIMED + 1
+    sampler = PixelSampler(rays, seed=4321)
+    union = [sampler.sample(p.datamanager.init_cache)
+             for _ in range(n_windows * k)]
+    fines = [p.sampler.fineness(k + i) for i in range(k)]
+
+    def staged(i, rows):
+        batches, fine, _ = p._stage_window(
+            [{key: b[key][rows] for key in keys}
+             for b in union[i * k:(i + 1) * k]], fines, None)
+        return batches, fine
+
+    windows = [staged(i, mine) for i in range(n_windows)]
+    gen = torch.Generator(device=p.device).manual_seed(97)   # every rank
+
+    def draws():
+        return {"noise": torch.rand((k, rays, scfg.max_samples),
+                                    generator=gen, device=p.device) + 0.5,
+                "s3im_perms": torch.stack([s3im_permutations(
+                    rays, mcfg.s3im_repeat_time, generator=gen,
+                    device=p.device) for _ in range(k)])}
+
+    def state_copy():
+        return (TrainState(field=copy.deepcopy(p.field),
+                           opt_state=copy.deepcopy(p.state.opt_state),
+                           step=p.state.step),
+                copy.deepcopy(p.sampler.oct_dev))
+
+    def sync():
+        if p.device.type == "cuda":
+            torch.cuda.synchronize()
+
+    dp = make_multi_train_step(mcfg, scfg, p.tx, STAGE_INIT, k, comm)
+    mode = window_mode(p.device, comm)
+
+    # the same draws, eager twice and captured
+    d0 = draws()
+    es, eo = state_copy()
+    es, eo, em, _ = dp(es, eo, p.cameras_dev, *windows[0], draws=d0,
+                       graph=False)
+    es2, eo2 = state_copy()
+    es2, eo2, em2, _ = dp(es2, eo2, p.cameras_dev, *windows[0], draws=d0,
+                          graph=False)
+    eager_spread = _params_apart(es2.field, es.field)
+    del es2, eo2
+    gs, go = state_copy()
+    with _recorded_updates(p.tx) as rec:
+        gs, go, gm, _ = dp(gs, go, p.cameras_dev, *windows[0], draws=d0)
+    dp_grads = rec.grads
+    sync()
+    out = {"mode": mode, "captures": dp.captures,
+           "eager_losses": em["loss"].tolist(),
+           "eager2_losses": em2["loss"].tolist(),
+           "eager_vs_eager": eager_spread,
+           "graph_losses": gm["loss"].tolist(),
+           "graph_vs_eager": _params_apart(gs.field, es.field)}
+    # every rank's state after the captured window
+    opt = gs.opt_state
+    out["digest"] = {
+        "params": parallel_tensor_sums(
+            [v for _, v in sorted(gs.field.state_dict().items())]),
+        "opt": parallel_tensor_sums(
+            [x for part in (opt.mu, opt.nu) for _, xs in sorted(part.items())
+             for x in xs if x is not None]
+            + [torch.as_tensor(getattr(opt, n), device=p.device) for n in
+               ("count", "total_notfinite", "last_finite")]),
+        "octree": parallel_tensor_sums([getattr(go, n) for n in (
+            "weight_stats", "alpha_stats", "visit_cnt", "trans_idx")])}
+
+    # one process on the union batch (rank 0), from the same draws
+    if comm.rank == 0:
+        one = make_multi_train_step(mcfg, scfg, p.tx, STAGE_INIT, k)
+        os_, oo = state_copy()
+        with _recorded_updates(p.tx) as rec:
+            os_, oo, om, _ = one(os_, oo, p.cameras_dev,
+                                 *staged(0, slice(None)), draws=d0)
+        sync()
+        errs = {}
+        for g, want in rec.grads.items():
+            want = [x for x in want if x is not None]
+            if not want:
+                continue
+            got = [x for x in dp_grads[g] if x is not None]
+            scale = max(float(x.abs().max()) for x in want)
+            tol = (PARALLEL_BF16_GRAD_TOL if g == "fields"
+                   and p.field_cfg.mlp_dtype == "bfloat16"
+                   else PARALLEL_GRAD_TOL)
+            errs[g] = {"max_abs_err": max(float((a - b).abs().max())
+                                          for a, b in zip(got, want)),
+                       "largest": scale, "tol": tol}
+        out.update(one_losses=om["loss"].tolist(), grad_errs=errs,
+                   one_vs_dp=_params_apart(gs.field, os_.field),
+                   one_vs_eager=_params_apart(es.field, os_.field))
+        one.reset()
+        del os_, oo, one
+    del es, eo
+    comm.barrier()
+
+    # the collectives of one eager step against a replayed window's
+    step_fn = p._train_step[STAGE_INIT]
+    b1, f1 = windows[1]
+    d1 = draws()
+
+    def eager_step(i=0):
+        nonlocal gs, go
+        gs, go, _, _ = step_fn(gs, go, p.cameras_dev,
+                               {key: v[i] for key, v in b1.items()},
+                               f1[i], noise=d1["noise"][i],
+                               s3im_perms=d1["s3im_perms"][i])
+
+    def window(i, graph=True):
+        nonlocal gs, go
+        b, f = windows[i]
+        gs, go, _, _ = dp(gs, go, p.cameras_dev, b, f, draws=draws(),
+                          graph=graph)
+
+    with _counted_collectives(comm) as cc:
+        eager_step()
+    sync()
+    out["eager_step_collective_calls"] = cc.calls
+    traced = {}
+    if comm.rank == 0 and p.device.type == "cuda":
+        traced["eager_step"] = nccl_kernels(profile_device(eager_step))
+        win_s = []
+
+        def timed_window():
+            t0 = time.perf_counter()
+            window(2)
+            sync()
+            win_s.append(time.perf_counter() - t0)
+
+        prof = profile_device(timed_window)
+        traced["replayed_window"] = nccl_kernels(prof)
+        out.update(window_device_busy_ms=prof["device_busy_ms"],
+                   profiled_window_s=win_s[0],
+                   window_busy_share=prof["device_busy_ms"]
+                   / (win_s[0] * 1e3))
+    else:
+        eager_step()
+        window(2)
+    sync()
+    out["traced_nccl_kernels"] = traced
+
+    # timed in turns: captured windows, eager windows, single steps
+    turns = {"k8_graph": [], "k8_eager": [], "k1": [], "peak_k8": [],
+             "peak_k8_eager": [], "peak_k1": []}
+
+    def peak():
+        if p.device.type != "cuda":
+            return [0, 0]
+        return [torch.cuda.max_memory_allocated(),
+                torch.cuda.max_memory_reserved()]
+
+    def reset_peak():
+        sync()
+        if p.device.type == "cuda":
+            torch.cuda.reset_peak_memory_stats()
+
+    for t in range(PARALLEL_WINDOW_TIMED):
+        for name, graph in (("k8_graph", True), ("k8_eager", False)):
+            reset_peak()
+            t0 = time.perf_counter()
+            window(3 + 2 * t + (not graph), graph)
+            sync()
+            turns[name].append((time.perf_counter() - t0) / k)
+            turns["peak_k8" if graph else "peak_k8_eager"].append(peak())
+        reset_peak()
+        t0 = time.perf_counter()
+        for i in range(k):
+            eager_step(i)
+        sync()
+        turns["k1"].append((time.perf_counter() - t0) / k)
+        turns["peak_k1"].append(peak())
+    out.update(turns)
+    out["captures_after"] = dp.captures
+    dp.reset()
+    del gs, go
+    if p.device.type == "cuda":
+        torch.cuda.empty_cache()
+    comm.barrier()
+    return out
+
+
+def parallel_window_rank(rank, world, port, out, backend, scene):
+    """One rank of the NCCL window leg, launched as
+    ``torch.distributed.run`` launches ``gfnerf_tpu_torch.train``
+    gf-nerf-perf at K = WINDOW_K (its environment, then
+    ``train.build_trainer``): ``parallel_window_checks``, then the
+    Trainer's PARALLEL_WINDOW_STEPS steps, each window timed; writes what
+    it saw to OUT/rank{rank}.pt.  A rank still running a minute before
+    the parent's deadline prints its threads' stacks and exits."""
+    import faulthandler
+    import os
+
+    faulthandler.dump_traceback_later(PARALLEL_WINDOW_JOIN_S - 60.0,
+                                      exit=True)
+    sys.path.insert(0, str(REPO))
+    os.environ.update(RANK=str(rank), WORLD_SIZE=str(world),
+                      LOCAL_RANK=str(rank), LOCAL_WORLD_SIZE=str(world),
+                      MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port))
+    import torch
+
+    from gfnerf_tpu_torch.parallel import comm as pcomm
+    from gfnerf_tpu_torch.train import build_trainer
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    argv = ["gf-nerf-perf", "--data", scene, "--output-dir",
+            str(Path(out) / "runs"), "--experiment-name", "parallel_window",
+            "--dist-backend", backend,
+            "--dist-timeout", str(PARALLEL_WINDOW_GROUP_TIMEOUT),
+            "--max-num-iterations", str(PARALLEL_WINDOW_STEPS),
+            *[f"{k}={v}" for k, v in PARALLEL_WINDOW_OVERRIDES.items()]]
+    try:
+        t0 = time.perf_counter()
+        trainer = build_trainer(argv)
+        p, comm = trainer.pipeline, trainer.comm
+        rec = {"setup_s": time.perf_counter() - t0, "backend": comm.backend,
+               "world": comm.size, "n_block_axis": p.n_block_axis,
+               "device": str(p.device),
+               "checks": parallel_window_checks(p, comm), "steps": {}}
+        get_loss = p.get_train_loss_dict
+
+        def get_loss_w(step):
+            before = _rank_counts()
+            t = time.perf_counter()
+            m = get_loss(step)
+            now = _rank_counts()
+            rec["steps"][step] = {"s": time.perf_counter() - t,
+                                  "loss": m["loss"],
+                                  "launches": {n: now[n] - before[n]
+                                               for n in now}}
+            return m
+
+        p.get_train_loss_dict = get_loss_w
+        t0 = time.perf_counter()
+        trainer.train()
+        rec.update(train_s=time.perf_counter() - t0,
+                   windows=(p._k_steps_scanned, p._k_steps_fallback),
+                   captures=sum(fn.captures
+                                for fn in p._multi_step_fns.values()),
+                   end=parallel_digest(p))
+        torch.save(rec, Path(out) / f"rank{rank}.pt")
+        t0 = time.perf_counter()
+        pcomm.shutdown()
+        log(f"[parallel window] rank {rank}: the group left in "
+            f"{time.perf_counter() - t0:.2f}s")
+    except BaseException:
+        import traceback
+
+        log(f"[parallel window] rank {rank} failed:\n"
+            f"{traceback.format_exc()}")
+        raise
+    finally:
+        pcomm.shutdown()
+
+
+def check_parallel_window(ranks: list, table_grad_calls: int) -> dict:
+    """The checks of the NCCL window leg's ranks (see
+    ``parallel_window_checks``), after its figures are logged; returns
+    them."""
+    import numpy as np
+
+    world = len(ranks)
+    backend = ranks[0]["backend"]
+    tag = f"[parallel window {backend} x{world}]"
+    k = WINDOW_K
+    c0 = ranks[0]["checks"]
+    got, want, one = c0["graph_losses"], c0["eager_losses"], \
+        c0["one_losses"]
+    errs = c0["grad_errs"]
+    calls = {rk["checks"]["eager_step_collective_calls"] for rk in ranks}
+    traced = c0["traced_nccl_kernels"]
+    steps = range(PARALLEL_WINDOW_STEPS)
+    window_s = [[rk["steps"][s]["s"] for s in range(0, len(steps), k)]
+                for rk in ranks]
+
+    st = {"world": world, "backend": backend,
+          "setup_s": ranks[0]["setup_s"],
+          "s_per_step_k8_graph": c0["k8_graph"],
+          "s_per_step_k8_eager": c0["k8_eager"], "s_per_step_k1": c0["k1"],
+          "window_busy_share": c0.get("window_busy_share"),
+          "window_device_busy_ms": c0.get("window_device_busy_ms"),
+          "profiled_window_s": c0.get("profiled_window_s"),
+          "peak_k8": [rk["checks"]["peak_k8"] for rk in ranks],
+          "peak_k8_eager": [rk["checks"]["peak_k8_eager"] for rk in ranks],
+          "peak_k1": [rk["checks"]["peak_k1"] for rk in ranks],
+          "grad_errs": errs, "losses_graph": got, "losses_eager": want,
+          "losses_eager2": c0["eager2_losses"], "losses_one": one,
+          "graph_vs_eager": c0["graph_vs_eager"],
+          "eager_vs_eager": c0["eager_vs_eager"],
+          "one_vs_graph": c0["one_vs_dp"],
+          "one_vs_eager": c0["one_vs_eager"],
+          "collective_calls_per_step": sorted(calls),
+          "traced_nccl_kernels": traced, "trainer_window_s": window_s,
+          "trainer_train_s": [rk["train_s"] for rk in ranks],
+          "trainer_windows": [rk["windows"] for rk in ranks],
+          "trainer_captures": [rk["captures"] for rk in ranks]}
+    gib = 2.0 ** 30
+    eager_peaks = st["peak_k8_eager"]
+    log(f"{tag} captured against eager, the same draws: losses {got} vs "
+        f"{want} (a second eager window {c0['eager2_losses']}), parameters "
+        f"apart {c0['graph_vs_eager']} (two eager windows "
+        f"{c0['eager_vs_eager']}); "
+        f"against one process on the union batch: losses {one}, gradients"
+        f" of the first step " + ", ".join(
+            f"{g} {e['max_abs_err']:.3g} / {e['largest']:.3g} (limit "
+            f"{e['tol']} of the largest)" for g, e in errs.items())
+        + f", parameters after {k} steps apart {c0['one_vs_dp']} (the "
+        f"eager window's {c0['one_vs_eager']}); "
+        f"collectives a step: {sorted(calls)} calls eager, NCCL kernels "
+        f"traced {traced}")
+    log(f"{tag} s/step at world {world}: K={k} captured {c0['k8_graph']}, "
+        f"K={k} eager {c0['k8_eager']}, K=1 {c0['k1']}; a replayed window "
+        f"{c0.get('profiled_window_s')} s, device busy "
+        f"{c0.get('window_device_busy_ms')} ms (share "
+        f"{c0.get('window_busy_share')}, NCCL's waits included); peak GiB "
+        f"allocated / reserved per rank: K={k} captured "
+        f"{[[round(x / gib, 3) for x in v[-1]] for v in st['peak_k8']]}, "
+        f"eager {[[round(x / gib, 3) for x in v[-1]] for v in eager_peaks]}"
+        f", "
+        f"K=1 {[[round(x / gib, 3) for x in v[-1]] for v in st['peak_k1']]}"
+        f"; the Trainer: steps in windows and single "
+        f"{st['trainer_windows']}, captures {st['trainer_captures']}, "
+        f"rank 0's windows {[round(x, 4) for x in window_s[0]]} s")
+
+    want_mode = "graph" if backend == "nccl" else "eager"
+    for rk in ranks:
+        c = rk["checks"]
+        if rk["n_block_axis"] != 1 or rk["world"] != world:
+            raise AssertionError(f"{tag} the grid: world {rk['world']}, "
+                                 f"block axis {rk['n_block_axis']}")
+        if c["mode"] != want_mode or (want_mode == "graph"
+                                      and c["captures"] != 1):
+            raise AssertionError(f"{tag} a window ran {c['mode']} with "
+                                 f"{c['captures']} captures")
+    # captured against eager, the same draws
+    if got[0] != want[0]:
+        raise AssertionError(f"{tag} the first step's loss {got[0]!r} "
+                             f"captured, {want[0]!r} eager")
+    np.testing.assert_allclose(got, want, rtol=WINDOW_LOSS_RTOL,
+                               err_msg=f"{tag} captured vs eager losses")
+    for what, apart, spread in (
+            ("captured vs eager", c0["graph_vs_eager"],
+             c0["eager_vs_eager"]),
+            ("against one process", c0["one_vs_dp"], c0["one_vs_eager"])):
+        for name, (share, big) in apart.items():
+            if share > spread[name][0] + WINDOW_SHARE or big > WINDOW_MAX:
+                raise AssertionError(
+                    f"{tag} {what}: {name}: {share:.4g} of entries apart "
+                    f"(the eager reference {spread[name][0]:.4g}), at most "
+                    f"{big:.4g}")
+    # every rank bit-identical after the window
+    for part in ("params", "opt", "octree"):
+        if len({json.dumps(rk["checks"]["digest"][part])
+                for rk in ranks}) != 1:
+            raise AssertionError(f"{tag} the ranks' {part} differ after "
+                                 "the captured window")
+    if any(rk["checks"]["graph_losses"] != got for rk in ranks):
+        raise AssertionError(f"{tag} the ranks' window losses differ")
+    # against one process on the union batch, after the first step
+    if abs(got[0] - one[0]) > PARALLEL_LOSS_RTOL * abs(one[0]):
+        raise AssertionError(f"{tag} the first step's loss {got[0]!r} "
+                             f"against one process's {one[0]!r}")
+    bad = [g for g, e in errs.items()
+           if not (e["largest"] > 0
+                   and e["max_abs_err"] <= e["tol"] * e["largest"])]
+    if bad:
+        raise AssertionError(f"{tag} the first step's gradients against "
+                             f"one process: {errs}")
+    # the collectives: an eager step's calls and NCCL kernels, a replayed
+    # window's NCCL kernels per step
+    if len(calls) != 1 or (traced and not (
+            traced["eager_step"] == next(iter(calls))
+            and traced["replayed_window"] == k * traced["eager_step"])):
+        raise AssertionError(f"{tag} collectives: an eager step calls "
+                             f"{calls}, its trace and a replayed "
+                             f"window's hold {traced} NCCL kernels")
+    # the Trainer's windows
+    for rk in ranks:
+        if rk["windows"] != (PARALLEL_WINDOW_STEPS, 0) or (
+                want_mode == "graph" and rk["captures"] != 1):
+            raise AssertionError(f"{tag} the Trainer: steps in windows and "
+                                 f"single {rk['windows']}, captures "
+                                 f"{rk['captures']}")
+        launched = {n: sum(rk["steps"][s]["launches"][n] for s in steps)
+                    for n in rk["steps"][0]["launches"]}
+        want_l = {"composite_fwd": 1, "composite_bwd": 1,
+                  "packed_hash_fwd": 1, "packed_hash_bwd": table_grad_calls,
+                  "packed_hash_bwd_calls": 1}
+        want_l = {n: PARALLEL_WINDOW_STEPS * want_l.get(n, 0)
+                  for n in launched}
+        if launched != want_l:
+            raise AssertionError(f"{tag} the Trainer's launches {launched},"
+                                 f" expected {want_l}")
+    losses = [ranks[0]["steps"][s]["loss"] for s in steps]
+    if not np.all(np.isfinite(losses)) or any(
+            [rk["steps"][s]["loss"] for s in steps] != losses
+            for rk in ranks):
+        raise AssertionError(f"{tag} the Trainer's losses {losses}")
+    ends = [rk["end"] for rk in ranks]
+    for key in ("frozen", "octree", "blocks"):
+        if len({json.dumps(e[key]) for e in ends}) != 1:
+            raise AssertionError(f"{tag} the Trainer's {key} differ "
+                                 "between ranks")
+    return st
+
+
+def phase_parallel_window(tmp: Path, backend: str = "nccl"):
+    """The NCCL window leg alone (``--only parallel-window``): on a machine
+    of 2 or more cards ``parallel_window_world`` ranks, a card each (see
+    ``parallel_window_checks`` and ``check_parallel_window``); on one card
+    it prints that it was not run and why."""
+    from types import SimpleNamespace
+
+    import torch
+
+    from gfnerf_tpu_torch.configs.method_configs import get_method
+    from gfnerf_tpu_torch.utils.synthetic import make_synthetic_npz
+
+    launches = {name: 0 for name in launch_counts()}
+    cards = torch.cuda.device_count()
+    world = parallel_window_world(cards)
+    if not world:
+        log(f"[parallel window] NCCL: not run ({cards} card(s); it needs a "
+            "card per rank, 2 or more)")
+        return launches, {"run": False, "cards": cards}
+    scene = tmp / "scene"
+    if not (scene / "train.npz").exists():
+        make_synthetic_npz(scene, n_train=48, n_val=4, img_wh=(96, 72))
+    fields = get_method("gf-nerf-perf").pipeline
+    t0 = time.perf_counter()
+    ranks = spawn_ranks(parallel_window_rank, tmp / "parallel_window",
+                        scene, backend, world, PARALLEL_WINDOW_JOIN_S,
+                        "parallel window")
+    wall = time.perf_counter() - t0
+    st = check_parallel_window(ranks, table_grad_launches(
+        {"fcfg": SimpleNamespace(num_levels=fields.field_num_levels,
+                                 features_per_level=(
+                                     fields.field_features_per_level))}))
+    st.update(run=True, cards=cards, ranks_wall_s=wall)
+    for rk in ranks:
+        for s in rk["steps"].values():
+            for n, v in s["launches"].items():
+                if n in launches:
+                    launches[n] += v
+    log(f"[parallel window] {world} ranks in {wall:.1f}s")
+    return launches, st
 
 
 QUALITY_INIT_STEPS = 200
@@ -9754,6 +10550,32 @@ def phase_midscale(tmp: Path):
     return launches, stats
 
 
+def start_beside(phase, *args):
+    """Start ``phase(*args)`` on a thread of its own, beside what the
+    caller runs next; returns ``join()``, which waits for it and returns
+    its result or raises its error."""
+    import threading
+
+    box = {}
+
+    def run():
+        try:
+            box["out"] = phase(*args)
+        except BaseException as e:   # raised again by join()
+            box["err"] = e
+
+    thread = threading.Thread(target=run, name=phase.__name__, daemon=True)
+    thread.start()
+
+    def join():
+        thread.join()
+        if "err" in box:
+            raise box["err"]
+        return box["out"]
+
+    return join
+
+
 def main() -> int:
     if not (REPO / "gfnerf_tpu_torch").is_dir():
         print("chip_smoke: gfnerf_tpu_torch/ not found beside this script",
@@ -9847,13 +10669,17 @@ def main() -> int:
         paths["tools"], stats["tools"] = phase_tools(Path(tmp))
         clock("tools")
         torch.cuda.empty_cache()
-        paths["parallel"], stats["parallel"] = phase_parallel(Path(tmp))
-        clock("parallel")
-        torch.cuda.empty_cache()
-        paths["quality"], stats["quality"] = phase_quality(Path(tmp))
-        clock("quality")
-        torch.cuda.empty_cache()
-        paths["midscale"], stats["midscale"] = phase_midscale(Path(tmp))
+        # the mid-scale run's processes train beside the parallel and
+        # quality phases (their seconds are taken with it running)
+        midscale = start_beside(phase_midscale, Path(tmp))
+        try:
+            paths["parallel"], stats["parallel"] = phase_parallel(Path(tmp))
+            clock("parallel")
+            torch.cuda.empty_cache()
+            paths["quality"], stats["quality"] = phase_quality(Path(tmp))
+            clock("quality")
+        finally:
+            paths["midscale"], stats["midscale"] = midscale()
     clock("midscale")
     fast, scan = stats["pipeline"], stats["scan"]
     log(f"[scan] gf-nerf-perf through the Trainer, the scan (M1) against "
@@ -9947,8 +10773,9 @@ def main_only(names) -> int:
     """``--only pipeline,nerfacto,...``: the device and the build, then the
     named phases of the temp-dir family (pipeline, gfnerf, prop, nerfacto,
     semantics, instant-ngp, scan, stock, nerfplayer, captures, tools,
-    capture-variants, parallel, quality, midscale; and jpeg, the codec
-    alone; nerfacto, semantics
+    capture-variants, parallel, parallel-window (its NCCL window leg
+    alone), quality, midscale; and jpeg, the codec alone; nerfacto,
+    semantics
     and tools need the
     pipeline phase's scene and checkpoint, parallel writes the scene when
     the pipeline phase did not run,
@@ -9973,7 +10800,8 @@ def main_only(names) -> int:
               "capture-variants": phase_capture_variants,
               "tools": phase_tools, "parallel": phase_parallel,
               "quality": phase_quality, "midscale": phase_midscale,
-              "window": phase_window, "jpeg": phase_jpeg}
+              "window": phase_window, "jpeg": phase_jpeg,
+              "parallel-window": phase_parallel_window}
     unknown = set(names) - set(phases)
     if unknown:
         print(f"chip_smoke: unknown phases {sorted(unknown)}",

@@ -235,7 +235,10 @@ def _chunked(n_chunks: int, fn, *args):
     recomputed in the backward.  ``fn`` returns a tuple of tensors (or
     None) or a dict of them in its last place; the chunks' results are
     concatenated."""
-    outs = [checkpoint(fn, *parts, use_reentrant=False)
+    # exact: the field draws no random numbers (the march noise and S3IM's
+    # permutations come first); a CUDA graph's capture may not read them
+    outs = [checkpoint(fn, *parts, use_reentrant=False,
+                       preserve_rng_state=False)
             for parts in zip(*(a.chunk(n_chunks) for a in args))]
 
     def cat(xs):
@@ -926,6 +929,20 @@ class _StepGraph:
         self.counts = []
 
 
+def window_mode(device: torch.device, comm=None, graph: bool = True) -> str:
+    """How :func:`make_multi_train_step` runs a window of steps on
+    ``device`` over ``comm`` (None: one process): "graph" (one CUDA graph
+    of the step, replayed) on a card alone or over NCCL ranks; "eager"
+    (the steps one by one) on the CPU, over gloo, which stages CUDA
+    tensors through the host where a graph cannot follow, or when the
+    caller asks (``graph=False``)."""
+    if not graph or torch.device(device).type != "cuda":
+        return "eager"
+    if comm is None or comm.backend == "nccl":
+        return "graph"
+    return "eager"
+
+
 def make_multi_train_step(model_cfg: GFNeRFModelConfig,
                           sampler_cfg: SamplerConfig, tx: PerGroupAdam,
                           stage: int, n_steps: int, comm=None):
@@ -959,20 +976,27 @@ def make_multi_train_step(model_cfg: GFNeRFModelConfig,
     kept a function: a new key captures anew (``multi_step.captures``
     counts the captures; the capture first hands the card's cached free
     blocks back, so that neither a dropped graph's pool nor the warm-up
-    step's freed memory stays reserved beside the new graph's pool).  A capture or a replay that
-    fails raises; nothing falls back to eager steps.  The launch counters
-    count the captured launches once per replay.  With ``comm`` (the
-    data-parallel step over several ranks) the steps run eagerly: the
-    collectives are not captured.
+    step's freed memory stays reserved beside the new graph's pool).  The
+    capture runs in thread-local mode: CUDA calls of other threads (the
+    process group's watchdog querying its events) do not void it.  A capture or a replay that fails raises; nothing falls back to
+    eager steps.  The launch counters count the captured launches once per
+    replay.
+
+    With ``comm`` (the data-parallel step over several ranks) under NCCL
+    the graph holds the step's collectives too (the gradient buckets, the
+    empty-space count, the metric sums, S3IM's gather, the occupancy
+    maxima), issued on every rank in one order; the warm-up step creates
+    the communicator's state.  A replayed collective is not timed by the
+    process group's watchdog: the window waits for its last replay at most
+    the group's timeout (``comm.wait_bounded``) and raises past it;
+    ``comm.shutdown`` then aborts the communicators, and otherwise drops
+    the kept graph before it destroys the process group.  Under
+    gloo, which stages CUDA tensors through the host, the steps run
+    eagerly (:func:`window_mode`).
 
     ``remat_chunks`` > 0 recomputes the field in the backward through
-    ``torch.utils.checkpoint``, whose random-state stash a capture does
-    not allow: with more than one step a call it raises."""
-    if n_steps > 1 and model_cfg.remat_chunks > 0:
-        raise ValueError(
-            f"steps_per_dispatch={n_steps} replays the step as a CUDA graph "
-            f"and remat_chunks={model_cfg.remat_chunks} checkpoints the "
-            "field, which a capture does not allow: set one of them off")
+    ``torch.utils.checkpoint`` without stashing the random state (the
+    field draws none), which a capture allows."""
     step_fn = make_train_step(model_cfg, sampler_cfg, tx, stage, comm)
     cache = {"graph": None}
 
@@ -1021,7 +1045,10 @@ def make_multi_train_step(model_cfg: GFNeRFModelConfig,
                 g.graph.register_generator_state(generator)
             counters = launch_counters()
             before = [getattr(o, a) for o, a in counters]
-            with torch.cuda.graph(g.graph, stream=side):
+            # thread_local: CUDA calls of other threads (NCCL's watchdog
+            # querying its events) do not void the capture
+            with torch.cuda.graph(g.graph, stream=side,
+                                  capture_error_mode="thread_local"):
                 st, od, m2, err2 = step_fn(
                     state, oct_dev, cameras, inputs["batch"],
                     inputs["fineness"], generator=generator,
@@ -1060,10 +1087,10 @@ def make_multi_train_step(model_cfg: GFNeRFModelConfig,
         if finenesses.shape != (n_steps,):
             raise ValueError(f"finenesses {tuple(finenesses.shape)} for "
                              f"{n_steps} steps")
-        if (not graph or finenesses.device.type != "cuda"
-                or comm is not None):
+        if window_mode(finenesses.device, comm, graph) == "eager":
             return eager(state, oct_dev, cameras, batches, finenesses,
                          active_block, generator, draws)
+        first_step = state.step
         field = state.field
         table = (None if field.block_feats is None else
                  active_block_table(field, active_block).data_ptr())
@@ -1083,6 +1110,11 @@ def make_multi_train_step(model_cfg: GFNeRFModelConfig,
                 state, oct_dev, cameras, batches, finenesses, active_block,
                 generator, draws, key)
             cache["graph"] = g
+            if comm is not None and not multi_step.captures:
+                # its collectives' communicator must outlive the graph
+                from gfnerf_tpu_torch.parallel.comm import before_shutdown
+
+                before_shutdown(reset)
             multi_step.captures += 1
             rows.append(first)
         else:   # the state as the graph's buffers
@@ -1094,6 +1126,13 @@ def make_multi_train_step(model_cfg: GFNeRFModelConfig,
             out[i].copy_(row)
         for i in range(len(rows), n_steps):
             out[i].copy_(replay(g, i, batches, finenesses, draws))
+        if comm is not None:   # the replayed collectives, bounded
+            from gfnerf_tpu_torch.parallel.comm import wait_bounded
+
+            done = torch.cuda.Event()
+            done.record()
+            wait_bounded(done, comm, f"the window of steps {first_step}-"
+                         f"{first_step + n_steps - 1}")
         replays = n_steps - len(rows)
         for (o, a), n in zip(launch_counters(), g.counts):
             setattr(o, a, getattr(o, a) + n * replays)

@@ -10,13 +10,20 @@ backends differ here alone:
 
 A group of size 1 runs no collective.  Every collective waits at most the
 group's timeout (``init_process_group``'s and ``new_group``'s), so a lost
-rank fails the run instead of hanging it.
+rank fails the run instead of hanging it.  Collectives replayed from a CUDA
+graph escape the process group's watchdog: :func:`wait_bounded` holds the
+host's wait for them to the same timeout.  Such a graph is dropped before
+the group is destroyed (:func:`before_shutdown`); after a wait that timed
+out, :func:`shutdown` aborts the communicators instead, since the replayed
+kernels still wait on the card for the lost rank.
 """
 
 from __future__ import annotations
 
 import datetime
 import os
+import time
+import weakref
 from typing import Optional, Sequence
 
 import torch
@@ -27,6 +34,10 @@ _BACKENDS = ("nccl", "gloo")
 
 # the world group of this process, once initialize_multihost() has run
 _WORLD: Optional["Comm"] = None
+# weak references to what shutdown() calls before it destroys the group
+_BEFORE_SHUTDOWN: list = []
+# what wait_bounded gave up on: shutdown() aborts the communicators then
+_TIMED_OUT: list = []
 
 
 class Comm:
@@ -113,6 +124,30 @@ class Comm:
         self.all_reduce(torch.zeros(1, device=self.device))
 
 
+# seconds between two polls of wait_bounded's event
+POLL_S = 1e-4
+
+
+def wait_bounded(event, comm: Comm, what: str) -> None:
+    """Wait until ``event`` (a ``torch.cuda.Event`` recorded after work
+    that holds ``comm``'s collectives, or anything with ``query()``) has
+    completed, polling it for at most the group's timeout: the process
+    group's watchdog does not time collectives replayed from a CUDA graph,
+    so a lost rank would otherwise hang the host's next copy for good.
+    Raises TimeoutError naming ``what``, the group's ranks and the
+    timeout; :func:`shutdown` then aborts the communicators."""
+    limit = comm.timeout.total_seconds()
+    start = time.monotonic()
+    while not event.query():
+        if time.monotonic() - start > limit:
+            _TIMED_OUT.append(what)
+            raise TimeoutError(
+                f"{what}: not done after the group's timeout of {limit:g} s;"
+                f" a rank of {list(comm.ranks)} did not take part in its "
+                "collectives")
+        time.sleep(POLL_S)
+
+
 def world() -> Optional[Comm]:
     """The world group :func:`initialize_multihost` set up, if it has more
     than one
@@ -168,9 +203,37 @@ def initialize_multihost(init_method: Optional[str] = None,
     return _WORLD
 
 
+def before_shutdown(fn) -> None:
+    """Have :func:`shutdown` call ``fn()`` before it destroys the process
+    group, if ``fn`` is alive then (it is held weakly): a CUDA graph that
+    holds a communicator's collectives is dropped this way before the
+    communicator goes."""
+    _BEFORE_SHUTDOWN.append(weakref.ref(fn))
+
+
 def shutdown() -> None:
-    """Leave the process group (a no-op without one)."""
+    """Leave the process group (a no-op without one), after the calls
+    :func:`before_shutdown` registered.  After a :func:`wait_bounded` that
+    timed out under NCCL, abort every communicator instead: its replayed
+    kernels still wait on the card for the lost rank, so neither dropping
+    their graph nor a synchronize nor a graceful destroy would return, and
+    the abort ends them."""
     global _WORLD
+    if _TIMED_OUT and _WORLD is not None and _WORLD.backend == "nccl":
+        _BEFORE_SHUTDOWN.clear()
+        _TIMED_OUT.clear()
+        if dist.is_initialized():
+            dist.distributed_c10d._abort_process_group()
+        _WORLD = None
+        return
+    _TIMED_OUT.clear()
+    for ref in _BEFORE_SHUTDOWN:
+        fn = ref()
+        if fn is not None:
+            fn()
+    _BEFORE_SHUTDOWN.clear()
     if dist.is_initialized():
+        if _WORLD is not None and _WORLD.backend == "nccl":
+            torch.cuda.synchronize()   # no dropped graph's replay runs on
         dist.destroy_process_group()
     _WORLD = None

@@ -54,8 +54,9 @@ one split, no milestone at or before its last step, no compaction step in
 it, not the concurrent focal step), ``get_train_loss_dict`` draws the K
 batches first, stages them and the K finenesses (and injected draws) on
 the device in one host-to-device copy, trains the K steps through
-``make_multi_train_step`` (on the card one CUDA graph replayed K times;
-over several ranks K eager data-parallel steps) and reads the K metric
+``make_multi_train_step`` (on the card one CUDA graph replayed K times,
+over NCCL ranks with the data-parallel step's collectives inside it; over
+gloo ranks and on the CPU K eager steps) and reads the K metric
 rows, and at the focal stage the K error vectors, back in one copy; the
 error maps take the K vectors in step order after the window, so that a
 window's later batches are drawn from maps up to K - 1 steps stale, as in

@@ -9,7 +9,9 @@ optimizer state a window needs (device tensors, no host wait).
   reaches it, and no window holds one).
 - A window of 4 init-stage steps equals 4 single steps of the port from
   the same draws, bit for bit: the metrics, the error vectors, every
-  parameter, Adam's state and the octree's statistics.
+  parameter, Adam's state and the octree's statistics.  So does a window
+  of ``make_multi_train_step`` at ``remat_chunks`` 2 (the field
+  recomputed in the backward), which reads and moves no random state.
 - The optimizer: a step with a non-finite gradient changes no parameter,
   moment or count and counts itself; the learning-rate tables equal
   ``schedules[name](c)`` at every count c and the bias corrections the
@@ -32,7 +34,8 @@ optimizer state a window needs (device tensors, no host wait).
   2e-2) but the block tables, which both splits train at lr 5e-3, to at
   most 15% and 3e-2 (the proposal pipeline test's bound: three steps of
   the largest learning rate; measured 11.0% and 0.0212, at K = 1 8.1%
-  and 0.0199).
+  and 0.0199).  The same at ``remat_chunks`` 2 in both packages, at the
+  same tolerances.
 """
 
 from __future__ import annotations
@@ -53,6 +56,8 @@ RAYS = 128
 PATCH_H = 8
 STEPS = 30   # gf-nerf-tiny's schedule: 10 init steps, 2 splits of 10
 K = 4
+REMAT = 2    # remat_chunks of the remat runs
+INIT_STEPS = 10   # gf-nerf-tiny's init stage
 
 
 @pytest.fixture(scope="module")
@@ -170,8 +175,13 @@ def test_window_equals_single_steps(scene, tmp_path):
 def test_multi_train_step_errors_equal_single_steps():
     """``make_multi_train_step`` itself on a field and octree of the
     parity helpers: the (K,) metrics and (K, R) errors of a window equal
-    K calls of the single step, bit for bit, and it refuses
-    ``remat_chunks`` with more than one step a call."""
+    K calls of the single step, bit for bit; so does a window at
+    ``remat_chunks`` 2 against single steps at 2 (the window runs its steps
+    eagerly on the CPU), and against the straight window it holds
+    tests/test_remat.py's tolerances: the metrics and errors rtol 1e-5,
+    atol 1e-6, the parameters (after three Adam steps from gradients
+    within rtol 2e-4 of each other) within one step of the largest
+    learning rate (1e-2) of each other for each of the three steps."""
     from gfnerf_tpu_torch.cameras.cameras import Cameras
     from gfnerf_tpu_torch.engine.optimizers import (OptimizersConfig,
                                                     build_optimizer)
@@ -208,39 +218,114 @@ def test_multi_train_step_errors_equal_single_steps():
             out[key] = out[key].long()
         return out
 
-    one_field = copy.deepcopy(field)
-    step = make_train_step(mcfg, scfg, tx, STAGE_INIT)
-    state, oct_dev = init_train_state(one_field, tx), copy.deepcopy(toct)
-    singles = []
-    for i, b in enumerate(batches):
-        state, oct_dev, m, err = step(
-            state, oct_dev, cams, tensors(b), fine[i],
-            noise=torch.as_tensor(noise[i]),
-            s3im_perms=torch.as_tensor(perms[i]).long())
-        singles.append((m, err))
-    multi = make_multi_train_step(mcfg, scfg, tx, STAGE_INIT, 3)
     stacked = {k: torch.stack([tensors(b)[k] for b in batches])
                for k in tensors(batches[0])}
-    wstate, woct, wm, werrs = multi(
-        init_train_state(field, tx), copy.deepcopy(toct), cams, stacked,
-        torch.tensor(fine), draws={
-            "noise": torch.as_tensor(noise),
-            "s3im_perms": torch.as_tensor(perms).long()})
-    assert wstate.step == 3
-    for i, (m, err) in enumerate(singles):
-        assert torch.equal(werrs[i], err)
-        for k, v in m.items():
-            assert torch.equal(wm[k][i], v), (i, k)
-    for a, b in zip(field.parameters(), one_field.parameters()):
-        assert torch.equal(a, b)
-    for k in ("weight_stats", "alpha_stats", "visit_cnt", "trans_idx"):
-        assert torch.equal(getattr(woct, k), getattr(oct_dev, k)), k
-    with pytest.raises(ValueError, match="remat_chunks"):
-        make_multi_train_step(dataclasses.replace(mcfg, remat_chunks=2),
-                              scfg, tx, STAGE_INIT, 3)
-    # one step a call keeps remat
-    make_multi_train_step(dataclasses.replace(mcfg, remat_chunks=2), scfg,
-                          tx, STAGE_INIT, 1)
+
+    def singles_and_window(cfg):
+        """(single steps' (metrics, errors), their octree, their field,
+        the window's (state, octree, metrics, errors), its field)."""
+        one_field, win_field = copy.deepcopy(field), copy.deepcopy(field)
+        step = make_train_step(cfg, scfg, tx, STAGE_INIT)
+        state, oct_dev = init_train_state(one_field, tx), copy.deepcopy(toct)
+        singles = []
+        for i, b in enumerate(batches):
+            state, oct_dev, m, err = step(
+                state, oct_dev, cams, tensors(b), fine[i],
+                noise=torch.as_tensor(noise[i]),
+                s3im_perms=torch.as_tensor(perms[i]).long())
+            singles.append((m, err))
+        multi = make_multi_train_step(cfg, scfg, tx, STAGE_INIT, 3)
+        window = multi(
+            init_train_state(win_field, tx), copy.deepcopy(toct), cams,
+            stacked, torch.tensor(fine), draws={
+                "noise": torch.as_tensor(noise),
+                "s3im_perms": torch.as_tensor(perms).long()})
+        return singles, oct_dev, one_field, window, win_field
+
+    runs = {}
+    for chunks in (0, 2):
+        singles, oct_dev, one_field, window, win_field = \
+            singles_and_window(dataclasses.replace(mcfg,
+                                                   remat_chunks=chunks))
+        wstate, woct, wm, werrs = window
+        assert wstate.step == 3
+        for i, (m, err) in enumerate(singles):
+            assert torch.equal(werrs[i], err)
+            for k, v in m.items():
+                assert torch.equal(wm[k][i], v), (chunks, i, k)
+        for a, b in zip(win_field.parameters(), one_field.parameters()):
+            assert torch.equal(a, b), chunks
+        for k in ("weight_stats", "alpha_stats", "visit_cnt", "trans_idx"):
+            assert torch.equal(getattr(woct, k), getattr(oct_dev, k)), k
+        runs[chunks] = (wm, werrs, win_field)
+    (m0, e0, f0), (m2, e2, f2) = runs[0], runs[2]
+    for k, v in m0.items():
+        np.testing.assert_allclose(m2[k].numpy(), v.numpy(), rtol=1e-5,
+                                   atol=1e-6, err_msg=k)
+    np.testing.assert_allclose(e2.numpy(), e0.numpy(), rtol=1e-5, atol=1e-6)
+    for a, b in zip(f2.parameters(), f0.parameters()):
+        assert float((a - b).detach().abs().max()) <= 3 * 1e-2
+
+
+def test_remat_field_moves_no_random_state(monkeypatch):
+    """One train step at ``remat_chunks`` 2 from injected draws: its
+    forward and backward run the field through ``torch.utils.checkpoint``
+    (counted) and neither read nor set the random state (what a CUDA
+    graph's capture refuses), and the generator's state is the same
+    after as before."""
+    from gfnerf_tpu_torch.cameras.cameras import Cameras
+    from gfnerf_tpu_torch.engine.optimizers import (OptimizersConfig,
+                                                    build_optimizer)
+    from gfnerf_tpu_torch.fields.field import STAGE_INIT
+    from gfnerf_tpu_torch.models import gfnerf as M
+    from gfnerf_tpu_torch.sampler.perssampler import SamplerConfig
+    from torch_parity import IMG_WH
+    from torch_parity import TRAIN_R as R
+    from torch_parity import TRAIN_S as S
+    from torch_parity import TRAIN_SAMPLE_L as SAMPLE_L
+    from torch_parity import field_pair, octree_pair
+    from torch_parity import train_batch as _batch
+    from torch_parity import train_cameras_np as _cameras_np
+
+    _, _, _, field = field_pair(mlp_dtype="float32")
+    _, toct = octree_pair()
+    cams = Cameras.from_numpy(*_cameras_np(), *IMG_WH, device="cpu")
+    mcfg = M.GFNeRFModelConfig(scale_factor=1.0, samples_budget_per_ray=S,
+                               remat_chunks=2)
+    scfg = SamplerConfig(max_samples=S, sample_l=SAMPLE_L)
+    tx = build_optimizer(OptimizersConfig())
+    rng = np.random.default_rng(6)
+    batch = {k: torch.as_tensor(v) for k, v in _batch(seed=0).items()}
+    for key in ("camera_indices", "rel_camera_indices"):
+        batch[key] = batch[key].long()
+    noise = torch.as_tensor(rng.uniform(0.5, 1.5, (R, S)).astype(np.float32))
+    perms = torch.as_tensor(np.stack([rng.permutation(R)
+                                      for _ in range(9)])).long()
+    calls = []
+    checkpoint = M.checkpoint
+
+    def counted(*args, **kw):
+        calls.append(kw)
+        return checkpoint(*args, **kw)
+
+    def refused(*args, **kw):
+        raise AssertionError("the random state was read or set")
+
+    monkeypatch.setattr(M, "checkpoint", counted)
+    step = M.make_train_step(mcfg, scfg, tx, STAGE_INIT)
+    before = torch.get_rng_state().clone()
+    with monkeypatch.context() as m:
+        for name in ("get_rng_state", "set_rng_state"):
+            m.setattr(torch, name, refused)
+            m.setattr(torch.random, name, refused)
+        _, _, metrics, _ = step(M.init_train_state(field, tx), toct, cams,
+                                batch, 1.0, noise=noise, s3im_perms=perms)
+    assert len(calls) == 2
+    assert all(not kw["preserve_rng_state"] for kw in calls)
+    assert np.isfinite(float(metrics["loss"]))
+    assert any(p.grad is not None and bool(p.grad.abs().sum() > 0)
+               for p in field.parameters())
+    assert torch.equal(torch.get_rng_state(), before)
 
 
 # ---- the optimizer a window needs ----
@@ -358,23 +443,68 @@ def test_host_count_checkpoint_loads(scene, tmp_path):
 # ---- the Trainer at K = 4 against the JAX pipeline at K = 4 ----
 
 
-@pytest.fixture(scope="module")
-def jax_ref_k(scene, tmp_path_factory):
+def _jax_ref(scene, out, *extra):
     script = Path(__file__).with_name("torch_pipeline_ref.py")
-    out = tmp_path_factory.mktemp("jax_ref_k4")
     proc = subprocess.run(
         [sys.executable, str(script), str(scene), str(out), str(STEPS),
-         str(RAYS), str(PATCH_H), "anchored", f"k={K}"],
+         str(RAYS), str(PATCH_H), "anchored", f"k={K}", *extra],
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, timeout=900)
     assert proc.returncode == 0, proc.stdout.decode()[-4000:]
     return dict(np.load(out / "ref.npz"))
 
 
+@pytest.fixture(scope="module")
+def jax_ref_k(scene, tmp_path_factory):
+    return _jax_ref(scene, tmp_path_factory.mktemp("jax_ref_k4"))
+
+
+@pytest.fixture(scope="module")
+def jax_ref_k_remat(scene, tmp_path_factory):
+    return _jax_ref(scene, tmp_path_factory.mktemp("jax_ref_k4_remat"),
+                    f"remat={REMAT}")
+
+
 def test_trainer_k4_matches_jax_k4(scene, jax_ref_k, tmp_path):
+    _check_run(_trainer_run(scene, jax_ref_k, tiny_config(
+        scene, tmp_path / "outputs", K)), jax_ref_k)
+
+
+def test_trainer_k4_remat_matches_jax_k4_remat(scene, jax_ref_k,
+                                               jax_ref_k_remat, tmp_path):
+    """The same at ``remat_chunks`` REMAT in both packages (the port's
+    windows recompute the field in the backward as the JAX package's
+    ``jax.checkpoint`` inside its scan does), from the same draws.  XLA:CPU
+    rounds the JAX package's remat run otherwise than its straight run:
+    its error maps move (3.9e-5 at most), and from step 17 on 34 of the
+    focal batches' error-guided rays are drawn otherwise, which moves its
+    block tables as far as the port's are from them (15.3% of entries past
+    1e-4).  So against the JAX remat run the port's batches and losses are
+    held as the straight test holds them up to the step at which that run
+    parts from the JAX straight run (a focal step: the init stage's draws
+    read no error map); and the port's remat run is held to the JAX
+    straight run at every tolerance of ``test_trainer_k4_matches_jax_k4``
+    (the port's remat draws the straight run's batches)."""
+    ref, straight = jax_ref_k_remat, jax_ref_k
+    for key in ("noise", "perms"):
+        np.testing.assert_array_equal(ref[key], straight[key])
+    cfg = tiny_config(scene, tmp_path / "outputs", K)
+    cfg.pipeline.model.remat_chunks = REMAT
+    run = _trainer_run(scene, ref, cfg)
+    same = (ref["indices"] == straight["indices"]).all(axis=(1, 2))
+    first = STEPS if same.all() else int(np.argmin(same))
+    assert first > INIT_STEPS, first
+    np.testing.assert_array_equal(run["batches"][:first],
+                                  ref["indices"][:first])
+    np.testing.assert_allclose(run["losses"][:first], ref["losses"][:first],
+                               rtol=1e-4)
+    _check_run(run, straight)
+
+
+def _trainer_run(scene, ref, cfg) -> dict:
+    """The Trainer over ``cfg`` with ``ref``'s draws: its pipeline, every
+    step's batch indices and (loss, rgb_loss, s3im_loss)."""
     from gfnerf_tpu_torch.engine.trainer import Trainer
 
-    ref = jax_ref_k
-    cfg = tiny_config(scene, tmp_path / "outputs", K)
     trainer = Trainer(cfg, parser_of(scene))
     trainer.setup()
     p = trainer.pipeline
@@ -395,16 +525,21 @@ def test_trainer_k4_matches_jax_k4(scene, jax_ref_k, tmp_path):
     p.datamanager.next_train = recording_next_train
     p.get_train_loss_dict = recording_get_loss
     trainer.train()
+    return {"p": p, "batches": np.stack(batches),
+            "losses": np.asarray([losses[s] for s in range(STEPS)])}
 
+
+def _check_run(run, ref) -> None:
+    """A Trainer run (``_trainer_run``) against a JAX record at K."""
+    p = run["p"]
     assert (p._k_steps_scanned, p._k_steps_fallback) == (
         int(ref["k_scanned"]), int(ref["k_fallback"])) == (20, 10)
     assert p._pending_metrics == {} and int(ref["pending"]) == 0
     assert p.state.step == int(ref["final_step"]) == STEPS
     # every batch, in step order: the focal batches drawn before each
     # window read the same stale error maps in both packages
-    np.testing.assert_array_equal(np.stack(batches), ref["indices"])
-    np.testing.assert_allclose(np.asarray([losses[s] for s in range(STEPS)]),
-                               ref["losses"], rtol=1e-4)
+    np.testing.assert_array_equal(run["batches"], ref["indices"])
+    np.testing.assert_allclose(run["losses"], ref["losses"], rtol=1e-4)
     cache = p.datamanager.split_cache
     np.testing.assert_array_equal(cache.indices, ref["split_cache_indices"])
     np.testing.assert_allclose(cache.error_maps, ref["split_error_maps"],

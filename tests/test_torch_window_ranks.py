@@ -19,9 +19,26 @@ step; the ranks are processes of ``tests/torch_dist_worker.py``, as in
   tensor's entries apart by more than 1e-4, none by more than 2e-2),
   since the ranks' gradient sums round apart from the one process's
   (tests/test_torch_parallel.py holds one step of them to 1e-5).
+- How a window runs (``window_mode``): one CUDA graph on a card alone or
+  over NCCL ranks; eagerly over gloo ranks, on the CPU or when the
+  caller passes ``graph=False``.
+- The bounded wait for a window's replayed collectives
+  (``comm.wait_bounded``): an event that never completes raises past the
+  group's timeout, naming the window's steps, the ranks and the timeout;
+  one that completes returns.
+- ``comm.shutdown`` calls what ``before_shutdown`` registered (a window
+  function's ``reset``, which drops a graph of NCCL collectives) before it
+  destroys the process group, and skips what is gone; after a wait that
+  timed out under NCCL it aborts the communicators and calls, synchronizes
+  and destroys nothing.
 """
 
 from __future__ import annotations
+
+import datetime
+import gc
+import time
+from types import SimpleNamespace
 
 import numpy as np
 import pytest
@@ -103,3 +120,121 @@ def test_window_over_ranks_matches_one_process(rank_runs, scene, tmp_path):
         diff = (ranks["end"][name] - v).abs()
         assert (diff > 1e-4).float().mean() <= 0.1, name
         assert float(diff.max()) <= 2e-2, name
+
+
+# ---- graph or eager, and the bounded wait ----
+
+
+@pytest.mark.parametrize("device, backend, graph, want", [
+    ("cuda", "nccl", True, "graph"),
+    ("cuda", None, True, "graph"),
+    ("cuda", "gloo", True, "eager"),
+    ("cpu", "gloo", True, "eager"),
+    ("cpu", None, True, "eager"),
+    ("cuda", "nccl", False, "eager"),
+    ("cuda", None, False, "eager"),
+])
+def test_window_mode(device, backend, graph, want):
+    from gfnerf_tpu_torch.models.gfnerf import window_mode
+
+    comm = None if backend is None else SimpleNamespace(backend=backend)
+    assert window_mode(torch.device(device), comm, graph) == want
+
+
+class _Event:
+    """A stand-in for a CUDA event: done after ``polls`` queries (None:
+    never)."""
+
+    def __init__(self, polls=None):
+        self.polls, self.queries = polls, 0
+
+    def query(self):
+        self.queries += 1
+        return self.polls is not None and self.queries > self.polls
+
+
+def _comm(timeout_s):
+    return SimpleNamespace(ranks=[0, 1, 2, 3], backend="nccl",
+                           timeout=datetime.timedelta(seconds=timeout_s))
+
+
+def test_window_wait_raises_past_the_timeout(monkeypatch):
+    from gfnerf_tpu_torch.parallel import comm as pcomm
+
+    monkeypatch.setattr(pcomm, "_TIMED_OUT", [])
+    event = _Event()
+    t0 = time.monotonic()
+    with pytest.raises(TimeoutError) as err:
+        pcomm.wait_bounded(event, _comm(0.25), "the window of steps 16-23")
+    waited = time.monotonic() - t0
+    assert 0.25 <= waited < 5.0
+    assert event.queries > 1
+    msg = str(err.value)
+    assert "steps 16-23" in msg and "[0, 1, 2, 3]" in msg and "0.25 s" in msg
+    assert pcomm._TIMED_OUT == ["the window of steps 16-23"]
+
+
+def test_window_wait_returns_when_done(monkeypatch):
+    from gfnerf_tpu_torch.parallel import comm as pcomm
+
+    monkeypatch.setattr(pcomm, "_TIMED_OUT", [])
+    event = _Event(polls=3)
+    pcomm.wait_bounded(event, _comm(5.0), "the window of steps 0-7")
+    assert event.queries == 4
+    assert pcomm._TIMED_OUT == []
+
+
+def test_shutdown_drops_what_registered_first(monkeypatch):
+    from gfnerf_tpu_torch.parallel import comm as pcomm
+
+    order = []
+
+    def drop():
+        order.append("drop")
+
+    def gone():
+        order.append("gone")
+
+    pcomm.before_shutdown(drop)
+    pcomm.before_shutdown(gone)
+    del gone
+    gc.collect()
+    monkeypatch.setattr(pcomm.dist, "is_initialized", lambda: True)
+    monkeypatch.setattr(pcomm.dist, "destroy_process_group",
+                        lambda: order.append("destroy"))
+    pcomm.shutdown()
+    assert order == ["drop", "destroy"]
+    pcomm.shutdown()   # nothing registered any more
+    assert order == ["drop", "destroy", "destroy"]
+
+
+def test_shutdown_after_a_timed_out_wait_aborts(monkeypatch):
+    from gfnerf_tpu_torch.parallel import comm as pcomm
+
+    order = []
+
+    def refused(what):
+        def fn(*a, **k):
+            raise AssertionError(f"{what} after a timed-out wait")
+        return fn
+
+    def drop():
+        order.append("drop")
+
+    monkeypatch.setattr(pcomm, "_TIMED_OUT", [])
+    monkeypatch.setattr(pcomm, "_BEFORE_SHUTDOWN", [])
+    monkeypatch.setattr(pcomm, "_WORLD", _comm(0.1))
+    monkeypatch.setattr(pcomm.dist, "is_initialized", lambda: True)
+    monkeypatch.setattr(pcomm.dist, "destroy_process_group",
+                        refused("destroy_process_group"))
+    monkeypatch.setattr(pcomm.dist.distributed_c10d, "_abort_process_group",
+                        lambda group=None: order.append("abort"))
+    monkeypatch.setattr(pcomm.torch.cuda, "synchronize",
+                        refused("synchronize"))
+    pcomm.before_shutdown(drop)
+    with pytest.raises(TimeoutError):
+        pcomm.wait_bounded(_Event(), pcomm._WORLD, "the window of steps 8-15")
+    pcomm.shutdown()
+    assert order == ["abort"]
+    assert pcomm._WORLD is None and pcomm._TIMED_OUT == []
+    assert pcomm._BEFORE_SHUTDOWN == []

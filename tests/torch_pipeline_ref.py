@@ -6,7 +6,7 @@ mesh, compiles more and is slower; the single-device run is the one-card
 reference).  Usage:
 
   python tests/torch_pipeline_ref.py SCENE_DIR OUT_DIR STEPS RAYS PATCH_H \
-      LAYOUT [diag] [phototourism] [k=K]
+      LAYOUT [diag] [phototourism] [k=K] [remat=N]
 
 Drives ``GFNerfPipeline`` of ``gf-nerf-tiny`` (with LAYOUT's overrides,
 ``FIELD_OVERRIDES``, ``PROP_OVERRIDES`` or ``CLIP_OVERRIDES``, and the port
@@ -26,7 +26,9 @@ Trainer runs it: ``total_train_steps`` = STEPS), and each step's draws
 come from the window's key chain (one split of the pipeline's key a
 window, one split of the window's key a step: pipeline.py:456 and
 gfnerf.py:693-696 of the JAX package); the record adds the counts of
-steps in windows and single steps.  With ``diag``, also
+steps in windows and single steps.  With ``remat=N`` the model
+recomputes its field in the backward in N chunks (``remat_chunks``).
+With ``diag``, also
 ``scripts/quality_run.py``'s ``diag_eval`` after the last step (as JSON,
 ``diag``).  With ``phototourism``, SCENE_DIR is a Phototourism capture read
 by the JAX package's Phototourism parser (its images through ``imageio``).
@@ -67,7 +69,7 @@ LOSS_KEYS = ("loss", "rgb_loss", "s3im_loss")
 
 
 def main(scene, out_dir, steps, rays, patch_h, layout, diag=False,
-         dataparser="minimal", k_steps=1):
+         dataparser="minimal", k_steps=1, remat_chunks=0):
     import jax
     import numpy as np
 
@@ -93,6 +95,7 @@ def main(scene, out_dir, steps, rays, patch_h, layout, diag=False,
         parser_cls, parser_cfg = registry()[dataparser]
         parser = parser_cls(parser_cfg(data=scene))
     cfg.pipeline.steps_per_dispatch = k_steps
+    cfg.pipeline.model.remat_chunks = remat_chunks
     p = cfg.pipeline.build(parser, out_dir)
     p.total_train_steps = steps
     n_prop = cfg.pipeline.model.num_proposal_resamples
@@ -201,4 +204,5 @@ if __name__ == "__main__":
     main(sys.argv[1], sys.argv[2], int(sys.argv[3]), int(sys.argv[4]),
          int(sys.argv[5]), sys.argv[6], "diag" in extra,
          "phototourism" if "phototourism" in extra else "minimal",
-         next((int(a[2:]) for a in extra if a.startswith("k=")), 1))
+         next((int(a[2:]) for a in extra if a.startswith("k=")), 1),
+         next((int(a[6:]) for a in extra if a.startswith("remat=")), 0))
