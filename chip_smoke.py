@@ -24,7 +24,9 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
                 padding columns and masked anchors; dense levels in a small
                 table; the routed encode's masked and out-of-range blocks;
                 the anchored table gradient on runs of equal cells with
-                masked anchors inside and two volumes sharing cells);
+                masked anchors inside and two volumes sharing cells; both
+                table gradients H2 and H5 bit for bit, also called again
+                and on the points permuted);
                 the composites timed against their plain versions with CUDA
                 events (median); the composite backward in the train
                 step's form at 384 and 192 samples, its register kernel
@@ -45,8 +47,9 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
   7. train    — with the counters reset: 20 init-stage steps of 8192 rays
                 through make_train_step (one warm-up, 5 timed: s/step,
                 rays/s, peak memory); each kernel called once per step,
-                the hash backward's call launching once per group of
-                levels; loss and gradients finite, the loss falling, the
+                the hash backward's call launching its level maxima and
+                per level its sums and conversion; loss and gradients
+                finite, the loss falling, the
                 global table and every MLP changed, the block tables not,
                 the occupancy statistics moved; one step from a common
                 state with the kernels against the plain autograd pairs
@@ -54,10 +57,11 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
                 the hash encode timed against its plain version and level
                 by level, and added to a base (bit for bit; timed beside
                 the encode and a separate add); the hash backward against
-                its plain version and index_add_, at 1, 2, 4 and 8 levels
-                per launch, then level by level (its vector reductions per
-                level, counted by the kernel and held against the same
-                runs reckoned on the host, and a launch per level timed);
+                its plain version (bit for bit, also called again and on
+                the points permuted) and index_add_, then level by level
+                (its 64-bit reductions per level, counted by the kernel and
+                held against the same runs reckoned on the host, and a call
+                per level timed);
                 the host syncs of one encode forward and backward.
   8. focal    — with the counters reset per block: 10 block-stage steps
                 (residual mode) on block 0, then 10 on block 1 from a new
@@ -84,15 +88,17 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
                 steps_per_dispatch): on the quality workload at the init
                 and focal stages and on the prop workload, at 8192 rays,
                 make_multi_train_step's window (one CUDA graph of the step
-                replayed 8 times): a replayed window's launches 8 times a
-                step's; a replayed window against the same window run
-                eagerly from deep copies of the state, from the same
-                injected draws and from the same generator state (each
-                first step's loss bit for bit, each step's to 1e-3
-                relative, the parameters at the pipeline parity test's
-                share and within a step of the learning rate per step of
-                the window, beside two eager windows' spread; the
-                generator at the same Philox offset); no host sync under
+                replayed 8 times): one step twice from one state (loss,
+                gradients and parameters bit for bit); a replayed window's
+                launches 8 times a step's; a replayed window against the
+                same window run eagerly from deep copies of the state, and
+                two eager windows, from the same injected draws, and a
+                replayed window against an eager one from the same
+                generator state: every loss and parameter bit for bit
+                (gf-nerf-perf's init, focal and remat 8 windows and
+                gf-nerf-prop's); the generator at the same Philox offset;
+                with --parent, the quality windows in turns with windows
+                over the parent's H2; no host sync under
                 set_sync_debug_mode("error") around a replayed window;
                 single steps and windows timed in turns (s/step,
                 peak memory, the capture's peak) and a window profiled
@@ -101,17 +107,18 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
                 2 channels of 2^19 entries, 192 slots, fineness 4) built
                 anew; with the counters reset, 20 init-stage steps: the
                 composites and the anchored encode and table gradient one
-                call per step (a launch per group of levels), the packed
+                call per step (a launch per group of levels; H5 its maxima
+                and per level its sums and conversion), the packed
                 kernels never; loss falls; one step against the plain
                 pairs; both anchored kernels timed on a train batch against
                 their plain versions: the encode from the f32 table against
                 the bf16 copy + kernel in turns, at 1, 2, 4, 8 and 16 levels
                 per launch, on a base (in place and not) against the encode
                 followed by a separate add, with the memory both forms hold,
-                and its sector requests per level; the table gradient also
+                and its sector requests per level; the table gradient bit
+                for bit (also called again and on the points permuted),
                 against index_add_, with its reductions per level (held
-                against the host's reckoning) and its time at 1, 2, 4, 8
-                and 16 levels per launch.
+                against the host's reckoning).
  11. parity   — with the counters reset: 5 block-stage steps (residual
      focal      mode) on block 0 of the parity workload from a fresh
                 optimizer state: the anchored encode twice a step, the
@@ -128,9 +135,11 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
                 batches (the focal one block-routed), an eval image and a
                 checkpoint, at K = 8 (8 steps in the window [0, 8), 36
                 single: as the JAX package's rule predicts); then a fresh
-                Trainer resumed from it for 2 steps (see phase_pipeline
-                for the checks); s/step through the Trainer against
-                train_bench's loop on the same steps, the host work around
+                Trainer resumed from it for 2 steps (its first equal to
+                the continuing run's bit for bit, every tensor; see
+                phase_pipeline for the checks); s/step through the
+                Trainer against train_bench's loop on the same steps, the
+                host work around
                 the step, host syncs of a focal step and of a window
                 against 8 single steps (one against 8 or more); the
                 Trainer on init steps 0-8 again at K = 1 and K = 8 in
@@ -144,10 +153,13 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
                 transition, 2 focal steps on each of blocks 0 and 1, eval
                 batches, an eval image and a checkpoint; per step K1, K2
                 and H5 once, H4 once at init and twice at the focal stage;
+                a second Trainer's first 8 steps from the same seed equal
+                to the run's bit for bit (losses, every field tensor);
                 then the compaction of a train batch under
                 set_sync_debug_mode("error"), H4 and H5 at the compacted
                 points (K = 2,097,152) against their plain versions, one
-                step against the plain pairs, one step at remat_chunks 8
+                step against the plain pairs (with --parent, init steps in
+                turns over the parent's H5), one step at remat_chunks 8
                 against 0 (loss, gradients, peak memory), init steps at
                 fineness 1 and 16 and a focal step profiled (spans, busy
                 time, idle share), the
@@ -169,9 +181,10 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
                 falling; eval PSNR above the mean image's; one step
                 against the plain pairs; K1, K2, H1 and H2 at these shapes
                 against their plain versions (H2 also against
-                index_add_); an init and a focal step profiled (the
-                gfnerf/proposal span); eval and render on the checkpoint,
-                render --early-term refused.
+                index_add_, and bit for bit at the field's table on a
+                quarter of the probe's points); an init and a focal step
+                profiled (the gfnerf/proposal span); eval and render on
+                the checkpoint, render --early-term refused.
  15. nerfacto — with the counters reset: the stock nerfacto on the vanilla
                 pipeline through the Trainer at its full width (4096 rays,
                 proposal samples (256, 96) on two fields of 5 x 2 of 2^17,
@@ -406,6 +419,14 @@ python3 chip_smoke.py --only parallel
 python3 chip_smoke.py --only quality,midscale
 python3 chip_smoke.py --only jpeg
 python3 chip_smoke.py --only window,pipeline
+Either form takes ``--parent DIR`` first: DIR is another checkout of this
+repository (the parent commit unpacked with git archive under _trees/,
+which .gitignore lists), whose table gradients H2 and H5 are then built
+from its sources and timed in turns with this tree's, alone (H2 at the
+train batch and the probe, H5 at the parity batch and instant-ngp's step)
+and in steps (the quality workload's K = 8 windows at the init and focal
+stages, gf-nerf's init steps):
+python3 chip_smoke.py --parent _trees/parent
 Either form takes ``--coverage-case PATH`` last: the scan phase then writes
 the octree and rays of its coverage check there, for
 ``python tests/torch_parity.py scan-coverage PATH`` (the JAX package's
@@ -431,9 +452,8 @@ H1_ATOL = 1e-5
 # of a few f32 ulps of the ray's largest term: rtol 1e-4 plus an atol of
 # 1e-6 of the output's largest magnitude
 K2_RTOL, K2_ATOL_REL = 1e-4, 1e-6
-# H2 vs plain: both sum the same f32 terms with atomics, in different
-# orders; a row sums up to thousands of terms: 1e-5 of the largest entry
-H2_ATOL_REL = 1e-5
+# H2 and H5 vs plain: both sum the same terms exactly in int64 fixed point
+# (csrc/fixed_point.cuh), so they are held bit for bit (check_table_grad)
 # one chunk, kernels vs plain versions: the encodes agree bit for bit (so
 # the bf16 MLPs see the same inputs), the composites to f32 rounding
 SLICE_ATOL = 2e-3
@@ -655,7 +675,36 @@ def assert_close(got, want, what, rtol=0.0, atol=0.0, atol_rel=0.0):
                                  f"rtol {rtol} atol {tol}")
 
 
+def check_table_grad(what, backward, plain, args):
+    """A table gradient (H2 or H5: ``backward``) on ``args`` (g, primes,
+    biases, points, anchors, then the table's shape) against its plain
+    version ``plain``, bit for bit; called again, and on the points (their
+    rows of g and their anchors with them) in another order, the same bits:
+    the fixed-point sum does not depend on the order in which the warps
+    land.  Returns the kernel's gradient."""
+    import torch
+
+    got = backward(*args)
+    want = plain(*args)
+    again = backward(*args)
+    g, prim, bias, pts, anc, *rest = args
+    perm = torch.randperm(pts.shape[0], device=pts.device,
+                          generator=torch.Generator(
+                              device=pts.device).manual_seed(0))
+    moved = backward(g[perm], prim, bias, pts[perm], anc[perm], *rest)
+    torch.cuda.synchronize()
+    for name, other in (("the plain version", want), ("a second call", again),
+                        ("a call on the points permuted", moved)):
+        if not torch.equal(got, other):
+            raise AssertionError(
+                f"{what}: not equal bit for bit to {name}: "
+                f"{int((got != other).sum())} entries apart, at most "
+                f"{max_err([got], [other])}")
+    return got
+
+
 def phase_device():
+    global CARD
     import torch
 
     if not torch.cuda.is_available():
@@ -664,7 +713,7 @@ def phase_device():
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True, check=True)
-    card = smi.stdout.strip().splitlines()[0]
+    card = CARD = smi.stdout.strip().splitlines()[0]
     log(f"[device] torch {torch.__version__} cuda {torch.version.cuda}; "
         f"{torch.cuda.device_count()} card(s); using "
         f"{torch.cuda.get_device_name(0)}")
@@ -672,6 +721,137 @@ def phase_device():
     torch.backends.cudnn.allow_tf32 = False
     torch.cuda.set_device(0)
     return card
+
+
+# ``--parent DIR``: another checkout of this repository (the parent tree,
+# unpacked from git under _trees/): its table gradients H2 and H5 are timed
+# in turns with this tree's (parent, this, this, parent) on the same inputs
+# and in the same steps; set by main, loaded by load_parent
+PARENT_DIR = None
+PARENT = None
+# the card's name and power limit (nvidia-smi), set by phase_device: the
+# lines that time this tree against the parent carry it
+CARD = ""
+
+
+def load_parent(parent: Path):
+    """The parent checkout's H2 and H5 wrappers: its fields/packed_hash.py
+    and fields/hash_encoding.py loaded as modules of their own, over its
+    ops/build.py, which builds its csrc/ into its own _build/ (on a thread:
+    the build runs beside this tree's).  Returns a namespace with
+    ``h2``/``h5`` (its _packed_hash_backward_cuda, _hash_backward_cuda)
+    and ``join()``, which waits for the build."""
+    import importlib.util
+    import threading
+    from types import SimpleNamespace
+
+    # this tree's modules first: they bind this tree's build
+    import gfnerf_tpu_torch.fields.packed_hash  # noqa: F401
+    import gfnerf_tpu_torch.ops as ops_pkg
+    from gfnerf_tpu_torch.ops import build as ours
+
+    pkg = parent.resolve() / "gfnerf_tpu_torch"
+
+    def load(name, path):
+        spec = importlib.util.spec_from_file_location(name, path)
+        mod = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mod)
+        return mod
+
+    build = load("parent_gfnerf_build", pkg / "ops" / "build.py")
+    ops_pkg.build = build   # what the parent's modules import as build
+    try:
+        he = load("parent_gfnerf_hash_encoding",
+                  pkg / "fields" / "hash_encoding.py")
+        ph = load("parent_gfnerf_packed_hash",
+                  pkg / "fields" / "packed_hash.py")
+    finally:
+        ops_pkg.build = ours
+    box = {}
+
+    def run():
+        try:
+            box["res"] = build.build_library()
+            build.library()
+        except BaseException as e:   # raised again by join()
+            box["err"] = e
+
+    thread = threading.Thread(target=run, name="parent build", daemon=True)
+    thread.start()
+
+    def join():
+        thread.join()
+        if "err" in box:
+            raise box["err"]
+        return box["res"]
+
+    return SimpleNamespace(dir=parent, h2=ph._packed_hash_backward_cuda,
+                           h5=he._hash_backward_cuda, join=join)
+
+
+class parent_table_grads:
+    """Within the block the port's train steps call the parent checkout's
+    H2 and H5 (PARENT) in place of this tree's."""
+
+    def __enter__(self):
+        from gfnerf_tpu_torch.fields import hash_encoding, packed_hash
+
+        self.saved = (packed_hash._packed_hash_backward_cuda,
+                      hash_encoding._hash_backward_cuda)
+        packed_hash._packed_hash_backward_cuda = PARENT.h2
+        hash_encoding._hash_backward_cuda = PARENT.h5
+        return self
+
+    def __exit__(self, *exc):
+        from gfnerf_tpu_torch.fields import hash_encoding, packed_hash
+
+        (packed_hash._packed_hash_backward_cuda,
+         hash_encoding._hash_backward_cuda) = self.saved
+        return False
+
+
+def against_parent(what, name, kernel, args) -> dict:
+    """A table gradient (``kernel``: "h2" or "h5") of this tree and of the
+    parent's on ``args``, timed in turns (parent, this, this, parent; 11
+    samples each, the smaller median of each one's turns), or {} without a
+    parent.  The parent's gradient, summed with float atomics in a varying
+    order, is held against this one's to 1e-5 of its largest entry."""
+    import torch
+
+    from gfnerf_tpu_torch.fields import hash_encoding, packed_hash
+
+    if PARENT is None:
+        return {}
+    ours = {"h2": packed_hash._packed_hash_backward_cuda,
+            "h5": hash_encoding._hash_backward_cuda}[kernel]
+    theirs = getattr(PARENT, kernel)
+    got, old = ours(*args), theirs(*args)
+    torch.cuda.synchronize()
+    assert_close([old], [got], f"{what} {name}: the parent's", atol_rel=1e-5)
+    del got, old
+    out = in_turns({"parent": lambda: theirs(*args),
+                    "this": lambda: ours(*args)},
+                   ("parent", "this", "this", "parent"), n=11)
+    log(f"[{what}] {name} in turns with the parent tree's "
+        f"({PARENT.dir}), on {CARD}: this {out['this']:.4f} ms, the "
+        f"parent's {out['parent']:.4f} ms")
+    return {"parent_turns_ms": out}
+
+
+def start_parent() -> None:
+    """With ``--parent DIR``: load the parent's wrappers and start its
+    build (load_parent)."""
+    global PARENT
+    if PARENT_DIR is not None:
+        PARENT = load_parent(PARENT_DIR)
+
+
+def join_parent() -> None:
+    """Wait for the parent's build, if there is a parent."""
+    if PARENT is not None:
+        res = PARENT.join()
+        log(f"[build] the parent tree's kernels ({PARENT.dir}) in "
+            f"{res['seconds']:.2f}s")
 
 
 def phase_build():
@@ -1006,8 +1186,9 @@ def check_hash_bwd() -> float:
     """H2 against its plain version at 2^20 points (C = 4 with and without
     dense levels, and with a dense level in a table of 2^13 rows, as a
     focal block's may be; C = 2, C = 8) and at 1000 points with masked
-    anchors;
-    the padding columns must stay exactly 0.  Returns the max error."""
+    anchors, bit for bit, also called again and on the points permuted
+    (check_table_grad); the padding columns must stay exactly 0.  Returns
+    the max error (0.0)."""
     import torch
 
     from gfnerf_tpu_torch.fields.packed_hash import (
@@ -1025,19 +1206,18 @@ def check_hash_bwd() -> float:
         g = torch.randn((p, n_levels * c), generator=gen, device="cuda")
         pack = pack_for_channels(c)
         args = (g, prim, bias, pts, anc, n_rows, width, c, pack, dense)
-        got = _packed_hash_backward_cuda(*args)
-        want = packed_hash_backward_reference(*args)
-        torch.cuda.synchronize()
-        assert_close([got], [want], f"packed_hash_bwd P={p} C={c} "
-                     f"dense={dense}", atol_rel=H2_ATOL_REL)
+        got = check_table_grad(f"packed_hash_bwd P={p} C={c} dense={dense}",
+                               _packed_hash_backward_cuda,
+                               packed_hash_backward_reference, args)
         live = (pack + 1) ** 3 * c
         if not bool((got[..., live:] == 0).all()):
             raise AssertionError("packed_hash_bwd: padding columns written")
-        errs.append(max_err([got], [want]))
+        errs.append(0.0)
         log(f"[kernels] packed_hash_bwd P={p} C={c} dense_levels={dense} "
-            f"rows=2^{rows_log2}: max abs err {errs[-1]:.3g} (largest entry "
-            f"{float(want.abs().max()):.3g}); columns {live}.. exactly 0")
-        del got, want, g, args
+            f"rows=2^{rows_log2}: equal to the plain version bit for bit, "
+            f"also called again and on the points permuted (largest entry "
+            f"{float(got.abs().max()):.3g}); columns {live}.. exactly 0")
+        del got, g, args
     torch.cuda.empty_cache()
     return max(errs)
 
@@ -1129,13 +1309,14 @@ def anchored_run_inputs(n_volumes, bias, n_rays=3000, n_samples=97, seed=5):
 
 
 def check_hash_anchored() -> tuple:
-    """H4 against its plain version (bit for bit) and H5 against its plain
-    version (H2's tolerance: the same f32 terms in another order), with
-    masked anchors: L = 16, C = 2, 2^19 entries a level at 2^20 points; L =
-    8, C = 4, 2^16 entries; L = 5, C = 2 at 1000 points; and, at both
-    channel counts, on runs of equal cells with masked anchors inside and
-    two volumes sharing cells (anchored_run_inputs).  H5's reductions per
-    level, counted by the kernel, must equal the runs reckoned on the host
+    """H4 against its plain version and H5 against its plain version, bit
+    for bit (H5 also called again and on the points permuted:
+    check_table_grad), with masked anchors: L = 16, C = 2, 2^19 entries a
+    level at 2^20 points; L = 8, C = 4, 2^16 entries; L = 5, C = 2 at 1000
+    points; and, at both channel counts, on runs of equal cells with
+    masked anchors inside and two volumes sharing cells
+    (anchored_run_inputs).  H5's reductions per level, counted by the
+    kernel, must equal the runs reckoned on the host
     (hash_bwd_reductions).  Returns (H4's, H5's max error)."""
     import numpy as np
     import torch
@@ -1177,29 +1358,29 @@ def check_hash_anchored() -> tuple:
         g = torch.randn(got.shape, generator=gen, device="cuda")
         args = (g, *addr, 1 << log2, c)
         ops = torch.zeros(n_levels, dtype=torch.int64, device="cuda")
-        got = he._hash_backward_cuda(*args, red_ops=ops)
-        want = he.hash_backward_reference(*args)
-        reckoned = he.hash_bwd_reductions(*addr)
-        torch.cuda.synchronize()
-        assert_close([got], [want], f"hash_anchored_bwd P={p} C={c}",
-                     atol_rel=H2_ATOL_REL)
+        he._hash_backward_cuda(*args, red_ops=ops)
+        reckoned = he.hash_bwd_reductions(*addr, c)
+        got = check_table_grad(f"hash_anchored_bwd P={p} C={c}",
+                               he._hash_backward_cuda,
+                               he.hash_backward_reference, args)
         if ops.tolist() != reckoned.tolist():
             raise AssertionError(
                 f"hash_anchored_bwd P={p} C={c}: reductions per level "
                 f"{ops.tolist()}, runs reckoned on the host "
                 f"{reckoned.tolist()}")
-        every = 8 * n_levels * int((addr[3] >= 0).sum())
+        every = 8 * c * n_levels * int((addr[3] >= 0).sum())
         if runs and not int(ops.sum()) < every // 2:
             raise AssertionError("hash_anchored_bwd: the run inputs did not "
                                  "merge")
-        bwd_errs.append(max_err([got], [want]))
+        bwd_errs.append(0.0)
         log(f"[kernels] hash_anchored P={p}{' (runs)' if runs else ''} "
-            f"L={n_levels} C={c} local=2^{log2}: forward equal to the plain "
-            f"version; table gradient max abs err {bwd_errs[-1]:.3g} "
-            f"(largest entry {float(want.abs().max()):.3g}), "
-            f"{int(ops.sum())} reductions for {every} corners (host "
-            f"reckoning agrees)")
-        del got, want, g, args, table
+            f"L={n_levels} C={c} local=2^{log2}: forward and table gradient "
+            f"equal to the plain versions bit for bit, the gradient also "
+            f"called again and on the points permuted (largest entry "
+            f"{float(got.abs().max()):.3g}); {int(ops.sum())} 64-bit "
+            f"reductions for {every} corner channels (host reckoning "
+            f"agrees)")
+        del got, g, args, table
     torch.cuda.empty_cache()
     return max(fwd_errs), max(bwd_errs)
 
@@ -1569,12 +1750,13 @@ def hash_fwd_levels(args) -> tuple:
 
 
 def hash_bwd_levels(args) -> list:
-    """H2 level by level on the given inputs: the vector reductions the
+    """H2 level by level on the given inputs: the 64-bit reductions the
     kernel counted at each level, held against packed_hash_bwd_reductions
-    (the same runs reckoned on the host), and the time of a launch over
-    that level alone (its 16 MB zero-fill included; 10 launches per
-    sample; inputs in the kernel's types), whose result is held against
-    that level of the whole kernel's."""
+    (the same runs reckoned on the host), and the time of a call over
+    that level alone (its maxima, sums and conversion, the accumulator's
+    32 MB zero-fill included; 10 calls per sample; inputs in the kernel's
+    types), whose result must equal that level of the whole call's bit for
+    bit."""
     import torch
 
     from gfnerf_tpu_torch.fields.packed_hash import (
@@ -1597,38 +1779,16 @@ def hash_bwd_levels(args) -> list:
         largs = (g[:, l * c:(l + 1) * c].contiguous(), *typed[1:])
         grad = _packed_hash_backward_cuda(*largs, level=l)
         torch.cuda.synchronize()
-        assert_close([grad[0]], [full[l]], f"packed_hash_bwd level {l} alone",
-                     atol_rel=H2_ATOL_REL)
+        if not torch.equal(grad[0], full[l]):
+            raise AssertionError(f"packed_hash_bwd level {l} alone differs "
+                                 f"from the whole call's")
         ms = time_ms(lambda: _packed_hash_backward_cuda(*largs, level=l),
                      reps=10)
         per_level.append({"level": l, "reductions": int(ops[l]),
                           "ms": ms})
-        log(f"[train] packed_hash_bwd level {l} alone: {int(ops[l])} vector "
+        log(f"[train] packed_hash_bwd level {l} alone: {int(ops[l])} 64-bit "
             f"reductions (host reckoning agrees), {ms:.4f} ms")
     return per_level
-
-
-def table_grad_groupings(name, backward, wrapper, args, want, sizes) -> dict:
-    """A table gradient (H2 or H5: ``backward``, counted on ``wrapper``) on
-    the given inputs, in the kernel's types, with each launch covering each
-    of ``sizes`` levels (the kernels' own choice is 8 / C): per
-    levels-per-launch, the launches of one call and the time of the call;
-    each result held against ``want``."""
-    import torch
-
-    args = kernel_typed(args)
-    out = {}
-    for n in sizes:
-        before = wrapper.bwd_launches
-        got = backward(*args, levels_per_launch=n)
-        launches = wrapper.bwd_launches - before
-        torch.cuda.synchronize()
-        assert_close([got], [want], f"{name} at {n} levels per launch",
-                     atol_rel=H2_ATOL_REL)
-        del got
-        ms = time_ms(lambda: backward(*args, levels_per_launch=n), n=11)
-        out[n] = {"launches": launches, "ms": ms}
-    return out
 
 
 def host_syncs(fn) -> dict:
@@ -1788,18 +1948,13 @@ def time_hash_on_batch(wl, batch, noise) -> tuple:
     g = torch.randn((p, n_levels * c), generator=gen, device="cuda")
     args = (g, field.global_prim, field.global_bias, pts, anc, n_rows, width,
             c, pack, 0)
-    got = ph._packed_hash_backward_cuda(*args)
-    want = ph.packed_hash_backward_reference(*args)
-    torch.cuda.synchronize()
-    assert_close([got], [want], "packed_hash_bwd on a train batch",
-                 atol_rel=H2_ATOL_REL)
-    err = max_err([got], [want])
-    groupings = table_grad_groupings(
-        "packed_hash_bwd", ph._packed_hash_backward_cuda,
-        ph.packed_hash_encode, args, want, (1, 2, 4, 8))
-    del want
+    check_table_grad("packed_hash_bwd on a train batch",
+                     ph._packed_hash_backward_cuda,
+                     ph.packed_hash_backward_reference, args)
+    err = 0.0
     ms = time_ms(lambda: ph._packed_hash_backward_cuda(*args), n=11)
-    del got
+    turns = against_parent("train", "packed_hash_bwd on a train batch",
+                           "h2", args)
     plain_ms = time_ms(lambda: ph.packed_hash_backward_reference(*args), n=3)
     terms = list(ph.packed_hash_scatter_terms(*args))
     rows = torch.cat([t[0] for t in terms])
@@ -1813,16 +1968,15 @@ def time_hash_on_batch(wl, batch, noise) -> tuple:
     bound = hash_bwd_bytes(p, n_levels, c, field.global_feat.numel()) \
         / HBM_BYTES_PER_S * 1e3
     log(f"[train] packed_hash_bwd on a train batch (P={p}, {n_valid} valid): "
-        f"max abs err {err:.3g}; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms,"
+        f"equal to the plain version bit for bit, also called again and on "
+        f"the points permuted; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms,"
         f" index_add_ {library_ms:.4f} ms, bound {bound:.4f} ms")
-    by_group = "; ".join(f"{n}: {x['launches']} launches, {x['ms']:.4f} ms"
-                         for n, x in groupings.items())
-    log(f"[train] packed_hash_bwd by levels per launch: {by_group}")
     levels = hash_bwd_levels(args)
     n_red = sum(x["reductions"] for x in levels)
-    log(f"[train] packed_hash_bwd: {n_red} vector reductions in all "
-        f"({8 * n_valid * n_levels} corners of valid (point, level) pairs); "
-        f"levels alone sum to {sum(x['ms'] for x in levels):.4f} ms")
+    log(f"[train] packed_hash_bwd: {n_red} 64-bit reductions in all "
+        f"({8 * c * n_valid * n_levels} corner channels of valid (point, "
+        f"level) pairs); levels alone sum to "
+        f"{sum(x['ms'] for x in levels):.4f} ms")
 
     # ---- host syncs of one encode forward and backward ----
     feat = field.global_feat.detach().clone().requires_grad_(True)
@@ -1853,18 +2007,17 @@ def time_hash_on_batch(wl, batch, noise) -> tuple:
            "train_batch_with_base_bound_ms": based_bound}
     bwd = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
            "bound_ms": bound, "bound_by": "bytes", "library_ms": library_ms,
-           "per_level": levels, "by_levels_per_launch": groupings,
-           "host_syncs": syncs}
+           "per_level": levels, "host_syncs": syncs, **turns}
     return fwd, bwd
 
 
 def table_grad_launches(wl) -> int:
     """Launches of one table-gradient call (H2, or H5 in the anchored
-    layout): one per group of 8 / C levels."""
+    layout): the level maxima, then per level the sums and the
+    conversion."""
     from gfnerf_tpu_torch.fields.hash_encoding import table_grad_launches
 
-    fcfg = wl["fcfg"]
-    return table_grad_launches(fcfg.num_levels, fcfg.features_per_level)
+    return table_grad_launches(wl["fcfg"].num_levels)
 
 
 def step_draws(wl, gen):
@@ -2397,8 +2550,8 @@ def time_anchored_fwd(table, addr) -> dict:
     each grouping; on a base in place and out of place against the encode
     followed by a separate add, in turns, with the memory each form holds
     at its peak; the sector requests per level (one 32-byte sector per
-    corner of each run of equal cells in a warp, as hash_bwd_reductions
-    reckons the table gradient's runs) and the rate they imply.  Returns
+    corner of each run of equal cells in a warp, the runs hash_run_heads
+    reckons) and the rate they imply.  Returns
     the report of the kernels line."""
     import torch
 
@@ -2480,7 +2633,7 @@ def time_anchored_fwd(table, addr) -> dict:
         lambda: base.clone() + he.hash_encode(table, *addr))
     fused_peak = peak_extra_bytes(
         lambda: he.hash_encode(table, *addr, base.clone(), True))
-    sectors = he.hash_bwd_reductions(*addr).tolist()
+    sectors = (8 * he.hash_run_heads(*addr)).tolist()
     del base
     torch.cuda.empty_cache()
     # output, points, anchors, and the f32 table read once
@@ -2538,11 +2691,12 @@ def time_anchored_fwd(table, addr) -> dict:
 def time_anchored_on_batch(wl, batch, noise) -> tuple:
     """H4 and H5 on the points one parity train batch gives them (8192 rays
     x 192 samples, L = 16, C = 2, 2^19 entries a level): H4 as
-    time_anchored_fwd says; H5 against its plain version and index_add_ of
-    the same precomputed (rows, payload) terms, with a random upstream
-    gradient, its vector reductions per level (counted by the kernel, held
-    against the runs reckoned on the host), and its time at 1, 2, 4, 8 and
-    16 levels per launch.  Returns (H4's, H5's report)."""
+    time_anchored_fwd says; H5 against its plain version bit for bit (also
+    called again and on the points permuted: check_table_grad) and timed
+    against it and index_add_ of the same precomputed (rows, payload)
+    terms, with a random upstream gradient, with its 64-bit reductions per
+    level (counted by the kernel, held against the runs reckoned on the
+    host).  Returns (H4's, H5's report)."""
     import torch
 
     from gfnerf_tpu_torch.cameras.cameras import generate_rays_multi
@@ -2568,25 +2722,22 @@ def time_anchored_on_batch(wl, batch, noise) -> tuple:
     g = torch.randn((p, n_levels * c), generator=gen, device="cuda")
     args = (g, *addr, local, c)
     ops = torch.zeros(n_levels, dtype=torch.int64, device="cuda")
-    got = he._hash_backward_cuda(*args, red_ops=ops)
-    want = he.hash_backward_reference(*args)
-    reckoned = he.hash_bwd_reductions(*addr)
-    torch.cuda.synchronize()
-    assert_close([got], [want], "hash_anchored_bwd on a train batch",
-                 atol_rel=H2_ATOL_REL)
+    he._hash_backward_cuda(*args, red_ops=ops)
+    reckoned = he.hash_bwd_reductions(*addr, c)
+    got = check_table_grad("hash_anchored_bwd on a train batch",
+                           he._hash_backward_cuda, he.hash_backward_reference,
+                           args)
     if ops.tolist() != reckoned.tolist():
         raise AssertionError(f"hash_anchored_bwd: reductions per level "
                              f"{ops.tolist()}, runs reckoned on the host "
                              f"{reckoned.tolist()}")
     reductions = ops.tolist()
-    err = max_err([got], [want])
-    largest = float(want.abs().max())
+    err = 0.0
+    largest = float(got.abs().max())
     del got, reckoned
-    groupings = table_grad_groupings(
-        "hash_anchored_bwd", he._hash_backward_cuda, he.hash_encode, args,
-        want, (1, 2, 4, 8, 16))
-    del want
     ms = time_ms(lambda: he._hash_backward_cuda(*args), n=11)
+    turns = against_parent("parity", "hash_anchored_bwd on a train batch",
+                           "h5", args)
     plain_ms = time_ms(lambda: he.hash_backward_reference(*args), n=3)
     terms = list(he.hash_scatter_terms(*args))
     rows = torch.cat([t[0] for t in terms])
@@ -2597,20 +2748,17 @@ def time_anchored_on_batch(wl, batch, noise) -> tuple:
         n=5)
     del rows, payload
     torch.cuda.empty_cache()
-    log(f"[parity] hash_anchored_bwd on a train batch: max abs err {err:.3g} "
-        f"(largest entry {largest:.3g}); kernel {ms:.4f} ms, plain "
+    log(f"[parity] hash_anchored_bwd on a train batch: equal to the plain "
+        f"version bit for bit, also called again and on the points permuted"
+        f" (largest entry {largest:.3g}); kernel {ms:.4f} ms, plain "
         f"{plain_ms:.4f} ms, index_add_ {library_ms:.4f} ms, bound "
         f"{bound:.4f} ms")
-    log(f"[parity] hash_anchored_bwd: {sum(reductions)} vector reductions "
-        f"for {8 * n_valid * n_levels} corners of valid (point, level) "
-        f"pairs; per level {reductions} (host reckoning agrees)")
-    by_group = "; ".join(f"{n}: {x['launches']} launches, {x['ms']:.4f} ms"
-                         for n, x in groupings.items())
-    log(f"[parity] hash_anchored_bwd by levels per launch: {by_group}")
+    log(f"[parity] hash_anchored_bwd: {sum(reductions)} 64-bit reductions "
+        f"for {8 * c * n_valid * n_levels} corner channels of valid (point,"
+        f" level) pairs; per level {reductions} (host reckoning agrees)")
     bwd = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
            "bound_ms": bound, "bound_by": "bytes", "library_ms": library_ms,
-           "reductions_per_level": reductions,
-           "by_levels_per_launch": groupings}
+           "reductions_per_level": reductions, **turns}
     return fwd, bwd
 
 
@@ -2763,11 +2911,6 @@ def phase_parity_focal(wl):
 # leaf, a 128-wide visibility grid: on an H100's host 30.5 s, python -m
 # gfnerf_tpu_torch.octree_bench), and so are the field's widths.
 PIPELINE_INIT_STEPS = 24
-# the resumed step's active table against the continuing run's: H2's float
-# atomics sum in a varying order (the first H100 run: 0.93% of the entries
-# apart, by at most 5e-7); an update of a flipped gradient sign would be
-# the block learning rate, 5e-3
-RESUME_TABLE_ATOL = 1e-5
 PIPELINE_STEPS = 44
 # the phases that hold each step's launches through the Trainer on
 # gf-nerf-perf or gf-nerf-prop (whose steps_per_dispatch is 8) take one
@@ -2966,12 +3109,9 @@ def phase_pipeline(tmp: Path):
     switches; during split k only block k's table changed; the eval image's
     PSNR above its mean-image PSNR; the checkpoint written; the resumed
     state equal to the saved one bit for bit, its start step 44, and its
-    first step equal to the continuing run's (the loss and every tensor but
-    the active table bit for bit; that table's gradient is summed with
-    float atomics by H2, in an order that varies from run to run, so its
-    update may differ in the last bits: by at most RESUME_TABLE_ATOL, 500
-    times below the block learning rate that a flipped update would
-    show); at K = 8 (gf-nerf-perf's steps_per_dispatch) the steps in
+    first step equal to the continuing run's (the loss and every tensor,
+    the active table included, bit for bit: H2 sums its gradient exactly,
+    in fixed point); at K = 8 (gf-nerf-perf's steps_per_dispatch) the steps in
     windows and the single steps as ``predict_windows`` says, no buffered
     metric left, the state at step 44; a window's host syncs one, K single
     steps' at least K.  Timed: single steps through the Trainer, the same
@@ -3239,22 +3379,12 @@ def phase_pipeline(tmp: Path):
     def get_loss2_w(step):
         resumed[step] = get_loss2(step)
         if step == PIPELINE_STEPS:
-            diff.update(bitwise=True, off_share=0.0, off_max=0.0)
             for (name, a), b in zip(p.field.state_dict().items(),
                                     p2.field.state_dict().values()):
-                if torch.equal(a, b):
-                    continue
-                diff["bitwise"] = False
-                if name != "block_feats":
-                    raise AssertionError(f"resumed step: {name} differs")
-                for blk in range(a.shape[0]):
-                    d = (a[blk] - b[blk]).abs()
-                    if blk != active and bool(d.any()):
-                        raise AssertionError(f"resumed step: block {blk} "
-                                             f"differs")
-                d = (a[active] - b[active]).abs()
-                diff.update(off_share=float((d > 0).float().mean()),
-                            off_max=float(d.max()))
+                if not torch.equal(a, b):
+                    d = (a - b).abs()
+                    diff[name] = (float((d > 0).float().mean()),
+                                  float(d.max()))
         return resumed[step]
 
     p2.get_train_loss_dict = get_loss2_w
@@ -3262,12 +3392,10 @@ def phase_pipeline(tmp: Path):
     m2 = resumed[PIPELINE_STEPS]
     log(f"[pipeline] resumed at step {trainer2._start_step}: state, march "
         f"config and tree equal to the saved ones; its step "
-        f"{PIPELINE_STEPS} against the continuing run's: loss "
-        f"{m2['loss']!r} vs {m1['loss']!r}, every tensor bit for bit: "
-        f"{diff['bitwise']} (block {active}'s table: "
-        f"{diff['off_share']:.3g} of entries apart, at most "
-        f"{diff['off_max']:.3g})")
-    if m1["loss"] != m2["loss"] or diff["off_max"] > RESUME_TABLE_ATOL:
+        f"{PIPELINE_STEPS} (block {active} active) against the continuing "
+        f"run's: loss {m2['loss']!r} vs {m1['loss']!r}, tensors apart "
+        f"(share of entries, largest difference) {diff or 'none'}")
+    if m1["loss"] != m2["loss"] or diff:
         raise AssertionError("the resumed step differs from the continuing "
                              "run's")
     if sorted(resumed) != [PIPELINE_STEPS, PIPELINE_STEPS + 1] or not all(
@@ -3350,24 +3478,25 @@ def phase_pipeline(tmp: Path):
 # K steps a dispatch: the window of gf-nerf-perf and gf-nerf-prop
 # (steps_per_dispatch, bench.py:415)
 WINDOW_K = 8
-# a window replayed from its CUDA graph against the same window run
-# eagerly on the card from the same state and draws: the first step's
-# loss bit for bit (no update comes before it); H2's float atomics sum in
-# a varying order, so from the second step on two runs part as two eager
-# runs of the window do (their spread is reported beside): each step's
-# loss to 1e-3 relative (two eager prop windows part by 1.5e-4 at step
-# 8), the parameters at the pipeline parity test's share (at most 10%
-# of a tensor's entries apart by more than 1e-4) and none apart by more
-# than one step of the largest learning rate (1e-2) for each step of the
-# window (an Adam update of a near-zero gradient may flip its sign at
+# on one card a window replayed from its CUDA graph equals the same window
+# run eagerly from the same state and draws, and two eager runs equal each
+# other, in every loss and parameter bit for bit: H2 sums the table
+# gradient exactly, in fixed point, and no other op of the step depends on
+# an order that varies.  Over NCCL ranks (check_parallel_window) the
+# collectives may sum in another order under capture: each step's loss to
+# 1e-3 relative, the parameters at the pipeline parity test's share (at
+# most 10% of a tensor's entries apart by more than 1e-4) and none apart by
+# more than one step of the largest learning rate (1e-2) for each step of
+# the window (an Adam update of a near-zero gradient may flip its sign at
 # any of them)
 WINDOW_LOSS_RTOL = 1e-3
 WINDOW_SHARE, WINDOW_ENTRY_ATOL, WINDOW_MAX = 0.10, 1e-4, 8 * 1e-2
 # the counters' names -> a piece of the names of their kernels in a trace
+# (H2: its maxima, sums and conversion kernels)
 WINDOW_KERNEL_NAMES = {"composite_fwd": "composite_fwd_kernel",
                        "composite_bwd": "composite_bwd_",
                        "packed_hash_fwd": "packed_hash_encode_kernel",
-                       "packed_hash_bwd": "packed_hash_bwd_kernel"}
+                       "packed_hash_bwd": "packed_hash_bwd_"}
 # timed in turns: single steps against windows, twice each
 WINDOW_SINGLE_STEPS = 8
 WINDOW_TIMED = 2
@@ -3434,6 +3563,43 @@ def _params_apart(a, b) -> dict:
     return out
 
 
+def _params_differ(a, b) -> list:
+    """The parameters of two fields that are not equal bit for bit."""
+    import torch
+
+    from gfnerf_tpu_torch.engine.optimizers import field_param_groups
+
+    return [f"{name}[{i}]" for name, ps in field_param_groups(a).items()
+            for i, (x, y) in enumerate(zip(ps, field_param_groups(b)[name]))
+            if not torch.equal(x.detach(), y.detach())]
+
+
+def step_repeats(wl, batch, noise, perms, focal_block=None,
+                 prop_u=None) -> dict:
+    """One train step twice from deep copies of one state, on one batch
+    and one set of draws: the loss, and each parameter's gradient (the
+    active table's at the block stage, from Adam's first moment) and
+    value after the update, bit for bit.  Returns {"loss": equal,
+    "gradients": [those that differ], "parameters": [those that
+    differ]}."""
+    import torch
+
+    from gfnerf_tpu_torch.engine.optimizers import field_param_grads
+
+    runs = [step_from_copy(wl, batch, noise, perms, focal_block,
+                           prop_u=prop_u) for _ in range(2)]
+    (l1, s1), (l2, s2) = runs
+    if focal_block is None:
+        g1, g2 = field_param_grads(s1.field), field_param_grads(s2.field)
+    else:
+        g1, g2 = ({"block": s.opt_state.mu["block"]} for s in (s1, s2))
+    grads = [f"{name}[{i}]" for name, gs in g1.items()
+             for i, (x, y) in enumerate(zip(gs, g2[name]))
+             if not (x is None and y is None or torch.equal(x, y))]
+    return {"loss": l1 == l2, "gradients": grads,
+            "parameters": _params_differ(s1.field, s2.field)}
+
+
 def workload_copy(wl) -> dict:
     """A train_bench workload with deep copies of its field, optimizer
     state and octree, and no window functions of its own yet."""
@@ -3479,18 +3645,20 @@ def traced_window_launches(what: str, one_window, expected: dict):
 def window_checks(wl, what: str, focal_block=None) -> dict:
     """A K = WINDOW_K window of the train_bench workload ``wl`` at 8192
     rays, on the card: captured by a first window, then checked and timed.
-    Checked: the launches of a replayed window (K times a step's, by the
-    counters and by the kernels' records in a profiled window's trace); a
-    replayed window against the same window run eagerly from deep copies
-    of the state, from the same injected draws (the first step's loss bit
-    for bit, each step's to WINDOW_LOSS_RTOL, every parameter at
-    WINDOW_SHARE / WINDOW_MAX; two eager windows' spread reported beside
-    it) and
-    from the same generator state (the same, and the generator at the
-    same Philox offset, which every replay moved); no host sync under
+    Checked: one step twice from one state (``step_repeats``: the loss,
+    every gradient and every parameter bit for bit); the launches of a
+    replayed window (K times a step's, by the counters and by the kernels'
+    records in a profiled window's trace); a replayed window against the
+    same window run eagerly from deep copies of the state, and two eager
+    windows against each other, from the same injected draws, and a
+    replayed window against an eager one from the same generator state
+    (every loss and every parameter bit for bit), the generator at the
+    same Philox offset, which every replay moved; no host sync under
     ``torch.cuda.set_sync_debug_mode("error")`` around a replayed window.
     Timed in turns: single steps (K = 1) and windows, s/step and peak
-    memory; the device's busy share of a profiled window."""
+    memory (with a parent tree also against windows over its H2:
+    parent_window_turns); the device's busy share of a profiled
+    window."""
     import numpy as np
     import torch
 
@@ -3498,7 +3666,6 @@ def window_checks(wl, what: str, focal_block=None) -> dict:
     from gfnerf_tpu_torch.train_bench import (RAYS, make_batch, run_steps,
                                               run_windows, stack_window)
 
-    params_apart = _params_apart
     k = WINDOW_K
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(7)
@@ -3518,8 +3685,7 @@ def window_checks(wl, what: str, focal_block=None) -> dict:
             table_grad_launches as tgl
 
         per_step["packed_hash_fwd"] += 1
-        per_step["packed_hash_bwd"] += tgl(wl["fcfg"].proposal_levels,
-                                           wl["fcfg"].features_per_level)
+        per_step["packed_hash_bwd"] += tgl(wl["fcfg"].proposal_levels)
 
     def draws():
         d = {"noise": torch.rand((k, RAYS, wl["scfg"].max_samples),
@@ -3533,6 +3699,17 @@ def window_checks(wl, what: str, focal_block=None) -> dict:
 
     def copy_of():
         return workload_copy(wl)
+
+    d = draws()
+    repeats = step_repeats(
+        wl, flat[0], d["noise"][0], d["s3im_perms"][0], focal_block,
+        prop_u=d["prop_u"][0] if n_prop else None)
+    log(f"[window] {what}: one step twice from one state, the same batch and "
+        f"draws: loss equal {repeats['loss']}, gradients apart "
+        f"{repeats['gradients']}, parameters apart {repeats['parameters']}")
+    if not repeats["loss"] or repeats["gradients"] or repeats["parameters"]:
+        raise AssertionError(f"window {what}: one step repeated differs: "
+                             f"{repeats}")
 
     # single steps from no kept graph and an emptied cache, then the
     # capture (the window's first step eager, then 7 replays): its peak
@@ -3575,32 +3752,27 @@ def window_checks(wl, what: str, focal_block=None) -> dict:
                                    focal_block, draws=[d], graph=False)
     _, graph_losses = run_windows(wl, windows[2:3], None, k, focal_block,
                                   draws=[d])
-    apart = params_apart(wl["state"].field, eager_wl["state"].field)
-    worst = max(apart.values(), key=lambda v: v[1])
-    eager_spread = max(params_apart(eager2_wl["state"].field,
-                                    eager_wl["state"].field).values(),
-                       key=lambda v: v[1])
+    differ = {"replayed": _params_differ(wl["state"].field,
+                                         eager_wl["state"].field),
+              "eager": _params_differ(eager2_wl["state"].field,
+                                      eager_wl["state"].field)}
+    equal = {"replayed": graph_losses[0] == eager_losses[0]
+             and graph_gen_losses[0] == eager_gen_losses[0]
+             and not differ["replayed"],
+             "eager": eager2_losses[0] == eager_losses[0]
+             and not differ["eager"]}
     del eager_wl, eager2_wl
     log(f"[window] {what}: replayed against eager, the same draws: losses "
-        f"{graph_losses[0]} vs {eager_losses[0]}; parameters apart at most "
-        f"{worst} (two eager windows: {eager_spread}, losses "
-        f"{eager2_losses[0]}); the same "
-        f"generator: losses {graph_gen_losses[0]} vs "
-        f"{eager_gen_losses[0]}, Philox offset {offsets[0]} -> "
-        f"{offsets[1]} (eager {offsets[2]})")
-    for got, want in ((graph_losses, eager_losses),
-                      (graph_gen_losses, eager_gen_losses)):
-        if got[0][0] != want[0][0]:
-            raise AssertionError(f"window {what}: the first step's loss "
-                                 f"{got[0][0]!r} replayed, {want[0][0]!r} "
-                                 f"eager")
-        np.testing.assert_allclose(got[0], want[0], rtol=WINDOW_LOSS_RTOL,
-                                   err_msg=f"window {what}: losses")
-    for name, (share, big) in apart.items():
-        if share > WINDOW_SHARE or big > WINDOW_MAX:
-            raise AssertionError(f"window {what}: {name} replayed against "
-                                 f"eager: {share:.4g} of entries apart, at "
-                                 f"most {big:.4g}")
+        f"{graph_losses[0]} vs {eager_losses[0]} (two eager windows: "
+        f"{eager2_losses[0]}); the same generator: losses "
+        f"{graph_gen_losses[0]} vs {eager_gen_losses[0]}, Philox offset "
+        f"{offsets[0]} -> {offsets[1]} (eager {offsets[2]}); every loss and "
+        f"parameter bit for bit: replayed against eager "
+        f"{equal['replayed']}, two eager windows {equal['eager']} "
+        f"(parameters apart: {differ})")
+    if not all(equal.values()):
+        raise AssertionError(f"window {what}: not bit for bit: {equal}, "
+                             f"parameters apart {differ}")
     if offsets[1] != offsets[2] or offsets[1] == offsets[0]:
         raise AssertionError(f"window {what}: the replays left the "
                              f"generator at {offsets[1]}, eager steps at "
@@ -3636,6 +3808,11 @@ def window_checks(wl, what: str, focal_block=None) -> dict:
         turns["k8"].append(float(np.sum(times)) / k)
         turns["k8_peak"].append(torch.cuda.max_memory_allocated())
     reserved = torch.cuda.memory_reserved()
+    parent_turns = parent_window_turns(wl, windows[5:7], gen, focal_block)
+    if parent_turns:
+        log(f"[window] {what}: replayed windows in turns with the parent "
+            f"tree's H2 ({PARENT.dir}), on {CARD}, s/step: this "
+            f"{parent_turns['this']}, the parent's {parent_turns['parent']}")
     win_s = []
 
     def one_window():
@@ -3658,14 +3835,9 @@ def window_checks(wl, what: str, focal_block=None) -> dict:
            "profiled_window_s": win_s[0],
            "window_device_busy_ms": prof["device_busy_ms"],
            "window_busy_share": busy, "window_traced_launches": traced,
-           "loss_rel_diff_draws": float(np.max(np.abs(
-               np.asarray(graph_losses[0]) - eager_losses[0])
-               / np.abs(eager_losses[0]))),
-           "eager_loss_rel_diff_draws": float(np.max(np.abs(
-               np.asarray(eager2_losses[0]) - eager_losses[0])
-               / np.abs(eager_losses[0]))),
-           "params_apart_max": worst,
-           "eager_params_apart_max": eager_spread}
+           "step_repeats": repeats, "bit_for_bit": equal,
+           **({"parent_turns_s_per_step_k8": parent_turns}
+              if parent_turns else {})}
     log(f"[window] {what}: s/step K=1 {turns['k1']} vs K={k} "
         f"{turns['k8']}; peak GiB allocated: K=1 "
         f"{[round(x / 2**30, 3) for x in turns['k1_peak']]} (from an "
@@ -3678,6 +3850,59 @@ def window_checks(wl, what: str, focal_block=None) -> dict:
         f"({busy:.1%}), its launches in the trace {traced}; the capture's "
         f"window {cap_s[0]:.2f} s")
     return out
+
+
+def parent_step_turns(wl, batches, gen, focal_block=None) -> dict:
+    """With a parent tree: single train steps (``run_steps``, each ending
+    in a synchronize) on ``batches`` from a copy of ``wl``'s state, in
+    turns over this tree's and the parent's H2 and H5 (parent, this, this,
+    parent, after a warm-up step of each); {form: [mean s/step of each
+    turn]}, or {} without a parent."""
+    import contextlib
+
+    import numpy as np
+
+    from gfnerf_tpu_torch.train_bench import run_steps
+
+    if PARENT is None:
+        return {}
+    cwl = workload_copy(wl)
+    turns = {"parent": [], "this": []}
+    for form in ("parent", "this", "parent", "this", "this", "parent"):
+        with (parent_table_grads() if form == "parent"
+              else contextlib.nullcontext()):
+            times, _ = run_steps(cwl, batches, gen, focal_block)
+        turns[form].append(float(np.mean(times)))
+    # the first turn of each warmed its form up
+    return {form: ts[1:] for form, ts in turns.items()}
+
+
+def parent_window_turns(wl, windows, gen, focal_block=None) -> dict:
+    """With a parent tree: the K = WINDOW_K windows ``windows`` replayed
+    in turns (parent, this, this, parent) from ``wl``'s state and from a
+    copy of it whose graph was captured over the parent's H2 and H5;
+    {form: [s/step of each turn]}, or {} without a parent."""
+    import contextlib
+
+    import numpy as np
+
+    from gfnerf_tpu_torch.train_bench import run_windows
+
+    if PARENT is None:
+        return {}
+    pwl = workload_copy(wl)
+    with parent_table_grads():
+        run_windows(pwl, windows[:1], gen, WINDOW_K, focal_block)  # capture
+    turns = {"parent": [], "this": []}
+    for form in ("parent", "this", "this", "parent"):
+        with (parent_table_grads() if form == "parent"
+              else contextlib.nullcontext()):
+            times, _ = run_windows(pwl if form == "parent" else wl, windows,
+                                   gen, WINDOW_K, focal_block)
+        turns[form].append(float(np.sum(times)) / (WINDOW_K * len(times)))
+    for fn in pwl["window_fns"].values():
+        fn.reset()
+    return turns
 
 
 # gf-nerf-perf's window with the field recomputed in the backward:
@@ -3694,8 +3919,7 @@ def remat_window_checks() -> dict:
     WINDOW_REMAT_CHUNKS on the card (``torch.utils.checkpoint`` inside the
     captured step).  Checked: the window captured and replayed against the
     same window run eagerly from deep copies of the state and the same
-    injected draws (the first step's loss bit for bit, each step's to
-    WINDOW_LOSS_RTOL, every parameter at WINDOW_SHARE / WINDOW_MAX); a
+    injected draws (every loss and parameter bit for bit); a
     replayed window's launches, K times an eager step's, by the counters
     and by the kernels' records in a profiled replayed window's trace (the
     recomputed encode launches H1 again in the backward).  Timed in turns:
@@ -3772,24 +3996,16 @@ def remat_window_checks() -> dict:
     fn = rwl["window_fns"][(STAGE_INIT, k)]
     if fn.captures != 1:
         raise AssertionError(f"window remat: {fn.captures} captures")
-    apart = _params_apart(rwl["state"].field, eager_wl["state"].field)
-    worst = max(apart.values(), key=lambda v: v[1])
+    differ = _params_differ(rwl["state"].field, eager_wl["state"].field)
+    equal = graph_losses[0] == eager_losses[0] and not differ
     del eager_wl
     log(f"[window] remat {WINDOW_REMAT_CHUNKS} ({WINDOW_REMAT_CONFIG}): "
         f"replayed against eager, the same draws: losses {graph_losses[0]} "
-        f"vs {eager_losses[0]}; parameters apart at most {worst}")
-    if graph_losses[0][0] != eager_losses[0][0]:
-        raise AssertionError(f"window remat: the first step's loss "
-                             f"{graph_losses[0][0]!r} replayed, "
-                             f"{eager_losses[0][0]!r} eager")
-    np.testing.assert_allclose(graph_losses[0], eager_losses[0],
-                               rtol=WINDOW_LOSS_RTOL,
-                               err_msg="window remat: losses")
-    for name, (share, big) in apart.items():
-        if share > WINDOW_SHARE or big > WINDOW_MAX:
-            raise AssertionError(f"window remat: {name} replayed against "
-                                 f"eager: {share:.4g} of entries apart, at "
-                                 f"most {big:.4g}")
+        f"vs {eager_losses[0]}; every loss and parameter bit for bit: "
+        f"{equal} (apart: {differ})")
+    if not equal:
+        raise AssertionError(f"window remat: not bit for bit, parameters "
+                             f"apart {differ}")
 
     # a replayed window launches K times what an eager step launches: by
     # the counters, and by the kernels' records in a replayed window's
@@ -3842,10 +4058,7 @@ def remat_window_checks() -> dict:
            "remat0_capture_peak_reserved_bytes": plain_capture[1],
            "step_launches": step_launches, "window_traced_launches": traced,
            "window_device_busy_ms": prof["device_busy_ms"],
-           "loss_rel_diff_draws": float(np.max(np.abs(
-               np.asarray(graph_losses[0]) - eager_losses[0])
-               / np.abs(eager_losses[0]))),
-           "params_apart_max": worst}
+           "bit_for_bit": equal}
     log(f"[window] remat {WINDOW_REMAT_CHUNKS}: s/step K=1 {turns['k1']} "
         f"vs K={k} {turns['k8']}; "
         f"peak GiB allocated / reserved: the capture window "
@@ -3928,6 +4141,9 @@ GFNERF_OVERRIDES = {
 # MLP type, layout, rays a step)
 GFNERF_WIDTH = (1024, 256, 16, 2, 21, 10, 128, "float32", "anchored", 8192)
 GFNERF_REMAT_CHUNKS = 8
+# the steps a second Trainer runs again from the same seed (before the
+# milestone rebuild), held bit for bit against the run's
+GFNERF_REPEAT_STEPS = 8
 # early termination at eps = 0 against the single pass: the JAX tests'
 # tolerance (tests/test_render_early.py), the head and tail composited
 # apart
@@ -3981,12 +4197,14 @@ def compacted_points(p, batch, noise, fineness):
     return (warp + 1.5) * (1.0 / 3.0), anc, n_kept
 
 
-def time_anchored_at(table, addr, what) -> tuple:
-    """H4 and H5 at one shape: H4 equal to its plain version bit for bit,
-    H5 to H2's tolerance with its reductions per level held against the
-    host's reckoning; each timed (10 calls per event pair) against its
-    plain version, H5 also against index_add_ of the same terms; bounds
-    from the bytes.  Returns (H4's, H5's report)."""
+def time_anchored_at(table, addr, what, parent=False) -> tuple:
+    """H4 and H5 at one shape: each equal to its plain version bit for bit
+    (H5 also called again and on the points permuted: check_table_grad),
+    H5's reductions per level held against the host's reckoning; each
+    timed (10 calls per event pair) against its plain version, H5 also
+    against index_add_ of the same terms (and with ``parent`` in turns
+    with the parent tree's: against_parent); bounds from the bytes.
+    Returns (H4's, H5's report)."""
     import torch
 
     from gfnerf_tpu_torch.fields import hash_encoding as he
@@ -4013,23 +4231,22 @@ def time_anchored_at(table, addr, what) -> tuple:
     g = torch.randn((p, n_levels * c), generator=gen, device="cuda")
     args = (g, *addr, local, c)
     ops = torch.zeros(n_levels, dtype=torch.int64, device="cuda")
-    got = he._hash_backward_cuda(*args, red_ops=ops)
-    want = he.hash_backward_reference(*args)
-    reckoned = he.hash_bwd_reductions(*addr)
-    torch.cuda.synchronize()
-    assert_close([got], [want], f"{what} hash_anchored_bwd",
-                 atol_rel=H2_ATOL_REL)
+    he._hash_backward_cuda(*args, red_ops=ops)
+    reckoned = he.hash_bwd_reductions(*addr, c)
+    check_table_grad(f"{what} hash_anchored_bwd", he._hash_backward_cuda,
+                     he.hash_backward_reference, args)
     if ops.tolist() != reckoned.tolist():
         raise AssertionError(f"{what} hash_anchored_bwd: reductions "
                              f"{ops.tolist()}, reckoned {reckoned.tolist()}")
-    bwd_err = max_err([got], [want])
-    del got, want
+    bwd_err = 0.0
     terms = list(he.hash_scatter_terms(*args))
     rows = torch.cat([t[0] for t in terms])
     payload = torch.cat([t[1] for t in terms])
     del terms
     n_bytes = hash_bwd_bytes(p, n_levels, c, table.numel())
-    bwd = {"max_abs_err": bwd_err,
+    bwd = {**(against_parent(what, "hash_anchored_bwd", "h5", args)
+              if parent else {}),
+           "max_abs_err": bwd_err,
            "ms": time_ms(lambda: he._hash_backward_cuda(*args), n=11),
            "plain_ms": time_ms(lambda: he.hash_backward_reference(*args),
                                n=3),
@@ -4229,13 +4446,17 @@ def phase_gfnerf(tmp: Path):
     scene = tmp / "scene"
     if not scene.is_dir():
         make_synthetic_npz(scene, n_train=48, n_val=4, img_wh=(96, 72))
-    cfg = get_method("gf-nerf")
-    for key, value in {**GFNERF_OVERRIDES,
-                       "max_num_iterations": str(GFNERF_STEPS),
-                       "output_dir": str(tmp / "gfnerf_out")}.items():
-        apply_override(cfg, key, value)
-    cfg.data = scene
-    trainer = Trainer(cfg, build_dataparser("minimal", scene))
+
+    def make_trainer(steps, out):
+        cfg = get_method("gf-nerf")
+        for key, value in {**GFNERF_OVERRIDES,
+                           "max_num_iterations": str(steps),
+                           "output_dir": str(tmp / out)}.items():
+            apply_override(cfg, key, value)
+        cfg.data = scene
+        return Trainer(cfg, build_dataparser("minimal", scene))
+
+    trainer = make_trainer(GFNERF_STEPS, "gfnerf_out")
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     SETUP_REUSE.note()   # this setup's reuses alone
@@ -4277,6 +4498,9 @@ def phase_gfnerf(tmp: Path):
         m = get_loss(step)
         torch.cuda.synchronize()
         dt = time.perf_counter() - t
+        if step == GFNERF_REPEAT_STEPS - 1:
+            snap["repeat"] = {name: x.detach().clone() for name, x in
+                              p.field.state_dict().items()}
         after = _step_counts()
         rec["steps"][step] = {"s": dt, "counts": {
             name: after[name] - before[name] for name in after}, **m}
@@ -4390,6 +4614,36 @@ def phase_gfnerf(tmp: Path):
         f"step ({RAYS / _mean(focal_s):.1f} rays/s; the second of each "
         f"block's); peak {peak / 2**30:.3f} GiB; the run {train_s:.1f}s")
 
+    # the first GFNERF_REPEAT_STEPS steps again, by a second Trainer from
+    # the same config and seed (its setup reuses the tree and primes, and
+    # it writes no checkpoint): every loss and every tensor of the field
+    # bit for bit (H5 sums the table gradient exactly, in fixed point)
+    again = make_trainer(GFNERF_REPEAT_STEPS, "gfnerf_again")
+    again.setup()
+    again.save_checkpoint = lambda step: None
+    p_again, losses_again = again.pipeline, {}
+    get_loss_again = p_again.get_train_loss_dict
+
+    def get_loss_again_w(step):
+        m = get_loss_again(step)
+        losses_again[step] = float(m["loss"])
+        return m
+
+    p_again.get_train_loss_dict = get_loss_again_w
+    again.train()
+    repeat_apart = [name for name, x in p_again.field.state_dict().items()
+                    if not torch.equal(x, snap["repeat"][name])]
+    repeat_losses = [losses_again[i] == losses[i]
+                     for i in range(GFNERF_REPEAT_STEPS)]
+    del again, p_again, get_loss_again, snap["repeat"]
+    torch.cuda.empty_cache()
+    log(f"[gfnerf] a second Trainer's first {GFNERF_REPEAT_STEPS} steps "
+        f"against the run's: losses equal {repeat_losses}, field tensors "
+        f"apart {repeat_apart or 'none'}")
+    if not all(repeat_losses) or repeat_apart:
+        raise AssertionError("gf-nerf: a second run of the first steps "
+                             "differs")
+
     # from the trained state
     images = np.asarray(p.datamanager.train_dataset.metadata[
         "images_array"], np.float32) / 255.0
@@ -4412,6 +4666,14 @@ def phase_gfnerf(tmp: Path):
         (p.field.global_prim, p.field.global_bias, pts, anc), "gfnerf")
     del pts, anc
     compare_step(wl, "gfnerf", batch, noise, perms)
+    parent_steps = parent_step_turns(
+        wl, [make_batch(images, RAYS, 610 + i, p.device) for i in range(4)],
+        gen)
+    if parent_steps:
+        log(f"[gfnerf] init steps (eager, from a copy of the state) in turns "
+            f"with the parent tree's H5 ({PARENT.dir}), on {CARD}, s/step: "
+            f"this {parent_steps['this']}, the parent's "
+            f"{parent_steps['parent']}")
     remat = {}
     for chunks in (0, GFNERF_REMAT_CHUNKS):
         remat[chunks] = remat_step(p, chunks, batch, noise, perms)
@@ -4513,6 +4775,8 @@ def phase_gfnerf(tmp: Path):
         "frame_s_early_term": _mean(frame_s[True]),
         "early_term": {str(k): v for k, v in et.items()},
         "kept_samples": n_kept, "losses": losses,
+        **({"parent_turns_s_per_step": parent_steps} if parent_steps
+           else {}),
         "step_s": [steps[i]["s"] for i in range(GFNERF_STEPS)],
         "profiles": {k: {n: v[n] for n in ("step_ms", "device_busy_ms",
                                            "idle_share",
@@ -4695,13 +4959,10 @@ def check_prop_kernels(p, batch, noise) -> dict:
                        device="cuda")
     bargs = (gout, field.prop_prim, field.prop_bias, pts, anc, n_rows, width,
              c, pack, 0)
-    got = ph._packed_hash_backward_cuda(*bargs)
-    want = ph.packed_hash_backward_reference(*bargs)
-    torch.cuda.synchronize()
-    assert_close([got], [want], "[prop] packed_hash_bwd on the probe",
-                 atol_rel=H2_ATOL_REL)
-    err = max_err([got], [want])
-    del got, want
+    check_table_grad("[prop] packed_hash_bwd on the probe",
+                     ph._packed_hash_backward_cuda,
+                     ph.packed_hash_backward_reference, bargs)
+    err = 0.0
     ops = torch.zeros(n_levels, dtype=torch.int64, device="cuda")
     ph._packed_hash_backward_cuda(*bargs, red_ops=ops)
     terms = list(ph.packed_hash_scatter_terms(*bargs))
@@ -4709,7 +4970,10 @@ def check_prop_kernels(p, batch, noise) -> dict:
     payload = torch.cat([t[1] for t in terms])
     del terms
     n_out = n_levels * n_rows * width // c
+    turns = against_parent("prop", "packed_hash_bwd on the probe", "h2",
+                           bargs)
     out["packed_hash_bwd"] = {
+        **turns,
         "shape": [pts.shape[0], n_levels, c, n_rows], "max_abs_err": err,
         "ms": time_ms(lambda: ph._packed_hash_backward_cuda(*bargs), n=11),
         "plain_ms": time_ms(lambda: ph.packed_hash_backward_reference(
@@ -4719,9 +4983,28 @@ def check_prop_kernels(p, batch, noise) -> dict:
         "bound_ms": hash_bwd_bytes(pts.shape[0], n_levels, c,
                                    field.prop_feat.numel())
         / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
-        "launches_per_call": table_grad_launches(n_levels, c),
+        "launches_per_call": table_grad_launches(n_levels),
         "reductions_per_level": ops.tolist()}
-    del rows, payload, gout, pts, anc
+    del rows, payload, gout
+    # H2 at the field's table and the fine samples' count (64 a ray): every
+    # 4th probe point, in ray and t order as the fine samples are
+    fc = p.field_cfg
+    fine = (pts[::4].contiguous(), anc[::4].contiguous())
+    _, f_rows, f_width = field.global_feat.shape
+    gout = torch.randn((fine[0].shape[0], fc.num_levels
+                        * fc.features_per_level), generator=gen,
+                       device="cuda")
+    check_table_grad(
+        "[prop] packed_hash_bwd at the field", ph._packed_hash_backward_cuda,
+        ph.packed_hash_backward_reference,
+        (gout, field.global_prim, field.global_bias, *fine, f_rows, f_width,
+         fc.features_per_level, ph.pack_for_channels(
+             fc.features_per_level, fc.packed_row_width), 0))
+    log(f"[prop] packed_hash_bwd at the field ({fine[0].shape[0]} points, "
+        f"{fc.num_levels} x {fc.features_per_level} of {f_rows} rows): "
+        f"equal to the plain version bit for bit, also called again and on "
+        f"the points permuted")
+    del gout, fine, pts, anc
     torch.cuda.empty_cache()
     for name, k in out.items():
         log(f"[prop] {name} at {k['shape']}: max abs err "
@@ -4733,7 +5016,7 @@ def check_prop_kernels(p, batch, noise) -> dict:
                if k["library_ms"] is not None else "")
             + f"bound {k['bound_ms']:.4f} ms")
     log(f"[prop] the probe's points: {n_valid} of {n_points} valid; "
-        f"H2's vector reductions per level "
+        f"H2's 64-bit reductions per level "
         f"{out['packed_hash_bwd']['reductions_per_level']} into "
         f"{n_levels} x {n_rows} rows")
     return out
@@ -4908,8 +5191,8 @@ def phase_prop(tmp: Path):
     probe_shape = tuple(p.field.prop_feat.shape)
     main_shape = tuple(p.field.global_feat.shape)
     n_probe, n_fine = rays * s_march, rays * k
-    h2_probe = table_grad_launches(fc.proposal_levels, 4)
-    h2_main = table_grad_launches(fc.num_levels, fc.features_per_level)
+    h2_probe = table_grad_launches(fc.proposal_levels)
+    h2_main = table_grad_launches(fc.num_levels)
     for i in range(PROP_STEPS):
         init = i < PROP_INIT_STEPS
         want = ({"composite_fwd": 1, "composite_bwd": 1,
@@ -5355,8 +5638,8 @@ def phase_nerfacto(tmp: Path):
         raise AssertionError(f"nerfacto: steps run {sorted(steps)}")
     h4 = 2 * encode_launches(mc.proposal_num_levels) + encode_launches(
         mc.num_levels)
-    h5 = 2 * table_grad_launches(mc.proposal_num_levels, 2) + \
-        table_grad_launches(mc.num_levels, 2)
+    h5 = 2 * table_grad_launches(mc.proposal_num_levels) + \
+        table_grad_launches(mc.num_levels)
     want = {"hash_anchored_fwd": h4, "hash_anchored_bwd": h5,
             "hash_anchored_fwd_calls": 3, "hash_anchored_bwd_calls": 3}
     for i in range(NERFACTO_STEPS):
@@ -5640,7 +5923,7 @@ def phase_semantics(tmp: Path):
     p.get_train_loss_dict = get_loss
     if sorted(rec) != list(range(SEMANTICS_STEPS)):
         raise AssertionError(f"semantics: steps run {sorted(rec)}")
-    h2 = table_grad_launches(fc.num_levels, fc.features_per_level)
+    h2 = table_grad_launches(fc.num_levels)
     for i in range(SEMANTICS_STEPS):
         init = i < SEMANTICS_INIT_STEPS
         want = {"composite_fwd": 1, "composite_bwd": 1,
@@ -6020,7 +6303,7 @@ def phase_instant_ngp(tmp: Path):
     if sorted(steps) != list(range(NGP_STEPS)):
         raise AssertionError(f"instant-ngp: steps run {sorted(steps)}")
     h4, h5 = encode_launches(mc.num_levels), table_grad_launches(
-        mc.num_levels, 2)
+        mc.num_levels)
     for i in range(NGP_STEPS):
         extra = int(i % ngp_mod.OCC_UPDATE_EVERY == 0)
         want = {"hash_anchored_fwd": h4 * (1 + extra),
@@ -6125,7 +6408,8 @@ def phase_instant_ngp(tmp: Path):
     for name, (table, prim, bias, pts, anc) in zip(
             ("train step", "occupancy update"), enc.calls):
         kernels[name] = time_anchored_at(table, (prim, bias, pts, anc),
-                                         f"instant-ngp {name}")
+                                         f"instant-ngp {name}",
+                                         parent=name == "train step")
     del enc
     torch.cuda.empty_cache()
     occ_ms = time_ms(lambda: ngp_mod.update_occupancy(p.model, jitter), n=7)
@@ -8182,7 +8466,7 @@ def phase_captures(tmp: Path):
     p.get_train_loss_dict, p.get_eval_loss_dict = get_loss, eval_batch
     if sorted(rec) != list(range(CAPTURE_STEPS)):
         raise AssertionError(f"captures: steps run {sorted(rec)}")
-    h2 = table_grad_launches(fc.num_levels, fc.features_per_level)
+    h2 = table_grad_launches(fc.num_levels)
     want = {"composite_fwd": 1, "composite_bwd": 1, "packed_hash_fwd": 1,
             "packed_hash_bwd": h2, "packed_hash_bwd_calls": 1}
     for i in range(CAPTURE_STEPS):
@@ -9662,9 +9946,7 @@ def phase_parallel(tmp: Path):
                                    backend)
         wall = time.perf_counter() - t0
         st = check_parallel_ranks(ranks, backend, table_grad_launches(
-            {"fcfg": SimpleNamespace(num_levels=fields.field_num_levels,
-                                     features_per_level=(
-                                         fields.field_features_per_level))}))
+            {"fcfg": SimpleNamespace(num_levels=fields.field_num_levels)}))
         st["ranks_wall_s"] = wall
         got = st.pop("launches")
         launches = got if launches is None else {
@@ -10310,9 +10592,7 @@ def phase_parallel_window(tmp: Path, backend: str = "nccl"):
                         "parallel window")
     wall = time.perf_counter() - t0
     st = check_parallel_window(ranks, table_grad_launches(
-        {"fcfg": SimpleNamespace(num_levels=fields.field_num_levels,
-                                 features_per_level=(
-                                     fields.field_features_per_level))}))
+        {"fcfg": SimpleNamespace(num_levels=fields.field_num_levels)}))
     st.update(run=True, cards=cards, ranks_wall_s=wall)
     for rk in ranks:
         for s in rk["steps"].values():
@@ -10589,7 +10869,9 @@ def main() -> int:
         log(f"[clock] {name} done at {time.perf_counter() - start:.1f}s")
 
     card = phase_device()
+    start_parent()
     phase_build()
+    join_parent()
     clock("build")
     jpeg_stats = phase_jpeg(card)
     clock("jpeg")
@@ -10809,7 +11091,9 @@ def main_only(names) -> int:
         return 2
     card = phase_device()
     log(card)
+    start_parent()
     phase_build()
+    join_parent()
     with tempfile.TemporaryDirectory(prefix="gfnerf_pipeline_") as tmp:
         for name in names:
             if name == "jpeg":
@@ -10831,6 +11115,9 @@ if __name__ == "__main__":
     args = sys.argv[1:]
     if args[:1] == ["--counted"] and len(args) > 1:
         sys.exit(run_counted(args[1], args[2:]))
+    if args[:1] == ["--parent"] and len(args) > 1:
+        PARENT_DIR = Path(args[1])
+        args = args[2:]
     if args[-2:-1] == ["--coverage-case"]:
         COVERAGE_CASE = args[-1]
         args = args[:-2]

@@ -1,8 +1,8 @@
 // The C channels of one table corner as one vector access: a load of C bf16
 // values (the encodes H1 and H3 read a bf16 copy of the table), a load of C
 // f32 values each rounded to bf16 in registers (H4 reads the f32 table and
-// gets the values a bf16 copy would hold), and a reduction of C f32 values
-// (the table gradients H2, H5 add into f32).
+// gets the values a bf16 copy would hold), and the reductions of C int64
+// sums (the table gradients H2, H5 add in fixed point).
 // A corner's channels are contiguous and aligned to their own size in every
 // table layout of the port: (L, rows, W) packed rows with C-channel lattice
 // entries, and (L, local, C) anchored tables.
@@ -70,38 +70,18 @@ struct Corner<8> {
   }
 };
 
-// One corner's C f32 channels, added with vector reductions: CUDA's
-// atomicAdd(float2*, float2) and atomicAdd(float4*, float4) overloads for
-// compute capability 9.x, whose result is unused (a reduction, RED, in the
-// SASS).  kOps: reductions per corner.
+// One corner's C channels of fixed-point sums (fixed_point.cuh), added with
+// C scalar 64-bit reductions: atomicAdd(unsigned long long*) whose result
+// is unused (a reduction, RED.E.ADD.64, in the SASS); a signed sum adds as
+// its two's complement.  kOps: reductions per corner.
 template <int C>
-struct CornerRed;
-
-template <>
-struct CornerRed<2> {
-  static constexpr int kOps = 1;
-  __device__ static void add(float* p, const float* v) {
-    atomicAdd(reinterpret_cast<float2*>(p), make_float2(v[0], v[1]));
-  }
-};
-
-template <>
-struct CornerRed<4> {
-  static constexpr int kOps = 1;
-  __device__ static void add(float* p, const float* v) {
-    atomicAdd(reinterpret_cast<float4*>(p),
-              make_float4(v[0], v[1], v[2], v[3]));
-  }
-};
-
-template <>
-struct CornerRed<8> {
-  static constexpr int kOps = 2;
-  __device__ static void add(float* p, const float* v) {
-    atomicAdd(reinterpret_cast<float4*>(p),
-              make_float4(v[0], v[1], v[2], v[3]));
-    atomicAdd(reinterpret_cast<float4*>(p + 4),
-              make_float4(v[4], v[5], v[6], v[7]));
+struct CornerRed {
+  static constexpr int kOps = C;
+  __device__ static void add(long long* p, const long long* v) {
+#pragma unroll
+    for (int ch = 0; ch < C; ++ch)
+      atomicAdd(reinterpret_cast<unsigned long long*>(p + ch),
+                (unsigned long long)v[ch]);
   }
 };
 

@@ -21,8 +21,8 @@
 //   32 of them at ONE level, so a load instruction reads one level's table
 //   and consecutive samples of a ray, which share cells on the coarse
 //   levels, read the same sectors (one request for the run).
-// - One launch per group of levels (kLevelGroup, or levels_per_launch), as
-//   the table gradient H5 does: a launch's working set is its group's slice
+// - One launch per group of levels (kLevelGroup, or levels_per_launch): a
+//   launch's working set is its group's slice
 //   of the table (16 MB at 4 levels of 2^19 x 2 f32), which the 50 MB L2
 //   holds while the launch runs, where all 16 levels (67 MB) would not.
 //   chip_smoke.py times 1, 2, 4, 8 and 16 levels per launch.
@@ -138,7 +138,7 @@ int launch(const void* table, const int* primes, const float* bias,
     if (err != cudaSuccess) return (int)err;
   }
   return gfnerf::launch_level_groups(
-      map, n_levels, nullptr, 0, stream, launches, [&](int l0, int n_lev) {
+      map, n_levels, launches, [&](int l0, int n_lev) {
         hash_anchored_fwd_kernel<T, C><<<(unsigned)map.n_tiles,
                                          32 * map.warps, smem, stream>>>(
             static_cast<const T*>(table), primes, bias, scales, points,

@@ -12,13 +12,13 @@
 // PACK is the shift / multiply-shift of packed_hash._div_pack.
 //
 // Thread mapping (TileMap): a block takes a tile of consecutive points at a
-// group of levels and stages their coordinates and anchors (and, in H2,
-// their upstream gradient) in shared memory.  Each warp then takes 32
-// consecutive points of the tile at ONE level, one point per lane.  The
-// points are ray-major and in t order, so on the coarse levels neighbouring
-// lanes fall into the same cell: H1's loads of a run hit the same sectors in
-// one instruction, and H2 merges each run of equal cells into one
-// contributor.
+// group of levels (one level in H2) and stages their coordinates and
+// anchors (and, in H2, their upstream gradient) in shared memory.  Each
+// warp then takes 32 consecutive points of the tile at ONE level, one
+// point per lane.  The points are ray-major and in t order, so on the
+// coarse levels neighbouring lanes fall into the same cell: H1's loads of a
+// run hit the same sectors in one instruction, and H2 merges each run of
+// equal cells into one contributor.
 
 #pragma once
 
@@ -121,13 +121,13 @@ __device__ __forceinline__ unsigned long long cell_key(const HashCell& c) {
 }
 
 // Tiles of the kernels.  A launch covers a group of consecutive levels
-// (H1: all L; H2, H4 and H5: a few, the launcher running the groups one
-// after the other on the stream), and a block takes a tile of consecutive
-// points at the group's levels.  Warp w of a block handles the (32-point
-// slice, level) pairs w, w + warps, ...; a tile holds enough slices for
-// `passes` pairs per warp.  More passes spread a block's fixed costs (the staging
-// round trip, the barriers, the write-back) over more work, and cost
-// shared memory.
+// (H1: all L; H4: a few, the launcher running the groups one after the
+// other on the stream; H2 and H5: one), and a block takes a tile of
+// consecutive points at the group's levels.  Warp w of a block handles the
+// (32-point slice, level) pairs w, w + warps, ...; a tile holds enough
+// slices for `passes` pairs per warp.  More passes spread a block's fixed
+// costs (the staging round trip, the barriers, the write-back) over more
+// work, and cost shared memory.
 struct TileMap {
   int group;          // levels per launch (the last may hold fewer)
   int slices;         // 32-point slices per tile
@@ -159,7 +159,7 @@ struct BlockTile {
 // columns and the address allow it.  The points, anchors, upstream gradient
 // and output stream through once, so they move with evict-first hints
 // (ld.global.cs / st.global.cs): the L2 then keeps the table (H1) or the
-// gradient (H2).
+// level's sums (H2).
 __device__ __forceinline__ bool vec4_rows(const float* global, int cols,
                                           long long gstride) {
   return cols % 4 == 0 && gstride % 4 == 0 &&
@@ -244,29 +244,18 @@ __device__ __forceinline__ void store_rows_added(
   }
 }
 
-// The launches of a kernel over groups of levels: one per group of
-// map.group levels.  The table gradients (H2, H5) pass their gradient:
-// each launch is then preceded by a cudaMemsetAsync of its group's
-// gradient (level_floats f32 a level) on the same stream, so that the
-// group's adds land in zeroed lines the L2 still holds.  The anchored
-// encode (H4) passes null: nothing to zero.  launch_group(l0, n_lev)
-// launches the kernel over levels [l0, l0 + n_lev); *launches counts the
-// launches made.  Returns the first CUDA error, or cudaSuccess.
+// The launches of a kernel over groups of levels (the anchored encode H4):
+// one per group of map.group levels.  launch_group(l0, n_lev) launches the
+// kernel over levels [l0, l0 + n_lev); *launches counts the launches made.
+// Returns the first CUDA error, or cudaSuccess.
 template <class LaunchGroup>
-int launch_level_groups(const TileMap& map, int n_levels, float* grad,
-                        size_t level_floats, cudaStream_t stream,
-                        int* launches, LaunchGroup launch_group) {
+int launch_level_groups(const TileMap& map, int n_levels, int* launches,
+                        LaunchGroup launch_group) {
+  if (map.n_tiles == 0) return (int)cudaSuccess;
   for (int l0 = 0; l0 < n_levels; l0 += map.group) {
     const int n_lev = map.group < n_levels - l0 ? map.group : n_levels - l0;
-    cudaError_t err = cudaSuccess;
-    if (grad != nullptr) {
-      err = cudaMemsetAsync(grad + l0 * level_floats, 0,
-                            sizeof(float) * n_lev * level_floats, stream);
-      if (err != cudaSuccess) return (int)err;
-    }
-    if (map.n_tiles == 0) continue;
     launch_group(l0, n_lev);
-    err = cudaGetLastError();
+    const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
     ++*launches;
   }

@@ -1,5 +1,6 @@
-// Warp aggregation of runs of equal cells, shared by the two table
-// gradients (H2, packed_hash_bwd.cu; H5, hash_anchored_bwd.cu).
+// Warp aggregation of runs of equal cells, shared by the table gradients
+// (H2, packed_hash_bwd.cu; H5, hash_anchored_bwd.cu; T2,
+// temporal_grid_bwd.cu).
 //
 // Both kernels give each warp 32 consecutive points at one level, one point
 // per lane.  The points are ray-major and in t order, so on the coarse
@@ -7,8 +8,9 @@
 // same table entries.  A lane whose cell equals its left neighbour's joins
 // that neighbour's run; a segmented shuffle scan sums the run's payloads
 // into the run's first lane (its head), which alone makes the reductions.
-// Equal cells address equal entries, so the merge is exact up to the order
-// of the f32 sum.  The caller decides what "equal" means and marks the
+// Equal cells address equal entries, so the merge is exact for H2's and
+// H5's int64 fixed-point payloads, and exact up to the order of the f32
+// sum for T2's.  The caller decides what "equal" means and marks the
 // heads: lane 0, every masked lane (a run of its own, adding nothing), and
 // every lane whose cell differs from its left neighbour's or whose left
 // neighbour is masked.
@@ -41,8 +43,8 @@ __device__ __forceinline__ WarpRuns find_runs(bool head, int lane) {
 // [i, run_end), so a run's head holds the run's total.  It takes only as
 // many steps as the warp's longest run needs: none where every lane is a
 // run of its own, as on the fine levels.
-template <int O, int C>
-__device__ __forceinline__ void sum_runs(float (&pay)[O][C],
+template <int O, int C, class T>
+__device__ __forceinline__ void sum_runs(T (&pay)[O][C],
                                          const WarpRuns& runs, int lane) {
   for (int off = 1; off < runs.longest; off <<= 1) {
     const bool take = lane + off < runs.run_end;
@@ -50,7 +52,7 @@ __device__ __forceinline__ void sum_runs(float (&pay)[O][C],
     for (int o = 0; o < O; ++o) {
 #pragma unroll
       for (int ch = 0; ch < C; ++ch) {
-        const float v = __shfl_down_sync(kFullWarp, pay[o][ch], off);
+        const T v = __shfl_down_sync(kFullWarp, pay[o][ch], off);
         if (take) pay[o][ch] += v;
       }
     }

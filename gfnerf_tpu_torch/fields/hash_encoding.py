@@ -10,11 +10,14 @@ level) interpolates the 8 corners of its cell, each found by the hash
 does; the prime sampling and level scales are shared with the packed
 layout.  ``hash_encode_raw`` is the plain PyTorch forward in the form the
 JAX package's ``hash_encode_sorted`` runs (the table read through a bf16
-copy) and ``hash_backward_reference`` the plain dense table gradient
-(``index_add_`` of weight x upstream gradient, in f32; the JAX package's
-sort + prefix + run-end-difference backward with its bf16 payload is a TPU
-workaround and is not carried over); ``hash_bwd_reductions`` counts the
-reductions the table gradient's kernel makes, from the same addressing.
+copy) and ``hash_backward_reference`` the plain dense table gradient: the
+terms weight x upstream gradient (f32) summed exactly in int64 fixed point
+(:func:`fixed_point_table_grad`, shared with the packed layout), so that
+the gradient is a function of its inputs whatever order the terms are
+added in, as the JAX package's is (its sort + prefix + run-end-difference
+backward with its bf16 payload, a TPU workaround, is not carried over);
+``hash_bwd_reductions`` counts the reductions the table gradient's kernel
+makes, from the same addressing.
 ``hash_encode`` is the differentiable
 wrapper, with a gradient for the table only: on CPU tensors it runs the
 plain pair, on CUDA tensors the forward launches
@@ -278,42 +281,103 @@ def hash_scatter_terms(g, prim_pool, bias_pool, points, anchors,
             yield idx + l * local_size, w[:, None] * g[:, l]
 
 
+def _pow2(e: torch.Tensor) -> torch.Tensor:
+    """2^e as float64, exactly, for int64 e in [-1022, 1023]."""
+    return torch.bitwise_left_shift(e + 1023, 52).view(torch.float64)
+
+
+def fixed_point_shifts(g: torch.Tensor, n_levels: int, n_channels: int):
+    """(shift (L,) int64, finite (L,) bool) of the table gradient's levels:
+    s_l = 62 - ceil(log2 P) - E_l, where E_l is the exponent ``frexp``
+    gives the level's largest |g| over its columns of all P points (so
+    max|g| < 2^E_l; E_l = 0 for a level of zeros).  A term w * g with w <=
+    1 is then below 2^62 / P at the level's scale 2^s_l, and an entry's sum
+    over at most P points (their corner weights sum to 1) below 2^63.  A
+    level whose g holds a NaN or an inf is not finite (its shift: 0).  All
+    on g's device; nothing is read back to the host."""
+    p = g.shape[0]
+    gl = g.reshape(p, n_levels, n_channels).to(torch.float32)
+    if p:
+        amax = gl.abs().amax(dim=(0, 2))
+    else:
+        amax = torch.zeros(n_levels, dtype=torch.float32, device=g.device)
+    finite = torch.isfinite(amax)
+    _, e = torch.frexp(amax)
+    log2p = max(p - 1, 0).bit_length()
+    return torch.where(finite, 62 - log2p - e.to(torch.int64), 0), finite
+
+
+def fixed_point_table_grad(g, terms, n_levels: int, per_level: int,
+                           n_channels: int) -> torch.Tensor:
+    """The table gradient (n_levels * per_level, C) f32 of ``terms``, one
+    (rows (P,), payload (P, C) f32) pair after another, ``rows`` indexing
+    the gradient viewed as rows of C channels, ``per_level`` of them a
+    level: the function the kernels H2 and H5 compute
+    (``csrc/fixed_point.cuh``).  Each payload value t is rounded once to
+    int64 at its level's scale, q = rint(t * 2^s_l) (half to even; the
+    product exact in f64), the q summed exactly with an int64
+    ``index_add_`` (in any order: the same bits), and each sum converted
+    as RN_f32(RN_f64(sum) * 2^-s_l).  A level that is not finite
+    (:func:`fixed_point_shifts`) is NaN throughout."""
+    shift, finite = fixed_point_shifts(g, n_levels, n_channels)
+    scale, inv = _pow2(shift), _pow2(-shift)
+    acc = torch.zeros((n_levels * per_level, n_channels), dtype=torch.int64,
+                      device=g.device)
+    for rows, payload in terms:
+        level = torch.div(rows, per_level, rounding_mode="floor")
+        t = payload.to(torch.float64) * scale[level][:, None]
+        t = torch.where(finite[level][:, None], t, 0.0)
+        acc.index_add_(0, rows, torch.round(t).to(torch.int64))
+    out = acc.view(n_levels, -1).to(torch.float64) * inv[:, None]
+    out = torch.where(finite[:, None], out.to(torch.float32), float("nan"))
+    return out.view(n_levels * per_level, n_channels)
+
+
 def hash_backward_reference(g, prim_pool, bias_pool, points, anchors,
                             local_size: int, n_channels: int):
     """Plain dense table gradient (L, local_size, C) f32 of the encode:
-    every term of :func:`hash_scatter_terms` added with ``index_add_``."""
+    every term of :func:`hash_scatter_terms` summed exactly in fixed point
+    (:func:`fixed_point_table_grad`), what H5 computes, bit for bit."""
     n_levels = prim_pool.shape[0]
-    grad = torch.zeros((n_levels * local_size, n_channels),
-                       dtype=torch.float32, device=g.device)
-    for rows, payload in hash_scatter_terms(g, prim_pool, bias_pool, points,
-                                            anchors, local_size, n_channels):
-        grad.index_add_(0, rows, payload)
+    grad = fixed_point_table_grad(
+        g, hash_scatter_terms(g, prim_pool, bias_pool, points, anchors,
+                              local_size, n_channels),
+        n_levels, local_size, n_channels)
     return grad.view(n_levels, local_size, n_channels)
 
 
-def hash_bwd_reductions(prim_pool, bias_pool, points, anchors,
-                        warp: int = 32) -> torch.Tensor:
-    """(L,) int64: the vector reductions the table-gradient kernel (H5)
-    makes per level.  Its warps take ``warp`` consecutive points from a
-    multiple of ``warp`` on, at one level; a run of consecutive valid
-    points in one cell, that is with equal (clamped volume, x0, y0, z0), is
-    one contributor, which adds its 8 corners with one reduction each.  A
-    masked point ends a run and adds nothing; equal cells of two volumes
-    (other primes) are two runs."""
+def hash_run_heads(prim_pool, bias_pool, points, anchors,
+                   warp: int = 32) -> torch.Tensor:
+    """(L,) int64: the runs the anchored kernels' warps find per level.
+    A warp takes ``warp`` consecutive points from a multiple of ``warp`` on,
+    at one level; a run of consecutive valid points in one cell, that is
+    with equal (clamped volume, x0, y0, z0), has one head.  A masked point
+    ends a run and has none; equal cells of two volumes (other primes) are
+    two runs."""
     n_levels = prim_pool.shape[0]
     valid = anchors >= 0
     vol = anchors.long().clamp(0, prim_pool.shape[1] - 1)
     biases = bias_pool[:, vol]
     scales = _level_scales(n_levels)
     first = torch.arange(points.shape[0], device=points.device) % warp == 0
-    ops = []
+    heads = []
     for l in range(n_levels):
         key = torch.stack([vol, *(x0 for x0, _ in _level_cells(
             points, biases[l], scales[l]))], -1)
         same = torch.zeros_like(valid)
         same[1:] = (key[1:] == key[:-1]).all(-1) & valid[:-1]
-        ops.append(8 * (valid & (first | ~same)).sum())
-    return torch.stack(ops)
+        heads.append((valid & (first | ~same)).sum())
+    return torch.stack(heads)
+
+
+def hash_bwd_reductions(prim_pool, bias_pool, points, anchors,
+                        n_channels: int, warp: int = 32) -> torch.Tensor:
+    """(L,) int64: the 64-bit reductions the table-gradient kernel (H5)
+    makes per level at finite upstream gradients: each run's head
+    (:func:`hash_run_heads`) adds its 8 corners' C channels with one
+    reduction each."""
+    return 8 * n_channels * hash_run_heads(prim_pool, bias_pool, points,
+                                           anchors, warp)
 
 
 def check_base(what, base, points, n_cols, in_place):
@@ -414,11 +478,11 @@ def plain_hash_encode(feat_pool, prim_pool, bias_pool, points, anchors,
 hash_encode.calls = 0          # H4 calls, one per forward
 hash_encode.base_calls = 0     # of those, calls given a base
 hash_encode.launches = 0       # H4 launches (one per group of levels)
-hash_encode.bwd_launches = 0   # H5 launches (one per group of levels)
+hash_encode.bwd_launches = 0   # H5 launches: table_grad_launches a call
 hash_encode.bwd_calls = 0      # H5 calls, one per backward
 
 # H4's levels per launch when the caller does not set them (kLevelGroup of
-# csrc/hash_anchored_fwd.cu); H5's are 8 / C (csrc/hash_anchored_bwd.cu)
+# csrc/hash_anchored_fwd.cu)
 FWD_LEVEL_GROUP = 4
 
 
@@ -429,12 +493,11 @@ def encode_launches(n_levels: int, per_launch: int = 0) -> int:
     return -(-n_levels // min(group, n_levels))
 
 
-def table_grad_launches(n_levels: int, n_channels: int,
-                        per_launch: int = 0) -> int:
-    """H5's launches for one call (one per group of levels; 0: the
-    kernel's own choice)."""
-    group = per_launch if per_launch > 0 else max(1, 8 // n_channels)
-    return -(-n_levels // min(group, n_levels))
+def table_grad_launches(n_levels: int) -> int:
+    """The launches of one table-gradient call with points, H2's or H5's
+    (``csrc/fixed_point.cuh``): the level maxima, then per level the
+    accumulation and the conversion."""
+    return 1 + 2 * n_levels
 
 
 @functools.lru_cache(maxsize=32)
@@ -515,12 +578,11 @@ def _hash_encode_cuda(feat_pool, prim_pool, bias_pool, points, anchors,
 
 
 def _hash_backward_cuda(g, prim_pool, bias_pool, points, anchors, local_size,
-                        n_channels, red_ops=None, levels_per_launch=0):
-    """H5 on CUDA tensors: the (L, local_size, C) table gradient.
-    ``red_ops``, an (L,) int64 tensor on the card, if given, gets the
-    number of vector reductions the kernel made per level added to it.
-    ``levels_per_launch`` > 0 sets the levels each of the kernel's launches
-    covers (0: its own choice)."""
+                        n_channels, red_ops=None):
+    """H5 on CUDA tensors: the (L, local_size, C) table gradient, equal to
+    :func:`hash_backward_reference` bit for bit.  ``red_ops``, an (L,)
+    int64 tensor on the card, if given, gets the number of 64-bit
+    reductions the kernel made per level added to it."""
     n_levels = prim_pool.shape[0]
     p = points.shape[0]
     if g.shape != (p, n_levels * n_channels):
@@ -534,15 +596,19 @@ def _hash_backward_cuda(g, prim_pool, bias_pool, points, anchors, local_size,
     addr = _kernel_args("hash_encode backward", prim_pool, bias_pool, points,
                         anchors, local_size, n_channels, [("gradient", g)])
     gc = g.to(torch.float32).contiguous()
+    dev = points.device
     grad = torch.empty((n_levels, local_size, n_channels),
-                       dtype=torch.float32, device=points.device)
+                       dtype=torch.float32, device=dev)
+    acc = torch.empty((local_size, n_channels), dtype=torch.int64, device=dev)
+    gmax = torch.empty((n_levels,), dtype=torch.int32, device=dev)
     launches = ctypes.c_int(0)
     err = build.library().gfnerf_hash_anchored_bwd(
         gc.data_ptr(), *(t.data_ptr() for t in addr), grad.data_ptr(),
+        acc.data_ptr(), gmax.data_ptr(),
         None if red_ops is None else red_ops.data_ptr(),
         ctypes.addressof(launches), p, n_levels, prim_pool.shape[1],
-        local_size, n_channels, levels_per_launch,
-        torch.cuda.current_stream(points.device).cuda_stream)
+        local_size, n_channels,
+        torch.cuda.current_stream(dev).cuda_stream)
     build.check(err, "gfnerf_hash_anchored_bwd")
     hash_encode.bwd_calls += 1
     hash_encode.bwd_launches += launches.value

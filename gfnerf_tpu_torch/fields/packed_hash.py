@@ -8,9 +8,11 @@ trilinear interpolation.
 
 ``packed_hash_encode_raw`` is the plain PyTorch forward (the JAX package's
 XLA formulation, op for op) and ``packed_hash_backward_reference`` the plain
-dense table gradient (what the JAX package's ``_phe_bwd`` computes, summed
-in f32); ``packed_hash_bwd_reductions`` counts the reductions the table
-gradient's kernel issues, from the same addressing.  ``packed_hash_encode``
+dense table gradient (what the JAX package's ``_phe_bwd`` computes, its f32
+terms summed exactly in int64 fixed point, so that the result does not
+depend on the order of the sum: ``hash_encoding.fixed_point_table_grad``);
+``packed_hash_bwd_reductions`` counts the reductions the table gradient's
+kernel issues, from the same addressing.  ``packed_hash_encode``
 is the differentiable wrapper, with a gradient for the table only, as
 ``_phe_bwd`` has: on CPU tensors it runs the plain pair, on CUDA tensors
 the forward launches ``csrc/packed_hash_fwd.cu`` (H1) and the backward
@@ -48,7 +50,8 @@ import numpy as np
 import torch
 
 from gfnerf_tpu_torch.fields.hash_encoding import (_fma, _level_scales,
-                                                   _random_primes, check_base)
+                                                   _random_primes, check_base,
+                                                   fixed_point_table_grad)
 from gfnerf_tpu_torch.ops import build
 
 _U32 = 0xFFFFFFFF
@@ -361,27 +364,28 @@ def packed_hash_backward_reference(g, prim_pool, bias_pool, points, anchors,
                                    n_rows, row_width, n_channels, pack,
                                    dense_levels=0):
     """Plain dense table gradient (L, n_rows, row_width) f32 of the encode:
-    every term of :func:`packed_hash_scatter_terms` added with
-    ``index_add_``.  Columns past ``lattice * C`` stay zero."""
+    every term of :func:`packed_hash_scatter_terms` summed exactly in fixed
+    point (``hash_encoding.fixed_point_table_grad``), what H2 computes, bit
+    for bit.  Columns past ``lattice * C`` stay zero (NaN throughout a
+    level whose upstream gradient is not finite)."""
     n_levels = prim_pool.shape[0]
-    grad = torch.zeros((n_levels * n_rows * row_width // n_channels,
-                        n_channels), dtype=torch.float32, device=g.device)
-    for rows, payload in packed_hash_scatter_terms(
-            g, prim_pool, bias_pool, points, anchors, n_rows, row_width,
-            n_channels, pack, dense_levels):
-        grad.index_add_(0, rows, payload)
+    grad = fixed_point_table_grad(
+        g, packed_hash_scatter_terms(g, prim_pool, bias_pool, points,
+                                     anchors, n_rows, row_width, n_channels,
+                                     pack, dense_levels),
+        n_levels, n_rows * row_width // n_channels, n_channels)
     return grad.view(n_levels, n_rows, row_width)
 
 
 def packed_hash_bwd_reductions(prim_pool, bias_pool, points, anchors,
                                n_rows, n_channels, pack, dense_levels=0,
                                warp=32) -> torch.Tensor:
-    """(L,) int64: the vector reductions the table-gradient kernel (H2)
-    issues per level.  Its warps take ``warp`` consecutive points from a
-    multiple of ``warp`` on, at one level; a run of consecutive valid
-    points with equal (row, clamped local cell) is one contributor, which
-    adds each of its live corners with one reduction (two at 8 channels).
-    A masked point ends a run and adds nothing."""
+    """(L,) int64: the 64-bit reductions the table-gradient kernel (H2)
+    issues per level at finite upstream gradients.  Its warps take ``warp``
+    consecutive points from a multiple of ``warp`` on, at one level; a run
+    of consecutive valid points with equal (row, clamped local cell) is one
+    contributor, which adds each channel of each of its live corners with
+    one reduction.  A masked point ends a run and adds nothing."""
     n_levels, n_volumes = prim_pool.shape[:2]
     e = pack + 1
     p = points.shape[0]
@@ -405,7 +409,7 @@ def packed_hash_bwd_reductions(prim_pool, bias_pool, points, anchors,
             live = live * (((x >= 0) & (x < e)).long()
                            + ((x + 1 >= 0) & (x + 1 < e)).long())
         ops.append((live * head).sum())
-    return torch.stack(ops) * (2 if n_channels == 8 else 1)
+    return torch.stack(ops) * n_channels
 
 
 class _PackedHashEncode(torch.autograd.Function):
@@ -487,7 +491,7 @@ def plain_packed_hash_encode(feat_pool, prim_pool, bias_pool, points,
 
 
 packed_hash_encode.launches = 0       # H1 launches
-packed_hash_encode.bwd_launches = 0   # H2 launches (one per group of levels)
+packed_hash_encode.bwd_launches = 0   # H2 launches: table_grad_launches a call
 packed_hash_encode.bwd_calls = 0      # H2 calls, one per backward
 
 
@@ -581,14 +585,14 @@ def _packed_hash_encode_cuda(feat_pool, prim_pool, bias_pool, points,
 
 def _packed_hash_backward_cuda(g, prim_pool, bias_pool, points, anchors,
                                n_rows, row_width, n_channels, pack,
-                               dense_levels, red_ops=None, level=None,
-                               levels_per_launch=0):
-    """H2 on CUDA tensors: the (L, rows, W) table gradient.  With
-    ``level``, that level alone: ``g`` is its (P, C) columns and the result
-    (1, rows, W).  ``red_ops``, an int64 tensor on the card with one entry
-    per level computed, if given, gets the number of vector reductions the
-    kernel issued per level added to it.  ``levels_per_launch`` > 0 sets
-    the levels each of the kernel's launches covers (0: its own choice)."""
+                               dense_levels, red_ops=None, level=None):
+    """H2 on CUDA tensors: the (L, rows, W) table gradient, equal to
+    :func:`packed_hash_backward_reference` bit for bit.  With ``level``,
+    that level alone: ``g`` is its (P, C) columns and the result (1, rows,
+    W), that level of the whole (its scale is its own).  ``red_ops``, an
+    int64 tensor on the card with one entry per level computed, if given,
+    gets the number of 64-bit reductions the kernel issued per level added
+    to it."""
     n_levels = 1 if level is not None else prim_pool.shape[0]
     p = points.shape[0]
     if g.shape != (p, n_levels * n_channels):
@@ -603,15 +607,19 @@ def _packed_hash_backward_cuda(g, prim_pool, bias_pool, points, anchors,
                         points, anchors, n_rows, row_width, n_channels, pack,
                         dense_levels, [("gradient", g)], level)
     gc = g.to(torch.float32).contiguous()
+    dev = points.device
     grad = torch.empty((n_levels, n_rows, row_width), dtype=torch.float32,
-                       device=points.device)
+                       device=dev)
+    acc = torch.empty((n_rows, row_width), dtype=torch.int64, device=dev)
+    gmax = torch.empty((n_levels,), dtype=torch.int32, device=dev)
     launches = ctypes.c_int(0)
     err = build.library().gfnerf_packed_hash_bwd(
         gc.data_ptr(), *(t.data_ptr() for t in addr), grad.data_ptr(),
+        acc.data_ptr(), gmax.data_ptr(),
         None if red_ops is None else red_ops.data_ptr(),
         ctypes.addressof(launches), p, n_levels, prim_pool.shape[1], n_rows,
-        row_width, n_channels, pack + 1, levels_per_launch,
-        torch.cuda.current_stream(points.device).cuda_stream)
+        row_width, n_channels, pack + 1,
+        torch.cuda.current_stream(dev).cuda_stream)
     build.check(err, "gfnerf_packed_hash_bwd")
     packed_hash_encode.bwd_calls += 1
     packed_hash_encode.bwd_launches += launches.value

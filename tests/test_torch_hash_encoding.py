@@ -210,6 +210,132 @@ def test_backward_matches_jax_sorted_vjp(c):
     np.testing.assert_allclose(tg, np.asarray(jg), rtol=2e-2, atol=2e-2)
 
 
+# ---- the table gradient's fixed-point sum (H5's function) ----
+
+def _fixed_case(case, c=2):
+    """(torch args of the plain backward, numpy g): 'random' points with
+    masked anchors, or 'runs' (``_run_inputs``: runs of equal cells, masked
+    anchors inside, two volumes sharing cells; C = 2)."""
+    if case == "runs":
+        prim, bias, pts, anc = _run_inputs(n_rays=12)
+    else:
+        _, prim, bias = _tables(c)
+        pts, anc = _points(p=1500, n_invalid=100, seed=21)
+    g = np.random.default_rng(23).standard_normal(
+        (len(pts), N_LEVELS * c)).astype(np.float32)
+    return (*_targs(prim, bias, pts, anc), 1 << LOG2, c), g
+
+
+def _backward(g, args):
+    from gfnerf_tpu_torch.fields.hash_encoding import hash_backward_reference
+    return hash_backward_reference(torch.as_tensor(g), *args)
+
+
+@pytest.mark.parametrize("case,c", [("runs", 2), ("random", 2),
+                                    ("random", 4)])
+def test_backward_order_independent(case, c):
+    """The plain table gradient of the points in another order (their rows
+    of g with them) is the same bit for bit: the fixed-point terms are
+    summed exactly, in int64, whatever the order."""
+    args, g = _fixed_case(case, c)
+    got = _backward(g, args)
+    perm = np.random.default_rng(3).permutation(len(g))
+    for order in (perm, perm[::-1].copy()):
+        moved = (*args[:2], args[2][order], args[3][order], *args[4:])
+        assert torch.equal(_backward(g[order], moved), got)
+    assert bool(torch.isfinite(got).all()) and float(got.abs().max()) > 0.5
+
+
+@pytest.mark.parametrize("case", ["runs", "random"])
+def test_backward_within_an_ulp_of_f64_sum(case):
+    """Each entry of the plain table gradient against the f64 sum S of the
+    same f32 terms (``hash_scatter_terms``): within one f32 ulp of S plus
+    the terms' rounding to the level's fixed point (half a step 2^-s each,
+    s = 62 - ceil(log2 P) - E, 2^E > the level's max|g|); within one ulp
+    alone wherever that rounding is below half an ulp (|S| >= n 2^(24 -
+    s)), which is most entries."""
+    from gfnerf_tpu_torch.fields.hash_encoding import hash_scatter_terms
+
+    args, g = _fixed_case(case)
+    got = _backward(g, args).numpy().reshape(-1, 2).astype(np.float64)
+    total = torch.zeros((N_LEVELS * (1 << LOG2), 2), dtype=torch.float64)
+    count = torch.zeros(total.shape, dtype=torch.int64)
+    for rows, payload in hash_scatter_terms(torch.as_tensor(g), *args):
+        total.index_add_(0, rows, payload.double())
+        count.index_add_(0, rows, (payload != 0).long())
+    total, count = total.numpy(), count.numpy()
+    p = len(g)
+    e = np.frexp(np.abs(g).reshape(p, N_LEVELS, 2).max(axis=(0, 2)))[1]
+    shift = np.repeat(62 - int(np.ceil(np.log2(p))) - e, 1 << LOG2)
+    step = np.ldexp(1.0, -shift.astype(np.int64))[:, None]
+    err = np.abs(got - total)
+    ulp = np.spacing(np.abs(total).astype(np.float32)).astype(np.float64)
+    assert np.all(err <= ulp + count * step / 2)
+    big = np.abs(total) >= count * step * 2.0 ** 24
+    assert np.all(err[big] <= ulp[big])
+    assert big[count > 0].mean() > 0.9
+    assert np.all(got[count == 0] == 0)
+
+
+@pytest.mark.parametrize("edge", ["nan", "inf", "zero", "tiny", "huge"])
+def test_backward_edge_levels(edge):
+    """Levels of the plain table gradient at the edges of the fixed point:
+    a NaN or an inf in a level's upstream gradient makes that level NaN
+    throughout (the others as without it) and the optimizer skips the
+    update; a level of zeros gives exact zeros; g scaled by 2^-100 (about
+    1e-30: shifts past 127) and 2^100 (about 1e30: shifts below 0) gives
+    finite results at the same scale: 2^100 times the unscaled gradient
+    exactly, and 2^-100 times it to 1e-6 of the largest entry (the scaled
+    terms that fall below f32's normal range round apart)."""
+    from gfnerf_tpu_torch.engine.optimizers import (OptimizersConfig,
+                                                    PerGroupAdam,
+                                                    apply_updates)
+    from gfnerf_tpu_torch.fields.hash_encoding import fixed_point_shifts
+
+    args, g = _fixed_case("random")
+    plain = _backward(g, args)
+    c, lev = 2, 3
+    if edge in ("nan", "inf", "zero"):
+        g2 = g.copy()
+        if edge == "zero":
+            g2[:, lev * c:(lev + 1) * c] = 0.0
+        else:
+            g2[11, lev * c + 1] = np.nan if edge == "nan" else np.inf
+        got = _backward(g2, args)
+        others = [l for l in range(N_LEVELS) if l != lev]
+        assert torch.equal(got[others], plain[others])
+        if edge == "zero":
+            assert torch.equal(got[lev], torch.zeros_like(got[lev]))
+            assert not bool(torch.signbit(got[lev]).any())
+            return
+        assert bool(torch.isnan(got[lev]).all())
+        table = torch.zeros_like(got, requires_grad=True)
+        params = {"base_encoding_init": [table]}
+        opt = PerGroupAdam(OptimizersConfig())
+        updates, state = opt.update({"base_encoding_init": [got]},
+                                    opt.init(params), params)
+        apply_updates(params, updates)
+        assert torch.equal(table, torch.zeros_like(table))
+        assert int(state.total_notfinite) == 1 and int(state.count) == 0
+        assert not bool(state.last_finite)
+        return
+    k = -100 if edge == "tiny" else 100
+    shift, finite = fixed_point_shifts(torch.as_tensor(g), N_LEVELS, c)
+    scaled_shift, _ = fixed_point_shifts(torch.as_tensor(np.ldexp(g, k)),
+                                         N_LEVELS, c)
+    assert bool(finite.all()) and torch.equal(scaled_shift, shift - k)
+    assert bool((scaled_shift > 127).all() if k < 0
+                else (scaled_shift < 0).all())
+    got = _backward(np.ldexp(g, k), args)
+    assert bool(torch.isfinite(got).all())
+    want = torch.ldexp(plain, torch.tensor(float(k)))
+    if k > 0:
+        assert torch.equal(got, want)
+    else:
+        np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=0,
+                                   atol=1e-6 * float(want.abs().max()))
+
+
 def test_autograd_cpu_takes_plain_pair():
     """Autograd through the wrapper on CPU tensors gives the plain forward
     and table gradient, nothing for the other inputs, and launches no
@@ -333,11 +459,11 @@ def test_wrapper_rejects_what_the_kernels_do_not_take():
 @pytest.mark.parametrize("c,n_levels,log2", [(2, 4, 10), (4, 4, 10),
                                              (2, 16, 14), (4, 5, 12)])
 def test_kernels_match_plain_on_card(c, n_levels, log2):
-    """H4 against the plain forward (bit for bit) and H5 through autograd
-    against the plain table gradient (1e-5 of its largest entry: the same
-    f32 terms, added by atomics in another order): one call of each, H4
-    launching once per group of ``FWD_LEVEL_GROUP`` levels, H5 once per
-    group of 8 / C levels."""
+    """H4 against the plain forward and H5 through autograd against the
+    plain table gradient, both bit for bit: one call of each, H4 launching
+    once per group of ``FWD_LEVEL_GROUP`` levels, H5 ``table_grad_launches``
+    times (the level maxima, then per level the sums and the
+    conversion)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernels have no CPU mode")
     from gfnerf_tpu_torch.fields.hash_encoding import (
@@ -360,12 +486,11 @@ def test_kernels_match_plain_on_card(c, n_levels, log2):
     assert (hash_encode.calls, hash_encode.launches,
             hash_encode.bwd_launches) == (
         before[0] + 1, before[1] + encode_launches(n_levels),
-        before[2] + table_grad_launches(n_levels, c))
+        before[2] + table_grad_launches(n_levels))
     assert torch.equal(out.detach(), hash_encode_raw(table.detach(), *args))
     assert bool((out[args[3] < 0] == 0).all())
-    ref = hash_backward_reference(g, *args, 1 << log2, c)
-    np.testing.assert_allclose(table.grad.cpu().numpy(), ref.cpu().numpy(),
-                               rtol=0, atol=1e-5 * float(ref.abs().max()))
+    assert torch.equal(table.grad,
+                       hash_backward_reference(g, *args, 1 << log2, c))
 
 
 @pytest.mark.cuda
@@ -454,21 +579,25 @@ REDUCTION_CASES = {
 def test_bwd_reduction_count(case):
     """``hash_bwd_reductions`` on hand-made inputs: one contributor of 8
     corners per run of equal (volume, cell) among a warp's 32 consecutive
-    points; with warps of one point, 8 per valid point."""
+    points (``hash_run_heads``), one reduction for each corner's channel;
+    with warps of one point, 8 C per valid point."""
     from gfnerf_tpu_torch.fields.hash_encoding import (hash_bwd_reductions,
-                                                       hash_corner_indices)
+                                                       hash_corner_indices,
+                                                       hash_run_heads)
 
     p, anchors, shared, want = REDUCTION_CASES[case]
     args = _one_cell(p, anchors, shared)
     cells = hash_corner_indices(*args, 1 << LOG2)
     if case in ("one_warp", "crosses_boundary", "ragged"):
         assert bool((cells == cells[..., :1]).all())   # one cell indeed
-    ops = hash_bwd_reductions(*args)
+    ops = hash_bwd_reductions(*args, 2)
     assert ops.dtype == torch.int64
-    assert ops.tolist() == [want] * N_LEVELS
+    assert ops.tolist() == [2 * want] * N_LEVELS
+    assert hash_run_heads(*args).tolist() == [want // 8] * N_LEVELS
+    assert hash_bwd_reductions(*args, 4).tolist() == [4 * want] * N_LEVELS
     n_valid = sum(a >= 0 for a in anchors)
-    assert hash_bwd_reductions(*args, warp=1).tolist() == \
-        [8 * n_valid] * N_LEVELS
+    assert hash_bwd_reductions(*args, 2, warp=1).tolist() == \
+        [16 * n_valid] * N_LEVELS
 
 
 def _run_inputs(n_rays=40, n_samples=97, seed=5):
@@ -494,17 +623,18 @@ def _run_inputs(n_rays=40, n_samples=97, seed=5):
 
 
 def test_bwd_reduction_count_on_runs():
-    """On rays of close points the count lies between one contributor per
-    warp and one per valid point, rises with the level (shorter runs on
-    finer grids), and equals a plain loop over the points."""
+    """On rays of close points the count (at C = 2) lies between one
+    contributor per warp and one per valid point, rises with the level
+    (shorter runs on finer grids), and equals a plain loop over the
+    points."""
     from gfnerf_tpu_torch.fields import hash_encoding as T
 
     prim, bias, pts, anc = _run_inputs()
     args = _targs(prim, bias, pts, anc)
-    ops = T.hash_bwd_reductions(*args).tolist()
-    single = T.hash_bwd_reductions(*args, warp=1).tolist()
-    assert single == [8 * int((anc >= 0).sum())] * N_LEVELS
-    assert all(8 * -(-len(pts) // 32) <= o < s for o, s in zip(ops, single))
+    ops = T.hash_bwd_reductions(*args, 2).tolist()
+    single = T.hash_bwd_reductions(*args, 2, warp=1).tolist()
+    assert single == [16 * int((anc >= 0).sum())] * N_LEVELS
+    assert all(16 * -(-len(pts) // 32) <= o < s for o, s in zip(ops, single))
     assert ops[0] < ops[-1]
     # the same count by a loop over the points, from the corner addressing's
     # own cells
@@ -521,7 +651,7 @@ def test_bwd_reduction_count_on_runs():
             joins = (i % 32 != 0 and anc[i - 1] >= 0
                      and np.array_equal(key[i], key[i - 1]))
             heads += not joins
-        assert ops[l] == 8 * heads, l
+        assert ops[l] == 16 * heads, l
 
 
 @pytest.mark.cuda
@@ -529,9 +659,10 @@ def test_bwd_reduction_count_on_runs():
                                              (2, 16, 14)])
 def test_backward_kernel_merges_runs_on_card(c, n_levels, log2):
     """H5 on runs of equal cells (masked anchors inside, two volumes sharing
-    cells) against the plain table gradient (1e-5 of its largest entry),
-    its reductions per level against ``hash_bwd_reductions``, and the same
-    gradient at 1, 2, 4 and 16 levels per launch, one launch per group."""
+    cells) against the plain table gradient, bit for bit, and its
+    reductions per level against ``hash_bwd_reductions``; called again, and
+    on the points (and their rows of g) in another order, the same
+    gradient bit for bit."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernels have no CPU mode")
     from gfnerf_tpu_torch.fields import hash_encoding as T
@@ -546,24 +677,19 @@ def test_backward_kernel_merges_runs_on_card(c, n_levels, log2):
     before = (T.hash_encode.bwd_calls, T.hash_encode.bwd_launches)
     grad = T._hash_backward_cuda(g, *args, 1 << log2, c, red_ops=ops)
     torch.cuda.synchronize()
-    # one call, whose C entry point launches once per group of 8 / C levels
     assert (T.hash_encode.bwd_calls, T.hash_encode.bwd_launches) == (
-        before[0] + 1, before[1] + -(-n_levels // (8 // c)))
-    ref = T.hash_backward_reference(g, *args, 1 << log2, c)
-    tol = 1e-5 * float(ref.abs().max())
-    np.testing.assert_allclose(grad.cpu().numpy(), ref.cpu().numpy(), rtol=0,
-                               atol=tol)
-    want = T.hash_bwd_reductions(*args)
+        before[0] + 1, before[1] + T.table_grad_launches(n_levels))
+    assert torch.equal(grad, T.hash_backward_reference(g, *args, 1 << log2,
+                                                       c))
+    want = T.hash_bwd_reductions(*args[:4], c)
     assert ops.tolist() == want.tolist()
-    assert int(ops.sum()) < 8 * n_levels * int((args[3] >= 0).sum())
-    for per_launch in (1, 2, 4, 16):
-        before = T.hash_encode.bwd_launches
-        got = T._hash_backward_cuda(g, *args, 1 << log2, c,
-                                    levels_per_launch=per_launch)
-        assert T.hash_encode.bwd_launches - before == \
-            -(-n_levels // min(per_launch, n_levels))
-        np.testing.assert_allclose(got.cpu().numpy(), ref.cpu().numpy(),
-                                   rtol=0, atol=tol)
+    assert int(ops.sum()) < 8 * c * n_levels * int((args[3] >= 0).sum())
+    assert torch.equal(T._hash_backward_cuda(g, *args, 1 << log2, c), grad)
+    perm = torch.randperm(len(g), device="cuda",
+                          generator=torch.Generator("cuda").manual_seed(1))
+    moved = (*args[:2], args[2][perm], args[3][perm])
+    assert torch.equal(T._hash_backward_cuda(g[perm], *moved, 1 << log2, c),
+                       grad)
 
 
 # ---- the anchored layout through the field and the train step ----

@@ -338,9 +338,10 @@ def test_backward_matches_jax_vjp_on_runs(case, dense):
 
 @pytest.mark.parametrize("case", RUN_CASES)
 def test_bwd_reduction_count(case):
-    """The reductions H2 issues: one contributor per run of equal cells in a
-    32-point warp, 8 live corners each (two reductions a corner at 8
-    channels); with warps of one point, one per valid point and corner."""
+    """The 64-bit reductions H2 issues: one contributor per run of equal
+    cells in a 32-point warp, one reduction for each channel of each of its
+    8 live corners; with warps of one point, one per valid point, corner
+    and channel."""
     from gfnerf_tpu_torch.fields.packed_hash import (
         pack_for_channels, packed_hash_bwd_reductions)
 
@@ -353,12 +354,13 @@ def test_bwd_reduction_count(case):
     ops = packed_hash_bwd_reductions(*args, 4, pack).numpy()
     n_valid = int((anc >= 0).sum())
     single = packed_hash_bwd_reductions(*args, 4, pack, warp=1).numpy()
-    assert np.array_equal(single, np.full(N_LEVELS, 8 * n_valid))
+    assert np.array_equal(single, np.full(N_LEVELS, 4 * 8 * n_valid))
     assert np.all(ops <= single)
     assert np.array_equal(
         packed_hash_bwd_reductions(*args, 8, pack).numpy(), 2 * ops)
     if case == "one_cell":
-        assert np.array_equal(ops, np.full(N_LEVELS, 8 * -(-len(pts) // 32)))
+        assert np.array_equal(ops, np.full(N_LEVELS,
+                                           4 * 8 * -(-len(pts) // 32)))
     else:   # runs are longer on the coarse levels
         assert ops[0] < ops[-1]
     if case == "runs_masked":
@@ -368,6 +370,154 @@ def test_bwd_reduction_count(case):
             *args[:3], torch.as_tensor(_run_points("runs")[1]), args[4], 4,
             pack).numpy()
         assert ops[0] > unmasked[0]
+
+
+# ---- the table gradient's fixed-point sum (H2's function) ----
+
+def _fixed_case(case, c=4, dense=0):
+    """(torch args of the plain backward, numpy g) on one of RUN_CASES'
+    inputs (runs of equal cells, masked anchors inside) or 'random'."""
+    from gfnerf_tpu_torch.fields.packed_hash import pack_for_channels
+
+    want, _, _ = _tables(c)
+    if case == "random":
+        pts, anc = _points(p=1500, n_invalid=100)
+    else:
+        pts, anc = _run_points(case, n_rays=6)
+    g = np.random.default_rng(17).standard_normal(
+        (len(pts), N_LEVELS * c)).astype(np.float32)
+    args = (torch.as_tensor(want[1].astype(np.int64)),
+            torch.as_tensor(want[2]), torch.as_tensor(pts),
+            torch.as_tensor(anc), 1 << ROWS_LOG2, 128, c,
+            pack_for_channels(c), dense)
+    return args, g
+
+
+def _backward(g, args):
+    from gfnerf_tpu_torch.fields.packed_hash import (
+        packed_hash_backward_reference)
+    return packed_hash_backward_reference(torch.as_tensor(g), *args)
+
+
+@pytest.mark.parametrize("case,c,dense", [("one_cell", 4, 0), ("runs", 4, 0),
+                                          ("runs_masked", 4, 0),
+                                          ("random", 4, 2), ("random", 2, 0),
+                                          ("random", 8, 0)])
+def test_backward_order_independent(case, c, dense):
+    """The plain table gradient of the points in another order (their rows
+    of g with them) is the same bit for bit: the fixed-point terms are
+    summed exactly, in int64, whatever the order (an f32 sum of the same
+    terms is not)."""
+    args, g = _fixed_case(case, c, dense)
+    got = _backward(g, args)
+    perm = np.random.default_rng(3).permutation(len(g))
+    for order in (perm, perm[::-1].copy()):
+        moved = (*args[:2], args[2][order], args[3][order], *args[4:])
+        assert torch.equal(_backward(g[order], moved), got)
+    assert bool(torch.isfinite(got).all()) and float(got.abs().max()) > 0.5
+
+
+def _f64_sums(g, args):
+    """(f64 sum, count of nonzero terms, shift s per entry) of the table
+    gradient's terms (``packed_hash_scatter_terms``); the shift from numpy:
+    62 - ceil(log2 P) - frexp's exponent of the level's largest |g|."""
+    from gfnerf_tpu_torch.fields.packed_hash import packed_hash_scatter_terms
+
+    n_levels = args[0].shape[0]
+    c = args[6]
+    n_out = n_levels * args[4] * args[5] // c
+    total = torch.zeros((n_out, c), dtype=torch.float64)
+    count = torch.zeros((n_out, c), dtype=torch.int64)
+    for rows, payload in packed_hash_scatter_terms(torch.as_tensor(g),
+                                                   *args):
+        total.index_add_(0, rows, payload.double())
+        count.index_add_(0, rows, (payload != 0).long())
+    p = len(g)
+    e = np.frexp(np.abs(g).reshape(p, n_levels, c).max(axis=(0, 2)))[1]
+    shift = 62 - int(np.ceil(np.log2(p))) - e
+    per_entry = np.repeat(shift, n_out // n_levels)[:, None]
+    return total.numpy(), count.numpy(), per_entry
+
+
+@pytest.mark.parametrize("case", ["runs_masked", "random"])
+def test_backward_within_an_ulp_of_f64_sum(case):
+    """Each entry of the plain table gradient against the f64 sum S of the
+    same f32 terms: within one f32 ulp of S plus the terms' rounding to the
+    level's fixed point (half a step 2^-s each, s = 62 - ceil(log2 P) - E:
+    2^-(62 + E - ceil(log2 P)) of 2^E > max|g|); within one ulp alone
+    wherever that rounding is below half an ulp (|S| >= n 2^(24 - s)),
+    which is most entries."""
+    args, g = _fixed_case(case)
+    got = _backward(g, args).numpy().reshape(-1, 4).astype(np.float64)
+    total, count, shift = _f64_sums(g, args)
+    err = np.abs(got - total)
+    ulp = np.spacing(np.abs(total).astype(np.float32)).astype(np.float64)
+    step = np.ldexp(1.0, -shift.astype(np.int64))
+    assert np.all(err <= ulp + count * step / 2)
+    big = np.abs(total) >= count * step * 2.0 ** 24
+    assert np.all(err[big] <= ulp[big])
+    assert big[count > 0].mean() > 0.9
+    assert np.all(got[count == 0] == 0)
+
+
+@pytest.mark.parametrize("edge", ["nan", "inf", "zero", "tiny", "huge"])
+def test_backward_edge_levels(edge):
+    """Levels of the plain table gradient at the edges of the fixed point:
+    a NaN or an inf in a level's upstream gradient makes that level NaN
+    throughout (the others as without it) and the optimizer skips the
+    update; a level of zeros gives exact zeros; g scaled by 2^-100 (about
+    1e-30: shifts past 127) and 2^100 (about 1e30: shifts below 0) gives
+    finite results at the same scale: 2^100 times the unscaled gradient
+    exactly, and 2^-100 times it to 1e-6 of the largest entry (the scaled
+    terms that fall below f32's normal range round apart)."""
+    from gfnerf_tpu_torch.engine.optimizers import (OptimizersConfig,
+                                                    PerGroupAdam,
+                                                    apply_updates)
+    from gfnerf_tpu_torch.fields.hash_encoding import fixed_point_shifts
+
+    args, g = _fixed_case("random")
+    plain = _backward(g, args)
+    c, lev = 4, 1
+    cols = slice(lev * c, (lev + 1) * c)
+    if edge in ("nan", "inf", "zero"):
+        g2 = g.copy()
+        if edge == "zero":
+            g2[:, cols] = 0.0
+        else:
+            g2[7, lev * c + 2] = np.nan if edge == "nan" else -np.inf
+        got = _backward(g2, args)
+        others = [l for l in range(N_LEVELS) if l != lev]
+        assert torch.equal(got[others], plain[others])
+        if edge == "zero":
+            assert torch.equal(got[lev], torch.zeros_like(got[lev]))
+            assert not bool(torch.signbit(got[lev]).any())
+            return
+        assert bool(torch.isnan(got[lev]).all())
+        table = torch.zeros_like(got, requires_grad=True)
+        params = {"base_encoding_init": [table]}
+        opt = PerGroupAdam(OptimizersConfig())
+        updates, state = opt.update({"base_encoding_init": [got]},
+                                    opt.init(params), params)
+        apply_updates(params, updates)
+        assert torch.equal(table, torch.zeros_like(table))
+        assert int(state.total_notfinite) == 1 and int(state.count) == 0
+        assert not bool(state.last_finite)
+        return
+    k = -100 if edge == "tiny" else 100
+    shift, finite = fixed_point_shifts(torch.as_tensor(g), N_LEVELS, c)
+    scaled_shift, _ = fixed_point_shifts(torch.as_tensor(np.ldexp(g, k)),
+                                         N_LEVELS, c)
+    assert bool(finite.all()) and torch.equal(scaled_shift, shift - k)
+    assert bool((scaled_shift > 127).all() if k < 0
+                else (scaled_shift < 0).all())
+    got = _backward(np.ldexp(g, k), args)
+    assert bool(torch.isfinite(got).all())
+    want = torch.ldexp(plain, torch.tensor(float(k)))
+    if k > 0:
+        assert torch.equal(got, want)
+    else:
+        np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=0,
+                                   atol=1e-6 * float(want.abs().max()))
 
 
 @pytest.mark.parametrize("c,dense", [(2, 0), (4, 2), (8, 0)])
@@ -429,12 +579,13 @@ def test_autograd_cpu_takes_plain_pair():
 @pytest.mark.cuda
 @pytest.mark.parametrize("c,dense,case", CARD_CASES)
 def test_backward_kernel_matches_plain_on_card(c, dense, case):
-    """H2 through autograd against the plain table gradient (1e-5 of the
-    largest entry; padding columns exactly 0), and the reductions it counts
-    per level against packed_hash_bwd_reductions: one contributor per run
-    of equal cells in a warp."""
+    """H2 through autograd against the plain table gradient, bit for bit
+    (padding columns exactly 0), and the reductions it counts per level
+    against packed_hash_bwd_reductions: one contributor per run of equal
+    cells in a warp."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    from gfnerf_tpu_torch.fields.hash_encoding import table_grad_launches
     from gfnerf_tpu_torch.fields.packed_hash import (
         _packed_hash_backward_cuda, pack_for_channels,
         packed_hash_backward_reference, packed_hash_bwd_reductions,
@@ -449,14 +600,12 @@ def test_backward_kernel_matches_plain_on_card(c, dense, case):
     before = (packed_hash_encode.bwd_calls, packed_hash_encode.bwd_launches)
     packed_hash_encode(feat, *args, c, pack, dense).backward(g)
     torch.cuda.synchronize()
-    # one call, whose C entry point launches once per group of 8 / C levels
+    # one call: the level maxima, then per level the sums and the conversion
     assert (packed_hash_encode.bwd_calls, packed_hash_encode.bwd_launches) \
-        == (before[0] + 1, before[1] + -(-N_LEVELS // max(1, 8 // c)))
+        == (before[0] + 1, before[1] + table_grad_launches(N_LEVELS))
     ref = packed_hash_backward_reference(g, *args, 1 << ROWS_LOG2, 128, c,
                                          pack, dense)
-    scale = float(ref.abs().max())
-    np.testing.assert_allclose(feat.grad.cpu().numpy(), ref.cpu().numpy(),
-                               rtol=0, atol=1e-5 * scale)
+    assert torch.equal(feat.grad, ref)
     live = (pack + 1) ** 3 * c
     assert bool((feat.grad[..., live:] == 0).all())
     ops = torch.zeros(N_LEVELS, dtype=torch.int64, device="cuda")
@@ -470,9 +619,8 @@ def test_backward_kernel_matches_plain_on_card(c, dense, case):
 @pytest.mark.parametrize("n_levels,c", [(5, 4), (3, 2), (3, 8), (16, 4)])
 def test_kernels_at_other_level_counts(n_levels, c):
     """H1 and H2 against their plain versions where the level count is not
-    the main path's: H2's launches of 8 / C levels end with a ragged group
-    (5 levels at C = 4) or take fewer levels than a group (3 at C = 2), and
-    H1's tile shrinks to fit 16 levels; H2's reduction count as well."""
+    the main path's (H1's tile shrinks to fit 16 levels), H2 bit for bit;
+    H2's reduction count as well."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernel has no CPU mode")
     from gfnerf_tpu_torch.fields.packed_hash import (
@@ -498,9 +646,7 @@ def test_kernels_at_other_level_counts(n_levels, c):
     bargs = (g, *args[1:], 1 << ROWS_LOG2, 128, c, pack, 0)
     ops = torch.zeros(n_levels, dtype=torch.int64, device="cuda")
     grad = _packed_hash_backward_cuda(*bargs, red_ops=ops)
-    ref = packed_hash_backward_reference(*bargs)
-    np.testing.assert_allclose(grad.cpu().numpy(), ref.cpu().numpy(), rtol=0,
-                               atol=1e-5 * float(ref.abs().max()))
+    assert torch.equal(grad, packed_hash_backward_reference(*bargs))
     want = packed_hash_bwd_reductions(*args[1:], 1 << ROWS_LOG2, c, pack)
     assert ops.tolist() == want.tolist()
 
@@ -509,15 +655,15 @@ def test_kernels_at_other_level_counts(n_levels, c):
 @pytest.mark.parametrize("c", [2, 4, 8])
 def test_kernels_level_alone_and_launch_groups(c):
     """Each kernel run over one level (``level``) gives that level of the
-    whole: H1 its columns bit for bit, H2 its gradient to 1e-5 of the
-    largest entry.  H2 at 1, 2 and 4 levels per launch gives the same
-    gradient and reports one launch per group; H1 given a bf16 table gives
-    the output of its f32 copy."""
+    whole bit for bit: H1 its columns, H2 its gradient (a level's scale is
+    its own).  H2 called again, and on the points (and their rows of g) in
+    another order, gives the same gradient bit for bit; H1 given a bf16
+    table gives the output of its f32 copy."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernel has no CPU mode")
     from gfnerf_tpu_torch.fields.packed_hash import (
         _packed_hash_backward_cuda, _packed_hash_encode_cuda,
-        pack_for_channels, packed_hash_encode)
+        pack_for_channels)
 
     feat = torch.as_tensor(np.random.default_rng(7).uniform(
         -0.5, 0.5, (N_LEVELS, 1 << ROWS_LOG2, 128)).astype(np.float32),
@@ -532,7 +678,6 @@ def test_kernels_level_alone_and_launch_groups(c):
                     generator=torch.Generator("cuda").manual_seed(c))
     bargs = (*args, 1 << ROWS_LOG2, 128, c, pack, 0)
     grad = _packed_hash_backward_cuda(g, *bargs)
-    tol = 1e-5 * float(grad.abs().max())
     for l in range(N_LEVELS):
         cols = slice(l * c, (l + 1) * c)
         assert torch.equal(_packed_hash_encode_cuda(feat, *args, c, pack, 0,
@@ -540,16 +685,12 @@ def test_kernels_level_alone_and_launch_groups(c):
         one = _packed_hash_backward_cuda(g[:, cols].contiguous(), *bargs,
                                          level=l)
         assert one.shape == (1, 1 << ROWS_LOG2, 128)
-        np.testing.assert_allclose(one[0].cpu().numpy(),
-                                   grad[l].cpu().numpy(), rtol=0, atol=tol)
-    for per_launch in (1, 2, 4):
-        before = packed_hash_encode.bwd_launches
-        got = _packed_hash_backward_cuda(g, *bargs,
-                                         levels_per_launch=per_launch)
-        assert packed_hash_encode.bwd_launches - before == \
-            -(-N_LEVELS // per_launch)
-        np.testing.assert_allclose(got.cpu().numpy(), grad.cpu().numpy(),
-                                   rtol=0, atol=tol)
+        assert torch.equal(one[0], grad[l])
+    assert torch.equal(_packed_hash_backward_cuda(g, *bargs), grad)
+    perm = torch.randperm(len(g), device="cuda",
+                          generator=torch.Generator("cuda").manual_seed(1))
+    moved = (*args[:2], args[2][perm], args[3][perm], *bargs[4:])
+    assert torch.equal(_packed_hash_backward_cuda(g[perm], *moved), grad)
 
 
 # ---- the encodes added to a base (the focal stage's residual sum) ----
