@@ -1,8 +1,7 @@
 // The C channels of one table corner as one vector access: a load of C bf16
-// values (the encodes H1 and H3 read a bf16 copy of the table), a load of C
-// f32 values each rounded to bf16 in registers (H4 reads the f32 table and
-// gets the values a bf16 copy would hold), and the reductions of C int64
-// sums (the table gradients H2, H5 add in fixed point).
+// values (the encodes H1 and H3 read a bf16 copy of the table), and a load
+// of C f32 values each rounded to bf16 in registers (H4 reads the f32 table
+// and gets the values a bf16 copy would hold).
 // A corner's channels are contiguous and aligned to their own size in every
 // table layout of the port: (L, rows, W) packed rows with C-channel lattice
 // entries, and (L, local, C) anchored tables.
@@ -67,21 +66,6 @@ struct Corner<8> {
       v[2 * q] = __bfloat162float(h[q].x);
       v[2 * q + 1] = __bfloat162float(h[q].y);
     }
-  }
-};
-
-// One corner's C channels of fixed-point sums (fixed_point.cuh), added with
-// C scalar 64-bit reductions: atomicAdd(unsigned long long*) whose result
-// is unused (a reduction, RED.E.ADD.64, in the SASS); a signed sum adds as
-// its two's complement.  kOps: reductions per corner.
-template <int C>
-struct CornerRed {
-  static constexpr int kOps = C;
-  __device__ static void add(long long* p, const long long* v) {
-#pragma unroll
-    for (int ch = 0; ch < C; ++ch)
-      atomicAdd(reinterpret_cast<unsigned long long*>(p + ch),
-                (unsigned long long)v[ch]);
   }
 };
 

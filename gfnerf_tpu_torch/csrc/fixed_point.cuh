@@ -11,22 +11,20 @@
 // where max|g| < 2^E over the level's columns of all P points (E the
 // exponent frexp gives; 0 for a level of zeros).  Then |q| <= 2^62 / P and
 // an entry's sum over at most P points stays below 2^63: the int64 sums
-// are exact, and integer addition is associative, so any order gives the
-// same bits.  The level's gradient is RN_f32(RN_f64(sum) * 2^-s): one
-// rounding where the sum has at most 53 bits, and within one f32 ulp of
-// the scaled sum always.  The scale is a power of two applied in f64, never
-// an f32 2^s: s runs from about -129 to 210.  A level whose g holds a NaN
-// or an inf gets NaN in every entry (the optimizer's finite check then
-// skips the step); nothing is added for it.
+// are exact, and integer addition is associative, so any grouping and any
+// order give the same bits.  The level's gradient is
+// RN_f32(RN_f64(sum) * 2^-s): one rounding where the sum has at most 53
+// bits, and within one f32 ulp of the scaled sum always.  s runs from about
+// -97 to 210 (P < 2^31), past f32's range: a term is scaled by two f32
+// powers of two (quantize32), the sum converted in f64.  A level whose g
+// holds a NaN or an inf gets NaN in every entry (the
+// optimizer's finite check then skips the step); nothing is added for it.
+// A term whose q is 0 adds nothing and both kernels skip it.
 //
-// The passes of one call, on one stream (launch_fixed_point):
-// 1. the level maxima: max |g| per level as f32 bits (for |g| the unsigned
-//    order of the bits is the order of the values, and a NaN's bits lie
-//    above an inf's), one launch over g (P, L*C), atomicMax into (L,) u32;
-// 2. per level, one after another, reusing one int64 accumulator of a
-//    level (a cudaMemsetAsync before each, so the level's adds land in
-//    zeroed lines the L2 holds): the kernel's accumulation, then
-// 3. the conversion of that level's sums into its f32 gradient.
+// What the kernels share here: the level maxima (max |g| per level as f32
+// bits: for |g| the unsigned order of the bits is the order of the values,
+// and a NaN's bits lie above an inf's), the shift and scale of a level,
+// the rounding of a term, and the conversion of int64 sums into f32.
 
 #pragma once
 
@@ -66,15 +64,41 @@ __device__ __forceinline__ double pow2(int e) {
   return __longlong_as_double((long long)(e + 1023) << 52);
 }
 
-// A term at the level's scale: exact in f64, rounded to nearest even once.
-__device__ __forceinline__ long long quantize(float t, double scale) {
-  return __double2ll_rn((double)t * scale);
+// A term at its level's scale, q = rint(t 2^s) rounded to nearest even,
+// with one conversion.  The scale is two f32 powers of two, 2^a 2^b = 2^s
+// with a <= 127 (s runs from about -97 to 210, so both are normal).
+// t 2^a 2^b is exact in f32 wherever it reaches 2^-126 (and |t 2^s| <
+// 2^62: no overflow); below that it rounds to a value under 2^-126, which
+// rounds to 0 as the exact product does.
+struct Scale32 {
+  float a, b;
+};
+
+__device__ __forceinline__ Scale32 scale32(int s) {
+  const int a = s < 127 ? s : 127;
+  return {__int_as_float((a + 127) << 23),
+          __int_as_float((s - a + 127) << 23)};
 }
 
-// Pass 1: each thread walks g (n values, rows of lc = L*C) with a stride
-// that is a multiple of lc, so it sees one column (one level) throughout;
-// the block folds its threads' maxima in shared memory (s_max: L u32),
-// then into gmax.  Threads past the last whole multiple of lc walk none.
+__device__ __forceinline__ long long quantize32(float t, Scale32 k) {
+  return __float2ll_rn(__fmul_rn(__fmul_rn(t, k.a), k.b));
+}
+
+// An int64 sum of a level at shift s (not kNonFinite) as its f32 value.
+__device__ __forceinline__ float fixed_to_f32(long long v, double inv) {
+  return (float)(__ll2double_rn(v) * inv);
+}
+
+// |x| as the f32 bits the level maxima compare.
+__device__ __forceinline__ unsigned abs_bits(float x) {
+  return __float_as_uint(x) & 0x7fffffffu;
+}
+
+// The level maxima over g (n values, rows of lc = L*C): each thread walks
+// g with a stride that is a multiple of lc, so it sees one column (one
+// level) throughout; the block folds its threads' maxima in shared memory
+// (s_max: L u32), then into gmax (zeroed).  Threads past the last whole
+// multiple of lc walk none.
 __device__ __forceinline__ void level_max_pass(const float* __restrict__ g,
                                                long long n, int lc, int c,
                                                unsigned* __restrict__ gmax,
@@ -88,7 +112,7 @@ __device__ __forceinline__ void level_max_pass(const float* __restrict__ g,
   if (t < stride) {
     unsigned m = 0u;
     for (long long i = t; i < n; i += stride)
-      m = max(m, __float_as_uint(__ldcs(g + i)) & 0x7fffffffu);
+      m = max(m, abs_bits(__ldcs(g + i)));
     if (m != 0u) atomicMax(s_max + (int)(t % lc) / c, m);
   }
   __syncthreads();
@@ -96,74 +120,37 @@ __device__ __forceinline__ void level_max_pass(const float* __restrict__ g,
     if (s_max[i] != 0u) atomicMax(gmax + i, s_max[i]);
 }
 
-// Pass 3: one level's n int64 sums into its f32 gradient.
+// The conversion of int64 sums into f32 gradients: level level0 +
+// blockIdx.y of acc (level_elems sums a level, levels level_stride apart:
+// 0 where acc holds one level) into out (level_elems a level, levels
+// consecutive from level0's).
 __device__ __forceinline__ void convert_pass(const long long* __restrict__ acc,
                                              float* __restrict__ out,
-                                             long long n, unsigned max_bits,
-                                             int log2_points) {
-  const int s = level_shift(max_bits, log2_points);
+                                             long long level_elems,
+                                             long long level_stride,
+                                             const unsigned* __restrict__ gmax,
+                                             int level0, int log2_points) {
+  const int l = level0 + (int)blockIdx.y;
+  const int s = level_shift(gmax[l], log2_points);
   const double inv = s == kNonFinite ? 0.0 : pow2(-s);
+  const long long* a = acc + level_stride * blockIdx.y;
+  float* o = out + level_elems * l;
   const long long stride = (long long)gridDim.x * blockDim.x;
-  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < n;
-       i += stride) {
-    const float v = s == kNonFinite
-                        ? __int_as_float(0x7fc00000)
-                        : (float)(__ll2double_rn(acc[i]) * inv);
-    __stcs(out + i, v);
+  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+       i < level_elems; i += stride) {
+    const float v = s == kNonFinite ? __int_as_float(0x7fc00000)
+                                    : fixed_to_f32(a[i], inv);
+    __stcs(o + i, v);
   }
 }
 
-// The passes of one call over levels [0, n_levels) of g (P, L*C): the level
-// maxima (max_kernel<<<..>>>(g, n, lc, c, gmax), L u32 of shared memory),
-// then per level a zeroed accumulator of level_elems int64, accumulate(l,
-// log2_points) (the caller's launch) and convert_kernel<<<..>>>(acc, out,
-// level_elems, gmax + l, log2_points) into grad's level l.  *launches
-// counts the kernel launches; a call with no points launches none and
-// zeroes the gradient.  Returns the first CUDA error, or cudaSuccess.
-template <class MaxKernel, class ConvertKernel, class Accumulate>
-int launch_fixed_point(const float* g, long long n_points, int n_levels,
-                       int n_channels, float* grad, long long* acc,
-                       unsigned* gmax, long long level_elems,
-                       cudaStream_t stream, int* launches,
-                       MaxKernel max_kernel, ConvertKernel convert_kernel,
-                       Accumulate accumulate) {
-  cudaError_t err;
-  if (n_points == 0) {
-    err = cudaMemsetAsync(grad, 0, sizeof(float) * n_levels * level_elems,
-                          stream);
-    return (int)err;
-  }
-  const int lc = n_levels * n_channels;
-  const int log2_points = ceil_log2(n_points);
-  const long long n = n_points * lc;
-  long long blocks = (n + kFixedThreads - 1) / kFixedThreads;
-  blocks = blocks < 132 * 8 ? blocks : 132 * 8;
-  const long long need = (lc + kFixedThreads - 1) / kFixedThreads;
-  blocks = blocks > need ? blocks : need;
-  err = cudaMemsetAsync(gmax, 0, sizeof(unsigned) * n_levels, stream);
-  if (err != cudaSuccess) return (int)err;
-  max_kernel<<<(unsigned)blocks, kFixedThreads,
-               sizeof(unsigned) * n_levels, stream>>>(g, n, lc, n_channels,
-                                                      gmax);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  ++*launches;
-  long long cblocks = (level_elems + kFixedThreads - 1) / kFixedThreads;
-  cblocks = cblocks < 132 * 16 ? cblocks : 132 * 16;
-  for (int l = 0; l < n_levels; ++l) {
-    err = cudaMemsetAsync(acc, 0, sizeof(long long) * level_elems, stream);
-    if (err != cudaSuccess) return (int)err;
-    accumulate(l, log2_points);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return (int)err;
-    ++*launches;
-    convert_kernel<<<(unsigned)cblocks, kFixedThreads, 0, stream>>>(
-        acc, grad + l * level_elems, level_elems, gmax + l, log2_points);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return (int)err;
-    ++*launches;
-  }
-  return (int)cudaSuccess;
+// Blocks of kFixedThreads for a pass over n elements, at most per_sm a
+// multiprocessor of the card's 132.
+inline unsigned fixed_blocks(long long n, int per_sm) {
+  long long b = (n + kFixedThreads - 1) / kFixedThreads;
+  const long long cap = 132LL * per_sm;
+  b = b < cap ? b : cap;
+  return (unsigned)(b > 0 ? b : 1);
 }
 
 }  // namespace gfnerf

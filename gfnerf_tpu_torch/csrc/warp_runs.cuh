@@ -1,19 +1,20 @@
-// Warp aggregation of runs of equal cells, shared by the table gradients
-// (H2, packed_hash_bwd.cu; H5, hash_anchored_bwd.cu; T2,
-// temporal_grid_bwd.cu).
+// Runs of equal cells among a warp's lanes, shared by the table gradients
+// T2 (temporal_grid_bwd.cu), H5 (hash_anchored_bwd.cu) and H2
+// (packed_hash_bwd.cu).
 //
-// Both kernels give each warp 32 consecutive points at one level, one point
+// The kernels give each warp 32 consecutive points at one level, one point
 // per lane.  The points are ray-major and in t order, so on the coarse
 // levels neighbouring lanes fall into the same cell and would add into the
 // same table entries.  A lane whose cell equals its left neighbour's joins
-// that neighbour's run; a segmented shuffle scan sums the run's payloads
-// into the run's first lane (its head), which alone makes the reductions.
-// Equal cells address equal entries, so the merge is exact for H2's and
-// H5's int64 fixed-point payloads, and exact up to the order of the f32
-// sum for T2's.  The caller decides what "equal" means and marks the
-// heads: lane 0, every masked lane (a run of its own, adding nothing), and
-// every lane whose cell differs from its left neighbour's or whose left
-// neighbour is masked.
+// that neighbour's run.  T2 and H5 sum the run's payloads into the run's
+// first lane (its head) with a segmented shuffle scan (sum_runs), and the
+// head alone makes the reductions: exact up to the order of the f32 sum
+// for T2's, exactly for H5's int64 fixed-point payloads.  H2's runs are of
+// lanes in one table row: the head alone bumps the row's counter, or
+// claims the run's records with one cursor atomic.  The caller
+// decides what "equal" means and marks the heads: lane 0, every masked
+// lane (a run of its own, adding nothing), and every lane whose cell
+// differs from its left neighbour's or whose left neighbour is masked.
 
 #pragma once
 
@@ -26,6 +27,7 @@ constexpr unsigned kFullWarp = 0xffffffffu;
 struct WarpRuns {
   int run_end;  // one past the last lane of this lane's run
   int longest;  // the warp's longest stretch from a lane to its run's end
+  int head;     // the first lane of this lane's run
 };
 
 // The runs that the lanes' `head` flags cut the warp into.  All 32 lanes
@@ -35,6 +37,7 @@ __device__ __forceinline__ WarpRuns find_runs(bool head, int lane) {
   const unsigned later = lane == 31 ? 0u : heads & (kFullWarp << (lane + 1));
   WarpRuns runs;
   runs.run_end = later ? __ffs(later) - 1 : 32;
+  runs.head = 31 - __clz(heads & (kFullWarp >> (31 - lane)));
   runs.longest = __reduce_max_sync(kFullWarp, runs.run_end - lane);
   return runs;
 }

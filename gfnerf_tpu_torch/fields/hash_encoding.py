@@ -16,8 +16,9 @@ terms weight x upstream gradient (f32) summed exactly in int64 fixed point
 the gradient is a function of its inputs whatever order the terms are
 added in, as the JAX package's is (its sort + prefix + run-end-difference
 backward with its bf16 payload, a TPU workaround, is not carried over);
-``hash_bwd_reductions`` counts the reductions the table gradient's kernel
-makes, from the same addressing.
+``hash_bwd_reductions`` counts the global reductions the table gradient's
+kernel makes after merging its warps' runs, from the same addressing and
+terms.
 ``hash_encode`` is the differentiable
 wrapper, with a gradient for the table only: on CPU tensors it runs the
 plain pair, on CUDA tensors the forward launches
@@ -370,14 +371,46 @@ def hash_run_heads(prim_pool, bias_pool, points, anchors,
     return torch.stack(heads)
 
 
-def hash_bwd_reductions(prim_pool, bias_pool, points, anchors,
-                        n_channels: int, warp: int = 32) -> torch.Tensor:
-    """(L,) int64: the 64-bit reductions the table-gradient kernel (H5)
-    makes per level at finite upstream gradients: each run's head
-    (:func:`hash_run_heads`) adds its 8 corners' C channels with one
-    reduction each."""
-    return 8 * n_channels * hash_run_heads(prim_pool, bias_pool, points,
-                                           anchors, warp)
+def hash_bwd_reductions(g, prim_pool, bias_pool, points, anchors,
+                        local_size: int, n_channels: int,
+                        warp: int = 32) -> torch.Tensor:
+    """(L,) int64: the 64-bit global reductions the table-gradient kernel
+    (H5) makes per level at finite upstream gradients.  Its warps take
+    ``warp`` consecutive points from a multiple of ``warp`` on, at one
+    level; a run of consecutive valid points in one cell (equal clamped
+    volume, x0, y0, z0: ``hash_run_heads``' runs) sums its corners' terms,
+    rounded to the level's fixed point, into its first point, which adds
+    each corner's channel with one reduction where that sum is not 0.
+    Masked points add nothing."""
+    _check_table(local_size)
+    n_levels = prim_pool.shape[0]
+    p = points.shape[0]
+    shift, _ = fixed_point_shifts(g, n_levels, n_channels)
+    scale = _pow2(shift)
+    gl = g.reshape(p, n_levels, n_channels).to(torch.float32)
+    valid = anchors >= 0
+    vol = anchors.long().clamp(0, prim_pool.shape[1] - 1)
+    prims, biases = _anchor_rows(prim_pool, bias_pool, anchors)
+    scales = _level_scales(n_levels)
+    first = torch.arange(p, device=points.device) % warp == 0
+    ops = []
+    for l in range(n_levels):
+        key = torch.stack([vol, *(x0 for x0, _ in _level_cells(
+            points, biases[l], scales[l]))], -1)
+        same = torch.zeros_like(valid)
+        same[1:] = (key[1:] == key[:-1]).all(-1) & valid[:-1]
+        head = valid & (first | ~same)
+        run = (torch.cumsum(head.long(), 0) - 1).clamp(min=0)
+        q = torch.stack([
+            torch.round((w[:, None] * gl[:, l]).to(torch.float64) * scale[l])
+            .to(torch.int64) for _, w in _level_corners(
+                points, prims[l], biases[l], scales[l], local_size)], 1)
+        q = torch.where(valid[:, None, None], q, 0)
+        sums = torch.zeros((int(head.sum()), 8, n_channels),
+                           dtype=torch.int64, device=points.device)
+        sums.index_add_(0, run[valid], q[valid])
+        ops.append((sums != 0).sum())
+    return torch.stack(ops)
 
 
 def check_base(what, base, points, n_cols, in_place):
@@ -479,6 +512,7 @@ hash_encode.calls = 0          # H4 calls, one per forward
 hash_encode.base_calls = 0     # of those, calls given a base
 hash_encode.launches = 0       # H4 launches (one per group of levels)
 hash_encode.bwd_launches = 0   # H5 launches: table_grad_launches a call
+hash_encode.bwd_memsets = 0    # H5 zero-fills: table_grad_memsets a call
 hash_encode.bwd_calls = 0      # H5 calls, one per backward
 
 # H4's levels per launch when the caller does not set them (kLevelGroup of
@@ -493,11 +527,45 @@ def encode_launches(n_levels: int, per_launch: int = 0) -> int:
     return -(-n_levels // min(group, n_levels))
 
 
-def table_grad_launches(n_levels: int) -> int:
-    """The launches of one table-gradient call with points, H2's or H5's
-    (``csrc/fixed_point.cuh``): the level maxima, then per level the
-    accumulation and the conversion."""
-    return 1 + 2 * n_levels
+# H5 sums a group of levels a launch (csrc/hash_anchored_bwd.cu): as many as
+# fit an int64 accumulator of ACC_BUDGET_BYTES (at least one)
+ACC_BUDGET_BYTES = 1 << 27
+
+
+def table_grad_group(n_levels: int, local_size: int, n_channels: int) -> int:
+    """H5's levels a launch of its sums: as many as fit ACC_BUDGET_BYTES of
+    int64 accumulator, at least one, at most all."""
+    return max(1, min(n_levels,
+                      ACC_BUDGET_BYTES // (8 * local_size * n_channels)))
+
+
+def small_table_grad(n_levels: int, local_size: int,
+                     n_channels: int) -> bool:
+    """Whether H5 sums a call of this shape over all its levels at once:
+    one int64 accumulator of every level, one launch of the sums and one of
+    their conversion (3 launches and 2 zero-fills a call)."""
+    return table_grad_group(n_levels, local_size, n_channels) == n_levels
+
+
+def table_grad_launches(n_levels: int, n_points: int, local_size: int,
+                        n_channels: int, group: int = 0) -> int:
+    """H5's launches for one call at ``group`` levels a launch (0: its own
+    choice, :func:`table_grad_group`): the level maxima, then per group
+    the sums and the conversion; none without points."""
+    if not n_points:
+        return 0
+    group = group or table_grad_group(n_levels, local_size, n_channels)
+    return 1 + 2 * -(-n_levels // group)
+
+
+def table_grad_memsets(n_levels: int, n_points: int, local_size: int,
+                       n_channels: int, group: int = 0) -> int:
+    """H5's zero-fills for one call: the level maxima's, then one
+    accumulator a group of levels; without points, the gradient's."""
+    if not n_points:
+        return 1
+    group = group or table_grad_group(n_levels, local_size, n_channels)
+    return 1 + -(-n_levels // group)
 
 
 @functools.lru_cache(maxsize=32)
@@ -578,11 +646,13 @@ def _hash_encode_cuda(feat_pool, prim_pool, bias_pool, points, anchors,
 
 
 def _hash_backward_cuda(g, prim_pool, bias_pool, points, anchors, local_size,
-                        n_channels, red_ops=None):
+                        n_channels, red_ops=None, levels_per_launch=0):
     """H5 on CUDA tensors: the (L, local_size, C) table gradient, equal to
     :func:`hash_backward_reference` bit for bit.  ``red_ops``, an (L,)
-    int64 tensor on the card, if given, gets the number of 64-bit
-    reductions the kernel made per level added to it."""
+    int64 tensor on the card, if given, gets the number of 64-bit global
+    reductions the kernel made per level added to it.
+    ``levels_per_launch`` > 0 sets the levels each launch of its sums
+    covers (0: :func:`table_grad_group`)."""
     n_levels = prim_pool.shape[0]
     p = points.shape[0]
     if g.shape != (p, n_levels * n_channels):
@@ -595,21 +665,25 @@ def _hash_backward_cuda(g, prim_pool, bias_pool, points, anchors, local_size,
                          f"({n_levels},) int64 on {points.device}")
     addr = _kernel_args("hash_encode backward", prim_pool, bias_pool, points,
                         anchors, local_size, n_channels, [("gradient", g)])
+    group = min(levels_per_launch or table_grad_group(
+        n_levels, local_size, n_channels), n_levels)
     gc = g.to(torch.float32).contiguous()
     dev = points.device
     grad = torch.empty((n_levels, local_size, n_channels),
                        dtype=torch.float32, device=dev)
-    acc = torch.empty((local_size, n_channels), dtype=torch.int64, device=dev)
+    acc = torch.empty((group * local_size, n_channels), dtype=torch.int64,
+                      device=dev)
     gmax = torch.empty((n_levels,), dtype=torch.int32, device=dev)
-    launches = ctypes.c_int(0)
+    launches, memsets = ctypes.c_int(0), ctypes.c_int(0)
     err = build.library().gfnerf_hash_anchored_bwd(
         gc.data_ptr(), *(t.data_ptr() for t in addr), grad.data_ptr(),
         acc.data_ptr(), gmax.data_ptr(),
         None if red_ops is None else red_ops.data_ptr(),
-        ctypes.addressof(launches), p, n_levels, prim_pool.shape[1],
-        local_size, n_channels,
+        ctypes.addressof(launches), ctypes.addressof(memsets), p, n_levels,
+        prim_pool.shape[1], local_size, n_channels, group,
         torch.cuda.current_stream(dev).cuda_stream)
     build.check(err, "gfnerf_hash_anchored_bwd")
     hash_encode.bwd_calls += 1
     hash_encode.bwd_launches += launches.value
+    hash_encode.bwd_memsets += memsets.value
     return grad

@@ -11,8 +11,10 @@ XLA formulation, op for op) and ``packed_hash_backward_reference`` the plain
 dense table gradient (what the JAX package's ``_phe_bwd`` computes, its f32
 terms summed exactly in int64 fixed point, so that the result does not
 depend on the order of the sum: ``hash_encoding.fixed_point_table_grad``);
-``packed_hash_bwd_reductions`` counts the reductions the table gradient's
-kernel issues, from the same addressing.  ``packed_hash_encode``
+``packed_hash_bwd_records`` builds, plainly, the rows' records that the
+table gradient's kernel sums (its count, scan and scatter passes), and
+``packed_hash_bwd_reductions`` counts the atomics the kernel issues, from
+the same addressing.  ``packed_hash_encode``
 is the differentiable wrapper, with a gradient for the table only, as
 ``_phe_bwd`` has: on CPU tensors it runs the plain pair, on CUDA tensors
 the forward launches ``csrc/packed_hash_fwd.cu`` (H1) and the backward
@@ -377,39 +379,120 @@ def packed_hash_backward_reference(g, prim_pool, bias_pool, points, anchors,
     return grad.view(n_levels, n_rows, row_width)
 
 
-def packed_hash_bwd_reductions(prim_pool, bias_pool, points, anchors,
-                               n_rows, n_channels, pack, dense_levels=0,
-                               warp=32) -> torch.Tensor:
-    """(L,) int64: the 64-bit reductions the table-gradient kernel (H2)
-    issues per level at finite upstream gradients.  Its warps take ``warp``
-    consecutive points from a multiple of ``warp`` on, at one level; a run
-    of consecutive valid points with equal (row, clamped local cell) is one
-    contributor, which adds each channel of each of its live corners with
-    one reduction.  A masked point ends a run and adds nothing."""
+# H2's structure (csrc/packed_hash_bwd.cu): a warp sums at most BWD_CHUNK
+# records of a row (longer rows are split into chunks that meet in an int64
+# slot of the row); the scan takes BWD_SCAN_TILE counters a block; a call
+# makes BWD_LAUNCHES launches (count, scan, scatter, owner) and two
+# zero-fills (the counters, the slots).
+BWD_CHUNK = 1024
+BWD_SCAN_TILE = 16384
+BWD_LAUNCHES = 4
+
+
+def table_grad_launches(n_points: int) -> int:
+    """H2's launches for one call on ``n_points`` points (none without
+    points), whatever its levels: the count, the scan, the scatter and the
+    owner pass."""
+    return BWD_LAUNCHES if n_points else 0
+
+
+def table_grad_memsets(n_points: int) -> int:
+    """H2's zero-fills for one call: the counters' and the long rows'
+    slots'; without points, the gradient's."""
+    return 2 if n_points else 1
+
+
+def _level_rows(prim_pool, bias_pool, points, anchors, n_rows, pack,
+                dense_levels):
+    """Per level, (row (P,) int64, local cell per axis, fraction per axis),
+    with each point's clamped volume: the forward's addressing."""
     n_levels, n_volumes = prim_pool.shape[:2]
-    e = pack + 1
-    p = points.shape[0]
-    valid = anchors >= 0
     vol, prims, biases = _anchor_rows(prim_pool, bias_pool, anchors)
     scales = _level_scales(n_levels)
     dm, _ = dense_level_extents(n_levels, pack, n_volumes, n_rows,
                                 dense_levels)
+    return [_level_coords(points, prims[l], biases[l], scales[l], vol, pack,
+                          n_rows, int(dm[l])) for l in range(n_levels)]
+
+
+def packed_hash_bwd_records(g, prim_pool, bias_pool, points, anchors,
+                            n_rows, n_channels, pack, dense_levels=0) -> dict:
+    """What H2's count, scan and scatter passes build, plainly: every valid
+    (point, level) as one record in its row's bucket.  Returns ``counts``
+    (L * rows,) int64, the records of each (level, row) bucket (key ``level
+    * rows + row``); ``starts`` (L * rows + 1,) int64, each bucket's first
+    record (an exclusive scan of the counts; the last entry is the total);
+    and per record, in bucket order (inside a bucket in point order; the
+    kernel's order there is free, the sum being exact): ``key``, ``point``
+    (int64), ``loc`` (n, 3) int64, the local cell per axis clamped to [-2,
+    E] as the kernel packs it, ``frac`` (n, 3) f32, the fraction per axis,
+    and ``g`` (n, C) f32, the level's columns of the upstream gradient.
+    Points with anchor < 0 have no record."""
+    n_levels = prim_pool.shape[0]
+    e = pack + 1
+    p = points.shape[0]
+    valid = anchors >= 0
+    keys, locs, fracs = [], [], []
+    for l, (h, loc, frac) in enumerate(_level_rows(
+            prim_pool, bias_pool, points, anchors, n_rows, pack,
+            dense_levels)):
+        keys.append(l * n_rows + h)
+        locs.append(torch.stack([x.clamp(-2, e) for x in loc], -1))
+        fracs.append(torch.stack(frac, -1))
+    key = torch.stack(keys)                          # (L, P)
+    keep = valid[None].expand(n_levels, p)
+    point = torch.arange(p, device=points.device).expand(n_levels, p)[keep]
+    level = torch.arange(n_levels, device=points.device)[:, None].expand(
+        n_levels, p)[keep]
+    key = key[keep]
+    counts = torch.bincount(key, minlength=n_levels * n_rows)
+    starts = torch.zeros(n_levels * n_rows + 1, dtype=torch.int64,
+                         device=points.device)
+    starts[1:] = torch.cumsum(counts, 0)
+    # each record's place: its bucket's start plus the records of the same
+    # bucket before it (level-major, then point order)
+    order = torch.argsort(key, stable=True)
+    slot = torch.empty_like(order)
+    slot[order] = torch.arange(len(order), device=points.device)
+    gl = g.reshape(p, n_levels, n_channels).to(torch.float32)
+    out = {"counts": counts, "starts": starts}
+    for name, x in (("key", key), ("point", point),
+                    ("loc", torch.stack(locs)[keep]),
+                    ("frac", torch.stack(fracs)[keep]),
+                    ("g", gl[point, level])):
+        placed = torch.empty_like(x)
+        placed[slot] = x
+        out[name] = placed
+    return out
+
+
+def packed_hash_bwd_reductions(prim_pool, bias_pool, points, anchors,
+                               n_rows, n_channels, pack, dense_levels=0,
+                               warp=32) -> torch.Tensor:
+    """(L,) int64: the atomics the table-gradient kernel (H2) issues per
+    level.  Its warps take ``warp`` consecutive points from a multiple of
+    ``warp`` on, at one level; a run of consecutive valid points in one row
+    bumps the row's counter once (the count pass) and claims its records
+    with one cursor atomic (the scatter pass).  A masked point ends a run
+    and has no record.  A row of more than ``BWD_CHUNK`` records is summed
+    in chunks of ``BWD_CHUNK``, each of which adds the row's ``(pack + 1)^3
+    * C`` lattice columns into the row's slot with one 64-bit reduction
+    apiece (at a finite level; the count assumes every level is)."""
+    live = (pack + 1) ** 3 * n_channels
+    valid = anchors >= 0
+    p = points.shape[0]
     first = torch.arange(p, device=points.device) % warp == 0
     ops = []
-    for l in range(n_levels):
-        h, loc, _ = _level_coords(points, prims[l], biases[l], scales[l],
-                                  vol, pack, n_rows, int(dm[l]))
-        cl = [x.clamp(-2, e) for x in loc]
-        key = torch.stack([h, *cl], -1)
+    for h, _, _ in _level_rows(prim_pool, bias_pool, points, anchors, n_rows,
+                               pack, dense_levels):
         same = torch.zeros_like(valid)
-        same[1:] = (key[1:] == key[:-1]).all(-1) & valid[:-1]
-        head = valid & (first | ~same)
-        live = torch.ones_like(h)
-        for x in cl:   # live positions of the axis: loc and loc + 1 in [0, e)
-            live = live * (((x >= 0) & (x < e)).long()
-                           + ((x + 1 >= 0) & (x + 1 < e)).long())
-        ops.append((live * head).sum())
-    return torch.stack(ops) * n_channels
+        same[1:] = (h[1:] == h[:-1]) & valid[:-1]
+        heads = (valid & (first | ~same)).sum()
+        counts = torch.bincount(h[valid], minlength=n_rows)
+        chunks = torch.div(counts + BWD_CHUNK - 1, BWD_CHUNK,
+                           rounding_mode="floor")
+        ops.append(2 * heads + live * chunks[counts > BWD_CHUNK].sum())
+    return torch.stack(ops)
 
 
 class _PackedHashEncode(torch.autograd.Function):
@@ -492,6 +575,7 @@ def plain_packed_hash_encode(feat_pool, prim_pool, bias_pool, points,
 
 packed_hash_encode.launches = 0       # H1 launches
 packed_hash_encode.bwd_launches = 0   # H2 launches: table_grad_launches a call
+packed_hash_encode.bwd_memsets = 0    # H2 zero-fills: two a call
 packed_hash_encode.bwd_calls = 0      # H2 calls, one per backward
 
 
@@ -583,6 +667,37 @@ def _packed_hash_encode_cuda(feat_pool, prim_pool, bias_pool, points,
     return out
 
 
+def _bwd_workspace(p, n_levels, n_rows, n_channels, pack, dev):
+    """H2's scratch on ``dev`` (csrc/packed_hash_bwd.cu says what each
+    holds), from the caching allocator: nothing is copied from the host, so
+    a CUDA graph can capture the call.  The records' count must fit int32."""
+    n_keys = n_levels * n_rows
+    n_rec = p * n_levels
+    if n_rec >= 2 ** 31 - 1:
+        raise ValueError(f"packed_hash_encode backward: {p} points x "
+                         f"{n_levels} levels is past int32's records")
+    n_scan = -(-n_keys // BWD_SCAN_TILE)
+    n_slots = _bwd_slots(p, n_levels, n_rows)
+
+    def empty(n, dtype):
+        return torch.empty((max(1, n),), dtype=dtype, device=dev)
+
+    return (empty(n_rec * (4 + n_channels), torch.float32),     # records
+            empty(n_keys + n_scan + 4 + n_levels + n_slots,      # ctrl
+                  torch.int32),
+            empty(n_keys, torch.int32),                          # slot_of
+            empty(2 * (n_rec // BWD_CHUNK), torch.int32),        # items
+            empty(n_slots * (pack + 1) ** 3 * n_channels,        # slot_sums
+                  torch.int64))
+
+
+def _bwd_slots(n_points: int, n_levels: int, n_rows: int) -> int:
+    """H2's slots of long-row sums for a call: at least the rows of more
+    than BWD_CHUNK records there can be, at least one."""
+    return max(1, min(n_levels * n_rows,
+                      n_points * n_levels // (BWD_CHUNK + 1)))
+
+
 def _packed_hash_backward_cuda(g, prim_pool, bias_pool, points, anchors,
                                n_rows, row_width, n_channels, pack,
                                dense_levels, red_ops=None, level=None):
@@ -591,8 +706,8 @@ def _packed_hash_backward_cuda(g, prim_pool, bias_pool, points, anchors,
     that level alone: ``g`` is its (P, C) columns and the result (1, rows,
     W), that level of the whole (its scale is its own).  ``red_ops``, an
     int64 tensor on the card with one entry per level computed, if given,
-    gets the number of 64-bit reductions the kernel issued per level added
-    to it."""
+    gets the atomics the kernel issued per level added to it
+    (:func:`packed_hash_bwd_reductions` reckons them)."""
     n_levels = 1 if level is not None else prim_pool.shape[0]
     p = points.shape[0]
     if g.shape != (p, n_levels * n_channels):
@@ -610,19 +725,20 @@ def _packed_hash_backward_cuda(g, prim_pool, bias_pool, points, anchors,
     dev = points.device
     grad = torch.empty((n_levels, n_rows, row_width), dtype=torch.float32,
                        device=dev)
-    acc = torch.empty((n_rows, row_width), dtype=torch.int64, device=dev)
-    gmax = torch.empty((n_levels,), dtype=torch.int32, device=dev)
-    launches = ctypes.c_int(0)
+    work = _bwd_workspace(p, n_levels, n_rows, n_channels, pack, dev)
+    launches, memsets = ctypes.c_int(0), ctypes.c_int(0)
     err = build.library().gfnerf_packed_hash_bwd(
         gc.data_ptr(), *(t.data_ptr() for t in addr), grad.data_ptr(),
-        acc.data_ptr(), gmax.data_ptr(),
+        *(t.data_ptr() for t in work),
         None if red_ops is None else red_ops.data_ptr(),
-        ctypes.addressof(launches), p, n_levels, prim_pool.shape[1], n_rows,
-        row_width, n_channels, pack + 1,
+        ctypes.addressof(launches), ctypes.addressof(memsets), p, n_levels,
+        prim_pool.shape[1], n_rows, row_width, n_channels, pack + 1,
+        _bwd_slots(p, n_levels, n_rows),
         torch.cuda.current_stream(dev).cuda_stream)
     build.check(err, "gfnerf_packed_hash_bwd")
     packed_hash_encode.bwd_calls += 1
     packed_hash_encode.bwd_launches += launches.value
+    packed_hash_encode.bwd_memsets += memsets.value
     return grad
 
 

@@ -47,11 +47,11 @@ SIGNATURES = {
     "gfnerf_composite_fwd": [_P] * 9 + [_I64, _I64, _P],
     "gfnerf_composite_bwd": [_P] * 13 + [_I64, _I64, _I32, _P],
     "gfnerf_packed_hash_fwd": [_P] * 9 + [_I64] + [_I32] * 6 + [_P],
-    "gfnerf_packed_hash_bwd": [_P] * 12 + [_I64] + [_I32] * 6 + [_P],
+    "gfnerf_packed_hash_bwd": [_P] * 16 + [_I64] + [_I32] * 7 + [_P],
     "gfnerf_packed_hash_routed": [_P] * 10 + [_I64] + [_I32] * 7 + [_P],
     "gfnerf_hash_anchored_fwd": [_P, _I32] + [_P] * 8 + [_I64] + [_I32] * 5
     + [_P],
-    "gfnerf_hash_anchored_bwd": [_P] * 11 + [_I64] + [_I32] * 4 + [_P],
+    "gfnerf_hash_anchored_bwd": [_P] * 12 + [_I64] + [_I32] * 5 + [_P],
     "gfnerf_scan_march": [_P] * 23 + [_I64, _I32, _I32, _I32, _F32, _I32,
                                       _F32, _F32, _P],
     "gfnerf_temporal_grid_fwd": [_P] * 8 + [_I64] + [_I32] * 4

@@ -462,13 +462,13 @@ def test_kernels_match_plain_on_card(c, n_levels, log2):
     """H4 against the plain forward and H5 through autograd against the
     plain table gradient, both bit for bit: one call of each, H4 launching
     once per group of ``FWD_LEVEL_GROUP`` levels, H5 ``table_grad_launches``
-    times (the level maxima, then per level the sums and the
-    conversion)."""
+    times with ``table_grad_memsets`` zero-fills."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernels have no CPU mode")
     from gfnerf_tpu_torch.fields.hash_encoding import (
         encode_launches, hash_backward_reference, hash_encode,
-        hash_encode_raw, init_hash_params, table_grad_launches)
+        hash_encode_raw, init_hash_params, table_grad_launches,
+        table_grad_memsets)
 
     _, prim, bias = init_hash_params(7, log2, N_VOLUMES, n_levels, c)
     feat = np.random.default_rng(7).uniform(
@@ -477,16 +477,18 @@ def test_kernels_match_plain_on_card(c, n_levels, log2):
     args = [a.cuda() for a in _targs(prim, bias, pts, anc)]
     table = torch.tensor(feat, device="cuda", requires_grad=True)
     before = (hash_encode.calls, hash_encode.launches,
-              hash_encode.bwd_launches)
+              hash_encode.bwd_launches, hash_encode.bwd_memsets)
     out = hash_encode(table, *args)
     g = torch.randn(out.shape, device="cuda",
                     generator=torch.Generator("cuda").manual_seed(c))
     out.backward(g)
     torch.cuda.synchronize()
+    shape = (n_levels, len(pts), 1 << log2, c)
     assert (hash_encode.calls, hash_encode.launches,
-            hash_encode.bwd_launches) == (
+            hash_encode.bwd_launches, hash_encode.bwd_memsets) == (
         before[0] + 1, before[1] + encode_launches(n_levels),
-        before[2] + table_grad_launches(n_levels))
+        before[2] + table_grad_launches(*shape),
+        before[3] + table_grad_memsets(*shape))
     assert torch.equal(out.detach(), hash_encode_raw(table.detach(), *args))
     assert bool((out[args[3] < 0] == 0).all())
     assert torch.equal(table.grad,
@@ -554,50 +556,61 @@ def _one_cell(p, anchors, shared_bias=False):
     return _targs(prim, bias, pts, np.asarray(anchors, np.int32))
 
 
-# case -> (points, anchors, shared bias, reductions per level)
+# case -> (points, anchors, shared bias, runs of equal cells per level: the
+# contributors of 8 corners each)
 REDUCTION_CASES = {
     # one run of 32 points is one contributor of 8 corners
-    "one_warp": (32, [1] * 32, False, 8),
+    "one_warp": (32, [1] * 32, False, 1),
     # a run that crosses a 32-point boundary counts once in each warp
-    "crosses_boundary": (64, [1] * 64, False, 16),
+    "crosses_boundary": (64, [1] * 64, False, 2),
     # a masked anchor splits its run in two and adds nothing itself
-    "masked_splits": (32, [1] * 10 + [-1] + [1] * 21, False, 16),
+    "masked_splits": (32, [1] * 10 + [-1] + [1] * 21, False, 2),
     # masked points at a run's ends shorten it, no more
-    "masked_ends": (32, [-1] + [1] * 30 + [-1], False, 8),
+    "masked_ends": (32, [-1] + [1] * 30 + [-1], False, 1),
     # equal cells in two volumes (other primes) do not merge
-    "two_volumes": (32, [0, 1] * 16, True, 8 * 32),
+    "two_volumes": (32, [0, 1] * 16, True, 32),
     # the same points in one volume do
-    "one_volume": (32, [0] * 32, True, 8),
+    "one_volume": (32, [0] * 32, True, 1),
     # P not a multiple of 32: the last warp is short
-    "ragged": (45, [2] * 45, False, 16),
+    "ragged": (45, [2] * 45, False, 2),
     # nothing valid, nothing added
     "all_masked": (40, [-1] * 40, False, 0),
 }
+
+
+def _g(p, c, seed=4):
+    return torch.as_tensor(np.random.default_rng(seed).standard_normal(
+        (p, N_LEVELS * c)).astype(np.float32))
 
 
 @pytest.mark.parametrize("case", sorted(REDUCTION_CASES))
 def test_bwd_reduction_count(case):
     """``hash_bwd_reductions`` on hand-made inputs: one contributor of 8
     corners per run of equal (volume, cell) among a warp's 32 consecutive
-    points (``hash_run_heads``), one reduction for each corner's channel;
-    with warps of one point, 8 C per valid point."""
+    points (``hash_run_heads``), one reduction for each corner's channel
+    whose run sum is not 0; with warps of one point, 8 C per valid point;
+    a channel of zeros adds nothing."""
     from gfnerf_tpu_torch.fields.hash_encoding import (hash_bwd_reductions,
                                                        hash_corner_indices,
                                                        hash_run_heads)
 
-    p, anchors, shared, want = REDUCTION_CASES[case]
+    p, anchors, shared, heads = REDUCTION_CASES[case]
     args = _one_cell(p, anchors, shared)
     cells = hash_corner_indices(*args, 1 << LOG2)
     if case in ("one_warp", "crosses_boundary", "ragged"):
         assert bool((cells == cells[..., :1]).all())   # one cell indeed
-    ops = hash_bwd_reductions(*args, 2)
-    assert ops.dtype == torch.int64
-    assert ops.tolist() == [2 * want] * N_LEVELS
-    assert hash_run_heads(*args).tolist() == [want // 8] * N_LEVELS
-    assert hash_bwd_reductions(*args, 4).tolist() == [4 * want] * N_LEVELS
+    assert hash_run_heads(*args).tolist() == [heads] * N_LEVELS
+    for c in (2, 4):
+        ops = hash_bwd_reductions(_g(p, c), *args, 1 << LOG2, c)
+        assert ops.dtype == torch.int64
+        assert ops.tolist() == [8 * c * heads] * N_LEVELS
     n_valid = sum(a >= 0 for a in anchors)
-    assert hash_bwd_reductions(*args, 2, warp=1).tolist() == \
-        [16 * n_valid] * N_LEVELS
+    assert hash_bwd_reductions(_g(p, 2), *args, 1 << LOG2, 2,
+                               warp=1).tolist() == [16 * n_valid] * N_LEVELS
+    g = _g(p, 2)
+    g[:, 1::2] = 0.0
+    assert hash_bwd_reductions(g, *args, 1 << LOG2, 2).tolist() == \
+        [8 * heads] * N_LEVELS
 
 
 def _run_inputs(n_rays=40, n_samples=97, seed=5):
@@ -622,36 +635,128 @@ def _run_inputs(n_rays=40, n_samples=97, seed=5):
         np.int32)
 
 
-def test_bwd_reduction_count_on_runs():
-    """On rays of close points the count (at C = 2) lies between one
-    contributor per warp and one per valid point, rises with the level
-    (shorter runs on finer grids), and equals a plain loop over the
-    points."""
+def _runs_count_by_loop(g, args, anc, c):
+    """H5's reductions per level by a loop over the points: each run of a
+    warp's consecutive valid points in one (volume, cell) sums its
+    fixed-point terms per corner and channel; a non-zero sum counts."""
     from gfnerf_tpu_torch.fields import hash_encoding as T
 
-    prim, bias, pts, anc = _run_inputs()
-    args = _targs(prim, bias, pts, anc)
-    ops = T.hash_bwd_reductions(*args, 2).tolist()
-    single = T.hash_bwd_reductions(*args, 2, warp=1).tolist()
-    assert single == [16 * int((anc >= 0).sum())] * N_LEVELS
-    assert all(16 * -(-len(pts) // 32) <= o < s for o, s in zip(ops, single))
-    assert ops[0] < ops[-1]
-    # the same count by a loop over the points, from the corner addressing's
-    # own cells
+    shift, _ = T.fixed_point_shifts(g, N_LEVELS, c)
     vol = np.clip(anc, 0, N_VOLUMES - 1)
     scales = T._level_scales(N_LEVELS)
+    terms = list(T.hash_scatter_terms(g, *args, 1 << LOG2, c))
+    counts = []
     for l in range(N_LEVELS):
-        cells = T._level_cells(args[2], args[1][l][torch.as_tensor(vol).long()],
-                               scales[l])
+        cells = T._level_cells(
+            args[2], args[1][l][torch.as_tensor(vol).long()], scales[l])
         key = np.stack([vol, *(x0.numpy() for x0, _ in cells)], -1)
-        heads = 0
-        for i in range(len(pts)):
+        q = np.stack([torch.round(p.double() * T._pow2(shift)[l])
+                      .long().numpy() for _, p in terms[8 * l:8 * l + 8]], 1)
+        runs, sums = 0, None
+        for i in range(len(anc)):
             if anc[i] < 0:
                 continue
             joins = (i % 32 != 0 and anc[i - 1] >= 0
                      and np.array_equal(key[i], key[i - 1]))
-            heads += not joins
-        assert ops[l] == 16 * heads, l
+            if not joins:
+                runs += 0 if sums is None else int((sums != 0).sum())
+                sums = np.zeros((8, c), np.int64)
+            sums += q[i]
+        counts.append(runs + (0 if sums is None else int((sums != 0).sum())))
+    return counts
+
+
+def test_bwd_reduction_count_on_runs():
+    """On rays of close points the count (at C = 2 and 4) lies between 8 C
+    per warp and 8 C per valid point (a warp of one point each: every
+    valid point's non-zero terms), rises with the level (shorter runs on
+    finer grids), and equals a plain loop over the points that sums each
+    run's fixed-point terms per corner and channel."""
+    from gfnerf_tpu_torch.fields import hash_encoding as T
+
+    prim, bias, pts, anc = _run_inputs()
+    args = _targs(prim, bias, pts, anc)
+    n_valid = int((anc >= 0).sum())
+    for c in (2, 4):
+        g = _g(len(pts), c, seed=9)
+        ops = T.hash_bwd_reductions(g, *args, 1 << LOG2, c).tolist()
+        single = T.hash_bwd_reductions(g, *args, 1 << LOG2, c,
+                                       warp=1).tolist()
+        assert all(0.99 * 8 * c * n_valid < s <= 8 * c * n_valid
+                   for s in single)
+        assert all(8 * c * -(-len(pts) // 32) <= o < s
+                   for o, s in zip(ops, single))
+        assert ops[0] < ops[-1]
+        assert ops == _runs_count_by_loop(g, args, anc, c)
+
+
+@pytest.mark.parametrize("c", [2, 4])
+def test_bwd_reduction_count_along_a_ray(c):
+    """A ray through n consecutive cells of level 0 along x: neighbouring
+    cells share a face (4 distinct entries a cell after the first, H5 adds
+    8 corners a run all the same: the entries are not merged across
+    cells), so one point a cell makes 8 C n reductions and three points a
+    cell, consecutive, the same 8 C n once the runs merge them; at five a
+    cell the run of cell 6 crosses a warp boundary and counts in both
+    warps."""
+    from gfnerf_tpu_torch.fields import hash_encoding as T
+
+    log2, n = 20, 9
+    _, prim, bias = T.init_hash_params(7, log2, N_VOLUMES, N_LEVELS, c)
+    scale = float(T._level_scales(N_LEVELS)[0])
+    b = bias[0, 1]
+    x0 = np.floor(np.float32(0.3) * scale + b[0])
+    for per_cell in (1, 3, 5):
+        off = (np.arange(per_cell) + 1.0) / (per_cell + 1.0)
+        pts = np.zeros((n * per_cell, 3), np.float32)
+        pts[:, 0] = (x0 + np.repeat(np.arange(n), per_cell)
+                     + np.tile(off, n) - b[0]) / scale
+        pts[:, 1] = (np.floor(0.5 * scale + b[1]) + 0.5 - b[1]) / scale
+        pts[:, 2] = (np.floor(0.5 * scale + b[2]) + 0.5 - b[2]) / scale
+        args = _targs(prim, bias, pts, np.ones(len(pts), np.int32))
+        cells = T._level_cells(args[2], args[1][0][args[3].long()], scale)
+        assert np.array_equal(cells[0][0].numpy() - cells[0][0].numpy()[0],
+                              np.repeat(np.arange(n), per_cell))
+        corners = T.hash_corner_indices(*args, 1 << log2)[0]
+        assert len(set(corners.reshape(-1).tolist())) == 4 * (n + 1)
+        g = _g(len(pts), c, seed=2)
+        split = int(per_cell == 5)   # cell 6's run crosses point 32
+        assert int(T.hash_bwd_reductions(g, *args, 1 << log2, c)[0]) == \
+            8 * c * (n + split)
+        assert int(T.hash_bwd_reductions(g, *args, 1 << log2, c,
+                                         warp=1)[0]) == 8 * c * len(pts)
+
+
+@pytest.mark.parametrize("p,n_levels,log2,c,group,launches,memsets", [
+    (196_608, 16, 19, 2, 16, 3, 2),      # nerfacto's field
+    (393_216, 5, 17, 2, 5, 3, 2),        # nerfacto's proposal 1
+    (1_572_864, 16, 19, 2, 16, 3, 2),    # the parity train batch
+    (786_432, 16, 19, 4, 8, 5, 3),       # C = 4: 16 MB a level
+    (2_097_152, 16, 21, 2, 4, 9, 5),     # gf-nerf: 32 MB a level
+    (1000, 16, 21, 2, 4, 9, 5),          # few points, the same table
+    (0, 16, 19, 2, 16, 0, 1),            # no points: the gradient zeroed
+])
+def test_table_grad_launches_and_memsets(p, n_levels, log2, c, group,
+                                         launches, memsets):
+    """H5's launches and zero-fills a call: the levels a launch of its sums
+    fill at most ACC_BUDGET_BYTES (128 MB) of int64 accumulator; a small
+    call sums all of them at once (the level maxima, one launch of the
+    sums, one of the conversion; the maxima's and the accumulator's
+    zero-fills), a larger one a group at a time (1 + 2 ceil(L / group)
+    launches, 1 + ceil(L / group) zero-fills); any group given."""
+    from gfnerf_tpu_torch.fields import hash_encoding as T
+
+    assert T.ACC_BUDGET_BYTES == 1 << 27
+    assert T.table_grad_group(n_levels, 1 << log2, c) == group
+    assert T.small_table_grad(n_levels, 1 << log2, c) == (
+        group == n_levels)
+    assert T.table_grad_launches(n_levels, p, 1 << log2, c) == launches
+    assert T.table_grad_memsets(n_levels, p, 1 << log2, c) == memsets
+    if p:
+        assert T.table_grad_launches(n_levels, p, 1 << log2, c, 1) == \
+            1 + 2 * n_levels
+        assert T.table_grad_memsets(n_levels, p, 1 << log2, c, 3) == \
+            1 + -(-n_levels // 3)
 
 
 @pytest.mark.cuda
@@ -659,8 +764,9 @@ def test_bwd_reduction_count_on_runs():
                                              (2, 16, 14)])
 def test_backward_kernel_merges_runs_on_card(c, n_levels, log2):
     """H5 on runs of equal cells (masked anchors inside, two volumes sharing
-    cells) against the plain table gradient, bit for bit, and its
-    reductions per level against ``hash_bwd_reductions``; called again, and
+    cells) against the plain table gradient, bit for bit, and its global
+    reductions per level (after each tile's merge) against
+    ``hash_bwd_reductions``; called again, and
     on the points (and their rows of g) in another order, the same
     gradient bit for bit."""
     if not torch.cuda.is_available():
@@ -678,10 +784,11 @@ def test_backward_kernel_merges_runs_on_card(c, n_levels, log2):
     grad = T._hash_backward_cuda(g, *args, 1 << log2, c, red_ops=ops)
     torch.cuda.synchronize()
     assert (T.hash_encode.bwd_calls, T.hash_encode.bwd_launches) == (
-        before[0] + 1, before[1] + T.table_grad_launches(n_levels))
+        before[0] + 1, before[1] + T.table_grad_launches(
+            n_levels, len(pts), 1 << log2, c))
     assert torch.equal(grad, T.hash_backward_reference(g, *args, 1 << log2,
                                                        c))
-    want = T.hash_bwd_reductions(*args[:4], c)
+    want = T.hash_bwd_reductions(g, *args[:4], 1 << log2, c)
     assert ops.tolist() == want.tolist()
     assert int(ops.sum()) < 8 * c * n_levels * int((args[3] >= 0).sum())
     assert torch.equal(T._hash_backward_cuda(g, *args, 1 << log2, c), grad)
@@ -690,6 +797,48 @@ def test_backward_kernel_merges_runs_on_card(c, n_levels, log2):
     moved = (*args[:2], args[2][perm], args[3][perm])
     assert torch.equal(T._hash_backward_cuda(g[perm], *moved, 1 << log2, c),
                        grad)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c,n_levels,log2", [(2, 16, 19), (4, 5, 12)])
+def test_backward_levels_a_launch_on_card(c, n_levels, log2):
+    """H5 summing all levels at once (a small call), a few at a time and
+    each level in turn, on the same inputs: each the plain table gradient
+    bit for bit, with the same reductions (hash_bwd_reductions), 1 + 2
+    ceil(L / k) launches and 1 + ceil(L / k) zero-fills at k levels a
+    launch (3 and 2 at once); a level whose g holds a NaN is NaN
+    throughout, the others unchanged."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    from gfnerf_tpu_torch.fields import hash_encoding as T
+
+    _, prim, _ = T.init_hash_params(7, log2, N_VOLUMES, n_levels, c)
+    _, bias, pts, anc = _run_inputs(n_rays=300)
+    bias = np.tile(bias, (n_levels // N_LEVELS + 1, 1, 1))[:n_levels]
+    args = [a.cuda() for a in _targs(prim, bias, pts, anc)]
+    g = torch.randn((len(pts), n_levels * c), device="cuda",
+                    generator=torch.Generator("cuda").manual_seed(c))
+    want = T.hash_backward_reference(g, *args, 1 << log2, c)
+    reckoned = T.hash_bwd_reductions(g, *args, 1 << log2, c)
+    for k in (n_levels, 2, 1):
+        ops = torch.zeros(n_levels, dtype=torch.int64, device="cuda")
+        before = (T.hash_encode.bwd_launches, T.hash_encode.bwd_memsets)
+        got = T._hash_backward_cuda(g, *args, 1 << log2, c, red_ops=ops,
+                                    levels_per_launch=k)
+        torch.cuda.synchronize()
+        groups = -(-n_levels // k)
+        assert (T.hash_encode.bwd_launches - before[0],
+                T.hash_encode.bwd_memsets - before[1]) == (1 + 2 * groups,
+                                                           1 + groups)
+        assert torch.equal(got, want), k
+        assert ops.tolist() == reckoned.tolist(), k
+        bad = g.clone()
+        bad[5, 2 * c + 1] = float("nan")
+        got = T._hash_backward_cuda(bad, *args, 1 << log2, c,
+                                    levels_per_launch=k)
+        assert bool(torch.isnan(got[2]).all())
+        others = [l for l in range(n_levels) if l != 2]
+        assert torch.equal(got[others], want[others])
 
 
 # ---- the anchored layout through the field and the train step ----

@@ -8,6 +8,8 @@ exactly; features to atol 1e-6 (both sum the same bf16 table values in f32,
 in the same order, up to multiply-add contraction).
 """
 
+import itertools
+
 import numpy as np
 import pytest
 import torch
@@ -338,15 +340,17 @@ def test_backward_matches_jax_vjp_on_runs(case, dense):
 
 @pytest.mark.parametrize("case", RUN_CASES)
 def test_bwd_reduction_count(case):
-    """The 64-bit reductions H2 issues: one contributor per run of equal
-    cells in a 32-point warp, one reduction for each channel of each of its
-    8 live corners; with warps of one point, one per valid point, corner
-    and channel."""
+    """The atomics H2 issues: a counter and a cursor atomic per run of
+    consecutive points in one row within a 32-point warp (no row of these
+    inputs holds more than BWD_CHUNK records, so no 64-bit reduction);
+    with warps of one point, two per valid point.  The count does not
+    depend on the channels."""
     from gfnerf_tpu_torch.fields.packed_hash import (
-        pack_for_channels, packed_hash_bwd_reductions)
+        BWD_CHUNK, pack_for_channels, packed_hash_bwd_reductions)
 
     want, _, _ = _tables(4)
     pts, anc = _run_points(case)
+    assert len(pts) <= BWD_CHUNK
     args = (torch.as_tensor(want[1].astype(np.int64)),
             torch.as_tensor(want[2]), torch.as_tensor(pts),
             torch.as_tensor(anc), 1 << ROWS_LOG2)
@@ -354,13 +358,13 @@ def test_bwd_reduction_count(case):
     ops = packed_hash_bwd_reductions(*args, 4, pack).numpy()
     n_valid = int((anc >= 0).sum())
     single = packed_hash_bwd_reductions(*args, 4, pack, warp=1).numpy()
-    assert np.array_equal(single, np.full(N_LEVELS, 4 * 8 * n_valid))
+    assert np.array_equal(single, np.full(N_LEVELS, 2 * n_valid))
     assert np.all(ops <= single)
     assert np.array_equal(
-        packed_hash_bwd_reductions(*args, 8, pack).numpy(), 2 * ops)
+        packed_hash_bwd_reductions(*args, 8, pack).numpy(), ops)
     if case == "one_cell":
         assert np.array_equal(ops, np.full(N_LEVELS,
-                                           4 * 8 * -(-len(pts) // 32)))
+                                           2 * -(-len(pts) // 32)))
     else:   # runs are longer on the coarse levels
         assert ops[0] < ops[-1]
     if case == "runs_masked":
@@ -370,6 +374,186 @@ def test_bwd_reduction_count(case):
             *args[:3], torch.as_tensor(_run_points("runs")[1]), args[4], 4,
             pack).numpy()
         assert ops[0] > unmasked[0]
+
+
+@pytest.mark.parametrize("c", [2, 4, 8])
+def test_bwd_reduction_count_long_rows(c):
+    """A row of more than BWD_CHUNK records is summed in chunks of
+    BWD_CHUNK, each adding the row's (pack + 1)^3 C lattice columns into
+    the row's slot with one 64-bit reduction apiece: 2910 points in one
+    cell are 3 chunks of their row at every level, besides the counter and
+    cursor atomics of the warps' runs; 970 points, one chunk and no
+    reduction."""
+    from gfnerf_tpu_torch.fields.packed_hash import (
+        BWD_CHUNK, pack_for_channels, packed_hash_bwd_reductions)
+
+    want, _, _ = _tables(c)
+    pack = pack_for_channels(c)
+    live = (pack + 1) ** 3 * c
+    for n_rays, chunks in ((30, 3), (10, 0)):
+        pts, anc = _run_points("one_cell", n_rays=n_rays)
+        assert -(-len(pts) // BWD_CHUNK) == max(chunks, 1)
+        ops = packed_hash_bwd_reductions(
+            torch.as_tensor(want[1].astype(np.int64)),
+            torch.as_tensor(want[2]), torch.as_tensor(pts),
+            torch.as_tensor(anc), 1 << ROWS_LOG2, c, pack).numpy()
+        runs = 2 * -(-len(pts) // 32)
+        assert np.array_equal(ops, np.full(N_LEVELS, runs + chunks * live))
+
+
+def _bucket_case(case, c=4, dense=0):
+    """(g, prim, bias, points, anchors) torch inputs for the record tests."""
+    want, _, _ = _tables(c)
+    if case == "random":
+        pts, anc = _points(p=1500, n_invalid=100)
+    else:
+        pts, anc = _run_points(case, n_rays=30)
+    g = np.random.default_rng(11).standard_normal(
+        (len(pts), N_LEVELS * c)).astype(np.float32)
+    return (torch.as_tensor(g), torch.as_tensor(want[1].astype(np.int64)),
+            torch.as_tensor(want[2]), torch.as_tensor(pts),
+            torch.as_tensor(anc))
+
+
+@pytest.mark.parametrize("case,c,dense", [("random", 4, 0), ("random", 2, 2),
+                                          ("one_cell", 4, 0), ("runs", 8, 0),
+                                          ("runs_masked", 4, 2)])
+def test_bwd_records_match_argsort_by_row(case, c, dense):
+    """H2's row buckets (``packed_hash_bwd_records``: the count, the scan,
+    the scatter) against a torch.argsort of the valid (point, level) pairs
+    by (level, row): each bucket's start is the exclusive scan of the
+    counts and holds exactly the pairs of its row; every record carries its
+    pair's clamped local cell, fraction and level columns of g, as the
+    plain gradient's addressing forms them."""
+    from gfnerf_tpu_torch.fields.packed_hash import (_level_coords,
+                                                     _anchor_rows,
+                                                     dense_level_extents,
+                                                     pack_for_channels,
+                                                     packed_hash_bwd_records)
+    from gfnerf_tpu_torch.fields.hash_encoding import _level_scales
+
+    g, prim, bias, pts, anc = _bucket_case(case, c, dense)
+    pack = pack_for_channels(c)
+    n_rows = 1 << ROWS_LOG2
+    rec = packed_hash_bwd_records(g, prim, bias, pts, anc, n_rows, c, pack,
+                                  dense)
+    vol, prims, biases = _anchor_rows(prim, bias, anc)
+    dm, _ = dense_level_extents(N_LEVELS, pack, N_VOLUMES, n_rows, dense)
+    scales = _level_scales(N_LEVELS)
+    valid = np.flatnonzero(anc.numpy() >= 0)
+    key, point, loc, frac, gcol = [], [], [], [], []
+    for l in range(N_LEVELS):
+        h, lo, fr = _level_coords(pts, prims[l], biases[l], scales[l], vol,
+                                  pack, n_rows, int(dm[l]))
+        key.append(l * n_rows + h[valid])
+        point.append(torch.as_tensor(valid))
+        loc.append(torch.stack([x.clamp(-2, pack + 1) for x in lo], -1)[valid])
+        frac.append(torch.stack(fr, -1)[valid])
+        gcol.append(g[valid, l * c:(l + 1) * c])
+    key = torch.cat(key)
+    order = torch.argsort(key, stable=True)
+    counts = torch.bincount(key, minlength=N_LEVELS * n_rows)
+    assert torch.equal(rec["counts"], counts)
+    assert torch.equal(rec["starts"][1:], torch.cumsum(counts, 0))
+    assert int(rec["starts"][0]) == 0
+    assert torch.equal(rec["key"], key[order])
+    for name, want in (("point", torch.cat(point)), ("loc", torch.cat(loc)),
+                       ("frac", torch.cat(frac)), ("g", torch.cat(gcol))):
+        assert torch.equal(rec[name], want[order]), name
+    if case == "one_cell":   # every level's records in one row
+        assert int((counts > 0).sum()) == N_LEVELS
+
+
+@pytest.mark.parametrize("case,c,dense", [("random", 4, 0), ("one_cell", 4, 0),
+                                          ("one_cell", 8, 0), ("runs", 2, 2),
+                                          ("runs_masked", 4, 0)])
+def test_bwd_records_summed_by_row_chunks(case, c, dense):
+    """The owner pass on the plain records: each row's records summed in
+    chunks of BWD_CHUNK, the chunks' int64 partial sums added (as a long
+    row's chunks add into its slot), then converted: the plain table
+    gradient bit for bit (one_cell's rows hold 2910 records, three
+    chunks)."""
+    from gfnerf_tpu_torch.fields.hash_encoding import _pow2, fixed_point_shifts
+    from gfnerf_tpu_torch.fields.packed_hash import (
+        BWD_CHUNK, pack_for_channels, packed_hash_backward_reference,
+        packed_hash_bwd_records)
+
+    g, prim, bias, pts, anc = _bucket_case(case, c, dense)
+    pack = pack_for_channels(c)
+    e = pack + 1
+    n_rows = 1 << ROWS_LOG2
+    rec = packed_hash_bwd_records(g, prim, bias, pts, anc, n_rows, c, pack,
+                                  dense)
+    shift, finite = fixed_point_shifts(g, N_LEVELS, c)
+    assert bool(finite.all())
+    level = torch.div(rec["key"], n_rows, rounding_mode="floor")
+    corner_cols, qs = [], []
+    for corner in itertools.product((0, 1), repeat=3):
+        pos = rec["loc"] + torch.tensor(corner)
+        inside = ((pos >= 0) & (pos < e)).all(-1)
+        wt = [torch.where(torch.tensor(bool(u)), rec["frac"][:, a],
+                          1.0 - rec["frac"][:, a])
+              for a, u in enumerate(corner)]
+        w = wt[0] * wt[1] * wt[2]
+        t = (w[:, None] * rec["g"]).to(torch.float64) \
+            * _pow2(shift)[level][:, None]
+        q = torch.where(inside[:, None], torch.round(t).to(torch.int64), 0)
+        col = ((pos[:, 0] * e + pos[:, 1]) * e + pos[:, 2]).clamp(0, e ** 3
+                                                                   - 1)
+        corner_cols.append(col)
+        qs.append(q)
+    width = 128
+    total = torch.zeros((N_LEVELS * n_rows, width), dtype=torch.int64)
+    n = len(rec["key"])
+    chunk = (torch.arange(n) - rec["starts"][rec["key"]]) // BWD_CHUNK
+    if case == "one_cell":
+        assert int(chunk.max()) == 2
+    for k in range(int(chunk.max()) + 1 if n else 0):
+        part = torch.zeros_like(total)
+        sel = chunk == k
+        for col, q in zip(corner_cols, qs):
+            for ch in range(c):
+                part.index_put_((rec["key"][sel], col[sel] * c + ch),
+                                q[sel, ch], accumulate=True)
+        total += part
+    inv = _pow2(-shift)
+    got = (total.view(N_LEVELS, n_rows, width).to(torch.float64)
+           * inv[:, None, None]).to(torch.float32)
+    want = packed_hash_backward_reference(g, prim, bias, pts, anc, n_rows,
+                                          width, c, pack, dense)
+    assert torch.equal(got, want)
+
+
+def test_bwd_constants_match_the_kernel():
+    """The host's sizes of H2's scratch and its reckonings read the
+    kernel's own constants: the chunk of a row a warp sums and the scan's
+    tile (csrc/packed_hash_bwd.cu)."""
+    import re
+    from pathlib import Path
+
+    from gfnerf_tpu_torch.fields.packed_hash import BWD_CHUNK, BWD_SCAN_TILE
+
+    src = (Path(__file__).resolve().parents[1] / "gfnerf_tpu_torch" / "csrc"
+           / "packed_hash_bwd.cu").read_text()
+
+    def const(name):
+        return int(re.search(rf"constexpr int {name} = (\d+);", src)[1])
+
+    assert const("kChunk") == BWD_CHUNK
+    assert const("kScanThreads") * const("kScanPer") == BWD_SCAN_TILE
+
+
+def test_table_grad_launches():
+    """H2's launches a call: the count, the scan, the scatter and the owner
+    pass, whatever the levels, after two zero-fills (the counters, the long
+    rows' slots); without points none, and the gradient's zero-fill."""
+    from gfnerf_tpu_torch.fields.packed_hash import (BWD_LAUNCHES,
+                                                     table_grad_launches,
+                                                     table_grad_memsets)
+
+    assert BWD_LAUNCHES == 4
+    assert [table_grad_launches(p) for p in (0, 1, 3_145_728)] == [0, 4, 4]
+    assert [table_grad_memsets(p) for p in (0, 1, 3_145_728)] == [1, 2, 2]
 
 
 # ---- the table gradient's fixed-point sum (H2's function) ----
@@ -581,15 +765,16 @@ def test_autograd_cpu_takes_plain_pair():
 def test_backward_kernel_matches_plain_on_card(c, dense, case):
     """H2 through autograd against the plain table gradient, bit for bit
     (padding columns exactly 0), and the reductions it counts per level
-    against packed_hash_bwd_reductions: one contributor per run of equal
-    cells in a warp."""
+    against packed_hash_bwd_reductions: a counter and a cursor atomic per
+    run of one row in a warp, and the long rows' reductions (one_cell's
+    29,100 points in one row a level: 29 chunks).  One call makes four
+    launches and two zero-fills."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernel has no CPU mode")
-    from gfnerf_tpu_torch.fields.hash_encoding import table_grad_launches
     from gfnerf_tpu_torch.fields.packed_hash import (
         _packed_hash_backward_cuda, pack_for_channels,
         packed_hash_backward_reference, packed_hash_bwd_reductions,
-        packed_hash_encode)
+        packed_hash_encode, table_grad_launches, table_grad_memsets)
 
     args = [torch.as_tensor(a, device="cuda") for a in _card_inputs(c, case)]
     feat = torch.zeros((N_LEVELS, 1 << ROWS_LOG2, 128), device="cuda",
@@ -597,12 +782,15 @@ def test_backward_kernel_matches_plain_on_card(c, dense, case):
     g = torch.randn((len(args[2]), N_LEVELS * c), device="cuda",
                     generator=torch.Generator("cuda").manual_seed(c))
     pack = pack_for_channels(c)
-    before = (packed_hash_encode.bwd_calls, packed_hash_encode.bwd_launches)
+    before = (packed_hash_encode.bwd_calls, packed_hash_encode.bwd_launches,
+              packed_hash_encode.bwd_memsets)
     packed_hash_encode(feat, *args, c, pack, dense).backward(g)
     torch.cuda.synchronize()
-    # one call: the level maxima, then per level the sums and the conversion
-    assert (packed_hash_encode.bwd_calls, packed_hash_encode.bwd_launches) \
-        == (before[0] + 1, before[1] + table_grad_launches(N_LEVELS))
+    # one call: the count, the scan, the scatter and the owner pass
+    assert (packed_hash_encode.bwd_calls, packed_hash_encode.bwd_launches,
+            packed_hash_encode.bwd_memsets) == (
+        before[0] + 1, before[1] + table_grad_launches(len(g)),
+        before[2] + table_grad_memsets(len(g)))
     ref = packed_hash_backward_reference(g, *args, 1 << ROWS_LOG2, 128, c,
                                          pack, dense)
     assert torch.equal(feat.grad, ref)
