@@ -270,22 +270,26 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
                 and T1 once more at every 16th step (ngp: 786,432 points,
                 the occupancy update's 262,144), each call a launch per
                 group of levels (ops.temporal_grid's
-                FWD_LEVELS_PER_LAUNCH, BWD_LEVELS_PER_LAUNCH: T1 one per
-                8 levels, T2 one per 2: 4 + 14 launches a nerfacto step,
-                2 + 8 an ngp step), no other kernel; finite
-                losses, the rgb loss falling, every tensor changed, ngp's
-                grid off all ones; every val frame's PSNR with its time
-                beside its mean image's (eval rays take train camera 0's
-                time: the frame at that time must beat its mean image);
-                the checkpoint reloaded to the same eval image (and grid);
-                one step against the plain pairs (and one occupancy
-                update); T1 bit for bit and T2 to 1e-5 of the largest
-                against their plain versions at every step shape, timed
-                (T2 also against index_add_, with its reductions per level
-                beside its terms; both at 1, 2, 4, 8 and 16 levels a
-                launch at the field), and at the edge inputs (t = 0, 1 and
-                every window-row boundary, the faces 0.0 and 1.0, dense
-                and hashed levels); s/step, rays/s, peak memory, a
+                FWD_LEVELS_PER_LAUNCH: T1 one per 8 levels; T2 the level
+                maxima, a count and a scatter per BWD_LEVELS_PER_LAUNCH
+                levels (all), the scan and the owner pass: 4 + 15
+                launches a nerfacto step, 2 + 5 an ngp step), no other
+                kernel; finite losses, the rgb loss falling, every tensor
+                changed, ngp's grid off all ones; every val frame's PSNR
+                with its time beside its mean image's (eval rays take
+                train camera 0's time: the frame at that time must beat
+                its mean image); the checkpoint reloaded to the same eval
+                image (and grid); one step against the plain pairs (and
+                one occupancy update); one step twice from one state, the
+                loss, every gradient and parameter after Adam bit for bit;
+                T1 and T2 bit for bit against their plain versions at
+                every step shape (T2 also called again and on the points
+                permuted, its records per level as reckoned), timed (T2
+                also against index_add_ and the deterministic index_put_;
+                both at 1, 2, 4, 8 and 16 levels a launch at the field),
+                and at the edge inputs (t = 0, 1 and every window-row
+                boundary, the faces 0.0 and 1.0, dense and hashed levels);
+                s/step, rays/s, peak memory allocated and reserved, a
                 profiled step; eval and render on each checkpoint.
  21. captures — the six remaining capture formats (scannet, sdfstudio,
                 phototourism, sitcoms3d, arkitscenes, nuscenes) written
@@ -396,7 +400,7 @@ three, under "nerfacto", and at instant-ngp's, under "instant_ngp"; M1 at
 the train batch, with its render chunk, gf-nerf's march and the by-part
 inputs under "render_chunk", "gfnerf_march" and "by_part", each with its
 bound; T1 and T2 at nerfplayer-nerfacto's field, with every shape of the
-pair's steps under "nerfplayer", T2's reductions per level and both
+pair's steps under "nerfplayer", T2's records per level and both
 kernels' times at 1-16 levels a launch at the field), and the
 card's name and power limit; the last line is
 {"ok": true, "device": {...}}.
@@ -675,23 +679,29 @@ def assert_close(got, want, what, rtol=0.0, atol=0.0, atol_rel=0.0):
                                  f"rtol {rtol} atol {tol}")
 
 
-def check_table_grad(what, backward, plain, args):
-    """A table gradient (H2 or H5: ``backward``) on ``args`` (g, primes,
-    biases, points, anchors, then the table's shape) against its plain
-    version ``plain``, bit for bit; called again, and on the points (their
-    rows of g and their anchors with them) in another order, the same bits:
-    the fixed-point sum does not depend on the order in which the warps
-    land.  Returns the kernel's gradient."""
+def check_table_grad(what, backward, plain, args, permute=None):
+    """A table gradient (H2, H5 or T2: ``backward``) on ``args`` against
+    its plain version ``plain``, bit for bit; called again, and on the
+    points (their rows of g and their anchors or times with them) in
+    another order, the same bits: the fixed-point sum does not depend on
+    the order in which the warps land.  ``args`` are (g, primes, biases,
+    points, anchors, then the table's shape), or any that start with g (P,
+    ...) and come with ``permute(args, perm)``, the args of the points in
+    the order ``perm``.  Returns the kernel's gradient."""
     import torch
 
     got = backward(*args)
     want = plain(*args)
     again = backward(*args)
-    g, prim, bias, pts, anc, *rest = args
-    perm = torch.randperm(pts.shape[0], device=pts.device,
+    g = args[0]
+    perm = torch.randperm(g.shape[0], device=g.device,
                           generator=torch.Generator(
-                              device=pts.device).manual_seed(0))
-    moved = backward(g[perm], prim, bias, pts[perm], anc[perm], *rest)
+                              device=g.device).manual_seed(0))
+    if permute is None:
+        _, prim, bias, pts, anc, *rest = args
+        moved = backward(g[perm], prim, bias, pts[perm], anc[perm], *rest)
+    else:
+        moved = backward(*permute(args, perm))
     torch.cuda.synchronize()
     for name, other in (("the plain version", want), ("a second call", again),
                         ("a call on the points permuted", moved)):
@@ -701,6 +711,34 @@ def check_table_grad(what, backward, plain, args):
                 f"{int((got != other).sum())} entries apart, at most "
                 f"{max_err([got], [other])}")
     return got
+
+
+def library_sums_ms(terms, n_out: int) -> dict:
+    """The PyTorch calls that sum the same f32 terms as a table gradient,
+    timed here as yardsticks and used nowhere in the port: ``index_add_``
+    into a zeroed flat (n_out,) tensor (float atomics, an order that
+    varies), and ``index_put_(..., accumulate=True)`` under
+    ``torch.use_deterministic_algorithms(True)`` (a sort of the indices,
+    then a segmented sum: the same bits every call), the zero-fill in
+    both.  ``terms``: (flat index, value) pairs of one shape each."""
+    import torch
+
+    idx = torch.cat([i.reshape(-1) for i, _ in terms])
+    vals = torch.cat([v.reshape(-1) for _, v in terms])
+    del terms
+    out = {"index_add_ms": time_ms(lambda: torch.zeros(
+        n_out, device=idx.device).index_add_(0, idx, vals), n=5, reps=2)}
+    before = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True)
+    try:
+        out["deterministic_index_put_ms"] = time_ms(lambda: torch.zeros(
+            n_out, device=idx.device).index_put_((idx,), vals,
+                                                 accumulate=True),
+            n=5, reps=2)
+    finally:
+        torch.use_deterministic_algorithms(before)
+    out["terms"] = int(idx.numel())
+    return out
 
 
 def phase_device():
@@ -4435,8 +4473,10 @@ def phase_table_grads(tmp: Path):
     table-grads``; the whole script times them where its phases meet
     them): each equal to its plain version bit for bit (also called again
     and on the points permuted), its atomics or reductions per level
-    against the host's reckoning, its time (11 samples), its kernels' and
-    zero-fills' device time a call (table_grad_breakdown); H5 at 1, 2, 4,
+    against the host's reckoning, its time (11 samples) beside the
+    library's sums of the same terms (library_sums_ms: index_add_ and the
+    deterministic index_put_), its kernels' and zero-fills' device time a
+    call (table_grad_breakdown); H5 at 1, 2, 4,
     8 and 16 levels a launch of its sums, in turns and equal bit for bit;
     with --parent, each in turns with the parent tree's."""
     import torch
@@ -4485,6 +4525,10 @@ def phase_table_grads(tmp: Path):
               "rows_used_largest_long_records_in_long": rows,
               "ms": time_ms(lambda: ph._packed_hash_backward_cuda(*args),
                             n=11),
+              **library_sums_ms(
+                  [(rw[:, None] * c + torch.arange(c, device="cuda"), v)
+                   for rw, v in ph.packed_hash_scatter_terms(*args)],
+                  prim.shape[0] * n_rows * width),
               "parts": table_grad_breakdown(
                   lambda: ph._packed_hash_backward_cuda(*args),
                   "packed_hash_bwd"),
@@ -4520,6 +4564,10 @@ def phase_table_grads(tmp: Path):
               "reductions": want.tolist(),
               "terms": 8 * c * n_levels * int((anc >= 0).sum()),
               "ms": time_ms(lambda: he._hash_backward_cuda(*args), n=11),
+              **library_sums_ms(
+                  [(rw[:, None] * c + torch.arange(c, device="cuda"), v)
+                   for rw, v in he.hash_scatter_terms(*args)],
+                  n_levels * local * c),
               "levels_a_launch_ms": by_group,
               "parts": {k: table_grad_breakdown(
                   lambda: he._hash_backward_cuda(*args, levels_per_launch=k),
@@ -5892,6 +5940,7 @@ def phase_nerfacto(tmp: Path):
     train_s = time.perf_counter() - t0
     launches = launch_counts()
     peak = torch.cuda.max_memory_allocated()
+    reserved = torch.cuda.max_memory_reserved()
     p.get_train_loss_dict = get_loss
     p.get_eval_image_metrics_and_images = eval_image
 
@@ -6561,6 +6610,7 @@ def phase_instant_ngp(tmp: Path):
     train_s = time.perf_counter() - t0
     launches = launch_counts()
     peak = torch.cuda.max_memory_allocated()
+    reserved = torch.cuda.max_memory_reserved()
     p.get_train_loss_dict = get_loss
     p.get_eval_image_metrics_and_images = eval_image
 
@@ -7718,9 +7768,6 @@ NPL_NERFACTO_WIDTH = (4096, (256, 96), 48, 16, 2, 64, 19, 2048, 5, 32, 17,
 # (rays, samples, levels, C, T, log2 entries, finest resolution, grid,
 # threshold, aabb_scale, background)
 NPL_NGP_WIDTH = (4096, 192, 16, 2, 64, 19, 1024, 64, 0.01, 1.5, "white")
-# T2 against its plain version: the same f32 terms added by atomics in
-# other orders, H2's and H5's limit
-T2_ATOL_REL = 1e-5
 # levels a launch of T1 and T2, timed at nerfplayer-nerfacto's field
 TEMPORAL_GROUPS = (1, 2, 4, 8, 16)
 
@@ -7762,7 +7809,7 @@ def temporal_bytes(table, st, xyz, times, gradient: bool) -> dict:
     if gradient:
         return {"bytes": io + 4 * table.numel()}
     g = torch.ones((p, st.n_levels * st.level_dim), device=xyz.device)
-    entries = torch.cat([i.reshape(-1) for i, _ in
+    entries = torch.cat([i.reshape(-1) for i, _, _ in
                          temporal_scatter_terms(g, st, xyz, times)])
     distinct = torch.unique(entries)
     sectors = int(torch.unique(distinct // 8).numel())
@@ -7771,16 +7818,34 @@ def temporal_bytes(table, st, xyz, times, gradient: bool) -> dict:
             "table_sectors": sectors}
 
 
+def check_t2(what, st, g, xyz, times, **kw):
+    """T2 (``ops.temporal_grid_bwd`` with ``kw``) on the grid ``st``
+    against its plain version bit for bit, called again and on the points
+    permuted (check_table_grad).  Returns T2's gradient."""
+    from gfnerf_tpu_torch.fields import temporal_grid as tg
+    from gfnerf_tpu_torch.ops import temporal_grid as ops
+
+    tables = st.tables(xyz.device)
+    rows = tables.table_rows
+    return check_table_grad(
+        what,
+        lambda gg, x, t: ops.temporal_grid_bwd(gg, tables, x, t, rows, **kw),
+        lambda gg, x, t: tg.temporal_backward_reference(gg, st, x, t, rows),
+        (g, xyz, times),
+        permute=lambda args, perm: [a[perm].contiguous() for a in args])
+
+
 def time_temporal_at(table, st, xyz, times, what, backward=True,
                      sweep=False) -> tuple:
-    """T1 (and T2) at one shape: T1 equal to its plain version bit for bit,
-    T2 to T2_ATOL_REL of the largest entry; each timed with 10 calls per
-    event pair against its plain version, T2 also against index_add_ of
-    the plain terms into the flat table; bounds from the bytes; T2's
-    reductions per level beside its terms (8 (C + 1) a point and level).
-    With ``sweep``, both also timed at TEMPORAL_GROUPS levels a launch
-    (equal to the plain versions at each).  Returns (T1's, T2's or
-    None)."""
+    """T1 (and T2) at one shape: each equal to its plain version bit for
+    bit (T2 also called again and on the points permuted: check_t2), and
+    T2's records per level as reckoned (temporal_bwd_records); each timed
+    with 10 calls per event pair against its plain version, T2 also
+    against the library's sums of the plain terms (library_sums_ms:
+    ``index_add_``, and the deterministic ``index_put_``); bounds from the
+    bytes.  With ``sweep``, both also timed at TEMPORAL_GROUPS levels a
+    launch (equal to the plain versions at each, T2 also called again and
+    permuted).  Returns (T1's, T2's or None)."""
     import torch
 
     from gfnerf_tpu_torch.fields import temporal_grid as tg
@@ -7825,28 +7890,34 @@ def time_temporal_at(table, st, xyz, times, what, backward=True,
         g = torch.randn((p, st.n_levels * st.level_dim), generator=gen,
                         device="cuda")
         rows = table.shape[0]
-        red = torch.zeros(st.n_levels, dtype=torch.int64, device="cuda")
-        got = ops.temporal_grid_bwd(g, tables, xyz, times, rows, red_ops=red)
-        want = tg.temporal_backward_reference(g, st, xyz, times, rows)
-        torch.cuda.synchronize()
-        assert_close([got], [want], f"{what} temporal_grid_bwd",
-                     atol_rel=T2_ATOL_REL)
-        bwd_err = max_err([got], [want])
+        got = check_t2(f"{what} temporal_grid_bwd", st, g, xyz, times)
+        bwd_err = max_err([got], [tg.temporal_backward_reference(
+            g, st, xyz, times, rows)])
+        records = torch.zeros(st.n_levels, dtype=torch.int64, device="cuda")
+        ops.temporal_grid_bwd(g, tables, xyz, times, rows,
+                              level_records=records)
+        reckoned = tg.temporal_bwd_records(g, st, xyz, times)
+        if not torch.equal(records, reckoned):
+            raise AssertionError(f"{what} temporal_grid_bwd: records per "
+                                 f"level {records.tolist()}, reckoned "
+                                 f"{reckoned.tolist()}")
         groups_ms = {}
         for grp in TEMPORAL_GROUPS if sweep else ():
-            assert_close([ops.temporal_grid_bwd(g, tables, xyz, times, rows,
-                                                levels_per_launch=grp)],
-                         [want], f"{what} temporal_grid_bwd at {grp} levels "
-                         f"a launch", atol_rel=T2_ATOL_REL)
+            other = check_t2(f"{what} temporal_grid_bwd at {grp} levels a "
+                             f"launch", st, g, xyz, times,
+                             levels_per_launch=grp)
+            if not torch.equal(other, got):
+                raise AssertionError(f"{what} temporal_grid_bwd at {grp} "
+                                     f"levels a launch differs")
+            del other
             groups_ms[grp] = time_ms(
                 lambda gr=grp: ops.temporal_grid_bwd(
                     g, tables, xyz, times, rows, levels_per_launch=gr),
                 n=11, reps=10)
-        del got, want
-        terms = list(tg.temporal_scatter_terms(g, st, xyz, times))
-        idx = torch.cat([i.reshape(-1) for i, _ in terms])
-        vals = torch.cat([v.reshape(-1) for _, v in terms])
-        del terms
+        del got
+        lib = library_sums_ms(
+            [(i, v) for i, v, _ in tg.temporal_scatter_terms(
+                g, st, xyz, times)], rows * st.width)
         moved = temporal_bytes(table, st, xyz, times, gradient=True)
         bwd = {"max_abs_err": bwd_err,
                "ms": time_ms(lambda: ops.temporal_grid_bwd(
@@ -7855,16 +7926,21 @@ def time_temporal_at(table, st, xyz, times, what, backward=True,
                    g, st, xyz, times, rows), n=3),
                "bound_ms": moved["bytes"] / HBM_BYTES_PER_S * 1e3,
                "bound_by": "bytes",
-               "library_ms": time_ms(lambda: torch.zeros(
-                   rows * st.width, device="cuda").index_add_(0, idx, vals),
-                   n=5, reps=2),
+               "library_ms": lib["index_add_ms"],
+               "deterministic_library_ms": lib["deterministic_index_put_ms"],
                "points": p, "rows": rows, "levels": st.n_levels,
-               "terms": int(idx.numel()),
-               "reductions_per_level": red.tolist(),
-               "terms_per_level": p * 8 * (st.level_dim + 1)}
+               "terms": lib["terms"],
+               "records_per_level": records.tolist(),
+               "corners_per_level": p * 8,
+               "parts": table_grad_breakdown(
+                   lambda: ops.temporal_grid_bwd(g, tables, xyz, times,
+                                                 rows), "temporal_grid_bwd",
+                   want=(ops.bwd_launches(st.n_levels,
+                                          ops.BWD_LEVELS_PER_LAUNCH, p),
+                         ops.bwd_memsets(p)))}
         if sweep:
             bwd["levels_per_launch_ms"] = groups_ms
-        del idx, vals, g
+        del g
     torch.cuda.empty_cache()
     for name, x in (("temporal_grid_fwd", fwd), ("temporal_grid_bwd", bwd)):
         if x is None:
@@ -7873,26 +7949,33 @@ def time_temporal_at(table, st, xyz, times, what, backward=True,
             f"C={st.level_dim}, T={st.temporal_dim}, rows={table.shape[0]}: "
             f"max abs err {x['max_abs_err']:.3g}; kernel {x['ms']:.4f} ms, "
             f"plain {x['plain_ms']:.4f} ms, "
-            + (f"index_add_ {x['library_ms']:.4f} ms, "
+            + (f"index_add_ {x['library_ms']:.4f} ms, deterministic "
+               f"index_put_ {x['deterministic_library_ms']:.4f} ms, "
                if x["library_ms"] is not None else "")
             + f"bound {x['bound_ms']:.4f} ms"
             + (f" ({x['table_entries_read']} table entries in "
                f"{x['table_sectors_read']} sectors)"
                if "table_entries_read" in x else "")
-            + (f"; reductions per level {x['reductions_per_level']} of "
-               f"{x['terms_per_level']} terms a level"
-               if "reductions_per_level" in x else "")
+            + (f"; records per level {x['records_per_level']} of "
+               f"{x['corners_per_level']} corners a level, as reckoned; "
+               f"equal to the plain version bit for bit, also called again "
+               f"and on the points permuted"
+               if "records_per_level" in x else "")
             + (f"; levels a launch: ms {x['levels_per_launch_ms']}"
-               if "levels_per_launch_ms" in x else ""))
+               if "levels_per_launch_ms" in x else "")
+            + (f"; device ms a call by kernel {json.dumps(x['parts'])}"
+               if "parts" in x else "")
+            + f" ({CARD})")
     return fwd, bwd
 
 
 def temporal_edge_cases(table, st, what) -> int:
-    """T1 bit for bit and T2 to T2_ATOL_REL at the edge inputs on one
-    grid (dense and hashed levels): the cube's 8 corners (coordinates
-    exactly 0.0 and 1.0), points on the coarsest level's cell edges, times
-    0, 1 and every window row's boundary, and a ragged 8193 points.
-    Returns the points checked."""
+    """T1 and T2 bit for bit (T2 also called again and on the points
+    permuted: check_t2) at the edge inputs on one grid (dense and hashed
+    levels): the cube's 8 corners (coordinates exactly 0.0 and 1.0),
+    points on the coarsest level's cell edges, times 0, 1 and every window
+    row's boundary, and a ragged 8193 points.  Returns the points
+    checked."""
     import numpy as np
     import torch
 
@@ -7926,11 +8009,8 @@ def temporal_edge_cases(table, st, what) -> int:
                            tg.temporal_grid_encode_raw(table, st, x, tt)):
             raise AssertionError(f"{what}: T1 at the edge inputs differs "
                                  f"from the plain encode")
-        assert_close([ops.temporal_grid_bwd(g[sl].contiguous(), tables, x,
-                                            tt, table.shape[0])],
-                     [tg.temporal_backward_reference(
-                         g[sl].contiguous(), st, x, tt, table.shape[0])],
-                     f"{what}: T2 at the edge inputs", atol_rel=T2_ATOL_REL)
+        check_t2(f"{what}: T2 at the edge inputs", st, g[sl].contiguous(),
+                 x, tt)
     torch.cuda.empty_cache()
     return int(xyz.shape[0])
 
@@ -8005,6 +8085,72 @@ def nerfplayer_step_pair(p, batch, draws, occupancy=None) -> dict:
     return out
 
 
+def nerfplayer_repeat_step(p, batch, draws) -> None:
+    """One train step of the pipeline's model (the loss, the backward
+    through T1/T2, Adam) twice from the same parameters, optimizer state,
+    batch and draws: the loss, every gradient and every parameter after
+    the update equal bit for bit, as the JAX package's step is a function
+    of its inputs.  The parameters are left as they were.  On a
+    difference the step runs once more under
+    ``torch.use_deterministic_algorithms(True, warn_only=True)``, and the
+    failure names the operations PyTorch warns have no deterministic
+    form."""
+    import copy
+    import warnings
+
+    import torch
+
+    from gfnerf_tpu_torch.engine.optimizers import apply_updates
+
+    names = [n for n, _ in p.model.named_parameters()]
+    params = list(p.model.parameters())
+    start = [t.detach().clone() for t in params]
+
+    def step():
+        with torch.no_grad():
+            for t, s0 in zip(params, start):
+                t.copy_(s0)
+        p.model.zero_grad(set_to_none=True)
+        total, _ = p.loss(batch, draws)
+        total.backward()
+        grads = [t.grad.clone() for t in params]
+        updates, _ = p.tx.update({"all": [t.grad for t in params]},
+                                 copy.deepcopy(p.state.opt_state),
+                                 {"all": params})
+        apply_updates({"all": params}, updates)
+        torch.cuda.synchronize()
+        return [total.detach().clone()], grads, [t.detach().clone()
+                                                 for t in params]
+
+    first, second = step(), step()
+    apart = [f"{kind} {name}" for kind, a, b in zip(
+        ("loss", "gradient", "parameter"), first, second)
+        for name, x, y in zip(names if kind != "loss" else ["total"], a, b)
+        if not torch.equal(x, y)]
+    ops = []
+    if apart:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.use_deterministic_algorithms(True, warn_only=True)
+            try:
+                step()
+            finally:
+                torch.use_deterministic_algorithms(False)
+        ops = sorted({str(w.message).split("\n")[0][:160] for w in caught})
+    with torch.no_grad():
+        for t, s0 in zip(params, start):
+            t.copy_(s0)
+    p.model.zero_grad(set_to_none=True)
+    if apart:
+        raise AssertionError(f"{p.kind}: one step twice from one state: "
+                             f"{len(apart)} tensors apart ({apart[:8]}); "
+                             f"operations without a deterministic form: "
+                             f"{ops}")
+    log(f"[nerfplayer] {p.kind}: one step twice from one state, batch and "
+        f"draws: the loss, all {len(names)} gradients and parameters after "
+        f"Adam equal bit for bit")
+
+
 def nerfplayer_run(tmp: Path, scene: Path, method: str) -> tuple:
     """One nerfplayer method through the Trainer at its registered width,
     NPL_STEPS[method] steps, counted; returns (launches, stats, the
@@ -8023,7 +8169,7 @@ def nerfplayer_run(tmp: Path, scene: Path, method: str) -> tuple:
     from gfnerf_tpu_torch.models.instant_ngp import OCC_UPDATE_EVERY
     from gfnerf_tpu_torch.ops.temporal_grid import (BWD_LEVELS_PER_LAUNCH,
                                                     FWD_LEVELS_PER_LAUNCH,
-                                                    n_launches)
+                                                    bwd_launches, n_launches)
     from gfnerf_tpu_torch.utils.eval_utils import eval_setup
     from gfnerf_tpu_torch.utils.profiling import profile_device
 
@@ -8091,6 +8237,7 @@ def nerfplayer_run(tmp: Path, scene: Path, method: str) -> tuple:
     train_s = time.perf_counter() - t0
     launches = launch_counts()
     peak = torch.cuda.max_memory_allocated()
+    reserved = torch.cuda.max_memory_reserved()
     p.get_train_loss_dict = get_loss
 
     steps = rec["steps"]
@@ -8100,9 +8247,10 @@ def nerfplayer_run(tmp: Path, scene: Path, method: str) -> tuple:
     levels = [mc.num_levels] if ngp else (
         [mc.prop_num_levels] * len(mc.num_proposal_samples)
         + [mc.num_levels])
-    calls = {k: sum(n_launches(n, per) for n in levels) for k, per in (
-        ("temporal_grid_fwd", FWD_LEVELS_PER_LAUNCH),
-        ("temporal_grid_bwd", BWD_LEVELS_PER_LAUNCH))}
+    calls = {"temporal_grid_fwd": sum(n_launches(n, FWD_LEVELS_PER_LAUNCH)
+                                      for n in levels),
+             "temporal_grid_bwd": sum(bwd_launches(n, BWD_LEVELS_PER_LAUNCH,
+                                                   rays) for n in levels)}
     occ_calls = n_launches(mc.num_levels, FWD_LEVELS_PER_LAUNCH)
     for i in range(n_steps):
         extra = occ_calls if ngp and i % OCC_UPDATE_EVERY == 0 else 0
@@ -8117,9 +8265,10 @@ def nerfplayer_run(tmp: Path, scene: Path, method: str) -> tuple:
         + (f"(and {occ_calls} more at every 16th step, the occupancy "
            f"update) " if ngp else "")
         + f"and T2 {calls['temporal_grid_bwd']} ({len(levels)} encodes of "
-        f"{levels} levels; {FWD_LEVELS_PER_LAUNCH or 'all'} and "
-        f"{BWD_LEVELS_PER_LAUNCH} levels a launch), no other kernel; in the "
-        f"whole run {launches}")
+        f"{levels} levels; T1 {FWD_LEVELS_PER_LAUNCH or 'all'} levels a "
+        f"launch, T2 the level maxima, a count and a scatter a group of "
+        f"{BWD_LEVELS_PER_LAUNCH or 'all'} levels, the scan, the owner "
+        f"pass), no other kernel; in the whole run {launches}")
     keys = [k for k in steps[0] if k not in ("s", "counts")]
     hist = {k: [steps[i][k] for i in range(n_steps)] for k in keys}
     every = max(n_steps // 12, 1)
@@ -8137,7 +8286,7 @@ def nerfplayer_run(tmp: Path, scene: Path, method: str) -> tuple:
         raise AssertionError(f"{method}: unchanged parameters {unchanged}")
     del start
     stats = {"setup_s": setup_s, "train_s": train_s, "peak_bytes": peak,
-             "grid_rows": rows}
+             "peak_reserved_bytes": reserved, "grid_rows": rows}
     if ngp:
         occ = p.model.occ
         stats["grid"] = {"min": float(occ.min()), "max": float(occ.max()),
@@ -8167,7 +8316,8 @@ def nerfplayer_run(tmp: Path, scene: Path, method: str) -> tuple:
         + (f"; the steps with an occupancy update "
            f"{stats['occupancy_step_s']:.4f}" if ngp else "")
         + f"), {stats['rays_per_s']:.1f} rays/s; peak {peak / 2**30:.3f} "
-        f"GiB; the run {train_s:.1f}s")
+        f"GiB allocated, {reserved / 2**30:.3f} GiB reserved; the run "
+        f"{train_s:.1f}s ({CARD})")
 
     # every val frame's PSNR, with its time, against its mean image's; eval
     # rays take train camera 0's time: the frames at that time must beat
@@ -8222,6 +8372,7 @@ def nerfplayer_run(tmp: Path, scene: Path, method: str) -> tuple:
     draws += p.spec.extra_draws(p.model, rays, gen, p.device)
     occupancy = npl.occupancy_draws(mc, gen, p.device) if ngp else None
     stats["step_pair"] = nerfplayer_step_pair(p, batch, draws, occupancy)
+    nerfplayer_repeat_step(p, batch, draws)
     saved_occ = p.model.occ.clone() if ngp else None
     with torch.no_grad(), record_temporal_encodes() as enc:
         p.loss(batch, draws)
@@ -8250,8 +8401,9 @@ def nerfplayer_run(tmp: Path, scene: Path, method: str) -> tuple:
             backward=name != "occupancy update", sweep=name == "field")
     field_table, field_st = enc.calls[-1 if not ngp else 0][:2]
     n_edge = temporal_edge_cases(field_table, field_st, method)
-    log(f"[nerfplayer] {method}: T1 bit for bit and T2 to {T2_ATOL_REL} of "
-        f"the largest at {n_edge} edge points on the field's grid (levels "
+    log(f"[nerfplayer] {method}: T1 and T2 bit for bit (T2 also called "
+        f"again and on the points permuted) at {n_edge} edge points on the "
+        f"field's grid (levels "
         f"hashed {field_st.hashed.astype(int).tolist()}): the cube's "
         f"corners at every window-row boundary time, cell edges, t = 0 and "
         f"1, a ragged 8193")
@@ -8290,19 +8442,20 @@ def phase_nerfplayer(tmp: Path):
     moving with the frame's time) and read back by the dnerf parser:
     nerfplayer-nerfacto (NPL_NERFACTO_WIDTH) with T1 and T2 three calls a
     step each, nerfplayer-ngp (NPL_NGP_WIDTH) with T1 and T2 once a step
-    and T1 once more at every 16th (the occupancy update), each call a
-    launch per group of levels (T1 8 levels a launch, T2 two: the
+    and T1 once more at every 16th (the occupancy update), T1 a launch per
+    group of 8 levels, T2 the level maxima, a count and a scatter per
+    group of levels (all at once), the scan and the owner pass (the
     kernels' own grouping, which the launch count follows); no other
     kernel.  Per method (nerfplayer_run): finite losses, the rgb loss
     falling, every tensor changed, the checkpoint (reloaded to the same
     eval image; ngp's grid off all ones and reloaded equal), every val
     frame's PSNR with its time beside its mean image's (the frames at
     train camera 0's time must beat it: eval rays take that time), one
-    step against the plain pairs (ngp: and an occupancy update), T1 and T2
-    at the step's shapes against their plain versions and timed, the edge
-    inputs on the field's grid, s/step, rays/s, peak memory and a profiled
-    step; then python -m gfnerf_tpu_torch.eval and .render on each
-    checkpoint."""
+    step against the plain pairs (ngp: and an occupancy update), one step
+    twice from one state (nerfplayer_repeat_step), T1 and T2 at the step's
+    shapes against their plain versions and timed, the edge inputs on the
+    field's grid, s/step, rays/s, peak memory and a profiled step; then
+    python -m gfnerf_tpu_torch.eval and .render on each checkpoint."""
     import numpy as np
 
     from gfnerf_tpu_torch import eval as eval_entry

@@ -1,12 +1,15 @@
 // Exact fixed-point sums of the table gradients (H2, packed_hash_bwd.cu;
-// H5, hash_anchored_bwd.cu), so that a gradient is a function of its terms
-// and not of the order in which the warps land.
+// H5, hash_anchored_bwd.cu; T2, temporal_grid_bwd.cu), so that a gradient
+// is a function of its terms and not of the order in which the warps land.
 //
-// Both kernels add, per (level, table entry, channel), the terms
-// t = w_o * g[p, level*C + c] of the points' corners: f32, formed as the
-// plain versions form them, with w_o a trilinear weight (at most 1; a
-// point's weights sum to 1).  Each term is rounded once to a 64-bit integer
-// at a scale fixed per level,
+// The kernels add, per (level, table entry, channel), the terms
+// t = w_o * g[p, level*C + c] of the points' corners (T2: also (1 - frac)
+// w_o g and frac w_o g, into two distinct channels of the entry): f32,
+// formed as the plain versions form them, with w_o a trilinear weight (at
+// most 1; a point's weights sum to 1, so a point adds at most max |g| into
+// any (entry, channel)).  Each term is rounded once to a 64-bit integer
+// at a scale fixed per level (H2, H5; T2 fixes one a table row, from the
+// row's largest term, temporal_grid_bwd.cu's row_shift),
 //   q = rint(t * 2^s),   s = 62 - ceil(log2 P) - E,
 // where max|g| < 2^E over the level's columns of all P points (E the
 // exponent frexp gives; 0 for a level of zeros).  Then |q| <= 2^62 / P and
@@ -19,7 +22,7 @@
 // powers of two (quantize32), the sum converted in f64.  A level whose g
 // holds a NaN or an inf gets NaN in every entry (the
 // optimizer's finite check then skips the step); nothing is added for it.
-// A term whose q is 0 adds nothing and both kernels skip it.
+// A term whose q is 0 adds nothing and the kernels skip it.
 //
 // What the kernels share here: the level maxima (max |g| per level as f32
 // bits: for |g| the unsigned order of the bits is the order of the values,

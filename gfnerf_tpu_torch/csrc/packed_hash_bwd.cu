@@ -57,6 +57,7 @@
 
 #include <cuda_runtime.h>
 
+#include "bucket_scan.cuh"
 #include "fixed_point.cuh"
 #include "packed_hash_common.cuh"
 #include "warp_runs.cuh"
@@ -68,9 +69,8 @@ constexpr int kTilePoints = 256;           // count, scatter: a block's points
 constexpr int kTileWarps = 8;              // and its warps
 constexpr int kSlices = kTilePoints / 32;  // 32-point slices of a tile
 constexpr int kChunk = 1024;               // records a warp sums of a row
-constexpr int kScanThreads = 1024;
-constexpr int kScanPer = 16;               // counters a scan thread
-constexpr int kScanTile = kScanThreads * kScanPer;
+using gfnerf::kScanThreads;
+using gfnerf::kScanTile;
 
 // Where a lane's (point, level) lands, and the run of consecutive lanes in
 // the same row that it belongs to.  Every lane of the warp calls it.
@@ -144,79 +144,16 @@ __global__ void __launch_bounds__(kTilePoints) packed_hash_bwd_count_kernel(
   }
 }
 
-// The counters (n_keys: L * rows) into each row's first record, in place;
-// flags: one word a tile (0 until the tile's inclusive total + 1 is known);
-// ctl: [tile ticket, long rows, work items].  A row of more than kChunk
-// records gets slot_of[key], its slot of sums and ticket, and one item
-// (key, chunk) per chunk after its first.
-__global__ void __launch_bounds__(kScanThreads) packed_hash_bwd_scan_kernel(
-    int* __restrict__ counts, int* __restrict__ flags, int* __restrict__ ctl,
-    int* __restrict__ slot_of, int2* __restrict__ items, long long n_keys) {
-  __shared__ int s_tile;
-  __shared__ int s_prefix;
-  __shared__ int s_warp[kScanThreads / 32];
-  // tiles in the order the blocks start: the tile before this one has a
-  // block already running, so the wait below ends
-  if (threadIdx.x == 0) s_tile = atomicAdd(ctl, 1);
-  __syncthreads();
-  const int tile = s_tile;
-  const long long k0 =
-      (long long)tile * kScanTile + (long long)threadIdx.x * kScanPer;
-  int v[kScanPer];
-  int sum = 0;
-#pragma unroll
-  for (int i = 0; i < kScanPer; ++i) {
-    v[i] = k0 + i < n_keys ? counts[k0 + i] : 0;
-    sum += v[i];
-  }
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  int x = sum;  // inclusive scan over the warp's lanes
-#pragma unroll
-  for (int off = 1; off < 32; off <<= 1) {
-    const int y = __shfl_up_sync(kFull, x, off);
-    if (lane >= off) x += y;
-  }
-  if (lane == 31) s_warp[warp] = x;
-  __syncthreads();
-  if (warp == 0) {
-    int w = s_warp[lane];
-#pragma unroll
-    for (int off = 1; off < 32; off <<= 1) {
-      const int y = __shfl_up_sync(kFull, w, off);
-      if (lane >= off) w += y;
-    }
-    s_warp[lane] = w;
-  }
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    int prefix = 0;
-    if (tile > 0) {
-      int got;
-      while ((got = atomicAdd(flags + tile - 1, 0)) == 0) {
-      }
-      prefix = got - 1;
-    }
-    atomicExch(flags + tile, prefix + s_warp[kScanThreads / 32 - 1] + 1);
-    s_prefix = prefix;
-  }
-  __syncthreads();
-  int run = s_prefix + (warp > 0 ? s_warp[warp - 1] : 0) + x - sum;
-#pragma unroll
-  for (int i = 0; i < kScanPer; ++i) {
-    const long long k = k0 + i;
-    if (k < n_keys) {
-      counts[k] = run;
-      if (v[i] > kChunk) {
-        const int n_chunks = (v[i] + kChunk - 1) / kChunk;
-        slot_of[k] = atomicAdd(ctl + 1, 1);
-        const int first = atomicAdd(ctl + 2, n_chunks - 1);
-        for (int j = 1; j < n_chunks; ++j)
-          items[first + j - 1] = make_int2((int)k, j);
-      }
-    }
-    run += v[i];
-  }
+// The counters (n_keys: L * rows) into each row's first record, in place
+// (bucket_scan.cuh, a bucket a row); the caller zeroes the long rows' slots
+// and tickets.
+__global__ void __launch_bounds__(gfnerf::kScanThreads)
+    packed_hash_bwd_scan_kernel(int* __restrict__ counts,
+                                int* __restrict__ flags, int* __restrict__ ctl,
+                                int* __restrict__ slot_of,
+                                int2* __restrict__ items, long long n_keys) {
+  gfnerf::bucket_scan<kChunk>(counts, flags, ctl, slot_of, items, n_keys,
+                              nullptr, 0, nullptr);
 }
 
 template <int C>

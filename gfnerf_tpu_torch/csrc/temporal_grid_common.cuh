@@ -12,7 +12,9 @@
 //   C), the interpolating slot is r mod C, its old channel r and its new
 //   channel r + C.  A corner therefore reads, and its gradient writes, the
 //   C + 1 consecutive channels r .. r + C of its row, and r <= T - 2
-//   leaves at least one more channel of the row after them.
+//   leaves at least one more channel of the row after them.  The level
+//   offsets are multiples of 8 rows, so T2's buckets of 8 rows never
+//   straddle two levels.
 // - Every hashed level holds a power of two of rows, so the hash modulo
 //   the level's rows is a mask.
 //
@@ -123,67 +125,6 @@ __device__ __forceinline__ void load_window(const float* __restrict__ table,
 #pragma unroll
   for (int k = 0; k <= C; ++k)
     v[k] = o == 0 ? w[k] : o == 1 ? w[k + 1] : o == 2 ? w[k + 2] : w[k + 3];
-}
-
-// Adds v[k] to grad[b + k], k = 0 .. C, touching no other channel: a
-// float2 reduction (CUDA's atomicAdd(float2*) for compute capability 9.x,
-// its result unused) for each pair starting at an even channel index, a
-// scalar one for the rest (rows are 8-byte aligned, 264 bytes at C + T =
-// 66).  Returns the reductions made: 2 a corner at C = 2.
-template <int C>
-__device__ __forceinline__ int red_window(float* grad, long long b,
-                                          const float (&v)[C + 1]) {
-  float* p = grad + b;
-  if (b & 1) {
-    atomicAdd(p, v[0]);
-#pragma unroll
-    for (int k = 1; k + 1 <= C; k += 2)
-      atomicAdd(reinterpret_cast<float2*>(p + k), make_float2(v[k], v[k + 1]));
-    if (C % 2 == 1) atomicAdd(p + C, v[C]);
-    return 1 + C / 2 + C % 2;
-  }
-#pragma unroll
-  for (int k = 0; k + 1 <= C; k += 2)
-    atomicAdd(reinterpret_cast<float2*>(p + k), make_float2(v[k], v[k + 1]));
-  if (C % 2 == 0) atomicAdd(p + C, v[C]);
-  return (C + 1) / 2 + (C % 2 == 0);
-}
-
-// Adds v[k] to grad[b + k], k = 0 .. C, as load_window reads them: a
-// float4 reduction at q = b rounded down to 4 floats, and a float2 or
-// float4 one at q + 4 where the window reaches it, the lanes outside the
-// window adding +0.0 (exact: an entry starts at +0.0 and never becomes
-// -0.0, so x + 0.0 is x).  They stay within [q, b + C + 1], in the
-// allocation.  Returns the reductions made: 1.5 a corner at C = 2 on
-// average, 2 at C = 4.
-template <int C>
-__device__ __forceinline__ int red_window4(float* grad, long long b,
-                                           const float (&v)[C + 1]) {
-  const int o = (int)(b & 3);
-  float* q = grad + (b - o);
-  float w[8];
-#pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    w[i] = 0.f;
-#pragma unroll
-    for (int k = 0; k <= C; ++k)
-      if (i == o + k) w[i] = v[k];
-  }
-  int n = 1;
-  if (o + C >= 2)
-    atomicAdd(reinterpret_cast<float4*>(q),
-              make_float4(w[0], w[1], w[2], w[3]));
-  else
-    atomicAdd(reinterpret_cast<float2*>(q), make_float2(w[0], w[1]));
-  if (o + C >= 6) {
-    atomicAdd(reinterpret_cast<float4*>(q + 4),
-              make_float4(w[4], w[5], w[6], w[7]));
-    ++n;
-  } else if (o + C >= 4) {
-    atomicAdd(reinterpret_cast<float2*>(q + 4), make_float2(w[4], w[5]));
-    ++n;
-  }
-  return n;
 }
 
 // The launches over groups of `group` consecutive levels (the last may

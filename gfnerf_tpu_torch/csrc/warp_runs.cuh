@@ -7,9 +7,9 @@
 // levels neighbouring lanes fall into the same cell and would add into the
 // same table entries.  A lane whose cell equals its left neighbour's joins
 // that neighbour's run.  T2 and H5 sum the run's payloads into the run's
-// first lane (its head) with a segmented shuffle scan (sum_runs), and the
-// head alone makes the reductions: exact up to the order of the f32 sum
-// for T2's, exactly for H5's int64 fixed-point payloads.  H2's runs are of
+// first lane (its head) with a segmented shuffle scan (sum_runs), exactly:
+// the payloads are int64 fixed point (fixed_point.cuh).  The head alone
+// makes H5's reductions, or T2's records.  H2's runs are of
 // lanes in one table row: the head alone bumps the row's counter, or
 // claims the run's records with one cursor atomic.  The caller
 // decides what "equal" means and marks the heads: lane 0, every masked

@@ -19,8 +19,12 @@ alone).  :func:`temporal_grid_encode_raw` is the
 plain PyTorch forward: it gathers only the ``level_dim + 1`` channels a
 corner uses, at ``(row) * (C + T) + channel`` of the flat table, in the
 JAX package's order of every sum; :func:`temporal_backward_reference` is
-the plain table gradient, every term added by one ``index_add_`` (no dense
-row gradient per corner, which is what a gather's autograd would build).
+the plain table gradient, every term rounded once to an int64 fixed point
+at its table row's scale (:func:`row_shifts`) and summed exactly, so that
+it is a function of its inputs whatever the order of the points, as the
+JAX package's scatter-add is (no dense row gradient per corner, which is
+what a gather's autograd would build); :func:`temporal_bwd_records`
+reckons the records T2's count pass makes per level.
 :func:`temporal_grid_encode` is differentiable in the table: on CPU
 tensors it runs the plain pair, on CUDA tensors kernel T1
 (``csrc/temporal_grid_fwd.cu``) forward and T2
@@ -39,6 +43,7 @@ from typing import Dict
 import numpy as np
 import torch
 
+from gfnerf_tpu_torch.fields.hash_encoding import _pow2, fixed_point_shifts
 from gfnerf_tpu_torch.ops import temporal_grid as ops
 
 _PRIMES = (1, 2654435761, 805459861)   # instant-NGP / torch-ngp primes
@@ -126,7 +131,8 @@ class TemporalGridStatics:
                 hashed=torch.tensor(self.hashed.astype(np.int32),
                                     device=device),
                 level_dim=c, width=self.width, n_rows=self.n_rows,
-                time_scale=self.time_scale)
+                time_scale=self.time_scale,
+                table_rows=int(self.offsets[-1]))
         return self._device[device]
 
 
@@ -280,10 +286,11 @@ def temporal_grid_encode_raw(embeddings: torch.Tensor,
 def temporal_scatter_terms(g: torch.Tensor, statics: TemporalGridStatics,
                            xyz: torch.Tensor, times: torch.Tensor):
     """The table gradient's terms, one (flat index (P, C + 1), value (P, C
-    + 1)) pair per (level, corner), indexing the table viewed flat: for
-    each slot c, ``w * g[c]`` into its passthrough channel, except the
-    interpolating slot's, which adds ``(1 - frac_t) * w * g[c]`` into
-    ``old`` and ``frac_t * w * g[c]`` into ``new`` (the last column)."""
+    + 1), level) triple per (level, corner), indexing the table viewed
+    flat: for each slot c, ``w * g[c]`` into its passthrough channel,
+    except the interpolating slot's, which adds ``(1 - frac_t) * w * g[c]``
+    into ``old`` and ``frac_t * w * g[c]`` into ``new`` (the last
+    column)."""
     c, width = statics.level_dim, statics.width
     p = xyz.shape[0]
     tables = statics.tables(xyz.device)
@@ -301,21 +308,97 @@ def temporal_scatter_terms(g: torch.Tensor, statics: TemporalGridStatics,
             gw = w[:, None] * gl
             vals = torch.cat([torch.where(is_mix, omt * gw, gw),
                               frac_t[:, None] * (w[:, None] * g_mix)], 1)
-            yield torch.cat([base + passes, base + ch_new[:, None]], 1), vals
+            yield (torch.cat([base + passes, base + ch_new[:, None]], 1),
+                   vals, level)
+
+
+def _level_terms(g, statics: TemporalGridStatics, xyz, times):
+    """Per level: (flat index (P, 8 (C + 1)), f32 terms of the same shape)
+    of :func:`temporal_scatter_terms`, the 8 corners side by side."""
+    idx, vals = [], []
+    for i, v, level in temporal_scatter_terms(g, statics, xyz, times):
+        idx.append(i)
+        vals.append(v)
+        if len(idx) == 8:
+            yield level, torch.cat(idx, 1), torch.cat(vals, 1)
+            idx, vals = [], []
+
+
+def row_shifts(rows: torch.Tensor, terms: torch.Tensor, n_rows: int,
+               n_points: int) -> torch.Tensor:
+    """(n_rows,) int64: each table row's fixed-point shift, s = 59 -
+    ceil(log2 P) - E, where E is the exponent ``frexp`` gives the row's
+    largest |term| (0 for a row without a nonzero term).  An entry takes
+    at most 8 P terms (8 corners a point, each into a channel once), each
+    below 2^E, so its sum at the scale 2^s stays below 2^62."""
+    amax = torch.zeros(n_rows, dtype=torch.float32, device=terms.device)
+    amax.scatter_reduce_(0, rows.reshape(-1), terms.abs().reshape(-1),
+                         "amax")
+    _, e = torch.frexp(amax)
+    return 59 - max(n_points - 1, 0).bit_length() - e.to(torch.int64)
 
 
 def temporal_backward_reference(g, statics: TemporalGridStatics, xyz, times,
                                 n_rows: int) -> torch.Tensor:
-    """Plain table gradient (n_rows, C + T) f32: every term of
-    :func:`temporal_scatter_terms` added by one ``index_add_``."""
-    terms = list(temporal_scatter_terms(g, statics, xyz, times))
-    idx = torch.cat([i.reshape(-1) for i, _ in terms])
-    vals = torch.cat([v.reshape(-1) for _, v in terms])
-    del terms
-    grad = torch.zeros(n_rows * statics.width, dtype=torch.float32,
-                       device=xyz.device)
-    grad.index_add_(0, idx, vals)
-    return grad.view(n_rows, statics.width)
+    """Plain table gradient (n_rows, C + T) f32, what T2 computes, bit for
+    bit, whatever the order of the points: every term of
+    :func:`temporal_scatter_terms` rounded once to int64 at its table
+    row's scale, q = rint(t * 2^s_row) (half to even; the product exact in
+    f64; :func:`row_shifts`), the q summed exactly, each sum converted as
+    RN_f32(RN_f64(sum) * 2^-s_row).  Each row's scale follows its own
+    largest term, so a row of small terms keeps them as an f32 sum would.
+    A level whose upstream gradient holds a NaN or an inf is NaN
+    throughout."""
+    if n_rows != int(statics.offsets[-1]):
+        raise ValueError(f"temporal_backward_reference: {n_rows} rows, the "
+                         f"grid has {int(statics.offsets[-1])}")
+    width = statics.width
+    _, finite = fixed_point_shifts(g, statics.n_levels, statics.level_dim)
+    acc = torch.zeros(n_rows * width, dtype=torch.int64, device=xyz.device)
+    shift = torch.zeros(n_rows, dtype=torch.int64, device=xyz.device)
+    for level, idx, vals in _level_terms(g, statics, xyz, times):
+        a, b = int(statics.offsets[level]), int(statics.offsets[level + 1])
+        rows = torch.div(idx, width, rounding_mode="floor")
+        shift[a:b] = row_shifts(rows - a, vals, b - a, xyz.shape[0])
+        t = vals.to(torch.float64) * _pow2(shift[rows])
+        t = torch.where(finite[level], t, 0.0)
+        acc.index_add_(0, idx.reshape(-1),
+                       torch.round(t).to(torch.int64).reshape(-1))
+    out = acc.view(n_rows, width).to(torch.float64) * _pow2(-shift)[:, None]
+    out = out.to(torch.float32)
+    for level in range(statics.n_levels):
+        a, b = int(statics.offsets[level]), int(statics.offsets[level + 1])
+        out[a:b] = torch.where(finite[level], out[a:b], float("nan"))
+    return out
+
+
+def temporal_bwd_records(g, statics: TemporalGridStatics, xyz, times,
+                         warp: int = 32) -> torch.Tensor:
+    """(L,) int64: the records T2 makes per level (its count pass counts
+    them).  Its warps take ``warp`` consecutive points from a multiple of
+    ``warp`` on, at one level; a run of consecutive points with equal cell
+    ``floor(xyz * res)`` and window row sums its corners' terms into its
+    first point, which makes one record per live corner: one for which a
+    point of the run has a term that is not 0.  A level whose g is not
+    finite makes none."""
+    p = xyz.shape[0]
+    _, finite = fixed_point_shifts(g, statics.n_levels, statics.level_dim)
+    row, _ = time_window(statics, times)
+    first = torch.arange(p, device=xyz.device) % warp == 0
+    out = []
+    for level, _, vals in _level_terms(g, statics, xyz, times):
+        nonzero = (vals.view(p, 8, -1) != 0).any(-1)
+        cell = torch.floor(xyz * float(statics.resolutions[level])).long()
+        key = torch.cat([cell, row[:, None]], 1)
+        same = torch.zeros(p, dtype=torch.bool, device=xyz.device)
+        same[1:] = (key[1:] == key[:-1]).all(-1)
+        head = first | ~same
+        run = torch.cumsum(head.long(), 0) - 1
+        hits = torch.zeros((int(head.sum()), 8), dtype=torch.int64,
+                           device=xyz.device)
+        hits.index_add_(0, run, nonzero.long())
+        out.append(torch.where(finite[level], (hits > 0).sum(), 0))
+    return torch.stack(out)
 
 
 def _check_inputs(embeddings, statics, xyz, times) -> None:

@@ -56,7 +56,7 @@ SIGNATURES = {
                                       _F32, _F32, _P],
     "gfnerf_temporal_grid_fwd": [_P] * 8 + [_I64] + [_I32] * 4
     + [_F32, _I32, _P],
-    "gfnerf_temporal_grid_bwd": [_P] * 9 + [_I64, _I64] + [_I32] * 4
+    "gfnerf_temporal_grid_bwd": [_P] * 16 + [_I64, _I64] + [_I32] * 4
     + [_F32, _I32, _P],
 }
 

@@ -13,22 +13,28 @@ proposal 1, the field; nerfplayer-ngp: the step and its occupancy pass).
 At each shape, with CUDA events (``time_ms``: the median of 7 samples of
 10 calls):
 
-- T1 and T2 against their plain versions (T1 bit for bit, T2 to 1e-5 of
-  the largest entry), and each grouping of levels (1, 2, 4, 8, 16 a
-  launch); T2's reductions per level against its terms;
+- T1 and T2 against their plain versions bit for bit (T2 also called
+  again and on the points permuted), and each grouping of levels (1, 2,
+  4, 8, 16 a launch); T2's records per level against the host's
+  reckoning, beside the corners; T2's device time by kernel (a profiled
+  call);
 - by part, on three forms of the same points: as the step gives them;
   every 32nd point and time repeated 32 times ("runs of 32": each warp
-  reads or reduces one cell's sectors once, so what is left is the
-  addressing, the instructions and a 32nd of the memory traffic); the
-  points in a random order ("shuffled": no run longer than one lane); and
-  T2's zero-fill alone (the kernel on no points, which only zeroes the
-  gradient) beside ``torch.zeros`` of it; ``index_add_`` of the plain
-  terms into a zeroed flat table (the zero-fill included);
+  one cell and one time); the points in a random order ("shuffled": no
+  run longer than one lane); T2's call on no points (a zero-fill of the
+  gradient) beside ``torch.zeros`` of it; the library's sums of the plain
+  terms into a zeroed flat table: ``index_add_`` (float atomics) and
+  ``index_put_(..., accumulate=True)`` under
+  ``torch.use_deterministic_algorithms(True)`` (a sort and a segmented
+  sum: the same bits every call);
 - with ``--parent DIR``: DIR's ``gfnerf_tpu_torch/csrc/temporal_grid_{fwd,
   bwd}.cu`` built into a library of their own under ``_build/parent`` and
-  called through their C interface as it stood before the redesign (the
-  window table as an argument, the gradient zeroed by ``torch.zeros``), in
-  turns parent, change, change, parent, on the same inputs and by part.
+  called through their C interface (the float-atomic T2: each group's
+  rows zeroed, then float reductions), in turns parent, change, change,
+  parent, on the same inputs and by part; the parent's T2 distance from
+  the plain version; and the method's train steps through its pipeline,
+  T2 this tree's or the parent's, in turns, with the peak memory
+  allocated and reserved of each turn.
 
 Prints one line a measurement and the card's name and power limit, and
 writes every number to ``--out`` (JSON).  Needs a CUDA card.
@@ -39,6 +45,7 @@ from __future__ import annotations
 import argparse
 import ctypes
 import json
+import re
 import subprocess
 import sys
 import tempfile
@@ -49,9 +56,11 @@ import numpy as np
 import torch
 
 from gfnerf_tpu_torch.ops import build
+from gfnerf_tpu_torch.ops.temporal_grid import _launch_args
 
 GROUPS = (1, 2, 4, 8, 16)
-T2_ATOL_REL = 1e-5
+# train steps a turn when the steps are timed in turns with the parent
+STEPS_A_TURN = 20
 
 
 def log(msg: str) -> None:
@@ -86,9 +95,15 @@ def in_turns(forms: dict, order) -> dict:
 
 class ParentKernels:
     """T1 and T2 of another checkout, built from its sources and called
-    through the C interface they had before the redesign: (table or g,
-    xyz, times, window, offsets, resolutions, hashed, out, n_points,
-    n_levels, level_dim, width, n_rows, time_scale, stream)."""
+    through the C interface they had before T2's fixed point: T1 (table,
+    xyz, times, offsets, resolutions, hashed, out, launches, n_points,
+    n_levels, level_dim, width, n_rows, time_scale, levels_per_launch,
+    stream) and T2 (g, xyz, times, offsets, resolutions, hashed, grad,
+    red_ops, launches, n_points, n_grad_rows, n_levels, level_dim, width,
+    n_rows, time_scale, levels_per_launch, stream), each at the levels a
+    launch it took then (T1 8, T2 2)."""
+
+    FWD_LEVELS, BWD_LEVELS = 8, 2
 
     def __init__(self, root: Path):
         csrc = root / "gfnerf_tpu_torch" / "csrc"
@@ -103,39 +118,71 @@ class ParentKernels:
             raise RuntimeError(f"nvcc failed on {csrc}:\n{proc.stdout}"
                                f"{proc.stderr}")
         self.lib = ctypes.CDLL(str(lib))
-        args = [ctypes.c_void_p] * 8 + [ctypes.c_longlong] + [
-            ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_void_p]
-        for name in ("gfnerf_temporal_grid_fwd", "gfnerf_temporal_grid_bwd"):
+        p, i64, i32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+        tail = [i32] * 4 + [ctypes.c_float, i32, p]
+        for name, head in (("gfnerf_temporal_grid_fwd", [p] * 8 + [i64]),
+                           ("gfnerf_temporal_grid_bwd",
+                            [p] * 9 + [i64, i64])):
             fn = getattr(self.lib, name)
-            fn.argtypes = args
+            fn.argtypes = head + tail
             fn.restype = ctypes.c_int
 
-    def _call(self, name, first, tables, xyz, times, out):
-        err = getattr(self.lib, name)(
-            first.data_ptr(), xyz.data_ptr(), times.data_ptr(),
-            tables.window.data_ptr(), tables.offsets.data_ptr(),
-            tables.resolutions.data_ptr(), tables.hashed.data_ptr(),
-            out.data_ptr(), xyz.shape[0], tables.resolutions.shape[0],
-            tables.level_dim, tables.width, tables.n_rows,
-            tables.time_scale, torch.cuda.current_stream().cuda_stream)
-        build.check(err, f"parent {name}")
+    def _tail(self, tables, per):
+        return (tables.resolutions.shape[0], tables.level_dim, tables.width,
+                tables.n_rows, tables.time_scale, per,
+                torch.cuda.current_stream().cuda_stream)
 
     def fwd(self, table, tables, xyz, times):
         out = torch.empty((xyz.shape[0], tables.resolutions.shape[0]
                            * tables.level_dim), device=xyz.device)
-        self._call("gfnerf_temporal_grid_fwd", table, tables, xyz, times,
-                   out)
+        launches = ctypes.c_int(0)
+        build.check(self.lib.gfnerf_temporal_grid_fwd(
+            table.data_ptr(), *_launch_args(tables, xyz, times),
+            out.data_ptr(), ctypes.addressof(launches), xyz.shape[0],
+            *self._tail(tables, self.FWD_LEVELS)), "parent T1")
         return out
 
-    def bwd(self, g, tables, xyz, times, n_rows):
-        grad = torch.zeros((n_rows, tables.width), device=xyz.device)
-        self._call("gfnerf_temporal_grid_bwd", g, tables, xyz, times, grad)
+    def bwd(self, g, tables, xyz, times, n_rows, **_):
+        grad = torch.empty((n_rows, tables.width), device=xyz.device)
+        launches = ctypes.c_int(0)
+        build.check(self.lib.gfnerf_temporal_grid_bwd(
+            g.contiguous().data_ptr(), *_launch_args(tables, xyz, times),
+            grad.data_ptr(), None, ctypes.addressof(launches), xyz.shape[0],
+            n_rows, *self._tail(tables, self.BWD_LEVELS)), "parent T2")
         return grad
 
 
-def step_encodes(method: str, scene: Path, out_dir: Path, steps: int):
+def by_kernel(fn, calls: int = 5) -> dict:
+    """{kernel or "memset": [launches, device ms] a call} of fn() from a
+    torch.profiler trace of ``calls`` calls (the empty dict if the trace
+    holds no device time)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        hit = re.search(r"(\w+_kernel(<[^>]*>)?)", e.key)
+        key = "memset" if "memset" in e.key.lower() else (
+            hit.group(1) if hit else e.key[:60])
+        n, us = out.get(key, (0, 0.0))
+        out[key] = (n + e.count, us + e.self_device_time_total)
+    return {k: [n / calls, us / 1e3 / calls] for k, (n, us) in out.items()}
+
+
+def step_encodes(method: str, scene: Path, out_dir: Path, steps: int,
+                 parent=None):
     """Train ``method`` ``steps`` steps at its registered width and return
-    [(name, table, statics, xyz, times)] for every encode of one step."""
+    ([(name, table, statics, xyz, times)] for every encode of one step,
+    the steps' report).  With ``parent``, the report holds the pipeline's
+    train steps timed in turns with T2 this tree's and the parent's."""
     from gfnerf_tpu_torch.configs.config_io import apply_override
     from gfnerf_tpu_torch.configs.method_configs import get_method
     from gfnerf_tpu_torch.data.dataparsers import build_dataparser
@@ -160,6 +207,7 @@ def step_encodes(method: str, scene: Path, out_dir: Path, steps: int):
     torch.cuda.synchronize()
     log(f"[{method}] {steps} steps in {time.perf_counter() - t0:.1f}s")
     p = trainer.pipeline
+    report = {} if parent is None else time_steps(method, p, steps, parent)
     mc = p.model_cfg
     rays = p.config.train_num_rays_per_batch
     batch = p._device_batch(collate_batch(
@@ -189,7 +237,42 @@ def step_encodes(method: str, scene: Path, out_dir: Path, steps: int):
              [f"proposal {i}" for i in range(len(calls) - 1)] + ["field"])
     del trainer, p, batch, draws
     torch.cuda.empty_cache()
-    return [(f"{method} {n}", *c) for n, c in zip(names, calls)]
+    return [(f"{method} {n}", *c) for n, c in zip(names, calls)], report
+
+
+def time_steps(method: str, p, done: int, parent) -> dict:
+    """The pipeline's train steps (``get_train_loss_dict``, each ending in
+    a synchronize), STEPS_A_TURN a turn, with T2 this tree's ("change") or
+    the parent's patched into the encode's backward ("parent"), in turns
+    parent, change, change, parent: each turn's mean s/step and its peak
+    memory allocated and reserved (the cache emptied and the peaks reset
+    before each turn)."""
+    from gfnerf_tpu_torch.ops import temporal_grid as ops
+
+    ours = ops.temporal_grid_bwd
+    p.reserve_steps(done + 4 * STEPS_A_TURN + 1)
+    step = done
+    turns = {"parent": [], "change": []}
+    for form in ("parent", "change", "change", "parent"):
+        ops.temporal_grid_bwd = parent.bwd if form == "parent" else ours
+        try:
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            for _ in range(STEPS_A_TURN):
+                p.get_train_loss_dict(step)
+                step += 1
+            torch.cuda.synchronize()
+            turns[form].append({
+                "s_per_step": (time.perf_counter() - t0) / STEPS_A_TURN,
+                "peak_allocated_bytes": torch.cuda.max_memory_allocated(),
+                "peak_reserved_bytes": torch.cuda.max_memory_reserved()})
+        finally:
+            ops.temporal_grid_bwd = ours
+    log(f"[{method}] train steps in turns with the parent's T2 "
+        f"({STEPS_A_TURN} a turn): {json.dumps(turns)}")
+    return {"steps_in_turns": turns}
 
 
 def forms(xyz, times, seed=5):
@@ -243,31 +326,47 @@ def bench_shape(name, table, st, xyz, times, parent, backward) -> dict:
     g = torch.randn((p, n_levels * c), device=xyz.device,
                     generator=torch.Generator(xyz.device).manual_seed(9))
     gp = tg.temporal_backward_reference(g, st, xyz, times, rows)
-    scale = float(gp.abs().max())
-    rep["t2_max_abs_err"] = 0.0
+    perm = torch.randperm(p, device=xyz.device,
+                          generator=torch.Generator(xyz.device).manual_seed(
+                              0))
+    moved = [x[perm].contiguous() for x in (g, xyz, times)]
+    reckoned = tg.temporal_bwd_records(g, st, xyz, times)
     for grp in GROUPS:
         red = torch.zeros(n_levels, dtype=torch.int64, device=xyz.device)
-        gk = ops.temporal_grid_bwd(g, tables, xyz, times, rows, red_ops=red,
-                                   levels_per_launch=grp)
-        err = float((gk - gp).abs().max())
-        if not err <= T2_ATOL_REL * scale:
-            raise AssertionError(f"{name}: T2 at {grp} levels a launch: "
-                                 f"{err} of {scale}")
-        rep["t2_max_abs_err"] = max(rep["t2_max_abs_err"], err)
-    rep["t2_reductions_per_level"] = red.tolist()
-    rep["t2_terms_per_level"] = p * 8 * (c + 1)
+        for got in (ops.temporal_grid_bwd(g, tables, xyz, times, rows,
+                                          level_records=red,
+                                          levels_per_launch=grp),
+                    ops.temporal_grid_bwd(g, tables, xyz, times, rows,
+                                          levels_per_launch=grp),
+                    ops.temporal_grid_bwd(moved[0], tables, *moved[1:],
+                                          rows, levels_per_launch=grp)):
+            if not torch.equal(got, gp):
+                raise AssertionError(f"{name}: T2 at {grp} levels a launch "
+                                     f"differs from the plain version")
+        if not torch.equal(red, reckoned):
+            raise AssertionError(f"{name}: T2's records {red.tolist()}, "
+                                 f"reckoned {reckoned.tolist()}")
+    rep["t2_equal_bit_for_bit"] = True
+    rep["t2_records_per_level"] = reckoned.tolist()
+    rep["t2_corners_per_level"] = p * 8
     if parent is not None:
-        err = float((parent.bwd(g, tables, xyz, times, rows) - gp)
-                    .abs().max())
-        if not err <= T2_ATOL_REL * scale:
-            raise AssertionError(f"{name}: the parent's T2: {err}")
-    del gp
+        rep["t2_parent_max_abs_err"] = float(
+            (parent.bwd(g, tables, xyz, times, rows) - gp).abs().max())
+    del gp, moved
     terms = list(tg.temporal_scatter_terms(g, st, xyz, times))
-    idx = torch.cat([i.reshape(-1) for i, _ in terms])
-    vals = torch.cat([v.reshape(-1) for _, v in terms])
+    idx = torch.cat([i.reshape(-1) for i, _, _ in terms])
+    vals = torch.cat([v.reshape(-1) for _, v, _ in terms])
     del terms
     rep["t2_index_add_ms"] = time_ms(lambda: torch.zeros(
         rows * st.width, device=xyz.device).index_add_(0, idx, vals))
+    torch.use_deterministic_algorithms(True)
+    try:
+        rep["t2_deterministic_index_put_ms"] = time_ms(
+            lambda: torch.zeros(rows * st.width,
+                                device=xyz.device).index_put_(
+                (idx,), vals, accumulate=True), n=5, reps=2)
+    finally:
+        torch.use_deterministic_algorithms(False)
     del idx, vals
     empty = torch.empty((0, 3), device=xyz.device)
     rep["t2_zero_fill_ms"] = {
@@ -278,6 +377,8 @@ def bench_shape(name, table, st, xyz, times, parent, backward) -> dict:
     rep["t2_groups_ms"] = {grp: time_ms(lambda gr=grp: ops.temporal_grid_bwd(
         g, tables, xyz, times, rows, levels_per_launch=gr))
         for grp in GROUPS}
+    rep["t2_by_kernel"] = by_kernel(lambda: ops.temporal_grid_bwd(
+        g, tables, xyz, times, rows))
     for form, (x, t) in forms(xyz, times).items():
         fns = {} if parent is None else {
             "parent": lambda: parent.bwd(g, tables, x, t, rows)}
@@ -309,7 +410,7 @@ def main(argv=None) -> int:
     ours = False   # ptxas's lines of the temporal kernels
     for line in res["log"].splitlines():
         if "Compiling entry function" in line:
-            ours = "temporal" in line or "zero_levels" in line
+            ours = "temporal" in line
         if ours:
             log(f"[build] {line.strip()}")
     parent = ParentKernels(args.parent) if args.parent else None
@@ -320,13 +421,15 @@ def main(argv=None) -> int:
         scene = make_dnerf_fixture(Path(tmp) / "scene", 24, 4,
                                    img_wh=(200, 200), focal=180.0)
         for method in args.methods.split(","):
-            for name, table, st, xyz, times in step_encodes(
-                    method, scene, Path(tmp) / method, args.steps):
+            encodes, report[method] = step_encodes(
+                method, scene, Path(tmp) / method, args.steps, parent)
+            for name, table, st, xyz, times in encodes:
                 report["shapes"][name] = bench_shape(
                     name, table, st, xyz, times, parent,
                     backward="occupancy" not in name)
                 del table
                 torch.cuda.empty_cache()
+            del encodes
     args.out.parent.mkdir(parents=True, exist_ok=True)
     args.out.write_text(json.dumps(report, indent=1))
     log(f"[card] {card}")

@@ -527,14 +527,15 @@ def test_bwd_records_summed_by_row_chunks(case, c, dense):
 def test_bwd_constants_match_the_kernel():
     """The host's sizes of H2's scratch and its reckonings read the
     kernel's own constants: the chunk of a row a warp sums and the scan's
-    tile (csrc/packed_hash_bwd.cu)."""
+    tile (csrc/packed_hash_bwd.cu, csrc/bucket_scan.cuh)."""
     import re
     from pathlib import Path
 
     from gfnerf_tpu_torch.fields.packed_hash import BWD_CHUNK, BWD_SCAN_TILE
 
-    src = (Path(__file__).resolve().parents[1] / "gfnerf_tpu_torch" / "csrc"
-           / "packed_hash_bwd.cu").read_text()
+    csrc = Path(__file__).resolve().parents[1] / "gfnerf_tpu_torch" / "csrc"
+    src = "".join((csrc / name).read_text() for name in (
+        "packed_hash_bwd.cu", "bucket_scan.cuh"))
 
     def const(name):
         return int(re.search(rf"constexpr int {name} = (\d+);", src)[1])

@@ -11,9 +11,12 @@ rays at camera 0's time; the nerfplayer-ngp checkpoint holding the grid);
 the entry points; ``tables()``'s checks of what T1 and T2 assume (a
 contiguous window, hashed levels of a power of two of rows), and every
 registered grid passing them; the plain table gradient on ray-major
-samples.  On a card (``cuda``): T1 and T2 against the plain pair (also on
-ray-major samples whose runs T2 merges), and each model's step through the
-kernels against the plain pair.
+samples; the plain table gradient's exact fixed-point sum (bit for bit on
+the points permuted, within an ulp of the f64 sum, NaN and zero levels)
+and T2's records per level.  On a card (``cuda``): T1 and T2 against the
+plain pair bit for bit (also on ray-major samples whose runs T2 merges, T2
+also on the points permuted), and each model's step through the kernels
+against the plain pair.
 
 Sizes: 3-4 levels, T = 4-6, 2^6-2^10 rows; 32 rays.  Tolerances, and why:
 - the tables, the window tables and the parameters at the start: bit for
@@ -23,7 +26,8 @@ Sizes: 3-4 levels, T = 4-6, 2^6-2^10 rows; 32 rays.  Tolerances, and why:
   (XLA contracts ``(1 - frac) * old + frac * new`` and ``acc + w * feat``
   into multiply-adds; measured 1.2e-7);
 - the table gradient against ``jax.vjp``: 1e-6 of its largest (the same
-  f32 terms, XLA's scatter adds them in another order; measured 2.1e-7);
+  f32 terms, summed exactly in fixed point here and by XLA's f32 scatter
+  there; measured 1.5e-7);
 - the TV term: 1e-6 relative (torch and XLA sum the mean in other orders;
   measured equal);
 - the models' losses 1e-5 relative (measured 2.6e-6, the distortion
@@ -333,6 +337,190 @@ def test_table_gradient_on_ray_major_samples_matches_jax_vjp(grid):
         torch.from_numpy(g))
     np.testing.assert_allclose(emb.grad.numpy(), want, rtol=0,
                                atol=1e-6 * np.abs(want).max())
+
+def _plain_grad(st, xyz, t, table, g):
+    from gfnerf_tpu_torch.fields.temporal_grid import (
+        temporal_backward_reference)
+
+    return temporal_backward_reference(torch.as_tensor(g), st,
+                                       torch.as_tensor(xyz),
+                                       torch.as_tensor(t), table.shape[0])
+
+
+@pytest.mark.parametrize("grid", sorted(GRIDS))
+def test_table_gradient_order_independent(grid):
+    """The plain table gradient of the points in another order (their
+    times and rows of g with them) is the same bit for bit: each term is
+    rounded once to its level's fixed point and the int64 sums are exact,
+    whatever the order; on ray-major samples too (T2's runs)."""
+    _, _, _, ts = grid_pair(grid)
+    for xyz, t, table in (encode_inputs(ts, seed=5),
+                          ray_major_inputs(ts, lead=7)):
+        g = np.random.default_rng(6).standard_normal(
+            (len(xyz), ts.n_levels * ts.level_dim)).astype(np.float32)
+        got = _plain_grad(ts, xyz, t, table, g)
+        perm = np.random.default_rng(3).permutation(len(xyz))
+        for order in (perm, perm[::-1].copy()):
+            assert torch.equal(_plain_grad(ts, xyz[order], t[order], table,
+                                           g[order]), got)
+        assert bool(torch.isfinite(got).all()) and float(got.abs().max()) > 0
+
+
+@pytest.mark.parametrize("grid", sorted(GRIDS))
+def test_table_gradient_within_an_ulp_of_f64_sum(grid):
+    """Each entry of the plain table gradient against the f64 sum S of the
+    same f32 terms (``temporal_scatter_terms``), and against the f32
+    ``index_add_`` of them: within one f32 ulp of S plus the terms'
+    rounding to their row's fixed point (half a step 2^-s each, s = 59 -
+    ceil(log2 P) - E, 2^E > the row's largest |term|: ``row_shifts``);
+    within one ulp alone wherever that rounding is below half an ulp (|S|
+    >= n 2^(24 - s)), which is most entries; the f32 sum no nearer to S
+    than that."""
+    from gfnerf_tpu_torch.fields.temporal_grid import (row_shifts,
+                                                       temporal_scatter_terms)
+
+    _, _, _, ts = grid_pair(grid)
+    xyz, t, table = encode_inputs(ts, seed=9)
+    g = np.random.default_rng(10).standard_normal(
+        (len(xyz), ts.n_levels * ts.level_dim)).astype(np.float32)
+    got = _plain_grad(ts, xyz, t, table, g).numpy().reshape(-1)
+    n = table.size
+    total = torch.zeros(n, dtype=torch.float64)
+    count = torch.zeros(n, dtype=torch.int64)
+    f32 = torch.zeros(n, dtype=torch.float32)
+    shift = torch.zeros(table.shape[0], dtype=torch.int64)
+    by_level = {}
+    for idx, vals, level in temporal_scatter_terms(
+            torch.as_tensor(g), ts, torch.as_tensor(xyz), torch.as_tensor(t)):
+        by_level.setdefault(level, []).append((idx, vals))
+        idx, vals = idx.reshape(-1), vals.reshape(-1)
+        total.index_add_(0, idx, vals.double())
+        f32.index_add_(0, idx, vals)
+        count.index_add_(0, idx, (vals != 0).long())
+    for level, terms in by_level.items():
+        a, b = int(ts.offsets[level]), int(ts.offsets[level + 1])
+        rows = torch.cat([i for i, _ in terms], 1) // ts.width - a
+        shift[a:b] = row_shifts(rows, torch.cat([v for _, v in terms], 1),
+                                b - a, len(xyz))
+    step = np.repeat(np.ldexp(1.0, -shift.numpy()), ts.width)
+    total, count, f32 = total.numpy(), count.numpy(), f32.numpy()
+    err = np.abs(got - total)
+    ulp = np.spacing(np.abs(total).astype(np.float32)).astype(np.float64)
+    assert np.all(err <= ulp + count * step / 2)
+    big = np.abs(total) >= count * step * 2.0 ** 24
+    assert np.all(err[big] <= ulp[big])
+    assert big[count > 0].mean() > 0.9
+    assert np.all(got[count == 0] == 0)
+    assert np.all(err[big] <= np.abs(f32 - total)[big] + ulp[big])
+
+
+@pytest.mark.parametrize("edge", ["nan", "inf", "zero"])
+def test_table_gradient_edge_levels(edge):
+    """A NaN or an inf in a level's upstream gradient makes that level's
+    rows NaN throughout (the other levels as without it), and a level of
+    zeros gives exact zeros, +0.0; such levels make no records."""
+    from gfnerf_tpu_torch.fields.temporal_grid import temporal_bwd_records
+
+    _, _, _, ts = grid_pair("mixed")
+    xyz, t, table = encode_inputs(ts, seed=11)
+    g = np.random.default_rng(12).standard_normal(
+        (len(xyz), ts.n_levels * ts.level_dim)).astype(np.float32)
+    plain = _plain_grad(ts, xyz, t, table, g)
+    c, lev = ts.level_dim, 2
+    g2 = g.copy()
+    if edge == "zero":
+        g2[:, lev * c:(lev + 1) * c] = 0.0
+    else:
+        g2[11, lev * c + 1] = np.nan if edge == "nan" else np.inf
+    got = _plain_grad(ts, xyz, t, table, g2)
+    rows = slice(int(ts.offsets[lev]), int(ts.offsets[lev + 1]))
+    others = torch.ones(got.shape[0], dtype=torch.bool)
+    others[rows] = False
+    assert torch.equal(got[others], plain[others])
+    if edge == "zero":
+        assert torch.equal(got[rows], torch.zeros_like(got[rows]))
+        assert not bool(torch.signbit(got[rows]).any())
+    else:
+        assert bool(torch.isnan(got[rows]).all())
+    records = temporal_bwd_records(torch.as_tensor(g2), ts,
+                                   torch.as_tensor(xyz), torch.as_tensor(t))
+    assert int(records[lev]) == 0
+    assert bool((records[[l for l in range(ts.n_levels) if l != lev]] > 0)
+                .all())
+
+
+def test_bwd_records_reckoning():
+    """T2's records per level (``temporal_bwd_records``) on hand-made
+    inputs: warps of 32 points of one cell and time make one record per
+    corner and level (8, a weight of 0 excepted); every point its own run
+    (warp 1) makes one per live (point, corner); ray-major samples fewer
+    than that at the coarse levels; a time one window row later is a run
+    of its own; a run whose terms are all 0 makes none."""
+    from gfnerf_tpu_torch.fields.temporal_grid import temporal_bwd_records
+
+    _, _, _, ts = grid_pair("mixed")
+    c = ts.level_dim
+    rng = np.random.default_rng(14)
+    one = np.tile(np.float32([[0.31, 0.52, 0.73]]), (64, 1))
+    t1 = np.full(64, 0.4, np.float32)
+    g = rng.standard_normal((64, ts.n_levels * c)).astype(np.float32)
+
+    def rec(x, t, gg, warp=32):
+        return temporal_bwd_records(torch.as_tensor(gg), ts,
+                                    torch.as_tensor(x), torch.as_tensor(t),
+                                    warp).tolist()
+
+    assert rec(one, t1, g) == [2 * 8] * ts.n_levels
+    assert rec(one, t1, g, warp=1) == [64 * 8] * ts.n_levels
+    t2 = t1.copy()
+    t2[40] += np.float32(1 / ts.time_scale)  # another window row: 3 runs
+    assert rec(one, t2, g) == [4 * 8] * ts.n_levels
+    g0 = g.copy()
+    g0[1:32] = 0.0   # the first warp's run holds lane 0's terms alone
+    assert rec(one, t1, g0) == [2 * 8] * ts.n_levels
+    g0[0] = 0.0
+    assert rec(one, t1, g0) == [8] * ts.n_levels
+    xyz, t, _ = ray_major_inputs(ts, n_rays=4, n_samples=40)
+    gg = rng.standard_normal((len(xyz), ts.n_levels * c)).astype(np.float32)
+    runs, single = rec(xyz, t, gg), rec(xyz, t, gg, warp=1)
+    assert all(0 < a <= b for a, b in zip(runs, single))
+    assert runs[0] < single[0] and single[0] <= len(xyz) * 8
+
+
+def test_t2_constants_match_the_kernel():
+    """The host's sizes of T2's scratch and its reckonings read the
+    kernel's own constants: the table rows a bucket, the records a warp
+    sums of a bucket (csrc/temporal_grid_bwd.cu) and the scan's tile
+    (csrc/bucket_scan.cuh)."""
+    import re
+    from pathlib import Path
+
+    from gfnerf_tpu_torch.ops import temporal_grid as ops
+
+    csrc = Path(__file__).resolve().parents[1] / "gfnerf_tpu_torch" / "csrc"
+    src = "".join((csrc / name).read_text() for name in (
+        "temporal_grid_bwd.cu", "bucket_scan.cuh"))
+
+    def const(name):
+        return int(re.search(rf"constexpr int {name} = (\d+);", src)[1])
+
+    assert const("kBucketRows") == ops.BUCKET_ROWS
+    assert const("kChunk") == ops.BWD_CHUNK
+    assert const("kScanThreads") * const("kScanPer") == ops.BWD_SCAN_TILE
+
+
+@pytest.mark.parametrize("levels,per,points,want", [
+    (16, 0, 196_608, 5), (16, 2, 196_608, 19), (5, 8, 1_048_576, 5),
+    (5, 1, 3, 13), (16, 0, 0, 0)])
+def test_t2_launches_a_call(levels, per, points, want):
+    """T2's launches a call: the level maxima, a count and a scatter per
+    group of levels, the scan and the owner pass (none without points);
+    one zero-fill either way."""
+    from gfnerf_tpu_torch.ops import temporal_grid as ops
+
+    assert ops.bwd_launches(levels, per, points) == want
+    assert ops.bwd_memsets(points) == 1
+
 
 # ---- the models ----
 
@@ -874,12 +1062,13 @@ def test_ray_major_cases_hold_their_patterns(case):
 @pytest.mark.parametrize("case", ["hashed", "mixed", "dense", "c4", "c1",
                                   "one-point", "ragged", *RAY_CASES])
 def test_t1_t2_match_plain_on_card(case):
-    """T1 equals the plain encode bit for bit and T2 the plain table
-    gradient to 1e-5 of its largest entry (the same f32 terms added by
-    atomics in another order), on faces, cell edges and window-row
-    boundaries, and on ray-major samples whose runs T2 merges (fewer
-    reductions than terms at the coarsest level); at one and at all
-    levels a launch; launches counted."""
+    """T1 equals the plain encode and T2 the plain table gradient bit for
+    bit (both exact: T2 sums in int64 fixed point), T2 also called again
+    and on the points permuted, on faces, cell edges and window-row
+    boundaries, and on ray-major samples whose runs T2 merges; T2's records
+    per level as reckoned (fewer than the corners at the coarsest level of
+    the ray-major cases); at one and at all levels a launch; launches and
+    zero-fills counted."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernels have no CPU mode")
     from gfnerf_tpu_torch.fields import temporal_grid as T
@@ -901,34 +1090,42 @@ def test_t1_t2_match_plain_on_card(case):
     args = (torch.tensor(table, device=dev), st,
             torch.tensor(xyz, device=dev), torch.tensor(times, device=dev))
     tables = st.tables(dev)
+    rows = table.shape[0]
     want = T.temporal_grid_encode_raw(*args)
     g = torch.randn(want.shape, generator=torch.Generator(
         device=dev).manual_seed(2), device=dev)
-    gp = T.temporal_backward_reference(g, st, *args[2:], table.shape[0])
+    gp = T.temporal_backward_reference(g, st, *args[2:], rows)
+    records = T.temporal_bwd_records(g, st, *args[2:])
+    perm = torch.randperm(len(xyz), generator=torch.Generator(
+        device=dev).manual_seed(3), device=dev)
+    moved_args = (args[2][perm].contiguous(), args[3][perm].contiguous())
     for group in (None, 1):
-        launches = (ops.temporal_grid_fwd.launches,
-                    ops.temporal_grid_bwd.launches)
+        bwd = ops.temporal_grid_bwd
+        before = (ops.temporal_grid_fwd.launches, bwd.launches, bwd.memsets)
         got = ops.temporal_grid_fwd(args[0], tables, *args[2:],
                                     levels_per_launch=group)
         assert torch.equal(got, want)
         red = torch.zeros(levels, dtype=torch.int64, device=dev)
-        gk = ops.temporal_grid_bwd(g, tables, *args[2:], table.shape[0],
-                                   red_ops=red, levels_per_launch=group)
+        gk = bwd(g, tables, *args[2:], rows, level_records=red,
+                 levels_per_launch=group)
+        again = bwd(g, tables, *args[2:], rows, levels_per_launch=group)
+        moved = bwd(g[perm].contiguous(), tables, *moved_args, rows,
+                    levels_per_launch=group)
         torch.cuda.synchronize()
-        torch.testing.assert_close(gk, gp, rtol=0,
-                                   atol=1e-5 * float(gp.abs().max()))
-        per = [ops.n_launches(levels, ops.FWD_LEVELS_PER_LAUNCH
-                              if group is None else group),
-               ops.n_launches(levels, ops.BWD_LEVELS_PER_LAUNCH
-                              if group is None else group)]
-        assert (ops.temporal_grid_fwd.launches - launches[0],
-                ops.temporal_grid_bwd.launches - launches[1]) == tuple(per)
-        # every lane a run of its own: at most 2 reductions a corner at C
-        # = 1 and 2, 3 at C = 4
-        terms = len(xyz) * 8 * (3 if st.level_dim == 4 else 2)
-        assert 0 < int(red[0]) <= terms
+        for other in (gp, again, moved):
+            assert torch.equal(gk, other)
+        assert torch.equal(red, records)
+        per = ops.FWD_LEVELS_PER_LAUNCH if group is None else group
+        per_b = ops.BWD_LEVELS_PER_LAUNCH if group is None else group
+        assert (ops.temporal_grid_fwd.launches - before[0],
+                bwd.launches - before[1], bwd.memsets - before[2]) == (
+            ops.n_launches(levels, per),
+            3 * ops.bwd_launches(levels, per_b, len(xyz)),
+            3 * ops.bwd_memsets(len(xyz)))
+        # every lane a run of its own: at most 8 records a point and level
+        assert 0 < int(red[0]) <= 8 * len(xyz)
         if case in RAY_CASES:
-            assert int(red[0]) < terms
+            assert int(red[0]) < 8 * len(xyz)
 
 
 @pytest.mark.cuda
@@ -994,10 +1191,11 @@ def test_model_kernels_match_plain_on_card(kind):
                 T.update_ngp_occupancy(model, *occ_draws)
         finally:
             T.temporal_grid_encode = encode
-        want = (0, 0) if plain else tuple(
-            sum(ops.n_launches(n, per) for n in levels) for levels, per in
-            zip(calls, (ops.FWD_LEVELS_PER_LAUNCH,
-                        ops.BWD_LEVELS_PER_LAUNCH)))
+        want = (0, 0) if plain else (
+            sum(ops.n_launches(n, ops.FWD_LEVELS_PER_LAUNCH)
+                for n in calls[0]),
+            sum(ops.bwd_launches(n, ops.BWD_LEVELS_PER_LAUNCH, R)
+                for n in calls[1]))
         assert (ops.temporal_grid_fwd.launches - before[0],
                 ops.temporal_grid_bwd.launches - before[1]) == want
         runs.append((losses, [p.grad.clone() for p in model.parameters()],
